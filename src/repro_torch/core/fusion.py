@@ -1,11 +1,12 @@
 """Fused, grouped execution stacks (paper §4.2) on the virtual tile mesh.
 
-The serve subset of ``repro/core/fusion.py``: the planner for explicit (or
-no) groupings over a uniform partition with the sync schedule, the
-per-tile executor, and the forward / inference wrappers that split a global
-batch into tiles and assemble the global output.  A group exchanges halos
-once at its input; inside it every tile carries a recursively grown halo
-and recomputes boundary regions redundantly.
+The uniform, sync, all-spatial subset of ``repro/core/fusion.py``: the
+planner for explicit (or no) groupings, the per-tile executor, the forward /
+inference wrappers that split a global batch into tiles and assemble the
+global output, and the training entry points - the tiled loss and the
+deferred-aggregation gradient step.  A group exchanges halos once at its
+input; inside it every tile carries a recursively grown halo and recomputes
+boundary regions redundantly.
 
 Halo-width algebra (from the eq. 1 recursion, DESIGN.md §2):
 
@@ -269,11 +270,11 @@ def plan_manifest(plan: StackPlan) -> dict:
     }
 
 
-def apply_stack_local(
-    params: Sequence[dict], x: torch.Tensor, plan: StackPlan
-) -> torch.Tensor:
+def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan) -> torch.Tensor:
     """Forward through all groups on tiles ``x`` = (n, m, b, h/n, w/m, c):
-    at each group input a 2-round halo exchange, then the group's layers."""
+    at each group input a 2-round halo exchange, then the group's layers.
+    Training BN averages over the b images of every tile (the virtual mesh
+    has no batch axis)."""
     if not plan.is_uniform or plan.schedule != "sync" or plan.crossover is not None:
         raise NotImplementedError(
             "apply_stack_local runs uniform, all-spatial, sync plans only "
@@ -318,6 +319,109 @@ def make_tiled_forward(plan: StackPlan, mesh: TileMesh):
     return fwd
 
 
+def _check_not_inference(plan: StackPlan, what: str) -> None:
+    if plan.inference:
+        raise ValueError(
+            f"{what} is a training entry point, but the plan is forward-only "
+            "(inference=True): training BN needs cross-tile batch statistics "
+            "the serve executor deliberately does not take; build a training "
+            "plan (inference=False) instead"
+        )
+
+
+def _check_trainable(plan: StackPlan) -> None:
+    """The reference's training executors beyond the uniform sync path
+    raise here with their ROADMAP item (the planner refuses them already;
+    this guards hand-built plans)."""
+    if plan.stages:
+        raise NotImplementedError("pipeline training: ROADMAP A.13 (pipeline mode)")
+    if plan.crossover is not None:
+        raise NotImplementedError("hybrid (spatial->data) training: ROADMAP A.11 (hybrid plans)")
+    if not plan.is_uniform:
+        raise NotImplementedError("ragged training: ROADMAP A.12 (non-uniform partitions)")
+    if plan.wire_codec != "none":
+        raise NotImplementedError(f"wire_codec={plan.wire_codec!r}: ROADMAP A.14 (wire codecs)")
+
+
+def _tile(mesh: TileMesh, a) -> torch.Tensor:
+    return mesh.split(torch.as_tensor(a, device=mesh.device))
+
+
+def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
+    """Scalar loss over the *global* output map: ``(params, x, target) ->
+    loss`` with x (B, H, W, C) and target (B, OH, OW, Cout).
+
+    ``loss_local(y, t) -> (sum, count)`` sees all tiles at once, as
+    ``(n, m, B, h, w, C)`` tensors, so its sum and count already are the
+    reference's psums over the tiles: ``loss = sum_tiles s / sum_tiles c``,
+    the untiled loss exactly.  Autograd through it gives the paper's tiled
+    backward pass."""
+    _check_not_inference(plan, "make_tiled_loss")
+    _check_trainable(plan)
+
+    def loss(params, x, target):
+        y = apply_stack_local(params, _tile(mesh, x), plan)
+        s, c = loss_local(y, _tile(mesh, target))
+        return s / c
+
+    return loss
+
+
+def make_deferred_grad_step(
+    plan: StackPlan,
+    mesh: TileMesh,
+    loss_local,
+    *,
+    microbatches: int = 1,
+):
+    """Paper §4.1 deferred weight aggregation: ``(params, xs, ts) ->
+    (loss_mean, grads)`` with xs (microbatches, b, H, W, C) and ts
+    (microbatches, b, OH, OW, Cout).  ``grads`` mirrors ``params`` (a list
+    of per-layer dicts).
+
+    A Python loop over the microbatches accumulates each one's weight
+    gradients (in place into the first one's, to hold one copy), and ONE
+    division by the global count at batch end gives the final gradients -
+    the reference's scan followed by its single psum.  The cross-tile sum
+    of the weight gradients needs no separate step here: the tiles are the
+    batch dimension of every conv, so wgrad (B3 on the card) sums the
+    per-tile partials inside its own reduction.  A ``torch.distributed``
+    backend, one tile per device, makes that sum an explicit all-reduce
+    (later work)."""
+    _check_not_inference(plan, "make_deferred_grad_step")
+    _check_trainable(plan)
+
+    def step(params, xs, ts):
+        xs = torch.as_tensor(xs, device=mesh.device)
+        ts = torch.as_tensor(ts, device=mesh.device)
+        if xs.shape[0] != microbatches or ts.shape[0] != microbatches:
+            raise ValueError(
+                f"grad step built for microbatches={microbatches}; got "
+                f"{xs.shape[0]} input and {ts.shape[0]} target microbatches"
+            )
+        live = [{k: v.detach().requires_grad_(True) for k, v in p.items()} for p in params]
+        leaves = [v for p in live for v in p.values()]
+        acc = None
+        loss_sum = cnt = 0.0
+        for i in range(microbatches):
+            y = apply_stack_local(live, mesh.split(xs[i]), plan)
+            s, c = loss_local(y, mesh.split(ts[i]))
+            g = torch.autograd.grad(s, leaves, allow_unused=True)
+            g = [torch.zeros_like(v) if gi is None else gi for v, gi in zip(leaves, g)]
+            if acc is None:
+                acc = g
+            else:
+                for a, gi in zip(acc, g):
+                    a.add_(gi)
+            loss_sum = loss_sum + s.detach()
+            cnt = cnt + c
+        it = iter(a / cnt for a in acc)
+        grads = [{k: next(it) for k in p} for p in live]
+        return loss_sum / cnt, grads
+
+    return step
+
+
 def make_tiled_infer(plan: StackPlan, mesh: TileMesh):
     """The serve step: ``make_tiled_forward`` of a forward-only plan, run
     under ``torch.inference_mode``.  Training plans are refused, so the
@@ -339,3 +443,11 @@ def make_tiled_infer(plan: StackPlan, mesh: TileMesh):
 
 def reference_forward(params, x, plan: StackPlan):
     return stack_reference(x, params, plan.layers, inference=plan.inference)
+
+
+def reference_loss(params, x, target, plan: StackPlan, loss_local):
+    """The untiled loss: ``reference_forward`` then ``loss_local`` over the
+    whole map."""
+    y = reference_forward(params, x, plan)
+    s, c = loss_local(y, target)
+    return s / c

@@ -1,16 +1,18 @@
 """Tiled spatial (H x W) convolution / pooling primitives (paper §4.1).
 
-The serve subset of ``repro/core/spatial.py``.  Layout: NHWC activations,
-HWIO filters, as in the reference.  Tiled functions run on the virtual tile
-mesh: a tile batch is one tensor ``(n, m, B, h, w, C)``, and each conv or
-pool runs once over all tiles reshaped to ``(n*m*B, h, w, C)``.
+The uniform-partition subset of ``repro/core/spatial.py``.  Layout: NHWC
+activations, HWIO filters, as in the reference.  Tiled functions run on the
+virtual tile mesh: a tile batch is one tensor ``(n, m, B, h, w, C)``, and
+each conv or pool runs once over all tiles reshaped to ``(n*m*B, h, w, C)``.
 
 For a layer with kernel K, stride S and padding P the tile-level halo is
 ``halo_lo = P``, ``halo_hi = K - S - P``; a VALID conv over the
 halo-extended tile reproduces the global padded conv exactly, because edge
-tiles receive zeros.  Cross-tile training BN (``_bn_tiled``) is the next
-slice (ROADMAP A.6); inference BN from frozen statistics is elementwise and
-needs no collective.
+tiles receive zeros.  Training BN (``_bn_tiled``) takes exact cross-tile
+batch statistics: a sum over the tile dimensions is the reference's
+``psum``, and autograd differentiates through it as ``jax.grad`` does
+through ``shard_map``.  Inference BN from frozen statistics is elementwise
+and needs no collective.
 """
 from __future__ import annotations
 
@@ -237,6 +239,22 @@ def _core_mask(
     return (rmask[:, None] & cmask[None, :]).to(torch.float32)
 
 
+def _bn_tiled(y, layer, params, core_halo, n_global):
+    """Exact cross-tile batch norm on tiles ``(n, m, B, h, w, C)``:
+    statistics over core (owned) positions only - halo positions are
+    duplicated across tiles and must not be counted twice - summed over the
+    tile dimensions (the reference's psum) and over B, h, w.  The variance
+    is the reference's ``E[y^2] - mean^2``."""
+    ext_h, ext_w = y.shape[3], y.shape[4]
+    mask = _core_mask(ext_h, ext_w, core_halo, y.device)[:, :, None].to(y.dtype)
+    dims = (0, 1, 2, 3, 4)
+    s = torch.sum(y * mask, dim=dims)
+    ss = torch.sum(torch.square(y) * mask, dim=dims)
+    mean = s / n_global
+    var = ss / n_global - torch.square(mean)
+    return _bn_apply(y, mean, var, params["bn_scale"], params["bn_bias"])
+
+
 def apply_layer_local(
     x: torch.Tensor,
     params: dict,
@@ -253,7 +271,8 @@ def apply_layer_local(
     """One layer on halo-extended tiles ``(n, m, B, H, W, C)`` (input halo
     already present).  ``out_halo``: remaining halo on the output (0s when
     the layer ends its group); ``mask_offmap`` zeroes off-map positions a
-    later layer of the group would consume."""
+    later layer of the group would consume.  Training BN statistics
+    average over the B images of the map."""
     n, m, b = x.shape[:3]
     y, fused = _conv_or_pool(x.reshape(n * m * b, *x.shape[3:]), params, layer,
                              backend, block_oh)
@@ -302,15 +321,15 @@ def _finish_layer(
     mask_offmap: bool,
     inference: bool = False,
 ) -> torch.Tensor:
-    """Post-conv tail on tiles ``(n, m, B, h, w, C)``: frozen-stats BN,
-    unfused activation, off-map masking."""
+    """Post-conv tail on tiles ``(n, m, B, h, w, C)``: cross-tile BN
+    (frozen-stats BN for inference plans), unfused activation, off-map
+    masking."""
     if layer.batch_norm and not layer.pool:
-        if not inference:
-            raise NotImplementedError(
-                "cross-tile training BN (_bn_tiled): ROADMAP A.6; build the "
-                "plan with inference=True and freeze_bn_stats the params"
-            )
-        y = _bn_infer(y, params, layer)
+        if inference:
+            y = _bn_infer(y, params, layer)
+        else:
+            n_global = y.shape[2] * map_out_hw[0] * map_out_hw[1]
+            y = _bn_tiled(y, layer, params, out_halo, n_global)
     if not fused:
         y = _ACTIVATIONS[layer.act](y)
     if mask_offmap and any(h > 0 for h in out_halo):

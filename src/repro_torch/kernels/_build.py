@@ -22,6 +22,8 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
 #: kernel library name -> CUDA source
 SOURCES: dict[str, Path] = {
     "conv2d_tile": _PKG / "conv2d_tiled" / "csrc" / "conv2d_tile.cu",
+    "conv2d_dgrad_tile": _PKG / "conv2d_tiled" / "csrc" / "conv2d_dgrad_tile.cu",
+    "conv2d_wgrad_tile": _PKG / "conv2d_tiled" / "csrc" / "conv2d_wgrad_tile.cu",
 }
 
 NVCC_FLAGS = (

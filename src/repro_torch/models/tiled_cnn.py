@@ -1,11 +1,15 @@
-"""Tiled-CNN architecture bundle: a ``StackPlan`` + its virtual tile mesh.
+"""Tiled-CNN architecture bundle: a ``StackPlan``, its virtual tile mesh
+and the shard-local loss - the surface of ``repro/models/tiled_cnn.py``.
 
-The serving surface of ``repro/models/tiled_cnn.py``; the training surface
-(loss, deferred gradients, trainer) is the next slice (ROADMAP A.7-A.8).
+``kind == "tiled_cnn"`` routes ``train.trainer.make_train_step`` onto the
+deferred-aggregation path (paper §4.1).  Batches are dicts
+``{"x": (B, H, W, C), "t": (B, OH, OW, Cout)}`` with the global batch B
+divisible by ``grad_accum``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -13,13 +17,18 @@ from repro_torch.core.fusion import StackPlan
 from repro_torch.core.spatial import freeze_bn_stats, init_stack_params
 from repro_torch.launch.mesh import TileMesh
 
+LossLocal = Callable[[torch.Tensor, torch.Tensor], tuple[torch.Tensor, float]]
+
 
 @dataclasses.dataclass
 class TiledCNNArch:
-    """Planner output + mesh: everything the serve engine needs."""
+    """Planner output + mesh + loss: everything the trainer and the serve
+    engine need."""
 
     plan: StackPlan
     mesh: TileMesh
+    loss_local: LossLocal | None = None
+    kind: str = "tiled_cnn"
 
     def init(self, seed: int | torch.Generator = 0, dtype=torch.float32):
         """He-initialised params on the mesh's device, from a seed or a CPU
@@ -30,6 +39,9 @@ class TiledCNNArch:
     @property
     def out_channels(self) -> int:
         return self.plan.layers[-1].out_channels
+
+    def target_shape(self, batch: int) -> tuple[int, ...]:
+        return (batch, *self.plan.out_hw(), self.out_channels)
 
     def serve_plan(self) -> StackPlan:
         """The forward-only twin of the plan: BN from frozen statistics."""

@@ -4,14 +4,20 @@ Darknet-19 prefix: conv3x3(+BN+leaky) / maxpool stages, 416x416 -> 26x26
 feature maps.  The port of ``repro/models/yolo.py``, restricted to the
 planning knobs the port supports (``core/fusion.build_stack_plan``).  At the
 paper's 416 geometry every layer extent divides over a 2x2 grid (tiles down
-to 13x13), so the uniform executor serves it as is.
+to 13x13), so the uniform executor trains and serves it as is.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.fusion import StackPlan, build_stack_plan
-from repro_torch.core.spatial import LayerDef
+from repro_torch.core.fusion import (
+    StackPlan,
+    build_stack_plan,
+    make_deferred_grad_step,
+    make_tiled_forward,
+    make_tiled_loss,
+)
+from repro_torch.core.spatial import LayerDef, init_stack_params
 from repro_torch.launch.mesh import make_tile_mesh
 from repro_torch.models.tiled_cnn import TiledCNNArch
 
@@ -52,6 +58,22 @@ def make_plan(
     return build_stack_plan(input_hw, layers, n, m, groups)
 
 
+def init_yolo(seed: int | torch.Generator, plan: StackPlan, dtype=torch.float32,
+              device="cpu"):
+    gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
+    return init_stack_params(gen, plan.layers, dtype, device)
+
+
+def l2_loss_local(y: torch.Tensor, t: torch.Tensor):
+    """(sum, count) of the squared error over the tiles it is given - the
+    paper measures the training cycle, so a dense regression target over
+    the output feature map stands in for the detection head (which lives
+    beyond layer 16).  The difference is taken in fp32, as the reference
+    does, or in fp64 for fp64 operands."""
+    d = (y - t).to(torch.promote_types(y.dtype, torch.float32))
+    return torch.sum(d * d), float(d.numel())
+
+
 def make_yolo_tiled_arch(
     input_hw: tuple[int, int] = (64, 64),
     depth: int = 8,
@@ -69,16 +91,31 @@ def make_yolo_tiled_arch(
     batch_norm: bool = True,
     device: str | torch.device = "cuda",
     mesh=None,
+    loss_local=l2_loss_local,
 ) -> TiledCNNArch:
-    """Planner -> arch bundle: a YOLOv2 prefix of ``depth`` layers tiled
-    n x m on a virtual mesh on ``device``, with the conv backend
-    ("torch" | "cuda") and grouping profile chosen at plan time.  Knobs the
-    port does not plan yet raise ``NotImplementedError`` (see
-    ``build_stack_plan``)."""
+    """Planner -> arch bundle for the trainer and the serve engine: a
+    YOLOv2 prefix of ``depth`` layers tiled n x m on a virtual mesh on
+    ``device``, with the conv backend ("torch" | "cuda") and grouping
+    profile chosen at plan time.  Knobs the port does not plan raise
+    ``NotImplementedError`` (see ``build_stack_plan``); the reference's
+    ``batch`` and ``microbatches`` feed its cost model (``groups="auto"``,
+    pipelines, ROADMAP A.9) and come back with it."""
     layers = yolov2_16_layers(batch_norm=batch_norm)[:depth]
     plan = build_stack_plan(
         input_hw, layers, n, m, groups,
         backend=backend, schedule=schedule, hw=hw, crossover=crossover,
         partition=partition, pipeline=pipeline, wire_codec=wire_codec,
     )
-    return TiledCNNArch(plan=plan, mesh=mesh if mesh is not None else make_tile_mesh(n, m, device))
+    return TiledCNNArch(
+        plan=plan,
+        mesh=mesh if mesh is not None else make_tile_mesh(n, m, device),
+        loss_local=loss_local,
+    )
+
+
+def make_yolo_train_fns(plan: StackPlan, mesh, microbatches: int = 1):
+    """(forward, loss, deferred_grad_step) over the virtual tile mesh."""
+    fwd = make_tiled_forward(plan, mesh)
+    loss = make_tiled_loss(plan, mesh, l2_loss_local)
+    step = make_deferred_grad_step(plan, mesh, l2_loss_local, microbatches=microbatches)
+    return fwd, loss, step

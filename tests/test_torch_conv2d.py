@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.conv2d_tiled.kernel import conv2d_tile as jax_conv2d_tile
 from repro.kernels.conv2d_tiled.ops import conv2d as jax_conv2d
@@ -81,11 +82,21 @@ def test_padded_wrapper_matches_jax_ops(pad):
 
 
 def test_padded_wrapper_is_forward_only():
+    """The name is kept from when the wrapper had no backward.  Since its
+    backward kernels (B2/B3) were ported, its backward runs their plain
+    versions on the CPU and gives the gradients of torch's own padded conv -
+    an oracle independent of the JAX VJP that test_torch_conv2d_backward.py
+    holds it against."""
     x, w, b = _inputs(CASES[0])
     xt = _t(x).requires_grad_(True)
-    y = conv2d(xt, _t(w), None, 1, 1, "linear")
-    with pytest.raises(NotImplementedError, match="B2/B3"):
-        y.sum().backward()
+    wt = _t(w).requires_grad_(True)
+    y = conv2d(xt, wt, None, 1, 1, "linear")
+    y.sum().backward()
+    xr = _t(x).requires_grad_(True)
+    wr = _t(w).requires_grad_(True)
+    F.conv2d(xr.permute(0, 3, 1, 2), wr.permute(3, 2, 0, 1), padding=1).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), xr.grad.numpy(), **TOL)
+    np.testing.assert_allclose(wt.grad.numpy(), wr.grad.numpy(), **TOL)
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
