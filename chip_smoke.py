@@ -29,7 +29,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    fp64 run (see ``GRAD_FLOOR_FACTOR``), and that the same check rejects a
    planted wgrad fault; then the params after the last step against the
    same trainer run on the torch backend in fp64.  Prints the
-   ``{"train": ...}`` line and a profile of one step.
+   ``{"train": ...}`` line and a profile of one step;
+6. flash attention (B4) and RMSNorm (B6) against their plain versions on the
+   card, TF32 off: at the LM run's shapes (q (2, 2048, 28, 128), k/v
+   (2, 2048, 4, 128), causal; RMSNorm on (4096, 3584)), bf16 and fp32, and
+   on every case of ``tests/test_kernels.py``'s ``FA_CASES`` and
+   ``RMS_CASES``; kernel, plain version and one library call timed
+   (``F.scaled_dot_product_attention`` with the same mask and repeated KV
+   heads, ``F.rms_norm``), bounds computed;
+7. train Qwen2-7B at full width, 12 of its 28 layers (bf16, random weights
+   from seed 0), AdamW (``TrainConfig`` defaults, no warmup), remat
+   "full": global batch 4 x 2048 tokens in 2 microbatches from
+   ``synth_batch``, 3 steps through ``make_train_step`` and
+   ``run_training``.  Checks the B4 and B6 launch counts against the
+   code's, ``restarts`` 0, finite losses, and the step-1 loss against a
+   forward pass through the plain versions of B4 and B6 on the same params
+   (rtol ``LM_LOSS_RTOL``).  Prints the ``{"lm_train": ...}`` line and a
+   profile of one step;
+8. the LM path's gradients: full width, 2 layers, fp32, one microbatch of
+   the same stream - the loss and gradients the trainer's
+   ``lm_value_and_grad`` takes through B4 and B6, held per leaf against
+   the plain path in fp64 within max(1e-3, 2 x the fp32 plain path's own
+   distance), and the same check must reject a planted fault (B4 fed one
+   KV head's values zeroed).
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -82,6 +104,32 @@ TRAIN_LOSS_RTOL = 1e-5
 # fp64 run of the trainer.  Distances from the fp32 reference are printed too.
 GRAD_FLOOR_FACTOR = 2.0
 TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_LR = 8, 2, 3, 1e-3
+# bf16 tensor-core peak (dense) of an H100 SXM, printed beside B4's fp32 bound
+BF16_PEAK_FLOPS = 989e12
+# LM phases: Qwen2-7B at full width, 12 of 28 layers (the deepest cut whose
+# bf16 params, fp32 grad accumulators and fp32 AdamW moments fit 80 GB)
+LM_ARCH, LM_DEPTH, LM_SEQ, LM_BATCH, LM_ACCUM, LM_STEPS = "qwen2-7b", 12, 2048, 4, 2, 3
+# The step-1 loss of the bf16 run against a bf16 forward through the plain
+# versions of B4 and B6: the two differ only in those two functions' bf16
+# roundings, so a loss near ln(152064) ~ 11.9 agrees to far better than this.
+LM_LOSS_RTOL = 1e-2
+LM_GRAD_DEPTH = 2            # phase 8: full width, 2 layers, fp32 / fp64
+FA_CASES = [                 # tests/test_kernels.py:30
+    # b, tq, tk, hq, hkv, dh, causal, window, dtype
+    (2, 128, 128, 4, 4, 64, True, None, "float32"),
+    (1, 256, 256, 8, 2, 64, True, None, "float32"),      # GQA 4x
+    (1, 256, 256, 4, 1, 128, True, 96, "float32"),       # MQA + window
+    (2, 128, 128, 4, 4, 64, False, None, "float32"),     # bidirectional
+    (1, 192, 192, 4, 2, 64, True, None, "float32"),      # non-pow2 T
+    (1, 128, 128, 4, 4, 64, True, None, "bfloat16"),
+    (1, 128, 256, 4, 4, 64, False, None, "float32"),     # cross-length
+]
+RMS_CASES = [                # tests/test_kernels.py:411
+    ((4, 128, 512), "float32"),
+    ((1000, 256), "float32"),
+    ((2, 64, 1024), "bfloat16"),
+    ((7, 384), "float32"),
+]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -170,7 +218,8 @@ def kernel_entry(name, source, replaces, rows, launches, err):
         "launches": launches, "max_abs_err": err,
         "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": b, "bound_by": "operations" if ops >= b - ops else "bytes",
-        "library_ms": sum(r["library_ms"] for r in rows),
+        "library_ms": (None if any(r["library_ms"] is None for r in rows)
+                       else sum(r["library_ms"] for r in rows)),
     }
 
 
@@ -417,6 +466,385 @@ def train_phase(dev, groups, smi: str) -> dict:
         "card": smi,
     }}))
     return launches
+
+
+def attention_mask(tq: int, tk: int, causal: bool, window, device):
+    """(Tq, Tk) bool: key positions a query attends to (both from 0)."""
+    import torch
+
+    qp = torch.arange(tq, device=device)[:, None]
+    kp = torch.arange(tk, device=device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= qp - kp < window
+    return mask
+
+
+def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
+    """Phase 6: B4 and B6 against their plain versions on the card, at the
+    LM run's shapes and on the CPU tests' edge cases; timing and bounds at
+    the run's shapes.  Returns (B4 rows, B4 max err at the path's shape,
+    B6 rows, B6 max err at the path's shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def tol(dt):
+        return TOL_BF16 if dt == torch.bfloat16 else TOL_FP32
+
+    def fa_case(b, tq, tk, hq, hkv, dh, causal, window, dt, timed):
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(dt)
+                   for s in ((b, tq, hq, dh), (b, tk, hkv, dh), (b, tk, hkv, dh)))
+        got = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype == dt and got.shape == want.shape, f"B4 {got.dtype} {got.shape}")
+        err, ratio = err_stats(got, want, **tol(dt))
+        check(ratio <= 1.0, f"B4 {(b, tq, tk, hq, hkv, dh, causal, window, dt)}: max err {err} "
+              f"over tolerance {tol(dt)}")
+        row = dict(shape=[b, tq, tk, hq, hkv, dh], causal=causal, window=window, dtype=str(dt),
+                   max_abs_err=err, err_ratio=ratio)
+        if timed:
+            mask = attention_mask(tq, tk, causal, window, dev)
+            pairs = int(mask.sum())
+            flops = 4 * b * hq * dh * pairs          # q·k and p·v over the unmasked pairs
+            nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+            b_ms, b_by = bound(flops, nbytes)
+            # the library call: SDPA on (B, H, T, D) with the KV heads repeated
+            rep = hq // hkv
+            qs = q.transpose(1, 2)
+            ks = k.repeat_interleave(rep, dim=2).transpose(1, 2)
+            vs = v.repeat_interleave(rep, dim=2).transpose(1, 2)
+            lib_kw = dict(is_causal=True) if causal and window is None and tq == tk else \
+                dict(attn_mask=mask)
+            row.update(
+                ms=time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal, window=window)),
+                plain_ms=time_ms(lambda: attention_ref(q, k, v, causal=causal, window=window),
+                                 reps=3, iters=3),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, **lib_kw)),
+                bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+                bf16_tensor_core_bound_ms=1e3 * max(flops / BF16_PEAK_FLOPS,
+                                                    nbytes / HBM_BYTES_PER_S))
+            del qs, ks, vs, mask
+        return row
+
+    fa_rows = []
+    for dt in (torch.bfloat16, torch.float32):      # the LM run's shape: bf16 is its path
+        r = fa_case(LM_BATCH // LM_ACCUM, LM_SEQ, LM_SEQ, 28, 4, 128, True, None, dt, True)
+        fa_rows.append(r)
+        print(f"  B4 {r['shape']} causal {r['dtype']}: err {r['max_abs_err']:.2e} "
+              f"({r['err_ratio']:.3f} of tol) kernel {r['ms']:.3f} ms plain {r['plain_ms']:.3f} "
+              f"sdpa {r['library_ms']:.3f} bound {r['bound_ms']:.3f} ({r['bound_by']}, fp32 "
+              f"cores; bf16 tensor cores {r['bf16_tensor_core_bound_ms']:.3f})")
+    for case in FA_CASES:
+        r = fa_case(*case[:8], getattr(torch, case[8]), False)
+        print(f"  B4 case {case}: err {r['max_abs_err']:.2e} ({r['err_ratio']:.3f} of tol)")
+    print(f"B4 checks passed (fp32 {TOL_FP32}, bf16 {TOL_BF16})")
+
+    def rms_case(shape, dt, timed):
+        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        sc = (1 + 0.1 * torch.randn(shape[-1:], generator=gen, device=dev)).to(dt)
+        got = rmsnorm(x, sc)
+        want = rmsnorm_ref(x, sc)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype == dt and got.shape == want.shape, f"B6 {got.dtype}")
+        err, ratio = err_stats(got, want, **tol(dt))
+        check(ratio <= 1.0, f"B6 {shape} {dt}: max err {err} over tolerance {tol(dt)}")
+        row = dict(shape=list(shape), dtype=str(dt), max_abs_err=err, err_ratio=ratio)
+        if timed:
+            nbytes = x.element_size() * (2 * x.numel() + sc.numel())
+            b_ms, b_by = bound(4 * x.numel(), nbytes)     # square, add, scale, multiply
+            lib = getattr(F, "rms_norm", None)
+            row.update(ms=time_ms(lambda: rmsnorm(x, sc)),
+                       plain_ms=time_ms(lambda: rmsnorm_ref(x, sc)),
+                       library_ms=None if lib is None else time_ms(
+                           lambda: lib(x, (shape[-1],), sc, 1e-6)),
+                       bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+        return row
+
+    rms_rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        r = rms_case((LM_BATCH // LM_ACCUM * LM_SEQ, 3584), dt, True)
+        rms_rows.append(r)
+        print(f"  B6 {r['shape']} {r['dtype']}: err {r['max_abs_err']:.2e} ({r['err_ratio']:.3f} "
+              f"of tol) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} F.rms_norm "
+              f"{r['library_ms']} bound {r['bound_ms']:.4f} ({r['bound_by']})")
+    for shape, dt in RMS_CASES:
+        r = rms_case(shape, getattr(torch, dt), False)
+        print(f"  B6 case {shape} {dt}: err {r['max_abs_err']:.2e} ({r['err_ratio']:.3f} of tol)")
+    print(f"B6 checks passed (fp32 {TOL_FP32}, bf16 {TOL_BF16})")
+    print(json.dumps({"flash_attention_shapes": fa_rows}))
+    print(json.dumps({"rmsnorm_shapes": rms_rows}))
+    return fa_rows, fa_rows[0]["max_abs_err"], rms_rows, rms_rows[0]["max_abs_err"]
+
+
+def lm_launches_per_microbatch(cfg, remat: str) -> dict:
+    """Kernel launches of one microbatch's loss and grads, from the code:
+    each layer runs B4 once and B6 twice (norm1, norm2) in the forward, the
+    final norm once more; remat "full" reruns each layer's forward (its
+    last saved tensor is the MLP's hidden, after both norms and the
+    attention) in the backward, outside the final norm.  The backwards of
+    both ops are plain torch and launch neither kernel."""
+    again = 1 if remat == "full" else 0
+    return {"flash_attention_fwd": cfg.n_layers * (1 + again),
+            "rmsnorm": 2 * cfg.n_layers * (1 + again) + 1}
+
+
+class plain_b4_b6:
+    """Context: the models call the plain versions of B4 and B6 (for the
+    references of phases 7 and 8); the package is left as it was after."""
+
+    def __enter__(self):
+        import repro_torch.models.attention as attn_mod
+        import repro_torch.models.common as common_mod
+        from repro_torch.kernels.flash_attention.ref import attention_ref
+        from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+        self.saved = (attn_mod.flash_attention, common_mod.rmsnorm)
+        attn_mod.flash_attention = lambda q, k, v, causal=True, window=None, scale=None, *_: \
+            attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+        common_mod.rmsnorm = rmsnorm_ref
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.models.attention as attn_mod
+        import repro_torch.models.common as common_mod
+
+        attn_mod.flash_attention, common_mod.rmsnorm = self.saved
+        return False
+
+
+def named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [p for k in tree for p in named_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in named_leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def lm_train_phase(dev, smi: str) -> dict:
+    """Phase 7: Qwen2-7B, full width, 12 layers, bf16, AdamW, 3 steps.
+    Returns the launch count of each kernel in the training run."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig, TrainConfig
+    from repro_torch.data.synthetic import place, synth_batch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.models.registry import bundle_from_cfg, load_config, with_depth
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime.driver import DriverConfig, run_training
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = with_depth(load_config(LM_ARCH), LM_DEPTH)
+    arch = bundle_from_cfg(cfg, dev)
+    pcfg = ParallelConfig(grad_accum=LM_ACCUM, remat="full")
+    tcfg = TrainConfig(warmup=0, steps=LM_STEPS, seed=SEED)
+    specs = arch.input_specs(ShapeConfig("smoke", LM_SEQ, LM_BATCH, "train"))
+
+    def make_batch(step):
+        return place(synth_batch(specs, cfg, SEED, step), dev)
+
+    step1 = {}
+    init_state, train_step = make_train_step(
+        arch, pcfg, tcfg, on_grads=lambda s, l, g: step1.setdefault("loss", float(l)))
+    events, logged, last = [], [], {}
+
+    def timed_step(state, batch):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = train_step(state, batch)
+        b.record()
+        events.append((a, b))
+        logged.append(m)
+        last["state"] = state
+        return state, m
+
+    kernels = {"flash_attention_fwd": flash_attention_fwd, "rmsnorm": rmsnorm}
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    for f in kernels.values():
+        f.launches = 0
+    report = run_training(init_state=init_state, train_step=timed_step, make_batch=make_batch,
+                          steps=LM_STEPS, cfg=DriverConfig(), seed=SEED)
+    launches = {name: f.launches for name, f in kernels.items()}
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(p.numel() for p in tree_leaves(last["state"].params))
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(m["loss"]) for m in logged]
+    gnorms = [float(m["grad_norm"]) for m in logged]
+    per_mb = lm_launches_per_microbatch(cfg, pcfg.remat)
+    want = {k: v * LM_ACCUM * LM_STEPS for k, v in per_mb.items()}
+    print(f"LM: {cfg.name} {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, trained "
+          f"{report.steps_done} steps in {run_s:.1f} s, restarts {report.restarts}, "
+          f"launches {launches}, losses {losses}")
+    check(report.restarts == 0, f"restarts {report.restarts}")
+    check(report.steps_done == LM_STEPS and len(losses) == LM_STEPS, "LM step count")
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)), f"losses {losses} gnorms {gnorms}")
+    check(launches == want, f"LM launches {launches} != {want}")
+    check(step1["loss"] == losses[0], "on_grads saw another loss than the run logged")
+
+    # where the device time of one step goes (one more step on the final state)
+    batch = make_batch(0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(last["state"], batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_ms_by_name(prof, 1)
+    dev_ms = sum(by_name.values())
+    part = {name: sum(v for k, v in by_name.items() if key in k)
+            for name, key in (("flash_attention_fwd", "flash_attention_fwd_kernel"),
+                              ("rmsnorm", "rmsnorm_kernel"))}
+    check(dev_ms > 0 and all(v > 0 for v in part.values()),
+          f"profiler saw no device time for a kernel: {part}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    med = statistics.median(step_ms)
+    print(json.dumps({"profile_lm_train_step": {
+        "wall_ms": prof_wall_ms, "device_ms": dev_ms, "kernel_ms": part,
+        "idle_share": max(0.0, 1 - dev_ms / prof_wall_ms),
+        # against the unprofiled step (CUDA events, median of the run)
+        "idle_share_vs_event_step": max(0.0, 1 - dev_ms / med),
+        "top": [[k[:80], v] for k, v in top],
+    }}))
+    del last, batch, prof, init_state, train_step
+    torch.cuda.empty_cache()
+
+    # step 1's loss against a bf16 forward through the plain versions of B4
+    # and B6: the same params (init is seeded) and both microbatches of step 1
+    params0 = arch.init(SEED)
+    b0 = make_batch(0)
+    with torch.no_grad(), plain_b4_b6():
+        plain = [float(lm_loss(params0, {k: v.chunk(LM_ACCUM)[i] for k, v in b0.items()},
+                               cfg, remat="none"))
+                 for i in range(LM_ACCUM)]
+    plain_loss = sum(plain) / LM_ACCUM
+    loss_rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    print(f"LM step-1 loss {losses[0]:.6f} vs the plain B4/B6 forward {plain_loss:.6f} "
+          f"(microbatches {plain}): rel err {loss_rel:.2e}, bar {LM_LOSS_RTOL}")
+    check(loss_rel <= LM_LOSS_RTOL, f"LM step-1 loss rel err {loss_rel}")
+    del params0
+    torch.cuda.empty_cache()
+
+    tokens = LM_BATCH * LM_SEQ
+    print(json.dumps({"lm_train": {
+        "arch": cfg.name, "layers": cfg.n_layers, "params": n_params, "dtype": cfg.dtype,
+        "seq": LM_SEQ, "global_batch": LM_BATCH, "microbatches": LM_ACCUM, "remat": pcfg.remat,
+        "optimizer": tcfg.optimizer, "lr": tcfg.lr, "steps": report.steps_done,
+        "restarts": report.restarts, "loss": losses, "grad_norm": gnorms,
+        "step1_loss_plain_b4_b6": plain_loss, "step1_loss_rel_err": loss_rel,
+        "step_ms_cuda_events": step_ms, "step_ms_cuda_events_median": med,
+        "step_ms_host": [t * 1e3 for t in report.step_times],
+        "step_ms_host_median": statistics.median(report.step_times) * 1e3,
+        "tokens_per_s_cuda_events": tokens / (med / 1e3),
+        "peak_mem_bytes": peak, "launches": launches, "launches_expected": want,
+        "card": smi,
+    }}))
+    return launches
+
+
+def lm_grad_phase(dev) -> dict:
+    """Phase 8: the LM path's loss and gradients through B4 and B6 at full
+    width (2 layers, fp32) against the plain path in fp64, per leaf, and a
+    planted B4 fault that the same check must reject."""
+    import torch
+
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import place, synth_batch
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.models.registry import bundle_from_cfg, load_config, with_depth
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.train.trainer import lm_value_and_grad
+
+    base = with_depth(load_config(LM_ARCH), LM_GRAD_DEPTH)
+    cfg32 = dataclasses.replace(base, dtype="float32", param_dtype="float32")
+    cfg64 = dataclasses.replace(base, dtype="float64", param_dtype="float64")
+    arch = bundle_from_cfg(cfg32, dev)
+    params = arch.init(SEED)
+    specs = arch.input_specs(ShapeConfig("smoke", LM_SEQ, LM_BATCH // LM_ACCUM, "train"))
+    batch = place(synth_batch(specs, cfg32, SEED, 0), dev)    # step 1's first microbatch
+
+    def run(cfg, p):
+        return lm_value_and_grad(lambda p_, b_: lm_loss(p_, b_, cfg, remat="full"), p, batch)
+
+    loss_k, g_k = run(cfg32, params)            # through B4 and B6
+    with plain_b4_b6():
+        p64 = tree_map(lambda t: t.double(), params)
+        loss64, g64 = run(cfg64, p64)
+        del p64
+        loss32, g32 = run(cfg32, params)
+    names = [n for n, _ in named_leaves(g64)]
+    # b_k's exact gradient is zero (a key bias shifts a query row's logits
+    # alike, which softmax ignores), so its computed grads are rounding
+    # noise: it is scaled by its sibling b_q's fp64 grad instead of its own.
+    scale = {n: float(t.abs().max()) for n, t in named_leaves(g64)}
+    scale = {n: scale[n.replace("/b_k", "/b_q")] if n.endswith("/b_k") else v
+             for n, v in scale.items()}
+
+    def errs(g):
+        return [float((a.double() - b).abs().max()) / scale[n]
+                for n, a, b in zip(names, (t for _, t in named_leaves(g)),
+                                   (t for _, t in named_leaves(g64)))]
+
+    plain64 = errs(g32)
+    del g32
+    kern64 = errs(g_k)
+    bars = [max(WGRAD_NORM_TOL, GRAD_FLOOR_FACTOR * e) for e in plain64]
+    worst = max(range(len(names)), key=lambda i: kern64[i] / bars[i])
+    loss_rel = abs(float(loss_k) - float(loss64)) / abs(float(loss64))
+    loss32_rel = abs(float(loss32) - float(loss64)) / abs(float(loss64))
+    print(f"LM grads (full width, {LM_GRAD_DEPTH} layers, fp32) vs the plain path in fp64: loss "
+          f"rel err {loss_rel:.2e} (plain fp32 {loss32_rel:.2e}); grads normwise max "
+          f"{max(kern64):.2e} (plain fp32 {max(plain64):.2e}); nearest its bar: {names[worst]} "
+          f"{kern64[worst]:.2e}, {kern64[worst] / bars[worst]:.2f} of its bar")
+    check(loss_rel <= max(WGRAD_NORM_TOL, GRAD_FLOOR_FACTOR * loss32_rel),
+          f"LM loss rel err {loss_rel} vs fp64")
+    for n, e, p, bar in zip(names, kern64, plain64, bars):
+        check(e <= bar, f"LM grad {n}: normwise err {e} vs fp64 over its bar {bar} (plain fp32 {p})")
+    del g_k
+
+    # The same check must reject B4 fed one KV head's values zeroed.
+    real = attn_mod.flash_attention
+
+    def zero_one_kv_head(q, k, v, *a):
+        v = v.clone()
+        v[:, :, 0] = 0
+        return real(q, k, v, *a)
+
+    attn_mod.flash_attention = zero_one_kv_head
+    try:
+        _, g_bad = run(cfg32, params)
+    finally:
+        attn_mod.flash_attention = real
+    fault = {n: e / bar for n, e, bar in zip(names, errs(g_bad), bars)}
+    failing = sorted(n for n, r in fault.items() if r > 1.0)
+    print(f"planted fault (B4 fed KV head 0's values zeroed): {len(failing)} of {len(names)} "
+          f"leaves over their bar; w_v {fault['/segments/0/0/attn/w_v']:.1f}x, "
+          f"b_v {fault['/segments/0/0/attn/b_v']:.1f}x")
+    check("/segments/0/0/attn/w_v" in failing and "/segments/0/0/attn/b_v" in failing,
+          f"the LM grad check passed a B4 that drops a KV head: {fault}")
+    del g_bad, g64, params
+    torch.cuda.empty_cache()
+    return {"loss_rel_err_vs_fp64": loss_rel, "plain32_loss_rel_err_vs_fp64": loss32_rel,
+            "grad_err_vs_fp64": max(kern64), "plain32_grad_err_vs_fp64": max(plain64),
+            "per_leaf": {n: [a, b] for n, a, b in zip(names, kern64, plain64)},
+            "planted_fault_err_over_bar": fault}
 
 
 def main() -> int:
@@ -719,6 +1147,14 @@ def main() -> int:
         "card": smi,
     }}))
     train_launches = train_phase(dev, groups, smi)
+    del arch, plan, params, sparams, engine, infer, x8, ref, got
+    torch.cuda.empty_cache()
+
+    # -- 6-8. flash attention and RMSNorm; the LM training path ---------------
+    fa_rows, fa_err, rms_rows, rms_err = attn_norm_kernel_phase(dev)
+    lm_launches = lm_train_phase(dev, smi)
+    lm_grads = lm_grad_phase(dev)
+    print(json.dumps({"lm_grads": lm_grads}))
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",
                      "src/repro/kernels/conv2d_tiled/kernel.py:140", rows,
@@ -731,6 +1167,13 @@ def main() -> int:
                      "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_wgrad_tile.cu",
                      "src/repro/kernels/conv2d_tiled/backward.py:127", wgrad_rows,
                      train_launches["conv2d_wgrad_tile"], wgrad_err),
+        kernel_entry("flash_attention_fwd",
+                     "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:127", fa_rows[:1],
+                     lm_launches["flash_attention_fwd"], fa_err),
+        kernel_entry("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+                     "src/repro/kernels/rmsnorm/kernel.py:42", rms_rows[:1],
+                     lm_launches["rmsnorm"], rms_err),
     ]
     check(all(k["launches"] > 0 for k in kernels), f"launches {[k['launches'] for k in kernels]}")
     print(json.dumps({"kernels": kernels}))

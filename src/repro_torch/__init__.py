@@ -2,7 +2,8 @@
 
 Same module layout as ``repro``: each module here has one reference module
 there and is held against it by ``tests/test_torch_*.py``.  The port imports
-``torch`` and ``numpy`` only - never JAX, never ``repro``.  The conv kernel
-the JAX package wrote in Pallas for the TPU is a hand-written CUDA kernel
-here (``kernels/conv2d_tiled/csrc``), built with ``nvcc`` at first use.
+``torch`` and ``numpy`` only - never JAX, never ``repro``.  The kernels the
+JAX package wrote in Pallas for the TPU are hand-written CUDA kernels here
+(``kernels/*/csrc``: the tiled conv and its gradients, flash attention,
+RMSNorm), built with ``nvcc`` at first use.
 """

@@ -1,1 +1,1 @@
-"""Run configuration (the trainer's part of the reference's configs)."""
+"""Run and architecture configuration (``repro/configs``)."""

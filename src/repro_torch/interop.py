@@ -4,7 +4,9 @@ The two packages draw different numbers from the same seed, so parity tests
 initialise params in JAX (``repro.core.spatial.init_stack_params``,
 optionally after ``freeze_bn_stats``), convert them to numpy, and hand them
 over here.  The layout needs no change: both packages keep HWIO filters and
-per-channel vectors, under the same keys.
+per-channel vectors, under the same keys.  ``lm_params_from_jax`` does the
+same for an LM param tree (``repro.models.lm.init_lm``): nested dicts and
+lists, the segments' leaves stacked over their repeats, key for key.
 """
 from __future__ import annotations
 
@@ -34,3 +36,26 @@ def params_from_jax(
             {k: torch.from_numpy(np.array(v, copy=True)).to(device) for k, v in layer.items()}
         )
     return out
+
+
+def _to_tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":        # ml_dtypes' bfloat16: reinterpret the bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def lm_params_from_jax(tree, device: str | torch.device = "cuda"):
+    """A JAX LM param tree (dicts and lists of numpy arrays, already on the
+    host) -> the port's tree: the same structure and keys, tensors on
+    ``device``."""
+    device = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v) for v in t]
+        return _to_tensor(t, device)
+
+    return conv(tree)

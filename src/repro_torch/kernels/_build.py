@@ -24,6 +24,8 @@ SOURCES: dict[str, Path] = {
     "conv2d_tile": _PKG / "conv2d_tiled" / "csrc" / "conv2d_tile.cu",
     "conv2d_dgrad_tile": _PKG / "conv2d_tiled" / "csrc" / "conv2d_dgrad_tile.cu",
     "conv2d_wgrad_tile": _PKG / "conv2d_tiled" / "csrc" / "conv2d_wgrad_tile.cu",
+    "flash_attention_fwd": _PKG / "flash_attention" / "csrc" / "flash_attention_fwd.cu",
+    "rmsnorm": _PKG / "rmsnorm" / "csrc" / "rmsnorm.cu",
 }
 
 NVCC_FLAGS = (
@@ -99,3 +101,24 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _LOADED[name] = lib
     return lib
+
+
+def run(name: str, argtypes: list, device, *args) -> None:
+    """Launch ``<name>_launch(*args, stream)`` of kernel library ``name`` on
+    ``device``'s current stream (``argtypes`` without the trailing stream
+    pointer); raises with CUDA's message if the launch was refused."""
+    import torch
+
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err_fn = getattr(lib, f"{name}_error_string")
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg}")

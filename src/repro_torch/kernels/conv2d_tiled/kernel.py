@@ -30,24 +30,12 @@ _WGRAD_TARGET_BLOCKS = 8 * 132
 _WGRAD_MIN_CHUNK = 256   # pixels per slice, at least (16 BK stages)
 _BK = 16                 # pixels per wgrad stage (the kernel's BK)
 
-_ARGTYPES = {
-    "conv2d_tile": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
-    "conv2d_dgrad_tile": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+_ARGTYPES = {      # each launch function's C arguments before the stream
+    "conv2d_tile": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12,
+    "conv2d_dgrad_tile": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11,
     "conv2d_wgrad_tile": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_longlong]
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 3,
 }
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
-    fn = getattr(lib, f"{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-    return lib
 
 
 def _check_cuda(name: str, tensors) -> None:
@@ -68,13 +56,7 @@ def _check_cuda(name: str, tensors) -> None:
 
 
 def _run(name: str, device: torch.device, *args) -> None:
-    lib = _lib(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"{name}_launch")(*args, stream)
-    if err:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg}")
+    _build.run(name, _ARGTYPES[name], device, *args)
 
 
 def conv2d_tile(

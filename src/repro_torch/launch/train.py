@@ -1,4 +1,5 @@
-"""Training launcher: ``python -m repro_torch.launch.train --arch yolov2-tiled``.
+"""Training launcher: ``python -m repro_torch.launch.train --arch yolov2-tiled``
+or ``--arch qwen2-7b``.
 
 The tiled-CNN path of ``repro/launch/train.py``: plans a YOLOv2 prefix over
 an n x n virtual tile grid, builds the trainer (deferred per-batch weight
@@ -9,8 +10,12 @@ launchers see the same data.  It runs on the card unless ``--device cpu``
 is given.  Flags of the reference the port does not have yet raise naming
 their ROADMAP item: ``--groups auto`` and ``--cluster`` (A.9), ``--schedule
 overlap`` (A.10), ``--crossover`` (A.11), ``--pipeline`` (A.13),
-``--wire-codec`` (A.14), ``--ckpt-dir`` and ``--fault-schedule`` (A.15);
-the LM architectures are A.18.
+``--wire-codec`` (A.14), ``--ckpt-dir`` and ``--fault-schedule`` (A.15).
+
+LM mode (``--arch qwen2-7b``; the other LM ids are A.18): the reduced config
+unless ``--full``, ``--seq`` x ``--batch`` tokens a step from
+``data.synthetic.synth_batch`` (the reference's stream), ``--remat``,
+``--grad-accum``, ``--optimizer``, under the same driver.
 """
 from __future__ import annotations
 
@@ -40,7 +45,11 @@ def _resolve_int_or_auto(spec: str):
 
 def _add_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--arch", default=TILED_ARCH,
-                    help=f"'{TILED_ARCH}' (the LM architectures are ROADMAP A.18)")
+                    help=f"'{TILED_ARCH}' or 'qwen2-7b' (the other LM ids are ROADMAP A.18)")
+    ap.add_argument("--full", action="store_true", help="LM: the full published config")
+    ap.add_argument("--seq", type=int, default=64, help="LM: tokens per sequence")
+    ap.add_argument("--remat", default="full", choices=["none", "full", "dots"],
+                    help="LM: rematerialisation of each layer ('dots' has no torch policy)")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -138,12 +147,54 @@ def _run_tiled(args) -> int:
     return 0
 
 
+def _run_lm(args) -> int:
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig, TrainConfig
+    from repro_torch.data.synthetic import place, synth_batch
+    from repro_torch.models.registry import get_arch
+    from repro_torch.runtime.driver import DriverConfig, run_training
+    from repro_torch.train.trainer import make_train_step
+
+    arch = get_arch(args.arch, reduced=not args.full, device=args.device)
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    pcfg = ParallelConfig(grad_accum=args.grad_accum, remat=args.remat)
+    tcfg = TrainConfig(
+        lr=args.lr, optimizer=args.optimizer, steps=args.steps, seed=args.seed,
+        grad_compression=None if args.compress == "none" else args.compress,
+    )
+    cfg = arch.cfg
+    print(f"model: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} heads={cfg.n_heads}/"
+          f"{cfg.n_kv_heads} vocab={cfg.vocab} dtype={cfg.dtype} remat={pcfg.remat} "
+          f"device={arch.device}")
+    init_state, train_step = make_train_step(arch, pcfg, tcfg)
+    specs = arch.input_specs(shape)
+
+    def make_batch(step: int) -> dict:
+        return place(synth_batch(specs, cfg, args.seed, step), arch.device)
+
+    report = run_training(
+        init_state=init_state,
+        train_step=train_step,
+        make_batch=make_batch,
+        steps=args.steps,
+        cfg=DriverConfig(ckpt_dir=args.ckpt_dir, log_every=args.log_every),
+        seed=args.seed,
+        faults=args.fault_schedule,
+    )
+    m = report.last_metrics or {}
+    print(
+        f"done: steps={report.steps_done} restarts={report.restarts} "
+        f"stragglers={report.straggler_steps} "
+        f"loss={m.get('loss', float('nan')):.4f} gnorm={m.get('grad_norm', 0):.3f}"
+    )
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     _add_args(ap)
     args = ap.parse_args(argv)
     if args.arch != TILED_ARCH:
-        raise NotImplementedError(f"--arch {args.arch}: the LM side is ROADMAP A.18")
+        return _run_lm(args)
     return _run_tiled(args)
 
 

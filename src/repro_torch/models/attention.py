@@ -1,0 +1,266 @@
+"""Full-sequence GQA attention for training (``repro/models/attention.py``).
+
+``attention`` runs the flash-attention op (B4: the CUDA kernel on a card,
+its plain version on the CPU) whenever the positions are the default
+``arange`` and there is no ``kv_override`` - every call of the LM training
+path.  Other positions take the plain ``_sdpa``: the reference's "auto"
+mode, naive below 2048 keys and blocked streaming above.  ``_sdpa_blocked``
+is also the op's backward.  The reference's mesh constraints are identities
+on one device and are left out.
+
+Not ported yet: MLA (DeepSeek), ``kv_override`` cross-attention (Whisper),
+M-RoPE (Qwen2-VL) and the decode path (``KVCache``, ``decode_attention``) -
+each raises naming ROADMAP A.18.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import NEG_INF, scaled_q
+from repro_torch.models.common import apply_rope, dense_init
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    if cfg.mla is not None:
+        raise NotImplementedError("MLA attention (DeepSeek-V3): ROADMAP A.18")
+    d = cfg.d_model
+    dh = cfg.resolved_head_dim
+    dev = gen.device
+    p = {
+        "w_q": dense_init(gen, (d, cfg.n_heads, dh), dtype),
+        "w_k": dense_init(gen, (d, cfg.n_kv_heads, dh), dtype),
+        "w_v": dense_init(gen, (d, cfg.n_kv_heads, dh), dtype),
+        "w_o": dense_init(gen, (cfg.n_heads, dh, d), dtype, fan_in=cfg.n_heads * dh),
+    }
+    if cfg.qkv_bias:
+        p["b_q"] = torch.zeros((cfg.n_heads, dh), dtype=dtype, device=dev)
+        p["b_k"] = torch.zeros((cfg.n_kv_heads, dh), dtype=dtype, device=dev)
+        p["b_v"] = torch.zeros((cfg.n_kv_heads, dh), dtype=dtype, device=dev)
+    if cfg.attn_out_bias:
+        p["b_o"] = torch.zeros((d,), dtype=dtype, device=dev)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Core softmax attention (plain torch)
+# ---------------------------------------------------------------------------
+
+
+def _mask(q_pos, k_pos, causal: bool, window: Optional[int]):
+    """(B, Tq, Tk) bool from (B, Tq) / (B, Tk) positions, or None."""
+    mask = None
+    if causal:
+        mask = q_pos[:, :, None] >= k_pos[:, None, :]
+    if window is not None:
+        w = q_pos[:, :, None] - k_pos[:, None, :] < window
+        mask = w if mask is None else mask & w
+    return mask
+
+
+def _sdpa_naive(
+    q: torch.Tensor,            # (B, Tq, Hq, Dh)
+    k: torch.Tensor,            # (B, Tk, Hkv, Dh)
+    v: torch.Tensor,            # (B, Tk, Hkv, Dv)
+    q_pos: torch.Tensor,        # (B, Tq) or (Tq,)
+    k_pos: torch.Tensor,        # (B, Tk) or (Tk,)
+    *,
+    causal: bool,
+    window: Optional[int],
+    k_valid: Optional[torch.Tensor] = None,   # (B, Tk) bool
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = scale if scale is not None else dh ** -0.5
+    qf = scaled_q(q, scale)
+    acc = qf.dtype
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qf.reshape(b, tq, hkv, rep, dh), k.to(acc))
+    if q_pos.dim() == 1:
+        q_pos = q_pos[None, :]
+    if k_pos.dim() == 1:
+        k_pos = k_pos[None, :]
+    mask = _mask(q_pos, k_pos, causal, window)
+    if mask is None:
+        mask = torch.ones((b, tq, tk), dtype=torch.bool, device=q.device)
+    mask = mask.expand(b, tq, tk)
+    if k_valid is not None:
+        mask = mask & k_valid[:, None, :]
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v.to(acc))
+    return out.reshape(b, tq, hq, v.shape[-1]).to(q.dtype)
+
+
+def _pick_chunk(t: int, c: int) -> int:
+    while c > 16 and t % c:
+        c //= 2
+    return c if t % c == 0 else t
+
+
+def _kv_block(qi, qp, kj, vj, kp, kv_ok, m, l, acc, causal, window):
+    """One KV chunk of the streaming softmax: the running (m, l, acc) of a
+    query chunk updated with keys ``kj`` / values ``vj``."""
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qi, kj)
+    mask = kv_ok[:, None, :]
+    pos_mask = _mask(qp, kp, causal, window)
+    if pos_mask is not None:
+        mask = mask & pos_mask
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    m2 = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m2[..., None])
+    alpha = torch.exp(m - m2)
+    l2 = l * alpha + p.sum(dim=-1)
+    acc2 = acc * alpha[..., None] + torch.einsum("bhrqk,bkhd->bhrqd", p, vj)
+    return m2, l2, acc2
+
+
+def _sdpa_blocked(
+    q, k, v, q_pos, k_pos, *, causal, window, k_valid=None, scale=None,
+    q_chunk=1024, kv_chunk=1024,
+):
+    """Streaming-softmax (flash) attention over KV chunks: a loop over query
+    chunks, an inner loop over KV chunks carrying the running (max, denom,
+    weighted acc).  Each KV step is checkpointed, as in the reference, so
+    the backward recomputes a chunk's probabilities instead of keeping the
+    whole (Tq x Tk) tensor."""
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    rep = hq // hkv
+    scale = scale if scale is not None else dh ** -0.5
+    qc = _pick_chunk(tq, q_chunk)
+    kc = _pick_chunk(tk, kv_chunk)
+    nq, nk = tq // qc, tk // kc
+    if q_pos.dim() == 1:
+        q_pos = q_pos[None]
+    if k_pos.dim() == 1:
+        k_pos = k_pos[None]
+    q_pos = q_pos.expand(b, tq)
+    k_pos = k_pos.expand(b, tk)
+
+    qf = scaled_q(q, scale)
+    acc_t = qf.dtype
+    qf = qf.reshape(b, nq, qc, hkv, rep, dh)
+    ks = k.to(acc_t).reshape(b, nk, kc, hkv, dh)
+    vs = v.to(acc_t).reshape(b, nk, kc, hkv, dv)
+    kps = k_pos.reshape(b, nk, kc)
+    kvs = (k_valid.reshape(b, nk, kc) if k_valid is not None
+           else torch.ones((b, nk, kc), dtype=torch.bool, device=q.device))
+    qps = q_pos.reshape(b, nq, qc)
+
+    outs = []
+    for i in range(nq):
+        qi, qp = qf[:, i], qps[:, i]
+        m = torch.full((b, hkv, rep, qc), NEG_INF, dtype=acc_t, device=q.device)
+        l = torch.zeros((b, hkv, rep, qc), dtype=acc_t, device=q.device)
+        acc = torch.zeros((b, hkv, rep, qc, dv), dtype=acc_t, device=q.device)
+        for j in range(nk):
+            m, l, acc = checkpoint(_kv_block, qi, qp, ks[:, j], vs[:, j], kps[:, j], kvs[:, j],
+                                   m, l, acc, causal, window, use_reentrant=False)
+        out = acc / torch.clamp(l, min=1e-30)[..., None]      # (b,hkv,rep,qc,dv)
+        outs.append(out.permute(0, 3, 1, 2, 4))              # (b,qc,hkv,rep,dv)
+    return torch.cat(outs, dim=1).reshape(b, tq, hq, dv).to(q.dtype)
+
+
+def _sdpa(q, k, v, q_pos, k_pos, *, causal, window, k_valid=None, scale=None) -> torch.Tensor:
+    """The reference's "auto" mode: blocked for Tk >= 2048 (and Tq > 1),
+    naive below."""
+    if k.shape[1] >= 2048 and q.shape[1] > 1:
+        return _sdpa_blocked(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                             k_valid=k_valid, scale=scale)
+    return _sdpa_naive(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                       k_valid=k_valid, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _qkv(params, x, cfg: ModelConfig):
+    q = torch.einsum("btd,dhe->bthe", x, params["w_q"])
+    k = torch.einsum("btd,dhe->bthe", x, params["w_k"])
+    v = torch.einsum("btd,dhe->bthe", x, params["w_v"])
+    if cfg.qkv_bias:
+        q = q + params["b_q"]
+        k = k + params["b_k"]
+        v = v + params["b_v"]
+    return q, k, v
+
+
+def _rope_qk(q, k, positions, cfg: ModelConfig):
+    if not cfg.use_rope:
+        return q, k
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError("M-RoPE (Qwen2-VL): ROADMAP A.18")
+    if positions is not None:
+        if cfg.rope_pct < 1.0:
+            rot = int(q.shape[-1] * cfg.rope_pct)
+            rot -= rot % 2
+            q = torch.cat([apply_rope(q[..., :rot], positions, cfg.rope_theta), q[..., rot:]],
+                          dim=-1)
+            k = torch.cat([apply_rope(k[..., :rot], positions, cfg.rope_theta), k[..., rot:]],
+                          dim=-1)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k
+
+
+def attention(
+    params: dict,
+    x: torch.Tensor,
+    positions: Optional[torch.Tensor],
+    cfg: ModelConfig,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    kv_override=None,
+    arange_positions: bool = False,
+) -> torch.Tensor:
+    """Full-sequence attention.  x: (B, T, D) -> (B, T, D).
+    ``arange_positions`` says that ``positions`` are the default
+    ``arange(T)`` for every row (``apply_lm`` knows when it made them), so
+    the flash op, whose positions are implicit, computes the same function."""
+    if cfg.mla is not None:
+        raise NotImplementedError("MLA attention (DeepSeek-V3): ROADMAP A.18")
+    if kv_override is not None:
+        raise NotImplementedError("cross-attention kv_override (Whisper): ROADMAP A.18")
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        rope_positions = None     # no rope (whisper-style learned/sinusoid)
+        arange_positions = True
+    else:
+        rope_positions = positions
+    q, k, v = _qkv(params, x, cfg)
+    if rope_positions is not None:
+        q, k = _rope_qk(q, k, rope_positions, cfg)
+    if arange_positions:
+        out = flash_attention(q, k, v, causal, window)
+    else:
+        pos = positions if positions.dim() <= 2 else positions[0]
+        out = _sdpa(q, k, v, pos, pos, causal=causal, window=window)
+    y = torch.einsum("bthe,hed->btd", out, params["w_o"])
+    if cfg.attn_out_bias:
+        y = y + params["b_o"]
+    return y
+
+
+def decode_attention(*_a, **_k):
+    raise NotImplementedError("cached decode attention (LM serving): ROADMAP A.18")
+
+
+class KVCache:
+    def __init__(self, *_a, **_k):
+        raise NotImplementedError("KV caches (LM serving): ROADMAP A.18")

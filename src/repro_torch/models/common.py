@@ -1,0 +1,100 @@
+"""Shared building blocks: norms, RoPE, activations, initialisers
+(``repro/models/common.py``).
+
+``rms_norm`` runs the fused RMSNorm op (B6: the CUDA kernel on a card, its
+plain version on the CPU).  Initialisers draw from an explicit
+``torch.Generator`` (on the device the params live on): the port's numbers
+differ from ``jax.random``'s, so parity tests hand JAX's params over with
+``interop.lm_params_from_jax``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.rmsnorm.ops import rmsnorm
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return rmsnorm(x, scale, eps)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(torch.promote_types(dt, torch.float32))
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).to(dt) * scale
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+def apply_norm(kind: str, x: torch.Tensor, p: dict) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rms_norm(x, p["scale"])
+    if kind == "layernorm":
+        return layer_norm(x, p["scale"], p.get("bias"))
+    raise ValueError(kind)
+
+
+def init_norm(kind: str, d: int, dtype=torch.float32, device="cpu") -> dict:
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+ACT = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),    # jax.nn.gelu's default
+    "relu": F.relu,
+}
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, T, H, Dh); positions: (B, T) or (T,) ints.  Angles in fp32,
+    the result cast back to x's type."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].to(torch.float32) * freqs      # (B, T, Dh/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def apply_mrope(x, positions, theta, sections):
+    raise NotImplementedError("M-RoPE (Qwen2-VL): ROADMAP A.18")
+
+
+# ---------------------------------------------------------------------------
+# Initialisers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape, dtype, fan_in=None) -> torch.Tensor:
+    fan_in = fan_in if fan_in is not None else shape[0]
+    scale = (1.0 / max(fan_in, 1)) ** 0.5
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return (w * 0.02).to(dtype)

@@ -1,0 +1,301 @@
+"""Decoder-only LM: the dense-attention subset of ``repro/models/lm.py``.
+
+Layers are grouped into *segments* as in the reference (an irregular prefix
+plus a periodic block repeated R times), and the params keep its layout:
+``params["segments"][s]`` is a list over the block's layers of dicts whose
+leaves are stacked over the R repeats, so a JAX param tree converts leaf for
+leaf (``interop.lm_params_from_jax``).  Where the reference runs
+``lax.scan`` over the repeats, the port runs a Python loop over
+``unbind(0)`` views of the stacked leaves (the backward stacks the layers'
+gradients once).  ``remat="full"`` wraps each block in a non-reentrant
+``torch.utils.checkpoint``, as ``jax.checkpoint`` does.  The reference's
+``constrain`` / ``gather_for_compute`` are identities on one device and are
+left out.
+
+Losses: token-chunked cross-entropy (each chunk checkpointed, so peak
+memory is chunk x vocab, not tokens x vocab).  Mamba mixers, MoE layers and
+their aux loss, MTP heads, VLM patch embeddings, ``remat="dots"`` and the
+serving path (caches, ``decode_step``) raise naming ROADMAP A.18.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import apply_norm, embed_init, init_norm
+from repro_torch.optim.optimizers import tree_map
+
+
+# ---------------------------------------------------------------------------
+# Layer kinds and segment planning
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerKind:
+    mixer: str          # "attn" | "mamba"
+    moe: bool
+    swa: bool           # sliding-window on this attention layer
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    start: int
+    block: tuple[LayerKind, ...]
+    repeats: int
+
+
+def layer_kind(cfg: ModelConfig, i: int) -> LayerKind:
+    mixer = "attn" if cfg.is_attn_layer(i) else "mamba"
+    return LayerKind(
+        mixer=mixer,
+        moe=cfg.is_moe_layer(i),
+        swa=(cfg.swa_window is not None and mixer == "attn"),
+    )
+
+
+def _smallest_period(kinds: list[LayerKind]) -> int:
+    for p in range(1, len(kinds) + 1):
+        if len(kinds) % p == 0 and all(kinds[i] == kinds[i % p] for i in range(len(kinds))):
+            return p
+    return len(kinds)
+
+
+def plan_segments(cfg: ModelConfig) -> list[Segment]:
+    """Split layers into (irregular prefix, periodic tail) minimising the
+    total block size, as the reference does (dense LMs: one segment of L
+    repeats of a one-layer block)."""
+    kinds = [layer_kind(cfg, i) for i in range(cfg.n_layers)]
+    best = None
+    for prefix in range(0, min(8, cfg.n_layers)):
+        tail = kinds[prefix:]
+        p = _smallest_period(tail) if tail else 0
+        score = prefix + p
+        if best is None or score < best[0]:
+            best = (score, prefix, p)
+    _, prefix, period = best
+    segs: list[Segment] = []
+    if prefix:
+        segs.append(Segment(0, tuple(kinds[:prefix]), 1))
+    tail = kinds[prefix:]
+    if tail:
+        segs.append(Segment(prefix, tuple(tail[:period]), len(tail) // period))
+    return segs
+
+
+def _check_supported(kind: LayerKind) -> None:
+    if kind.mixer != "attn":
+        raise NotImplementedError("Mamba2 mixer layers: ROADMAP A.18 (next: B5 with "
+                                  "core/sequence.py and models/mamba2.py)")
+    if kind.moe:
+        raise NotImplementedError("Mixture-of-Experts layers: ROADMAP A.18")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _init_layer(gen: torch.Generator, kind: LayerKind, cfg: ModelConfig, dtype) -> dict:
+    _check_supported(kind)
+    p: dict[str, Any] = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, gen.device)}
+    p["attn"] = attn_mod.init_attention(gen, cfg, dtype)
+    if cfg.d_ff > 0 and not cfg.parallel_block:
+        p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, gen.device)
+    if cfg.d_ff > 0:
+        p["mlp"] = mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                    gated=(cfg.act == "silu"), bias=cfg.mlp_bias)
+    return p
+
+
+def _stack(trees: list):
+    """Trees of equal structure -> one tree of leaves stacked on a new dim 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, list):
+        return [_stack([t[i] for t in trees]) for i in range(len(first))]
+    return torch.stack(trees)
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Params on ``gen.device``, drawn from ``gen`` in a fixed order."""
+    if cfg.mtp_depth > 0:
+        raise NotImplementedError("multi-token prediction heads (DeepSeek-V3): ROADMAP A.18")
+    dtype = cfg.p_dtype
+    segs = plan_segments(cfg)
+    for seg in segs:
+        for kind in seg.block:
+            _check_supported(kind)
+    params: dict[str, Any] = {
+        "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dtype),
+        "final_norm": init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embed_init(gen, (cfg.vocab, cfg.d_model), dtype)
+    seg_params = []
+    for seg in segs:
+        reps = [[_init_layer(gen, kind, cfg, dtype) for kind in seg.block]
+                for _ in range(seg.repeats)]
+        seg_params.append(_stack(reps))
+        del reps
+    params["segments"] = seg_params
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _apply_layer(p: dict, kind: LayerKind, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig, *, arange_positions: bool = False) -> torch.Tensor:
+    _check_supported(kind)
+    h = apply_norm(cfg.norm, x, p["norm1"])
+    window = cfg.swa_window if kind.swa else None
+    mix = attn_mod.attention(p["attn"], h, positions, cfg, causal=True, window=window,
+                             arange_positions=arange_positions)
+    if cfg.parallel_block:
+        # command-r: attn and mlp both read the same normed input
+        ff = mlp_mod.mlp(p["mlp"], h, cfg.act) if "mlp" in p else 0.0
+        return x + mix + ff
+    x = x + mix
+    if "mlp" in p:
+        h2 = apply_norm(cfg.norm, x, p["norm2"])
+        x = x + mlp_mod.mlp(p["mlp"], h2, cfg.act)
+    return x
+
+
+def _unbind(tree, n: int) -> list:
+    """A tree of (n, ...) leaves -> n trees of views ``leaf[r]``."""
+    parts = tree_map(lambda a: a.unbind(0), tree)      # leaves become n-tuples
+    return [tree_map(lambda t, r=r: t[r], parts) for r in range(n)]
+
+
+def apply_lm(
+    params: dict,
+    tokens: torch.Tensor,                 # (B, T) int
+    cfg: ModelConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    extra_embeds: Optional[torch.Tensor] = None,
+    remat: str = "none",
+    seq_axis: Optional[str] = None,
+    unroll: bool = False,
+) -> torch.Tensor:
+    """Token ids -> final hidden states (B, T, D).  ``unroll`` (the
+    reference's analysis mode) changes nothing here: the layers are always a
+    Python loop."""
+    if extra_embeds is not None:
+        raise NotImplementedError("VLM patch embeddings (Qwen2-VL): ROADMAP A.18")
+    if seq_axis is not None:
+        raise NotImplementedError("sequence-sharded mixers: ROADMAP A.18 (parallel/)")
+    if remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={remat!r}: the reference's 'dots' policy (save matmul outputs "
+            "with no batch dims) has no torch checkpoint policy that saves the same "
+            "tensors; use 'full' or 'none'")
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError("M-RoPE (Qwen2-VL): ROADMAP A.18")
+    x = F.embedding(tokens.long(), params["embed"]).to(cfg.act_dtype)
+    arange_positions = positions is None
+    if arange_positions:
+        b, t = tokens.shape
+        positions = torch.arange(t, device=x.device)[None].expand(b, t)
+
+    for seg, seg_p in zip(plan_segments(cfg), params["segments"]):
+        def block_fn(x, block_p, seg=seg):
+            for j, kind in enumerate(seg.block):
+                x = _apply_layer(block_p[j], kind, x, positions, cfg,
+                                 arange_positions=arange_positions)
+            return x
+
+        for block_p in _unbind(seg_p, seg.repeats):
+            if remat == "full":
+                x = checkpoint(block_fn, x, block_p, use_reentrant=False)
+            else:
+                x = block_fn(x, block_p)
+    return apply_norm(cfg.norm, x, params["final_norm"])
+
+
+def lm_head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"] if cfg.tie_embeddings else params["lm_head"]
+
+
+def _ce_chunk(hs, ys, head_w, acc_dtype):
+    logits = (hs @ head_w.T).to(acc_dtype)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, 1, torch.clamp(ys, min=0)[:, None])[:, 0]
+    valid = (ys >= 0).to(acc_dtype)
+    return torch.sum((lse - ll) * valid), torch.sum(valid)
+
+
+def chunked_cross_entropy(
+    hidden: torch.Tensor,     # (B, T, D)
+    head_w: torch.Tensor,     # (V, D)
+    labels: torch.Tensor,     # (B, T) int; -100 = ignore
+    *,
+    chunk: int = 512,
+    unroll: bool = False,     # analysis mode: single full-width chunk
+) -> torch.Tensor:
+    """Mean CE, streamed over token chunks: logits in the activation type,
+    then fp32 (fp64 stays fp64); the padded tail carries label -100."""
+    b, t, d = hidden.shape
+    n = b * t
+    h = hidden.reshape(n, d)
+    y = labels.reshape(n).long()
+    chunk = n if unroll else min(chunk, n)
+    pad = (-n) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        y = F.pad(y, (0, pad), value=-100)
+    acc = torch.promote_types(hidden.dtype, torch.float32)
+    loss_sum = torch.zeros((), dtype=acc, device=hidden.device)
+    cnt = torch.zeros((), dtype=acc, device=hidden.device)
+    for i in range(h.shape[0] // chunk):
+        s = slice(i * chunk, (i + 1) * chunk)
+        ls, c = checkpoint(_ce_chunk, h[s], y[s], head_w, acc, use_reentrant=False)
+        loss_sum = loss_sum + ls
+        cnt = cnt + c
+    return loss_sum / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(
+    params: dict,
+    batch: dict,
+    cfg: ModelConfig,
+    *,
+    remat: str = "full",
+    aux_weight: float = 0.01,
+    unroll: bool = False,
+    ce_chunk: int = 512,
+) -> torch.Tensor:
+    """batch: {"tokens": (B,T), "labels": (B,T), ["positions"]}"""
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE router aux loss: ROADMAP A.18")
+    if cfg.mtp_depth > 0 and "mtp" in params:
+        raise NotImplementedError("multi-token prediction loss (DeepSeek-V3): ROADMAP A.18")
+    hidden = apply_lm(
+        params, batch["tokens"], cfg,
+        positions=batch.get("positions"),
+        extra_embeds=batch.get("patch_embeds"),
+        remat=remat,
+        unroll=unroll,
+    )
+    head = lm_head_weight(params, cfg).to(cfg.act_dtype)
+    return chunked_cross_entropy(hidden, head, batch["labels"], chunk=ce_chunk, unroll=unroll)
+
+
+def init_caches(*_a, **_k):
+    raise NotImplementedError("LM serving caches: ROADMAP A.18")
+
+
+def decode_step(*_a, **_k):
+    raise NotImplementedError("LM serving decode_step: ROADMAP A.18")

@@ -1,0 +1,117 @@
+"""Architecture registry: ``--arch <id>`` -> config + model functions + specs
+(``repro/models/registry.py``).
+
+Only the configs the port can run resolve: ``qwen2-7b`` (dense GQA).  Every
+other id of the reference raises naming ROADMAP A.18.  A bundle's
+``init(seed)`` draws its params on the bundle's device; ``decode_fn`` and
+``make_caches`` (LM serving) raise, as the next slices port them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch.mesh import resolve_device
+
+ARCH_MODULES = {
+    "codeqwen1.5-7b": None,
+    "stablelm-1.6b": None,
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "command-r-35b": None,
+    "mamba2-780m": None,
+    "mixtral-8x22b": None,
+    "deepseek-v3-671b": None,
+    "qwen2-vl-2b": None,
+    "jamba-v0.1-52b": None,
+    "whisper-medium": None,
+}
+
+ARCH_IDS = list(ARCH_MODULES)
+
+
+class TensorSpec(NamedTuple):
+    """Shape and numpy dtype of one batch entry (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: tuple
+    dtype: Any
+
+
+@dataclasses.dataclass
+class ArchBundle:
+    cfg: ModelConfig
+    device: torch.device
+    init: Callable[[Any], Any]                 # (seed | torch.Generator) -> params
+    loss_fn: Callable[..., torch.Tensor]       # (params, batch, *, remat, ...)
+    input_specs: Callable[[ShapeConfig], dict]
+
+    def decode_fn(self, *_a, **_k):
+        raise NotImplementedError("LM serving decode_fn: ROADMAP A.18")
+
+    def make_caches(self, *_a, **_k):
+        raise NotImplementedError("LM serving caches: ROADMAP A.18")
+
+
+def load_config(name: str, reduced: bool = False) -> ModelConfig:
+    if name not in ARCH_MODULES:
+        raise ValueError(f"unknown arch {name!r}; one of {ARCH_IDS}")
+    if ARCH_MODULES[name] is None:
+        raise NotImplementedError(f"--arch {name}: not ported yet (ROADMAP A.18)")
+    mod = importlib.import_module(ARCH_MODULES[name])
+    return mod.reduced() if reduced else mod.CONFIG
+
+
+def with_depth(cfg: ModelConfig, n_periods: int) -> ModelConfig:
+    """Depth-reduced copy: the irregular prefix + ``n_periods`` repeats of the
+    periodic block (see ``models.lm.plan_segments``)."""
+    from repro_torch.models.lm import plan_segments
+
+    segs = plan_segments(cfg)
+    prefix = 0 if len(segs) == 1 else len(segs[0].block)
+    period = len(segs[-1].block)
+    depth = prefix + n_periods * period
+    kw = {"n_layers": depth}
+    if cfg.encoder_decoder and cfg.n_encoder_layers:
+        kw["n_encoder_layers"] = max(1, cfg.n_encoder_layers * depth // cfg.n_layers)
+    return dataclasses.replace(cfg, **kw)
+
+
+def _lm_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b, t = shape.global_batch, shape.seq_len
+    i32 = np.dtype(np.int32)
+    if shape.kind == "decode":
+        return {"token": TensorSpec((b, 1), i32)}
+    if cfg.family == "vlm":
+        raise NotImplementedError("VLM input specs (Qwen2-VL): ROADMAP A.18")
+    return {"tokens": TensorSpec((b, t), i32), "labels": TensorSpec((b, t), i32)}
+
+
+def get_arch(name: str, reduced: bool = False, device: str | torch.device = "cuda") -> ArchBundle:
+    return bundle_from_cfg(load_config(name, reduced), device)
+
+
+def bundle_from_cfg(cfg: ModelConfig, device: str | torch.device = "cuda") -> ArchBundle:
+    if cfg.encoder_decoder:
+        raise NotImplementedError("encoder-decoder models (Whisper): ROADMAP A.18")
+    from repro_torch.models import lm as L
+
+    dev = resolve_device(device)
+
+    def init(seed):
+        gen = seed if isinstance(seed, torch.Generator) else \
+            torch.Generator(device=dev).manual_seed(int(seed))
+        return L.init_lm(gen, cfg)
+
+    return ArchBundle(
+        cfg=cfg,
+        device=dev,
+        init=init,
+        loss_fn=lambda params, batch, remat="full", **kw: L.lm_loss(
+            params, batch, cfg, remat=remat, **kw),
+        input_specs=lambda shape: _lm_input_specs(cfg, shape),
+    )

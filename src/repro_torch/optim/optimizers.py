@@ -9,6 +9,13 @@ reference: a step returns new params and a new state.  The arithmetic is
 the reference's fp32; fp64 params (an exact reference run) keep fp64
 throughout.
 
+``inplace=True`` (``clip_by_global_norm``, ``adamw``, ``sgd``) writes the
+results into the tensors it was given instead - the same arithmetic and the
+same bits, with only one leaf's temporaries alive at a time.  The LM trainer
+uses it, since a full-width model's fp32 moments and gradients leave no room
+for a second copy; it stands where the reference's launcher donates the
+state to ``jit``.  The caller must not reuse the old state.
+
 adamw: fp32 moments.  sgd: momentum SGD (Darknet's, for the YOLO
 reproduction).  adafactor belongs to the LM side (ROADMAP A.18).
 """
@@ -57,10 +64,18 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(_acc(x))) for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, inplace: bool = False):
+    """``inplace`` scales the fp32 (fp64) leaves where they lie; a leaf of a
+    narrower type is scaled in fp32 into a new tensor either way."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
-    return tree_map(lambda g: (_acc(g) * scale).to(g.dtype), tree), norm
+
+    def clip(g):
+        if inplace and g.dtype == _acc(g).dtype:
+            return g.mul_(scale)
+        return (_acc(g) * scale).to(g.dtype)
+
+    return tree_map(clip, tree), norm
 
 
 def _zeros_acc(params):
@@ -68,7 +83,7 @@ def _zeros_acc(params):
         p.shape, dtype=torch.promote_types(p.dtype, torch.float32), device=p.device), params)
 
 
-def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
+def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, inplace: bool = False) -> Optimizer:
     def init(params):
         return {"m": _zeros_acc(params), "v": _zeros_acc(params), "t": 0}
 
@@ -85,13 +100,24 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
             step = step + weight_decay * _acc(p)
             return (_acc(p) - lr * step).to(p.dtype), m2, v2
 
-        new_p, new_m, new_v = tree_unzip(tree_map(upd, grads, state["m"], state["v"], params), 3)
+        def upd_inplace(g, m, v, p):
+            # upd's operations in upd's order, each rounded as there
+            g = _acc(g)
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g * g)
+            step = (m / bc1).div_(torch.sqrt(v / bc2).add_(eps))
+            step.add_(weight_decay * _acc(p)).mul_(lr)
+            p.copy_(_acc(p) - step)
+            return p, m, v
+
+        new_p, new_m, new_v = tree_unzip(tree_map(upd_inplace if inplace else upd, grads,
+                                                      state["m"], state["v"], params), 3)
         return new_p, {"m": new_m, "v": new_v, "t": t}
 
     return Optimizer(init, update)
 
 
-def sgd(momentum=0.9, weight_decay=0.0005) -> Optimizer:
+def sgd(momentum=0.9, weight_decay=0.0005, inplace: bool = False) -> Optimizer:
     """Momentum SGD - Darknet's optimizer for the YOLO reproduction."""
 
     def init(params):
@@ -100,6 +126,10 @@ def sgd(momentum=0.9, weight_decay=0.0005) -> Optimizer:
     def update(grads, state, params, lr):
         def upd(g, m, p):
             g = _acc(g) + weight_decay * _acc(p)
+            if inplace:
+                m.mul_(momentum).add_(g)
+                p.copy_(_acc(p) - lr * m)
+                return p, m
             m2 = momentum * m + g
             return (_acc(p) - lr * m2).to(p.dtype), m2
 

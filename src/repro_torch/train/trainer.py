@@ -1,6 +1,6 @@
 """Training step factory: grad accumulation, clipping, LR schedule,
-optimizer update, optional int8-EF gradient compression - the tiled-CNN
-path of ``repro/train/trainer.py``.
+optimizer update, optional int8-EF gradient compression - the tiled-CNN and
+LM paths of ``repro/train/trainer.py``.
 
 ``make_train_step(arch, pcfg, tcfg)`` returns ``(init_state, train_step)``;
 ``on_grads(step, loss, grads)``, if given, sees each step's batch-end
@@ -10,9 +10,16 @@ For a tiled-CNN bundle (``arch.kind == "tiled_cnn"``) the grads come from
 ``core.fusion.make_deferred_grad_step``: ``pcfg.grad_accum`` microbatches
 accumulate per-tile weight-gradient partial sums, and one division by the
 global count at batch end gives the final gradients - the paper's schedule.
+For an LM bundle (``models.registry.ArchBundle``) the grads come from
+autograd over ``arch.loss_fn``; with ``pcfg.grad_accum`` > 1 the
+microbatches' grads are summed into fp32 zeros and divided once, and the
+loss is the microbatches' mean, as the reference's scan does.  The LM step
+updates the state in place (``inplace`` of ``optim.optimizers``): the state
+it is given is consumed, as the reference's launcher donates it to ``jit``,
+and the fp32 gradients ``on_grads`` sees are clipped where they lie after it
+returns - an observer copies what it keeps.
 The trainer tail then runs optional int8 error-feedback compression,
 global-norm clipping, the cosine/warmup schedule and the optimizer update.
-The LM path is ROADMAP A.18.
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ import torch
 
 from repro_torch.configs.base import ParallelConfig, TrainConfig
 from repro_torch.optim.compression import CompressionState, compress_with_feedback, init_error
-from repro_torch.optim.optimizers import clip_by_global_norm, make_optimizer
+from repro_torch.optim.optimizers import clip_by_global_norm, make_optimizer, tree_leaves, tree_map
 from repro_torch.optim.schedules import cosine_schedule
 
 
@@ -42,13 +49,14 @@ def _make_init_state(arch, opt, tcfg: TrainConfig):
     return init_state
 
 
-def _apply_updates(state: TrainState, loss, grads, opt, tcfg: TrainConfig):
+def _apply_updates(state: TrainState, loss, grads, opt, tcfg: TrainConfig,
+                   inplace: bool = False):
     """Shared trainer tail: EF compression -> clip -> schedule -> update."""
     ef = state.ef
     if ef is not None:
         grads, st = compress_with_feedback(grads, CompressionState(ef))
         ef = st.error
-    grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, inplace=inplace)
     lr = cosine_schedule(state.step, tcfg.warmup, tcfg.steps, tcfg.lr)
     params, opt_state = opt.update(grads, state.opt, state.params, lr)
     new_state = TrainState(params, opt_state, state.step + 1, ef)
@@ -56,11 +64,74 @@ def _apply_updates(state: TrainState, loss, grads, opt, tcfg: TrainConfig):
 
 
 def make_train_step(arch, pcfg: ParallelConfig, tcfg: TrainConfig, *, on_grads=None):
-    if getattr(arch, "kind", None) != "tiled_cnn":
-        raise NotImplementedError("the LM training path: ROADMAP A.18 (LM side)")
+    from repro_torch.models.registry import ArchBundle
+
     if tcfg.grad_compression not in (None, "int8"):
         raise ValueError(f"grad_compression must be None or 'int8'; got {tcfg.grad_compression!r}")
-    return _make_tiled_cnn_train_step(arch, pcfg, tcfg, on_grads)
+    if getattr(arch, "kind", None) == "tiled_cnn":
+        return _make_tiled_cnn_train_step(arch, pcfg, tcfg, on_grads)
+    if isinstance(arch, ArchBundle):
+        return _make_lm_train_step(arch, pcfg, tcfg, on_grads)
+    raise NotImplementedError(
+        f"no training path for {type(arch).__name__}: the port trains tiled-CNN arches and "
+        "LM bundles; other families (Whisper, ...) are ROADMAP A.18")
+
+
+def _unflatten(like, leaves):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def lm_value_and_grad(loss_fn, params, batch: dict):
+    """(loss, grads) of ``loss_fn(params, batch)`` by autograd: the loss
+    detached, the grads in each param's dtype, in the params' tree."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss = loss_fn(live, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    return loss.detach(), _unflatten(params, grads)
+
+
+def _make_lm_train_step(arch, pcfg: ParallelConfig, tcfg: TrainConfig, on_grads):
+    opt = make_optimizer(tcfg.optimizer, weight_decay=tcfg.weight_decay, inplace=True)
+    init_state = _make_init_state(arch, opt, tcfg)
+    accum = pcfg.grad_accum
+
+    def loss_fn(params, batch):
+        return arch.loss_fn(params, batch, remat=pcfg.remat, unroll=pcfg.unroll,
+                            ce_chunk=pcfg.ce_chunk)
+
+    def split_batch(batch: dict) -> list[dict]:
+        out = {}
+        for k, v in batch.items():
+            v = torch.as_tensor(v, device=arch.device)
+            dim = 1 if (k == "positions" and v.dim() == 3) else 0   # (3, B, T) splits on B
+            if v.shape[dim] % accum:
+                raise ValueError(f"batch entry {k!r} of {v.shape[dim]} rows not divisible by "
+                                 f"grad_accum={accum}")
+            out[k] = v.chunk(accum, dim=dim)
+        return [{k: v[i] for k, v in out.items()} for i in range(accum)]
+
+    def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        if accum > 1:
+            gsum = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.promote_types(p.dtype, torch.float32), device=p.device),
+                state.params)
+            lsum = torch.zeros((), dtype=torch.float32, device=arch.device)
+            for mb in split_batch(batch):
+                l, g = lm_value_and_grad(loss_fn, state.params, mb)
+                tree_map(lambda a, b: a.add_(b), gsum, g)
+                del g
+                lsum = lsum + l
+            grads = tree_map(lambda g: g.div_(accum), gsum)
+            loss = lsum / accum
+        else:
+            batch = {k: torch.as_tensor(v, device=arch.device) for k, v in batch.items()}
+            loss, grads = lm_value_and_grad(loss_fn, state.params, batch)
+        if on_grads is not None:
+            on_grads(state.step, loss, grads)
+        return _apply_updates(state, loss, grads, opt, tcfg, inplace=True)
+
+    return init_state, train_step
 
 
 def _make_tiled_cnn_train_step(arch, pcfg: ParallelConfig, tcfg: TrainConfig, on_grads):
