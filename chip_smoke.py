@@ -51,7 +51,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``lm_value_and_grad`` takes through B4 and B6, held per leaf against
    the plain path in fp64 within max(1e-3, 2 x the fp32 plain path's own
    distance), and the same check must reject a planted fault (B4 fed one
-   KV head's values zeroed).
+   KV head's values zeroed);
+9. the SSD intra-chunk kernel (B5) against its plain version on the card,
+   TF32 off: at the Mamba2 run's shape (x (2, 4096, 48, 64), B/C (2, 4096,
+   1, 128), chunk 256) in bf16 and fp32, on every case of
+   ``tests/test_kernels.py``'s ``SSD_CASES`` and a T < chunk case, each held
+   to the fp32 bar or, where an output misses it, to ``SSD_FP64_FACTOR``
+   against fp64, and bitwise equal on a rerun; kernel and plain version
+   timed, bound computed (no torch call computes this function);
+10. train Mamba2-780m at full width and full depth (48 layers, bf16, random
+   weights from seed 0), as phase 7: global batch 4 x 4096 tokens in 2
+   microbatches, 3 AdamW steps; B5 and B6 launch counts against the code's
+   (``lm_launches_per_microbatch``), ``restarts`` 0, finite losses, the
+   step-1 loss against a forward through the plain B5 and B6.  Prints the
+   ``{"mamba_train": ...}`` line and a profile of one step;
+11. the Mamba2 path's gradients as phase 8 (2 layers, fp32, one sequence of
+   1024 tokens: 4 chunks of 256), with a planted B5 fault (head 0's
+   y_intra zeroed); and, as the record of why the port masks the decay's
+   exponent, which gradient leaves the reference's literal
+   ``where(tri, exp(dseg), 0)`` leaves non-finite at these inputs.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -67,6 +85,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -130,6 +149,28 @@ RMS_CASES = [                # tests/test_kernels.py:411
     ((2, 64, 1024), "bfloat16"),
     ((7, 384), "float32"),
 ]
+# Mamba phases: Mamba2-780m at full width and full depth (48 layers), the
+# repo's train_4k sequence length
+MAMBA_ARCH, MAMBA_DEPTH, MAMBA_SEQ, MAMBA_BATCH, MAMBA_ACCUM, MAMBA_STEPS = \
+    "mamba2-780m", 48, 4096, 4, 2, 3
+MAMBA_GRAD_DEPTH, MAMBA_GRAD_SEQ = 2, 1024     # phase 11: 4 chunks of 256, one sequence
+SSD_CASES = [                # tests/test_kernels.py:456: b, t, h, p, g, n, chunk
+    (2, 128, 4, 16, 2, 8, 32),
+    (1, 64, 2, 8, 1, 4, 64),
+    (1, 256, 8, 32, 2, 16, 64),
+]
+SSD_SHORT_CASE = (2, 96, 4, 16, 1, 8, 256)     # T < chunk: one chunk of 96 (not a multiple of 64)
+SSD_MODEL_SHAPE = (MAMBA_BATCH // MAMBA_ACCUM, MAMBA_SEQ, 48, 64, 1, 128, 256)
+# SSD_FP64_RULE.  B5 is held to the fp32 bar (TOL_FP32) against its plain
+# version, output by output.  An output that misses it is held against an
+# fp64 evaluation of the plain version instead: its max |err| from fp64 must
+# be within SSD_FP64_FACTOR x the plain fp32 version's own.  At the model
+# shape the chunk's log-decay prefix reaches about -200, where one fp32 ulp
+# is 1.5e-5, so two fp32 evaluations that sum the intra-chunk products in
+# another order may each sit near the fp32 bar from the exact value; the
+# rule then asks that B5 be no worse than twice what fp32 gives.  The line
+# of each case says which rule held.
+SSD_FP64_FACTOR = 2.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -586,40 +627,89 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
     return fa_rows, fa_rows[0]["max_abs_err"], rms_rows, rms_rows[0]["max_abs_err"]
 
 
+@dataclasses.dataclass(frozen=True)
+class LMRun:
+    """One LM training cell of the smoke run (phases 7-8 and 10-11)."""
+
+    key: str            # the metrics line's key
+    arch: str
+    depth: int
+    seq: int
+    batch: int          # global batch
+    accum: int          # microbatches
+    steps: int
+    grad_depth: int     # the gradient check's depth (full width, fp32 / fp64)
+    grad_batch: int     # ... and its one microbatch: grad_batch x grad_seq tokens
+    grad_seq: int
+
+
+QWEN_RUN = LMRun("lm_train", LM_ARCH, LM_DEPTH, LM_SEQ, LM_BATCH, LM_ACCUM, LM_STEPS,
+                 LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, LM_SEQ)
+MAMBA_RUN = LMRun("mamba_train", MAMBA_ARCH, MAMBA_DEPTH, MAMBA_SEQ, MAMBA_BATCH, MAMBA_ACCUM,
+                  MAMBA_STEPS, MAMBA_GRAD_DEPTH, 1, MAMBA_GRAD_SEQ)
+# each LM kernel's name in a profiler trace
+LM_KERNEL_TRACE_NAMES = {"flash_attention_fwd": "flash_attention_fwd_kernel",
+                         "ssd_chunk_fwd": "ssd_chunk_fwd_kernel", "rmsnorm": "rmsnorm_kernel"}
+
+
 def lm_launches_per_microbatch(cfg, remat: str) -> dict:
     """Kernel launches of one microbatch's loss and grads, from the code:
-    each layer runs B4 once and B6 twice (norm1, norm2) in the forward, the
-    final norm once more; remat "full" reruns each layer's forward (its
-    last saved tensor is the MLP's hidden, after both norms and the
-    attention) in the backward, outside the final norm.  The backwards of
-    both ops are plain torch and launch neither kernel."""
+    each layer's forward runs its mixer's kernel once (B4 for attention, B5
+    for a Mamba2 block) and B6 for norm1, for the Mamba2 block's gated norm
+    and for norm2 where the layer has an MLP; the final norm runs B6 once
+    more.  remat "full" reruns each layer's forward (all of it: the
+    checkpoint saves only the layer's input) in the backward, outside the
+    final norm.  The backwards of all three ops are plain torch and launch
+    no kernel."""
+    from repro_torch.models.lm import layer_kind
+
     again = 1 if remat == "full" else 0
-    return {"flash_attention_fwd": cfg.n_layers * (1 + again),
-            "rmsnorm": 2 * cfg.n_layers * (1 + again) + 1}
+    out = {}
+    for i in range(cfg.n_layers):
+        kind = layer_kind(cfg, i)
+        mixer = "flash_attention_fwd" if kind.mixer == "attn" else "ssd_chunk_fwd"
+        norms = 1 + (kind.mixer == "mamba") + (cfg.d_ff > 0 and not cfg.parallel_block)
+        out[mixer] = out.get(mixer, 0) + 1 + again
+        out["rmsnorm"] = out.get("rmsnorm", 0) + norms * (1 + again)
+    out["rmsnorm"] += 1
+    return out
 
 
-class plain_b4_b6:
-    """Context: the models call the plain versions of B4 and B6 (for the
-    references of phases 7 and 8); the package is left as it was after."""
+class swapped:
+    """Context: each ``(module, attribute, value)`` set for the duration,
+    then put back as it was."""
+
+    def __init__(self, *swaps):
+        self.swaps = swaps
 
     def __enter__(self):
-        import repro_torch.models.attention as attn_mod
-        import repro_torch.models.common as common_mod
-        from repro_torch.kernels.flash_attention.ref import attention_ref
-        from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-
-        self.saved = (attn_mod.flash_attention, common_mod.rmsnorm)
-        attn_mod.flash_attention = lambda q, k, v, causal=True, window=None, scale=None, *_: \
-            attention_ref(q, k, v, causal=causal, window=window, scale=scale)
-        common_mod.rmsnorm = rmsnorm_ref
+        self.saved = [(m, a, getattr(m, a)) for m, a, _ in self.swaps]
+        for m, a, v in self.swaps:
+            setattr(m, a, v)
         return self
 
     def __exit__(self, *exc):
-        import repro_torch.models.attention as attn_mod
-        import repro_torch.models.common as common_mod
-
-        attn_mod.flash_attention, common_mod.rmsnorm = self.saved
+        for m, a, v in self.saved:
+            setattr(m, a, v)
         return False
+
+
+def plain_lm_kernels() -> swapped:
+    """The models call the plain versions of B4, B5 and B6 (for the
+    references of phases 7-8 and 10-11)."""
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.common as common_mod
+    import repro_torch.models.mamba2 as mamba_mod
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd_chunk.ops import ssd_scan_ref
+
+    return swapped(
+        (attn_mod, "flash_attention", lambda q, k, v, causal=True, window=None, scale=None, *_:
+         attention_ref(q, k, v, causal=causal, window=window, scale=scale)),
+        (common_mod, "rmsnorm", rmsnorm_ref),
+        (mamba_mod, "ssd_scan", lambda x, dt, A, Bm, Cm, chunk=256: ssd_scan_ref(x, dt, A, Bm, Cm, chunk)),
+    )
 
 
 def named_leaves(tree, prefix=""):
@@ -630,9 +720,10 @@ def named_leaves(tree, prefix=""):
     return [(prefix, tree)]
 
 
-def lm_train_phase(dev, smi: str) -> dict:
-    """Phase 7: Qwen2-7B, full width, 12 layers, bf16, AdamW, 3 steps.
-    Returns the launch count of each kernel in the training run."""
+def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
+    """Phase 7 (Qwen2-7B, 12 layers) or 10 (Mamba2-780m, 48 layers): full
+    width, bf16, AdamW, 3 steps.  Returns the launch count of each kernel in
+    the training run."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -641,17 +732,18 @@ def lm_train_phase(dev, smi: str) -> dict:
     from repro_torch.data.synthetic import place, synth_batch
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
     from repro_torch.models.lm import lm_loss
     from repro_torch.models.registry import bundle_from_cfg, load_config, with_depth
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.runtime.driver import DriverConfig, run_training
     from repro_torch.train.trainer import make_train_step
 
-    cfg = with_depth(load_config(LM_ARCH), LM_DEPTH)
+    cfg = with_depth(load_config(run.arch), run.depth)
     arch = bundle_from_cfg(cfg, dev)
-    pcfg = ParallelConfig(grad_accum=LM_ACCUM, remat="full")
-    tcfg = TrainConfig(warmup=0, steps=LM_STEPS, seed=SEED)
-    specs = arch.input_specs(ShapeConfig("smoke", LM_SEQ, LM_BATCH, "train"))
+    pcfg = ParallelConfig(grad_accum=run.accum, remat="full")
+    tcfg = TrainConfig(warmup=0, steps=run.steps, seed=SEED)
+    specs = arch.input_specs(ShapeConfig("smoke", run.seq, run.batch, "train"))
 
     def make_batch(step):
         return place(synth_batch(specs, cfg, SEED, step), dev)
@@ -671,7 +763,10 @@ def lm_train_phase(dev, smi: str) -> dict:
         last["state"] = state
         return state, m
 
-    kernels = {"flash_attention_fwd": flash_attention_fwd, "rmsnorm": rmsnorm}
+    per_mb = lm_launches_per_microbatch(cfg, pcfg.remat)
+    wrappers = {"flash_attention_fwd": flash_attention_fwd, "ssd_chunk_fwd": ssd_chunk_fwd,
+                "rmsnorm": rmsnorm}
+    kernels = {name: wrappers[name] for name in per_mb}
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -679,7 +774,7 @@ def lm_train_phase(dev, smi: str) -> dict:
     for f in kernels.values():
         f.launches = 0
     report = run_training(init_state=init_state, train_step=timed_step, make_batch=make_batch,
-                          steps=LM_STEPS, cfg=DriverConfig(), seed=SEED)
+                          steps=run.steps, cfg=DriverConfig(), seed=SEED)
     launches = {name: f.launches for name, f in kernels.items()}
     torch.cuda.synchronize()
     run_s = time.monotonic() - t0
@@ -688,15 +783,14 @@ def lm_train_phase(dev, smi: str) -> dict:
     step_ms = [a.elapsed_time(b) for a, b in events]
     losses = [float(m["loss"]) for m in logged]
     gnorms = [float(m["grad_norm"]) for m in logged]
-    per_mb = lm_launches_per_microbatch(cfg, pcfg.remat)
-    want = {k: v * LM_ACCUM * LM_STEPS for k, v in per_mb.items()}
-    print(f"LM: {cfg.name} {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, trained "
+    want = {k: v * run.accum * run.steps for k, v in per_mb.items()}
+    print(f"{run.key}: {cfg.name} {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, trained "
           f"{report.steps_done} steps in {run_s:.1f} s, restarts {report.restarts}, "
           f"launches {launches}, losses {losses}")
     check(report.restarts == 0, f"restarts {report.restarts}")
-    check(report.steps_done == LM_STEPS and len(losses) == LM_STEPS, "LM step count")
+    check(report.steps_done == run.steps and len(losses) == run.steps, f"{run.key} step count")
     check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)), f"losses {losses} gnorms {gnorms}")
-    check(launches == want, f"LM launches {launches} != {want}")
+    check(launches == want, f"{run.key} launches {launches} != {want}")
     check(step1["loss"] == losses[0], "on_grads saw another loss than the run logged")
 
     # where the device time of one step goes (one more step on the final state)
@@ -708,14 +802,13 @@ def lm_train_phase(dev, smi: str) -> dict:
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = device_ms_by_name(prof, 1)
     dev_ms = sum(by_name.values())
-    part = {name: sum(v for k, v in by_name.items() if key in k)
-            for name, key in (("flash_attention_fwd", "flash_attention_fwd_kernel"),
-                              ("rmsnorm", "rmsnorm_kernel"))}
+    part = {name: sum(v for k, v in by_name.items() if LM_KERNEL_TRACE_NAMES[name] in k)
+            for name in kernels}
     check(dev_ms > 0 and all(v > 0 for v in part.values()),
           f"profiler saw no device time for a kernel: {part}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     med = statistics.median(step_ms)
-    print(json.dumps({"profile_lm_train_step": {
+    print(json.dumps({f"profile_{run.key}_step": {
         "wall_ms": prof_wall_ms, "device_ms": dev_ms, "kernel_ms": part,
         "idle_share": max(0.0, 1 - dev_ms / prof_wall_ms),
         # against the unprofiled step (CUDA events, median of the run)
@@ -725,29 +818,30 @@ def lm_train_phase(dev, smi: str) -> dict:
     del last, batch, prof, init_state, train_step
     torch.cuda.empty_cache()
 
-    # step 1's loss against a bf16 forward through the plain versions of B4
-    # and B6: the same params (init is seeded) and both microbatches of step 1
+    # step 1's loss against a bf16 forward through the plain versions of the
+    # path's kernels: the same params (init is seeded) and both microbatches
+    # of step 1
     params0 = arch.init(SEED)
     b0 = make_batch(0)
-    with torch.no_grad(), plain_b4_b6():
-        plain = [float(lm_loss(params0, {k: v.chunk(LM_ACCUM)[i] for k, v in b0.items()},
+    with torch.no_grad(), plain_lm_kernels():
+        plain = [float(lm_loss(params0, {k: v.chunk(run.accum)[i] for k, v in b0.items()},
                                cfg, remat="none"))
-                 for i in range(LM_ACCUM)]
-    plain_loss = sum(plain) / LM_ACCUM
+                 for i in range(run.accum)]
+    plain_loss = sum(plain) / run.accum
     loss_rel = abs(losses[0] - plain_loss) / abs(plain_loss)
-    print(f"LM step-1 loss {losses[0]:.6f} vs the plain B4/B6 forward {plain_loss:.6f} "
+    print(f"{run.key} step-1 loss {losses[0]:.6f} vs the plain-kernel forward {plain_loss:.6f} "
           f"(microbatches {plain}): rel err {loss_rel:.2e}, bar {LM_LOSS_RTOL}")
-    check(loss_rel <= LM_LOSS_RTOL, f"LM step-1 loss rel err {loss_rel}")
+    check(loss_rel <= LM_LOSS_RTOL, f"{run.key} step-1 loss rel err {loss_rel}")
     del params0
     torch.cuda.empty_cache()
 
-    tokens = LM_BATCH * LM_SEQ
-    print(json.dumps({"lm_train": {
+    tokens = run.batch * run.seq
+    print(json.dumps({run.key: {
         "arch": cfg.name, "layers": cfg.n_layers, "params": n_params, "dtype": cfg.dtype,
-        "seq": LM_SEQ, "global_batch": LM_BATCH, "microbatches": LM_ACCUM, "remat": pcfg.remat,
+        "seq": run.seq, "global_batch": run.batch, "microbatches": run.accum, "remat": pcfg.remat,
         "optimizer": tcfg.optimizer, "lr": tcfg.lr, "steps": report.steps_done,
         "restarts": report.restarts, "loss": losses, "grad_norm": gnorms,
-        "step1_loss_plain_b4_b6": plain_loss, "step1_loss_rel_err": loss_rel,
+        "step1_loss_plain_kernels": plain_loss, "step1_loss_rel_err": loss_rel,
         "step_ms_cuda_events": step_ms, "step_ms_cuda_events_median": med,
         "step_ms_host": [t * 1e3 for t in report.step_times],
         "step_ms_host_median": statistics.median(report.step_times) * 1e3,
@@ -758,13 +852,14 @@ def lm_train_phase(dev, smi: str) -> dict:
     return launches
 
 
-def lm_grad_phase(dev) -> dict:
-    """Phase 8: the LM path's loss and gradients through B4 and B6 at full
-    width (2 layers, fp32) against the plain path in fp64, per leaf, and a
-    planted B4 fault that the same check must reject."""
+def lm_grad_phase(dev, run: LMRun, fault, must_fail, note: str) -> dict:
+    """Phase 8 or 11: the LM path's loss and gradients through its kernels at
+    full width (``run.grad_depth`` layers, fp32) against the plain path in
+    fp64, per leaf, and a planted fault that the same check must reject:
+    ``fault`` is a ``swapped`` context, and every leaf in ``must_fail`` must
+    land over its bar under it.  ``note`` says what the fault is."""
     import torch
 
-    import repro_torch.models.attention as attn_mod
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.synthetic import place, synth_batch
     from repro_torch.models.lm import lm_loss
@@ -772,23 +867,23 @@ def lm_grad_phase(dev) -> dict:
     from repro_torch.optim.optimizers import tree_map
     from repro_torch.train.trainer import lm_value_and_grad
 
-    base = with_depth(load_config(LM_ARCH), LM_GRAD_DEPTH)
+    base = with_depth(load_config(run.arch), run.grad_depth)
     cfg32 = dataclasses.replace(base, dtype="float32", param_dtype="float32")
     cfg64 = dataclasses.replace(base, dtype="float64", param_dtype="float64")
     arch = bundle_from_cfg(cfg32, dev)
     params = arch.init(SEED)
-    specs = arch.input_specs(ShapeConfig("smoke", LM_SEQ, LM_BATCH // LM_ACCUM, "train"))
+    specs = arch.input_specs(ShapeConfig("smoke", run.grad_seq, run.grad_batch, "train"))
     batch = place(synth_batch(specs, cfg32, SEED, 0), dev)    # step 1's first microbatch
 
-    def run(cfg, p):
+    def grads(cfg, p):
         return lm_value_and_grad(lambda p_, b_: lm_loss(p_, b_, cfg, remat="full"), p, batch)
 
-    loss_k, g_k = run(cfg32, params)            # through B4 and B6
-    with plain_b4_b6():
+    loss_k, g_k = grads(cfg32, params)            # through the path's kernels
+    with plain_lm_kernels():
         p64 = tree_map(lambda t: t.double(), params)
-        loss64, g64 = run(cfg64, p64)
+        loss64, g64 = grads(cfg64, p64)
         del p64
-        loss32, g32 = run(cfg32, params)
+        loss32, g32 = grads(cfg32, params)
     names = [n for n, _ in named_leaves(g64)]
     # b_k's exact gradient is zero (a key bias shifts a query row's logits
     # alike, which softmax ignores), so its computed grads are rounding
@@ -809,42 +904,129 @@ def lm_grad_phase(dev) -> dict:
     worst = max(range(len(names)), key=lambda i: kern64[i] / bars[i])
     loss_rel = abs(float(loss_k) - float(loss64)) / abs(float(loss64))
     loss32_rel = abs(float(loss32) - float(loss64)) / abs(float(loss64))
-    print(f"LM grads (full width, {LM_GRAD_DEPTH} layers, fp32) vs the plain path in fp64: loss "
-          f"rel err {loss_rel:.2e} (plain fp32 {loss32_rel:.2e}); grads normwise max "
+    print(f"{run.arch} grads (full width, {run.grad_depth} layers, fp32) vs the plain path in "
+          f"fp64: loss rel err {loss_rel:.2e} (plain fp32 {loss32_rel:.2e}); grads normwise max "
           f"{max(kern64):.2e} (plain fp32 {max(plain64):.2e}); nearest its bar: {names[worst]} "
           f"{kern64[worst]:.2e}, {kern64[worst] / bars[worst]:.2f} of its bar")
     check(loss_rel <= max(WGRAD_NORM_TOL, GRAD_FLOOR_FACTOR * loss32_rel),
-          f"LM loss rel err {loss_rel} vs fp64")
+          f"{run.arch} loss rel err {loss_rel} vs fp64")
     for n, e, p, bar in zip(names, kern64, plain64, bars):
-        check(e <= bar, f"LM grad {n}: normwise err {e} vs fp64 over its bar {bar} (plain fp32 {p})")
+        check(e <= bar, f"{run.arch} grad {n}: normwise err {e} vs fp64 over its bar {bar} "
+                        f"(plain fp32 {p})")
     del g_k
 
-    # The same check must reject B4 fed one KV head's values zeroed.
-    real = attn_mod.flash_attention
+    with fault:
+        _, g_bad = grads(cfg32, params)
+    fault_ratio = {n: e / bar for n, e, bar in zip(names, errs(g_bad), bars)}
+    failing = sorted(n for n, r in fault_ratio.items() if r > 1.0)
+    print(f"planted fault ({note}): {len(failing)} of {len(names)} leaves over their bar; "
+          + ", ".join(f"{n} {fault_ratio[n]:.1f}x" for n in must_fail))
+    check(all(n in failing for n in must_fail),
+          f"the {run.arch} grad check passed a planted fault ({note}): {fault_ratio}")
+    del g_bad, g64
+    out = {"loss_rel_err_vs_fp64": loss_rel, "plain32_loss_rel_err_vs_fp64": loss32_rel,
+           "grad_err_vs_fp64": max(kern64), "plain32_grad_err_vs_fp64": max(plain64),
+           "per_leaf": {n: [a, b] for n, a, b in zip(names, kern64, plain64)},
+           "planted_fault_err_over_bar": fault_ratio}
+    if base.ssm is not None:
+        # the record of why the port masks the decay's exponent: the same
+        # grads with the reference's literal where(tri, exp(dseg), 0)
+        import repro_torch.kernels.ssd_chunk.ref as ssd_ref
 
-    def zero_one_kv_head(q, k, v, *a):
-        v = v.clone()
-        v[:, :, 0] = 0
-        return real(q, k, v, *a)
+        def literal_decay(cum):
+            q = cum.shape[-1]
+            tri = torch.ones((q, q), dtype=torch.bool, device=cum.device).tril()
+            return torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]), 0.0)
 
-    attn_mod.flash_attention = zero_one_kv_head
-    try:
-        _, g_bad = run(cfg32, params)
-    finally:
-        attn_mod.flash_attention = real
-    fault = {n: e / bar for n, e, bar in zip(names, errs(g_bad), bars)}
-    failing = sorted(n for n, r in fault.items() if r > 1.0)
-    print(f"planted fault (B4 fed KV head 0's values zeroed): {len(failing)} of {len(names)} "
-          f"leaves over their bar; w_v {fault['/segments/0/0/attn/w_v']:.1f}x, "
-          f"b_v {fault['/segments/0/0/attn/b_v']:.1f}x")
-    check("/segments/0/0/attn/w_v" in failing and "/segments/0/0/attn/b_v" in failing,
-          f"the LM grad check passed a B4 that drops a KV head: {fault}")
-    del g_bad, g64, params
+        with swapped((ssd_ref, "causal_decay", literal_decay)):
+            loss_lit, g_lit = grads(cfg32, params)
+        bad = [n for n, t in named_leaves(g_lit) if not bool(torch.isfinite(t).all())]
+        print(f"the reference's unmasked decay at these inputs: loss {float(loss_lit):.6f}, "
+              f"{len(bad)} of {len(names)} gradient leaves non-finite: {bad}")
+        out["unmasked_reference_form_nonfinite_leaves"] = bad
+        del g_lit
+    del params
     torch.cuda.empty_cache()
-    return {"loss_rel_err_vs_fp64": loss_rel, "plain32_loss_rel_err_vs_fp64": loss32_rel,
-            "grad_err_vs_fp64": max(kern64), "plain32_grad_err_vs_fp64": max(plain64),
-            "per_leaf": {n: [a, b] for n, a, b in zip(names, kern64, plain64)},
-            "planted_fault_err_over_bar": fault}
+    return out
+
+
+def ssd_kernel_phase(dev) -> tuple[list, float]:
+    """Phase 9: B5 against its plain version on the card, TF32 off: at the
+    Mamba2 run's shape (bf16, its path, and fp32), on every case of
+    ``tests/test_kernels.py``'s ``SSD_CASES`` and a T < chunk case, in fp32
+    and bf16; kernel and plain version timed at the run's shape, bound
+    computed (no single torch call computes this function).  Returns (the
+    rows at the run's shape, B5's max err at the path's shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    outs = ("y", "S", "decay", "pref")
+
+    def case(shape, dt, timed):
+        b, t, h, p, g, n, chunk = shape
+        x = torch.randn((b, t, h, p), generator=gen, device=dev).to(dt)
+        d = F.softplus(torch.randn((b, t, h), generator=gen, device=dev))
+        A = -torch.exp(0.3 * torch.randn((h,), generator=gen, device=dev))
+        Bm = torch.randn((b, t, g, n), generator=gen, device=dev).to(dt)
+        Cm = torch.randn((b, t, g, n), generator=gen, device=dev).to(dt)
+        args = (x, d, A, Bm, Cm)
+        got = ssd_chunk_fwd(*args, chunk=chunk)
+        want = ssd_chunk_ref(*args, chunk=chunk)
+        again = ssd_chunk_fwd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        check(all(a.dtype == w.dtype == torch.float32 and a.shape == w.shape
+                  for a, w in zip(got, want)), f"B5 {shape} {dt}: {[a.shape for a in got]}")
+        check(all(torch.equal(a, r) for a, r in zip(got, again)),
+              f"B5 {shape} {dt}: two runs on the same inputs differ")
+        stats = [err_stats(a, w, **TOL_FP32) for a, w in zip(got, want)]
+        row = dict(shape=list(shape), dtype=str(dt), max_abs_err=max(e for e, _ in stats),
+                   err_ratio={o: r for o, (_, r) in zip(outs, stats)}, rule="fp32 bar")
+        missed = [i for i, (_, r) in enumerate(stats) if r > 1.0]
+        if missed:
+            # SSD_FP64_RULE: an output that misses the fp32 bar against the
+            # plain version is held, with the plain version, against fp64
+            exact = ssd_chunk_ref(*(a.double() for a in args), chunk=chunk)
+            k64 = {outs[i]: float((got[i].double() - exact[i]).abs().max()) for i in missed}
+            p64 = {outs[i]: float((want[i].double() - exact[i]).abs().max()) for i in missed}
+            row.update(rule="fp64", kernel_err_vs_fp64=k64, plain_err_vs_fp64=p64)
+            del exact
+            check(all(k64[o] <= SSD_FP64_FACTOR * p64[o] for o in k64),
+                  f"B5 {shape} {dt}: outside the fp32 bar and over {SSD_FP64_FACTOR}x the plain "
+                  f"fp32 version's distance from fp64: {row}")
+        if timed:
+            nc = t // min(chunk, t)
+            q = t // nc
+            # per (batch, chunk, head): the causal pairs' C·B and p·x, and the state
+            flops = b * nc * h * (q * (q + 1) // 2 * (n + p) * 2 + q * n * p * 2)
+            nbytes = sum(a.numel() * a.element_size() for a in args + tuple(got))
+            b_ms, b_by = bound(flops, nbytes)
+            row.update(ms=time_ms(lambda: ssd_chunk_fwd(*args, chunk=chunk)),
+                       plain_ms=time_ms(lambda: ssd_chunk_ref(*args, chunk=chunk), reps=3, iters=3),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
+        del args, got, want, again
+        return row
+
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):      # the Mamba2 run's shape: bf16 is its path
+        r = case(SSD_MODEL_SHAPE, dt, True)
+        rows.append(r)
+        print(f"  B5 {r['shape']} {r['dtype']}: err {r['max_abs_err']:.2e} ({r['rule']}: "
+              f"{r['err_ratio']}) kernel {r['ms']:.3f} ms plain {r['plain_ms']:.3f} bound "
+              f"{r['bound_ms']:.3f} ({r['bound_by']}, {r['flops'] / 1e9:.1f} GFLOP)")
+    for shape in SSD_CASES + [SSD_SHORT_CASE]:
+        for dt in (torch.float32, torch.bfloat16):
+            r = case(shape, dt, False)
+            print(f"  B5 case {shape} {r['dtype']}: err {r['max_abs_err']:.2e} ({r['rule']}: "
+                  f"{r['err_ratio']})")
+    print(f"B5 checks passed (fp32 {TOL_FP32} against the plain version, or SSD_FP64_FACTOR "
+          f"{SSD_FP64_FACTOR} against fp64; bitwise equal on a rerun)")
+    print(json.dumps({"ssd_chunk_shapes": rows}))
+    torch.cuda.empty_cache()
+    return rows, rows[0]["max_abs_err"]
 
 
 def main() -> int:
@@ -1151,10 +1333,42 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6-8. flash attention and RMSNorm; the LM training path ---------------
+    import repro_torch.kernels.ssd_chunk.ops as ssd_ops
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
+
     fa_rows, fa_err, rms_rows, rms_err = attn_norm_kernel_phase(dev)
-    lm_launches = lm_train_phase(dev, smi)
-    lm_grads = lm_grad_phase(dev)
+    lm_launches = lm_train_phase(dev, smi, QWEN_RUN)
+    real_fa = attn_mod.flash_attention
+
+    def zero_one_kv_head(q, k, v, *a):
+        v = v.clone()
+        v[:, :, 0] = 0
+        return real_fa(q, k, v, *a)
+
+    lm_grads = lm_grad_phase(
+        dev, QWEN_RUN, swapped((attn_mod, "flash_attention", zero_one_kv_head)),
+        ["/segments/0/0/attn/w_v", "/segments/0/0/attn/b_v"], "B4 fed KV head 0's values zeroed")
     print(json.dumps({"lm_grads": lm_grads}))
+    torch.cuda.empty_cache()
+    print(f"after the Qwen phases: {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated")
+
+    # -- 9-11. the SSD kernel; the Mamba2 training path ---------------------
+    ssd_rows, ssd_err = ssd_kernel_phase(dev)
+    mamba_launches = lm_train_phase(dev, smi, MAMBA_RUN)
+
+    def zero_head0_y_intra(*a, **k):
+        y, *rest = ssd_chunk_fwd(*a, **k)
+        y[:, :, 0] = 0
+        return (y, *rest)
+
+    # the op's forward reaches B5 through its module reference ``_kernel``
+    mamba_grads = lm_grad_phase(
+        dev, MAMBA_RUN,
+        swapped((ssd_ops, "_kernel", types.SimpleNamespace(ssd_chunk_fwd=zero_head0_y_intra))),
+        ["/segments/0/0/mamba/w_out", "/segments/0/0/mamba/norm_scale"],
+        "B5's y_intra of head 0 zeroed")
+    print(json.dumps({"mamba_grads": mamba_grads}))
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",
                      "src/repro/kernels/conv2d_tiled/kernel.py:140", rows,
@@ -1173,7 +1387,10 @@ def main() -> int:
                      lm_launches["flash_attention_fwd"], fa_err),
         kernel_entry("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                      "src/repro/kernels/rmsnorm/kernel.py:42", rms_rows[:1],
-                     lm_launches["rmsnorm"], rms_err),
+                     lm_launches["rmsnorm"] + mamba_launches["rmsnorm"], rms_err),
+        kernel_entry("ssd_chunk_fwd", "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk_fwd.cu",
+                     "src/repro/kernels/ssd_chunk/kernel.py:98", ssd_rows[:1],
+                     mamba_launches["ssd_chunk_fwd"], ssd_err),
     ]
     check(all(k["launches"] > 0 for k in kernels), f"launches {[k['launches'] for k in kernels]}")
     print(json.dumps({"kernels": kernels}))

@@ -26,6 +26,7 @@ SOURCES: dict[str, Path] = {
     "conv2d_wgrad_tile": _PKG / "conv2d_tiled" / "csrc" / "conv2d_wgrad_tile.cu",
     "flash_attention_fwd": _PKG / "flash_attention" / "csrc" / "flash_attention_fwd.cu",
     "rmsnorm": _PKG / "rmsnorm" / "csrc" / "rmsnorm.cu",
+    "ssd_chunk_fwd": _PKG / "ssd_chunk" / "csrc" / "ssd_chunk_fwd.cu",
 }
 
 NVCC_FLAGS = (

@@ -1,5 +1,5 @@
-"""Training launcher: ``python -m repro_torch.launch.train --arch yolov2-tiled``
-or ``--arch qwen2-7b``.
+"""Training launcher: ``python -m repro_torch.launch.train --arch yolov2-tiled``,
+``--arch qwen2-7b`` or ``--arch mamba2-780m``.
 
 The tiled-CNN path of ``repro/launch/train.py``: plans a YOLOv2 prefix over
 an n x n virtual tile grid, builds the trainer (deferred per-batch weight
@@ -12,8 +12,8 @@ their ROADMAP item: ``--groups auto`` and ``--cluster`` (A.9), ``--schedule
 overlap`` (A.10), ``--crossover`` (A.11), ``--pipeline`` (A.13),
 ``--wire-codec`` (A.14), ``--ckpt-dir`` and ``--fault-schedule`` (A.15).
 
-LM mode (``--arch qwen2-7b``; the other LM ids are A.18): the reduced config
-unless ``--full``, ``--seq`` x ``--batch`` tokens a step from
+LM mode (``--arch qwen2-7b`` or ``mamba2-780m``; the other LM ids are A.18):
+the reduced config unless ``--full``, ``--seq`` x ``--batch`` tokens a step from
 ``data.synthetic.synth_batch`` (the reference's stream), ``--remat``,
 ``--grad-accum``, ``--optimizer``, under the same driver.
 """
@@ -45,7 +45,8 @@ def _resolve_int_or_auto(spec: str):
 
 def _add_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--arch", default=TILED_ARCH,
-                    help=f"'{TILED_ARCH}' or 'qwen2-7b' (the other LM ids are ROADMAP A.18)")
+                    help=f"'{TILED_ARCH}', 'qwen2-7b' or 'mamba2-780m' (the other LM ids are "
+                         "ROADMAP A.18)")
     ap.add_argument("--full", action="store_true", help="LM: the full published config")
     ap.add_argument("--seq", type=int, default=64, help="LM: tokens per sequence")
     ap.add_argument("--remat", default="full", choices=["none", "full", "dots"],

@@ -1,4 +1,5 @@
-"""Decoder-only LM: the dense-attention subset of ``repro/models/lm.py``.
+"""Decoder-only LM: the dense-attention and Mamba2 subset of
+``repro/models/lm.py``.
 
 Layers are grouped into *segments* as in the reference (an irregular prefix
 plus a periodic block repeated R times), and the params keep its layout:
@@ -13,9 +14,10 @@ gradients once).  ``remat="full"`` wraps each block in a non-reentrant
 left out.
 
 Losses: token-chunked cross-entropy (each chunk checkpointed, so peak
-memory is chunk x vocab, not tokens x vocab).  Mamba mixers, MoE layers and
-their aux loss, MTP heads, VLM patch embeddings, ``remat="dots"`` and the
-serving path (caches, ``decode_step``) raise naming ROADMAP A.18.
+memory is chunk x vocab, not tokens x vocab).  A layer's mixer is attention
+(``models/attention.py``) or a Mamba2 block (``models/mamba2.py``).  MoE
+layers and their aux loss, MTP heads, VLM patch embeddings, ``remat="dots"``
+and the serving path (caches, ``decode_step``) raise naming ROADMAP A.18.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import apply_norm, embed_init, init_norm
 from repro_torch.optim.optimizers import tree_map
@@ -91,9 +94,6 @@ def plan_segments(cfg: ModelConfig) -> list[Segment]:
 
 
 def _check_supported(kind: LayerKind) -> None:
-    if kind.mixer != "attn":
-        raise NotImplementedError("Mamba2 mixer layers: ROADMAP A.18 (next: B5 with "
-                                  "core/sequence.py and models/mamba2.py)")
     if kind.moe:
         raise NotImplementedError("Mixture-of-Experts layers: ROADMAP A.18")
 
@@ -106,7 +106,10 @@ def _check_supported(kind: LayerKind) -> None:
 def _init_layer(gen: torch.Generator, kind: LayerKind, cfg: ModelConfig, dtype) -> dict:
     _check_supported(kind)
     p: dict[str, Any] = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, gen.device)}
-    p["attn"] = attn_mod.init_attention(gen, cfg, dtype)
+    if kind.mixer == "attn":
+        p["attn"] = attn_mod.init_attention(gen, cfg, dtype)
+    else:
+        p["mamba"] = mamba_mod.init_mamba(gen, cfg, dtype)
     if cfg.d_ff > 0 and not cfg.parallel_block:
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, gen.device)
     if cfg.d_ff > 0:
@@ -159,9 +162,12 @@ def _apply_layer(p: dict, kind: LayerKind, x: torch.Tensor, positions: torch.Ten
                  cfg: ModelConfig, *, arange_positions: bool = False) -> torch.Tensor:
     _check_supported(kind)
     h = apply_norm(cfg.norm, x, p["norm1"])
-    window = cfg.swa_window if kind.swa else None
-    mix = attn_mod.attention(p["attn"], h, positions, cfg, causal=True, window=window,
-                             arange_positions=arange_positions)
+    if kind.mixer == "attn":
+        window = cfg.swa_window if kind.swa else None
+        mix = attn_mod.attention(p["attn"], h, positions, cfg, causal=True, window=window,
+                                 arange_positions=arange_positions)
+    else:
+        mix = mamba_mod.mamba_block(p["mamba"], h, cfg)
     if cfg.parallel_block:
         # command-r: attn and mlp both read the same normed input
         ff = mlp_mod.mlp(p["mlp"], h, cfg.act) if "mlp" in p else 0.0

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> config + model functions + specs
 (``repro/models/registry.py``).
 
-Only the configs the port can run resolve: ``qwen2-7b`` (dense GQA).  Every
-other id of the reference raises naming ROADMAP A.18.  A bundle's
+Only the configs the port can run resolve: ``qwen2-7b`` (dense GQA) and
+``mamba2-780m`` (SSD).  Every other id of the reference raises naming
+ROADMAP A.18.  A bundle's
 ``init(seed)`` draws its params on the bundle's device; ``decode_fn`` and
 ``make_caches`` (LM serving) raise, as the next slices port them.
 """
@@ -23,7 +24,7 @@ ARCH_MODULES = {
     "stablelm-1.6b": None,
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "command-r-35b": None,
-    "mamba2-780m": None,
+    "mamba2-780m": "repro_torch.configs.mamba2_780m",
     "mixtral-8x22b": None,
     "deepseek-v3-671b": None,
     "qwen2-vl-2b": None,
