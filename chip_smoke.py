@@ -5,7 +5,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. the card: ``nvidia-smi`` name and power limit;
 2. build every CUDA kernel from this checkout's sources (``nvcc``, into
-   ``build/repro_torch_kernels/``) and print ptxas' register report;
+   ``build/repro_torch_kernels/``) and print ptxas' register report; fail
+   if B4's tensor-core instances (``wgmma_bf16_dh64`` / ``_dh128``) issue no
+   ``HGMMA`` in their SASS (``cuobjdump -sass``) or spill;
 3. hold each kernel against its plain torch version on the card, TF32 off,
    at every per-tile shape its run gives it plus edge cases (stride 2,
    ragged, Cout=1, odd Cin, bf16 and mixed precision), and time kernel,
@@ -32,17 +34,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``{"train": ...}`` line and a profile of one step;
 6. flash attention (B4) and RMSNorm (B6) against their plain versions on the
    card, TF32 off: at the LM run's shapes (q (2, 2048, 28, 128), k/v
-   (2, 2048, 4, 128), causal; RMSNorm on (4096, 3584)), bf16 and fp32, and
-   on every case of ``tests/test_kernels.py``'s ``FA_CASES`` and
-   ``RMS_CASES``; kernel, plain version and one library call timed
-   (``F.scaled_dot_product_attention`` with the same mask and repeated KV
-   heads, ``F.rms_norm``), bounds computed;
+   (2, 2048, 4, 128), causal; RMSNorm on (4096, 3584)), bf16 and fp32, on
+   every case of ``tests/test_kernels.py``'s ``FA_CASES`` in its own dtype
+   and in bf16, on ``FA_BF16_EDGE_CASES`` and on ``RMS_CASES``, each B4
+   case naming the instance it took; kernel, plain version and one library
+   call timed (``F.scaled_dot_product_attention`` with the same mask and
+   repeated KV heads, ``F.rms_norm``), bounds computed (B4 in bf16 on the
+   tensor cores, in fp32 on the CUDA cores); at the LM shape in bf16 the
+   kernel's and the plain version's distances from an fp64 evaluation, the
+   kernel within ``FA_FP64_FACTOR`` of the plain version's;
 7. train Qwen2-7B at full width, 12 of its 28 layers (bf16, random weights
    from seed 0), AdamW (``TrainConfig`` defaults, no warmup), remat
    "full": global batch 4 x 2048 tokens in 2 microbatches from
    ``synth_batch``, 3 steps through ``make_train_step`` and
    ``run_training``.  Checks the B4 and B6 launch counts against the
-   code's, ``restarts`` 0, finite losses, and the step-1 loss against a
+   code's (every B4 launch on a tensor-core instance), ``restarts`` 0,
+   finite losses, and the step-1 loss against a
    forward pass through the plain versions of B4 and B6 on the same params
    (rtol ``LM_LOSS_RTOL``).  Prints the ``{"lm_train": ...}`` line and a
    profile of one step;
@@ -50,8 +57,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the same stream - the loss and gradients the trainer's
    ``lm_value_and_grad`` takes through B4 and B6, held per leaf against
    the plain path in fp64 within max(1e-3, 2 x the fp32 plain path's own
-   distance), and the same check must reject a planted fault (B4 fed one
-   KV head's values zeroed);
+   distance), every B4 launch on a SIMT instance, and the same check must
+   reject a planted fault (B4 fed one KV head's values zeroed);
 9. the SSD intra-chunk kernel (B5) against its plain version on the card,
    TF32 off: at the Mamba2 run's shape (x (2, 4096, 48, 64), B/C (2, 4096,
    1, 128), chunk 256) in bf16 and fp32, on every case of
@@ -123,7 +130,7 @@ TRAIN_LOSS_RTOL = 1e-5
 # fp64 run of the trainer.  Distances from the fp32 reference are printed too.
 GRAD_FLOOR_FACTOR = 2.0
 TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_LR = 8, 2, 3, 1e-3
-# bf16 tensor-core peak (dense) of an H100 SXM, printed beside B4's fp32 bound
+# bf16 tensor-core peak (dense) of an H100 SXM: B4's bound in bf16
 BF16_PEAK_FLOPS = 989e12
 # LM phases: Qwen2-7B at full width, 12 of 28 layers (the deepest cut whose
 # bf16 params, fp32 grad accumulators and fp32 AdamW moments fit 80 GB)
@@ -143,6 +150,16 @@ FA_CASES = [                 # tests/test_kernels.py:30
     (1, 128, 128, 4, 4, 64, True, None, "bfloat16"),
     (1, 128, 256, 4, 4, 64, False, None, "float32"),     # cross-length
 ]
+FA_BF16_EDGE_CASES = [       # the tensor-core instance's edges, bf16
+    (1, 200, 200, 4, 2, 128, True, None),                # Dh 128, ragged Tq = Tk
+    (1, 100, 300, 4, 2, 128, True, None),                # Tq < Tk
+    (1, 512, 512, 14, 2, 128, True, 96),                 # window 96, GQA 7x
+]
+# At the LM shape in bf16, B4's max |err| from an fp64 evaluation of the
+# plain version must be within this factor of the plain version's own (fp32
+# math on the same bf16 inputs, output rounded to bf16: the output's own
+# rounding sets that distance).
+FA_FP64_FACTOR = 2.0
 RMS_CASES = [                # tests/test_kernels.py:411
     ((4, 128, 512), "float32"),
     ((1000, 256), "float32"),
@@ -531,7 +548,7 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import fa_instance, flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -549,16 +566,21 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
         torch.cuda.synchronize()
         check(got.dtype == want.dtype == dt and got.shape == want.shape, f"B4 {got.dtype} {got.shape}")
         err, ratio = err_stats(got, want, **tol(dt))
-        check(ratio <= 1.0, f"B4 {(b, tq, tk, hq, hkv, dh, causal, window, dt)}: max err {err} "
-              f"over tolerance {tol(dt)}")
+        instance = fa_instance(dt, dh)
+        check(ratio <= 1.0, f"B4 {(b, tq, tk, hq, hkv, dh, causal, window, dt)} ({instance}): max "
+              f"err {err} over tolerance {tol(dt)}")
         row = dict(shape=[b, tq, tk, hq, hkv, dh], causal=causal, window=window, dtype=str(dt),
-                   max_abs_err=err, err_ratio=ratio)
+                   instance=instance, max_abs_err=err, err_ratio=ratio)
         if timed:
             mask = attention_mask(tq, tk, causal, window, dev)
             pairs = int(mask.sum())
             flops = 4 * b * hq * dh * pairs          # q·k and p·v over the unmasked pairs
             nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-            b_ms, b_by = bound(flops, nbytes)
+            fp32_ms, fp32_by = bound(flops, nbytes)
+            tc_ms = 1e3 * max(flops / BF16_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S)
+            tc_by = "operations" if flops / BF16_PEAK_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
+            # the bound of the units the instance runs on: bf16 tensor cores or fp32 CUDA cores
+            b_ms, b_by = (tc_ms, tc_by) if dt == torch.bfloat16 else (fp32_ms, fp32_by)
             # the library call: SDPA on (B, H, T, D) with the KV heads repeated
             rep = hq // hkv
             qs = q.transpose(1, 2)
@@ -572,23 +594,41 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
                                  reps=3, iters=3),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, **lib_kw)),
                 bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
-                bf16_tensor_core_bound_ms=1e3 * max(flops / BF16_PEAK_FLOPS,
-                                                    nbytes / HBM_BYTES_PER_S))
+                fp32_core_bound_ms=fp32_ms, bf16_tensor_core_bound_ms=tc_ms)
             del qs, ks, vs, mask
+            if dt == torch.bfloat16:
+                # kernel and plain version (fp32 math, output rounded to bf16)
+                # against an fp64 evaluation of the plain version
+                exact = attention_ref(q.double(), k.double(), v.double(), causal=causal,
+                                      window=window)
+                row.update(kernel_err_vs_fp64=float((got.double() - exact).abs().max()),
+                           plain_err_vs_fp64=float((want.double() - exact).abs().max()))
+                del exact
+                check(row["kernel_err_vs_fp64"] <= FA_FP64_FACTOR * row["plain_err_vs_fp64"],
+                      f"B4 {instance} at the LM shape: {row['kernel_err_vs_fp64']} from fp64, over "
+                      f"{FA_FP64_FACTOR} x the plain version's {row['plain_err_vs_fp64']}")
+        del q, k, v, got, want
         return row
 
     fa_rows = []
     for dt in (torch.bfloat16, torch.float32):      # the LM run's shape: bf16 is its path
         r = fa_case(LM_BATCH // LM_ACCUM, LM_SEQ, LM_SEQ, 28, 4, 128, True, None, dt, True)
         fa_rows.append(r)
-        print(f"  B4 {r['shape']} causal {r['dtype']}: err {r['max_abs_err']:.2e} "
-              f"({r['err_ratio']:.3f} of tol) kernel {r['ms']:.3f} ms plain {r['plain_ms']:.3f} "
-              f"sdpa {r['library_ms']:.3f} bound {r['bound_ms']:.3f} ({r['bound_by']}, fp32 "
-              f"cores; bf16 tensor cores {r['bf16_tensor_core_bound_ms']:.3f})")
-    for case in FA_CASES:
-        r = fa_case(*case[:8], getattr(torch, case[8]), False)
-        print(f"  B4 case {case}: err {r['max_abs_err']:.2e} ({r['err_ratio']:.3f} of tol)")
-    print(f"B4 checks passed (fp32 {TOL_FP32}, bf16 {TOL_BF16})")
+        fp64 = (f"; vs fp64: kernel {r['kernel_err_vs_fp64']:.3e} plain "
+                f"{r['plain_err_vs_fp64']:.3e}" if "kernel_err_vs_fp64" in r else "")
+        print(f"  B4 {r['shape']} causal {r['dtype']} ({r['instance']}): err "
+              f"{r['max_abs_err']:.2e} ({r['err_ratio']:.3f} of tol) kernel {r['ms']:.4f} ms plain "
+              f"{r['plain_ms']:.3f} sdpa {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}; fp32 cores {r['fp32_core_bound_ms']:.3f}, bf16 tensor cores "
+              f"{r['bf16_tensor_core_bound_ms']:.4f}){fp64}")
+    cases = [(c[:8], c[8]) for c in FA_CASES]
+    cases += [(c[:8], "bfloat16") for c in FA_CASES if c[8] != "bfloat16"]
+    cases += [(c, "bfloat16") for c in FA_BF16_EDGE_CASES]
+    for shape, dt in cases:
+        r = fa_case(*shape, getattr(torch, dt), False)
+        print(f"  B4 case {shape} {dt} ({r['instance']}): err {r['max_abs_err']:.2e} "
+              f"({r['err_ratio']:.3f} of tol)")
+    print(f"B4 checks passed (fp32 {TOL_FP32}, bf16 {TOL_BF16}; {len(cases) + 2} cases)")
 
     def rms_case(shape, dt, timed):
         x = torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -648,7 +688,7 @@ QWEN_RUN = LMRun("lm_train", LM_ARCH, LM_DEPTH, LM_SEQ, LM_BATCH, LM_ACCUM, LM_S
 MAMBA_RUN = LMRun("mamba_train", MAMBA_ARCH, MAMBA_DEPTH, MAMBA_SEQ, MAMBA_BATCH, MAMBA_ACCUM,
                   MAMBA_STEPS, MAMBA_GRAD_DEPTH, 1, MAMBA_GRAD_SEQ)
 # each LM kernel's name in a profiler trace
-LM_KERNEL_TRACE_NAMES = {"flash_attention_fwd": "flash_attention_fwd_kernel",
+LM_KERNEL_TRACE_NAMES = {"flash_attention_fwd": "flash_attention_fwd_",   # both instances
                          "ssd_chunk_fwd": "ssd_chunk_fwd_kernel", "rmsnorm": "rmsnorm_kernel"}
 
 
@@ -730,7 +770,7 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
 
     from repro_torch.configs.base import ParallelConfig, ShapeConfig, TrainConfig
     from repro_torch.data.synthetic import place, synth_batch
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd, reset_launches
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm
     from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
     from repro_torch.models.lm import lm_loss
@@ -773,9 +813,11 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     t0 = time.monotonic()
     for f in kernels.values():
         f.launches = 0
+    reset_launches()
     report = run_training(init_state=init_state, train_step=timed_step, make_batch=make_batch,
                           steps=run.steps, cfg=DriverConfig(), seed=SEED)
     launches = {name: f.launches for name, f in kernels.items()}
+    b4_instances = {k: v for k, v in flash_attention_fwd.launches_by_instance.items() if v}
     torch.cuda.synchronize()
     run_s = time.monotonic() - t0
     peak = torch.cuda.max_memory_allocated(dev)
@@ -791,6 +833,10 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     check(report.steps_done == run.steps and len(losses) == run.steps, f"{run.key} step count")
     check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)), f"losses {losses} gnorms {gnorms}")
     check(launches == want, f"{run.key} launches {launches} != {want}")
+    # a bf16 run's attention goes to the tensor-core instance alone
+    check(sum(b4_instances.values()) == launches.get("flash_attention_fwd", 0)
+          and all(k.startswith("wgmma_bf16") for k in b4_instances),
+          f"{run.key} B4 launches by instance {b4_instances}")
     check(step1["loss"] == losses[0], "on_grads saw another loss than the run logged")
 
     # where the device time of one step goes (one more step on the final state)
@@ -847,7 +893,7 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
         "step_ms_host_median": statistics.median(report.step_times) * 1e3,
         "tokens_per_s_cuda_events": tokens / (med / 1e3),
         "peak_mem_bytes": peak, "launches": launches, "launches_expected": want,
-        "card": smi,
+        "b4_launches_by_instance": b4_instances, "card": smi,
     }}))
     return launches
 
@@ -862,6 +908,7 @@ def lm_grad_phase(dev, run: LMRun, fault, must_fail, note: str) -> dict:
 
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.synthetic import place, synth_batch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd, reset_launches
     from repro_torch.models.lm import lm_loss
     from repro_torch.models.registry import bundle_from_cfg, load_config, with_depth
     from repro_torch.optim.optimizers import tree_map
@@ -878,7 +925,13 @@ def lm_grad_phase(dev, run: LMRun, fault, must_fail, note: str) -> dict:
     def grads(cfg, p):
         return lm_value_and_grad(lambda p_, b_: lm_loss(p_, b_, cfg, remat="full"), p, batch)
 
+    reset_launches()
     loss_k, g_k = grads(cfg32, params)            # through the path's kernels
+    b4_instances = {k: v for k, v in flash_attention_fwd.launches_by_instance.items() if v}
+    # an fp32 model's attention goes to the SIMT instance alone
+    check(all(k.startswith("simt_fp32") for k in b4_instances)
+          and (base.ssm is not None or sum(b4_instances.values()) > 0),
+          f"{run.arch} fp32 grads: B4 launches by instance {b4_instances}")
     with plain_lm_kernels():
         p64 = tree_map(lambda t: t.double(), params)
         loss64, g64 = grads(cfg64, p64)
@@ -927,7 +980,7 @@ def lm_grad_phase(dev, run: LMRun, fault, must_fail, note: str) -> dict:
     out = {"loss_rel_err_vs_fp64": loss_rel, "plain32_loss_rel_err_vs_fp64": loss32_rel,
            "grad_err_vs_fp64": max(kern64), "plain32_grad_err_vs_fp64": max(plain64),
            "per_leaf": {n: [a, b] for n, a, b in zip(names, kern64, plain64)},
-           "planted_fault_err_over_bar": fault_ratio}
+           "planted_fault_err_over_bar": fault_ratio, "b4_launches_by_instance": b4_instances}
     if base.ssm is not None:
         # the record of why the port masks the decay's exponent: the same
         # grads with the reference's literal where(tri, exp(dseg), 0)
@@ -1047,6 +1100,8 @@ def main() -> int:
         conv2d_dgrad_tile,
         conv2d_tile,
         conv2d_wgrad_tile,
+        wgrad_split,
+        wgrad_tile,
     )
     from repro_torch.kernels.conv2d_tiled.ref import (
         conv2d_dgrad_ref,
@@ -1075,6 +1130,16 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
+    tc_sass = {fn: text.count("HGMMA") for fn, text in _build.sass("flash_attention_fwd").items()
+               if "flash_attention_fwd_wgmma_kernel" in fn}
+    tc_spills = {fn: v for fn, v in _build.spills("flash_attention_fwd").items()
+                 if "flash_attention_fwd_wgmma_kernel" in fn}
+    print(f"B4 tensor-core instances: HGMMA instructions {list(tc_sass.values())}, spill bytes "
+          f"(stores, loads) {list(tc_spills.values())}")
+    check(len(tc_sass) == 2 and all(n > 0 for n in tc_sass.values()),
+          f"B4 tensor-core instances without HGMMA in their SASS: {tc_sass}")
+    check(len(tc_spills) == 2 and all(v == (0, 0) for v in tc_spills.values()),
+          f"B4 tensor-core instances spill: {tc_spills}")
 
     # -- 3. kernel against its plain version ----------------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -1208,13 +1273,17 @@ def main() -> int:
         check(torch.equal(conv2d_wgrad_tile(x, g, k, stride=st), conv2d_wgrad_tile(x, g, k, stride=st)),
               f"wgrad layer {s['layer']}: two runs on the same inputs differ")
         b_ms, b_by = bound(flops, nbytes)
+        rows_kc, cout = k * k * s["w"][2], s["w"][3]
+        tile, split = wgrad_tile(rows_kc, cout), wgrad_split(math.prod(g.shape[:3]), rows_kc, cout)
         row = dict(layer=s["layer"], x=s["x"], w=s["w"], max_abs_err=w_err, err_ratio=w_ratio,
+                   tile=tile, splits_chunk=list(split),
                    ms=time_ms(lambda: conv2d_wgrad_tile(x, g, k, stride=st)),
                    plain_ms=time_ms(lambda: conv2d_wgrad_ref(x, g, k, st)),
                    library_ms=time_ms(lambda: torch.nn.grad.conv2d_weight(xn, wn.shape, gn, stride=st)),
                    bound_ms=b_ms, bound_by=b_by)
         wgrad_rows.append(row)
-        print(line + f" wgrad err {w_err:.2e} ({w_ratio:.2f} of normwise tol) {row['ms']:.4f} ms "
+        print(line + f" wgrad ({tile}, splits x chunk {split[0]} x {split[1]}) err {w_err:.2e} "
+              f"({w_ratio:.2f} of normwise tol) {row['ms']:.4f} ms "
               f"plain {row['plain_ms']:.4f} cudnn {row['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
         del x, w, g, xn, wn, gn
 

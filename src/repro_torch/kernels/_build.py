@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -64,6 +65,27 @@ def build_log(name: str) -> str:
     last build of ``name`` in this checkout, or '' when it was not built."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def spills(name: str) -> dict[str, tuple[int, int]]:
+    """(spill store bytes, spill load bytes) of each kernel function in
+    ``name``'s last build, by mangled name, from ptxas' report."""
+    out = {}
+    for fn, stores, loads in re.findall(
+            r"Function properties for (\S+)\s*\n\s*\d+ bytes stack frame, (\d+) bytes spill "
+            r"stores, (\d+) bytes spill loads", build_log(name)):
+        out[fn] = (int(stores), int(loads))
+    return out
+
+
+def sass(name: str) -> dict[str, str]:
+    """The SASS of each kernel function in library ``name`` (``cuobjdump
+    -sass`` of the built library), by mangled name."""
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    parts = re.split(r"^\s*Function : (\S+)\s*$", text, flags=re.M)
+    return dict(zip(parts[1::2], parts[2::2]))
 
 
 def build(names=None) -> dict[str, Path]:

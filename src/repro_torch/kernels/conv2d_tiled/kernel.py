@@ -21,20 +21,29 @@ from repro_torch.kernels.conv2d_tiled.ref import conv2d_dgrad_ref, conv2d_ref, c
 _ACT_CODE = {"linear": 0, "relu": 1, "leaky": 2}
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_YZ = 65535
-_BM = 64          # GEMM rows (and columns) per CTA in every kernel (BM = BN)
+_BM = 64          # GEMM rows (and columns) per CTA of the forward and dgrad kernels
 
-# Split-K target of the wgrad kernel: enough blocks for 8 per SM of a
-# 132-SM H100.  A constant, so the split - and the summation order - depends
-# on the shape alone and a result is the same on every run and every card.
-_WGRAD_TARGET_BLOCKS = 8 * 132
-_WGRAD_MIN_CHUNK = 256   # pixels per slice, at least (16 BK stages)
-_BK = 16                 # pixels per wgrad stage (the kernel's BK)
+# wgrad partial-kernel tiles: name -> (the C launcher's tile code, filter rows
+# per CTA, output channels per CTA, threads per CTA)
+WGRAD_TILES = {
+    "32x32": (0, 32, 32, 64),
+    "128x64": (1, 128, 64, 256),
+    "128x128": (2, 128, 128, 256),
+}
+WGRAD_BK = 16            # pixels per wgrad stage (the kernel's BK)
+# Split-K target of the wgrad kernel: about 4 blocks of 256 threads per SM of
+# a 132-SM H100 (2 resident at a time), in threads so a smaller tile gets
+# proportionally more blocks.  Constants, so the split - and the summation
+# order - depends on the shape alone and a result is the same on every run
+# and every card.
+_WGRAD_TARGET_THREADS = 4 * 132 * 256
+_WGRAD_MIN_CHUNK = 64    # pixels per slice, at least (4 stages)
 
 _ARGTYPES = {      # each launch function's C arguments before the stream
     "conv2d_tile": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12,
     "conv2d_dgrad_tile": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11,
     "conv2d_wgrad_tile": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_longlong]
-    + [ctypes.c_int] * 3,
+    + [ctypes.c_int] * 4,
 }
 
 
@@ -156,15 +165,27 @@ def conv2d_dgrad_tile(
 conv2d_dgrad_tile.launches = 0
 
 
+def wgrad_tile(rows: int, cout: int) -> str:
+    """The wgrad partial kernel's tile for a (rows = K*K*Cin) x Cout output:
+    32 x 32 for outputs that small (the first layer's 27 x 32), 128 x 128
+    where Cout > 64, else 128 x 64."""
+    if rows <= 32 and cout <= 32:
+        return "32x32"
+    return "128x128" if cout > 64 else "128x64"
+
+
 def wgrad_split(pixels: int, rows: int, cout: int) -> tuple[int, int]:
     """(splits, chunk) of the wgrad reduction over ``pixels`` = N*OH*OW for
     a (rows = K*K*Cin) x Cout output: enough slices to put about
-    ``_WGRAD_TARGET_BLOCKS`` blocks in flight, each at least
-    ``_WGRAD_MIN_CHUNK`` pixels long, chunks a multiple of the stage."""
-    tiles = -(-rows // _BM) * -(-cout // _BM)
-    splits = max(1, min(-(-_WGRAD_TARGET_BLOCKS // tiles), -(-pixels // _WGRAD_MIN_CHUNK)))
+    ``_WGRAD_TARGET_THREADS`` threads in flight in ``wgrad_tile``'s blocks,
+    each slice at least ``_WGRAD_MIN_CHUNK`` pixels long, chunks a multiple
+    of the stage."""
+    _, bm, bn, threads = WGRAD_TILES[wgrad_tile(rows, cout)]
+    tiles = -(-rows // bm) * -(-cout // bn)
+    target = _WGRAD_TARGET_THREADS // threads
+    splits = max(1, min(-(-target // tiles), -(-pixels // _WGRAD_MIN_CHUNK)))
     chunk = -(-pixels // splits)
-    chunk = -(-chunk // _BK) * _BK
+    chunk = -(-chunk // WGRAD_BK) * WGRAD_BK
     return -(-pixels // chunk), chunk
 
 
@@ -202,15 +223,16 @@ def conv2d_wgrad_tile(
     pixels = n * oh * ow
     if pixels == 0 or cout == 0 or cin == 0:
         return out.zero_()
+    code, bm, _, _ = WGRAD_TILES[wgrad_tile(rows, cout)]
     splits, chunk = wgrad_split(pixels, rows, cout)
-    if splits > _MAX_GRID_YZ or -(-rows // _BM) > _MAX_GRID_YZ:
+    if splits > _MAX_GRID_YZ or -(-rows // bm) > _MAX_GRID_YZ:
         raise ValueError(f"conv2d_wgrad_tile grid too large for {rows} filter rows")
     part = torch.empty((splits, rows, cout), dtype=torch.float32, device=x.device)
     _run("conv2d_wgrad_tile", x.device,
          x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(), n, h, wd, cin,
          kernel, cout, oh, ow, stride, splits, chunk,
          int(x.dtype == torch.bfloat16), int(g.dtype == torch.bfloat16),
-         int(out_dtype == torch.bfloat16))
+         int(out_dtype == torch.bfloat16), code)
     conv2d_wgrad_tile.launches += 1
     return out
 

@@ -18,7 +18,7 @@ from repro_torch.core.fusion import (
     make_tiled_loss,
 )
 from repro_torch.core.spatial import LayerDef, init_stack_params
-from repro_torch.launch.mesh import make_tile_mesh
+from repro_torch.launch.mesh import make_tile_mesh, resolve_device
 from repro_torch.models.tiled_cnn import TiledCNNArch
 
 
@@ -59,9 +59,9 @@ def make_plan(
 
 
 def init_yolo(seed: int | torch.Generator, plan: StackPlan, dtype=torch.float32,
-              device="cpu"):
+              device="cuda"):
     gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
-    return init_stack_params(gen, plan.layers, dtype, device)
+    return init_stack_params(gen, plan.layers, dtype, resolve_device(device))
 
 
 def l2_loss_local(y: torch.Tensor, t: torch.Tensor):

@@ -17,9 +17,12 @@ from repro.kernels.conv2d_tiled.backward import conv2d_wgrad_tile as jax_wgrad
 from repro.kernels.conv2d_tiled.backward import rotate_filter as jax_rotate
 from repro.kernels.conv2d_tiled.ops import conv2d as jax_conv2d
 from repro_torch.kernels.conv2d_tiled.kernel import (
-    conv2d_dgrad_tile,
+    WGRAD_BK,
+    WGRAD_TILES,
     conv2d_wgrad_tile,
+    conv2d_dgrad_tile,
     wgrad_split,
+    wgrad_tile,
 )
 from repro_torch.kernels.conv2d_tiled.ops import conv2d
 from repro_torch.kernels.conv2d_tiled.ref import rotate_filter_ref
@@ -196,9 +199,48 @@ TRAIN_WGRAD = [(16 * 212 * 212, 27, 32), (16 * 104 * 104, 288, 64), (16 * 54 * 5
 @pytest.mark.parametrize("pixels,rows,cout", TRAIN_WGRAD + [(7, 9, 1), (16, 64, 64), (5000, 4608, 512)])
 def test_wgrad_split_covers_the_reduction(pixels, rows, cout):
     splits, chunk = wgrad_split(pixels, rows, cout)
-    assert splits >= 1 and chunk % 16 == 0
+    assert splits >= 1 and chunk % WGRAD_BK == 0
     assert (splits - 1) * chunk < pixels <= splits * chunk       # every slice non-empty
     assert wgrad_split(pixels, rows, cout) == (splits, chunk)     # shape alone decides
-    blocks = splits * -(-rows // 64) * -(-cout // 64)
+    _, bm, bn, _ = WGRAD_TILES[wgrad_tile(rows, cout)]
+    blocks = splits * -(-rows // bm) * -(-cout // bn)
     if (pixels, rows, cout) in TRAIN_WGRAD:
         assert blocks >= 300, blocks            # a few hundred blocks for a 132-SM card
+
+
+@pytest.mark.parametrize("rows,cout,want", [
+    (27, 32, "32x32"),          # the first layer: 3x3x3 filter rows, 32 channels
+    (32, 32, "32x32"),
+    (27, 64, "128x64"),
+    (288, 64, "128x64"),
+    (128, 64, "128x64"),
+    (9, 1, "32x32"),
+    (576, 128, "128x128"),
+    (2304, 512, "128x128"),
+    (512, 256, "128x128"),
+])
+def test_wgrad_tile_is_a_function_of_the_output_shape(rows, cout, want):
+    assert wgrad_tile(rows, cout) == want
+    _, bm, bn, threads = WGRAD_TILES[want]
+    assert bm % 4 == 0 and bn % 4 == 0 and threads % 32 == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_case", [
+    ((2, 14, 13, 3), (3, 3, 3, 5), 2),          # 32x32, Cin 3: 4-byte gathers
+    ((2, 20, 20, 32), (3, 3, 32, 64), 1),       # 128x64, 16-byte gathers
+    ((2, 12, 12, 64), (3, 3, 64, 96), 1),       # 128x128, ragged Cout
+    ((3, 19, 23, 5), (3, 3, 5, 70), 2),         # 128x128, odd Cin
+], ids=["32x32", "128x64", "128x128", "128x128-odd-cin"])
+def test_wgrad_tiles_on_the_card(tile_case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode); run chip_smoke.py there")
+    xs, ws, s = tile_case
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal(xs).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(
+        (xs[0], (xs[1] - ws[0]) // s + 1, (xs[2] - ws[0]) // s + 1, ws[3])).astype(np.float32))
+    want = conv2d_wgrad_tile(x, g, ws[0], stride=s)
+    got = conv2d_wgrad_tile(x.cuda(), g.cuda(), ws[0], stride=s)
+    assert torch.equal(got, conv2d_wgrad_tile(x.cuda(), g.cuda(), ws[0], stride=s))
+    assert float((got.cpu() - want).abs().max()) <= 1e-3 * float(want.abs().max())

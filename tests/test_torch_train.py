@@ -546,7 +546,7 @@ def test_yolo_train_fns_agree_with_the_untiled_reference():
     from repro_torch.models.yolo import init_yolo, make_yolo_train_fns
 
     arch = make_yolo_tiled_arch((32, 32), 4, 2, 2, [Group(0, 1), Group(2, 3)], device="cpu")
-    params = init_yolo(0, arch.plan)
+    params = init_yolo(0, arch.plan, device="cpu")
     assert all(torch.equal(a[k], b[k]) for a, b in zip(params, arch.init(0)) for k in a)
     b = _batch(0)
     x, t = torch.from_numpy(b["x"]), torch.from_numpy(b["t"])
@@ -588,6 +588,16 @@ def test_launcher_unported_flags_name_their_roadmap_item(flags, item):
     base = ["--device", "cpu", "--input-hw", "32", "--depth", "4", "--steps", "1", "--grid", "2"]
     with pytest.raises(NotImplementedError, match=item):
         main(base + flags)
+
+
+def test_init_yolo_defaults_to_the_card():
+    from repro_torch.models.yolo import init_yolo
+
+    plan = make_yolo_tiled_arch((32, 32), 4, 2, 2, [Group(0, 1), Group(2, 3)], device="cpu").plan
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_yolo(0, plan)
 
 
 def test_launcher_defaults_to_the_card():
