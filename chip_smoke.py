@@ -7,13 +7,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. build every CUDA kernel from this checkout's sources (``nvcc``, into
    ``build/repro_torch_kernels/``) and print ptxas' register report; fail
    if B4's tensor-core instances (``wgmma_bf16_dh64`` / ``_dh128``) issue no
-   ``HGMMA`` in their SASS (``cuobjdump -sass``) or spill;
+   ``HGMMA`` in their SASS (``cuobjdump -sass``) or spill, or if any kernel
+   of B2 spills;
 3. hold each kernel against its plain torch version on the card, TF32 off,
    at every per-tile shape its run gives it plus edge cases (stride 2,
-   ragged, Cout=1, odd Cin, bf16 and mixed precision), and time kernel,
-   plain version and the library call at those shapes: the forward (B1) at
-   the serve run's bucket-8 shapes, dgrad (B2) and wgrad (B3) at the
-   training run's microbatch-4 shapes;
+   ragged, Cout=1, odd Cin, bf16 and mixed precision, each B2 tile instance,
+   B2's split-K over a ragged M), and time kernel, plain version and the
+   library call at those shapes: the forward (B1) at the serve run's
+   bucket-8 shapes, dgrad (B2) and wgrad (B3) at the training run's
+   microbatch-4 shapes.  B2 and B3 must give the same bits on a rerun, and
+   at each path shape B2 must come within ``DGRAD_FP64_FACTOR`` of the plain
+   version's distance from an fp64 dgrad; each path shape's B2 tile, split
+   and gather is printed;
 4. serve full-width YOLOv2-16 at 416x416 on a 2x2 virtual tile grid
    through the CUDA kernel: freeze BN on a seeded calibration batch, warm
    the (1, 2, 4, 8) bucket ladder, drive 32 requests through
@@ -29,26 +34,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    update, against the untiled plain reference (cuDNN, TF32 off,
    autograd): the loss against its fp32 run, the gradients against its
    fp64 run (see ``GRAD_FLOOR_FACTOR``), and that the same check rejects a
-   planted wgrad fault; then the params after the last step against the
+   planted wgrad fault (one tile dropped) and a planted dgrad fault (one
+   tile's dx zeroed); then the params after the last step against the
    same trainer run on the torch backend in fp64.  Prints the
    ``{"train": ...}`` line and a profile of one step;
 6. flash attention (B4) and RMSNorm (B6) against their plain versions on the
-   card, TF32 off: at the LM run's shapes (q (2, 2048, 28, 128), k/v
-   (2, 2048, 4, 128), causal; RMSNorm on (4096, 3584)), bf16 and fp32, on
-   every case of ``tests/test_kernels.py``'s ``FA_CASES`` in its own dtype
-   and in bf16, on ``FA_BF16_EDGE_CASES`` and on ``RMS_CASES``, each B4
+   card, TF32 off: at the LM runs' shapes (q (2, 2048, 28, 128), k/v
+   (2, 2048, 4, 128), causal; RMSNorm on Qwen2-7B's (4096, 3584), bf16 and
+   fp32, and Mamba2-780m's (8192, 1536) and (8192, 3072) in that run's
+   types), on every case of ``tests/test_kernels.py``'s ``FA_CASES`` in its
+   own dtype and in bf16, on ``FA_BF16_EDGE_CASES``, on ``RMS_CASES`` and
+   ``RMS_EDGE_CASES`` (every B6 instance, the scalar one included), each
    case naming the instance it took; kernel, plain version and one library
    call timed (``F.scaled_dot_product_attention`` with the same mask and
    repeated KV heads, ``F.rms_norm``), bounds computed (B4 in bf16 on the
-   tensor cores, in fp32 on the CUDA cores); at the LM shape in bf16 the
-   kernel's and the plain version's distances from an fp64 evaluation, the
-   kernel within ``FA_FP64_FACTOR`` of the plain version's;
+   tensor cores, in fp32 on the CUDA cores); B6 and ``F.rms_norm`` also
+   timed cold (over distinct x that exceed the L2 ``RMS_COLD_FACTOR``
+   times) and as device time alone (``graph_ms``); at the LM shape in bf16
+   the kernel's and the plain version's distances from an fp64 evaluation,
+   the kernel within ``FA_FP64_FACTOR`` of the plain version's;
 7. train Qwen2-7B at full width, 12 of its 28 layers (bf16, random weights
    from seed 0), AdamW (``TrainConfig`` defaults, no warmup), remat
    "full": global batch 4 x 2048 tokens in 2 microbatches from
    ``synth_batch``, 3 steps through ``make_train_step`` and
    ``run_training``.  Checks the B4 and B6 launch counts against the
-   code's (every B4 launch on a tensor-core instance), ``restarts`` 0,
+   code's (every B4 launch on a tensor-core instance, B6's launches by
+   instance summing to its count), ``restarts`` 0,
    finite losses, and the step-1 loss against a
    forward pass through the plain versions of B4 and B6 on the same params
    (rtol ``LM_LOSS_RTOL``).  Prints the ``{"lm_train": ...}`` line and a
@@ -69,7 +80,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 10. train Mamba2-780m at full width and full depth (48 layers, bf16, random
    weights from seed 0), as phase 7: global batch 4 x 4096 tokens in 2
    microbatches, 3 AdamW steps; B5 and B6 launch counts against the code's
-   (``lm_launches_per_microbatch``), ``restarts`` 0, finite losses, the
+   (``lm_launches_per_microbatch``; B6's by instance), ``restarts`` 0, finite losses, the
    step-1 loss against a forward through the plain B5 and B6.  Prints the
    ``{"mamba_train": ...}`` line and a profile of one step;
 11. the Mamba2 path's gradients as phase 8 (2 layers, fp32, one sequence of
@@ -85,6 +96,7 @@ Needs one CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -129,6 +141,9 @@ TRAIN_LOSS_RTOL = 1e-5
 # it does.  The params after the last step are held the same way against an
 # fp64 run of the trainer.  Distances from the fp32 reference are printed too.
 GRAD_FLOOR_FACTOR = 2.0
+# At each path shape B2's max |err| from an fp64 dgrad must be within this
+# factor of the plain fp32 version's own (the two sum in other orders).
+DGRAD_FP64_FACTOR = 2.0
 TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_LR = 8, 2, 3, 1e-3
 # bf16 tensor-core peak (dense) of an H100 SXM: B4's bound in bf16
 BF16_PEAK_FLOPS = 989e12
@@ -166,6 +181,24 @@ RMS_CASES = [                # tests/test_kernels.py:411
     ((2, 64, 1024), "bfloat16"),
     ((7, 384), "float32"),
 ]
+# B6's instances off the path's widths (shape, x type, scale type, x's offset
+# in elements from a 16-byte aligned base): a width that is not a multiple of
+# the 16-byte vector and an unaligned base (the scalar instance), mixed types,
+# and rows wider than a warp's registers (the stream instance)
+RMS_EDGE_CASES = [
+    ((33, 1000), "bfloat16", "bfloat16", 0),
+    ((7, 100), "bfloat16", "bfloat16", 0),
+    ((5, 384), "float32", "float32", 1),
+    ((16, 1536), "bfloat16", "float32", 0),
+    ((16, 1536), "float32", "bfloat16", 0),
+    ((64, 3584), "bfloat16", "float32", 0),
+    ((64, 3584), "float32", "bfloat16", 0),
+    ((17, 70000), "bfloat16", "bfloat16", 0),
+]
+# B6 is timed cold too: over a rotation of distinct x buffers that together
+# exceed the card's L2 this many times
+L2_BYTES = 50 * 2**20
+RMS_COLD_FACTOR = 4
 # Mamba phases: Mamba2-780m at full width and full depth (48 layers), the
 # repo's train_4k sequence length
 MAMBA_ARCH, MAMBA_DEPTH, MAMBA_SEQ, MAMBA_BATCH, MAMBA_ACCUM, MAMBA_STEPS = \
@@ -220,6 +253,27 @@ def time_ms(fn, reps: int = 5, iters: int = 10) -> float:
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b) / iters)
     return statistics.median(out)
+
+
+def graph_ms(fn, n: int = 20) -> float:
+    """Device time (ms) of one ``fn()``: ``n`` calls captured in a CUDA graph,
+    the graph replayed under CUDA events (``time_ms``), so the host's launch
+    cost is left out."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms = time_ms(graph.replay, reps=5, iters=3) / n
+    del graph
+    return ms
 
 
 def conv_shapes(plan, batch: int) -> list[dict]:
@@ -440,6 +494,31 @@ def train_phase(dev, groups, smi: str) -> dict:
           f"{min(fault.values()):.2f} ({min(fault, key=fault.get)})")
     check(len(fault) == N_CONVS and all(r > 1.0 for r in fault.values()),
           f"the step-1 grad check passed a wgrad that drops one tile: {fault}")
+
+    # ... and a wrong B2: dx of one of the 16 tile-images (tile (0, 0), image
+    # 0) zeroed fails it on every conv filter that a dgrad feeds, i.e. all
+    # but the last conv's.
+    real_dgrad = conv_ops.conv2d_dgrad_tile
+
+    def dgrad_zeroing_one_tile(g, w, in_hw, **kw):
+        dx = real_dgrad(g, w, in_hw, **kw)
+        dx[0] = 0
+        return dx
+
+    conv_ops.conv2d_dgrad_tile = dgrad_zeroing_one_tile
+    try:
+        _, bad = make_deferred_grad_step(arch.plan, arch.mesh, l2_loss_local,
+                                         microbatches=TRAIN_ACCUM)(
+            params0, split(b0["x"]), split(b0["t"]))
+    finally:
+        conv_ops.conv2d_dgrad_tile = real_dgrad
+    filters = [n for n in names if n.endswith(".w")]
+    dfault = {n: normwise(a, r) / bar for n, a, r, bar in zip(names, tree_leaves(bad), ref64, bars)
+              if n in filters[:-1]}
+    print(f"planted fault (B2 zeroes one tile's dx): err / bar per conv filter upstream of a "
+          f"dgrad, least {min(dfault.values()):.2f} ({min(dfault, key=dfault.get)})")
+    check(len(dfault) == N_CONVS - 1 and all(r > 1.0 for r in dfault.values()),
+          f"the step-1 grad check passed a dgrad that zeroes one tile: {dfault}")
     del bad, ref32
 
     # The trainer tail (clipping, schedule, SGD momentum and weight decay,
@@ -481,7 +560,7 @@ def train_phase(dev, groups, smi: str) -> dict:
     step1_out = {"loss_rel_err": loss_rel, "grad_err_vs_plain32": max(vs_plain),
                  "grad_err_vs_fp64": max(tiled64), "plain32_err_vs_fp64": max(plain64),
                  "per_leaf": {n: [a, b, c] for n, a, b, c in zip(names, vs_plain, tiled64, plain64)},
-                 "planted_fault_err_over_bar": fault}
+                 "planted_fault_err_over_bar": fault, "planted_dgrad_fault_err_over_bar": dfault}
     after = {"update_err_vs_fp64": max(tail), "fp32_trainer_update_err_vs_fp64": max(tail32),
              "loss_rel_err_vs_fp64": loss64_rel,
              "per_leaf": {n: [a, b] for n, a, b in zip(names, tail, tail32)}}
@@ -501,7 +580,7 @@ def train_phase(dev, groups, smi: str) -> dict:
     dev_ms = sum(by_name.values())
     part = {name: sum(v for k, v in by_name.items() if key in k)
             for name, key in (("conv2d_tile", "conv2d_tile_kernel"),
-                              ("conv2d_dgrad_tile", "conv2d_dgrad_kernel"),
+                              ("conv2d_dgrad_tile", "conv2d_dgrad_"),
                               ("conv2d_wgrad_tile", "conv2d_wgrad_"))}
     check(dev_ms > 0 and all(v > 0 for v in part.values()),
           f"profiler saw no device time for a kernel: {part}")
@@ -550,8 +629,10 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
 
     from repro_torch.kernels.flash_attention.kernel import fa_instance, flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.kernels.rmsnorm.kernel import INSTANCES as RMS_INSTANCES
+    from repro_torch.kernels.rmsnorm.kernel import rms_instance, rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.models.registry import load_config
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
 
@@ -630,38 +711,87 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
               f"({r['err_ratio']:.3f} of tol)")
     print(f"B4 checks passed (fp32 {TOL_FP32}, bf16 {TOL_BF16}; {len(cases) + 2} cases)")
 
-    def rms_case(shape, dt, timed):
-        x = torch.randn(shape, generator=gen, device=dev).to(dt)
-        sc = (1 + 0.1 * torch.randn(shape[-1:], generator=gen, device=dev)).to(dt)
+    def rms_case(shape, dt, sdt, timed, offset=0):
+        # offset > 0: x starts ``offset`` elements into its buffer (a base
+        # that is not 16-byte aligned)
+        x = torch.randn(math.prod(shape) + offset, generator=gen, device=dev).to(dt)[offset:]
+        x = x.view(shape)
+        sc = (1 + 0.1 * torch.randn(shape[-1:], generator=gen, device=dev)).to(sdt)
+        aligned = x.data_ptr() % 16 == 0 and sc.data_ptr() % 16 == 0
+        instance = rms_instance(dt, sdt, shape[-1], aligned)
+        before = rmsnorm.launches_by_instance[instance]
         got = rmsnorm(x, sc)
         want = rmsnorm_ref(x, sc)
         torch.cuda.synchronize()
-        check(got.dtype == want.dtype == dt and got.shape == want.shape, f"B6 {got.dtype}")
-        err, ratio = err_stats(got, want, **tol(dt))
-        check(ratio <= 1.0, f"B6 {shape} {dt}: max err {err} over tolerance {tol(dt)}")
-        row = dict(shape=list(shape), dtype=str(dt), max_abs_err=err, err_ratio=ratio)
+        out_dt = torch.promote_types(dt, sdt)
+        check(got.dtype == want.dtype == out_dt and got.shape == want.shape, f"B6 {got.dtype}")
+        check(rmsnorm.launches_by_instance[instance] == before + 1, f"B6 {shape}: not {instance}")
+        err, ratio = err_stats(got, want, **tol(out_dt))
+        check(ratio <= 1.0, f"B6 {shape} {dt} x {sdt} ({instance}): max err {err} over tolerance "
+              f"{tol(out_dt)}")
+        row = dict(shape=list(shape), dtype=str(dt), scale_dtype=str(sdt), instance=instance,
+                   max_abs_err=err, err_ratio=ratio)
         if timed:
-            nbytes = x.element_size() * (2 * x.numel() + sc.numel())
+            nbytes = x.element_size() * x.numel() + sc.element_size() * sc.numel() + \
+                got.element_size() * got.numel()
             b_ms, b_by = bound(4 * x.numel(), nbytes)     # square, add, scale, multiply
             lib = getattr(F, "rms_norm", None)
+            # cold: a rotation of distinct x whose sum exceeds the L2 RMS_COLD_FACTOR times
+            xs = [torch.randn(shape, generator=gen, device=dev).to(dt) for _ in
+                  range(max(2, -(-RMS_COLD_FACTOR * L2_BYTES // (x.element_size() * x.numel()))))]
+            turn = itertools.cycle(xs)
             row.update(ms=time_ms(lambda: rmsnorm(x, sc)),
                        plain_ms=time_ms(lambda: rmsnorm_ref(x, sc)),
                        library_ms=None if lib is None else time_ms(
                            lambda: lib(x, (shape[-1],), sc, 1e-6)),
-                       bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+                       ms_cold=time_ms(lambda: rmsnorm(next(turn), sc), iters=len(xs)),
+                       library_ms_cold=None if lib is None else time_ms(
+                           lambda: lib(next(turn), (shape[-1],), sc, 1e-6), iters=len(xs)),
+                       device_ms=graph_ms(lambda: rmsnorm(x, sc)),
+                       device_ms_cold=graph_ms(lambda: [rmsnorm(t, sc) for t in xs]) / len(xs),
+                       library_device_ms=None if lib is None else graph_ms(
+                           lambda: lib(x, (shape[-1],), sc, 1e-6)),
+                       library_device_ms_cold=None if lib is None else graph_ms(
+                           lambda: [lib(t, (shape[-1],), sc, 1e-6) for t in xs]) / len(xs),
+                       cold_copies=len(xs), bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+            del xs
         return row
 
+    def rms_line(r):
+        return (f"  B6 {r['shape']} {r['dtype']} x {r['scale_dtype']} ({r['instance']}): err "
+                f"{r['max_abs_err']:.2e} ({r['err_ratio']:.3f} of tol) kernel warm {r['ms']:.4f} "
+                f"cold {r['ms_cold']:.4f} (device {r['device_ms']:.4f} / "
+                f"{r['device_ms_cold']:.4f}) "
+                f"plain {r['plain_ms']:.4f} F.rms_norm warm {r['library_ms']} cold "
+                f"{r['library_ms_cold']} (device {r['library_device_ms']} / "
+                f"{r['library_device_ms_cold']}) bound {r['bound_ms']:.4f} ({r['bound_by']})")
+
+    # the path's shapes: Qwen2-7B's norms (B*T, 3584), Mamba2-780m's norm1 (B*T,
+    # 1536) and gated norm (B*T, 3072), x and scale in each run's types
+    qwen, mamba = load_config(LM_ARCH), load_config(MAMBA_ARCH)
+    qdt, qsdt = getattr(torch, qwen.dtype), getattr(torch, qwen.param_dtype)
+    mdt, msdt = getattr(torch, mamba.dtype), getattr(torch, mamba.param_dtype)
+    d_inner = mamba.ssm.expand * mamba.d_model
+    print(f"B6 on the path: {LM_ARCH} x {qdt} scale {qsdt} at d {qwen.d_model}; {MAMBA_ARCH} x "
+          f"{mdt} scale {msdt} at d {mamba.d_model} (norm1) and {d_inner} (gated norm)")
+    lm_rows, mamba_rows = LM_BATCH // LM_ACCUM * LM_SEQ, MAMBA_BATCH // MAMBA_ACCUM * MAMBA_SEQ
     rms_rows = []
-    for dt in (torch.bfloat16, torch.float32):
-        r = rms_case((LM_BATCH // LM_ACCUM * LM_SEQ, 3584), dt, True)
-        rms_rows.append(r)
-        print(f"  B6 {r['shape']} {r['dtype']}: err {r['max_abs_err']:.2e} ({r['err_ratio']:.3f} "
-              f"of tol) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} F.rms_norm "
-              f"{r['library_ms']} bound {r['bound_ms']:.4f} ({r['bound_by']})")
-    for shape, dt in RMS_CASES:
-        r = rms_case(shape, getattr(torch, dt), False)
-        print(f"  B6 case {shape} {dt}: err {r['max_abs_err']:.2e} ({r['err_ratio']:.3f} of tol)")
-    print(f"B6 checks passed (fp32 {TOL_FP32}, bf16 {TOL_BF16})")
+    for shape, dt, sdt in [((lm_rows, qwen.d_model), qdt, qsdt),
+                           ((lm_rows, qwen.d_model), torch.float32, torch.float32),
+                           ((mamba_rows, mamba.d_model), mdt, msdt),
+                           ((mamba_rows, d_inner), mdt, msdt)]:
+        rms_rows.append(rms_case(shape, dt, sdt, True))
+        print(rms_line(rms_rows[-1]))
+    seen = {r["instance"] for r in rms_rows}
+    cases = [(shape, dt, dt, 0) for shape, dt in RMS_CASES] + RMS_EDGE_CASES
+    for shape, dt, sdt, offset in cases:
+        dt, sdt = getattr(torch, dt), getattr(torch, sdt)
+        r = rms_case(shape, dt, sdt, False, offset)
+        seen.add(r["instance"])
+        print(f"  B6 case {shape} {dt} x {sdt}{' unaligned' if offset else ''} ({r['instance']}): "
+              f"err {r['max_abs_err']:.2e} ({r['err_ratio']:.3f} of tol)")
+    check(seen == set(RMS_INSTANCES), f"B6 instances not checked: {set(RMS_INSTANCES) - seen}")
+    print(f"B6 checks passed (fp32 {TOL_FP32}, bf16 {TOL_BF16}; every instance: {sorted(seen)})")
     print(json.dumps({"flash_attention_shapes": fa_rows}))
     print(json.dumps({"rmsnorm_shapes": rms_rows}))
     return fa_rows, fa_rows[0]["max_abs_err"], rms_rows, rms_rows[0]["max_abs_err"]
@@ -689,7 +819,8 @@ MAMBA_RUN = LMRun("mamba_train", MAMBA_ARCH, MAMBA_DEPTH, MAMBA_SEQ, MAMBA_BATCH
                   MAMBA_STEPS, MAMBA_GRAD_DEPTH, 1, MAMBA_GRAD_SEQ)
 # each LM kernel's name in a profiler trace
 LM_KERNEL_TRACE_NAMES = {"flash_attention_fwd": "flash_attention_fwd_",   # both instances
-                         "ssd_chunk_fwd": "ssd_chunk_fwd_kernel", "rmsnorm": "rmsnorm_kernel"}
+                         "ssd_chunk_fwd": "ssd_chunk_fwd_kernel",
+                         "rmsnorm": "rmsnorm_"}                     # every instance
 
 
 def lm_launches_per_microbatch(cfg, remat: str) -> dict:
@@ -771,6 +902,7 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     from repro_torch.configs.base import ParallelConfig, ShapeConfig, TrainConfig
     from repro_torch.data.synthetic import place, synth_batch
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd, reset_launches
+    from repro_torch.kernels.rmsnorm.kernel import reset_launches as reset_b6_launches
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm
     from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
     from repro_torch.models.lm import lm_loss
@@ -814,10 +946,12 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     for f in kernels.values():
         f.launches = 0
     reset_launches()
+    reset_b6_launches()
     report = run_training(init_state=init_state, train_step=timed_step, make_batch=make_batch,
                           steps=run.steps, cfg=DriverConfig(), seed=SEED)
     launches = {name: f.launches for name, f in kernels.items()}
     b4_instances = {k: v for k, v in flash_attention_fwd.launches_by_instance.items() if v}
+    b6_instances = {k: v for k, v in rmsnorm.launches_by_instance.items() if v}
     torch.cuda.synchronize()
     run_s = time.monotonic() - t0
     peak = torch.cuda.max_memory_allocated(dev)
@@ -837,6 +971,11 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     check(sum(b4_instances.values()) == launches.get("flash_attention_fwd", 0)
           and all(k.startswith("wgmma_bf16") for k in b4_instances),
           f"{run.key} B4 launches by instance {b4_instances}")
+    # every B6 launch is counted by instance, and the instances sum to the code's count
+    print(f"{run.key}: B6 launches by instance {b6_instances} (the code's count "
+          f"{want['rmsnorm']})")
+    check(sum(b6_instances.values()) == launches["rmsnorm"] == want["rmsnorm"],
+          f"{run.key} B6 launches by instance {b6_instances} vs {want['rmsnorm']}")
     check(step1["loss"] == losses[0], "on_grads saw another loss than the run logged")
 
     # where the device time of one step goes (one more step on the final state)
@@ -893,7 +1032,8 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
         "step_ms_host_median": statistics.median(report.step_times) * 1e3,
         "tokens_per_s_cuda_events": tokens / (med / 1e3),
         "peak_mem_bytes": peak, "launches": launches, "launches_expected": want,
-        "b4_launches_by_instance": b4_instances, "card": smi,
+        "b4_launches_by_instance": b4_instances, "b6_launches_by_instance": b6_instances,
+        "card": smi,
     }}))
     return launches
 
@@ -1096,13 +1236,16 @@ def main() -> int:
     from repro_torch.core.spatial import stack_reference
     from repro_torch.core.tiling import Group
     from repro_torch.kernels import _build
-    from repro_torch.kernels.conv2d_tiled.kernel import (
+    from repro_torch.kernels.conv2d_tiled.backward import (
         conv2d_dgrad_tile,
-        conv2d_tile,
         conv2d_wgrad_tile,
+        dgrad_gather,
+        dgrad_split,
+        dgrad_tile,
         wgrad_split,
         wgrad_tile,
     )
+    from repro_torch.kernels.conv2d_tiled.kernel import conv2d_tile
     from repro_torch.kernels.conv2d_tiled.ref import (
         conv2d_dgrad_ref,
         conv2d_ref,
@@ -1140,6 +1283,13 @@ def main() -> int:
           f"B4 tensor-core instances without HGMMA in their SASS: {tc_sass}")
     check(len(tc_spills) == 2 and all(v == (0, 0) for v in tc_spills.values()),
           f"B4 tensor-core instances spill: {tc_spills}")
+    b2_spills = _build.spills("conv2d_dgrad_tile")
+    print(f"B2 instances: {len(b2_spills)} kernels, spill bytes (stores, loads) "
+          f"{sorted(set(b2_spills.values()))}")
+    check(len(b2_spills) > 0 and all(v == (0, 0) for v in b2_spills.values()),
+          f"B2 instances spill: {b2_spills}")
+    b6_spills = {fn: v for fn, v in _build.spills("rmsnorm").items() if v != (0, 0)}
+    print(f"B6 kernels that spill: {b6_spills}")
 
     # -- 3. kernel against its plain version ----------------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -1233,6 +1383,8 @@ def main() -> int:
               f"wgrad {x_shape}x{w_shape}: {dw.dtype} {tuple(dw.shape)}")
         d_err, d_ratio = err_stats(dx, dx_ref, **(TOL_BF16 if g_dtype == bf16 else TOL_FP32))
         check(d_ratio <= 1.0, f"dgrad {x_shape}x{w_shape} s{stride}: max err {d_err} over tolerance")
+        check(torch.equal(dx, conv2d_dgrad_tile(g, w, hw, stride=stride)),
+              f"dgrad {x_shape}x{w_shape} s{stride}: two runs on the same inputs differ")
         if w_dtype == bf16:
             w_err, w_ratio = err_stats(dw, dw_ref, **TOL_BF16)
         else:
@@ -1257,14 +1409,22 @@ def main() -> int:
             fp64_err = [float((d.double() - dx64).abs().max())
                         for d in (conv2d_dgrad_tile(g, w, hw, stride=st), conv2d_dgrad_ref(g, w, hw, st))]
             del dx64
+            check(fp64_err[0] <= DGRAD_FP64_FACTOR * fp64_err[1],
+                  f"dgrad layer {s['layer']}: {fp64_err[0]} from fp64, over {DGRAD_FP64_FACTOR} x "
+                  f"the plain version's {fp64_err[1]}")
+            pixels, cin, kd = math.prod(s["x"][:3]), s["w"][2], k * k * s["w"][3]
+            d_tile, d_split = dgrad_tile(cin), dgrad_split(pixels, cin, kd)
             row = dict(layer=s["layer"], x=s["x"], w=s["w"], max_abs_err=d_err, err_ratio=d_ratio,
+                       tile=d_tile, splits_chunk=list(d_split),
+                       gather=dgrad_gather(s["w"][3], st),
                        kernel_err_vs_fp64=fp64_err[0], plain_err_vs_fp64=fp64_err[1],
                        ms=time_ms(lambda: conv2d_dgrad_tile(g, w, hw, stride=st)),
                        plain_ms=time_ms(lambda: conv2d_dgrad_ref(g, w, hw, st)),
                        library_ms=time_ms(lambda: torch.nn.grad.conv2d_input(xn.shape, wn, gn, stride=st)),
                        bound_ms=b_ms, bound_by=b_by)
             dgrad_rows.append(row)
-            line += (f" dgrad err {d_err:.2e} ({d_ratio:.2f} of tol; vs fp64 kernel "
+            line += (f" dgrad ({d_tile}, splits x chunk {d_split[0]} x {d_split[1]}, "
+                     f"{row['gather']}) err {d_err:.2e} ({d_ratio:.2f} of tol; vs fp64 kernel "
                      f"{fp64_err[0]:.2e} plain {fp64_err[1]:.2e}) {row['ms']:.4f} ms plain "
                      f"{row['plain_ms']:.4f} cudnn {row['library_ms']:.4f} bound {b_ms:.4f} ({b_by});")
         else:
@@ -1297,13 +1457,23 @@ def main() -> int:
         ("bf16", (4, 30, 30, 128), (3, 3, 128, 256), 1, bf16, bf16),
         ("bf16_x_fp32_w", (4, 30, 30, 128), (3, 3, 128, 256), 1, bf16, f32),
         ("fp32_x_bf16_w", (4, 30, 30, 128), (3, 3, 128, 256), 1, f32, bf16),
+        # each B2 tile instance off the path's shapes: ragged Cin, ragged M
+        ("dgrad_128x32", (3, 21, 19, 32), (3, 3, 32, 48), 1, f32, f32),
+        ("dgrad_128x64_ragged_cin", (2, 11, 13, 40), (3, 3, 40, 48), 1, f32, f32),
+        ("dgrad_128x128_ragged_cin", (3, 21, 19, 96), (3, 3, 96, 64), 1, f32, f32),
+        ("dgrad_128x128_general_stride2", (2, 17, 17, 96), (3, 3, 96, 64), 2, f32, f32),
+        # split-K (36 slices of 128 terms) over a ragged M = 315 dx pixels
+        ("dgrad_split_ragged_m", (5, 9, 7, 32), (3, 3, 32, 512), 1, f32, f32),
     ]
     for name, xs, ws, stride, x_dtype, w_dtype in bwd_extra:
         *_, d_err, d_ratio, w_err, w_ratio = bwd_case(xs, ws, stride, x_dtype, w_dtype)
-        print(f"  bwd case {name}: dgrad err {d_err:.2e} ({d_ratio:.3f} of tol), "
-              f"wgrad err {w_err:.2e} ({w_ratio:.3f} of tol)")
-    print(f"B2/B3 checks passed (dgrad fp32 {TOL_FP32}, wgrad normwise {WGRAD_NORM_TOL} x max "
-          f"and bitwise equal on a rerun, bf16 outputs {TOL_BF16})")
+        pixels, kd = math.prod(xs[:3]), ws[0] * ws[1] * ws[3]
+        print(f"  bwd case {name}: dgrad ({dgrad_tile(ws[2])}, splits x chunk "
+              f"{dgrad_split(pixels, ws[2], kd)}, {dgrad_gather(ws[3], stride)}) err {d_err:.2e} "
+              f"({d_ratio:.3f} of tol), wgrad err {w_err:.2e} ({w_ratio:.3f} of tol)")
+    print(f"B2/B3 checks passed (dgrad fp32 {TOL_FP32} and within {DGRAD_FP64_FACTOR} x the plain "
+          f"version's distance from fp64, wgrad normwise {WGRAD_NORM_TOL} x max, both bitwise "
+          f"equal on a rerun, bf16 outputs {TOL_BF16})")
 
     # -- 4. serve ------------------------------------------------------------
     rng = np.random.default_rng(SEED)

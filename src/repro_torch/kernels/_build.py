@@ -36,6 +36,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+#: the CUDA grid's limit in y and z
+MAX_GRID_YZ = 65535
+
 # Loaded libraries, one per process: a CDLL cannot be unloaded, so a second
 # load of the same library would only hand back the same handle.
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -126,10 +129,33 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def check_operands(name: str, tensors, dtypes, ndim: int) -> None:
+    """Raises unless every tensor is a contiguous ``ndim``-d CUDA tensor of
+    one of ``dtypes`` and all lie on one device (the checks every conv
+    wrapper makes before a launch)."""
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError(
+            f"{name} launches on CUDA tensors only (CPU tensors take the "
+            f"plain version); got devices {[str(t.device) for t in tensors]}"
+        )
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"operands on different devices: {[str(t.device) for t in tensors]}")
+    if any(t.dtype not in dtypes for t in tensors):
+        raise TypeError(f"{name} takes {' or '.join(map(str, dtypes))} operands; got "
+                        f"{[t.dtype for t in tensors]}")
+    if any(t.dim() != ndim for t in tensors):
+        raise ValueError(f"{name} takes {ndim}-d operands; got {[tuple(t.shape) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous operands")
+
+
 def run(name: str, argtypes: list, device, *args) -> None:
     """Launch ``<name>_launch(*args, stream)`` of kernel library ``name`` on
     ``device``'s current stream (``argtypes`` without the trailing stream
-    pointer); raises with CUDA's message if the launch was refused."""
+    pointer); raises with CUDA's message if the launch was refused.  Kept
+    lean (the raw stream, no device switch where the device is current):
+    the shortest kernels (B6) take about as long on the card as a launch
+    takes the host."""
     import torch
 
     lib = load(name)
@@ -140,8 +166,13 @@ def run(name: str, argtypes: list, device, *args) -> None:
         err_fn = getattr(lib, f"{name}_error_string")
         err_fn.argtypes = [ctypes.c_int]
         err_fn.restype = ctypes.c_char_p
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg}")

@@ -14,11 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.conv2d_tiled.kernel import (
-    conv2d_dgrad_tile,
-    conv2d_tile,
-    conv2d_wgrad_tile,
-)
+from repro_torch.kernels.conv2d_tiled.backward import conv2d_dgrad_tile, conv2d_wgrad_tile
+from repro_torch.kernels.conv2d_tiled.kernel import conv2d_tile
 
 
 def _act_grad_from_out(y: torch.Tensor, act: str) -> torch.Tensor:

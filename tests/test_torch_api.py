@@ -1,0 +1,114 @@
+"""The port's package-level API against the reference's: every name that
+``repro/core/__init__.py``, ``repro/optim/__init__.py`` and
+``repro/kernels/__init__.py`` re-export either imports from the port's
+package of the same name, or is listed below with the ROADMAP item that
+brings it.  Importing the packages builds no kernel."""
+import ast
+import importlib
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# reference name -> the ROADMAP A item whose port brings it
+NOT_YET = {
+    "core": {
+        **dict.fromkeys(["apply_layer_data", "reshard_spatial_to_data"], "A.11"),
+        **dict.fromkeys(["split_1d", "halo_exchange_1d_packed", "halo_exchange_2d_packed"], "A.10"),
+        **dict.fromkeys(["EFBag", "WireCtx", "send_boundary_sum_1d", "wire_shift",
+                         "modeled_step_wire_bytes"], "A.14"),
+        **dict.fromkeys(["pipeline_schedule_census", "PIPELINE_MICROBATCHES", "balance_stages",
+                         "bubble_fraction", "check_pipeline_arg", "feasible_stage_counts"],
+                        "A.13"),
+        **dict.fromkeys(["plan_from_manifest", "replan_stack", "add_device", "drop_device",
+                         "pack_devices"], "A.15"),
+        **dict.fromkeys(["resolve_hw_profile", "ClusterSpec", "HardwareProfile", "PI3_PROFILE",
+                         "JETSON_PROFILE", "JETSON_EDGE_PROFILE", "TPU_V5E_PROFILE", "PROFILES",
+                         "balance_bounds", "cluster_from_manifest", "cluster_manifest",
+                         "cluster_partition", "parse_cluster_spec", "peak_device_memory",
+                         "profile_cost", "score_profile", "optimize_grouping"], "A.9"),
+    },
+    "optim": dict.fromkeys(["WireCodec", "ef_encode", "get_codec", "modeled_wire_bytes"], "A.14"),
+    "kernels": {},
+}
+
+
+def _reference_names(pkg: str) -> list[str]:
+    """The names ``repro/<pkg>/__init__.py`` imports, read from its source
+    (the port's tests may import JAX, but reading needs no import)."""
+    path = os.path.join(REPO, "src", "repro", pkg, "__init__.py")
+    tree = ast.parse(open(path).read(), path)
+    return [a.asname or a.name for node in tree.body if isinstance(node, ast.ImportFrom)
+            for a in node.names]
+
+
+@pytest.mark.parametrize("pkg", sorted(NOT_YET))
+def test_every_reference_name_is_exported_or_listed(pkg):
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    names = _reference_names(pkg)
+    assert names, pkg
+    missing = [n for n in names if not hasattr(port, n) and n not in NOT_YET[pkg]]
+    assert not missing, f"repro_torch.{pkg} lacks {missing} and no ROADMAP item is named for them"
+
+
+@pytest.mark.parametrize("pkg", sorted(NOT_YET))
+def test_the_list_names_only_what_is_still_missing(pkg):
+    """A name that the port's package exports comes off the list, and the
+    list names only the reference's names."""
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    names = set(_reference_names(pkg))
+    assert set(NOT_YET[pkg]) <= names
+    assert not [n for n in NOT_YET[pkg] if hasattr(port, n)]
+
+
+@pytest.mark.parametrize("pkg", sorted(NOT_YET))
+def test_exported_names_are_the_modules_own(pkg):
+    """Each re-exported name is the very object its module defines (one
+    launch counter per kernel wrapper, one class per type)."""
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    tree = ast.parse(open(os.path.join(REPO, "src", "repro_torch", pkg, "__init__.py")).read())
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            mod = importlib.import_module(node.module)
+            for a in node.names:
+                assert getattr(port, a.asname or a.name) is getattr(mod, a.name)
+
+
+def test_kernels_package_exports_all_five_reference_names():
+    import repro_torch.kernels as k
+    from repro_torch.kernels.conv2d_tiled import backward, ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+
+    assert _reference_names("kernels") == ["flash_attention", "conv2d_dgrad_tile",
+                                           "conv2d_wgrad_tile", "conv2d", "rmsnorm"]
+    assert k.conv2d_dgrad_tile is backward.conv2d_dgrad_tile
+    assert k.conv2d_wgrad_tile is backward.conv2d_wgrad_tile
+    assert k.conv2d is ops.conv2d
+    assert k.flash_attention is fa_ops.flash_attention
+    assert k.rmsnorm is rms_ops.rmsnorm
+
+
+def test_importing_the_packages_builds_nothing():
+    """The kernels build at their first launch, never at import: with every
+    subprocess start refused, the three packages still import, and no
+    kernel library is loaded."""
+    code = (
+        "import subprocess, sys\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError(f'a process was started at import: {a}')\n"
+        "subprocess.Popen = refuse\n"
+        "subprocess.run = refuse\n"
+        "import repro_torch.kernels, repro_torch.core, repro_torch.optim\n"
+        "from repro_torch.kernels import _build\n"
+        "assert _build._LOADED == {}\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"

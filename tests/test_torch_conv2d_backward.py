@@ -16,11 +16,16 @@ from repro.kernels.conv2d_tiled.backward import conv2d_dgrad_tile as jax_dgrad
 from repro.kernels.conv2d_tiled.backward import conv2d_wgrad_tile as jax_wgrad
 from repro.kernels.conv2d_tiled.backward import rotate_filter as jax_rotate
 from repro.kernels.conv2d_tiled.ops import conv2d as jax_conv2d
+from repro_torch.kernels.conv2d_tiled.backward import dgrad_gather
 from repro_torch.kernels.conv2d_tiled.kernel import (
+    DGRAD_BK,
+    DGRAD_TILES,
     WGRAD_BK,
     WGRAD_TILES,
     conv2d_wgrad_tile,
     conv2d_dgrad_tile,
+    dgrad_split,
+    dgrad_tile,
     wgrad_split,
     wgrad_tile,
 )
@@ -244,3 +249,154 @@ def test_wgrad_tiles_on_the_card(tile_case):
     got = conv2d_wgrad_tile(x.cuda(), g.cuda(), ws[0], stride=s)
     assert torch.equal(got, conv2d_wgrad_tile(x.cuda(), g.cuda(), ws[0], stride=s))
     assert float((got.cpu() - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+# --- B2's tile, split and summation order (backward.py) ---------------------
+
+# (dx pixels N*H*W, Cin, K*K*Cout, Cout) of the 11 YOLOv2-16 training dgrads at
+# 416x416 on a 2x2 grid, microbatch of 4 (16 tiles), grouping (0-3)(4-7)(8-11)(12-15)
+TRAIN_DGRAD = [(16 * 106 * 106, 32, 576, 64), (16 * 56 * 56, 64, 1152, 128),
+               (16 * 54 * 54, 128, 64, 64), (16 * 54 * 54, 64, 1152, 128),
+               (16 * 30 * 30, 128, 2304, 256), (16 * 28 * 28, 256, 128, 128),
+               (16 * 28 * 28, 128, 2304, 256), (16 * 17 * 17, 256, 4608, 512),
+               (16 * 15 * 15, 512, 256, 256), (16 * 15 * 15, 256, 4608, 512),
+               (16 * 13 * 13, 512, 256, 256)]
+
+
+@pytest.mark.parametrize("pixels,cin,kd,cout", TRAIN_DGRAD, ids=[str(c) for c in TRAIN_DGRAD])
+def test_every_path_dgrad_gets_the_designed_tile_and_gather(pixels, cin, kd, cout):
+    """128 x 128 for Cin >= 128, 128 x 64 for Cin = 64, the narrow 128 x 32
+    for Cin = 32; every path conv is stride 1 with Cout a multiple of the
+    stage, so it takes the gather without division."""
+    want = {32: "128x32", 64: "128x64"}.get(cin, "128x128")
+    assert dgrad_tile(cin) == want
+    _, _, bn, threads = DGRAD_TILES[want]
+    assert cin % bn == 0 and threads % 32 == 0          # no idle columns on the path
+    assert dgrad_gather(cout, 1) == "stride1"
+
+
+@pytest.mark.parametrize("pixels,cin,kd", [c[:3] for c in TRAIN_DGRAD] + [
+    (315, 32, 4608), (1, 1, 1), (7, 3, 9), (100000, 3, 288), (64, 70, 16), (5, 600, 100000)])
+def test_dgrad_split_covers_the_reduction_once(pixels, cin, kd):
+    """Every term of the K*K*Cout reduction lands in exactly one slice: the
+    slices are whole stages, none is empty, and the rule depends on the shape
+    alone."""
+    splits, chunk = dgrad_split(pixels, cin, kd)
+    assert splits >= 1 and chunk >= DGRAD_BK and chunk % DGRAD_BK == 0
+    assert (splits - 1) * chunk < kd <= splits * chunk
+    assert dgrad_split(pixels, cin, kd) == (splits, chunk)
+    if splits > 1:
+        assert chunk // DGRAD_BK >= 8                   # _DGRAD_MIN_STAGES
+
+
+@pytest.mark.parametrize("pixels,cin,kd,cout", TRAIN_DGRAD, ids=[str(c) for c in TRAIN_DGRAD])
+def test_dgrad_split_puts_a_block_on_every_sm(pixels, cin, kd, cout):
+    """Every path shape puts at least one block on each of the 132 SMs."""
+    splits, _ = dgrad_split(pixels, cin, kd)
+    _, bm, bn, _ = DGRAD_TILES[dgrad_tile(cin)]
+    assert splits * -(-pixels // bm) * -(-cin // bn) >= 132
+
+
+@pytest.mark.parametrize("cout,stride,want", [
+    (64, 1, "stride1"), (512, 1, "stride1"), (16, 1, "stride1"),
+    (70, 1, "general"), (1, 1, "general"), (24, 1, "general"), (64, 2, "general")])
+def test_dgrad_gather_is_a_function_of_cout_and_stride(cout, stride, want):
+    assert dgrad_gather(cout, stride) == want
+
+
+def _b2_walk(g: torch.Tensor, w: torch.Tensor, in_hw, stride: int) -> torch.Tensor:
+    """B2's summation order, emulated in fp32 on the CPU: the GEMM
+    dx[m, ci] = sum_k A[m, k] B[ci, k] with k = (ki*K + kj)*Cout + co; each
+    slice of ``dgrad_split`` sums its stages of ``DGRAD_BK`` terms, each stage
+    on its own before it joins the slice's total, and the slices are added
+    in slice order."""
+    n, oh, ow, cout = g.shape
+    k, _, cin, _ = w.shape
+    h, wd = in_hw
+    a = torch.zeros((n, h, wd, k, k, cout), dtype=torch.float32)
+    for ki in range(k):
+        for kj in range(k):
+            a[:, ki:ki + stride * (oh - 1) + 1:stride, kj:kj + stride * (ow - 1) + 1:stride,
+              ki, kj] = g
+    kd = k * k * cout
+    a = a.reshape(n * h * wd, kd)
+    b = w.permute(2, 0, 1, 3).reshape(cin, kd)
+    splits, chunk = dgrad_split(n * h * wd, cin, kd)
+    dx = None
+    for s in range(splits):
+        acc = torch.zeros((n * h * wd, cin), dtype=torch.float32)
+        end = min(kd, (s + 1) * chunk)
+        for k0 in range(s * chunk, end, DGRAD_BK):
+            st = torch.zeros_like(acc)
+            for t in range(k0, min(k0 + DGRAD_BK, end)):
+                st = st + a[:, t:t + 1] * b[:, t][None, :]
+            acc = acc + st
+        dx = acc if dx is None else dx + acc
+    return dx.reshape(n, h, wd, cin)
+
+
+# (g shape, w shape, in_hw, stride): split-K over stride 1; stride 2 with a
+# ragged row; a 1x1 conv; stride 2 split three ways
+WALK_CASES = [
+    ((2, 7, 7, 64), (3, 3, 40, 64), (9, 9), 1),
+    ((2, 4, 4, 48), (3, 3, 8, 48), (10, 9), 2),
+    ((3, 5, 6, 96), (1, 1, 24, 96), (5, 6), 1),
+    ((1, 5, 5, 64), (3, 3, 16, 64), (11, 11), 2),
+]
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=[str(c) for c in WALK_CASES])
+def test_b2_walk_matches_plain_and_pallas_and_is_no_farther_from_fp64(case):
+    gs, ws, hw, s = case
+    rng = np.random.default_rng(11)
+    g = rng.standard_normal(gs).astype(np.float32)
+    w = (0.1 * rng.standard_normal(ws)).astype(np.float32)
+    kd = ws[0] * ws[1] * ws[3]
+    assert kd >= 2 * DGRAD_BK                        # at least two stages
+    got = _b2_walk(torch.from_numpy(g), torch.from_numpy(w), hw, s)
+    plain = conv2d_dgrad_tile(torch.from_numpy(g), torch.from_numpy(w), hw, stride=s)
+    pallas = np.asarray(jax_dgrad(jnp.asarray(g), jnp.asarray(w), hw, stride=s, interpret=True))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **KERNEL_TOL)
+    np.testing.assert_allclose(got.numpy(), pallas, **KERNEL_TOL)
+    exact = conv2d_dgrad_tile(torch.from_numpy(g).double(), torch.from_numpy(w).double(), hw,
+                              stride=s)
+    walk64 = float((got.double() - exact).abs().max())
+    plain64 = float((plain.double() - exact).abs().max())
+    assert walk64 <= plain64, (walk64, plain64)
+
+
+def test_backward_module_is_the_kernel_modules_backward():
+    """C.4: B2 and B3 live in backward.py, as in the reference; kernel.py
+    re-exports the same objects (one launch counter per function)."""
+    from repro_torch.kernels.conv2d_tiled import backward, kernel
+    from repro_torch.kernels.conv2d_tiled.ops import conv2d_dgrad_tile as ops_dgrad
+
+    for name in ("conv2d_dgrad_tile", "conv2d_wgrad_tile", "wgrad_tile", "wgrad_split",
+                 "dgrad_tile", "dgrad_split", "rotate_filter", "WGRAD_TILES", "DGRAD_TILES"):
+        assert getattr(kernel, name) is getattr(backward, name)
+    assert ops_dgrad is backward.conv2d_dgrad_tile
+    w = np.random.default_rng(1).standard_normal((3, 3, 4, 5)).astype(np.float32)
+    np.testing.assert_array_equal(backward.rotate_filter(torch.from_numpy(w)).numpy(),
+                                  np.asarray(jax_rotate(jnp.asarray(w))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_case", [
+    ((3, 21, 19, 32), (3, 3, 32, 48), 1),       # 128x32, stride 1
+    ((2, 11, 13, 40), (3, 3, 40, 48), 1),       # 128x64, ragged Cin
+    ((3, 21, 19, 96), (3, 3, 96, 64), 1),       # 128x128, ragged Cin
+    ((2, 17, 17, 96), (3, 3, 96, 64), 2),       # 128x128, general gather
+    ((5, 9, 7, 32), (3, 3, 32, 512), 1),        # split-K over a ragged M
+], ids=["128x32", "128x64", "128x128", "128x128-stride2", "split-ragged-m"])
+def test_dgrad_tiles_on_the_card(tile_case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode); run chip_smoke.py there")
+    xs, ws, s = tile_case
+    rng = np.random.default_rng(9)
+    w = torch.from_numpy((0.1 * rng.standard_normal(ws)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(
+        (xs[0], (xs[1] - ws[0]) // s + 1, (xs[2] - ws[0]) // s + 1, ws[3])).astype(np.float32))
+    want = conv2d_dgrad_tile(g, w, xs[1:3], stride=s)
+    got = conv2d_dgrad_tile(g.cuda(), w.cuda(), xs[1:3], stride=s)
+    assert torch.equal(got, conv2d_dgrad_tile(g.cuda(), w.cuda(), xs[1:3], stride=s))
+    torch.testing.assert_close(got.cpu(), want, **KERNEL_TOL)

@@ -127,3 +127,84 @@ def test_rmsnorm_kernel_on_the_card():
         s = torch.from_numpy(rng.standard_normal(shape[-1:], np.float32)).to(getattr(torch, dt))
         got = tkernel.rmsnorm(x.cuda(), s.cuda())
         torch.testing.assert_close(got.cpu().float(), rmsnorm_ref(x, s).float(), **_tol(dt))
+
+
+# --- B6's instances (kernel.py:rms_instance) ---------------------------------
+
+# (x type, scale type, D) -> instance: the LM path's widths (Qwen2-7B's 3584,
+# Mamba2-780m's 1536 and 3072) in bf16 keep the row in registers with
+# 16-byte accesses; fp32 rows that wide, and mixed types whose scale doubles
+# the bytes a lane holds, read x twice; widths that are not a multiple of the
+# 16-byte vector take the scalar instance
+RMS_INSTANCE_CASES = [
+    ("bfloat16", "bfloat16", 3584, "warp_regs16"),
+    ("bfloat16", "bfloat16", 1536, "warp_regs8"),
+    ("bfloat16", "bfloat16", 3072, "warp_regs16"),
+    ("bfloat16", "bfloat16", 4096, "warp_regs16"),
+    ("bfloat16", "bfloat16", 4104, "warp_stream"),
+    ("float32", "float32", 3584, "warp_stream"),
+    ("float32", "float32", 2048, "warp_regs16"),
+    ("float32", "float32", 512, "warp_regs4"),
+    ("float32", "float32", 384, "warp_regs4"),
+    ("bfloat16", "float32", 1536, "warp_regs8"),
+    ("bfloat16", "float32", 3584, "warp_stream"),
+    ("float32", "bfloat16", 1536, "warp_regs16"),
+    ("bfloat16", "bfloat16", 100, "warp_scalar"),
+    ("bfloat16", "bfloat16", 7, "warp_scalar"),
+    ("float32", "float32", 6, "warp_scalar"),
+    ("float32", "bfloat16", 1, "warp_scalar"),
+]
+
+
+@pytest.mark.parametrize("xdt,sdt,d,want", RMS_INSTANCE_CASES,
+                         ids=[f"{x}-{s}-{d}" for x, s, d, _ in RMS_INSTANCE_CASES])
+def test_rms_instance_is_a_function_of_types_and_width(xdt, sdt, d, want):
+    xt, st = getattr(torch, xdt), getattr(torch, sdt)
+    assert tkernel.rms_instance(xt, st, d) == want
+    assert want in tkernel.INSTANCES
+    # an unaligned base takes the scalar instance, whatever the width
+    assert tkernel.rms_instance(xt, st, d, aligned=False) == "warp_scalar"
+
+
+@pytest.mark.parametrize("xdt,sdt,d", [(x, s, d) for x, s, d, w in RMS_INSTANCE_CASES
+                                       if w.startswith("warp_regs")])
+def test_register_instances_hold_at_most_512_bytes_a_lane(xdt, sdt, d):
+    """The cut-off: a lane's x and scale vectors of the row take at most 128
+    registers; wider rows take the stream instance."""
+    xt, st = getattr(torch, xdt), getattr(torch, sdt)
+    nv = int(tkernel.rms_instance(xt, st, d)[len("warp_regs"):])
+    vec = 16 // xt.itemsize
+    assert -(-d // vec // 32) <= nv
+    assert nv * (16 + vec * st.itemsize) <= 512
+
+
+def test_launch_counts_reset_by_instance():
+    tkernel.reset_launches()
+    assert tkernel.rmsnorm.launches == 0
+    assert tkernel.rmsnorm.launches_by_instance == dict.fromkeys(tkernel.INSTANCES, 0)
+    tkernel.rmsnorm(torch.ones(2, 8), torch.ones(8))        # a CPU tensor: no launch
+    assert sum(tkernel.rmsnorm.launches_by_instance.values()) == tkernel.rmsnorm.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,xdt,sdt,offset", [
+    ((64, 3584), "bfloat16", "bfloat16", 0),    # warp_regs16
+    ((64, 1536), "bfloat16", "bfloat16", 0),    # warp_regs8
+    ((33, 1000), "bfloat16", "bfloat16", 0),    # warp_regs4
+    ((16, 3584), "float32", "float32", 0),      # warp_stream
+    ((7, 100), "bfloat16", "bfloat16", 0),      # warp_scalar: width
+    ((5, 384), "float32", "float32", 1),        # warp_scalar: unaligned base
+    ((16, 1536), "bfloat16", "float32", 0),     # mixed types
+])
+def test_every_instance_on_the_card(shape, xdt, sdt, offset):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode); run chip_smoke.py there")
+    rng = np.random.default_rng(6)
+    n = int(np.prod(shape))
+    x = torch.from_numpy(rng.standard_normal(n + offset, np.float32)).to(getattr(torch, xdt))
+    s = torch.from_numpy(rng.standard_normal(shape[-1:], np.float32)).to(getattr(torch, sdt))
+    xc = x.cuda()[offset:].view(shape)
+    got = tkernel.rmsnorm(xc, s.cuda())
+    want = rmsnorm_ref(x[offset:].view(shape), s)
+    out = "bfloat16" if xdt == sdt == "bfloat16" else "float32"
+    torch.testing.assert_close(got.cpu().float(), want.float(), **_tol(out))
