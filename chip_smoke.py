@@ -6,30 +6,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. the card: ``nvidia-smi`` name and power limit;
 2. build every CUDA kernel from this checkout's sources (``nvcc``, into
    ``build/repro_torch_kernels/``) and print ptxas' register report; fail
-   if B4's tensor-core instances (``wgmma_bf16_dh64`` / ``_dh128``) issue no
-   ``HGMMA`` in their SASS (``cuobjdump -sass``) or spill, or if any kernel
-   of B2 spills;
+   if B4's tensor-core instances (``wgmma_bf16_dh64`` / ``_dh128``) or B5's
+   (``wgmma_bf16``) issue no ``HGMMA`` in their SASS (``cuobjdump -sass``)
+   or spill, or if any kernel of B1 or B2 spills; print each B1 instance's
+   registers;
 3. hold each kernel against its plain torch version on the card, TF32 off,
    at every per-tile shape its run gives it plus edge cases (stride 2,
-   ragged, Cout=1, odd Cin, bf16 and mixed precision, each B2 tile instance,
-   B2's split-K over a ragged M), and time kernel, plain version and the
-   library call at those shapes: the forward (B1) at the serve run's
-   bucket-8 shapes, dgrad (B2) and wgrad (B3) at the training run's
-   microbatch-4 shapes.  B2 and B3 must give the same bits on a rerun, and
-   at each path shape B2 must come within ``DGRAD_FP64_FACTOR`` of the plain
-   version's distance from an fp64 dgrad; each path shape's B2 tile, split
-   and gather is printed;
+   ragged, Cout=1, Cin=3, odd Cin, bf16 and mixed precision, each B1 and B2
+   tile instance and gather, B1's and B2's split-K over a ragged M, B1's
+   with bias and leaky after the reduce), and time kernel, plain version
+   and the library call at those shapes: the forward (B1) at the serve
+   run's bucket-8 shapes (also checked at the training run's microbatch-4
+   shapes), dgrad (B2) and wgrad (B3) at the training run's microbatch-4
+   shapes.  B1, B2 and B3 must give the same bits on a rerun, and at each
+   path shape B2 must come within ``DGRAD_FP64_FACTOR`` of the plain
+   version's distance from an fp64 dgrad; each path shape's B1 and B2 tile,
+   split and gather is printed;
 4. serve full-width YOLOv2-16 at 416x416 on a 2x2 virtual tile grid
    through the CUDA kernel: freeze BN on a seeded calibration batch, warm
    the (1, 2, 4, 8) bucket ladder, drive 32 requests through
    ``run_serving``, check every response against the untiled plain
-   reference and the launch count against 12 convs x dispatches;
+   reference and the launch count against 12 convs x dispatches (B1's
+   launches by tile instance summing to it);
 5. train the same network (BN on, fp32) on the same grid through all three
    kernels: global batch 8 in 2 microbatches, Darknet's SGD at lr 1e-3,
    the launcher's seeded batches, 3 steps through ``make_train_step`` and
    ``run_training`` (no warmup, so every step moves the params).  Checks
    the run's launch counts against the code (12 B1, 11 B2 - the image
-   input needs no dgrad - and 12 B3 per microbatch), ``restarts`` 0 and
+   input needs no dgrad - and 12 B3 per microbatch; B1's by tile instance
+   summing to its count), ``restarts`` 0 and
    finite losses; then the gradients the run's own step 1 handed its
    update, against the untiled plain reference (cuDNN, TF32 off,
    autograd): the loss against its fp32 run, the gradients against its
@@ -72,19 +77,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    reject a planted fault (B4 fed one KV head's values zeroed);
 9. the SSD intra-chunk kernel (B5) against its plain version on the card,
    TF32 off: at the Mamba2 run's shape (x (2, 4096, 48, 64), B/C (2, 4096,
-   1, 128), chunk 256) in bf16 and fp32, on every case of
-   ``tests/test_kernels.py``'s ``SSD_CASES`` and a T < chunk case, each held
-   to the fp32 bar or, where an output misses it, to ``SSD_FP64_FACTOR``
-   against fp64, and bitwise equal on a rerun; kernel and plain version
-   timed, bound computed (no torch call computes this function);
+   1, 128), chunk 256) in bf16 (``wgmma_bf16``) and fp32 (``simt_fp32``),
+   on every case of ``tests/test_kernels.py``'s ``SSD_CASES`` and a
+   T < chunk case, each naming its instance (``kernel.py:ssd_instance``),
+   held to the fp32 bar or, where an output misses it, to
+   ``SSD_FP64_FACTOR`` against fp64, with decay and pref bitwise equal to
+   the plain version's and every output bitwise equal on a rerun; kernel
+   and plain version timed, bound computed per instance from the function's
+   work (C·Bᵀ once per batch, chunk and group; no torch call computes this
+   function);
 10. train Mamba2-780m at full width and full depth (48 layers, bf16, random
    weights from seed 0), as phase 7: global batch 4 x 4096 tokens in 2
    microbatches, 3 AdamW steps; B5 and B6 launch counts against the code's
-   (``lm_launches_per_microbatch``; B6's by instance), ``restarts`` 0, finite losses, the
+   (``lm_launches_per_microbatch``; B5's and B6's by instance, every B5
+   launch a ``wgmma_bf16`` one), ``restarts`` 0, finite losses, the
    step-1 loss against a forward through the plain B5 and B6.  Prints the
    ``{"mamba_train": ...}`` line and a profile of one step;
 11. the Mamba2 path's gradients as phase 8 (2 layers, fp32, one sequence of
-   1024 tokens: 4 chunks of 256), with a planted B5 fault (head 0's
+   1024 tokens: 4 chunks of 256; every B5 launch a ``simt_fp32`` one), with
+   a planted B5 fault (head 0's
    y_intra zeroed); and, as the record of why the port masks the decay's
    exponent, which gradient leaves the reference's literal
    ``where(tri, exp(dseg), 0)`` leaves non-finite at these inputs.
@@ -367,6 +378,7 @@ def train_phase(dev, groups, smi: str) -> dict:
         conv2d_dgrad_tile,
         conv2d_tile,
         conv2d_wgrad_tile,
+        reset_launches,
     )
     from repro_torch.launch.train import make_batch_fn
     from repro_torch.models.yolo import l2_loss_local, make_yolo_tiled_arch
@@ -409,9 +421,11 @@ def train_phase(dev, groups, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     for f in kernels.values():
         f.launches = 0
+    reset_launches()
     report = run_training(init_state=init_state, train_step=timed_step, make_batch=make_batch,
                           steps=TRAIN_STEPS, cfg=DriverConfig(), seed=SEED)
     launches = {name: f.launches for name, f in kernels.items()}
+    b1_instances = {k: v for k, v in conv2d_tile.launches_by_instance.items() if v}
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
     step_ms = [a.elapsed_time(b) for a, b in events]
@@ -425,6 +439,10 @@ def train_phase(dev, groups, smi: str) -> dict:
     check(report.steps_done == TRAIN_STEPS and len(losses) == TRAIN_STEPS, "step count")
     check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)), f"losses {losses} gnorms {gnorms}")
     check(launches == want, f"launches {launches} != {want}")
+    print(f"B1 launches by tile instance {b1_instances} (the code's count "
+          f"{want['conv2d_tile']})")
+    check(sum(b1_instances.values()) == launches["conv2d_tile"],
+          f"B1 launches by instance {b1_instances} do not sum to {launches['conv2d_tile']}")
 
     # Step 1 of the run against the untiled plain reference from the same
     # params and batch: per-microbatch forward (BN statistics per
@@ -579,7 +597,7 @@ def train_phase(dev, groups, smi: str) -> dict:
     by_name = device_ms_by_name(prof, 1)
     dev_ms = sum(by_name.values())
     part = {name: sum(v for k, v in by_name.items() if key in k)
-            for name, key in (("conv2d_tile", "conv2d_tile_kernel"),
+            for name, key in (("conv2d_tile", "conv2d_tile_"),          # partial and reduce
                               ("conv2d_dgrad_tile", "conv2d_dgrad_"),
                               ("conv2d_wgrad_tile", "conv2d_wgrad_"))}
     check(dev_ms > 0 and all(v > 0 for v in part.values()),
@@ -598,7 +616,7 @@ def train_phase(dev, groups, smi: str) -> dict:
         "step_ms_host": [t * 1e3 for t in report.step_times],
         "step_ms_host_median": statistics.median(report.step_times) * 1e3,
         "img_per_s_cuda_events": TRAIN_BATCH / (med / 1e3),
-        "peak_mem_bytes": peak, "launches": launches,
+        "peak_mem_bytes": peak, "launches": launches, "b1_launches_by_instance": b1_instances,
         "step1": step1_out, "after_steps": after,
         "card": smi,
     }}))
@@ -819,7 +837,7 @@ MAMBA_RUN = LMRun("mamba_train", MAMBA_ARCH, MAMBA_DEPTH, MAMBA_SEQ, MAMBA_BATCH
                   MAMBA_STEPS, MAMBA_GRAD_DEPTH, 1, MAMBA_GRAD_SEQ)
 # each LM kernel's name in a profiler trace
 LM_KERNEL_TRACE_NAMES = {"flash_attention_fwd": "flash_attention_fwd_",   # both instances
-                         "ssd_chunk_fwd": "ssd_chunk_fwd_kernel",
+                         "ssd_chunk_fwd": "ssd_chunk_fwd_",        # both instances
                          "rmsnorm": "rmsnorm_"}                     # every instance
 
 
@@ -904,6 +922,7 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd, reset_launches
     from repro_torch.kernels.rmsnorm.kernel import reset_launches as reset_b6_launches
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.kernels.ssd_chunk.kernel import reset_launches as reset_b5_launches
     from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
     from repro_torch.models.lm import lm_loss
     from repro_torch.models.registry import bundle_from_cfg, load_config, with_depth
@@ -946,11 +965,13 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     for f in kernels.values():
         f.launches = 0
     reset_launches()
+    reset_b5_launches()
     reset_b6_launches()
     report = run_training(init_state=init_state, train_step=timed_step, make_batch=make_batch,
                           steps=run.steps, cfg=DriverConfig(), seed=SEED)
     launches = {name: f.launches for name, f in kernels.items()}
     b4_instances = {k: v for k, v in flash_attention_fwd.launches_by_instance.items() if v}
+    b5_instances = {k: v for k, v in ssd_chunk_fwd.launches_by_instance.items() if v}
     b6_instances = {k: v for k, v in rmsnorm.launches_by_instance.items() if v}
     torch.cuda.synchronize()
     run_s = time.monotonic() - t0
@@ -976,6 +997,13 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
           f"{want['rmsnorm']})")
     check(sum(b6_instances.values()) == launches["rmsnorm"] == want["rmsnorm"],
           f"{run.key} B6 launches by instance {b6_instances} vs {want['rmsnorm']}")
+    if "ssd_chunk_fwd" in want:
+        # a bf16 Mamba2 run's SSD goes to the tensor-core instance alone
+        print(f"{run.key}: B5 launches by instance {b5_instances} (the code's count "
+              f"{want['ssd_chunk_fwd']})")
+        check(sum(b5_instances.values()) == launches["ssd_chunk_fwd"] == want["ssd_chunk_fwd"]
+              and set(b5_instances) == {"wgmma_bf16"},
+              f"{run.key} B5 launches by instance {b5_instances} vs {want['ssd_chunk_fwd']}")
     check(step1["loss"] == losses[0], "on_grads saw another loss than the run logged")
 
     # where the device time of one step goes (one more step on the final state)
@@ -1032,8 +1060,8 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
         "step_ms_host_median": statistics.median(report.step_times) * 1e3,
         "tokens_per_s_cuda_events": tokens / (med / 1e3),
         "peak_mem_bytes": peak, "launches": launches, "launches_expected": want,
-        "b4_launches_by_instance": b4_instances, "b6_launches_by_instance": b6_instances,
-        "card": smi,
+        "b4_launches_by_instance": b4_instances, "b5_launches_by_instance": b5_instances,
+        "b6_launches_by_instance": b6_instances, "card": smi,
     }}))
     return launches
 
@@ -1049,6 +1077,8 @@ def lm_grad_phase(dev, run: LMRun, fault, must_fail, note: str) -> dict:
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.synthetic import place, synth_batch
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd, reset_launches
+    from repro_torch.kernels.ssd_chunk.kernel import reset_launches as reset_b5_launches
+    from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
     from repro_torch.models.lm import lm_loss
     from repro_torch.models.registry import bundle_from_cfg, load_config, with_depth
     from repro_torch.optim.optimizers import tree_map
@@ -1066,12 +1096,16 @@ def lm_grad_phase(dev, run: LMRun, fault, must_fail, note: str) -> dict:
         return lm_value_and_grad(lambda p_, b_: lm_loss(p_, b_, cfg, remat="full"), p, batch)
 
     reset_launches()
+    reset_b5_launches()
     loss_k, g_k = grads(cfg32, params)            # through the path's kernels
     b4_instances = {k: v for k, v in flash_attention_fwd.launches_by_instance.items() if v}
-    # an fp32 model's attention goes to the SIMT instance alone
+    b5_instances = {k: v for k, v in ssd_chunk_fwd.launches_by_instance.items() if v}
+    # an fp32 model's attention and SSD go to the SIMT instances alone
     check(all(k.startswith("simt_fp32") for k in b4_instances)
           and (base.ssm is not None or sum(b4_instances.values()) > 0),
           f"{run.arch} fp32 grads: B4 launches by instance {b4_instances}")
+    check(set(b5_instances) == ({"simt_fp32"} if base.ssm is not None else set()),
+          f"{run.arch} fp32 grads: B5 launches by instance {b5_instances}")
     with plain_lm_kernels():
         p64 = tree_map(lambda t: t.double(), params)
         loss64, g64 = grads(cfg64, p64)
@@ -1120,7 +1154,8 @@ def lm_grad_phase(dev, run: LMRun, fault, must_fail, note: str) -> dict:
     out = {"loss_rel_err_vs_fp64": loss_rel, "plain32_loss_rel_err_vs_fp64": loss32_rel,
            "grad_err_vs_fp64": max(kern64), "plain32_grad_err_vs_fp64": max(plain64),
            "per_leaf": {n: [a, b] for n, a, b in zip(names, kern64, plain64)},
-           "planted_fault_err_over_bar": fault_ratio, "b4_launches_by_instance": b4_instances}
+           "planted_fault_err_over_bar": fault_ratio, "b4_launches_by_instance": b4_instances,
+           "b5_launches_by_instance": b5_instances}
     if base.ssm is not None:
         # the record of why the port masks the decay's exponent: the same
         # grads with the reference's literal where(tri, exp(dseg), 0)
@@ -1153,14 +1188,17 @@ def ssd_kernel_phase(dev) -> tuple[list, float]:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
-    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+    from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd, ssd_instance, ssd_slab
+    from repro_torch.kernels.ssd_chunk.ref import chunk_len, ssd_chunk_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     outs = ("y", "S", "decay", "pref")
 
     def case(shape, dt, timed):
         b, t, h, p, g, n, chunk = shape
+        q = chunk_len(t, chunk)
+        instance = ssd_instance(dt, dt, n, p, q)
+        before = ssd_chunk_fwd.launches_by_instance[instance]
         x = torch.randn((b, t, h, p), generator=gen, device=dev).to(dt)
         d = F.softplus(torch.randn((b, t, h), generator=gen, device=dev))
         A = -torch.exp(0.3 * torch.randn((h,), generator=gen, device=dev))
@@ -1173,10 +1211,18 @@ def ssd_kernel_phase(dev) -> tuple[list, float]:
         torch.cuda.synchronize()
         check(all(a.dtype == w.dtype == torch.float32 and a.shape == w.shape
                   for a, w in zip(got, want)), f"B5 {shape} {dt}: {[a.shape for a in got]}")
+        check(ssd_chunk_fwd.launches_by_instance[instance] == before + 2,
+              f"B5 {shape} {dt}: not {instance}")
         check(all(torch.equal(a, r) for a, r in zip(got, again)),
               f"B5 {shape} {dt}: two runs on the same inputs differ")
+        # the log-decay prefix is the plain version's sequential adds: decay and
+        # pref equal it bit for bit
+        check(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]),
+              f"B5 {shape} {dt} ({instance}): decay or pref differs from the plain version")
         stats = [err_stats(a, w, **TOL_FP32) for a, w in zip(got, want)]
-        row = dict(shape=list(shape), dtype=str(dt), max_abs_err=max(e for e, _ in stats),
+        row = dict(shape=list(shape), dtype=str(dt), instance=instance,
+                   slab=ssd_slab(h // g, q, g, b * (t // q)) if instance == "wgmma_bf16" else None,
+                   max_abs_err=max(e for e, _ in stats),
                    err_ratio={o: r for o, (_, r) in zip(outs, stats)}, rule="fp32 bar")
         missed = [i for i, (_, r) in enumerate(stats) if r > 1.0]
         if missed:
@@ -1191,15 +1237,24 @@ def ssd_kernel_phase(dev) -> tuple[list, float]:
                   f"B5 {shape} {dt}: outside the fp32 bar and over {SSD_FP64_FACTOR}x the plain "
                   f"fp32 version's distance from fp64: {row}")
         if timed:
-            nc = t // min(chunk, t)
-            q = t // nc
-            # per (batch, chunk, head): the causal pairs' C·B and p·x, and the state
-            flops = b * nc * h * (q * (q + 1) // 2 * (n + p) * 2 + q * n * p * 2)
+            nc = t // q
+            pairs = q * (q + 1) // 2
+            # the function's work: C·Bᵀ's causal pairs once per (batch, chunk,
+            # group) - every head of a group shares it - then per head the
+            # causal pairs' M·x and the state
+            flops = b * nc * (g * pairs * n * 2 + h * (pairs * p * 2 + q * n * p * 2))
+            flops_cb_per_head = b * nc * h * (pairs * (n + p) * 2 + q * n * p * 2)
             nbytes = sum(a.numel() * a.element_size() for a in args + tuple(got))
-            b_ms, b_by = bound(flops, nbytes)
+            fp32_ms, fp32_by = bound(flops, nbytes)
+            t_ops, t_bytes = flops / BF16_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+            tc_ms, tc_by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+            # the bound of the units the instance runs on: bf16 tensor cores or fp32 CUDA cores
+            b_ms, b_by = (tc_ms, tc_by) if instance == "wgmma_bf16" else (fp32_ms, fp32_by)
             row.update(ms=time_ms(lambda: ssd_chunk_fwd(*args, chunk=chunk)),
                        plain_ms=time_ms(lambda: ssd_chunk_ref(*args, chunk=chunk), reps=3, iters=3),
-                       library_ms=None, bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+                       fp32_core_bound_ms=fp32_ms, bf16_tensor_core_bound_ms=tc_ms,
+                       flops_cb_per_head=flops_cb_per_head)
         del args, got, want, again
         return row
 
@@ -1207,16 +1262,26 @@ def ssd_kernel_phase(dev) -> tuple[list, float]:
     for dt in (torch.bfloat16, torch.float32):      # the Mamba2 run's shape: bf16 is its path
         r = case(SSD_MODEL_SHAPE, dt, True)
         rows.append(r)
-        print(f"  B5 {r['shape']} {r['dtype']}: err {r['max_abs_err']:.2e} ({r['rule']}: "
-              f"{r['err_ratio']}) kernel {r['ms']:.3f} ms plain {r['plain_ms']:.3f} bound "
-              f"{r['bound_ms']:.3f} ({r['bound_by']}, {r['flops'] / 1e9:.1f} GFLOP)")
+        print(f"  B5 {r['shape']} {r['dtype']} ({r['instance']}, slab {r['slab']}): err "
+              f"{r['max_abs_err']:.2e} ({r['rule']}: {r['err_ratio']}) kernel {r['ms']:.4f} ms "
+              f"plain {r['plain_ms']:.3f} bound {r['bound_ms']:.4f} ({r['bound_by']}; "
+              f"{r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.1f} MB; fp32 cores "
+              f"{r['fp32_core_bound_ms']:.4f}, bf16 tensor cores "
+              f"{r['bf16_tensor_core_bound_ms']:.4f}; C·Bᵀ counted per head "
+              f"{r['flops_cb_per_head'] / 1e9:.1f} GFLOP)")
+    check(rows[0]["instance"] == "wgmma_bf16" and rows[1]["instance"] == "simt_fp32",
+          f"B5 at the model shape: {[r['instance'] for r in rows]}")
+    seen = set()
     for shape in SSD_CASES + [SSD_SHORT_CASE]:
         for dt in (torch.float32, torch.bfloat16):
             r = case(shape, dt, False)
-            print(f"  B5 case {shape} {r['dtype']}: err {r['max_abs_err']:.2e} ({r['rule']}: "
-                  f"{r['err_ratio']})")
+            seen.add(r["instance"])
+            print(f"  B5 case {shape} {r['dtype']} ({r['instance']}, slab {r['slab']}): err "
+                  f"{r['max_abs_err']:.2e} ({r['rule']}: {r['err_ratio']})")
+    check(seen == {"simt_fp32", "wgmma_bf16"}, f"B5 edge cases ran {seen}")
     print(f"B5 checks passed (fp32 {TOL_FP32} against the plain version, or SSD_FP64_FACTOR "
-          f"{SSD_FP64_FACTOR} against fp64; bitwise equal on a rerun)")
+          f"{SSD_FP64_FACTOR} against fp64; decay and pref bitwise equal to the plain version; "
+          f"bitwise equal on a rerun)")
     print(json.dumps({"ssd_chunk_shapes": rows}))
     torch.cuda.empty_cache()
     return rows, rows[0]["max_abs_err"]
@@ -1245,7 +1310,14 @@ def main() -> int:
         wgrad_split,
         wgrad_tile,
     )
-    from repro_torch.kernels.conv2d_tiled.kernel import conv2d_tile
+    from repro_torch.kernels.conv2d_tiled.kernel import (
+        FWD_TILES,
+        conv2d_tile,
+        fwd_gather,
+        fwd_split,
+        fwd_tile,
+    )
+    from repro_torch.kernels.conv2d_tiled.kernel import reset_launches as reset_b1_launches
     from repro_torch.kernels.conv2d_tiled.ref import (
         conv2d_dgrad_ref,
         conv2d_ref,
@@ -1290,6 +1362,25 @@ def main() -> int:
           f"B2 instances spill: {b2_spills}")
     b6_spills = {fn: v for fn, v in _build.spills("rmsnorm").items() if v != (0, 0)}
     print(f"B6 kernels that spill: {b6_spills}")
+    b1_regs = _build.registers("conv2d_tile")
+    b1_spills = _build.spills("conv2d_tile")
+    print("B1 instances (registers, spill bytes (stores, loads)):")
+    for fn in sorted(b1_regs):
+        print(f"  {_build.demangle(fn)}: {b1_regs[fn]} registers, spills {b1_spills.get(fn)}")
+    check(len(b1_spills) > 0 and all(v == (0, 0) for v in b1_spills.values()),
+          f"B1 instances spill: { {_build.demangle(k): v for k, v in b1_spills.items() if v != (0, 0)} }")
+    b5_sass = {fn: text.count("HGMMA") for fn, text in _build.sass("ssd_chunk_fwd").items()
+               if "ssd_chunk_fwd_wgmma_kernel" in fn}
+    b5_spills = {fn: v for fn, v in _build.spills("ssd_chunk_fwd").items()
+                 if "ssd_chunk_fwd_wgmma_kernel" in fn}
+    b5_regs = {fn: v for fn, v in _build.registers("ssd_chunk_fwd").items()
+               if "ssd_chunk_fwd_wgmma_kernel" in fn}
+    print(f"B5 wgmma_bf16: HGMMA instructions {list(b5_sass.values())}, registers "
+          f"{list(b5_regs.values())}, spill bytes (stores, loads) {list(b5_spills.values())}")
+    check(len(b5_sass) == 1 and all(n > 0 for n in b5_sass.values()),
+          f"B5 wgmma_bf16 without HGMMA in its SASS: {b5_sass}")
+    check(len(b5_spills) == 1 and all(v == (0, 0) for v in b5_spills.values()),
+          f"B5 wgmma_bf16 spills: {b5_spills}")
 
     # -- 3. kernel against its plain version ----------------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -1315,14 +1406,32 @@ def main() -> int:
             torch.zeros(w_shape[-1], device=dev, dtype=out_dtype)
         return x, w, b
 
+    def fwd_rules(x_shape, w_shape, stride):
+        """B1's tile, (splits, chunk) and gather at one shape: the code's rules."""
+        k, _, cin, cout = w_shape
+        pixels = math.prod(out_shape(x_shape, w_shape, stride)[:3])
+        return fwd_tile(cout), fwd_split(pixels, cout, k * k * cin), fwd_gather(cin)
+
+    def fwd_case(x, w, b, stride, act="linear"):
+        """B1 against its plain version, and bitwise against itself on a rerun."""
+        got = conv2d_tile(x, w, b, stride=stride, act=act)
+        want = conv2d_ref(x, w, b, stride=stride, act=act)
+        again = conv2d_tile(x, w, b, stride=stride, act=act)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype == torch.promote_types(x.dtype, w.dtype)
+              and got.shape == want.shape, f"B1 {tuple(x.shape)}: {got.dtype} {tuple(got.shape)}")
+        check(torch.equal(got, again), f"B1 {tuple(x.shape)}x{tuple(w.shape)}: two runs on the "
+              f"same inputs differ")
+        tol = TOL_BF16 if got.dtype == torch.bfloat16 else TOL_FP32
+        err, ratio = err_stats(got, want, **tol)
+        check(ratio <= 1.0, f"B1 {tuple(x.shape)}x{tuple(w.shape)} s{stride} {act}: max err {err} "
+              f"over tolerance {tol}")
+        return got, want, err, ratio
+
     rows, serve_err = [], 0.0
     for s in shapes:
         x, w, b = inputs(s["x"], s["w"], bias=False)      # the serve path: zero bias, linear
-        got = conv2d_tile(x, w, b, stride=s["stride"])
-        want = conv2d_ref(x, w, b, stride=s["stride"])
-        torch.cuda.synchronize()
-        err, ratio = err_stats(got, want, **TOL_FP32)
-        check(ratio <= 1.0, f"layer {s['layer']} {s['x']}x{s['w']}: max err {err} over tolerance")
+        got, want, err, ratio = fwd_case(x, w, b, s["stride"])
         serve_err = max(serve_err, err)
         xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
         k_ms = time_ms(lambda: conv2d_tile(x, w, b, stride=s["stride"]))
@@ -1331,12 +1440,26 @@ def main() -> int:
         y_shape = out_shape(s["x"], s["w"], s["stride"])
         b_ms, b_by = bound(conv_flops(s["x"], s["w"], s["stride"]), 4 * (
             math.prod(s["x"]) + math.prod(s["w"]) + s["w"][-1] + math.prod(y_shape)))
-        rows.append(dict(layer=s["layer"], x=s["x"], w=s["w"], max_abs_err=err,
+        tile, split, gather = fwd_rules(s["x"], s["w"], s["stride"])
+        rows.append(dict(layer=s["layer"], x=s["x"], w=s["w"], max_abs_err=err, err_ratio=ratio,
+                         tile=tile, splits_chunk=list(split), gather=gather,
                          ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
-        print(f"  conv layer {s['layer']:2d} x{s['x']} w{s['w']}: err {err:.2e} "
+        print(f"  conv layer {s['layer']:2d} x{s['x']} w{s['w']} ({tile}, splits x chunk "
+              f"{split[0]} x {split[1]}, {gather}): err {err:.2e} ({ratio:.3f} of tol) "
               f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms cudnn {l_ms:.4f} ms "
               f"bound {b_ms:.4f} ms ({b_by})")
         del x, w, b, got, want
+    print(f"B1 at the 12 bucket-8 shapes: kernel {sum(r['ms'] for r in rows):.4f} ms, cudnn "
+          f"{sum(r['library_ms'] for r in rows):.4f} ms, bound {sum(r['bound_ms'] for r in rows):.4f} ms")
+    # the training run's forward shapes: all 16 tiles of a microbatch of 4
+    for s in conv_shapes(plan, TRAIN_BATCH // TRAIN_ACCUM):
+        x, w, b = inputs(s["x"], s["w"], bias=False)
+        _, _, err, ratio = fwd_case(x, w, b, s["stride"])
+        tile, split, gather = fwd_rules(s["x"], s["w"], s["stride"])
+        print(f"  train conv layer {s['layer']:2d} x{s['x']} w{s['w']} ({tile}, splits x chunk "
+              f"{split[0]} x {split[1]}, {gather}): err {err:.2e} ({ratio:.3f} of tol), bitwise "
+              f"equal on a rerun")
+        del x, w, b
 
     f32, bf16 = torch.float32, torch.bfloat16
     extra = [
@@ -1349,21 +1472,33 @@ def main() -> int:
         ("bf16_x_fp32_w", (4, 30, 30, 128), (3, 3, 128, 256), 1, "leaky", True, bf16, f32),
         ("fp32_x_bf16_w", (4, 30, 30, 128), (3, 3, 128, 256), 1, "relu", False, f32, bf16),
         ("cout1", (2, 17, 17, 24), (3, 3, 24, 1), 1, "relu", True, f32, f32),
+        ("cin3_ragged", (3, 21, 19, 3), (3, 3, 3, 32), 1, "leaky", True, f32, f32),
         ("odd_cin", (3, 19, 23, 5), (3, 3, 5, 70), 2, "leaky", True, f32, f32),
+        # each tile instance and gather off the path's shapes: ragged Cout, ragged M
+        ("128x32_vector_ragged_cout", (3, 21, 19, 16), (3, 3, 16, 30), 1, "relu", True, f32, f32),
+        ("128x64_vector_ragged_cout", (2, 11, 13, 48), (3, 3, 48, 50), 1, "leaky", True, f32, f32),
+        ("128x128_general_ragged_cout", (3, 21, 19, 40), (3, 3, 40, 130), 1, "leaky", True, f32,
+         f32),
+        ("128x64_general_stride2", (2, 17, 17, 24), (3, 3, 24, 64), 2, "relu", True, f32, f32),
+        # split-K (2 or more slices) over a ragged M, bias and leaky after the reduce
+        ("split_ragged_m_bias_leaky", (5, 9, 7, 256), (3, 3, 256, 256), 1, "leaky", True, f32,
+         f32),
+        ("split_1x1_bias_leaky_bf16", (4, 13, 13, 512), (1, 1, 512, 256), 1, "leaky", True, bf16,
+         bf16),
     ]
+    seen = set()
     for name, xs, ws, stride, act, bias, x_dtype, w_dtype in extra:
         x, w, b = inputs(xs, ws, bias, x_dtype, w_dtype)
-        got = conv2d_tile(x, w, b if bias else None, stride=stride, act=act)
-        want = conv2d_ref(x, w, b if bias else None, stride=stride, act=act)
-        torch.cuda.synchronize()
-        check(got.dtype == want.dtype == torch.promote_types(x_dtype, w_dtype)
-              and got.shape == want.shape, f"{name}: {got.dtype} {got.shape}")
-        tol = TOL_BF16 if got.dtype == bf16 else TOL_FP32
-        err, ratio = err_stats(got, want, **tol)
-        check(ratio <= 1.0, f"case {name}: max err {err} over tolerance {tol}")
-        print(f"  case {name}: out {got.dtype}, max err {err:.2e} "
-              f"({ratio:.3f} of tolerance {tol}), max |out| {float(want.float().abs().max()):.3g}")
-    print(f"B1 checks passed (fp32 {TOL_FP32}, bf16 {TOL_BF16})")
+        got, want, err, ratio = fwd_case(x, w, b if bias else None, stride, act)
+        tile, split, gather = fwd_rules(xs, ws, stride)
+        seen |= {tile, gather} | ({"split"} if split[0] > 1 else set())
+        print(f"  case {name} ({tile}, splits x chunk {split[0]} x {split[1]}, {gather}): out "
+              f"{got.dtype}, max err {err:.2e} ({ratio:.3f} of tolerance), max |out| "
+              f"{float(want.float().abs().max()):.3g}")
+    check(seen >= set(FWD_TILES) | {"vector", "general", "split"},
+          f"B1 edge cases miss {set(FWD_TILES) | {'vector', 'general', 'split'} - seen}")
+    print(f"B1 checks passed (fp32 {TOL_FP32}, bf16 {TOL_BF16}; bitwise equal on a rerun; every "
+          f"tile, both gathers and split-K)")
 
     # B2 / B3 at the training run's shapes: all 16 tiles of a microbatch of 4.
     # Layer 0's dgrad is checked but not on the path (its input is the image).
@@ -1510,7 +1645,7 @@ def main() -> int:
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / 3
     by_name = device_ms_by_name(prof, 3)
     dev_ms = sum(by_name.values())
-    conv_ms = sum(v for k, v in by_name.items() if "conv2d_tile_kernel" in k)
+    conv_ms = sum(v for k, v in by_name.items() if "conv2d_tile_" in k)
     check(dev_ms > 0 and conv_ms > 0, "profiler saw no device time for the conv kernel")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print(json.dumps({"profile_bucket8": {
@@ -1532,14 +1667,18 @@ def main() -> int:
         for _ in range(ARRIVALS[t]):
             eng.submit(next(it))
 
-    conv2d_tile.launches = 0
+    reset_b1_launches()
     report = run_serving(engine, ticks=len(ARRIVALS), on_tick=on_tick)
     launches = conv2d_tile.launches
+    b1_instances = {k: v for k, v in conv2d_tile.launches_by_instance.items() if v}
     print(f"served {report.served} in {report.dispatches} dispatches, census "
-          f"{report.bucket_census}, launches {launches}, cache {report.cache}")
+          f"{report.bucket_census}, launches {launches} (by tile instance {b1_instances}), "
+          f"cache {report.cache}")
     check(report.served == len(images), f"served {report.served}")
     check(launches == N_CONVS * report.dispatches and launches > 0,
           f"launches {launches} != {N_CONVS} x {report.dispatches} dispatches")
+    check(sum(b1_instances.values()) == launches,
+          f"B1 launches by instance {b1_instances} do not sum to {launches}")
     check(report.cache["misses"] == len(BUCKETS), f"cache misses {report.cache['misses']}")
 
     with torch.inference_mode():
@@ -1565,7 +1704,7 @@ def main() -> int:
         "bucket_census": report.bucket_census, "deadline_misses": report.deadline_misses,
         "bucket8_forward_ms": fwd_ms, "bucket8_dispatch_ms": step_s * 1e3,
         "bucket8_kernel_ms": kernel_ms, "max_abs_err": e2e_err, "launches": launches,
-        "card": smi,
+        "b1_launches_by_instance": b1_instances, "card": smi,
     }}))
     train_launches = train_phase(dev, groups, smi)
     del arch, plan, params, sparams, engine, infer, x8, ref, got

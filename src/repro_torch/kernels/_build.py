@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` source has a plain C interface and is compiled on its own
 into a shared library under ``build/repro_torch_kernels/`` at the repository
-root (ignored by git), named by a hash of its source and flags so an edited
-source rebuilds and an unchanged one is reused.  ``build()`` starts one
+root (ignored by git), named by a hash of its source, the shared headers of
+``kernels/csrc/`` and the flags, so an edited source or header rebuilds and
+an unchanged one is reused.  ``build()`` starts one
 ``nvcc`` per source, all at once, and waits for every one of them.  Nothing
 here runs at import time: this module imports on machines without ``nvcc``.
 """
@@ -29,6 +30,9 @@ SOURCES: dict[str, Path] = {
     "rmsnorm": _PKG / "rmsnorm" / "csrc" / "rmsnorm.cu",
     "ssd_chunk_fwd": _PKG / "ssd_chunk" / "csrc" / "ssd_chunk_fwd.cu",
 }
+
+#: headers the sources include (``#include "../../csrc/hopper.cuh"``)
+HEADERS: tuple[Path, ...] = (_PKG / "csrc" / "hopper.cuh",)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -59,7 +63,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    data = src.read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -79,6 +84,22 @@ def spills(name: str) -> dict[str, tuple[int, int]]:
             r"stores, (\d+) bytes spill loads", build_log(name)):
         out[fn] = (int(stores), int(loads))
     return out
+
+
+def registers(name: str) -> dict[str, int]:
+    """Registers a thread of each kernel function in ``name``'s last build
+    uses, by mangled name, from ptxas' report."""
+    return {fn: int(n) for fn, n in re.findall(
+        r"Function properties for (\S+)\s*\n[^\n]*\n[^\n]*Used (\d+) registers", build_log(name))}
+
+
+def demangle(fn: str) -> str:
+    """A kernel function's C++ name (``cu++filt``), for reports."""
+    tool = Path(nvcc_path()).with_name("cu++filt")
+    if not tool.exists():
+        return fn
+    return subprocess.run([str(tool), fn], capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip()
 
 
 def sass(name: str) -> dict[str, str]:

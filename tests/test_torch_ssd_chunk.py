@@ -27,12 +27,19 @@ port's plain path in float64.
   A-gradients are non-finite (already on ``SSD_CASES[2]``, whose own test
   checks only the x-gradient); the port's forward is the reference's and
   its gradients are finite and close to float64.
+- The CUDA kernel's instance and head-slab rules (``ssd_instance``,
+  ``ssd_slab``), the three-term bf16 split of its tensor-core instance as a
+  property test, and that instance's arithmetic emulated on the CPU (bf16
+  operands, fp32 products and sums, M and w·x split in three bf16 terms)
+  against the Pallas kernel and the plain version at the fp32 bar.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels.ssd_chunk import ops as jops
 from repro.kernels.ssd_chunk.kernel import ssd_chunk_fwd as jax_ssd_chunk_fwd
@@ -40,7 +47,7 @@ from repro.kernels.ssd_chunk.ref import ssd_chunk_ref as jax_ssd_chunk_ref
 from repro.models.mamba2 import _ssd_chunk_scan as jax_ssd_chunk_scan
 from repro_torch.kernels.ssd_chunk import kernel as tkernel
 from repro_torch.kernels.ssd_chunk.ops import ssd_scan, ssd_scan_ref
-from repro_torch.kernels.ssd_chunk.ref import causal_decay, ssd_chunk_ref
+from repro_torch.kernels.ssd_chunk.ref import causal_decay, chunk_len, ssd_chunk_ref
 from repro_torch.models.mamba2 import _ssd_chunk_scan
 
 SSD_CASES = [        # tests/test_kernels.py:456
@@ -281,3 +288,167 @@ def test_ssd_chunk_kernel_on_the_card():
             got = tkernel.ssd_chunk_fwd(*[t.cuda() for t in tx], chunk=case[-1])
             for g, w in zip(got, ssd_chunk_ref(*tx, chunk=case[-1])):
                 torch.testing.assert_close(g.cpu(), w, **TOL)
+
+
+# --- the CUDA kernel's instance and slab rules (kernel.py) -------------------
+
+@pytest.mark.parametrize("x_dt,bc_dt,n,p,q,want", [
+    ("bfloat16", "bfloat16", 128, 64, 256, "wgmma_bf16"),   # the Mamba2 path
+    ("bfloat16", "bfloat16", 8, 16, 32, "wgmma_bf16"),      # SSD_CASES[0]
+    ("bfloat16", "bfloat16", 16, 32, 64, "wgmma_bf16"),     # SSD_CASES[2]
+    ("bfloat16", "bfloat16", 8, 16, 96, "wgmma_bf16"),      # SHORT_CASE: Q not a multiple of 64
+    ("bfloat16", "bfloat16", 4, 8, 64, "simt_fp32"),        # SSD_CASES[1]: N * 2 bytes < 16
+    ("bfloat16", "bfloat16", 128, 60, 256, "simt_fp32"),    # P * 2 bytes not a multiple of 16
+    ("bfloat16", "bfloat16", 128, 64, 512, "simt_fp32"),    # 8 key tiles: C·Bᵀ past the registers
+    ("float32", "float32", 128, 64, 256, "simt_fp32"),      # the fp32 gradient checks
+    ("bfloat16", "float32", 128, 64, 256, "simt_fp32"),
+    ("float32", "bfloat16", 128, 64, 256, "simt_fp32"),
+])
+def test_ssd_instance_is_a_function_of_types_and_shapes(x_dt, bc_dt, n, p, q, want):
+    assert tkernel.ssd_instance(getattr(torch, x_dt), getattr(torch, bc_dt), n, p, q) == want
+    assert set(tkernel.INSTANCES) == {"simt_fp32", "wgmma_bf16"}
+
+
+@pytest.mark.parametrize("hpg,q,groups,chunks,want", [
+    (48, 256, 1, 32, 24),       # Mamba2-780m, 2 x 4096 tokens: 3 x 32 CTAs of 48 heads < 132
+    (48, 256, 1, 64, 48),       # twice the tokens: whole groups fill the card
+    (48, 256, 1, 1, 1),         # one chunk: the most CTAs there are
+    (2, 32, 2, 8, 1),           # SSD_CASES[0]
+    (4, 96, 1, 2, 1),           # SHORT_CASE
+    (96, 256, 1, 64, 48),       # 96 heads a group: the prefix's shared memory caps the slab
+    (96, 64, 1, 64, 48),        # short chunks: whole groups would leave SMs idle
+    (96, 64, 1, 128, 96),       # ... and with twice the chunks fill the card (cap 189)
+])
+def test_ssd_slab_rule(hpg, q, groups, chunks, want):
+    """The largest divisor of H/G whose log-decay prefix fits the shared
+    memory left beside the tiles and whose grid still puts a CTA on each of
+    132 SMs; one head a CTA where no slab does."""
+    slab = tkernel.ssd_slab(hpg, q, groups, chunks)
+    assert slab == want and hpg % slab == 0
+    qp = -(-q // 64) * 64
+    assert 8 * slab * (qp + 2) <= tkernel._TC_SLAB_BYTES
+    ctas = (-(-q // 128) + 1) * groups * (hpg // slab) * chunks
+    bigger = [d for d in range(slab + 1, hpg + 1)
+              if hpg % d == 0 and 8 * d * (qp + 2) <= tkernel._TC_SLAB_BYTES]
+    if slab > 1:
+        assert ctas >= 132
+    assert all((-(-q // 128) + 1) * groups * (hpg // d) * chunks < 132 for d in bigger)
+
+
+def _split3(v: torch.Tensor):
+    """The tensor-core instance's split of fp32 values: hi = bf16(v), mid =
+    bf16(v - hi), lo = bf16(v - hi - mid), each rounded to nearest even."""
+    hi = v.to(torch.bfloat16)
+    r = v - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+_BF16_MAX = float(torch.finfo(torch.bfloat16).max)
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.floats(min_value=-_BF16_MAX, max_value=_BF16_MAX, allow_nan=False,
+                          allow_infinity=False, width=32), min_size=1, max_size=64))
+def test_three_bf16_terms_reconstruct_fp32(values):
+    """hi + mid + lo is the fp32 value exactly while every term is a normal
+    bf16 (|v| >= 2**-110); below that only the lowest term loses bits, by at
+    most bf16's smallest subnormal."""
+    v = torch.tensor(values, dtype=torch.float32)
+    hi, mid, lo = _split3(v)
+    back = hi.double() + mid.double() + lo.double()
+    exact = v.double()
+    normal = exact.abs() >= 2.0**-110
+    assert torch.equal(back[normal], exact[normal])
+    assert float((back - exact).abs().max()) <= 2.0**-133
+
+
+@pytest.mark.parametrize("v", [1.0 + 2**-23, -3.0000002, 1e-30, 6.1e-5, 3.3e38, -2**-100,
+                               0.0, 2**-126, 1.0 / 3.0])
+def test_three_bf16_terms_reconstruct_edge_values(v):
+    x = torch.tensor([v], dtype=torch.float32)
+    hi, mid, lo = _split3(x)
+    assert float(hi.double() + mid.double() + lo.double()) == float(x.double())
+
+
+def _wgmma_bf16_emulation(x, dt, A, Bm, Cm, chunk):
+    """The tensor-core instance's arithmetic on the CPU: cum by sequential
+    fp32 adds of the fp32 products dt·A; S = C·Bᵀ once per (batch, chunk,
+    group) with bf16 operands (exact products) and fp32 sums; per head
+    M = (S·exp(cum_i − cum_j))·dt_j, 0 above the diagonal, split in three
+    bf16 terms, y = Σ_terms term·x with fp32 sums; the state from the three
+    bf16 terms of w_j·x_j (w_j = exp(cum_Q − cum_j)·dt_j) times B, fp32
+    sums."""
+    b, t, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    q = chunk_len(t, chunk)
+    nc, rep = t // q, h // g
+    xc = x.reshape(b, nc, q, h, p).float()              # bf16 values, exact in fp32
+    Bc = Bm.reshape(b, nc, q, g, n).float()
+    Cc = Cm.reshape(b, nc, q, g, n).float()
+    dtc = dt.reshape(b, nc, q, h).float()
+    dA = dtc * A.float()
+    cum = torch.empty_like(dA)
+    acc = torch.zeros_like(dA[:, :, 0])
+    for i in range(q):                                  # one fp32 add at a time
+        acc = acc + dA[:, :, i]
+        cum[:, :, i] = acc
+    S = torch.einsum("bcign,bcjgn->bcgij", Cc, Bc).repeat_interleave(rep, dim=2)
+    ci = cum.permute(0, 1, 3, 2)                        # (B, nc, H, Q)
+    dt_j = dtc.permute(0, 1, 3, 2)
+    tri = torch.ones((q, q), dtype=torch.bool).tril()
+    m = torch.where(tri, S * torch.exp(torch.where(tri, ci[..., :, None] - ci[..., None, :],
+                                                   float("-inf"))) * dt_j[..., None, :], 0.0)
+    y = sum(torch.einsum("bchij,bcjhp->bcihp", term.float(), xc) for term in _split3(m))
+    w = torch.exp(ci[..., -1:] - ci) * dt_j             # (B, nc, H, Q)
+    wx = w.permute(0, 1, 3, 2)[..., None] * xc          # (B, nc, Q, H, P), fp32 products
+    Bh = Bc.repeat_interleave(rep, dim=3)
+    state = sum(torch.einsum("bcjhp,bcjhn->bchnp", term.float(), Bh) for term in _split3(wx))
+    return y.reshape(b, t, h, p), state, torch.exp(ci[..., -1]), torch.exp(cum).reshape(b, t, h), cum
+
+
+@pytest.mark.parametrize("case", ALL_CASES, ids=[str(c) for c in ALL_CASES])
+def test_wgmma_bf16_arithmetic_matches_pallas_and_plain(case):
+    """The emulation against the Pallas kernel in interpret mode and the
+    plain version at the fp32 bar.  Its log-decay prefix is bitwise numpy's
+    float32 ``add.accumulate`` (sequential fp32 adds, as the card's
+    ``torch.cumsum`` and the kernel take them; torch's CPU ``cumsum``
+    accumulates in fp64, so the CPU plain version sits within the bar, not
+    bitwise), and pref and decay are exp of that prefix bit for bit."""
+    chunk = case[-1]
+    arrs = _inputs(case)
+    jx, tx = _to_dtype(arrs, "bfloat16")
+    y, state, decay, pref, cum = _wgmma_bf16_emulation(*tx, chunk=chunk)
+    b, t, h, p, g, n, _ = case
+    q = min(chunk, t)
+    dA = (arrs[1].reshape(b, t // q, q, h) * arrs[2]).astype(np.float32)
+    np.testing.assert_array_equal(cum.numpy(), np.add.accumulate(dA, axis=2, dtype=np.float32))
+    assert torch.equal(pref, torch.exp(cum).reshape(b, t, h))
+    assert torch.equal(decay, torch.exp(cum[:, :, -1]))
+    got = (y, state, decay, pref)
+    wants = [jax_ssd_chunk_fwd(*jx, chunk=chunk, interpret=True), ssd_chunk_ref(*tx, chunk=chunk)]
+    if case == SHORT_CASE:      # as in the test above: the fp32 evaluations against float64
+        wants = [_f64(tx, chunk)]
+    for want in wants:
+        for name, a, w in zip(("y", "S", "decay", "pref"), got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_instances_on_the_card():
+    """Each instance on the card against the plain version there, the
+    log-decay prefix bit for bit and a rerun bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode); run chip_smoke.py there")
+    for case in ALL_CASES:
+        for dt in ("float32", "bfloat16"):
+            _, tx = _to_dtype(_inputs(case), dt)
+            cx = [t_.cuda() for t_ in tx]
+            got = tkernel.ssd_chunk_fwd(*cx, chunk=case[-1])
+            want = ssd_chunk_ref(*cx, chunk=case[-1])
+            assert all(torch.equal(a, c) for a, c in zip(got, tkernel.ssd_chunk_fwd(
+                *cx, chunk=case[-1])))
+            assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+            for a, w in zip(got, want):
+                torch.testing.assert_close(a, w, **TOL)
