@@ -98,7 +98,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a planted B5 fault (head 0's
    y_intra zeroed); and, as the record of why the port masks the decay's
    exponent, which gradient leaves the reference's literal
-   ``where(tri, exp(dseg), 0)`` leaves non-finite at these inputs.
+   ``where(tri, exp(dseg), 0)`` leaves non-finite at these inputs;
+12. the grouping cost model's own plans: ``groups="auto"`` for YOLOv2-16 at
+   416x416 on the 2x2 grid, batch 8, under each registered hardware profile
+   (groups against ``AUTO_GROUPS_416``; halos, ``profile_cost``'s
+   components, ``peak_device_memory`` and the planner's wall ms printed);
+   the ``AUTO_HW`` plan trained as phase 5 (without the planted faults;
+   ``{"train_auto": ...}``, and phase 5's numbers beside it), B1-B3 held as
+   in phase 3 at every per-tile shape of that plan phase 3 did not hold,
+   its inference twin served under the engine's modeled step bound (32
+   requests against the untiled reference, launches 12 x dispatches,
+   ``{"serve_auto": ...}``), and both launchers run once with ``--groups
+   auto`` on the card.  The ``{"kernels": ...}`` line's launches include
+   phase 12's.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -232,6 +244,17 @@ SSD_MODEL_SHAPE = (MAMBA_BATCH // MAMBA_ACCUM, MAMBA_SEQ, 48, 64, 1, 128, 256)
 # rule then asks that B5 be no worse than twice what fp32 gives.  The line
 # of each case says which rule held.
 SSD_FP64_FACTOR = 2.0
+# Phase 12: what the grouping cost model chooses for YOLOv2-16 (BN) at
+# 416x416 on the 2x2 grid, batch 8, sync schedule, per registered profile
+# (the JAX reference's choice too: tests/test_torch_grouping.py), and the
+# profile whose plan is trained and served on the card
+AUTO_GROUPS_416 = {
+    "jetson-edge-100m": [(0, 7), (8, 11), (12, 15)],
+    "jetson-nano-gpu": [(0, 11), (12, 15)],
+    "pi3-core": [(0, 1), (2, 3), (4, 5), (6, 7), (8, 9), (10, 11), (12, 13), (14, 15)],
+    "tpu-v5e-chip": [(0, 7), (8, 11), (12, 15)],
+}
+AUTO_HW = "jetson-nano-gpu"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -364,16 +387,80 @@ def device_ms_by_name(prof, runs: int) -> dict:
     return by_name
 
 
-def train_phase(dev, groups, smi: str) -> dict:
-    """Phase 5: train YOLOv2-16 at 416x416 on the 2x2 grid through the three
-    kernels.  Returns the launch count of each kernel in the training run."""
+def planted_faults(arch, params0, xs, ts, names, ref64, bars, normwise):
+    """Phase 5's planted faults: the step-1 grad check (per-leaf bars
+    ``bars`` against the fp64 reference grads ``ref64``) must reject a B3
+    that drops one tile and a B2 that zeroes one tile's dx.  Returns each
+    fault's err / bar per conv filter."""
+    import repro_torch.kernels.conv2d_tiled.ops as conv_ops
+    from repro_torch.core.fusion import make_deferred_grad_step
+    from repro_torch.models.yolo import l2_loss_local
+    from repro_torch.optim.optimizers import tree_leaves
+
+    # The same check must reject a wrong backward: B3 leaving out one of the
+    # 16 tile-images of a microbatch (tile (0, 0), image 0) fails it on
+    # every conv filter.
+    real_wgrad = conv_ops.conv2d_wgrad_tile
+
+    def wgrad_dropping_one_tile(x, g, kernel, **kw):
+        g = g.clone()
+        g[0] = 0
+        return real_wgrad(x, g, kernel, **kw)
+
+    conv_ops.conv2d_wgrad_tile = wgrad_dropping_one_tile
+    try:
+        _, bad = make_deferred_grad_step(arch.plan, arch.mesh, l2_loss_local,
+                                         microbatches=TRAIN_ACCUM)(
+            params0, xs, ts)
+    finally:
+        conv_ops.conv2d_wgrad_tile = real_wgrad
+    fault = {n: normwise(a, r) / bar for n, a, r, bar in zip(names, tree_leaves(bad), ref64, bars)
+             if n.endswith(".w")}
+    print(f"planted fault (B3 drops one tile): err / bar per conv filter, least "
+          f"{min(fault.values()):.2f} ({min(fault, key=fault.get)})")
+    check(len(fault) == N_CONVS and all(r > 1.0 for r in fault.values()),
+          f"the step-1 grad check passed a wgrad that drops one tile: {fault}")
+
+    # ... and a wrong B2: dx of one of the 16 tile-images (tile (0, 0), image
+    # 0) zeroed fails it on every conv filter that a dgrad feeds, i.e. all
+    # but the last conv's.
+    real_dgrad = conv_ops.conv2d_dgrad_tile
+
+    def dgrad_zeroing_one_tile(g, w, in_hw, **kw):
+        dx = real_dgrad(g, w, in_hw, **kw)
+        dx[0] = 0
+        return dx
+
+    conv_ops.conv2d_dgrad_tile = dgrad_zeroing_one_tile
+    try:
+        _, bad = make_deferred_grad_step(arch.plan, arch.mesh, l2_loss_local,
+                                         microbatches=TRAIN_ACCUM)(
+            params0, xs, ts)
+    finally:
+        conv_ops.conv2d_dgrad_tile = real_dgrad
+    filters = [n for n in names if n.endswith(".w")]
+    dfault = {n: normwise(a, r) / bar for n, a, r, bar in zip(names, tree_leaves(bad), ref64, bars)
+              if n in filters[:-1]}
+    print(f"planted fault (B2 zeroes one tile's dx): err / bar per conv filter upstream of a "
+          f"dgrad, least {min(dfault.values()):.2f} ({min(dfault, key=dfault.get)})")
+    check(len(dfault) == N_CONVS - 1 and all(r > 1.0 for r in dfault.values()),
+          f"the step-1 grad check passed a dgrad that zeroes one tile: {dfault}")
+    return fault, dfault
+
+
+def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
+                plant_faults: bool = True) -> dict:
+    """Phases 5 and 12: train YOLOv2-16 at 416x416 on the 2x2 grid through
+    the three kernels, under the plan ``make_yolo_tiled_arch(**plan_kw)``
+    gives.  Prints the ``{label: ...}`` line; returns its numbers, with the
+    launch count of each kernel in the training run under "launches"."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    import repro_torch.kernels.conv2d_tiled.ops as conv_ops
     from repro_torch.configs.base import ParallelConfig, TrainConfig
-    from repro_torch.core.fusion import make_deferred_grad_step, reference_loss
+    from repro_torch.core.fusion import reference_loss
+    from repro_torch.core.grouping import peak_device_memory
     from repro_torch.kernels.conv2d_tiled.kernel import (
         conv2d_dgrad_tile,
         conv2d_tile,
@@ -388,9 +475,11 @@ def train_phase(dev, groups, smi: str) -> dict:
 
     def make_arch(backend):
         return make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
-                                    groups=groups, backend=backend, device=dev)
+                                    backend=backend, device=dev, **plan_kw)
 
     arch = make_arch("cuda")
+    print(f"{label}: groups {[(g.start, g.end) for g in arch.plan.groups]}, group halos "
+          f"{list(arch.plan.group_halos)}")
     pcfg = ParallelConfig(grad_accum=TRAIN_ACCUM)
     tcfg = TrainConfig(lr=TRAIN_LR, optimizer="sgd", warmup=0, steps=TRAIN_STEPS, seed=SEED)
     step1 = {}      # the run's own step-1 loss and gradients, as its update sees them
@@ -489,55 +578,11 @@ def train_phase(dev, groups, smi: str) -> dict:
         check(t64 <= bar, f"step-1 grad {n}: normwise err {t64} vs fp64 over its bar {bar} "
               f"(plain fp32 reference {p64})")
 
-    # The same check must reject a wrong backward: B3 leaving out one of the
-    # 16 tile-images of a microbatch (tile (0, 0), image 0) fails it on
-    # every conv filter.
-    real_wgrad = conv_ops.conv2d_wgrad_tile
-
-    def wgrad_dropping_one_tile(x, g, kernel, **kw):
-        g = g.clone()
-        g[0] = 0
-        return real_wgrad(x, g, kernel, **kw)
-
-    conv_ops.conv2d_wgrad_tile = wgrad_dropping_one_tile
-    try:
-        _, bad = make_deferred_grad_step(arch.plan, arch.mesh, l2_loss_local,
-                                         microbatches=TRAIN_ACCUM)(
-            params0, split(b0["x"]), split(b0["t"]))
-    finally:
-        conv_ops.conv2d_wgrad_tile = real_wgrad
-    fault = {n: normwise(a, r) / bar for n, a, r, bar in zip(names, tree_leaves(bad), ref64, bars)
-             if n.endswith(".w")}
-    print(f"planted fault (B3 drops one tile): err / bar per conv filter, least "
-          f"{min(fault.values()):.2f} ({min(fault, key=fault.get)})")
-    check(len(fault) == N_CONVS and all(r > 1.0 for r in fault.values()),
-          f"the step-1 grad check passed a wgrad that drops one tile: {fault}")
-
-    # ... and a wrong B2: dx of one of the 16 tile-images (tile (0, 0), image
-    # 0) zeroed fails it on every conv filter that a dgrad feeds, i.e. all
-    # but the last conv's.
-    real_dgrad = conv_ops.conv2d_dgrad_tile
-
-    def dgrad_zeroing_one_tile(g, w, in_hw, **kw):
-        dx = real_dgrad(g, w, in_hw, **kw)
-        dx[0] = 0
-        return dx
-
-    conv_ops.conv2d_dgrad_tile = dgrad_zeroing_one_tile
-    try:
-        _, bad = make_deferred_grad_step(arch.plan, arch.mesh, l2_loss_local,
-                                         microbatches=TRAIN_ACCUM)(
-            params0, split(b0["x"]), split(b0["t"]))
-    finally:
-        conv_ops.conv2d_dgrad_tile = real_dgrad
-    filters = [n for n in names if n.endswith(".w")]
-    dfault = {n: normwise(a, r) / bar for n, a, r, bar in zip(names, tree_leaves(bad), ref64, bars)
-              if n in filters[:-1]}
-    print(f"planted fault (B2 zeroes one tile's dx): err / bar per conv filter upstream of a "
-          f"dgrad, least {min(dfault.values()):.2f} ({min(dfault, key=dfault.get)})")
-    check(len(dfault) == N_CONVS - 1 and all(r > 1.0 for r in dfault.values()),
-          f"the step-1 grad check passed a dgrad that zeroes one tile: {dfault}")
-    del bad, ref32
+    fault = dfault = None
+    if plant_faults:
+        fault, dfault = planted_faults(arch, params0, split(b0["x"]), split(b0["t"]), names,
+                                       ref64, bars, normwise)
+    del ref32
 
     # The trainer tail (clipping, schedule, SGD momentum and weight decay,
     # the microbatch accumulation) on the card: the run's params after all
@@ -603,12 +648,21 @@ def train_phase(dev, groups, smi: str) -> dict:
     check(dev_ms > 0 and all(v > 0 for v in part.values()),
           f"profiler saw no device time for a kernel: {part}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    print(json.dumps({"profile_train_step": {
-        "wall_ms": prof_wall_ms, "device_ms": dev_ms, "kernel_ms": part,
+    idle = max(0.0, 1 - dev_ms / prof_wall_ms)
+    print(json.dumps({f"profile_{label}_step": {
+        "wall_ms": prof_wall_ms, "device_ms": dev_ms, "idle_share": idle, "kernel_ms": part,
         "top": [[k[:80], v] for k, v in top],
     }}))
+    # the cost model's working set of the JAX executor for this plan, per
+    # tile (one device there), at the plan's batch; printed beside the
+    # measured peak of all four tiles on the card, not held against it
+    plan = arch.plan
+    modeled = peak_device_memory(INPUT_HW, plan.layers, plan.groups, plan.n, plan.m,
+                                 batch=TRAIN_BATCH)
     med = statistics.median(step_ms)
-    print(json.dumps({"train": {
+    out = {
+        "groups": [[g.start, g.end] for g in plan.groups],
+        "group_halos": [list(h) for h in plan.group_halos],
         "steps": report.steps_done, "restarts": report.restarts,
         "global_batch": TRAIN_BATCH, "microbatches": TRAIN_ACCUM, "optimizer": "sgd",
         "lr": TRAIN_LR, "loss": losses, "grad_norm": gnorms,
@@ -616,11 +670,14 @@ def train_phase(dev, groups, smi: str) -> dict:
         "step_ms_host": [t * 1e3 for t in report.step_times],
         "step_ms_host_median": statistics.median(report.step_times) * 1e3,
         "img_per_s_cuda_events": TRAIN_BATCH / (med / 1e3),
-        "peak_mem_bytes": peak, "launches": launches, "b1_launches_by_instance": b1_instances,
+        "device_ms": dev_ms, "device_ms_by_kernel": part, "idle_share": idle,
+        "peak_mem_bytes": peak, "modeled_peak_device_memory_per_tile": modeled,
+        "launches": launches, "b1_launches_by_instance": b1_instances,
         "step1": step1_out, "after_steps": after,
         "card": smi,
-    }}))
-    return launches
+    }
+    print(json.dumps({label: out}))
+    return out
 
 
 def attention_mask(tq: int, tk: int, causal: bool, window, device):
@@ -1428,11 +1485,11 @@ def main() -> int:
               f"over tolerance {tol}")
         return got, want, err, ratio
 
-    rows, serve_err = [], 0.0
-    for s in shapes:
-        x, w, b = inputs(s["x"], s["w"], bias=False)      # the serve path: zero bias, linear
+    def fwd_row(s):
+        """B1 at one path shape of the serve run (zero bias, linear): checked,
+        timed against its plain version and cuDNN, bound computed."""
+        x, w, b = inputs(s["x"], s["w"], bias=False)
         got, want, err, ratio = fwd_case(x, w, b, s["stride"])
-        serve_err = max(serve_err, err)
         xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
         k_ms = time_ms(lambda: conv2d_tile(x, w, b, stride=s["stride"]))
         p_ms = time_ms(lambda: conv2d_ref(x, w, b, stride=s["stride"]))
@@ -1441,25 +1498,31 @@ def main() -> int:
         b_ms, b_by = bound(conv_flops(s["x"], s["w"], s["stride"]), 4 * (
             math.prod(s["x"]) + math.prod(s["w"]) + s["w"][-1] + math.prod(y_shape)))
         tile, split, gather = fwd_rules(s["x"], s["w"], s["stride"])
-        rows.append(dict(layer=s["layer"], x=s["x"], w=s["w"], max_abs_err=err, err_ratio=ratio,
-                         tile=tile, splits_chunk=list(split), gather=gather,
-                         ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
         print(f"  conv layer {s['layer']:2d} x{s['x']} w{s['w']} ({tile}, splits x chunk "
               f"{split[0]} x {split[1]}, {gather}): err {err:.2e} ({ratio:.3f} of tol) "
               f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms cudnn {l_ms:.4f} ms "
               f"bound {b_ms:.4f} ms ({b_by})")
-        del x, w, b, got, want
-    print(f"B1 at the 12 bucket-8 shapes: kernel {sum(r['ms'] for r in rows):.4f} ms, cudnn "
-          f"{sum(r['library_ms'] for r in rows):.4f} ms, bound {sum(r['bound_ms'] for r in rows):.4f} ms")
-    # the training run's forward shapes: all 16 tiles of a microbatch of 4
-    for s in conv_shapes(plan, TRAIN_BATCH // TRAIN_ACCUM):
+        return dict(layer=s["layer"], x=s["x"], w=s["w"], max_abs_err=err, err_ratio=ratio,
+                    tile=tile, splits_chunk=list(split), gather=gather,
+                    ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+
+    def fwd_check(s):
+        """B1 at one training-run shape: checked, not timed."""
         x, w, b = inputs(s["x"], s["w"], bias=False)
         _, _, err, ratio = fwd_case(x, w, b, s["stride"])
         tile, split, gather = fwd_rules(s["x"], s["w"], s["stride"])
         print(f"  train conv layer {s['layer']:2d} x{s['x']} w{s['w']} ({tile}, splits x chunk "
               f"{split[0]} x {split[1]}, {gather}): err {err:.2e} ({ratio:.3f} of tol), bitwise "
               f"equal on a rerun")
-        del x, w, b
+        return err
+
+    rows = [fwd_row(s) for s in shapes]
+    serve_err = max(r["max_abs_err"] for r in rows)
+    print(f"B1 at the 12 bucket-8 shapes: kernel {sum(r['ms'] for r in rows):.4f} ms, cudnn "
+          f"{sum(r['library_ms'] for r in rows):.4f} ms, bound {sum(r['bound_ms'] for r in rows):.4f} ms")
+    # the training run's forward shapes: all 16 tiles of a microbatch of 4
+    for s in conv_shapes(plan, TRAIN_BATCH // TRAIN_ACCUM):
+        fwd_check(s)
 
     f32, bf16 = torch.float32, torch.bfloat16
     extra = [
@@ -1528,16 +1591,19 @@ def main() -> int:
         check(w_ratio <= 1.0, f"wgrad {x_shape}x{w_shape} s{stride}: max err {w_err} over tolerance")
         return x, w, g, d_err, d_ratio, w_err, w_ratio
 
-    dgrad_rows, wgrad_rows, dgrad_err, wgrad_err = [], [], 0.0, 0.0
-    for s in conv_shapes(plan, TRAIN_BATCH // TRAIN_ACCUM):
+    def bwd_rows(s):
+        """B2 and B3 at one training-run shape: checked (B2 also against fp64,
+        both bitwise on a rerun), timed against their plain versions and
+        cuDNN.  Returns (dgrad row, None at layer 0 whose dgrad is off the
+        path; wgrad row)."""
         st, k, hw = s["stride"], s["w"][0], s["x"][1:3]
         x, w, g, d_err, d_ratio, w_err, w_ratio = bwd_case(s["x"], s["w"], st)
         xn, wn, gn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2)
         flops = conv_flops(s["x"], s["w"], st)
         nbytes = 4 * (math.prod(s["x"]) + math.prod(s["w"]) + math.prod(g.shape))
         line = f"  bwd layer {s['layer']:2d} x{s['x']} w{s['w']}:"
+        drow = None
         if s["layer"] != 0:
-            dgrad_err = max(dgrad_err, d_err)
             b_ms, b_by = bound(flops, nbytes)
             # how close kernel and plain fp32 version each come to an fp64 dgrad
             dx64 = conv2d_dgrad_ref(g.double(), w.double(), hw, st)
@@ -1549,38 +1615,43 @@ def main() -> int:
                   f"the plain version's {fp64_err[1]}")
             pixels, cin, kd = math.prod(s["x"][:3]), s["w"][2], k * k * s["w"][3]
             d_tile, d_split = dgrad_tile(cin), dgrad_split(pixels, cin, kd)
-            row = dict(layer=s["layer"], x=s["x"], w=s["w"], max_abs_err=d_err, err_ratio=d_ratio,
-                       tile=d_tile, splits_chunk=list(d_split),
-                       gather=dgrad_gather(s["w"][3], st),
-                       kernel_err_vs_fp64=fp64_err[0], plain_err_vs_fp64=fp64_err[1],
-                       ms=time_ms(lambda: conv2d_dgrad_tile(g, w, hw, stride=st)),
-                       plain_ms=time_ms(lambda: conv2d_dgrad_ref(g, w, hw, st)),
-                       library_ms=time_ms(lambda: torch.nn.grad.conv2d_input(xn.shape, wn, gn, stride=st)),
-                       bound_ms=b_ms, bound_by=b_by)
-            dgrad_rows.append(row)
+            drow = dict(layer=s["layer"], x=s["x"], w=s["w"], max_abs_err=d_err, err_ratio=d_ratio,
+                        tile=d_tile, splits_chunk=list(d_split),
+                        gather=dgrad_gather(s["w"][3], st),
+                        kernel_err_vs_fp64=fp64_err[0], plain_err_vs_fp64=fp64_err[1],
+                        ms=time_ms(lambda: conv2d_dgrad_tile(g, w, hw, stride=st)),
+                        plain_ms=time_ms(lambda: conv2d_dgrad_ref(g, w, hw, st)),
+                        library_ms=time_ms(lambda: torch.nn.grad.conv2d_input(xn.shape, wn, gn, stride=st)),
+                        bound_ms=b_ms, bound_by=b_by)
             line += (f" dgrad ({d_tile}, splits x chunk {d_split[0]} x {d_split[1]}, "
-                     f"{row['gather']}) err {d_err:.2e} ({d_ratio:.2f} of tol; vs fp64 kernel "
-                     f"{fp64_err[0]:.2e} plain {fp64_err[1]:.2e}) {row['ms']:.4f} ms plain "
-                     f"{row['plain_ms']:.4f} cudnn {row['library_ms']:.4f} bound {b_ms:.4f} ({b_by});")
+                     f"{drow['gather']}) err {d_err:.2e} ({d_ratio:.2f} of tol; vs fp64 kernel "
+                     f"{fp64_err[0]:.2e} plain {fp64_err[1]:.2e}) {drow['ms']:.4f} ms plain "
+                     f"{drow['plain_ms']:.4f} cudnn {drow['library_ms']:.4f} bound {b_ms:.4f} ({b_by});")
         else:
             line += f" dgrad err {d_err:.2e} ({d_ratio:.2f} of tol, not on the path);"
-        wgrad_err = max(wgrad_err, w_err)
         check(torch.equal(conv2d_wgrad_tile(x, g, k, stride=st), conv2d_wgrad_tile(x, g, k, stride=st)),
               f"wgrad layer {s['layer']}: two runs on the same inputs differ")
         b_ms, b_by = bound(flops, nbytes)
         rows_kc, cout = k * k * s["w"][2], s["w"][3]
         tile, split = wgrad_tile(rows_kc, cout), wgrad_split(math.prod(g.shape[:3]), rows_kc, cout)
-        row = dict(layer=s["layer"], x=s["x"], w=s["w"], max_abs_err=w_err, err_ratio=w_ratio,
-                   tile=tile, splits_chunk=list(split),
-                   ms=time_ms(lambda: conv2d_wgrad_tile(x, g, k, stride=st)),
-                   plain_ms=time_ms(lambda: conv2d_wgrad_ref(x, g, k, st)),
-                   library_ms=time_ms(lambda: torch.nn.grad.conv2d_weight(xn, wn.shape, gn, stride=st)),
-                   bound_ms=b_ms, bound_by=b_by)
-        wgrad_rows.append(row)
+        wrow = dict(layer=s["layer"], x=s["x"], w=s["w"], max_abs_err=w_err, err_ratio=w_ratio,
+                    tile=tile, splits_chunk=list(split),
+                    ms=time_ms(lambda: conv2d_wgrad_tile(x, g, k, stride=st)),
+                    plain_ms=time_ms(lambda: conv2d_wgrad_ref(x, g, k, st)),
+                    library_ms=time_ms(lambda: torch.nn.grad.conv2d_weight(xn, wn.shape, gn, stride=st)),
+                    bound_ms=b_ms, bound_by=b_by)
         print(line + f" wgrad ({tile}, splits x chunk {split[0]} x {split[1]}) err {w_err:.2e} "
-              f"({w_ratio:.2f} of normwise tol) {row['ms']:.4f} ms "
-              f"plain {row['plain_ms']:.4f} cudnn {row['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
-        del x, w, g, xn, wn, gn
+              f"({w_ratio:.2f} of normwise tol) {wrow['ms']:.4f} ms "
+              f"plain {wrow['plain_ms']:.4f} cudnn {wrow['library_ms']:.4f} bound {b_ms:.4f} ({b_by})")
+        return drow, wrow
+
+    dgrad_rows, wgrad_rows = [], []
+    for s in conv_shapes(plan, TRAIN_BATCH // TRAIN_ACCUM):
+        drow, wrow = bwd_rows(s)
+        dgrad_rows += [drow] if drow else []
+        wgrad_rows.append(wrow)
+    dgrad_err = max(r["max_abs_err"] for r in dgrad_rows)
+    wgrad_err = max(r["max_abs_err"] for r in wgrad_rows)
 
     bwd_extra = [
         # name, x shape, w shape, stride, x dtype, w dtype
@@ -1706,7 +1777,14 @@ def main() -> int:
         "bucket8_kernel_ms": kernel_ms, "max_abs_err": e2e_err, "launches": launches,
         "b1_launches_by_instance": b1_instances, "card": smi,
     }}))
-    train_launches = train_phase(dev, groups, smi)
+    train5 = train_phase(dev, smi, dict(groups=groups))
+    train_launches = train5["launches"]
+
+    def shape_key(s):
+        return s["x"], s["w"], s["stride"]
+
+    held_serve = {shape_key(s) for s in shapes}       # phase 3's B1 and B2/B3 shapes
+    held_train = {shape_key(s) for s in conv_shapes(plan, TRAIN_BATCH // TRAIN_ACCUM)}
     del arch, plan, params, sparams, engine, infer, x8, ref, got
     torch.cuda.empty_cache()
 
@@ -1747,18 +1825,161 @@ def main() -> int:
         ["/segments/0/0/mamba/w_out", "/segments/0/0/mamba/norm_scale"],
         "B5's y_intra of head 0 zeroed")
     print(json.dumps({"mamba_grads": mamba_grads}))
+
+    # -- 12. the cost model's own plans on the card ----------------------------
+    from repro_torch.core.fusion import build_stack_plan
+    from repro_torch.core.grouping import PROFILES, peak_device_memory, profile_cost
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models.yolo import yolov2_16_layers
+    from repro_torch.serve.cnn_engine import modeled_step_bound
+
+    layers16 = yolov2_16_layers(batch_norm=True)
+    for name in sorted(PROFILES):
+        t0 = time.perf_counter()
+        p = build_stack_plan(INPUT_HW, layers16, *GRID, "auto", backend="cuda", hw=name,
+                             batch=TRAIN_BATCH, device=dev)
+        planner_ms = (time.perf_counter() - t0) * 1e3
+        got_groups = [[g.start, g.end] for g in p.groups]
+        print(json.dumps({"auto_plan": {
+            "hw": name, "groups": got_groups, "group_halos": [list(h) for h in p.group_halos],
+            "profile_cost": profile_cost(INPUT_HW, p.layers, p.groups, p.n, p.m, PROFILES[name],
+                                         TRAIN_BATCH),
+            "peak_device_memory": peak_device_memory(INPUT_HW, p.layers, p.groups, p.n, p.m,
+                                                     batch=TRAIN_BATCH),
+            "planner_ms": planner_ms,
+        }}))
+        check(got_groups == [list(g) for g in AUTO_GROUPS_416[name]],
+              f"{name}: auto groups {got_groups} != {AUTO_GROUPS_416[name]}")
+
+    auto_kw = dict(groups="auto", hw=AUTO_HW, batch=TRAIN_BATCH, microbatches=TRAIN_ACCUM)
+    train12 = train_phase(dev, smi, auto_kw, label="train_auto", plant_faults=False)
+    check(train12["groups"] == [list(g) for g in AUTO_GROUPS_416[AUTO_HW]],
+          f"train_auto groups {train12['groups']}")
+    summary = ("groups", "step_ms_cuda_events_median", "step_ms_host_median", "device_ms",
+               "device_ms_by_kernel", "idle_share", "peak_mem_bytes")
+    print(json.dumps({"train_auto_vs_hand": {
+        "hand": {k: train5[k] for k in summary}, "auto": {k: train12[k] for k in summary},
+        "card": smi,
+    }}))
+
+    # B1, B2 and B3 at every per-tile shape the auto plan gives them that
+    # phase 3 did not hold: its first group's wider halo changes the extents
+    auto_arch = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
+                                     backend="cuda", device=dev, **auto_kw)
+    aplan = auto_arch.plan
+    new_serve = [s for s in conv_shapes(aplan, max(BUCKETS)) if shape_key(s) not in held_serve]
+    new_train = [s for s in conv_shapes(aplan, TRAIN_BATCH // TRAIN_ACCUM)
+                 if shape_key(s) not in held_train]
+    print(f"auto plan: {len(new_serve)} new bucket-8 forward shapes, {len(new_train)} new "
+          f"microbatch-4 shapes")
+    check(new_serve and new_train, "the auto plan gives B1-B3 no shape phase 3 did not hold")
+    auto_fwd = [fwd_row(s) for s in new_serve]
+    auto_err = max([r["max_abs_err"] for r in auto_fwd] + [fwd_check(s) for s in new_train])
+    auto_bwd = [bwd_rows(s) for s in new_train]
+    auto_dgrad = [d for d, _ in auto_bwd if d]
+    auto_wgrad = [w for _, w in auto_bwd]
+    print(json.dumps({"auto_conv_shapes": auto_fwd}))
+    print(json.dumps({"auto_dgrad_shapes": auto_dgrad}))
+    print(json.dumps({"auto_wgrad_shapes": auto_wgrad}))
+    serve_err = max(serve_err, auto_err)
+    dgrad_err = max([dgrad_err] + [r["max_abs_err"] for r in auto_dgrad])
+    wgrad_err = max([wgrad_err] + [r["max_abs_err"] for r in auto_wgrad])
+
+    # serve the plan's inference twin under the modeled step bound
+    aparams = auto_arch.serve_params(auto_arch.init(SEED), calib)
+    bound_s = modeled_step_bound(auto_arch.serve_plan(), max(BUCKETS), AUTO_HW)
+    ainfer = make_tiled_infer(auto_arch.serve_plan(), auto_arch.mesh)
+    x8 = torch.from_numpy(images[:8]).to(dev)
+    afwd_ms = time_ms(lambda: ainfer(aparams, x8), reps=3, iters=3)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ainfer(aparams, torch.from_numpy(images[:8]).to(dev)).cpu().numpy()
+        walls.append(time.perf_counter() - t0)
+    adispatch_s = statistics.median(walls)
+    engine = auto_arch.make_serve_engine(aparams, buckets=BUCKETS, step_bound=None, hw=AUTO_HW,
+                                         latency_budget=2.0 * bound_s)
+    check(engine.step_bound == bound_s, f"engine bound {engine.step_bound} != modeled {bound_s}")
+    print(f"serve auto plan: modeled step bound ({AUTO_HW}) {bound_s * 1e3:.3f} ms; measured "
+          f"bucket-8 forward {afwd_ms:.3f} ms (CUDA events), dispatch {adispatch_s * 1e3:.3f} ms "
+          f"(host clock)")
+    check(engine.warmup()["misses"] == len(BUCKETS), "auto serve warmup misses")
+    it = iter(images)
+
+    def on_tick(t, eng):
+        for _ in range(ARRIVALS[t]):
+            eng.submit(next(it))
+
+    reset_b1_launches()
+    areport = run_serving(engine, ticks=len(ARRIVALS), on_tick=on_tick)
+    aserve_launches = conv2d_tile.launches
+    check(areport.served == len(images), f"auto serve served {areport.served}")
+    check(aserve_launches == N_CONVS * areport.dispatches and aserve_launches > 0,
+          f"auto serve launches {aserve_launches} != {N_CONVS} x {areport.dispatches}")
+    with torch.inference_mode():
+        ref = torch.cat([
+            stack_reference(torch.from_numpy(images[i:i + 8]).to(dev), aparams, aplan.layers,
+                            inference=True).cpu()
+            for i in range(0, len(images), 8)
+        ])
+    got = torch.from_numpy(np.stack([r.result for r in sorted(engine.finished, key=lambda r: r.rid)]))
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()), f"auto output {tuple(got.shape)}")
+    ae2e_err, ae2e_ratio = err_stats(got, ref, **TOL_SERVE)
+    check(ae2e_ratio <= 1.0, "auto-plan serve responses disagree with the untiled reference")
+    print(json.dumps({"serve_auto": {
+        "groups": [[g.start, g.end] for g in aplan.groups], "hw": AUTO_HW,
+        "modeled_step_bound_ms": bound_s * 1e3, "bucket8_forward_ms": afwd_ms,
+        "bucket8_dispatch_ms": adispatch_s * 1e3,
+        "p50_ms": areport.p50_s * 1e3, "p99_ms": areport.p99_s * 1e3,
+        "img_per_s": areport.throughput, "dispatches": areport.dispatches,
+        "bucket_census": areport.bucket_census, "deadline_misses": areport.deadline_misses,
+        "max_abs_err": ae2e_err, "launches": aserve_launches, "card": smi,
+    }}))
+    del auto_arch, aparams, ainfer, engine, x8, ref, got
+    torch.cuda.empty_cache()
+
+    # the launchers themselves, as a user runs them, on the card
+    def reset_counts():
+        for f in (conv2d_tile, conv2d_dgrad_tile, conv2d_wgrad_tile):
+            f.launches = 0
+        reset_b1_launches()
+
+    reset_counts()
+    check(train_launcher.main([
+        "--groups", "auto", "--hw-profile", AUTO_HW, "--grid", str(GRID[0]),
+        "--input-hw", str(INPUT_HW[0]), "--depth", "16", "--batch", str(TRAIN_BATCH),
+        "--grad-accum", str(TRAIN_ACCUM), "--steps", "1"]) == 0, "train launcher")
+    launcher_train = {f.__name__: f.launches for f in (conv2d_tile, conv2d_dgrad_tile,
+                                                      conv2d_wgrad_tile)}
+    want = {"conv2d_tile": N_CONVS * TRAIN_ACCUM, "conv2d_dgrad_tile": (N_CONVS - 1) * TRAIN_ACCUM,
+            "conv2d_wgrad_tile": N_CONVS * TRAIN_ACCUM}
+    check(launcher_train == want, f"train launcher launches {launcher_train} != {want}")
+    reset_counts()
+    check(serve_launcher.main(["--cnn", "--groups", "auto", "--hw", AUTO_HW,
+                               "--size", str(INPUT_HW[0]), "--depth", "16"]) == 0, "serve launcher")
+    launcher_serve = conv2d_tile.launches
+    check(launcher_serve > N_CONVS * len(BUCKETS) and launcher_serve % N_CONVS == 0,
+          f"serve launcher launches {launcher_serve}")
+    print(f"launchers: train {launcher_train}, serve B1 {launcher_serve}")
+    auto_launches = {k: train12["launches"][k] + launcher_train[k] for k in launcher_train}
+    auto_launches["conv2d_tile"] += aserve_launches + launcher_serve
+
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",
                      "src/repro/kernels/conv2d_tiled/kernel.py:140", rows,
-                     launches + train_launches["conv2d_tile"], serve_err),
+                     launches + train_launches["conv2d_tile"] + auto_launches["conv2d_tile"],
+                     serve_err),
         kernel_entry("conv2d_dgrad_tile",
                      "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_dgrad_tile.cu",
                      "src/repro/kernels/conv2d_tiled/backward.py:59", dgrad_rows,
-                     train_launches["conv2d_dgrad_tile"], dgrad_err),
+                     train_launches["conv2d_dgrad_tile"] + auto_launches["conv2d_dgrad_tile"],
+                     dgrad_err),
         kernel_entry("conv2d_wgrad_tile",
                      "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_wgrad_tile.cu",
                      "src/repro/kernels/conv2d_tiled/backward.py:127", wgrad_rows,
-                     train_launches["conv2d_wgrad_tile"], wgrad_err),
+                     train_launches["conv2d_wgrad_tile"] + auto_launches["conv2d_wgrad_tile"],
+                     wgrad_err),
         kernel_entry("flash_attention_fwd",
                      "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
                      "src/repro/kernels/flash_attention/kernel.py:127", fa_rows[:1],

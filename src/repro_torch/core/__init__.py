@@ -32,6 +32,7 @@ from repro_torch.core.spatial import (
     LayerDef,
     freeze_bn_stats,
     init_stack_params,
+    split_1d,
     stack_reference,
 )
 from repro_torch.core.halo import (
@@ -53,4 +54,32 @@ from repro_torch.core.fusion import (
     make_tiled_loss,
     make_deferred_grad_step,
     plan_manifest,
+    resolve_hw_profile,
+)
+from repro_torch.core.grouping import (
+    ClusterSpec,
+    HardwareProfile,
+    PIPELINE_MICROBATCHES,
+    PI3_PROFILE,
+    JETSON_PROFILE,
+    JETSON_EDGE_PROFILE,
+    TPU_V5E_PROFILE,
+    PROFILES,
+    add_device,
+    balance_bounds,
+    balance_stages,
+    bubble_fraction,
+    check_pipeline_arg,
+    cluster_from_manifest,
+    cluster_manifest,
+    cluster_partition,
+    drop_device,
+    feasible_stage_counts,
+    modeled_step_wire_bytes,
+    pack_devices,
+    parse_cluster_spec,
+    peak_device_memory,
+    profile_cost,
+    score_profile,
+    optimize_grouping,
 )

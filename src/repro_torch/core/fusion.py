@@ -1,12 +1,13 @@
 """Fused, grouped execution stacks (paper §4.2) on the virtual tile mesh.
 
 The uniform, sync, all-spatial subset of ``repro/core/fusion.py``: the
-planner for explicit (or no) groupings, the per-tile executor, the forward /
-inference wrappers that split a global batch into tiles and assemble the
-global output, and the training entry points - the tiled loss and the
-deferred-aggregation gradient step.  A group exchanges halos once at its
-input; inside it every tile carries a recursively grown halo and recomputes
-boundary regions redundantly.
+planner for explicit, absent or cost-model-chosen groupings (``groups=
+"auto"`` over a hardware profile or cluster, ``core/grouping.py``), the
+per-tile executor, the forward / inference wrappers that split a global
+batch into tiles and assemble the global output, and the training entry
+points - the tiled loss and the deferred-aggregation gradient step.  A
+group exchanges halos once at its input; inside it every tile carries a
+recursively grown halo and recomputes boundary regions redundantly.
 
 Halo-width algebra (from the eq. 1 recursion, DESIGN.md §2):
 
@@ -21,11 +22,26 @@ What the reference also plans, and the port does not yet, raises
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Sequence
 
 import torch
 
 from repro_torch.core.backend import get_conv_backend
+from repro_torch.core.grouping import (
+    ClusterSpec,
+    HardwareProfile,
+    PI3_PROFILE,
+    PIPELINE_MICROBATCHES,
+    PROFILES,
+    check_crossover_arg,
+    check_pipeline_arg,
+    cluster_manifest,
+    cluster_partition,
+    optimize_grouping,
+    parse_cluster_spec,
+    profile_cost,
+)
 from repro_torch.core.halo import halo_exchange_2d
 from repro_torch.core.spatial import LayerDef, apply_layer_local, stack_reference
 from repro_torch.core.tiling import (
@@ -39,6 +55,7 @@ from repro_torch.core.tiling import (
     validate_profile,
 )
 from repro_torch.launch.mesh import TileMesh
+from repro_torch.optim.compression import get_codec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +117,61 @@ class StackPlan:
         )
 
 
+def resolve_hw_profile(hw: HardwareProfile | ClusterSpec | str | None):
+    """Profile object from a profile, a ClusterSpec, a registered name, or
+    None (Pi default)."""
+    if hw is None:
+        return PI3_PROFILE
+    if isinstance(hw, str):
+        try:
+            return PROFILES[hw]
+        except KeyError:
+            raise KeyError(
+                f"unknown hardware profile {hw!r}; available: {sorted(PROFILES)}"
+            ) from None
+    return hw
+
+
+def _resolve_hw(hw, n: int, m: int):
+    """Like ``resolve_hw_profile`` but also accepts cluster spec strings
+    ("pi3x3+jetson") - resolvable only here, where the grid is known.
+    Strings that *look* like cluster specs ('+'-joined or counted parts)
+    surface parse_cluster_spec's own error (device-count mismatch, unknown
+    device) instead of the misleading unknown-profile KeyError."""
+    if isinstance(hw, str) and hw not in PROFILES:
+        if "+" in hw or re.search(r"x\d+$", hw):
+            return parse_cluster_spec(hw, n, m)
+    return resolve_hw_profile(hw)
+
+
+def _resolve_auto_schedule(
+    input_hw, layers, groups, n, m, hw, batch, partition, device=None
+) -> str:
+    """Resolve ``schedule="auto"`` to a concrete schedule (DESIGN.md §5).
+
+    Overlap pays only when (a) the device the plan runs on can run
+    collectives concurrently with compute - a card can, the host CPU runs
+    them inline - and (b) the cost model predicts a non-trivial hidden
+    term.  ``device`` None means the default device: the card when one is
+    present.  Heterogeneous clusters stay on sync: the overlap
+    interior/boundary split applies only to uniform groups."""
+    dev = torch.device(
+        device if device is not None else ("cuda" if torch.cuda.is_available() else "cpu")
+    )
+    if isinstance(hw, ClusterSpec) or dev.type != "cuda":
+        return "sync"
+    cand = (
+        tuple(groups)
+        if groups is not None and not isinstance(groups, str)
+        else tuple(no_grouping(len(layers)))
+    )
+    cost = profile_cost(
+        input_hw, tuple(layers), cand, n, m, resolve_hw_profile(hw),
+        batch, "overlap", partition=partition,
+    )
+    return "overlap" if cost["hidden"] > 0.01 * cost["total"] else "sync"
+
+
 def build_stack_plan(
     input_hw: tuple[int, int],
     layers: Sequence[LayerDef],
@@ -110,52 +182,89 @@ def build_stack_plan(
     backend: str = "torch",
     schedule: str = "sync",
     block_oh: int | None = None,
-    hw=None,
+    hw: HardwareProfile | ClusterSpec | str | None = None,
+    batch: int = 1,
     crossover: int | str | None = None,
+    mem_limit: float | None = None,
     partition: TilePartition | None = None,
     pipeline: int | str | None = None,
+    microbatches: int = PIPELINE_MICROBATCHES,
     wire_codec: str = "none",
     inference: bool = False,
+    device: str | torch.device | None = None,
 ) -> StackPlan:
     """Planner: all static geometry + compute-path choices for a tiled stack.
 
-    groups: an explicit profile or None (= sync every layer).  backend:
-    registered conv compute path ("torch" | "cuda").  inference: plan a
-    forward-only serve step (BN from frozen statistics).  The reference's
-    other planning modes raise ``NotImplementedError`` with their ROADMAP
-    item: ``groups="auto"`` and ``hw`` (the grouping cost model, A.9),
-    overlap (A.10), crossover (A.11), non-uniform partitions (A.12),
+    groups: an explicit profile, None (= sync every layer), or ``"auto"`` -
+    the DP cost-model optimizer (``core/grouping.py``) against ``hw`` (a
+    HardwareProfile, a registered profile name, a ClusterSpec or a cluster
+    spec string like ``"pi3x4"``; None = the Pi default) at batch size
+    ``batch``, with ``microbatches`` for the pipeline bubble model and
+    ``mem_limit`` (bytes per device) bounding the modelled working set.
+    backend: registered conv compute path ("torch" | "cuda").  schedule:
+    "sync", or "auto" (overlap only when ``device`` can hide collectives and
+    the modelled hidden term is non-trivial; ``device`` None = the default
+    device).  inference: plan a forward-only serve step (BN from frozen
+    statistics).
+
+    What the reference also plans, the port's executor cannot run yet; the
+    planner raises ``NotImplementedError`` naming the ROADMAP item: overlap
+    (A.10, also where ``schedule="auto"`` resolves to it), crossover (A.11),
+    non-uniform partitions (A.12, also from a heterogeneous cluster),
     pipelines (A.13) and wire codecs (A.14)."""
     get_conv_backend(backend)   # fail fast on unknown backends
-    if schedule in ("overlap", "auto"):
-        raise NotImplementedError(f"schedule={schedule!r}: ROADMAP A.10 (overlap schedule)")
-    if schedule != "sync":
+    if schedule not in ("sync", "overlap", "auto"):
         raise ValueError(f"schedule must be 'sync', 'overlap', or 'auto'; got {schedule!r}")
+    if schedule == "overlap":
+        raise NotImplementedError("schedule='overlap': ROADMAP A.10 (overlap schedule)")
     if block_oh is not None and block_oh < 1:
         raise ValueError(f"block_oh must be a positive int or None; got {block_oh!r}")
+    get_codec(wire_codec)   # fail fast on bad codec specs (none | int8 | topk:<k>)
     if wire_codec != "none":
         raise NotImplementedError(f"wire_codec={wire_codec!r}: ROADMAP A.14 (wire codecs)")
-    if isinstance(groups, str):
-        if groups != "auto":
-            raise ValueError(f"groups must be a profile, None, or 'auto'; got {groups!r}")
-        raise NotImplementedError("groups='auto': ROADMAP A.9 (grouping cost model)")
-    if hw is not None:
-        raise NotImplementedError("hardware profiles / clusters: ROADMAP A.9 (grouping cost model)")
-    if crossover is not None:
-        raise NotImplementedError("spatial->data crossover: ROADMAP A.11 (hybrid plans)")
+    layers = tuple(layers)
+    check_pipeline_arg(pipeline, n, m, len(layers))
     if pipeline is not None:
         raise NotImplementedError("pipeline tails: ROADMAP A.13 (pipeline mode)")
-    layers = tuple(layers)
-    groups = tuple(no_grouping(len(layers))) if groups is None else tuple(groups)
+    check_crossover_arg(crossover, len(layers))
+    if crossover is not None:
+        raise NotImplementedError("spatial->data crossover: ROADMAP A.11 (hybrid plans)")
+    if isinstance(groups, str) and groups != "auto":
+        raise ValueError(f"groups must be a profile, None, or 'auto'; got {groups!r}")
+    hw = _resolve_hw(hw, n, m) if hw is not None else None
+    if schedule == "auto":
+        schedule = _resolve_auto_schedule(
+            input_hw, layers, groups, n, m, hw, batch, partition, device
+        )
+        if schedule == "overlap":
+            raise NotImplementedError(
+                "schedule='auto' resolves to 'overlap' for this plan on a card: "
+                "ROADMAP A.10 (overlap schedule)"
+            )
+    if isinstance(hw, ClusterSpec) and (hw.n, hw.m) != (n, m):
+        raise ValueError(f"cluster grid {(hw.n, hw.m)} != tile grid {(n, m)}")
+    if partition is not None and (partition.n, partition.m) != (n, m):
+        raise ValueError(
+            f"partition grid {(partition.n, partition.m)} != tile grid {(n, m)}"
+        )
+    if isinstance(groups, str):
+        groups = tuple(
+            optimize_grouping(
+                input_hw, layers, n, m,
+                hw if isinstance(hw, ClusterSpec) else resolve_hw_profile(hw),
+                batch=batch, schedule=schedule, mem_limit=mem_limit,
+                partition=partition, microbatches=microbatches,
+            )
+        )
+    else:
+        groups = tuple(no_grouping(len(layers))) if groups is None else tuple(groups)
     validate_profile(groups, len(layers))
     if crossover_of(groups) is not None:
         raise NotImplementedError("data-mode groups: ROADMAP A.11 (hybrid plans)")
     if pipeline_first_of(groups) is not None:
         raise NotImplementedError("pipeline-mode groups: ROADMAP A.13 (pipeline mode)")
-    if partition is not None and (partition.n, partition.m) != (n, m):
-        raise ValueError(
-            f"partition grid {(partition.n, partition.m)} != tile grid {(n, m)}"
-        )
+    if partition is None and isinstance(hw, ClusterSpec):
+        partition = cluster_partition(input_hw, layers, hw, None)
 
     map_hw = [tuple(input_hw)]
     for l in layers:
@@ -242,10 +351,10 @@ def build_stack_plan(
 PLAN_MANIFEST_VERSION = 3
 
 
-def plan_manifest(plan: StackPlan) -> dict:
+def plan_manifest(plan: StackPlan, cluster: ClusterSpec | None = None) -> dict:
     """JSON-serializable description of a StackPlan: layer stack, tile grid,
-    partition boundaries, grouping profile and compute knobs - the
-    reference's manifest without its ``cluster`` entry."""
+    partition boundaries, grouping profile, compute knobs and optionally the
+    ClusterSpec the plan was balanced for - the reference's manifest."""
     return {
         "version": PLAN_MANIFEST_VERSION,
         "input_hw": list(plan.input_hw),
@@ -267,6 +376,7 @@ def plan_manifest(plan: StackPlan) -> dict:
         "ragged_exec": plan.ragged_exec,
         "wire_codec": plan.wire_codec,
         "inference": plan.inference,
+        "cluster": None if cluster is None else cluster_manifest(cluster),
     }
 
 

@@ -1,6 +1,7 @@
 """Tiled spatial (H x W) convolution / pooling primitives (paper §4.1).
 
-The uniform-partition subset of ``repro/core/spatial.py``.  Layout: NHWC
+The uniform-partition subset of ``repro/core/spatial.py``, plus the overlap
+split geometry (``split_1d``) the cost model reads.  Layout: NHWC
 activations, HWIO filters, as in the reference.  Tiled functions run on the
 virtual tile mesh: a tile batch is one tensor ``(n, m, B, h, w, C)``, and
 each conv or pool runs once over all tiles reshaped to ``(n*m*B, h, w, C)``.
@@ -337,3 +338,54 @@ def _finish_layer(
         mask = _offmap_mask(n, m, eh, ew, out_halo, shard_out_hw, map_out_hw, y.device)
         y = y * mask[:, :, None, :, :, None].to(y.dtype)
     return y
+
+
+# ---------------------------------------------------------------------------
+# Overlap schedule geometry: interior/boundary split of a group-lead layer.
+# The grouping cost model's overlap credit reads it; the overlap executor
+# that runs it is ROADMAP A.10.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitSpec1D:
+    """Static interior/boundary split of one spatial dim of a group-lead
+    layer on a halo-extended tile (DESIGN.md §5).
+
+    Output positions (extended coords, ``out`` of them) split into a lo
+    boundary band [0, i0), the interior [i0, i1], and a hi boundary band
+    (i1, out).  Interior outputs depend only on owned input rows
+    [int_in_lo, int_in_hi) (owned coords) - computable before any halo
+    strip arrives."""
+
+    out: int        # output extent of the halo-extended tile
+    i0: int         # first interior output index
+    i1: int         # last interior output index (inclusive)
+    int_in_lo: int  # owned-coords input slab [lo, hi) feeding the interior
+    int_in_hi: int
+
+    @property
+    def n_lo(self) -> int:
+        return self.i0
+
+    @property
+    def n_hi(self) -> int:
+        return self.out - 1 - self.i1
+
+
+def split_1d(own: int, lo: int, hi: int, kernel: int, stride: int) -> SplitSpec1D | None:
+    """Interior/boundary split along one dim, or None when no output is
+    computable from owned data alone (tile thinner than the kernel's reach
+    into the halo)."""
+    out = (own + lo + hi - kernel) // stride + 1
+    i0 = -(-lo // stride)                     # ceil(lo / stride)
+    i1 = (lo + own - kernel) // stride
+    if i1 < i0:
+        return None
+    return SplitSpec1D(
+        out=out,
+        i0=i0,
+        i1=i1,
+        int_in_lo=i0 * stride - lo,
+        int_in_hi=i1 * stride + kernel - lo,
+    )

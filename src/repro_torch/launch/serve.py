@@ -1,10 +1,12 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --cnn [...]``.
 
 The ``--cnn`` mode of ``repro/launch/serve.py``: builds a YOLOv2-prefix
-plan over an n x m virtual tile grid, takes its forward-only twin, freezes
+plan over an n x m virtual tile grid (``--groups auto``: the cost model's
+grouping on ``--hw`` at the largest bucket), takes its forward-only twin, freezes
 BN statistics on a calibration batch, warms the bucket ladder, then drives
 a synthetic image workload through ``runtime.driver.run_serving`` and prints
-latency percentiles, throughput, bucket census and cache counters.  It runs
+latency percentiles, throughput, bucket census and cache counters.  The
+deadline policy plans with the cost model's step bound on ``--hw``.  It runs
 on the card unless ``--device cpu`` is given.  LM serving is later work
 (ROADMAP A.18).
 """
@@ -23,7 +25,8 @@ def _cnn_main(args) -> int:
     n, m = (int(v) for v in args.grid.split("x"))
     arch = make_yolo_tiled_arch(
         input_hw=(args.size, args.size), depth=args.depth, n=n, m=m,
-        backend=args.backend, device=args.device,
+        groups="auto" if args.groups == "auto" else None,
+        backend=args.backend, hw=args.hw, batch=max(args.buckets), device=args.device,
     )
     params = arch.init(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -34,8 +37,10 @@ def _cnn_main(args) -> int:
         params, calibration=calib,
         buckets=tuple(args.buckets),
         latency_budget=args.budget_ms / 1e3,
-        step_bound=args.step_bound_ms / 1e3,
+        hw=args.hw,
     )
+    print(f"plan: groups={[(g.start, g.end) for g in arch.plan.groups]} "
+          f"modeled step bound {engine.step_bound * 1e3:.3f} ms (hw={args.hw or 'pi3-core'})")
     t0 = time.monotonic()
     engine.warmup()
     print(f"warmup: {len(engine.buckets)} buckets prepared in "
@@ -74,10 +79,10 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=64, help="input H=W")
     ap.add_argument("--backend", choices=("torch", "cuda"), default="cuda")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--groups", choices=("none", "auto"), default="none")
+    ap.add_argument("--hw", default=None, help="hardware profile name")
     ap.add_argument("--buckets", type=int, nargs="+", default=[1, 2, 4, 8])
     ap.add_argument("--budget-ms", type=float, default=1000.0)
-    ap.add_argument("--step-bound-ms", type=float, default=50.0,
-                    help="service time per dispatch the deadline policy plans with")
     ap.add_argument("--ticks", type=int, default=16)
     args = ap.parse_args(argv)
     if not args.cnn:

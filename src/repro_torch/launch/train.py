@@ -7,10 +7,14 @@ aggregation, clipping, cosine/warmup schedule, optional ``--compress int8``
 error feedback) and runs it under ``runtime.driver.run_training`` on seeded
 synthetic batches - the reference's ``make_batch`` recipe, so both
 launchers see the same data.  It runs on the card unless ``--device cpu``
-is given.  Flags of the reference the port does not have yet raise naming
-their ROADMAP item: ``--groups auto`` and ``--cluster`` (A.9), ``--schedule
-overlap`` (A.10), ``--crossover`` (A.11), ``--pipeline`` (A.13),
-``--wire-codec`` (A.14), ``--ckpt-dir`` and ``--fault-schedule`` (A.15).
+is given.  ``--groups auto`` plans the grouping with the cost model on
+``--hw-profile`` or, where given, the ``--cluster`` spec (which overrides
+it), at ``--batch`` with ``--grad-accum`` microbatches.  Flags of the
+reference the port does not have yet raise naming their ROADMAP item:
+``--schedule overlap`` (A.10), ``--crossover`` (A.11), a heterogeneous
+``--cluster`` (A.12: its balanced partition is non-uniform), ``--pipeline``
+(A.13), ``--wire-codec`` (A.14), ``--ckpt-dir`` and ``--fault-schedule``
+(A.15).
 
 LM mode (``--arch qwen2-7b`` or ``mamba2-780m``; the other LM ids are A.18):
 the reduced config unless ``--full``, ``--seq`` x ``--batch`` tokens a step from
@@ -68,8 +72,14 @@ def _add_args(ap: argparse.ArgumentParser) -> None:
                          "(their plain versions on --device cpu), 'torch' F.conv2d")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     ap.add_argument("--groups", default="none",
-                    help="grouping profile: 'none' (sync every layer) or an int "
-                         "(uniform groups of that size); 'auto' is ROADMAP A.9")
+                    help="grouping profile: 'none' (sync every layer), 'auto' (the "
+                         "cost model's choice), or an int (uniform groups of that size)")
+    ap.add_argument("--hw-profile", default="pi3-core",
+                    help="hardware profile for --groups auto")
+    ap.add_argument("--cluster", default=None,
+                    help="cluster spec, e.g. 'pi3x4' - <profile>[x<count>] parts joined "
+                         "by '+', filling the tile grid row-major; overrides --hw-profile "
+                         "(a heterogeneous one is ROADMAP A.12)")
     ap.add_argument("--no-batch-norm", action="store_true",
                     help="build the YOLO stack without batch norm")
     # the reference's flags the port does not plan yet (each raises)
@@ -77,7 +87,6 @@ def _add_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--crossover", default="none")
     ap.add_argument("--pipeline", default="none")
     ap.add_argument("--wire-codec", default="none")
-    ap.add_argument("--cluster", default=None)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--fault-schedule", default=None)
 
@@ -98,11 +107,17 @@ def make_batch_fn(batch: int, input_hw: int, target_shape, seed: int, device):
 
 def _run_tiled(args) -> int:
     from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.grouping import parse_cluster_spec
     from repro_torch.models.yolo import make_yolo_tiled_arch, yolov2_16_layers
     from repro_torch.runtime.driver import DriverConfig, run_training
     from repro_torch.train.trainer import make_train_step
 
     n_layers = len(yolov2_16_layers()[: args.depth])
+    cluster = (
+        parse_cluster_spec(args.cluster, args.grid, args.grid)
+        if args.cluster
+        else None
+    )
     arch = make_yolo_tiled_arch(
         input_hw=(args.input_hw, args.input_hw),
         depth=args.depth,
@@ -111,9 +126,11 @@ def _run_tiled(args) -> int:
         groups=_resolve_groups(args.groups, n_layers),
         backend=args.backend,
         schedule=args.schedule,
-        hw=args.cluster,
+        hw=cluster if cluster is not None else args.hw_profile,
+        batch=args.batch,
         crossover=_resolve_int_or_auto(args.crossover),
         pipeline=_resolve_int_or_auto(args.pipeline),
+        microbatches=max(args.grad_accum, 1),
         wire_codec=args.wire_codec,
         batch_norm=not args.no_batch_norm,
         device=args.device,
@@ -122,6 +139,8 @@ def _run_tiled(args) -> int:
     print(f"plan: backend={plan.backend} schedule={plan.schedule} "
           f"grid={args.grid}x{args.grid} crossover={plan.crossover} "
           f"groups={[(g.start, g.end, g.mode) for g in plan.groups]} device={arch.mesh.device}")
+    print(f"partition: rows={plan.partition.row_bounds} cols={plan.partition.col_bounds} "
+          f"uniform={plan.is_uniform}" + (f" cluster={args.cluster}" if args.cluster else ""))
     pcfg = ParallelConfig(grad_accum=args.grad_accum)
     tcfg = TrainConfig(
         lr=args.lr, optimizer=args.optimizer, steps=args.steps, seed=args.seed,

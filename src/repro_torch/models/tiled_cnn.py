@@ -56,7 +56,8 @@ class TiledCNNArch:
     def make_serve_engine(self, params, *, calibration=None, **engine_kw):
         """A ``CNNServeEngine`` over this arch's plan and mesh.  Pass
         ``calibration`` to freeze BN stats here; otherwise ``params`` must
-        already carry ``bn_mean``/``bn_var``."""
+        already carry ``bn_mean``/``bn_var``.  ``engine_kw`` goes to the
+        engine as is: ``hw`` and ``cluster`` price its modeled step bound."""
         from repro_torch.serve.cnn_engine import CNNServeEngine
 
         if calibration is not None:

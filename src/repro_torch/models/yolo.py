@@ -1,10 +1,10 @@
 """YOLOv2 first-16-layers (the paper's evaluation network, §5).
 
 Darknet-19 prefix: conv3x3(+BN+leaky) / maxpool stages, 416x416 -> 26x26
-feature maps.  The port of ``repro/models/yolo.py``, restricted to the
-planning knobs the port supports (``core/fusion.build_stack_plan``).  At the
-paper's 416 geometry every layer extent divides over a 2x2 grid (tiles down
-to 13x13), so the uniform executor trains and serves it as is.
+feature maps.  The port of ``repro/models/yolo.py``, with the planning
+knobs the port supports (``core/fusion.build_stack_plan``).  At the paper's
+416 geometry every layer extent divides over a 2x2 grid (tiles down to
+13x13), so the uniform executor trains and serves it as is.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from repro_torch.core.fusion import (
     make_tiled_forward,
     make_tiled_loss,
 )
+from repro_torch.core.grouping import PIPELINE_MICROBATCHES
 from repro_torch.core.spatial import LayerDef, init_stack_params
 from repro_torch.launch.mesh import make_tile_mesh, resolve_device
 from repro_torch.models.tiled_cnn import TiledCNNArch
@@ -84,9 +85,12 @@ def make_yolo_tiled_arch(
     backend: str = "torch",
     schedule: str = "sync",
     hw=None,
+    batch: int = 1,
     crossover: int | str | None = None,
+    mem_limit: float | None = None,
     partition=None,
     pipeline: int | str | None = None,
+    microbatches: int | None = None,
     wire_codec: str = "none",
     batch_norm: bool = True,
     device: str | torch.device = "cuda",
@@ -96,15 +100,19 @@ def make_yolo_tiled_arch(
     """Planner -> arch bundle for the trainer and the serve engine: a
     YOLOv2 prefix of ``depth`` layers tiled n x m on a virtual mesh on
     ``device``, with the conv backend ("torch" | "cuda") and grouping
-    profile chosen at plan time.  Knobs the port does not plan raise
-    ``NotImplementedError`` (see ``build_stack_plan``); the reference's
-    ``batch`` and ``microbatches`` feed its cost model (``groups="auto"``,
-    pipelines, ROADMAP A.9) and come back with it."""
+    profile chosen at plan time: ``groups="auto"`` runs the cost model on
+    ``hw`` (a profile, its name, a ClusterSpec or a cluster spec string) at
+    ``batch``, under ``mem_limit``, with ``microbatches`` (default the
+    planner's standard M) for the pipeline bubble model.  Knobs the port
+    does not plan raise ``NotImplementedError`` (see ``build_stack_plan``)."""
     layers = yolov2_16_layers(batch_norm=batch_norm)[:depth]
     plan = build_stack_plan(
         input_hw, layers, n, m, groups,
-        backend=backend, schedule=schedule, hw=hw, crossover=crossover,
-        partition=partition, pipeline=pipeline, wire_codec=wire_codec,
+        backend=backend, schedule=schedule, hw=hw, batch=batch,
+        crossover=crossover, mem_limit=mem_limit, partition=partition,
+        pipeline=pipeline,
+        microbatches=PIPELINE_MICROBATCHES if microbatches is None else microbatches,
+        wire_codec=wire_codec, device=mesh.device if mesh is not None else device,
     )
     return TiledCNNArch(
         plan=plan,

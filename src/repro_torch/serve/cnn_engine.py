@@ -6,23 +6,22 @@ and statistics.  Queued image requests are packed into the smallest batch
 bucket that covers them (zero-padded) and dispatched through one prepared
 serve step per bucket (``serve/exec_cache.py``).  A batch ships when the
 queue fills the largest bucket, or as soon as the oldest request's deadline
-headroom drops below ``slack_factor`` step bounds.
-
-The reference derives the step bound from the planner's cost model
-(``modeled_step_bound``); that model is not ported yet (ROADMAP A.9), so
-this engine takes ``step_bound`` explicitly.
+headroom drops below ``slack_factor`` step bounds.  The step bound comes
+from the same ``profile_cost`` model the planner optimizes against
+(``modeled_step_bound``), unless the caller gives one.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.fusion import StackPlan, make_tiled_infer
+from repro_torch.core.fusion import StackPlan, make_tiled_infer, resolve_hw_profile
+from repro_torch.core.grouping import ClusterSpec, profile_cost
 from repro_torch.launch.mesh import TileMesh
 from repro_torch.serve.exec_cache import ExecutableCache, plan_cache_key
 
@@ -59,6 +58,31 @@ class ManualClock:
         self.now += float(dt)
 
 
+def modeled_step_bound(
+    plan: StackPlan,
+    batch: int,
+    hw: Any = None,
+) -> float:
+    """Modeled seconds for one serve step at ``batch`` - ``profile_cost``'s
+    total for the plan's grouping on ``hw`` (a HardwareProfile, ClusterSpec,
+    registered name, or None for the Pi default).  This is the deadline
+    policy's service-time estimate; serving reuses the planner's cost model
+    rather than growing a second one."""
+    cost = profile_cost(
+        plan.input_hw,
+        plan.layers,
+        plan.groups,
+        plan.n,
+        plan.m,
+        hw if isinstance(hw, ClusterSpec) else resolve_hw_profile(hw),
+        batch=batch,
+        schedule=plan.schedule,
+        partition=plan.partition,
+        wire_codec=plan.wire_codec,
+    )
+    return float(cost["total"])
+
+
 class CNNServeEngine:
     """Dynamic-batching serve loop over a forward-only StackPlan.
 
@@ -67,7 +91,10 @@ class CNNServeEngine:
     buckets: ascending batch-bucket ladder.
     latency_budget: default per-request deadline (seconds after submit).
     step_bound: seconds per serve step the deadline policy plans with
-        (required: the modeled bound needs the cost model, ROADMAP A.9).
+        (default: ``modeled_step_bound`` on ``cluster`` or ``hw`` at the
+        largest bucket).
+    hw, cluster: the hardware profile (or name) and the ClusterSpec the
+        modeled bound is priced on; ``cluster`` also keys the cache.
     slack_factor: ship a partial batch when the oldest request's headroom
         is below ``slack_factor * step_bound``.
     cache: a shared ``ExecutableCache``; private by default.
@@ -85,6 +112,8 @@ class CNNServeEngine:
         buckets: Sequence[int] = (1, 2, 4, 8),
         latency_budget: float = 0.1,
         step_bound: float | None = None,
+        hw: Any = None,
+        cluster: ClusterSpec | None = None,
         slack_factor: float = 2.0,
         cache: ExecutableCache | None = None,
         cache_capacity: int = 16,
@@ -102,17 +131,17 @@ class CNNServeEngine:
         buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not buckets or buckets[0] < 1:
             raise ValueError(f"buckets must be positive ints; got {buckets!r}")
-        if step_bound is None:
-            raise ValueError(
-                "step_bound (seconds per serve step) is required: the modeled "
-                "bound needs the grouping cost model, not ported yet (ROADMAP A.9)"
-            )
         self.plan = plan
         self.mesh = mesh
         self.params = params
         self.buckets = buckets
         self.latency_budget = float(latency_budget)
-        self.step_bound = float(step_bound)
+        self.cluster = cluster
+        self.step_bound = (
+            float(step_bound)
+            if step_bound is not None
+            else modeled_step_bound(plan, buckets[-1], cluster if cluster is not None else hw)
+        )
         self.slack_factor = float(slack_factor)
         self.clock = clock
         self.simulate_step_s = simulate_step_s
@@ -147,7 +176,7 @@ class CNNServeEngine:
 
     def executable(self, bucket: int):
         """The prepared serve step for one bucket, through the keyed cache."""
-        key = plan_cache_key(self.plan, bucket)
+        key = plan_cache_key(self.plan, bucket, self.cluster)
         return self.cache.get_or_build(key, lambda: self._prepare(bucket))
 
     def warmup(self) -> dict:

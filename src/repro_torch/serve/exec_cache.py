@@ -14,13 +14,19 @@ from collections import OrderedDict
 from typing import Any, Callable, Hashable
 
 from repro_torch.core.fusion import StackPlan, plan_manifest
+from repro_torch.core.grouping import ClusterSpec
 
 
-def plan_cache_key(plan: StackPlan, bucket: int) -> tuple[str, int]:
-    """Canonical hashable key for (plan, batch-bucket): the sorted JSON of
-    ``plan_manifest``, so every plan knob that reaches the manifest
+def plan_cache_key(
+    plan: StackPlan,
+    bucket: int,
+    cluster: ClusterSpec | None = None,
+) -> tuple[str, int]:
+    """Canonical hashable key for (plan, batch-bucket[, cluster]): the
+    sorted JSON of ``plan_manifest``, so every plan knob that reaches the
+    manifest - the cluster the plan was balanced for included -
     distinguishes keys by construction."""
-    return (json.dumps(plan_manifest(plan), sort_keys=True), int(bucket))
+    return (json.dumps(plan_manifest(plan, cluster), sort_keys=True), int(bucket))
 
 
 class ExecutableCache:

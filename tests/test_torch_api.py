@@ -17,21 +17,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NOT_YET = {
     "core": {
         **dict.fromkeys(["apply_layer_data", "reshard_spatial_to_data"], "A.11"),
-        **dict.fromkeys(["split_1d", "halo_exchange_1d_packed", "halo_exchange_2d_packed"], "A.10"),
-        **dict.fromkeys(["EFBag", "WireCtx", "send_boundary_sum_1d", "wire_shift",
-                         "modeled_step_wire_bytes"], "A.14"),
-        **dict.fromkeys(["pipeline_schedule_census", "PIPELINE_MICROBATCHES", "balance_stages",
-                         "bubble_fraction", "check_pipeline_arg", "feasible_stage_counts"],
-                        "A.13"),
-        **dict.fromkeys(["plan_from_manifest", "replan_stack", "add_device", "drop_device",
-                         "pack_devices"], "A.15"),
-        **dict.fromkeys(["resolve_hw_profile", "ClusterSpec", "HardwareProfile", "PI3_PROFILE",
-                         "JETSON_PROFILE", "JETSON_EDGE_PROFILE", "TPU_V5E_PROFILE", "PROFILES",
-                         "balance_bounds", "cluster_from_manifest", "cluster_manifest",
-                         "cluster_partition", "parse_cluster_spec", "peak_device_memory",
-                         "profile_cost", "score_profile", "optimize_grouping"], "A.9"),
+        **dict.fromkeys(["halo_exchange_1d_packed", "halo_exchange_2d_packed"], "A.10"),
+        **dict.fromkeys(["EFBag", "WireCtx", "send_boundary_sum_1d", "wire_shift"], "A.14"),
+        **dict.fromkeys(["pipeline_schedule_census"], "A.13"),
+        **dict.fromkeys(["plan_from_manifest", "replan_stack"], "A.15"),
     },
-    "optim": dict.fromkeys(["WireCodec", "ef_encode", "get_codec", "modeled_wire_bytes"], "A.14"),
+    "optim": dict.fromkeys(["WireCodec", "ef_encode"], "A.14"),
     "kernels": {},
 }
 

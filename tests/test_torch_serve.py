@@ -21,17 +21,20 @@ import pytest
 import torch
 
 from repro.core import fusion as jfu
+from repro.core import grouping as jg
 from repro.core import spatial as jsp
 from repro.core.tiling import Group as JGroup
 from repro.models.yolo import yolov2_16_layers as jax_yolo_layers
+from repro.serve import cnn_engine as jengine
 from repro_torch.core import fusion as tfu
+from repro_torch.core import grouping as tg
 from repro_torch.core import spatial as tsp
 from repro_torch.core.tiling import Group, TilePartition
 from repro_torch.interop import params_from_jax
 from repro_torch.launch.mesh import make_tile_mesh
 from repro_torch.models.yolo import make_yolo_tiled_arch, yolov2_16_layers
 from repro_torch.runtime.driver import run_serving
-from repro_torch.serve.cnn_engine import CNNServeEngine, ManualClock
+from repro_torch.serve.cnn_engine import CNNServeEngine, ManualClock, modeled_step_bound
 from repro_torch.serve.exec_cache import ExecutableCache, plan_cache_key
 
 ATOL = 1e-5
@@ -97,7 +100,6 @@ def test_plan_geometry_and_manifest_match_jax(case):
               "tile_rows", "tile_cols", "input_hw", "n", "m"):
         assert getattr(tp, f) == getattr(jp, f), f
     jm = jfu.plan_manifest(jp)
-    jm.pop("cluster")
     tm = tfu.plan_manifest(tp)
     assert tm.pop("backend") == "cuda" and jm.pop("backend") == "pallas"
     assert json.dumps(tm, sort_keys=True) == json.dumps(jm, sort_keys=True)
@@ -153,8 +155,11 @@ def test_port_matches_jax_pallas_2x2_infer_subprocess(tmp_path):
 def test_unported_planning_modes_raise_with_roadmap_item():
     layers = yolov2_16_layers()[:4]
     cases = [
-        (dict(groups="auto"), "A.9"),
-        (dict(hw="pi3-core"), "A.9"),
+        (dict(hw="pi3x3+jetson"), "A.12"),                 # heterogeneous: ragged partition
+        (dict(groups="auto", hw="jetson+pi3x3"), "A.12"),
+        (dict(schedule="auto", hw="pi3-core", device="cuda"), "A.10"),   # resolves to overlap
+        (dict(groups="auto", crossover="auto"), "A.11"),
+        (dict(groups="auto", pipeline="auto"), "A.13"),
         (dict(schedule="overlap"), "A.10"),
         (dict(crossover=2), "A.11"),
         (dict(partition=TilePartition((0, 24, 32), (0, 16, 32))), "A.12"),
@@ -200,8 +205,8 @@ def test_engine_refuses_training_plans_bad_buckets_and_missing_bound():
     plan, mesh, params = _serve_setup()
     with pytest.raises(ValueError, match="buckets"):
         CNNServeEngine(plan, mesh, params, buckets=(0, 2), step_bound=0.1)
-    with pytest.raises(ValueError, match="A.9"):
-        CNNServeEngine(plan, mesh, params)
+    engine = CNNServeEngine(plan, mesh, params)      # no bound given: the modeled one
+    assert engine.step_bound == modeled_step_bound(plan, 8) > 0
     with pytest.raises(ValueError, match="forward-only"):
         tfu.make_tiled_infer(train, mesh)
 
@@ -322,3 +327,111 @@ def test_arch_surface_and_launcher_cpu(capsys):
     assert main(["--cnn", "--device", "cpu", "--size", "32", "--depth", "4",
                  "--requests", "4", "--ticks", "2", "--buckets", "1", "2"]) == 0
     assert "served 4 requests" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# groups="auto", hardware profiles and clusters, the modeled step bound
+# ---------------------------------------------------------------------------
+
+AUTO_HW_CASES = {
+    # name: (hw, mem_limit)
+    **{p: (p, None) for p in sorted(jg.PROFILES)},
+    "cluster-pi3x4": ("pi3x4", None),
+    "mem-limit": ("jetson-nano-gpu", 6.0e6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(AUTO_HW_CASES))
+def test_auto_plan_manifest_matches_jax(case):
+    """``build_stack_plan(groups="auto", hw=...)`` plans what the reference
+    plans: the same manifest (with the cluster entry), backend name aside,
+    and the same geometry."""
+    hw, mem_limit = AUTO_HW_CASES[case]
+    layers = jax_yolo_layers()[:8]
+    kw = dict(hw=hw, batch=4, mem_limit=mem_limit, microbatches=2)
+    jp = jfu.build_stack_plan((64, 64), layers, 2, 2, "auto", backend="pallas", **kw)
+    tp = tfu.build_stack_plan((64, 64), _port(layers), 2, 2, "auto", backend="cuda", **kw)
+    for f in ("map_hw", "shard_hw", "group_halos", "rem_halos", "group_of_layer",
+              "tile_rows", "tile_cols"):
+        assert getattr(tp, f) == getattr(jp, f), f
+    jc = jg.parse_cluster_spec(hw, 2, 2) if hw.startswith("pi3x") else None
+    tc = tg.parse_cluster_spec(hw, 2, 2) if jc is not None else None
+    jm, tm = jfu.plan_manifest(jp, jc), tfu.plan_manifest(tp, tc)
+    assert tm.pop("backend") == "cuda" and jm.pop("backend") == "pallas"
+    assert json.dumps(tm, sort_keys=True) == json.dumps(jm, sort_keys=True)
+    if mem_limit is not None:     # the limit binds: unconstrained, one group
+        free = tfu.build_stack_plan((64, 64), _port(layers), 2, 2, "auto", hw=hw, batch=4)
+        assert len(free.groups) < len(tp.groups)
+
+
+def test_auto_schedule_resolves_to_sync_on_the_cpu():
+    plan = tfu.build_stack_plan((32, 32), yolov2_16_layers()[:4], 2, 2, schedule="auto",
+                                hw="pi3-core", device="cpu")
+    assert plan.schedule == "sync"
+    jplan = jfu.build_stack_plan((32, 32), jax_yolo_layers()[:4], 2, 2, schedule="auto",
+                                 hw="pi3-core")
+    assert jplan.schedule == "sync"       # the reference on its CPU backend
+    # on a card the cost model decides: overlap here, a sync plan elsewhere
+    assert tfu._resolve_auto_schedule((32, 32), yolov2_16_layers()[:4], None, 2, 2,
+                                      tg.PI3_PROFILE, 1, None, "cuda") == "overlap"
+    assert tfu._resolve_auto_schedule((32, 32), yolov2_16_layers()[:4], None, 2, 2,
+                                      tg.JETSON_PROFILE, 1, None, "cuda") == "sync"
+    plan = tfu.build_stack_plan((32, 32), yolov2_16_layers()[:4], 2, 2, schedule="auto",
+                                hw="jetson-nano-gpu", device="cuda")
+    assert plan.schedule == "sync"
+
+
+def test_hw_errors_match_jax():
+    layers = yolov2_16_layers()[:4]
+    for hw in ("bogus", "pi3x3", "pi3x3+bogus"):
+        with pytest.raises((KeyError, ValueError)) as want:
+            jfu.build_stack_plan((32, 32), jax_yolo_layers()[:4], 2, 2, "auto", hw=hw)
+        with pytest.raises(type(want.value)) as got:
+            tfu.build_stack_plan((32, 32), layers, 2, 2, "auto", hw=hw)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="groups must be"):
+        tfu.build_stack_plan((32, 32), layers, 2, 2, "best")
+    with pytest.raises(ValueError, match="unknown wire codec"):
+        tfu.build_stack_plan((32, 32), layers, 2, 2, wire_codec="zstd")
+
+
+@pytest.mark.parametrize("hw", [None, "jetson-nano-gpu", "cluster"])
+def test_modeled_step_bound_matches_jax(hw):
+    layers = jax_yolo_layers()[:6]
+    jp = jfu.build_stack_plan((32, 32), layers, 2, 2, [JGroup(0, 3), JGroup(4, 5)],
+                              inference=True)
+    tp = tfu.build_stack_plan((32, 32), _port(layers), 2, 2, [Group(0, 3), Group(4, 5)],
+                              inference=True)
+    jhw, thw = hw, hw
+    if hw == "cluster":
+        jhw, thw = jg.parse_cluster_spec("pi3x4", 2, 2), tg.parse_cluster_spec("pi3x4", 2, 2)
+    for batch in (1, 8):
+        assert modeled_step_bound(tp, batch, thw) == jengine.modeled_step_bound(jp, batch, jhw)
+    # the engine's default bound is the modeled one at the largest bucket
+    mesh = make_tile_mesh(2, 2, "cpu")
+    kw = dict(cluster=thw) if hw == "cluster" else dict(hw=thw)
+    engine = CNNServeEngine(tp, mesh, [], buckets=(1, 2, 4), **kw)
+    assert engine.step_bound == jengine.modeled_step_bound(jp, 4, jhw)
+    assert CNNServeEngine(tp, mesh, [], step_bound=0.25, **kw).step_bound == 0.25
+    if hw == "cluster":        # the cluster keys the cache too
+        assert engine.executable.__self__.cluster is thw
+        assert plan_cache_key(tp, 4, thw) != plan_cache_key(tp, 4)
+        assert plan_cache_key(tp, 4, thw)[0] == json.dumps(jfu.plan_manifest(jp, jhw) | {
+            "backend": "torch"}, sort_keys=True)
+
+
+def test_serve_launcher_groups_auto_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    assert main(["--cnn", "--device", "cpu", "--size", "32", "--depth", "4", "--groups", "auto",
+                 "--hw", "jetson-nano-gpu", "--requests", "4", "--ticks", "2",
+                 "--buckets", "1", "2"]) == 0
+    out = capsys.readouterr().out
+    jp = jfu.build_stack_plan((32, 32), jax_yolo_layers()[:4], 2, 2, "auto",
+                              hw="jetson-nano-gpu", batch=2)
+    bound = jengine.modeled_step_bound(jp.inference_twin(), 2, "jetson-nano-gpu")
+    assert f"groups={[(g.start, g.end) for g in jp.groups]}" in out
+    assert f"modeled step bound {bound * 1e3:.3f} ms (hw=jetson-nano-gpu)" in out
+    assert "served 4 requests" in out
+    with pytest.raises(SystemExit):
+        main(["--cnn", "--device", "cpu", "--step-bound-ms", "50"])

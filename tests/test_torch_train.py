@@ -571,8 +571,8 @@ def test_launcher_trains_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--groups", "auto"], "A.9"),
-    (["--cluster", "pi3x3+jetson"], "A.9"),
+    (["--groups", "auto", "--pipeline", "auto"], "A.13"),
+    (["--cluster", "pi3x3+jetson"], "A.12"),
     (["--schedule", "overlap"], "A.10"),
     (["--crossover", "2"], "A.11"),
     (["--pipeline", "2"], "A.13"),
@@ -588,6 +588,69 @@ def test_launcher_unported_flags_name_their_roadmap_item(flags, item):
     base = ["--device", "cpu", "--input-hw", "32", "--depth", "4", "--steps", "1", "--grid", "2"]
     with pytest.raises(NotImplementedError, match=item):
         main(base + flags)
+
+
+@pytest.mark.parametrize("flags,groups", [
+    (["--hw-profile", "jetson-nano-gpu"], "[(0, 7, 'spatial')]"),
+    (["--cluster", "pi3x4"], "[(0, 1, 'spatial'), (2, 3, 'spatial'), (4, 5, 'spatial'), "
+                             "(6, 7, 'spatial')]"),
+])
+def test_launcher_plans_groups_auto_on_cpu(capsys, flags, groups):
+    """``--groups auto`` plans with the cost model on ``--hw-profile`` or a
+    uniform ``--cluster`` (which overrides it) and trains the plan."""
+    from repro_torch.launch.train import main
+
+    ref = jfu.build_stack_plan((64, 64), jax_yolo_layers()[:8], 2, 2, "auto",
+                               hw=flags[1], batch=4, microbatches=2)
+    assert str([(g.start, g.end, g.mode) for g in ref.groups]) == groups
+    assert main(["--arch", "yolov2-tiled", "--device", "cpu", "--input-hw", "64", "--depth", "8",
+                 "--steps", "1", "--grid", "2", "--batch", "4", "--grad-accum", "2",
+                 "--optimizer", "sgd", "--groups", "auto"] + flags) == 0
+    out = capsys.readouterr().out
+    assert f"groups={groups}" in out and "done: steps=1 restarts=0" in out
+    assert "rows=(0, 32, 64) cols=(0, 32, 64) uniform=True" in out
+
+
+AUTO_HW, AUTO_DEPTH, AUTO_MB = (64, 64), 8, 2
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_auto_reference():
+    """The reference's groups="auto" plan for YOLOv2-8 at 64x64 on 2x2 under
+    jetson-nano-gpu, and its untiled deferred-step oracle."""
+    layers = jax_yolo_layers()[:AUTO_DEPTH]
+    jplan = jfu.build_stack_plan(AUTO_HW, layers, 2, 2, "auto", hw="jetson-nano-gpu",
+                                 batch=4, microbatches=AUTO_MB)
+    params = _np_params(layers)
+    rng = np.random.default_rng(3)
+    xs = rng.standard_normal((AUTO_MB, 2, *AUTO_HW, 3)).astype(np.float32)
+    ts = (0.05 * rng.standard_normal((AUTO_MB, 2, 8, 8, 128))).astype(np.float32)
+
+    def batch_loss(p):
+        s = c = 0.0
+        for i in range(AUTO_MB):
+            si, ci = jax_l2(jfu.reference_forward(p, xs[i], jplan), ts[i])
+            s, c = s + si, c + ci
+        return s / c
+
+    loss, grads = jax.value_and_grad(batch_loss)(params)
+    return (jplan, params, xs, ts, float(loss),
+            [{k: np.asarray(v) for k, v in g.items()} for g in grads])
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_groups_auto_deferred_grad_step_matches_jax_untiled(backend):
+    jplan, params, xs, ts, ref_loss, ref_grads = _jax_auto_reference()
+    arch = make_yolo_tiled_arch(AUTO_HW, AUTO_DEPTH, 2, 2, "auto", backend=backend,
+                                hw="jetson-nano-gpu", batch=4, microbatches=AUTO_MB,
+                                device="cpu")
+    assert [(g.start, g.end, g.mode) for g in arch.plan.groups] == \
+        [(g.start, g.end, g.mode) for g in jplan.groups]
+    assert arch.plan.group_halos == jplan.group_halos and len(arch.plan.groups) < AUTO_DEPTH
+    step = tfu.make_deferred_grad_step(arch.plan, arch.mesh, l2_loss_local, microbatches=AUTO_MB)
+    loss, grads = step(params_from_jax(params, "cpu"), xs, ts)
+    assert abs(float(loss) - ref_loss) < LOSS_RTOL * max(1.0, abs(ref_loss))
+    _assert_grads(grads, ref_grads)
 
 
 def test_init_yolo_defaults_to_the_card():
