@@ -30,14 +30,18 @@ from repro_torch.core.tiling import (
 )
 from repro_torch.core.spatial import (
     LayerDef,
+    apply_layer_data,
     freeze_bn_stats,
     init_stack_params,
+    reshard_spatial_to_data,
     split_1d,
     stack_reference,
 )
 from repro_torch.core.halo import (
     halo_exchange_1d,
+    halo_exchange_1d_packed,
     halo_exchange_2d,
+    halo_exchange_2d_packed,
 )
 from repro_torch.core.backend import (
     ConvBackend,

@@ -1,13 +1,15 @@
 """Fused, grouped execution stacks (paper §4.2) on the virtual tile mesh.
 
-The uniform, sync, all-spatial subset of ``repro/core/fusion.py``: the
-planner for explicit, absent or cost-model-chosen groupings (``groups=
-"auto"`` over a hardware profile or cluster, ``core/grouping.py``), the
-per-tile executor, the forward / inference wrappers that split a global
-batch into tiles and assemble the global output, and the training entry
-points - the tiled loss and the deferred-aggregation gradient step.  A
-group exchanges halos once at its input; inside it every tile carries a
-recursively grown halo and recomputes boundary regions redundantly.
+The uniform-partition subset of ``repro/core/fusion.py``: the planner for
+explicit, absent or cost-model-chosen groupings (``groups="auto"`` over a
+hardware profile or cluster, ``core/grouping.py``) and spatial->data
+crossovers (``crossover=``, DESIGN.md §7), the executor under the sync and
+overlap schedules (DESIGN.md §5), the forward / inference wrappers that
+split a global batch into tiles and assemble the global output, and the
+training entry points - the tiled loss and the deferred-aggregation
+gradient step.  A group exchanges halos once at its input; inside it every
+tile carries a recursively grown halo and recomputes boundary regions
+redundantly.  Data-mode groups run on batch blocks of full maps.
 
 Halo-width algebra (from the eq. 1 recursion, DESIGN.md §2):
 
@@ -41,12 +43,21 @@ from repro_torch.core.grouping import (
     optimize_grouping,
     parse_cluster_spec,
     profile_cost,
+    score_profile,
 )
 from repro_torch.core.halo import halo_exchange_2d
-from repro_torch.core.spatial import LayerDef, apply_layer_local, stack_reference
+from repro_torch.core.spatial import (
+    LayerDef,
+    apply_group_lead_overlap,
+    apply_layer_data,
+    apply_layer_local,
+    reshard_spatial_to_data,
+    stack_reference,
+)
 from repro_torch.core.tiling import (
     Group,
     TilePartition,
+    apply_crossover,
     bounds_sizes,
     crossover_of,
     derive_axis_bounds,
@@ -64,8 +75,9 @@ class StackPlan:
 
     The fields are the reference's, so ``plan_manifest`` describes a port
     plan exactly as it describes the JAX plan with the same knobs.  The port
-    builds uniform, all-spatial, sync plans only: ``crossover`` is None,
-    ``stages`` empty and ``wire_codec`` "none"."""
+    builds uniform plans without pipeline tails or wire codecs: ``stages``
+    is empty and ``wire_codec`` "none".  Past a crossover the per-layer
+    tile extents are the full maps."""
 
     layers: tuple[LayerDef, ...]
     groups: tuple[Group, ...]
@@ -80,7 +92,7 @@ class StackPlan:
     backend: str = "torch"                       # conv compute path (core.backend)
     schedule: str = "sync"
     block_oh: int | None = None                  # conv output-row block (None = auto)
-    crossover: int | None = None
+    crossover: int | None = None                 # first data-mode layer (None = all spatial)
     partition: TilePartition | None = None       # input-level tile boundaries
     tile_rows: tuple[tuple[int, ...], ...] = ()  # per layer input: per-tile-row extents
     tile_cols: tuple[tuple[int, ...], ...] = ()
@@ -144,6 +156,51 @@ def _resolve_hw(hw, n: int, m: int):
     return resolve_hw_profile(hw)
 
 
+def _resolve_crossover(
+    input_hw,
+    layers,
+    groups: tuple[Group, ...],
+    crossover: int | str | None,
+    n: int,
+    m: int,
+    hw,
+    batch: int,
+    schedule: str,
+    mem_limit: float | None = None,
+    partition: TilePartition | None = None,
+    wire_codec: str = "none",
+) -> tuple[Group, ...]:
+    """Assign partition modes to an *explicit* grouping profile.
+
+    ``crossover=None`` keeps the modes the groups already carry; an int
+    forces the spatial->data transition at that layer (must align with a
+    group boundary; L = all-spatial, same as the optimizer's convention);
+    ``"auto"`` scores every group boundary (and "none") through the same
+    ``grouping.score_profile`` routine the joint optimizer uses (cost +
+    mem_limit feasibility) and keeps the cheapest."""
+    if crossover is None:
+        return groups
+    check_crossover_arg(crossover, len(layers))
+    if isinstance(crossover, int):
+        return tuple(apply_crossover(groups, crossover))
+    best = None
+    for c in [None] + [g.start for g in groups]:
+        cand = tuple(apply_crossover(groups, c))
+        cost = score_profile(
+            input_hw, layers, cand, n, m, hw, batch, schedule, mem_limit,
+            partition=partition, wire_codec=wire_codec,
+        )
+        if cost is None:
+            continue
+        if best is None or cost < best[0]:
+            best = (cost, cand)
+    if best is None:
+        raise ValueError(
+            f"no crossover candidate of this profile fits mem_limit={mem_limit}"
+        )
+    return best[1]
+
+
 def _resolve_auto_schedule(
     input_hw, layers, groups, n, m, hw, batch, partition, device=None
 ) -> str:
@@ -202,21 +259,26 @@ def build_stack_plan(
     ``batch``, with ``microbatches`` for the pipeline bubble model and
     ``mem_limit`` (bytes per device) bounding the modelled working set.
     backend: registered conv compute path ("torch" | "cuda").  schedule:
-    "sync", or "auto" (overlap only when ``device`` can hide collectives and
-    the modelled hidden term is non-trivial; ``device`` None = the default
-    device).  inference: plan a forward-only serve step (BN from frozen
-    statistics).
+    "sync" (eager halo exchange), "overlap" (packed exchange and the
+    interior/boundary split of every group lead with a halo, DESIGN.md §5),
+    or "auto" (overlap only when ``device`` can hide collectives and the
+    modelled hidden term is non-trivial; ``device`` None = the default
+    device); it flows into the cost model under ``groups="auto"``.
+    crossover (DESIGN.md §7): where the plan switches from spatial tiling to
+    data parallelism - None keeps the modes the groups carry, an int pins
+    the first data-mode layer (on a group boundary), ``"auto"`` lets the
+    cost model choose, jointly with the grouping under ``groups="auto"``,
+    else among the given profile's boundaries.  Data-mode layers hold full
+    maps, so only the spatial prefix must divide over the grid.
+    inference: plan a forward-only serve step (BN from frozen statistics).
 
     What the reference also plans, the port's executor cannot run yet; the
-    planner raises ``NotImplementedError`` naming the ROADMAP item: overlap
-    (A.10, also where ``schedule="auto"`` resolves to it), crossover (A.11),
+    planner raises ``NotImplementedError`` naming the ROADMAP item:
     non-uniform partitions (A.12, also from a heterogeneous cluster),
     pipelines (A.13) and wire codecs (A.14)."""
     get_conv_backend(backend)   # fail fast on unknown backends
     if schedule not in ("sync", "overlap", "auto"):
         raise ValueError(f"schedule must be 'sync', 'overlap', or 'auto'; got {schedule!r}")
-    if schedule == "overlap":
-        raise NotImplementedError("schedule='overlap': ROADMAP A.10 (overlap schedule)")
     if block_oh is not None and block_oh < 1:
         raise ValueError(f"block_oh must be a positive int or None; got {block_oh!r}")
     get_codec(wire_codec)   # fail fast on bad codec specs (none | int8 | topk:<k>)
@@ -225,10 +287,15 @@ def build_stack_plan(
     layers = tuple(layers)
     check_pipeline_arg(pipeline, n, m, len(layers))
     if pipeline is not None:
+        if schedule == "overlap":
+            raise ValueError(
+                "schedule='overlap' cannot combine with a pipeline tail: the "
+                "interior/boundary split assumes every device runs the same "
+                "halo exchange, but pipeline stages run disjoint layer "
+                "programs; use schedule='sync' (or 'auto', which resolves "
+                "to sync for pipeline plans)"
+            )
         raise NotImplementedError("pipeline tails: ROADMAP A.13 (pipeline mode)")
-    check_crossover_arg(crossover, len(layers))
-    if crossover is not None:
-        raise NotImplementedError("spatial->data crossover: ROADMAP A.11 (hybrid plans)")
     if isinstance(groups, str) and groups != "auto":
         raise ValueError(f"groups must be a profile, None, or 'auto'; got {groups!r}")
     hw = _resolve_hw(hw, n, m) if hw is not None else None
@@ -236,11 +303,6 @@ def build_stack_plan(
         schedule = _resolve_auto_schedule(
             input_hw, layers, groups, n, m, hw, batch, partition, device
         )
-        if schedule == "overlap":
-            raise NotImplementedError(
-                "schedule='auto' resolves to 'overlap' for this plan on a card: "
-                "ROADMAP A.10 (overlap schedule)"
-            )
     if isinstance(hw, ClusterSpec) and (hw.n, hw.m) != (n, m):
         raise ValueError(f"cluster grid {(hw.n, hw.m)} != tile grid {(n, m)}")
     if partition is not None and (partition.n, partition.m) != (n, m):
@@ -252,37 +314,51 @@ def build_stack_plan(
             optimize_grouping(
                 input_hw, layers, n, m,
                 hw if isinstance(hw, ClusterSpec) else resolve_hw_profile(hw),
-                batch=batch, schedule=schedule, mem_limit=mem_limit,
-                partition=partition, microbatches=microbatches,
+                batch=batch, schedule=schedule, crossover=crossover,
+                mem_limit=mem_limit, partition=partition, microbatches=microbatches,
             )
         )
     else:
         groups = tuple(no_grouping(len(layers))) if groups is None else tuple(groups)
+        groups = _resolve_crossover(
+            input_hw, layers, groups, crossover, n, m,
+            hw if isinstance(hw, ClusterSpec) else resolve_hw_profile(hw),
+            batch, schedule, mem_limit, partition, wire_codec,
+        )
     validate_profile(groups, len(layers))
-    if crossover_of(groups) is not None:
-        raise NotImplementedError("data-mode groups: ROADMAP A.11 (hybrid plans)")
+    cross = crossover_of(groups)
     if pipeline_first_of(groups) is not None:
+        if schedule == "overlap":
+            raise ValueError(
+                "schedule='overlap' cannot combine with a pipeline tail; "
+                "use schedule='sync'"
+            )
         raise NotImplementedError("pipeline-mode groups: ROADMAP A.13 (pipeline mode)")
-    if partition is None and isinstance(hw, ClusterSpec):
-        partition = cluster_partition(input_hw, layers, hw, None)
 
     map_hw = [tuple(input_hw)]
     for l in layers:
         h, w = map_hw[-1]
         map_hw.append((l.out_extent(h), l.out_extent(w)))
 
-    strides = [l.stride for l in layers]
+    # The tile partition covers the spatial prefix through the crossover
+    # layer's input; data-mode layers hold full maps and are exempt.
+    last = len(layers) if cross is None else cross
+    if partition is None and isinstance(hw, ClusterSpec):
+        partition = cluster_partition(input_hw, layers, hw, cross)
+    strides = [l.stride for l in layers[:last]]
     try:
         row_bounds = derive_axis_bounds(
-            partition.row_bounds if partition else None, strides, [e[0] for e in map_hw], n
+            partition.row_bounds if partition else None, strides,
+            [map_hw[l][0] for l in range(last + 1)], n
         )
         col_bounds = derive_axis_bounds(
-            partition.col_bounds if partition else None, strides, [e[1] for e in map_hw], m
+            partition.col_bounds if partition else None, strides,
+            [map_hw[l][1] for l in range(last + 1)], m
         )
     except ValueError as e:
         raise ValueError(
             f"cannot partition map extents over the {n}x{m} tile grid: {e}; "
-            "use a coarser grid or different boundaries"
+            "use a coarser grid, an earlier crossover, or different boundaries"
         ) from None
     if partition is None:
         partition = TilePartition(row_bounds[0], col_bounds[0])
@@ -294,11 +370,24 @@ def build_stack_plan(
             "or deeper layers): ROADMAP A.12 (non-uniform partitions)"
         )
     shard_hw = [(r[0], c[0]) for r, c in zip(tile_rows, tile_cols)]
+    for li in range(last + 1, len(layers) + 1):
+        h, w = map_hw[li]
+        tile_rows.append((h,) * n)
+        tile_cols.append((w,) * m)
+        shard_hw.append((h, w))
 
+    # Group halos + per-layer remaining halos (zero for data-mode groups:
+    # full maps have no neighbours).
     group_halos: list[tuple[int, int, int, int]] = []
     rem_halos: list[tuple[int, int, int, int]] = [None] * len(layers)  # type: ignore
     group_of_layer: list[int] = [0] * len(layers)
     for gi, g in enumerate(groups):
+        if g.mode != "spatial":
+            group_halos.append((0, 0, 0, 0))
+            for l in g.layers:
+                group_of_layer[l] = gi
+                rem_halos[l] = (0, 0, 0, 0)
+            continue
         hl = hh = 0
         sprod = 1
         for l in g.layers:
@@ -341,6 +430,7 @@ def build_stack_plan(
         backend=backend,
         schedule=schedule,
         block_oh=block_oh,
+        crossover=cross,
         partition=partition,
         tile_rows=tuple(tile_rows),
         tile_cols=tuple(tile_cols),
@@ -381,18 +471,59 @@ def plan_manifest(plan: StackPlan, cluster: ClusterSpec | None = None) -> dict:
 
 
 def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan) -> torch.Tensor:
-    """Forward through all groups on tiles ``x`` = (n, m, b, h/n, w/m, c):
-    at each group input a 2-round halo exchange, then the group's layers.
-    Training BN averages over the b images of every tile (the virtual mesh
-    has no batch axis)."""
-    if not plan.is_uniform or plan.schedule != "sync" or plan.crossover is not None:
+    """Forward through all groups on tiles ``x`` = (n, m, b, h/n, w/m, c).
+
+    schedule="sync": at each group input a 2-round halo exchange, then the
+    group's layers.  schedule="overlap": a group lead with a nonzero halo
+    goes through the packed exchange and the interior/boundary split
+    (``spatial.apply_group_lead_overlap``); the rest of the group is
+    unchanged.  Hybrid plans: at the first data-mode group the tiles are
+    resharded into batch blocks of full maps (``reshard_spatial_to_data``)
+    and every later layer runs on them with no exchange
+    (``apply_layer_data``), so a hybrid plan returns
+    ``(n, m, b/(n*m), OH, OW, C)``.  Training BN averages over the b
+    images of the map on both sides of the crossover (the virtual mesh has
+    no batch axis, so b is the entry batch)."""
+    if not plan.is_uniform:
         raise NotImplementedError(
-            "apply_stack_local runs uniform, all-spatial, sync plans only "
-            "(ROADMAP A.10-A.12)"
+            "apply_stack_local runs uniform plans only (ROADMAP A.12)"
         )
+    bg = x.shape[2]
     for gi, g in enumerate(plan.groups):
-        x = halo_exchange_2d(x, plan.group_halos[gi])
-        for l in g.layers:
+        if g.mode == "data":
+            if gi == 0 or plan.groups[gi - 1].mode != "data":
+                x = reshard_spatial_to_data(x)
+            for l in g.layers:
+                x = apply_layer_data(
+                    x,
+                    params[l],
+                    plan.layers[l],
+                    map_out_hw=plan.map_hw[l + 1],
+                    batch_global=bg,
+                    backend=plan.backend,
+                    block_oh=plan.block_oh,
+                    inference=plan.inference,
+                )
+            continue
+        layers = list(g.layers)
+        if plan.schedule == "overlap" and any(plan.group_halos[gi]):
+            lead = layers.pop(0)
+            x = apply_group_lead_overlap(
+                x,
+                params[lead],
+                plan.layers[lead],
+                halo=plan.group_halos[gi],
+                out_halo=plan.rem_halos[lead],
+                shard_out_hw=plan.shard_hw[lead + 1],
+                map_out_hw=plan.map_hw[lead + 1],
+                mask_offmap=(lead != g.end),
+                backend=plan.backend,
+                block_oh=plan.block_oh,
+                inference=plan.inference,
+            )
+        else:
+            x = halo_exchange_2d(x, plan.group_halos[gi])
+        for l in layers:
             x = apply_layer_local(
                 x,
                 params[l],
@@ -408,14 +539,40 @@ def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan) 
     return x
 
 
+def _out_spec(plan: StackPlan, mesh: TileMesh):
+    """Output layout of the executor, as ``(split, merge)`` between global
+    (B, OH, OW, C) arrays and the executor's output tensor: spatial tiles
+    for all-spatial plans; batch blocks of full maps after a crossover
+    (tile (i, j) holds block i*m + j, ``TileMesh.split_batch``)."""
+    if plan.crossover is None:
+        return mesh.split, mesh.merge
+    return mesh.split_batch, mesh.merge_batch
+
+
+def _check_data_batch(plan: StackPlan, batch: int) -> None:
+    """Named error for hybrid plans whose per-microbatch batch cannot spread
+    over the tile grid, raised before the executor runs."""
+    if plan.crossover is None:
+        return
+    t = plan.n * plan.m
+    if batch % t:
+        raise ValueError(
+            f"data-mode batch split needs the per-microbatch batch ({batch}) "
+            f"divisible by the tile count ({plan.n}x{plan.m}={t})"
+        )
+
+
 def make_tiled_forward(plan: StackPlan, mesh: TileMesh):
     """Forward over the virtual mesh: ``(params, x_global) -> y_global``.
 
-    ``x_global`` (B, H, W, C) is split into the n x m tiles, run through
-    ``apply_stack_local`` (one kernel launch per conv layer for all tiles),
-    and the global output is assembled in row-major tile order."""
+    ``x_global`` (B, H, W, C) is split into the n x m tiles and run through
+    ``apply_stack_local`` (one kernel launch per conv call for all tiles);
+    the global output is assembled from the plan's output layout
+    (``_out_spec``): row-major tiles, or a hybrid plan's batch blocks in
+    block order, so either way it is (B, OH, OW, C) in input order."""
     if (mesh.n, mesh.m) != (plan.n, plan.m):
         raise ValueError(f"mesh grid {(mesh.n, mesh.m)} != plan grid {(plan.n, plan.m)}")
+    _, merge = _out_spec(plan, mesh)
 
     def fwd(params, x):
         x = torch.as_tensor(x, device=mesh.device)
@@ -424,7 +581,8 @@ def make_tiled_forward(plan: StackPlan, mesh: TileMesh):
                 f"input {tuple(x.shape)} does not match the plan's (B, "
                 f"{plan.input_hw[0]}, {plan.input_hw[1]}, C)"
             )
-        return mesh.merge(apply_stack_local(params, mesh.split(x), plan))
+        _check_data_batch(plan, x.shape[0])
+        return merge(apply_stack_local(params, mesh.split(x), plan))
 
     return fwd
 
@@ -440,21 +598,15 @@ def _check_not_inference(plan: StackPlan, what: str) -> None:
 
 
 def _check_trainable(plan: StackPlan) -> None:
-    """The reference's training executors beyond the uniform sync path
-    raise here with their ROADMAP item (the planner refuses them already;
+    """The reference's training executors beyond uniform plans (sync or
+    overlap, all-spatial or hybrid) raise here with their ROADMAP item (the planner refuses them already;
     this guards hand-built plans)."""
     if plan.stages:
         raise NotImplementedError("pipeline training: ROADMAP A.13 (pipeline mode)")
-    if plan.crossover is not None:
-        raise NotImplementedError("hybrid (spatial->data) training: ROADMAP A.11 (hybrid plans)")
     if not plan.is_uniform:
         raise NotImplementedError("ragged training: ROADMAP A.12 (non-uniform partitions)")
     if plan.wire_codec != "none":
         raise NotImplementedError(f"wire_codec={plan.wire_codec!r}: ROADMAP A.14 (wire codecs)")
-
-
-def _tile(mesh: TileMesh, a) -> torch.Tensor:
-    return mesh.split(torch.as_tensor(a, device=mesh.device))
 
 
 def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
@@ -464,14 +616,19 @@ def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
     ``loss_local(y, t) -> (sum, count)`` sees all tiles at once, as
     ``(n, m, B, h, w, C)`` tensors, so its sum and count already are the
     reference's psums over the tiles: ``loss = sum_tiles s / sum_tiles c``,
-    the untiled loss exactly.  Autograd through it gives the paper's tiled
-    backward pass."""
+    the untiled loss exactly.  After a crossover the target is split into
+    the executor's batch blocks (``_out_spec``), as the reference binds it
+    with its data-side out-spec.  Autograd through it gives the paper's
+    tiled backward pass."""
     _check_not_inference(plan, "make_tiled_loss")
     _check_trainable(plan)
+    split_out, _ = _out_spec(plan, mesh)
 
     def loss(params, x, target):
-        y = apply_stack_local(params, _tile(mesh, x), plan)
-        s, c = loss_local(y, _tile(mesh, target))
+        x = torch.as_tensor(x, device=mesh.device)
+        _check_data_batch(plan, x.shape[0])
+        y = apply_stack_local(params, mesh.split(x), plan)
+        s, c = loss_local(y, split_out(torch.as_tensor(target, device=mesh.device)))
         return s / c
 
     return loss
@@ -492,7 +649,10 @@ def make_deferred_grad_step(
     A Python loop over the microbatches accumulates each one's weight
     gradients (in place into the first one's, to hold one copy), and ONE
     division by the global count at batch end gives the final gradients -
-    the reference's scan followed by its single psum.  The cross-tile sum
+    the reference's scan followed by its single psum.  After a crossover
+    each microbatch's target is split into the executor's batch blocks
+    (``_out_spec``), and autograd runs the adjoint reshard inside each
+    microbatch.  The cross-tile sum
     of the weight gradients needs no separate step here: the tiles are the
     batch dimension of every conv, so wgrad (B3 on the card) sums the
     per-tile partials inside its own reduction.  A ``torch.distributed``
@@ -500,6 +660,7 @@ def make_deferred_grad_step(
     (later work)."""
     _check_not_inference(plan, "make_deferred_grad_step")
     _check_trainable(plan)
+    split_out, _ = _out_spec(plan, mesh)
 
     def step(params, xs, ts):
         xs = torch.as_tensor(xs, device=mesh.device)
@@ -509,13 +670,14 @@ def make_deferred_grad_step(
                 f"grad step built for microbatches={microbatches}; got "
                 f"{xs.shape[0]} input and {ts.shape[0]} target microbatches"
             )
+        _check_data_batch(plan, xs.shape[1])
         live = [{k: v.detach().requires_grad_(True) for k, v in p.items()} for p in params]
         leaves = [v for p in live for v in p.values()]
         acc = None
         loss_sum = cnt = 0.0
         for i in range(microbatches):
             y = apply_stack_local(live, mesh.split(xs[i]), plan)
-            s, c = loss_local(y, mesh.split(ts[i]))
+            s, c = loss_local(y, split_out(ts[i]))
             g = torch.autograd.grad(s, leaves, allow_unused=True)
             g = [torch.zeros_like(v) if gi is None else gi for v, gi in zip(leaves, g)]
             if acc is None:

@@ -14,6 +14,12 @@ batch statistics: a sum over the tile dimensions is the reference's
 ``psum``, and autograd differentiates through it as ``jax.grad`` does
 through ``shard_map``.  Inference BN from frozen statistics is elementwise
 and needs no collective.
+
+Two executors beside the sync layer: the overlap schedule's group lead
+(``apply_group_lead_overlap``: packed exchange, interior conv on owned data,
+boundary strips once the strips land) and the hybrid plans' data-mode
+layers (``reshard_spatial_to_data`` turns the tile grid into batch blocks of
+full maps; ``apply_layer_data`` runs a layer on them with no exchange).
 """
 from __future__ import annotations
 
@@ -24,7 +30,9 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.backend import ACTIVATIONS as _ACTIVATIONS, get_conv_backend
+from repro_torch.core.backend import ACTIVATIONS as _ACTIVATIONS
+from repro_torch.core.backend import get_conv_backend, pad_for_valid
+from repro_torch.core.halo import halo_exchange_1d_packed
 from repro_torch.core.tiling import ConvSpec
 
 # ---------------------------------------------------------------------------
@@ -321,15 +329,19 @@ def _finish_layer(
     map_out_hw: tuple[int, int],
     mask_offmap: bool,
     inference: bool = False,
+    batch_global: int | None = None,
 ) -> torch.Tensor:
     """Post-conv tail on tiles ``(n, m, B, h, w, C)``: cross-tile BN
     (frozen-stats BN for inference plans), unfused activation, off-map
-    masking."""
+    masking.  ``batch_global`` is the images of the map the statistics
+    average over (default B: on spatial tiles every tile holds them all;
+    after a crossover each tile holds a batch block of them)."""
     if layer.batch_norm and not layer.pool:
         if inference:
             y = _bn_infer(y, params, layer)
         else:
-            n_global = y.shape[2] * map_out_hw[0] * map_out_hw[1]
+            bg = y.shape[2] if batch_global is None else batch_global
+            n_global = bg * map_out_hw[0] * map_out_hw[1]
             y = _bn_tiled(y, layer, params, out_halo, n_global)
     if not fused:
         y = _ACTIVATIONS[layer.act](y)
@@ -341,9 +353,76 @@ def _finish_layer(
 
 
 # ---------------------------------------------------------------------------
-# Overlap schedule geometry: interior/boundary split of a group-lead layer.
-# The grouping cost model's overlap credit reads it; the overlap executor
-# that runs it is ROADMAP A.10.
+# Hybrid partitioning: spatial->data reshard + data-mode (full-map) layers
+# ---------------------------------------------------------------------------
+
+
+def _batch_block_slice(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """Full maps (b, H, W, C) -> batch blocks (n, m, b/(n*m), H, W, C): tile
+    (i, j) keeps batch block i*m + j, the reference's ``P((row_axis,
+    col_axis))`` batch sharding of the data-mode tail."""
+    t = n * m
+    b = x.shape[0]
+    if b % t:
+        raise ValueError(
+            f"data-mode batch split needs the per-microbatch batch ({b}) "
+            f"divisible by the tile count ({n}x{m}={t})"
+        )
+    return x.reshape(n, m, b // t, *x.shape[1:])
+
+
+def reshard_spatial_to_data(x: torch.Tensor) -> torch.Tensor:
+    """The spatial->data crossover (DESIGN.md §7): core tiles
+    ``(n, m, b, h, w, C)`` (halo consumed by the previous group) -> batch
+    blocks of full maps ``(n, m, b/(n*m), n*h, m*w, C)``, tile (i, j)
+    holding batch block i*m + j.
+
+    The reference all-gathers the tile grid (``_wire_all_gather`` with no
+    codec, twice) and slices each device's block (``_batch_block_slice``).
+    On the virtual mesh that is one merge and one reshape - no tile gets
+    the full batch's maps - and autograd gives the adjoint (the
+    reduce-scatter and the zero-padded scatter) as ``jax.grad`` does."""
+    n, m, b, h, w, c = x.shape
+    full = x.permute(2, 0, 3, 1, 4, 5).reshape(b, n * h, m * w, c)
+    return _batch_block_slice(full, n, m)
+
+
+def apply_layer_data(
+    x: torch.Tensor,
+    params: dict,
+    layer: LayerDef,
+    *,
+    map_out_hw: tuple[int, int],
+    batch_global: int,
+    backend: str = "torch",
+    block_oh: int | None = None,
+    inference: bool = False,
+) -> torch.Tensor:
+    """One data-mode layer on batch blocks of full, unhaloed maps
+    ``(n, m, bs, H, W, C)``.  The SAME boundary is materialised locally
+    (``pad_for_valid``) so the VALID-only conv backends run unchanged, with
+    no exchange.  Training BN sums over the same tile dimensions with the
+    global ``batch_global x H x W`` count, so its statistics stay exact
+    (each (image, position) lives in exactly one tile)."""
+    n, m, bs = x.shape[:3]
+    xp = pad_for_valid(x.reshape(n * m * bs, *x.shape[3:]), layer.padding, pool=layer.pool)
+    y, fused = _conv_or_pool(xp, params, layer, backend, block_oh)
+    return _finish_layer(
+        y.reshape(n, m, bs, *y.shape[1:]),
+        params,
+        layer,
+        fused=fused,
+        out_halo=(0, 0, 0, 0),
+        shard_out_hw=map_out_hw,
+        map_out_hw=map_out_hw,
+        mask_offmap=False,
+        inference=inference,
+        batch_global=batch_global,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Overlap schedule: interior/boundary split of a group-lead layer
 # ---------------------------------------------------------------------------
 
 
@@ -376,7 +455,7 @@ class SplitSpec1D:
 def split_1d(own: int, lo: int, hi: int, kernel: int, stride: int) -> SplitSpec1D | None:
     """Interior/boundary split along one dim, or None when no output is
     computable from owned data alone (tile thinner than the kernel's reach
-    into the halo)."""
+    into the halo - the executor then falls back to whole-tile compute)."""
     out = (own + lo + hi - kernel) // stride + 1
     i0 = -(-lo // stride)                     # ceil(lo / stride)
     i1 = (lo + own - kernel) // stride
@@ -389,3 +468,91 @@ def split_1d(own: int, lo: int, hi: int, kernel: int, stride: int) -> SplitSpec1
         int_in_lo=i0 * stride - lo,
         int_in_hi=i1 * stride + kernel - lo,
     )
+
+
+def _assemble(lo: torch.Tensor, core: torch.Tensor, hi: torch.Tensor, w_lo: int, w_hi: int,
+              *, dim: int) -> torch.Tensor:
+    parts = ([lo] if w_lo > 0 else []) + [core] + ([hi] if w_hi > 0 else [])
+    if len(parts) == 1:
+        return core
+    return torch.cat(parts, dim=dim)
+
+
+def apply_group_lead_overlap(
+    x: torch.Tensor,
+    params: dict,
+    layer: LayerDef,
+    *,
+    halo: tuple[int, int, int, int],
+    out_halo: tuple[int, int, int, int],
+    shard_out_hw: tuple[int, int],
+    map_out_hw: tuple[int, int],
+    mask_offmap: bool,
+    backend: str = "torch",
+    block_oh: int | None = None,
+    inference: bool = False,
+    batch_global: int | None = None,
+) -> torch.Tensor:
+    """Group-lead layer under the overlap schedule on core tiles
+    ``(n, m, B, h, w, C)``: packed halo exchange and interior/boundary
+    split execution (DESIGN.md §5).
+
+    The interior of the output depends on owned data only, so its conv is
+    issued before any received strip is consumed.  The boundary pieces -
+    the left/right strips of the interior rows, then the top/bottom bands -
+    are computed from the extended tile, and the pieces are concatenated
+    back into ``conv_valid(extended tile)``: every output position comes
+    from the identical input window, so the result equals the sync
+    schedule's by position.  The sums may run in another order (each piece
+    is its own conv call, whose kernel picks its tiling by shape).  Without
+    an interior (a tile thinner than the kernel's reach into the halo) the
+    whole extended tile is one conv, as in the reference."""
+    top, bottom, left, right = halo
+    k, s = layer.kernel, layer.stride
+    n, m, b, own_h, own_w = x.shape[:5]
+    rs = split_1d(own_h, top, bottom, k, s)
+    cs = split_1d(own_w, left, right, k, s)
+
+    def conv(slab):
+        y, fused = _conv_or_pool(slab.reshape(n * m * b, *slab.shape[3:]), params, layer,
+                                 backend, block_oh)
+        return y.reshape(n, m, b, *y.shape[1:]), fused
+
+    def finish(y, fused):
+        return _finish_layer(y, params, layer, fused=fused, out_halo=out_halo,
+                             shard_out_hw=shard_out_hw, map_out_hw=map_out_hw,
+                             mask_offmap=mask_offmap, inference=inference,
+                             batch_global=batch_global)
+
+    # 1. the packed row exchange (nothing below consumes it yet)
+    row_lo, row_hi = halo_exchange_1d_packed(x, top, bottom, tile_dim=0, dim=3)
+
+    if rs is None or cs is None:
+        # no interior: whole-tile compute on the assembled extended tile
+        ext = _assemble(row_lo, x, row_hi, top, bottom, dim=3)
+        col_lo, col_hi = halo_exchange_1d_packed(ext, left, right, tile_dim=1, dim=4)
+        ext = _assemble(col_lo, ext, col_hi, left, right, dim=4)
+        return finish(*conv(ext))
+
+    # 2. interior compute from owned data only
+    y_int, fused = conv(x[:, :, :, rs.int_in_lo:rs.int_in_hi, cs.int_in_lo:cs.int_in_hi])
+
+    # 3. the column exchange over the row-extended tile (carries the corners)
+    x_rows = _assemble(row_lo, x, row_hi, top, bottom, dim=3)
+    col_lo, col_hi = halo_exchange_1d_packed(x_rows, left, right, tile_dim=1, dim=4)
+    ext = _assemble(col_lo, x_rows, col_hi, left, right, dim=4)
+
+    # 4. the boundary pieces from the extended tile (extended coords)
+    mid_rows = slice(rs.i0 * s, rs.i1 * s + k)
+    mid = [y_int]
+    if cs.n_lo:
+        mid.insert(0, conv(ext[:, :, :, mid_rows, 0:(cs.i0 - 1) * s + k])[0])
+    if cs.n_hi:
+        mid.append(conv(ext[:, :, :, mid_rows, (cs.i1 + 1) * s:(cs.out - 1) * s + k])[0])
+    bands = [mid[0] if len(mid) == 1 else torch.cat(mid, dim=4)]
+    if rs.n_lo:
+        bands.insert(0, conv(ext[:, :, :, 0:(rs.i0 - 1) * s + k])[0])
+    if rs.n_hi:
+        bands.append(conv(ext[:, :, :, (rs.i1 + 1) * s:(rs.out - 1) * s + k])[0])
+    y = bands[0] if len(bands) == 1 else torch.cat(bands, dim=3)
+    return finish(y, fused)

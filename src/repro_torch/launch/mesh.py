@@ -52,6 +52,19 @@ class TileMesh:
         n, m, b, h, w, c = t.shape
         return t.permute(2, 0, 3, 1, 4, 5).reshape(b, n * h, m * w, c)
 
+    def split_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """Global (B, H, W, C) -> batch blocks (n, m, B/(n*m), H, W, C) of
+        full maps: tile (i, j) holds block i*m + j, the data layout of a
+        hybrid plan's tail (the counterpart of ``P((row_axis, col_axis))``)."""
+        from repro_torch.core.spatial import _batch_block_slice
+
+        return _batch_block_slice(x, self.n, self.m)
+
+    def merge_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """Batch blocks (n, m, b, H, W, C) -> global (n*m*b, H, W, C) in
+        block order (the inverse of ``split_batch``)."""
+        return t.reshape(-1, *t.shape[3:])
+
 
 def make_tile_mesh(n: int, m: int, device: str | torch.device = "cuda") -> TileMesh:
     """Paper-native 2-D tile grid as a virtual mesh on ``device``."""

@@ -2,7 +2,9 @@
 
 The ``--cnn`` mode of ``repro/launch/serve.py``: builds a YOLOv2-prefix
 plan over an n x m virtual tile grid (``--groups auto``: the cost model's
-grouping on ``--hw`` at the largest bucket), takes its forward-only twin, freezes
+grouping on ``--hw`` at the largest bucket; ``--schedule overlap`` the overlap
+executor; ``--crossover auto|N`` a hybrid plan, whose every bucket must divide
+by the tile count, e.g. ``--buckets 4 8`` on 2x2), takes its forward-only twin, freezes
 BN statistics on a calibration batch, warms the bucket ladder, then drives
 a synthetic image workload through ``runtime.driver.run_serving`` and prints
 latency percentiles, throughput, bucket census and cache counters.  The
@@ -26,7 +28,8 @@ def _cnn_main(args) -> int:
     arch = make_yolo_tiled_arch(
         input_hw=(args.size, args.size), depth=args.depth, n=n, m=m,
         groups="auto" if args.groups == "auto" else None,
-        backend=args.backend, hw=args.hw, batch=max(args.buckets), device=args.device,
+        backend=args.backend, schedule=args.schedule, hw=args.hw, batch=max(args.buckets),
+        crossover=args.crossover, device=args.device,
     )
     params = arch.init(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -39,6 +42,8 @@ def _cnn_main(args) -> int:
         latency_budget=args.budget_ms / 1e3,
         hw=args.hw,
     )
+    print(f"plan: schedule={arch.plan.schedule} crossover={arch.plan.crossover} "
+          f"modes={[g.mode for g in arch.plan.groups]}")
     print(f"plan: groups={[(g.start, g.end) for g in arch.plan.groups]} "
           f"modeled step bound {engine.step_bound * 1e3:.3f} ms (hw={args.hw or 'pi3-core'})")
     t0 = time.monotonic()
@@ -79,7 +84,10 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=64, help="input H=W")
     ap.add_argument("--backend", choices=("torch", "cuda"), default="cuda")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--schedule", choices=("sync", "overlap"), default="sync")
     ap.add_argument("--groups", choices=("none", "auto"), default="none")
+    ap.add_argument("--crossover", default=None,
+                    help="spatial->data crossover layer or 'auto'")
     ap.add_argument("--hw", default=None, help="hardware profile name")
     ap.add_argument("--buckets", type=int, nargs="+", default=[1, 2, 4, 8])
     ap.add_argument("--budget-ms", type=float, default=1000.0)
@@ -87,6 +95,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not args.cnn:
         ap.error("only --cnn serving is ported; LM serving is ROADMAP A.18")
+    if args.crossover is not None and args.crossover != "auto":
+        args.crossover = int(args.crossover)
     return _cnn_main(args)
 
 

@@ -9,9 +9,11 @@ synthetic batches - the reference's ``make_batch`` recipe, so both
 launchers see the same data.  It runs on the card unless ``--device cpu``
 is given.  ``--groups auto`` plans the grouping with the cost model on
 ``--hw-profile`` or, where given, the ``--cluster`` spec (which overrides
-it), at ``--batch`` with ``--grad-accum`` microbatches.  Flags of the
-reference the port does not have yet raise naming their ROADMAP item:
-``--schedule overlap`` (A.10), ``--crossover`` (A.11), a heterogeneous
+it), at ``--batch`` with ``--grad-accum`` microbatches.  ``--schedule``
+picks the executor (overlap: packed exchange and the interior/boundary
+split), ``--crossover`` a hybrid plan's spatial->data switch (the
+per-microbatch batch must then divide by grid^2).  Flags of the reference
+the port does not have yet raise naming their ROADMAP item: a heterogeneous
 ``--cluster`` (A.12: its balanced partition is non-uniform), ``--pipeline``
 (A.13), ``--wire-codec`` (A.14), ``--ckpt-dir`` and ``--fault-schedule``
 (A.15).
@@ -39,6 +41,14 @@ def _resolve_groups(spec: str, n_layers: int):
     from repro_torch.core.tiling import uniform_grouping
 
     return uniform_grouping(n_layers, int(spec))
+
+
+def _resolve_crossover(spec: str):
+    if spec == "none":
+        return None
+    if spec == "auto":
+        return "auto"
+    return int(spec)
 
 
 def _resolve_int_or_auto(spec: str):
@@ -82,9 +92,15 @@ def _add_args(ap: argparse.ArgumentParser) -> None:
                          "(a heterogeneous one is ROADMAP A.12)")
     ap.add_argument("--no-batch-norm", action="store_true",
                     help="build the YOLO stack without batch norm")
+    ap.add_argument("--schedule", default="sync", choices=["sync", "overlap", "auto"],
+                    help="executor schedule (overlap = packed halo exchange + "
+                         "interior/boundary split; auto = overlap only when the device "
+                         "can hide collectives and the modelled hidden term is non-trivial)")
+    ap.add_argument("--crossover", default="none",
+                    help="spatial->data crossover layer - 'none' (all spatial), 'auto' "
+                         "(cost-model choice; joint with the grouping DP under --groups "
+                         "auto), or a layer index N")
     # the reference's flags the port does not plan yet (each raises)
-    ap.add_argument("--schedule", default="sync", choices=["sync", "overlap", "auto"])
-    ap.add_argument("--crossover", default="none")
     ap.add_argument("--pipeline", default="none")
     ap.add_argument("--wire-codec", default="none")
     ap.add_argument("--ckpt-dir", default=None)
@@ -128,7 +144,7 @@ def _run_tiled(args) -> int:
         schedule=args.schedule,
         hw=cluster if cluster is not None else args.hw_profile,
         batch=args.batch,
-        crossover=_resolve_int_or_auto(args.crossover),
+        crossover=_resolve_crossover(args.crossover),
         pipeline=_resolve_int_or_auto(args.pipeline),
         microbatches=max(args.grad_accum, 1),
         wire_codec=args.wire_codec,

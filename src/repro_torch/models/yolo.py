@@ -2,9 +2,10 @@
 
 Darknet-19 prefix: conv3x3(+BN+leaky) / maxpool stages, 416x416 -> 26x26
 feature maps.  The port of ``repro/models/yolo.py``, with the planning
-knobs the port supports (``core/fusion.build_stack_plan``).  At the paper's
-416 geometry every layer extent divides over a 2x2 grid (tiles down to
-13x13), so the uniform executor trains and serves it as is.
+knobs the port supports (``core/fusion.build_stack_plan``: groupings,
+schedules, crossovers).  At the paper's 416 geometry every layer extent
+divides over a 2x2 grid (tiles down to 13x13), so the uniform executor
+trains and serves it as is.
 """
 from __future__ import annotations
 
@@ -103,8 +104,9 @@ def make_yolo_tiled_arch(
     profile chosen at plan time: ``groups="auto"`` runs the cost model on
     ``hw`` (a profile, its name, a ClusterSpec or a cluster spec string) at
     ``batch``, under ``mem_limit``, with ``microbatches`` (default the
-    planner's standard M) for the pipeline bubble model.  Knobs the port
-    does not plan raise ``NotImplementedError`` (see ``build_stack_plan``)."""
+    planner's standard M) for the pipeline bubble model; ``schedule`` and
+    ``crossover`` as in ``build_stack_plan``.  Knobs the port does not plan
+    raise ``NotImplementedError`` (see ``build_stack_plan``)."""
     layers = yolov2_16_layers(batch_norm=batch_norm)[:depth]
     plan = build_stack_plan(
         input_hw, layers, n, m, groups,

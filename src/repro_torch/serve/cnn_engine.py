@@ -8,7 +8,9 @@ serve step per bucket (``serve/exec_cache.py``).  A batch ships when the
 queue fills the largest bucket, or as soon as the oldest request's deadline
 headroom drops below ``slack_factor`` step bounds.  The step bound comes
 from the same ``profile_cost`` model the planner optimizes against
-(``modeled_step_bound``), unless the caller gives one.
+(``modeled_step_bound``), unless the caller gives one.  A hybrid plan's
+forward leaves its output in batch blocks; ``make_tiled_forward`` puts them
+back in input order, so responses are read by position for every plan.
 """
 from __future__ import annotations
 
@@ -131,6 +133,14 @@ class CNNServeEngine:
         buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not buckets or buckets[0] < 1:
             raise ValueError(f"buckets must be positive ints; got {buckets!r}")
+        if plan.crossover is not None:
+            t = plan.n * plan.m
+            bad = [b for b in buckets if b % t]
+            if bad:
+                raise ValueError(
+                    f"hybrid plan: buckets {bad} not divisible by the tile "
+                    f"count {plan.n}x{plan.m}={t} (data-mode batch split)"
+                )
         self.plan = plan
         self.mesh = mesh
         self.params = params

@@ -16,8 +16,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # reference name -> the ROADMAP A item whose port brings it
 NOT_YET = {
     "core": {
-        **dict.fromkeys(["apply_layer_data", "reshard_spatial_to_data"], "A.11"),
-        **dict.fromkeys(["halo_exchange_1d_packed", "halo_exchange_2d_packed"], "A.10"),
         **dict.fromkeys(["EFBag", "WireCtx", "send_boundary_sum_1d", "wire_shift"], "A.14"),
         **dict.fromkeys(["pipeline_schedule_census"], "A.13"),
         **dict.fromkeys(["plan_from_manifest", "replan_stack"], "A.15"),

@@ -152,30 +152,76 @@ def test_port_matches_jax_pallas_2x2_infer_subprocess(tmp_path):
         np.testing.assert_allclose(got, d["y"], atol=ATOL)
 
 
+# The planning modes of ROADMAP A.10 (overlap) and A.11 (hybrid plans),
+# which raised before the port ran them: (kwargs, schedule and crossover of
+# the plan they now give).
+PORTED_MODES = [
+    (dict(schedule="auto", hw="pi3-core", device="cuda"), ("overlap", None)),
+    (dict(groups="auto", crossover="auto"), ("sync", None)),
+    (dict(schedule="overlap"), ("overlap", None)),
+    (dict(crossover=2), ("sync", 2)),
+    (dict(groups=[Group(0, 1), Group(2, 3, "data")]), ("sync", 2)),
+]
+
+
+def _plan_mode(kw, **extra):
+    kw = dict(kw, **extra)
+    groups = kw.pop("groups", None)
+    return tfu.build_stack_plan((32, 32), yolov2_16_layers()[:4], 2, 2, groups, **kw)
+
+
 def test_unported_planning_modes_raise_with_roadmap_item():
     layers = yolov2_16_layers()[:4]
     cases = [
         (dict(hw="pi3x3+jetson"), "A.12"),                 # heterogeneous: ragged partition
         (dict(groups="auto", hw="jetson+pi3x3"), "A.12"),
-        (dict(schedule="auto", hw="pi3-core", device="cuda"), "A.10"),   # resolves to overlap
-        (dict(groups="auto", crossover="auto"), "A.11"),
         (dict(groups="auto", pipeline="auto"), "A.13"),
-        (dict(schedule="overlap"), "A.10"),
-        (dict(crossover=2), "A.11"),
         (dict(partition=TilePartition((0, 24, 32), (0, 16, 32))), "A.12"),
         (dict(pipeline=2), "A.13"),
         (dict(wire_codec="int8"), "A.14"),
-        (dict(groups=[Group(0, 1), Group(2, 3, "data")]), "A.11"),
     ]
     for kw, item in cases:
         groups = kw.pop("groups", None)
         with pytest.raises(NotImplementedError, match=item):
             tfu.build_stack_plan((32, 32), layers, 2, 2, groups, **kw)
+    # the A.10 and A.11 cases now plan (test_ported_planning_modes_run runs them)
+    for kw, (schedule, crossover) in PORTED_MODES:
+        plan = _plan_mode(kw)
+        assert (plan.schedule, plan.crossover) == (schedule, crossover), kw
+    # the reference's guards stay: overlap with a pipeline tail, a crossover
+    # inside a group
+    with pytest.raises(ValueError, match="cannot combine with a pipeline tail"):
+        tfu.build_stack_plan((32, 32), layers, 2, 2, "auto", schedule="overlap", pipeline=2)
+    with pytest.raises(ValueError, match="falls inside group"):
+        tfu.build_stack_plan((32, 32), layers, 2, 2, [Group(0, 3)], crossover=2)
     convs = [tsp.LayerDef(3, 1, 3, 3) for _ in range(4)]
     with pytest.raises(ValueError, match="exceeds the smallest tile"):
         tfu.build_stack_plan((6, 6), convs, 2, 2, [Group(0, 3)])
     with pytest.raises(KeyError, match="unknown conv backend"):
         tfu.build_stack_plan((32, 32), layers, 2, 2, backend="pallas")
+
+
+@pytest.mark.parametrize("i", range(len(PORTED_MODES)))
+def test_ported_planning_modes_run(i):
+    """Each A.10 / A.11 planning mode, under the conditions that raised
+    before, now serves: its inference twin on the 2x2 virtual mesh (both
+    conv backends on the CPU) equals the untiled frozen-BN forward, and so
+    does its training forward."""
+    kw, _ = PORTED_MODES[i]
+    layers = yolov2_16_layers()[:4]
+    params = tsp.init_stack_params(torch.Generator().manual_seed(0), layers)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((4, 32, 32, 3))
+                         .astype(np.float32))
+    frozen = tsp.freeze_bn_stats(params, layers, x)
+    mesh = make_tile_mesh(2, 2, "cpu")
+    for backend in ("torch", "cuda"):
+        plan = _plan_mode(kw, backend=backend)
+        got = tfu.make_tiled_infer(plan.inference_twin(), mesh)(frozen, x)
+        want = tfu.reference_forward(frozen, x, plan.inference_twin())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+        got = tfu.make_tiled_forward(plan, mesh)(params, x)
+        np.testing.assert_allclose(got.detach().numpy(),
+                                   tfu.reference_forward(params, x, plan).numpy(), atol=ATOL)
 
 
 # ---------------------------------------------------------------------------

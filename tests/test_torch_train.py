@@ -202,10 +202,22 @@ def test_training_entry_points_refuse_serve_plans_and_bad_microbatches():
     step = tfu.make_deferred_grad_step(plan, mesh, l2_loss_local, microbatches=1)
     with pytest.raises(ValueError, match="microbatches=1"):
         step(params_from_jax(params, "cpu"), xs, ts)
-    for field, value, item in (("stages", ((0, 2),), "A.13"), ("crossover", 2, "A.11"),
-                               ("wire_codec", "int8", "A.14")):
+    for field, value, item in (("stages", ((0, 2),), "A.13"), ("wire_codec", "int8", "A.14")):
         with pytest.raises(NotImplementedError, match=item):
             tfu.make_tiled_loss(dataclasses.replace(plan, **{field: value}), mesh, l2_loss_local)
+    # A hybrid plan (crossover 2, ROADMAP A.11) now trains: a microbatch of
+    # 2 cannot spread over the 4 tiles (the named error), one of 4 equals
+    # the untiled loss.
+    hybrid = tfu.build_stack_plan(HW, _port(CASES["yolo4-none"][0]), 2, 2, crossover=2)
+    assert hybrid.crossover == 2
+    tp = params_from_jax(params, "cpu")
+    with pytest.raises(ValueError, match=r"batch \(2\) divisible by the tile count"):
+        tfu.make_tiled_loss(hybrid, mesh, l2_loss_local)(tp, xs[0], ts[0])
+    x4, t4 = np.concatenate(list(xs)), np.concatenate(list(ts))
+    got = tfu.make_tiled_loss(hybrid, mesh, l2_loss_local)(tp, x4, t4)
+    want = tfu.reference_loss(tp, torch.from_numpy(x4), torch.from_numpy(t4), hybrid,
+                              l2_loss_local)
+    assert abs(float(got) - float(want)) < LOSS_RTOL * max(1.0, float(want))
 
 
 def test_bn_tiled_statistics_cover_core_positions_once():
@@ -582,10 +594,18 @@ def test_launcher_trains_on_cpu(capsys):
     (["--arch", "stablelm-1.6b"], "A.18"),
     (["--optimizer", "adafactor"], "A.18"),
 ])
-def test_launcher_unported_flags_name_their_roadmap_item(flags, item):
+def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys):
+    """Unported flags raise naming their ROADMAP item; the flags of A.10
+    (overlap) and A.11 (hybrid plans) now train under the same flags."""
     from repro_torch.launch.train import main
 
     base = ["--device", "cpu", "--input-hw", "32", "--depth", "4", "--steps", "1", "--grid", "2"]
+    if item in ("A.10", "A.11"):
+        assert main(base + flags) == 0
+        out = capsys.readouterr().out
+        plan = "schedule=overlap" if item == "A.10" else "crossover=2"
+        assert plan in out and "done: steps=1 restarts=0" in out
+        return
     with pytest.raises(NotImplementedError, match=item):
         main(base + flags)
 
