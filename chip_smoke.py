@@ -128,8 +128,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``--schedule overlap --crossover auto`` on ``HYBRID_HW``.  In every
    training and serving run the launches equal the code's count
    (``conv_shapes``: one per conv call, the first conv's image input taking
-   no dgrad), B1's by tile instance.  The ``{"kernels": ...}`` line's
-   launches include phases 12's and 13's.
+   no dgrad), B1's by tile instance;
+14. non-uniform tile partitions (``RAGGED_PLANS_416``), each under
+   ``ragged_exec="spec"`` (one conv per tile-shape class) and ``"padded"``
+   (one conv over every tile padded to the largest): (a) the 3x3 grid with
+   the hand-picked groups, where 416 splits (144, 144, 128); (b) the
+   ``pi3x3+jetson`` cluster on 2x2 with ``groups="auto"``, its
+   FLOPs-balanced (16, 400) split, and its ``crossover=14`` twin for one
+   step.  Each spec plan is held to its padded twin and the untiled
+   reference on one microbatch (``OVERLAP_TOL``), each plan trained as
+   phase 5 (without the planted faults; launches per microbatch equal to
+   ``RAGGED_LAUNCHES``) - all but the padded cluster plan, which is served
+   only -, the four plans served as phase 4, the cluster trained once
+   through ``python -m
+   repro_torch.launch.train --grid 2 --cluster pi3x3+jetson --groups
+   auto``, and B1-B3 held as in phase 3 at every new per-tile shape (the
+   classes' true extents down to the 1x1 corner tiles, the padded canonical
+   extents); the ``{"ragged": ...}`` line gives each plan's device work,
+   event step, idle share, peak memory and conv work beside phase 5's
+   uniform plan.  The ``{"kernels": ...}`` line's launches include phases
+   12's, 13's and 14's.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -304,6 +322,34 @@ HYBRID_BUCKETS = (4, 8)
 # scripts/check_overlap.py:90: the overlap schedule against the untiled
 # reference (and here also against the sync plan), max |diff|
 OVERLAP_TOL = dict(forward=1e-4, loss=1e-5, grads=1e-4)
+# Phase 14: non-uniform tile partitions of YOLOv2-16 (BN) at 416x416 - name:
+# (grid, groups, planner kwargs, the groups and modes planned).  "grid3": 416
+# does not divide over 3, so the near-even split (144, 144, 128) -> ... ->
+# (9, 9, 8); "cluster": the README's heterogeneous cluster on 2x2, the
+# FLOPs-balanced (16, 400) split with groups="auto" (the launcher's batch
+# and microbatches), and its crossover=14 hybrid twin.  The reference plans
+# the same (tests/test_torch_ragged.py).
+_CLUSTER_KW = dict(hw="pi3x3+jetson", batch=8, microbatches=2)
+_PAIRS = [(s, s + 1, "spatial") for s in range(0, 16, 2)]
+RAGGED_PLANS_416 = {
+    "grid3": (3, [(0, 3), (4, 7), (8, 11), (12, 15)], {},
+              [(0, 3, "spatial"), (4, 7, "spatial"), (8, 11, "spatial"), (12, 15, "spatial")]),
+    "cluster": (2, "auto", _CLUSTER_KW, _PAIRS),
+    "cluster_crossover": (2, "auto", dict(_CLUSTER_KW, crossover=14),
+                          _PAIRS[:-1] + [(14, 15, "data")]),
+}
+# The code's launches per dispatch (B1) or microbatch (B1-B3) of those plans,
+# from conv_shapes: spec one conv per shape class (4 on each plan) and conv,
+# padded one per conv; the image input takes no dgrad.
+RAGGED_LAUNCHES = {
+    "grid3": {"spec": {"conv2d_tile": 48, "conv2d_dgrad_tile": 44, "conv2d_wgrad_tile": 48},
+              "padded": {"conv2d_tile": 12, "conv2d_dgrad_tile": 11, "conv2d_wgrad_tile": 12}},
+    "cluster": {"spec": {"conv2d_tile": 48, "conv2d_dgrad_tile": 44, "conv2d_wgrad_tile": 48},
+                "padded": {"conv2d_tile": 12, "conv2d_dgrad_tile": 11, "conv2d_wgrad_tile": 12}},
+    "cluster_crossover": {
+        "spec": {"conv2d_tile": 42, "conv2d_dgrad_tile": 38, "conv2d_wgrad_tile": 42},
+        "padded": {"conv2d_tile": 12, "conv2d_dgrad_tile": 11, "conv2d_wgrad_tile": 12}},
+}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -367,42 +413,60 @@ def conv_shapes(plan, batch: int) -> list[dict]:
     ``split_1d``'s split (interior, the interior rows' left and right
     strips, the top and bottom bands), or one on the whole extended tile
     where it has no interior; a data-mode layer one call over the batch's
-    full maps, padded."""
+    full maps, padded.  A ragged plan's spatial layer makes one call over
+    every tile at the canonical extent (``ragged_exec="padded"``) or one
+    per tile-shape class over its tiles' true extents (``"spec"``, the
+    classes of ``core/halo.py:_switch_by_size``)."""
+    from repro_torch.core.fusion import _ragged_group_geom
+    from repro_torch.core.halo import _switch_by_size
     from repro_torch.core.spatial import split_1d
 
     out = []
     tiles = plan.n * plan.m * batch
     for gi, g in enumerate(plan.groups):
         halo = plan.group_halos[gi]
-        for l in g.layers:
+        ragged = not plan.is_uniform and g.mode == "spatial"
+        if ragged:
+            geom = _ragged_group_geom(plan, gi)
+            classes = _switch_by_size(plan.tile_rows[g.start], plan.tile_cols[g.start])
+            cum = 1
+        for k, l in enumerate(g.layers):
             layer = plan.layers[l]
-            k, st, cin = layer.kernel, layer.stride, layer.in_channels
+            k_, st, cin = layer.kernel, layer.stride, layer.in_channels
             sh, sw = plan.shard_hw[l]
             eh, ew = sh + halo[0] + halo[1], sw + halo[2] + halo[3]
             pieces = [("tile", (tiles, eh, ew))]
             if g.mode == "data":
                 h, w = plan.map_hw[l]
                 pieces = [("full", (batch, h + 2 * layer.padding, w + 2 * layer.padding))]
+            elif ragged and plan.ragged_exec == "padded":
+                pieces = [("padded", (tiles, *geom["ein"][k]))]
+            elif ragged:
+                top, bottom, left, right = geom["halos"][k]
+                pieces = [(f"class_{r0}x{c0}", (len(t) * batch, top + r0 // cum + bottom,
+                                                 left + c0 // cum + right))
+                          for (r0, c0), t in classes]
+                cum *= st
             elif plan.schedule == "overlap" and l == g.start and any(halo):
-                rs = split_1d(sh, halo[0], halo[1], k, st)
-                cs = split_1d(sw, halo[2], halo[3], k, st)
+                rs = split_1d(sh, halo[0], halo[1], k_, st)
+                cs = split_1d(sw, halo[2], halo[3], k_, st)
                 if rs is None or cs is None:
                     pieces = [("whole", (tiles, eh, ew))]
                 else:
-                    mid_h = (rs.i1 - rs.i0) * st + k
+                    mid_h = (rs.i1 - rs.i0) * st + k_
                     pieces = [("interior", (tiles, rs.int_in_hi - rs.int_in_lo,
                                             cs.int_in_hi - cs.int_in_lo))]
                     if cs.n_lo:
-                        pieces.append(("mid_lo", (tiles, mid_h, (cs.i0 - 1) * st + k)))
+                        pieces.append(("mid_lo", (tiles, mid_h, (cs.i0 - 1) * st + k_)))
                     if cs.n_hi:
-                        pieces.append(("mid_hi", (tiles, mid_h, (cs.out - 2 - cs.i1) * st + k)))
+                        pieces.append(("mid_hi", (tiles, mid_h, (cs.out - 2 - cs.i1) * st + k_)))
                     if rs.n_lo:
-                        pieces.append(("band_lo", (tiles, (rs.i0 - 1) * st + k, ew)))
+                        pieces.append(("band_lo", (tiles, (rs.i0 - 1) * st + k_, ew)))
                     if rs.n_hi:
-                        pieces.append(("band_hi", (tiles, (rs.out - 2 - rs.i1) * st + k, ew)))
+                        pieces.append(("band_hi", (tiles, (rs.out - 2 - rs.i1) * st + k_, ew)))
             if not layer.pool:
                 out.extend(dict(layer=l, piece=piece, stride=st, x=(*x, cin),
-                                w=(k, k, cin, layer.out_channels)) for piece, x in pieces)
+                                w=(k_, k_, cin, layer.out_channels)) for piece, x in pieces)
             halo = plan.rem_halos[l]
     return out
 
@@ -542,12 +606,12 @@ def planted_faults(arch, params0, xs, ts, names, ref64, bars, normwise):
 
 
 def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
-                plant_faults: bool = True, steps: int = TRAIN_STEPS) -> dict:
-    """Phases 5, 12 and 13: train YOLOv2-16 at 416x416 on the 2x2 grid
-    through the three kernels for ``steps`` steps, under the plan
-    ``make_yolo_tiled_arch(**plan_kw)`` gives.  Prints the ``{label: ...}``
-    line; returns its numbers, with the launch count of each kernel in the
-    training run under "launches"."""
+                plant_faults: bool = True, steps: int = TRAIN_STEPS, grid=GRID) -> dict:
+    """Phases 5, 12, 13 and 14: train YOLOv2-16 at 416x416 on the ``grid``
+    (2x2 unless given) through the three kernels for ``steps`` steps, under
+    the plan ``make_yolo_tiled_arch(**plan_kw)`` gives.  Prints the
+    ``{label: ...}`` line; returns its numbers, with the launch count of
+    each kernel in the training run under "launches"."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -568,13 +632,15 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     from repro_torch.train.trainer import TrainState, make_train_step
 
     def make_arch(backend):
-        return make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
+        return make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=grid[0], m=grid[1],
                                     backend=backend, device=dev, **plan_kw)
 
     arch = make_arch("cuda")
-    print(f"{label}: schedule {arch.plan.schedule}, crossover {arch.plan.crossover}, groups "
-          f"{[(g.start, g.end, g.mode) for g in arch.plan.groups]}, group halos "
-          f"{list(arch.plan.group_halos)}")
+    print(f"{label}: grid {grid[0]}x{grid[1]}, schedule {arch.plan.schedule}, crossover "
+          f"{arch.plan.crossover}, groups {[(g.start, g.end, g.mode) for g in arch.plan.groups]}, "
+          f"group halos {list(arch.plan.group_halos)}, tile rows {arch.plan.tile_rows[0]} cols "
+          f"{arch.plan.tile_cols[0]}, ragged_exec "
+          f"{None if arch.plan.is_uniform else arch.plan.ragged_exec}")
     pcfg = ParallelConfig(grad_accum=TRAIN_ACCUM)
     tcfg = TrainConfig(lr=TRAIN_LR, optimizer="sgd", warmup=0, steps=steps, seed=SEED)
     step1 = {}      # the run's own step-1 loss and gradients, as its update sees them
@@ -758,9 +824,12 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     # measured peak of all four tiles on the card, not held against it
     plan = arch.plan
     modeled = peak_device_memory(INPUT_HW, plan.layers, plan.groups, plan.n, plan.m,
-                                 batch=TRAIN_BATCH)
+                                 batch=TRAIN_BATCH, partition=plan.partition)
     med = statistics.median(step_ms)
     out = {
+        "grid": list(grid), "tile_rows": list(plan.tile_rows[0]),
+        "tile_cols": list(plan.tile_cols[0]),
+        "ragged_exec": None if plan.is_uniform else plan.ragged_exec,
         "groups": [[g.start, g.end] for g in plan.groups],
         "modes": [g.mode for g in plan.groups], "schedule": plan.schedule,
         "crossover": plan.crossover,
@@ -871,11 +940,13 @@ def serve_phase(dev, smi: str, arch, label: str, buckets, images, calib) -> dict
     return out
 
 
-def overlap_vs_sync(dev, overlap_kw: dict, sync_kw: dict) -> dict:
+def overlap_vs_sync(dev, overlap_kw: dict, sync_kw: dict, grid=GRID,
+                    names=("overlap", "sync")) -> dict:
     """Phase 13a: the overlap plan against the sync plan and the untiled
     plain reference on one microbatch of the training stream, same params:
     the training forward, the loss and its gradients, max |diff| each, held
-    to ``OVERLAP_TOL`` (``scripts/check_overlap.py``'s bar)."""
+    to ``OVERLAP_TOL`` (``scripts/check_overlap.py``'s bar).  Phase 14
+    holds a spec plan against its padded twin the same way (``names``)."""
     import torch
 
     from repro_torch.core.fusion import (
@@ -890,8 +961,9 @@ def overlap_vs_sync(dev, overlap_kw: dict, sync_kw: dict) -> dict:
 
     mb = TRAIN_BATCH // TRAIN_ACCUM
     res = {}
-    for name, kw in (("overlap", overlap_kw), ("sync", sync_kw)):
-        arch = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
+    first, second = names
+    for name, kw in ((first, overlap_kw), (second, sync_kw)):
+        arch = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=grid[0], m=grid[1],
                                     backend="cuda", device=dev, **kw)
         params = arch.init(SEED)
         batch = make_batch_fn(mb, INPUT_HW[0], arch.target_shape(mb), SEED, dev)(0)
@@ -901,7 +973,7 @@ def overlap_vs_sync(dev, overlap_kw: dict, sync_kw: dict) -> dict:
         loss = make_tiled_loss(arch.plan, arch.mesh, l2_loss_local)(live, batch["x"], batch["t"])
         grads = torch.autograd.grad(loss, tree_leaves(live))
         res[name] = (y, float(loss.detach()), grads)
-        if name == "sync":
+        if name == second:
             plan = dataclasses.replace(arch.plan, backend="torch")
             live = [{k: v.detach().requires_grad_(True) for k, v in p.items()} for p in params]
             rloss = reference_loss(live, batch["x"], batch["t"], plan, l2_loss_local)
@@ -910,15 +982,15 @@ def overlap_vs_sync(dev, overlap_kw: dict, sync_kw: dict) -> dict:
                 ry = reference_forward(params, batch["x"], plan)
             res["reference"] = (ry, float(rloss), rgrads)
     out = {}
-    y_o, l_o, g_o = res["overlap"]
-    for other in ("sync", "reference"):
+    y_o, l_o, g_o = res[first]
+    for other in (second, "reference"):
         y, l, g = res[other]
         d = {"forward": float((y_o - y).abs().max()), "loss": abs(l_o - l),
              "grads": max(float((a - b).abs().max()) for a, b in zip(g_o, g))}
-        print(f"overlap vs {other}: max |diff| forward {d['forward']:.3e}, loss {d['loss']:.3e}, "
+        print(f"{first} vs {other}: max |diff| forward {d['forward']:.3e}, loss {d['loss']:.3e}, "
               f"grads {d['grads']:.3e} (bar {OVERLAP_TOL})")
         for k, bar in OVERLAP_TOL.items():
-            check(d[k] <= bar, f"overlap vs {other}: {k} differs by {d[k]} > {bar}")
+            check(d[k] <= bar, f"{first} vs {other}: {k} differs by {d[k]} > {bar}")
         out[other] = d
     return out
 
@@ -2018,7 +2090,9 @@ def main() -> int:
         "bucket_census": report.bucket_census, "deadline_misses": report.deadline_misses,
         "bucket8_forward_ms": fwd_ms, "bucket8_dispatch_ms": step_s * 1e3,
         "bucket8_device_ms": dev_ms, "bucket8_kernel_ms": kernel_ms, "max_abs_err": e2e_err,
-        "launches": launches, "b1_launches_by_instance": b1_instances, "card": smi,
+        "bucket8_idle_share": max(0.0, 1 - dev_ms / prof_wall_ms),
+        "launches": launches, "launches_per_dispatch": N_CONVS,
+        "b1_launches_by_instance": b1_instances, "card": smi,
     }
     print(json.dumps({"serve": serve4}))
     train5 = train_phase(dev, smi, dict(groups=groups))
@@ -2342,6 +2416,141 @@ def main() -> int:
                                         + launcher13_serve)
     auto_launches = {k: v + phase13_launches[k] for k, v in auto_launches.items()}
     print(json.dumps({"phase13_launches": phase13_launches}))
+    held_b1 |= set(new_fwd) | set(new_tr)
+    held_bwd |= set(new_tr)
+
+    # -- 14. non-uniform tile partitions on the card ----------------------------
+    # every phase-14 plan, spec and padded: its groups and the code's launch
+    # counts per dispatch / microbatch (RAGGED_LAUNCHES, written down before
+    # the first card run)
+    kw14, plans14 = {}, {}
+    for name, (g14, groups14, extra, want_groups) in RAGGED_PLANS_416.items():
+        for ex in ("spec", "padded"):
+            kw = dict(extra, ragged_exec=ex,
+                      groups=groups14 if groups14 == "auto" else [Group(*x) for x in groups14])
+            p = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=g14, m=g14, backend="cuda",
+                                     device=dev, **kw).plan
+            got = [(x.start, x.end, x.mode) for x in p.groups]
+            per_mb, _ = launches_per_batch(p, 1)
+            print(f"phase 14 plan {name} {ex}: grid {g14}x{g14}, groups {got}, tile rows "
+                  f"{p.tile_rows[0]} -> {p.tile_rows[12]}, cols {p.tile_cols[0]} -> "
+                  f"{p.tile_cols[12]}, launches a dispatch / microbatch {per_mb}")
+            check(not p.is_uniform and p.ragged_exec == ex, f"{name} {ex}: not a ragged plan")
+            check(got == [tuple(x) for x in want_groups], f"{name} {ex}: groups {got}")
+            check(per_mb == RAGGED_LAUNCHES[name][ex],
+                  f"{name} {ex}: launches {per_mb} != {RAGGED_LAUNCHES[name][ex]}")
+            kw14[(name, ex)], plans14[(name, ex)] = ((g14, g14), kw), p
+
+    def arch14(key):
+        grid14, kw = kw14[key]
+        return make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=grid14[0], m=grid14[1],
+                                    backend="cuda", device=dev, **kw)
+
+    # (a) the 3x3 grid, hand-picked groups, spec and padded trained and
+    # served; (b) the pi3x3+jetson cluster on 2x2 (groups="auto"), spec
+    # trained and both served, and its crossover=14 twin trained one step.
+    # Each spec plan is held to its padded twin and the untiled reference on
+    # one microbatch first.
+    vs14, train14, serve14 = {}, {}, {}
+    for name, execs in (("grid3", ("spec", "padded")), ("cluster", ("spec",))):
+        vs14[name] = overlap_vs_sync(dev, kw14[(name, "spec")][1], kw14[(name, "padded")][1],
+                                     grid=kw14[(name, "spec")][0], names=("spec", "padded"))
+        for ex in execs:
+            grid14, kw = kw14[(name, ex)]
+            r = train_phase(dev, smi, kw, label=f"train_ragged_{name}_{ex}", plant_faults=False,
+                            grid=grid14)
+            check(r["launches_per_microbatch"] == RAGGED_LAUNCHES[name][ex],
+                  f"{name} {ex}: trained with {r['launches_per_microbatch']} launches a microbatch")
+            train14[f"{name}_{ex}"] = r
+    r = train_phase(dev, smi, kw14[("cluster_crossover", "spec")][1],
+                    label="train_ragged_cluster_crossover_spec", plant_faults=False, steps=1)
+    check(r["crossover"] == 14 and r["launches_per_microbatch"]
+          == RAGGED_LAUNCHES["cluster_crossover"]["spec"], "cluster crossover twin")
+    train14["cluster_crossover_spec"] = r
+    for key in (("grid3", "spec"), ("grid3", "padded"), ("cluster", "spec"),
+                ("cluster", "padded")):
+        serve14["_".join(key)] = serve_phase(dev, smi, arch14(key), "serve_ragged_" + "_".join(key),
+                                             BUCKETS, images, calib)
+    torch.cuda.empty_cache()
+
+    # (c) the launcher, as a user runs the cluster
+    reset_counts()
+    check(train_launcher.main([
+        "--grid", "2", "--cluster", "pi3x3+jetson", "--groups", "auto",
+        "--input-hw", str(INPUT_HW[0]), "--depth", "16", "--batch", str(TRAIN_BATCH),
+        "--grad-accum", str(TRAIN_ACCUM), "--steps", "1"]) == 0, "train launcher, pi3x3+jetson")
+    launcher14 = {f.__name__: f.launches for f in (conv2d_tile, conv2d_dgrad_tile,
+                                                   conv2d_wgrad_tile)}
+    want = {k: v * TRAIN_ACCUM for k, v in RAGGED_LAUNCHES["cluster"]["spec"].items()}
+    print(f"phase-14 launcher (--cluster pi3x3+jetson): {launcher14}")
+    check(launcher14 == want, f"train launcher launches {launcher14} != {want}")
+
+    # (d) B1-B3 at every per-tile shape of the phase-14 plans the earlier
+    # phases did not hold: the shape classes' true extents, down to the 1x1
+    # corner tiles' 3x3 windows, and the padded plans' canonical extents
+    new_fwd14 = {shape_key(s): s for key in (("grid3", "spec"), ("grid3", "padded"),
+                                            ("cluster", "spec"), ("cluster", "padded"))
+                 for s in conv_shapes(plans14[key], max(BUCKETS)) if shape_key(s) not in held_b1}
+    new_tr14 = {shape_key(s): s for key in (("grid3", "spec"), ("grid3", "padded"),
+                                           ("cluster", "spec"), ("cluster_crossover", "spec"))
+                for s in conv_shapes(plans14[key], TRAIN_BATCH // TRAIN_ACCUM)
+                if shape_key(s) not in held_bwd}
+    print(f"phase 14 plans: {len(new_fwd14)} new bucket-8 forward shapes, {len(new_tr14)} new "
+          f"microbatch-4 shapes")
+    check(new_fwd14 and new_tr14, "the phase-14 plans give B1-B3 no new shape")
+    fwd14 = [dict(fwd_row(s), piece=s["piece"]) for s in new_fwd14.values()]
+    err14 = max([r["max_abs_err"] for r in fwd14]
+                + [fwd_check(s) for k, s in new_tr14.items() if k not in held_b1 | set(new_fwd14)])
+    bwd14 = [bwd_rows(s) for s in new_tr14.values()]
+    dgrad14 = [d for d, _ in bwd14 if d]
+    wgrad14 = [w for _, w in bwd14]
+    kernel_ms14 = {}
+    for rows14, what in ((fwd14, "conv2d_tile"), (dgrad14, "conv2d_dgrad_tile"),
+                         (wgrad14, "conv2d_wgrad_tile")):
+        kernel_ms14[what] = {k: sum(r[k] for r in rows14)
+                             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"{what} at the {len(rows14)} new phase-14 shapes: kernel "
+              f"{kernel_ms14[what]['ms']:.4f} ms, cudnn {kernel_ms14[what]['library_ms']:.4f} ms, "
+              f"plain {kernel_ms14[what]['plain_ms']:.4f} ms, bound "
+              f"{kernel_ms14[what]['bound_ms']:.4f} ms")
+    print(json.dumps({"phase14_conv_shapes": fwd14}))
+    print(json.dumps({"phase14_dgrad_shapes": dgrad14}))
+    print(json.dumps({"phase14_wgrad_shapes": wgrad14}))
+    serve_err = max(serve_err, err14)
+    dgrad_err = max([dgrad_err] + [r["max_abs_err"] for r in dgrad14])
+    wgrad_err = max([wgrad_err] + [r["max_abs_err"] for r in wgrad14])
+
+    # (e) the {"ragged": ...} line: each plan beside phase 5's uniform 2x2
+    # plan from this run, with the conv work each plan's calls carry
+    def conv_work(plan):
+        return sum(conv_flops(c["x"], c["w"], c["stride"])
+                   for c in conv_shapes(plan, TRAIN_BATCH // TRAIN_ACCUM))
+
+    work5 = conv_work(make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
+                                           groups=groups, backend="cuda", device=dev).plan)
+    summary14 = ("grid", "tile_rows", "tile_cols", "ragged_exec", "groups", "modes",
+                 "crossover", "step_ms_cuda_events_median", "step_ms_host_median", "device_ms",
+                 "device_ms_by_kernel", "idle_share", "peak_mem_bytes", "launches_per_microbatch")
+    ragged = {"uniform_2x2_phase5": dict({k: train5.get(k) for k in summary14},
+                                         conv_flops_per_microbatch=work5)}
+    for label, r in train14.items():
+        name, ex = label.rsplit("_", 1)
+        work = conv_work(plans14[(name, ex)])
+        ragged[label] = dict({k: r.get(k) for k in summary14}, conv_flops_per_microbatch=work,
+                             conv_flops_vs_uniform=work / work5)
+    serve_keys = ("p50_ms", "p99_ms", "img_per_s", "bucket8_forward_ms", "bucket8_dispatch_ms",
+                  "bucket8_device_ms", "bucket8_idle_share", "launches_per_dispatch")
+    print(json.dumps({"ragged": {
+        "train": ragged,
+        "serve": {"uniform_2x2_phase4": {k: serve4.get(k) for k in serve_keys},
+                  **{k: {x: v[x] for x in serve_keys} for k, v in serve14.items()}},
+        "spec_vs_padded_max_abs_diff": vs14, "kernel_ms_new_shapes": kernel_ms14, "card": smi,
+    }}))
+    phase14_launches = {k: sum(r["launches"][k] for r in train14.values()) + launcher14[k]
+                        for k in launcher14}
+    phase14_launches["conv2d_tile"] += sum(r["launches"] for r in serve14.values())
+    auto_launches = {k: v + phase14_launches[k] for k, v in auto_launches.items()}
+    print(json.dumps({"phase14_launches": phase14_launches}))
 
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",

@@ -1,10 +1,13 @@
 """Fused, grouped execution stacks (paper §4.2) on the virtual tile mesh.
 
-The uniform-partition subset of ``repro/core/fusion.py``: the planner for
-explicit, absent or cost-model-chosen groupings (``groups="auto"`` over a
-hardware profile or cluster, ``core/grouping.py``) and spatial->data
-crossovers (``crossover=``, DESIGN.md §7), the executor under the sync and
-overlap schedules (DESIGN.md §5), the forward / inference wrappers that
+The port of ``repro/core/fusion.py`` without pipeline tails and wire
+codecs: the planner for explicit, absent or cost-model-chosen groupings
+(``groups="auto"`` over a hardware profile or cluster, ``core/grouping.py``),
+spatial->data crossovers (``crossover=``, DESIGN.md §7) and explicit or
+cluster-balanced tile partitions (``partition=``, DESIGN.md §8), the
+executor under the sync and overlap schedules (DESIGN.md §5) and, for
+non-uniform partitions, the shape-specialised and padded ragged executors
+(``ragged_exec=``, DESIGN.md §8-9), the forward / inference wrappers that
 split a global batch into tiles and assemble the global output, and the
 training entry points - the tiled loss and the deferred-aggregation
 gradient step.  A group exchanges halos once at its input; inside it every
@@ -45,13 +48,21 @@ from repro_torch.core.grouping import (
     profile_cost,
     score_profile,
 )
-from repro_torch.core.halo import halo_exchange_2d
+from repro_torch.core.halo import (
+    _switch_by_size,
+    halo_exchange_2d,
+    halo_exchange_2d_ragged,
+    halo_exchange_2d_spec,
+)
 from repro_torch.core.spatial import (
     LayerDef,
     apply_group_lead_overlap,
     apply_layer_data,
     apply_layer_local,
+    apply_layer_local_ragged,
+    apply_layer_local_spec,
     reshard_spatial_to_data,
+    reshard_spatial_to_data_ragged,
     stack_reference,
 )
 from repro_torch.core.tiling import (
@@ -65,7 +76,7 @@ from repro_torch.core.tiling import (
     pipeline_first_of,
     validate_profile,
 )
-from repro_torch.launch.mesh import TileMesh
+from repro_torch.launch.mesh import TileMesh, plan_constant
 from repro_torch.optim.compression import get_codec
 
 
@@ -75,9 +86,9 @@ class StackPlan:
 
     The fields are the reference's, so ``plan_manifest`` describes a port
     plan exactly as it describes the JAX plan with the same knobs.  The port
-    builds uniform plans without pipeline tails or wire codecs: ``stages``
-    is empty and ``wire_codec`` "none".  Past a crossover the per-layer
-    tile extents are the full maps."""
+    builds plans without pipeline tails or wire codecs: ``stages`` is empty
+    and ``wire_codec`` "none".  ``shard_hw`` is the largest tile per layer;
+    past a crossover the per-layer tile extents are the full maps."""
 
     layers: tuple[LayerDef, ...]
     groups: tuple[Group, ...]
@@ -244,6 +255,7 @@ def build_stack_plan(
     crossover: int | str | None = None,
     mem_limit: float | None = None,
     partition: TilePartition | None = None,
+    ragged_exec: str = "spec",
     pipeline: int | str | None = None,
     microbatches: int = PIPELINE_MICROBATCHES,
     wire_codec: str = "none",
@@ -270,15 +282,25 @@ def build_stack_plan(
     cost model choose, jointly with the grouping under ``groups="auto"``,
     else among the given profile's boundaries.  Data-mode layers hold full
     maps, so only the spatial prefix must divide over the grid.
+    partition (DESIGN.md §8): explicit input-level ``TilePartition`` boundary
+    arrays.  None derives one: the FLOPs-balanced partition when ``hw`` is a
+    ClusterSpec (or a cluster spec string like ``"pi3x3+jetson"``), else the
+    stride-aligned ragged-even split, which is the uniform grid whenever the
+    extents divide.  Non-uniform partitions run the shape-specialised
+    executor (``ragged_exec="spec"``, DESIGN.md §9: one conv per distinct
+    tile shape over the true extents) or the padded one (``"padded"``,
+    DESIGN.md §8: one conv over every tile padded to the largest); either
+    runs the sync exchange, whatever ``schedule`` says.
     inference: plan a forward-only serve step (BN from frozen statistics).
 
     What the reference also plans, the port's executor cannot run yet; the
     planner raises ``NotImplementedError`` naming the ROADMAP item:
-    non-uniform partitions (A.12, also from a heterogeneous cluster),
     pipelines (A.13) and wire codecs (A.14)."""
     get_conv_backend(backend)   # fail fast on unknown backends
     if schedule not in ("sync", "overlap", "auto"):
         raise ValueError(f"schedule must be 'sync', 'overlap', or 'auto'; got {schedule!r}")
+    if ragged_exec not in ("spec", "padded"):
+        raise ValueError(f"ragged_exec must be 'spec' or 'padded'; got {ragged_exec!r}")
     if block_oh is not None and block_oh < 1:
         raise ValueError(f"block_oh must be a positive int or None; got {block_oh!r}")
     get_codec(wire_codec)   # fail fast on bad codec specs (none | int8 | topk:<k>)
@@ -364,12 +386,7 @@ def build_stack_plan(
         partition = TilePartition(row_bounds[0], col_bounds[0])
     tile_rows = [bounds_sizes(b) for b in row_bounds]
     tile_cols = [bounds_sizes(b) for b in col_bounds]
-    if any(len(set(r)) > 1 for r in tile_rows) or any(len(set(c)) > 1 for c in tile_cols):
-        raise NotImplementedError(
-            f"non-uniform tile partition (rows {tile_rows[0]}, cols {tile_cols[0]} "
-            "or deeper layers): ROADMAP A.12 (non-uniform partitions)"
-        )
-    shard_hw = [(r[0], c[0]) for r, c in zip(tile_rows, tile_cols)]
+    shard_hw = [(max(r), max(c)) for r, c in zip(tile_rows, tile_cols)]
     for li in range(last + 1, len(layers) + 1):
         h, w = map_hw[li]
         tile_rows.append((h,) * n)
@@ -397,8 +414,9 @@ def build_stack_plan(
             hh += q * sprod
             sprod *= layers[l].stride
         group_halos.append((hl, hh, hl, hh))
-        # The exchange ships at most one neighbour strip per side.
-        if tile_rows[g.start][0] < max(hl, hh) or tile_cols[g.start][0] < max(hl, hh):
+        # The exchange ships at most one neighbour strip per side, so the
+        # group halo must fit inside the smallest neighbouring tile.
+        if min(tile_rows[g.start]) < max(hl, hh) or min(tile_cols[g.start]) < max(hl, hh):
             raise ValueError(
                 f"group ({g.start}, {g.end}) halo ({hl}, {hh}) exceeds the "
                 f"smallest tile of partition rows={tile_rows[g.start]} "
@@ -434,6 +452,7 @@ def build_stack_plan(
         partition=partition,
         tile_rows=tuple(tile_rows),
         tile_cols=tuple(tile_cols),
+        ragged_exec=ragged_exec,
         inference=inference,
     )
 
@@ -470,6 +489,127 @@ def plan_manifest(plan: StackPlan, cluster: ClusterSpec | None = None) -> dict:
     }
 
 
+def _ragged_group_geom(plan: StackPlan, gi: int) -> dict:
+    """Static geometry of one spatial group of a ragged plan (DESIGN.md §8):
+    the canonical (padded) extended extents per layer.
+
+    For layer k of the group (input halos (lo, hi), output halos (lo', hi'))
+    a tile's valid extended input occupies rows ``[0, lo + own + hi)`` of the
+    padded layout and its valid outputs rows ``[0, lo' + own' + hi')``.  The
+    canonical input extent covers both the largest valid window and the
+    largest window any tile's valid outputs read, ``(max_valid_out - 1) *
+    stride + kernel`` (the last tile's off-map reach can pass its valid
+    input rows; those reads hit zeros, the global SAME padding)."""
+    g = plan.groups[gi]
+    halos = [plan.group_halos[gi]] + [plan.rem_halos[l] for l in g.layers]
+    ein = []
+    for k, l in enumerate(g.layers):
+        top, bottom, left, right = halos[k]
+        ntop, nbot, nleft, nright = halos[k + 1]
+        ker, s = plan.layers[l].kernel, plan.layers[l].stride
+        rows = max(
+            max(plan.tile_rows[l]) + top + bottom,
+            max((ntop + r + nbot - 1) * s + ker for r in plan.tile_rows[l + 1]),
+        )
+        cols = max(
+            max(plan.tile_cols[l]) + left + right,
+            max((nleft + c + nright - 1) * s + ker for c in plan.tile_cols[l + 1]),
+        )
+        ein.append((rows, cols))
+    # the canonical output of layer k is the input of layer k+1; the group's
+    # output is the padded core (the next group exchanges its own halos)
+    eout = ein[1:] + [(max(plan.tile_rows[g.end + 1]), max(plan.tile_cols[g.end + 1]))]
+    return {"ein": ein, "eout": eout, "halos": halos}
+
+
+def _offsets(sizes: tuple[int, ...]) -> tuple[int, ...]:
+    out, acc = [], 0
+    for s in sizes:
+        out.append(acc)
+        acc += s
+    return tuple(out)
+
+
+def _apply_group_ragged(x: torch.Tensor, params: Sequence[dict], plan: StackPlan, gi: int, *,
+                        batch_global: int) -> torch.Tensor:
+    """One spatial group of a ragged plan under the padded executor
+    (DESIGN.md §8).  ``x`` enters as the padded core ``(n, m, b, Hmax, Wmax,
+    c)``, pad slots zero; the padded exchange assembles the canonical
+    extended tiles, then every layer runs conv -> refit -> mask
+    (``apply_layer_local_ragged``), one conv call per layer for all tiles,
+    restoring the padded-tile invariant for the next layer and group."""
+    g = plan.groups[gi]
+    geom = _ragged_group_geom(plan, gi)
+    x = halo_exchange_2d_ragged(x, plan.group_halos[gi], plan.tile_rows[g.start],
+                                plan.tile_cols[g.start], out_extents=geom["ein"][0])
+    for k, l in enumerate(g.layers):
+        rows, cols = plan.tile_rows[l + 1], plan.tile_cols[l + 1]
+        x = apply_layer_local_ragged(
+            x,
+            params[l],
+            plan.layers[l],
+            out_halo=geom["halos"][k + 1],
+            out_size=(rows, cols),
+            out_off=(_offsets(rows), _offsets(cols)),
+            canon_out_hw=geom["eout"][k],
+            map_out_hw=plan.map_hw[l + 1],
+            backend=plan.backend,
+            block_oh=plan.block_oh,
+            inference=plan.inference,
+            batch_global=batch_global,
+        )
+    return x
+
+
+def _apply_group_spec(x: torch.Tensor, params: Sequence[dict], plan: StackPlan, gi: int, *,
+                      batch_global: int) -> torch.Tensor:
+    """One spatial group of a ragged plan under the shape-specialised
+    executor (DESIGN.md §9).  The tile shapes are deduplicated at the group
+    input (``_switch_by_size``: stride alignment makes the group-start size
+    the complete per-axis key, so a 3x3 grid of (144, 144, 128) rows and
+    columns has 4 classes, not 9), and every layer runs one conv per class
+    on the class's true extents (``apply_layer_local_spec``).  The spec
+    exchange reads valid windows only; pad slots past a class's window are
+    never read, so only the off-map rim is masked mid-group."""
+    g = plan.groups[gi]
+    geom = _ragged_group_geom(plan, gi)
+    x = halo_exchange_2d_spec(x, plan.group_halos[gi], plan.tile_rows[g.start],
+                              plan.tile_cols[g.start], out_extents=geom["ein"][0])
+    classes = _switch_by_size(plan.tile_rows[g.start], plan.tile_cols[g.start])
+    # cumulative stride products: group-start sizes over cum[k] are the
+    # layer-k tile sizes (exact by stride alignment)
+    cum = [1]
+    for l in g.layers:
+        cum.append(cum[-1] * plan.layers[l].stride)
+    for k, l in enumerate(g.layers):
+        top, bottom, left, right = geom["halos"][k]
+        ntop, nbot, nleft, nright = geom["halos"][k + 1]
+        class_io = tuple(
+            ((top + r0 // cum[k] + bottom, left + c0 // cum[k] + right),
+             (ntop + r0 // cum[k + 1] + nbot, nleft + c0 // cum[k + 1] + nright))
+            for (r0, c0), _ in classes
+        )
+        mask = (l != g.end) and any(geom["halos"][k + 1])
+        out_off = (_offsets(plan.tile_rows[l + 1]), _offsets(plan.tile_cols[l + 1]))
+        x = apply_layer_local_spec(
+            x,
+            params[l],
+            plan.layers[l],
+            classes=[tiles for _, tiles in classes],
+            class_io=class_io,
+            out_halo=geom["halos"][k + 1],
+            canon_out_hw=geom["eout"][k],
+            map_out_hw=plan.map_hw[l + 1],
+            out_off=out_off if mask else None,
+            mask_offmap=mask,
+            backend=plan.backend,
+            block_oh=plan.block_oh,
+            inference=plan.inference,
+            batch_global=batch_global,
+        )
+    return x
+
+
 def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan) -> torch.Tensor:
     """Forward through all groups on tiles ``x`` = (n, m, b, h/n, w/m, c).
 
@@ -483,16 +623,24 @@ def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan) 
     (``apply_layer_data``), so a hybrid plan returns
     ``(n, m, b/(n*m), OH, OW, C)``.  Training BN averages over the b
     images of the map on both sides of the crossover (the virtual mesh has
-    no batch axis, so b is the entry batch)."""
-    if not plan.is_uniform:
-        raise NotImplementedError(
-            "apply_stack_local runs uniform plans only (ROADMAP A.12)"
-        )
+    no batch axis, so b is the entry batch).
+
+    Non-uniform partitions: ``x`` is the padded layout ``(n, m, b, Hmax,
+    Wmax, c)`` and every spatial group runs the shape-specialised executor
+    (``_apply_group_spec``) or, when ``plan.ragged_exec == "padded"``, the
+    padded one (``_apply_group_ragged``), both with the sync exchange
+    whatever the schedule; the crossover goes through the ragged reshard.
+    Uniform plans take exactly the path they took before partitions."""
     bg = x.shape[2]
+    uniform = plan.is_uniform
     for gi, g in enumerate(plan.groups):
         if g.mode == "data":
             if gi == 0 or plan.groups[gi - 1].mode != "data":
-                x = reshard_spatial_to_data(x)
+                if uniform:
+                    x = reshard_spatial_to_data(x)
+                else:
+                    x = reshard_spatial_to_data_ragged(x, plan.tile_rows[g.start],
+                                                       plan.tile_cols[g.start])
             for l in g.layers:
                 x = apply_layer_data(
                     x,
@@ -504,6 +652,10 @@ def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan) 
                     block_oh=plan.block_oh,
                     inference=plan.inference,
                 )
+            continue
+        if not uniform:
+            group_fn = _apply_group_spec if plan.ragged_exec == "spec" else _apply_group_ragged
+            x = group_fn(x, params, plan, gi, batch_global=bg)
             continue
         layers = list(g.layers)
         if plan.schedule == "overlap" and any(plan.group_halos[gi]):
@@ -539,14 +691,72 @@ def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan) 
     return x
 
 
+def _in_split(plan: StackPlan, mesh: TileMesh):
+    """Global (B, H, W, C) -> the executor's input tiles: uniform tiles, or
+    the padded layout of the plan's input partition (``TileMesh.split``)."""
+    if plan.is_uniform:
+        return mesh.split
+    return lambda x: mesh.split(x, plan.tile_rows[0], plan.tile_cols[0])
+
+
 def _out_spec(plan: StackPlan, mesh: TileMesh):
     """Output layout of the executor, as ``(split, merge)`` between global
     (B, OH, OW, C) arrays and the executor's output tensor: spatial tiles
-    for all-spatial plans; batch blocks of full maps after a crossover
-    (tile (i, j) holds block i*m + j, ``TileMesh.split_batch``)."""
-    if plan.crossover is None:
+    for all-spatial plans (padded by the output partition on a ragged one);
+    batch blocks of full maps after a crossover (tile (i, j) holds block
+    i*m + j, ``TileMesh.split_batch``)."""
+    if plan.crossover is not None:
+        return mesh.split_batch, mesh.merge_batch
+    if plan.is_uniform:
         return mesh.split, mesh.merge
-    return mesh.split_batch, mesh.merge_batch
+    rows, cols = plan.tile_rows[-1], plan.tile_cols[-1]
+    return (lambda t: mesh.split(t, rows, cols)), (lambda y: mesh.merge(y, rows, cols))
+
+
+def _spec_core_loss(y: torch.Tensor, t_tiles: torch.Tensor, plan: StackPlan, loss_local):
+    """The loss of a spec plan's output (DESIGN.md §9): per output shape
+    class, its tiles' valid cores and their spans of the target (``t_tiles``,
+    the target packed by the output partition), through ``loss_local`` on
+    the TRUE extents - exact sums and exact counts, with no validity mask
+    and no count rescale.  The reference slices one tile per ``lax.switch``
+    branch; here each class's tiles go through ``loss_local`` together."""
+    n, m = y.shape[:2]
+    yf = y.reshape(n * m, *y.shape[2:])
+    tf = t_tiles.reshape(n * m, *t_tiles.shape[2:])
+    s = c = 0.0
+    for (r, w), tiles in _switch_by_size(plan.tile_rows[-1], plan.tile_cols[-1]):
+        idx = plan_constant(tuple(tiles), y.device)
+        yc = yf[:, :, :r, :w].index_select(0, idx)[None]
+        tc = tf[:, :, :r, :w].index_select(0, idx)[None]
+        sk, ck = loss_local(yc, tc)
+        s, c = s + sk, c + ck
+    return s, c
+
+
+def _ragged_count_scale(plan: StackPlan) -> float:
+    """The valid share of the padded output tiles - scales ``loss_local``'s
+    element count under the padded executor (pad slots hold y = t = 0, so
+    the sum is already exact; only the count over-reads).  Needs a count
+    proportional to the element count, as ``l2_loss_local``'s is."""
+    rows, cols = plan.tile_rows[-1], plan.tile_cols[-1]
+    return (sum(rows) * sum(cols)) / float(plan.n * plan.m * max(rows) * max(cols))
+
+
+def _tiles_loss(plan: StackPlan, mesh: TileMesh, loss_local):
+    """``(y, target) -> (sum, count)`` of the executor's output ``y``
+    against a global target, in the plan's output layout."""
+    split_out, _ = _out_spec(plan, mesh)
+    spec = not plan.is_uniform and plan.ragged_exec == "spec" and plan.crossover is None
+    padded = not plan.is_uniform and plan.ragged_exec == "padded" and plan.crossover is None
+
+    def fn(y, target):
+        t = split_out(torch.as_tensor(target, device=mesh.device))
+        if spec:
+            return _spec_core_loss(y, t, plan, loss_local)
+        s, c = loss_local(y, t)
+        return (s, c * _ragged_count_scale(plan)) if padded else (s, c)
+
+    return fn
 
 
 def _check_data_batch(plan: StackPlan, batch: int) -> None:
@@ -569,9 +779,12 @@ def make_tiled_forward(plan: StackPlan, mesh: TileMesh):
     ``apply_stack_local`` (one kernel launch per conv call for all tiles);
     the global output is assembled from the plan's output layout
     (``_out_spec``): row-major tiles, or a hybrid plan's batch blocks in
-    block order, so either way it is (B, OH, OW, C) in input order."""
+    block order, so either way it is (B, OH, OW, C) in input order.  A
+    ragged plan packs the input into its padded tiles and unpacks each
+    output tile's valid window."""
     if (mesh.n, mesh.m) != (plan.n, plan.m):
         raise ValueError(f"mesh grid {(mesh.n, mesh.m)} != plan grid {(plan.n, plan.m)}")
+    split = _in_split(plan, mesh)
     _, merge = _out_spec(plan, mesh)
 
     def fwd(params, x):
@@ -582,7 +795,7 @@ def make_tiled_forward(plan: StackPlan, mesh: TileMesh):
                 f"{plan.input_hw[0]}, {plan.input_hw[1]}, C)"
             )
         _check_data_batch(plan, x.shape[0])
-        return merge(apply_stack_local(params, mesh.split(x), plan))
+        return merge(apply_stack_local(params, split(x), plan))
 
     return fwd
 
@@ -598,13 +811,11 @@ def _check_not_inference(plan: StackPlan, what: str) -> None:
 
 
 def _check_trainable(plan: StackPlan) -> None:
-    """The reference's training executors beyond uniform plans (sync or
-    overlap, all-spatial or hybrid) raise here with their ROADMAP item (the planner refuses them already;
-    this guards hand-built plans)."""
+    """The reference's training executors the port lacks (pipeline tails,
+    wire codecs) raise here with their ROADMAP item (the planner refuses
+    them already; this guards hand-built plans)."""
     if plan.stages:
         raise NotImplementedError("pipeline training: ROADMAP A.13 (pipeline mode)")
-    if not plan.is_uniform:
-        raise NotImplementedError("ragged training: ROADMAP A.12 (non-uniform partitions)")
     if plan.wire_codec != "none":
         raise NotImplementedError(f"wire_codec={plan.wire_codec!r}: ROADMAP A.14 (wire codecs)")
 
@@ -618,17 +829,20 @@ def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
     reference's psums over the tiles: ``loss = sum_tiles s / sum_tiles c``,
     the untiled loss exactly.  After a crossover the target is split into
     the executor's batch blocks (``_out_spec``), as the reference binds it
-    with its data-side out-spec.  Autograd through it gives the paper's
-    tiled backward pass."""
+    with its data-side out-spec.  A ragged plan's loss is exact too: a spec
+    plan scores each output tile's true core (``_spec_core_loss``), a
+    padded plan its zero-padded tiles with the count rescaled
+    (``_ragged_count_scale``).  Autograd through it gives the paper's tiled
+    backward pass."""
     _check_not_inference(plan, "make_tiled_loss")
     _check_trainable(plan)
-    split_out, _ = _out_spec(plan, mesh)
+    split = _in_split(plan, mesh)
+    tiles_loss = _tiles_loss(plan, mesh, loss_local)
 
     def loss(params, x, target):
         x = torch.as_tensor(x, device=mesh.device)
         _check_data_batch(plan, x.shape[0])
-        y = apply_stack_local(params, mesh.split(x), plan)
-        s, c = loss_local(y, split_out(torch.as_tensor(target, device=mesh.device)))
+        s, c = tiles_loss(apply_stack_local(params, split(x), plan), target)
         return s / c
 
     return loss
@@ -657,10 +871,12 @@ def make_deferred_grad_step(
     batch dimension of every conv, so wgrad (B3 on the card) sums the
     per-tile partials inside its own reduction.  A ``torch.distributed``
     backend, one tile per device, makes that sum an explicit all-reduce
-    (later work)."""
+    (later work).  Ragged plans score each microbatch as
+    ``make_tiled_loss`` does."""
     _check_not_inference(plan, "make_deferred_grad_step")
     _check_trainable(plan)
-    split_out, _ = _out_spec(plan, mesh)
+    split = _in_split(plan, mesh)
+    tiles_loss = _tiles_loss(plan, mesh, loss_local)
 
     def step(params, xs, ts):
         xs = torch.as_tensor(xs, device=mesh.device)
@@ -676,8 +892,7 @@ def make_deferred_grad_step(
         acc = None
         loss_sum = cnt = 0.0
         for i in range(microbatches):
-            y = apply_stack_local(live, mesh.split(xs[i]), plan)
-            s, c = loss_local(y, split_out(ts[i]))
+            s, c = tiles_loss(apply_stack_local(live, split(xs[i]), plan), ts[i])
             g = torch.autograd.grad(s, leaves, allow_unused=True)
             g = [torch.zeros_like(v) if gi is None else gi for v, gi in zip(leaves, g)]
             if acc is None:

@@ -13,10 +13,20 @@ second round.  The packed exchanges of the overlap schedule return the
 received strips without attaching them, so the executor can run the
 interior conv of a group lead on owned data first (DESIGN.md §5).  Wire
 codecs (``WireCtx``) are later work (ROADMAP A.14).
+
+Non-uniform partitions (DESIGN.md §8-9) keep the tiles in a padded
+layout: every tile holds ``max(sizes)`` slots, its valid data in the first
+``sizes[i]``.  Every tile's size is a plan-time constant on the virtual
+mesh, so each ragged exchange round is ONE precomputed index gather along
+the tile dimension (``_ragged_gather``), whatever the number of tiles.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from repro_torch.launch.mesh import plan_constant
 
 
 def _shift_perm(n: int, direction: int) -> list[tuple[int, int]]:
@@ -169,3 +179,182 @@ def halo_exchange_2d_packed(
     col_lo, col_hi = halo_exchange_1d_packed(x_rows, left, right, tile_dim=tile_dims[1],
                                              dim=dims[1])
     return x_rows, col_lo, col_hi
+
+
+# ---------------------------------------------------------------------------
+# Ragged exchanges: padded layout, one index gather per round
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=256)
+def _ragged_index(
+    sizes: tuple[int, ...], halo_lo: int, halo_hi: int, ext: int, keep_pad: bool
+) -> tuple[int, ...]:
+    """Source row of every output slot of a ragged exchange round, flattened
+    over (tile, slot): tile i's ``ext`` output slots read rows of the
+    ``(n * max(sizes) + 1)``-row stack of all tiles' slots, the last row
+    being zero.  Output slots are ``[recv_lo | valid | recv_hi | tail]``:
+    recv_lo the previous tile's last ``halo_lo`` valid rows, recv_hi the
+    next tile's first ``halo_hi``, landing at ``halo_lo + sizes[i]``, both
+    zero at the ends (SAME padding).  The tail reads the tile's own pad
+    slots where ``keep_pad`` (the padded exchange: ``pad(x)`` with the
+    strips written over it), else zero (the spec exchange)."""
+    n, smax = len(sizes), max(sizes)
+    zero = n * smax
+    out = []
+    for i, s in enumerate(sizes):
+        row = [zero] * ext
+        own = smax if keep_pad else s
+        for r in range(own):
+            row[halo_lo + r] = i * smax + r
+        for r in range(halo_hi):
+            row[halo_lo + s + r] = (i + 1) * smax + r if i < n - 1 else zero
+        for r in range(halo_lo):
+            row[r] = (i - 1) * smax + sizes[i - 1] - halo_lo + r if i > 0 else zero
+        out.extend(row)
+    return tuple(out)
+
+
+def _ragged_gather(x: torch.Tensor, index: tuple[int, ...], ext: int, *, tile_dim: int,
+                   dim: int) -> torch.Tensor:
+    """Rows of ``x`` picked by a flat ``(tile, slot)`` index (``_ragged_index``)
+    along ``tile_dim`` x ``dim``: one ``index_select`` over all tiles, whose
+    autograd adjoint is the scatter-add the reference's AD derives for its
+    strips."""
+    xt = x.movedim((tile_dim, dim), (0, 1))
+    n, smax, rest = xt.shape[0], xt.shape[1], xt.shape[2:]
+    flat = xt.reshape(n * smax, *rest)
+    flat = torch.cat([flat, flat.new_zeros((1, *rest))])
+    out = flat.index_select(0, plan_constant(index, x.device)).reshape(n, ext, *rest)
+    return out.movedim((0, 1), (tile_dim, dim))
+
+
+def _ragged_round(x, halo_lo, halo_hi, sizes, *, tile_dim, dim, out_extent, keep_pad, what):
+    smax = max(sizes)
+    if x.shape[dim] != smax or x.shape[tile_dim] != len(sizes):
+        raise ValueError(
+            f"{what} exchange expects {len(sizes)} tiles of padded extent {smax} on "
+            f"dims ({tile_dim}, {dim}); got shape {tuple(x.shape)}"
+        )
+    ext = out_extent if out_extent is not None else smax + halo_lo + halo_hi
+    if ext < halo_lo + smax + halo_hi:
+        raise ValueError(f"out_extent {ext} < {halo_lo}+{smax}+{halo_hi}")
+    if min(sizes) < max(halo_lo, halo_hi):
+        raise ValueError(
+            f"halo ({halo_lo}, {halo_hi}) exceeds the smallest tile {min(sizes)}: the "
+            "exchange ships one neighbour strip per side"
+        )
+    if halo_lo == 0 and halo_hi == 0 and ext == smax:
+        return x
+    index = _ragged_index(tuple(sizes), halo_lo, halo_hi, ext, keep_pad)
+    return _ragged_gather(x, index, ext, tile_dim=tile_dim, dim=dim)
+
+
+def halo_exchange_1d_ragged(
+    x: torch.Tensor,
+    halo_lo: int,
+    halo_hi: int,
+    sizes: tuple[int, ...],
+    *,
+    tile_dim: int,
+    dim: int,
+    out_extent: int | None = None,
+) -> torch.Tensor:
+    """Halo exchange over ragged tiles in the padded layout (DESIGN.md §8).
+
+    Tile i holds ``max(sizes)`` slots along ``dim``, valid data in
+    ``[0, sizes[i])`` and zeros beyond - the padded-tile invariant the
+    padded executor keeps.  Returns extent ``out_extent`` (default
+    ``halo_lo + max(sizes) + halo_hi``) laid out ``[recv_lo | valid |
+    recv_hi | zeros]``: the strip a tile sends up is its last ``halo_lo``
+    VALID rows, and the received hi strip lands at ``halo_lo + sizes[i]``,
+    right after the valid data.  Beyond it the tile's own (zero) pad slots
+    carry over, so pad slots stay exactly zero.  Needs ``min(sizes) >=
+    max(halo_lo, halo_hi)``."""
+    return _ragged_round(x, halo_lo, halo_hi, sizes, tile_dim=tile_dim, dim=dim,
+                         out_extent=out_extent, keep_pad=True, what="ragged")
+
+
+def halo_exchange_2d_ragged(
+    x: torch.Tensor,
+    halo: tuple[int, int, int, int],
+    row_sizes: tuple[int, ...],
+    col_sizes: tuple[int, ...],
+    *,
+    tile_dims: tuple[int, int] = (0, 1),
+    dims: tuple[int, int] = (3, 4),
+    out_extents: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """2-D padded ragged exchange: rows first, then columns over the
+    row-extended tiles, so the corners ride the second round.  Tiles of one
+    tile row share its row layout, so the column strips align."""
+    top, bottom, left, right = halo
+    oe = out_extents or (None, None)
+    y = halo_exchange_1d_ragged(x, top, bottom, row_sizes, tile_dim=tile_dims[0], dim=dims[0],
+                                out_extent=oe[0])
+    return halo_exchange_1d_ragged(y, left, right, col_sizes, tile_dim=tile_dims[1],
+                                   dim=dims[1], out_extent=oe[1])
+
+
+def _switch_by_size(row_sizes: tuple[int, ...], col_sizes: tuple[int, ...]):
+    """The shape classes of a ragged grid, as ``[((r, c), tiles), ...]``:
+    each distinct (row, col) tile extent with the flat indices ``i * m + j``
+    of its tiles, rows and columns deduplicated in first-appearance order
+    (``dedup_axis_shapes``).  The reference's ``_switch_by_size`` runs ONE
+    static program per distinct shape, chosen per device by ``lax.switch``
+    on a branch read from a static table at the traced ``axis_index``
+    (``static_table_lookup``, a one-hot sum that keeps the switch free of
+    ``dynamic_slice``).  On the virtual mesh every tile index is a Python
+    int, so both roles - a tile's class, and one program per class - are
+    this grouping: every tile of a class runs in the same call, and the
+    spec executor issues one conv per class and layer, not one per tile."""
+    from repro_torch.core.tiling import dedup_axis_shapes
+
+    rtab, runiq = dedup_axis_shapes(row_sizes)
+    ctab, cuniq = dedup_axis_shapes(col_sizes)
+    m = len(col_sizes)
+    return [
+        ((r, c), tuple(i * m + j for i in range(len(row_sizes)) for j in range(m)
+                       if rtab[i] == ri and ctab[j] == ci))
+        for ri, r in enumerate(runiq)
+        for ci, c in enumerate(cuniq)
+    ]
+
+
+def halo_exchange_1d_spec(
+    x: torch.Tensor,
+    halo_lo: int,
+    halo_hi: int,
+    sizes: tuple[int, ...],
+    *,
+    tile_dim: int,
+    dim: int,
+    out_extent: int | None = None,
+) -> torch.Tensor:
+    """Shape-specialised exchange over ragged tiles (DESIGN.md §9): the
+    contract of ``halo_exchange_1d_ragged``, except that only each tile's
+    valid rows are read - ``[recv_lo?, valid, recv_hi?]`` zero-padded to the
+    canonical extent - so whatever the spec executor leaves in a tile's pad
+    slots never reaches the result."""
+    return _ragged_round(x, halo_lo, halo_hi, sizes, tile_dim=tile_dim, dim=dim,
+                         out_extent=out_extent, keep_pad=False, what="spec")
+
+
+def halo_exchange_2d_spec(
+    x: torch.Tensor,
+    halo: tuple[int, int, int, int],
+    row_sizes: tuple[int, ...],
+    col_sizes: tuple[int, ...],
+    *,
+    tile_dims: tuple[int, int] = (0, 1),
+    dims: tuple[int, int] = (3, 4),
+    out_extents: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """2-D shape-specialised exchange: rows first, then columns over the
+    row-extended tiles (corners ride the second round)."""
+    top, bottom, left, right = halo
+    oe = out_extents or (None, None)
+    y = halo_exchange_1d_spec(x, top, bottom, row_sizes, tile_dim=tile_dims[0], dim=dims[0],
+                              out_extent=oe[0])
+    return halo_exchange_1d_spec(y, left, right, col_sizes, tile_dim=tile_dims[1], dim=dims[1],
+                                 out_extent=oe[1])

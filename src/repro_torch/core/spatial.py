@@ -20,6 +20,14 @@ Two executors beside the sync layer: the overlap schedule's group lead
 boundary strips once the strips land) and the hybrid plans' data-mode
 layers (``reshard_spatial_to_data`` turns the tile grid into batch blocks of
 full maps; ``apply_layer_data`` runs a layer on them with no exchange).
+
+Non-uniform partitions (DESIGN.md §8-9) keep the tiles in a padded layout
+``(n, m, B, Hc, Wc, C)`` - every tile at the canonical extent, its valid
+window first - and run one of two layers: the padded executor's
+(``apply_layer_local_ragged``: one conv over every padded tile, then
+validity masks that keep pad slots zero) or the shape-specialised one's
+(``apply_layer_local_spec``: one conv per tile-shape class over the tiles'
+TRUE extents).
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import torch.nn.functional as F
 from repro_torch.core.backend import ACTIVATIONS as _ACTIVATIONS
 from repro_torch.core.backend import get_conv_backend, pad_for_valid
 from repro_torch.core.halo import halo_exchange_1d_packed
+from repro_torch.launch.mesh import plan_constant, unpack_grid
 from repro_torch.core.tiling import ConvSpec
 
 # ---------------------------------------------------------------------------
@@ -353,6 +362,247 @@ def _finish_layer(
 
 
 # ---------------------------------------------------------------------------
+# Ragged (non-uniform partition) execution: padded-to-max tiles + validity
+# masks (DESIGN.md §8)
+# ---------------------------------------------------------------------------
+
+
+def _fit_extent(y: torch.Tensor, target_hw: tuple[int, int],
+                dims: tuple[int, int] = (3, 4)) -> torch.Tensor:
+    """Pad (zeros) or slice ``y`` to the canonical static extent the next
+    ragged layer expects.  Slots beyond every tile's valid count are
+    re-zeroed by the validity mask (padded) or never read (spec)."""
+    for d, tgt in zip(dims, target_hw):
+        cur = y.shape[d]
+        if cur > tgt:
+            y = y.narrow(d, 0, tgt)
+        elif cur < tgt:
+            pad = [0, 0] * (y.dim() - 1 - d) + [0, tgt - cur]
+            y = F.pad(y, pad)
+    return y
+
+
+def _axis_span(lo: int, sizes, ext: int, device) -> torch.Tensor:
+    """(tiles, ext) bool: slots ``[lo, lo + sizes[i])`` of each tile along
+    one axis."""
+    slot = torch.arange(ext, device=device)[None, :]
+    return (slot >= lo) & (slot < lo + plan_constant(tuple(sizes), device)[:, None])
+
+
+def _axis_on_map(offsets, lo: int, ext: int, extent: int, device) -> torch.Tensor:
+    """(tiles, ext) bool: slots whose global position ``offsets[i] - lo +
+    slot`` lies inside the map ``[0, extent)``."""
+    g = plan_constant(tuple(offsets), device)[:, None] - lo + torch.arange(ext, device=device)
+    return (g >= 0) & (g < extent)
+
+
+def _grid_mask(r: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    return (r[:, None, :, None] & c[None, :, None, :]).to(torch.float32)
+
+
+def _ragged_mask(
+    ext_h: int,
+    ext_w: int,
+    halo: tuple[int, int, int, int],
+    out_size: tuple[tuple[int, ...], tuple[int, ...]],
+    out_off: tuple[tuple[int, ...], tuple[int, ...]],
+    map_hw: tuple[int, int],
+    device=None,
+) -> torch.Tensor:
+    """(n, m, ext_h, ext_w) 0/1 mask over ragged tiles' canonical extended
+    output.  A slot survives iff it is inside its tile's valid window (rows
+    ``[0, top + own_i + bottom)``, the rest being pad slots) and inside the
+    true map (the off-map clause of ``_offmap_mask``, with the tile origin
+    read from the boundary table).  Zeroing both restores the padded-tile
+    invariant - pad slots exactly zero - that the exchange, BN statistics,
+    loss sums and the weight-gradient partial sums rely on."""
+    top, bottom, left, right = halo
+    r = (_axis_span(0, [top + s + bottom for s in out_size[0]], ext_h, device)
+         & _axis_on_map(out_off[0], top, ext_h, map_hw[0], device))
+    c = (_axis_span(0, [left + s + right for s in out_size[1]], ext_w, device)
+         & _axis_on_map(out_off[1], left, ext_w, map_hw[1], device))
+    return _grid_mask(r, c)
+
+
+def _core_mask_ragged(
+    ext_h: int,
+    ext_w: int,
+    halo: tuple[int, int, int, int],
+    out_size: tuple[tuple[int, ...], tuple[int, ...]],
+    device=None,
+) -> torch.Tensor:
+    """(n, m, ext_h, ext_w) core (owned) region of ragged halo-extended
+    tiles: rows ``[top, top + own_i)``, cols ``[left, left + own_j)``."""
+    return _grid_mask(_axis_span(halo[0], out_size[0], ext_h, device),
+                      _axis_span(halo[2], out_size[1], ext_w, device))
+
+
+def apply_layer_local_ragged(
+    x: torch.Tensor,
+    params: dict,
+    layer: LayerDef,
+    *,
+    out_halo: tuple[int, int, int, int],
+    out_size: tuple[tuple[int, ...], tuple[int, ...]],
+    out_off: tuple[tuple[int, ...], tuple[int, ...]],
+    canon_out_hw: tuple[int, int],
+    map_out_hw: tuple[int, int],
+    backend: str = "torch",
+    block_oh: int | None = None,
+    inference: bool = False,
+    batch_global: int | None = None,
+) -> torch.Tensor:
+    """One layer of ragged tiles in the padded layout ``(n, m, B, Hc, Wc,
+    C)`` (valid window ``[0, lo + own + hi)``, zeros beyond): ONE conv over
+    every padded tile - a valid output's window reads only valid or
+    correctly zero slots (the padded-tile invariant and stride-aligned
+    boundaries, DESIGN.md §8) - then the output is refit to the canonical
+    extent, BN takes its statistics over each tile's ragged core, and the
+    combined validity / off-map mask re-zeroes the pad slots for the next
+    layer.  ``out_size`` / ``out_off``: per-axis tile extents and map
+    offsets at the layer output."""
+    n, m, b = x.shape[:3]
+    y, fused = _conv_or_pool(x.reshape(n * m * b, *x.shape[3:]), params, layer, backend,
+                             block_oh)
+    y = _fit_extent(y.reshape(n, m, b, *y.shape[1:]), canon_out_hw)
+    eh, ew = y.shape[3], y.shape[4]
+    if layer.batch_norm and not layer.pool:
+        if inference:
+            y = _bn_infer(y, params, layer)   # elementwise; pad slots re-zeroed below
+        else:
+            bg = b if batch_global is None else batch_global
+            n_global = bg * map_out_hw[0] * map_out_hw[1]
+            mask = _core_mask_ragged(eh, ew, out_halo, out_size, y.device)
+            mask = mask[:, :, None, :, :, None].to(y.dtype)
+            dims = (0, 1, 2, 3, 4)
+            mean = torch.sum(y * mask, dim=dims) / n_global
+            var = torch.sum(torch.square(y) * mask, dim=dims) / n_global - torch.square(mean)
+            y = _bn_apply(y, mean, var, params["bn_scale"], params["bn_bias"])
+    if not fused:
+        y = _ACTIVATIONS[layer.act](y)
+    mask = _ragged_mask(eh, ew, out_halo, out_size, out_off, map_out_hw, y.device)
+    return y * mask[:, :, None, :, :, None].to(y.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Shape-specialised (non-uniform partition) execution: one program per
+# distinct tile shape (DESIGN.md §9)
+# ---------------------------------------------------------------------------
+
+
+def _offmap_mask_spec(
+    ext_h: int,
+    ext_w: int,
+    halo: tuple[int, int, int, int],
+    out_off: tuple[tuple[int, ...], tuple[int, ...]],
+    map_hw: tuple[int, int],
+    device=None,
+) -> torch.Tensor:
+    """(n, m, ext_h, ext_w) off-map rim mask of specialised ragged tiles:
+    ``_ragged_mask`` without the validity clause.  The spec executor never
+    reads pad slots (each consumer takes its class's valid window), so only
+    the oracle's SAME padding is left to enforce: mid-group halo slots off
+    the true map are zeroed before the next conv reads them."""
+    return _grid_mask(_axis_on_map(out_off[0], halo[0], ext_h, map_hw[0], device),
+                      _axis_on_map(out_off[1], halo[2], ext_w, map_hw[1], device))
+
+
+def _conv_or_pool_spec(
+    x: torch.Tensor,
+    params: dict,
+    layer: LayerDef,
+    backend: str,
+    block_oh: int | None,
+    out_hw: tuple[int, int],
+) -> tuple[torch.Tensor, bool]:
+    """``_conv_or_pool`` on one shape class's valid windows, held to the
+    planner's output extent.  The reference routes this call through
+    ``_conv_valid_s1`` and ``_pool_nonoverlap`` only to dodge XLA-CPU's
+    slow paths inside ``lax.switch`` branches; their semantics are the plain
+    conv's and pool's (``F.max_pool2d``'s backward, like
+    ``select_and_scatter``, sends a tied window's gradient to its first
+    maximum in row-major order), so the port calls ``_conv_or_pool``."""
+    y, fused = _conv_or_pool(x, params, layer, backend, block_oh)
+    if tuple(y.shape[1:3]) != tuple(out_hw):
+        raise AssertionError(
+            f"spec class geometry drift: conv of {tuple(x.shape[1:3])} gave "
+            f"{tuple(y.shape[1:3])}, planner said {tuple(out_hw)}"
+        )
+    return y, fused
+
+
+def apply_layer_local_spec(
+    x: torch.Tensor,
+    params: dict,
+    layer: LayerDef,
+    *,
+    classes: Sequence[tuple[int, ...]],
+    class_io: Sequence[tuple[tuple[int, int], tuple[int, int]]],
+    out_halo: tuple[int, int, int, int],
+    canon_out_hw: tuple[int, int],
+    map_out_hw: tuple[int, int],
+    out_off: tuple[tuple[int, ...], tuple[int, ...]] | None,
+    mask_offmap: bool = False,
+    backend: str = "torch",
+    block_oh: int | None = None,
+    inference: bool = False,
+    batch_global: int | None = None,
+) -> torch.Tensor:
+    """One layer of shape-specialised ragged tiles (DESIGN.md §9), the
+    counterpart of the reference's one ``lax.switch`` branch per distinct
+    (row, col) shape.  ``classes[k]`` are the flat indices ``i * m + j`` of
+    class k's tiles, ``class_io[k] = ((vin_r, vin_c), (vout_r, vout_c))`` its
+    valid extended input and output extents.  Per class: the tiles are
+    index-selected out of the padded ``(n, m, B, Hc, Wc, C)`` layout, sliced
+    to their true window, and convolved in ONE call on ``(count * B, vin_r,
+    vin_c, C)`` - one kernel launch per class and layer, no MACs on pad
+    slots; BN sums run over the class's true core, and the output is repadded
+    to the canonical extent and gathered back into tile order.  Pad slots
+    beyond a class's window hold whatever BN and the activation make of the
+    zeros (never read: every consumer takes valid windows), and autograd gives
+    them zero cotangent, as AD does in the reference."""
+    n, m, b = x.shape[:3]
+    bn_stats = layer.batch_norm and not layer.pool and not inference
+    flat = x.reshape(n * m, b, *x.shape[3:])
+    outs, s, ss, fused = [], 0.0, 0.0, False
+    for tiles, ((vin_r, vin_c), (vout_r, vout_c)) in zip(classes, class_io):
+        xv = flat[:, :, :vin_r, :vin_c]
+        if len(tiles) < n * m:
+            xv = xv.index_select(0, plan_constant(tuple(tiles), x.device))
+        y, fused = _conv_or_pool_spec(xv.reshape(len(tiles) * b, *xv.shape[2:]), params, layer,
+                                      backend, block_oh, (vout_r, vout_c))
+        y = y.reshape(len(tiles), b, *y.shape[1:])
+        if bn_stats:
+            top, bottom, left, right = out_halo
+            core = y[:, :, top:vout_r - bottom, left:vout_c - right]
+            s = s + torch.sum(core, dim=(0, 1, 2, 3))
+            ss = ss + torch.sum(torch.square(core), dim=(0, 1, 2, 3))
+        outs.append(_fit_extent(y, canon_out_hw, dims=(2, 3)))
+    y = outs[0] if len(outs) == 1 else torch.cat(outs)
+    order = [t for tiles in classes for t in tiles]
+    if order != list(range(n * m)):
+        inv = [0] * len(order)
+        for k, t in enumerate(order):
+            inv[t] = k
+        y = y.index_select(0, plan_constant(tuple(inv), y.device))
+    y = y.reshape(n, m, b, *y.shape[2:])
+    if bn_stats:
+        bg = b if batch_global is None else batch_global
+        n_global = bg * map_out_hw[0] * map_out_hw[1]
+        mean = s / n_global
+        var = ss / n_global - torch.square(mean)
+        y = _bn_apply(y, mean, var, params["bn_scale"], params["bn_bias"])
+    elif layer.batch_norm and not layer.pool:
+        y = _bn_infer(y, params, layer)
+    if not fused:
+        y = _ACTIVATIONS[layer.act](y)
+    if mask_offmap and any(out_halo):
+        mask = _offmap_mask_spec(y.shape[3], y.shape[4], out_halo, out_off, map_out_hw, y.device)
+        y = y * mask[:, :, None, :, :, None].to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
 # Hybrid partitioning: spatial->data reshard + data-mode (full-map) layers
 # ---------------------------------------------------------------------------
 
@@ -384,6 +634,26 @@ def reshard_spatial_to_data(x: torch.Tensor) -> torch.Tensor:
     reduce-scatter and the zero-padded scatter) as ``jax.grad`` does."""
     n, m, b, h, w, c = x.shape
     full = x.permute(2, 0, 3, 1, 4, 5).reshape(b, n * h, m * w, c)
+    return _batch_block_slice(full, n, m)
+
+
+def reshard_spatial_to_data_ragged(
+    x: torch.Tensor, row_sizes: tuple[int, ...], col_sizes: tuple[int, ...]
+) -> torch.Tensor:
+    """The spatial->data crossover of ragged tiles: the padded core tiles
+    ``(n, m, b, Hmax, Wmax, C)`` are stitched back into full maps from each
+    tile's valid window (the boundary tables are plan constants, so this is
+    ``TileMesh.merge``'s gather), then split into batch blocks as
+    ``reshard_spatial_to_data`` does.  Autograd gives the adjoint: the
+    scatter back into padded tiles."""
+    n, m, b, hmax, wmax, c = x.shape
+    if (n, m) != (len(row_sizes), len(col_sizes)) or (hmax, wmax) != (max(row_sizes),
+                                                                      max(col_sizes)):
+        raise ValueError(
+            f"padded tiles {tuple(x.shape)} inconsistent with sizes {row_sizes} x {col_sizes}"
+        )
+    full = unpack_grid(x.permute(2, 0, 3, 1, 4, 5).reshape(b, n * hmax, m * wmax, c),
+                       row_sizes, col_sizes)
     return _batch_block_slice(full, n, m)
 
 

@@ -7,10 +7,19 @@ leading tensor dimensions instead: activations live as
 zero-filled shift along the n or m dimension (``core/halo.py``), and each
 conv runs once over all tiles reshaped to ``(n*m*B, h, w, C)`` - one kernel
 launch per conv layer per dispatch, not n*m.
+
+A non-uniform partition (DESIGN.md §8) packs the map into the padded tile
+layout ``(n, m, B, Hmax, Wmax, C)``: tile (i, j) holds its span of the map
+in its first ``rows[i] x cols[j]`` slots and zeros beyond - one index
+gather per axis (``pack_axis``, the reference's ``fusion._pack_axis``),
+undone by ``unpack_axis``.  The reference packs a spec plan inside the
+shard boundary (``_shard_pack_grid``) and a padded plan on the host
+(``_pack_grid``); the virtual mesh has no boundary, so both take this one.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -28,6 +37,61 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+@functools.lru_cache(maxsize=1024)
+def plan_constant(values: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """A plan-time int table (tile indices, sizes, offsets, gather indices)
+    as a tensor on ``device``, made once: a fresh ``torch.tensor(...,
+    device="cuda")`` copies from pageable host memory and waits for the
+    copy at every call, which would stall the host before every ragged
+    exchange, pack and class conv.  Callers never write to it."""
+    return torch.tensor(values, dtype=torch.long, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _axis_index(sizes: tuple[int, ...], pack: bool) -> tuple[int, ...]:
+    """Source positions along one axis: packing reads map row ``off_k + r``
+    into slot ``k * max + r`` (the zero row ``sum(sizes)`` past a tile's
+    size); unpacking reads the valid slots back in map order."""
+    mx, out, off = max(sizes), [], 0
+    for k, s in enumerate(sizes):
+        if pack:
+            out += [off + r if r < s else sum(sizes) for r in range(mx)]
+        else:
+            out += [k * mx + r for r in range(s)]
+        off += s
+    return tuple(out)
+
+
+def pack_axis(a: torch.Tensor, sizes: tuple[int, ...], dim: int) -> torch.Tensor:
+    """Global -> padded-tile layout along ``dim``: each tile's span zero-padded
+    to the largest tile, tiles concatenated (``repro``'s ``_pack_axis``).
+    Uniform sizes return ``a`` itself."""
+    if len(set(sizes)) == 1:
+        return a
+    if a.shape[dim] != sum(sizes):
+        raise ValueError(f"axis {dim} of {tuple(a.shape)} is not the partition's {sum(sizes)}")
+    shape = list(a.shape)
+    shape[dim] = 1
+    az = torch.cat([a, a.new_zeros(shape)], dim=dim)
+    return az.index_select(dim, plan_constant(_axis_index(tuple(sizes), True), a.device))
+
+
+def unpack_axis(a: torch.Tensor, sizes: tuple[int, ...], dim: int) -> torch.Tensor:
+    """Padded-tile -> global layout along ``dim``: each tile's valid slots,
+    in map order (``repro``'s ``_unpack_axis``)."""
+    if len(set(sizes)) == 1:
+        return a
+    return a.index_select(dim, plan_constant(_axis_index(tuple(sizes), False), a.device))
+
+
+def pack_grid(a, rows, cols, dims=(1, 2)):
+    return pack_axis(pack_axis(a, rows, dims[0]), cols, dims[1])
+
+
+def unpack_grid(a, rows, cols, dims=(1, 2)):
+    return unpack_axis(unpack_axis(a, rows, dims[0]), cols, dims[1])
+
+
 @dataclasses.dataclass(frozen=True)
 class TileMesh:
     """n x m tile grid on one device (the counterpart of a 2-D jax Mesh)."""
@@ -36,8 +100,15 @@ class TileMesh:
     m: int
     device: torch.device
 
-    def split(self, x: torch.Tensor) -> torch.Tensor:
-        """Global (B, H, W, C) -> tiles (n, m, B, H/n, W/m, C)."""
+    def split(self, x: torch.Tensor, rows: tuple[int, ...] | None = None,
+              cols: tuple[int, ...] | None = None) -> torch.Tensor:
+        """Global (B, H, W, C) -> tiles (n, m, B, H/n, W/m, C).  Given the
+        partition's per-tile ``rows`` and ``cols``, a ragged one packs into
+        the padded layout (n, m, B, max(rows), max(cols), C) instead."""
+        if rows is not None:
+            if (len(rows), len(cols)) != (self.n, self.m):
+                raise ValueError(f"partition {rows} x {cols} is not {self.n}x{self.m} tiles")
+            x = pack_grid(x, rows, cols)
         b, h, w, c = x.shape
         if h % self.n or w % self.m:
             raise ValueError(
@@ -46,11 +117,14 @@ class TileMesh:
         t = x.reshape(b, self.n, h // self.n, self.m, w // self.m, c)
         return t.permute(1, 3, 0, 2, 4, 5).contiguous()
 
-    def merge(self, t: torch.Tensor) -> torch.Tensor:
+    def merge(self, t: torch.Tensor, rows: tuple[int, ...] | None = None,
+              cols: tuple[int, ...] | None = None) -> torch.Tensor:
         """Tiles (n, m, B, h, w, C) -> global (B, n*h, m*w, C), row-major
-        tile order (the inverse of ``split``)."""
+        tile order (the inverse of ``split``).  Given ``rows`` and ``cols``,
+        padded ragged tiles give back each tile's valid window."""
         n, m, b, h, w, c = t.shape
-        return t.permute(2, 0, 3, 1, 4, 5).reshape(b, n * h, m * w, c)
+        out = t.permute(2, 0, 3, 1, 4, 5).reshape(b, n * h, m * w, c)
+        return out if rows is None else unpack_grid(out, rows, cols)
 
     def split_batch(self, x: torch.Tensor) -> torch.Tensor:
         """Global (B, H, W, C) -> batch blocks (n, m, B/(n*m), H, W, C) of

@@ -9,14 +9,16 @@ synthetic batches - the reference's ``make_batch`` recipe, so both
 launchers see the same data.  It runs on the card unless ``--device cpu``
 is given.  ``--groups auto`` plans the grouping with the cost model on
 ``--hw-profile`` or, where given, the ``--cluster`` spec (which overrides
-it), at ``--batch`` with ``--grad-accum`` microbatches.  ``--schedule``
-picks the executor (overlap: packed exchange and the interior/boundary
-split), ``--crossover`` a hybrid plan's spatial->data switch (the
-per-microbatch batch must then divide by grid^2).  Flags of the reference
-the port does not have yet raise naming their ROADMAP item: a heterogeneous
-``--cluster`` (A.12: its balanced partition is non-uniform), ``--pipeline``
-(A.13), ``--wire-codec`` (A.14), ``--ckpt-dir`` and ``--fault-schedule``
-(A.15).
+it), at ``--batch`` with ``--grad-accum`` microbatches; a heterogeneous
+``--cluster`` (``pi3x3+jetson``) also balances the tile partition by the
+devices' FLOPs, and a map that does not divide over ``--grid`` (416 on 3)
+gets the near-even ragged split - both run the shape-specialised ragged
+executor.  ``--schedule`` picks the executor (overlap: packed exchange and
+the interior/boundary split, uniform groups only), ``--crossover`` a hybrid
+plan's spatial->data switch (the per-microbatch batch must then divide by
+grid^2).  Flags of the reference the port does not have yet raise naming
+their ROADMAP item: ``--pipeline`` (A.13), ``--wire-codec`` (A.14),
+``--ckpt-dir`` and ``--fault-schedule`` (A.15).
 
 LM mode (``--arch qwen2-7b`` or ``mamba2-780m``; the other LM ids are A.18):
 the reduced config unless ``--full``, ``--seq`` x ``--batch`` tokens a step from
@@ -87,9 +89,9 @@ def _add_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--hw-profile", default="pi3-core",
                     help="hardware profile for --groups auto")
     ap.add_argument("--cluster", default=None,
-                    help="cluster spec, e.g. 'pi3x4' - <profile>[x<count>] parts joined "
-                         "by '+', filling the tile grid row-major; overrides --hw-profile "
-                         "(a heterogeneous one is ROADMAP A.12)")
+                    help="cluster spec, e.g. 'pi3x4' or 'pi3x3+jetson' - <profile>[x<count>] "
+                         "parts joined by '+', filling the tile grid row-major; overrides "
+                         "--hw-profile, and a heterogeneous one balances the tile partition")
     ap.add_argument("--no-batch-norm", action="store_true",
                     help="build the YOLO stack without batch norm")
     ap.add_argument("--schedule", default="sync", choices=["sync", "overlap", "auto"],

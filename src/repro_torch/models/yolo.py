@@ -90,6 +90,7 @@ def make_yolo_tiled_arch(
     crossover: int | str | None = None,
     mem_limit: float | None = None,
     partition=None,
+    ragged_exec: str = "spec",
     pipeline: int | str | None = None,
     microbatches: int | None = None,
     wire_codec: str = "none",
@@ -105,14 +106,16 @@ def make_yolo_tiled_arch(
     ``hw`` (a profile, its name, a ClusterSpec or a cluster spec string) at
     ``batch``, under ``mem_limit``, with ``microbatches`` (default the
     planner's standard M) for the pipeline bubble model; ``schedule`` and
-    ``crossover`` as in ``build_stack_plan``.  Knobs the port does not plan
-    raise ``NotImplementedError`` (see ``build_stack_plan``)."""
+    ``crossover`` as in ``build_stack_plan``; ``partition`` (an explicit
+    ``TilePartition``, else derived: cluster-balanced or near-even) and
+    ``ragged_exec`` pass through to it.  Knobs the port does not plan raise
+    ``NotImplementedError`` (see ``build_stack_plan``)."""
     layers = yolov2_16_layers(batch_norm=batch_norm)[:depth]
     plan = build_stack_plan(
         input_hw, layers, n, m, groups,
         backend=backend, schedule=schedule, hw=hw, batch=batch,
         crossover=crossover, mem_limit=mem_limit, partition=partition,
-        pipeline=pipeline,
+        ragged_exec=ragged_exec, pipeline=pipeline,
         microbatches=PIPELINE_MICROBATCHES if microbatches is None else microbatches,
         wire_codec=wire_codec, device=mesh.device if mesh is not None else device,
     )

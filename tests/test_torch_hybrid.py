@@ -156,13 +156,22 @@ def test_hybrid_plan_geometry_and_manifest_match_jax(case):
 
 
 def test_data_tail_is_exempt_from_grid_divisibility():
-    """52 -> 26 -> 13 on a 2x2 grid: the all-spatial plan needs a ragged
-    partition (ROADMAP A.12), a crossover at the 13x13 layer does not."""
+    """52 -> 26 -> 13 on a 2x2 grid: a crossover at the 13x13 layer keeps
+    the partition uniform; the all-spatial plan needs a ragged one (ROADMAP
+    A.12), which is the reference's and runs: its forward is the untiled
+    one."""
     layers, hw, _, kw = PLAN_CASES["data-tail-13x13"]
     plan = tfu.build_stack_plan(hw, _port(layers), 2, 2, **kw)
     assert plan.is_uniform and plan.shard_hw[0] == (26, 26) and plan.shard_hw[4] == (13, 13)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tfu.build_stack_plan(hw, _port(layers), 2, 2)
+    ragged = tfu.build_stack_plan(hw, _port(layers), 2, 2)
+    jp = jfu.build_stack_plan(hw, layers, 2, 2)
+    assert not ragged.is_uniform and ragged.tile_rows[-1] == jp.tile_rows[-1] == (7, 6)
+    assert (ragged.tile_rows, ragged.tile_cols) == (jp.tile_rows, jp.tile_cols)
+    params = params_from_jax(_np_params(layers), "cpu")
+    x = np.random.default_rng(7).standard_normal((2, *hw, 3)).astype(np.float32)
+    got = tfu.make_tiled_forward(ragged, make_tile_mesh(2, 2, "cpu"))(params, x)
+    want = tfu.reference_forward(params, torch.from_numpy(x), ragged)
+    np.testing.assert_allclose(got.detach().numpy(), want.numpy(), atol=FWD_ATOL)
 
 
 def _chip_smoke_constant(name):

@@ -24,6 +24,7 @@ from repro.core import fusion as jfu
 from repro.core import grouping as jg
 from repro.core import spatial as jsp
 from repro.core.tiling import Group as JGroup
+from repro.core.tiling import TilePartition as JTilePartition
 from repro.models.yolo import yolov2_16_layers as jax_yolo_layers
 from repro.serve import cnn_engine as jengine
 from repro_torch.core import fusion as tfu
@@ -152,15 +153,19 @@ def test_port_matches_jax_pallas_2x2_infer_subprocess(tmp_path):
         np.testing.assert_allclose(got, d["y"], atol=ATOL)
 
 
-# The planning modes of ROADMAP A.10 (overlap) and A.11 (hybrid plans),
-# which raised before the port ran them: (kwargs, schedule and crossover of
-# the plan they now give).
+# The planning modes of ROADMAP A.10 (overlap), A.11 (hybrid plans) and
+# A.12 (non-uniform partitions: a heterogeneous cluster's balanced one, an
+# explicit one), which raised before the port ran them: (kwargs, schedule
+# and crossover of the plan they now give).
 PORTED_MODES = [
     (dict(schedule="auto", hw="pi3-core", device="cuda"), ("overlap", None)),
     (dict(groups="auto", crossover="auto"), ("sync", None)),
     (dict(schedule="overlap"), ("overlap", None)),
     (dict(crossover=2), ("sync", 2)),
     (dict(groups=[Group(0, 1), Group(2, 3, "data")]), ("sync", 2)),
+    (dict(hw="pi3x3+jetson"), ("sync", None)),
+    (dict(groups="auto", hw="jetson+pi3x3"), ("sync", None)),
+    (dict(partition=TilePartition((0, 24, 32), (0, 16, 32))), ("sync", None)),
 ]
 
 
@@ -173,10 +178,7 @@ def _plan_mode(kw, **extra):
 def test_unported_planning_modes_raise_with_roadmap_item():
     layers = yolov2_16_layers()[:4]
     cases = [
-        (dict(hw="pi3x3+jetson"), "A.12"),                 # heterogeneous: ragged partition
-        (dict(groups="auto", hw="jetson+pi3x3"), "A.12"),
         (dict(groups="auto", pipeline="auto"), "A.13"),
-        (dict(partition=TilePartition((0, 24, 32), (0, 16, 32))), "A.12"),
         (dict(pipeline=2), "A.13"),
         (dict(wire_codec="int8"), "A.14"),
     ]
@@ -184,10 +186,19 @@ def test_unported_planning_modes_raise_with_roadmap_item():
         groups = kw.pop("groups", None)
         with pytest.raises(NotImplementedError, match=item):
             tfu.build_stack_plan((32, 32), layers, 2, 2, groups, **kw)
-    # the A.10 and A.11 cases now plan (test_ported_planning_modes_run runs them)
+    # the A.10, A.11 and A.12 cases now plan (test_ported_planning_modes_run
+    # runs them); the A.12 ones plan the reference's ragged partition
+    jlayers = jax_yolo_layers()[:4]
     for kw, (schedule, crossover) in PORTED_MODES:
         plan = _plan_mode(kw)
         assert (plan.schedule, plan.crossover) == (schedule, crossover), kw
+        if not plan.is_uniform:
+            jkw = dict(kw)
+            jgroups = jkw.pop("groups", None)
+            if "partition" in jkw:
+                jkw["partition"] = JTilePartition(*dataclasses.astuple(jkw["partition"]))
+            jp = jfu.build_stack_plan((32, 32), jlayers, 2, 2, jgroups, **jkw)
+            assert (plan.tile_rows, plan.tile_cols) == (jp.tile_rows, jp.tile_cols), kw
     # the reference's guards stay: overlap with a pipeline tail, a crossover
     # inside a group
     with pytest.raises(ValueError, match="cannot combine with a pipeline tail"):
@@ -203,8 +214,8 @@ def test_unported_planning_modes_raise_with_roadmap_item():
 
 @pytest.mark.parametrize("i", range(len(PORTED_MODES)))
 def test_ported_planning_modes_run(i):
-    """Each A.10 / A.11 planning mode, under the conditions that raised
-    before, now serves: its inference twin on the 2x2 virtual mesh (both
+    """Each A.10 / A.11 / A.12 planning mode, under the conditions that
+    raised before, now serves: its inference twin on the 2x2 virtual mesh (both
     conv backends on the CPU) equals the untiled frozen-BN forward, and so
     does its training forward."""
     kw, _ = PORTED_MODES[i]

@@ -596,14 +596,16 @@ def test_launcher_trains_on_cpu(capsys):
 ])
 def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys):
     """Unported flags raise naming their ROADMAP item; the flags of A.10
-    (overlap) and A.11 (hybrid plans) now train under the same flags."""
+    (overlap), A.11 (hybrid plans) and A.12 (a heterogeneous cluster's
+    balanced, ragged partition) now train under the same flags."""
     from repro_torch.launch.train import main
 
     base = ["--device", "cpu", "--input-hw", "32", "--depth", "4", "--steps", "1", "--grid", "2"]
-    if item in ("A.10", "A.11"):
+    if item in ("A.10", "A.11", "A.12"):
         assert main(base + flags) == 0
         out = capsys.readouterr().out
-        plan = "schedule=overlap" if item == "A.10" else "crossover=2"
+        plan = {"A.10": "schedule=overlap", "A.11": "crossover=2",
+                "A.12": "rows=(0, 4, 32) cols=(0, 4, 32) uniform=False cluster=pi3x3+jetson"}[item]
         assert plan in out and "done: steps=1 restarts=0" in out
         return
     with pytest.raises(NotImplementedError, match=item):
