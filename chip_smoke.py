@@ -138,16 +138,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    step.  Each spec plan is held to its padded twin and the untiled
    reference on one microbatch (``OVERLAP_TOL``), each plan trained as
    phase 5 (without the planted faults; launches per microbatch equal to
-   ``RAGGED_LAUNCHES``) - all but the padded cluster plan, which is served
-   only -, the four plans served as phase 4, the cluster trained once
-   through ``python -m
+   ``RAGGED_LAUNCHES``), the four plans served as phase 4, the cluster
+   trained once through ``python -m
    repro_torch.launch.train --grid 2 --cluster pi3x3+jetson --groups
    auto``, and B1-B3 held as in phase 3 at every new per-tile shape (the
    classes' true extents down to the 1x1 corner tiles, the padded canonical
    extents); the ``{"ragged": ...}`` line gives each plan's device work,
    event step, idle share, peak memory and conv work beside phase 5's
-   uniform plan.  The ``{"kernels": ...}`` line's launches include phases
-   12's, 13's and 14's.
+   uniform plan;
+15. pipeline tails (``PIPELINE_PLANS_416``: YOLOv2-16 without BN, batch 8,
+   forced stage counts on ``PIPELINE_HW``): pipe2x2 (a 12-layer spatial
+   prefix, two stages, M=2), pipe1x4 (an 8-layer prefix on 1x4 strips,
+   four stages, M=4) and pure1x4 (two stages on whole 416 maps, M=2), each
+   trained as phase 5 with M = grad_accum (launches a microbatch
+   ``PIPELINE_LAUNCHES``; the executor's slots a step equal to
+   ``pipeline_schedule_census``; pipe2x2 with a planted hand-off to the
+   wrong stage rank that the step-1 grad check must reject), beside the
+   same stack's sync all-spatial plan; the launcher with ``--pipeline 2``
+   (its plan line prints ``stages=``); B1-B3 held as in phase 3 at every
+   new shape (the stages' full maps); the ``{"pipeline": ...}`` line gives
+   each plan's device work, event and host step, idle share, slots and
+   peak memory.  The ``{"kernels": ...}`` line's launches include phases
+   12's to 15's.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -155,7 +167,9 @@ Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -350,6 +364,32 @@ RAGGED_LAUNCHES = {
         "spec": {"conv2d_tile": 42, "conv2d_dgrad_tile": 38, "conv2d_wgrad_tile": 42},
         "padded": {"conv2d_tile": 12, "conv2d_dgrad_tile": 11, "conv2d_wgrad_tile": 12}},
 }
+# Phase 15: pipeline tails of YOLOv2-16 without BN (stages hold no BN layer)
+# at 416x416, batch 8, planned by the cost model on PIPELINE_HW with a forced
+# stage count (pipeline="auto" picks no tail at 416 under any profile) - name:
+# (grid, stages S, microbatches M, the groups and modes planned, the stages'
+# flat tile ranges).  The reference plans the same
+# (tests/test_torch_pipeline_mode.py).  M is the trainer's grad_accum.
+PIPELINE_HW = "jetson-nano-gpu"
+PIPELINE_PLANS_416 = {
+    "pipe2x2": ((2, 2), 2, 2, [(0, 11, "spatial"), (12, 13, "pipeline"), (14, 15, "pipeline")],
+                [(0, 2), (2, 4)]),
+    "pipe1x4": ((1, 4), 4, 4, [(0, 7, "spatial"), (8, 9, "pipeline"), (10, 11, "pipeline"),
+                               (12, 13, "pipeline"), (14, 15, "pipeline")],
+                [(0, 1), (1, 2), (2, 3), (3, 4)]),
+    "pure1x4": ((1, 4), 2, 2, [(0, 8, "pipeline"), (9, 15, "pipeline")], [(0, 2), (2, 4)]),
+}
+# The code's launches a microbatch of every pipeline plan (conv_shapes): the
+# prefix one call a conv for all tiles, each stage one call a conv over its
+# tiles' blocks, only the busy (stage, tick) slots run; the image input takes
+# no dgrad.
+PIPELINE_LAUNCHES = {"conv2d_tile": 12, "conv2d_dgrad_tile": 11, "conv2d_wgrad_tile": 12}
+
+
+def pipeline_kw(stages: int, microbatches: int) -> dict:
+    """Planner knobs of a phase-15 plan."""
+    return dict(groups="auto", hw=PIPELINE_HW, batch=TRAIN_BATCH, pipeline=stages,
+                microbatches=microbatches)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -416,7 +456,10 @@ def conv_shapes(plan, batch: int) -> list[dict]:
     full maps, padded.  A ragged plan's spatial layer makes one call over
     every tile at the canonical extent (``ragged_exec="padded"``) or one
     per tile-shape class over its tiles' true extents (``"spec"``, the
-    classes of ``core/halo.py:_switch_by_size``)."""
+    classes of ``core/halo.py:_switch_by_size``).  A pipeline stage's layer
+    makes one call a microbatch over its tiles' blocks of full maps, which
+    together are the microbatch (``core/fusion.py:_make_pipeline_local``),
+    padded."""
     from repro_torch.core.fusion import _ragged_group_geom
     from repro_torch.core.halo import _switch_by_size
     from repro_torch.core.spatial import split_1d
@@ -436,9 +479,10 @@ def conv_shapes(plan, batch: int) -> list[dict]:
             sh, sw = plan.shard_hw[l]
             eh, ew = sh + halo[0] + halo[1], sw + halo[2] + halo[3]
             pieces = [("tile", (tiles, eh, ew))]
-            if g.mode == "data":
+            if g.mode in ("data", "pipeline"):
                 h, w = plan.map_hw[l]
-                pieces = [("full", (batch, h + 2 * layer.padding, w + 2 * layer.padding))]
+                pieces = [("full" if g.mode == "data" else "stage",
+                           (batch, h + 2 * layer.padding, w + 2 * layer.padding))]
             elif ragged and plan.ragged_exec == "padded":
                 pieces = [("padded", (tiles, *geom["ein"][k]))]
             elif ragged:
@@ -605,19 +649,60 @@ def planted_faults(arch, params0, xs, ts, names, ref64, bars, normwise):
     return fault, dfault
 
 
+def planted_handoff_fault(arch, params0, xs, ts, names, ref64, bars, normwise, accum):
+    """Phase 15's planted fault: a pipeline hand-off shifted one stage rank
+    too far - each stage tile receives the block of the rank before its
+    own, the first rank zeros - must fail the step-1 grad check on every
+    conv filter.  (A mere permutation of the rank blocks would only pair
+    samples with other targets, which this loss's 0.05-scale targets barely
+    show.)  Returns err / bar per leaf."""
+    import torch
+
+    import repro_torch.core.fusion as fusion
+    from repro_torch.models.yolo import l2_loss_local
+    from repro_torch.optim.optimizers import tree_leaves
+
+    real = fusion._stage_handoff
+    per = (arch.plan.n * arch.plan.m) // len(arch.plan.stages)
+    check(per > 1, "the hand-off fault needs two stage ranks")
+
+    def handoff_to_the_wrong_rank(y, plan, s):
+        out = real(y, plan, s).reshape(per, -1, *y.shape[1:])
+        return torch.cat([torch.zeros_like(out[:1]), out[:-1]]).reshape(-1, *y.shape[1:])
+
+    fusion._stage_handoff = handoff_to_the_wrong_rank
+    try:
+        _, bad = fusion.make_deferred_grad_step(arch.plan, arch.mesh, l2_loss_local,
+                                                microbatches=accum)(params0, xs, ts)
+    finally:
+        fusion._stage_handoff = real
+    fault = {n: normwise(a, r) / bar for n, a, r, bar in zip(names, tree_leaves(bad), ref64, bars)}
+    over = sorted(n for n, v in fault.items() if v > 1.0)
+    print(f"planted fault (hand-off to the wrong stage rank): {len(over)} of {len(fault)} leaves "
+          f"over their bar, err / bar from {min(fault.values()):.2f} to {max(fault.values()):.2f}")
+    filters = [n for n in names if n.endswith(".w")]
+    check(all(fault[n] > 1.0 for n in filters),
+          f"the step-1 grad check passed a hand-off to the wrong stage rank: {fault}")
+    return fault
+
+
 def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
-                plant_faults: bool = True, steps: int = TRAIN_STEPS, grid=GRID) -> dict:
-    """Phases 5, 12, 13 and 14: train YOLOv2-16 at 416x416 on the ``grid``
-    (2x2 unless given) through the three kernels for ``steps`` steps, under
-    the plan ``make_yolo_tiled_arch(**plan_kw)`` gives.  Prints the
-    ``{label: ...}`` line; returns its numbers, with the launch count of
-    each kernel in the training run under "launches"."""
+                plant_faults: bool = True, steps: int = TRAIN_STEPS, grid=GRID,
+                accum: int = TRAIN_ACCUM, batch_norm: bool = True) -> dict:
+    """Phases 5, 12, 13, 14 and 15: train YOLOv2-16 at 416x416 on the
+    ``grid`` (2x2 unless given) through the three kernels for ``steps``
+    steps of ``accum`` microbatches, under the plan
+    ``make_yolo_tiled_arch(**plan_kw)`` gives.  Prints the ``{label: ...}``
+    line; returns its numbers, with the launch count of each kernel in the
+    training run under "launches".  A pipeline plan's slot census is held
+    to ``pipeline_schedule_census`` and, with ``plant_faults``, its planted
+    fault is the hand-off to the wrong stage rank."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import ParallelConfig, TrainConfig
-    from repro_torch.core.fusion import reference_loss
+    from repro_torch.core.fusion import pipeline_schedule_census, reference_loss
     from repro_torch.core.grouping import peak_device_memory
     from repro_torch.kernels.conv2d_tiled.kernel import (
         conv2d_dgrad_tile,
@@ -633,15 +718,16 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
 
     def make_arch(backend):
         return make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=grid[0], m=grid[1],
-                                    backend=backend, device=dev, **plan_kw)
+                                    backend=backend, device=dev, batch_norm=batch_norm, **plan_kw)
 
     arch = make_arch("cuda")
     print(f"{label}: grid {grid[0]}x{grid[1]}, schedule {arch.plan.schedule}, crossover "
           f"{arch.plan.crossover}, groups {[(g.start, g.end, g.mode) for g in arch.plan.groups]}, "
           f"group halos {list(arch.plan.group_halos)}, tile rows {arch.plan.tile_rows[0]} cols "
           f"{arch.plan.tile_cols[0]}, ragged_exec "
-          f"{None if arch.plan.is_uniform else arch.plan.ragged_exec}")
-    pcfg = ParallelConfig(grad_accum=TRAIN_ACCUM)
+          f"{None if arch.plan.is_uniform else arch.plan.ragged_exec}, stages "
+          f"{arch.plan.stages}, microbatches {accum}, batch_norm {batch_norm}")
+    pcfg = ParallelConfig(grad_accum=accum)
     tcfg = TrainConfig(lr=TRAIN_LR, optimizer="sgd", warmup=0, steps=steps, seed=SEED)
     step1 = {}      # the run's own step-1 loss and gradients, as its update sees them
 
@@ -681,8 +767,9 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     step_ms = [a.elapsed_time(b) for a, b in events]
     losses = [float(m["loss"]) for m in logged]
     gnorms = [float(m["grad_norm"]) for m in logged]
-    micro = TRAIN_ACCUM * steps
-    per_mb, per_mb_instances = launches_per_batch(arch.plan, TRAIN_BATCH // TRAIN_ACCUM)
+    census = getattr(train_step.grad_step, "census", None)
+    micro = accum * steps
+    per_mb, per_mb_instances = launches_per_batch(arch.plan, TRAIN_BATCH // accum)
     want = {k: v * micro for k, v in per_mb.items()}
     want_instances = {k: v * micro for k, v in per_mb_instances.items()}
     print(f"trained {report.steps_done} steps, restarts {report.restarts}, launches {launches} "
@@ -694,6 +781,12 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     print(f"B1 launches by tile instance {b1_instances} (the code's count {want_instances})")
     check(b1_instances == want_instances,
           f"B1 launches by instance {b1_instances} != the code's {want_instances}")
+    if arch.plan.stages:
+        want_census = pipeline_schedule_census(len(arch.plan.stages), accum)
+        print(f"pipeline slots of the last step {census} (census {want_census})")
+        check(census == {"ticks": want_census["ticks"], "busy_slots": want_census["busy_slots"],
+                         "prefix_passes": accum},
+              f"pipeline slots {census} != the census {want_census}")
 
     # Step 1 of the run against the untiled plain reference from the same
     # params and batch: per-microbatch forward (BN statistics per
@@ -705,7 +798,7 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     ref_plan = dataclasses.replace(arch.plan, backend="torch")
 
     def split(v):
-        return v.reshape(TRAIN_ACCUM, v.shape[0] // TRAIN_ACCUM, *v.shape[1:])
+        return v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
 
     b0 = make_batch(0)
 
@@ -713,7 +806,7 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
         live = [{k: v.detach().to(dtype).requires_grad_(True) for k, v in p.items()}
                 for p in params0]
         loss = sum(reference_loss(live, xm.to(dtype), tm.to(dtype), ref_plan, l2_loss_local)
-                   for xm, tm in zip(split(b0["x"]), split(b0["t"]))) / TRAIN_ACCUM
+                   for xm, tm in zip(split(b0["x"]), split(b0["t"]))) / accum
         grads = torch.autograd.grad(loss, tree_leaves(live))
         return float(loss.detach()), grads
 
@@ -741,7 +834,10 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
               f"(plain fp32 reference {p64})")
 
     fault = dfault = None
-    if plant_faults:
+    if plant_faults and arch.plan.stages:
+        fault = planted_handoff_fault(arch, params0, split(b0["x"]), split(b0["t"]), names,
+                                      ref64, bars, normwise, accum)
+    elif plant_faults:
         fault, dfault = planted_faults(arch, params0, split(b0["x"]), split(b0["t"]), names,
                                        ref64, bars, normwise)
     del ref32
@@ -835,7 +931,9 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
         "crossover": plan.crossover,
         "group_halos": [list(h) for h in plan.group_halos],
         "steps": report.steps_done, "restarts": report.restarts,
-        "global_batch": TRAIN_BATCH, "microbatches": TRAIN_ACCUM, "optimizer": "sgd",
+        "stages": [list(x) for x in plan.stages], "pipeline_census": census,
+        "batch_norm": batch_norm,
+        "global_batch": TRAIN_BATCH, "microbatches": accum, "optimizer": "sgd",
         "lr": TRAIN_LR, "loss": losses, "grad_norm": gnorms,
         "step_ms_cuda_events": step_ms, "step_ms_cuda_events_median": med,
         "step_ms_host": [t * 1e3 for t in report.step_times],
@@ -2447,12 +2545,12 @@ def main() -> int:
                                     backend="cuda", device=dev, **kw)
 
     # (a) the 3x3 grid, hand-picked groups, spec and padded trained and
-    # served; (b) the pi3x3+jetson cluster on 2x2 (groups="auto"), spec
-    # trained and both served, and its crossover=14 twin trained one step.
+    # served; (b) the pi3x3+jetson cluster on 2x2 (groups="auto"), spec and
+    # padded trained and served, and its crossover=14 twin trained one step.
     # Each spec plan is held to its padded twin and the untiled reference on
     # one microbatch first.
     vs14, train14, serve14 = {}, {}, {}
-    for name, execs in (("grid3", ("spec", "padded")), ("cluster", ("spec",))):
+    for name, execs in (("grid3", ("spec", "padded")), ("cluster", ("spec", "padded"))):
         vs14[name] = overlap_vs_sync(dev, kw14[(name, "spec")][1], kw14[(name, "padded")][1],
                                      grid=kw14[(name, "spec")][0], names=("spec", "padded"))
         for ex in execs:
@@ -2551,6 +2649,99 @@ def main() -> int:
     phase14_launches["conv2d_tile"] += sum(r["launches"] for r in serve14.values())
     auto_launches = {k: v + phase14_launches[k] for k, v in auto_launches.items()}
     print(json.dumps({"phase14_launches": phase14_launches}))
+
+    # -- 15. pipeline tails on the card -------------------------------------------
+    # (a) the three plans: groups and stages held to PIPELINE_PLANS_416, the
+    # code's launches a microbatch to PIPELINE_LAUNCHES
+    plans15 = {}
+    for name, (grid15, s15, m15, want_groups, want_stages) in PIPELINE_PLANS_416.items():
+        p = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=grid15[0], m=grid15[1],
+                                 backend="cuda", device=dev, batch_norm=False,
+                                 **pipeline_kw(s15, m15)).plan
+        got = [(x.start, x.end, x.mode) for x in p.groups]
+        per_mb, _ = launches_per_batch(p, TRAIN_BATCH // m15)
+        print(f"phase 15 plan {name}: grid {grid15[0]}x{grid15[1]}, groups {got}, stages "
+              f"{p.stages}, entry map {p.map_hw[p.pipeline_first]}, M {m15}, launches a "
+              f"microbatch {per_mb}")
+        check(got == [tuple(x) for x in want_groups], f"{name}: groups {got}")
+        check(p.stages == tuple(map(tuple, want_stages)), f"{name}: stages {p.stages}")
+        check(per_mb == PIPELINE_LAUNCHES, f"{name}: launches {per_mb} != {PIPELINE_LAUNCHES}")
+        plans15[name] = p
+
+    # (b) each plan trained as phase 5 (pipe2x2 with the planted hand-off
+    # fault), beside the same no-BN stack's sync all-spatial plan
+    train15 = {"sync_no_bn": train_phase(dev, smi, dict(groups=groups), label="train_sync_no_bn",
+                                         plant_faults=False, batch_norm=False)}
+    for name, (grid15, s15, m15, _, _) in PIPELINE_PLANS_416.items():
+        r = train_phase(dev, smi, pipeline_kw(s15, m15), label=f"train_pipeline_{name}",
+                        plant_faults=(name == "pipe2x2"), grid=grid15, accum=m15,
+                        batch_norm=False)
+        check(r["launches_per_microbatch"] == PIPELINE_LAUNCHES,
+              f"{name}: trained with {r['launches_per_microbatch']} launches a microbatch")
+        train15[name] = r
+    torch.cuda.empty_cache()
+
+    # (c) the launcher, as a user runs a pipeline plan
+    reset_counts()
+    out15 = io.StringIO()
+    with contextlib.redirect_stdout(out15):
+        rc15 = train_launcher.main([
+            "--arch", "yolov2-tiled", "--grid", "2", "--groups", "auto", "--hw-profile",
+            PIPELINE_HW, "--pipeline", "2", "--no-batch-norm", "--input-hw", str(INPUT_HW[0]),
+            "--depth", "16", "--batch", str(TRAIN_BATCH), "--grad-accum", "2", "--steps", "2"])
+    print(out15.getvalue(), end="")
+    check(rc15 == 0 and "stages=((0, 2), (2, 4))" in out15.getvalue(),
+          "train launcher, --pipeline 2: no stages=((0, 2), (2, 4)) in its plan line")
+    launcher15 = {f.__name__: f.launches for f in (conv2d_tile, conv2d_dgrad_tile,
+                                                   conv2d_wgrad_tile)}
+    want = {k: v * 2 * 2 for k, v in PIPELINE_LAUNCHES.items()}
+    print(f"phase-15 launcher (--pipeline 2): {launcher15}")
+    check(launcher15 == want, f"train launcher launches {launcher15} != {want}")
+
+    # (d) B1-B3 at every per-tile shape of the phase-15 plans the earlier
+    # phases did not hold: the stages' full maps, pure1x4's whole image
+    new_tr15 = {shape_key(s): s for name, p in plans15.items()
+                for s in conv_shapes(p, TRAIN_BATCH // PIPELINE_PLANS_416[name][2])
+                if shape_key(s) not in held_bwd}
+    print(f"phase 15 plans: {len(new_tr15)} new shapes")
+    check(new_tr15, "the phase-15 plans give B1-B3 no new shape")
+    fwd15 = [dict(fwd_row(s), piece=s["piece"]) for k, s in new_tr15.items() if k not in held_b1]
+    bwd15 = [bwd_rows(s) for s in new_tr15.values()]
+    dgrad15 = [d for d, _ in bwd15 if d]
+    wgrad15 = [w for _, w in bwd15]
+    kernel_ms15 = {}
+    for rows15, what in ((fwd15, "conv2d_tile"), (dgrad15, "conv2d_dgrad_tile"),
+                         (wgrad15, "conv2d_wgrad_tile")):
+        kernel_ms15[what] = {k: sum(r[k] for r in rows15)
+                             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        kernel_ms15[what]["shapes"] = len(rows15)
+        print(f"{what} at the {len(rows15)} new phase-15 shapes: kernel "
+              f"{kernel_ms15[what]['ms']:.4f} ms, cudnn {kernel_ms15[what]['library_ms']:.4f} ms, "
+              f"plain {kernel_ms15[what]['plain_ms']:.4f} ms, bound "
+              f"{kernel_ms15[what]['bound_ms']:.4f} ms")
+    print(json.dumps({"phase15_conv_shapes": fwd15}))
+    print(json.dumps({"phase15_dgrad_shapes": dgrad15}))
+    print(json.dumps({"phase15_wgrad_shapes": wgrad15}))
+    serve_err = max([serve_err] + [r["max_abs_err"] for r in fwd15])
+    dgrad_err = max([dgrad_err] + [r["max_abs_err"] for r in dgrad15])
+    wgrad_err = max([wgrad_err] + [r["max_abs_err"] for r in wgrad15])
+
+    # (e) the {"pipeline": ...} line: each plan beside the sync no-BN plan and
+    # phase 5's BN plan from this run
+    summary15 = ("grid", "groups", "modes", "stages", "microbatches", "pipeline_census",
+                 "step_ms_cuda_events_median", "step_ms_host_median", "device_ms",
+                 "device_ms_by_kernel", "idle_share", "peak_mem_bytes",
+                 "modeled_peak_device_memory_per_tile", "launches_per_microbatch")
+    print(json.dumps({"pipeline": {
+        "train": {"bn_sync_phase5": {k: train5.get(k) for k in summary15},
+                  **{k: {x: r.get(x) for x in summary15} for k, r in train15.items()}},
+        "planted_handoff_fault_err_over_bar": train15["pipe2x2"]["step1"]["planted_fault_err_over_bar"],
+        "kernel_ms_new_shapes": kernel_ms15, "card": smi,
+    }}))
+    phase15_launches = {k: sum(r["launches"][k] for r in train15.values()) + launcher15[k]
+                        for k in launcher15}
+    auto_launches = {k: v + phase15_launches[k] for k, v in auto_launches.items()}
+    print(json.dumps({"phase15_launches": phase15_launches}))
 
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",

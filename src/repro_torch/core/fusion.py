@@ -1,16 +1,17 @@
 """Fused, grouped execution stacks (paper §4.2) on the virtual tile mesh.
 
-The port of ``repro/core/fusion.py`` without pipeline tails and wire
-codecs: the planner for explicit, absent or cost-model-chosen groupings
-(``groups="auto"`` over a hardware profile or cluster, ``core/grouping.py``),
-spatial->data crossovers (``crossover=``, DESIGN.md §7) and explicit or
-cluster-balanced tile partitions (``partition=``, DESIGN.md §8), the
-executor under the sync and overlap schedules (DESIGN.md §5) and, for
-non-uniform partitions, the shape-specialised and padded ragged executors
-(``ragged_exec=``, DESIGN.md §8-9), the forward / inference wrappers that
-split a global batch into tiles and assemble the global output, and the
-training entry points - the tiled loss and the deferred-aggregation
-gradient step.  A group exchanges halos once at its input; inside it every
+The port of ``repro/core/fusion.py`` without wire codecs: the planner for
+explicit, absent or cost-model-chosen groupings (``groups="auto"`` over a
+hardware profile or cluster, ``core/grouping.py``), spatial->data
+crossovers (``crossover=``, DESIGN.md §7), pipeline tails (``pipeline=``,
+DESIGN.md §11) and explicit or cluster-balanced tile partitions
+(``partition=``, DESIGN.md §8), the executor under the sync and overlap
+schedules (DESIGN.md §5) and, for non-uniform partitions, the
+shape-specialised and padded ragged executors (``ragged_exec=``, DESIGN.md
+§8-9), the pipeline tick executor (``_make_pipeline_local``), the forward
+/ inference wrappers that split a global batch into tiles and assemble the
+global output, and the training entry points - the tiled loss and the
+deferred-aggregation gradient step.  A group exchanges halos once at its input; inside it every
 tile carries a recursively grown halo and recomputes boundary regions
 redundantly.  Data-mode groups run on batch blocks of full maps.
 
@@ -43,12 +44,14 @@ from repro_torch.core.grouping import (
     check_pipeline_arg,
     cluster_manifest,
     cluster_partition,
+    feasible_stage_counts,
     optimize_grouping,
     parse_cluster_spec,
     profile_cost,
     score_profile,
 )
 from repro_torch.core.halo import (
+    _shift,
     _switch_by_size,
     halo_exchange_2d,
     halo_exchange_2d_ragged,
@@ -86,9 +89,13 @@ class StackPlan:
 
     The fields are the reference's, so ``plan_manifest`` describes a port
     plan exactly as it describes the JAX plan with the same knobs.  The port
-    builds plans without pipeline tails or wire codecs: ``stages`` is empty
-    and ``wire_codec`` "none".  ``shard_hw`` is the largest tile per layer;
-    past a crossover the per-layer tile extents are the full maps."""
+    builds plans without wire codecs: ``wire_codec`` is "none".
+    ``shard_hw`` is the largest tile per layer; past a crossover or a
+    pipeline entry the per-layer tile extents are the full maps.  A pipeline
+    tail (DESIGN.md §11) gives each pipeline-mode group - a *stage* - its
+    own contiguous range of flat tiles (``r = i*m + j``): ``stages[s] =
+    (lo, hi)``, equal-sized and row-aligned, so the hand-off between stages
+    is one axis-aligned shift of the tile grid."""
 
     layers: tuple[LayerDef, ...]
     groups: tuple[Group, ...]
@@ -130,13 +137,32 @@ class StackPlan:
         return self.map_hw[-1]
 
     @property
+    def pipeline_first(self) -> int | None:
+        """First pipeline-mode layer index (None = no pipeline tail)."""
+        return pipeline_first_of(self.groups)
+
+    @property
+    def n_stages(self) -> int:
+        return len(self.stages)
+
+    @property
+    def spatial_last(self) -> int:
+        """Deepest spatially tiled layer-input index: the first non-spatial
+        layer, or the stack output for all-spatial plans."""
+        if self.crossover is not None:
+            return self.crossover
+        pf = self.pipeline_first
+        return self.n_layers if pf is None else pf
+
+    @property
     def is_uniform(self) -> bool:
-        """True when every tile has the same shape at every layer."""
+        """True when every tile has the same shape at every spatially tiled
+        layer (the full-map extents past them are equal by construction)."""
         if not self.tile_rows:
             return True
         return all(
-            len(set(r)) == 1 and len(set(c)) == 1
-            for r, c in zip(self.tile_rows, self.tile_cols)
+            len(set(self.tile_rows[l])) == 1 and len(set(self.tile_cols[l])) == 1
+            for l in range(self.spatial_last + 1)
         )
 
 
@@ -291,11 +317,20 @@ def build_stack_plan(
     tile shape over the true extents) or the padded one (``"padded"``,
     DESIGN.md §8: one conv over every tile padded to the largest); either
     runs the sync exchange, whatever ``schedule`` says.
-    inference: plan a forward-only serve step (BN from frozen statistics).
+    pipeline (DESIGN.md §11): None keeps pipeline tails out of the search;
+    ``"auto"`` lets the grouping DP weigh pipeline tails (entry layer x
+    stage count, bubble and transfer terms) against the other candidates;
+    an int forces that many stages.  Planner-assigned only: it needs
+    ``groups="auto"`` (an explicit profile may carry pipeline-mode groups
+    itself).  Stages hold no BN layer, need the sync schedule and a uniform
+    partition of the spatial prefix.  ``microbatches`` is the M the bubble
+    (S-1)/(S-1+M) is modelled with; the executor's M is the grad step's.
+    inference: plan a forward-only serve step (BN from frozen statistics);
+    never with a pipeline tail.
 
     What the reference also plans, the port's executor cannot run yet; the
-    planner raises ``NotImplementedError`` naming the ROADMAP item:
-    pipelines (A.13) and wire codecs (A.14)."""
+    planner raises ``NotImplementedError`` naming the ROADMAP item: wire
+    codecs (A.14)."""
     get_conv_backend(backend)   # fail fast on unknown backends
     if schedule not in ("sync", "overlap", "auto"):
         raise ValueError(f"schedule must be 'sync', 'overlap', or 'auto'; got {schedule!r}")
@@ -307,6 +342,12 @@ def build_stack_plan(
     if wire_codec != "none":
         raise NotImplementedError(f"wire_codec={wire_codec!r}: ROADMAP A.14 (wire codecs)")
     layers = tuple(layers)
+    if inference and pipeline is not None:
+        raise ValueError(
+            "inference plans cannot carry a pipeline tail: a serve step "
+            "needs a single-shot forward layout, but pipeline outputs live "
+            "on the last stage's devices only; plan with pipeline=None"
+        )
     check_pipeline_arg(pipeline, n, m, len(layers))
     if pipeline is not None:
         if schedule == "overlap":
@@ -317,7 +358,14 @@ def build_stack_plan(
                 "programs; use schedule='sync' (or 'auto', which resolves "
                 "to sync for pipeline plans)"
             )
-        raise NotImplementedError("pipeline tails: ROADMAP A.13 (pipeline mode)")
+        if groups is None or not isinstance(groups, str):
+            raise ValueError(
+                "pipeline tails are planner-assigned: use groups='auto' "
+                "with pipeline=..., or pass an explicit profile that "
+                "already carries pipeline-mode groups (e.g. from a plan "
+                "manifest) without the pipeline kwarg"
+            )
+        schedule = "sync" if schedule == "auto" else schedule
     if isinstance(groups, str) and groups != "auto":
         raise ValueError(f"groups must be a profile, None, or 'auto'; got {groups!r}")
     hw = _resolve_hw(hw, n, m) if hw is not None else None
@@ -337,7 +385,8 @@ def build_stack_plan(
                 input_hw, layers, n, m,
                 hw if isinstance(hw, ClusterSpec) else resolve_hw_profile(hw),
                 batch=batch, schedule=schedule, crossover=crossover,
-                mem_limit=mem_limit, partition=partition, microbatches=microbatches,
+                mem_limit=mem_limit, partition=partition, pipeline=pipeline,
+                microbatches=microbatches,
             )
         )
     else:
@@ -349,24 +398,27 @@ def build_stack_plan(
         )
     validate_profile(groups, len(layers))
     cross = crossover_of(groups)
-    if pipeline_first_of(groups) is not None:
-        if schedule == "overlap":
-            raise ValueError(
-                "schedule='overlap' cannot combine with a pipeline tail; "
-                "use schedule='sync'"
-            )
-        raise NotImplementedError("pipeline-mode groups: ROADMAP A.13 (pipeline mode)")
+    pfirst = pipeline_first_of(groups)
+    if inference and pfirst is not None:
+        raise ValueError(
+            "inference plans cannot carry pipeline-mode groups: a serve "
+            "step needs a single-shot forward layout; use a spatial/data "
+            "grouping profile"
+        )
+    stages = _derive_stages(groups, layers, n, m, pfirst, schedule)
 
     map_hw = [tuple(input_hw)]
     for l in layers:
         h, w = map_hw[-1]
         map_hw.append((l.out_extent(h), l.out_extent(w)))
 
-    # The tile partition covers the spatial prefix through the crossover
-    # layer's input; data-mode layers hold full maps and are exempt.
-    last = len(layers) if cross is None else cross
+    # The tile partition covers the spatial prefix through the first
+    # non-spatial layer's input; data- and pipeline-mode layers hold full
+    # maps and are exempt.
+    tail_first = cross if cross is not None else pfirst
+    last = len(layers) if tail_first is None else tail_first
     if partition is None and isinstance(hw, ClusterSpec):
-        partition = cluster_partition(input_hw, layers, hw, cross)
+        partition = cluster_partition(input_hw, layers, hw, tail_first)
     strides = [l.stride for l in layers[:last]]
     try:
         row_bounds = derive_axis_bounds(
@@ -392,9 +444,18 @@ def build_stack_plan(
         tile_rows.append((h,) * n)
         tile_cols.append((w,) * m)
         shard_hw.append((h, w))
+    if pfirst is not None and any(
+        len(set(tile_rows[l])) > 1 or len(set(tile_cols[l])) > 1 for l in range(last + 1)
+    ):
+        raise ValueError(
+            "pipeline plans require a uniform tile partition over the "
+            "spatial prefix (the stage-entry gather slices equal "
+            "microbatch blocks); rebalance the partition or drop the "
+            "pipeline tail"
+        )
 
-    # Group halos + per-layer remaining halos (zero for data-mode groups:
-    # full maps have no neighbours).
+    # Group halos + per-layer remaining halos (zero for data- and
+    # pipeline-mode groups: full maps have no neighbours).
     group_halos: list[tuple[int, int, int, int]] = []
     rem_halos: list[tuple[int, int, int, int]] = [None] * len(layers)  # type: ignore
     group_of_layer: list[int] = [0] * len(layers)
@@ -453,8 +514,48 @@ def build_stack_plan(
         tile_rows=tuple(tile_rows),
         tile_cols=tuple(tile_cols),
         ragged_exec=ragged_exec,
+        stages=stages,
         inference=inference,
     )
+
+
+def _derive_stages(groups, layers, n: int, m: int, pfirst: int | None,
+                   schedule: str) -> tuple[tuple[int, int], ...]:
+    """A pipeline tail's per-stage flat tile ranges (equal, contiguous),
+    after the executor's structural checks, each with its named error: a
+    feasible stage count, no BN layer inside a stage, the sync schedule."""
+    if pfirst is None:
+        return ()
+    pipe_groups = [g for g in groups if g.mode == "pipeline"]
+    s_count = len(pipe_groups)
+    tail_layers = len(layers) - pfirst
+    feas = feasible_stage_counts(n, m, tail_layers)
+    if s_count not in feas:
+        raise ValueError(
+            f"{s_count} pipeline stages are infeasible on the {n}x{m} "
+            f"grid with a {tail_layers}-layer tail: stage subsets must "
+            "be equal-sized and row-aligned (n==1, m==1, or "
+            "devices-per-stage divisible by m) so the inter-stage "
+            "hand-off is one axis-aligned ppermute; feasible counts: "
+            f"{feas or 'none'}"
+        )
+    for g in pipe_groups:
+        for l in g.layers:
+            if layers[l].batch_norm:
+                raise ValueError(
+                    f"layer {l} has batch_norm=True inside a pipeline "
+                    "stage: BN needs batch statistics over every tile of "
+                    "the map, which one stage's tiles do not hold; keep BN "
+                    "layers in the spatial prefix or build the stack with "
+                    "batch_norm=False"
+                )
+    if schedule == "overlap":
+        raise ValueError(
+            "schedule='overlap' cannot combine with a pipeline tail; "
+            "use schedule='sync'"
+        )
+    per_stage = (n * m) // s_count
+    return tuple((s * per_stage, (s + 1) * per_stage) for s in range(s_count))
 
 
 PLAN_MANIFEST_VERSION = 3
@@ -625,6 +726,9 @@ def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan) 
     images of the map on both sides of the crossover (the virtual mesh has
     no batch axis, so b is the entry batch).
 
+    A pipeline plan's tiles leave at its first pipeline group: the stages
+    run in the tick executor (``_make_pipeline_local``).
+
     Non-uniform partitions: ``x`` is the padded layout ``(n, m, b, Hmax,
     Wmax, c)`` and every spatial group runs the shape-specialised executor
     (``_apply_group_spec``) or, when ``plan.ragged_exec == "padded"``, the
@@ -634,6 +738,8 @@ def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan) 
     bg = x.shape[2]
     uniform = plan.is_uniform
     for gi, g in enumerate(plan.groups):
+        if g.mode == "pipeline":
+            break
         if g.mode == "data":
             if gi == 0 or plan.groups[gi - 1].mode != "data":
                 if uniform:
@@ -759,6 +865,178 @@ def _tiles_loss(plan: StackPlan, mesh: TileMesh, loss_local):
     return fn
 
 
+# ---------------------------------------------------------------------------
+# Pipeline-tail executor (DESIGN.md §11): microbatches streaming over the
+# stages' tile subsets on the virtual mesh
+# ---------------------------------------------------------------------------
+
+
+def _pipeline_geometry(plan: StackPlan) -> dict:
+    """Static geometry of a pipeline tail: the stage groups, tiles per
+    stage and the entry layer.  The reference also pads every stage
+    boundary to one container extent, because its per-stage ``lax.switch``
+    branches must share one shape; here each stage's branch is its own
+    call, so activations keep their true extents."""
+    pg = [g for g in plan.groups if g.mode == "pipeline"]
+    return {
+        "groups": pg,
+        "n_stages": len(pg),
+        "per_stage": (plan.n * plan.m) // len(pg),
+        "pfirst": pg[0].start,
+    }
+
+
+def _stage_shift(plan: StackPlan) -> tuple[str, int]:
+    """How "flat index + tiles-per-stage" decomposes into ONE axis-aligned
+    shift of the (n x m) grid: ("row"|"col", shift).  Exists by the
+    row-alignment feasibility rule (``feasible_stage_counts``): stage
+    subsets are whole grid rows (or the grid is a single row/column)."""
+    per = (plan.n * plan.m) // len(plan.stages)
+    if plan.n == 1:
+        return "col", per
+    if plan.m == 1:
+        return "row", per
+    return "row", per // plan.m
+
+
+def pipeline_schedule_census(n_stages: int, microbatches: int) -> dict:
+    """Occupancy census of the fill/drain schedule: stage ``s`` holds real
+    work at tick ``t`` iff ``0 <= t - s < M`` (the executor's ``k = t - s``
+    arithmetic).  ``bubble`` = idle slot fraction, the measured counterpart
+    of the cost model's ``bubble_fraction(S, M) = (S-1)/(S-1+M)`` (idle =
+    S*(S-1) slots out of S*(M+S-1))."""
+    s_n, mb = n_stages, microbatches
+    if s_n < 1 or mb < 1:
+        raise ValueError(f"need n_stages >= 1 and microbatches >= 1; got {n_stages}, {microbatches}")
+    ticks = mb + s_n - 1
+    busy = sum(1 for t in range(ticks) for s in range(s_n) if 0 <= t - s < mb)
+    idle = ticks * s_n - busy
+    return {
+        "stages": s_n,
+        "microbatches": mb,
+        "ticks": ticks,
+        "busy_slots": busy,
+        "idle_slots": idle,
+        "bubble": idle / (ticks * s_n),
+    }
+
+
+def _check_pipeline_batch(plan: StackPlan, b_mu: int) -> None:
+    per = (plan.n * plan.m) // len(plan.stages)
+    if b_mu % per:
+        raise ValueError(
+            f"pipeline stage entry needs the per-microbatch batch ({b_mu}) "
+            f"divisible by the devices per stage ({per}); pick "
+            "batch/grad_accum so each microbatch spreads over one stage's "
+            "device subset"
+        )
+
+
+def _stage_handoff(y: torch.Tensor, plan: StackPlan, s: int) -> torch.Tensor:
+    """Stage ``s``'s output -> stage ``s + 1``'s input, both as the stage's
+    tiles' blocks flattened into the batch ``(P*bp, H, W, C)`` in tile
+    order.  The blocks are laid on the (n, m) tile grid (zeros on every
+    other stage's tiles), moved by ``_stage_shift``'s one axis-aligned
+    shift, and stage ``s + 1``'s tiles are read back: each tile receives
+    the block of the tile of the same stage rank one stage up, as the
+    reference's ``ppermute`` delivers it.  Autograd gives the reverse shift
+    for the cotangent."""
+    n, m = plan.n, plan.m
+    per = (n * m) // len(plan.stages)
+    blocks = y.reshape(per, y.shape[0] // per, *y.shape[1:])
+    zeros = blocks.new_zeros((n * m - per, *blocks.shape[1:]))
+    grid = torch.cat([zeros[:s * per], blocks, zeros[s * per:]]).reshape(n, m, *blocks.shape[1:])
+    kind, shift = _stage_shift(plan)
+    grid = _shift(grid, 0 if kind == "row" else 1, shift)
+    flat = grid.reshape(n * m, *blocks.shape[1:])[(s + 1) * per:(s + 2) * per]
+    return flat.reshape(y.shape[0], *y.shape[1:])
+
+
+def _make_pipeline_local(plan: StackPlan, mesh: TileMesh, loss_local, *, microbatches: int):
+    """The pipeline executor on the virtual tile mesh: ``(params, xs, ts) ->
+    (loss_sum, count)`` with xs (M, b, H, W, C) and ts (M, b, OH, OW, C')
+    global microbatches.  It walks the ``T = M + S - 1`` fill/drain ticks of
+    the reference's tick scan.  At tick ``t`` stage ``s`` owns microbatch
+    ``k = t - s``:
+
+    1. stage 0 takes the entry: the whole grid runs the spatial prefix on
+       microbatch k's tiles (``apply_stack_local``, which stops at the
+       pipeline tail: the reference's ``_apply_spatial_prefix``, the uniform
+       sync executor), the tiles are all-gathered into full maps
+       (``TileMesh.merge``) and each stage-0 tile takes its stage-rank
+       block ``[rank*bp, (rank+1)*bp)`` of the microbatch; ranks 0..P-1 are
+       the stage's tiles in order, so their blocks in tile order are the
+       microbatch itself;
+    2. a later stage takes its hand-off: the previous tick's output of the
+       stage before it, moved one stage on by ``_stage_handoff``;
+    3. the stage's layers run as ONE call per layer over its tiles' blocks
+       flattened into the batch, ``(P*bp, H, W, C)``, through
+       ``apply_layer_data`` (collective-free dense programs: stages hold no
+       BN), so each conv of a stage is one kernel launch a tick;
+    4. the last stage scores microbatch ``t - (S-1)``'s blocks against the
+       same blocks of its target.
+
+    Where the port departs from the reference's literal schedule: the
+    reference runs every stage at every tick (and the prefix on a clamped
+    microbatch past the fill) and masks the idle slots' loss, so their
+    cotangents are exactly zero; here only the ``S*M`` busy (stage, tick)
+    slots and the M real prefix passes run, which changes no value and
+    spends no time on one device that has no idle devices to hide them on.
+    ``local.census`` holds the last call's ``ticks``, ``busy_slots`` (the
+    slots it ran) and ``prefix_passes``."""
+    geom = _pipeline_geometry(plan)
+    pg, n_st, per = geom["groups"], geom["n_stages"], geom["per_stage"]
+    mb = microbatches
+    split = mesh.split
+
+    def branch(g, params, x):
+        x = x[None, None]                            # (1, 1, P*bp, H, W, C): one call
+        for l in g.layers:
+            x = apply_layer_data(
+                x,
+                params[l],
+                plan.layers[l],
+                map_out_hw=plan.map_hw[l + 1],
+                batch_global=x.shape[2],
+                backend=plan.backend,
+                block_oh=plan.block_oh,
+                inference=plan.inference,
+            )
+        return x[0, 0]
+
+    def local(params, xs, ts):
+        census = {"ticks": 0, "busy_slots": 0, "prefix_passes": 0}
+        s_tot = c_tot = 0.0
+        prev: dict[int, torch.Tensor] = {}
+        for t in range(mb + n_st - 1):
+            out: dict[int, torch.Tensor] = {}
+            for s in range(n_st):
+                k = t - s
+                if not 0 <= k < mb:
+                    continue                         # an idle slot: nothing runs
+                if s == 0:
+                    x_in = xs[k]                     # no prefix: the maps are whole
+                    if geom["pfirst"]:
+                        x_in = mesh.merge(apply_stack_local(params, split(x_in), plan))
+                    census["prefix_passes"] += 1
+                else:
+                    x_in = _stage_handoff(prev[s - 1], plan, s - 1)
+                y = branch(pg[s], params, x_in)
+                census["busy_slots"] += 1
+                if s == n_st - 1:
+                    s_l, c_l = loss_local(y, ts[k])  # the same rank blocks, in tile order
+                    s_tot, c_tot = s_tot + s_l, c_tot + c_l
+                else:
+                    out[s] = y
+            prev = out
+            census["ticks"] += 1
+        local.census = census
+        return s_tot, c_tot
+
+    local.census = None
+    return local
+
+
 def _check_data_batch(plan: StackPlan, batch: int) -> None:
     """Named error for hybrid plans whose per-microbatch batch cannot spread
     over the tile grid, raised before the executor runs."""
@@ -782,6 +1060,13 @@ def make_tiled_forward(plan: StackPlan, mesh: TileMesh):
     block order, so either way it is (B, OH, OW, C) in input order.  A
     ragged plan packs the input into its padded tiles and unpacks each
     output tile's valid window."""
+    if plan.stages:
+        raise ValueError(
+            "pipeline plans have no single-shot forward layout: outputs "
+            "live on the last stage's devices only, one microbatch per "
+            "tick; use make_tiled_loss / make_deferred_grad_step (or a "
+            "non-pipeline plan for inference)"
+        )
     if (mesh.n, mesh.m) != (plan.n, plan.m):
         raise ValueError(f"mesh grid {(mesh.n, mesh.m)} != plan grid {(plan.n, plan.m)}")
     split = _in_split(plan, mesh)
@@ -811,11 +1096,9 @@ def _check_not_inference(plan: StackPlan, what: str) -> None:
 
 
 def _check_trainable(plan: StackPlan) -> None:
-    """The reference's training executors the port lacks (pipeline tails,
-    wire codecs) raise here with their ROADMAP item (the planner refuses
-    them already; this guards hand-built plans)."""
-    if plan.stages:
-        raise NotImplementedError("pipeline training: ROADMAP A.13 (pipeline mode)")
+    """The reference's training executor the port lacks (wire codecs)
+    raises here with its ROADMAP item (the planner refuses it already; this
+    guards hand-built plans)."""
     if plan.wire_codec != "none":
         raise NotImplementedError(f"wire_codec={plan.wire_codec!r}: ROADMAP A.14 (wire codecs)")
 
@@ -833,9 +1116,24 @@ def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
     plan scores each output tile's true core (``_spec_core_loss``), a
     padded plan its zero-padded tiles with the count rescaled
     (``_ragged_count_scale``).  Autograd through it gives the paper's tiled
-    backward pass."""
+    backward pass.  A pipeline plan runs the tick executor with M=1 (the
+    batch streams through the stages once) and the last stage scores its
+    tiles' rank blocks: the untiled loss again; the returned function's
+    ``census`` holds the last call's slot counts."""
     _check_not_inference(plan, "make_tiled_loss")
     _check_trainable(plan)
+    if plan.stages:
+        local = _make_pipeline_local(plan, mesh, loss_local, microbatches=1)
+
+        def ploss(params, x, target):
+            x = torch.as_tensor(x, device=mesh.device)
+            _check_pipeline_batch(plan, x.shape[0])
+            s, c = local(params, x[None], torch.as_tensor(target, device=mesh.device)[None])
+            ploss.census = local.census
+            return s / c
+
+        ploss.census = None
+        return ploss
     split = _in_split(plan, mesh)
     tiles_loss = _tiles_loss(plan, mesh, loss_local)
 
@@ -872,9 +1170,19 @@ def make_deferred_grad_step(
     per-tile partials inside its own reduction.  A ``torch.distributed``
     backend, one tile per device, makes that sum an explicit all-reduce
     (later work).  Ragged plans score each microbatch as
-    ``make_tiled_loss`` does."""
+    ``make_tiled_loss`` does.
+
+    A pipeline plan takes ``microbatches`` as the pipeline depth M: ONE
+    autograd pass over the whole tick loop streams all M microbatches
+    through the stages (the cotangents flow back through the reverse
+    hand-offs), then the one division by the global count; the trainer
+    tail, int8-EF included, is the same.  It holds all M microbatches'
+    activations at once.  The returned function's ``census`` holds the last
+    call's slot counts."""
     _check_not_inference(plan, "make_deferred_grad_step")
     _check_trainable(plan)
+    if plan.stages:
+        return _pipeline_grad_step(plan, mesh, loss_local, microbatches)
     split = _in_split(plan, mesh)
     tiles_loss = _tiles_loss(plan, mesh, loss_local)
 
@@ -907,6 +1215,30 @@ def make_deferred_grad_step(
         return loss_sum / cnt, grads
 
     return step
+
+
+def _pipeline_grad_step(plan: StackPlan, mesh: TileMesh, loss_local, microbatches: int):
+    local = _make_pipeline_local(plan, mesh, loss_local, microbatches=microbatches)
+
+    def pstep(params, xs, ts):
+        xs = torch.as_tensor(xs, device=mesh.device)
+        ts = torch.as_tensor(ts, device=mesh.device)
+        if xs.shape[0] != microbatches or ts.shape[0] != microbatches:
+            raise ValueError(
+                f"pipeline grad step built for microbatches={microbatches}; got "
+                f"{xs.shape[0]} input and {ts.shape[0]} target microbatches"
+            )
+        _check_pipeline_batch(plan, xs.shape[1])
+        live = [{k: v.detach().requires_grad_(True) for k, v in p.items()} for p in params]
+        leaves = [v for p in live for v in p.values()]
+        s, c = local(live, xs, ts)
+        pstep.census = local.census
+        g = torch.autograd.grad(s, leaves, allow_unused=True)
+        it = iter(torch.zeros_like(v) if gi is None else gi / c for v, gi in zip(leaves, g))
+        return s.detach() / c, [{k: next(it) for k in p} for p in live]
+
+    pstep.census = None
+    return pstep
 
 
 def make_tiled_infer(plan: StackPlan, mesh: TileMesh):

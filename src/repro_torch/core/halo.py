@@ -40,18 +40,20 @@ def _shift_perm(n: int, direction: int) -> list[tuple[int, int]]:
 
 
 def _shift(x: torch.Tensor, tile_dim: int, direction: int) -> torch.Tensor:
-    """``ppermute(x, _shift_perm(n, direction))`` along tile dimension
-    ``tile_dim``: receiver j gets sender j - direction's block, and the
-    tile with no sender gets zeros."""
+    """``ppermute`` along tile dimension ``tile_dim`` by ``direction`` tiles:
+    receiver j gets sender j - direction's block, and the tiles with no
+    sender get zeros.  +-1 is ``_shift_perm``'s neighbour shift; a pipeline
+    hand-off moves a whole stage's tiles at once."""
     n = x.shape[tile_dim]
-    if direction not in (1, -1):
+    k = abs(direction)
+    if k == 0:
         raise ValueError(direction)
-    zeros = torch.zeros_like(x.narrow(tile_dim, 0, 1))
-    if n == 1:
-        return zeros
-    if direction == 1:
-        return torch.cat([zeros, x.narrow(tile_dim, 0, n - 1)], dim=tile_dim)
-    return torch.cat([x.narrow(tile_dim, 1, n - 1), zeros], dim=tile_dim)
+    if k >= n:
+        return torch.zeros_like(x)
+    zeros = torch.zeros_like(x.narrow(tile_dim, 0, k))
+    if direction > 0:
+        return torch.cat([zeros, x.narrow(tile_dim, 0, n - k)], dim=tile_dim)
+    return torch.cat([x.narrow(tile_dim, k, n - k), zeros], dim=tile_dim)
 
 
 def _check_halo(halo_lo: int, halo_hi: int, size: int) -> None:

@@ -16,9 +16,11 @@ gets the near-even ragged split - both run the shape-specialised ragged
 executor.  ``--schedule`` picks the executor (overlap: packed exchange and
 the interior/boundary split, uniform groups only), ``--crossover`` a hybrid
 plan's spatial->data switch (the per-microbatch batch must then divide by
-grid^2).  Flags of the reference the port does not have yet raise naming
-their ROADMAP item: ``--pipeline`` (A.13), ``--wire-codec`` (A.14),
-``--ckpt-dir`` and ``--fault-schedule`` (A.15).
+grid^2), ``--pipeline`` a pipeline tail (``none``, ``auto`` or a stage
+count; stages hold no BN layer, so with ``--no-batch-norm``, and
+``--grad-accum`` microbatches stream through them).  Flags of the reference
+the port does not have yet raise naming their ROADMAP item:
+``--wire-codec`` (A.14), ``--ckpt-dir`` and ``--fault-schedule`` (A.15).
 
 LM mode (``--arch qwen2-7b`` or ``mamba2-780m``; the other LM ids are A.18):
 the reduced config unless ``--full``, ``--seq`` x ``--batch`` tokens a step from
@@ -53,10 +55,17 @@ def _resolve_crossover(spec: str):
     return int(spec)
 
 
-def _resolve_int_or_auto(spec: str):
+def _resolve_pipeline(spec: str):
     if spec == "none":
         return None
-    return spec if spec == "auto" else int(spec)
+    if spec == "auto":
+        return "auto"
+    try:
+        return int(spec)   # check_pipeline_arg validates the count itself
+    except ValueError:
+        raise SystemExit(
+            f"--pipeline must be 'none', 'auto', or a stage count; got {spec!r}"
+        ) from None
 
 
 def _add_args(ap: argparse.ArgumentParser) -> None:
@@ -102,8 +111,11 @@ def _add_args(ap: argparse.ArgumentParser) -> None:
                     help="spatial->data crossover layer - 'none' (all spatial), 'auto' "
                          "(cost-model choice; joint with the grouping DP under --groups "
                          "auto), or a layer index N")
+    ap.add_argument("--pipeline", default="none",
+                    help="pipeline tail over tile subsets: 'none', 'auto' (the cost "
+                         "model's choice) or a stage count; needs --groups auto, and BN "
+                         "layers must stay out of the tail (see --no-batch-norm)")
     # the reference's flags the port does not plan yet (each raises)
-    ap.add_argument("--pipeline", default="none")
     ap.add_argument("--wire-codec", default="none")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--fault-schedule", default=None)
@@ -147,7 +159,7 @@ def _run_tiled(args) -> int:
         hw=cluster if cluster is not None else args.hw_profile,
         batch=args.batch,
         crossover=_resolve_crossover(args.crossover),
-        pipeline=_resolve_int_or_auto(args.pipeline),
+        pipeline=_resolve_pipeline(args.pipeline),
         microbatches=max(args.grad_accum, 1),
         wire_codec=args.wire_codec,
         batch_norm=not args.no_batch_norm,
@@ -156,7 +168,8 @@ def _run_tiled(args) -> int:
     plan = arch.plan
     print(f"plan: backend={plan.backend} schedule={plan.schedule} "
           f"grid={args.grid}x{args.grid} crossover={plan.crossover} "
-          f"groups={[(g.start, g.end, g.mode) for g in plan.groups]} device={arch.mesh.device}")
+          f"groups={[(g.start, g.end, g.mode) for g in plan.groups]}"
+          + (f" stages={plan.stages}" if plan.stages else "") + f" device={arch.mesh.device}")
     print(f"partition: rows={plan.partition.row_bounds} cols={plan.partition.col_bounds} "
           f"uniform={plan.is_uniform}" + (f" cluster={args.cluster}" if args.cluster else ""))
     pcfg = ParallelConfig(grad_accum=args.grad_accum)

@@ -10,6 +10,8 @@ For a tiled-CNN bundle (``arch.kind == "tiled_cnn"``) the grads come from
 ``core.fusion.make_deferred_grad_step``: ``pcfg.grad_accum`` microbatches
 accumulate per-tile weight-gradient partial sums, and one division by the
 global count at batch end gives the final gradients - the paper's schedule.
+Over a pipeline plan the same microbatches stream through the stages in one
+autograd pass (``pcfg.grad_accum`` is the pipeline depth M).
 For an LM bundle (``models.registry.ArchBundle``) the grads come from
 autograd over ``arch.loss_fn``; with ``pcfg.grad_accum`` > 1 the
 microbatches' grads are summed into fp32 zeros and divided once, and the
@@ -153,9 +155,24 @@ def _make_tiled_cnn_train_step(arch, pcfg: ParallelConfig, tcfg: TrainConfig, on
                 )
             return v.reshape((accum, v.shape[0] // accum) + tuple(v.shape[1:]))
 
+        plan = arch.plan
+        if plan.stages:
+            # the trainer's words for the pipeline batch rule: each of the
+            # grad_accum microbatches streamed through the stages must split
+            # over one stage's tiles
+            per = (plan.n * plan.m) // len(plan.stages)
+            b = batch["x"].shape[0]
+            if b % accum or (b // accum) % per:
+                raise ValueError(
+                    f"pipeline plan with {len(plan.stages)} stages needs "
+                    f"the global batch ({b}) divisible by grad_accum "
+                    f"({accum}) and the per-microbatch batch by the "
+                    f"devices per stage ({per}); adjust --batch/--grad-accum"
+                )
         loss, grads = grad_step(state.params, split(batch["x"]), split(batch["t"]))
         if on_grads is not None:
             on_grads(state.step, loss, grads)
         return _apply_updates(state, loss, grads, opt, tcfg)
 
+    train_step.grad_step = grad_step     # its ``census`` after a pipeline plan's step
     return init_state, train_step

@@ -17,7 +17,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NOT_YET = {
     "core": {
         **dict.fromkeys(["EFBag", "WireCtx", "send_boundary_sum_1d", "wire_shift"], "A.14"),
-        **dict.fromkeys(["pipeline_schedule_census"], "A.13"),
         **dict.fromkeys(["plan_from_manifest", "replan_stack"], "A.15"),
     },
     "optim": dict.fromkeys(["WireCodec", "ef_encode"], "A.14"),

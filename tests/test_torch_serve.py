@@ -177,18 +177,24 @@ def _plan_mode(kw, **extra):
 
 def test_unported_planning_modes_raise_with_roadmap_item():
     layers = yolov2_16_layers()[:4]
-    cases = [
-        (dict(groups="auto", pipeline="auto"), "A.13"),
-        (dict(pipeline=2), "A.13"),
-        (dict(wire_codec="int8"), "A.14"),
-    ]
-    for kw, item in cases:
-        groups = kw.pop("groups", None)
-        with pytest.raises(NotImplementedError, match=item):
-            tfu.build_stack_plan((32, 32), layers, 2, 2, groups, **kw)
+    with pytest.raises(NotImplementedError, match="A.14"):
+        tfu.build_stack_plan((32, 32), layers, 2, 2, wire_codec="int8")
+    # the A.13 cases now meet the reference's outcomes: pipeline=2 without
+    # groups="auto" is refused, with it the BN layers refuse a stage, and
+    # pipeline="auto" plans the reference's groups (no tail for this stack)
+    jlayers = jax_yolo_layers()[:4]
+    for mod, ls in ((jfu, jlayers), (tfu, layers)):
+        with pytest.raises(ValueError, match="pipeline tails are planner-assigned"):
+            mod.build_stack_plan((32, 32), ls, 2, 2, pipeline=2)
+        with pytest.raises(ValueError, match="batch_norm=True inside a pipeline stage"):
+            mod.build_stack_plan((32, 32), ls, 2, 2, "auto", pipeline=2)
+    got = tfu.build_stack_plan((32, 32), layers, 2, 2, "auto", pipeline="auto")
+    want = jfu.build_stack_plan((32, 32), jlayers, 2, 2, "auto", pipeline="auto")
+    assert [(g.start, g.end, g.mode) for g in got.groups] == \
+        [(g.start, g.end, g.mode) for g in want.groups]
+    assert got.stages == want.stages
     # the A.10, A.11 and A.12 cases now plan (test_ported_planning_modes_run
     # runs them); the A.12 ones plan the reference's ragged partition
-    jlayers = jax_yolo_layers()[:4]
     for kw, (schedule, crossover) in PORTED_MODES:
         plan = _plan_mode(kw)
         assert (plan.schedule, plan.crossover) == (schedule, crossover), kw

@@ -202,9 +202,22 @@ def test_training_entry_points_refuse_serve_plans_and_bad_microbatches():
     step = tfu.make_deferred_grad_step(plan, mesh, l2_loss_local, microbatches=1)
     with pytest.raises(ValueError, match="microbatches=1"):
         step(params_from_jax(params, "cpu"), xs, ts)
-    for field, value, item in (("stages", ((0, 2),), "A.13"), ("wire_codec", "int8", "A.14")):
-        with pytest.raises(NotImplementedError, match=item):
-            tfu.make_tiled_loss(dataclasses.replace(plan, **{field: value}), mesh, l2_loss_local)
+    with pytest.raises(NotImplementedError, match="A.14"):
+        tfu.make_tiled_loss(dataclasses.replace(plan, wire_codec="int8"), mesh, l2_loss_local)
+    # A pipeline plan (ROADMAP A.13) now trains: the BN-free stack's two
+    # stages on the 2x2 grid score the untiled loss, and a microbatch that
+    # cannot spread over a stage's two tiles is the named error.
+    layers = [dataclasses.replace(l, batch_norm=False) for l in _port(CASES["yolo4-none"][0])]
+    pipe = tfu.build_stack_plan(HW, layers, 2, 2, "auto", pipeline=2)
+    assert pipe.stages == ((0, 2), (2, 4))
+    pp = tsp.init_stack_params(torch.Generator().manual_seed(0), layers)
+    x = torch.from_numpy(np.concatenate(list(xs)))
+    t = torch.from_numpy(np.concatenate(list(ts)))
+    got = tfu.make_tiled_loss(pipe, mesh, l2_loss_local)(pp, x, t)
+    want = tfu.reference_loss(pp, x, t, pipe, l2_loss_local)
+    assert abs(float(got) - float(want)) < LOSS_RTOL * max(1.0, float(want))
+    with pytest.raises(ValueError, match=r"batch \(3\) divisible by the devices per stage"):
+        tfu.make_tiled_loss(pipe, mesh, l2_loss_local)(pp, x[:3], t[:3])
     # A hybrid plan (crossover 2, ROADMAP A.11) now trains: a microbatch of
     # 2 cannot spread over the 4 tiles (the named error), one of 4 equals
     # the untiled loss.
@@ -597,10 +610,22 @@ def test_launcher_trains_on_cpu(capsys):
 def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys):
     """Unported flags raise naming their ROADMAP item; the flags of A.10
     (overlap), A.11 (hybrid plans) and A.12 (a heterogeneous cluster's
-    balanced, ragged partition) now train under the same flags."""
+    balanced, ragged partition) now train under the same flags, and those of
+    A.13 (pipeline tails) meet the reference's outcomes: ``--pipeline auto``
+    with ``--groups auto`` plans no tail for this BN stack and trains,
+    ``--pipeline 2`` without ``--groups auto`` is refused by the planner."""
     from repro_torch.launch.train import main
 
     base = ["--device", "cpu", "--input-hw", "32", "--depth", "4", "--steps", "1", "--grid", "2"]
+    if item == "A.13":
+        if "auto" in flags:
+            assert main(base + flags) == 0
+            out = capsys.readouterr().out
+            assert "pipeline" not in out.split("partition:")[0] and "done: steps=1 restarts=0" in out
+        else:
+            with pytest.raises(ValueError, match="pipeline tails are planner-assigned"):
+                main(base + flags)
+        return
     if item in ("A.10", "A.11", "A.12"):
         assert main(base + flags) == 0
         out = capsys.readouterr().out
