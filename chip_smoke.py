@@ -158,8 +158,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (its plan line prints ``stages=``); B1-B3 held as in phase 3 at every
    new shape (the stages' full maps); the ``{"pipeline": ...}`` line gives
    each plan's device work, event and host step, idle share, slots and
-   peak memory.  The ``{"kernels": ...}`` line's launches include phases
-   12's to 15's.
+   peak memory;
+16. wire codecs (``WIRE_PLANS_416``, ``wire_phase``), each plan trained
+   through B1-B3 under its codec beside its none twin (the same plan,
+   uncompressed): (a) phase 5's hand-picked 2x2 plan under int8 for 3
+   steps - its step-1 loss within ``WIRE_LOSS_RTOL`` of phase 5's, its
+   step-1 grads within ``CODEC_BAR`` x the codec's own effect of the same
+   codec plan on the plain versions (normwise, per leaf; the bar of
+   ``tests/test_torch_wire_codec.py``), a tile's decode scale planted x2
+   that this check must reject, the EF carry across the two microbatches
+   (the second one's residuals are the first one's, nonzero, and dropping
+   them moves the grads) and EF's telescoping on one recorded exchange on
+   the card; (b) one step each of phase 13's overlap+hybrid plan under
+   topk:0.5, phase 14's padded cluster and phase 15's pipe2x2 under int8;
+   (c) the ``jetson-edge-100m`` plan planned under int8, trained one step
+   and served on ``WIRE_SERVE_BUCKETS`` through the engine, its responses
+   within ``CODEC_BAR`` of the plain codec forward; (d) both launchers with
+   ``--wire-codec int8``; (e) B1-B3 at every new per-tile shape; the
+   ``{"wire": ...}`` line gives each plan's device kernels a step, device
+   work, event step, idle share, peak memory and
+   ``modeled_step_wire_bytes`` beside its none twin's.  The
+   ``{"kernels": ...}`` line's launches include phases 12's to 16's.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -390,6 +409,39 @@ def pipeline_kw(stages: int, microbatches: int) -> dict:
     """Planner knobs of a phase-15 plan."""
     return dict(groups="auto", hw=PIPELINE_HW, batch=TRAIN_BATCH, pipeline=stages,
                 microbatches=microbatches)
+
+
+# Phase 16: wire codecs (DESIGN.md §12).  The whole-plan bar of
+# tests/test_torch_wire_codec.py: a codec plan's output or gradient through
+# B1-B3 within CODEC_BAR x the codec's own effect on the plain torch run
+# (||kernel run - plain codec run|| <= CODEC_BAR x ||plain codec run - plain
+# none run||, normwise per leaf), or the fp32 bar taken normwise where that
+# is larger.  The planted decode fault multiplies the scales one tile decodes
+# with by DECODE_FAULT_SCALE.
+CODEC_BAR = 0.1
+DECODE_FAULT_SCALE = 2.0
+# The codec plan's step-1 loss against phase 5's uncompressed loss on the
+# same batch (scripts/check_pipeline.py:490 holds int8 training to 1e-2).
+WIRE_LOSS_RTOL = 1e-2
+# name: (grid, plan kwargs, codec, steps, batch_norm); groups as (start,
+# end, mode) tuples.  "sync2x2": phase 5's hand-picked groups; "hybrid_tpu":
+# HYBRID_HW's overlap+hybrid plan of phase 13; "cluster_padded": phase 14's
+# cluster plan under the padded executor; "pipe2x2": phase 15's plan;
+# "edge_auto": groups and crossover planned under int8 on jetson-edge-100m,
+# where the cheaper wire coarsens the plan.
+WIRE_PLANS_416 = {
+    "sync2x2": ((2, 2), dict(groups=[(0, 3, "spatial"), (4, 7, "spatial"), (8, 11, "spatial"),
+                                     (12, 15, "spatial")]), "int8", TRAIN_STEPS, True),
+    "hybrid_tpu": ((2, 2), dict(groups=HYBRID_PLANS_416[HYBRID_HW][1], schedule="overlap"),
+                   "topk:0.5", 1, True),
+    "cluster_padded": ((2, 2), dict(_CLUSTER_KW, groups=_PAIRS, ragged_exec="padded"), "int8", 1,
+                       True),
+    "pipe2x2": ((2, 2), dict(groups=PIPELINE_PLANS_416["pipe2x2"][3], hw=PIPELINE_HW,
+                             batch=TRAIN_BATCH, microbatches=2), "int8", 1, False),
+    "edge_auto": ((2, 2), dict(groups="auto", hw="jetson-edge-100m", batch=TRAIN_BATCH,
+                               crossover="auto", microbatches=TRAIN_ACCUM), "int8", 1, True),
+}
+WIRE_SERVE_BUCKETS = (4, 8)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -666,8 +718,8 @@ def planted_handoff_fault(arch, params0, xs, ts, names, ref64, bars, normwise, a
     per = (arch.plan.n * arch.plan.m) // len(arch.plan.stages)
     check(per > 1, "the hand-off fault needs two stage ranks")
 
-    def handoff_to_the_wrong_rank(y, plan, s):
-        out = real(y, plan, s).reshape(per, -1, *y.shape[1:])
+    def handoff_to_the_wrong_rank(y, plan, s, wire=None):
+        out = real(y, plan, s, wire).reshape(per, -1, *y.shape[1:])
         return torch.cat([torch.zeros_like(out[:1]), out[:-1]]).reshape(-1, *y.shape[1:])
 
     fusion._stage_handoff = handoff_to_the_wrong_rank
@@ -947,6 +999,454 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     }
     print(json.dumps({label: out}))
     return out
+
+
+def normwise_codec(got, plain_codec, plain_none, bar: float) -> tuple[float, float]:
+    """(err, bar) of the whole-plan codec bar: ||got - plain_codec|| against
+    max(bar ||plain_codec - plain_none||, the fp32 bar taken normwise)."""
+    got, pc, pn = (t.detach().double() for t in (got, plain_codec, plain_none))
+    err = float((got - pc).norm())
+    fp32 = TOL_FP32["atol"] * math.sqrt(pc.numel()) + TOL_FP32["rtol"] * float(pc.norm())
+    return err, max(bar * float((pc - pn).norm()), fp32)
+
+
+def wire_run(dev, smi: str, arch, label: str, steps: int, accum: int) -> dict:
+    """Phase 16: train ``arch`` (a codec plan or its none twin) for ``steps``
+    steps of ``accum`` microbatches through B1-B3 as phase 5 does, then
+    profile one step.  Returns its numbers, the step-1 loss and gradients
+    (as the run's update saw them) and the run's conv launches against the
+    code's count."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.kernels.conv2d_tiled.kernel import (
+        conv2d_dgrad_tile,
+        conv2d_tile,
+        conv2d_wgrad_tile,
+        reset_launches,
+    )
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime.driver import DriverConfig, run_training
+    from repro_torch.train.trainer import make_train_step
+
+    plan = arch.plan
+    pcfg = ParallelConfig(grad_accum=accum)
+    tcfg = TrainConfig(lr=TRAIN_LR, optimizer="sgd", warmup=0, steps=steps, seed=SEED)
+    step1 = {}
+
+    def on_grads(step, loss, grads):
+        if step == 0 and not step1:
+            step1.update(loss=float(loss), grads=[g.detach().clone() for g in tree_leaves(grads)])
+
+    init_state, train_step = make_train_step(arch, pcfg, tcfg, on_grads=on_grads)
+    make_batch = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch.target_shape(TRAIN_BATCH), SEED, dev)
+    events, logged = [], []
+
+    def timed_step(state, batch):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = train_step(state, batch)
+        b.record()
+        events.append((a, b))
+        logged.append(m)
+        return state, m
+
+    kernels = {"conv2d_tile": conv2d_tile, "conv2d_dgrad_tile": conv2d_dgrad_tile,
+               "conv2d_wgrad_tile": conv2d_wgrad_tile}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for f in kernels.values():
+        f.launches = 0
+    reset_launches()
+    report = run_training(init_state=init_state, train_step=timed_step, make_batch=make_batch,
+                          steps=steps, cfg=DriverConfig(), seed=SEED)
+    launches = {name: f.launches for name, f in kernels.items()}
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(m["loss"]) for m in logged]
+    per_mb, _ = launches_per_batch(plan, TRAIN_BATCH // accum)
+    want = {k: v * accum * steps for k, v in per_mb.items()}
+    print(f"{label}: codec {plan.wire_codec}, schedule {plan.schedule}, crossover "
+          f"{plan.crossover}, groups {[(g.start, g.end, g.mode) for g in plan.groups]}, stages "
+          f"{plan.stages}, tile rows {plan.tile_rows[0]}; trained {report.steps_done} steps, "
+          f"losses {losses}, conv launches {launches} (the code's {want})")
+    check(report.restarts == 0 and report.steps_done == steps, f"{label}: run {report}")
+    check(all(np.isfinite(losses)), f"{label}: losses {losses}")
+    check(launches == want, f"{label}: conv launches {launches} != the code's {want}")
+    check(step1["loss"] == losses[0], f"{label}: on_grads saw another loss than the run logged")
+
+    # one step under the profiler: device work, device kernels, idle share
+    state = init_state(SEED)
+    batch = make_batch(0)
+    train_step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_ms_by_name(prof, 1)
+    dev_ms = sum(by_name.values())
+    kernel_events = sum(e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(dev_ms > 0, f"{label}: the profiler saw no device time")
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    return {
+        "codec": plan.wire_codec, "grid": [plan.n, plan.m], "schedule": plan.schedule,
+        "crossover": plan.crossover, "groups": [[g.start, g.end, g.mode] for g in plan.groups],
+        "stages": [list(s) for s in plan.stages], "ragged_exec": None if plan.is_uniform
+        else plan.ragged_exec, "steps": steps, "microbatches": accum, "loss": losses,
+        "step_ms_cuda_events": step_ms, "step_ms_cuda_events_median": statistics.median(step_ms),
+        "step_ms_host_median": statistics.median(report.step_times) * 1e3,
+        "device_ms": dev_ms, "profiled_wall_ms": wall_ms,
+        "idle_share": max(0.0, 1 - dev_ms / wall_ms), "device_kernels_per_step": kernel_events,
+        "peak_mem_bytes": peak, "conv_launches": launches,
+        "conv_launches_per_microbatch": per_mb, "card": smi,
+        "_step1": step1,
+    }
+
+
+def plain_grads(arch, codec: str, accum: int):
+    """Step 1's loss and gradients of ``arch``'s plan under ``codec`` on the
+    plain torch versions (cuDNN, TF32 off, autograd) on the card, from the
+    seeded params and batch 0 - the run's own update's inputs."""
+    import dataclasses as dc
+
+    from repro_torch.core.fusion import make_deferred_grad_step
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.optim.optimizers import tree_leaves
+
+    plan = dc.replace(arch.plan, backend="torch", wire_codec=codec)
+    b0 = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch.target_shape(TRAIN_BATCH), SEED,
+                       arch.mesh.device)(0)
+
+    def split(v):
+        return v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
+
+    loss, grads = make_deferred_grad_step(plan, arch.mesh, arch.loss_local, microbatches=accum)(
+        arch.init(SEED), split(b0["x"]), split(b0["t"]))
+    return float(loss), tree_leaves(grads)
+
+
+def codec_grad_check(arch, accum: int, got, bar: float, what: str, plain=None):
+    """Every leaf of ``got`` (step-1 gradients) against the plain codec run
+    at the whole-plan bar; -> (per-leaf err / bar, plain runs)."""
+    names = [f"{i}.{k}" for i, p in enumerate(arch.init(SEED)) for k in p]
+    if plain is None:
+        plain = (plain_grads(arch, arch.plan.wire_codec, accum)[1],
+                 plain_grads(arch, "none", accum)[1])
+    ratios = {}
+    for n, g, pc, pn in zip(names, got, *plain):
+        err, b = normwise_codec(g, pc, pn, bar)
+        ratios[n] = err / b
+    worst = max(ratios, key=ratios.get)
+    print(f"  {what}: step-1 grads vs the plain codec run, err / bar (bar {bar} x the codec's "
+          f"effect) from {min(ratios.values()):.3g} to {ratios[worst]:.3g} ({worst})")
+    return ratios, plain
+
+
+def wire_phase(dev, smi: str, phase5_loss: float, held_b1: set, held_bwd: set, fwd_row, bwd_rows,
+               calib, images):
+    """Phase 16: wire codecs on the card (``WIRE_PLANS_416``): (a) the
+    hand-picked 2x2 plan under int8 - its step-1 loss against phase 5's,
+    its step-1 grads against the plain codec run at ``CODEC_BAR``, a planted
+    decode-scale fault that check must reject, the EF carry across the
+    microbatches and EF's telescoping on one recorded exchange; (b) one step each of the hybrid (top-k), padded cluster and
+    pipe2x2 plans; (c) the jetson-edge-100m int8 plan trained and served on
+    ``WIRE_SERVE_BUCKETS``, responses at ``CODEC_BAR`` against the plain
+    codec forward; (d) both launchers with ``--wire-codec int8``; (e) B1-B3
+    at every new per-tile shape (``fwd_row`` / ``bwd_rows``, phase 3's
+    checks).  Every plan beside its none twin in the ``{"wire": ...}``
+    line.  Returns (conv launches, B1, B2 and B3 rows of the new shapes)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tiling import Group
+    from repro_torch.kernels.conv2d_tiled.kernel import (
+        conv2d_dgrad_tile,
+        conv2d_tile,
+        conv2d_wgrad_tile,
+        reset_launches,
+    )
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models.yolo import make_yolo_tiled_arch
+
+    def reset_counts():
+        for f in (conv2d_tile, conv2d_dgrad_tile, conv2d_wgrad_tile):
+            f.launches = 0
+        reset_launches()
+
+    def shape_key(s):
+        return s["x"], s["w"], s["stride"]
+
+    # (a)-(c): each plan under its codec beside its none twin (the same plan,
+    # codec "none"), trained through B1-B3
+    import repro_torch.core.fusion as fusion_mod
+    import repro_torch.core.halo as halo_mod
+    from repro_torch.core.grouping import PI3_PROFILE, PROFILES, modeled_step_wire_bytes
+    from repro_torch.core.fusion import make_deferred_grad_step, make_tiled_infer
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.tiled_cnn import TiledCNNArch
+    from repro_torch.optim.compression import WireCodec, ef_encode, get_codec
+    from repro_torch.optim.optimizers import tree_leaves
+
+    wire_runs, plans16, archs16 = {}, {}, {}
+    wire_launches = {k: 0 for k in ("conv2d_tile", "conv2d_dgrad_tile", "conv2d_wgrad_tile")}
+    for name, (grid16, kw16, codec16, steps16, bn16) in WIRE_PLANS_416.items():
+        if not isinstance(kw16["groups"], str):
+            kw16 = dict(kw16, groups=[Group(*g) for g in kw16["groups"]])
+        a16 = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=grid16[0], m=grid16[1],
+                                   backend="cuda", device=dev, batch_norm=bn16, wire_codec=codec16,
+                                   **kw16)
+        twin = TiledCNNArch(plan=dataclasses.replace(a16.plan, wire_codec="none"),
+                            mesh=a16.mesh, loss_local=a16.loss_local)
+        hw16 = kw16.get("hw")
+        prof16 = PROFILES.get(hw16, PI3_PROFILE) if isinstance(hw16, str) else PI3_PROFILE
+        runs = {}
+        for c, a in ((codec16, a16), ("none", twin)):
+            r = wire_run(dev, smi, a, f"wire_{name}_{c}", steps16, TRAIN_ACCUM)
+            r["modeled_step_wire_bytes"] = modeled_step_wire_bytes(
+                INPUT_HW, a.plan.layers, a.plan.groups, a.plan.n, a.plan.m, prof16,
+                batch=TRAIN_BATCH, wire_codec=c)
+            for k in wire_launches:
+                wire_launches[k] += r["conv_launches"][k]
+            runs[c] = r
+        rel = abs(runs[codec16]["loss"][0] - runs["none"]["loss"][0]) / abs(runs["none"]["loss"][0])
+        print(f"wire {name}: step-1 loss {codec16} {runs[codec16]['loss'][0]:.7g} vs none "
+              f"{runs['none']['loss'][0]:.7g} (rel {rel:.2e}, bar {WIRE_LOSS_RTOL}); device kernels "
+              f"a step {runs[codec16]['device_kernels_per_step']} vs "
+              f"{runs['none']['device_kernels_per_step']}")
+        check(rel <= WIRE_LOSS_RTOL, f"wire {name}: step-1 loss rel {rel} over {WIRE_LOSS_RTOL}")
+        wire_runs[name], plans16[name], archs16[name] = runs, a16.plan, a16
+
+    # (a) the hand-picked 2x2 plan under int8: the step-1 loss against phase 5's
+    # (the same plan, uncompressed, on the same batch), the step-1 grads
+    # against the same codec plan on the plain versions, two planted faults
+    # the same check must reject, and EF's telescoping on one exchange
+    a16 = archs16["sync2x2"]
+    r16 = wire_runs["sync2x2"]["int8"]
+    rel5 = abs(r16["loss"][0] - phase5_loss) / abs(phase5_loss)
+    print(f"wire sync2x2: int8 step-1 loss {r16['loss'][0]:.7g} vs phase 5's {phase5_loss:.7g} "
+          f"(rel {rel5:.2e}, bar {WIRE_LOSS_RTOL})")
+    check(rel5 <= WIRE_LOSS_RTOL, f"wire sync2x2: step-1 loss rel {rel5} vs phase 5")
+    check(wire_runs["sync2x2"]["none"]["loss"][0] == phase5_loss,
+          "the none twin's step-1 loss is not phase 5's")
+    good16, plain16 = codec_grad_check(a16, TRAIN_ACCUM, r16["_step1"]["grads"], CODEC_BAR,
+                                       "sync2x2 int8 run")
+    check(all(v <= 1.0 for v in good16.values()),
+          f"wire sync2x2: step-1 grads over the bar: {good16}")
+    b0 = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], a16.target_shape(TRAIN_BATCH), SEED, dev)(0)
+    xs16 = b0["x"].reshape(TRAIN_ACCUM, -1, *b0["x"].shape[1:])
+    ts16 = b0["t"].reshape(TRAIN_ACCUM, -1, *b0["t"].shape[1:])
+
+    def faulty_grads():
+        return tree_leaves(make_deferred_grad_step(a16.plan, a16.mesh, a16.loss_local,
+                                                   microbatches=TRAIN_ACCUM)(
+            a16.init(SEED), xs16, ts16)[1])
+
+    # A dropped EF carry moves these grads by well under CODEC_BAR x the
+    # codec's effect (the forward strips' stateless quantisation dominates
+    # that effect at full width), so the carry is checked directly: the
+    # second microbatch's bag hands out the first one's new residuals, one
+    # per exchange, nonzero, and dropping them changes the grads (the
+    # kernels give the same bits on a rerun, so any change is the carry's).
+    bags = []
+
+    class RecordingBag(halo_mod.EFBag):
+        def __init__(self, mode="stateless", buffers=None):
+            super().__init__(mode, buffers)
+            bags.append(self)
+
+    class DroppedCarry(halo_mod.EFBag):
+        """Every microbatch's residuals start from zero again."""
+
+        def take(self, shape, dtype=torch.float32, device=None):
+            buf = super().take(shape, dtype, device)
+            return torch.zeros_like(buf).requires_grad_(True) if self.mode == "buffers" else buf
+
+    fusion_mod.EFBag = RecordingBag
+    try:
+        rerun16 = faulty_grads()
+    finally:
+        fusion_mod.EFBag = halo_mod.EFBag
+    check([b.mode for b in bags] == ["collect", "buffers"] and len(bags[1].buffers)
+          == len(bags[0].drawn) > 0 and all(bool(b.any()) for b in bags[1].buffers),
+          f"the EF carry: bags {[(b.mode, len(b.drawn), len(b.buffers or ())) for b in bags]}")
+    check(all(torch.equal(a, b) for a, b in zip(rerun16, r16["_step1"]["grads"])),
+          "the kernel path's step-1 grads changed on a rerun")
+    fusion_mod.EFBag = DroppedCarry
+    try:
+        dropped16 = faulty_grads()
+    finally:
+        fusion_mod.EFBag = halo_mod.EFBag
+    names16 = [f"{i}.{k}" for i, p in enumerate(a16.init(SEED)) for k in p]
+    moved16 = {n: float((a - b).norm() / b.norm()) for n, a, b in zip(names16, dropped16, rerun16)
+               if float(b.norm()) > 0}
+    carry16, _ = codec_grad_check(a16, TRAIN_ACCUM, dropped16, CODEC_BAR,
+                                  "EF carry dropped (not held to the bar)", plain16)
+    print(f"  EF carry: {len(bags[1].buffers)} residuals carried into microbatch 2; dropping them "
+          f"moves the step-1 grads by {min(moved16.values()):.2e} to {max(moved16.values()):.2e} "
+          f"(normwise, per leaf)")
+    check(max(moved16.values()) > 0, "dropping the EF carry left the grads unchanged")
+    del bags, rerun16, dropped16
+    real_decode = WireCodec.decode
+
+    def decode_perturbing_one_tile(self, payload, shape, dtype, tiles=0):
+        if self.kind == "int8" and tiles >= 2:
+            q, scale = payload
+            scale = scale.clone()
+            scale[0, 0] *= DECODE_FAULT_SCALE        # the scales tile (0, 0) decodes with
+            payload = (q, scale)
+        return real_decode(self, payload, shape, dtype, tiles)
+
+    WireCodec.decode = decode_perturbing_one_tile
+    try:
+        scale16, _ = codec_grad_check(a16, TRAIN_ACCUM, faulty_grads(), CODEC_BAR,
+                                      f"planted fault (one tile's decode scale x"
+                                      f"{DECODE_FAULT_SCALE})", plain16)
+    finally:
+        WireCodec.decode = real_decode
+    filters16 = [n for n in scale16 if n.endswith(".w")]
+    check(all(scale16[n] > 1.0 for n in filters16),
+          f"the step-1 grad check passed a perturbed decode scale: {scale16}")
+    # EF telescopes on the card: one recorded exchange's backward strip,
+    # sent T times against its own residual
+    recorded = []
+    real_ef = halo_mod.ef_encode
+
+    def recording_ef(codec, ct, res, tiles=0):
+        if not recorded:
+            recorded.append(ct.detach().clone())
+        return real_ef(codec, ct, res, tiles)
+
+    halo_mod.ef_encode = recording_ef
+    try:
+        faulty_grads()
+    finally:
+        halo_mod.ef_encode = real_ef
+    ct16 = recorded[0]
+    res16, total16, T16 = torch.zeros_like(ct16), torch.zeros_like(ct16), 16
+    int8 = get_codec("int8")
+    for _ in range(T16):
+        payload, res16 = ef_encode(int8, ct16, res16, 2)
+        total16 += int8.decode(payload, ct16.shape, torch.float32, 2)
+    tele = float((total16 - (T16 * ct16 - res16)).abs().max())
+    tele_bar = 1e-4 * float(ct16.abs().max())          # tests/test_wire_codec.py's atol, scaled
+    print(f"  EF telescoping on the card: strip {tuple(ct16.shape)}, {T16} sends, "
+          f"max |sum applied - (T ct - res)| {tele:.3e} (bar {tele_bar:.3e})")
+    check(tele <= tele_bar and float(res16.abs().max()) > 0, "EF does not telescope on the card")
+    del plain16
+
+    # (b) one step each of the other plans: their step-1 grads against the
+    # same codec plan on the plain versions, printed (not held)
+    grads16 = {"sync2x2": good16}
+    for name in ("hybrid_tpu", "cluster_padded", "pipe2x2"):
+        grads16[name], _ = codec_grad_check(archs16[name], TRAIN_ACCUM,
+                                            wire_runs[name][plans16[name].wire_codec]["_step1"]["grads"],
+                                            CODEC_BAR, f"{name} {plans16[name].wire_codec} run")
+
+    # (c) the jetson-edge-100m int8 plan, trained above, served on (4, 8):
+    # responses against the plain codec forward, at the whole-plan bar
+    ea = archs16["edge_auto"]
+    eparams = ea.serve_params(ea.init(SEED), calib)
+    engine16 = ea.make_serve_engine(eparams, buckets=WIRE_SERVE_BUCKETS, step_bound=1.0,
+                                    latency_budget=60.0)
+    engine16.warmup()
+    reset_counts()
+    for im in images[:16]:
+        engine16.submit(im)
+    engine16.drain()
+    serve16_launches = conv2d_tile.launches
+    per_dispatch16, _ = launches_per_batch(ea.serve_plan(), 1)
+    check([b["bucket"] for b in engine16.batch_log] == [8, 8],
+          f"edge_auto serve dispatches {engine16.batch_log}")
+    check(serve16_launches == 2 * per_dispatch16["conv2d_tile"],
+          f"edge_auto serve launches {serve16_launches} != 2 x {per_dispatch16['conv2d_tile']}")
+    got16 = torch.from_numpy(np.stack([r.result for r in sorted(engine16.finished,
+                                                                 key=lambda r: r.rid)]))
+    plain_fwd = {c: torch.cat([make_tiled_infer(dataclasses.replace(ea.serve_plan(), backend="torch",
+                                                                     wire_codec=c), ea.mesh)(
+        eparams, torch.from_numpy(images[i:i + 8]).to(dev)).cpu() for i in (0, 8)])
+        for c in ("int8", "none")}
+    serve_err16, serve_bar16 = normwise_codec(got16, plain_fwd["int8"], plain_fwd["none"], CODEC_BAR)
+    print(f"wire edge_auto served 16 in {len(engine16.batch_log)} dispatches, {serve16_launches} B1 "
+          f"launches; responses vs the plain int8 forward: err {serve_err16:.3e}, bar "
+          f"{serve_bar16:.3e} ({serve_err16 / serve_bar16:.3g} of it)")
+    check(bool(torch.isfinite(got16).all()) and serve_err16 <= serve_bar16,
+          "edge_auto int8 responses over the whole-plan bar")
+    wire_launches["conv2d_tile"] += serve16_launches
+    del engine16, eparams, plain_fwd, got16
+
+    # (d) both launchers with --wire-codec on the card
+    reset_counts()
+    out16 = io.StringIO()
+    with contextlib.redirect_stdout(out16):
+        rc16 = train_launcher.main([
+            "--arch", "yolov2-tiled", "--grid", "2", "--groups", "4", "--wire-codec", "int8",
+            "--input-hw", str(INPUT_HW[0]), "--depth", "16", "--batch", str(TRAIN_BATCH),
+            "--grad-accum", str(TRAIN_ACCUM), "--steps", "1"])
+        rc16s = serve_launcher.main(["--cnn", "--size", str(INPUT_HW[0]), "--depth", "16",
+                                     "--wire-codec", "int8", "--buckets", "4", "8",
+                                     "--requests", "8", "--ticks", "2"])
+    print(out16.getvalue(), end="")
+    check(rc16 == 0 and rc16s == 0 and out16.getvalue().count("wire_codec=int8") == 2,
+          "the launchers with --wire-codec int8")
+    launcher16 = {f.__name__: f.launches for f in (conv2d_tile, conv2d_dgrad_tile,
+                                                   conv2d_wgrad_tile)}
+    print(f"phase-16 launchers (--wire-codec int8): {launcher16}")
+    for k in wire_launches:
+        wire_launches[k] += launcher16[k]
+
+    # (e) B1-B3 at every per-tile shape of the phase-16 plans no earlier
+    # phase held
+    new_tr16 = {shape_key(s): s for p in plans16.values()
+                for s in conv_shapes(p, TRAIN_BATCH // TRAIN_ACCUM) if shape_key(s) not in held_bwd}
+    new_fwd16 = {shape_key(s): s for s in conv_shapes(plans16["edge_auto"].inference_twin(), 8)
+                 if shape_key(s) not in held_b1}
+    print(f"phase 16 plans: {len(new_fwd16)} new bucket-8 forward shapes, {len(new_tr16)} new "
+          f"training shapes")
+    fwd16 = [dict(fwd_row(s), piece=s["piece"]) for k, s in {**new_fwd16, **new_tr16}.items()
+             if k not in held_b1]
+    bwd16 = [bwd_rows(s) for s in new_tr16.values()]
+    dgrad16 = [d for d, _ in bwd16 if d]
+    wgrad16 = [w for _, w in bwd16]
+    kernel_ms16 = {}
+    for rows16, what in ((fwd16, "conv2d_tile"), (dgrad16, "conv2d_dgrad_tile"),
+                         (wgrad16, "conv2d_wgrad_tile")):
+        kernel_ms16[what] = {k: sum(r[k] for r in rows16)
+                             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        kernel_ms16[what]["shapes"] = len(rows16)
+        print(f"{what} at the {len(rows16)} new phase-16 shapes: kernel "
+              f"{kernel_ms16[what]['ms']:.4f} ms, cudnn {kernel_ms16[what]['library_ms']:.4f} ms, "
+              f"plain {kernel_ms16[what]['plain_ms']:.4f} ms, bound "
+              f"{kernel_ms16[what]['bound_ms']:.4f} ms")
+
+    # (f) the {"wire": ...} line: each plan beside its none twin
+    keep16 = ("codec", "grid", "schedule", "crossover", "groups", "stages", "ragged_exec", "steps",
+              "loss", "step_ms_cuda_events", "step_ms_host_median", "device_ms",
+              "profiled_wall_ms", "idle_share", "device_kernels_per_step", "peak_mem_bytes",
+              "conv_launches_per_microbatch", "modeled_step_wire_bytes")
+    print(json.dumps({"wire": {
+        "train": {name: {c: {k: r[k] for k in keep16} for c, r in runs.items()}
+                  for name, runs in wire_runs.items()},
+        "step1_grads_err_over_bar": grads16,
+        "planted_fault_decode_scale_err_over_bar": scale16,
+        "ef_carry_dropped_err_over_bar": carry16, "ef_carry_dropped_moves_grads": moved16,
+        "telescoping": {"strip": list(ct16.shape), "sends": T16, "max_abs_err": tele},
+        "serve_edge_auto": {"buckets": list(WIRE_SERVE_BUCKETS), "err": serve_err16,
+                            "bar": serve_bar16, "b1_launches": serve16_launches},
+        "bars": {"codec": CODEC_BAR, "loss_rtol": WIRE_LOSS_RTOL},
+        "kernel_ms_new_shapes": kernel_ms16,
+        "card": smi,
+    }}))
+    print(json.dumps({"phase16_launches": wire_launches}))
+    del wire_runs, archs16
+    torch.cuda.empty_cache()
+    return wire_launches, fwd16, dgrad16, wgrad16
 
 
 def serve_phase(dev, smi: str, arch, label: str, buckets, images, calib) -> dict:
@@ -2742,6 +3242,14 @@ def main() -> int:
                         for k in launcher15}
     auto_launches = {k: v + phase15_launches[k] for k, v in auto_launches.items()}
     print(json.dumps({"phase15_launches": phase15_launches}))
+
+    # -- 16. wire codecs on the card -------------------------------------------
+    wire_launches, fwd16, dgrad16, wgrad16 = wire_phase(
+        dev, smi, train5["loss"][0], held_b1, held_bwd, fwd_row, bwd_rows, calib, images)
+    serve_err = max([serve_err] + [r["max_abs_err"] for r in fwd16])
+    dgrad_err = max([dgrad_err] + [r["max_abs_err"] for r in dgrad16])
+    wgrad_err = max([wgrad_err] + [r["max_abs_err"] for r in wgrad16])
+    auto_launches = {k: v + wire_launches[k] for k, v in auto_launches.items()}
 
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",

@@ -1,6 +1,6 @@
 """Fused, grouped execution stacks (paper §4.2) on the virtual tile mesh.
 
-The port of ``repro/core/fusion.py`` without wire codecs: the planner for
+The port of ``repro/core/fusion.py``: the planner for
 explicit, absent or cost-model-chosen groupings (``groups="auto"`` over a
 hardware profile or cluster, ``core/grouping.py``), spatial->data
 crossovers (``crossover=``, DESIGN.md §7), pipeline tails (``pipeline=``,
@@ -11,7 +11,10 @@ shape-specialised and padded ragged executors (``ragged_exec=``, DESIGN.md
 §8-9), the pipeline tick executor (``_make_pipeline_local``), the forward
 / inference wrappers that split a global batch into tiles and assemble the
 global output, and the training entry points - the tiled loss and the
-deferred-aggregation gradient step.  A group exchanges halos once at its input; inside it every
+deferred-aggregation gradient step.  Every plan runs under a wire codec
+(``wire_codec=``, DESIGN.md §12): forward strips compressed stateless, the
+deferred step's backward strips under error feedback carried across the
+microbatches of one batch.  A group exchanges halos once at its input; inside it every
 tile carries a recursively grown halo and recomputes boundary regions
 redundantly.  Data-mode groups run on batch blocks of full maps.
 
@@ -21,9 +24,6 @@ Halo-width algebra (from the eq. 1 recursion, DESIGN.md §2):
     group_halo_hi = sum_l (K_l - S_l - P_l) * prod_{l'<l in group} S_l'
 
 and the remaining halo after layer l shrinks as (h - P_l) / S_l.
-
-What the reference also plans, and the port does not yet, raises
-``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ import re
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.backend import get_conv_backend
 from repro_torch.core.grouping import (
@@ -51,11 +52,13 @@ from repro_torch.core.grouping import (
     score_profile,
 )
 from repro_torch.core.halo import (
-    _shift,
+    EFBag,
+    WireCtx,
     _switch_by_size,
     halo_exchange_2d,
     halo_exchange_2d_ragged,
     halo_exchange_2d_spec,
+    wire_shift,
 )
 from repro_torch.core.spatial import (
     LayerDef,
@@ -88,8 +91,7 @@ class StackPlan:
     """Static geometry for an (n x m)-tiled, grouped conv stack.
 
     The fields are the reference's, so ``plan_manifest`` describes a port
-    plan exactly as it describes the JAX plan with the same knobs.  The port
-    builds plans without wire codecs: ``wire_codec`` is "none".
+    plan exactly as it describes the JAX plan with the same knobs.
     ``shard_hw`` is the largest tile per layer; past a crossover or a
     pipeline entry the per-layer tile extents are the full maps.  A pipeline
     tail (DESIGN.md §11) gives each pipeline-mode group - a *stage* - its
@@ -116,7 +118,7 @@ class StackPlan:
     tile_cols: tuple[tuple[int, ...], ...] = ()
     ragged_exec: str = "spec"
     stages: tuple[tuple[int, int], ...] = ()
-    wire_codec: str = "none"
+    wire_codec: str = "none"                     # per-tile strip codec (DESIGN.md §12)
     inference: bool = False                      # forward-only serve plan (DESIGN.md §13)
 
     @property
@@ -326,11 +328,10 @@ def build_stack_plan(
     partition of the spatial prefix.  ``microbatches`` is the M the bubble
     (S-1)/(S-1+M) is modelled with; the executor's M is the grad step's.
     inference: plan a forward-only serve step (BN from frozen statistics);
-    never with a pipeline tail.
-
-    What the reference also plans, the port's executor cannot run yet; the
-    planner raises ``NotImplementedError`` naming the ROADMAP item: wire
-    codecs (A.14)."""
+    never with a pipeline tail.  wire_codec (DESIGN.md §12): "none", "int8"
+    or "topk:<k>" - every exchange, reshard and pipeline hand-off ships its
+    strips through the codec, and the cost model prices the wire under it;
+    a bad spec fails here."""
     get_conv_backend(backend)   # fail fast on unknown backends
     if schedule not in ("sync", "overlap", "auto"):
         raise ValueError(f"schedule must be 'sync', 'overlap', or 'auto'; got {schedule!r}")
@@ -339,8 +340,6 @@ def build_stack_plan(
     if block_oh is not None and block_oh < 1:
         raise ValueError(f"block_oh must be a positive int or None; got {block_oh!r}")
     get_codec(wire_codec)   # fail fast on bad codec specs (none | int8 | topk:<k>)
-    if wire_codec != "none":
-        raise NotImplementedError(f"wire_codec={wire_codec!r}: ROADMAP A.14 (wire codecs)")
     layers = tuple(layers)
     if inference and pipeline is not None:
         raise ValueError(
@@ -386,7 +385,7 @@ def build_stack_plan(
                 hw if isinstance(hw, ClusterSpec) else resolve_hw_profile(hw),
                 batch=batch, schedule=schedule, crossover=crossover,
                 mem_limit=mem_limit, partition=partition, pipeline=pipeline,
-                microbatches=microbatches,
+                microbatches=microbatches, wire_codec=wire_codec,
             )
         )
     else:
@@ -515,6 +514,7 @@ def build_stack_plan(
         tile_cols=tuple(tile_cols),
         ragged_exec=ragged_exec,
         stages=stages,
+        wire_codec=wire_codec,
         inference=inference,
     )
 
@@ -632,7 +632,7 @@ def _offsets(sizes: tuple[int, ...]) -> tuple[int, ...]:
 
 
 def _apply_group_ragged(x: torch.Tensor, params: Sequence[dict], plan: StackPlan, gi: int, *,
-                        batch_global: int) -> torch.Tensor:
+                        batch_global: int, wire: WireCtx | None = None) -> torch.Tensor:
     """One spatial group of a ragged plan under the padded executor
     (DESIGN.md §8).  ``x`` enters as the padded core ``(n, m, b, Hmax, Wmax,
     c)``, pad slots zero; the padded exchange assembles the canonical
@@ -642,7 +642,7 @@ def _apply_group_ragged(x: torch.Tensor, params: Sequence[dict], plan: StackPlan
     g = plan.groups[gi]
     geom = _ragged_group_geom(plan, gi)
     x = halo_exchange_2d_ragged(x, plan.group_halos[gi], plan.tile_rows[g.start],
-                                plan.tile_cols[g.start], out_extents=geom["ein"][0])
+                                plan.tile_cols[g.start], out_extents=geom["ein"][0], wire=wire)
     for k, l in enumerate(g.layers):
         rows, cols = plan.tile_rows[l + 1], plan.tile_cols[l + 1]
         x = apply_layer_local_ragged(
@@ -663,7 +663,7 @@ def _apply_group_ragged(x: torch.Tensor, params: Sequence[dict], plan: StackPlan
 
 
 def _apply_group_spec(x: torch.Tensor, params: Sequence[dict], plan: StackPlan, gi: int, *,
-                      batch_global: int) -> torch.Tensor:
+                      batch_global: int, wire: WireCtx | None = None) -> torch.Tensor:
     """One spatial group of a ragged plan under the shape-specialised
     executor (DESIGN.md §9).  The tile shapes are deduplicated at the group
     input (``_switch_by_size``: stride alignment makes the group-start size
@@ -675,7 +675,7 @@ def _apply_group_spec(x: torch.Tensor, params: Sequence[dict], plan: StackPlan, 
     g = plan.groups[gi]
     geom = _ragged_group_geom(plan, gi)
     x = halo_exchange_2d_spec(x, plan.group_halos[gi], plan.tile_rows[g.start],
-                              plan.tile_cols[g.start], out_extents=geom["ein"][0])
+                              plan.tile_cols[g.start], out_extents=geom["ein"][0], wire=wire)
     classes = _switch_by_size(plan.tile_rows[g.start], plan.tile_cols[g.start])
     # cumulative stride products: group-start sizes over cum[k] are the
     # layer-k tile sizes (exact by stride alignment)
@@ -711,7 +711,8 @@ def _apply_group_spec(x: torch.Tensor, params: Sequence[dict], plan: StackPlan, 
     return x
 
 
-def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan) -> torch.Tensor:
+def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan,
+                      wire: WireCtx | None = None) -> torch.Tensor:
     """Forward through all groups on tiles ``x`` = (n, m, b, h/n, w/m, c).
 
     schedule="sync": at each group input a 2-round halo exchange, then the
@@ -734,7 +735,10 @@ def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan) 
     (``_apply_group_spec``) or, when ``plan.ragged_exec == "padded"``, the
     padded one (``_apply_group_ragged``), both with the sync exchange
     whatever the schedule; the crossover goes through the ragged reshard.
-    Uniform plans take exactly the path they took before partitions."""
+    Uniform plans take exactly the path they took before partitions.
+
+    ``wire`` (DESIGN.md §12) reaches every exchange and reshard; ``None``
+    runs them uncompressed, as before codecs."""
     bg = x.shape[2]
     uniform = plan.is_uniform
     for gi, g in enumerate(plan.groups):
@@ -743,10 +747,10 @@ def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan) 
         if g.mode == "data":
             if gi == 0 or plan.groups[gi - 1].mode != "data":
                 if uniform:
-                    x = reshard_spatial_to_data(x)
+                    x = reshard_spatial_to_data(x, wire=wire)
                 else:
                     x = reshard_spatial_to_data_ragged(x, plan.tile_rows[g.start],
-                                                       plan.tile_cols[g.start])
+                                                       plan.tile_cols[g.start], wire=wire)
             for l in g.layers:
                 x = apply_layer_data(
                     x,
@@ -761,7 +765,7 @@ def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan) 
             continue
         if not uniform:
             group_fn = _apply_group_spec if plan.ragged_exec == "spec" else _apply_group_ragged
-            x = group_fn(x, params, plan, gi, batch_global=bg)
+            x = group_fn(x, params, plan, gi, batch_global=bg, wire=wire)
             continue
         layers = list(g.layers)
         if plan.schedule == "overlap" and any(plan.group_halos[gi]):
@@ -778,9 +782,10 @@ def apply_stack_local(params: Sequence[dict], x: torch.Tensor, plan: StackPlan) 
                 backend=plan.backend,
                 block_oh=plan.block_oh,
                 inference=plan.inference,
+                wire=wire,
             )
         else:
-            x = halo_exchange_2d(x, plan.group_halos[gi])
+            x = halo_exchange_2d(x, plan.group_halos[gi], wire=wire)
         for l in layers:
             x = apply_layer_local(
                 x,
@@ -873,16 +878,24 @@ def _tiles_loss(plan: StackPlan, mesh: TileMesh, loss_local):
 
 def _pipeline_geometry(plan: StackPlan) -> dict:
     """Static geometry of a pipeline tail: the stage groups, tiles per
-    stage and the entry layer.  The reference also pads every stage
-    boundary to one container extent, because its per-stage ``lax.switch``
-    branches must share one shape; here each stage's branch is its own
-    call, so activations keep their true extents."""
+    stage, the entry layer and the reference's *container* (H, W, C), one
+    extent covering every stage-boundary activation.  The reference pads
+    every boundary to it, because its per-stage ``lax.switch`` branches
+    must share one shape; here each stage's branch is its own call, so
+    activations keep their true extents - except on a compressed hand-off,
+    whose blocks are encoded at the container extent, as the reference
+    encodes them."""
     pg = [g for g in plan.groups if g.mode == "pipeline"]
+    dims = []
+    for g in pg:
+        dims.append((*plan.map_hw[g.start], plan.layers[g.start].in_channels))
+        dims.append((*plan.map_hw[g.end + 1], plan.layers[g.end].out_channels))
     return {
         "groups": pg,
         "n_stages": len(pg),
         "per_stage": (plan.n * plan.m) // len(pg),
         "pfirst": pg[0].start,
+        "container": tuple(max(d[k] for d in dims) for k in range(3)),
     }
 
 
@@ -932,7 +945,8 @@ def _check_pipeline_batch(plan: StackPlan, b_mu: int) -> None:
         )
 
 
-def _stage_handoff(y: torch.Tensor, plan: StackPlan, s: int) -> torch.Tensor:
+def _stage_handoff(y: torch.Tensor, plan: StackPlan, s: int,
+                   wire: WireCtx | None = None) -> torch.Tensor:
     """Stage ``s``'s output -> stage ``s + 1``'s input, both as the stage's
     tiles' blocks flattened into the batch ``(P*bp, H, W, C)`` in tile
     order.  The blocks are laid on the (n, m) tile grid (zeros on every
@@ -940,15 +954,23 @@ def _stage_handoff(y: torch.Tensor, plan: StackPlan, s: int) -> torch.Tensor:
     shift, and stage ``s + 1``'s tiles are read back: each tile receives
     the block of the tile of the same stage rank one stage up, as the
     reference's ``ppermute`` delivers it.  Autograd gives the reverse shift
-    for the cotangent."""
+    for the cotangent.  Under a codec (a stateless ``wire``) every block is
+    zero-padded to the reference's container before it is encoded and cut
+    back to its extent after the decode, in both directions."""
     n, m = plan.n, plan.m
     per = (n * m) // len(plan.stages)
     blocks = y.reshape(per, y.shape[0] // per, *y.shape[1:])
+    if wire is not None:
+        hc, wc, cc = _pipeline_geometry(plan)["container"]
+        h, w, c = y.shape[1:]
+        blocks = F.pad(blocks, (0, cc - c, 0, wc - w, 0, hc - h))
     zeros = blocks.new_zeros((n * m - per, *blocks.shape[1:]))
     grid = torch.cat([zeros[:s * per], blocks, zeros[s * per:]]).reshape(n, m, *blocks.shape[1:])
     kind, shift = _stage_shift(plan)
-    grid = _shift(grid, 0 if kind == "row" else 1, shift)
+    grid = wire_shift(grid, 0 if kind == "row" else 1, shift, wire)
     flat = grid.reshape(n * m, *blocks.shape[1:])[(s + 1) * per:(s + 2) * per]
+    if wire is not None:
+        flat = flat[:, :, :h, :w, :c]
     return flat.reshape(y.shape[0], *y.shape[1:])
 
 
@@ -983,11 +1005,17 @@ def _make_pipeline_local(plan: StackPlan, mesh: TileMesh, loss_local, *, microba
     slots and the M real prefix passes run, which changes no value and
     spends no time on one device that has no idle devices to hide them on.
     ``local.census`` holds the last call's ``ticks``, ``busy_slots`` (the
-    slots it ran) and ``prefix_passes``."""
+    slots it ran) and ``prefix_passes``.
+
+    Under a codec the prefix's exchanges and the hand-off are compressed
+    statelessly in both directions (``_stateless_wire``): an EF residual
+    would have its cotangents summed across ticks, breaking the
+    one-residual-per-exchange bookkeeping (DESIGN.md §12)."""
     geom = _pipeline_geometry(plan)
     pg, n_st, per = geom["groups"], geom["n_stages"], geom["per_stage"]
     mb = microbatches
     split = mesh.split
+    wire = _stateless_wire(plan)
 
     def branch(g, params, x):
         x = x[None, None]                            # (1, 1, P*bp, H, W, C): one call
@@ -1017,10 +1045,10 @@ def _make_pipeline_local(plan: StackPlan, mesh: TileMesh, loss_local, *, microba
                 if s == 0:
                     x_in = xs[k]                     # no prefix: the maps are whole
                     if geom["pfirst"]:
-                        x_in = mesh.merge(apply_stack_local(params, split(x_in), plan))
+                        x_in = mesh.merge(apply_stack_local(params, split(x_in), plan, wire))
                     census["prefix_passes"] += 1
                 else:
-                    x_in = _stage_handoff(prev[s - 1], plan, s - 1)
+                    x_in = _stage_handoff(prev[s - 1], plan, s - 1, wire)
                 y = branch(pg[s], params, x_in)
                 census["busy_slots"] += 1
                 if s == n_st - 1:
@@ -1050,6 +1078,15 @@ def _check_data_batch(plan: StackPlan, batch: int) -> None:
         )
 
 
+def _stateless_wire(plan: StackPlan) -> WireCtx | None:
+    """Wire ctx for the paths with no EF carry (the single-shot forward and
+    loss, the pipeline tick): residuals are fresh zeros, so compression is
+    stateless.  ``None`` for codec=none - every call site then runs
+    today's uncompressed code."""
+    codec = get_codec(plan.wire_codec)
+    return None if codec is None else WireCtx(codec, EFBag("stateless"))
+
+
 def make_tiled_forward(plan: StackPlan, mesh: TileMesh):
     """Forward over the virtual mesh: ``(params, x_global) -> y_global``.
 
@@ -1059,7 +1096,8 @@ def make_tiled_forward(plan: StackPlan, mesh: TileMesh):
     (``_out_spec``): row-major tiles, or a hybrid plan's batch blocks in
     block order, so either way it is (B, OH, OW, C) in input order.  A
     ragged plan packs the input into its padded tiles and unpacks each
-    output tile's valid window."""
+    output tile's valid window.  A codec plan compresses its strips
+    statelessly (``_stateless_wire``)."""
     if plan.stages:
         raise ValueError(
             "pipeline plans have no single-shot forward layout: outputs "
@@ -1071,6 +1109,7 @@ def make_tiled_forward(plan: StackPlan, mesh: TileMesh):
         raise ValueError(f"mesh grid {(mesh.n, mesh.m)} != plan grid {(plan.n, plan.m)}")
     split = _in_split(plan, mesh)
     _, merge = _out_spec(plan, mesh)
+    wire = _stateless_wire(plan)
 
     def fwd(params, x):
         x = torch.as_tensor(x, device=mesh.device)
@@ -1080,7 +1119,7 @@ def make_tiled_forward(plan: StackPlan, mesh: TileMesh):
                 f"{plan.input_hw[0]}, {plan.input_hw[1]}, C)"
             )
         _check_data_batch(plan, x.shape[0])
-        return merge(apply_stack_local(params, split(x), plan))
+        return merge(apply_stack_local(params, split(x), plan, wire))
 
     return fwd
 
@@ -1093,14 +1132,6 @@ def _check_not_inference(plan: StackPlan, what: str) -> None:
             "the serve executor deliberately does not take; build a training "
             "plan (inference=False) instead"
         )
-
-
-def _check_trainable(plan: StackPlan) -> None:
-    """The reference's training executor the port lacks (wire codecs)
-    raises here with its ROADMAP item (the planner refuses it already; this
-    guards hand-built plans)."""
-    if plan.wire_codec != "none":
-        raise NotImplementedError(f"wire_codec={plan.wire_codec!r}: ROADMAP A.14 (wire codecs)")
 
 
 def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
@@ -1119,9 +1150,9 @@ def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
     backward pass.  A pipeline plan runs the tick executor with M=1 (the
     batch streams through the stages once) and the last stage scores its
     tiles' rank blocks: the untiled loss again; the returned function's
-    ``census`` holds the last call's slot counts."""
+    ``census`` holds the last call's slot counts.  A codec plan compresses
+    its strips statelessly: every call starts from zero residuals."""
     _check_not_inference(plan, "make_tiled_loss")
-    _check_trainable(plan)
     if plan.stages:
         local = _make_pipeline_local(plan, mesh, loss_local, microbatches=1)
 
@@ -1136,11 +1167,12 @@ def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
         return ploss
     split = _in_split(plan, mesh)
     tiles_loss = _tiles_loss(plan, mesh, loss_local)
+    wire = _stateless_wire(plan)
 
     def loss(params, x, target):
         x = torch.as_tensor(x, device=mesh.device)
         _check_data_batch(plan, x.shape[0])
-        s, c = tiles_loss(apply_stack_local(params, split(x), plan), target)
+        s, c = tiles_loss(apply_stack_local(params, split(x), plan, wire), target)
         return s / c
 
     return loss
@@ -1177,14 +1209,22 @@ def make_deferred_grad_step(
     through the stages (the cotangents flow back through the reverse
     hand-offs), then the one division by the global count; the trainer
     tail, int8-EF included, is the same.  It holds all M microbatches'
-    activations at once.  The returned function's ``census`` holds the last
-    call's slot counts."""
+    activations at once, and compresses a codec plan's strips statelessly.
+    The returned function's ``census`` holds the last call's slot counts.
+
+    A codec plan (DESIGN.md §12) carries error feedback across the
+    microbatches of one batch: every exchange's backward strip is quantised
+    against its own residual, which starts at zero each step.  The first
+    microbatch finds the carry's layout as it runs (an ``EFBag`` in
+    ``collect`` mode hands out zeros); each new residual comes back as the
+    gradient of the residual the exchange drew, and the next microbatch's
+    bag (``buffers`` mode) hands them out in the same order."""
     _check_not_inference(plan, "make_deferred_grad_step")
-    _check_trainable(plan)
     if plan.stages:
         return _pipeline_grad_step(plan, mesh, loss_local, microbatches)
     split = _in_split(plan, mesh)
     tiles_loss = _tiles_loss(plan, mesh, loss_local)
+    codec = get_codec(plan.wire_codec)
 
     def step(params, xs, ts):
         xs = torch.as_tensor(xs, device=mesh.device)
@@ -1199,9 +1239,21 @@ def make_deferred_grad_step(
         leaves = [v for p in live for v in p.values()]
         acc = None
         loss_sum = cnt = 0.0
+        ef = None
         for i in range(microbatches):
-            s, c = tiles_loss(apply_stack_local(live, split(xs[i]), plan), ts[i])
-            g = torch.autograd.grad(s, leaves, allow_unused=True)
+            wire = bag = None
+            if codec is not None:
+                bag = EFBag("collect") if ef is None else EFBag("buffers", ef)
+                wire = WireCtx(codec, bag)
+            s, c = tiles_loss(apply_stack_local(live, split(xs[i]), plan, wire), ts[i])
+            if bag is None:
+                g = torch.autograd.grad(s, leaves, allow_unused=True)
+            else:
+                res = bag.drawn if ef is None else ef
+                g = torch.autograd.grad(s, leaves + res, allow_unused=True)
+                ef = [(torch.zeros_like(r) if gr is None else gr).detach().requires_grad_(True)
+                      for r, gr in zip(res, g[len(leaves):])]
+                g = g[:len(leaves)]
             g = [torch.zeros_like(v) if gi is None else gi for v, gi in zip(leaves, g)]
             if acc is None:
                 acc = g

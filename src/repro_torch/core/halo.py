@@ -1,7 +1,7 @@
 """Halo (boundary-data) exchange between neighbouring tiles, on the virtual
 tile mesh (``launch/mesh.py``).
 
-The port of the uniform part of ``repro/core/halo.py``.  Tiles are the
+The port of ``repro/core/halo.py``.  Tiles are the
 leading dimensions of one tensor, ``(n, m, B, h, w, C)``, so the reference's
 ``lax.ppermute`` becomes a shift along a tile dimension: tile i receives
 tile i-1's strip (or i+1's), and the edge tile receives zeros - which is
@@ -11,8 +11,13 @@ The 8-neighbour exchange is two axis-ordered rounds: rows first, then
 columns over the row-extended array, so the corner blocks ride along in the
 second round.  The packed exchanges of the overlap schedule return the
 received strips without attaching them, so the executor can run the
-interior conv of a group lead on owned data first (DESIGN.md §5).  Wire
-codecs (``WireCtx``) are later work (ROADMAP A.14).
+interior conv of a group lead on owned data first (DESIGN.md §5).
+
+Every exchange takes ``wire=``: ``None`` is today's shift, call for call;
+a ``WireCtx`` compresses every strip (``wire_shift``, DESIGN.md §12): each
+sending tile's strip is encoded on its own, the payload shifted, the
+receiver decodes, and the backward ships the cotangent under error
+feedback against a residual drawn from the ctx's ``EFBag``.
 
 Non-uniform partitions (DESIGN.md §8-9) keep the tiles in a padded
 layout: every tile holds ``max(sizes)`` slots, its valid data in the first
@@ -22,11 +27,14 @@ the tile dimension (``_ragged_gather``), whatever the number of tiles.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+from typing import Any
 
 import torch
 
 from repro_torch.launch.mesh import plan_constant
+from repro_torch.optim.compression import WireCodec, ef_encode
 
 
 def _shift_perm(n: int, direction: int) -> list[tuple[int, int]]:
@@ -56,6 +64,142 @@ def _shift(x: torch.Tensor, tile_dim: int, direction: int) -> torch.Tensor:
     return torch.cat([x.narrow(tile_dim, k, n - k), zeros], dim=tile_dim)
 
 
+def _move(t: torch.Tensor, tile_dim: int, shift) -> torch.Tensor:
+    """A ``ppermute`` on the virtual mesh: ``_shift`` by ``shift`` tiles, or
+    ``"swap"``, the 2-tile exchange ``[(0, 1), (1, 0)]``."""
+    if shift == "swap":
+        return torch.flip(t, [tile_dim])
+    return _shift(t, tile_dim, shift)
+
+
+# ---------------------------------------------------------------------------
+# Wire compression (DESIGN.md §12)
+# ---------------------------------------------------------------------------
+
+
+class EFBag:
+    """Dispenser of error-feedback residual buffers for the recurring
+    exchanges of one microbatch's pass, in deterministic call order.
+
+    Modes: ``stateless`` hands out fresh zeros (forward-only paths and
+    ``make_tiled_loss`` - no EF carry, every microbatch starts clean);
+    ``collect`` also records each requested (shape, dtype) and keeps the
+    zeros it hands out in ``drawn`` (the first microbatch of the deferred
+    step, which finds the carry's layout as it runs); ``buffers`` hands out
+    the supplied tensors in the same order (the carry).  The residuals of
+    ``collect`` and ``buffers`` require grad: each exchange's new residual
+    comes back as the gradient of its residual, as the reference's
+    custom-VJP shifts return it.  ``emitted`` collects residuals produced
+    eagerly (``send_boundary_sum_1d``'s primal-direction EF)."""
+
+    def __init__(self, mode: str = "stateless", buffers=None):
+        if mode not in ("stateless", "collect", "buffers"):
+            raise ValueError(mode)
+        self.mode = mode
+        self.shapes: list[tuple[tuple[int, ...], Any]] = []
+        self.buffers = list(buffers) if buffers is not None else None
+        self.drawn: list[torch.Tensor] = []
+        self.emitted: list[torch.Tensor] = []
+        self._i = 0
+
+    def take(self, shape, dtype=torch.float32, device=None) -> torch.Tensor:
+        shape = tuple(shape)
+        if self.mode == "collect":
+            self.shapes.append((shape, dtype))
+            buf = torch.zeros(shape, dtype=dtype, device=device, requires_grad=True)
+            self.drawn.append(buf)
+            return buf
+        if self.mode == "buffers":
+            if self._i >= len(self.buffers):
+                raise ValueError(
+                    f"EF bag exhausted after {len(self.buffers)} buffers: the "
+                    "collect pass and this pass drew different exchange "
+                    "counts (non-deterministic call order?)"
+                )
+            buf = self.buffers[self._i]
+            self._i += 1
+            if tuple(buf.shape) != shape:
+                raise ValueError(
+                    f"EF buffer {self._i - 1} shape {tuple(buf.shape)} != requested "
+                    f"{shape}: collect/call order drifted"
+                )
+            return buf
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def emit(self, new_res: torch.Tensor) -> None:
+        self.emitted.append(new_res)
+
+
+# Every exchanged tensor leads with the tile grid's two dimensions (n, m):
+# the reference's devices, each of whose strips is encoded on its own.
+GRID_DIMS = 2
+
+
+@dataclasses.dataclass
+class WireCtx:
+    """Codec + residual dispenser threaded through the tiled executors down
+    to every exchange.  ``None`` everywhere means uncompressed - today's
+    code runs unchanged."""
+
+    codec: WireCodec
+    bag: EFBag
+
+
+class _WireShift(torch.autograd.Function):
+    """encode per sending tile -> move every payload leaf -> decode; the
+    backward EF-encodes the cotangent against ``res`` (held by the forward
+    receiver, the backward sender), moves it back and decodes, and returns
+    the new residual as the gradient of ``res``."""
+
+    @staticmethod
+    def forward(ctx, x, res, tile_dim, shift, codec):
+        ctx.save_for_backward(res)
+        ctx.meta = (tile_dim, shift, codec)
+        payload = codec.encode(x, GRID_DIMS)
+        return codec.decode([_move(p, tile_dim, shift) for p in payload], x.shape, x.dtype,
+                            GRID_DIMS)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (res,) = ctx.saved_tensors
+        tile_dim, shift, codec = ctx.meta
+        payload, new_res = ef_encode(codec, ct, res, GRID_DIMS)
+        ct_x = None
+        if ctx.needs_input_grad[0]:
+            back = "swap" if shift == "swap" else -shift
+            ct_x = codec.decode([_move(p, tile_dim, back) for p in payload], ct.shape, ct.dtype,
+                                GRID_DIMS)
+        return ct_x, new_res, None, None, None
+
+
+def wire_shift(x: torch.Tensor, tile_dim: int, shift, wire: WireCtx | None) -> torch.Tensor:
+    """``_move`` with optional wire compression.
+
+    ``wire=None`` is literally the shift - codec=none plans run today's
+    ops.  Otherwise every tile's strip is encoded on its own, each payload
+    leaf is moved (a zero payload decodes to zeros, so the edge tiles'
+    SAME padding survives) and decoded.  The forward is stateless: strips
+    are activations, fresh every microbatch.  The backward ships the
+    cotangent over the inverse move under error feedback; its residual
+    comes from the ctx's bag, one per call (DESIGN.md §12) - except for a
+    strip that takes no gradient (the input image's): its backward feeds
+    nothing back, so its residual could reach no gradient, and none is
+    drawn (the reference draws one, whose only use is its own next value).
+    Drawing it would make the first conv compute its input's cotangent."""
+    if wire is None:
+        return _move(x, tile_dim, shift)
+    res = _residual(wire, x.shape, x)
+    return _WireShift.apply(x, res, tile_dim, shift, wire.codec)
+
+
+def _residual(wire: WireCtx, shape, x: torch.Tensor) -> torch.Tensor:
+    """The EF residual of one exchange of ``x``: from the bag, or zeros
+    outside it when ``x`` takes no gradient (see ``wire_shift``)."""
+    if x.requires_grad:
+        return wire.bag.take(shape, device=x.device)
+    return torch.zeros(shape, device=x.device)
+
+
 def _check_halo(halo_lo: int, halo_hi: int, size: int) -> None:
     if max(halo_lo, halo_hi) > size:
         raise ValueError(
@@ -71,6 +215,7 @@ def halo_exchange_1d(
     *,
     tile_dim: int,
     dim: int,
+    wire: WireCtx | None = None,
 ) -> torch.Tensor:
     """Extend every tile along spatial ``dim`` with ``halo_lo`` rows from the
     previous tile and ``halo_hi`` rows from the next one along ``tile_dim``
@@ -81,10 +226,10 @@ def halo_exchange_1d(
     parts = []
     if halo_lo > 0:
         # the strip the *previous* tile sends us: its last halo_lo rows
-        parts.append(_shift(x.narrow(dim, size - halo_lo, halo_lo), tile_dim, +1))
+        parts.append(wire_shift(x.narrow(dim, size - halo_lo, halo_lo), tile_dim, +1, wire))
     parts.append(x)
     if halo_hi > 0:
-        parts.append(_shift(x.narrow(dim, 0, halo_hi), tile_dim, -1))
+        parts.append(wire_shift(x.narrow(dim, 0, halo_hi), tile_dim, -1, wire))
     if len(parts) == 1:
         return x
     return torch.cat(parts, dim=dim)
@@ -96,15 +241,18 @@ def halo_exchange_2d(
     *,
     tile_dims: tuple[int, int] = (0, 1),
     dims: tuple[int, int] = (3, 4),
+    wire: WireCtx | None = None,
 ) -> torch.Tensor:
     """2-D halo exchange (paper Fig. 4) over tiles ``(n, m, B, h, w, C)``.
 
     halo = (top, bottom, left, right).  The row round runs first; the column
     round then operates on the row-extended array so the corner blocks ride
-    along - together the two rounds deliver data from all 8 neighbours."""
+    along - together the two rounds deliver data from all 8 neighbours.
+    Under a codec the corners are therefore quantised twice, as in the
+    reference."""
     top, bottom, left, right = halo
-    y = halo_exchange_1d(x, top, bottom, tile_dim=tile_dims[0], dim=dims[0])
-    return halo_exchange_1d(y, left, right, tile_dim=tile_dims[1], dim=dims[1])
+    y = halo_exchange_1d(x, top, bottom, tile_dim=tile_dims[0], dim=dims[0], wire=wire)
+    return halo_exchange_1d(y, left, right, tile_dim=tile_dims[1], dim=dims[1], wire=wire)
 
 
 def _zeros_strip(x: torch.Tensor, width: int, dim: int) -> torch.Tensor:
@@ -128,6 +276,7 @@ def halo_exchange_1d_packed(
     *,
     tile_dim: int,
     dim: int,
+    wire: WireCtx | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Packed halo exchange: ``(recv_lo, recv_hi)``, the strips every tile
     receives from its previous and next neighbour along ``tile_dim``,
@@ -139,7 +288,9 @@ def halo_exchange_1d_packed(
     them in the reference; on a longer axis each strip is its own shift.
     Both give the same strips.  The reference counts one collective per
     swap and two per longer axis; on the virtual mesh a strip is a copy on
-    one card, so no collective is counted here."""
+    one card, so no collective is counted here.  Under a codec the swap's
+    packed lo+hi strip is encoded as one block per tile, the edge tiles'
+    masked half included, as the reference ships it."""
     n = x.shape[tile_dim]
     if n == 1 or (halo_lo == 0 and halo_hi == 0):
         return _zeros_strip(x, halo_lo, dim), _zeros_strip(x, halo_hi, dim)
@@ -148,16 +299,16 @@ def halo_exchange_1d_packed(
     if n == 2 and halo_lo > 0 and halo_hi > 0:
         send = torch.cat([x.narrow(dim, size - halo_lo, halo_lo), x.narrow(dim, 0, halo_hi)],
                          dim=dim)
-        recv = torch.flip(send, [tile_dim])       # ppermute [(0, 1), (1, 0)]
+        recv = wire_shift(send, tile_dim, "swap", wire)       # ppermute [(0, 1), (1, 0)]
         idx = _tile_index(recv, tile_dim)
         recv_lo = recv.narrow(dim, 0, halo_lo)
         recv_hi = recv.narrow(dim, halo_lo, halo_hi)
         recv_lo = torch.where(idx > 0, recv_lo, torch.zeros_like(recv_lo))
         recv_hi = torch.where(idx < n - 1, recv_hi, torch.zeros_like(recv_hi))
         return recv_lo, recv_hi
-    recv_lo = (_shift(x.narrow(dim, size - halo_lo, halo_lo), tile_dim, +1)
+    recv_lo = (wire_shift(x.narrow(dim, size - halo_lo, halo_lo), tile_dim, +1, wire)
                if halo_lo > 0 else _zeros_strip(x, 0, dim))
-    recv_hi = (_shift(x.narrow(dim, 0, halo_hi), tile_dim, -1)
+    recv_hi = (wire_shift(x.narrow(dim, 0, halo_hi), tile_dim, -1, wire)
                if halo_hi > 0 else _zeros_strip(x, 0, dim))
     return recv_lo, recv_hi
 
@@ -168,6 +319,7 @@ def halo_exchange_2d_packed(
     *,
     tile_dims: tuple[int, int] = (0, 1),
     dims: tuple[int, int] = (3, 4),
+    wire: WireCtx | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Packed 2-D halo exchange for the overlap schedule:
     ``(x_rows, col_lo, col_hi)`` - the tiles with their top/bottom strips
@@ -175,11 +327,12 @@ def halo_exchange_2d_packed(
     array (so they carry the corner blocks, as the 2-round exchange does).
     ``cat([col_lo, x_rows, col_hi], dims[1])`` is ``halo_exchange_2d``."""
     top, bottom, left, right = halo
-    row_lo, row_hi = halo_exchange_1d_packed(x, top, bottom, tile_dim=tile_dims[0], dim=dims[0])
+    row_lo, row_hi = halo_exchange_1d_packed(x, top, bottom, tile_dim=tile_dims[0], dim=dims[0],
+                                             wire=wire)
     parts = ([row_lo] if top > 0 else []) + [x] + ([row_hi] if bottom > 0 else [])
     x_rows = torch.cat(parts, dim=dims[0]) if len(parts) > 1 else x
     col_lo, col_hi = halo_exchange_1d_packed(x_rows, left, right, tile_dim=tile_dims[1],
-                                             dim=dims[1])
+                                             dim=dims[1], wire=wire)
     return x_rows, col_lo, col_hi
 
 
@@ -231,7 +384,40 @@ def _ragged_gather(x: torch.Tensor, index: tuple[int, ...], ext: int, *, tile_di
     return out.movedim((0, 1), (tile_dim, dim))
 
 
-def _ragged_round(x, halo_lo, halo_hi, sizes, *, tile_dim, dim, out_extent, keep_pad, what):
+@functools.lru_cache(maxsize=256)
+def _send_up_index(sizes: tuple[int, ...], halo_lo: int) -> tuple[int, ...]:
+    """The strip each tile sends up, as a ``_ragged_gather`` index: tile
+    i's last ``halo_lo`` valid rows ``[sizes[i] - halo_lo, sizes[i])``."""
+    smax = max(sizes)
+    return tuple(i * smax + s - halo_lo + r for i, s in enumerate(sizes) for r in range(halo_lo))
+
+
+@functools.lru_cache(maxsize=256)
+def _ragged_place_index(
+    sizes: tuple[int, ...], halo_lo: int, halo_hi: int, ext: int, keep_pad: bool
+) -> tuple[int, ...]:
+    """``_ragged_index``'s output slots read from each tile's own
+    ``[x (max(sizes)) | recv_lo (halo_lo) | recv_hi (halo_hi)]`` rows
+    instead of its neighbours': the placement of strips that were shipped
+    on their own (the wired exchange)."""
+    n, smax = len(sizes), max(sizes)
+    e = smax + halo_lo + halo_hi
+    zero = n * e
+    out = []
+    for i, s in enumerate(sizes):
+        row = [zero] * ext
+        for r in range(smax if keep_pad else s):
+            row[halo_lo + r] = i * e + r
+        for r in range(halo_hi):
+            row[halo_lo + s + r] = i * e + smax + halo_lo + r
+        for r in range(halo_lo):
+            row[r] = i * e + smax + r
+        out.extend(row)
+    return tuple(out)
+
+
+def _ragged_round(x, halo_lo, halo_hi, sizes, *, tile_dim, dim, out_extent, keep_pad, what,
+                  wire=None):
     smax = max(sizes)
     if x.shape[dim] != smax or x.shape[tile_dim] != len(sizes):
         raise ValueError(
@@ -248,8 +434,32 @@ def _ragged_round(x, halo_lo, halo_hi, sizes, *, tile_dim, dim, out_extent, keep
         )
     if halo_lo == 0 and halo_hi == 0 and ext == smax:
         return x
-    index = _ragged_index(tuple(sizes), halo_lo, halo_hi, ext, keep_pad)
-    return _ragged_gather(x, index, ext, tile_dim=tile_dim, dim=dim)
+    sizes = tuple(sizes)
+    if wire is None:
+        index = _ragged_index(sizes, halo_lo, halo_hi, ext, keep_pad)
+        return _ragged_gather(x, index, ext, tile_dim=tile_dim, dim=dim)
+    # Under a codec each tile's send-down strip (its first halo_hi rows)
+    # and send-up strip (its last halo_lo valid rows) is shipped on its own,
+    # as the reference ships them - the padded exchange the hi strip first,
+    # the spec one the lo strip first - then placed by one gather.
+    def send_up():
+        up = _ragged_gather(x, _send_up_index(sizes, halo_lo), halo_lo, tile_dim=tile_dim,
+                            dim=dim)
+        return wire_shift(up, tile_dim, +1, wire)
+
+    def send_down():
+        return wire_shift(x.narrow(dim, 0, halo_hi), tile_dim, -1, wire)
+
+    recv_lo = recv_hi = None
+    if keep_pad:
+        recv_hi = send_down() if halo_hi > 0 else None
+        recv_lo = send_up() if halo_lo > 0 else None
+    else:
+        recv_lo = send_up() if halo_lo > 0 else None
+        recv_hi = send_down() if halo_hi > 0 else None
+    parts = [x] + [r for r in (recv_lo, recv_hi) if r is not None]
+    index = _ragged_place_index(sizes, halo_lo, halo_hi, ext, keep_pad)
+    return _ragged_gather(torch.cat(parts, dim=dim), index, ext, tile_dim=tile_dim, dim=dim)
 
 
 def halo_exchange_1d_ragged(
@@ -261,6 +471,7 @@ def halo_exchange_1d_ragged(
     tile_dim: int,
     dim: int,
     out_extent: int | None = None,
+    wire: WireCtx | None = None,
 ) -> torch.Tensor:
     """Halo exchange over ragged tiles in the padded layout (DESIGN.md §8).
 
@@ -274,7 +485,7 @@ def halo_exchange_1d_ragged(
     carry over, so pad slots stay exactly zero.  Needs ``min(sizes) >=
     max(halo_lo, halo_hi)``."""
     return _ragged_round(x, halo_lo, halo_hi, sizes, tile_dim=tile_dim, dim=dim,
-                         out_extent=out_extent, keep_pad=True, what="ragged")
+                         out_extent=out_extent, keep_pad=True, what="ragged", wire=wire)
 
 
 def halo_exchange_2d_ragged(
@@ -286,6 +497,7 @@ def halo_exchange_2d_ragged(
     tile_dims: tuple[int, int] = (0, 1),
     dims: tuple[int, int] = (3, 4),
     out_extents: tuple[int, int] | None = None,
+    wire: WireCtx | None = None,
 ) -> torch.Tensor:
     """2-D padded ragged exchange: rows first, then columns over the
     row-extended tiles, so the corners ride the second round.  Tiles of one
@@ -293,9 +505,9 @@ def halo_exchange_2d_ragged(
     top, bottom, left, right = halo
     oe = out_extents or (None, None)
     y = halo_exchange_1d_ragged(x, top, bottom, row_sizes, tile_dim=tile_dims[0], dim=dims[0],
-                                out_extent=oe[0])
+                                out_extent=oe[0], wire=wire)
     return halo_exchange_1d_ragged(y, left, right, col_sizes, tile_dim=tile_dims[1],
-                                   dim=dims[1], out_extent=oe[1])
+                                   dim=dims[1], out_extent=oe[1], wire=wire)
 
 
 def _switch_by_size(row_sizes: tuple[int, ...], col_sizes: tuple[int, ...]):
@@ -332,6 +544,7 @@ def halo_exchange_1d_spec(
     tile_dim: int,
     dim: int,
     out_extent: int | None = None,
+    wire: WireCtx | None = None,
 ) -> torch.Tensor:
     """Shape-specialised exchange over ragged tiles (DESIGN.md §9): the
     contract of ``halo_exchange_1d_ragged``, except that only each tile's
@@ -339,7 +552,7 @@ def halo_exchange_1d_spec(
     canonical extent - so whatever the spec executor leaves in a tile's pad
     slots never reaches the result."""
     return _ragged_round(x, halo_lo, halo_hi, sizes, tile_dim=tile_dim, dim=dim,
-                         out_extent=out_extent, keep_pad=False, what="spec")
+                         out_extent=out_extent, keep_pad=False, what="spec", wire=wire)
 
 
 def halo_exchange_2d_spec(
@@ -351,12 +564,56 @@ def halo_exchange_2d_spec(
     tile_dims: tuple[int, int] = (0, 1),
     dims: tuple[int, int] = (3, 4),
     out_extents: tuple[int, int] | None = None,
+    wire: WireCtx | None = None,
 ) -> torch.Tensor:
     """2-D shape-specialised exchange: rows first, then columns over the
     row-extended tiles (corners ride the second round)."""
     top, bottom, left, right = halo
     oe = out_extents or (None, None)
     y = halo_exchange_1d_spec(x, top, bottom, row_sizes, tile_dim=tile_dims[0], dim=dims[0],
-                              out_extent=oe[0])
+                              out_extent=oe[0], wire=wire)
     return halo_exchange_1d_spec(y, left, right, col_sizes, tile_dim=tile_dims[1], dim=dims[1],
-                                 out_extent=oe[1])
+                                 out_extent=oe[1], wire=wire)
+
+
+def send_boundary_sum_1d(
+    x: torch.Tensor,
+    overlap_lo: int,
+    overlap_hi: int,
+    *,
+    tile_dim: int,
+    dim: int,
+    wire: WireCtx | None = None,
+) -> torch.Tensor:
+    """Adjoint of ``halo_exchange_1d``: fold halo regions back onto their
+    owners and sum.  ``x`` carries ``overlap_lo``/``overlap_hi`` rows at each
+    end of every tile that belong to the neighbouring tiles; they are
+    shipped back and added onto the neighbour's interior.  (Autograd derives
+    exactly this for the backward pass - provided for explicit schedules
+    and tests.)
+
+    Under ``wire`` the shipped strips are cotangents of a recurring
+    exchange, so they ride error feedback in the primal direction: each is
+    quantised against a residual drawn from the bag, and the new residual
+    is pushed to ``wire.bag.emitted`` in the order the bag was drawn from."""
+    size = x.shape[dim]
+    core = x.narrow(dim, overlap_lo, size - overlap_lo - overlap_hi)
+
+    def ship(strip, direction):
+        if wire is None:
+            return _shift(strip, tile_dim, direction)
+        res = wire.bag.take(strip.shape, device=strip.device)
+        payload, new_res = ef_encode(wire.codec, strip, res, GRID_DIMS)
+        wire.bag.emit(new_res)
+        recv = [_shift(p, tile_dim, direction) for p in payload]
+        return wire.codec.decode(recv, strip.shape, strip.dtype, GRID_DIMS)
+
+    if overlap_lo > 0:
+        up = ship(x.narrow(dim, 0, overlap_lo), -1)        # belongs to the previous tile
+        pad = [0, 0] * (x.dim() - 1 - dim) + [core.shape[dim] - overlap_lo, 0]
+        core = core + torch.nn.functional.pad(up, pad)
+    if overlap_hi > 0:
+        down = ship(x.narrow(dim, size - overlap_hi, overlap_hi), +1)
+        pad = [0, 0] * (x.dim() - 1 - dim) + [0, core.shape[dim] - overlap_hi]
+        core = core + torch.nn.functional.pad(down, pad)
+    return core

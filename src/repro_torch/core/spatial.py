@@ -40,7 +40,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.backend import ACTIVATIONS as _ACTIVATIONS
 from repro_torch.core.backend import get_conv_backend, pad_for_valid
-from repro_torch.core.halo import halo_exchange_1d_packed
+from repro_torch.core.halo import WireCtx, _residual, halo_exchange_1d_packed
+from repro_torch.optim.compression import ef_encode
 from repro_torch.launch.mesh import plan_constant, unpack_grid
 from repro_torch.core.tiling import ConvSpec
 
@@ -621,40 +622,119 @@ def _batch_block_slice(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
     return x.reshape(n, m, b // t, *x.shape[1:])
 
 
-def reshard_spatial_to_data(x: torch.Tensor) -> torch.Tensor:
+def _sum_in_order(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` one index after another, in index order."""
+    acc = t.select(dim, 0)
+    for k in range(1, t.shape[dim]):
+        acc = acc + t.select(dim, k)
+    return acc
+
+
+def _ef_chunks(codec, chunks: torch.Tensor, res: list, dim: int):
+    """EF-encode every (sender, destination) chunk of ``chunks`` (the
+    destination at ``dim``) against its own residual; -> (the decoded
+    chunks, each destination's new residual)."""
+    payload, new = ef_encode(codec, chunks, torch.stack(res, dim), dim + 1)
+    applied = codec.decode(payload, chunks.shape, torch.float32, dim + 1)
+    return applied, list(new.unbind(dim))
+
+
+class _WireAllGather(torch.autograd.Function):
+    """The reference's two compressed tiled all-gathers (rows, then
+    columns) of the tile grid ``(n, m, b, h, w, C)`` into the full maps
+    ``(b, n*h, m*w, C)`` every device holds.  Forward: each tile's block is
+    encoded on its own, its own block included; the row-gathered array of
+    tile column j, the same on every tile of the column, is encoded once
+    per column.  Backward, modelled per device: a device's cotangent is its
+    batch block's only (the full maps are consumed by ``_batch_block_slice``
+    alone); each device splits it into one chunk per destination, EF-encodes
+    each chunk against the residual of its (sender, destination) pair, and
+    each destination sums the decoded chunks in source order - columns
+    first, then rows.  The new residuals are the gradients of ``res``."""
+
+    @staticmethod
+    def forward(ctx, x, codec, *res):
+        n, m, b, h, w, c = x.shape
+        ctx.codec, ctx.shape = codec, x.shape
+        ctx.save_for_backward(*res)
+        own = codec.decode(codec.encode(x, 2), x.shape, x.dtype, 2)
+        rows = own.permute(1, 2, 0, 3, 4, 5).reshape(m, b, n * h, w, c)
+        rows = codec.decode(codec.encode(rows, 1), rows.shape, rows.dtype, 1)
+        return rows.permute(1, 2, 0, 3, 4).reshape(b, n * h, m * w, c)
+
+    @staticmethod
+    def backward(ctx, ct):
+        n, m, b, h, w, c = ctx.shape
+        codec, t = ctx.codec, n * m
+        res = list(ctx.saved_tensors)
+        blocks = ct.reshape(t, b // t, *ct.shape[1:])
+        per_dev = ct.new_zeros((t, t, *blocks.shape[1:]))
+        per_dev.diagonal(0, 0, 1).copy_(blocks.movedim(0, -1))   # device d: block d only
+        per_dev = per_dev.reshape(n, m, b, n * h, m * w, c)
+        # column gather: device (i, j) sends chunk j' of its columns to (i, j')
+        chunks = per_dev.reshape(n, m, b, n * h, m, w, c).permute(0, 1, 4, 2, 3, 5, 6)
+        applied, new_col = _ef_chunks(codec, chunks, res[n:], 2)
+        rows_ct = _sum_in_order(applied, 1)                       # (n, m, b, n*h, w, c)
+        # row gather: device (i, j) sends chunk i' of its rows to (i', j)
+        chunks = rows_ct.reshape(n, m, b, n, h, w, c).permute(0, 1, 3, 2, 4, 5, 6)
+        applied, new_row = _ef_chunks(codec, chunks, res[:n], 2)
+        ct_x = _sum_in_order(applied, 0).transpose(0, 1)          # (n, m, b, h, w, c)
+        return (ct_x.to(ct.dtype), None, *new_row, *new_col)
+
+
+def _wire_all_gather(x: torch.Tensor, wire: WireCtx) -> torch.Tensor:
+    """Tiles ``(n, m, b, h, w, C)`` -> the full maps ``(b, n*h, m*w, C)``
+    through the compressed all-gathers (``_WireAllGather``), with the
+    residuals drawn in the reference's order: n for the row gather, then m
+    for the column gather (one per destination); none when ``x`` takes no
+    gradient (``halo.wire_shift`` says why)."""
+    n, m, b, h, w, c = x.shape
+    res = [_residual(wire, x.shape, x) for _ in range(n)]
+    res += [_residual(wire, (n, m, b, n * h, w, c), x) for _ in range(m)]
+    return _WireAllGather.apply(x, wire.codec, *res)
+
+
+def reshard_spatial_to_data(x: torch.Tensor, wire: WireCtx | None = None) -> torch.Tensor:
     """The spatial->data crossover (DESIGN.md §7): core tiles
     ``(n, m, b, h, w, C)`` (halo consumed by the previous group) -> batch
     blocks of full maps ``(n, m, b/(n*m), n*h, m*w, C)``, tile (i, j)
     holding batch block i*m + j.
 
-    The reference all-gathers the tile grid (``_wire_all_gather`` with no
-    codec, twice) and slices each device's block (``_batch_block_slice``).
-    On the virtual mesh that is one merge and one reshape - no tile gets
-    the full batch's maps - and autograd gives the adjoint (the
-    reduce-scatter and the zero-padded scatter) as ``jax.grad`` does."""
+    The reference all-gathers the tile grid (``_wire_all_gather``, twice)
+    and slices each device's block (``_batch_block_slice``).  On the
+    virtual mesh that is one merge and one reshape - no tile gets the full
+    batch's maps - and autograd gives the adjoint (the reduce-scatter and
+    the zero-padded scatter) as ``jax.grad`` does.  Under a codec the merge
+    goes through the compressed gathers."""
     n, m, b, h, w, c = x.shape
+    if wire is not None:
+        return _batch_block_slice(_wire_all_gather(x, wire), n, m)
     full = x.permute(2, 0, 3, 1, 4, 5).reshape(b, n * h, m * w, c)
     return _batch_block_slice(full, n, m)
 
 
 def reshard_spatial_to_data_ragged(
-    x: torch.Tensor, row_sizes: tuple[int, ...], col_sizes: tuple[int, ...]
+    x: torch.Tensor, row_sizes: tuple[int, ...], col_sizes: tuple[int, ...],
+    wire: WireCtx | None = None,
 ) -> torch.Tensor:
     """The spatial->data crossover of ragged tiles: the padded core tiles
     ``(n, m, b, Hmax, Wmax, C)`` are stitched back into full maps from each
     tile's valid window (the boundary tables are plan constants, so this is
     ``TileMesh.merge``'s gather), then split into batch blocks as
     ``reshard_spatial_to_data`` does.  Autograd gives the adjoint: the
-    scatter back into padded tiles."""
+    scatter back into padded tiles.  Under a codec the padded tiles, pad
+    slots included, go through the compressed gathers first."""
     n, m, b, hmax, wmax, c = x.shape
     if (n, m) != (len(row_sizes), len(col_sizes)) or (hmax, wmax) != (max(row_sizes),
                                                                       max(col_sizes)):
         raise ValueError(
             f"padded tiles {tuple(x.shape)} inconsistent with sizes {row_sizes} x {col_sizes}"
         )
-    full = unpack_grid(x.permute(2, 0, 3, 1, 4, 5).reshape(b, n * hmax, m * wmax, c),
-                       row_sizes, col_sizes)
-    return _batch_block_slice(full, n, m)
+    if wire is not None:
+        full = _wire_all_gather(x, wire)
+    else:
+        full = x.permute(2, 0, 3, 1, 4, 5).reshape(b, n * hmax, m * wmax, c)
+    return _batch_block_slice(unpack_grid(full, row_sizes, col_sizes), n, m)
 
 
 def apply_layer_data(
@@ -762,6 +842,7 @@ def apply_group_lead_overlap(
     block_oh: int | None = None,
     inference: bool = False,
     batch_global: int | None = None,
+    wire: WireCtx | None = None,
 ) -> torch.Tensor:
     """Group-lead layer under the overlap schedule on core tiles
     ``(n, m, B, h, w, C)``: packed halo exchange and interior/boundary
@@ -795,12 +876,12 @@ def apply_group_lead_overlap(
                              batch_global=batch_global)
 
     # 1. the packed row exchange (nothing below consumes it yet)
-    row_lo, row_hi = halo_exchange_1d_packed(x, top, bottom, tile_dim=0, dim=3)
+    row_lo, row_hi = halo_exchange_1d_packed(x, top, bottom, tile_dim=0, dim=3, wire=wire)
 
     if rs is None or cs is None:
         # no interior: whole-tile compute on the assembled extended tile
         ext = _assemble(row_lo, x, row_hi, top, bottom, dim=3)
-        col_lo, col_hi = halo_exchange_1d_packed(ext, left, right, tile_dim=1, dim=4)
+        col_lo, col_hi = halo_exchange_1d_packed(ext, left, right, tile_dim=1, dim=4, wire=wire)
         ext = _assemble(col_lo, ext, col_hi, left, right, dim=4)
         return finish(*conv(ext))
 
@@ -809,7 +890,7 @@ def apply_group_lead_overlap(
 
     # 3. the column exchange over the row-extended tile (carries the corners)
     x_rows = _assemble(row_lo, x, row_hi, top, bottom, dim=3)
-    col_lo, col_hi = halo_exchange_1d_packed(x_rows, left, right, tile_dim=1, dim=4)
+    col_lo, col_hi = halo_exchange_1d_packed(x_rows, left, right, tile_dim=1, dim=4, wire=wire)
     ext = _assemble(col_lo, x_rows, col_hi, left, right, dim=4)
 
     # 4. the boundary pieces from the extended tile (extended coords)

@@ -43,8 +43,11 @@ def plan_constant(values: tuple[int, ...], device: torch.device) -> torch.Tensor
     as a tensor on ``device``, made once: a fresh ``torch.tensor(...,
     device="cuda")`` copies from pageable host memory and waits for the
     copy at every call, which would stall the host before every ragged
-    exchange, pack and class conv.  Callers never write to it."""
-    return torch.tensor(values, dtype=torch.long, device=device)
+    exchange, pack and class conv.  Callers never write to it.  It is made
+    outside inference mode even when first asked for inside it (a serve
+    step), so a later training step can save it for its backward."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=torch.long, device=device)
 
 
 @functools.lru_cache(maxsize=64)

@@ -4,7 +4,8 @@ The ``--cnn`` mode of ``repro/launch/serve.py``: builds a YOLOv2-prefix
 plan over an n x m virtual tile grid (``--groups auto``: the cost model's
 grouping on ``--hw`` at the largest bucket; ``--schedule overlap`` the overlap
 executor; ``--crossover auto|N`` a hybrid plan, whose every bucket must divide
-by the tile count, e.g. ``--buckets 4 8`` on 2x2), takes its forward-only twin, freezes
+by the tile count, e.g. ``--buckets 4 8`` on 2x2; ``--wire-codec int8|topk:<k>``
+compresses every strip statelessly), takes its forward-only twin, freezes
 BN statistics on a calibration batch, warms the bucket ladder, then drives
 a synthetic image workload through ``runtime.driver.run_serving`` and prints
 latency percentiles, throughput, bucket census and cache counters.  The
@@ -29,7 +30,7 @@ def _cnn_main(args) -> int:
         input_hw=(args.size, args.size), depth=args.depth, n=n, m=m,
         groups="auto" if args.groups == "auto" else None,
         backend=args.backend, schedule=args.schedule, hw=args.hw, batch=max(args.buckets),
-        crossover=args.crossover, device=args.device,
+        crossover=args.crossover, wire_codec=args.wire_codec, device=args.device,
     )
     params = arch.init(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -43,7 +44,8 @@ def _cnn_main(args) -> int:
         hw=args.hw,
     )
     print(f"plan: schedule={arch.plan.schedule} crossover={arch.plan.crossover} "
-          f"modes={[g.mode for g in arch.plan.groups]}")
+          f"modes={[g.mode for g in arch.plan.groups]}"
+          + (f" wire_codec={arch.plan.wire_codec}" if arch.plan.wire_codec != "none" else ""))
     print(f"plan: groups={[(g.start, g.end) for g in arch.plan.groups]} "
           f"modeled step bound {engine.step_bound * 1e3:.3f} ms (hw={args.hw or 'pi3-core'})")
     t0 = time.monotonic()
@@ -88,6 +90,8 @@ def main(argv=None) -> int:
     ap.add_argument("--groups", choices=("none", "auto"), default="none")
     ap.add_argument("--crossover", default=None,
                     help="spatial->data crossover layer or 'auto'")
+    ap.add_argument("--wire-codec", default="none",
+                    help="strip codec: 'none', 'int8' or 'topk:<k>' (stateless forward)")
     ap.add_argument("--hw", default=None, help="hardware profile name")
     ap.add_argument("--buckets", type=int, nargs="+", default=[1, 2, 4, 8])
     ap.add_argument("--budget-ms", type=float, default=1000.0)

@@ -18,9 +18,12 @@ the interior/boundary split, uniform groups only), ``--crossover`` a hybrid
 plan's spatial->data switch (the per-microbatch batch must then divide by
 grid^2), ``--pipeline`` a pipeline tail (``none``, ``auto`` or a stage
 count; stages hold no BN layer, so with ``--no-batch-norm``, and
-``--grad-accum`` microbatches stream through them).  Flags of the reference
-the port does not have yet raise naming their ROADMAP item:
-``--wire-codec`` (A.14), ``--ckpt-dir`` and ``--fault-schedule`` (A.15).
+``--grad-accum`` microbatches stream through them), ``--wire-codec`` the
+codec of every strip, reshard and hand-off (``int8`` or ``topk:<k>``:
+stateless forward strips, error feedback on the backward's; the planner
+prices the wire under it).  Flags of the reference the port does not have
+yet raise naming their ROADMAP item: ``--ckpt-dir`` and
+``--fault-schedule`` (A.15).
 
 LM mode (``--arch qwen2-7b`` or ``mamba2-780m``; the other LM ids are A.18):
 the reduced config unless ``--full``, ``--seq`` x ``--batch`` tokens a step from
@@ -115,8 +118,12 @@ def _add_args(ap: argparse.ArgumentParser) -> None:
                     help="pipeline tail over tile subsets: 'none', 'auto' (the cost "
                          "model's choice) or a stage count; needs --groups auto, and BN "
                          "layers must stay out of the tail (see --no-batch-norm)")
+    ap.add_argument("--wire-codec", default="none",
+                    help="per-sample collective codec - 'none', 'int8' (blockwise absmax, "
+                         "stateless on forward strips, error feedback on the backward's and "
+                         "the reshard adjoint), or 'topk:<k>' (k a fraction 0<k<1 or a "
+                         "count); the planner prices the wire under the same codec")
     # the reference's flags the port does not plan yet (each raises)
-    ap.add_argument("--wire-codec", default="none")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--fault-schedule", default=None)
 
@@ -169,7 +176,9 @@ def _run_tiled(args) -> int:
     print(f"plan: backend={plan.backend} schedule={plan.schedule} "
           f"grid={args.grid}x{args.grid} crossover={plan.crossover} "
           f"groups={[(g.start, g.end, g.mode) for g in plan.groups]}"
-          + (f" stages={plan.stages}" if plan.stages else "") + f" device={arch.mesh.device}")
+          + (f" stages={plan.stages}" if plan.stages else "")
+          + (f" wire_codec={plan.wire_codec}" if plan.wire_codec != "none" else "")
+          + f" device={arch.mesh.device}")
     print(f"partition: rows={plan.partition.row_bounds} cols={plan.partition.col_bounds} "
           f"uniform={plan.is_uniform}" + (f" cluster={args.cluster}" if args.cluster else ""))
     pcfg = ParallelConfig(grad_accum=args.grad_accum)

@@ -108,8 +108,8 @@ def make_yolo_tiled_arch(
     planner's standard M) for the pipeline bubble model; ``schedule`` and
     ``crossover`` as in ``build_stack_plan``; ``partition`` (an explicit
     ``TilePartition``, else derived: cluster-balanced or near-even) and
-    ``ragged_exec`` pass through to it.  Knobs the port does not plan raise
-    ``NotImplementedError`` (see ``build_stack_plan``)."""
+    ``ragged_exec`` pass through to it, and ``wire_codec``, the plan's codec,
+    which the trainer's grad step and the serve engine's forward run."""
     layers = yolov2_16_layers(batch_norm=batch_norm)[:depth]
     plan = build_stack_plan(
         input_hw, layers, n, m, groups,

@@ -1,8 +1,7 @@
-"""Optimizers, learning-rate schedules and the trainer's int8 error feedback.
+"""Optimizers, learning-rate schedules, the trainer's int8 error feedback and
+the wire codecs.
 
-Re-exports the names of ``repro/optim/__init__.py`` that the port defines;
-the codec executor (``WireCodec``'s encode/decode, ``ef_encode``) arrives
-with ROADMAP A.14 (``tests/test_torch_api.py`` keeps the list).
+Re-exports the names of ``repro/optim/__init__.py``.
 """
 from repro_torch.optim.optimizers import (
     Optimizer,
@@ -16,6 +15,8 @@ from repro_torch.optim.optimizers import (
 from repro_torch.optim.schedules import cosine_schedule, linear_warmup
 from repro_torch.optim.compression import (
     CompressionState,
+    WireCodec,
+    ef_encode,
     get_codec,
     int8_compress,
     int8_decompress,

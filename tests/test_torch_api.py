@@ -15,11 +15,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # reference name -> the ROADMAP A item whose port brings it
 NOT_YET = {
-    "core": {
-        **dict.fromkeys(["EFBag", "WireCtx", "send_boundary_sum_1d", "wire_shift"], "A.14"),
-        **dict.fromkeys(["plan_from_manifest", "replan_stack"], "A.15"),
-    },
-    "optim": dict.fromkeys(["WireCodec", "ef_encode"], "A.14"),
+    "core": dict.fromkeys(["plan_from_manifest", "replan_stack"], "A.15"),
+    "optim": {},
     "kernels": {},
 }
 

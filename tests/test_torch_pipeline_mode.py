@@ -415,8 +415,8 @@ def test_a_handoff_to_the_wrong_stage_rank_fails_the_bar(monkeypatch):
     _, plan = _plans("prefix2x2", backend="cuda")
     real = tfu._stage_handoff
 
-    def wrong_rank(y, plan_, s):
-        out = real(y, plan_, s).reshape(2, -1, *y.shape[1:])
+    def wrong_rank(y, plan_, s, wire=None):
+        out = real(y, plan_, s, wire).reshape(2, -1, *y.shape[1:])
         return torch.cat([torch.zeros_like(out[:1]), out[:-1]]).reshape(-1, *y.shape[1:])
 
     monkeypatch.setattr(tfu, "_stage_handoff", wrong_rank)

@@ -531,6 +531,27 @@ def test_spec_and_padded_plans_key_the_serve_cache_apart():
 
 
 @pytest.mark.parametrize("ragged_exec", EXECS)
+def test_a_training_step_after_a_serve_step_of_the_same_plan(ragged_exec):
+    """The ragged exchanges' index tables are made once per device; made
+    first by a serve step (inside ``torch.inference_mode``), they must still
+    serve a training step's backward in the same process."""
+    layers = yolov2_16_layers()[:4]
+    plan = tfu.build_stack_plan((32, 32), layers, 2, 2, ragged_exec=ragged_exec,
+                                partition=TilePartition((0, 12, 32), (0, 20, 32)))
+    assert not plan.is_uniform
+    mesh = make_tile_mesh(2, 2, "cpu")
+    params = tsp.init_stack_params(torch.Generator().manual_seed(3), layers)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 32, 32, 3)
+                                                                   ).astype(np.float32))
+    tfu.make_tiled_infer(plan.inference_twin(), mesh)(tsp.freeze_bn_stats(params, layers, x), x)
+    live = [{k: v.requires_grad_(True) for k, v in p.items()} for p in params]
+    t = torch.zeros(2, *plan.out_hw(), layers[-1].out_channels)
+    loss = tfu.make_tiled_loss(plan, mesh, l2_loss_local)(live, x, t)
+    grads = torch.autograd.grad(loss, [v for p in live for v in p.values()])
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.parametrize("ragged_exec", EXECS)
 def test_serve_engine_serves_a_ragged_plan(ragged_exec):
     """The reference's ragged serve plan (``tests/test_serve_cnn.py:116``,
     ``TilePartition((0, 6, 16), (0, 10, 16))`` on 2x2) through the engine:

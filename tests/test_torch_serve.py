@@ -177,8 +177,29 @@ def _plan_mode(kw, **extra):
 
 def test_unported_planning_modes_raise_with_roadmap_item():
     layers = yolov2_16_layers()[:4]
-    with pytest.raises(NotImplementedError, match="A.14"):
-        tfu.build_stack_plan((32, 32), layers, 2, 2, wire_codec="int8")
+    # the A.14 case now plans and serves: the int8 plan's serve twin runs
+    # through the engine, each response its own compressed forward of the
+    # dispatched batch, a quantisation away from the uncompressed one
+    plan8 = tfu.build_stack_plan((32, 32), layers, 2, 2, wire_codec="int8", inference=True)
+    assert plan8.wire_codec == "int8" and tfu.plan_manifest(plan8)["wire_codec"] == "int8"
+    mesh = make_tile_mesh(2, 2, "cpu")
+    rng = np.random.default_rng(0)
+    frozen = tsp.freeze_bn_stats(tsp.init_stack_params(torch.Generator().manual_seed(0), layers),
+                                 layers, torch.from_numpy(rng.standard_normal((4, 32, 32, 3)
+                                                                              ).astype(np.float32)))
+    eng = CNNServeEngine(plan8, mesh, frozen, buckets=(4,), step_bound=0.01, latency_budget=1.0,
+                         clock=ManualClock(), simulate_step_s=0.01)
+    images = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
+    for im in images:
+        eng.submit(im)
+    eng.drain()
+    assert [b["bucket"] for b in eng.batch_log] == [4]
+    got = np.stack([r.result for r in sorted(eng.finished, key=lambda r: r.rid)])
+    want = tfu.make_tiled_infer(plan8, mesh)(frozen, torch.from_numpy(images)).numpy()
+    np.testing.assert_array_equal(got, want)
+    none = tfu.make_tiled_infer(dataclasses.replace(plan8, wire_codec="none"), mesh)(
+        frozen, torch.from_numpy(images)).numpy()
+    assert 0 < np.abs(got - none).max() < 0.05 * np.abs(none).max()
     # the A.13 cases now meet the reference's outcomes: pipeline=2 without
     # groups="auto" is refused, with it the BN layers refuse a stage, and
     # pipeline="auto" plans the reference's groups (no tail for this stack)

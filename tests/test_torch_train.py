@@ -192,7 +192,7 @@ def test_tiled_loss_2x2_matches_jax_untiled(case, backend):
     assert abs(float(ref) - ref_loss) < LOSS_RTOL * max(1.0, abs(ref_loss))
 
 
-def test_training_entry_points_refuse_serve_plans_and_bad_microbatches():
+def test_training_entry_points_refuse_serve_plans_and_bad_microbatches(jax_2x2):
     plan = _plan("yolo4-none", "torch")
     mesh = make_tile_mesh(2, 2, "cpu")
     for make in (tfu.make_tiled_loss, tfu.make_deferred_grad_step):
@@ -202,8 +202,17 @@ def test_training_entry_points_refuse_serve_plans_and_bad_microbatches():
     step = tfu.make_deferred_grad_step(plan, mesh, l2_loss_local, microbatches=1)
     with pytest.raises(ValueError, match="microbatches=1"):
         step(params_from_jax(params, "cpu"), xs, ts)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        tfu.make_tiled_loss(dataclasses.replace(plan, wire_codec="int8"), mesh, l2_loss_local)
+    # A codec plan (ROADMAP A.14) now trains: the int8 per-layer sync plan's
+    # loss is the JAX int8 plan's on its 2x2 mesh (the jax_2x2 subprocess)
+    # within a tenth of the codec's own effect, the bar of
+    # tests/test_torch_wire_codec.py, and the codec moves it
+    d, tree = jax_2x2
+    plan8 = tfu.build_stack_plan(HW, _port(CASES["yolo4-none"][0]), 2, 2, wire_codec="int8")
+    loss8 = tfu.make_tiled_loss(plan8, mesh, l2_loss_local)(
+        params_from_jax(tree("p"), "cpu"), d["xs"][0], d["ts"][0]).item()
+    j8, jn = float(d["wire_loss_int8"]), float(d["wire_loss_none"])
+    assert j8 != jn
+    assert abs(loss8 - j8) <= max(0.1 * abs(j8 - jn), 2e-5 + 1e-4 * abs(j8))
     # A pipeline plan (ROADMAP A.13) now trains: the BN-free stack's two
     # stages on the 2x2 grid score the untiled loss, and a microbatch that
     # cannot spread over a stage's two tiles is the named error.
@@ -362,7 +371,7 @@ _JAX_2X2 = textwrap.dedent("""
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     import jax, numpy as np
     from repro.configs.base import ParallelConfig, TrainConfig
-    from repro.core.fusion import build_stack_plan, make_deferred_grad_step
+    from repro.core.fusion import build_stack_plan, make_deferred_grad_step, make_tiled_loss
     from repro.core.tiling import Group
     from repro.launch.mesh import make_tile_mesh
     from repro.models.tiled_cnn import TiledCNNArch
@@ -386,6 +395,10 @@ _JAX_2X2 = textwrap.dedent("""
             loss, grads = jax.jit(make_deferred_grad_step(plan, mesh, l2_loss_local,
                                                           microbatches=2))(params, xs, ts)
             out.update(xs=xs, ts=ts, loss=np.asarray(loss))
+            for codec in ("none", "int8"):
+                wplan = build_stack_plan((32, 32), layers, 2, 2, wire_codec=codec)
+                out[f"wire_loss_{codec}"] = np.asarray(jax.jit(make_tiled_loss(
+                    wplan, mesh, l2_loss_local))(params, xs[0], ts[0]))
             for i, p in enumerate(params):
                 for k, v in p.items():
                     out[f"p{i}_{k}"] = np.asarray(v)
@@ -602,6 +615,7 @@ def test_launcher_trains_on_cpu(capsys):
     (["--crossover", "2"], "A.11"),
     (["--pipeline", "2"], "A.13"),
     (["--wire-codec", "int8"], "A.14"),
+    (["--wire-codec", "topk:0.5", "--grad-accum", "2", "--batch", "4"], "A.14"),
     (["--ckpt-dir", "ckpt"], "A.15"),
     (["--fault-schedule", "drop:1@2"], "A.15"),
     (["--arch", "stablelm-1.6b"], "A.18"),
@@ -609,8 +623,9 @@ def test_launcher_trains_on_cpu(capsys):
 ])
 def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys):
     """Unported flags raise naming their ROADMAP item; the flags of A.10
-    (overlap), A.11 (hybrid plans) and A.12 (a heterogeneous cluster's
-    balanced, ragged partition) now train under the same flags, and those of
+    (overlap), A.11 (hybrid plans), A.12 (a heterogeneous cluster's
+    balanced, ragged partition) and A.14 (wire codecs: int8, and top-k with
+    the EF carry over two microbatches) now train under the same flags, and those of
     A.13 (pipeline tails) meet the reference's outcomes: ``--pipeline auto``
     with ``--groups auto`` plans no tail for this BN stack and trains,
     ``--pipeline 2`` without ``--groups auto`` is refused by the planner."""
@@ -626,11 +641,12 @@ def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys):
             with pytest.raises(ValueError, match="pipeline tails are planner-assigned"):
                 main(base + flags)
         return
-    if item in ("A.10", "A.11", "A.12"):
+    if item in ("A.10", "A.11", "A.12", "A.14"):
         assert main(base + flags) == 0
         out = capsys.readouterr().out
         plan = {"A.10": "schedule=overlap", "A.11": "crossover=2",
-                "A.12": "rows=(0, 4, 32) cols=(0, 4, 32) uniform=False cluster=pi3x3+jetson"}[item]
+                "A.12": "rows=(0, 4, 32) cols=(0, 4, 32) uniform=False cluster=pi3x3+jetson",
+                "A.14": f"wire_codec={flags[1]}"}[item]
         assert plan in out and "done: steps=1 restarts=0" in out
         return
     with pytest.raises(NotImplementedError, match=item):
