@@ -24,10 +24,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    split and gather is printed;
 4. serve full-width YOLOv2-16 at 416x416 on a 2x2 virtual tile grid
    through the CUDA kernel: freeze BN on a seeded calibration batch, warm
-   the (1, 2, 4, 8) bucket ladder, drive 32 requests through
-   ``run_serving``, check every response against the untiled plain
-   reference and the launch count against 12 convs x dispatches (B1's
-   launches by tile instance summing to it);
+   the (1, 2, 4, 8) bucket ladder (one CUDA graph captured per bucket),
+   drive 32 requests through ``run_serving``, check every response against
+   the untiled plain reference and the launch count against 12 convs x
+   dispatches: a replay launches no Python, so every serve check counts
+   each graph's launches (counted at its capture) times its replays
+   (``served_launches``), B1's by tile instance, with no launch from the
+   host during the drive and the replays equal to the dispatches by
+   bucket;
 5. train the same network (BN on, fp32) on the same grid through all three
    kernels: global batch 8 in 2 microbatches, Darknet's SGD at lr 1e-3,
    the launcher's seeded batches, 3 steps through ``make_train_step`` and
@@ -177,8 +181,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``--wire-codec int8``; (e) B1-B3 at every new per-tile shape; the
    ``{"wire": ...}`` line gives each plan's device kernels a step, device
    work, event step, idle share, peak memory and
-   ``modeled_step_wire_bytes`` beside its none twin's.  The
-   ``{"kernels": ...}`` line's launches include phases 12's to 16's.
+   ``modeled_step_wire_bytes`` beside its none twin's;
+17. one CUDA graph per batch bucket (``capture_phase``): (a) every plan the
+   earlier phases serve (``CAPTURE_PLANS_416``: sync, nano auto, overlap,
+   hybrid+overlap, the 3x3 grid and the cluster each spec and padded, edge
+   int8, and phase 16's hybrid plan under topk:0.5), on every bucket of its
+   ladder: the engine's captured replay
+   bitwise equal to the uncaptured forward on a seeded input, its graph's
+   B1 launches equal to the code's count by tile instance, pool bytes, and
+   the forward on the host clock eager against replayed; (b) phase 4's
+   plan and 32 requests served once with ``capture=False`` and once
+   captured, under phase 4's step bound: p50, p99, img/s, the bucket-1 and
+   bucket-8 dispatch on the host clock (in turns), the staging copies
+   alone, device ms, idle share and the profiler's B1 kernels of three
+   bucket-8 dispatches, replays and pool bytes per bucket, the two
+   engines' responses equal; (c) the replay after a swap of the params
+   for another seed's, and after an in-place update of a leaf, equal to the
+   eager forward with them; (d) a planted fault - a replay that skips the
+   copy into the static input - rejected by (a)'s check.  The serve
+   launchers' B1 launches are the host's (warm runs and captures) plus
+   each graph's times its replays (``run_serve_launcher``).  The
+   ``{"kernels": ...}`` line's launches include phases 12's to 17's.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -193,6 +216,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -442,6 +466,31 @@ WIRE_PLANS_416 = {
                                crossover="auto", microbatches=TRAIN_ACCUM), "int8", 1, True),
 }
 WIRE_SERVE_BUCKETS = (4, 8)
+# Phase 17: every plan an earlier phase serves, with its bucket ladder - name:
+# (grid, make_yolo_tiled_arch kwargs, buckets); groups as (start, end) or
+# (start, end, mode) tuples.  "sync" is phases 3-5's hand-picked plan,
+# "nano_auto" phase 12's, "overlap" and "hybrid_overlap" phase 13's,
+# "grid3_*" and "cluster_*" phase 14's, "edge_int8" phase 16's; "hybrid_topk"
+# is phase 16's top-k plan (trained there), served here.
+_HAND = [(0, 3), (4, 7), (8, 11), (12, 15)]
+CAPTURE_PLANS_416 = {
+    "sync": ((2, 2), dict(groups=_HAND), BUCKETS),
+    "nano_auto": ((2, 2), dict(groups="auto", hw=AUTO_HW, batch=TRAIN_BATCH,
+                               microbatches=TRAIN_ACCUM), BUCKETS),
+    "overlap": ((2, 2), dict(groups=_HAND, schedule="overlap"), BUCKETS),
+    "hybrid_overlap": ((2, 2), dict(groups="auto", hw=HYBRID_HW, batch=TRAIN_BATCH,
+                                    microbatches=TRAIN_ACCUM, crossover="auto",
+                                    schedule="overlap"), HYBRID_BUCKETS),
+    "grid3_spec": ((3, 3), dict(groups=_HAND, ragged_exec="spec"), BUCKETS),
+    "grid3_padded": ((3, 3), dict(groups=_HAND, ragged_exec="padded"), BUCKETS),
+    "cluster_spec": ((2, 2), dict(_CLUSTER_KW, groups="auto", ragged_exec="spec"), BUCKETS),
+    "cluster_padded": ((2, 2), dict(_CLUSTER_KW, groups="auto", ragged_exec="padded"), BUCKETS),
+    "edge_int8": ((2, 2), dict(groups="auto", hw="jetson-edge-100m", batch=TRAIN_BATCH,
+                               microbatches=TRAIN_ACCUM, crossover="auto", wire_codec="int8"),
+                  WIRE_SERVE_BUCKETS),
+    "hybrid_topk": ((2, 2), dict(groups=HYBRID_PLANS_416[HYBRID_HW][1], schedule="overlap",
+                                 wire_codec="topk:0.5"), HYBRID_BUCKETS),
+}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -582,6 +631,76 @@ def launches_per_batch(plan, batch: int) -> tuple[dict, dict]:
     return ({"conv2d_tile": len(calls),
              "conv2d_dgrad_tile": sum(1 for c in calls if c["layer"] != 0),
              "conv2d_wgrad_tile": len(calls)}, by_instance)
+
+
+def served_launches(label: str, engine, plan, host: int, host_by_instance: dict
+                    ) -> tuple[int, dict]:
+    """B1's launches in a serve drive: ``host`` (the wrapper's count over the
+    drive, by tile instance in ``host_by_instance``) plus, for each captured
+    bucket, its graph's launches (counted at the capture) times its replays.
+    Checks the replays against the drive's dispatches by bucket, each
+    graph's launches against the code's count (``launches_per_batch``) by
+    tile instance, that a captured engine launched nothing from the host,
+    and the total against the code's count times the dispatches.  The
+    engine must be fresh from ``warmup``, so that every replay is the
+    drive's."""
+    stats = engine.stats()
+    cap, census = stats["capture"], stats["bucket_census"]
+    total, by_instance = host, {k: v for k, v in host_by_instance.items() if v}
+    if engine.capture:
+        check(host == 0, f"{label}: {host} B1 launches from the host in a captured drive")
+        check(cap["replays"] == {b: census.get(b, 0) for b in cap["buckets"]},
+              f"{label}: replays {cap['replays']} != dispatches by bucket {census}")
+        for b in cap["buckets"]:
+            per, per_instance = launches_per_batch(plan, b)
+            want = {"conv2d_tile": per["conv2d_tile"],
+                    **{f"conv2d_tile/{k}": v for k, v in per_instance.items()}}
+            check(cap["launches"][b] == want,
+                  f"{label}: bucket-{b} graph launches {cap['launches'][b]} != the code's {want}")
+            total += per["conv2d_tile"] * cap["replays"][b]
+            for k, v in per_instance.items():
+                by_instance[k] = by_instance.get(k, 0) + v * cap["replays"][b]
+    dispatches = sum(census.values())
+    per, per_instance = launches_per_batch(plan, 1)
+    want_instances = {k: v * dispatches for k, v in per_instance.items()}
+    check(total == per["conv2d_tile"] * dispatches and total > 0,
+          f"{label}: B1 launches {total} != {per['conv2d_tile']} x {dispatches} dispatches")
+    check(by_instance == want_instances,
+          f"{label}: B1 launches by instance {by_instance} != the code's {want_instances}")
+    return total, by_instance
+
+
+def run_serve_launcher(argv: list, plan) -> tuple[int, int, str]:
+    """``python -m repro_torch.launch.serve`` on the card, its output printed:
+    (B1 launches from the host, B1 launches its graphs replayed, the
+    output).  Checks the host's launches against the warm runs and the
+    capture of every bucket (``WARM_RUNS + 1`` forwards each), each graph's
+    launches against the code's count and the replays against the
+    dispatches the launcher reports."""
+    from repro_torch.kernels.conv2d_tiled.kernel import conv2d_tile
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.serve.exec_cache import WARM_RUNS
+
+    host0 = conv2d_tile.launches
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_launcher.main(argv)
+    out = buf.getvalue()
+    print(out, end="")
+    check(rc == 0, f"serve launcher {argv} exited {rc}")
+    host = conv2d_tile.launches - host0
+    cap = json.loads(next(ln for ln in out.splitlines() if ln.startswith("capture: "))[9:])
+    dispatches = int(re.search(r"over (\d+) dispatches", out).group(1))
+    per = launches_per_batch(plan, 1)[0]["conv2d_tile"]
+    check(cap["buckets"] and all(v["conv2d_tile"] == per for v in cap["launches"].values()),
+          f"serve launcher graphs {cap['launches']} ({per} launches each)")
+    check(sum(cap["replays"].values()) == dispatches,
+          f"serve launcher replays {cap['replays']} != {dispatches} dispatches")
+    check(host == (WARM_RUNS + 1) * per * len(cap["buckets"]),
+          f"serve launcher host launches {host} != {WARM_RUNS + 1} x {per} x "
+          f"{len(cap['buckets'])} buckets")
+    replayed = sum(v["conv2d_tile"] * cap["replays"][b] for b, v in cap["launches"].items())
+    return host, replayed, out
 
 
 def conv_flops(x_shape, w_shape, stride: int) -> int:
@@ -1171,7 +1290,6 @@ def wire_phase(dev, smi: str, phase5_loss: float, held_b1: set, held_bwd: set, f
         conv2d_wgrad_tile,
         reset_launches,
     )
-    from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import train as train_launcher
     from repro_torch.models.yolo import make_yolo_tiled_arch
 
@@ -1360,12 +1478,10 @@ def wire_phase(dev, smi: str, phase5_loss: float, held_b1: set, held_bwd: set, f
     for im in images[:16]:
         engine16.submit(im)
     engine16.drain()
-    serve16_launches = conv2d_tile.launches
-    per_dispatch16, _ = launches_per_batch(ea.serve_plan(), 1)
     check([b["bucket"] for b in engine16.batch_log] == [8, 8],
           f"edge_auto serve dispatches {engine16.batch_log}")
-    check(serve16_launches == 2 * per_dispatch16["conv2d_tile"],
-          f"edge_auto serve launches {serve16_launches} != 2 x {per_dispatch16['conv2d_tile']}")
+    serve16_launches, _ = served_launches("serve edge_auto", engine16, ea.serve_plan(),
+                                          conv2d_tile.launches, conv2d_tile.launches_by_instance)
     got16 = torch.from_numpy(np.stack([r.result for r in sorted(engine16.finished,
                                                                  key=lambda r: r.rid)]))
     plain_fwd = {c: torch.cat([make_tiled_infer(dataclasses.replace(ea.serve_plan(), backend="torch",
@@ -1389,14 +1505,17 @@ def wire_phase(dev, smi: str, phase5_loss: float, held_b1: set, held_bwd: set, f
             "--arch", "yolov2-tiled", "--grid", "2", "--groups", "4", "--wire-codec", "int8",
             "--input-hw", str(INPUT_HW[0]), "--depth", "16", "--batch", str(TRAIN_BATCH),
             "--grad-accum", str(TRAIN_ACCUM), "--steps", "1"])
-        rc16s = serve_launcher.main(["--cnn", "--size", str(INPUT_HW[0]), "--depth", "16",
-                                     "--wire-codec", "int8", "--buckets", "4", "8",
-                                     "--requests", "8", "--ticks", "2"])
     print(out16.getvalue(), end="")
-    check(rc16 == 0 and rc16s == 0 and out16.getvalue().count("wire_codec=int8") == 2,
+    _, replayed16, out16s = run_serve_launcher(
+        ["--cnn", "--size", str(INPUT_HW[0]), "--depth", "16", "--wire-codec", "int8",
+         "--buckets", "4", "8", "--requests", "8", "--ticks", "2"],
+        make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=2, m=2, backend="cuda", device=dev,
+                             wire_codec="int8").serve_plan())
+    check(rc16 == 0 and "wire_codec=int8" in out16.getvalue() and "wire_codec=int8" in out16s,
           "the launchers with --wire-codec int8")
     launcher16 = {f.__name__: f.launches for f in (conv2d_tile, conv2d_dgrad_tile,
                                                    conv2d_wgrad_tile)}
+    launcher16["conv2d_tile"] += replayed16
     print(f"phase-16 launchers (--wire-codec int8): {launcher16}")
     for k in wire_launches:
         wire_launches[k] += launcher16[k]
@@ -1452,7 +1571,8 @@ def wire_phase(dev, smi: str, phase5_loss: float, held_b1: set, held_bwd: set, f
 def serve_phase(dev, smi: str, arch, label: str, buckets, images, calib) -> dict:
     """Phase 13: serve the inference twin of ``arch``'s plan as phase 4
     does (step bound and budget from the measured bucket-8 dispatch), the
-    32 requests against the untiled plain reference, launches against the
+    32 requests against the untiled plain reference, launches (each
+    captured graph's times its replays, ``served_launches``) against the
     code's count by tile instance.  Prints the ``{label: ...}`` line and
     returns its numbers."""
     import numpy as np
@@ -1497,18 +1617,14 @@ def serve_phase(dev, smi: str, arch, label: str, buckets, images, calib) -> dict
 
     reset_launches()
     report = run_serving(engine, ticks=len(ARRIVALS), on_tick=on_tick)
-    launches = conv2d_tile.launches
-    b1_instances = {k: v for k, v in conv2d_tile.launches_by_instance.items() if v}
-    per_dispatch, per_instance = launches_per_batch(plan, 1)
-    want_instances = {k: v * report.dispatches for k, v in per_instance.items()}
+    per_dispatch, _ = launches_per_batch(plan, 1)
+    launches, b1_instances = served_launches(label, engine, plan, conv2d_tile.launches,
+                                             conv2d_tile.launches_by_instance)
     print(f"{label}: served {report.served} in {report.dispatches} dispatches, census "
           f"{report.bucket_census}, launches {launches} (by tile instance {b1_instances}; the "
-          f"code's {per_dispatch['conv2d_tile']} a dispatch)")
+          f"code's {per_dispatch['conv2d_tile']} a dispatch; captured graphs replayed "
+          f"{report.capture['replays']}, pool bytes {report.capture['pool_bytes']})")
     check(report.served == len(images), f"{label} served {report.served}")
-    check(launches == per_dispatch["conv2d_tile"] * report.dispatches and launches > 0,
-          f"{label} launches {launches} != {per_dispatch['conv2d_tile']} x {report.dispatches}")
-    check(b1_instances == want_instances,
-          f"{label} B1 launches by instance {b1_instances} != the code's {want_instances}")
     with torch.inference_mode():
         ref = torch.cat([
             stack_reference(torch.from_numpy(images[i:i + 8]).to(dev), params, plan.layers,
@@ -1532,10 +1648,243 @@ def serve_phase(dev, smi: str, arch, label: str, buckets, images, calib) -> dict
         "bucket8_device_ms": dev_ms, "bucket8_conv_kernel_ms": conv_ms,
         "bucket8_idle_share": max(0.0, 1 - dev_ms / prof_wall_ms),
         "max_abs_err": err, "launches": launches, "launches_per_dispatch": per_dispatch["conv2d_tile"],
-        "b1_launches_by_instance": b1_instances, "card": smi,
+        "b1_launches_by_instance": b1_instances, "capture": report.capture, "card": smi,
     }
     print(json.dumps({label: out}))
     return out
+
+
+def same_bits(got, want) -> bool:
+    """Phase 17's check of a captured replay against the uncaptured forward:
+    the same shape, dtype and bits."""
+    import torch
+
+    return got.shape == want.shape and got.dtype == want.dtype and bool(torch.equal(got, want))
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock ms of ``fn()`` followed by a device synchronize."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def capture_phase(dev, smi: str, calib, images, step_s: float) -> dict:
+    """Phase 17: one CUDA graph per bucket.  (a) Every plan of
+    ``CAPTURE_PLANS_416`` served through the engine's captured steps: on
+    every bucket of its ladder the replay equals the uncaptured forward
+    bitwise on a seeded input (``same_bits``), the graph's launches equal the
+    code's count by tile instance, and the forward alone is timed on the
+    host clock, eager against replayed; (b) phase 4's plan and 32 requests
+    served by an uncaptured (``capture=False``) and a captured engine in
+    this run, under phase 4's step bound: p50, p99, img/s, the bucket-1 and
+    bucket-8 dispatch on the host clock (in turns), the host's copies in and
+    out of the staging buffers alone, the profiler's device ms, idle share
+    and B1 kernels of three bucket-8 dispatches, launches, replays and pool
+    bytes; (c) the captured step after a swap of the params for another
+    seed's, and after an in-place update of one leaf, equals the eager
+    forward with them; (d) a planted fault, a replay that skips the copy
+    into the static input, fails (a)'s check.  Prints the ``{"capture":
+    ...}`` line; returns B1's launches of (b)'s two drives."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.fusion import make_tiled_infer
+    from repro_torch.core.tiling import Group
+    from repro_torch.kernels.conv2d_tiled.kernel import conv2d_tile, reset_launches
+    from repro_torch.models.yolo import make_yolo_tiled_arch
+    from repro_torch.runtime.driver import run_serving
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+
+    def arch_of(grid, kw):
+        if not isinstance(kw["groups"], str):
+            kw = dict(kw, groups=[Group(*g) for g in kw["groups"]])
+        return make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=grid[0], m=grid[1],
+                                    backend="cuda", device=dev, **kw)
+
+    # (a) every served plan, every bucket: replay against the eager forward
+    plans = {}
+    for name, (grid, kw, buckets) in CAPTURE_PLANS_416.items():
+        arch = arch_of(grid, kw)
+        plan = arch.serve_plan()
+        params = arch.serve_params(arch.init(SEED), calib)
+        engine = arch.make_serve_engine(params, buckets=buckets, step_bound=1.0,
+                                        latency_budget=60.0)
+        t0 = time.perf_counter()
+        check(engine.capture and engine.warmup()["misses"] == len(buckets),
+              f"capture {name}: warmup")
+        warm_s = time.perf_counter() - t0
+        cap = engine.stats()["capture"]
+        check(cap["buckets"] == list(buckets), f"capture {name}: captured {cap['buckets']}")
+        infer = make_tiled_infer(plan, arch.mesh)
+        rows = {}
+        for b in buckets:
+            x = torch.randn((b, *INPUT_HW, 3), generator=gen, device=dev)
+            step = engine.executable(b)
+            got, want = step(params, x), infer(params, x)
+            equal = same_bits(got, want)
+            per, per_instance = launches_per_batch(plan, b)
+            graph = {"conv2d_tile": per["conv2d_tile"],
+                     **{f"conv2d_tile/{k}": v for k, v in per_instance.items()}}
+            eager_ms = [host_ms(lambda: infer(params, x), 3)]
+            replay_ms = [host_ms(lambda: step(params, x), 3)]
+            replay_ms.append(host_ms(lambda: step(params, x), 3))
+            eager_ms.append(host_ms(lambda: infer(params, x), 3))
+            rows[b] = {"equal": equal, "max_abs_diff": float((got - want).abs().max()),
+                       "pool_bytes": cap["pool_bytes"][b], "launches": cap["launches"][b],
+                       "forward_host_ms_eager": statistics.median(eager_ms),
+                       "forward_host_ms_replay": statistics.median(replay_ms)}
+            print(f"capture {name} bucket {b}: replay == eager forward bitwise: {equal}; pool "
+                  f"{cap['pool_bytes'][b]} B; graph launches {cap['launches'][b]}; forward on "
+                  f"the host clock eager {rows[b]['forward_host_ms_eager']:.3f} ms, replayed "
+                  f"{rows[b]['forward_host_ms_replay']:.3f} ms")
+            check(equal, f"capture {name} bucket {b}: the replay differs from the eager forward "
+                  f"(max |diff| {rows[b]['max_abs_diff']:.3e})")
+            check(cap["launches"][b] == graph,
+                  f"capture {name} bucket {b}: graph launches {cap['launches'][b]} != {graph}")
+        plans[name] = {"grid": list(grid), "buckets": list(buckets), "warmup_s": warm_s,
+                       "schedule": plan.schedule, "crossover": plan.crossover,
+                       "ragged_exec": None if plan.is_uniform else plan.ragged_exec,
+                       "wire_codec": plan.wire_codec, "by_bucket": rows}
+        del engine, arch, params, infer, step, got, want, x
+        torch.cuda.empty_cache()
+
+    # (b) phase 4's plan and requests, uncaptured and captured, in this run
+    arch = arch_of(*CAPTURE_PLANS_416["sync"][:2])
+    plan = arch.serve_plan()
+    params = arch.serve_params(arch.init(SEED), calib)
+    engines = {c: arch.make_serve_engine(params, buckets=BUCKETS, step_bound=step_s,
+                                         latency_budget=2.0 * step_s, capture=c)
+               for c in (False, True)}
+    served, launches = {}, 0
+    for c, engine in engines.items():
+        label = "captured" if c else "uncaptured"
+        check(engine.capture == c and engine.warmup()["misses"] == len(BUCKETS),
+              f"capture (b) {label} warmup")
+        it = iter(images)
+
+        def on_tick(t, eng):
+            for _ in range(ARRIVALS[t]):
+                eng.submit(next(it))
+
+        reset_launches()
+        report = run_serving(engine, ticks=len(ARRIVALS), on_tick=on_tick)
+        n, by_instance = served_launches(f"capture (b) {label}", engine, plan,
+                                         conv2d_tile.launches, conv2d_tile.launches_by_instance)
+        launches += n
+        check(report.served == len(images) and report.cache["misses"] == len(BUCKETS),
+              f"capture (b) {label}: served {report.served}, cache {report.cache}")
+        served[label] = {
+            "p50_ms": report.p50_s * 1e3, "p99_ms": report.p99_s * 1e3,
+            "img_per_s": report.throughput, "dispatches": report.dispatches,
+            "bucket_census": report.bucket_census, "deadline_misses": report.deadline_misses,
+            "b1_launches": n, "b1_launches_by_instance": by_instance,
+            "replays": report.capture["replays"], "pool_bytes": report.capture["pool_bytes"],
+            "graph_launches": report.capture["launches"],
+            "results": np.stack([r.result for r in sorted(engine.finished, key=lambda r: r.rid)]),
+        }
+    check(np.array_equal(served["captured"].pop("results"), served["uncaptured"].pop("results")),
+          "capture (b): the captured engine's responses differ from the uncaptured engine's")
+
+    def dispatch_ms(engine, b):
+        for im in images[:b]:
+            engine.submit(im)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.step(force=True)
+        return (time.perf_counter() - t0) * 1e3
+
+    turns = {(c, b): [] for c in ("uncaptured", "captured") for b in (1, 8)}
+    for c in ("uncaptured", "captured", "captured", "uncaptured"):
+        for b in (1, 8):
+            turns[(c, b)] += [dispatch_ms(engines[c == "captured"], b) for _ in range(5)]
+    # the engine's host copies of a bucket of 8 alone, and numpy's
+    # single-threaded copies of the same bytes
+    stage = torch.empty((8, *INPUT_HW, 3), pin_memory=True)
+    out8 = torch.empty((8, *plan.out_hw(), plan.layers[-1].out_channels), pin_memory=True)
+
+    def stage_torch():
+        for i, im in enumerate(images[:8]):
+            stage[i].copy_(torch.from_numpy(im))
+
+    def stage_numpy():
+        for i, im in enumerate(images[:8]):
+            stage.numpy()[i] = im
+
+    copies = {"stage_in_ms_torch": host_ms(stage_torch), "stage_in_ms_numpy": host_ms(stage_numpy),
+              "copy_out_ms_torch": host_ms(lambda: out8.clone().numpy()),
+              "copy_out_ms_numpy": host_ms(lambda: out8.numpy().copy())}
+    for c, engine in engines.items():
+        label = "captured" if c else "uncaptured"
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                dispatch_ms(engine, 8)
+            wall = (time.perf_counter() - t0) * 1e3 / 3
+        by_name = device_ms_by_name(prof, 3)
+        conv_events = sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and "conv2d_tile_kernel<" in e.key)
+        dev_ms = sum(by_name.values())
+        served[label].update({
+            f"bucket{b}_dispatch_ms": statistics.median(turns[(label, b)]) for b in (1, 8)})
+        served[label].update({
+            "bucket8_device_ms": dev_ms, "bucket8_profiled_wall_ms": wall,
+            "bucket8_idle_share": max(0.0, 1 - dev_ms / wall),
+            "bucket8_idle_share_unprofiled": max(
+                0.0, 1 - dev_ms / statistics.median(turns[(label, 8)])),
+            "profiler_b1_kernels_3_dispatches": conv_events,
+            "host_b1_launches_3_dispatches": conv2d_tile.launches,
+        })
+        want = 0 if c else 3 * N_CONVS
+        check(conv2d_tile.launches == want, f"capture (b) {label}: {conv2d_tile.launches} host B1 "
+              f"launches in 3 dispatches, not {want}")
+        check(conv_events in (0, 3 * N_CONVS),
+              f"capture (b) {label}: the profiler saw {conv_events} B1 kernels in 3 dispatches")
+    print(f"capture (b): {json.dumps(served)}; host copies alone {copies}")
+
+    # (c) another seed's params, then an in-place update of one leaf
+    step = engines[True].executable(8)
+    infer = make_tiled_infer(plan, arch.mesh)
+    x = torch.randn((8, *INPUT_HW, 3), generator=gen, device=dev)
+    params2 = arch.serve_params(arch.init(SEED + 1), calib)
+    rebinds = step.rebinds
+    swap_ok = same_bits(step(params2, x), infer(params2, x))
+    with torch.no_grad():
+        params2[5]["w"].mul_(0.5)            # layer 5: a 1x1 conv
+    inplace_ok = same_bits(step(params2, x), infer(params2, x))
+    back_ok = same_bits(step(params, x), infer(params, x))
+    print(f"capture (c): replay after a params swap == eager {swap_ok}, after an in-place update "
+          f"{inplace_ok}, back to the first params {back_ok}; rebinds {step.rebinds - rebinds}")
+    check(swap_ok and inplace_ok and back_ok and step.rebinds - rebinds == 3,
+          "capture (c): a replay with new params differs from the eager forward")
+
+    # (d) a planted fault: a replay that skips the copy into the static input
+    x_new = torch.randn((8, *INPUT_HW, 3), generator=gen, device=dev)
+    stale = step._replay(params)
+    planted_caught = not same_bits(stale, infer(params, x_new))
+    print(f"capture (d): a replay without the input copy rejected by (a)'s check: "
+          f"{planted_caught} (it returns the previous input's bits: "
+          f"{same_bits(stale, infer(params, x))})")
+    check(planted_caught, "capture (d): the planted stale-input replay passed the check")
+    print(json.dumps({"capture": {
+        "plans": plans, "serve_phase4": served, "host_copies_bucket8": copies,
+        "params_swap_equal": swap_ok, "params_in_place_equal": inplace_ok,
+        "planted_stale_input_rejected": planted_caught, "card": smi,
+    }}))
+    del engines, step, arch, params, params2, infer
+    torch.cuda.empty_cache()
+    return launches
 
 
 def overlap_vs_sync(dev, overlap_kw: dict, sync_kw: dict, grid=GRID,
@@ -2653,16 +3002,17 @@ def main() -> int:
 
     reset_b1_launches()
     report = run_serving(engine, ticks=len(ARRIVALS), on_tick=on_tick)
-    launches = conv2d_tile.launches
-    b1_instances = {k: v for k, v in conv2d_tile.launches_by_instance.items() if v}
+    check(engine.capture and report.capture["buckets"] == list(BUCKETS),
+          f"phase 4 served without a graph per bucket: {report.capture}")
+    launches, b1_instances = served_launches("serve", engine, plan, conv2d_tile.launches,
+                                             conv2d_tile.launches_by_instance)
     print(f"served {report.served} in {report.dispatches} dispatches, census "
-          f"{report.bucket_census}, launches {launches} (by tile instance {b1_instances}), "
+          f"{report.bucket_census}, launches {launches} (by tile instance {b1_instances}; "
+          f"replays {report.capture['replays']} of graphs of {report.capture['launches']}), "
           f"cache {report.cache}")
     check(report.served == len(images), f"served {report.served}")
-    check(launches == N_CONVS * report.dispatches and launches > 0,
-          f"launches {launches} != {N_CONVS} x {report.dispatches} dispatches")
-    check(sum(b1_instances.values()) == launches,
-          f"B1 launches by instance {b1_instances} do not sum to {launches}")
+    check(launches == N_CONVS * report.dispatches, f"launches {launches} != {N_CONVS} x "
+          f"{report.dispatches} dispatches")
     check(report.cache["misses"] == len(BUCKETS), f"cache misses {report.cache['misses']}")
 
     with torch.inference_mode():
@@ -2690,7 +3040,7 @@ def main() -> int:
         "bucket8_device_ms": dev_ms, "bucket8_kernel_ms": kernel_ms, "max_abs_err": e2e_err,
         "bucket8_idle_share": max(0.0, 1 - dev_ms / prof_wall_ms),
         "launches": launches, "launches_per_dispatch": N_CONVS,
-        "b1_launches_by_instance": b1_instances, "card": smi,
+        "b1_launches_by_instance": b1_instances, "capture": report.capture, "card": smi,
     }
     print(json.dumps({"serve": serve4}))
     train5 = train_phase(dev, smi, dict(groups=groups))
@@ -2745,7 +3095,6 @@ def main() -> int:
     # -- 12. the cost model's own plans on the card ----------------------------
     from repro_torch.core.fusion import build_stack_plan
     from repro_torch.core.grouping import PROFILES, peak_device_memory, profile_cost
-    from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import train as train_launcher
     from repro_torch.models.yolo import yolov2_16_layers
     from repro_torch.serve.cnn_engine import modeled_step_bound
@@ -2829,9 +3178,10 @@ def main() -> int:
 
     reset_b1_launches()
     areport = run_serving(engine, ticks=len(ARRIVALS), on_tick=on_tick)
-    aserve_launches = conv2d_tile.launches
+    aserve_launches, _ = served_launches("serve_auto", engine, auto_arch.serve_plan(),
+                                         conv2d_tile.launches, conv2d_tile.launches_by_instance)
     check(areport.served == len(images), f"auto serve served {areport.served}")
-    check(aserve_launches == N_CONVS * areport.dispatches and aserve_launches > 0,
+    check(aserve_launches == N_CONVS * areport.dispatches,
           f"auto serve launches {aserve_launches} != {N_CONVS} x {areport.dispatches}")
     with torch.inference_mode():
         ref = torch.cat([
@@ -2850,7 +3200,8 @@ def main() -> int:
         "p50_ms": areport.p50_s * 1e3, "p99_ms": areport.p99_s * 1e3,
         "img_per_s": areport.throughput, "dispatches": areport.dispatches,
         "bucket_census": areport.bucket_census, "deadline_misses": areport.deadline_misses,
-        "max_abs_err": ae2e_err, "launches": aserve_launches, "card": smi,
+        "max_abs_err": ae2e_err, "launches": aserve_launches, "capture": areport.capture,
+        "card": smi,
     }}))
     del auto_arch, aparams, ainfer, engine, x8, ref, got
     torch.cuda.empty_cache()
@@ -2872,12 +3223,12 @@ def main() -> int:
             "conv2d_wgrad_tile": N_CONVS * TRAIN_ACCUM}
     check(launcher_train == want, f"train launcher launches {launcher_train} != {want}")
     reset_counts()
-    check(serve_launcher.main(["--cnn", "--groups", "auto", "--hw", AUTO_HW,
-                               "--size", str(INPUT_HW[0]), "--depth", "16"]) == 0, "serve launcher")
-    launcher_serve = conv2d_tile.launches
-    check(launcher_serve > N_CONVS * len(BUCKETS) and launcher_serve % N_CONVS == 0,
-          f"serve launcher launches {launcher_serve}")
-    print(f"launchers: train {launcher_train}, serve B1 {launcher_serve}")
+    host12, replayed12, _ = run_serve_launcher(
+        ["--cnn", "--groups", "auto", "--hw", AUTO_HW, "--size", str(INPUT_HW[0]), "--depth",
+         "16"], aplan.inference_twin())
+    launcher_serve = host12 + replayed12
+    print(f"launchers: train {launcher_train}, serve B1 {launcher_serve} ({host12} from the "
+          f"host: warm runs and captures; {replayed12} replayed)")
     auto_launches = {k: train12["launches"][k] + launcher_train[k] for k in launcher_train}
     auto_launches["conv2d_tile"] += aserve_launches + launcher_serve
     held_b1 = held_serve | held_train | {shape_key(s) for s in new_serve + new_train}
@@ -2998,16 +3349,14 @@ def main() -> int:
     want = {k: v * TRAIN_ACCUM for k, v in per_mb.items()}
     check(launcher13_train == want, f"train launcher launches {launcher13_train} != {want}")
     reset_counts()
-    check(serve_launcher.main(["--cnn", "--schedule", "overlap", "--crossover", "auto",
-                               "--hw", HYBRID_HW, "--groups", "auto", "--buckets",
-                               *map(str, HYBRID_BUCKETS), "--size", str(INPUT_HW[0]),
-                               "--depth", "16"]) == 0, "serve launcher, overlap and crossover")
-    launcher13_serve = conv2d_tile.launches
-    per_dispatch = per_mb["conv2d_tile"]
-    check(launcher13_serve > per_dispatch * len(HYBRID_BUCKETS)
-          and launcher13_serve % per_dispatch == 0,
-          f"serve launcher launches {launcher13_serve} ({per_dispatch} a dispatch)")
-    print(f"phase-13 launchers: train {launcher13_train}, serve B1 {launcher13_serve}")
+    host13, replayed13, _ = run_serve_launcher(
+        ["--cnn", "--schedule", "overlap", "--crossover", "auto", "--hw", HYBRID_HW, "--groups",
+         "auto", "--buckets", *map(str, HYBRID_BUCKETS), "--size", str(INPUT_HW[0]), "--depth",
+         "16"], make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
+                                     backend="cuda", device=dev, **hybrid_kw).serve_plan())
+    launcher13_serve = host13 + replayed13
+    print(f"phase-13 launchers: train {launcher13_train}, serve B1 {launcher13_serve} ({host13} "
+          f"from the host, {replayed13} replayed)")
     phase13_launches = {k: sum(r["launches"][k] for r in train13.values()) + launcher13_train[k]
                         for k in launcher13_train}
     phase13_launches["conv2d_tile"] += (sum(r["launches"] for r in serve13.values())
@@ -3250,6 +3599,9 @@ def main() -> int:
     dgrad_err = max([dgrad_err] + [r["max_abs_err"] for r in dgrad16])
     wgrad_err = max([wgrad_err] + [r["max_abs_err"] for r in wgrad16])
     auto_launches = {k: v + wire_launches[k] for k, v in auto_launches.items()}
+
+    # -- 17. one CUDA graph per batch bucket -------------------------------------
+    auto_launches["conv2d_tile"] += capture_phase(dev, smi, calib, images, step_s)
 
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",

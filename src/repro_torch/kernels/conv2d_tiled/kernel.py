@@ -7,6 +7,10 @@ there; a CUDA tensor launches the kernel on the current stream or raises -
 there is no fallback.  ``conv2d_tile.launches`` counts its kernel launches
 (and nothing else), so a run can show that its main path went through the
 kernel; ``conv2d_tile.launches_by_instance`` splits them by tile instance.
+A launch issued while a CUDA graph is captured is counted once, at the
+capture: the graph's replays run it again without Python, and the
+captured serve step counts those (``serve/exec_cache.py:CapturedStep``,
+fed by ``launch_counts``).
 The kernel is an fp32 FFMA GEMM over the whole batch's output pixels whose
 tile, split-K and gather are picked by rules of the shape alone
 (``fwd_tile``, ``fwd_split``, ``fwd_gather``), so the summation order, and
@@ -169,6 +173,13 @@ def reset_launches() -> None:
     """Sets every launch count of ``conv2d_tile`` to 0."""
     conv2d_tile.launches = 0
     conv2d_tile.launches_by_instance = dict.fromkeys(FWD_TILES, 0)
+
+
+def launch_counts() -> dict[str, int]:
+    """``conv2d_tile``'s launch counts as one flat dict: ``"conv2d_tile"``,
+    and ``"conv2d_tile/<instance>"`` per tile instance."""
+    return {"conv2d_tile": conv2d_tile.launches,
+            **{f"conv2d_tile/{k}": v for k, v in conv2d_tile.launches_by_instance.items()}}
 
 
 reset_launches()

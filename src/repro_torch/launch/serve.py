@@ -6,9 +6,11 @@ grouping on ``--hw`` at the largest bucket; ``--schedule overlap`` the overlap
 executor; ``--crossover auto|N`` a hybrid plan, whose every bucket must divide
 by the tile count, e.g. ``--buckets 4 8`` on 2x2; ``--wire-codec int8|topk:<k>``
 compresses every strip statelessly), takes its forward-only twin, freezes
-BN statistics on a calibration batch, warms the bucket ladder, then drives
+BN statistics on a calibration batch, warms the bucket ladder (on the card:
+one CUDA graph captured per bucket; on the CPU the eager step), then drives
 a synthetic image workload through ``runtime.driver.run_serving`` and prints
-latency percentiles, throughput, bucket census and cache counters.  The
+latency percentiles, throughput, bucket census, cache counters and the
+captured graphs' replays.  The
 deadline policy plans with the cost model's step bound on ``--hw``.  It runs
 on the card unless ``--device cpu`` is given.  LM serving is later work
 (ROADMAP A.18).
@@ -16,6 +18,7 @@ on the card unless ``--device cpu`` is given.  LM serving is later work
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -52,6 +55,11 @@ def _cnn_main(args) -> int:
     engine.warmup()
     print(f"warmup: {len(engine.buckets)} buckets prepared in "
           f"{time.monotonic() - t0:.2f}s (cache: {engine.cache.stats()})")
+    cap = engine.stats()["capture"]
+    if engine.capture:
+        print(f"warmup: captured buckets {cap['buckets']}, graph pool bytes {cap['pool_bytes']}")
+    else:
+        print(f"warmup: eager step on {arch.mesh.device} (no capture)")
 
     per_tick = max(1, args.requests // max(1, args.ticks))
 
@@ -72,6 +80,7 @@ def _cnn_main(args) -> int:
           f"deadline misses: {report.deadline_misses}  "
           f"min slack: {report.min_slack_s:+.3f}s")
     print(f"cache: {report.cache}")
+    print(f"capture: {json.dumps(report.capture)}")
     return 0
 
 

@@ -46,7 +46,8 @@ class DriverReport:
 @dataclasses.dataclass
 class ServeReport:
     """Outcome of a ``run_serving`` drive: request counts, latency
-    percentiles, dispatch-slack floor, bucket census, cache stats."""
+    percentiles, dispatch-slack floor, bucket census, cache stats and the
+    engine's captured graphs (``CNNServeEngine.stats()["capture"]``)."""
 
     served: int = 0
     dispatches: int = 0
@@ -57,6 +58,7 @@ class ServeReport:
     throughput: Optional[float] = None
     bucket_census: dict = dataclasses.field(default_factory=dict)
     cache: dict = dataclasses.field(default_factory=dict)
+    capture: dict = dataclasses.field(default_factory=dict)
 
 
 class Watchdog:
@@ -125,6 +127,7 @@ def run_serving(
         throughput=s.get("throughput"),
         bucket_census=s["bucket_census"],
         cache=s["cache"],
+        capture=s["capture"],
     )
 
 

@@ -4,7 +4,12 @@ latency budget over forward-only StackPlans (DESIGN.md §13).
 The port of ``repro/serve/cnn_engine.py``, with the same dispatch policy
 and statistics.  Queued image requests are packed into the smallest batch
 bucket that covers them (zero-padded) and dispatched through one prepared
-serve step per bucket (``serve/exec_cache.py``).  A batch ships when the
+serve step per bucket (``serve/exec_cache.py``): on a CUDA mesh the forward
+captured as a CUDA graph (``CapturedStep``, the counterpart of the
+reference's AOT-compiled executable), on the CPU the eager forward.  Each
+bucket stages its batch in one reused host buffer (pinned on the card) and
+reads the output back into another; the responses are a copy of it, which
+the next dispatch leaves alone.  A batch ships when the
 queue fills the largest bucket, or as soon as the oldest request's deadline
 headroom drops below ``slack_factor`` step bounds.  The step bound comes
 from the same ``profile_cost`` model the planner optimizes against
@@ -24,8 +29,9 @@ import torch
 
 from repro_torch.core.fusion import StackPlan, make_tiled_infer, resolve_hw_profile
 from repro_torch.core.grouping import ClusterSpec, profile_cost
+from repro_torch.kernels.conv2d_tiled.kernel import launch_counts
 from repro_torch.launch.mesh import TileMesh
-from repro_torch.serve.exec_cache import ExecutableCache, plan_cache_key
+from repro_torch.serve.exec_cache import CapturedStep, ExecutableCache, plan_cache_key
 
 
 @dataclasses.dataclass
@@ -103,6 +109,9 @@ class CNNServeEngine:
     clock: time source; inject ``ManualClock`` for deterministic tests.
     simulate_step_s: with a ManualClock, advance it by this much per
         dispatch to model service time.
+    capture: serve each bucket from a captured CUDA graph (True) or from
+        the eager forward (False); None (default) captures exactly when the
+        mesh is on a CUDA device.  True on a CPU mesh raises.
     """
 
     def __init__(
@@ -122,6 +131,7 @@ class CNNServeEngine:
         clock: Callable[[], float] = time.monotonic,
         simulate_step_s: float | None = None,
         dtype=np.float32,
+        capture: bool | None = None,
     ):
         if not plan.inference:
             raise ValueError(
@@ -141,6 +151,13 @@ class CNNServeEngine:
                     f"hybrid plan: buckets {bad} not divisible by the tile "
                     f"count {plan.n}x{plan.m}={t} (data-mode batch split)"
                 )
+        on_cuda = mesh is not None and mesh.device.type == "cuda"
+        if capture and not on_cuda:
+            raise ValueError(
+                "capture=True needs a CUDA mesh: a CUDA graph has no CPU counterpart "
+                "(the CPU engine runs the eager forward)"
+            )
+        self.capture = on_cuda if capture is None else bool(capture)
         self.plan = plan
         self.mesh = mesh
         self.params = params
@@ -160,6 +177,9 @@ class CNNServeEngine:
         self._img_shape = (h, w, plan.layers[0].in_channels)
         self.cache = cache if cache is not None else ExecutableCache(cache_capacity)
         self._infer = make_tiled_infer(plan, mesh)
+        self._tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        self._captured: dict[int, CapturedStep] = {}
+        self._stage: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
         self.queue: deque[ImageRequest] = deque()
         self.finished: list[ImageRequest] = []
         self.batch_log: list[dict] = []     # per dispatch: t, bucket, filled, slack
@@ -168,19 +188,28 @@ class CNNServeEngine:
     # -- preparation ---------------------------------------------------------
 
     def _prepare(self, bucket: int):
-        """The serve step for one bucket: one warm run at the bucket's shape
-        (which builds the CUDA kernels on first use), then the forward
-        callable, restricted to that batch size."""
+        """The serve step for one bucket, ``step(params, x) -> y`` with ``x``
+        on the host or the device: the forward captured at the bucket's
+        shape (``CapturedStep``; B1's launches counted at the capture), or
+        one warm eager run (which builds the CUDA kernels on first use) and
+        then the eager forward, restricted to that batch size."""
+        shape = (bucket, *self._img_shape)
+        device = self.mesh.device
+        self._staging(bucket)
+        if self.capture:
+            step = CapturedStep(self._infer, self.params, shape, dtype=self._tdtype,
+                                device=device, counters=launch_counts)
+            self._captured[bucket] = step
+            return step
         infer = self._infer
-        x = np.zeros((bucket, *self._img_shape), self.dtype)
-        infer(self.params, torch.from_numpy(x).to(self.mesh.device))
-        if self.mesh.device.type == "cuda":
-            torch.cuda.synchronize(self.mesh.device)
+        infer(self.params, torch.zeros(shape, dtype=self._tdtype, device=device))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
         def step(params, xb):
             if xb.shape[0] != bucket:
                 raise ValueError(f"bucket-{bucket} step got batch {xb.shape[0]}")
-            return infer(params, xb)
+            return infer(params, xb.to(device, non_blocking=True))
 
         return step
 
@@ -198,7 +227,7 @@ class CNNServeEngine:
     # -- request lifecycle ---------------------------------------------------
 
     def submit(self, image: np.ndarray, *, deadline: float | None = None) -> ImageRequest:
-        image = np.asarray(image, self.dtype)
+        image = np.ascontiguousarray(image, self.dtype)
         if image.shape != self._img_shape:
             raise ValueError(
                 f"request image shape {image.shape} != plan input {self._img_shape}"
@@ -235,21 +264,42 @@ class CNNServeEngine:
         bucket = self._pick_bucket(len(self.queue))
         take = min(len(self.queue), bucket)
         reqs = [self.queue.popleft() for _ in range(take)]
-        x = np.zeros((bucket, *self._img_shape), self.dtype)
+        xb, out = self._staging(bucket)
         for i, r in enumerate(reqs):
-            x[i] = r.image
+            xb[i].copy_(torch.from_numpy(r.image))
+        xb[take:].zero_()
         slack = min(r.deadline for r in reqs) - (now + self.step_bound)
-        xt = torch.from_numpy(x).to(self.mesh.device)
-        y = self.executable(bucket)(self.params, xt).cpu().numpy()
+        y = self.executable(bucket)(self.params, xb)
+        out.copy_(y, non_blocking=True)
+        if self.mesh.device.type == "cuda":
+            torch.cuda.current_stream(self.mesh.device).synchronize()
+        ys = out[:take].clone().numpy()
         if self.simulate_step_s is not None and hasattr(self.clock, "advance"):
             self.clock.advance(self.simulate_step_s)
         done = self.clock()
         for i, r in enumerate(reqs):
-            r.result = y[i]
+            r.result = ys[i]
             r.completed = done
         self.finished.extend(reqs)
         self.batch_log.append({"t": now, "bucket": bucket, "filled": take, "slack": slack})
         return reqs
+
+    def _staging(self, bucket: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The bucket's reused input and output buffers on the host, pinned on
+        the card, made when the bucket is prepared (a pinned allocation
+        costs milliseconds, which a first dispatch should not pay).  They
+        are filled by torch's copies, which split a large copy over the
+        host's threads where numpy's runs on one (``chip_smoke.py`` phase
+        17 times both)."""
+        if bucket not in self._stage:
+            pin = self.mesh.device.type == "cuda"
+            oh, ow = self.plan.out_hw()
+            self._stage[bucket] = (
+                torch.empty((bucket, *self._img_shape), dtype=self._tdtype, pin_memory=pin),
+                torch.empty((bucket, oh, ow, self.plan.layers[-1].out_channels),
+                            dtype=self._tdtype, pin_memory=pin),
+            )
+        return self._stage[bucket]
 
     def drain(self, max_steps: int = 10_000) -> list[ImageRequest]:
         """Dispatch until the queue is empty (partial batches ship now)."""
@@ -266,8 +316,10 @@ class CNNServeEngine:
     # -- accounting ----------------------------------------------------------
 
     def stats(self) -> dict:
-        """Latency percentiles, throughput, bucket census, dispatch slack and
-        cache statistics over everything completed so far."""
+        """Latency percentiles, throughput, bucket census, dispatch slack,
+        cache statistics and the captured graphs (buckets, replays, pool
+        bytes and B1 launches a graph, by bucket) over everything completed
+        so far."""
         lats = sorted(r.latency for r in self.finished if r.latency is not None)
         census: dict[int, int] = {}
         for b in self.batch_log:
@@ -289,6 +341,12 @@ class CNNServeEngine:
                 and r.completed > r.deadline
             ),
             "cache": self.cache.stats(),
+            "capture": {
+                "buckets": sorted(self._captured),
+                "replays": {b: s.replays for b, s in sorted(self._captured.items())},
+                "pool_bytes": {b: s.pool_bytes for b, s in sorted(self._captured.items())},
+                "launches": {b: s.launches for b, s in sorted(self._captured.items())},
+            },
             "step_bound_s": self.step_bound,
         }
         if lats:
