@@ -200,8 +200,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    eager forward with them; (d) a planted fault - a replay that skips the
    copy into the static input - rejected by (a)'s check.  The serve
    launchers' B1 launches are the host's (warm runs and captures) plus
-   each graph's times its replays (``run_serve_launcher``).  The
-   ``{"kernels": ...}`` line's launches include phases 12's to 17's.
+   each graph's times its replays (``run_serve_launcher``);
+18. elastic training (``elastic_phase``; phase 5's settings under one
+   cosine horizon of ``ELASTIC_STEPS``, checkpoints in a temporary
+   directory the phase removes): (a) phase 5's 2x2 plan for 4 steps
+   uninterrupted, stopped after step 1 and resumed (async saves), and under
+   ``ELASTIC_FAIL_FAULTS`` (a failed step and a writer crash absorbed by
+   ``retry_io``) - every param, momentum leaf, ``opt["t"]`` and ``step``
+   bitwise equal to the uninterrupted run's, a resume with the momentum
+   zeroed rejected, a corrupted newest checkpoint falling back one retained
+   step while its explicit restore raises; (b) phase 14's padded
+   ``pi3x3+jetson`` plan losing the Jetson (``ELASTIC_DROP_FAULTS``) and
+   replanning onto the survivors' 1x3 grid through the launcher's
+   ``make_replan`` (its ``replan`` line printed), the live state bitwise
+   equal to a fresh 1x3 driver resumed from the step-1 checkpoint, the
+   stored plan manifest the 1x3 plan's; (c) the original cluster plan
+   resuming the 1x3 run's last checkpoint for 2 more steps, the 7-step
+   trajectory bitwise equal to the same steps held in memory and, leaf by
+   leaf, within ``GRAD_FLOOR_FACTOR`` x the largest of three fp32
+   trainers' errors of the untiled fp64 trainer's (the untiled one, the
+   cluster plan alone and the phase's plans, both on the torch backend;
+   ROADMAP C.5's bar), a momentum lost at the replan rejected; B1-B3 held as in phase 3 at the padded and spec
+   1x3 plans' new shapes; the launcher with ``--ckpt-dir``, ``--ckpt-every``,
+   ``--fault-schedule ELASTIC_LAUNCHER_FAULTS`` and then ``--resume
+   always``; (d) the reduced Qwen2-7B config with bf16 params and AdamW in
+   place: an async save's snapshot holds the saved step while the next
+   step updates in place, and a resume from it is bitwise equal to the
+   uninterrupted run (B4 and B6 launches counted); (e) the ``{"elastic":
+   ...}`` line: checkpoint bytes and files, blocking save, the async save's
+   snapshot and writer, restore with CRCs, replan and the first step after
+   it, the median step on the 2x2 cluster and on 1x3, the peak after the
+   replan.  The ``{"kernels": ...}`` line's launches include phases 12's
+   to 18's.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -491,6 +521,21 @@ CAPTURE_PLANS_416 = {
     "hybrid_topk": ((2, 2), dict(groups=HYBRID_PLANS_416[HYBRID_HW][1], schedule="overlap",
                                  wire_codec="topk:0.5"), HYBRID_BUCKETS),
 }
+
+# Phase 18: elastic training (DESIGN.md §10).  Every run is YOLOv2-16 at
+# 416 as phase 5 (fp32, BN, batch 8 in 2 microbatches, SGD at lr 1e-3, no
+# warmup) under one cosine horizon of ELASTIC_STEPS steps: (a) phase 5's
+# 2x2 sync plan, 4 steps uninterrupted, resumed after step 1 and restarted
+# under ELASTIC_FAIL_FAULTS; (b) phase 14's padded cluster plan losing the
+# Jetson at step 2 of 5 (ELASTIC_DROP_FAULTS) beside a fresh driver on the
+# survivors' plan from the step-1 checkpoint; (c) the original cluster plan
+# resuming the survivors' last checkpoint for the last 2 steps; (d) the
+# reduced Qwen2-7B config with bf16 params, ELASTIC_LM_* (AdamW in place).
+ELASTIC_STEPS = 7
+ELASTIC_FAIL_FAULTS = "fail@2,ckpt-crash@1"
+ELASTIC_DROP_FAULTS = "drop:jetson@2"
+ELASTIC_LAUNCHER_FAULTS = "drop:jetson@1,slow:0.2@2,ckpt-crash@2,corrupt@3"
+ELASTIC_LM_SEQ, ELASTIC_LM_BATCH, ELASTIC_LM_ACCUM, ELASTIC_LM_STEPS = 256, 4, 2, 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2606,6 +2651,549 @@ def ssd_kernel_phase(dev) -> tuple[list, float]:
     return rows, rows[0]["max_abs_err"]
 
 
+def same_state(a, b) -> bool:
+    """Two train states hold the same leaves at the same paths, bit for bit
+    (tensors of one dtype and shape, ints equal)."""
+    import torch
+
+    from repro_torch.ckpt.manager import map_with_path
+
+    xs, ys = [], []
+    map_with_path(lambda p, x: xs.append((p, x)), a)
+    map_with_path(lambda p, x: ys.append((p, x)), b)
+
+    def equal(x, y):
+        if isinstance(x, torch.Tensor):
+            return (isinstance(y, torch.Tensor) and x.dtype == y.dtype and x.shape == y.shape
+                    and bool(torch.equal(x, y)))
+        return x == y
+
+    return [p for p, _ in xs] == [p for p, _ in ys] and all(
+        equal(x, y) for (_, x), (_, y) in zip(xs, ys))
+
+
+def elastic_phase(dev, smi: str, held_b1: set, held_bwd: set, fwd_row, bwd_rows):
+    """Phase 18: elastic training on the card.  (a) resume and restart on
+    phase 5's plan bitwise equal to the uninterrupted run, with a planted
+    lost momentum and a corrupted newest checkpoint; (b) the padded cluster
+    loses the Jetson and replans onto the survivors' 1x3 grid, the live
+    state bitwise equal to a fresh driver on that plan resumed from the
+    step-1 checkpoint, the stored plan manifest that plan; (c) the original
+    cluster plan resumes the 1x3 run's last checkpoint, the 7-step
+    trajectory held to the untiled fp64 trainer (a momentum lost at the
+    replan must fail it); (d) the bf16 LM's async save under its in-place
+    step and its bitwise resume; the launcher with the elastic flags; B1-B3
+    at the 1x3 plans' new shapes; the ``{"elastic": ...}`` numbers.  Returns
+    (B1-B3 launches of the phase's runs, their B4/B6 launches, the B1, B2
+    and B3 rows of the new shapes)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from repro_torch.ckpt.manager import CheckpointManager, map_with_path
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig, TrainConfig
+    from repro_torch.configs.qwen2_7b import reduced
+    from repro_torch.core.fusion import plan_from_manifest, plan_manifest
+    from repro_torch.core.grouping import parse_cluster_spec
+    from repro_torch.core.tiling import Group
+    from repro_torch.data.synthetic import place, synth_batch
+    from repro_torch.kernels.conv2d_tiled.kernel import (
+        conv2d_dgrad_tile,
+        conv2d_tile,
+        conv2d_wgrad_tile,
+        reset_launches,
+    )
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_tile_mesh
+    from repro_torch.launch.train import make_batch_fn, make_replan
+    from repro_torch.models.registry import bundle_from_cfg
+    from repro_torch.models.tiled_cnn import TiledCNNArch
+    from repro_torch.models.yolo import make_yolo_tiled_arch
+    from repro_torch.optim.optimizers import make_optimizer, tree_leaves, tree_map
+    from repro_torch.runtime.driver import DriverConfig, run_training
+    from repro_torch.runtime.faults import ClusterChange, FaultInjector, corrupt_leaf
+    from repro_torch.train.trainer import TrainState, abstract_of, make_train_step
+
+    conv = {"conv2d_tile": conv2d_tile, "conv2d_dgrad_tile": conv2d_dgrad_tile,
+            "conv2d_wgrad_tile": conv2d_wgrad_tile}
+    lm_kernels = {"flash_attention_fwd": fa_kernel.flash_attention_fwd,
+                  "rmsnorm": rms_kernel.rmsnorm}
+    launches18 = dict.fromkeys(conv, 0)
+    lm_launches18 = dict.fromkeys(lm_kernels, 0)
+
+    def reset_counts():
+        for f in (*conv.values(), *lm_kernels.values()):
+            f.launches = 0
+        reset_launches()
+        fa_kernel.reset_launches()
+        rms_kernel.reset_launches()
+
+    def counted():
+        """The launches since the last reset, added to the phase's."""
+        got = {k: f.launches for k, f in {**conv, **lm_kernels}.items()}
+        for k in launches18:
+            launches18[k] += got[k]
+        for k in lm_launches18:
+            lm_launches18[k] += got[k]
+        return got
+
+    def drive(init_state, train_step, make_batch, steps, cfg, replan=None, on_replan=None, **kw):
+        """One ``run_training`` on the card, the counts from 0: the run's
+        report, final state, CUDA-event step ms, launches and, after a
+        replan, its ms, the step index it happened at and the peak after
+        it."""
+        rec = {"events": []}
+
+        def timed(fn):
+            def step(state, batch):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                state, m = fn(state, batch)
+                b.record()
+                rec["events"].append((a, b))
+                rec["state"] = state
+                return state, m
+            return step
+
+        def replan_timed(ev):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn, man = replan(ev)
+            rec["replan_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["replan_at"] = len(rec["events"])
+            if on_replan is not None:
+                on_replan()
+            torch.cuda.reset_peak_memory_stats(dev)
+            return timed(fn), man
+
+        torch.cuda.synchronize()
+        reset_counts()
+        rec["report"] = run_training(init_state=init_state, train_step=timed(train_step),
+                                     make_batch=make_batch, steps=steps, cfg=cfg, seed=SEED,
+                                     replan=replan_timed if replan is not None else None, **kw)
+        torch.cuda.synchronize()
+        rec["launches"] = counted()
+        rec["ms"] = [a.elapsed_time(b) for a, b in rec["events"]]
+        rec["host_ms"] = [t * 1e3 for t in rec["report"].step_times]
+        if replan is not None:
+            rec["peak_after_replan"] = torch.cuda.max_memory_allocated(dev)
+        return rec
+
+    def normwise(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    def per_mb(plan):
+        return launches_per_batch(plan, TRAIN_BATCH // TRAIN_ACCUM)[0]
+
+    def want_launches(*plan_steps):
+        out = dict.fromkeys(conv, 0)
+        for plan, steps in plan_steps:
+            for k, v in per_mb(plan).items():
+                out[k] += v * steps * TRAIN_ACCUM
+        return out
+
+    def zero_momentum(st):
+        return st._replace(opt={**st.opt, "m": tree_map(torch.zeros_like, st.opt["m"])})
+
+    pcfg = ParallelConfig(grad_accum=TRAIN_ACCUM)
+    tcfg = TrainConfig(lr=TRAIN_LR, optimizer="sgd", warmup=0, steps=ELASTIC_STEPS, seed=SEED)
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    out18 = {"card": smi}
+    try:
+        # (a) resume and restart on phase 5's 2x2 sync plan
+        arch_a = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
+                                      groups=[Group(*g) for g in _HAND], backend="cuda",
+                                      device=dev)
+        init_a, step_a = make_train_step(arch_a, pcfg, tcfg)
+        mb_a = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch_a.target_shape(TRAIN_BATCH), SEED,
+                             dev)
+        like_a, like_dev = abstract_of(init_a, SEED)
+        check(like_dev == torch.device(dev) and all(
+            x.device.type == "meta" for x in tree_leaves(like_a.params)),
+              f"abstract state on {like_dev}, not meta leaves for the card")
+        d_r, d_f = os.path.join(root, "resume"), os.path.join(root, "fail")
+        run_u = drive(init_a, step_a, mb_a, 4, DriverConfig())
+        run_r1 = drive(init_a, step_a, mb_a, 2, DriverConfig(ckpt_dir=d_r, ckpt_every=1))
+        run_r2 = drive(init_a, step_a, mb_a, 4, DriverConfig(ckpt_dir=d_r, ckpt_every=1,
+                                                              resume="always"))
+        run_f = drive(init_a, step_a, mb_a, 4, DriverConfig(ckpt_dir=d_f, ckpt_every=1),
+                      faults=FaultInjector(ELASTIC_FAIL_FAULTS))
+        rep_r, rep_f = run_r2["report"], run_f["report"]
+        print(f"18(a) sync 2x2: uninterrupted {run_u['report'].steps_done} steps; resumed at "
+              f"step {rep_r.resumed_step} for {rep_r.steps_done}; under {ELASTIC_FAIL_FAULTS}: "
+              f"{rep_f.steps_done} steps, restarts {rep_f.restarts}; launches U "
+              f"{run_u['launches']} R {run_r1['launches']} + {run_r2['launches']} F "
+              f"{run_f['launches']}")
+        check(rep_r.resumed_step == 1 and rep_r.steps_done == 2, f"resume: {rep_r}")
+        check(rep_f.restarts == 1 and rep_f.resumed_step is None, f"restart: {rep_f}")
+        for name, run, steps in (("U", run_u, 4), ("R1", run_r1, 2), ("R2", run_r2, 2),
+                                 ("F", run_f, 4)):
+            want = want_launches((arch_a.plan, steps))
+            got = {k: run["launches"][k] for k in conv}
+            check(got == want, f"18(a) {name}: launches {got} != the code's {want}")
+        resume_equal = same_state(run_r2["state"], run_u["state"])
+        restart_equal = same_state(run_f["state"], run_u["state"])
+        print(f"18(a) final states bit for bit: resumed {resume_equal}, restarted {restart_equal} "
+              f"(step {run_u['state'].step}, opt t {run_u['state'].opt['t']})")
+        check(resume_equal and restart_equal, "18(a): a resumed or restarted run's state differs "
+              "from the uninterrupted run's")
+        # planted: the momentum lost at the resume must fail the comparison
+        mgr_r = CheckpointManager(d_r)
+        st = zero_momentum(mgr_r.restore(like_a, step=1, device=dev))
+        for s in (2, 3):
+            st, _ = step_a(st, mb_a(s))
+        planted_m = not same_state(st, run_u["state"])
+        # planted: a corrupted newest checkpoint falls back one retained step
+        mgr_f = CheckpointManager(d_f)
+        kept = mgr_f.all_steps()
+        corrupt_leaf(d_f, kept[-1])
+        _, fell_to = mgr_f.restored_step(like_a, device=dev)
+        try:
+            mgr_f.restore(like_a, step=kept[-1], device=dev)
+            explicit_raised = False
+        except IOError:
+            explicit_raised = True
+        print(f"18(a) planted: a resume with the momentum zeroed rejected: {planted_m}; after "
+              f"corrupt@{kept[-1]} of {kept} the restore fell back to step {fell_to}, the "
+              f"explicit restore raised: {explicit_raised}")
+        check(planted_m, "18(a): a resume with the momentum zeroed passed the comparison")
+        check(fell_to == kept[-2] and explicit_raised, "18(a): corrupt fallback")
+
+        # (e, first half) the checkpoint's size and the save and restore times
+        final_a = run_u["state"]
+        step_dir = os.path.join(d_r, "step_00000003")
+        files = os.listdir(step_dir)
+        ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in files)
+        mgr_t = CheckpointManager(os.path.join(root, "timing"))
+        blocking, snap, writer, restore = [], [], [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr_t.save(10 + i, final_a, blocking=True)
+            blocking.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            mgr_t.save(20 + i, final_a, blocking=False)
+            t1 = time.perf_counter()
+            mgr_t.wait()
+            t2 = time.perf_counter()
+            snap.append((t1 - t0) * 1e3)
+            writer.append((t2 - t1) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            back = mgr_t.restore(like_a, step=20 + i, device=dev)
+            torch.cuda.synchronize()
+            restore.append((time.perf_counter() - t0) * 1e3)
+        check(same_state(back, final_a), "18(e): the timed save and restore changed the state")
+        del back
+        out18.update(ckpt_bytes=ckpt_bytes, ckpt_files=len(files), save_blocking_ms=blocking,
+                     save_async_snapshot_ms=snap, save_async_writer_ms=writer,
+                     restore_with_crc_ms=restore)
+        print(f"18(e) checkpoint {ckpt_bytes} bytes in {len(files)} files; blocking save "
+              f"{statistics.median(blocking):.2f} ms, async {statistics.median(snap):.2f} ms "
+              f"blocking + {statistics.median(writer):.2f} ms writer, restore with CRCs "
+              f"{statistics.median(restore):.2f} ms (medians of 3; {smi})")
+        del run_r1, run_r2, run_f, st
+        torch.cuda.empty_cache()
+
+        # (b) the padded cluster loses the Jetson at step 2
+        cluster = parse_cluster_spec(_CLUSTER_KW["hw"], *GRID)
+        arch_b = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
+                                      groups="auto", ragged_exec="padded", backend="cuda",
+                                      device=dev, **_CLUSTER_KW)
+        plan0 = arch_b.plan
+        init_b, step_b = make_train_step(arch_b, pcfg, tcfg)
+        mb_b = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch_b.target_shape(TRAIN_BATCH), SEED,
+                             dev)
+        replan = make_replan(arch_b, cluster, "pi3-core", TRAIN_BATCH, pcfg, tcfg)
+        d_d, aside = os.path.join(root, "drop"), os.path.join(root, "aside")
+
+        def copy_step1():
+            src = os.path.join(d_d, "step_00000001")
+            check(os.path.isdir(src), "18(b): no committed step-1 checkpoint at the replan")
+            shutil.copytree(src, os.path.join(aside, "step_00000001"))
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run_d = drive(init_b, step_b, mb_b, 5, DriverConfig(ckpt_dir=d_d, ckpt_every=1),
+                          replan=replan, on_replan=copy_step1,
+                          faults=FaultInjector(ELASTIC_DROP_FAULTS),
+                          plan=plan_manifest(plan0, cluster))
+        print(buf.getvalue(), end="")
+        plan1, survivors = replan.live["plan"], replan.live["cluster"]
+        rep_d = run_d["report"]
+        print(f"18(b) cluster {[(g.start, g.end, g.mode) for g in plan0.groups]} cols "
+              f"{plan0.partition.col_bounds} -> {plan1.n}x{plan1.m} cols "
+              f"{plan1.partition.col_bounds} ({plan1.ragged_exec}); replans {rep_d.replans}, "
+              f"restarts {rep_d.restarts}, launches {run_d['launches']}")
+        check("replan (drop:jetson): grid=1x3" in buf.getvalue(), "18(b): no replan line")
+        check(rep_d.replans == 1 and rep_d.restarts == 0 and rep_d.steps_done == 5,
+              f"18(b): {rep_d}")
+        check((plan1.n, plan1.m) == (1, 3) and plan1.ragged_exec == "padded",
+              f"18(b): survivors' plan {plan1.n}x{plan1.m} {plan1.ragged_exec}")
+        want = want_launches((plan0, 2), (plan1, 3))
+        got = {k: run_d["launches"][k] for k in conv}
+        check(got == want, f"18(b): launches {got} != the code's {want}")
+        mgr_d = CheckpointManager(d_d)
+        stored = mgr_d.plan_of()
+        check(stored == json.loads(json.dumps(plan_manifest(plan1, survivors))),
+              "18(b): the stored plan manifest is not the survivors' plan")
+        check(plan_from_manifest(stored) == plan1, "18(b): plan_from_manifest of it")
+        arch_1x3 = TiledCNNArch(plan=plan1, mesh=make_tile_mesh(plan1.n, plan1.m, dev),
+                                loss_local=arch_b.loss_local)
+        init_c, step_c = make_train_step(arch_1x3, pcfg, tcfg)
+        run_b = drive(init_c, step_c, mb_b, 5, DriverConfig(ckpt_dir=aside, resume="always"))
+        check(run_b["report"].resumed_step == 1 and run_b["report"].steps_done == 3,
+              f"18(b): fresh 1x3 driver {run_b['report']}")
+        check({k: run_b["launches"][k] for k in conv} == want_launches((plan1, 3)),
+              f"18(b): fresh 1x3 launches {run_b['launches']}")
+        drop_equal = same_state(run_b["state"], run_d["state"])
+        print(f"18(b) the live state across the drop against a fresh 1x3 driver from the step-1 "
+              f"checkpoint, bit for bit: {drop_equal}")
+        check(drop_equal, "18(b): the dropped run's state differs from the 1x3 restore's")
+
+        # (c) the original cluster plan resumes the 1x3 run's last checkpoint
+        run_c = drive(init_b, step_b, mb_b, ELASTIC_STEPS,
+                      DriverConfig(ckpt_dir=d_d, ckpt_every=1, resume="always"))
+        check(run_c["report"].resumed_step == 4 and run_c["report"].steps_done == 2,
+              f"18(c): {run_c['report']}")
+        check({k: run_c["launches"][k] for k in conv} == want_launches((plan0, 2)),
+              f"18(c): launches {run_c['launches']}")
+        p0 = tree_leaves(init_b(SEED).params)
+        names = [f"{i}.{k}" for i, p in enumerate(init_b(SEED).params) for k in p]
+        segments = ((plan0, range(0, 2)), (plan1, range(2, 5)), (plan0, range(5, ELASTIC_STEPS)))
+
+        def trajectory(backend, st=None, start=0, plans=None):
+            """The 7 steps on the phase's plans in turn (or ``plans``, one a
+            segment; the same batches), in fp32 through ``backend``, from
+            ``st`` at step ``start``."""
+            st = init_b(SEED) if st is None else st
+            for plan, rng in zip(plans or [p for p, _ in segments], [r for _, r in segments]):
+                arch = TiledCNNArch(plan=dataclasses.replace(plan, backend=backend),
+                                    mesh=make_tile_mesh(plan.n, plan.m, dev),
+                                    loss_local=arch_b.loss_local)
+                _, stp = make_train_step(arch, pcfg, tcfg)
+                for s in rng:
+                    if s >= start:
+                        st, _ = stp(st, mb_b(s))
+            return tree_leaves(st.params)
+
+        def untiled(dtype):
+            ref = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=1, m=1, backend="torch",
+                                       device=dev)
+            init, stp = make_train_step(ref, pcfg, tcfg)
+            p = tree_map(lambda t: t.to(dtype), init(SEED).params)
+            st = TrainState(p, make_optimizer("sgd").init(p), 0)
+            for s in range(ELASTIC_STEPS):
+                st, _ = stp(st, {k: v.to(dtype) for k, v in mb_b(s).items()})
+            return tree_leaves(st.params)
+
+        fin64 = untiled(torch.float64)
+        upd64 = [a.double() - b.double() for a, b in zip(fin64, p0)]
+        del fin64
+
+        def upd_err(fin):
+            return [normwise(a.double() - b.double(), u) for a, b, u in zip(fin, p0, upd64)]
+
+        got_err = upd_err(tree_leaves(run_c["state"].params))
+        # the same 7 steps held in memory through the kernels: the resume on
+        # another partition continues the trajectory exactly
+        in_memory = trajectory("cuda")
+        resumed_equal = all(torch.equal(a, b) for a, b in
+                            zip(tree_leaves(run_c["state"].params), in_memory))
+        del in_memory
+        # three fp32 trainers of the same steps: untiled, the cluster plan
+        # alone and the phase's plan sequence, both on the torch backend
+        e32 = {"untiled": upd_err(untiled(torch.float32)),
+               "cluster_torch": upd_err(trajectory("torch", plans=(plan0, plan0, plan0))),
+               "elastic_torch": upd_err(trajectory("torch"))}
+        bars = [max(WGRAD_NORM_TOL, GRAD_FLOOR_FACTOR * max(e))
+                for e in zip(*e32.values())]
+        # planted: the momentum lost at the replan (the step-1 checkpoint is
+        # the state entering step 2, where the drop replanned)
+        lost = CheckpointManager(aside).restore(like_a, step=1, device=dev)
+        lost_err = upd_err(trajectory("cuda", zero_momentum(lost), start=2))
+        del lost
+        worst = max(range(len(names)), key=lambda i: got_err[i] / bars[i])
+        lost_over = max(e / b for e, b in zip(lost_err, bars))
+        print(f"18(c) the {ELASTIC_STEPS}-step trajectory (2x2 cluster -> 1x3 -> 2x2): bitwise "
+              f"equal to the same steps held in memory: {resumed_equal}; against the untiled "
+              f"fp64 trainer: update err max {max(got_err):.2e}; fp32 trainers "
+              + ", ".join(f"{k} {max(v):.2e}" for k, v in e32.items())
+              + f"; nearest its bar {names[worst]} {got_err[worst]:.2e}, "
+              f"{got_err[worst] / bars[worst]:.2f} of its bar (of a bar from the untiled fp32 "
+              f"trainer alone: {got_err[worst] / max(WGRAD_NORM_TOL, GRAD_FLOOR_FACTOR * e32['untiled'][worst]):.2f}); "
+              f"a momentum lost at the replan {lost_over:.1f}x its bar")
+        check(resumed_equal, "18(c): the resumed trajectory differs from the in-memory one")
+        for n, e, bar in zip(names, got_err, bars):
+            check(e <= bar, f"18(c) param update {n}: normwise err {e} over {bar}")
+        check(lost_over > 1.0, "18(c): a momentum lost at the replan passed the bar")
+        before = [run_d["ms"][1]] + run_c["ms"]
+        after = run_d["ms"][run_d["replan_at"] + 1:]
+        host_before = [run_d["host_ms"][1]] + run_c["host_ms"]
+        host_after = run_d["host_ms"][run_d["replan_at"] + 1:]
+        out18.update(
+            replan_ms=run_d["replan_ms"],
+            first_step_after_replan_ms=run_d["ms"][run_d["replan_at"]],
+            first_step_after_replan_host_ms=run_d["host_ms"][run_d["replan_at"]],
+            step_ms_2x2_cluster=before, step_ms_1x3=after,
+            step_ms_median_2x2_cluster=statistics.median(before),
+            step_ms_median_1x3=statistics.median(after),
+            step_ms_host_median_2x2_cluster=statistics.median(host_before),
+            step_ms_host_median_1x3=statistics.median(host_after),
+            peak_mem_after_replan_bytes=run_d["peak_after_replan"],
+            drop_step_ms=run_d["ms"], plan_1x3={
+                "cols": list(plan1.partition.col_bounds), "ragged_exec": plan1.ragged_exec,
+                "groups": [[g.start, g.end, g.mode] for g in plan1.groups]},
+            bitwise={"resume": resume_equal, "restart": restart_equal, "drop": drop_equal},
+            planted={"momentum_zeroed_at_resume_rejected": planted_m,
+                     "corrupt_fallback": [kept[-1], fell_to],
+                     "explicit_restore_of_corrupt_raised": explicit_raised,
+                     "momentum_lost_at_replan_err_over_bar": lost_over},
+            trajectory={"bitwise_vs_in_memory": resumed_equal, "update_err_max": max(got_err),
+                        **{f"fp32_{k}_max": max(v) for k, v in e32.items()},
+                        "nearest": names[worst], "nearest_over_bar": got_err[worst] / bars[worst],
+                        "per_leaf": {n: [e, *x] for n, e, *x in
+                                     zip(names, got_err, *e32.values())}})
+        del run_d, run_b, run_c, upd64
+        torch.cuda.empty_cache()
+
+        # B1-B3 at the survivors' new shapes: the padded 1x3 plan above and
+        # the launcher's spec twin below
+        spec0 = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
+                                     groups="auto", backend="cuda", device=dev, **_CLUSTER_KW)
+        spec_replan = make_replan(spec0, cluster, "pi3-core", TRAIN_BATCH, pcfg, tcfg)
+        spec_replan(ClusterChange("drop", "jetson", 2))
+        spec1 = spec_replan.live["plan"]
+        check((spec1.n, spec1.m, spec1.ragged_exec) == (1, 3, "spec"), "18: the spec replan")
+
+        def shape_key(s):
+            return s["x"], s["w"], s["stride"]
+
+        new_tr18 = {shape_key(s): s for p in (plan1, spec1)
+                    for s in conv_shapes(p, TRAIN_BATCH // TRAIN_ACCUM)
+                    if shape_key(s) not in held_bwd}
+        print(f"phase 18 plans: {len(new_tr18)} new microbatch-4 shapes")
+        check(new_tr18, "the phase-18 plans give B1-B3 no new shape")
+        fwd18 = [dict(fwd_row(s), piece=s["piece"]) for k, s in new_tr18.items()
+                 if k not in held_b1]
+        bwd18 = [bwd_rows(s) for s in new_tr18.values()]
+        dgrad18 = [d for d, _ in bwd18 if d]
+        wgrad18 = [w for _, w in bwd18]
+        kernel_ms18 = {}
+        for rows18, what in ((fwd18, "conv2d_tile"), (dgrad18, "conv2d_dgrad_tile"),
+                             (wgrad18, "conv2d_wgrad_tile")):
+            kernel_ms18[what] = {k: sum(r[k] for r in rows18)
+                                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            kernel_ms18[what]["shapes"] = len(rows18)
+            print(f"{what} at the {len(rows18)} new phase-18 shapes: kernel "
+                  f"{kernel_ms18[what]['ms']:.4f} ms, cudnn "
+                  f"{kernel_ms18[what]['library_ms']:.4f} ms, plain "
+                  f"{kernel_ms18[what]['plain_ms']:.4f} ms, bound "
+                  f"{kernel_ms18[what]['bound_ms']:.4f} ms")
+        print(json.dumps({"phase18_conv_shapes": fwd18}))
+        print(json.dumps({"phase18_dgrad_shapes": dgrad18}))
+        print(json.dumps({"phase18_wgrad_shapes": wgrad18}))
+        out18["kernel_ms_new_shapes"] = kernel_ms18
+
+        # the launcher, as a user runs elastic training on the cluster
+        d_l = os.path.join(root, "launcher")
+        base = ["--arch", "yolov2-tiled", "--input-hw", str(INPUT_HW[0]), "--depth", "16",
+                "--grid", str(GRID[0]), "--cluster", _CLUSTER_KW["hw"], "--groups", "auto",
+                "--batch", str(TRAIN_BATCH), "--grad-accum", str(TRAIN_ACCUM), "--ckpt-dir", d_l,
+                "--ckpt-every", "1"]
+        lines = []
+        for argv, want_done in ((["--steps", "4", "--fault-schedule", ELASTIC_LAUNCHER_FAULTS],
+                                 "done: steps=4 restarts=0 replans=1"),
+                                (["--steps", "6", "--resume", "always"],
+                                 "done: steps=2 restarts=0 replans=0")):
+            reset_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = train_launcher.main(base + argv)
+            print(buf.getvalue(), end="")
+            got = counted()
+            print(f"phase-18 launcher {' '.join(argv)}: rc {rc}, launches "
+                  f"{ {k: got[k] for k in conv} }")
+            check(rc == 0 and want_done in buf.getvalue(),
+                  f"train launcher {' '.join(argv)}: no '{want_done}'")
+            if "--fault-schedule" in argv:
+                check("replan (drop:jetson): grid=1x3" in buf.getvalue(),
+                      "train launcher: no replan line")
+            check(all(got[k] > 0 for k in conv), f"train launcher launched {got}")
+            lines += [ln for ln in buf.getvalue().splitlines()
+                      if ln.startswith(("replan", "done:"))]
+        out18["launcher_lines"] = lines
+
+        # (d) the LM path: reduced Qwen2-7B, bf16 params, AdamW in place
+        cfg_lm = dataclasses.replace(reduced(), dtype="bfloat16", param_dtype="bfloat16")
+        lm = bundle_from_cfg(cfg_lm, dev)
+        lm_pcfg = ParallelConfig(grad_accum=ELASTIC_LM_ACCUM)
+        lm_tcfg = TrainConfig(warmup=0, steps=ELASTIC_LM_STEPS, seed=SEED)
+        init_l, step_l = make_train_step(lm, lm_pcfg, lm_tcfg)
+        specs = lm.input_specs(ShapeConfig("elastic", ELASTIC_LM_SEQ, ELASTIC_LM_BATCH, "train"))
+
+        def mb_l(s):
+            return place(synth_batch(specs, cfg_lm, SEED, s), dev)
+
+        like_l, like_l_dev = abstract_of(init_l, SEED)
+        check(like_l_dev == torch.device(dev) and like_l.params["embed"].device.type == "meta"
+              and like_l.params["embed"].dtype == torch.bfloat16,
+              f"18(d): abstract LM state {like_l_dev} {like_l.params['embed']}")
+        d_lm = os.path.join(root, "lm")
+        run_lu = drive(init_l, step_l, mb_l, ELASTIC_LM_STEPS, DriverConfig())
+        run_la = drive(init_l, step_l, mb_l, ELASTIC_LM_STEPS,
+                       DriverConfig(ckpt_dir=d_lm, ckpt_every=2))     # async: step 1 under step 2
+        shutil.rmtree(os.path.join(d_lm, f"step_{ELASTIC_LM_STEPS - 1:08d}"))
+        run_lr = drive(init_l, step_l, mb_l, ELASTIC_LM_STEPS,
+                       DriverConfig(ckpt_dir=d_lm, resume="always"))
+        dtypes = {e["path"]: e["dtype"] for e in CheckpointManager(d_lm).read_manifest(1)["leaves"]}
+        check(dtypes["params/embed"] == "bfloat16" and dtypes["opt/m/embed"] == "float32"
+              and dtypes["opt/t"] == dtypes["step"] == "int32", f"18(d): stored dtypes {dtypes}")
+        check(run_lr["report"].resumed_step == 1 and run_lr["report"].steps_done == 2,
+              f"18(d): {run_lr['report']}")
+        lm_async_equal = same_state(run_la["state"], run_lu["state"])
+        lm_resume_equal = same_state(run_lr["state"], run_lu["state"])
+        # the snapshot against the in-place step, the writer held until
+        # the next step has run
+        mgr_g = CheckpointManager(os.path.join(root, "lm_gate"))
+        gate = threading.Event()
+        mgr_g.write_fault = lambda i: gate.wait(120)
+        st = init_l(SEED)
+        st, _ = step_l(st, mb_l(0))
+        expect = map_with_path(lambda p, x: x.clone() if isinstance(x, torch.Tensor) else x, st)
+        mgr_g.save(0, st, blocking=False)
+        st, _ = step_l(st, mb_l(1))
+        torch.cuda.synchronize()
+        gate.set()
+        mgr_g.wait()
+        moved = not torch.equal(st.params["embed"], expect.params["embed"])
+        snapshot_equal = same_state(mgr_g.restore(like_l, step=0, device=dev), expect)
+        per = lm_launches_per_microbatch(cfg_lm, lm_pcfg.remat)
+        lm_want = {k: per[k] * ELASTIC_LM_ACCUM * (2 * ELASTIC_LM_STEPS + 2) for k in lm_kernels}
+        lm_got = {k: run_lu["launches"][k] + run_la["launches"][k] + run_lr["launches"][k]
+                  for k in lm_kernels}
+        print(f"18(d) reduced Qwen2-7B, bf16 params, AdamW in place: async save and resume at "
+              f"step 1 bit for bit {lm_resume_equal} (the async run itself {lm_async_equal}); "
+              f"the snapshot held the saved step's values while the next step updated in place: "
+              f"{snapshot_equal} (live leaves moved: {moved}); launches {lm_got} (the code's "
+              f"{lm_want})")
+        check(lm_async_equal and lm_resume_equal, "18(d): the LM resume is not bitwise")
+        check(snapshot_equal and moved, "18(d): the async snapshot is not the saved step's")
+        check(lm_got == lm_want, f"18(d): LM launches {lm_got} != {lm_want}")
+        out18["bitwise"].update(lm_resume=lm_resume_equal, lm_async_snapshot=snapshot_equal)
+        out18["launches"] = {**launches18, **lm_launches18}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"elastic": out18}))
+    print(json.dumps({"phase18_launches": out18["launches"]}))
+    torch.cuda.empty_cache()
+    return launches18, lm_launches18, fwd18, dgrad18, wgrad18
+
+
 def main() -> int:
     import torch
 
@@ -3603,6 +4191,14 @@ def main() -> int:
     # -- 17. one CUDA graph per batch bucket -------------------------------------
     auto_launches["conv2d_tile"] += capture_phase(dev, smi, calib, images, step_s)
 
+    # -- 18. elastic training ------------------------------------------------------
+    launches18, lm18, fwd18, dgrad18, wgrad18 = elastic_phase(dev, smi, held_b1, held_bwd,
+                                                              fwd_row, bwd_rows)
+    serve_err = max([serve_err] + [r["max_abs_err"] for r in fwd18])
+    dgrad_err = max([dgrad_err] + [r["max_abs_err"] for r in dgrad18])
+    wgrad_err = max([wgrad_err] + [r["max_abs_err"] for r in wgrad18])
+    auto_launches = {k: v + launches18[k] for k, v in auto_launches.items()}
+
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",
                      "src/repro/kernels/conv2d_tiled/kernel.py:140", rows,
@@ -3621,10 +4217,11 @@ def main() -> int:
         kernel_entry("flash_attention_fwd",
                      "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
                      "src/repro/kernels/flash_attention/kernel.py:127", fa_rows[:1],
-                     lm_launches["flash_attention_fwd"], fa_err),
+                     lm_launches["flash_attention_fwd"] + lm18["flash_attention_fwd"], fa_err),
         kernel_entry("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                      "src/repro/kernels/rmsnorm/kernel.py:42", rms_rows[:1],
-                     lm_launches["rmsnorm"] + mamba_launches["rmsnorm"], rms_err),
+                     lm_launches["rmsnorm"] + mamba_launches["rmsnorm"] + lm18["rmsnorm"],
+                     rms_err),
         kernel_entry("ssd_chunk_fwd", "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk_fwd.cu",
                      "src/repro/kernels/ssd_chunk/kernel.py:98", ssd_rows[:1],
                      mamba_launches["ssd_chunk_fwd"], ssd_err),

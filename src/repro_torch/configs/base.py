@@ -6,8 +6,9 @@ Only the configs the port can run resolve in ``models.registry`` (the rest
 are ROADMAP A.18), but every field is here so a config file reads the same.
 ``ParallelConfig`` keeps the fields the port reads: ``grad_accum`` (both
 paths) and the LM step's ``remat``, ``ce_chunk`` and ``unroll``; the mesh-axis
-fields come back with ``parallel/`` (A.18).  ``TrainConfig``'s logging and
-checkpoint cadence come back with checkpoints (A.15).
+fields come back with ``parallel/`` (A.18).  ``TrainConfig`` has all of the
+reference's fields; the launchers take the checkpoint cadence from
+``--ckpt-every`` and the logging cadence from ``--log-every``.
 """
 from __future__ import annotations
 
@@ -166,4 +167,6 @@ class TrainConfig:
     grad_clip: float = 1.0
     grad_compression: Optional[str] = None   # None | "int8"
     steps: int = 100
+    log_every: int = 10
+    ckpt_every: int = 50
     seed: int = 0

@@ -28,6 +28,7 @@ and the remaining halo after layer l shrinks as (h - P_l) / S_l.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import re
 from typing import Sequence
 
@@ -588,6 +589,124 @@ def plan_manifest(plan: StackPlan, cluster: ClusterSpec | None = None) -> dict:
         "inference": plan.inference,
         "cluster": None if cluster is None else cluster_manifest(cluster),
     }
+
+
+_log = logging.getLogger("repro_torch.core")
+
+# the reference's conv backends and the port's that compute the same
+# function: a manifest JAX wrote names "xla" or "pallas"
+_BACKEND_OF_REFERENCE = {"xla": "torch", "pallas": "cuda"}
+
+
+def plan_from_manifest(man: dict) -> StackPlan:
+    """Rebuild the StackPlan a manifest describes - explicit groups and
+    partition, so the planner re-derives every geometry and the result is
+    dataclass-equal to the plan that was saved.  A manifest the reference
+    wrote maps its backend onto the port's (``pallas`` -> ``cuda``, ``xla``
+    -> ``torch``); v1/v2 manifests read ``wire_codec`` and ``inference`` as
+    their defaults, as the reference does."""
+    layers = tuple(LayerDef(**ld) for ld in man["layers"])
+    groups = tuple(Group(s, e, mode) for s, e, mode in man["groups"])
+    part = man.get("partition")
+    partition = (
+        None
+        if part is None
+        else TilePartition(tuple(part["row_bounds"]), tuple(part["col_bounds"]))
+    )
+    backend = man.get("backend", "torch")
+    return build_stack_plan(
+        tuple(man["input_hw"]),
+        layers,
+        man["n"],
+        man["m"],
+        groups,
+        backend=_BACKEND_OF_REFERENCE.get(backend, backend),
+        schedule=man.get("schedule", "sync"),
+        block_oh=man.get("block_oh"),
+        partition=partition,
+        ragged_exec=man.get("ragged_exec", "spec"),
+        wire_codec=man.get("wire_codec", "none"),
+        inference=man.get("inference", False),
+    )
+
+
+def replan_stack(
+    plan: StackPlan,
+    hw: HardwareProfile | ClusterSpec | str | None,
+    n: int | None = None,
+    m: int | None = None,
+    *,
+    batch: int = 1,
+    groups: Sequence[Group] | str | None = "auto",
+    crossover: int | str | None = "auto",
+    mem_limit: float | None = None,
+    partition: TilePartition | None = None,
+    pipeline: int | str | None = None,
+) -> StackPlan:
+    """Rebuild ``plan`` against a changed cluster (elastic replan, DESIGN.md
+    §10): the same layer stack and backend/schedule/executor knobs on the
+    new device set, through the whole planner - makespan balancing, the
+    grouping DP (``groups="auto"``) and the crossover scan
+    (``crossover="auto"``), so the survivors get a partition balanced for
+    them.  ``n``/``m`` default to the ClusterSpec's grid (required for
+    other ``hw`` forms).  Params are partition-independent, so a TrainState
+    trains on the new plan as it is.
+
+    Degradation: if the cost-optimal grouping/crossover is infeasible
+    under the rebalanced partition (a skewed mesh can shrink the smallest
+    tile below a fused group's halo), fall back to ungrouped layers, then
+    to ungrouped all-spatial.  A plan that had a pipeline tail (or an
+    explicit ``pipeline``) first replans with ``pipeline="auto"``, so the
+    survivors get stages re-packed for them; the next rung drops the
+    pipeline search."""
+    if isinstance(hw, ClusterSpec):
+        n = hw.n if n is None else n
+        m = hw.m if m is None else m
+    if n is None or m is None:
+        raise ValueError("replan_stack needs n, m when hw is not a ClusterSpec")
+    if pipeline is None and plan.stages:
+        pipeline = "auto"
+
+    def attempt(g, x, p):
+        return build_stack_plan(
+            plan.input_hw,
+            plan.layers,
+            n,
+            m,
+            g,
+            backend=plan.backend,
+            schedule=plan.schedule,
+            block_oh=plan.block_oh,
+            hw=hw,
+            batch=batch,
+            crossover=x,
+            mem_limit=mem_limit,
+            partition=partition,
+            ragged_exec=plan.ragged_exec,
+            pipeline=p if g == "auto" else None,
+            wire_codec=plan.wire_codec,
+            inference=plan.inference,
+        )
+
+    ladder = [(groups, crossover, pipeline)]
+    if pipeline is not None:
+        ladder.append((groups, crossover, None))
+    if groups is not None:
+        ladder.append((None, crossover, None))
+    if crossover is not None:
+        ladder.append((None, None, None))
+    last_err: Exception | None = None
+    for i, (g, x, p) in enumerate(ladder):
+        try:
+            return attempt(g, x, p)
+        except ValueError as e:
+            last_err = e
+            if i + 1 < len(ladder):
+                _log.warning(
+                    "replan with groups=%r crossover=%r pipeline=%r infeasible (%s); "
+                    "degrading to groups=%r crossover=%r pipeline=%r",
+                    g, x, p, e, *ladder[i + 1])
+    raise last_err
 
 
 def _ragged_group_geom(plan: StackPlan, gi: int) -> dict:

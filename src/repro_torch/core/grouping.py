@@ -37,8 +37,9 @@ The port of ``repro/core/grouping.py``: plain Python over the port's own
 reference's names, constants and order of arithmetic, so every cost comes
 out bit-identical (``tests/test_torch_grouping.py``).  The stage, wire and
 device-list functions are here because ``profile_cost`` and
-``optimize_grouping`` reach them; their executors (pipelines, wire codecs,
-elastic replans) are ROADMAP A.13-A.15.
+``optimize_grouping`` reach them; the pipeline executor and the elastic
+replan (``replan_stack``) are in ``core/fusion.py``, the wire codecs in
+``core/halo.py`` and ``optim/compression.py``.
 """
 from __future__ import annotations
 

@@ -21,9 +21,20 @@ count; stages hold no BN layer, so with ``--no-batch-norm``, and
 ``--grad-accum`` microbatches stream through them), ``--wire-codec`` the
 codec of every strip, reshard and hand-off (``int8`` or ``topk:<k>``:
 stateless forward strips, error feedback on the backward's; the planner
-prices the wire under it).  Flags of the reference the port does not have
-yet raise naming their ROADMAP item: ``--ckpt-dir`` and
-``--fault-schedule`` (A.15).
+prices the wire under it).
+
+Elastic training (DESIGN.md §10), on both paths: ``--ckpt-dir`` saves a
+checkpoint every ``--ckpt-every`` steps and at the last, ``--resume``
+(``auto``, ``always``, ``never``) restores one, and ``--fault-schedule``
+replays ``runtime.faults``' grammar (``drop:jetson@5,slow:0.2@8,fail@9,
+ckpt-crash@10,corrupt@12``).  On the tiled path a device drop or add
+replans the stack onto the changed cluster (``replan_stack``: a
+homogeneous grid becomes a ClusterSpec of ``--hw-profile`` first; a drop
+may name a profile or a flat grid index) and the run continues with the
+live state; the LM path has no replan, so a drop there is fatal.
+``--ckpt-dir`` has no default, unlike the reference's ``/tmp/repro_ckpt``:
+with ``--resume auto`` a shared default directory would make every run
+resume from (or fail on) another run's checkpoint of another geometry.
 
 LM mode (``--arch qwen2-7b`` or ``mamba2-780m``; the other LM ids are A.18):
 the reduced config unless ``--full``, ``--seq`` x ``--batch`` tokens a step from
@@ -123,9 +134,24 @@ def _add_args(ap: argparse.ArgumentParser) -> None:
                          "stateless on forward strips, error feedback on the backward's and "
                          "the reshard adjoint), or 'topk:<k>' (k a fraction 0<k<1 or a "
                          "count); the planner prices the wire under the same codec")
-    # the reference's flags the port does not plan yet (each raises)
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--fault-schedule", default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (none by default: no checkpoints; see the "
+                         "module docstring)")
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--resume", default="auto", choices=["auto", "always", "never"],
+                    help="checkpoint resume policy: 'auto' restores the newest loadable "
+                         "checkpoint in --ckpt-dir if one exists, 'always' requires one, "
+                         "'never' starts fresh")
+    ap.add_argument("--fault-schedule", default=None,
+                    help="fault-injection schedule (runtime.faults): comma-separated "
+                         "'kind[:arg]@step' items.  Kinds: 'drop:<device>@N' (a device - a "
+                         "profile name or a flat grid index - leaves at step N), "
+                         "'add:<device>@N' (one joins), 'slow:<sec>@N' (step N stalls), "
+                         "'fail@N' (step N raises; checkpoint restart), "
+                         "'ckpt-crash[:count]@N' (the writer crashes count times mid-save), "
+                         "'corrupt@N' (flip bytes in the latest checkpoint; needs "
+                         "--ckpt-dir).  Drops and adds replan the tiled stack onto the "
+                         "changed cluster")
 
 
 def make_batch_fn(batch: int, input_hw: int, target_shape, seed: int, device):
@@ -144,9 +170,10 @@ def make_batch_fn(batch: int, input_hw: int, target_shape, seed: int, device):
 
 def _run_tiled(args) -> int:
     from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.fusion import plan_manifest
     from repro_torch.core.grouping import parse_cluster_spec
     from repro_torch.models.yolo import make_yolo_tiled_arch, yolov2_16_layers
-    from repro_torch.runtime.driver import DriverConfig, run_training
+    from repro_torch.runtime.driver import run_training
     from repro_torch.train.trainer import make_train_step
 
     n_layers = len(yolov2_16_layers()[: args.depth])
@@ -183,42 +210,114 @@ def _run_tiled(args) -> int:
           f"uniform={plan.is_uniform}" + (f" cluster={args.cluster}" if args.cluster else ""))
     pcfg = ParallelConfig(grad_accum=args.grad_accum)
     tcfg = TrainConfig(
-        lr=args.lr, optimizer=args.optimizer, steps=args.steps, seed=args.seed,
+        lr=args.lr, optimizer=args.optimizer, steps=args.steps,
+        ckpt_every=args.ckpt_every, seed=args.seed,
         grad_compression=None if args.compress == "none" else args.compress,
     )
     init_state, train_step = make_train_step(arch, pcfg, tcfg)
     make_batch = make_batch_fn(args.batch, args.input_hw, arch.target_shape(args.batch),
                                args.seed, arch.mesh.device)
+    replan = make_replan(arch, cluster, args.hw_profile, args.batch, pcfg, tcfg)
     report = run_training(
         init_state=init_state,
         train_step=train_step,
         make_batch=make_batch,
         steps=args.steps,
-        cfg=DriverConfig(ckpt_dir=args.ckpt_dir, log_every=args.log_every),
+        cfg=_driver_config(args),
         seed=args.seed,
-        faults=args.fault_schedule,
+        faults=_faults(args),
+        replan=replan,
+        plan=plan_manifest(arch.plan, cluster),
+        device=arch.mesh.device,
     )
+    _print_done(report)
+    return 0
+
+
+def make_replan(arch, cluster, hw_profile: str, batch: int, pcfg, tcfg):
+    """The elastic replan callback of a tiled run: on a ``ClusterChange``
+    drop or add the device on the live cluster (a homogeneous grid becomes
+    ``hw_profile`` x n*m first), ``replan_stack`` the live plan onto it at
+    ``batch``, build the arch on a new virtual mesh on the same device and
+    its train step, print the ``replan (...)`` line, and return ``(step,
+    plan manifest)``.  A drop's device is a profile name or, all digits, a
+    flat row-major grid index; a replan whose data tail the microbatch does
+    not divide over the new tile count is planned all-spatial instead (both
+    are ROADMAP C.7: the reference's launcher raises on either)."""
+    from repro_torch.core.fusion import plan_manifest, replan_stack
+    from repro_torch.core.grouping import add_device, drop_device, parse_cluster_spec
+    from repro_torch.launch.mesh import make_tile_mesh
+    from repro_torch.models.tiled_cnn import TiledCNNArch
+    from repro_torch.train.trainer import make_train_step
+
+    live = {"cluster": cluster, "plan": arch.plan}
+    accum = max(pcfg.grad_accum, 1)
+
+    def replan(ev):
+        plan = live["plan"]
+        cl = live["cluster"]
+        if cl is None:
+            cl = parse_cluster_spec(f"{hw_profile}x{plan.n * plan.m}", plan.n, plan.m)
+        if ev.kind == "drop":
+            cl = drop_device(cl, int(ev.device) if ev.device.isdigit() else ev.device)
+        else:
+            cl = add_device(cl, ev.device)
+        new_plan = replan_stack(plan, cl, batch=batch)
+        if new_plan.crossover is not None and (batch // accum) % (new_plan.n * new_plan.m):
+            # a data tail splits each microbatch over the survivors' tiles,
+            # which this batch does not divide (ROADMAP C.7): stay spatial
+            new_plan = replan_stack(plan, cl, batch=batch, crossover=None)
+        new_arch = TiledCNNArch(plan=new_plan,
+                                mesh=make_tile_mesh(new_plan.n, new_plan.m, arch.mesh.device),
+                                loss_local=arch.loss_local)
+        _, new_step = make_train_step(new_arch, pcfg, tcfg)
+        live.update(cluster=cl, plan=new_plan)
+        print(f"replan ({ev.kind}:{ev.device}): grid={new_plan.n}x{new_plan.m} "
+              f"rows={new_plan.partition.row_bounds} cols={new_plan.partition.col_bounds} "
+              f"crossover={new_plan.crossover} "
+              f"modes={[(g.start, g.end, g.mode) for g in new_plan.groups]}"
+              + (f" stages={new_plan.stages}" if new_plan.stages else ""))
+        return new_step, plan_manifest(new_plan, cl)
+
+    replan.live = live
+    return replan
+
+
+def _driver_config(args):
+    from repro_torch.runtime.driver import DriverConfig
+
+    return DriverConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                        log_every=args.log_every, resume=args.resume)
+
+
+def _faults(args):
+    from repro_torch.runtime.faults import FaultInjector
+
+    return FaultInjector(args.fault_schedule) if args.fault_schedule else None
+
+
+def _print_done(report) -> None:
     m = report.last_metrics or {}
     print(
         f"done: steps={report.steps_done} restarts={report.restarts} "
-        f"stragglers={report.straggler_steps} "
+        f"replans={report.replans} stragglers={report.straggler_steps} "
         f"loss={m.get('loss', float('nan')):.4f} gnorm={m.get('grad_norm', 0):.3f}"
     )
-    return 0
 
 
 def _run_lm(args) -> int:
     from repro_torch.configs.base import ParallelConfig, ShapeConfig, TrainConfig
     from repro_torch.data.synthetic import place, synth_batch
     from repro_torch.models.registry import get_arch
-    from repro_torch.runtime.driver import DriverConfig, run_training
+    from repro_torch.runtime.driver import run_training
     from repro_torch.train.trainer import make_train_step
 
     arch = get_arch(args.arch, reduced=not args.full, device=args.device)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     pcfg = ParallelConfig(grad_accum=args.grad_accum, remat=args.remat)
     tcfg = TrainConfig(
-        lr=args.lr, optimizer=args.optimizer, steps=args.steps, seed=args.seed,
+        lr=args.lr, optimizer=args.optimizer, steps=args.steps,
+        ckpt_every=args.ckpt_every, seed=args.seed,
         grad_compression=None if args.compress == "none" else args.compress,
     )
     cfg = arch.cfg
@@ -236,16 +335,12 @@ def _run_lm(args) -> int:
         train_step=train_step,
         make_batch=make_batch,
         steps=args.steps,
-        cfg=DriverConfig(ckpt_dir=args.ckpt_dir, log_every=args.log_every),
+        cfg=_driver_config(args),
         seed=args.seed,
-        faults=args.fault_schedule,
+        faults=_faults(args),
+        device=arch.device,
     )
-    m = report.last_metrics or {}
-    print(
-        f"done: steps={report.steps_done} restarts={report.restarts} "
-        f"stragglers={report.straggler_steps} "
-        f"loss={m.get('loss', float('nan')):.4f} gnorm={m.get('grad_norm', 0):.3f}"
-    )
+    _print_done(report)
     return 0
 
 

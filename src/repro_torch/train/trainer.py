@@ -22,6 +22,10 @@ and the fp32 gradients ``on_grads`` sees are clipped where they lie after it
 returns - an observer copies what it keeps.
 The trainer tail then runs optional int8 error-feedback compression,
 global-norm clipping, the cosine/warmup schedule and the optimizer update.
+
+Elastic support (DESIGN.md §10): ``abstract_state`` (the state's shapes and
+dtypes on the ``meta`` device, allocating nothing - the structure a restore
+fills), ``globalize_state`` and ``check_state_matches``.
 """
 from __future__ import annotations
 
@@ -176,3 +180,75 @@ def _make_tiled_cnn_train_step(arch, pcfg: ParallelConfig, tcfg: TrainConfig, on
 
     train_step.grad_step = grad_step     # its ``census`` after a pipeline plan's step
     return init_state, train_step
+
+
+# ---------------------------------------------------------------------------
+# Elastic replan support (DESIGN.md §10)
+# ---------------------------------------------------------------------------
+
+
+def abstract_of(init_state, seed: int = 0) -> tuple[Any, Optional[torch.device]]:
+    """``init_state(seed)`` traced for its structure alone: the state with
+    each tensor leaf replaced by an empty ``meta`` tensor of its shape and
+    dtype (ints stay ints), and the device the real state would live on.
+    It runs under ``FakeTensorMode``, so nothing is drawn or allocated: a
+    restore's "like" structure for a full-width LM costs no device memory."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.ckpt.manager import map_with_path
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = init_state(seed)
+    devices = []
+
+    def to_meta(_, x):
+        if isinstance(x, torch.Tensor):
+            devices.append(x.device)
+            return torch.empty(x.shape, dtype=x.dtype, device="meta")
+        return x
+
+    return map_with_path(to_meta, fake), (devices[0] if devices else None)
+
+
+def abstract_state(arch, pcfg: ParallelConfig, tcfg: TrainConfig) -> TrainState:
+    """The TrainState's shapes and dtypes as ``meta`` tensors (a dry run:
+    no allocation) - the reference's ``jax.eval_shape`` of ``init_state``."""
+    init_state, _ = make_train_step(arch, pcfg, tcfg)
+    return abstract_of(init_state)[0]
+
+
+def globalize_state(state: TrainState) -> TrainState:
+    """A host copy of a live TrainState - the partition-independent form.
+    On the virtual tile mesh every param and optimizer statistic is
+    already a whole (global) tensor, so a replan keeps the live state as it
+    is; this copy is what a checkpoint holds, detached from the device."""
+    from repro_torch.ckpt.manager import map_with_path
+
+    return map_with_path(
+        lambda _, x: x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor) else x, state)
+
+
+def check_state_matches(state: Any, like: Any) -> None:
+    """Validate that ``state`` is structurally interchangeable with ``like``
+    (the same leaf paths, shapes and dtypes; an int leaf is a 0-d int32) -
+    the guard before handing a restored or carried-over state to a step
+    built for another plan.  Raises ValueError naming the first offending
+    leaf path."""
+    from repro_torch.ckpt.manager import leaf_meta, map_with_path
+
+    def collect(tree):
+        out = {}
+        map_with_path(lambda p, x: out.__setitem__(p, leaf_meta(x)), tree)
+        return out
+
+    paths_a, paths_b = collect(state), collect(like)
+    for path in sorted(set(paths_a) | set(paths_b)):
+        if path not in paths_a:
+            raise ValueError(f"state missing leaf {path!r} expected by plan")
+        if path not in paths_b:
+            raise ValueError(f"state has extra leaf {path!r} not in plan")
+        (sa, da), (sb, db) = paths_a[path], paths_b[path]
+        if sa != sb:
+            raise ValueError(f"state leaf {path!r} shape {sa} != plan {sb}")
+        if da != db:
+            raise ValueError(f"state leaf {path!r} dtype {da} != plan {db}")

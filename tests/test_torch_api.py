@@ -15,7 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # reference name -> the ROADMAP A item whose port brings it
 NOT_YET = {
-    "core": dict.fromkeys(["plan_from_manifest", "replan_stack"], "A.15"),
+    "core": {},
     "optim": {},
     "kernels": {},
 }

@@ -14,8 +14,8 @@
 - int8 error feedback: ``compress_with_feedback`` on identical inputs within
   1e-6; a 3-step int8 run within ``INT8_PARAM_TOL`` (see there).
 - optimizers and schedules against the reference's, run_training's retry
-  count, and the launcher on the CPU (unported flags name their ROADMAP
-  item).
+  count and checkpoints, and the launcher on the CPU (unported flags name
+  their ROADMAP item).
 """
 import dataclasses
 import functools
@@ -493,7 +493,10 @@ def test_optimizer_updates_match_jax(name):
         topt.make_optimizer("adafactor")
 
 
-def test_driver_counts_restarts_and_refuses_checkpoints():
+def test_driver_counts_restarts_and_refuses_checkpoints(tmp_path):
+    """The retry count without checkpoints; with a checkpoint directory
+    (ROADMAP A.15, which this test once showed refused) the run saves and a
+    second driver resumes it."""
     arch = make_yolo_tiled_arch((32, 32), 2, 2, 2, backend="cuda", device="cpu")
     init_state, step = make_train_step(arch, ParallelConfig(), TrainConfig(optimizer="sgd", steps=3))
     batch = {"x": torch.from_numpy(_batch(0, b=2)["x"]), "t": torch.zeros(arch.target_shape(2))}
@@ -512,9 +515,12 @@ def test_driver_counts_restarts_and_refuses_checkpoints():
     clean = run_training(init_state=init_state, train_step=step, make_batch=lambda s: batch,
                          steps=2, cfg=DriverConfig())
     assert clean.restarts == 0 and clean.steps_done == 2
-    with pytest.raises(NotImplementedError, match="A.15"):
-        run_training(init_state=init_state, train_step=step, make_batch=lambda s: batch,
-                     steps=1, cfg=DriverConfig(ckpt_dir="ckpt"))
+    saved = run_training(init_state=init_state, train_step=step, make_batch=lambda s: batch,
+                         steps=2, cfg=DriverConfig(ckpt_dir=str(tmp_path), ckpt_every=1))
+    assert saved.restarts == 0 and saved.steps_done == 2 and saved.resumed_step is None
+    resumed = run_training(init_state=init_state, train_step=step, make_batch=lambda s: batch,
+                           steps=3, cfg=DriverConfig(ckpt_dir=str(tmp_path), resume="always"))
+    assert resumed.resumed_step == 1 and resumed.steps_done == 1
     with pytest.raises(RuntimeError, match="injected"):
         run_training(init_state=init_state, train_step=step, make_batch=lambda s: batch,
                      steps=2, cfg=DriverConfig(max_restarts=0),
@@ -621,17 +627,30 @@ def test_launcher_trains_on_cpu(capsys):
     (["--arch", "stablelm-1.6b"], "A.18"),
     (["--optimizer", "adafactor"], "A.18"),
 ])
-def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys):
+def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys, tmp_path):
     """Unported flags raise naming their ROADMAP item; the flags of A.10
     (overlap), A.11 (hybrid plans), A.12 (a heterogeneous cluster's
     balanced, ragged partition) and A.14 (wire codecs: int8, and top-k with
     the EF carry over two microbatches) now train under the same flags, and those of
     A.13 (pipeline tails) meet the reference's outcomes: ``--pipeline auto``
     with ``--groups auto`` plans no tail for this BN stack and trains,
-    ``--pipeline 2`` without ``--groups auto`` is refused by the planner."""
+    ``--pipeline 2`` without ``--groups auto`` is refused by the planner.
+    A.15's flags run: ``--ckpt-dir`` (a fresh directory) saves the last
+    step, and ``--fault-schedule drop:1@2`` over 3 steps replans the 2x2
+    grid onto the three survivors."""
     from repro_torch.launch.train import main
 
     base = ["--device", "cpu", "--input-hw", "32", "--depth", "4", "--steps", "1", "--grid", "2"]
+    if item == "A.15":
+        if flags[0] == "--ckpt-dir":
+            assert main(base + ["--ckpt-dir", str(tmp_path / flags[1])]) == 0
+            assert "done: steps=1 restarts=0 replans=0" in capsys.readouterr().out
+            assert os.listdir(tmp_path / flags[1]) == ["step_00000000"]
+        else:
+            assert main(base + flags + ["--steps", "3"]) == 0
+            out = capsys.readouterr().out
+            assert "replan (drop:1): grid=1x3" in out and "done: steps=3 restarts=0 replans=1" in out
+        return
     if item == "A.13":
         if "auto" in flags:
             assert main(base + flags) == 0
