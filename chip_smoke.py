@@ -230,8 +230,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ...}`` line: checkpoint bytes and files, blocking save, the async save's
    snapshot and writer, restore with CRCs, replan and the first step after
    it, the median step on the 2x2 cluster and on 1x3, the peak after the
-   replan.  The ``{"kernels": ...}`` line's launches include phases 12's
-   to 18's.
+   replan;
+19. LM serving (``lm_serve_phase``): (d) B6 against its plain version at
+   the decode shapes - rows ``RMS_DECODE_ROWS`` (the slots) of Qwen2-7B's
+   and Mamba2-780m's widths, bf16 and fp32, the same bits on a rerun, each
+   shape naming its instance; (b) at full width, 2 layers, fp32: tokens
+   teacher-forced through ``decode_step`` against ``apply_lm``'s logits
+   (B4 or B5 on their SIMT instances, and B6) within ``DECODE_BAR``, and
+   planted faults this check must reject: for Qwen2 a K/V cache written one
+   row late, for Mamba2 a conv ring rolled one position and an SSM state
+   that is never written back; (c) a request admitted into a recycled slot
+   beside two active ones gives, bit for bit, the logits and tokens it
+   gives alone in the same 3-slot engine (ROADMAP C.8 repaired); (a, e) Qwen2-7B (28
+   layers) and Mamba2-780m (48 layers) at full width, bf16, seed-0 params,
+   served through ``ServeEngine``: ``LM_SERVE_REQUESTS`` prompts, greedy
+   ``LM_SERVE_NEW`` tokens each over ``LM_SERVE_SLOTS`` slots - every
+   request complete, finite logits, B6's launches the code's count (a
+   decode call's norms x the prefill tokens plus the ticks), no B4 or B5
+   launch; the ``{"lm_serve": ...}`` line per arch: tok/s, per-tick decode
+   ms on CUDA events and the host clock, a profiled tick's device time and
+   idle share, prefill ms per admitted request, peak memory, B6 launches by
+   instance; the serve launcher's LM mode (``python -m
+   repro_torch.launch.serve --arch <id>``) on the card.  The
+   ``{"kernels": ...}`` line's launches include phases 12's to 19's.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -536,6 +557,26 @@ ELASTIC_FAIL_FAULTS = "fail@2,ckpt-crash@1"
 ELASTIC_DROP_FAULTS = "drop:jetson@2"
 ELASTIC_LAUNCHER_FAULTS = "drop:jetson@1,slow:0.2@2,ckpt-crash@2,corrupt@3"
 ELASTIC_LM_SEQ, ELASTIC_LM_BATCH, ELASTIC_LM_ACCUM, ELASTIC_LM_STEPS = 256, 4, 2, 4
+
+# Phase 19: LM serving (``lm_serve_phase``).  The slot engine at full width
+# and full depth, bf16, seed-0 params: LM_SERVE_REQUESTS prompts of
+# LM_SERVE_PROMPT tokens (numpy's default_rng(SEED)), LM_SERVE_NEW greedy
+# tokens each over LM_SERVE_SLOTS slots, so slots recycle.  The checks at
+# full width and 2 layers in fp32 (the depth convention of LM_GRAD_DEPTH):
+# LM_SERVE_FORCED tokens teacher-forced through decode_step against the full
+# forward, at the reference's own bar (DECODE_BAR, tests/test_attention.py:
+# 94-96: the fp32 path sits far inside it, and the planted faults - a K/V
+# row written one row late, a conv ring rolled one position, an SSM state
+# never written back - land outside), and a request served beside others
+# against the same request alone, bit for bit (both runs have the same
+# 3-slot shapes, and each batch row is computed on its own).  B6 is held at
+# the decode shapes: rows = slots.
+LM_SERVE_ARCHS = ("qwen2-7b", "mamba2-780m")
+LM_SERVE_SLOTS, LM_SERVE_MAX_SEQ, LM_SERVE_REQUESTS, LM_SERVE_NEW = 4, 256, 8, 32
+LM_SERVE_PROMPT = (4, 64)                 # prompt lengths, inclusive
+LM_SERVE_FORCED = 64
+DECODE_BAR = dict(atol=2e-2, rtol=2e-2)
+RMS_DECODE_ROWS = (1, 4, 8)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3194,6 +3235,307 @@ def elastic_phase(dev, smi: str, held_b1: set, held_bwd: set, fwd_row, bwd_rows)
     return launches18, lm_launches18, fwd18, dgrad18, wgrad18
 
 
+def lm_serve_phase(dev, smi: str) -> int:
+    """Phase 19: LM serving on the card.  (d) B6 at the decode shapes against
+    its plain version, the same bits on a rerun; (b) at full width, 2
+    layers, fp32: LM_SERVE_FORCED tokens teacher-forced through
+    ``decode_step`` against ``apply_lm`` (B4 or B5, and B6) within
+    DECODE_BAR, and planted faults rejected (a KV cache written one row
+    late; a conv ring rolled one position, an SSM state never written
+    back); (c) at the same size, a request admitted into a recycled slot
+    beside two others gives the bits it gives alone; (a, e) Qwen2-7B and Mamba2-780m at full
+    width and depth, bf16, served through ``ServeEngine``: every request
+    complete, B6's launches the code's count, the ``{"lm_serve": ...}`` line;
+    the LM serve launcher on the card.  Returns B6's launches of the two
+    full-width serve drives."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.mamba2 as mamba_mod
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import reset_launches as reset_b4_launches
+    from repro_torch.kernels.rmsnorm.kernel import reset_launches as reset_b6_launches
+    from repro_torch.kernels.rmsnorm.kernel import rms_instance, rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd_chunk.kernel import reset_launches as reset_b5_launches
+    from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models.lm import apply_lm, layer_kind, lm_head_weight
+    from repro_torch.models.registry import bundle_from_cfg, load_config, with_depth
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    # -- (d) B6 at the decode shapes: rows = slots, (B, 1, D) as decode gives it
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    qwen, mamba = load_config("qwen2-7b"), load_config("mamba2-780m")
+    widths = (qwen.d_model, mamba.d_model, mamba.ssm.d_inner(mamba.d_model))
+    lib = getattr(F, "rms_norm", None)
+    rms_rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        tol = TOL_BF16 if dt == torch.bfloat16 else TOL_FP32
+        for d in widths:
+            for rows in RMS_DECODE_ROWS:
+                x = torch.randn((rows, 1, d), generator=gen, device=dev).to(dt)
+                sc = (1 + 0.1 * torch.randn((d,), generator=gen, device=dev)).to(dt)
+                instance = rms_instance(dt, dt, d, x.data_ptr() % 16 == 0 and sc.data_ptr() % 16 == 0)
+                before = rmsnorm.launches_by_instance[instance]
+                got, again, want = rmsnorm(x, sc), rmsnorm(x, sc), rmsnorm_ref(x, sc)
+                torch.cuda.synchronize()
+                check(rmsnorm.launches_by_instance[instance] == before + 2,
+                      f"B6 ({rows}, 1, {d}) {dt}: not {instance}")
+                err, ratio = err_stats(got, want, **tol)
+                check(ratio <= 1.0, f"B6 decode ({rows}, 1, {d}) {dt} ({instance}): max err {err} "
+                                    f"over tolerance {tol}")
+                check(torch.equal(got, again), f"B6 decode ({rows}, 1, {d}) {dt}: other bits on a rerun")
+                nbytes = 2 * x.numel() * x.element_size() + sc.numel() * sc.element_size()
+                b_ms, b_by = bound(4 * x.numel(), nbytes)
+                row = dict(shape=[rows, 1, d], dtype=str(dt), instance=instance, max_abs_err=err,
+                           err_ratio=ratio, ms=time_ms(lambda: rmsnorm(x, sc)),
+                           plain_ms=time_ms(lambda: rmsnorm_ref(x, sc)),
+                           library_ms=None if lib is None else time_ms(lambda: lib(x, (d,), sc, 1e-6)),
+                           device_ms=graph_ms(lambda: rmsnorm(x, sc)), bound_ms=b_ms, bound_by=b_by)
+                rms_rows.append(row)
+                print(f"  B6 decode {row['shape']} {dt} ({instance}): err {err:.2e} ({ratio:.3f} of "
+                      f"tol), same bits on a rerun; kernel {row['ms']:.4f} ms (device "
+                      f"{row['device_ms']:.4f}) plain {row['plain_ms']:.4f} F.rms_norm "
+                      f"{row['library_ms']} bound {b_ms:.6f} ({b_by})")
+    print(json.dumps({"rmsnorm_decode_shapes": rms_rows}))
+
+    # -- (b, c) full width, 2 layers, fp32 ----------------------------------------
+    def late(pos, s, ring):          # the planted fault: each K/V row one row late
+        return (pos + 1) % s if ring else torch.clamp(pos + 1, max=s - 1)
+
+    real_mamba_decode = mamba_mod.mamba_decode
+
+    def ring_rolled(params, u, state, cfg):      # the conv ring one position out
+        out, state = real_mamba_decode(params, u, state, cfg)
+        state.conv.copy_(torch.roll(state.conv, 1, dims=1))
+        return out, state
+
+    def ssm_stale(params, u, state, cfg):        # the SSM state never written back
+        old = state.ssm.clone()
+        out, state = real_mamba_decode(params, u, state, cfg)
+        state.ssm.copy_(old)
+        return out, state
+
+    def forced(cfg, arch, params, tokens):
+        """(max err, ratio to DECODE_BAR) of decode_step's logits against
+        apply_lm's, token by token."""
+        head = lm_head_weight(params, cfg).to(cfg.act_dtype)
+        full = (apply_lm(params, tokens, cfg) @ head.T).float()
+        caches = arch.make_caches(tokens.shape[0], tokens.shape[1])
+        dec = torch.stack([arch.decode_fn(params, tokens[:, t:t + 1], caches)[0][:, 0]
+                           for t in range(tokens.shape[1])], 1)
+        return err_stats(dec, full, **DECODE_BAR)
+
+    def served_logits(arch, params, reqs, target):
+        """The target request's logits at each of its ticks and its answer,
+        from a 3-slot engine serving ``reqs`` ((rid, prompt, new) triples)."""
+        eng = ServeEngine(arch, params, batch=3, max_seq=LM_SERVE_FORCED)
+        seen = []
+        real = engine_mod.sample_logits
+
+        def record(logits, generator, temperature):
+            slot = [i for i, r in enumerate(eng.slots) if r is not None and r.rid == target]
+            if slot:
+                seen.append(logits[slot[0], -1].clone())
+            return real(logits, generator, temperature)
+
+        with swapped((engine_mod, "sample_logits", record)):
+            for rid, p, n in reqs:
+                eng.submit(Request(rid=rid, prompt=p, max_new_tokens=n))
+            done = {r.rid: r for r in eng.run()}
+        return torch.stack(seen), done[target].out_tokens
+
+    checks = {}
+    rng = np.random.default_rng(SEED + 19)
+    for name in LM_SERVE_ARCHS:
+        cfg = dataclasses.replace(with_depth(load_config(name), LM_GRAD_DEPTH), dtype="float32",
+                                  param_dtype="float32")
+        arch = bundle_from_cfg(cfg, dev)
+        params = arch.init(SEED)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, LM_SERVE_FORCED))).to(dev)
+        with torch.no_grad():
+            reset_b4_launches()
+            reset_b5_launches()
+            err, ratio = forced(cfg, arch, params, tokens)
+            kernels = {k: v for f in (flash_attention_fwd, ssd_chunk_fwd)
+                       for k, v in f.launches_by_instance.items() if v}
+            out = dict(decode_vs_forward_err=err, decode_vs_forward_ratio=ratio,
+                       forward_kernels=kernels)
+            print(f"{name} (full width, {LM_GRAD_DEPTH} layers, fp32): {LM_SERVE_FORCED} tokens "
+                  f"teacher-forced through decode_step vs apply_lm ({kernels}): max err {err:.3e}, "
+                  f"{ratio:.4f} of the bar {DECODE_BAR}")
+            check(ratio <= 1.0, f"{name} decode vs the full forward: {err} over {DECODE_BAR}")
+            check(kernels and all(k.startswith("simt_fp32") for k in kernels),
+                  f"{name} fp32 forward: kernels {kernels}")
+            faults = ({"late_row": (attn_mod, "_write_slot", late)} if cfg.ssm is None else
+                      {"conv_ring_rolled": (mamba_mod, "mamba_decode", ring_rolled),
+                       "ssm_state_stale": (mamba_mod, "mamba_decode", ssm_stale)})
+            for fault, swap in faults.items():
+                with swapped(swap):
+                    f_err, f_ratio = forced(cfg, arch, params, tokens)
+                out.update({f"planted_{fault}_err": f_err, f"planted_{fault}_ratio": f_ratio})
+                print(f"planted fault ({fault}): max err {f_err:.3e}, {f_ratio:.1f}x the bar")
+                check(f_ratio > 1.0, f"{name}: the decode check passed the planted fault {fault} "
+                                     f"({f_err})")
+            # (c) a request admitted into a recycled slot beside two others, and alone
+            p = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (5, 9, 7, 11)]
+            beside = [(0, p[0], 3), (1, p[1], 12), (2, p[2], 12), (3, p[3], 8)]
+            got, got_toks = served_logits(arch, params, beside, 3)
+            want, want_toks = served_logits(arch, params, [(3, p[3], 8)], 3)
+            same = got.shape == want.shape == (8, cfg.vocab) and bool(torch.equal(got, want))
+            c_err = float((got - want).abs().max()) if got.shape == want.shape else float("nan")
+            out.update(beside_vs_alone_err=c_err, beside_vs_alone_same_bits=same,
+                       beside_vs_alone_same_tokens=got_toks == want_toks)
+            print(f"{name}: a request admitted into a recycled slot beside two others vs alone: "
+                  f"logits {'the same bits' if same else f'differ by up to {c_err:.3e}'}, tokens "
+                  f"{'equal' if got_toks == want_toks else 'differ'}")
+            check(same and got_toks == want_toks,
+                  f"{name}: the request's logits or tokens depend on the other slots ({c_err})")
+        checks[name] = out
+        del arch, params, tokens
+        torch.cuda.empty_cache()
+    print(json.dumps({"lm_decode_checks": checks}))
+
+    # -- (a, e) full width and depth, bf16: the serving path --------------------------
+    b6_launches = 0
+    for name in LM_SERVE_ARCHS:
+        cfg = load_config(name)
+        arch = bundle_from_cfg(cfg, dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = arch.init(SEED)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        # init holds every layer's tensors beside their stacked copy: its peak
+        # is the init's, not the server's
+        init_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rng = np.random.default_rng(SEED)
+        lo, hi = LM_SERVE_PROMPT
+        prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(lo, hi + 1))).astype(np.int32)
+                   for _ in range(LM_SERVE_REQUESTS)]
+        eng = ServeEngine(arch, params, batch=LM_SERVE_SLOTS, max_seq=LM_SERVE_MAX_SEQ)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=LM_SERVE_NEW))
+        finite = []
+        real = engine_mod.sample_logits
+
+        def finite_sample(logits, generator, temperature):
+            finite.append(torch.isfinite(logits).all())
+            return real(logits, generator, temperature)
+
+        prefill_ms, tick_ev, tick_host = [], [], []
+        torch.cuda.synchronize()
+        reset_b4_launches()
+        reset_b5_launches()
+        reset_b6_launches()
+        t_start = time.perf_counter()
+        with swapped((engine_mod, "sample_logits", finite_sample)):
+            while eng.queue or any(r is not None for r in eng.slots):
+                n0, t0 = eng.prefill_calls, time.perf_counter()
+                eng._admit()
+                if eng.prefill_calls > n0:
+                    torch.cuda.synchronize()
+                    prefill_ms.append(((time.perf_counter() - t0) * 1e3, eng.prefill_calls - n0))
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                h0 = time.perf_counter()
+                eng.tick()                       # reads the sampled tokens back: synchronised
+                tick_host.append((time.perf_counter() - h0) * 1e3)
+                b.record()
+                b.synchronize()
+                tick_ev.append(a.elapsed_time(b))
+        wall_s = time.perf_counter() - t_start
+        launches = rmsnorm.launches
+        by_instance = {k: v for k, v in rmsnorm.launches_by_instance.items() if v}
+        others = flash_attention_fwd.launches + ssd_chunk_fwd.launches
+        b6_launches += launches
+        done = eng._finished
+        per_call = sum(1 + (layer_kind(cfg, i).mixer == "mamba")
+                       + (cfg.d_ff > 0 and not cfg.parallel_block)
+                       for i in range(cfg.n_layers)) + 1
+        want = per_call * (eng.prefill_tokens + eng.decode_calls)
+        toks = sum(len(r.out_tokens) for r in done)
+        print(f"{name} serve: {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, {len(done)} "
+              f"requests, {toks} tokens in {wall_s:.2f} s ({toks / wall_s:.1f} tok/s), "
+              f"{eng.decode_calls} ticks, {eng.prefill_tokens} prefill tokens; B6 launches "
+              f"{launches} by instance {by_instance} (the code's count {per_call} a call x "
+              f"{eng.prefill_tokens + eng.decode_calls} calls = {want})")
+        check(sorted(r.rid for r in done) == list(range(LM_SERVE_REQUESTS))
+              and all(len(r.out_tokens) == LM_SERVE_NEW for r in done),
+              f"{name}: requests {[(r.rid, len(r.out_tokens)) for r in done]}")
+        check(not eng.queue and eng.slots == [None] * LM_SERVE_SLOTS, f"{name}: engine not drained")
+        check(all(0 <= t < cfg.vocab for r in done for t in r.out_tokens), f"{name}: token ids")
+        check(bool(torch.stack(finite).all()), f"{name}: non-finite logits")
+        check(eng.prefill_calls == LM_SERVE_REQUESTS
+              and eng.prefill_tokens == sum(len(p) - 1 for p in prompts)
+              and eng.decode_calls == len(tick_ev), f"{name}: engine counters")
+        check(launches == want and sum(by_instance.values()) == launches,
+              f"{name}: B6 launches {launches} ({by_instance}) != the code's {want}")
+        check(others == 0, f"{name}: decode launched B4/B5 {others} times")
+        peak = torch.cuda.max_memory_allocated(dev)
+        drive = {"requests": len(done), "prompt_tokens": sum(len(p) for p in prompts),
+                 "new_tokens": toks, "ticks": eng.decode_calls,
+                 "prefill_calls": eng.prefill_calls, "prefill_tokens": eng.prefill_tokens,
+                 "wall_s": wall_s, "tokens_per_s": toks / wall_s}
+
+        # one profiled window of ticks with every slot busy
+        for rid, p in enumerate(prompts[:LM_SERVE_SLOTS]):
+            eng.submit(Request(rid=100 + rid, prompt=p[:8], max_new_tokens=8))
+        eng._admit()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(4):
+                eng.tick()
+            torch.cuda.synchronize()
+            prof_tick_ms = (time.perf_counter() - t0) * 1e3 / 4
+        by_name = device_ms_by_name(prof, 4)
+        dev_ms = sum(by_name.values())
+        check(dev_ms > 0, f"{name}: the profiler saw no device time in a tick")
+        b6_ms = sum(v for k, v in by_name.items() if LM_KERNEL_TRACE_NAMES["rmsnorm"] in k)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+
+        def spread(v):
+            return {"median": statistics.median(v), "mean": statistics.fmean(v), "min": min(v),
+                    "max": max(v), "n": len(v)}
+
+        print(json.dumps({"lm_serve": {name: {
+            "layers": cfg.n_layers, "params": n_params, "dtype": cfg.dtype,
+            "slots": LM_SERVE_SLOTS, "max_seq": LM_SERVE_MAX_SEQ, **drive,
+            "tick_ms_cuda_events": spread(tick_ev), "tick_ms_host": spread(tick_host),
+            # each admission round: its ms over the requests it admitted
+            "prefill_ms_per_request": [ms / n for ms, n in prefill_ms],
+            "prefill_ms_per_token": sum(ms for ms, _ in prefill_ms)
+            / max(1, drive["prefill_tokens"]),
+            "profiled_tick": {"wall_ms": prof_tick_ms, "device_ms": dev_ms, "b6_ms": b6_ms,
+                              "idle_share": max(0.0, 1 - dev_ms / prof_tick_ms),
+                              # against the unprofiled ticks (CUDA events, median of the drive)
+                              "idle_share_vs_event_tick":
+                                  max(0.0, 1 - dev_ms / statistics.median(tick_ev)),
+                              "top": [[k[:80], v] for k, v in top]},
+            "peak_mem_bytes": peak, "init_peak_mem_bytes": init_peak, "b6_launches": launches, "b6_launches_expected": want,
+            "b6_launches_by_instance": by_instance, "card": smi,
+        }}}))
+        del eng, params, arch, prof
+        torch.cuda.empty_cache()
+
+    # the launcher's LM mode on the card (the reduced configs, as the reference's)
+    for name in LM_SERVE_ARCHS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_launcher.main(["--arch", name, "--requests", "8"])
+        print(buf.getvalue(), end="")
+        check(rc == 0 and "served 8 requests, 128 tokens" in buf.getvalue()
+              and "on cuda" in buf.getvalue(), f"LM serve launcher --arch {name}")
+    return b6_launches
+
+
 def main() -> int:
     import torch
 
@@ -4199,6 +4541,9 @@ def main() -> int:
     wgrad_err = max([wgrad_err] + [r["max_abs_err"] for r in wgrad18])
     auto_launches = {k: v + launches18[k] for k, v in auto_launches.items()}
 
+    # -- 19. LM serving ------------------------------------------------------------
+    b6_serve = lm_serve_phase(dev, smi)
+
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",
                      "src/repro/kernels/conv2d_tiled/kernel.py:140", rows,
@@ -4220,7 +4565,8 @@ def main() -> int:
                      lm_launches["flash_attention_fwd"] + lm18["flash_attention_fwd"], fa_err),
         kernel_entry("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                      "src/repro/kernels/rmsnorm/kernel.py:42", rms_rows[:1],
-                     lm_launches["rmsnorm"] + mamba_launches["rmsnorm"] + lm18["rmsnorm"],
+                     lm_launches["rmsnorm"] + mamba_launches["rmsnorm"] + lm18["rmsnorm"]
+                     + b6_serve,
                      rms_err),
         kernel_entry("ssd_chunk_fwd", "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk_fwd.cu",
                      "src/repro/kernels/ssd_chunk/kernel.py:98", ssd_rows[:1],

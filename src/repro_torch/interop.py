@@ -7,6 +7,10 @@ over here.  The layout needs no change: both packages keep HWIO filters and
 per-channel vectors, under the same keys.  ``lm_params_from_jax`` does the
 same for an LM param tree (``repro.models.lm.init_lm``): nested dicts and
 lists, the segments' leaves stacked over their repeats, key for key.
+``lm_caches_from_jax`` converts a JAX decode-cache list
+(``repro.models.lm.init_caches``: ``KVCache`` and ``MambaState`` tuples of
+numpy arrays) into the port's caches, so that parity tests start both
+packages from the same non-empty caches.
 """
 from __future__ import annotations
 
@@ -59,3 +63,26 @@ def lm_params_from_jax(tree, device: str | torch.device = "cuda"):
         return _to_tensor(t, device)
 
     return conv(tree)
+
+
+def lm_caches_from_jax(caches, device: str | torch.device = "cuda") -> list:
+    """A JAX cache list (one ``KVCache(k, v, lengths)`` or ``MambaState(ssm,
+    conv, length)`` per layer, leaves already numpy) -> the port's caches on
+    ``device``: the same tensors, and a ``MambaState``'s scalar length
+    broadcast to the port's one per slot."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.mamba2 import MambaState
+
+    device = resolve_device(device)
+    out = []
+    for i, c in enumerate(caches):
+        fields = getattr(c, "_fields", None)
+        if fields == KVCache._fields:
+            out.append(KVCache(*(_to_tensor(t, device) for t in c)))
+        elif fields == MambaState._fields:
+            ssm, conv = _to_tensor(c.ssm, device), _to_tensor(c.conv, device)
+            length = np.broadcast_to(np.asarray(c.length, np.int32), (ssm.shape[0],))
+            out.append(MambaState(ssm, conv, _to_tensor(length, device)))
+        else:
+            raise TypeError(f"layer {i}: not a KVCache or MambaState: {type(c).__name__} {fields}")
+    return out

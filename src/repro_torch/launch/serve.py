@@ -1,6 +1,16 @@
-"""Serving launcher: ``python -m repro_torch.launch.serve --cnn [...]``.
+"""Serving launcher: ``python -m repro_torch.launch.serve [--cnn] [...]``
+(``repro/launch/serve.py``).  Both modes run on the card unless
+``--device cpu`` is given.
 
-The ``--cnn`` mode of ``repro/launch/serve.py``: builds a YOLOv2-prefix
+LM (default): the slot engine (``serve/engine.py``) on the reduced config
+of ``--arch``, as the reference's ``_lm_main``: seeded params, ``--requests``
+synthetic prompts of 4-11 tokens, greedy (or ``--temperature``) answers of
+``--max-new`` tokens over ``--slots`` slots; prints each request's first
+tokens and the tokens per second.  The reference's default ``--arch`` is
+``stablelm-1.6b``, which the port does not register yet (ROADMAP A.18.2:
+it raises so); the port's default is ``qwen2-7b``.
+
+``--cnn``: builds a YOLOv2-prefix
 plan over an n x m virtual tile grid (``--groups auto``: the cost model's
 grouping on ``--hw`` at the largest bucket; ``--schedule overlap`` the overlap
 executor; ``--crossover auto|N`` a hybrid plan, whose every bucket must divide
@@ -11,9 +21,7 @@ one CUDA graph captured per bucket; on the CPU the eager step), then drives
 a synthetic image workload through ``runtime.driver.run_serving`` and prints
 latency percentiles, throughput, bucket census, cache counters and the
 captured graphs' replays.  The
-deadline policy plans with the cost model's step bound on ``--hw``.  It runs
-on the card unless ``--device cpu`` is given.  LM serving is later work
-(ROADMAP A.18).
+deadline policy plans with the cost model's step bound on ``--hw``.
 """
 from __future__ import annotations
 
@@ -22,6 +30,33 @@ import json
 import time
 
 import numpy as np
+
+from repro_torch.models.registry import ARCH_IDS
+
+
+def _lm_main(args) -> int:
+    from repro_torch.models.registry import get_arch
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    arch = get_arch(args.arch, reduced=True, device=args.device)
+    params = arch.init(args.seed)
+    engine = ServeEngine(arch, params, batch=args.slots, max_seq=args.max_seq,
+                         temperature=args.temperature, seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    for rid in range(args.requests):
+        plen = int(rng.integers(4, 12))
+        prompt = rng.integers(0, arch.cfg.vocab, size=plen).astype(np.int32)
+        engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=args.max_new))
+
+    t0 = time.monotonic()
+    done = engine.run(max_ticks=args.requests * (args.max_new + 16))
+    dt = time.monotonic() - t0
+    toks = sum(len(r.out_tokens) for r in done)
+    for r in sorted(done, key=lambda r: r.rid):
+        print(f"req {r.rid}: prompt_len={len(r.prompt)} out={r.out_tokens[:8]}...")
+    print(f"served {len(done)} requests, {toks} tokens in {dt:.2f}s ({toks/dt:.1f} tok/s) "
+          f"on {arch.device}")
+    return 0
 
 
 def _cnn_main(args) -> int:
@@ -87,14 +122,21 @@ def _cnn_main(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--cnn", action="store_true",
-                    help="tiled-CNN image serving (the only mode the port has)")
+                    help="tiled-CNN image serving instead of the LM engine")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-7b",
+                    help="LM: 'qwen2-7b' or 'mamba2-780m' (the other ids name their ROADMAP item)")
     ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    # --cnn mode
     ap.add_argument("--grid", default="2x2", help="tile grid n x m")
     ap.add_argument("--depth", type=int, default=6, help="YOLOv2 prefix depth")
     ap.add_argument("--size", type=int, default=64, help="input H=W")
     ap.add_argument("--backend", choices=("torch", "cuda"), default="cuda")
-    ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     ap.add_argument("--schedule", choices=("sync", "overlap"), default="sync")
     ap.add_argument("--groups", choices=("none", "auto"), default="none")
     ap.add_argument("--crossover", default=None,
@@ -106,11 +148,9 @@ def main(argv=None) -> int:
     ap.add_argument("--budget-ms", type=float, default=1000.0)
     ap.add_argument("--ticks", type=int, default=16)
     args = ap.parse_args(argv)
-    if not args.cnn:
-        ap.error("only --cnn serving is ported; LM serving is ROADMAP A.18")
     if args.crossover is not None and args.crossover != "auto":
         args.crossover = int(args.crossover)
-    return _cnn_main(args)
+    return _cnn_main(args) if args.cnn else _lm_main(args)
 
 
 if __name__ == "__main__":

@@ -8,13 +8,19 @@ mode, naive below 2048 keys and blocked streaming above.  ``_sdpa_blocked``
 is also the op's backward.  The reference's mesh constraints are identities
 on one device and are left out.
 
-Not ported yet: MLA (DeepSeek), ``kv_override`` cross-attention (Whisper),
-M-RoPE (Qwen2-VL) and the decode path (``KVCache``, ``decode_attention``) -
-each raises naming ROADMAP A.18.
+``KVCache`` and ``decode_attention`` are the serving path's one-token
+step: the cache is preallocated ``(B, S, Hkv, Dh)`` tensors plus per-slot
+``lengths``, written in place, so every index stays on the device.  The
+decode scores go through the plain ``_sdpa`` (naive at one query), as the
+reference's go through XLA.
+
+Not ported yet: MLA (DeepSeek: A.18.4), ``kv_override`` cross-attention
+(Whisper: A.18.6), M-RoPE (Qwen2-VL: A.18.5) and the sequence-sharded
+decode (A.18.8) - each raises naming its ROADMAP item.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -257,10 +263,78 @@ def attention(
     return y
 
 
-def decode_attention(*_a, **_k):
-    raise NotImplementedError("cached decode attention (LM serving): ROADMAP A.18")
+# ---------------------------------------------------------------------------
+# KV cache + single-token decode
+# ---------------------------------------------------------------------------
 
 
-class KVCache:
-    def __init__(self, *_a, **_k):
-        raise NotImplementedError("KV caches (LM serving): ROADMAP A.18")
+class KVCache(NamedTuple):
+    """Standard GQA cache.  k/v: (B, S, Hkv, Dh) in the activation type;
+    lengths: (B,) int32, per slot.  ``decode_attention`` writes the three
+    tensors in place; ``slot(i)`` is a batch-1 view of slot ``i`` whose
+    writes land in these tensors."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor
+
+    @classmethod
+    def init(cls, b, s, hkv, dh, dtype, device="cpu"):
+        return cls(
+            torch.zeros((b, s, hkv, dh), dtype=dtype, device=device),
+            torch.zeros((b, s, hkv, dh), dtype=dtype, device=device),
+            torch.zeros((b,), dtype=torch.int32, device=device),
+        )
+
+    def slot(self, i: int) -> "KVCache":
+        return KVCache(*(t[i:i + 1] for t in self))
+
+
+def _write_slot(pos: torch.Tensor, s: int, ring: bool) -> torch.Tensor:
+    """The cache row a token at position ``pos`` goes to: the ring slot of a
+    sliding window, else the position clamped to the last row."""
+    return pos % s if ring else torch.clamp(pos, max=s - 1)
+
+
+def decode_attention(
+    params: dict,
+    x: torch.Tensor,              # (B, 1, D)
+    cache: KVCache,
+    cfg: ModelConfig,
+    *,
+    window: Optional[int] = None,
+    seq_sharded: bool = False,
+) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode, as the reference's.  Writes the new K/V row and
+    advances ``lengths`` in place."""
+    if cfg.mla is not None:
+        raise NotImplementedError("MLA decode (DeepSeek-V3): ROADMAP A.18.4")
+    if seq_sharded:
+        raise NotImplementedError("sequence-sharded decode (flash-decode): ROADMAP A.18.8")
+    b = x.shape[0]
+    pos = cache.lengths.long()                     # (B,) per-slot positions
+    positions = pos[:, None]
+    q, k_new, v_new = _qkv(params, x, cfg)
+    q, k_new = _rope_qk(q, k_new, positions, cfg)
+    s = cache.k.shape[1]
+    ring = window is not None and s <= window
+    slot = _write_slot(pos, s, ring)
+    bidx = torch.arange(b, device=x.device)
+    for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+        buf.index_put_((bidx, slot), new[:, 0].to(buf.dtype))
+    row = torch.arange(s, device=x.device)[None]   # (1, S)
+    if ring:
+        # absolute position of each ring slot, per batch row
+        wrap = ((pos // s) * s)[:, None]
+        kpos = torch.where(row <= (pos % s)[:, None], wrap + row, wrap - s + row)
+    else:
+        kpos = row.expand(b, s)
+    # kpos >= 0 excludes never-written ring slots: without it the zero keys
+    # count as valid at early positions and dilute the softmax denominator
+    valid = (kpos <= positions) & (kpos >= 0)
+    out = _sdpa(q, cache.k, cache.v, positions, kpos, causal=True, window=window, k_valid=valid)
+    y = torch.einsum("bthe,hed->btd", out, params["w_o"])
+    if cfg.attn_out_bias:
+        y = y + params["b_o"]
+    cache.lengths.add_(1)
+    return y, cache

@@ -16,8 +16,14 @@ left out.
 Losses: token-chunked cross-entropy (each chunk checkpointed, so peak
 memory is chunk x vocab, not tokens x vocab).  A layer's mixer is attention
 (``models/attention.py``) or a Mamba2 block (``models/mamba2.py``).  MoE
-layers and their aux loss, MTP heads, VLM patch embeddings, ``remat="dots"``
-and the serving path (caches, ``decode_step``) raise naming ROADMAP A.18.
+layers and their aux loss, MTP heads, VLM patch embeddings and
+``remat="dots"`` raise naming ROADMAP A.18.
+
+Serving: ``init_caches`` (one ``KVCache`` or ``MambaState`` per layer,
+preallocated), ``decode_step`` (one token per slot in, fp32 logits out, the
+caches written in place) and ``prefill``, which, as the reference's, runs
+the full forward for the last position's logits and hands back the caches
+it was given untouched (no engine calls it: ROADMAP C).
 """
 from __future__ import annotations
 
@@ -32,7 +38,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.attention import KVCache
 from repro_torch.models.common import apply_norm, embed_init, init_norm
+from repro_torch.models.mamba2 import MambaState
 from repro_torch.optim.optimizers import tree_map
 
 
@@ -299,9 +307,75 @@ def lm_loss(
     return chunked_cross_entropy(hidden, head, batch["labels"], chunk=ce_chunk, unroll=unroll)
 
 
-def init_caches(*_a, **_k):
-    raise NotImplementedError("LM serving caches: ROADMAP A.18")
+# ---------------------------------------------------------------------------
+# Serving: prefill + single-token decode with per-layer caches
+# ---------------------------------------------------------------------------
 
 
-def decode_step(*_a, **_k):
-    raise NotImplementedError("LM serving decode_step: ROADMAP A.18")
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype, device="cpu") -> list:
+    """One cache entry per layer, zeroed, on ``device`` (``"meta"``
+    allocates nothing)."""
+    caches = []
+    for i in range(cfg.n_layers):
+        kind = layer_kind(cfg, i)
+        if kind.mixer == "mamba":
+            caches.append(MambaState.init(batch, cfg, dtype, device))
+        elif cfg.mla is not None:
+            raise NotImplementedError("MLA caches (DeepSeek-V3): ROADMAP A.18.4")
+        else:
+            s = min(max_seq, cfg.swa_window) if kind.swa else max_seq
+            caches.append(KVCache.init(batch, s, cfg.n_kv_heads, cfg.resolved_head_dim, dtype,
+                                       device))
+    return caches
+
+
+def _decode_layer(p, kind: LayerKind, x, cache, cfg: ModelConfig, seq_sharded: bool):
+    """One layer of ``decode_step``; ``cache`` is written in place."""
+    _check_supported(kind)
+    h = apply_norm(cfg.norm, x, p["norm1"])
+    if kind.mixer == "attn":
+        window = cfg.swa_window if kind.swa else None
+        mix, _ = attn_mod.decode_attention(
+            p["attn"], h, cache, cfg, window=window, seq_sharded=seq_sharded)
+    else:
+        mix, _ = mamba_mod.mamba_decode(p["mamba"], h, cache, cfg)
+    if cfg.parallel_block:
+        ff = mlp_mod.mlp(p["mlp"], h, cfg.act) if "mlp" in p else 0.0
+        return x + mix + ff
+    x = x + mix
+    if "mlp" in p:
+        x = x + mlp_mod.mlp(p["mlp"], apply_norm(cfg.norm, x, p["norm2"]), cfg.act)
+    return x
+
+
+def decode_step(
+    params: dict,
+    token: torch.Tensor,          # (B, 1) int
+    caches: list,
+    cfg: ModelConfig,
+    *,
+    seq_sharded_cache: bool = False,
+) -> tuple[torch.Tensor, list]:
+    """One token in, next-token logits (B, 1, V) in fp32 out.  A Python loop
+    over the layers keeps the caches per layer; each is written in place,
+    and the list comes back as given."""
+    x = F.embedding(token.long(), params["embed"]).to(cfg.act_dtype)
+    li = 0
+    for seg, seg_p in zip(plan_segments(cfg), params["segments"]):
+        for block_p in _unbind(seg_p, seg.repeats):
+            for j, kind in enumerate(seg.block):
+                x = _decode_layer(block_p[j], kind, x, caches[li], cfg, seq_sharded_cache)
+                li += 1
+    x = apply_norm(cfg.norm, x, params["final_norm"])
+    logits = (x @ lm_head_weight(params, cfg).to(cfg.act_dtype).T).float()
+    return logits, caches
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            caches: list) -> tuple[torch.Tensor, list]:
+    """The reference's prefill: the full forward (B4 or B5, and B6) for the
+    last position's fp32 logits (B, 1, V).  Like the reference's, it writes
+    nothing into ``caches`` and returns them as given."""
+    hidden = apply_lm(params, tokens, cfg)
+    logits = (hidden[:, -1:] @ lm_head_weight(params, cfg).to(cfg.act_dtype).T).float()
+    return logits, caches

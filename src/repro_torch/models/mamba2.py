@@ -11,13 +11,16 @@ backward path); like the reference's it requires T % chunk == 0.  Both mask
 the decay's exponent before ``exp`` (``kernels/ssd_chunk/ref.py``), so their
 gradients stay finite where the reference's overflow (ROADMAP C.1).
 
-Not here yet: the sequence-sharded scan (``seq_axis``; ``parallel/``) and
-the decode path (``MambaState``, ``mamba_decode``; LM serving) - both raise
-naming ROADMAP A.18.
+Decode: ``mamba_decode`` is the O(1) step - the state is the cache
+(``MambaState``: the fp32 SSM state, the conv ring and a per-slot length),
+updated in place.
+
+Not here yet: the sequence-sharded scan (``seq_axis``; ``parallel/``),
+which raises naming ROADMAP A.18.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -75,15 +78,30 @@ def _ssd_chunk_scan(
     return ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
 
 
-class MambaState:
-    """Decode cache (SSM state + conv ring): LM serving, ROADMAP A.18."""
+class MambaState(NamedTuple):
+    """Decode cache: SSM state (B, H, N, P) in fp32 (fp64 in an fp64 model),
+    conv ring (B, K-1, conv_dim) in the activation type, and ``length``.
+    The reference keeps one scalar length for the whole batch; here it is
+    (B,) int32, one per slot, so that a slot is reset and viewed alone
+    (``slot(i)``: a batch-1 view whose writes land in these tensors)."""
 
-    def __init__(self, *_a, **_k):
-        raise NotImplementedError("Mamba2 decode cache (LM serving): ROADMAP A.18")
+    ssm: torch.Tensor
+    conv: torch.Tensor
+    length: torch.Tensor
 
     @classmethod
-    def init(cls, *_a, **_k):
-        return cls()
+    def init(cls, b, cfg: ModelConfig, dtype, device="cpu"):
+        s, d_in, nh = _dims(cfg)
+        conv_dim = d_in + 2 * s.n_groups * s.d_state
+        return cls(
+            torch.zeros((b, nh, s.d_state, s.head_dim),
+                        dtype=torch.promote_types(dtype, torch.float32), device=device),
+            torch.zeros((b, s.d_conv - 1, conv_dim), dtype=dtype, device=device),
+            torch.zeros((b,), dtype=torch.int32, device=device),
+        )
+
+    def slot(self, i: int) -> "MambaState":
+        return MambaState(*(t[i:i + 1] for t in self))
 
 
 def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
@@ -123,5 +141,45 @@ def mamba_block(
     return y @ params["w_out"]
 
 
-def mamba_decode(*_a, **_k):
-    raise NotImplementedError("Mamba2 O(1) decode step (LM serving): ROADMAP A.18")
+def mamba_decode(
+    params: dict,
+    u: torch.Tensor,             # (B, 1, D)
+    state: MambaState,
+    cfg: ModelConfig,
+) -> tuple[torch.Tensor, MambaState]:
+    """O(1) single-token step, as the reference's.  Updates the state in
+    place.  The one decay here, ``exp(dt * A)``, has a non-positive exponent
+    (dt >= 0, A < 0), so it needs no mask: C.1's overflow comes from the
+    chunked form's upper triangle, which the recurrence never forms."""
+    s, d_in, nh = _dims(cfg)
+    b = u.shape[0]
+    acc = torch.promote_types(u.dtype, torch.float32)
+    proj = (u @ params["w_in"])[:, 0]                   # (B, in_dim)
+    z, x, Bm, Cm, dt = _split_proj(proj, cfg)
+    xbc = torch.cat([x, Bm, Cm], dim=-1)                # (B, conv_dim)
+    # a new tensor: the ring's shift below reads it, never the buffer it writes
+    window = torch.cat([state.conv, xbc[:, None].to(state.conv.dtype)], dim=1)   # (B, K, conv_dim)
+    conv_out = torch.einsum("bkc,kc->bc", window, params["conv_w"]) + params["conv_b"]
+    conv_out = F.silu(conv_out)
+    gn = s.n_groups * s.d_state
+    x, Bm, Cm = torch.split(conv_out, [d_in, gn, gn], dim=-1)
+    x = x.reshape(b, nh, s.head_dim)
+    Bm = Bm.reshape(b, s.n_groups, s.d_state)
+    Cm = Cm.reshape(b, s.n_groups, s.d_state)
+    rep = nh // s.n_groups
+    Bh = torch.repeat_interleave(Bm, rep, dim=1)        # (B, H, N)
+    Ch = torch.repeat_interleave(Cm, rep, dim=1)
+    dtf = F.softplus(dt.to(acc) + params["dt_bias"])   # (B, H)
+    A = -torch.exp(params["A_log"])
+    a = torch.exp(dtf * A)                              # (B, H)
+    upd = dtf[..., None, None] * Bh[..., :, None].to(acc) * x[..., None, :].to(acc)
+    ssm = a[..., None, None] * state.ssm + upd          # (B, H, N, P)
+    y = torch.einsum("bhn,bhnp->bhp", Ch.to(acc), ssm)
+    y = y + x.to(acc) * params["D"][:, None]
+    y = y.reshape(b, 1, d_in).to(u.dtype)
+    y = rms_norm(y * F.silu(z[:, None]), params["norm_scale"])
+    out = y @ params["w_out"]
+    state.ssm.copy_(ssm)
+    state.conv.copy_(window[:, 1:])
+    state.length.add_(1)
+    return out, state

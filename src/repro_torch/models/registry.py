@@ -2,10 +2,12 @@
 (``repro/models/registry.py``).
 
 Only the configs the port can run resolve: ``qwen2-7b`` (dense GQA) and
-``mamba2-780m`` (SSD).  Every other id of the reference raises naming
-ROADMAP A.18.  A bundle's
-``init(seed)`` draws its params on the bundle's device; ``decode_fn`` and
-``make_caches`` (LM serving) raise, as the next slices port them.
+``mamba2-780m`` (SSD).  Every other id of the reference raises naming its
+ROADMAP A.18 item (``ROADMAP_ITEMS``).  A bundle's ``init(seed)`` draws its
+params on the bundle's device; ``decode_fn`` and ``make_caches`` are the
+serving surface (``models/lm.py:decode_step``, ``init_caches`` on the
+bundle's device), and ``cache_specs`` gives the caches' shapes and dtypes
+as ``meta`` tensors, allocating nothing.
 """
 from __future__ import annotations
 
@@ -33,6 +35,17 @@ ARCH_MODULES = {
 }
 
 ARCH_IDS = list(ARCH_MODULES)
+# the ROADMAP item that ports each id still missing
+ROADMAP_ITEMS = {
+    "codeqwen1.5-7b": "A.18.2",
+    "stablelm-1.6b": "A.18.2",
+    "command-r-35b": "A.18.2",
+    "mixtral-8x22b": "A.18.3",
+    "jamba-v0.1-52b": "A.18.3",
+    "deepseek-v3-671b": "A.18.4",
+    "qwen2-vl-2b": "A.18.5",
+    "whisper-medium": "A.18.6",
+}
 
 
 class TensorSpec(NamedTuple):
@@ -51,18 +64,31 @@ class ArchBundle:
     loss_fn: Callable[..., torch.Tensor]       # (params, batch, *, remat, ...)
     input_specs: Callable[[ShapeConfig], dict]
 
-    def decode_fn(self, *_a, **_k):
-        raise NotImplementedError("LM serving decode_fn: ROADMAP A.18")
+    def decode_fn(self, params, token, caches, seq_sharded=False):
+        """(params, (B, 1) tokens, caches) -> (fp32 logits (B, 1, V), caches),
+        the caches written in place."""
+        from repro_torch.models.lm import decode_step
 
-    def make_caches(self, *_a, **_k):
-        raise NotImplementedError("LM serving caches: ROADMAP A.18")
+        return decode_step(params, token, caches, self.cfg, seq_sharded_cache=seq_sharded)
+
+    def make_caches(self, batch: int, max_seq: int) -> list:
+        from repro_torch.models.lm import init_caches
+
+        return init_caches(self.cfg, batch, max_seq, self.cfg.act_dtype, self.device)
+
+    def cache_specs(self, batch: int, max_seq: int) -> list:
+        """The caches' shapes and dtypes as ``meta`` tensors (the reference's
+        ``jax.eval_shape`` of ``make_caches``)."""
+        from repro_torch.models.lm import init_caches
+
+        return init_caches(self.cfg, batch, max_seq, self.cfg.act_dtype, "meta")
 
 
 def load_config(name: str, reduced: bool = False) -> ModelConfig:
     if name not in ARCH_MODULES:
         raise ValueError(f"unknown arch {name!r}; one of {ARCH_IDS}")
     if ARCH_MODULES[name] is None:
-        raise NotImplementedError(f"--arch {name}: not ported yet (ROADMAP A.18)")
+        raise NotImplementedError(f"--arch {name}: not ported yet (ROADMAP {ROADMAP_ITEMS[name]})")
     mod = importlib.import_module(ARCH_MODULES[name])
     return mod.reduced() if reduced else mod.CONFIG
 

@@ -1,0 +1,167 @@
+"""Serving engine for the LM: slot-based continuous batching
+(``repro/serve/engine.py``).
+
+``ServeEngine`` keeps a fixed pool of ``batch`` slots; a request occupies a
+slot through prefill, then decodes one token per engine tick until EOS or
+its ``max_new_tokens``, after which the slot is recycled for a queued
+request.  The caches are allocated once (``arch.make_caches``) and every
+tick decodes all slots, so the shapes never change.
+
+The reference lets one slot's request see the others' (ROADMAP C.8: every
+decode writes and advances every slot, the bulk prefill feeds token 0 into
+the other slots, and a recycled slot keeps its old state) and feeds a
+prompt's last token twice (C.9).  Here a slot's request is independent of
+the others:
+
+- admission zeroes the slot's cache rows and state;
+- the prefill replays ``prompt[:-1]`` through ``decode_fn`` on batch-1
+  views of the slot's cache tensors, so it writes that slot alone (one
+  prefill call per admission);
+- a tick feeds each busy slot its last token (``prompt[-1]`` on the first
+  tick).  It decodes every slot, so the shapes never change; a free slot
+  decodes token 0 into its own rows, which no other slot reads (every
+  batch row is computed on its own) and the next admission there zeroes.
+
+So a greedy answer is the greedy continuation of its prompt alone, whatever
+else the engine serves.  A tick reads the sampled tokens back to the host
+once, after its decode.  ``temperature > 0`` samples from
+``softmax(logits / temperature)`` with a ``torch.Generator`` on the
+engine's device, seeded from ``seed`` (JAX's key stream has no torch
+counterpart, so only greedy answers are held against the reference).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.lm import layer_kind
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (T,) int32
+    max_new_tokens: int = 16
+    out_tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
+                  temperature: float = 0.0) -> torch.Tensor:
+    """(B, T, V) logits -> (B,) tokens for the last position: the argmax at
+    temperature 0, else one draw from ``softmax(logits / temperature)``."""
+    last = logits[:, -1, :]
+    if temperature <= 0.0:
+        return torch.argmax(last, dim=-1)
+    probs = torch.softmax(last.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def _has_full_kv_cache(cfg) -> bool:
+    """Whether some layer keeps a full (not sliding-window) KV cache, whose
+    rows end at ``max_seq``."""
+    kinds = [layer_kind(cfg, i) for i in range(cfg.n_layers)]
+    return any(k.mixer == "attn" and not k.swa for k in kinds)
+
+
+class ServeEngine:
+    def __init__(
+        self,
+        arch,
+        params: Any,
+        batch: int,
+        max_seq: int,
+        temperature: float = 0.0,
+        eos_id: Optional[int] = None,
+        seed: int = 0,
+    ):
+        self.arch = arch
+        self.params = params
+        self.batch = batch
+        self.max_seq = max_seq
+        self.temperature = temperature
+        self.eos_id = eos_id
+        self.device = arch.device
+        self.caches = arch.make_caches(batch, max_seq)
+        self.slots: list[Optional[Request]] = [None] * batch
+        self.queue: list[Request] = []
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.prefill_calls = 0          # admissions: one prefill each
+        self.prefill_tokens = 0         # prompt tokens replayed (batch-1 decode_fn calls)
+        self.decode_calls = 0           # ticks that decoded the slots
+        self._full_kv = _has_full_kv_cache(arch.cfg)
+        self._finished: list[Request] = []
+
+    # -- request lifecycle ----------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        """Queue ``req``.  A model with a full KV cache must hold every
+        position the request feeds: the prompt and all but the last answer
+        token.  The reference serves such a request and writes each position
+        past ``max_seq`` into the last row, so its answer no longer sees its
+        own context; here it is refused up front (ROADMAP C.10)."""
+        if len(req.prompt) < 1:
+            raise ValueError(f"request {req.rid}: empty prompt")
+        fed = len(req.prompt) + req.max_new_tokens - 1
+        if self._full_kv and fed > self.max_seq:
+            raise ValueError(f"request {req.rid}: {len(req.prompt)} prompt + "
+                             f"{req.max_new_tokens} new tokens need {fed} cache rows; "
+                             f"max_seq is {self.max_seq}")
+        self.queue.append(req)
+
+    def _prefill(self, i: int, prompt: np.ndarray) -> None:
+        """Reset slot ``i`` and replay ``prompt[:-1]`` into it alone."""
+        views = [c.slot(i) for c in self.caches]
+        for view in views:
+            for t in view:
+                t.zero_()
+        toks = torch.as_tensor(np.asarray(prompt[:-1], np.int64)).to(self.device)
+        for j in range(toks.shape[0]):
+            self.arch.decode_fn(self.params, toks[j:j + 1].view(1, 1), views)
+        self.prefill_tokens += toks.shape[0]
+
+    @torch.no_grad()
+    def _admit(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if slot is None and self.queue:
+                req = self.queue.pop(0)
+                self.slots[i] = req
+                self._prefill(i, req.prompt)
+                self.prefill_calls += 1
+
+    @torch.no_grad()
+    def tick(self) -> int:
+        """One engine iteration: admit + one decode of every slot.  Returns
+        the number of busy slots."""
+        self._admit()
+        busy = [i for i, s in enumerate(self.slots) if s is not None]
+        if not busy:
+            return 0
+        tok = np.zeros((self.batch, 1), np.int64)
+        for i in busy:
+            req = self.slots[i]
+            tok[i, 0] = req.out_tokens[-1] if req.out_tokens else int(req.prompt[-1])
+        logits, _ = self.arch.decode_fn(self.params, torch.from_numpy(tok).to(self.device),
+                                        self.caches)
+        self.decode_calls += 1
+        nxt = sample_logits(logits, self.generator, self.temperature).cpu().numpy()
+        for i in busy:
+            req = self.slots[i]
+            t = int(nxt[i])
+            req.out_tokens.append(t)
+            if (self.eos_id is not None and t == self.eos_id) or len(
+                req.out_tokens
+            ) >= req.max_new_tokens:
+                req.done = True
+                self._finished.append(req)
+                self.slots[i] = None
+        return len(busy)
+
+    def run(self, max_ticks: int = 1000) -> list[Request]:
+        while (self.queue or any(s is not None for s in self.slots)) and max_ticks:
+            self.tick()
+            max_ticks -= 1
+        return self._finished

@@ -283,12 +283,13 @@ def test_lm_surfaces_that_are_not_ported_raise():
     with pytest.raises(ValueError, match="unknown arch"):
         treg.load_config("gpt-5")
     arch = treg.bundle_from_cfg(TCFG, "cpu")
-    with pytest.raises(NotImplementedError, match="A.18"):
-        arch.decode_fn()
-    with pytest.raises(NotImplementedError, match="A.18"):
-        arch.make_caches(1, 8)
     tokens = torch.zeros((1, 4), dtype=torch.int32)
     p = arch.init(0)
+    # the serving surface runs (tests/test_torch_lm_serve.py holds it against JAX)
+    caches = arch.make_caches(1, 8)
+    logits, out = arch.decode_fn(p, tokens[:, :1], caches)
+    assert logits.shape == (1, 1, TCFG.vocab) and logits.dtype == torch.float32
+    assert out[0] is caches[0] and caches[0].lengths.tolist() == [1]
     with pytest.raises(NotImplementedError, match="dots"):
         tlm.apply_lm(p, tokens, TCFG, remat="dots")
     with pytest.raises(NotImplementedError, match="A.18"):

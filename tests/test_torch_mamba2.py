@@ -358,12 +358,13 @@ def test_mamba_launcher_runs_on_cpu():
 
 
 def test_mamba_surfaces_that_are_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="A.18"):
-        tmamba.mamba_decode(None, None, None, TCFG)
-    with pytest.raises(NotImplementedError, match="A.18"):
-        tmamba.MambaState.init(1, TCFG, torch.float32)
     p = treg.bundle_from_cfg(TCFG, "cpu").init(0)
     mp = {k: v[0] for k, v in p["segments"][0][0]["mamba"].items()}
+    # the O(1) decode step runs (tests/test_torch_lm_serve.py holds it against JAX)
+    state = tmamba.MambaState.init(1, TCFG, torch.float32)
+    y, out = tmamba.mamba_decode(mp, torch.ones((1, 1, TCFG.d_model)), state, TCFG)
+    assert y.shape == (1, 1, TCFG.d_model) and out is state and state.length.tolist() == [1]
+    assert bool(state.ssm.any()) and bool(state.conv[:, -1].any())
     with pytest.raises(NotImplementedError, match="A.18"):
         tmamba.mamba_block(mp, torch.zeros((1, 32, TCFG.d_model)), TCFG, seq_axis="seq")
     with pytest.raises(NotImplementedError, match="A.18"):
