@@ -49,9 +49,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``{"train": ...}`` line and a profile of one step;
 6. flash attention (B4) and RMSNorm (B6) against their plain versions on the
    card, TF32 off: at the LM runs' shapes (q (2, 2048, 28, 128), k/v
-   (2, 2048, 4, 128), causal; RMSNorm on Qwen2-7B's (4096, 3584), bf16 and
-   fp32, and Mamba2-780m's (8192, 1536) and (8192, 3072) in that run's
-   types), on every case of ``tests/test_kernels.py``'s ``FA_CASES`` in its
+   (2, 2048, 4, 128), causal, and phase 20's three training shapes in
+   bf16; RMSNorm at every width of each trained RMSNorm config
+   (``b6_widths``): Qwen2-7B's (4096, 3584), bf16 and fp32, Mamba2-780m's
+   (8192, 1536) and (8192, 3072) and CodeQwen1.5-7B's (4096, 4096) in each
+   run's types, the same bits on a rerun), on every case of ``tests/test_kernels.py``'s ``FA_CASES`` in its
    own dtype and in bf16, on ``FA_BF16_EDGE_CASES``, on ``RMS_CASES`` and
    ``RMS_EDGE_CASES`` (every B6 instance, the scalar one included), each
    case naming the instance it took; kernel, plain version and one library
@@ -232,8 +234,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    it, the median step on the 2x2 cluster and on 1x3, the peak after the
    replan;
 19. LM serving (``lm_serve_phase``): (d) B6 against its plain version at
-   the decode shapes - rows ``RMS_DECODE_ROWS`` (the slots) of Qwen2-7B's
-   and Mamba2-780m's widths, bf16 and fp32, the same bits on a rerun, each
+   the decode shapes - rows ``RMS_DECODE_ROWS`` (the slots) at every B6
+   width of the configs phases 19 and 20 serve (Qwen2-7B's, Mamba2-780m's
+   and CodeQwen1.5-7B's), bf16 and fp32, the same bits on a rerun, each
    shape naming its instance; (b) at full width, 2 layers, fp32: tokens
    teacher-forced through ``decode_step`` against ``apply_lm``'s logits
    (B4 or B5 on their SIMT instances, and B6) within ``DECODE_BAR``, and
@@ -251,8 +254,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ms on CUDA events and the host clock, a profiled tick's device time and
    idle share, prefill ms per admitted request, peak memory, B6 launches by
    instance; the serve launcher's LM mode (``python -m
-   repro_torch.launch.serve --arch <id>``) on the card.  The
-   ``{"kernels": ...}`` line's launches include phases 12's to 19's.
+   repro_torch.launch.serve --arch <id>``) on the card;
+20. the dense configs of ROADMAP A.18.2 (``dense_phase``): StableLM-2-1.6B
+   (LayerNorm, partial rotary), CodeQwen1.5-7B (MHA, QKV bias) and
+   Command-R 35B (LayerNorm, parallel block, tied embeddings) at their
+   published widths, seed-0 params: (a) at 2 layers, fp32, with seeded
+   noise on every bias and norm leaf, decode teacher-forced against
+   ``apply_lm`` (B4 ``simt_fp32_dh64`` / ``_dh128``, B6 for CodeQwen
+   alone) within ``DECODE_BAR``, and one planted fault each over it (decode
+   rotating the whole head, dropping ``b_v``, running the sequential
+   block); (b) each trained as phase 7 (bf16, remat full, AdamW, 4 x 2048
+   tokens in 2 microbatches) at ``DENSE_TRAIN_DEPTH``: B4 twice per layer
+   per microbatch on ``wgmma_bf16_dh64`` / ``_dh128``, B6 only for the
+   RMSNorm config (a LayerNorm runs as plain torch; phases 7's, 19's and
+   20's B6 counts follow the norm kind), with the modeled state of one
+   layer more beside the card; (c) each served at full width and full depth
+   as phase 19 (``lm_serve_drive``, Command-R 35B's 60.6 GB included,
+   after ``gc.collect()`` and ``empty_cache()``), init's peak held within
+   ``INIT_PEAK_SLACK`` of the params plus the largest fp32 draw; (d) both
+   launchers with their default ``--arch`` (``stablelm-1.6b``) on the card.
+   B4 is also timed in phase 6 at each config's bf16 training shape.  The
+   ``{"kernels": ...}`` line's launches include phases 12's to 20's.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -577,6 +599,29 @@ LM_SERVE_PROMPT = (4, 64)                 # prompt lengths, inclusive
 LM_SERVE_FORCED = 64
 DECODE_BAR = dict(atol=2e-2, rtol=2e-2)
 RMS_DECODE_ROWS = (1, 4, 8)
+# Init's peak, beyond what was allocated before it, may exceed the params'
+# bytes plus its largest fp32 draw (the embedding) by this factor: the
+# streaming init (models/lm.py) also holds one layer's tree and its draw.
+INIT_PEAK_SLACK = 1.05
+# Phase 20: the three dense configs of ROADMAP A.18.2 (``dense_phase``) at
+# their published widths, seed-0 params.  (a) The decode check of phase 19
+# at 2 layers, fp32, with seeded noise of DENSE_NOISE on every bias and norm
+# leaf (at init they are 0 and 1, which would hide the bias and LayerNorm
+# branches) and one planted fault each (DENSE_FAULTS).  (b) Training as
+# phase 7 at DENSE_TRAIN_DEPTH: StableLM whole; CodeQwen and Command-R at
+# the deepest cut whose state fits 80 GB - bf16 params, fp32 gradient
+# accumulators and AdamW moments, and the bf16 gradient tree of a
+# microbatch, 16 bytes a param, beside the activations.  (c) Serving at full
+# depth with phase 19's traffic.
+DENSE_ARCHS = ("stablelm-1.6b", "codeqwen1.5-7b", "command-r-35b")
+DENSE_TRAIN_DEPTH = {"stablelm-1.6b": 24, "codeqwen1.5-7b": 17, "command-r-35b": 3}
+DENSE_TRAIN_STEPS = 3
+DENSE_NOISE = 0.3
+# the planted fault of each config's decode: decode rotates the whole head
+# (ignores rope_pct), drops b_v (not b_k: a key bias shifts every logit of a
+# query row alike, which softmax cannot see), or runs the sequential block
+DENSE_FAULTS = {"stablelm-1.6b": "whole_head_rotary", "codeqwen1.5-7b": "no_b_v",
+                "command-r-35b": "sequential_block"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2115,8 +2160,16 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
         return row
 
     fa_rows = []
-    for dt in (torch.bfloat16, torch.float32):      # the LM run's shape: bf16 is its path
-        r = fa_case(LM_BATCH // LM_ACCUM, LM_SEQ, LM_SEQ, 28, 4, 128, True, None, dt, True)
+    # the Qwen2-7B run's shape, bf16 (its path) and fp32; then phase 20's
+    # training shapes in bf16, timed beside it
+    def heads(name):
+        c = load_config(name)
+        return c.n_heads, c.n_kv_heads, c.resolved_head_dim
+
+    shapes = [(heads(LM_ARCH), dt) for dt in (torch.bfloat16, torch.float32)]
+    shapes += [(heads(name), torch.bfloat16) for name in DENSE_ARCHS]
+    for (hq, hkv, dh), dt in shapes:
+        r = fa_case(LM_BATCH // LM_ACCUM, LM_SEQ, LM_SEQ, hq, hkv, dh, True, None, dt, True)
         fa_rows.append(r)
         fp64 = (f"; vs fp64: kernel {r['kernel_err_vs_fp64']:.3e} plain "
                 f"{r['plain_err_vs_fp64']:.3e}" if "kernel_err_vs_fp64" in r else "")
@@ -2132,7 +2185,8 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
         r = fa_case(*shape, getattr(torch, dt), False)
         print(f"  B4 case {shape} {dt} ({r['instance']}): err {r['max_abs_err']:.2e} "
               f"({r['err_ratio']:.3f} of tol)")
-    print(f"B4 checks passed (fp32 {TOL_FP32}, bf16 {TOL_BF16}; {len(cases) + 2} cases)")
+    print(f"B4 checks passed (fp32 {TOL_FP32}, bf16 {TOL_BF16}; {len(cases) + len(shapes)} "
+          f"cases)")
 
     def rms_case(shape, dt, sdt, timed, offset=0):
         # offset > 0: x starts ``offset`` elements into its buffer (a base
@@ -2143,12 +2197,13 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
         aligned = x.data_ptr() % 16 == 0 and sc.data_ptr() % 16 == 0
         instance = rms_instance(dt, sdt, shape[-1], aligned)
         before = rmsnorm.launches_by_instance[instance]
-        got = rmsnorm(x, sc)
+        got, again = rmsnorm(x, sc), rmsnorm(x, sc)
         want = rmsnorm_ref(x, sc)
         torch.cuda.synchronize()
         out_dt = torch.promote_types(dt, sdt)
         check(got.dtype == want.dtype == out_dt and got.shape == want.shape, f"B6 {got.dtype}")
-        check(rmsnorm.launches_by_instance[instance] == before + 1, f"B6 {shape}: not {instance}")
+        check(rmsnorm.launches_by_instance[instance] == before + 2, f"B6 {shape}: not {instance}")
+        check(torch.equal(got, again), f"B6 {shape} {dt} x {sdt}: other bits on a rerun")
         err, ratio = err_stats(got, want, **tol(out_dt))
         check(ratio <= 1.0, f"B6 {shape} {dt} x {sdt} ({instance}): max err {err} over tolerance "
               f"{tol(out_dt)}")
@@ -2189,21 +2244,22 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
                 f"{r['library_ms_cold']} (device {r['library_device_ms']} / "
                 f"{r['library_device_ms_cold']}) bound {r['bound_ms']:.4f} ({r['bound_by']})")
 
-    # the path's shapes: Qwen2-7B's norms (B*T, 3584), Mamba2-780m's norm1 (B*T,
-    # 1536) and gated norm (B*T, 3072), x and scale in each run's types
-    qwen, mamba = load_config(LM_ARCH), load_config(MAMBA_ARCH)
-    qdt, qsdt = getattr(torch, qwen.dtype), getattr(torch, qwen.param_dtype)
-    mdt, msdt = getattr(torch, mamba.dtype), getattr(torch, mamba.param_dtype)
-    d_inner = mamba.ssm.expand * mamba.d_model
-    print(f"B6 on the path: {LM_ARCH} x {qdt} scale {qsdt} at d {qwen.d_model}; {MAMBA_ARCH} x "
-          f"{mdt} scale {msdt} at d {mamba.d_model} (norm1) and {d_inner} (gated norm)")
-    lm_rows, mamba_rows = LM_BATCH // LM_ACCUM * LM_SEQ, MAMBA_BATCH // MAMBA_ACCUM * MAMBA_SEQ
+    # the path's shapes: every B6 width (``b6_widths``) of each config the
+    # smoke trains (Qwen2-7B 3584; Mamba2-780m 1536 and its gated norm's 3072;
+    # CodeQwen1.5-7B 4096) at its run's microbatch rows, x and scale in the
+    # run's types; Qwen2-7B's in fp32 too
+    path = []
+    for name in (LM_ARCH, MAMBA_ARCH) + DENSE_ARCHS:
+        cfg = load_config(name)
+        rows = (MAMBA_BATCH // MAMBA_ACCUM * MAMBA_SEQ if name == MAMBA_ARCH
+                else LM_BATCH // LM_ACCUM * LM_SEQ)
+        dts = [(getattr(torch, cfg.dtype), getattr(torch, cfg.param_dtype))]
+        dts += [(torch.float32, torch.float32)] if name == LM_ARCH else []
+        path += [(name, (rows, d), dt, sdt) for d in b6_widths(cfg) for dt, sdt in dts]
+    print(f"B6 on the path: {[(name, shape[-1]) for name, shape, _, _ in path]}")
     rms_rows = []
-    for shape, dt, sdt in [((lm_rows, qwen.d_model), qdt, qsdt),
-                           ((lm_rows, qwen.d_model), torch.float32, torch.float32),
-                           ((mamba_rows, mamba.d_model), mdt, msdt),
-                           ((mamba_rows, d_inner), mdt, msdt)]:
-        rms_rows.append(rms_case(shape, dt, sdt, True))
+    for name, shape, dt, sdt in path:
+        rms_rows.append(dict(arch=name, **rms_case(shape, dt, sdt, True)))
         print(rms_line(rms_rows[-1]))
     seen = {r["instance"] for r in rms_rows}
     cases = [(shape, dt, dt, 0) for shape, dt in RMS_CASES] + RMS_EDGE_CASES
@@ -2246,26 +2302,55 @@ LM_KERNEL_TRACE_NAMES = {"flash_attention_fwd": "flash_attention_fwd_",   # both
                          "rmsnorm": "rmsnorm_"}                     # every instance
 
 
+def b6_norms_per_layer(cfg, i: int) -> int:
+    """B6 launches of layer ``i``'s forward (or one decode call): norm1, and
+    norm2 where the layer has an MLP outside a parallel block, when the
+    config's norm is RMSNorm (a LayerNorm runs as plain torch, as the
+    reference leaves it to XLA); a Mamba2 block's gated RMSNorm always."""
+    from repro_torch.models.lm import layer_kind
+
+    rms = cfg.norm == "rmsnorm"
+    return (rms * (1 + (cfg.d_ff > 0 and not cfg.parallel_block))
+            + (layer_kind(cfg, i).mixer == "mamba"))
+
+
+def b6_widths(cfg) -> list:
+    """The row widths B6 normalises in ``cfg``'s forward and decode: d_model
+    where the config's norm is RMSNorm, and a Mamba2 block's d_inner (its
+    gated RMSNorm)."""
+    from repro_torch.models.lm import layer_kind
+
+    widths = [cfg.d_model] if cfg.norm == "rmsnorm" else []
+    if any(layer_kind(cfg, i).mixer == "mamba" for i in range(cfg.n_layers)):
+        widths.append(cfg.ssm.d_inner(cfg.d_model))
+    return widths
+
+
+def b6_per_decode_call(cfg) -> int:
+    """B6 launches of one ``decode_step`` call: every layer's, and the final
+    norm's when it is RMSNorm."""
+    return sum(b6_norms_per_layer(cfg, i) for i in range(cfg.n_layers)) + (cfg.norm == "rmsnorm")
+
+
 def lm_launches_per_microbatch(cfg, remat: str) -> dict:
     """Kernel launches of one microbatch's loss and grads, from the code:
     each layer's forward runs its mixer's kernel once (B4 for attention, B5
-    for a Mamba2 block) and B6 for norm1, for the Mamba2 block's gated norm
-    and for norm2 where the layer has an MLP; the final norm runs B6 once
-    more.  remat "full" reruns each layer's forward (all of it: the
-    checkpoint saves only the layer's input) in the backward, outside the
-    final norm.  The backwards of all three ops are plain torch and launch
-    no kernel."""
+    for a Mamba2 block) and B6 as ``b6_norms_per_layer`` says; the final
+    norm runs B6 once more where it is RMSNorm.  remat "full" reruns each
+    layer's forward (all of it: the checkpoint saves only the layer's input)
+    in the backward, outside the final norm.  The backwards of all three ops
+    are plain torch and launch no kernel.  A config without an RMSNorm
+    counts B6 as 0: the run must launch it no time."""
     from repro_torch.models.lm import layer_kind
 
     again = 1 if remat == "full" else 0
-    out = {}
+    out = {"rmsnorm": 0}
     for i in range(cfg.n_layers):
         kind = layer_kind(cfg, i)
         mixer = "flash_attention_fwd" if kind.mixer == "attn" else "ssd_chunk_fwd"
-        norms = 1 + (kind.mixer == "mamba") + (cfg.d_ff > 0 and not cfg.parallel_block)
         out[mixer] = out.get(mixer, 0) + 1 + again
-        out["rmsnorm"] = out.get("rmsnorm", 0) + norms * (1 + again)
-    out["rmsnorm"] += 1
+        out["rmsnorm"] += b6_norms_per_layer(cfg, i) * (1 + again)
+    out["rmsnorm"] += cfg.norm == "rmsnorm"
     return out
 
 
@@ -2315,9 +2400,10 @@ def named_leaves(tree, prefix=""):
 
 
 def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
-    """Phase 7 (Qwen2-7B, 12 layers) or 10 (Mamba2-780m, 48 layers): full
-    width, bf16, AdamW, 3 steps.  Returns the launch count of each kernel in
-    the training run."""
+    """Phase 7 (Qwen2-7B, 12 layers), 10 (Mamba2-780m, 48 layers) or 20 (the
+    dense configs): full width, bf16, AdamW, ``run.steps`` steps.  Returns
+    the launch count of each kernel in the training run, the params and the
+    run's peak memory."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2422,8 +2508,9 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     dev_ms = sum(by_name.values())
     part = {name: sum(v for k, v in by_name.items() if LM_KERNEL_TRACE_NAMES[name] in k)
             for name in kernels}
-    check(dev_ms > 0 and all(v > 0 for v in part.values()),
-          f"profiler saw no device time for a kernel: {part}")
+    check(dev_ms > 0 and all((v > 0) == (want[k] > 0) for k, v in part.items()),
+          f"profiler saw no device time for a kernel of the run, or some for one it does "
+          f"not launch: {part}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     med = statistics.median(step_ms)
     print(json.dumps({f"profile_{run.key}_step": {
@@ -2468,7 +2555,7 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
         "b4_launches_by_instance": b4_instances, "b5_launches_by_instance": b5_instances,
         "b6_launches_by_instance": b6_instances, "card": smi,
     }}))
-    return launches
+    return {"launches": launches, "params": n_params, "peak_mem_bytes": peak}
 
 
 def lm_grad_phase(dev, run: LMRun, fault, must_fail, note: str) -> dict:
@@ -3235,6 +3322,192 @@ def elastic_phase(dev, smi: str, held_b1: set, held_bwd: set, fwd_row, bwd_rows)
     return launches18, lm_launches18, fwd18, dgrad18, wgrad18
 
 
+def decode_vs_forward(cfg, arch, params, tokens, decode_fault=None) -> tuple[float, float]:
+    """(max err, ratio to DECODE_BAR) of ``decode_step``'s logits, token by
+    token from empty caches, against ``apply_lm``'s; ``decode_fault`` (a
+    ``swapped`` context) is applied around the decode alone."""
+    import torch
+
+    from repro_torch.models.lm import apply_lm, lm_head_weight
+
+    head = lm_head_weight(params, cfg).to(cfg.act_dtype)
+    full = (apply_lm(params, tokens, cfg) @ head.T).float()
+    caches = arch.make_caches(tokens.shape[0], tokens.shape[1])
+    with decode_fault or contextlib.nullcontext():
+        dec = torch.stack([arch.decode_fn(params, tokens[:, t:t + 1], caches)[0][:, 0]
+                           for t in range(tokens.shape[1])], 1)
+    return err_stats(dec, full, **DECODE_BAR)
+
+
+def lm_serve_drive(dev, smi: str, name: str) -> int:
+    """One full-width, full-depth serving cell (phases 19 and 20): ``name``'s
+    published config in bf16, seed-0 params, LM_SERVE_REQUESTS prompts of
+    LM_SERVE_PROMPT tokens (numpy's default_rng(SEED)), LM_SERVE_NEW greedy
+    tokens each over LM_SERVE_SLOTS slots.  Checks every request complete,
+    finite logits, B6's launches the code's count (``b6_per_decode_call`` x
+    the prefill tokens plus the ticks) and no B4 or B5 launch, and init's
+    peak (beyond what was allocated before it) within INIT_PEAK_SLACK of
+    the params' bytes plus the largest fp32 draw; prints the ``{"lm_serve":
+    ...}`` line.  Returns B6's launches."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import reset_launches as reset_b4_launches
+    from repro_torch.kernels.rmsnorm.kernel import reset_launches as reset_b6_launches
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.kernels.ssd_chunk.kernel import reset_launches as reset_b5_launches
+    from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
+    from repro_torch.models.registry import bundle_from_cfg, load_config
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = load_config(name)
+    arch = bundle_from_cfg(cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    reserved = torch.cuda.memory_reserved(dev)
+    print(f"{name} serve: before init {before / 1e9:.3f} GB allocated, {reserved / 1e9:.3f} GB "
+          f"reserved")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = arch.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    # init draws each leaf in fp32, then casts it (models/common.py): a
+    # stacked leaf one row (one layer) at a time
+    largest_draw = 4 * max([t.numel() for k, v in params.items() if k != "segments"
+                            for t in tree_leaves(v)]
+                           + [t[0].numel() for t in tree_leaves(params["segments"])])
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    init_bar = INIT_PEAK_SLACK * (param_bytes + largest_draw)
+    print(f"{name} init: {n_params / 1e9:.3f} B params ({param_bytes / 1e9:.3f} GB) in "
+          f"{init_s:.2f} s, peak {init_peak / 1e9:.3f} GB ({(init_peak - before) / 1e9:.3f} GB "
+          f"beyond what was allocated before), bar {init_bar / 1e9:.3f} GB (params + the largest "
+          f"fp32 draw {largest_draw / 1e9:.3f} GB, x{INIT_PEAK_SLACK})")
+    check(init_peak - before <= init_bar, f"{name}: init's peak {init_peak - before} over "
+          f"{init_bar}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    rng = np.random.default_rng(SEED)
+    lo, hi = LM_SERVE_PROMPT
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(lo, hi + 1))).astype(np.int32)
+               for _ in range(LM_SERVE_REQUESTS)]
+    eng = ServeEngine(arch, params, batch=LM_SERVE_SLOTS, max_seq=LM_SERVE_MAX_SEQ)
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=LM_SERVE_NEW))
+    finite = []
+    real = engine_mod.sample_logits
+
+    def finite_sample(logits, generator, temperature):
+        finite.append(torch.isfinite(logits).all())
+        return real(logits, generator, temperature)
+
+    prefill_ms, tick_ev, tick_host = [], [], []
+    torch.cuda.synchronize()
+    reset_b4_launches()
+    reset_b5_launches()
+    reset_b6_launches()
+    t_start = time.perf_counter()
+    with swapped((engine_mod, "sample_logits", finite_sample)):
+        while eng.queue or any(r is not None for r in eng.slots):
+            n0, t0 = eng.prefill_calls, time.perf_counter()
+            eng._admit()
+            if eng.prefill_calls > n0:
+                torch.cuda.synchronize()
+                prefill_ms.append(((time.perf_counter() - t0) * 1e3, eng.prefill_calls - n0))
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            h0 = time.perf_counter()
+            eng.tick()                       # reads the sampled tokens back: synchronised
+            tick_host.append((time.perf_counter() - h0) * 1e3)
+            b.record()
+            b.synchronize()
+            tick_ev.append(a.elapsed_time(b))
+    wall_s = time.perf_counter() - t_start
+    launches = rmsnorm.launches
+    by_instance = {k: v for k, v in rmsnorm.launches_by_instance.items() if v}
+    others = flash_attention_fwd.launches + ssd_chunk_fwd.launches
+    done = eng._finished
+    per_call = b6_per_decode_call(cfg)
+    want = per_call * (eng.prefill_tokens + eng.decode_calls)
+    toks = sum(len(r.out_tokens) for r in done)
+    print(f"{name} serve: {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, {len(done)} "
+          f"requests, {toks} tokens in {wall_s:.2f} s ({toks / wall_s:.1f} tok/s), "
+          f"{eng.decode_calls} ticks, {eng.prefill_tokens} prefill tokens; B6 launches "
+          f"{launches} by instance {by_instance} (the code's count {per_call} a call x "
+          f"{eng.prefill_tokens + eng.decode_calls} calls = {want})")
+    check(sorted(r.rid for r in done) == list(range(LM_SERVE_REQUESTS))
+          and all(len(r.out_tokens) == LM_SERVE_NEW for r in done),
+          f"{name}: requests {[(r.rid, len(r.out_tokens)) for r in done]}")
+    check(not eng.queue and eng.slots == [None] * LM_SERVE_SLOTS, f"{name}: engine not drained")
+    check(all(0 <= t < cfg.vocab for r in done for t in r.out_tokens), f"{name}: token ids")
+    check(bool(torch.stack(finite).all()), f"{name}: non-finite logits")
+    check(eng.prefill_calls == LM_SERVE_REQUESTS
+          and eng.prefill_tokens == sum(len(p) - 1 for p in prompts)
+          and eng.decode_calls == len(tick_ev), f"{name}: engine counters")
+    check(launches == want and sum(by_instance.values()) == launches,
+          f"{name}: B6 launches {launches} ({by_instance}) != the code's {want}")
+    check(others == 0, f"{name}: decode launched B4/B5 {others} times")
+    peak = torch.cuda.max_memory_allocated(dev)
+    drive = {"requests": len(done), "prompt_tokens": sum(len(p) for p in prompts),
+             "new_tokens": toks, "ticks": eng.decode_calls,
+             "prefill_calls": eng.prefill_calls, "prefill_tokens": eng.prefill_tokens,
+             "wall_s": wall_s, "tokens_per_s": toks / wall_s}
+
+    # one profiled window of ticks with every slot busy
+    for rid, p in enumerate(prompts[:LM_SERVE_SLOTS]):
+        eng.submit(Request(rid=100 + rid, prompt=p[:8], max_new_tokens=8))
+    eng._admit()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(4):
+            eng.tick()
+        torch.cuda.synchronize()
+        prof_tick_ms = (time.perf_counter() - t0) * 1e3 / 4
+    by_name = device_ms_by_name(prof, 4)
+    dev_ms = sum(by_name.values())
+    check(dev_ms > 0, f"{name}: the profiler saw no device time in a tick")
+    b6_ms = sum(v for k, v in by_name.items() if LM_KERNEL_TRACE_NAMES["rmsnorm"] in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+
+    def spread(v):
+        return {"median": statistics.median(v), "mean": statistics.fmean(v), "min": min(v),
+                "max": max(v), "n": len(v)}
+
+    print(json.dumps({"lm_serve": {name: {
+        "layers": cfg.n_layers, "params": n_params, "param_bytes": param_bytes,
+        "dtype": cfg.dtype, "slots": LM_SERVE_SLOTS, "max_seq": LM_SERVE_MAX_SEQ, **drive,
+        "tick_ms_cuda_events": spread(tick_ev), "tick_ms_host": spread(tick_host),
+        # each admission round: its ms over the requests it admitted
+        "prefill_ms_per_request": [ms / n for ms, n in prefill_ms],
+        "prefill_ms_per_token": sum(ms for ms, _ in prefill_ms)
+        / max(1, drive["prefill_tokens"]),
+        "profiled_tick": {"wall_ms": prof_tick_ms, "device_ms": dev_ms, "b6_ms": b6_ms,
+                          "idle_share": max(0.0, 1 - dev_ms / prof_tick_ms),
+                          # against the unprofiled ticks (CUDA events, median of the drive)
+                          "idle_share_vs_event_tick":
+                              max(0.0, 1 - dev_ms / statistics.median(tick_ev)),
+                          "top": [[k[:80], v] for k, v in top]},
+        "peak_mem_bytes": peak, "init_peak_mem_bytes": init_peak,
+        "allocated_before_init_bytes": before, "init_s": init_s,
+        "b6_launches": launches, "b6_launches_expected": want,
+        "b6_launches_by_instance": by_instance, "card": smi,
+    }}}))
+    del eng, params, leaves, arch, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def lm_serve_phase(dev, smi: str) -> int:
     """Phase 19: LM serving on the card.  (d) B6 at the decode shapes against
     its plain version, the same bits on a rerun; (b) at full width, 2
@@ -3251,28 +3524,25 @@ def lm_serve_phase(dev, smi: str) -> int:
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     import repro_torch.models.attention as attn_mod
     import repro_torch.models.mamba2 as mamba_mod
     import repro_torch.serve.engine as engine_mod
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.flash_attention.kernel import reset_launches as reset_b4_launches
-    from repro_torch.kernels.rmsnorm.kernel import reset_launches as reset_b6_launches
     from repro_torch.kernels.rmsnorm.kernel import rms_instance, rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.ssd_chunk.kernel import reset_launches as reset_b5_launches
     from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
     from repro_torch.launch import serve as serve_launcher
-    from repro_torch.models.lm import apply_lm, layer_kind, lm_head_weight
     from repro_torch.models.registry import bundle_from_cfg, load_config, with_depth
-    from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.serve.engine import Request, ServeEngine
 
     # -- (d) B6 at the decode shapes: rows = slots, (B, 1, D) as decode gives it
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
-    qwen, mamba = load_config("qwen2-7b"), load_config("mamba2-780m")
-    widths = (qwen.d_model, mamba.d_model, mamba.ssm.d_inner(mamba.d_model))
+    # every B6 width of the configs phases 19 and 20 serve
+    widths = sorted({d for name in LM_SERVE_ARCHS + DENSE_ARCHS
+                     for d in b6_widths(load_config(name))})
     lib = getattr(F, "rms_norm", None)
     rms_rows = []
     for dt in (torch.bfloat16, torch.float32):
@@ -3322,16 +3592,6 @@ def lm_serve_phase(dev, smi: str) -> int:
         state.ssm.copy_(old)
         return out, state
 
-    def forced(cfg, arch, params, tokens):
-        """(max err, ratio to DECODE_BAR) of decode_step's logits against
-        apply_lm's, token by token."""
-        head = lm_head_weight(params, cfg).to(cfg.act_dtype)
-        full = (apply_lm(params, tokens, cfg) @ head.T).float()
-        caches = arch.make_caches(tokens.shape[0], tokens.shape[1])
-        dec = torch.stack([arch.decode_fn(params, tokens[:, t:t + 1], caches)[0][:, 0]
-                           for t in range(tokens.shape[1])], 1)
-        return err_stats(dec, full, **DECODE_BAR)
-
     def served_logits(arch, params, reqs, target):
         """The target request's logits at each of its ticks and its answer,
         from a 3-slot engine serving ``reqs`` ((rid, prompt, new) triples)."""
@@ -3362,7 +3622,7 @@ def lm_serve_phase(dev, smi: str) -> int:
         with torch.no_grad():
             reset_b4_launches()
             reset_b5_launches()
-            err, ratio = forced(cfg, arch, params, tokens)
+            err, ratio = decode_vs_forward(cfg, arch, params, tokens)
             kernels = {k: v for f in (flash_attention_fwd, ssd_chunk_fwd)
                        for k, v in f.launches_by_instance.items() if v}
             out = dict(decode_vs_forward_err=err, decode_vs_forward_ratio=ratio,
@@ -3377,8 +3637,7 @@ def lm_serve_phase(dev, smi: str) -> int:
                       {"conv_ring_rolled": (mamba_mod, "mamba_decode", ring_rolled),
                        "ssm_state_stale": (mamba_mod, "mamba_decode", ssm_stale)})
             for fault, swap in faults.items():
-                with swapped(swap):
-                    f_err, f_ratio = forced(cfg, arch, params, tokens)
+                f_err, f_ratio = decode_vs_forward(cfg, arch, params, tokens, swapped(swap))
                 out.update({f"planted_{fault}_err": f_err, f"planted_{fault}_ratio": f_ratio})
                 print(f"planted fault ({fault}): max err {f_err:.3e}, {f_ratio:.1f}x the bar")
                 check(f_ratio > 1.0, f"{name}: the decode check passed the planted fault {fault} "
@@ -3403,127 +3662,7 @@ def lm_serve_phase(dev, smi: str) -> int:
     print(json.dumps({"lm_decode_checks": checks}))
 
     # -- (a, e) full width and depth, bf16: the serving path --------------------------
-    b6_launches = 0
-    for name in LM_SERVE_ARCHS:
-        cfg = load_config(name)
-        arch = bundle_from_cfg(cfg, dev)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        params = arch.init(SEED)
-        n_params = sum(t.numel() for t in tree_leaves(params))
-        # init holds every layer's tensors beside their stacked copy: its peak
-        # is the init's, not the server's
-        init_peak = torch.cuda.max_memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        rng = np.random.default_rng(SEED)
-        lo, hi = LM_SERVE_PROMPT
-        prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(lo, hi + 1))).astype(np.int32)
-                   for _ in range(LM_SERVE_REQUESTS)]
-        eng = ServeEngine(arch, params, batch=LM_SERVE_SLOTS, max_seq=LM_SERVE_MAX_SEQ)
-        for rid, p in enumerate(prompts):
-            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=LM_SERVE_NEW))
-        finite = []
-        real = engine_mod.sample_logits
-
-        def finite_sample(logits, generator, temperature):
-            finite.append(torch.isfinite(logits).all())
-            return real(logits, generator, temperature)
-
-        prefill_ms, tick_ev, tick_host = [], [], []
-        torch.cuda.synchronize()
-        reset_b4_launches()
-        reset_b5_launches()
-        reset_b6_launches()
-        t_start = time.perf_counter()
-        with swapped((engine_mod, "sample_logits", finite_sample)):
-            while eng.queue or any(r is not None for r in eng.slots):
-                n0, t0 = eng.prefill_calls, time.perf_counter()
-                eng._admit()
-                if eng.prefill_calls > n0:
-                    torch.cuda.synchronize()
-                    prefill_ms.append(((time.perf_counter() - t0) * 1e3, eng.prefill_calls - n0))
-                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                a.record()
-                h0 = time.perf_counter()
-                eng.tick()                       # reads the sampled tokens back: synchronised
-                tick_host.append((time.perf_counter() - h0) * 1e3)
-                b.record()
-                b.synchronize()
-                tick_ev.append(a.elapsed_time(b))
-        wall_s = time.perf_counter() - t_start
-        launches = rmsnorm.launches
-        by_instance = {k: v for k, v in rmsnorm.launches_by_instance.items() if v}
-        others = flash_attention_fwd.launches + ssd_chunk_fwd.launches
-        b6_launches += launches
-        done = eng._finished
-        per_call = sum(1 + (layer_kind(cfg, i).mixer == "mamba")
-                       + (cfg.d_ff > 0 and not cfg.parallel_block)
-                       for i in range(cfg.n_layers)) + 1
-        want = per_call * (eng.prefill_tokens + eng.decode_calls)
-        toks = sum(len(r.out_tokens) for r in done)
-        print(f"{name} serve: {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, {len(done)} "
-              f"requests, {toks} tokens in {wall_s:.2f} s ({toks / wall_s:.1f} tok/s), "
-              f"{eng.decode_calls} ticks, {eng.prefill_tokens} prefill tokens; B6 launches "
-              f"{launches} by instance {by_instance} (the code's count {per_call} a call x "
-              f"{eng.prefill_tokens + eng.decode_calls} calls = {want})")
-        check(sorted(r.rid for r in done) == list(range(LM_SERVE_REQUESTS))
-              and all(len(r.out_tokens) == LM_SERVE_NEW for r in done),
-              f"{name}: requests {[(r.rid, len(r.out_tokens)) for r in done]}")
-        check(not eng.queue and eng.slots == [None] * LM_SERVE_SLOTS, f"{name}: engine not drained")
-        check(all(0 <= t < cfg.vocab for r in done for t in r.out_tokens), f"{name}: token ids")
-        check(bool(torch.stack(finite).all()), f"{name}: non-finite logits")
-        check(eng.prefill_calls == LM_SERVE_REQUESTS
-              and eng.prefill_tokens == sum(len(p) - 1 for p in prompts)
-              and eng.decode_calls == len(tick_ev), f"{name}: engine counters")
-        check(launches == want and sum(by_instance.values()) == launches,
-              f"{name}: B6 launches {launches} ({by_instance}) != the code's {want}")
-        check(others == 0, f"{name}: decode launched B4/B5 {others} times")
-        peak = torch.cuda.max_memory_allocated(dev)
-        drive = {"requests": len(done), "prompt_tokens": sum(len(p) for p in prompts),
-                 "new_tokens": toks, "ticks": eng.decode_calls,
-                 "prefill_calls": eng.prefill_calls, "prefill_tokens": eng.prefill_tokens,
-                 "wall_s": wall_s, "tokens_per_s": toks / wall_s}
-
-        # one profiled window of ticks with every slot busy
-        for rid, p in enumerate(prompts[:LM_SERVE_SLOTS]):
-            eng.submit(Request(rid=100 + rid, prompt=p[:8], max_new_tokens=8))
-        eng._admit()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(4):
-                eng.tick()
-            torch.cuda.synchronize()
-            prof_tick_ms = (time.perf_counter() - t0) * 1e3 / 4
-        by_name = device_ms_by_name(prof, 4)
-        dev_ms = sum(by_name.values())
-        check(dev_ms > 0, f"{name}: the profiler saw no device time in a tick")
-        b6_ms = sum(v for k, v in by_name.items() if LM_KERNEL_TRACE_NAMES["rmsnorm"] in k)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-
-        def spread(v):
-            return {"median": statistics.median(v), "mean": statistics.fmean(v), "min": min(v),
-                    "max": max(v), "n": len(v)}
-
-        print(json.dumps({"lm_serve": {name: {
-            "layers": cfg.n_layers, "params": n_params, "dtype": cfg.dtype,
-            "slots": LM_SERVE_SLOTS, "max_seq": LM_SERVE_MAX_SEQ, **drive,
-            "tick_ms_cuda_events": spread(tick_ev), "tick_ms_host": spread(tick_host),
-            # each admission round: its ms over the requests it admitted
-            "prefill_ms_per_request": [ms / n for ms, n in prefill_ms],
-            "prefill_ms_per_token": sum(ms for ms, _ in prefill_ms)
-            / max(1, drive["prefill_tokens"]),
-            "profiled_tick": {"wall_ms": prof_tick_ms, "device_ms": dev_ms, "b6_ms": b6_ms,
-                              "idle_share": max(0.0, 1 - dev_ms / prof_tick_ms),
-                              # against the unprofiled ticks (CUDA events, median of the drive)
-                              "idle_share_vs_event_tick":
-                                  max(0.0, 1 - dev_ms / statistics.median(tick_ev)),
-                              "top": [[k[:80], v] for k, v in top]},
-            "peak_mem_bytes": peak, "init_peak_mem_bytes": init_peak, "b6_launches": launches, "b6_launches_expected": want,
-            "b6_launches_by_instance": by_instance, "card": smi,
-        }}}))
-        del eng, params, arch, prof
-        torch.cuda.empty_cache()
+    b6_launches = sum(lm_serve_drive(dev, smi, name) for name in LM_SERVE_ARCHS)
 
     # the launcher's LM mode on the card (the reduced configs, as the reference's)
     for name in LM_SERVE_ARCHS:
@@ -3534,6 +3673,157 @@ def lm_serve_phase(dev, smi: str) -> int:
         check(rc == 0 and "served 8 requests, 128 tokens" in buf.getvalue()
               and "on cuda" in buf.getvalue(), f"LM serve launcher --arch {name}")
     return b6_launches
+
+
+def dense_phase(dev, smi: str) -> dict:
+    """Phase 20: StableLM-2-1.6B, CodeQwen1.5-7B and Command-R 35B on the
+    card (see DENSE_ARCHS).  (a) At full width, 2 layers, fp32, seed-0
+    params with DENSE_NOISE on every bias and norm leaf: LM_SERVE_FORCED
+    tokens teacher-forced through ``decode_step`` against ``apply_lm`` (B4
+    ``simt_fp32_dh64`` or ``_dh128``; B6 for CodeQwen alone) within
+    DECODE_BAR, and each config's planted fault (DENSE_FAULTS) over it.
+    (b) Each trained as phase 7 at DENSE_TRAIN_DEPTH (``lm_train_phase``:
+    B4 twice per attention layer per microbatch, B6 only for the RMSNorm
+    config) with the modeled state of one more layer printed beside the
+    card.  (c) Each served at full width and depth (``lm_serve_drive``),
+    Command-R last, after everything earlier phases hold is released.  (d)
+    Both launchers with their default ``--arch`` on the card.  Returns the
+    launches of (b) and (c) by kernel."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.lm as lm_mod
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import reset_launches as reset_b4_launches
+    from repro_torch.kernels.rmsnorm.kernel import reset_launches as reset_b6_launches
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models.registry import bundle_from_cfg, load_config, with_depth
+
+    t_phase = time.perf_counter()
+    real_rope, real_qkv, real_layer = attn_mod._rope_qk, attn_mod._qkv, lm_mod._decode_layer
+
+    def whole_head_rotary(q, k, positions, cfg):
+        return real_rope(q, k, positions, dataclasses.replace(cfg, rope_pct=1.0))
+
+    def no_b_v(params, x, cfg):
+        return real_qkv(dict(params, b_v=torch.zeros_like(params["b_v"])), x, cfg)
+
+    def sequential_block(p, kind, x, cache, cfg, seq_sharded):
+        return real_layer(dict(p, norm2=p["norm1"]), kind, x, cache,
+                          dataclasses.replace(cfg, parallel_block=False), seq_sharded)
+
+    faults = {"whole_head_rotary": (attn_mod, "_rope_qk", whole_head_rotary),
+              "no_b_v": (attn_mod, "_qkv", no_b_v),
+              "sequential_block": (lm_mod, "_decode_layer", sequential_block)}
+
+    def add_noise(params, gen) -> list:
+        """DENSE_NOISE x N(0, 1) added to every bias and norm leaf; their paths."""
+        noisy = [(path, leaf) for path, leaf in named_leaves(params)
+                 if "/b_" in path or "norm" in path]
+        for _, leaf in noisy:
+            leaf.add_(DENSE_NOISE * torch.randn(leaf.shape, generator=gen, device=dev))
+        return [path for path, _ in noisy]
+
+    # -- (a) decode against the full forward, full width, 2 layers, fp32 -------------
+    checks = {}
+    rng = np.random.default_rng(SEED + 20)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    t0 = time.perf_counter()
+    for name in DENSE_ARCHS:
+        cfg = dataclasses.replace(with_depth(load_config(name), LM_GRAD_DEPTH), dtype="float32",
+                                  param_dtype="float32")
+        arch = bundle_from_cfg(cfg, dev)
+        params = arch.init(SEED)
+        noisy = add_noise(params, gen)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, LM_SERVE_FORCED))).to(dev)
+        with torch.no_grad():
+            reset_b4_launches()
+            reset_b6_launches()
+            err, ratio = decode_vs_forward(cfg, arch, params, tokens)
+            b4 = {k: v for k, v in flash_attention_fwd.launches_by_instance.items() if v}
+            b6 = rmsnorm.launches
+            fault = DENSE_FAULTS[name]
+            f_err, f_ratio = decode_vs_forward(cfg, arch, params, tokens,
+                                               swapped(faults[fault]))
+        want_b4 = "simt_fp32_dh64" if cfg.resolved_head_dim <= 64 else "simt_fp32_dh128"
+        checks[name] = dict(noisy_leaves=noisy, decode_vs_forward_err=err,
+                            decode_vs_forward_ratio=ratio, forward_b4=b4, b6_launches=b6,
+                            planted=fault, planted_err=f_err, planted_ratio=f_ratio)
+        print(f"{name} (full width, {LM_GRAD_DEPTH} layers, fp32, noise on {len(noisy)} bias and "
+              f"norm leaves): {LM_SERVE_FORCED} tokens teacher-forced through decode_step vs "
+              f"apply_lm (B4 {b4}, B6 {b6}): max err {err:.3e}, {ratio:.4f} of the bar "
+              f"{DECODE_BAR}; planted fault ({fault}): max err {f_err:.3e}, {f_ratio:.1f}x the bar")
+        check(ratio <= 1.0, f"{name} decode vs the full forward: {err} over {DECODE_BAR}")
+        check(set(b4) == {want_b4}, f"{name} fp32 forward: B4 instances {b4}, not {want_b4}")
+        check((b6 > 0) == (cfg.norm == "rmsnorm"), f"{name}: B6 launches {b6} ({cfg.norm})")
+        check(f_ratio > 1.0, f"{name}: the decode check passed the planted fault {fault} ({f_err})")
+        del arch, params, tokens
+        torch.cuda.empty_cache()
+    print(json.dumps({"dense_decode_checks": checks}))
+    times = {"a": time.perf_counter() - t0}
+    print(f"phase 20 (a): {times['a']:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
+          f"allocated after it")
+
+    # -- (b) training at full width, as phase 7 ----------------------------------------
+    t0 = time.perf_counter()
+    launches = {"flash_attention_fwd": 0, "rmsnorm": 0}
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    for name in DENSE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = LMRun(f"dense_train_{name}", name, DENSE_TRAIN_DEPTH[name], LM_SEQ, LM_BATCH,
+                    LM_ACCUM, DENSE_TRAIN_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, LM_SEQ)
+        got = lm_train_phase(dev, smi, run)
+        peak = torch.cuda.max_memory_allocated(dev)
+        for k in launches:
+            launches[k] += got["launches"].get(k, 0)
+        full = load_config(name)
+        # a layer's params: the run's, less the embedding, the head and the final norm
+        outside = full.vocab * full.d_model * (1 + (not full.tie_embeddings)) \
+            + full.d_model * (1 + (full.norm == "layernorm"))
+        layer_params = (got["params"] - outside) // run.depth
+        print(json.dumps({"dense_train_depth": {name: {
+            "depth": run.depth, "of": full.n_layers, "peak_mem_bytes": peak,
+            "layer_params": layer_params, "state_bytes_per_layer": 16 * layer_params,
+            "modeled_peak_one_layer_deeper": peak + 16 * layer_params,
+            "card_bytes": card_bytes}}}))
+        if run.depth < full.n_layers:
+            print(f"{name}: trained {run.depth} of {full.n_layers} layers, peak "
+                  f"{peak / 1e9:.3f} GB; one layer more adds ~{16 * layer_params / 1e9:.2f} GB of "
+                  f"state ({(peak + 16 * layer_params) / 1e9:.2f} of {card_bytes / 1e9:.2f} GB)")
+
+    times["b"] = time.perf_counter() - t0
+    print(f"phase 20 (b): {times['b']:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
+          f"allocated after it")
+
+    # -- (c) serving at full width and depth ---------------------------------------------
+    t0 = time.perf_counter()
+    for name in DENSE_ARCHS:
+        launches["rmsnorm"] += lm_serve_drive(dev, smi, name)
+    times["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # -- (d) both launchers with their default --arch (stablelm-1.6b, reduced) --------
+    for launcher, argv, want in (
+            (serve_launcher, ["--requests", "8"], "served 8 requests, 128 tokens"),
+            (train_launcher, ["--steps", "2", "--batch", "2", "--seq", "32"],
+             "done: steps=2 restarts=0")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = launcher.main(argv)
+        print(buf.getvalue(), end="")
+        check(rc == 0 and want in buf.getvalue() and "stablelm-1.6b" in buf.getvalue()
+              and "cuda" in buf.getvalue(), f"{launcher.__name__} with its default --arch")
+    times["d"] = time.perf_counter() - t0
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s ((a)-(d): "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in times.items())})")
+    print(json.dumps({"phase20_launches": launches}))
+    return launches
 
 
 def main() -> int:
@@ -3990,7 +4280,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
 
     fa_rows, fa_err, rms_rows, rms_err = attn_norm_kernel_phase(dev)
-    lm_launches = lm_train_phase(dev, smi, QWEN_RUN)
+    lm_launches = lm_train_phase(dev, smi, QWEN_RUN)["launches"]
     real_fa = attn_mod.flash_attention
 
     def zero_one_kv_head(q, k, v, *a):
@@ -4007,7 +4297,7 @@ def main() -> int:
 
     # -- 9-11. the SSD kernel; the Mamba2 training path ---------------------
     ssd_rows, ssd_err = ssd_kernel_phase(dev)
-    mamba_launches = lm_train_phase(dev, smi, MAMBA_RUN)
+    mamba_launches = lm_train_phase(dev, smi, MAMBA_RUN)["launches"]
 
     def zero_head0_y_intra(*a, **k):
         y, *rest = ssd_chunk_fwd(*a, **k)
@@ -4144,7 +4434,8 @@ def main() -> int:
 
     reset_counts()
     check(train_launcher.main([
-        "--groups", "auto", "--hw-profile", AUTO_HW, "--grid", str(GRID[0]),
+        "--arch", "yolov2-tiled", "--groups", "auto", "--hw-profile", AUTO_HW,
+        "--grid", str(GRID[0]),
         "--input-hw", str(INPUT_HW[0]), "--depth", "16", "--batch", str(TRAIN_BATCH),
         "--grad-accum", str(TRAIN_ACCUM), "--steps", "1"]) == 0, "train launcher")
     launcher_train = {f.__name__: f.launches for f in (conv2d_tile, conv2d_dgrad_tile,
@@ -4267,7 +4558,8 @@ def main() -> int:
     # (d) the launchers with the overlap schedule and an auto crossover
     reset_counts()
     check(train_launcher.main([
-        "--schedule", "overlap", "--crossover", "auto", "--hw-profile", HYBRID_HW,
+        "--arch", "yolov2-tiled", "--schedule", "overlap", "--crossover", "auto",
+        "--hw-profile", HYBRID_HW,
         "--groups", "auto", "--grid", str(GRID[0]), "--input-hw", str(INPUT_HW[0]),
         "--depth", "16", "--batch", str(TRAIN_BATCH), "--grad-accum", str(TRAIN_ACCUM),
         "--steps", "1"]) == 0, "train launcher, overlap and crossover")
@@ -4353,7 +4645,7 @@ def main() -> int:
     # (c) the launcher, as a user runs the cluster
     reset_counts()
     check(train_launcher.main([
-        "--grid", "2", "--cluster", "pi3x3+jetson", "--groups", "auto",
+        "--arch", "yolov2-tiled", "--grid", "2", "--cluster", "pi3x3+jetson", "--groups", "auto",
         "--input-hw", str(INPUT_HW[0]), "--depth", "16", "--batch", str(TRAIN_BATCH),
         "--grad-accum", str(TRAIN_ACCUM), "--steps", "1"]) == 0, "train launcher, pi3x3+jetson")
     launcher14 = {f.__name__: f.launches for f in (conv2d_tile, conv2d_dgrad_tile,
@@ -4544,6 +4836,9 @@ def main() -> int:
     # -- 19. LM serving ------------------------------------------------------------
     b6_serve = lm_serve_phase(dev, smi)
 
+    # -- 20. the dense configs: StableLM-2-1.6B, CodeQwen1.5-7B, Command-R 35B -------
+    dense = dense_phase(dev, smi)
+
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",
                      "src/repro/kernels/conv2d_tiled/kernel.py:140", rows,
@@ -4562,11 +4857,12 @@ def main() -> int:
         kernel_entry("flash_attention_fwd",
                      "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
                      "src/repro/kernels/flash_attention/kernel.py:127", fa_rows[:1],
-                     lm_launches["flash_attention_fwd"] + lm18["flash_attention_fwd"], fa_err),
+                     lm_launches["flash_attention_fwd"] + lm18["flash_attention_fwd"]
+                     + dense["flash_attention_fwd"], fa_err),
         kernel_entry("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                      "src/repro/kernels/rmsnorm/kernel.py:42", rms_rows[:1],
                      lm_launches["rmsnorm"] + mamba_launches["rmsnorm"] + lm18["rmsnorm"]
-                     + b6_serve,
+                     + b6_serve + dense["rmsnorm"],
                      rms_err),
         kernel_entry("ssd_chunk_fwd", "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk_fwd.cu",
                      "src/repro/kernels/ssd_chunk/kernel.py:98", ssd_rows[:1],

@@ -4,13 +4,25 @@
 ``SeedSequence([seed, step])`` stream, so both packages see the same bits
 for the same (seed, step), and a restart replays the stream.  ``place``
 moves a batch to the run's device (the reference's sharded device_put is a
-plain copy on one device).  The prefetching ``SyntheticStream`` is not
-ported: the driver calls ``make_batch(step)`` itself.
+plain copy on one device).  ``SyntheticStream`` draws the same stream on a
+prefetching thread, from ``start_step`` on, and places each batch on
+``device`` as it is taken.  The launchers' driver calls ``make_batch(step)``
+itself, as the reference's does.
 """
 from __future__ import annotations
 
+import queue
+import threading
+from typing import Iterator
+
 import numpy as np
 import torch
+
+from repro_torch.launch.mesh import resolve_device
+
+# how long ``SyntheticStream.close`` waits for its worker (which checks for
+# the stop at least every 0.5 s) to end
+CLOSE_TIMEOUT_S = 5.0
 
 
 def synth_like(spec, rng: np.random.Generator, vocab: int) -> np.ndarray:
@@ -34,3 +46,43 @@ def synth_batch(specs: dict, cfg, seed: int, step: int) -> dict:
 
 def place(batch: dict, device: str | torch.device) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+
+
+class SyntheticStream:
+    """Deterministic, prefetching batch stream: ``(step, batch)`` for steps
+    ``start_step, start_step + 1, ...``, each ``synth_batch(specs, cfg, seed,
+    step)`` placed on ``device``.  A daemon thread keeps up to ``prefetch``
+    host batches ready; ``close()`` stops it and waits for it to end."""
+
+    def __init__(self, specs: dict, cfg, seed: int = 0, start_step: int = 0, prefetch: int = 2,
+                 device: str | torch.device = "cuda"):
+        self.specs = specs
+        self.cfg = cfg
+        self.seed = seed
+        self.step = start_step
+        self.device = resolve_device(device)
+        self._q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self) -> None:
+        step = self.step
+        while not self._stop.is_set():
+            batch = synth_batch(self.specs, self.cfg, self.seed, step)
+            try:
+                self._q.put((step, batch), timeout=0.5)
+                step += 1
+            except queue.Full:
+                continue
+
+    def __iter__(self) -> Iterator[tuple[int, dict]]:
+        return self
+
+    def __next__(self) -> tuple[int, dict]:
+        step, batch = self._q.get()
+        return step, place(batch, self.device)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(CLOSE_TIMEOUT_S)

@@ -6,9 +6,8 @@ LM (default): the slot engine (``serve/engine.py``) on the reduced config
 of ``--arch``, as the reference's ``_lm_main``: seeded params, ``--requests``
 synthetic prompts of 4-11 tokens, greedy (or ``--temperature``) answers of
 ``--max-new`` tokens over ``--slots`` slots; prints each request's first
-tokens and the tokens per second.  The reference's default ``--arch`` is
-``stablelm-1.6b``, which the port does not register yet (ROADMAP A.18.2:
-it raises so); the port's default is ``qwen2-7b``.
+tokens and the tokens per second.  The default ``--arch`` is the
+reference's, ``stablelm-1.6b``.
 
 ``--cnn``: builds a YOLOv2-prefix
 plan over an n x m virtual tile grid (``--groups auto``: the cost model's
@@ -55,7 +54,7 @@ def _lm_main(args) -> int:
     for r in sorted(done, key=lambda r: r.rid):
         print(f"req {r.rid}: prompt_len={len(r.prompt)} out={r.out_tokens[:8]}...")
     print(f"served {len(done)} requests, {toks} tokens in {dt:.2f}s ({toks/dt:.1f} tok/s) "
-          f"on {arch.device}")
+          f"on {arch.device}, arch {args.arch}")
     return 0
 
 
@@ -123,8 +122,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--cnn", action="store_true",
                     help="tiled-CNN image serving instead of the LM engine")
-    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-7b",
-                    help="LM: 'qwen2-7b' or 'mamba2-780m' (the other ids name their ROADMAP item)")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="stablelm-1.6b",
+                    help="LM: 'stablelm-1.6b' (default), 'qwen2-7b', 'codeqwen1.5-7b', "
+                         "'command-r-35b' or 'mamba2-780m' (the other ids name their ROADMAP "
+                         "item)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)

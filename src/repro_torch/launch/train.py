@@ -1,5 +1,7 @@
-"""Training launcher: ``python -m repro_torch.launch.train --arch yolov2-tiled``,
-``--arch qwen2-7b`` or ``--arch mamba2-780m``.
+"""Training launcher: ``python -m repro_torch.launch.train [--arch <id>]``:
+``yolov2-tiled`` (the paper's tiled CNN) or an LM id the registry resolves
+(``stablelm-1.6b``, the default as in the reference's launcher,
+``qwen2-7b``, ``codeqwen1.5-7b``, ``command-r-35b``, ``mamba2-780m``).
 
 The tiled-CNN path of ``repro/launch/train.py``: plans a YOLOv2 prefix over
 an n x n virtual tile grid, builds the trainer (deferred per-batch weight
@@ -36,10 +38,10 @@ live state; the LM path has no replan, so a drop there is fatal.
 with ``--resume auto`` a shared default directory would make every run
 resume from (or fail on) another run's checkpoint of another geometry.
 
-LM mode (``--arch qwen2-7b`` or ``mamba2-780m``; the other LM ids are A.18):
-the reduced config unless ``--full``, ``--seq`` x ``--batch`` tokens a step from
-``data.synthetic.synth_batch`` (the reference's stream), ``--remat``,
-``--grad-accum``, ``--optimizer``, under the same driver.
+LM mode (any LM id the registry resolves; the others name their ROADMAP
+A.18 item): the reduced config unless ``--full``, ``--seq`` x ``--batch``
+tokens a step from ``data.synthetic.synth_batch`` (the reference's stream),
+``--remat``, ``--grad-accum``, ``--optimizer``, under the same driver.
 """
 from __future__ import annotations
 
@@ -83,9 +85,10 @@ def _resolve_pipeline(spec: str):
 
 
 def _add_args(ap: argparse.ArgumentParser) -> None:
-    ap.add_argument("--arch", default=TILED_ARCH,
-                    help=f"'{TILED_ARCH}', 'qwen2-7b' or 'mamba2-780m' (the other LM ids are "
-                         "ROADMAP A.18)")
+    ap.add_argument("--arch", default="stablelm-1.6b",
+                    help=f"'{TILED_ARCH}' or an LM id: 'stablelm-1.6b' (default, as the "
+                         "reference's), 'qwen2-7b', 'codeqwen1.5-7b', 'command-r-35b', "
+                         "'mamba2-780m' (the other LM ids name their ROADMAP A.18 item)")
     ap.add_argument("--full", action="store_true", help="LM: the full published config")
     ap.add_argument("--seq", type=int, default=64, help="LM: tokens per sequence")
     ap.add_argument("--remat", default="full", choices=["none", "full", "dots"],

@@ -3,9 +3,10 @@
 
 ``rms_norm`` runs the fused RMSNorm op (B6: the CUDA kernel on a card, its
 plain version on the CPU).  Initialisers draw from an explicit
-``torch.Generator`` (on the device the params live on): the port's numbers
-differ from ``jax.random``'s, so parity tests hand JAX's params over with
-``interop.lm_params_from_jax``.
+``torch.Generator`` (on the device the params live on) in fp32, scale the
+draw in place and cast it, so a draw holds one fp32 buffer: the port's
+numbers differ from ``jax.random``'s, so parity tests hand JAX's params
+over with ``interop.lm_params_from_jax``.
 """
 from __future__ import annotations
 
@@ -92,9 +93,9 @@ def dense_init(gen: torch.Generator, shape, dtype, fan_in=None) -> torch.Tensor:
     fan_in = fan_in if fan_in is not None else shape[0]
     scale = (1.0 / max(fan_in, 1)) ** 0.5
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)

@@ -126,18 +126,13 @@ def _init_layer(gen: torch.Generator, kind: LayerKind, cfg: ModelConfig, dtype) 
     return p
 
 
-def _stack(trees: list):
-    """Trees of equal structure -> one tree of leaves stacked on a new dim 0."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    if isinstance(first, list):
-        return [_stack([t[i] for t in trees]) for i in range(len(first))]
-    return torch.stack(trees)
-
-
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """Params on ``gen.device``, drawn from ``gen`` in a fixed order."""
+    """Params on ``gen.device``, drawn from ``gen`` in a fixed order: the
+    embedding, the head, then each segment's layers repeat by repeat.  Each
+    stacked layer leaf is allocated once, at its final dtype, when the
+    segment's first repeat has been drawn, and every repeat is copied into
+    its row: so the embedding's fp32 draw never meets the layers, and init
+    holds the params plus one layer and one fp32 draw at most."""
     if cfg.mtp_depth > 0:
         raise NotImplementedError("multi-token prediction heads (DeepSeek-V3): ROADMAP A.18")
     dtype = cfg.p_dtype
@@ -153,10 +148,14 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
         params["lm_head"] = embed_init(gen, (cfg.vocab, cfg.d_model), dtype)
     seg_params = []
     for seg in segs:
-        reps = [[_init_layer(gen, kind, cfg, dtype) for kind in seg.block]
-                for _ in range(seg.repeats)]
-        seg_params.append(_stack(reps))
-        del reps
+        stacked = None
+        for r in range(seg.repeats):
+            block = [_init_layer(gen, kind, cfg, dtype) for kind in seg.block]
+            if stacked is None:
+                stacked = tree_map(lambda a: a.new_empty((seg.repeats, *a.shape)), block)
+            tree_map(lambda dst, src: dst[r].copy_(src), stacked, block)
+            del block
+        seg_params.append(stacked)
     params["segments"] = seg_params
     return params
 

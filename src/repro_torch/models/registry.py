@@ -1,9 +1,12 @@
 """Architecture registry: ``--arch <id>`` -> config + model functions + specs
 (``repro/models/registry.py``).
 
-Only the configs the port can run resolve: ``qwen2-7b`` (dense GQA) and
-``mamba2-780m`` (SSD).  Every other id of the reference raises naming its
-ROADMAP A.18 item (``ROADMAP_ITEMS``).  A bundle's ``init(seed)`` draws its
+Only the configs the port can run resolve: the dense ``qwen2-7b`` (GQA,
+QKV bias), ``codeqwen1.5-7b`` (MHA, QKV bias), ``stablelm-1.6b``
+(LayerNorm, partial rotary) and ``command-r-35b`` (LayerNorm, parallel
+attention||MLP block, tied embeddings), and ``mamba2-780m`` (SSD).  Every
+other id of the reference raises naming its ROADMAP A.18 item
+(``ROADMAP_ITEMS``).  A bundle's ``init(seed)`` draws its
 params on the bundle's device; ``decode_fn`` and ``make_caches`` are the
 serving surface (``models/lm.py:decode_step``, ``init_caches`` on the
 bundle's device), and ``cache_specs`` gives the caches' shapes and dtypes
@@ -22,10 +25,10 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import resolve_device
 
 ARCH_MODULES = {
-    "codeqwen1.5-7b": None,
-    "stablelm-1.6b": None,
+    "codeqwen1.5-7b": "repro_torch.configs.codeqwen1_5_7b",
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
-    "command-r-35b": None,
+    "command-r-35b": "repro_torch.configs.command_r_35b",
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
     "mixtral-8x22b": None,
     "deepseek-v3-671b": None,
@@ -37,9 +40,6 @@ ARCH_MODULES = {
 ARCH_IDS = list(ARCH_MODULES)
 # the ROADMAP item that ports each id still missing
 ROADMAP_ITEMS = {
-    "codeqwen1.5-7b": "A.18.2",
-    "stablelm-1.6b": "A.18.2",
-    "command-r-35b": "A.18.2",
     "mixtral-8x22b": "A.18.3",
     "jamba-v0.1-52b": "A.18.3",
     "deepseek-v3-671b": "A.18.4",

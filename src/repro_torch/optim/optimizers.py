@@ -11,7 +11,8 @@ throughout.
 
 ``inplace=True`` (``clip_by_global_norm``, ``adamw``, ``sgd``) writes the
 results into the tensors it was given instead - the same arithmetic and the
-same bits, with only one leaf's temporaries alive at a time.  The LM trainer
+same bits, with only one leaf's temporaries alive at a time (adamw: one
+slice of ``INPLACE_CHUNK`` elements of a leaf).  The LM trainer
 uses it, since a full-width model's fp32 moments and gradients leave no room
 for a second copy; it stands where the reference's launcher donates the
 state to ``jit``.  The caller must not reuse the old state.
@@ -83,6 +84,10 @@ def _zeros_acc(params):
         p.shape, dtype=torch.promote_types(p.dtype, torch.float32), device=p.device), params)
 
 
+# elements of a leaf the in-place AdamW updates at a time
+INPLACE_CHUNK = 1 << 26
+
+
 def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, inplace: bool = False) -> Optimizer:
     def init(params):
         return {"m": _zeros_acc(params), "v": _zeros_acc(params), "t": 0}
@@ -100,7 +105,7 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, inplace: bool = False) ->
             step = step + weight_decay * _acc(p)
             return (_acc(p) - lr * step).to(p.dtype), m2, v2
 
-        def upd_inplace(g, m, v, p):
+        def upd_chunk(g, m, v, p):
             # upd's operations in upd's order, each rounded as there
             g = _acc(g)
             m.mul_(b1).add_((1 - b1) * g)
@@ -108,6 +113,14 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, inplace: bool = False) ->
             step = (m / bc1).div_(torch.sqrt(v / bc2).add_(eps))
             step.add_(weight_decay * _acc(p)).mul_(lr)
             p.copy_(_acc(p) - step)
+
+        def upd_inplace(g, m, v, p):
+            # elementwise, so a leaf updated a slice at a time keeps upd's
+            # bits, and its temporaries stay a slice's size (a 256000-row
+            # embedding's fp32 temporaries are 8.4 GB each)
+            flat = [t.view(-1) for t in (g, m, v, p)]
+            for i in range(0, p.numel(), INPLACE_CHUNK):
+                upd_chunk(*(t[i:i + INPLACE_CHUNK] for t in flat))
             return p, m, v
 
         new_p, new_m, new_v = tree_unzip(tree_map(upd_inplace if inplace else upd, grads,

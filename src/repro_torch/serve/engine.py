@@ -60,11 +60,14 @@ def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator] = N
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def _has_full_kv_cache(cfg) -> bool:
-    """Whether some layer keeps a full (not sliding-window) KV cache, whose
-    rows end at ``max_seq``."""
+def _kv_cache_bounds_positions(cfg, max_seq: int) -> bool:
+    """Whether some layer's KV cache cannot hold every position a request
+    may feed past ``max_seq``: a full (not sliding-window) cache, whose rows
+    end at ``max_seq``, or a window cache of ``min(max_seq, swa_window)``
+    rows that is shorter than its window, whose ring then drops context the
+    window should see (ROADMAP C.11)."""
     kinds = [layer_kind(cfg, i) for i in range(cfg.n_layers)]
-    return any(k.mixer == "attn" and not k.swa for k in kinds)
+    return any(k.mixer == "attn" and (not k.swa or max_seq < cfg.swa_window) for k in kinds)
 
 
 class ServeEngine:
@@ -92,24 +95,29 @@ class ServeEngine:
         self.prefill_calls = 0          # admissions: one prefill each
         self.prefill_tokens = 0         # prompt tokens replayed (batch-1 decode_fn calls)
         self.decode_calls = 0           # ticks that decoded the slots
-        self._full_kv = _has_full_kv_cache(arch.cfg)
+        self._bounded = _kv_cache_bounds_positions(arch.cfg, max_seq)
         self._finished: list[Request] = []
 
     # -- request lifecycle ----------------------------------------------------
 
     def submit(self, req: Request) -> None:
-        """Queue ``req``.  A model with a full KV cache must hold every
-        position the request feeds: the prompt and all but the last answer
-        token.  The reference serves such a request and writes each position
-        past ``max_seq`` into the last row, so its answer no longer sees its
-        own context; here it is refused up front (ROADMAP C.10)."""
+        """Queue ``req``.  A model whose KV cache bounds the positions must
+        hold every position the request feeds: the prompt and all but the
+        last answer token.  The reference serves such a request: a full cache
+        writes each position past ``max_seq`` into the last row (ROADMAP
+        C.10), and a window cache shorter than its window wraps its ring
+        early (C.11), so the answer no longer sees its own context.  Here it
+        is refused up front."""
         if len(req.prompt) < 1:
             raise ValueError(f"request {req.rid}: empty prompt")
         fed = len(req.prompt) + req.max_new_tokens - 1
-        if self._full_kv and fed > self.max_seq:
+        if self._bounded and fed > self.max_seq:
+            window = self.arch.cfg.swa_window
             raise ValueError(f"request {req.rid}: {len(req.prompt)} prompt + "
                              f"{req.max_new_tokens} new tokens need {fed} cache rows; "
-                             f"max_seq is {self.max_seq}")
+                             f"max_seq is {self.max_seq}"
+                             + (f" (below the sliding window of {window})"
+                                if window is not None and self.max_seq < window else ""))
         self.queue.append(req)
 
     def _prefill(self, i: int, prompt: np.ndarray) -> None:

@@ -581,8 +581,8 @@ def test_launcher_resume_always_without_checkpoint_raises(tmp_path):
     from repro_torch.launch.train import main
 
     with pytest.raises(FileNotFoundError, match="resume='always'"):
-        main(["--device", "cpu", "--input-hw", "32", "--depth", "4", "--steps", "1",
-              "--ckpt-dir", str(tmp_path), "--resume", "always"])
+        main(["--arch", "yolov2-tiled", "--device", "cpu", "--input-hw", "32", "--depth", "4",
+              "--steps", "1", "--ckpt-dir", str(tmp_path), "--resume", "always"])
 
 
 def test_reference_launcher_replan_faults_c7():
@@ -617,9 +617,9 @@ def test_launcher_drop_then_resume_on_the_cluster(tmp_path, capsys):
     leaf, and a second run resumes to step 6."""
     from repro_torch.launch.train import main
 
-    base = ["--device", "cpu", "--input-hw", "64", "--depth", "8", "--grid", "2", "--cluster",
-            "pi3x3+jetson", "--groups", "auto", "--batch", "4", "--grad-accum", "2",
-            "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
+    base = ["--arch", "yolov2-tiled", "--device", "cpu", "--input-hw", "64", "--depth", "8",
+            "--grid", "2", "--cluster", "pi3x3+jetson", "--groups", "auto", "--batch", "4",
+            "--grad-accum", "2", "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
     assert main(base + ["--steps", "4", "--fault-schedule",
                         "drop:jetson@1,slow:0.2@2,ckpt-crash@2,corrupt@3"]) == 0
     out = capsys.readouterr().out

@@ -419,8 +419,9 @@ def test_launchers_plan_and_run_hybrid_and_overlap_on_cpu(capsys):
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.train import main as train_main
 
-    base = ["--device", "cpu", "--input-hw", "64", "--depth", "8", "--grid", "2", "--steps", "1",
-            "--batch", "8", "--grad-accum", "2", "--optimizer", "sgd"]
+    base = ["--arch", "yolov2-tiled", "--device", "cpu", "--input-hw", "64", "--depth", "8",
+            "--grid", "2", "--steps", "1", "--batch", "8", "--grad-accum", "2", "--optimizer",
+            "sgd"]
     assert train_main(base + ["--groups", "auto", "--crossover", "auto", "--hw-profile",
                               "tpu-v5e-chip", "--schedule", "overlap"]) == 0
     out = capsys.readouterr().out

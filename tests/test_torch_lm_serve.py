@@ -14,6 +14,8 @@ RMSNorm (B6) takes its plain version.
   ``apply_lm`` for each prompt alone, whatever else is served; slot
   recycling, EOS, ``max_new_tokens``, ``prefill_calls``; the sampler;
 - the launcher's LM mode on the CPU;
+- a window cache shorter than its window: the reference's decode drops
+  context (ROADMAP C.11), the port's engine refuses the request;
 - the reference engine's faults beside the port's repair: a request's answer
   depends on the other slots (ROADMAP C.8), and the prompt's last token is
   fed twice (C.9).
@@ -324,6 +326,45 @@ def test_engine_refuses_a_request_its_full_kv_cache_cannot_hold():
             teng.Request(rid=0, prompt=np.arange(12, dtype=np.int32), max_new_tokens=12))
 
 
+def _over_the_bar(got, want):
+    """Per position (axis 1): whether some logit misses ``DECODE_BAR``."""
+    d = np.abs(got - want) - (DECODE_BAR["atol"] + DECODE_BAR["rtol"] * np.abs(want))
+    return (d > 0).any(axis=(0, 2))
+
+
+def test_reference_ring_shorter_than_its_window_drops_context_c11():
+    """ROADMAP C.11: at ``max_seq`` 4 a layer of window 8 keeps a ring of 4
+    rows, so the reference's decode at positions >= 4 sees only the last 4
+    and misses its own full forward; at ``max_seq`` 8 (ring = window) it
+    holds.  The port's engine refuses a request whose positions such a ring
+    would drop, and serves the same request at ``max_seq`` 8."""
+    jcfg, tcfg = CFGS["qwen2_swa"]
+    jp, _ = _params("qwen2_swa")
+    tokens = np.random.default_rng(3).integers(0, jcfg.vocab, (1, 14), dtype=np.int32)
+    full = np.asarray((jlm.apply_lm(jp, jnp.asarray(tokens), jcfg)
+                       @ jlm.lm_head_weight(jp, jcfg).T).astype(jnp.float32))
+    dec = jax.jit(lambda c, t: jlm.decode_step(jp, t, c, jcfg))
+    for max_seq in (4, SWA):
+        caches = jlm.init_caches(jcfg, 1, max_seq, jcfg.act_dtype)
+        assert caches[0].k.shape[1] == max_seq            # min(max_seq, window) rows
+        outs = []
+        for t in range(tokens.shape[1]):
+            logits, caches = dec(caches, jnp.asarray(tokens[:, t:t + 1]))
+            outs.append(np.asarray(logits)[:, 0])
+        over = _over_the_bar(np.stack(outs, 1), full)
+        if max_seq == SWA:
+            assert not over.any(), np.flatnonzero(over)
+        else:
+            assert not over[:4].any() and over[4:].all(), over
+    prompt = tokens[0, :10]
+    with pytest.raises(ValueError, match=r"max_seq is 4 \(below the sliding window of 8\)"):
+        _engine("qwen2_swa", batch=1, max_seq=4).submit(
+            teng.Request(rid=0, prompt=prompt, max_new_tokens=4))
+    eng = _engine("qwen2_swa", batch=1, max_seq=SWA)
+    eng.submit(teng.Request(rid=0, prompt=prompt, max_new_tokens=4))
+    assert eng.run()[0].out_tokens == _greedy_reference("qwen2_swa")(prompt, 4)
+
+
 def test_sampler():
     logits = torch.from_numpy(np.random.default_rng(6).standard_normal((4, 2, 50)).astype(
         np.float32))
@@ -372,11 +413,15 @@ def test_lm_serve_launcher_runs_on_cpu(arch, capsys):
     assert out.count("req ") == 3
 
 
-def test_lm_serve_launcher_names_the_roadmap_item_of_an_unported_arch():
+def test_lm_serve_launcher_names_the_roadmap_item_of_an_unported_arch(capsys):
+    """``mixtral-8x22b`` names its item; ``stablelm-1.6b`` (A.18.2, ported)
+    serves, and is the default ``--arch``, as in the reference."""
     from repro_torch.launch.serve import main
 
-    with pytest.raises(NotImplementedError, match="A.18.2"):
-        main(["--device", "cpu", "--arch", "stablelm-1.6b"])
+    for argv in (["--arch", "stablelm-1.6b"], []):
+        assert main(["--device", "cpu", "--requests", "2", "--max-new", "3"] + argv) == 0
+        out = capsys.readouterr().out
+        assert "served 2 requests, 6 tokens" in out and "on cpu" in out
     with pytest.raises(NotImplementedError, match="A.18.3"):
         main(["--device", "cpu", "--arch", "mixtral-8x22b"])
 

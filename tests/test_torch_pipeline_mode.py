@@ -482,4 +482,4 @@ def test_launcher_plans_and_trains_a_pipeline_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "stages=((0, 2), (2, 4))" in out and "steps=1 restarts=0" in out
     with pytest.raises(SystemExit, match="--pipeline must be 'none', 'auto', or a stage count"):
-        train_launcher.main(["--device", "cpu", "--pipeline", "two"])
+        train_launcher.main(["--arch", "yolov2-tiled", "--device", "cpu", "--pipeline", "two"])

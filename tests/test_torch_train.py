@@ -624,8 +624,9 @@ def test_launcher_trains_on_cpu(capsys):
     (["--wire-codec", "topk:0.5", "--grad-accum", "2", "--batch", "4"], "A.14"),
     (["--ckpt-dir", "ckpt"], "A.15"),
     (["--fault-schedule", "drop:1@2"], "A.15"),
-    (["--arch", "stablelm-1.6b"], "A.18"),
+    (["--arch", "mixtral-8x22b"], "A.18"),
     (["--optimizer", "adafactor"], "A.18"),
+    (["--arch", "stablelm-1.6b"], "A.18.2"),
 ])
 def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys, tmp_path):
     """Unported flags raise naming their ROADMAP item; the flags of A.10
@@ -637,10 +638,12 @@ def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys, tm
     ``--pipeline 2`` without ``--groups auto`` is refused by the planner.
     A.15's flags run: ``--ckpt-dir`` (a fresh directory) saves the last
     step, and ``--fault-schedule drop:1@2`` over 3 steps replans the 2x2
-    grid onto the three survivors."""
+    grid onto the three survivors.  A.18.2's ``--arch stablelm-1.6b`` trains
+    its reduced config; an LM id still to port (``mixtral-8x22b``) raises."""
     from repro_torch.launch.train import main
 
-    base = ["--device", "cpu", "--input-hw", "32", "--depth", "4", "--steps", "1", "--grid", "2"]
+    base = ["--arch", "yolov2-tiled", "--device", "cpu", "--input-hw", "32", "--depth", "4",
+            "--steps", "1", "--grid", "2"]
     if item == "A.15":
         if flags[0] == "--ckpt-dir":
             assert main(base + ["--ckpt-dir", str(tmp_path / flags[1])]) == 0
@@ -660,12 +663,12 @@ def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys, tm
             with pytest.raises(ValueError, match="pipeline tails are planner-assigned"):
                 main(base + flags)
         return
-    if item in ("A.10", "A.11", "A.12", "A.14"):
+    if item in ("A.10", "A.11", "A.12", "A.14", "A.18.2"):
         assert main(base + flags) == 0
         out = capsys.readouterr().out
         plan = {"A.10": "schedule=overlap", "A.11": "crossover=2",
                 "A.12": "rows=(0, 4, 32) cols=(0, 4, 32) uniform=False cluster=pi3x3+jetson",
-                "A.14": f"wire_codec={flags[1]}"}[item]
+                "A.14": f"wire_codec={flags[1]}", "A.18.2": "model: stablelm-1.6b layers=2"}[item]
         assert plan in out and "done: steps=1 restarts=0" in out
         return
     with pytest.raises(NotImplementedError, match=item):
@@ -751,4 +754,4 @@ def test_launcher_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        main(["--input-hw", "32", "--depth", "4", "--steps", "1"])
+        main(["--arch", "yolov2-tiled", "--input-hw", "32", "--depth", "4", "--steps", "1"])
