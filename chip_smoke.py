@@ -49,11 +49,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``{"train": ...}`` line and a profile of one step;
 6. flash attention (B4) and RMSNorm (B6) against their plain versions on the
    card, TF32 off: at the LM runs' shapes (q (2, 2048, 28, 128), k/v
-   (2, 2048, 4, 128), causal, and phase 20's three training shapes in
-   bf16; RMSNorm at every width of each trained RMSNorm config
-   (``b6_widths``): Qwen2-7B's (4096, 3584), bf16 and fp32, Mamba2-780m's
-   (8192, 1536) and (8192, 3072) and CodeQwen1.5-7B's (4096, 4096) in each
-   run's types, the same bits on a rerun), on every case of ``tests/test_kernels.py``'s ``FA_CASES`` in its
+   (2, 2048, 4, 128), causal, and phases 20's and 21's training shapes in
+   bf16 - Mixtral-8x22B's q (2, 2048, 48, 128), kv 8, with its window of
+   4096, and Jamba-v0.1's q (2, 2048, 32, 128), kv 8 - and Mixtral's heads
+   at ``FA_WINDOW_SEQ`` tokens, where the window masks (held against the
+   plain version alone: its fp64 logits do not fit the card); RMSNorm at
+   every width of each trained RMSNorm config (``b6_widths``): Qwen2-7B's
+   (4096, 3584), bf16 and fp32, Mamba2-780m's (8192, 1536) and (8192,
+   3072), CodeQwen1.5-7B's (4096, 4096), Mixtral's (4096, 6144) and
+   Jamba's (4096, 4096) and (4096, 8192) in each run's types, the same bits
+   on a rerun), on every case of ``tests/test_kernels.py``'s ``FA_CASES`` in its
    own dtype and in bf16, on ``FA_BF16_EDGE_CASES``, on ``RMS_CASES`` and
    ``RMS_EDGE_CASES`` (every B6 instance, the scalar one included), each
    case naming the instance it took; kernel, plain version and one library
@@ -84,7 +89,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 9. the SSD intra-chunk kernel (B5) against its plain version on the card,
    TF32 off: at the Mamba2 run's shape (x (2, 4096, 48, 64), B/C (2, 4096,
    1, 128), chunk 256) in bf16 (``wgmma_bf16``) and fp32 (``simt_fp32``),
-   on every case of ``tests/test_kernels.py``'s ``SSD_CASES`` and a
+   at Jamba-v0.1's (``SSD_JAMBA_SHAPE``: x (2, 2048, 128, 64), B/C (2, 2048,
+   1, 16)) in bf16, where 48 of each 64-wide C and B panel are TMA's zero
+   fill, on every case of ``tests/test_kernels.py``'s ``SSD_CASES`` and a
    T < chunk case, each naming its instance (``kernel.py:ssd_instance``),
    held to the fp32 bar or, where an output misses it, to
    ``SSD_FP64_FACTOR`` against fp64, with decay and pref bitwise equal to
@@ -273,8 +280,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    after ``gc.collect()`` and ``empty_cache()``), init's peak held within
    ``INIT_PEAK_SLACK`` of the params plus the largest fp32 draw; (d) both
    launchers with their default ``--arch`` (``stablelm-1.6b``) on the card.
-   B4 is also timed in phase 6 at each config's bf16 training shape.  The
-   ``{"kernels": ...}`` line's launches include phases 12's to 20's.
+   B4 is also timed in phase 6 at each config's bf16 training shape;
+21. the Mixture-of-Experts configs of ROADMAP A.18.3 (``moe_phase``):
+   Mixtral-8x22B (MoE on every layer, window 4096) and Jamba-v0.1-52B
+   (Mamba layers, attention without RoPE at offset 4 of each period of 8,
+   MoE on odd layers) at their published widths, seed-0 params: (a) at
+   ``MOE_CHECK_DEPTH`` layers (2; 5, which reaches Jamba's attention), fp32,
+   one sequence of ``LM_SERVE_FORCED`` tokens (128 assignments: dropless,
+   as every decode) teacher-forced through ``decode_step`` against
+   ``apply_lm``, the logits and every attention layer's output within
+   ``DECODE_BAR`` (``decode_vs_forward_mixes``), the planted faults of
+   ``MOE_FAULTS`` over it (top-k weights left unnormalised, every
+   assignment sent to the next expert, RoPE on Jamba's attention layer),
+   and phase 19(c)'s beside-vs-alone check; (b) trained as phase 7 with
+   adafactor (in place, by slices) at ``MOE_TRAIN_DEPTH`` (3 and 5
+   layers), with the share of assignments dropped by capacity in step 1's
+   forward and the modeled state of one layer more beside the card; (c)
+   served as phase 19 (``lm_serve_drive``) at ``MOE_SERVE_DEPTH`` (13 of
+   56 and 16 of 32 layers), with the tick's weight-read bound; (d) both
+   launchers with each id (reduced) and ``--optimizer adafactor``.  The
+   ``{"kernels": ...}`` line's launches include phases 12's to 21's.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -411,6 +436,9 @@ SSD_CASES = [                # tests/test_kernels.py:456: b, t, h, p, g, n, chun
 ]
 SSD_SHORT_CASE = (2, 96, 4, 16, 1, 8, 256)     # T < chunk: one chunk of 96 (not a multiple of 64)
 SSD_MODEL_SHAPE = (MAMBA_BATCH // MAMBA_ACCUM, MAMBA_SEQ, 48, 64, 1, 128, 256)
+# Jamba-v0.1's SSD at phase 21's training microbatch: d_inner 8192 / head
+# dim 64 = 128 heads, one group, d_state 16
+SSD_JAMBA_SHAPE = (2, 2048, 128, 64, 1, 16, 256)
 # SSD_FP64_RULE.  B5 is held to the fp32 bar (TOL_FP32) against its plain
 # version, output by output.  An output that misses it is held against an
 # fp64 evaluation of the plain version instead: its max |err| from fp64 must
@@ -600,8 +628,10 @@ LM_SERVE_FORCED = 64
 DECODE_BAR = dict(atol=2e-2, rtol=2e-2)
 RMS_DECODE_ROWS = (1, 4, 8)
 # Init's peak, beyond what was allocated before it, may exceed the params'
-# bytes plus its largest fp32 draw (the embedding) by this factor: the
-# streaming init (models/lm.py) also holds one layer's tree and its draw.
+# bytes plus its largest fp32 draw (the embedding, or an MoE layer's expert
+# tensor) by this factor: the streaming init (models/lm.py) casts each draw
+# into its stacked row, and holds beside them a layer's undrawn leaves
+# (norms, biases) until they are copied into theirs.
 INIT_PEAK_SLACK = 1.05
 # Phase 20: the three dense configs of ROADMAP A.18.2 (``dense_phase``) at
 # their published widths, seed-0 params.  (a) The decode check of phase 19
@@ -622,6 +652,34 @@ DENSE_NOISE = 0.3
 # query row alike, which softmax cannot see), or runs the sequential block
 DENSE_FAULTS = {"stablelm-1.6b": "whole_head_rotary", "codeqwen1.5-7b": "no_b_v",
                 "command-r-35b": "sequential_block"}
+# Phase 21: the Mixture-of-Experts configs of ROADMAP A.18.3 (``moe_phase``)
+# at their published widths, seed-0 params.  (a) The decode check of phase
+# 19 in fp32 at MOE_CHECK_DEPTH (Jamba's 5 layers reach its attention layer
+# at offset 4), batch 1 and LM_SERVE_FORCED tokens, so the forward's 64 x 2
+# assignments take the dropless floor as every decode does; beside the
+# logits it holds each attention layer's output (the mixer's, before the
+# residual add: an MoE layer adds outputs in the hundreds to the residual,
+# beside which a wrong attention output is small in the logits), and the
+# planted faults (MOE_FAULTS) must take one of the two over the bar; and
+# phase 19(c)'s beside-vs-alone check.  (b) Training as phase 7 with
+# adafactor at MOE_TRAIN_DEPTH, the deepest cut whose state fits 80 GB at
+# MOE_STATE_BYTES a param (bf16 params, fp32 gradient accumulators, the
+# bf16 gradient tree of a microbatch; adafactor's factored statistics are
+# small) beside the activations.  (c) Serving with phase 19's traffic at
+# MOE_SERVE_DEPTH: Mixtral's deepest cut whose init peak (params plus the
+# fp32 draw of one expert tensor, 3.22 GB) stays near 75 GB, Jamba's two
+# whole periods (both attention layers).
+MOE_ARCHS = ("mixtral-8x22b", "jamba-v0.1-52b")
+MOE_CHECK_DEPTH = {"mixtral-8x22b": 2, "jamba-v0.1-52b": 5}
+MOE_TRAIN_DEPTH = {"mixtral-8x22b": 3, "jamba-v0.1-52b": 5}
+MOE_SERVE_DEPTH = {"mixtral-8x22b": 13, "jamba-v0.1-52b": 16}
+MOE_TRAIN_STEPS = 3
+MOE_OPTIMIZER = "adafactor"
+MOE_STATE_BYTES = 8
+MOE_FAULTS = {"mixtral-8x22b": ("unnormalised_topk", "next_expert"),
+              "jamba-v0.1-52b": ("unnormalised_topk", "next_expert", "rope_on_attention")}
+# B4 at Mixtral's heads where its window of 4096 masks (phase 6)
+FA_WINDOW_SEQ = 8192
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2107,7 +2165,7 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
     def tol(dt):
         return TOL_BF16 if dt == torch.bfloat16 else TOL_FP32
 
-    def fa_case(b, tq, tk, hq, hkv, dh, causal, window, dt, timed):
+    def fa_case(b, tq, tk, hq, hkv, dh, causal, window, dt, timed, fp64=True):
         q, k, v = (torch.randn(s, generator=gen, device=dev).to(dt)
                    for s in ((b, tq, hq, dh), (b, tk, hkv, dh), (b, tk, hkv, dh)))
         got = flash_attention_fwd(q, k, v, causal=causal, window=window)
@@ -2145,7 +2203,7 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
                 bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
                 fp32_core_bound_ms=fp32_ms, bf16_tensor_core_bound_ms=tc_ms)
             del qs, ks, vs, mask
-            if dt == torch.bfloat16:
+            if dt == torch.bfloat16 and fp64:
                 # kernel and plain version (fp32 math, output rounded to bf16)
                 # against an fp64 evaluation of the plain version
                 exact = attention_ref(q.double(), k.double(), v.double(), causal=causal,
@@ -2160,20 +2218,26 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
         return row
 
     fa_rows = []
-    # the Qwen2-7B run's shape, bf16 (its path) and fp32; then phase 20's
-    # training shapes in bf16, timed beside it
+    # the Qwen2-7B run's shape, bf16 (its path) and fp32; then phases 20's
+    # and 21's training shapes in bf16, timed beside it (Mixtral's with its
+    # window of 4096, which masks nothing at 2048 but takes the window path),
+    # and Mixtral's heads at 8192 tokens, where the window masks.  At 8192
+    # the fp64 evaluation of the plain version (96 GB of logits) does not
+    # fit the card: that shape is held against the plain version alone.
     def heads(name):
         c = load_config(name)
-        return c.n_heads, c.n_kv_heads, c.resolved_head_dim
+        return c.n_heads, c.n_kv_heads, c.resolved_head_dim, c.swa_window
 
-    shapes = [(heads(LM_ARCH), dt) for dt in (torch.bfloat16, torch.float32)]
-    shapes += [(heads(name), torch.bfloat16) for name in DENSE_ARCHS]
-    for (hq, hkv, dh), dt in shapes:
-        r = fa_case(LM_BATCH // LM_ACCUM, LM_SEQ, LM_SEQ, hq, hkv, dh, True, None, dt, True)
+    mb = LM_BATCH // LM_ACCUM
+    shapes = [(mb, LM_SEQ, heads(LM_ARCH), dt, True) for dt in (torch.bfloat16, torch.float32)]
+    shapes += [(mb, LM_SEQ, heads(name), torch.bfloat16, True) for name in DENSE_ARCHS + MOE_ARCHS]
+    shapes += [(1, FA_WINDOW_SEQ, heads("mixtral-8x22b"), torch.bfloat16, False)]
+    for b, t, (hq, hkv, dh, window), dt, fp64 in shapes:
+        r = fa_case(b, t, t, hq, hkv, dh, True, window, dt, True, fp64)
         fa_rows.append(r)
         fp64 = (f"; vs fp64: kernel {r['kernel_err_vs_fp64']:.3e} plain "
                 f"{r['plain_err_vs_fp64']:.3e}" if "kernel_err_vs_fp64" in r else "")
-        print(f"  B4 {r['shape']} causal {r['dtype']} ({r['instance']}): err "
+        print(f"  B4 {r['shape']} causal window {r['window']} {r['dtype']} ({r['instance']}): err "
               f"{r['max_abs_err']:.2e} ({r['err_ratio']:.3f} of tol) kernel {r['ms']:.4f} ms plain "
               f"{r['plain_ms']:.3f} sdpa {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
               f"({r['bound_by']}; fp32 cores {r['fp32_core_bound_ms']:.3f}, bf16 tensor cores "
@@ -2246,10 +2310,11 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
 
     # the path's shapes: every B6 width (``b6_widths``) of each config the
     # smoke trains (Qwen2-7B 3584; Mamba2-780m 1536 and its gated norm's 3072;
-    # CodeQwen1.5-7B 4096) at its run's microbatch rows, x and scale in the
-    # run's types; Qwen2-7B's in fp32 too
+    # CodeQwen1.5-7B 4096; Mixtral-8x22B 6144; Jamba-v0.1 4096 and its gated
+    # norm's 8192) at its run's microbatch rows, x and scale in the run's
+    # types; Qwen2-7B's in fp32 too
     path = []
-    for name in (LM_ARCH, MAMBA_ARCH) + DENSE_ARCHS:
+    for name in (LM_ARCH, MAMBA_ARCH) + DENSE_ARCHS + MOE_ARCHS:
         cfg = load_config(name)
         rows = (MAMBA_BATCH // MAMBA_ACCUM * MAMBA_SEQ if name == MAMBA_ARCH
                 else LM_BATCH // LM_ACCUM * LM_SEQ)
@@ -2290,6 +2355,7 @@ class LMRun:
     grad_depth: int     # the gradient check's depth (full width, fp32 / fp64)
     grad_batch: int     # ... and its one microbatch: grad_batch x grad_seq tokens
     grad_seq: int
+    optimizer: str = "adamw"
 
 
 QWEN_RUN = LMRun("lm_train", LM_ARCH, LM_DEPTH, LM_SEQ, LM_BATCH, LM_ACCUM, LM_STEPS,
@@ -2304,14 +2370,15 @@ LM_KERNEL_TRACE_NAMES = {"flash_attention_fwd": "flash_attention_fwd_",   # both
 
 def b6_norms_per_layer(cfg, i: int) -> int:
     """B6 launches of layer ``i``'s forward (or one decode call): norm1, and
-    norm2 where the layer has an MLP outside a parallel block, when the
-    config's norm is RMSNorm (a LayerNorm runs as plain torch, as the
-    reference leaves it to XLA); a Mamba2 block's gated RMSNorm always."""
+    norm2 where the layer has an MLP or experts outside a parallel block,
+    when the config's norm is RMSNorm (a LayerNorm runs as plain torch, as
+    the reference leaves it to XLA); a Mamba2 block's gated RMSNorm always."""
     from repro_torch.models.lm import layer_kind
 
+    kind = layer_kind(cfg, i)
     rms = cfg.norm == "rmsnorm"
-    return (rms * (1 + (cfg.d_ff > 0 and not cfg.parallel_block))
-            + (layer_kind(cfg, i).mixer == "mamba"))
+    return (rms * (1 + ((cfg.d_ff > 0 or kind.moe) and not cfg.parallel_block))
+            + (kind.mixer == "mamba"))
 
 
 def b6_widths(cfg) -> list:
@@ -2400,10 +2467,13 @@ def named_leaves(tree, prefix=""):
 
 
 def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
-    """Phase 7 (Qwen2-7B, 12 layers), 10 (Mamba2-780m, 48 layers) or 20 (the
-    dense configs): full width, bf16, AdamW, ``run.steps`` steps.  Returns
-    the launch count of each kernel in the training run, the params and the
-    run's peak memory."""
+    """Phase 7 (Qwen2-7B, 12 layers), 10 (Mamba2-780m, 48 layers), 20 (the
+    dense configs) or 21 (the MoE configs): full width, bf16, ``run.steps``
+    steps of ``run.optimizer``, the config cut to its first ``run.depth``
+    layers.  Returns the launch count of each kernel in the training run, the
+    params, the params of one layer of each kind the run holds, the run's
+    peak memory, and for an MoE config the share of (token, k) assignments
+    its step-1 forward dropped by capacity."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2415,16 +2485,17 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm
     from repro_torch.kernels.ssd_chunk.kernel import reset_launches as reset_b5_launches
     from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
-    from repro_torch.models.lm import lm_loss
-    from repro_torch.models.registry import bundle_from_cfg, load_config, with_depth
+    from repro_torch.models import mlp as mlp_mod
+    from repro_torch.models.lm import lm_loss, plan_segments
+    from repro_torch.models.registry import bundle_from_cfg, load_config
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.runtime.driver import DriverConfig, run_training
     from repro_torch.train.trainer import make_train_step
 
-    cfg = with_depth(load_config(run.arch), run.depth)
+    cfg = dataclasses.replace(load_config(run.arch), n_layers=run.depth)
     arch = bundle_from_cfg(cfg, dev)
     pcfg = ParallelConfig(grad_accum=run.accum, remat="full")
-    tcfg = TrainConfig(warmup=0, steps=run.steps, seed=SEED)
+    tcfg = TrainConfig(warmup=0, steps=run.steps, seed=SEED, optimizer=run.optimizer)
     specs = arch.input_specs(ShapeConfig("smoke", run.seq, run.batch, "train"))
 
     def make_batch(step):
@@ -2468,6 +2539,11 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     run_s = time.monotonic() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     n_params = sum(p.numel() for p in tree_leaves(last["state"].params))
+    # one layer's params by its kind (mixer, moe, swa): a stacked row each
+    kind_params = {}
+    for seg, seg_p in zip(plan_segments(cfg), last["state"].params["segments"]):
+        for kind, layer in zip(seg.block, seg_p):
+            kind_params[dataclasses.astuple(kind)] = sum(t[0].numel() for t in tree_leaves(layer))
     step_ms = [a.elapsed_time(b) for a, b in events]
     losses = [float(m["loss"]) for m in logged]
     gnorms = [float(m["grad_norm"]) for m in logged]
@@ -2528,11 +2604,25 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     # of step 1
     params0 = arch.init(SEED)
     b0 = make_batch(0)
-    with torch.no_grad(), plain_lm_kernels():
+    # the MoE layers' capacity drops in that forward (the run's step 1)
+    kept = []
+    real_queue = mlp_mod.queue_positions
+
+    def counted(topi, n_experts, cap):
+        pos, keep = real_queue(topi, n_experts, cap)
+        kept.append((keep.sum(), keep.numel()))
+        return pos, keep
+
+    with torch.no_grad(), plain_lm_kernels(), swapped((mlp_mod, "queue_positions", counted)):
         plain = [float(lm_loss(params0, {k: v.chunk(run.accum)[i] for k, v in b0.items()},
                                cfg, remat="none"))
                  for i in range(run.accum)]
     plain_loss = sum(plain) / run.accum
+    dropped = (1 - float(sum(k for k, _ in kept)) / sum(n for _, n in kept)) if kept else None
+    if kept:
+        print(f"{run.key}: {len(kept)} MoE dispatches in step 1's forward, capacity "
+              f"{mlp_mod.moe_capacity(run.batch // run.accum * run.seq, cfg.moe)} an expert: "
+              f"{dropped:.4%} of the (token, k) assignments dropped")
     loss_rel = abs(losses[0] - plain_loss) / abs(plain_loss)
     print(f"{run.key} step-1 loss {losses[0]:.6f} vs the plain-kernel forward {plain_loss:.6f} "
           f"(microbatches {plain}): rel err {loss_rel:.2e}, bar {LM_LOSS_RTOL}")
@@ -2553,9 +2643,11 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
         "tokens_per_s_cuda_events": tokens / (med / 1e3),
         "peak_mem_bytes": peak, "launches": launches, "launches_expected": want,
         "b4_launches_by_instance": b4_instances, "b5_launches_by_instance": b5_instances,
-        "b6_launches_by_instance": b6_instances, "card": smi,
+        "b6_launches_by_instance": b6_instances, "moe_dropped_share": dropped, "card": smi,
     }}))
-    return {"launches": launches, "params": n_params, "peak_mem_bytes": peak}
+    return {"launches": launches, "params": n_params, "kind_params": kind_params,
+            "peak_mem_bytes": peak, "moe_dropped_share": dropped,
+            "step_ms_median": med, "tokens_per_s": tokens / (med / 1e3)}
 
 
 def lm_grad_phase(dev, run: LMRun, fault, must_fail, note: str) -> dict:
@@ -2751,8 +2843,12 @@ def ssd_kernel_phase(dev) -> tuple[list, float]:
         return row
 
     rows = []
-    for dt in (torch.bfloat16, torch.float32):      # the Mamba2 run's shape: bf16 is its path
-        r = case(SSD_MODEL_SHAPE, dt, True)
+    # the Mamba2 run's shape (bf16 is its path, and fp32), then Jamba's in
+    # bf16: N = 16, so 48 of each 64-wide C and B panel are the TMA box's
+    # zero fill
+    for shape, dt in ((SSD_MODEL_SHAPE, torch.bfloat16), (SSD_MODEL_SHAPE, torch.float32),
+                      (SSD_JAMBA_SHAPE, torch.bfloat16)):
+        r = case(shape, dt, True)
         rows.append(r)
         print(f"  B5 {r['shape']} {r['dtype']} ({r['instance']}, slab {r['slab']}): err "
               f"{r['max_abs_err']:.2e} ({r['rule']}: {r['err_ratio']}) kernel {r['ms']:.4f} ms "
@@ -2761,8 +2857,8 @@ def ssd_kernel_phase(dev) -> tuple[list, float]:
               f"{r['fp32_core_bound_ms']:.4f}, bf16 tensor cores "
               f"{r['bf16_tensor_core_bound_ms']:.4f}; C·Bᵀ counted per head "
               f"{r['flops_cb_per_head'] / 1e9:.1f} GFLOP)")
-    check(rows[0]["instance"] == "wgmma_bf16" and rows[1]["instance"] == "simt_fp32",
-          f"B5 at the model shape: {[r['instance'] for r in rows]}")
+    check([r["instance"] for r in rows] == ["wgmma_bf16", "simt_fp32", "wgmma_bf16"],
+          f"B5 at the model shapes: {[r['instance'] for r in rows]}")
     seen = set()
     for shape in SSD_CASES + [SSD_SHORT_CASE]:
         for dt in (torch.float32, torch.bfloat16):
@@ -3339,16 +3435,66 @@ def decode_vs_forward(cfg, arch, params, tokens, decode_fault=None) -> tuple[flo
     return err_stats(dec, full, **DECODE_BAR)
 
 
-def lm_serve_drive(dev, smi: str, name: str) -> int:
-    """One full-width, full-depth serving cell (phases 19 and 20): ``name``'s
-    published config in bf16, seed-0 params, LM_SERVE_REQUESTS prompts of
+def served_logits(arch, params, reqs, target):
+    """The target request's logits at each of its ticks and its answer, from
+    a 3-slot engine serving ``reqs`` ((rid, prompt, new) triples)."""
+    import torch
+
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(arch, params, batch=3, max_seq=LM_SERVE_FORCED)
+    seen = []
+    real = engine_mod.sample_logits
+
+    def record(logits, generator, temperature):
+        slot = [i for i, r in enumerate(eng.slots) if r is not None and r.rid == target]
+        if slot:
+            seen.append(logits[slot[0], -1].clone())
+        return real(logits, generator, temperature)
+
+    with swapped((engine_mod, "sample_logits", record)):
+        for rid, p, n in reqs:
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=n))
+        done = {r.rid: r for r in eng.run()}
+    return torch.stack(seen), done[target].out_tokens
+
+
+def beside_vs_alone(name, cfg, arch, params, rng) -> dict:
+    """Phases 19(c) and 21(a): a request admitted into a recycled slot beside
+    two others gives, bit for bit, the logits and tokens it gives alone in
+    the same 3-slot engine."""
+    import numpy as np
+    import torch
+
+    p = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (5, 9, 7, 11)]
+    beside = [(0, p[0], 3), (1, p[1], 12), (2, p[2], 12), (3, p[3], 8)]
+    got, got_toks = served_logits(arch, params, beside, 3)
+    want, want_toks = served_logits(arch, params, [(3, p[3], 8)], 3)
+    same = got.shape == want.shape == (8, cfg.vocab) and bool(torch.equal(got, want))
+    c_err = float((got - want).abs().max()) if got.shape == want.shape else float("nan")
+    print(f"{name}: a request admitted into a recycled slot beside two others vs alone: "
+          f"logits {'the same bits' if same else f'differ by up to {c_err:.3e}'}, tokens "
+          f"{'equal' if got_toks == want_toks else 'differ'}")
+    check(same and got_toks == want_toks,
+          f"{name}: the request's logits or tokens depend on the other slots ({c_err})")
+    return dict(beside_vs_alone_err=c_err, beside_vs_alone_same_bits=same,
+                beside_vs_alone_same_tokens=got_toks == want_toks)
+
+
+def lm_serve_drive(dev, smi: str, name: str, depth=None) -> int:
+    """One full-width serving cell (phases 19-21): ``name``'s published
+    config in bf16 (cut to its first ``depth`` layers where given), seed-0
+    params, LM_SERVE_REQUESTS prompts of
     LM_SERVE_PROMPT tokens (numpy's default_rng(SEED)), LM_SERVE_NEW greedy
     tokens each over LM_SERVE_SLOTS slots.  Checks every request complete,
     finite logits, B6's launches the code's count (``b6_per_decode_call`` x
     the prefill tokens plus the ticks) and no B4 or B5 launch, and init's
     peak (beyond what was allocated before it) within INIT_PEAK_SLACK of
     the params' bytes plus the largest fp32 draw; prints the ``{"lm_serve":
-    ...}`` line.  Returns B6's launches."""
+    ...}`` line, with the tick's bound: every weight a decode call reads (all
+    but the embedding table, of which it gathers a row a slot) over HBM
+    bandwidth.  Returns B6's launches."""
     import gc
 
     import numpy as np
@@ -3367,6 +3513,8 @@ def lm_serve_drive(dev, smi: str, name: str) -> int:
     from repro_torch.serve.engine import Request, ServeEngine
 
     cfg = load_config(name)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     arch = bundle_from_cfg(cfg, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3389,6 +3537,9 @@ def lm_serve_drive(dev, smi: str, name: str) -> int:
                            + [t[0].numel() for t in tree_leaves(params["segments"])])
     init_peak = torch.cuda.max_memory_allocated(dev)
     init_bar = INIT_PEAK_SLACK * (param_bytes + largest_draw)
+    embed = params["embed"]
+    tick_bound_ms = 1e3 * (param_bytes - embed.numel() * embed.element_size()
+                           * (not cfg.tie_embeddings)) / HBM_BYTES_PER_S
     print(f"{name} init: {n_params / 1e9:.3f} B params ({param_bytes / 1e9:.3f} GB) in "
           f"{init_s:.2f} s, peak {init_peak / 1e9:.3f} GB ({(init_peak - before) / 1e9:.3f} GB "
           f"beyond what was allocated before), bar {init_bar / 1e9:.3f} GB (params + the largest "
@@ -3487,6 +3638,7 @@ def lm_serve_drive(dev, smi: str, name: str) -> int:
         "layers": cfg.n_layers, "params": n_params, "param_bytes": param_bytes,
         "dtype": cfg.dtype, "slots": LM_SERVE_SLOTS, "max_seq": LM_SERVE_MAX_SEQ, **drive,
         "tick_ms_cuda_events": spread(tick_ev), "tick_ms_host": spread(tick_host),
+        "tick_bound_ms_weight_reads": tick_bound_ms,
         # each admission round: its ms over the requests it admitted
         "prefill_ms_per_request": [ms / n for ms, n in prefill_ms],
         "prefill_ms_per_token": sum(ms for ms, _ in prefill_ms)
@@ -3527,7 +3679,6 @@ def lm_serve_phase(dev, smi: str) -> int:
 
     import repro_torch.models.attention as attn_mod
     import repro_torch.models.mamba2 as mamba_mod
-    import repro_torch.serve.engine as engine_mod
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.flash_attention.kernel import reset_launches as reset_b4_launches
     from repro_torch.kernels.rmsnorm.kernel import rms_instance, rmsnorm
@@ -3536,12 +3687,11 @@ def lm_serve_phase(dev, smi: str) -> int:
     from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
     from repro_torch.launch import serve as serve_launcher
     from repro_torch.models.registry import bundle_from_cfg, load_config, with_depth
-    from repro_torch.serve.engine import Request, ServeEngine
 
     # -- (d) B6 at the decode shapes: rows = slots, (B, 1, D) as decode gives it
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
-    # every B6 width of the configs phases 19 and 20 serve
-    widths = sorted({d for name in LM_SERVE_ARCHS + DENSE_ARCHS
+    # every B6 width of the configs phases 19 to 21 serve
+    widths = sorted({d for name in LM_SERVE_ARCHS + DENSE_ARCHS + MOE_ARCHS
                      for d in b6_widths(load_config(name))})
     lib = getattr(F, "rms_norm", None)
     rms_rows = []
@@ -3592,25 +3742,6 @@ def lm_serve_phase(dev, smi: str) -> int:
         state.ssm.copy_(old)
         return out, state
 
-    def served_logits(arch, params, reqs, target):
-        """The target request's logits at each of its ticks and its answer,
-        from a 3-slot engine serving ``reqs`` ((rid, prompt, new) triples)."""
-        eng = ServeEngine(arch, params, batch=3, max_seq=LM_SERVE_FORCED)
-        seen = []
-        real = engine_mod.sample_logits
-
-        def record(logits, generator, temperature):
-            slot = [i for i, r in enumerate(eng.slots) if r is not None and r.rid == target]
-            if slot:
-                seen.append(logits[slot[0], -1].clone())
-            return real(logits, generator, temperature)
-
-        with swapped((engine_mod, "sample_logits", record)):
-            for rid, p, n in reqs:
-                eng.submit(Request(rid=rid, prompt=p, max_new_tokens=n))
-            done = {r.rid: r for r in eng.run()}
-        return torch.stack(seen), done[target].out_tokens
-
     checks = {}
     rng = np.random.default_rng(SEED + 19)
     for name in LM_SERVE_ARCHS:
@@ -3643,19 +3774,7 @@ def lm_serve_phase(dev, smi: str) -> int:
                 check(f_ratio > 1.0, f"{name}: the decode check passed the planted fault {fault} "
                                      f"({f_err})")
             # (c) a request admitted into a recycled slot beside two others, and alone
-            p = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (5, 9, 7, 11)]
-            beside = [(0, p[0], 3), (1, p[1], 12), (2, p[2], 12), (3, p[3], 8)]
-            got, got_toks = served_logits(arch, params, beside, 3)
-            want, want_toks = served_logits(arch, params, [(3, p[3], 8)], 3)
-            same = got.shape == want.shape == (8, cfg.vocab) and bool(torch.equal(got, want))
-            c_err = float((got - want).abs().max()) if got.shape == want.shape else float("nan")
-            out.update(beside_vs_alone_err=c_err, beside_vs_alone_same_bits=same,
-                       beside_vs_alone_same_tokens=got_toks == want_toks)
-            print(f"{name}: a request admitted into a recycled slot beside two others vs alone: "
-                  f"logits {'the same bits' if same else f'differ by up to {c_err:.3e}'}, tokens "
-                  f"{'equal' if got_toks == want_toks else 'differ'}")
-            check(same and got_toks == want_toks,
-                  f"{name}: the request's logits or tokens depend on the other slots ({c_err})")
+            out.update(beside_vs_alone(name, cfg, arch, params, rng))
         checks[name] = out
         del arch, params, tokens
         torch.cuda.empty_cache()
@@ -3823,6 +3942,202 @@ def dense_phase(dev, smi: str) -> dict:
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s ((a)-(d): "
           f"{', '.join(f'{k} {v:.1f}' for k, v in times.items())})")
     print(json.dumps({"phase20_launches": launches}))
+    return launches
+
+
+def decode_vs_forward_mixes(cfg, arch, params, tokens, decode_fault=None) -> dict:
+    """Phase 21(a)'s decode check: ``decode_vs_forward``'s logits, and each
+    attention layer's output (the mixer's, before the residual add), token
+    by token, against the forward's, both at DECODE_BAR.  ``ratio`` is the
+    larger of the two; ``decode_fault`` is applied around the decode alone."""
+    import torch
+
+    import repro_torch.models.attention as attn_mod
+
+    fwd, dec = [], []
+    real_attn, real_dec = attn_mod.attention, attn_mod.decode_attention
+
+    def attention(*a, **k):
+        fwd.append(real_attn(*a, **k))
+        return fwd[-1]
+
+    def decode_attention(*a, **k):
+        out, cache = real_dec(*a, **k)
+        dec.append(out)
+        return out, cache
+
+    with swapped((attn_mod, "attention", attention),
+                 (attn_mod, "decode_attention", decode_attention)):
+        err, ratio = decode_vs_forward(cfg, arch, params, tokens, decode_fault)
+    n = len(fwd)
+    check(n > 0 and len(dec) == n * tokens.shape[1], f"attention calls {n}, {len(dec)}")
+    # decode's calls run token-major: layer j's outputs are every n-th
+    mixes = [err_stats(torch.cat(dec[j::n], dim=1), fwd[j], **DECODE_BAR) for j in range(n)]
+    mix_err, mix_ratio = max(e for e, _ in mixes), max(r for _, r in mixes)
+    return dict(logits_err=err, logits_ratio=ratio, attention_err=mix_err,
+                attention_ratio=mix_ratio, ratio=max(ratio, mix_ratio))
+
+
+def moe_phase(dev, smi: str) -> dict:
+    """Phase 21: Mixtral-8x22B and Jamba-v0.1-52B on the card (see
+    MOE_ARCHS).  (a) At full width, MOE_CHECK_DEPTH layers, fp32, seed-0
+    params: LM_SERVE_FORCED tokens of one sequence teacher-forced through
+    ``decode_step`` against ``apply_lm`` (B4 ``simt_fp32_dh128``, B5
+    ``simt_fp32`` for Jamba, B6), logits and attention outputs within
+    DECODE_BAR (``decode_vs_forward_mixes``), each planted fault of
+    MOE_FAULTS over it, and a request beside two others giving its bits
+    alone.  (b) Each trained as phase 7 with adafactor at MOE_TRAIN_DEPTH
+    (B4 twice per attention layer per microbatch on ``wgmma_bf16_dh128``,
+    B5 likewise per Mamba layer on ``wgmma_bf16``), the share of
+    assignments dropped by capacity, and the modeled state of one layer
+    more beside the card.  (c) Each served at MOE_SERVE_DEPTH
+    (``lm_serve_drive``).  (d) Both launchers with each id (reduced) and
+    ``--optimizer adafactor`` on the card.  Returns the launches of (b) and
+    (c) by kernel."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.mlp as mlp_mod
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import reset_launches as reset_b4_launches
+    from repro_torch.kernels.rmsnorm.kernel import reset_launches as reset_b6_launches
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.kernels.ssd_chunk.kernel import reset_launches as reset_b5_launches
+    from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models.lm import layer_kind
+    from repro_torch.models.registry import bundle_from_cfg, load_config
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    real_route, real_rope = mlp_mod._route, attn_mod._rope_qk
+
+    def unnormalised_topk(router_w, x_flat, m):
+        _, topi, gates = real_route(router_w, x_flat, m)
+        return torch.gather(gates, -1, topi), topi, gates
+
+    def next_expert(router_w, x_flat, m):
+        topw, topi, gates = real_route(router_w, x_flat, m)
+        return topw, (topi + 1) % m.n_experts, gates
+
+    def rope_on_attention(q, k, positions, cfg):
+        return real_rope(q, k, positions, dataclasses.replace(cfg, use_rope=True))
+
+    faults = {"unnormalised_topk": (mlp_mod, "_route", unnormalised_topk),
+              "next_expert": (mlp_mod, "_route", next_expert),
+              "rope_on_attention": (attn_mod, "_rope_qk", rope_on_attention)}
+
+    # -- (a) decode against the full forward, full width, fp32 ---------------------
+    checks = {}
+    rng = np.random.default_rng(SEED + 21)
+    t0 = time.perf_counter()
+    for name in MOE_ARCHS:
+        cfg = dataclasses.replace(load_config(name), n_layers=MOE_CHECK_DEPTH[name],
+                                  dtype="float32", param_dtype="float32")
+        arch = bundle_from_cfg(cfg, dev)
+        params = arch.init(SEED)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_SERVE_FORCED))).to(dev)
+        with torch.no_grad():
+            reset_b4_launches()
+            reset_b5_launches()
+            reset_b6_launches()
+            out = decode_vs_forward_mixes(cfg, arch, params, tokens)
+            kernels = {k: v for f in (flash_attention_fwd, ssd_chunk_fwd)
+                       for k, v in f.launches_by_instance.items() if v}
+            b6 = rmsnorm.launches
+            print(f"{name} (full width, {cfg.n_layers} layers, fp32): {LM_SERVE_FORCED} tokens "
+                  f"teacher-forced through decode_step vs apply_lm ({kernels}, B6 {b6}): logits "
+                  f"max err {out['logits_err']:.3e} ({out['logits_ratio']:.4f} of the bar "
+                  f"{DECODE_BAR}), attention outputs {out['attention_err']:.3e} "
+                  f"({out['attention_ratio']:.4f})")
+            check(out["ratio"] <= 1.0, f"{name} decode vs the full forward: {out}")
+            want = {"simt_fp32_dh128"} | ({"simt_fp32"} if cfg.ssm is not None else set())
+            check(set(kernels) == want and b6 > 0, f"{name} fp32 forward: kernels {kernels}, "
+                                                   f"B6 {b6}")
+            out.update(forward_kernels=kernels, b6_launches=b6)
+            for fault in MOE_FAULTS[name]:
+                f_out = decode_vs_forward_mixes(cfg, arch, params, tokens,
+                                                swapped(faults[fault]))
+                out[f"planted_{fault}"] = f_out
+                print(f"planted fault ({fault}): logits {f_out['logits_ratio']:.1f}x the bar, "
+                      f"attention outputs {f_out['attention_ratio']:.1f}x")
+                check(f_out["ratio"] > 1.0, f"{name}: the decode check passed the planted "
+                                            f"fault {fault} ({f_out})")
+            out.update(beside_vs_alone(name, cfg, arch, params, rng))
+        checks[name] = out
+        del arch, params, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"moe_decode_checks": checks}))
+    times = {"a": time.perf_counter() - t0}
+    print(f"phase 21 (a): {times['a']:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
+          f"allocated after it")
+
+    # -- (b) training at full width, as phase 7, with adafactor ----------------------
+    t0 = time.perf_counter()
+    launches = {"flash_attention_fwd": 0, "ssd_chunk_fwd": 0, "rmsnorm": 0}
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    trained = {}
+    for name in MOE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = LMRun(f"moe_train_{name}", name, MOE_TRAIN_DEPTH[name], LM_SEQ, LM_BATCH,
+                    LM_ACCUM, MOE_TRAIN_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, LM_SEQ,
+                    optimizer=MOE_OPTIMIZER)
+        got = lm_train_phase(dev, smi, run)
+        for k in launches:
+            launches[k] += got["launches"].get(k, 0)
+        full = load_config(name)
+        nxt = got["kind_params"][dataclasses.astuple(layer_kind(full, run.depth))]
+        peak = got["peak_mem_bytes"]
+        trained[name] = {
+            "depth": run.depth, "of": full.n_layers, "params": got["params"],
+            "peak_mem_bytes": peak, "step_ms_cuda_events_median": got["step_ms_median"],
+            "tokens_per_s_cuda_events": got["tokens_per_s"],
+            "moe_dropped_share": got["moe_dropped_share"],
+            "next_layer_params": nxt, "state_bytes_next_layer": MOE_STATE_BYTES * nxt,
+            "modeled_peak_one_layer_deeper": peak + MOE_STATE_BYTES * nxt,
+            "card_bytes": card_bytes}
+        print(f"{name}: trained {run.depth} of {full.n_layers} layers with {MOE_OPTIMIZER}, peak "
+              f"{peak / 1e9:.3f} GB; layer {run.depth} adds ~{MOE_STATE_BYTES * nxt / 1e9:.2f} GB "
+              f"of state ({(peak + MOE_STATE_BYTES * nxt) / 1e9:.2f} of {card_bytes / 1e9:.2f} "
+              f"GB); {got['moe_dropped_share']:.4%} of the assignments dropped by capacity")
+    print(json.dumps({"moe_train": trained}))
+    times["b"] = time.perf_counter() - t0
+    print(f"phase 21 (b): {times['b']:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
+          f"allocated after it")
+
+    # -- (c) serving at full width --------------------------------------------------------
+    t0 = time.perf_counter()
+    for name in MOE_ARCHS:
+        launches["rmsnorm"] += lm_serve_drive(dev, smi, name, MOE_SERVE_DEPTH[name])
+    times["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # -- (d) both launchers with each id (reduced) and adafactor ---------------------
+    for name in MOE_ARCHS:
+        for launcher, argv, want in (
+                (train_launcher, ["--arch", name, "--optimizer", MOE_OPTIMIZER, "--steps", "2",
+                                  "--batch", "2", "--seq", "32"], "done: steps=2 restarts=0"),
+                (serve_launcher, ["--arch", name, "--requests", "8"],
+                 "served 8 requests, 128 tokens")):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = launcher.main(argv)
+            print(buf.getvalue(), end="")
+            text = buf.getvalue()
+            check(rc == 0 and want in text and name in text and "cuda" in text
+                  and (launcher is serve_launcher or f"optimizer={MOE_OPTIMIZER}" in text),
+                  f"{launcher.__name__} --arch {name}")
+    times["d"] = time.perf_counter() - t0
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s ((a)-(d): "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in times.items())})")
+    print(json.dumps({"phase21_launches": launches}))
     return launches
 
 
@@ -4839,6 +5154,9 @@ def main() -> int:
     # -- 20. the dense configs: StableLM-2-1.6B, CodeQwen1.5-7B, Command-R 35B -------
     dense = dense_phase(dev, smi)
 
+    # -- 21. the Mixture-of-Experts configs: Mixtral-8x22B, Jamba-v0.1-52B ----------
+    moe = moe_phase(dev, smi)
+
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",
                      "src/repro/kernels/conv2d_tiled/kernel.py:140", rows,
@@ -4858,15 +5176,15 @@ def main() -> int:
                      "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
                      "src/repro/kernels/flash_attention/kernel.py:127", fa_rows[:1],
                      lm_launches["flash_attention_fwd"] + lm18["flash_attention_fwd"]
-                     + dense["flash_attention_fwd"], fa_err),
+                     + dense["flash_attention_fwd"] + moe["flash_attention_fwd"], fa_err),
         kernel_entry("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                      "src/repro/kernels/rmsnorm/kernel.py:42", rms_rows[:1],
                      lm_launches["rmsnorm"] + mamba_launches["rmsnorm"] + lm18["rmsnorm"]
-                     + b6_serve + dense["rmsnorm"],
+                     + b6_serve + dense["rmsnorm"] + moe["rmsnorm"],
                      rms_err),
         kernel_entry("ssd_chunk_fwd", "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk_fwd.cu",
                      "src/repro/kernels/ssd_chunk/kernel.py:98", ssd_rows[:1],
-                     mamba_launches["ssd_chunk_fwd"], ssd_err),
+                     mamba_launches["ssd_chunk_fwd"] + moe["ssd_chunk_fwd"], ssd_err),
     ]
     check(all(k["launches"] > 0 for k in kernels), f"launches {[k['launches'] for k in kernels]}")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Training launcher: ``python -m repro_torch.launch.train [--arch <id>]``:
 ``yolov2-tiled`` (the paper's tiled CNN) or an LM id the registry resolves
 (``stablelm-1.6b``, the default as in the reference's launcher,
-``qwen2-7b``, ``codeqwen1.5-7b``, ``command-r-35b``, ``mamba2-780m``).
+``qwen2-7b``, ``codeqwen1.5-7b``, ``command-r-35b``, ``mamba2-780m``,
+``mixtral-8x22b``, ``jamba-v0.1-52b``).
 
 The tiled-CNN path of ``repro/launch/train.py``: plans a YOLOv2 prefix over
 an n x n virtual tile grid, builds the trainer (deferred per-batch weight
@@ -88,7 +89,8 @@ def _add_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--arch", default="stablelm-1.6b",
                     help=f"'{TILED_ARCH}' or an LM id: 'stablelm-1.6b' (default, as the "
                          "reference's), 'qwen2-7b', 'codeqwen1.5-7b', 'command-r-35b', "
-                         "'mamba2-780m' (the other LM ids name their ROADMAP A.18 item)")
+                         "'mamba2-780m', 'mixtral-8x22b', 'jamba-v0.1-52b' (the other LM "
+                         "ids name their ROADMAP A.18 item)")
     ap.add_argument("--full", action="store_true", help="LM: the full published config")
     ap.add_argument("--seq", type=int, default=64, help="LM: tokens per sequence")
     ap.add_argument("--remat", default="full", choices=["none", "full", "dots"],
@@ -208,7 +210,7 @@ def _run_tiled(args) -> int:
           f"groups={[(g.start, g.end, g.mode) for g in plan.groups]}"
           + (f" stages={plan.stages}" if plan.stages else "")
           + (f" wire_codec={plan.wire_codec}" if plan.wire_codec != "none" else "")
-          + f" device={arch.mesh.device}")
+          + f" optimizer={args.optimizer} device={arch.mesh.device}")
     print(f"partition: rows={plan.partition.row_bounds} cols={plan.partition.col_bounds} "
           f"uniform={plan.is_uniform}" + (f" cluster={args.cluster}" if args.cluster else ""))
     pcfg = ParallelConfig(grad_accum=args.grad_accum)
@@ -326,7 +328,7 @@ def _run_lm(args) -> int:
     cfg = arch.cfg
     print(f"model: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} heads={cfg.n_heads}/"
           f"{cfg.n_kv_heads} vocab={cfg.vocab} dtype={cfg.dtype} remat={pcfg.remat} "
-          f"device={arch.device}")
+          f"optimizer={tcfg.optimizer} device={arch.device}")
     init_state, train_step = make_train_step(arch, pcfg, tcfg)
     specs = arch.input_specs(shape)
 

@@ -6,9 +6,14 @@ plain version on the CPU).  Initialisers draw from an explicit
 ``torch.Generator`` (on the device the params live on) in fp32, scale the
 draw in place and cast it, so a draw holds one fp32 buffer: the port's
 numbers differ from ``jax.random``'s, so parity tests hand JAX's params
-over with ``interop.lm_params_from_jax``.
+over with ``interop.lm_params_from_jax``.  Inside ``draws_into(sink)`` a
+draw is cast into the tensor ``sink`` hands out for it instead of a new one
+(``models/lm.py:init_lm`` writes each draw into its stacked leaf's row).
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -89,13 +94,35 @@ def apply_mrope(x, positions, theta, sections):
 # ---------------------------------------------------------------------------
 
 
+# the sink of ``draws_into``: (fp32 draw, dtype) -> the tensor that now holds
+# it in ``dtype``; None casts a draw into a new tensor
+_DRAW_SINK: contextvars.ContextVar = contextvars.ContextVar("draw_sink", default=None)
+
+
+@contextlib.contextmanager
+def draws_into(sink):
+    """Within the block, each draw of ``dense_init`` / ``embed_init`` is
+    handed to ``sink(w, dtype)``, which writes it where it belongs and
+    returns that tensor, so no cast copy of a draw is made."""
+    token = _DRAW_SINK.set(sink)
+    try:
+        yield
+    finally:
+        _DRAW_SINK.reset(token)
+
+
+def _cast_draw(w: torch.Tensor, dtype) -> torch.Tensor:
+    sink = _DRAW_SINK.get()
+    return w.to(dtype) if sink is None else sink(w, dtype)
+
+
 def dense_init(gen: torch.Generator, shape, dtype, fan_in=None) -> torch.Tensor:
     fan_in = fan_in if fan_in is not None else shape[0]
     scale = (1.0 / max(fan_in, 1)) ** 0.5
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return w.mul_(scale).to(dtype)
+    return _cast_draw(w.mul_(scale), dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return w.mul_(0.02).to(dtype)
+    return _cast_draw(w.mul_(0.02), dtype)

@@ -15,8 +15,10 @@ left out.
 
 Losses: token-chunked cross-entropy (each chunk checkpointed, so peak
 memory is chunk x vocab, not tokens x vocab).  A layer's mixer is attention
-(``models/attention.py``) or a Mamba2 block (``models/mamba2.py``).  MoE
-layers and their aux loss, MTP heads, VLM patch embeddings and
+(``models/attention.py``) or a Mamba2 block (``models/mamba2.py``); its
+feed-forward a dense MLP or, on an MoE layer, the experts (``models/mlp.py:
+moe``).  As in the reference, ``lm_loss`` adds no router aux loss
+(``aux_weight`` changes nothing).  MTP heads, VLM patch embeddings and
 ``remat="dots"`` raise naming ROADMAP A.18.
 
 Serving: ``init_caches`` (one ``KVCache`` or ``MambaState`` per layer,
@@ -39,9 +41,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import apply_norm, embed_init, init_norm
+from repro_torch.models.common import apply_norm, draws_into, embed_init, init_norm
 from repro_torch.models.mamba2 import MambaState
-from repro_torch.optim.optimizers import tree_map
+from repro_torch.optim.optimizers import tree_leaves, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -101,45 +103,68 @@ def plan_segments(cfg: ModelConfig) -> list[Segment]:
     return segs
 
 
-def _check_supported(kind: LayerKind) -> None:
-    if kind.moe:
-        raise NotImplementedError("Mixture-of-Experts layers: ROADMAP A.18")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 
 def _init_layer(gen: torch.Generator, kind: LayerKind, cfg: ModelConfig, dtype) -> dict:
-    _check_supported(kind)
     p: dict[str, Any] = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, gen.device)}
     if kind.mixer == "attn":
         p["attn"] = attn_mod.init_attention(gen, cfg, dtype)
     else:
         p["mamba"] = mamba_mod.init_mamba(gen, cfg, dtype)
-    if cfg.d_ff > 0 and not cfg.parallel_block:
+    has_ffn = cfg.d_ff > 0 or kind.moe
+    if has_ffn and not cfg.parallel_block:
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, gen.device)
-    if cfg.d_ff > 0:
+    if kind.moe:
+        p["moe"] = mlp_mod.init_moe(gen, cfg, dtype)
+    elif cfg.d_ff > 0:
         p["mlp"] = mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
                                     gated=(cfg.act == "silu"), bias=cfg.mlp_bias)
     return p
 
 
+class _Rows:
+    """The sink of a segment's draws (``models/common.py:draws_into``): at
+    repeat 0 each draw allocates its stacked leaf, in draw order, and lands
+    in row 0; at repeat r the draw of the same order lands in row r.  So a
+    drawn leaf is never held twice, and init's peak is the params plus one
+    fp32 draw."""
+
+    def __init__(self, repeats: int):
+        self.repeats = repeats
+        self.leaves: list[torch.Tensor] = []
+        self.r = self.i = 0
+
+    def start(self, r: int) -> None:
+        self.r, self.i = r, 0
+
+    def __call__(self, w: torch.Tensor, dtype) -> torch.Tensor:
+        if self.r == 0:
+            self.leaves.append(w.new_empty((self.repeats, *w.shape), dtype=dtype))
+        row = self.leaves[self.i][self.r]
+        self.i += 1
+        return row.copy_(w)
+
+    def drawn(self, a: torch.Tensor) -> bool:
+        """Whether ``a`` is a row this sink handed out."""
+        return any(a._base is leaf for leaf in self.leaves)
+
+
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Params on ``gen.device``, drawn from ``gen`` in a fixed order: the
     embedding, the head, then each segment's layers repeat by repeat.  Each
-    stacked layer leaf is allocated once, at its final dtype, when the
-    segment's first repeat has been drawn, and every repeat is copied into
-    its row: so the embedding's fp32 draw never meets the layers, and init
-    holds the params plus one layer and one fp32 draw at most."""
+    stacked layer leaf is allocated once, at its final dtype: a drawn leaf
+    at its first draw, when each draw is cast into its row (``_Rows``), the
+    rest (norms, biases: zeros and ones) after the segment's first repeat,
+    and copied into their rows.  So the embedding's fp32 draw never meets
+    the layers, and init holds the params plus one fp32 draw at most (an
+    MoE layer's experts are one draw each)."""
     if cfg.mtp_depth > 0:
         raise NotImplementedError("multi-token prediction heads (DeepSeek-V3): ROADMAP A.18")
     dtype = cfg.p_dtype
     segs = plan_segments(cfg)
-    for seg in segs:
-        for kind in seg.block:
-            _check_supported(kind)
     params: dict[str, Any] = {
         "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dtype),
         "final_norm": init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
@@ -148,12 +173,17 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
         params["lm_head"] = embed_init(gen, (cfg.vocab, cfg.d_model), dtype)
     seg_params = []
     for seg in segs:
-        stacked = None
+        rows, stacked = _Rows(seg.repeats), None
         for r in range(seg.repeats):
-            block = [_init_layer(gen, kind, cfg, dtype) for kind in seg.block]
+            rows.start(r)
+            with draws_into(rows):
+                block = [_init_layer(gen, kind, cfg, dtype) for kind in seg.block]
             if stacked is None:
-                stacked = tree_map(lambda a: a.new_empty((seg.repeats, *a.shape)), block)
-            tree_map(lambda dst, src: dst[r].copy_(src), stacked, block)
+                stacked = tree_map(lambda a: a._base if rows.drawn(a) else
+                                   a.new_empty((seg.repeats, *a.shape)), block)
+            for dst, src in zip(tree_leaves(stacked), tree_leaves(block)):
+                if not rows.drawn(src):
+                    dst[r].copy_(src)
             del block
         seg_params.append(stacked)
     params["segments"] = seg_params
@@ -167,7 +197,6 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def _apply_layer(p: dict, kind: LayerKind, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ModelConfig, *, arange_positions: bool = False) -> torch.Tensor:
-    _check_supported(kind)
     h = apply_norm(cfg.norm, x, p["norm1"])
     if kind.mixer == "attn":
         window = cfg.swa_window if kind.swa else None
@@ -180,7 +209,10 @@ def _apply_layer(p: dict, kind: LayerKind, x: torch.Tensor, positions: torch.Ten
         ff = mlp_mod.mlp(p["mlp"], h, cfg.act) if "mlp" in p else 0.0
         return x + mix + ff
     x = x + mix
-    if "mlp" in p:
+    if "moe" in p:
+        h2 = apply_norm(cfg.norm, x, p["norm2"])
+        x = x + mlp_mod.moe(p["moe"], h2, cfg, cfg.act)
+    elif "mlp" in p:
         h2 = apply_norm(cfg.norm, x, p["norm2"])
         x = x + mlp_mod.mlp(p["mlp"], h2, cfg.act)
     return x
@@ -290,9 +322,9 @@ def lm_loss(
     unroll: bool = False,
     ce_chunk: int = 512,
 ) -> torch.Tensor:
-    """batch: {"tokens": (B,T), "labels": (B,T), ["positions"]}"""
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE router aux loss: ROADMAP A.18")
+    """batch: {"tokens": (B,T), "labels": (B,T), ["positions"]}.  No router
+    aux loss is added (the reference's ``lm_loss`` adds none either), so
+    ``aux_weight`` changes nothing."""
     if cfg.mtp_depth > 0 and "mtp" in params:
         raise NotImplementedError("multi-token prediction loss (DeepSeek-V3): ROADMAP A.18")
     hidden = apply_lm(
@@ -330,7 +362,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype, device="cpu")
 
 def _decode_layer(p, kind: LayerKind, x, cache, cfg: ModelConfig, seq_sharded: bool):
     """One layer of ``decode_step``; ``cache`` is written in place."""
-    _check_supported(kind)
     h = apply_norm(cfg.norm, x, p["norm1"])
     if kind.mixer == "attn":
         window = cfg.swa_window if kind.swa else None
@@ -342,7 +373,9 @@ def _decode_layer(p, kind: LayerKind, x, cache, cfg: ModelConfig, seq_sharded: b
         ff = mlp_mod.mlp(p["mlp"], h, cfg.act) if "mlp" in p else 0.0
         return x + mix + ff
     x = x + mix
-    if "mlp" in p:
+    if "moe" in p:
+        x = x + mlp_mod.moe(p["moe"], apply_norm(cfg.norm, x, p["norm2"]), cfg, cfg.act)
+    elif "mlp" in p:
         x = x + mlp_mod.mlp(p["mlp"], apply_norm(cfg.norm, x, p["norm2"]), cfg.act)
     return x
 

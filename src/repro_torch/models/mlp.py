@@ -1,10 +1,33 @@
-"""Dense (gated) MLP (``repro/models/mlp.py``).  Mixture-of-Experts is
-ROADMAP A.18."""
+"""MLPs and Mixture-of-Experts (``repro/models/mlp.py``).
+
+MoE dispatch is the reference's scatter/gather: per-token top-k routing on
+fp32 router logits, each (token, k) assignment's position in its expert's
+queue by an exclusive cumsum over the flattened (token, k) order, capacity
+dropping, an index inverse (slot -> token row) through which the rows are
+gathered into an (E, cap, D) buffer, the expert FFNs as batched matmuls,
+and a weighted scatter-add back into the token rows.  The expert matmuls
+are XLA einsums in the reference, not a Pallas kernel, so here they are
+``torch.bmm``.
+
+The group and expert-shard dimensions of the reference's dispatch buffer
+(``(groups, expert_shards, e_local * cap + 1, D)``) are kept, so a patched
+``_dispatch_groups`` runs the group-local dispatch as the reference's does;
+on one device both counts are 1 (the mesh rules are ROADMAP A.18.8).
+"""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.common import ACT, dense_init
+
+# a dispatch of at most this many (token, k) assignments takes capacity n
+# (dropless): decode and small batches never drop (``repro/models/mlp.py``)
+DROPLESS_ASSIGNMENTS = 512
+
+
+# ---------------------------------------------------------------------------
+# Dense (gated) MLP
+# ---------------------------------------------------------------------------
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, gated: bool = True,
@@ -35,9 +58,150 @@ def mlp(params: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return y
 
 
-def init_moe(*_a, **_k):
-    raise NotImplementedError("Mixture-of-Experts layers: ROADMAP A.18")
+# ---------------------------------------------------------------------------
+# Mixture of Experts
+# ---------------------------------------------------------------------------
 
 
-def moe(*_a, **_k):
-    raise NotImplementedError("Mixture-of-Experts layers: ROADMAP A.18")
+def init_moe(gen: torch.Generator, cfg, dtype) -> dict:
+    """The router is drawn in fp32 whatever ``dtype`` is, as the reference's."""
+    m = cfg.moe
+    d, e = cfg.d_model, m.n_experts
+    p = {
+        "router": dense_init(gen, (d, e), torch.float32),
+        "w_gate": dense_init(gen, (e, d, m.d_ff_expert), dtype),
+        "w_up": dense_init(gen, (e, d, m.d_ff_expert), dtype),
+        "w_down": dense_init(gen, (e, m.d_ff_expert, d), dtype, fan_in=m.d_ff_expert),
+    }
+    if m.n_shared_experts:
+        p["shared"] = init_mlp(gen, d, m.d_ff_shared, dtype, gated=True)
+    return p
+
+
+def _top_k(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k``: the k largest along the last dim, in descending order,
+    the lower index first among equal values (a stable sort keeps it so,
+    where ``torch.topk`` does not promise an order for ties)."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(router_w: torch.Tensor, x_flat: torch.Tensor, m):
+    """(..., D) -> top-k (weights, expert ids), softmax over all experts,
+    the selected weights renormalised; fp32 logits (fp64 stays fp64)."""
+    acc = torch.promote_types(x_flat.dtype, torch.float32)
+    logits = x_flat.to(acc) @ router_w.to(acc)                # (..., E)
+    gates = torch.softmax(logits, dim=-1)
+    topw, topi = _top_k(gates, m.top_k)                      # (..., k)
+    topw = topw / torch.sum(topw, dim=-1, keepdim=True)
+    return topw, topi, gates
+
+
+def _dispatch_groups(batch: int) -> int:
+    """Token groups for shard-local dispatch: one per data shard of the
+    mesh's ``moe_groups`` axes (``gcd(dp, batch)``); one on one device."""
+    return 1
+
+
+def _expert_shards() -> int:
+    """Shards of the ``experts`` axis; one on one device."""
+    return 1
+
+
+def moe_capacity(n: int, m) -> int:
+    """Slots per expert for a dispatch of ``n`` tokens: ``n * k * cf / E``,
+    raised to ``n`` (dropless) at ``DROPLESS_ASSIGNMENTS`` assignments or
+    fewer, so decode never drops what the forward keeps."""
+    cap = max(1, int(n * m.top_k * m.capacity_factor) // m.n_experts)
+    if n * m.top_k <= DROPLESS_ASSIGNMENTS:
+        cap = max(cap, n)
+    return cap
+
+
+def queue_positions(topi: torch.Tensor, n_experts: int, cap: int):
+    """(g, n, k) expert ids -> (each assignment's position in its expert's
+    queue, whether it fits the capacity): the exclusive cumsum of the
+    one-hot assignments over the flattened (token, k) order, so the same
+    assignments drop as in the reference."""
+    g, n, k = topi.shape
+    flat = topi.reshape(g, n * k)
+    onehot = torch.nn.functional.one_hot(flat, n_experts)      # (g, n*k, E)
+    before = torch.cumsum(onehot, dim=1) - onehot              # exclusive cumsum
+    pos = torch.gather(before, 2, flat[..., None])[..., 0].reshape(g, n, k)
+    return pos, pos < cap
+
+
+def moe(params: dict, x: torch.Tensor, cfg, act: str = "silu") -> torch.Tensor:
+    """x: (B, T, D) -> (B, T, D), the reference's dispatch (module
+    docstring).
+
+    Every slot of the index inverse defaults to the zero pad row ``n``, and
+    every dropped assignment writes the one overflow slot ``e_local * cap``.
+    Those writes repeat an index, and an ``index_put_`` with repeated
+    indices keeps an arbitrary one of them (on a card the winner may change
+    between the forward and a remat's recompute).  That is harmless only
+    because the overflow slot's expert output is the appended zero row and
+    its weight is 0 (a dropped assignment's weight is ``topw * keep``): its
+    contribution, whichever token row it lands on, is +0.  Keep both zero.
+    """
+    m = cfg.moe
+    b, t, d = x.shape
+    e, k = m.n_experts, m.top_k
+    gcount = _dispatch_groups(b)
+    ep = _expert_shards()
+    if e % ep:
+        ep = 1
+    e_loc = e // ep
+    n = (b * t) // gcount
+    xf = x.reshape(gcount, n, d)
+    topw, topi, _ = _route(params["router"], xf, m)          # (g, n, k)
+    cap = moe_capacity(n, m)
+    pos, keep = queue_positions(topi, e, cap)
+    dest = (topi // e_loc).reshape(gcount, n * k)            # expert shard
+    lslot = torch.where(keep, (topi % e_loc) * cap + pos, e_loc * cap).reshape(gcount, n * k)
+
+    # dispatch: the index inverse (slot -> token row, n = the zero pad row),
+    # then a gather of the rows through it
+    dev = x.device
+    gi = torch.arange(gcount, device=dev)[:, None].expand(gcount, n * k)
+    tok = torch.arange(n, device=dev).repeat_interleave(k).expand(gcount, n * k)
+    inv = torch.full((gcount, ep, e_loc * cap + 1), n, dtype=torch.long, device=dev)
+    inv.index_put_((gi, dest, lslot), tok)
+    xf_pad = torch.cat([xf, xf.new_zeros((gcount, 1, d))], dim=1)
+    g3 = torch.arange(gcount, device=dev)[:, None, None]
+    xe = xf_pad[g3, inv[..., :e_loc * cap]]                  # (g, EP, e_loc*cap, D)
+
+    # the expert FFNs: one batched matmul over the (shard, local expert) pairs
+    xe = xe.reshape(gcount, e, cap, d).transpose(0, 1).reshape(e, gcount * cap, d)
+    gate = torch.bmm(xe, params["w_gate"])
+    up = torch.bmm(xe, params["w_up"])
+    ye = torch.bmm(ACT[act](gate) * up, params["w_down"])    # (E, g*cap, D)
+    ye = ye.reshape(e, gcount, cap, d).transpose(0, 1).reshape(gcount, ep, e_loc * cap, d)
+
+    # combine: each slot's output times its weight, scatter-added into the
+    # token rows (n + 1: the pad row takes the empty slots' zeros)
+    w = (topw * keep.to(topw.dtype)).to(x.dtype)             # (g, n, k)
+    wslot = x.new_zeros((gcount, ep, e_loc * cap + 1))
+    wslot.index_put_((gi, dest, lslot), w.reshape(gcount, n * k))
+    ye_flat = torch.cat([ye, ye.new_zeros((gcount, ep, 1, d))], dim=2)
+    contrib = ye_flat * wslot[..., None]                     # (g, EP, S+1, D)
+    rows = (inv + (n + 1) * torch.arange(gcount, device=dev)[:, None, None]).reshape(-1)
+    y = x.new_zeros((gcount * (n + 1), d)).index_add(0, rows, contrib.reshape(-1, d))
+    y = y.reshape(gcount, n + 1, d)[:, :n]
+    if "shared" in params:
+        y = y + mlp(params["shared"], x, act).reshape(gcount, n, d)
+    return y.reshape(b, t, d)
+
+
+def moe_aux_loss(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style f*P).  As in the
+    reference, ``lm_loss`` does not add it."""
+    m = cfg.moe
+    b, t, d = x.shape
+    xf = x.reshape(b * t, d)
+    acc = torch.promote_types(xf.dtype, torch.float32)
+    gates = torch.softmax(xf.to(acc) @ params["router"].to(acc), dim=-1)
+    _, topi = _top_k(gates, m.top_k)
+    frac = torch.mean(torch.nn.functional.one_hot(topi, m.n_experts).to(acc), dim=(0, 1))
+    prob = torch.mean(gates, dim=0)
+    return m.n_experts * torch.sum(frac * prob)

@@ -4,9 +4,11 @@
 Only the configs the port can run resolve: the dense ``qwen2-7b`` (GQA,
 QKV bias), ``codeqwen1.5-7b`` (MHA, QKV bias), ``stablelm-1.6b``
 (LayerNorm, partial rotary) and ``command-r-35b`` (LayerNorm, parallel
-attention||MLP block, tied embeddings), and ``mamba2-780m`` (SSD).  Every
-other id of the reference raises naming its ROADMAP A.18 item
-(``ROADMAP_ITEMS``).  A bundle's ``init(seed)`` draws its
+attention||MLP block, tied embeddings), ``mamba2-780m`` (SSD), and the
+Mixture-of-Experts ``mixtral-8x22b`` (sliding window) and
+``jamba-v0.1-52b`` (Mamba, attention without RoPE, MoE on alternate
+layers).  Every other id of the reference raises naming its ROADMAP A.18
+item (``ROADMAP_ITEMS``).  A bundle's ``init(seed)`` draws its
 params on the bundle's device; ``decode_fn`` and ``make_caches`` are the
 serving surface (``models/lm.py:decode_step``, ``init_caches`` on the
 bundle's device), and ``cache_specs`` gives the caches' shapes and dtypes
@@ -30,18 +32,16 @@ ARCH_MODULES = {
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "command-r-35b": "repro_torch.configs.command_r_35b",
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
-    "mixtral-8x22b": None,
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "deepseek-v3-671b": None,
     "qwen2-vl-2b": None,
-    "jamba-v0.1-52b": None,
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
     "whisper-medium": None,
 }
 
 ARCH_IDS = list(ARCH_MODULES)
 # the ROADMAP item that ports each id still missing
 ROADMAP_ITEMS = {
-    "mixtral-8x22b": "A.18.3",
-    "jamba-v0.1-52b": "A.18.3",
     "deepseek-v3-671b": "A.18.4",
     "qwen2-vl-2b": "A.18.5",
     "whisper-medium": "A.18.6",

@@ -9,16 +9,18 @@ reference: a step returns new params and a new state.  The arithmetic is
 the reference's fp32; fp64 params (an exact reference run) keep fp64
 throughout.
 
-``inplace=True`` (``clip_by_global_norm``, ``adamw``, ``sgd``) writes the
-results into the tensors it was given instead - the same arithmetic and the
-same bits, with only one leaf's temporaries alive at a time (adamw: one
-slice of ``INPLACE_CHUNK`` elements of a leaf).  The LM trainer
+``inplace=True`` (``clip_by_global_norm``, ``adamw``, ``adafactor``,
+``sgd``) writes the results into the tensors it was given instead - the
+same arithmetic and the same bits, with only one leaf's temporaries alive
+at a time (adamw and adafactor: one slice of about ``INPLACE_CHUNK``
+elements of a leaf).  The LM trainer
 uses it, since a full-width model's fp32 moments and gradients leave no room
 for a second copy; it stands where the reference's launcher donates the
 state to ``jit``.  The caller must not reuse the old state.
 
-adamw: fp32 moments.  sgd: momentum SGD (Darknet's, for the YOLO
-reproduction).  adafactor belongs to the LM side (ROADMAP A.18).
+adamw: fp32 moments.  adafactor: a factored second moment, no momentum
+(about half of AdamW's state bytes for a full-width LM).  sgd: momentum SGD
+(Darknet's, for the YOLO reproduction).
 """
 from __future__ import annotations
 
@@ -152,8 +154,88 @@ def sgd(momentum=0.9, weight_decay=0.0005, inplace: bool = False) -> Optimizer:
     return Optimizer(init, update)
 
 
-def adafactor(**kw) -> Optimizer:
-    raise NotImplementedError("adafactor is the LM side's optimizer: ROADMAP A.18")
+def _factored(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] >= 128 and shape[-2] >= 128
+
+
+def adafactor(decay=0.99, eps=1e-30, clip_threshold=1.0, weight_decay=0.0,
+              inplace: bool = False) -> Optimizer:
+    """Factored second-moment estimator (Shazeer & Stern 2018), momentum-free,
+    as the reference's.  A leaf whose last two dims are both >= 128 keeps row
+    and column statistics (``vr``, ``vc``) over those two dims, one pair per
+    leading index of a stacked leaf; any other leaf a full ``v``.  The
+    update's RMS is clipped over the whole leaf, all repeats together.
+
+    A leaf is updated in slices along its leading dims: whole matrices, as
+    many as ``INPLACE_CHUNK`` elements hold (at least one); a leaf that is
+    not factored in flat slices of ``INPLACE_CHUNK``.  Two passes: (1) each
+    slice's new statistics and the sum of its squared step; (2) each
+    slice's step again, clipped by the leaf's RMS, and applied.  Both modes
+    run the same passes, so ``inplace`` gives the out-of-place bits, and the
+    temporaries stay a slice's size (unsliced, a stacked expert leaf of 3 x
+    8 x 6144 x 16384 would hold 9.7 GB fp32 temporaries each)."""
+
+    def init(params):
+        def leaf(p):
+            def zeros(shape):
+                return torch.zeros(shape, dtype=torch.promote_types(p.dtype, torch.float32),
+                                   device=p.device)
+
+            if _factored(p.shape):
+                return {"vr": zeros(p.shape[:-1]), "vc": zeros(p.shape[:-2] + p.shape[-1:])}
+            return {"v": zeros(p.shape)}
+
+        return {"v": tree_map(leaf, params), "t": 0}
+
+    def update(grads, state, params, lr):
+        def upd(g, s, p):
+            new_p = p if inplace else torch.empty_like(p)
+            new_s = s if inplace else {k: torch.empty_like(v) for k, v in s.items()}
+            if _factored(p.shape):
+                rows, cols = p.shape[-2:]
+                g_v, p_v, out_v = (t.reshape(-1, rows, cols) for t in (g, p, new_p))
+                old = [s["vr"].reshape(-1, rows), s["vc"].reshape(-1, cols)]
+                new = [new_s["vr"].reshape(-1, rows), new_s["vc"].reshape(-1, cols)]
+                per = max(1, INPLACE_CHUNK // (rows * cols))
+            else:
+                g_v, p_v, out_v = (t.reshape(-1) for t in (g, p, new_p))
+                old, new = [s["v"].reshape(-1)], [new_s["v"].reshape(-1)]
+                per = INPLACE_CHUNK
+            slices = [slice(i, i + per) for i in range(0, g_v.shape[0], per)]
+
+            def step_of(gs, sl):
+                # the reference's step from this slice's new statistics
+                if len(new) == 2:
+                    vr, vc = new[0][sl], new[1][sl]
+                    denom = torch.mean(vr, dim=-1, keepdim=True)
+                    r = (vr / torch.clamp(denom, min=eps))[..., None] * vc[..., None, :]
+                else:
+                    r = new[0][sl].clone()
+                return r.clamp_(min=eps).rsqrt_().mul_(gs)
+
+            squares = []
+            for sl in slices:
+                gs = _acc(g_v[sl])
+                g2 = gs * gs + eps
+                means = [torch.mean(g2, dim=-1), torch.mean(g2, dim=-2)] if len(new) == 2 \
+                    else [g2]
+                for o, nw, mean in zip(old, new, means):
+                    nw[sl].copy_(decay * o[sl] + (1 - decay) * mean)
+                del g2, means
+                squares.append(torch.sum(step_of(gs, sl).square_()))
+            rms = torch.sqrt(torch.stack(squares).sum() / p.numel() + 1e-12)
+            scale = torch.clamp(rms / clip_threshold, min=1.0)
+            for sl in slices:
+                step = step_of(_acc(g_v[sl]), sl).div_(scale)
+                if weight_decay:
+                    step = step + weight_decay * _acc(p_v[sl])
+                out_v[sl].copy_(_acc(p_v[sl]) - step.mul_(lr))
+            return new_p, new_s
+
+        new_p, new_v = tree_unzip(tree_map(upd, grads, state["v"], params), 2)
+        return new_p, {"v": new_v, "t": state["t"] + 1}
+
+    return Optimizer(init, update)
 
 
 def make_optimizer(name: str, **kw) -> Optimizer:

@@ -22,6 +22,16 @@ the others:
   decodes token 0 into its own rows, which no other slot reads (every
   batch row is computed on its own) and the next admission there zeroes.
 
+Under Mixture-of-Experts the rows of a decode call are not computed on
+their own by construction: the slots share one dispatch (``models/mlp.py:
+moe``), and an expert's capacity could drop one slot's assignment for
+another's.  Every row is still computed on its own because a decode call
+dispatches at most ``DROPLESS_ASSIGNMENTS`` (token, k) assignments (a
+batch of slots times top-k), where the capacity is raised to the token
+count and nothing drops; each expert's rows then meet the other slots'
+only as other rows of the same batched matmul.  So the engine refuses a
+pool of slots large enough to pass that floor.
+
 So a greedy answer is the greedy continuation of its prompt alone, whatever
 else the engine serves.  A tick reads the sampled tokens back to the host
 once, after its decode.  ``temperature > 0`` samples from
@@ -38,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.lm import layer_kind
+from repro_torch.models.mlp import DROPLESS_ASSIGNMENTS
 
 
 @dataclasses.dataclass
@@ -81,6 +92,12 @@ class ServeEngine:
         eos_id: Optional[int] = None,
         seed: int = 0,
     ):
+        moe = arch.cfg.moe
+        if moe is not None and batch * moe.top_k > DROPLESS_ASSIGNMENTS:
+            raise ValueError(f"{batch} slots x top-{moe.top_k} = {batch * moe.top_k} "
+                             f"assignments a decode call, past the dropless "
+                             f"{DROPLESS_ASSIGNMENTS}: the slots' expert capacity would be "
+                             "shared")
         self.arch = arch
         self.params = params
         self.batch = batch

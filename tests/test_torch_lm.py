@@ -278,8 +278,8 @@ def test_lm_launcher_runs_on_cpu():
 
 
 def test_lm_surfaces_that_are_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="A.18"):
-        treg.load_config("mixtral-8x22b")
+    with pytest.raises(NotImplementedError, match="A.18.4"):
+        treg.load_config("deepseek-v3-671b")
     with pytest.raises(ValueError, match="unknown arch"):
         treg.load_config("gpt-5")
     arch = treg.bundle_from_cfg(TCFG, "cpu")

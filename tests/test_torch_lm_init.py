@@ -20,7 +20,8 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import registry as treg
 from repro_torch.models.common import init_norm
 
-LM_IDS = ["qwen2-7b", "mamba2-780m", "stablelm-1.6b", "codeqwen1.5-7b", "command-r-35b"]
+LM_IDS = ["qwen2-7b", "mamba2-780m", "stablelm-1.6b", "codeqwen1.5-7b", "command-r-35b",
+          "mixtral-8x22b", "jamba-v0.1-52b"]
 
 
 def _former_dense_init(gen, shape, dtype, fan_in=None):
@@ -117,7 +118,7 @@ class _Recorder(TorchDispatchMode):
         return out
 
 
-@pytest.mark.parametrize("name", ["qwen2-7b", "mamba2-780m", "command-r-35b"])
+@pytest.mark.parametrize("name", ["qwen2-7b", "mamba2-780m", "command-r-35b", "mixtral-8x22b"])
 def test_stacked_leaves_are_allocated_once(name):
     """No ``stack`` or ``cat`` on the init path, and the only ops that make
     a stacked leaf's shape are the stacked leaves' allocations, one each

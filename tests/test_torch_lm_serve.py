@@ -414,16 +414,17 @@ def test_lm_serve_launcher_runs_on_cpu(arch, capsys):
 
 
 def test_lm_serve_launcher_names_the_roadmap_item_of_an_unported_arch(capsys):
-    """``mixtral-8x22b`` names its item; ``stablelm-1.6b`` (A.18.2, ported)
-    serves, and is the default ``--arch``, as in the reference."""
+    """``deepseek-v3-671b`` names its item; ``stablelm-1.6b`` (A.18.2) and
+    ``mixtral-8x22b`` (A.18.3), ported, serve, and ``stablelm-1.6b`` is the
+    default ``--arch``, as in the reference."""
     from repro_torch.launch.serve import main
 
-    for argv in (["--arch", "stablelm-1.6b"], []):
+    for argv in (["--arch", "stablelm-1.6b"], [], ["--arch", "mixtral-8x22b"]):
         assert main(["--device", "cpu", "--requests", "2", "--max-new", "3"] + argv) == 0
         out = capsys.readouterr().out
         assert "served 2 requests, 6 tokens" in out and "on cpu" in out
-    with pytest.raises(NotImplementedError, match="A.18.3"):
-        main(["--device", "cpu", "--arch", "mixtral-8x22b"])
+    with pytest.raises(NotImplementedError, match="A.18.4"):
+        main(["--device", "cpu", "--arch", "deepseek-v3-671b"])
 
 
 # ---------------------------------------------------------------------------

@@ -468,7 +468,7 @@ def test_schedules_match_jax(step):
         float(jsched.linear_warmup(jnp.int32(step), 50, 1e-3)), rel=1e-6)
 
 
-@pytest.mark.parametrize("name", ["sgd", "adamw"])
+@pytest.mark.parametrize("name", ["sgd", "adamw", "adafactor"])
 def test_optimizer_updates_match_jax(name):
     rng = np.random.default_rng(6)
     params = [{"w": rng.standard_normal((3, 4)).astype(np.float32)}, {},
@@ -489,8 +489,6 @@ def test_optimizer_updates_match_jax(name):
     jclipped, jnorm = jopt.clip_by_global_norm(jp, 0.5)
     assert float(norm) == pytest.approx(float(jnorm), rel=1e-6)
     np.testing.assert_allclose(clipped[0]["w"].numpy(), np.asarray(jclipped[0]["w"]), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="A.18"):
-        topt.make_optimizer("adafactor")
 
 
 def test_driver_counts_restarts_and_refuses_checkpoints(tmp_path):
@@ -624,9 +622,10 @@ def test_launcher_trains_on_cpu(capsys):
     (["--wire-codec", "topk:0.5", "--grad-accum", "2", "--batch", "4"], "A.14"),
     (["--ckpt-dir", "ckpt"], "A.15"),
     (["--fault-schedule", "drop:1@2"], "A.15"),
-    (["--arch", "mixtral-8x22b"], "A.18"),
-    (["--optimizer", "adafactor"], "A.18"),
+    (["--arch", "deepseek-v3-671b"], "A.18.4"),
+    (["--optimizer", "adafactor"], "A.18.7"),
     (["--arch", "stablelm-1.6b"], "A.18.2"),
+    (["--arch", "mixtral-8x22b"], "A.18.3"),
 ])
 def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys, tmp_path):
     """Unported flags raise naming their ROADMAP item; the flags of A.10
@@ -638,8 +637,10 @@ def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys, tm
     ``--pipeline 2`` without ``--groups auto`` is refused by the planner.
     A.15's flags run: ``--ckpt-dir`` (a fresh directory) saves the last
     step, and ``--fault-schedule drop:1@2`` over 3 steps replans the 2x2
-    grid onto the three survivors.  A.18.2's ``--arch stablelm-1.6b`` trains
-    its reduced config; an LM id still to port (``mixtral-8x22b``) raises."""
+    grid onto the three survivors.  A.18.2's ``--arch stablelm-1.6b`` and
+    A.18.3's ``--arch mixtral-8x22b`` train their reduced configs, A.18.7's
+    ``--optimizer adafactor`` trains the tiled CNN; an LM id still to port
+    (``deepseek-v3-671b``) raises."""
     from repro_torch.launch.train import main
 
     base = ["--arch", "yolov2-tiled", "--device", "cpu", "--input-hw", "32", "--depth", "4",
@@ -663,12 +664,14 @@ def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys, tm
             with pytest.raises(ValueError, match="pipeline tails are planner-assigned"):
                 main(base + flags)
         return
-    if item in ("A.10", "A.11", "A.12", "A.14", "A.18.2"):
+    if item in ("A.10", "A.11", "A.12", "A.14", "A.18.2", "A.18.3", "A.18.7"):
         assert main(base + flags) == 0
         out = capsys.readouterr().out
         plan = {"A.10": "schedule=overlap", "A.11": "crossover=2",
                 "A.12": "rows=(0, 4, 32) cols=(0, 4, 32) uniform=False cluster=pi3x3+jetson",
-                "A.14": f"wire_codec={flags[1]}", "A.18.2": "model: stablelm-1.6b layers=2"}[item]
+                "A.14": f"wire_codec={flags[1]}", "A.18.2": "model: stablelm-1.6b layers=2",
+                "A.18.3": "model: mixtral-8x22b layers=2",
+                "A.18.7": "optimizer=adafactor"}[item]
         assert plan in out and "done: steps=1 restarts=0" in out
         return
     with pytest.raises(NotImplementedError, match=item):
