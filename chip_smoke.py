@@ -298,8 +298,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    forward and the modeled state of one layer more beside the card; (c)
    served as phase 19 (``lm_serve_drive``) at ``MOE_SERVE_DEPTH`` (13 of
    56 and 16 of 32 layers), with the tick's weight-read bound; (d) both
-   launchers with each id (reduced) and ``--optimizer adafactor``.  The
-   ``{"kernels": ...}`` line's launches include phases 12's to 21's.
+   launchers with each id (reduced) and ``--optimizer adafactor``;
+22. DeepSeek-V3-671B of ROADMAP A.18.4 (``deepseek_phase``: MLA, 3 dense
+   layers then 256 routed experts top-8 beside a shared one, an MTP head)
+   at its published widths, seed-0 params: (a) at ``DS_CHECK_DEPTH`` (4:
+   the dense prefix and one MoE layer), no MTP head, fp32 (60.4 GB): one
+   sequence of ``LM_SERVE_FORCED`` tokens (64 x top-8 = 512 assignments:
+   dropless) teacher-forced through ``decode_step`` (the absorbed MLA
+   decode) against ``apply_lm``, logits and MLA outputs within
+   ``DECODE_BAR``, B6's launches the code's count and no B4 (MLA runs the
+   plain ``_sdpa``), the planted faults of ``DS_FAULTS`` over the bar (q
+   absorbed through ``w_uv``, ``k_pe`` cached unrotated, the shared expert
+   dropped), beside vs alone; (b) trained as phase 21 with adafactor at
+   ``DS_TRAIN_DEPTH`` (3 of 61: the dense prefix and an MTP head on a dense
+   layer, 4.29 B params; B6 30 a microbatch), step 1's main CE and MTP
+   term apart, a planted "MTP term dropped" the loss check must reject, the
+   modeled state of layer 4 (11.51 B params of MoE) beside the card, and
+   ``mla_attention``'s gradients alone at full width, 2048 tokens, fp32
+   through B6 against fp64 with phase 8's bar rule and a planted fault
+   (``mla_grad_check``); (c) served as phase 19 at ``DS_SERVE_DEPTH`` (4
+   layers with the MTP head the config draws: 53.4 GB), the tick's
+   weight-read bound leaving out the MTP head; (d) both launchers with the
+   id (reduced).  Phase 6 also times B6 at DeepSeek's widths 7168, 1536
+   and 512.  The ``{"kernels": ...}`` line's launches include phases 12's
+   to 22's.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -680,6 +702,32 @@ MOE_FAULTS = {"mixtral-8x22b": ("unnormalised_topk", "next_expert"),
               "jamba-v0.1-52b": ("unnormalised_topk", "next_expert", "rope_on_attention")}
 # B4 at Mixtral's heads where its window of 4096 masks (phase 6)
 FA_WINDOW_SEQ = 8192
+# Phase 22: DeepSeek-V3-671B of ROADMAP A.18.4 (``deepseek_phase``) at its
+# published widths, seed-0 params.  One MoE layer (256 experts of 3 x 7168 x
+# 2048, a shared expert and MLA) holds 11.51 B params, over the card at
+# adafactor's 8 bytes a param on its own.  (a) The decode check of phase 21
+# in fp32 at DS_CHECK_DEPTH (3 dense layers and the first MoE layer, no MTP:
+# 60.4 GB), batch 1 and LM_SERVE_FORCED tokens (64 x top-8 = 512
+# assignments: dropless), logits and MLA outputs within DECODE_BAR, the
+# planted faults DS_FAULTS on the decode side, beside vs alone.  (b)
+# Training as phase 21 with adafactor at DS_TRAIN_DEPTH (``with_depth(cfg,
+# 0)``: the dense prefix, MLA on every layer, the MTP head on a dense layer:
+# 4.29 B params), the step-1 loss's main CE and MTP term apart, a planted
+# "MTP term dropped" that the loss check must reject, and the modeled state
+# of layer 4 (an MoE layer) beside the card; ``mla_attention``'s gradients
+# alone at full width (DS_GRAD_SEQ tokens, fp32 through B6 against plain
+# fp64, phase 8's bar rule) with a planted fault.  (c) Serving with phase
+# 19's traffic at DS_SERVE_DEPTH with the MTP head the launcher's config
+# draws (26.7 B params, 53.4 GB); a tick reads every weight but the MTP
+# head's and the embedding table.  (d) Both launchers with the id.
+DS_ARCH = "deepseek-v3-671b"
+DS_CHECK_DEPTH, DS_TRAIN_DEPTH, DS_SERVE_DEPTH = 4, 3, 4
+DS_TRAIN_STEPS = 3
+DS_GRAD_SEQ = 2048
+# the decode side's planted faults: q absorbed through w_uv in place of
+# w_uk (the same shape at 128 / 128), k_pe written to the cache unrotated,
+# the MoE layer's shared expert dropped
+DS_FAULTS = ("absorbed_through_w_uv", "k_pe_unrotated", "no_shared_expert")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2311,10 +2359,11 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
     # the path's shapes: every B6 width (``b6_widths``) of each config the
     # smoke trains (Qwen2-7B 3584; Mamba2-780m 1536 and its gated norm's 3072;
     # CodeQwen1.5-7B 4096; Mixtral-8x22B 6144; Jamba-v0.1 4096 and its gated
-    # norm's 8192) at its run's microbatch rows, x and scale in the run's
-    # types; Qwen2-7B's in fp32 too
+    # norm's 8192; DeepSeek-V3 7168 and MLA's q_norm 1536 and kv_norm 512) at
+    # its run's microbatch rows, x and scale in the run's types; Qwen2-7B's
+    # in fp32 too
     path = []
-    for name in (LM_ARCH, MAMBA_ARCH) + DENSE_ARCHS + MOE_ARCHS:
+    for name in (LM_ARCH, MAMBA_ARCH) + DENSE_ARCHS + MOE_ARCHS + (DS_ARCH,):
         cfg = load_config(name)
         rows = (MAMBA_BATCH // MAMBA_ACCUM * MAMBA_SEQ if name == MAMBA_ARCH
                 else LM_BATCH // LM_ACCUM * LM_SEQ)
@@ -2372,22 +2421,25 @@ def b6_norms_per_layer(cfg, i: int) -> int:
     """B6 launches of layer ``i``'s forward (or one decode call): norm1, and
     norm2 where the layer has an MLP or experts outside a parallel block,
     when the config's norm is RMSNorm (a LayerNorm runs as plain torch, as
-    the reference leaves it to XLA); a Mamba2 block's gated RMSNorm always."""
+    the reference leaves it to XLA); a Mamba2 block's gated RMSNorm always;
+    an MLA layer's ``q_norm`` and ``kv_norm`` always."""
     from repro_torch.models.lm import layer_kind
 
     kind = layer_kind(cfg, i)
     rms = cfg.norm == "rmsnorm"
     return (rms * (1 + ((cfg.d_ff > 0 or kind.moe) and not cfg.parallel_block))
-            + (kind.mixer == "mamba"))
+            + (kind.mixer == "mamba") + 2 * (kind.mixer == "attn" and cfg.mla is not None))
 
 
 def b6_widths(cfg) -> list:
     """The row widths B6 normalises in ``cfg``'s forward and decode: d_model
-    where the config's norm is RMSNorm, and a Mamba2 block's d_inner (its
-    gated RMSNorm)."""
+    where the config's norm is RMSNorm, MLA's q and kv ranks (``q_norm``,
+    ``kv_norm``), and a Mamba2 block's d_inner (its gated RMSNorm)."""
     from repro_torch.models.lm import layer_kind
 
     widths = [cfg.d_model] if cfg.norm == "rmsnorm" else []
+    if cfg.mla is not None:
+        widths += [cfg.mla.q_lora_rank, cfg.mla.kv_lora_rank]
     if any(layer_kind(cfg, i).mixer == "mamba" for i in range(cfg.n_layers)):
         widths.append(cfg.ssm.d_inner(cfg.d_model))
     return widths
@@ -2401,23 +2453,32 @@ def b6_per_decode_call(cfg) -> int:
 
 def lm_launches_per_microbatch(cfg, remat: str) -> dict:
     """Kernel launches of one microbatch's loss and grads, from the code:
-    each layer's forward runs its mixer's kernel once (B4 for attention, B5
-    for a Mamba2 block) and B6 as ``b6_norms_per_layer`` says; the final
-    norm runs B6 once more where it is RMSNorm.  remat "full" reruns each
-    layer's forward (all of it: the checkpoint saves only the layer's input)
-    in the backward, outside the final norm.  The backwards of all three ops
-    are plain torch and launch no kernel.  A config without an RMSNorm
-    counts B6 as 0: the run must launch it no time."""
+    each layer's forward runs its mixer's kernel once (B4 for attention but
+    MLA, which runs the plain ``_sdpa`` as the reference runs XLA; B5 for a
+    Mamba2 block) and B6 as ``b6_norms_per_layer`` says; the final norm runs
+    B6 once more where it is RMSNorm.  remat "full" reruns each layer's
+    forward (all of it: the checkpoint saves only the layer's input) in the
+    backward, outside the final norm.  An MTP head runs its norm and one
+    layer of the last layer's kind once, with no remat.  The backwards of
+    all three ops are plain torch and launch no kernel.  A config without an
+    RMSNorm counts B6 as 0: the run must launch it no time."""
     from repro_torch.models.lm import layer_kind
 
-    again = 1 if remat == "full" else 0
     out = {"rmsnorm": 0}
-    for i in range(cfg.n_layers):
+
+    def layer(i, runs):
         kind = layer_kind(cfg, i)
-        mixer = "flash_attention_fwd" if kind.mixer == "attn" else "ssd_chunk_fwd"
-        out[mixer] = out.get(mixer, 0) + 1 + again
-        out["rmsnorm"] += b6_norms_per_layer(cfg, i) * (1 + again)
+        if kind.mixer == "mamba" or cfg.mla is None:
+            mixer = "flash_attention_fwd" if kind.mixer == "attn" else "ssd_chunk_fwd"
+            out[mixer] = out.get(mixer, 0) + runs
+        out["rmsnorm"] += b6_norms_per_layer(cfg, i) * runs
+
+    for i in range(cfg.n_layers):
+        layer(i, 2 if remat == "full" else 1)
     out["rmsnorm"] += cfg.norm == "rmsnorm"
+    if cfg.mtp_depth > 0:
+        layer(cfg.n_layers - 1, 1)
+        out["rmsnorm"] += cfg.norm == "rmsnorm"
     return out
 
 
@@ -2647,7 +2708,8 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     }}))
     return {"launches": launches, "params": n_params, "kind_params": kind_params,
             "peak_mem_bytes": peak, "moe_dropped_share": dropped,
-            "step_ms_median": med, "tokens_per_s": tokens / (med / 1e3)}
+            "step_ms_median": med, "tokens_per_s": tokens / (med / 1e3), "losses": losses,
+            "step1_loss_plain_kernels": plain_loss}
 
 
 def lm_grad_phase(dev, run: LMRun, fault, must_fail, note: str) -> dict:
@@ -3493,8 +3555,9 @@ def lm_serve_drive(dev, smi: str, name: str, depth=None) -> int:
     peak (beyond what was allocated before it) within INIT_PEAK_SLACK of
     the params' bytes plus the largest fp32 draw; prints the ``{"lm_serve":
     ...}`` line, with the tick's bound: every weight a decode call reads (all
-    but the embedding table, of which it gathers a row a slot) over HBM
-    bandwidth.  Returns B6's launches."""
+    but the embedding table, of which it gathers a row a slot, and an MTP
+    head, which decode never runs) over HBM bandwidth.  Returns B6's
+    launches."""
     import gc
 
     import numpy as np
@@ -3538,7 +3601,8 @@ def lm_serve_drive(dev, smi: str, name: str, depth=None) -> int:
     init_peak = torch.cuda.max_memory_allocated(dev)
     init_bar = INIT_PEAK_SLACK * (param_bytes + largest_draw)
     embed = params["embed"]
-    tick_bound_ms = 1e3 * (param_bytes - embed.numel() * embed.element_size()
+    mtp_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params.get("mtp", {})))
+    tick_bound_ms = 1e3 * (param_bytes - mtp_bytes - embed.numel() * embed.element_size()
                            * (not cfg.tie_embeddings)) / HBM_BYTES_PER_S
     print(f"{name} init: {n_params / 1e9:.3f} B params ({param_bytes / 1e9:.3f} GB) in "
           f"{init_s:.2f} s, peak {init_peak / 1e9:.3f} GB ({(init_peak - before) / 1e9:.3f} GB "
@@ -3638,7 +3702,7 @@ def lm_serve_drive(dev, smi: str, name: str, depth=None) -> int:
         "layers": cfg.n_layers, "params": n_params, "param_bytes": param_bytes,
         "dtype": cfg.dtype, "slots": LM_SERVE_SLOTS, "max_seq": LM_SERVE_MAX_SEQ, **drive,
         "tick_ms_cuda_events": spread(tick_ev), "tick_ms_host": spread(tick_host),
-        "tick_bound_ms_weight_reads": tick_bound_ms,
+        "tick_bound_ms_weight_reads": tick_bound_ms, "mtp_param_bytes": mtp_bytes,
         # each admission round: its ms over the requests it admitted
         "prefill_ms_per_request": [ms / n for ms, n in prefill_ms],
         "prefill_ms_per_token": sum(ms for ms, _ in prefill_ms)
@@ -3690,8 +3754,8 @@ def lm_serve_phase(dev, smi: str) -> int:
 
     # -- (d) B6 at the decode shapes: rows = slots, (B, 1, D) as decode gives it
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
-    # every B6 width of the configs phases 19 to 21 serve
-    widths = sorted({d for name in LM_SERVE_ARCHS + DENSE_ARCHS + MOE_ARCHS
+    # every B6 width of the configs phases 19 to 22 serve
+    widths = sorted({d for name in LM_SERVE_ARCHS + DENSE_ARCHS + MOE_ARCHS + (DS_ARCH,)
                      for d in b6_widths(load_config(name))})
     lib = getattr(F, "rms_norm", None)
     rms_rows = []
@@ -4138,6 +4202,279 @@ def moe_phase(dev, smi: str) -> dict:
     print(f"phase 21: {time.perf_counter() - t_phase:.1f} s ((a)-(d): "
           f"{', '.join(f'{k} {v:.1f}' for k, v in times.items())})")
     print(json.dumps({"phase21_launches": launches}))
+    return launches
+
+
+def moe_layer_params(cfg) -> int:
+    """Params of one MoE layer of ``cfg`` with MLA, from the shapes
+    ``models/attention.py:init_attention``, ``models/mlp.py:init_moe`` and
+    the two norms give it."""
+    m, e, d, h = cfg.mla, cfg.moe, cfg.d_model, cfg.n_heads
+    mla = (d * m.q_lora_rank + m.q_lora_rank
+           + m.q_lora_rank * h * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+           + d * (m.kv_lora_rank + m.qk_rope_head_dim) + m.kv_lora_rank
+           + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim) + h * m.v_head_dim * d)
+    experts = d * e.n_experts + 3 * e.n_experts * d * e.d_ff_expert
+    shared = 3 * d * e.d_ff_shared * e.n_shared_experts
+    return 2 * d + mla + experts + shared
+
+
+def mla_grad_check(dev) -> dict:
+    """Phase 22(b): ``mla_attention`` alone at DeepSeek-V3's full width, one
+    sequence of DS_GRAD_SEQ tokens, fp32 through B6 (``q_norm`` at 1536,
+    ``kv_norm`` at 512), against the plain path in fp64: the gradients of x
+    and of each leaf (the norm scales given DENSE_NOISE of seeded noise),
+    normwise, with phase 8's bar rule; and a planted fault that the same
+    check must reject (``kv_norm``'s scale left out of the compressed
+    rows)."""
+    import torch
+
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.kernels.rmsnorm.kernel import reset_launches as reset_b6_launches
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.models.registry import load_config
+
+    base = load_config(DS_ARCH)
+    cfg32 = dataclasses.replace(base, dtype="float32", param_dtype="float32")
+    cfg64 = dataclasses.replace(base, dtype="float64", param_dtype="float64")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    params = attn_mod.init_attention(gen, cfg32, torch.float32)
+    for k in ("q_norm", "kv_norm"):
+        params[k] += DENSE_NOISE * torch.randn(params[k].shape, generator=gen, device=dev)
+    t = DS_GRAD_SEQ
+    x = torch.randn((1, t, base.d_model), generator=gen, device=dev)
+    w = torch.randn((1, t, base.d_model), generator=gen, device=dev)
+    pos = torch.arange(t, device=dev)[None]
+    names = ["x"] + list(params)
+
+    def grads(cfg, p, x_):
+        live = [x_.detach().requires_grad_()] + [v.detach().requires_grad_() for v in p.values()]
+        out = attn_mod.mla_attention(dict(zip(params, live[1:])), live[0], pos, cfg)
+        loss = (out * w.to(out.dtype)).sum()
+        g = torch.autograd.grad(loss, live, allow_unused=True)
+        return [torch.zeros_like(v) if gi is None else gi for gi, v in zip(g, live)]
+
+    reset_b6_launches()
+    g_k = grads(cfg32, params, x)
+    b6 = {k: v for k, v in rmsnorm.launches_by_instance.items() if v}
+    check(rmsnorm.launches == 2 and b6 == {"warp_regs16": 1, "warp_regs4": 1},
+          f"mla_attention fp32 at full width: B6 launches {b6} (q_norm at 1536, kv_norm at 512)")
+    with plain_lm_kernels():
+        g64 = grads(cfg64, {k: v.double() for k, v in params.items()}, x.double())
+        g32 = grads(cfg32, params, x)
+    scale = [float(g.abs().max()) for g in g64]
+
+    def errs(g):
+        return [float((a.double() - b).abs().max()) / s for a, b, s in zip(g, g64, scale)]
+
+    plain64, kern64 = errs(g32), errs(g_k)
+    del g32, g_k
+    bars = [max(WGRAD_NORM_TOL, GRAD_FLOOR_FACTOR * e) for e in plain64]
+    worst = max(range(len(names)), key=lambda i: kern64[i] / bars[i])
+    print(f"mla_attention grads (full width, {t} tokens, fp32 through B6 {b6}) vs the plain path "
+          f"in fp64: normwise max {max(kern64):.2e} (plain fp32 {max(plain64):.2e}); nearest its "
+          f"bar: {names[worst]} {kern64[worst]:.2e}, {kern64[worst] / bars[worst]:.2f} of its bar")
+    for n, e, p, bar in zip(names, kern64, plain64, bars):
+        check(e <= bar, f"mla_attention grad {n}: normwise err {e} vs fp64 over its bar {bar} "
+                        f"(plain fp32 {p})")
+    real_kv = attn_mod._mla_kv
+
+    def kv_norm_unscaled(p, x_, positions, cfg):
+        return real_kv(dict(p, kv_norm=torch.ones_like(p["kv_norm"])), x_, positions, cfg)
+
+    must_fail = ["kv_norm", "w_uk", "w_uv", "w_dkv"]
+    with swapped((attn_mod, "_mla_kv", kv_norm_unscaled)):
+        fault_ratio = {n: e / bar for n, e, bar in zip(names, errs(grads(cfg32, params, x)), bars)}
+    print("planted fault (kv_norm's scale left out): "
+          + ", ".join(f"{n} {fault_ratio[n]:.1f}x" for n in must_fail))
+    check(all(fault_ratio[n] > 1.0 for n in must_fail),
+          f"the mla_attention grad check passed a planted fault: {fault_ratio}")
+    del g64, params, x, w
+    torch.cuda.empty_cache()
+    return {"tokens": t, "grad_err_vs_fp64": max(kern64), "plain32_grad_err_vs_fp64": max(plain64),
+            "per_leaf": {n: [a, b] for n, a, b in zip(names, kern64, plain64)},
+            "planted_fault_err_over_bar": fault_ratio, "b6_launches_by_instance": b6}
+
+
+def deepseek_phase(dev, smi: str) -> dict:
+    """Phase 22: DeepSeek-V3-671B on the card (see DS_ARCH).  (a) At full
+    width, DS_CHECK_DEPTH layers, no MTP head, fp32, seed-0 params:
+    LM_SERVE_FORCED tokens of one sequence teacher-forced through
+    ``decode_step`` (the absorbed MLA decode) against ``apply_lm`` (MLA
+    through the plain ``_sdpa``, B6 for every norm), logits and MLA outputs
+    within DECODE_BAR (``decode_vs_forward_mixes``), each planted fault of
+    DS_FAULTS over it, and a request beside two others giving its bits
+    alone.  (b) Trained as phase 21 with adafactor at DS_TRAIN_DEPTH, the
+    step-1 loss's main CE and MTP term apart, a planted "MTP term dropped"
+    rejected, the modeled state of the next (MoE) layer beside the card;
+    ``mla_grad_check``.  (c) Served at DS_SERVE_DEPTH (``lm_serve_drive``).
+    (d) Both launchers with the id (reduced) on the card.  Returns the
+    launches of (b) and (c) by kernel."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.mlp as mlp_mod
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import place, synth_batch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import reset_launches as reset_b4_launches
+    from repro_torch.kernels.rmsnorm.kernel import reset_launches as reset_b6_launches
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models.lm import MTP_WEIGHT, apply_lm, lm_head_weight, lm_loss, mtp_loss
+    from repro_torch.models.registry import bundle_from_cfg, load_config, with_depth
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = load_config(DS_ARCH)
+    real_decode, real_kv, real_moe = attn_mod._decode_mla, attn_mod._mla_kv, mlp_mod.moe
+
+    def absorbed_through_w_uv(params, x, cache, cfg):
+        # in decode, w_uk is read by the absorption alone
+        return real_decode(dict(params, w_uk=params["w_uv"]), x, cache, cfg)
+
+    def k_pe_unrotated(params, x, positions, cfg):
+        c_kv, _ = real_kv(params, x, positions, cfg)
+        m = cfg.mla
+        return c_kv, (x @ params["w_dkv"])[..., m.kv_lora_rank:]
+
+    def no_shared_expert(params, x, cfg, act="silu"):
+        return real_moe({k: v for k, v in params.items() if k != "shared"}, x, cfg, act)
+
+    faults = {"absorbed_through_w_uv": (attn_mod, "_decode_mla", absorbed_through_w_uv),
+              "k_pe_unrotated": (attn_mod, "_mla_kv", k_pe_unrotated),
+              "no_shared_expert": (mlp_mod, "moe", no_shared_expert)}
+
+    # -- (a) decode against the full forward, full width, fp32 ---------------------
+    rng = np.random.default_rng(SEED + 22)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(full, n_layers=DS_CHECK_DEPTH, mtp_depth=0, dtype="float32",
+                              param_dtype="float32")
+    arch = bundle_from_cfg(cfg, dev)
+    params = arch.init(SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_SERVE_FORCED))).to(dev)
+    with torch.no_grad():
+        reset_b4_launches()
+        reset_b6_launches()
+        out = decode_vs_forward_mixes(cfg, arch, params, tokens)
+        b6 = {k: v for k, v in rmsnorm.launches_by_instance.items() if v}
+        want_b6 = b6_per_decode_call(cfg) * (1 + LM_SERVE_FORCED)
+        print(f"{DS_ARCH} (full width, {cfg.n_layers} layers, fp32): {LM_SERVE_FORCED} tokens "
+              f"teacher-forced through decode_step vs apply_lm (B6 {b6}, the code's count "
+              f"{want_b6}; B4 {flash_attention_fwd.launches}): logits max err "
+              f"{out['logits_err']:.3e} ({out['logits_ratio']:.4f} of the bar "
+              f"{DECODE_BAR}), MLA outputs {out['attention_err']:.3e} "
+              f"({out['attention_ratio']:.4f})")
+        check(out["ratio"] <= 1.0, f"{DS_ARCH} decode vs the full forward: {out}")
+        check(flash_attention_fwd.launches == 0 and rmsnorm.launches == want_b6,
+              f"{DS_ARCH} fp32 decode check: B4 {flash_attention_fwd.launches}, B6 {b6} "
+              f"(the code's {want_b6})")
+        out.update(b6_launches_by_instance=b6)
+        for fault in DS_FAULTS:
+            f_out = decode_vs_forward_mixes(cfg, arch, params, tokens, swapped(faults[fault]))
+            out[f"planted_{fault}"] = f_out
+            print(f"planted fault ({fault}): logits {f_out['logits_ratio']:.1f}x the bar, "
+                  f"MLA outputs {f_out['attention_ratio']:.1f}x")
+            check(f_out["ratio"] > 1.0, f"{DS_ARCH}: the decode check passed the planted fault "
+                                        f"{fault} ({f_out})")
+        out.update(beside_vs_alone(DS_ARCH, cfg, arch, params, rng))
+    del arch, params, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"deepseek_decode_check": out}))
+    times = {"a": time.perf_counter() - t0}
+    print(f"phase 22 (a): {times['a']:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
+          f"allocated after it")
+
+    # -- (b) training at full width, as phase 21 ------------------------------------
+    t0 = time.perf_counter()
+    check(with_depth(full, 0).n_layers == DS_TRAIN_DEPTH, "DeepSeek's dense prefix")
+    run = LMRun("deepseek_train", DS_ARCH, DS_TRAIN_DEPTH, LM_SEQ, LM_BATCH, LM_ACCUM,
+                DS_TRAIN_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, LM_SEQ,
+                optimizer=MOE_OPTIMIZER)
+    got = lm_train_phase(dev, smi, run)
+    launches = {"rmsnorm": got["launches"]["rmsnorm"]}
+    check(set(got["launches"]) == {"rmsnorm"}, f"{DS_ARCH} training launches {got['launches']}")
+    # the step-1 loss's parts (the plain forward of lm_train_phase, split):
+    # the main CE and 0.3 x the MTP CE; and the same check without the MTP term
+    cfg = dataclasses.replace(full, n_layers=run.depth)
+    arch = bundle_from_cfg(cfg, dev)
+    params0 = arch.init(SEED)
+    specs = arch.input_specs(ShapeConfig("smoke", run.seq, run.batch, "train"))
+    b0 = place(synth_batch(specs, cfg, SEED, 0), dev)
+    no_mtp = {k: v for k, v in params0.items() if k != "mtp"}
+    main_ce, mtp_ce = [], []
+    with torch.no_grad(), plain_lm_kernels():
+        for i in range(run.accum):
+            mb = {k: v.chunk(run.accum)[i] for k, v in b0.items()}
+            hidden = apply_lm(params0, mb["tokens"], cfg)
+            head = lm_head_weight(params0, cfg).to(cfg.act_dtype)
+            main_ce.append(float(lm_loss(no_mtp, mb, cfg, remat="none")))
+            mtp_ce.append(float(mtp_loss(params0, mb, hidden, head, cfg)))
+    main, mtp = sum(main_ce) / run.accum, MTP_WEIGHT * sum(mtp_ce) / run.accum
+    step1 = got["losses"][0]
+    dropped_rel = abs(step1 - main) / abs(main)
+    print(f"{DS_ARCH} step-1 loss {step1:.6f} = main CE {main:.6f} + {MTP_WEIGHT} x MTP CE "
+          f"{mtp / MTP_WEIGHT:.6f} ({mtp:.6f}; the plain forward's sum "
+          f"{got['step1_loss_plain_kernels']:.6f}); planted 'MTP term dropped': rel err "
+          f"{dropped_rel:.3e} against the bar {LM_LOSS_RTOL}")
+    check(abs(main + mtp - got["step1_loss_plain_kernels"]) <= 1e-3 * abs(main + mtp),
+          f"{DS_ARCH}: the main CE and the MTP term do not sum to the plain forward's loss")
+    check(dropped_rel > LM_LOSS_RTOL, f"{DS_ARCH}: the loss check passed the MTP term dropped "
+                                      f"({dropped_rel})")
+    del params0, no_mtp, b0, arch, hidden, head
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    nxt = moe_layer_params(full)
+    peak = got["peak_mem_bytes"]
+    trained = {"depth": run.depth, "of": full.n_layers, "params": got["params"],
+               "peak_mem_bytes": peak, "step_ms_cuda_events_median": got["step_ms_median"],
+               "tokens_per_s_cuda_events": got["tokens_per_s"], "step1_loss": step1,
+               "step1_main_ce": main, "step1_mtp_term": mtp, "step1_mtp_ce": mtp / MTP_WEIGHT,
+               "planted_mtp_dropped_rel_err": dropped_rel,
+               "next_layer_params": nxt, "state_bytes_next_layer": MOE_STATE_BYTES * nxt,
+               "modeled_peak_one_layer_deeper": peak + MOE_STATE_BYTES * nxt,
+               "card_bytes": card_bytes}
+    deeper = peak + MOE_STATE_BYTES * nxt
+    print(f"{DS_ARCH}: trained {run.depth} of {full.n_layers} layers with {MOE_OPTIMIZER}, peak "
+          f"{peak / 1e9:.3f} GB; layer {run.depth + 1} (MoE, {nxt / 1e9:.3f} B params) adds "
+          f"~{MOE_STATE_BYTES * nxt / 1e9:.2f} GB of state ({deeper / 1e9:.2f} of "
+          f"{card_bytes / 1e9:.2f} GB)")
+    trained["mla_grads"] = mla_grad_check(dev)
+    print(json.dumps({"deepseek_train": trained}))
+    times["b"] = time.perf_counter() - t0
+    print(f"phase 22 (b): {times['b']:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
+          f"allocated after it")
+
+    # -- (c) serving at full width --------------------------------------------------------
+    t0 = time.perf_counter()
+    launches["rmsnorm"] += lm_serve_drive(dev, smi, DS_ARCH, DS_SERVE_DEPTH)
+    times["c"] = time.perf_counter() - t0
+
+    # -- (d) both launchers with the id (reduced) --------------------------------------
+    t0 = time.perf_counter()
+    for launcher, argv, want in (
+            (train_launcher, ["--arch", DS_ARCH, "--optimizer", MOE_OPTIMIZER, "--steps", "2",
+                              "--batch", "2", "--seq", "32"], "done: steps=2 restarts=0"),
+            (serve_launcher, ["--arch", DS_ARCH, "--requests", "8"],
+             "served 8 requests, 128 tokens")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = launcher.main(argv)
+        print(buf.getvalue(), end="")
+        text = buf.getvalue()
+        check(rc == 0 and want in text and DS_ARCH in text and "cuda" in text,
+              f"{launcher.__name__} --arch {DS_ARCH}")
+    times["d"] = time.perf_counter() - t0
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s ((a)-(d): "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in times.items())})")
+    print(json.dumps({"phase22_launches": launches}))
     return launches
 
 
@@ -5157,6 +5494,9 @@ def main() -> int:
     # -- 21. the Mixture-of-Experts configs: Mixtral-8x22B, Jamba-v0.1-52B ----------
     moe = moe_phase(dev, smi)
 
+    # -- 22. DeepSeek-V3-671B: MLA, the shared expert, the MTP head -------------------
+    ds = deepseek_phase(dev, smi)
+
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",
                      "src/repro/kernels/conv2d_tiled/kernel.py:140", rows,
@@ -5180,7 +5520,7 @@ def main() -> int:
         kernel_entry("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                      "src/repro/kernels/rmsnorm/kernel.py:42", rms_rows[:1],
                      lm_launches["rmsnorm"] + mamba_launches["rmsnorm"] + lm18["rmsnorm"]
-                     + b6_serve + dense["rmsnorm"] + moe["rmsnorm"],
+                     + b6_serve + dense["rmsnorm"] + moe["rmsnorm"] + ds["rmsnorm"],
                      rms_err),
         kernel_entry("ssd_chunk_fwd", "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk_fwd.cu",
                      "src/repro/kernels/ssd_chunk/kernel.py:98", ssd_rows[:1],

@@ -8,8 +8,8 @@ per-channel vectors, under the same keys.  ``lm_params_from_jax`` does the
 same for an LM param tree (``repro.models.lm.init_lm``): nested dicts and
 lists, the segments' leaves stacked over their repeats, key for key.
 ``lm_caches_from_jax`` converts a JAX decode-cache list
-(``repro.models.lm.init_caches``: ``KVCache`` and ``MambaState`` tuples of
-numpy arrays) into the port's caches, so that parity tests start both
+(``repro.models.lm.init_caches``: ``KVCache``, ``MLACache`` and
+``MambaState`` tuples of numpy arrays) into the port's caches, so that parity tests start both
 packages from the same non-empty caches.
 """
 from __future__ import annotations
@@ -66,23 +66,26 @@ def lm_params_from_jax(tree, device: str | torch.device = "cuda"):
 
 
 def lm_caches_from_jax(caches, device: str | torch.device = "cuda") -> list:
-    """A JAX cache list (one ``KVCache(k, v, lengths)`` or ``MambaState(ssm,
-    conv, length)`` per layer, leaves already numpy) -> the port's caches on
+    """A JAX cache list (one ``KVCache(k, v, lengths)``, ``MLACache(c_kv, k_pe,
+    lengths)`` or ``MambaState(ssm, conv, length)`` per layer, leaves already
+    numpy) -> the port's caches on
     ``device``: the same tensors, and a ``MambaState``'s scalar length
     broadcast to the port's one per slot."""
-    from repro_torch.models.attention import KVCache
+    from repro_torch.models.attention import KVCache, MLACache
     from repro_torch.models.mamba2 import MambaState
 
     device = resolve_device(device)
     out = []
     for i, c in enumerate(caches):
         fields = getattr(c, "_fields", None)
-        if fields == KVCache._fields:
-            out.append(KVCache(*(_to_tensor(t, device) for t in c)))
+        if fields in (KVCache._fields, MLACache._fields):
+            kind = KVCache if fields == KVCache._fields else MLACache
+            out.append(kind(*(_to_tensor(t, device) for t in c)))
         elif fields == MambaState._fields:
             ssm, conv = _to_tensor(c.ssm, device), _to_tensor(c.conv, device)
             length = np.broadcast_to(np.asarray(c.length, np.int32), (ssm.shape[0],))
             out.append(MambaState(ssm, conv, _to_tensor(length, device)))
         else:
-            raise TypeError(f"layer {i}: not a KVCache or MambaState: {type(c).__name__} {fields}")
+            raise TypeError(f"layer {i}: not a KVCache, MLACache or MambaState: "
+                            f"{type(c).__name__} {fields}")
     return out

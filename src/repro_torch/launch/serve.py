@@ -124,8 +124,8 @@ def main(argv=None) -> int:
                     help="tiled-CNN image serving instead of the LM engine")
     ap.add_argument("--arch", choices=ARCH_IDS, default="stablelm-1.6b",
                     help="LM: 'stablelm-1.6b' (default), 'qwen2-7b', 'codeqwen1.5-7b', "
-                         "'command-r-35b' or 'mamba2-780m' (the other ids name their ROADMAP "
-                         "item)")
+                         "'command-r-35b', 'mamba2-780m', 'mixtral-8x22b', 'jamba-v0.1-52b' or "
+                         "'deepseek-v3-671b' (the other ids name their ROADMAP item)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)

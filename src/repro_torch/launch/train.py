@@ -2,7 +2,7 @@
 ``yolov2-tiled`` (the paper's tiled CNN) or an LM id the registry resolves
 (``stablelm-1.6b``, the default as in the reference's launcher,
 ``qwen2-7b``, ``codeqwen1.5-7b``, ``command-r-35b``, ``mamba2-780m``,
-``mixtral-8x22b``, ``jamba-v0.1-52b``).
+``mixtral-8x22b``, ``jamba-v0.1-52b``, ``deepseek-v3-671b``).
 
 The tiled-CNN path of ``repro/launch/train.py``: plans a YOLOv2 prefix over
 an n x n virtual tile grid, builds the trainer (deferred per-batch weight
@@ -89,8 +89,8 @@ def _add_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--arch", default="stablelm-1.6b",
                     help=f"'{TILED_ARCH}' or an LM id: 'stablelm-1.6b' (default, as the "
                          "reference's), 'qwen2-7b', 'codeqwen1.5-7b', 'command-r-35b', "
-                         "'mamba2-780m', 'mixtral-8x22b', 'jamba-v0.1-52b' (the other LM "
-                         "ids name their ROADMAP A.18 item)")
+                         "'mamba2-780m', 'mixtral-8x22b', 'jamba-v0.1-52b', 'deepseek-v3-671b' "
+                         "(the other LM ids name their ROADMAP A.18 item)")
     ap.add_argument("--full", action="store_true", help="LM: the full published config")
     ap.add_argument("--seq", type=int, default=64, help="LM: tokens per sequence")
     ap.add_argument("--remat", default="full", choices=["none", "full", "dots"],

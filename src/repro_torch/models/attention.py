@@ -14,9 +14,18 @@ step: the cache is preallocated ``(B, S, Hkv, Dh)`` tensors plus per-slot
 decode scores go through the plain ``_sdpa`` (naive at one query), as the
 reference's go through XLA.
 
-Not ported yet: MLA (DeepSeek: A.18.4), ``kv_override`` cross-attention
-(Whisper: A.18.6), M-RoPE (Qwen2-VL: A.18.5) and the sequence-sharded
-decode (A.18.8) - each raises naming its ROADMAP item.
+MLA (DeepSeek-V3's multi-head latent attention): ``mla_attention`` is the
+training and prefill form (low-rank q and kv, each normed by B6, a decoupled
+RoPE part with one shared key head, the plain ``_sdpa`` at qk head dim
+``dn + dr`` and v head dim ``dv``: outside B4's ``k.shape == v.shape``, as
+the reference's runs through XLA and not its Pallas kernel);
+``_decode_mla`` the absorbed decode over an ``MLACache`` of the compressed
+``c_kv`` and the rotated ``k_pe`` rows, scored in fp32 in the compressed
+space.
+
+Not ported yet: ``kv_override`` cross-attention (Whisper: A.18.6), M-RoPE
+(Qwen2-VL: A.18.5) and the sequence-sharded decode (A.18.8) - each raises
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -28,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF, scaled_q
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import apply_rope, dense_init, rms_norm
 
 
 # ---------------------------------------------------------------------------
@@ -37,11 +46,25 @@ from repro_torch.models.common import apply_rope, dense_init
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA attention (DeepSeek-V3): ROADMAP A.18")
     d = cfg.d_model
     dh = cfg.resolved_head_dim
     dev = gen.device
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+        h = cfg.n_heads
+        return {
+            "w_dq": dense_init(gen, (d, m.q_lora_rank), dtype),
+            "q_norm": torch.ones((m.q_lora_rank,), dtype=dtype, device=dev),
+            "w_uq": dense_init(gen, (m.q_lora_rank, h, qk_dim), dtype, fan_in=m.q_lora_rank),
+            "w_dkv": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim), dtype),
+            "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dtype, device=dev),
+            "w_uk": dense_init(gen, (m.kv_lora_rank, h, m.qk_nope_head_dim), dtype,
+                               fan_in=m.kv_lora_rank),
+            "w_uv": dense_init(gen, (m.kv_lora_rank, h, m.v_head_dim), dtype,
+                               fan_in=m.kv_lora_rank),
+            "w_o": dense_init(gen, (h, m.v_head_dim, d), dtype, fan_in=h * m.v_head_dim),
+        }
     p = {
         "w_q": dense_init(gen, (d, cfg.n_heads, dh), dtype),
         "w_k": dense_init(gen, (d, cfg.n_kv_heads, dh), dtype),
@@ -240,7 +263,7 @@ def attention(
     ``arange(T)`` for every row (``apply_lm`` knows when it made them), so
     the flash op, whose positions are implicit, computes the same function."""
     if cfg.mla is not None:
-        raise NotImplementedError("MLA attention (DeepSeek-V3): ROADMAP A.18")
+        return mla_attention(params, x, positions, cfg, causal=causal)
     if kv_override is not None:
         raise NotImplementedError("cross-attention kv_override (Whisper): ROADMAP A.18")
     if positions is None:
@@ -264,7 +287,56 @@ def attention(
 
 
 # ---------------------------------------------------------------------------
-# KV cache + single-token decode
+# MLA (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+def _mla_q(params, x, positions, cfg: ModelConfig):
+    """(q_nope, rotated q_pe), each (B, T, H, .), from x through the low-rank
+    q (``q_norm`` by B6)."""
+    m = cfg.mla
+    cq = rms_norm(x @ params["w_dq"], params["q_norm"])
+    q = torch.einsum("btr,rhe->bthe", cq, params["w_uq"])          # (B, T, H, dn + dr)
+    q_nope, q_pe = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
+
+
+def _mla_kv(params, x, positions, cfg: ModelConfig):
+    """(normed c_kv (B, T, rank), rotated k_pe (B, T, dr)): the compressed
+    rows a token adds to the cache.  ``kv_norm`` normalises a strided view of
+    the projection (rows of rank + dr); B6's op copies it contiguous."""
+    m = cfg.mla
+    ckv_full = x @ params["w_dkv"]                                # (B, T, rank + dr)
+    c_kv, k_pe = torch.split(ckv_full, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv = rms_norm(c_kv, params["kv_norm"])
+    k_pe = apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]   # 1 shared head
+    return c_kv, k_pe
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+
+
+def mla_attention(params, x, positions, cfg: ModelConfig, *, causal=True) -> torch.Tensor:
+    """The reference's ``mla_attention``: x (B, T, D) -> (B, T, D).  The one
+    rotated key head ``k_pe`` is broadcast to every head beside ``k_nope``,
+    and the scores run through the plain ``_sdpa``."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    q_nope, q_pe = _mla_q(params, x, positions, cfg)
+    c_kv, k_pe = _mla_kv(params, x, positions, cfg)
+    k_nope = torch.einsum("btr,rhe->bthe", c_kv, params["w_uk"])
+    v = torch.einsum("btr,rhe->bthe", c_kv, params["w_uv"])
+    q_full = torch.cat([q_nope, q_pe], dim=-1)
+    k_pe = k_pe[:, :, None, :].expand(b, t, cfg.n_heads, m.qk_rope_head_dim)
+    k_full = torch.cat([k_nope, k_pe], dim=-1)
+    out = _sdpa(q_full, k_full, v, positions, positions, causal=causal, window=None,
+                scale=_mla_scale(cfg))
+    return torch.einsum("bthe,hed->btd", out, params["w_o"])
+
+
+# ---------------------------------------------------------------------------
+# KV caches + single-token decode
 # ---------------------------------------------------------------------------
 
 
@@ -290,6 +362,27 @@ class KVCache(NamedTuple):
         return KVCache(*(t[i:i + 1] for t in self))
 
 
+class MLACache(NamedTuple):
+    """MLA compressed cache: c_kv (B, S, rank) and the rotated k_pe (B, S,
+    dr) in the activation type; lengths (B,) int32, per slot.  Written in
+    place by ``_decode_mla``; ``slot(i)`` is a batch-1 view of slot ``i``."""
+
+    c_kv: torch.Tensor
+    k_pe: torch.Tensor
+    lengths: torch.Tensor
+
+    @classmethod
+    def init(cls, b, s, rank, dr, dtype, device="cpu"):
+        return cls(
+            torch.zeros((b, s, rank), dtype=dtype, device=device),
+            torch.zeros((b, s, dr), dtype=dtype, device=device),
+            torch.zeros((b,), dtype=torch.int32, device=device),
+        )
+
+    def slot(self, i: int) -> "MLACache":
+        return MLACache(*(t[i:i + 1] for t in self))
+
+
 def _write_slot(pos: torch.Tensor, s: int, ring: bool) -> torch.Tensor:
     """The cache row a token at position ``pos`` goes to: the ring slot of a
     sliding window, else the position clamped to the last row."""
@@ -308,7 +401,7 @@ def decode_attention(
     """One-token decode, as the reference's.  Writes the new K/V row and
     advances ``lengths`` in place."""
     if cfg.mla is not None:
-        raise NotImplementedError("MLA decode (DeepSeek-V3): ROADMAP A.18.4")
+        return _decode_mla(params, x, cache, cfg)
     if seq_sharded:
         raise NotImplementedError("sequence-sharded decode (flash-decode): ROADMAP A.18.8")
     b = x.shape[0]
@@ -338,3 +431,35 @@ def decode_attention(
         y = y + params["b_o"]
     cache.lengths.add_(1)
     return y, cache
+
+
+def _decode_mla(params, x: torch.Tensor, cache: MLACache, cfg: ModelConfig):
+    """The reference's absorbed MLA decode: the new row is written at
+    ``min(pos, S - 1)``; q_nope is absorbed through ``w_uk`` into the
+    compressed space, where it scores ``c_kv`` in fp32 beside the rotary
+    part, the probabilities average ``c_kv``, and the result (cast back to
+    x's type) goes out through ``w_uv`` and ``w_o``.  Advances ``lengths``
+    in place."""
+    b = x.shape[0]
+    pos = cache.lengths.long()                     # (B,) per-slot positions
+    positions = pos[:, None]
+    q_nope, q_pe = _mla_q(params, x, positions, cfg)
+    c_new, kpe_new = _mla_kv(params, x, positions, cfg)
+    s = cache.c_kv.shape[1]
+    slot = torch.clamp(pos, max=s - 1)
+    bidx = torch.arange(b, device=x.device)
+    for buf, new in ((cache.c_kv, c_new), (cache.k_pe, kpe_new)):
+        buf.index_put_((bidx, slot), new[:, 0].to(buf.dtype))
+    # absorption: q_abs[h] = q_nope[h] @ w_uk[h]^T, in the compressed space
+    q_abs = torch.einsum("bthe,rhe->bthr", q_nope, params["w_uk"])     # (B, 1, H, rank)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    c_kv = cache.c_kv.to(acc)
+    logits = (torch.einsum("bthr,bsr->bths", q_abs.to(acc), c_kv)
+              + torch.einsum("bthe,bse->bths", q_pe.to(acc), cache.k_pe.to(acc))) * _mla_scale(cfg)
+    kpos = torch.arange(s, device=x.device)
+    mask = kpos[None, None, None, :] <= pos[:, None, None, None]
+    probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+    out_c = torch.einsum("bths,bsr->bthr", probs, c_kv)                  # compressed out
+    out = torch.einsum("bthr,rhe->bthe", out_c.to(x.dtype), params["w_uv"])
+    cache.lengths.add_(1)
+    return torch.einsum("bthe,hed->btd", out, params["w_o"]), cache

@@ -1,12 +1,13 @@
-"""Decoder-only LM: the dense-attention and Mamba2 subset of
-``repro/models/lm.py``.
+"""Decoder-only LM: ``repro/models/lm.py`` without its VLM inputs.
 
 Layers are grouped into *segments* as in the reference (an irregular prefix
 plus a periodic block repeated R times), and the params keep its layout:
 ``params["segments"][s]`` is a list over the block's layers of dicts whose
 leaves are stacked over the R repeats, so a JAX param tree converts leaf for
-leaf (``interop.lm_params_from_jax``).  Where the reference runs
-``lax.scan`` over the repeats, the port runs a Python loop over
+leaf (``interop.lm_params_from_jax``); a config with ``mtp_depth`` > 0
+(DeepSeek-V3) also holds the reference's ``params["mtp"]``: ``proj``,
+``norm`` and one unstacked layer of the last layer's kind.  Where the
+reference runs ``lax.scan`` over the repeats, the port runs a Python loop over
 ``unbind(0)`` views of the stacked leaves (the backward stacks the layers'
 gradients once).  ``remat="full"`` wraps each block in a non-reentrant
 ``torch.utils.checkpoint``, as ``jax.checkpoint`` does.  The reference's
@@ -15,15 +16,17 @@ left out.
 
 Losses: token-chunked cross-entropy (each chunk checkpointed, so peak
 memory is chunk x vocab, not tokens x vocab).  A layer's mixer is attention
-(``models/attention.py``) or a Mamba2 block (``models/mamba2.py``); its
-feed-forward a dense MLP or, on an MoE layer, the experts (``models/mlp.py:
-moe``).  As in the reference, ``lm_loss`` adds no router aux loss
-(``aux_weight`` changes nothing).  MTP heads, VLM patch embeddings and
-``remat="dots"`` raise naming ROADMAP A.18.
+(``models/attention.py``: GQA, or MLA where the config has one) or a Mamba2
+block (``models/mamba2.py``); its feed-forward a dense MLP or, on an MoE
+layer, the experts (``models/mlp.py:moe``).  As in the reference,
+``lm_loss`` adds no router aux loss (``aux_weight`` changes nothing), and
+where ``params`` hold ``mtp`` it adds 0.3 x the MTP head's CE
+(``mtp_loss``).  VLM patch embeddings and ``remat="dots"`` raise naming
+ROADMAP A.18.
 
-Serving: ``init_caches`` (one ``KVCache`` or ``MambaState`` per layer,
-preallocated), ``decode_step`` (one token per slot in, fp32 logits out, the
-caches written in place) and ``prefill``, which, as the reference's, runs
+Serving: ``init_caches`` (one ``KVCache``, ``MLACache`` or ``MambaState``
+per layer, preallocated), ``decode_step`` (one token per slot in, fp32
+logits out, the caches written in place) and ``prefill``, which, as the reference's, runs
 the full forward for the last position's logits and hands back the caches
 it was given untouched (no engine calls it: ROADMAP C).
 """
@@ -40,7 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.models.common import apply_norm, draws_into, embed_init, init_norm
 from repro_torch.models.mamba2 import MambaState
 from repro_torch.optim.optimizers import tree_leaves, tree_map
@@ -160,9 +163,9 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     rest (norms, biases: zeros and ones) after the segment's first repeat,
     and copied into their rows.  So the embedding's fp32 draw never meets
     the layers, and init holds the params plus one fp32 draw at most (an
-    MoE layer's experts are one draw each)."""
-    if cfg.mtp_depth > 0:
-        raise NotImplementedError("multi-token prediction heads (DeepSeek-V3): ROADMAP A.18")
+    MoE layer's experts are one draw each).  The MTP head, where the config
+    has one, is drawn last, as the reference's: ``proj``, ``norm`` and one
+    layer of the last layer's kind, unstacked, each draw cast on its own."""
     dtype = cfg.p_dtype
     segs = plan_segments(cfg)
     params: dict[str, Any] = {
@@ -187,6 +190,12 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
             del block
         seg_params.append(stacked)
     params["segments"] = seg_params
+    if cfg.mtp_depth > 0:
+        params["mtp"] = {
+            "proj": embed_init(gen, (2 * cfg.d_model, cfg.d_model), dtype),
+            "norm": init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
+            "layer": _init_layer(gen, layer_kind(cfg, cfg.n_layers - 1), cfg, dtype),
+        }
     return params
 
 
@@ -312,6 +321,9 @@ def chunked_cross_entropy(
     return loss_sum / torch.clamp(cnt, min=1.0)
 
 
+MTP_WEIGHT = 0.3
+
+
 def lm_loss(
     params: dict,
     batch: dict,
@@ -324,9 +336,8 @@ def lm_loss(
 ) -> torch.Tensor:
     """batch: {"tokens": (B,T), "labels": (B,T), ["positions"]}.  No router
     aux loss is added (the reference's ``lm_loss`` adds none either), so
-    ``aux_weight`` changes nothing."""
-    if cfg.mtp_depth > 0 and "mtp" in params:
-        raise NotImplementedError("multi-token prediction loss (DeepSeek-V3): ROADMAP A.18")
+    ``aux_weight`` changes nothing.  Where ``params`` hold ``mtp``,
+    ``MTP_WEIGHT`` x ``mtp_loss`` is added."""
     hidden = apply_lm(
         params, batch["tokens"], cfg,
         positions=batch.get("positions"),
@@ -335,7 +346,32 @@ def lm_loss(
         unroll=unroll,
     )
     head = lm_head_weight(params, cfg).to(cfg.act_dtype)
-    return chunked_cross_entropy(hidden, head, batch["labels"], chunk=ce_chunk, unroll=unroll)
+    loss = chunked_cross_entropy(hidden, head, batch["labels"], chunk=ce_chunk, unroll=unroll)
+    if cfg.mtp_depth > 0 and "mtp" in params:
+        loss = loss + MTP_WEIGHT * mtp_loss(params, batch, hidden, head, cfg)
+    return loss
+
+
+def mtp_loss(params: dict, batch: dict, hidden: torch.Tensor, head: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """The MTP head's mean CE, as the reference's: token t's final hidden
+    state beside the embedding of token t + 1 (the tokens rolled left, so
+    the last position sees token 0), through ``proj``, ``norm`` and the MTP
+    layer at positions ``arange(T)`` with no remat, scored by the shared
+    head against the labels rolled left with the last one ignored, at the
+    default CE chunk."""
+    mtp = params["mtp"]
+    tokens = batch["tokens"]
+    emb_next = F.embedding(torch.roll(tokens, -1, dims=1).long(), params["embed"])
+    h2 = torch.cat([hidden, emb_next.to(hidden.dtype)], dim=-1) @ mtp["proj"]
+    h2 = apply_norm(cfg.norm, h2, mtp["norm"])
+    b, t = tokens.shape
+    pos = torch.arange(t, device=h2.device)[None].expand(b, t)
+    h2 = _apply_layer(mtp["layer"], layer_kind(cfg, cfg.n_layers - 1), h2, pos, cfg,
+                      arange_positions=True)
+    labels = torch.roll(batch["labels"], -1, dims=1)
+    labels[:, -1] = -100
+    return chunked_cross_entropy(h2, head, labels)
 
 
 # ---------------------------------------------------------------------------
@@ -345,14 +381,18 @@ def lm_loss(
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype, device="cpu") -> list:
     """One cache entry per layer, zeroed, on ``device`` (``"meta"``
-    allocates nothing)."""
+    allocates nothing): an MLA layer's compressed cache and a full-attention
+    layer's KV cache have ``max_seq`` rows, a sliding-window layer's
+    ``min(max_seq, swa_window)``."""
     caches = []
     for i in range(cfg.n_layers):
         kind = layer_kind(cfg, i)
         if kind.mixer == "mamba":
             caches.append(MambaState.init(batch, cfg, dtype, device))
         elif cfg.mla is not None:
-            raise NotImplementedError("MLA caches (DeepSeek-V3): ROADMAP A.18.4")
+            m = cfg.mla
+            caches.append(MLACache.init(batch, max_seq, m.kv_lora_rank, m.qk_rope_head_dim,
+                                        dtype, device))
         else:
             s = min(max_seq, cfg.swa_window) if kind.swa else max_seq
             caches.append(KVCache.init(batch, s, cfg.n_kv_heads, cfg.resolved_head_dim, dtype,

@@ -140,9 +140,10 @@ def moe(params: dict, x: torch.Tensor, cfg, act: str = "silu") -> torch.Tensor:
     Those writes repeat an index, and an ``index_put_`` with repeated
     indices keeps an arbitrary one of them (on a card the winner may change
     between the forward and a remat's recompute).  That is harmless only
-    because the overflow slot's expert output is the appended zero row and
-    its weight is 0 (a dropped assignment's weight is ``topw * keep``): its
-    contribution, whichever token row it lands on, is +0.  Keep both zero.
+    because the dispatch reads the first ``e_local * cap`` slots alone, and
+    the combine reads the appended zero row at the overflow slot with weight
+    0 (a dropped assignment's weight is ``topw * keep``): it adds +0.  Keep
+    both zero.
     """
     m = cfg.moe
     b, t, d = x.shape
@@ -178,16 +179,23 @@ def moe(params: dict, x: torch.Tensor, cfg, act: str = "silu") -> torch.Tensor:
     ye = torch.bmm(ACT[act](gate) * up, params["w_down"])    # (E, g*cap, D)
     ye = ye.reshape(e, gcount, cap, d).transpose(0, 1).reshape(gcount, ep, e_loc * cap, d)
 
-    # combine: each slot's output times its weight, scatter-added into the
-    # token rows (n + 1: the pad row takes the empty slots' zeros)
+    # combine: each token's k slot outputs times their weights, added into
+    # its row in slot order, the order in which the reference's scatter-add
+    # (and an index_add on the CPU) visits them.  A gather and k adds in a
+    # fixed order, not an index_add: on a card an index_add adds a row's k
+    # contributions by atomics, in any order, and at top-8 another order
+    # gives other bits, so a decode row would not be computed on its own.
+    # A dropped assignment reads the zero row at the overflow slot, the
+    # last in slot order, with weight 0: it adds +0.
     w = (topw * keep.to(topw.dtype)).to(x.dtype)             # (g, n, k)
-    wslot = x.new_zeros((gcount, ep, e_loc * cap + 1))
-    wslot.index_put_((gi, dest, lslot), w.reshape(gcount, n * k))
     ye_flat = torch.cat([ye, ye.new_zeros((gcount, ep, 1, d))], dim=2)
-    contrib = ye_flat * wslot[..., None]                     # (g, EP, S+1, D)
-    rows = (inv + (n + 1) * torch.arange(gcount, device=dev)[:, None, None]).reshape(-1)
-    y = x.new_zeros((gcount * (n + 1), d)).index_add(0, rows, contrib.reshape(-1, d))
-    y = y.reshape(gcount, n + 1, d)[:, :n]
+    dest3, slot3 = dest.reshape(gcount, n, k), lslot.reshape(gcount, n, k)
+    order = torch.argsort(dest3 * (e_loc * cap + 1) + slot3, dim=-1)
+    picked = ye_flat[g3, torch.gather(dest3, 2, order), torch.gather(slot3, 2, order)]
+    picked = picked * torch.gather(w, 2, order)[..., None]
+    y = x.new_zeros((gcount, n, d))
+    for j in range(k):
+        y = y + picked[:, :, j]
     if "shared" in params:
         y = y + mlp(params["shared"], x, act).reshape(gcount, n, d)
     return y.reshape(b, t, d)

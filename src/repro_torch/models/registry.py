@@ -5,9 +5,10 @@ Only the configs the port can run resolve: the dense ``qwen2-7b`` (GQA,
 QKV bias), ``codeqwen1.5-7b`` (MHA, QKV bias), ``stablelm-1.6b``
 (LayerNorm, partial rotary) and ``command-r-35b`` (LayerNorm, parallel
 attention||MLP block, tied embeddings), ``mamba2-780m`` (SSD), and the
-Mixture-of-Experts ``mixtral-8x22b`` (sliding window) and
+Mixture-of-Experts ``mixtral-8x22b`` (sliding window),
 ``jamba-v0.1-52b`` (Mamba, attention without RoPE, MoE on alternate
-layers).  Every other id of the reference raises naming its ROADMAP A.18
+layers) and ``deepseek-v3-671b`` (MLA, 3 dense layers then 256 routed
+experts beside a shared one, an MTP head).  Every other id of the reference raises naming its ROADMAP A.18
 item (``ROADMAP_ITEMS``).  A bundle's ``init(seed)`` draws its
 params on the bundle's device; ``decode_fn`` and ``make_caches`` are the
 serving surface (``models/lm.py:decode_step``, ``init_caches`` on the
@@ -33,7 +34,7 @@ ARCH_MODULES = {
     "command-r-35b": "repro_torch.configs.command_r_35b",
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
-    "deepseek-v3-671b": None,
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "qwen2-vl-2b": None,
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
     "whisper-medium": None,
@@ -42,7 +43,6 @@ ARCH_MODULES = {
 ARCH_IDS = list(ARCH_MODULES)
 # the ROADMAP item that ports each id still missing
 ROADMAP_ITEMS = {
-    "deepseek-v3-671b": "A.18.4",
     "qwen2-vl-2b": "A.18.5",
     "whisper-medium": "A.18.6",
 }
@@ -78,7 +78,8 @@ class ArchBundle:
 
     def cache_specs(self, batch: int, max_seq: int) -> list:
         """The caches' shapes and dtypes as ``meta`` tensors (the reference's
-        ``jax.eval_shape`` of ``make_caches``)."""
+        ``jax.eval_shape`` of ``make_caches``): ``KVCache``, ``MLACache`` and
+        ``MambaState`` tuples alike."""
         from repro_torch.models.lm import init_caches
 
         return init_caches(self.cfg, batch, max_seq, self.cfg.act_dtype, "meta")

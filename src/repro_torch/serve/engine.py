@@ -13,7 +13,9 @@ the other slots, and a recycled slot keeps its old state) and feeds a
 prompt's last token twice (C.9).  Here a slot's request is independent of
 the others:
 
-- admission zeroes the slot's cache rows and state;
+- admission zeroes the slot's cache rows and state (``slot(i)`` views of a
+  ``KVCache``, an MLA layer's compressed ``MLACache`` or a ``MambaState``,
+  lengths included);
 - the prefill replays ``prompt[:-1]`` through ``decode_fn`` on batch-1
   views of the slot's cache tensors, so it writes that slot alone (one
   prefill call per admission);
@@ -29,7 +31,8 @@ another's.  Every row is still computed on its own because a decode call
 dispatches at most ``DROPLESS_ASSIGNMENTS`` (token, k) assignments (a
 batch of slots times top-k), where the capacity is raised to the token
 count and nothing drops; each expert's rows then meet the other slots'
-only as other rows of the same batched matmul.  So the engine refuses a
+only as other rows of the same batched matmul, and the combine adds a
+row's top-k outputs in a fixed order (no atomics).  So the engine refuses a
 pool of slots large enough to pass that floor.
 
 So a greedy answer is the greedy continuation of its prompt alone, whatever
@@ -74,7 +77,7 @@ def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator] = N
 def _kv_cache_bounds_positions(cfg, max_seq: int) -> bool:
     """Whether some layer's KV cache cannot hold every position a request
     may feed past ``max_seq``: a full (not sliding-window) cache, whose rows
-    end at ``max_seq``, or a window cache of ``min(max_seq, swa_window)``
+    end at ``max_seq`` (an MLA layer's compressed cache is one), or a window cache of ``min(max_seq, swa_window)``
     rows that is shorter than its window, whose ring then drops context the
     window should see (ROADMAP C.11)."""
     kinds = [layer_kind(cfg, i) for i in range(cfg.n_layers)]

@@ -90,10 +90,13 @@ def _unflatten(like, leaves):
 
 def lm_value_and_grad(loss_fn, params, batch: dict):
     """(loss, grads) of ``loss_fn(params, batch)`` by autograd: the loss
-    detached, the grads in each param's dtype, in the params' tree."""
+    detached, the grads in each param's dtype, in the params' tree, each
+    contiguous (the in-place optimizers update flat views: an unstacked
+    leaf's einsum gradient, as the MTP layer's ``w_o``, comes back
+    strided)."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss = loss_fn(live, batch)
-    grads = torch.autograd.grad(loss, tree_leaves(live))
+    grads = [g.contiguous() for g in torch.autograd.grad(loss, tree_leaves(live))]
     return loss.detach(), _unflatten(params, grads)
 
 

@@ -21,7 +21,7 @@ from repro_torch.models import registry as treg
 from repro_torch.models.common import init_norm
 
 LM_IDS = ["qwen2-7b", "mamba2-780m", "stablelm-1.6b", "codeqwen1.5-7b", "command-r-35b",
-          "mixtral-8x22b", "jamba-v0.1-52b"]
+          "mixtral-8x22b", "jamba-v0.1-52b", "deepseek-v3-671b"]
 
 
 def _former_dense_init(gen, shape, dtype, fan_in=None):
@@ -58,7 +58,8 @@ def _former_initialisers():
 
 
 def _former_init_lm(gen, cfg):
-    """The port's init before streaming: per-layer trees, then ``_stack``."""
+    """The port's init before streaming: per-layer trees, then ``_stack``;
+    an MTP head (DeepSeek-V3) drawn last, as the reference's."""
     dtype = cfg.p_dtype
     with _former_initialisers():
         params = {
@@ -71,6 +72,13 @@ def _former_init_lm(gen, cfg):
             _stack([[tlm._init_layer(gen, kind, cfg, dtype) for kind in seg.block]
                     for _ in range(seg.repeats)])
             for seg in tlm.plan_segments(cfg)]
+        if cfg.mtp_depth > 0:
+            params["mtp"] = {
+                "proj": _former_embed_init(gen, (2 * cfg.d_model, cfg.d_model), dtype),
+                "norm": init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
+                "layer": tlm._init_layer(gen, tlm.layer_kind(cfg, cfg.n_layers - 1), cfg,
+                                         dtype),
+            }
     return params
 
 

@@ -38,7 +38,7 @@ from repro_torch.configs import qwen2_7b as tqwen_cfg
 from repro_torch.interop import lm_caches_from_jax, lm_params_from_jax
 from repro_torch.models import lm as tlm
 from repro_torch.models import registry as treg
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.models.mamba2 import MambaState
 from repro_torch.serve import engine as teng
 
@@ -200,9 +200,14 @@ def test_caches_and_specs():
                 assert tuple(gt.shape) == tuple(st.shape) == shape
                 assert gt.dtype == st.dtype == getattr(torch, str(wt.dtype))
                 assert st.device.type == "meta" and not bool(gt.any())
-    with pytest.raises(NotImplementedError, match="A.18.4"):
-        tlm.init_caches(dataclasses.replace(tqwen_cfg.reduced(), mla=object()), 1, 4,
-                        torch.float32)
+    # an MLA config's caches are the compressed MLACache (A.18.4;
+    # tests/test_torch_deepseek.py holds them against JAX's); Qwen2-VL
+    # (A.18.5) still names its item
+    mla = tlm.init_caches(treg.load_config("deepseek-v3-671b", reduced=True), 1, 4,
+                          torch.float32)
+    assert all(isinstance(c, MLACache) and c.c_kv.shape == (1, 4, 16) for c in mla)
+    with pytest.raises(NotImplementedError, match="A.18.5"):
+        treg.get_arch("qwen2-vl-2b", reduced=True, device="cpu")
 
 
 def test_decode_raises_for_the_unported_decode_paths():
@@ -414,17 +419,19 @@ def test_lm_serve_launcher_runs_on_cpu(arch, capsys):
 
 
 def test_lm_serve_launcher_names_the_roadmap_item_of_an_unported_arch(capsys):
-    """``deepseek-v3-671b`` names its item; ``stablelm-1.6b`` (A.18.2) and
-    ``mixtral-8x22b`` (A.18.3), ported, serve, and ``stablelm-1.6b`` is the
-    default ``--arch``, as in the reference."""
+    """``qwen2-vl-2b`` names its item (A.18.5); ``stablelm-1.6b`` (A.18.2),
+    ``mixtral-8x22b`` (A.18.3) and ``deepseek-v3-671b`` (A.18.4), ported,
+    serve, and ``stablelm-1.6b`` is the default ``--arch``, as in the
+    reference."""
     from repro_torch.launch.serve import main
 
-    for argv in (["--arch", "stablelm-1.6b"], [], ["--arch", "mixtral-8x22b"]):
+    for argv in (["--arch", "stablelm-1.6b"], [], ["--arch", "mixtral-8x22b"],
+                 ["--arch", "deepseek-v3-671b"]):
         assert main(["--device", "cpu", "--requests", "2", "--max-new", "3"] + argv) == 0
         out = capsys.readouterr().out
         assert "served 2 requests, 6 tokens" in out and "on cpu" in out
-    with pytest.raises(NotImplementedError, match="A.18.4"):
-        main(["--device", "cpu", "--arch", "deepseek-v3-671b"])
+    with pytest.raises(NotImplementedError, match="A.18.5"):
+        main(["--device", "cpu", "--arch", "qwen2-vl-2b"])
 
 
 # ---------------------------------------------------------------------------

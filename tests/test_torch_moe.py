@@ -186,6 +186,42 @@ def test_moe_top1_routing_is_argmax():
     np.testing.assert_array_equal(topi.numpy(), np.asarray(jtopi))
 
 
+@pytest.mark.parametrize("cf", [8.0, 0.5])
+def test_moe_combine_at_top8_adds_each_row_in_a_fixed_order(cf):
+    """DeepSeek-V3's top-8 (of 16 here): the combine adds a token's k
+    outputs by a gather and k adds in slot order, the order of the
+    reference's scatter-add, and runs no ``index_add`` (on a card an
+    index_add adds a row's contributions by atomics, in any order, and at
+    top-8 another order gives other bits).  Against JAX with ample and with
+    tight capacity; and on the dropless floor a token's output is the same
+    bits whatever the other tokens are (a decode row computed on its own)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.add(str(func))
+            return func(*args, **(kwargs or {}))
+
+    jcfg, tcfg = _cfgs(n_experts=16, top_k=8, cf=cf, shared=1)
+    jp, tp = _params(jcfg)
+    x = _x((2, 40, 16))
+    want = np.asarray(jmlp.moe(jp, jnp.asarray(x), jcfg))
+    with Ops() as ops:
+        got = tmlp.moe(tp, torch.from_numpy(x), tcfg)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    assert not any("index_add" in n for n in ops.names), sorted(ops.names)
+    assert _port_keep(tp, x, tcfg).all() == (cf == 8.0)
+    # dropless (3 tokens x 8 = 24 assignments): token 0's row alone and beside others
+    a = torch.from_numpy(_x((3, 1, 16), seed=2))
+    b = a.clone()
+    b[1:] = torch.from_numpy(_x((2, 1, 16), seed=3))
+    assert torch.equal(tmlp.moe(tp, a, tcfg)[0], tmlp.moe(tp, b, tcfg)[0])
+
+
 def test_route_breaks_ties_as_lax_top_k():
     """A zero router gives every expert the same gate: ``lax.top_k`` takes
     the lowest indices first, and so does the port (``torch.topk`` does not

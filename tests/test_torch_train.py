@@ -626,6 +626,7 @@ def test_launcher_trains_on_cpu(capsys):
     (["--optimizer", "adafactor"], "A.18.7"),
     (["--arch", "stablelm-1.6b"], "A.18.2"),
     (["--arch", "mixtral-8x22b"], "A.18.3"),
+    (["--arch", "qwen2-vl-2b"], "A.18.5"),
 ])
 def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys, tmp_path):
     """Unported flags raise naming their ROADMAP item; the flags of A.10
@@ -638,9 +639,9 @@ def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys, tm
     A.15's flags run: ``--ckpt-dir`` (a fresh directory) saves the last
     step, and ``--fault-schedule drop:1@2`` over 3 steps replans the 2x2
     grid onto the three survivors.  A.18.2's ``--arch stablelm-1.6b`` and
-    A.18.3's ``--arch mixtral-8x22b`` train their reduced configs, A.18.7's
-    ``--optimizer adafactor`` trains the tiled CNN; an LM id still to port
-    (``deepseek-v3-671b``) raises."""
+    A.18.3's ``--arch mixtral-8x22b`` and A.18.4's ``--arch deepseek-v3-671b``
+    train their reduced configs, A.18.7's ``--optimizer adafactor`` trains
+    the tiled CNN; an LM id still to port (``qwen2-vl-2b``) raises."""
     from repro_torch.launch.train import main
 
     base = ["--arch", "yolov2-tiled", "--device", "cpu", "--input-hw", "32", "--depth", "4",
@@ -664,13 +665,14 @@ def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys, tm
             with pytest.raises(ValueError, match="pipeline tails are planner-assigned"):
                 main(base + flags)
         return
-    if item in ("A.10", "A.11", "A.12", "A.14", "A.18.2", "A.18.3", "A.18.7"):
+    if item in ("A.10", "A.11", "A.12", "A.14", "A.18.2", "A.18.3", "A.18.4", "A.18.7"):
         assert main(base + flags) == 0
         out = capsys.readouterr().out
         plan = {"A.10": "schedule=overlap", "A.11": "crossover=2",
                 "A.12": "rows=(0, 4, 32) cols=(0, 4, 32) uniform=False cluster=pi3x3+jetson",
                 "A.14": f"wire_codec={flags[1]}", "A.18.2": "model: stablelm-1.6b layers=2",
                 "A.18.3": "model: mixtral-8x22b layers=2",
+                "A.18.4": "model: deepseek-v3-671b layers=4",
                 "A.18.7": "optimizer=adafactor"}[item]
         assert plan in out and "done: steps=1 restarts=0" in out
         return
