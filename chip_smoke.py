@@ -320,8 +320,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    layers with the MTP head the config draws: 53.4 GB), the tick's
    weight-read bound leaving out the MTP head; (d) both launchers with the
    id (reduced).  Phase 6 also times B6 at DeepSeek's widths 7168, 1536
-   and 512.  The ``{"kernels": ...}`` line's launches include phases 12's
-   to 22's.
+   and 512;
+23. Qwen2-VL-2B of ROADMAP A.18.5 (``vl_phase``: M-RoPE, patch embeddings
+   in place of the leading tokens) at full width and all 28 layers, seed-0
+   params: (a) fp32, noise on every bias and norm leaf, one prompt of
+   ``LM_SERVE_FORCED`` tokens opening with a ``VL_GRID`` x ``VL_GRID``
+   image (``vl_streams``: one temporal position, the rows and columns on
+   the height and width streams, so the three streams differ) through
+   ``apply_lm`` (M-RoPE, then B4 by the sequence index: ROADMAP C.14)
+   against the same prompt teacher-forced through ``decode_step``
+   (``vl_decode_side`` feeds each step its patch and streams), logits and
+   attention outputs within ``DECODE_BAR``, the planted faults of
+   ``VL_FAULTS`` over it (sections permuted, height and width swapped,
+   patches not substituted), beside vs alone; (b) trained as phase 7 at
+   full depth, 4 x 2048 tokens (512 of them patches) in 2 microbatches,
+   bf16, AdamW, 3 steps; (c) served at full depth, ``VL_SERVE_REQUESTS``
+   text prompts; (d) both launchers with the id;
+24. Whisper-medium of ROADMAP A.18.6 (``whisper_phase``: the encoder-
+   decoder, cross-attention) at full width, 24 + 24 layers: (a) fp32, noise
+   on every bias and norm leaf, ``decode_train(encode(frames))`` on
+   ``WHISPER_CHECK_FRAMES`` frames against the tokens teacher-forced through
+   ``whisper_decode_step`` with the cross K/V filled from the encoding
+   (``whisper_decoded``; the reference's serving never fills them, ROADMAP
+   C.15), within ``DECODE_BAR``, the planted faults of ``WHISPER_FAULTS``
+   over it (cross K/V from the decoder's states, a causal encoder, the
+   sinusoid dropped); (b) trained as phase 7, 4 x (2048 frames, 512 tokens)
+   in 2 microbatches, bf16, AdamW, 3 steps (B4 in three modes: the
+   encoder's non-causal, the decoder's causal, the cross-attention's 512
+   queries against 2048 keys); (c) served at full depth as the reference's
+   ``_lm_main`` serves it, token prompts against zeroed cross K/V; (d) both
+   launchers with the id.  Phase 6 also holds B4 at these phases' four
+   training shapes (``FA_VL_WHISPER_SHAPES``) with the causal flag flipped
+   as a planted fault.  The ``{"kernels": ...}`` line's launches include
+   phases 12's to 24's.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -702,6 +733,36 @@ MOE_FAULTS = {"mixtral-8x22b": ("unnormalised_topk", "next_expert"),
               "jamba-v0.1-52b": ("unnormalised_topk", "next_expert", "rope_on_attention")}
 # B4 at Mixtral's heads where its window of 4096 masks (phase 6)
 FA_WINDOW_SEQ = 8192
+# Phases 23-24: Qwen2-VL-2B (ROADMAP A.18.5) and Whisper-medium (A.18.6) at
+# full width and depth, seed-0 params.  Qwen2-VL trains on VL_SEQ tokens a
+# sequence, of which the registry's max(4, T / 4) = 512 are patch
+# embeddings; Whisper on VL_SEQ encoder frames and VL_SEQ / 4 decoder
+# tokens; both 4 sequences in 2 microbatches (LM_BATCH, LM_ACCUM), bf16,
+# remat full, AdamW, 3 steps.  The decode checks are fp32 at full depth.
+VL_ARCH, WHISPER_ARCH = "qwen2-vl-2b", "whisper-medium"
+VL_SEQ = 2048
+VL_STEPS = 3
+# Qwen2-VL's decode check: LM_SERVE_FORCED tokens, the first VL_GRID^2 of
+# them an image's patch embeddings at one temporal position, its grid's
+# rows and columns on the height and width streams, then text from the
+# next position on (arXiv:2409.12191 §2.1), so the three streams differ
+VL_GRID = 6
+VL_FAULTS = ("sections_permuted", "h_w_swapped", "patches_not_substituted")
+VL_FAULT_SECTIONS = (24, 24, 16)
+# serving: VL_SERVE_REQUESTS text prompts of VL_SERVE_PROMPT tokens,
+# VL_SERVE_NEW greedy tokens each (both configs)
+VL_SERVE_REQUESTS, VL_SERVE_PROMPT, VL_SERVE_NEW = 4, (8, 24), 16
+# Whisper's decode check: LM_SERVE_FORCED tokens against WHISPER_CHECK_FRAMES
+# encoder frames; its planted faults on the decode side
+WHISPER_CHECK_FRAMES = 2048
+WHISPER_FAULTS = ("cross_kv_from_decoder_state", "encoder_causal", "sinusoid_dropped")
+# phase 6: B4 at phases 23-24's training shapes (b, tq, tk, hq, hkv, dh, causal)
+FA_VL_WHISPER_SHAPES = [
+    (LM_BATCH // LM_ACCUM, VL_SEQ, VL_SEQ, 12, 2, 128, True),             # Qwen2-VL
+    (LM_BATCH // LM_ACCUM, VL_SEQ, VL_SEQ, 16, 16, 64, False),            # Whisper encoder
+    (LM_BATCH // LM_ACCUM, VL_SEQ // 4, VL_SEQ // 4, 16, 16, 64, True),   # decoder
+    (LM_BATCH // LM_ACCUM, VL_SEQ // 4, VL_SEQ, 16, 16, 64, False),       # cross
+]
 # Phase 22: DeepSeek-V3-671B of ROADMAP A.18.4 (``deepseek_phase``) at its
 # published widths, seed-0 params.  One MoE layer (256 experts of 3 x 7168 x
 # 2048, a shared expert and MLA) holds 11.51 B params, over the card at
@@ -2213,7 +2274,10 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
     def tol(dt):
         return TOL_BF16 if dt == torch.bfloat16 else TOL_FP32
 
-    def fa_case(b, tq, tk, hq, hkv, dh, causal, window, dt, timed, fp64=True):
+    def fa_case(b, tq, tk, hq, hkv, dh, causal, window, dt, timed, fp64=True, flip=False):
+        """B4 at one shape against its plain version; ``flip``: also the
+        planted fault of the causal flag flipped (causal where none, or none
+        where causal), which the same check must reject."""
         q, k, v = (torch.randn(s, generator=gen, device=dev).to(dt)
                    for s in ((b, tq, hq, dh), (b, tk, hkv, dh), (b, tk, hkv, dh)))
         got = flash_attention_fwd(q, k, v, causal=causal, window=window)
@@ -2226,6 +2290,12 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
               f"err {err} over tolerance {tol(dt)}")
         row = dict(shape=[b, tq, tk, hq, hkv, dh], causal=causal, window=window, dtype=str(dt),
                    instance=instance, max_abs_err=err, err_ratio=ratio)
+        if flip:
+            bad = flash_attention_fwd(q, k, v, causal=not causal, window=window)
+            _, row["planted_causal_flipped_ratio"] = err_stats(bad, want, **tol(dt))
+            del bad
+            check(row["planted_causal_flipped_ratio"] > 1.0,
+                  f"B4 {row['shape']}: the check passed the causal flag flipped")
         if timed:
             mask = attention_mask(tq, tk, causal, window, dev)
             pairs = int(mask.sum())
@@ -2241,8 +2311,12 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
             qs = q.transpose(1, 2)
             ks = k.repeat_interleave(rep, dim=2).transpose(1, 2)
             vs = v.repeat_interleave(rep, dim=2).transpose(1, 2)
-            lib_kw = dict(is_causal=True) if causal and window is None and tq == tk else \
-                dict(attn_mask=mask)
+            if window is None and not causal:
+                lib_kw = {}
+            elif window is None and tq == tk:
+                lib_kw = dict(is_causal=True)
+            else:
+                lib_kw = dict(attn_mask=mask)
             row.update(
                 ms=time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal, window=window)),
                 plain_ms=time_ms(lambda: attention_ref(q, k, v, causal=causal, window=window),
@@ -2290,6 +2364,19 @@ def attn_norm_kernel_phase(dev) -> tuple[list, float, list, float]:
               f"{r['plain_ms']:.3f} sdpa {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
               f"({r['bound_by']}; fp32 cores {r['fp32_core_bound_ms']:.3f}, bf16 tensor cores "
               f"{r['bf16_tensor_core_bound_ms']:.4f}){fp64}")
+    # the bf16 shapes of phases 23-24's training microbatch: Qwen2-VL's causal
+    # 12 q heads over 2 kv heads of 128, Whisper's encoder (non-causal),
+    # decoder (causal) and cross-attention (non-causal, 512 queries against
+    # 2048 keys), each with its causal flag flipped as a planted fault
+    for shape in FA_VL_WHISPER_SHAPES:
+        r = fa_case(*shape, None, torch.bfloat16, True, True, flip=True)
+        fa_rows.append(r)
+        print(f"  B4 {r['shape']} causal={r['causal']} bf16 ({r['instance']}): err "
+              f"{r['max_abs_err']:.2e} ({r['err_ratio']:.3f} of tol; causal flipped "
+              f"{r['planted_causal_flipped_ratio']:.1f}x) kernel {r['ms']:.4f} ms plain "
+              f"{r['plain_ms']:.3f} sdpa {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}); vs fp64: kernel {r['kernel_err_vs_fp64']:.3e} plain "
+              f"{r['plain_err_vs_fp64']:.3e}")
     cases = [(c[:8], c[8]) for c in FA_CASES]
     cases += [(c[:8], "bfloat16") for c in FA_CASES if c[8] != "bfloat16"]
     cases += [(c, "bfloat16") for c in FA_BF16_EDGE_CASES]
@@ -2465,6 +2552,12 @@ def lm_launches_per_microbatch(cfg, remat: str) -> dict:
     from repro_torch.models.lm import layer_kind
 
     out = {"rmsnorm": 0}
+    if cfg.encoder_decoder:
+        # Whisper (LayerNorm: no B6): each encoder layer's self-attention and
+        # each decoder layer's self- and cross-attention run B4 once a forward
+        runs = 2 if remat != "none" else 1
+        out["flash_attention_fwd"] = runs * (cfg.n_encoder_layers + 2 * cfg.n_layers)
+        return out
 
     def layer(i, runs):
         kind = layer_kind(cfg, i)
@@ -2519,6 +2612,14 @@ def plain_lm_kernels() -> swapped:
     )
 
 
+def microbatch(batch: dict, i: int, accum: int) -> dict:
+    """Microbatch ``i`` of ``accum`` of a placed LM batch, as the trainer
+    splits it: M-RoPE's (3, B, T) positions on their batch dim, the rest on
+    dim 0."""
+    return {k: v.chunk(accum, dim=1 if (k == "positions" and v.dim() == 3) else 0)[i]
+            for k, v in batch.items()}
+
+
 def named_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         return [p for k in tree for p in named_leaves(tree[k], f"{prefix}/{k}")]
@@ -2547,7 +2648,7 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     from repro_torch.kernels.ssd_chunk.kernel import reset_launches as reset_b5_launches
     from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
     from repro_torch.models import mlp as mlp_mod
-    from repro_torch.models.lm import lm_loss, plan_segments
+    from repro_torch.models.lm import plan_segments
     from repro_torch.models.registry import bundle_from_cfg, load_config
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.runtime.driver import DriverConfig, run_training
@@ -2602,7 +2703,7 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     n_params = sum(p.numel() for p in tree_leaves(last["state"].params))
     # one layer's params by its kind (mixer, moe, swa): a stacked row each
     kind_params = {}
-    for seg, seg_p in zip(plan_segments(cfg), last["state"].params["segments"]):
+    for seg, seg_p in zip(plan_segments(cfg), last["state"].params.get("segments", [])):
         for kind, layer in zip(seg.block, seg_p):
             kind_params[dataclasses.astuple(kind)] = sum(t[0].numel() for t in tree_leaves(layer))
     step_ms = [a.elapsed_time(b) for a, b in events]
@@ -2634,14 +2735,18 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
               f"{run.key} B5 launches by instance {b5_instances} vs {want['ssd_chunk_fwd']}")
     check(step1["loss"] == losses[0], "on_grads saw another loss than the run logged")
 
-    # where the device time of one step goes (one more step on the final state)
+    # where the device time of one step goes (one more step on the final
+    # state).  The trace records the card's activity alone: with the host's
+    # ops too, building its events took minutes for a deep model's step
     batch = make_batch(0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t_trace = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         train_step(last["state"], batch)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = device_ms_by_name(prof, 1)
+    trace_s = time.perf_counter() - t_trace
     dev_ms = sum(by_name.values())
     part = {name: sum(v for k, v in by_name.items() if LM_KERNEL_TRACE_NAMES[name] in k)
             for name in kernels}
@@ -2651,7 +2756,7 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     med = statistics.median(step_ms)
     print(json.dumps({f"profile_{run.key}_step": {
-        "wall_ms": prof_wall_ms, "device_ms": dev_ms, "kernel_ms": part,
+        "wall_ms": prof_wall_ms, "device_ms": dev_ms, "kernel_ms": part, "trace_s": trace_s,
         "idle_share": max(0.0, 1 - dev_ms / prof_wall_ms),
         # against the unprofiled step (CUDA events, median of the run)
         "idle_share_vs_event_step": max(0.0, 1 - dev_ms / med),
@@ -2675,8 +2780,7 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
         return pos, keep
 
     with torch.no_grad(), plain_lm_kernels(), swapped((mlp_mod, "queue_positions", counted)):
-        plain = [float(lm_loss(params0, {k: v.chunk(run.accum)[i] for k, v in b0.items()},
-                               cfg, remat="none"))
+        plain = [float(arch.loss_fn(params0, microbatch(b0, i, run.accum), remat="none"))
                  for i in range(run.accum)]
     plain_loss = sum(plain) / run.accum
     dropped = (1 - float(sum(k for k, _ in kept)) / sum(n for _, n in kept)) if kept else None
@@ -3480,16 +3584,18 @@ def elastic_phase(dev, smi: str, held_b1: set, held_bwd: set, fwd_row, bwd_rows)
     return launches18, lm_launches18, fwd18, dgrad18, wgrad18
 
 
-def decode_vs_forward(cfg, arch, params, tokens, decode_fault=None) -> tuple[float, float]:
+def decode_vs_forward(cfg, arch, params, tokens, decode_fault=None,
+                      forward_kw=None) -> tuple[float, float]:
     """(max err, ratio to DECODE_BAR) of ``decode_step``'s logits, token by
-    token from empty caches, against ``apply_lm``'s; ``decode_fault`` (a
+    token from empty caches, against ``apply_lm``'s (given ``forward_kw``:
+    a VLM's positions and patch embeddings); ``decode_fault`` (a
     ``swapped`` context) is applied around the decode alone."""
     import torch
 
     from repro_torch.models.lm import apply_lm, lm_head_weight
 
     head = lm_head_weight(params, cfg).to(cfg.act_dtype)
-    full = (apply_lm(params, tokens, cfg) @ head.T).float()
+    full = (apply_lm(params, tokens, cfg, **(forward_kw or {})) @ head.T).float()
     caches = arch.make_caches(tokens.shape[0], tokens.shape[1])
     with decode_fault or contextlib.nullcontext():
         dec = torch.stack([arch.decode_fn(params, tokens[:, t:t + 1], caches)[0][:, 0]
@@ -3544,19 +3650,23 @@ def beside_vs_alone(name, cfg, arch, params, rng) -> dict:
                 beside_vs_alone_same_tokens=got_toks == want_toks)
 
 
-def lm_serve_drive(dev, smi: str, name: str, depth=None) -> int:
+def lm_serve_drive(dev, smi: str, name: str, depth=None, requests: int = LM_SERVE_REQUESTS,
+                   prompt: tuple = LM_SERVE_PROMPT, new: int = LM_SERVE_NEW) -> int:
     """One full-width serving cell (phases 19-21): ``name``'s published
     config in bf16 (cut to its first ``depth`` layers where given), seed-0
-    params, LM_SERVE_REQUESTS prompts of
-    LM_SERVE_PROMPT tokens (numpy's default_rng(SEED)), LM_SERVE_NEW greedy
-    tokens each over LM_SERVE_SLOTS slots.  Checks every request complete,
+    params, ``requests`` prompts of
+    ``prompt`` tokens (numpy's default_rng(SEED)), ``new`` greedy
+    tokens each over LM_SERVE_SLOTS slots (by default LM_SERVE_REQUESTS of
+    LM_SERVE_PROMPT, LM_SERVE_NEW).  Checks every request complete,
     finite logits, B6's launches the code's count (``b6_per_decode_call`` x
     the prefill tokens plus the ticks) and no B4 or B5 launch, and init's
     peak (beyond what was allocated before it) within INIT_PEAK_SLACK of
     the params' bytes plus the largest fp32 draw; prints the ``{"lm_serve":
     ...}`` line, with the tick's bound: every weight a decode call reads (all
     but the embedding table, of which it gathers a row a slot, and an MTP
-    head, which decode never runs) over HBM bandwidth.  Returns B6's
+    head, which decode never runs; for Whisper the decoder's layers and
+    norm and the embedding as its head, not the encoder or the position
+    table) over HBM bandwidth.  Returns B6's
     launches."""
     import gc
 
@@ -3594,16 +3704,25 @@ def lm_serve_drive(dev, smi: str, name: str, depth=None) -> int:
     n_params = sum(t.numel() for t in leaves)
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
     # init draws each leaf in fp32, then casts it (models/common.py): a
-    # stacked leaf one row (one layer) at a time
-    largest_draw = 4 * max([t.numel() for k, v in params.items() if k != "segments"
+    # stacked leaf (an LM's segments, Whisper's enc and dec) one row (one
+    # layer) at a time
+    stacked = ("segments", "enc", "dec")
+    largest_draw = 4 * max([t.numel() for k, v in params.items() if k not in stacked
                             for t in tree_leaves(v)]
-                           + [t[0].numel() for t in tree_leaves(params["segments"])])
+                           + [t[0].numel() for k in stacked for t in tree_leaves(params.get(k, {}))])
     init_peak = torch.cuda.max_memory_allocated(dev)
     init_bar = INIT_PEAK_SLACK * (param_bytes + largest_draw)
     embed = params["embed"]
-    mtp_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params.get("mtp", {})))
-    tick_bound_ms = 1e3 * (param_bytes - mtp_bytes - embed.numel() * embed.element_size()
-                           * (not cfg.tie_embeddings)) / HBM_BYTES_PER_S
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    mtp_bytes = nbytes(params.get("mtp", {}))
+    if cfg.encoder_decoder:
+        read_bytes = nbytes([params["dec"], params["dec_norm"], embed])
+    else:
+        read_bytes = param_bytes - mtp_bytes - nbytes(embed) * (not cfg.tie_embeddings)
+    tick_bound_ms = 1e3 * read_bytes / HBM_BYTES_PER_S
     print(f"{name} init: {n_params / 1e9:.3f} B params ({param_bytes / 1e9:.3f} GB) in "
           f"{init_s:.2f} s, peak {init_peak / 1e9:.3f} GB ({(init_peak - before) / 1e9:.3f} GB "
           f"beyond what was allocated before), bar {init_bar / 1e9:.3f} GB (params + the largest "
@@ -3612,12 +3731,12 @@ def lm_serve_drive(dev, smi: str, name: str, depth=None) -> int:
           f"{init_bar}")
     torch.cuda.reset_peak_memory_stats(dev)
     rng = np.random.default_rng(SEED)
-    lo, hi = LM_SERVE_PROMPT
+    lo, hi = prompt
     prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(lo, hi + 1))).astype(np.int32)
-               for _ in range(LM_SERVE_REQUESTS)]
+               for _ in range(requests)]
     eng = ServeEngine(arch, params, batch=LM_SERVE_SLOTS, max_seq=LM_SERVE_MAX_SEQ)
     for rid, p in enumerate(prompts):
-        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=LM_SERVE_NEW))
+        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=new))
     finite = []
     real = engine_mod.sample_logits
 
@@ -3659,13 +3778,13 @@ def lm_serve_drive(dev, smi: str, name: str, depth=None) -> int:
           f"{eng.decode_calls} ticks, {eng.prefill_tokens} prefill tokens; B6 launches "
           f"{launches} by instance {by_instance} (the code's count {per_call} a call x "
           f"{eng.prefill_tokens + eng.decode_calls} calls = {want})")
-    check(sorted(r.rid for r in done) == list(range(LM_SERVE_REQUESTS))
-          and all(len(r.out_tokens) == LM_SERVE_NEW for r in done),
+    check(sorted(r.rid for r in done) == list(range(requests))
+          and all(len(r.out_tokens) == new for r in done),
           f"{name}: requests {[(r.rid, len(r.out_tokens)) for r in done]}")
     check(not eng.queue and eng.slots == [None] * LM_SERVE_SLOTS, f"{name}: engine not drained")
     check(all(0 <= t < cfg.vocab for r in done for t in r.out_tokens), f"{name}: token ids")
     check(bool(torch.stack(finite).all()), f"{name}: non-finite logits")
-    check(eng.prefill_calls == LM_SERVE_REQUESTS
+    check(eng.prefill_calls == requests
           and eng.prefill_tokens == sum(len(p) - 1 for p in prompts)
           and eng.decode_calls == len(tick_ev), f"{name}: engine counters")
     check(launches == want and sum(by_instance.values()) == launches,
@@ -3858,6 +3977,40 @@ def lm_serve_phase(dev, smi: str) -> int:
     return b6_launches
 
 
+def add_noise(params, gen, dev) -> list:
+    """DENSE_NOISE x N(0, 1) added to every bias and norm leaf (at init 0 and
+    1, which would hide those branches); their paths."""
+    import torch
+
+    noisy = [(path, leaf) for path, leaf in named_leaves(params)
+             if "/b_" in path or "norm" in path]
+    for _, leaf in noisy:
+        leaf.add_(DENSE_NOISE * torch.randn(leaf.shape, generator=gen, device=dev))
+    return [path for path, _ in noisy]
+
+
+def run_launchers(arch_id: str, optimizer=None) -> None:
+    """Phases 21-24(d): both launchers with ``arch_id`` (reduced) on the
+    card, the train launcher with ``optimizer`` where given."""
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+
+    opt = ["--optimizer", optimizer] if optimizer else []
+    for launcher, argv, want in (
+            (train_launcher, ["--arch", arch_id, *opt, "--steps", "2", "--batch", "2", "--seq",
+                              "32"], "done: steps=2 restarts=0"),
+            (serve_launcher, ["--arch", arch_id, "--requests", "8"],
+             "served 8 requests, 128 tokens")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = launcher.main(argv)
+        print(buf.getvalue(), end="")
+        text = buf.getvalue()
+        check(rc == 0 and want in text and arch_id in text and "cuda" in text
+              and (launcher is serve_launcher or not opt or f"optimizer={optimizer}" in text),
+              f"{launcher.__name__} --arch {arch_id}")
+
+
 def dense_phase(dev, smi: str) -> dict:
     """Phase 20: StableLM-2-1.6B, CodeQwen1.5-7B and Command-R 35B on the
     card (see DENSE_ARCHS).  (a) At full width, 2 layers, fp32, seed-0
@@ -3904,14 +4057,6 @@ def dense_phase(dev, smi: str) -> dict:
               "no_b_v": (attn_mod, "_qkv", no_b_v),
               "sequential_block": (lm_mod, "_decode_layer", sequential_block)}
 
-    def add_noise(params, gen) -> list:
-        """DENSE_NOISE x N(0, 1) added to every bias and norm leaf; their paths."""
-        noisy = [(path, leaf) for path, leaf in named_leaves(params)
-                 if "/b_" in path or "norm" in path]
-        for _, leaf in noisy:
-            leaf.add_(DENSE_NOISE * torch.randn(leaf.shape, generator=gen, device=dev))
-        return [path for path, _ in noisy]
-
     # -- (a) decode against the full forward, full width, 2 layers, fp32 -------------
     checks = {}
     rng = np.random.default_rng(SEED + 20)
@@ -3922,7 +4067,7 @@ def dense_phase(dev, smi: str) -> dict:
                                   param_dtype="float32")
         arch = bundle_from_cfg(cfg, dev)
         params = arch.init(SEED)
-        noisy = add_noise(params, gen)
+        noisy = add_noise(params, gen, dev)
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, LM_SERVE_FORCED))).to(dev)
         with torch.no_grad():
             reset_b4_launches()
@@ -4009,7 +4154,8 @@ def dense_phase(dev, smi: str) -> dict:
     return launches
 
 
-def decode_vs_forward_mixes(cfg, arch, params, tokens, decode_fault=None) -> dict:
+def decode_vs_forward_mixes(cfg, arch, params, tokens, decode_fault=None,
+                            forward_kw=None) -> dict:
     """Phase 21(a)'s decode check: ``decode_vs_forward``'s logits, and each
     attention layer's output (the mixer's, before the residual add), token
     by token, against the forward's, both at DECODE_BAR.  ``ratio`` is the
@@ -4032,7 +4178,7 @@ def decode_vs_forward_mixes(cfg, arch, params, tokens, decode_fault=None) -> dic
 
     with swapped((attn_mod, "attention", attention),
                  (attn_mod, "decode_attention", decode_attention)):
-        err, ratio = decode_vs_forward(cfg, arch, params, tokens, decode_fault)
+        err, ratio = decode_vs_forward(cfg, arch, params, tokens, decode_fault, forward_kw)
     n = len(fwd)
     check(n > 0 and len(dec) == n * tokens.shape[1], f"attention calls {n}, {len(dec)}")
     # decode's calls run token-major: layer j's outputs are every n-th
@@ -4071,8 +4217,6 @@ def moe_phase(dev, smi: str) -> dict:
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm
     from repro_torch.kernels.ssd_chunk.kernel import reset_launches as reset_b5_launches
     from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
-    from repro_torch.launch import serve as serve_launcher
-    from repro_torch.launch import train as train_launcher
     from repro_torch.models.lm import layer_kind
     from repro_torch.models.registry import bundle_from_cfg, load_config
 
@@ -4185,19 +4329,7 @@ def moe_phase(dev, smi: str) -> dict:
 
     # -- (d) both launchers with each id (reduced) and adafactor ---------------------
     for name in MOE_ARCHS:
-        for launcher, argv, want in (
-                (train_launcher, ["--arch", name, "--optimizer", MOE_OPTIMIZER, "--steps", "2",
-                                  "--batch", "2", "--seq", "32"], "done: steps=2 restarts=0"),
-                (serve_launcher, ["--arch", name, "--requests", "8"],
-                 "served 8 requests, 128 tokens")):
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                rc = launcher.main(argv)
-            print(buf.getvalue(), end="")
-            text = buf.getvalue()
-            check(rc == 0 and want in text and name in text and "cuda" in text
-                  and (launcher is serve_launcher or f"optimizer={MOE_OPTIMIZER}" in text),
-                  f"{launcher.__name__} --arch {name}")
+        run_launchers(name, MOE_OPTIMIZER)
     times["d"] = time.perf_counter() - t0
     print(f"phase 21: {time.perf_counter() - t_phase:.1f} s ((a)-(d): "
           f"{', '.join(f'{k} {v:.1f}' for k, v in times.items())})")
@@ -4323,8 +4455,6 @@ def deepseek_phase(dev, smi: str) -> dict:
     from repro_torch.kernels.flash_attention.kernel import reset_launches as reset_b4_launches
     from repro_torch.kernels.rmsnorm.kernel import reset_launches as reset_b6_launches
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm
-    from repro_torch.launch import serve as serve_launcher
-    from repro_torch.launch import train as train_launcher
     from repro_torch.models.lm import MTP_WEIGHT, apply_lm, lm_head_weight, lm_loss, mtp_loss
     from repro_torch.models.registry import bundle_from_cfg, load_config, with_depth
 
@@ -4459,22 +4589,337 @@ def deepseek_phase(dev, smi: str) -> dict:
 
     # -- (d) both launchers with the id (reduced) --------------------------------------
     t0 = time.perf_counter()
-    for launcher, argv, want in (
-            (train_launcher, ["--arch", DS_ARCH, "--optimizer", MOE_OPTIMIZER, "--steps", "2",
-                              "--batch", "2", "--seq", "32"], "done: steps=2 restarts=0"),
-            (serve_launcher, ["--arch", DS_ARCH, "--requests", "8"],
-             "served 8 requests, 128 tokens")):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = launcher.main(argv)
-        print(buf.getvalue(), end="")
-        text = buf.getvalue()
-        check(rc == 0 and want in text and DS_ARCH in text and "cuda" in text,
-              f"{launcher.__name__} --arch {DS_ARCH}")
+    run_launchers(DS_ARCH, MOE_OPTIMIZER)
     times["d"] = time.perf_counter() - t0
     print(f"phase 22: {time.perf_counter() - t_phase:.1f} s ((a)-(d): "
           f"{', '.join(f'{k} {v:.1f}' for k, v in times.items())})")
     print(json.dumps({"phase22_launches": launches}))
+    return launches
+
+
+def vl_streams(t: int, grid: int):
+    """(3, T) M-RoPE streams (temporal, height, width) of a prompt that opens
+    with one image of grid x grid patches, as Qwen2-VL numbers them: every
+    patch at temporal position 0, its row on the height stream and its
+    column on the width stream; the text after it at grid, grid + 1, ... on
+    all three."""
+    import numpy as np
+
+    n = grid * grid
+    text = list(range(grid, grid + t - n))
+    return np.array([[0] * n + text,
+                     [r for r in range(grid) for _ in range(grid)] + text,
+                     [c for _ in range(grid) for c in range(grid)] + text], np.int64)
+
+
+def vl_decode_side(streams, patches, fault=None) -> swapped:
+    """Phase 23(a)'s decode side: ``decode_step`` call t (from 0) embeds
+    ``patches[:, t]`` in place of its token while t < Tv, and rotates q and
+    k by ``streams[:, :, t]`` in place of its length broadcast to the three
+    streams, so that teacher-forcing a multimodal prompt through the decode
+    computes the forward's function.  ``fault`` plants one of VL_FAULTS:
+    the M-RoPE sections permuted to VL_FAULT_SECTIONS, the height and width
+    streams swapped, the patch embeddings not substituted."""
+    import torch.nn.functional as F
+
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.lm as lm_mod
+
+    step = [-1]
+    if fault == "h_w_swapped":
+        streams = streams[[0, 2, 1]]
+    real_rope, real_mrope = attn_mod._rope_qk, attn_mod.apply_mrope
+
+    class Embedding:
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        def embedding(self, ids, table):
+            step[0] += 1
+            out = F.embedding(ids, table)
+            if fault != "patches_not_substituted" and step[0] < patches.shape[1]:
+                out = patches[:, step[0]:step[0] + 1].to(out.dtype)
+            return out
+
+    def rope(q, k, positions, cfg):
+        return real_rope(q, k, streams[:, :, step[0]:step[0] + 1], cfg)
+
+    swaps = [(lm_mod, "F", Embedding()), (attn_mod, "_rope_qk", rope)]
+    if fault == "sections_permuted":
+        swaps.append((attn_mod, "apply_mrope",
+                      lambda x, pos, theta, sections: real_mrope(x, pos, theta,
+                                                                 VL_FAULT_SECTIONS)))
+    return swapped(*swaps)
+
+
+def vl_phase(dev, smi: str) -> dict:
+    """Phase 23: Qwen2-VL-2B on the card (VL_ARCH), full width, all 28
+    layers.  (a) fp32, seed-0 params with DENSE_NOISE on every bias and norm
+    leaf: one prompt of LM_SERVE_FORCED tokens that opens with an image of
+    VL_GRID x VL_GRID patch embeddings (``vl_streams``: three distinct
+    streams) through ``apply_lm`` (M-RoPE, then B4 ``simt_fp32_dh128`` by the
+    index mask) against the same prompt teacher-forced through
+    ``decode_step`` (``vl_decode_side``), the logits and every attention
+    output within DECODE_BAR, each planted fault of VL_FAULTS over it, B6
+    the code's count, and a text request beside two others giving its bits
+    alone.  (b) Trained as phase 7 at full depth: LM_BATCH sequences of
+    VL_SEQ tokens (a quarter of them patch embeddings, the registry's
+    streams) in LM_ACCUM microbatches, bf16, remat full, AdamW, VL_STEPS
+    steps; step 1's loss beside ln V.  (c) Served at full depth
+    (``lm_serve_drive``: VL_SERVE_REQUESTS text prompts).  (d) Both
+    launchers with the id.  Returns the launches of (b) and (c) by kernel."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import reset_launches as reset_b4_launches
+    from repro_torch.kernels.rmsnorm.kernel import reset_launches as reset_b6_launches
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.models.registry import bundle_from_cfg, load_config
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = load_config(VL_ARCH)
+
+    # -- (a) decode against the full forward, full width and depth, fp32 -------------
+    rng = np.random.default_rng(SEED + 23)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(full, dtype="float32", param_dtype="float32")
+    arch = bundle_from_cfg(cfg, dev)
+    params = arch.init(SEED)
+    noisy = add_noise(params, gen, dev)
+    t = LM_SERVE_FORCED
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, t))).to(dev)
+    streams = torch.from_numpy(vl_streams(t, VL_GRID)[:, None, :]).to(dev)      # (3, 1, T)
+    patches = torch.randn((1, VL_GRID * VL_GRID, cfg.d_model), generator=gen, device=dev)
+    fwd_kw = dict(positions=streams, extra_embeds=patches)
+    check(len({tuple(s) for s in streams[:, 0].tolist()}) == 3, "the three streams are distinct")
+    with torch.no_grad():
+        reset_b4_launches()
+        reset_b6_launches()
+        out = decode_vs_forward_mixes(cfg, arch, params, tokens, vl_decode_side(streams, patches),
+                                      fwd_kw)
+        b4 = {k: v for k, v in flash_attention_fwd.launches_by_instance.items() if v}
+        want_b6 = b6_per_decode_call(cfg) * (1 + t)
+        b6 = rmsnorm.launches
+        print(f"{VL_ARCH} (full width, {cfg.n_layers} layers, fp32, noise on {len(noisy)} bias and "
+              f"norm leaves): {t} tokens ({VL_GRID}x{VL_GRID} patches, then text; streams "
+              f"{streams[:, 0, :VL_GRID * VL_GRID + 2].tolist()}...) teacher-forced through "
+              f"decode_step vs apply_lm (B4 {b4}, B6 {b6}, the code's count {want_b6}): logits "
+              f"max err {out['logits_err']:.3e} ({out['logits_ratio']:.4f} of the bar "
+              f"{DECODE_BAR}), attention outputs {out['attention_err']:.3e} "
+              f"({out['attention_ratio']:.4f})")
+        check(out["ratio"] <= 1.0, f"{VL_ARCH} decode vs the full forward: {out}")
+        check(b4 == {"simt_fp32_dh128": cfg.n_layers} and b6 == want_b6,
+              f"{VL_ARCH} fp32 decode check: B4 {b4}, B6 {b6} (the code's {want_b6})")
+        out.update(noisy_leaves=len(noisy), forward_b4=b4, b6_launches=b6)
+        for fault in VL_FAULTS:
+            f_out = decode_vs_forward_mixes(cfg, arch, params, tokens,
+                                            vl_decode_side(streams, patches, fault), fwd_kw)
+            out[f"planted_{fault}"] = f_out
+            print(f"planted fault ({fault}): logits {f_out['logits_ratio']:.1f}x the bar, "
+                  f"attention outputs {f_out['attention_ratio']:.1f}x")
+            check(f_out["ratio"] > 1.0, f"{VL_ARCH}: the decode check passed the planted fault "
+                                        f"{fault} ({f_out})")
+        out.update(beside_vs_alone(VL_ARCH, cfg, arch, params, rng))
+    del arch, params, tokens, patches
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"vl_decode_check": out}))
+    times = {"a": time.perf_counter() - t0}
+    print(f"phase 23 (a): {times['a']:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
+          f"allocated after it")
+
+    # -- (b) training at full width and depth, as phase 7 -----------------------------
+    t0 = time.perf_counter()
+    run = LMRun("vl_train", VL_ARCH, full.n_layers, VL_SEQ, LM_BATCH, LM_ACCUM, VL_STEPS,
+                LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, VL_SEQ)
+    got = lm_train_phase(dev, smi, run)
+    launches = dict(got["launches"])
+    check(set(launches) == {"flash_attention_fwd", "rmsnorm"}, f"{VL_ARCH} launches {launches}")
+    step1, ln_v = got["losses"][0], math.log(full.vocab)
+    print(json.dumps({"vl_train_summary": {
+        "layers": full.n_layers, "of": full.n_layers, "params": got["params"],
+        "patch_tokens_per_sequence": VL_SEQ // 4, "step1_loss": step1, "ln_vocab": ln_v,
+        "step_ms_cuda_events_median": got["step_ms_median"],
+        "tokens_per_s_cuda_events": got["tokens_per_s"], "peak_mem_bytes": got["peak_mem_bytes"],
+        "launches": launches, "card": smi}}))
+    times["b"] = time.perf_counter() - t0
+    print(f"phase 23 (b): {times['b']:.1f} s; step-1 loss {step1:.4f} (ln V = {ln_v:.4f})")
+
+    # -- (c) serving at full width and depth --------------------------------------------
+    t0 = time.perf_counter()
+    launches["rmsnorm"] += lm_serve_drive(dev, smi, VL_ARCH, None, VL_SERVE_REQUESTS,
+                                          VL_SERVE_PROMPT, VL_SERVE_NEW)
+    times["c"] = time.perf_counter() - t0
+
+    # -- (d) both launchers with the id (reduced) --------------------------------------
+    t0 = time.perf_counter()
+    run_launchers(VL_ARCH)
+    times["d"] = time.perf_counter() - t0
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s ((a)-(d): "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in times.items())})")
+    print(json.dumps({"phase23_launches": launches}))
+    return launches
+
+
+def whisper_decoded(arch, params, frames, tokens, fault=None):
+    """Phase 24(a)'s decode side: fp32 logits (B, T, V) of ``tokens``
+    teacher-forced through ``whisper_decode_step`` against the cross K/V of
+    ``cross_attention_kv(encode(frames))`` (``fill_cross_caches``: the
+    reference's serving never fills them, ROADMAP C.15).  ``fault`` plants
+    one of WHISPER_FAULTS: the cross K/V computed from the decoder's input
+    states (token embeddings plus positions), an encoder whose
+    self-attention is causal, the encoder's sinusoid dropped."""
+    import torch
+
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.whisper as whisper_mod
+
+    cfg = arch.cfg
+    real_attn = attn_mod.attention
+
+    def causal_attention(*a, **k):
+        return real_attn(*a, **dict(k, causal=True))
+
+    encoder_swaps = {
+        "encoder_causal": [(attn_mod, "attention", causal_attention)],
+        "sinusoid_dropped": [(whisper_mod, "_sinusoid",
+                              lambda t, d, dtype, device: torch.zeros((t, d), dtype=dtype,
+                                                                      device=device))],
+    }.get(fault, [])
+    with swapped(*encoder_swaps):
+        enc = whisper_mod.encode(params, frames, cfg)
+    if fault == "cross_kv_from_decoder_state":
+        t = tokens.shape[1]
+        enc = (torch.nn.functional.embedding(tokens.long(), params["embed"])
+               + params["dec_pos"][:t]).to(cfg.act_dtype)
+    caches = whisper_mod.init_whisper_caches(cfg, tokens.shape[0], tokens.shape[1],
+                                             enc.shape[1], cfg.act_dtype, frames.device)
+    whisper_mod.fill_cross_caches(params, caches, enc, cfg)
+    return torch.stack([arch.decode_fn(params, tokens[:, i:i + 1], caches)[0][:, 0]
+                        for i in range(tokens.shape[1])], 1)
+
+
+def whisper_phase(dev, smi: str) -> dict:
+    """Phase 24: Whisper-medium on the card (WHISPER_ARCH), full width, 24 +
+    24 layers.  (a) fp32, seed-0 params with DENSE_NOISE on every bias and
+    norm leaf: one sequence of LM_SERVE_FORCED tokens against
+    WHISPER_CHECK_FRAMES frames, ``decode_train(encode(frames))``'s logits
+    (B4 ``simt_fp32_dh64``: the encoder's non-causal, the decoder's causal
+    and the cross-attention) against the tokens teacher-forced through
+    ``whisper_decode_step`` with the cross K/V filled from the encoding
+    (``whisper_decoded``), within DECODE_BAR, and each planted fault of
+    WHISPER_FAULTS over it.  (b) Trained as phase 7: LM_BATCH sequences of
+    VL_SEQ frames and VL_SEQ / 4 tokens in LM_ACCUM microbatches, bf16, remat
+    full, AdamW, VL_STEPS steps (B4 three times a decoder layer's and once an
+    encoder layer's forward, twice with remat; no B6: LayerNorm); step 1's
+    loss beside ln V.  (c) Served at full depth through ``ServeEngine`` as
+    the reference's ``_lm_main`` serves it: token prompts alone against
+    zeroed cross K/V (``lm_serve_drive``).  (d) Both launchers with the id.
+    Returns the launches of (b) by kernel."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import reset_launches as reset_b4_launches
+    from repro_torch.kernels.rmsnorm.kernel import reset_launches as reset_b6_launches
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.models.registry import bundle_from_cfg, load_config
+    from repro_torch.models.whisper import decode_train, encode
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = load_config(WHISPER_ARCH)
+
+    # -- (a) decode against decode_train, full width and depth, fp32 --------------------
+    rng = np.random.default_rng(SEED + 24)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(full, dtype="float32", param_dtype="float32")
+    arch = bundle_from_cfg(cfg, dev)
+    params = arch.init(SEED)
+    noisy = add_noise(params, gen, dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_SERVE_FORCED))).to(dev)
+    frames = torch.randn((1, WHISPER_CHECK_FRAMES, cfg.d_model), generator=gen, device=dev)
+    out = {}
+    with torch.no_grad():
+        reset_b4_launches()
+        reset_b6_launches()
+        want = (decode_train(params, tokens, encode(params, frames, cfg), cfg)
+                @ params["embed"].T).float()
+        b4 = {k: v for k, v in flash_attention_fwd.launches_by_instance.items() if v}
+        got = whisper_decoded(arch, params, frames, tokens)
+        out["logits_err"], out["logits_ratio"] = err_stats(got, want, **DECODE_BAR)
+        print(f"{WHISPER_ARCH} (full width, {cfg.n_encoder_layers} + {cfg.n_layers} layers, fp32, "
+              f"noise on {len(noisy)} bias and norm leaves): {LM_SERVE_FORCED} tokens against "
+              f"{WHISPER_CHECK_FRAMES} frames teacher-forced through whisper_decode_step (cross "
+              f"K/V from the encoding) vs decode_train (B4 {b4}, B6 {rmsnorm.launches}): logits "
+              f"max err {out['logits_err']:.3e} ({out['logits_ratio']:.4f} of the bar "
+              f"{DECODE_BAR})")
+        check(out["logits_ratio"] <= 1.0, f"{WHISPER_ARCH} decode vs decode_train: {out}")
+        want_b4 = 2 * cfg.n_layers + cfg.n_encoder_layers      # the reference side's forward
+        check(b4 == {"simt_fp32_dh64": want_b4} and rmsnorm.launches == 0,
+              f"{WHISPER_ARCH} fp32 forward: B4 {b4} (the code's {want_b4}), B6 "
+              f"{rmsnorm.launches}")
+        out.update(noisy_leaves=len(noisy), forward_b4=b4)
+        for fault in WHISPER_FAULTS:
+            bad = whisper_decoded(arch, params, frames, tokens, fault)
+            f_err, f_ratio = err_stats(bad, want, **DECODE_BAR)
+            out[f"planted_{fault}"] = dict(logits_err=f_err, logits_ratio=f_ratio)
+            print(f"planted fault ({fault}): logits {f_ratio:.1f}x the bar")
+            check(f_ratio > 1.0, f"{WHISPER_ARCH}: the decode check passed the planted fault "
+                                 f"{fault} ({f_err})")
+    del arch, params, tokens, frames, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"whisper_decode_check": out}))
+    times = {"a": time.perf_counter() - t0}
+    print(f"phase 24 (a): {times['a']:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
+          f"allocated after it")
+
+    # -- (b) training at full width and depth, as phase 7 -----------------------------
+    t0 = time.perf_counter()
+    run = LMRun("whisper_train", WHISPER_ARCH, full.n_layers, VL_SEQ, LM_BATCH, LM_ACCUM,
+                VL_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, VL_SEQ)
+    got = lm_train_phase(dev, smi, run)
+    launches = dict(got["launches"])
+    check(launches == {"flash_attention_fwd": launches.get("flash_attention_fwd", 0),
+                       "rmsnorm": 0} and launches["flash_attention_fwd"] > 0,
+          f"{WHISPER_ARCH} launches {launches}")
+    step1, ln_v = got["losses"][0], math.log(full.vocab)
+    med_s = got["step_ms_median"] / 1e3
+    print(json.dumps({"whisper_train_summary": {
+        "encoder_layers": full.n_encoder_layers, "decoder_layers": full.n_layers,
+        "params": got["params"], "frames_per_sequence": VL_SEQ,
+        "tokens_per_sequence": VL_SEQ // 4, "step1_loss": step1, "ln_vocab": ln_v,
+        "step_ms_cuda_events_median": got["step_ms_median"],
+        "frames_per_s_cuda_events": LM_BATCH * VL_SEQ / med_s,
+        "decoder_tokens_per_s_cuda_events": LM_BATCH * (VL_SEQ // 4) / med_s,
+        "peak_mem_bytes": got["peak_mem_bytes"], "launches": launches, "card": smi}}))
+    times["b"] = time.perf_counter() - t0
+    print(f"phase 24 (b): {times['b']:.1f} s; step-1 loss {step1:.4f} (ln V = {ln_v:.4f})")
+
+    # -- (c) serving at full width and depth: token prompts, zeroed cross K/V -----------
+    t0 = time.perf_counter()
+    launches["rmsnorm"] += lm_serve_drive(dev, smi, WHISPER_ARCH, None, VL_SERVE_REQUESTS,
+                                          VL_SERVE_PROMPT, VL_SERVE_NEW)
+    times["c"] = time.perf_counter() - t0
+
+    # -- (d) both launchers with the id (reduced) --------------------------------------
+    t0 = time.perf_counter()
+    run_launchers(WHISPER_ARCH)
+    times["d"] = time.perf_counter() - t0
+    print(f"phase 24: {time.perf_counter() - t_phase:.1f} s ((a)-(d): "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in times.items())})")
+    print(json.dumps({"phase24_launches": launches}))
     return launches
 
 
@@ -5497,6 +5942,12 @@ def main() -> int:
     # -- 22. DeepSeek-V3-671B: MLA, the shared expert, the MTP head -------------------
     ds = deepseek_phase(dev, smi)
 
+    # -- 23. Qwen2-VL-2B: M-RoPE and patch embeddings ---------------------------------
+    vl = vl_phase(dev, smi)
+
+    # -- 24. Whisper-medium: the encoder-decoder and cross-attention --------------------
+    wsp = whisper_phase(dev, smi)
+
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",
                      "src/repro/kernels/conv2d_tiled/kernel.py:140", rows,
@@ -5516,11 +5967,13 @@ def main() -> int:
                      "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
                      "src/repro/kernels/flash_attention/kernel.py:127", fa_rows[:1],
                      lm_launches["flash_attention_fwd"] + lm18["flash_attention_fwd"]
-                     + dense["flash_attention_fwd"] + moe["flash_attention_fwd"], fa_err),
+                     + dense["flash_attention_fwd"] + moe["flash_attention_fwd"]
+                     + vl["flash_attention_fwd"] + wsp["flash_attention_fwd"], fa_err),
         kernel_entry("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                      "src/repro/kernels/rmsnorm/kernel.py:42", rms_rows[:1],
                      lm_launches["rmsnorm"] + mamba_launches["rmsnorm"] + lm18["rmsnorm"]
-                     + b6_serve + dense["rmsnorm"] + moe["rmsnorm"] + ds["rmsnorm"],
+                     + b6_serve + dense["rmsnorm"] + moe["rmsnorm"] + ds["rmsnorm"]
+                     + vl["rmsnorm"] + wsp["rmsnorm"],
                      rms_err),
         kernel_entry("ssd_chunk_fwd", "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk_fwd.cu",
                      "src/repro/kernels/ssd_chunk/kernel.py:98", ssd_rows[:1],

@@ -4,8 +4,12 @@
 ``SeedSequence([seed, step])`` stream, so both packages see the same bits
 for the same (seed, step), and a restart replays the stream.  ``place``
 moves a batch to the run's device (the reference's sharded device_put is a
-plain copy on one device).  ``SyntheticStream`` draws the same stream on a
-prefetching thread, from ``start_step`` on, and places each batch on
+plain copy on one device).  A float entry (a VLM's ``patch_embeds``,
+Whisper's ``frames``) has a torch dtype in its spec: it is drawn as the
+reference draws it, float64 standard normal, and cast by torch, which rounds
+float64 -> bfloat16 through float32 as ``ml_dtypes``' cast does (the same
+bits; ``tests/test_torch_vlm.py``).  ``SyntheticStream`` draws the same
+stream on a prefetching thread, from ``start_step`` on, and places each batch on
 ``device`` as it is taken.  The launchers' driver calls ``make_batch(step)``
 itself, as the reference's does.
 """
@@ -25,7 +29,11 @@ from repro_torch.launch.mesh import resolve_device
 CLOSE_TIMEOUT_S = 5.0
 
 
-def synth_like(spec, rng: np.random.Generator, vocab: int) -> np.ndarray:
+def synth_like(spec, rng: np.random.Generator, vocab: int):
+    """A numpy int32 array for an integer spec; for a float spec (a torch
+    dtype) a CPU tensor of that dtype."""
+    if isinstance(spec.dtype, torch.dtype):
+        return torch.from_numpy(rng.standard_normal(size=spec.shape)).to(spec.dtype)
     if np.issubdtype(spec.dtype, np.integer):
         return rng.integers(0, max(vocab, 2), size=spec.shape, dtype=np.int32)
     return rng.standard_normal(size=spec.shape).astype(spec.dtype)
@@ -45,7 +53,8 @@ def synth_batch(specs: dict, cfg, seed: int, step: int) -> dict:
 
 
 def place(batch: dict, device: str | torch.device) -> dict:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    return {k: (v if isinstance(v, torch.Tensor) else
+                torch.from_numpy(np.ascontiguousarray(v))).to(device) for k, v in batch.items()}
 
 
 class SyntheticStream:

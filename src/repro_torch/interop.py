@@ -7,10 +7,14 @@ over here.  The layout needs no change: both packages keep HWIO filters and
 per-channel vectors, under the same keys.  ``lm_params_from_jax`` does the
 same for an LM param tree (``repro.models.lm.init_lm``): nested dicts and
 lists, the segments' leaves stacked over their repeats, key for key.
+A Whisper param tree (``repro.models.whisper.init_whisper``: the
+stacked ``enc`` and ``dec`` layers) converts the same way.
 ``lm_caches_from_jax`` converts a JAX decode-cache list
 (``repro.models.lm.init_caches``: ``KVCache``, ``MLACache`` and
-``MambaState`` tuples of numpy arrays) into the port's caches, so that parity tests start both
-packages from the same non-empty caches.
+``MambaState`` tuples of numpy arrays; ``init_whisper_caches``: a dict of
+the self-attention ``KVCache`` and the cross K/V per decoder layer) into the
+port's caches, so that parity tests start both packages from the same
+non-empty caches.
 """
 from __future__ import annotations
 
@@ -67,16 +71,23 @@ def lm_params_from_jax(tree, device: str | torch.device = "cuda"):
 
 def lm_caches_from_jax(caches, device: str | torch.device = "cuda") -> list:
     """A JAX cache list (one ``KVCache(k, v, lengths)``, ``MLACache(c_kv, k_pe,
-    lengths)`` or ``MambaState(ssm, conv, length)`` per layer, leaves already
-    numpy) -> the port's caches on
-    ``device``: the same tensors, and a ``MambaState``'s scalar length
-    broadcast to the port's one per slot."""
+    lengths)``, ``MambaState(ssm, conv, length)`` or Whisper's ``{"self":
+    KVCache, "cross_k", "cross_v"}`` per layer, leaves already numpy) -> the
+    port's caches on ``device``: the same tensors (a ``WhisperCache`` for
+    Whisper's dict), and a ``MambaState``'s scalar length broadcast to the
+    port's one per slot."""
     from repro_torch.models.attention import KVCache, MLACache
     from repro_torch.models.mamba2 import MambaState
+    from repro_torch.models.whisper import WhisperCache
 
     device = resolve_device(device)
     out = []
     for i, c in enumerate(caches):
+        if isinstance(c, dict) and set(c) == {"self", "cross_k", "cross_v"}:
+            (attn,) = lm_caches_from_jax([c["self"]], device)
+            out.append(WhisperCache(attn, _to_tensor(c["cross_k"], device),
+                                    _to_tensor(c["cross_v"], device)))
+            continue
         fields = getattr(c, "_fields", None)
         if fields in (KVCache._fields, MLACache._fields):
             kind = KVCache if fields == KVCache._fields else MLACache
@@ -86,6 +97,6 @@ def lm_caches_from_jax(caches, device: str | torch.device = "cuda") -> list:
             length = np.broadcast_to(np.asarray(c.length, np.int32), (ssm.shape[0],))
             out.append(MambaState(ssm, conv, _to_tensor(length, device)))
         else:
-            raise TypeError(f"layer {i}: not a KVCache, MLACache or MambaState: "
+            raise TypeError(f"layer {i}: not a KVCache, MLACache, MambaState or Whisper layer: "
                             f"{type(c).__name__} {fields}")
     return out

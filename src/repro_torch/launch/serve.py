@@ -7,7 +7,9 @@ of ``--arch``, as the reference's ``_lm_main``: seeded params, ``--requests``
 synthetic prompts of 4-11 tokens, greedy (or ``--temperature``) answers of
 ``--max-new`` tokens over ``--slots`` slots; prints each request's first
 tokens and the tokens per second.  The default ``--arch`` is the
-reference's, ``stablelm-1.6b``.
+reference's, ``stablelm-1.6b``.  ``qwen2-vl-2b`` and ``whisper-medium`` serve
+token prompts alone, as the reference's do (Whisper against zeroed cross
+K/V: ROADMAP C.15).
 
 ``--cnn``: builds a YOLOv2-prefix
 plan over an n x m virtual tile grid (``--groups auto``: the cost model's
@@ -124,8 +126,9 @@ def main(argv=None) -> int:
                     help="tiled-CNN image serving instead of the LM engine")
     ap.add_argument("--arch", choices=ARCH_IDS, default="stablelm-1.6b",
                     help="LM: 'stablelm-1.6b' (default), 'qwen2-7b', 'codeqwen1.5-7b', "
-                         "'command-r-35b', 'mamba2-780m', 'mixtral-8x22b', 'jamba-v0.1-52b' or "
-                         "'deepseek-v3-671b' (the other ids name their ROADMAP item)")
+                         "'command-r-35b', 'mamba2-780m', 'mixtral-8x22b', 'jamba-v0.1-52b', "
+                         "'deepseek-v3-671b', 'qwen2-vl-2b' or 'whisper-medium' (token prompts "
+                         "alone: no patches, no audio)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)

@@ -2,7 +2,8 @@
 ``yolov2-tiled`` (the paper's tiled CNN) or an LM id the registry resolves
 (``stablelm-1.6b``, the default as in the reference's launcher,
 ``qwen2-7b``, ``codeqwen1.5-7b``, ``command-r-35b``, ``mamba2-780m``,
-``mixtral-8x22b``, ``jamba-v0.1-52b``, ``deepseek-v3-671b``).
+``mixtral-8x22b``, ``jamba-v0.1-52b``, ``deepseek-v3-671b``,
+``qwen2-vl-2b``, ``whisper-medium``).
 
 The tiled-CNN path of ``repro/launch/train.py``: plans a YOLOv2 prefix over
 an n x n virtual tile grid, builds the trainer (deferred per-batch weight
@@ -39,9 +40,11 @@ live state; the LM path has no replan, so a drop there is fatal.
 with ``--resume auto`` a shared default directory would make every run
 resume from (or fail on) another run's checkpoint of another geometry.
 
-LM mode (any LM id the registry resolves; the others name their ROADMAP
-A.18 item): the reduced config unless ``--full``, ``--seq`` x ``--batch``
-tokens a step from ``data.synthetic.synth_batch`` (the reference's stream),
+LM mode (every LM id of the reference): the reduced config unless
+``--full``, ``--seq`` x ``--batch`` tokens a step from
+``data.synthetic.synth_batch`` (the reference's stream; Qwen2-VL's batch
+also holds patch embeddings and M-RoPE streams, Whisper's ``--seq`` frames
+and ``--seq`` / 4 tokens),
 ``--remat``, ``--grad-accum``, ``--optimizer``, under the same driver.
 """
 from __future__ import annotations
@@ -89,8 +92,8 @@ def _add_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--arch", default="stablelm-1.6b",
                     help=f"'{TILED_ARCH}' or an LM id: 'stablelm-1.6b' (default, as the "
                          "reference's), 'qwen2-7b', 'codeqwen1.5-7b', 'command-r-35b', "
-                         "'mamba2-780m', 'mixtral-8x22b', 'jamba-v0.1-52b', 'deepseek-v3-671b' "
-                         "(the other LM ids name their ROADMAP A.18 item)")
+                         "'mamba2-780m', 'mixtral-8x22b', 'jamba-v0.1-52b', 'deepseek-v3-671b', "
+                         "'qwen2-vl-2b' or 'whisper-medium'")
     ap.add_argument("--full", action="store_true", help="LM: the full published config")
     ap.add_argument("--seq", type=int, default=64, help="LM: tokens per sequence")
     ap.add_argument("--remat", default="full", choices=["none", "full", "dots"],

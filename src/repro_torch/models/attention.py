@@ -1,12 +1,24 @@
 """Full-sequence GQA attention for training (``repro/models/attention.py``).
 
 ``attention`` runs the flash-attention op (B4: the CUDA kernel on a card,
-its plain version on the CPU) whenever the positions are the default
-``arange`` and there is no ``kv_override`` - every call of the LM training
-path.  Other positions take the plain ``_sdpa``: the reference's "auto"
-mode, naive below 2048 keys and blocked streaming above.  ``_sdpa_blocked``
-is also the op's backward.  The reference's mesh constraints are identities
-on one device and are left out.
+its plain version on the CPU), whose mask is the sequence index, wherever
+the mask the positions give is that one: the default ``arange`` positions
+(every call of the LM training path, Whisper's encoder and decoder), M-RoPE's
+``(3, B, T)`` streams (masked by the index: ROADMAP C.14, below), and a
+non-causal call with no window, which masks nothing (Whisper's
+cross-attention, whose ``kv_override`` keys outnumber the queries).  Other
+positions take the plain ``_sdpa``: the reference's "auto" mode, naive below
+2048 keys and blocked streaming above.  ``_sdpa_blocked`` is also the op's
+backward.  The reference's mesh constraints are identities on one device and
+are left out.
+
+M-RoPE (Qwen2-VL): ``_rope_qk`` rotates q and k by the three position
+streams (``models/common.py:apply_mrope``).  The reference then masks by the
+temporal stream (``positions[0]``), under which every patch of an image,
+sharing one temporal position, sees the patches after it (C.14); here the
+causal mask runs by the sequence index, as a causal LM's must.  The decode
+broadcasts the slot's length to the three streams, as the reference's does.
+``cross_attention_kv`` is Whisper's encoder-side K/V.
 
 ``KVCache`` and ``decode_attention`` are the serving path's one-token
 step: the cache is preallocated ``(B, S, Hkv, Dh)`` tensors plus per-slot
@@ -23,9 +35,8 @@ the reference's runs through XLA and not its Pallas kernel);
 ``c_kv`` and the rotated ``k_pe`` rows, scored in fp32 in the compressed
 space.
 
-Not ported yet: ``kv_override`` cross-attention (Whisper: A.18.6), M-RoPE
-(Qwen2-VL: A.18.5) and the sequence-sharded decode (A.18.8) - each raises
-naming its ROADMAP item.
+Not ported yet: the sequence-sharded decode (A.18.8), which raises naming
+its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -37,7 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF, scaled_q
-from repro_torch.models.common import apply_rope, dense_init, rms_norm
+from repro_torch.models.common import apply_mrope, apply_rope, dense_init, rms_norm
 
 
 # ---------------------------------------------------------------------------
@@ -232,8 +243,10 @@ def _rope_qk(q, k, positions, cfg: ModelConfig):
     if not cfg.use_rope:
         return q, k
     if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (Qwen2-VL): ROADMAP A.18")
-    if positions is not None:
+        # positions: (3, B, T) multimodal streams
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    elif positions is not None:
         if cfg.rope_pct < 1.0:
             rot = int(q.shape[-1] * cfg.rope_pct)
             rot -= rot % 2
@@ -255,35 +268,56 @@ def attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,
-    kv_override=None,
+    kv_override: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     arange_positions: bool = False,
 ) -> torch.Tensor:
     """Full-sequence attention.  x: (B, T, D) -> (B, T, D).
     ``arange_positions`` says that ``positions`` are the default
-    ``arange(T)`` for every row (``apply_lm`` knows when it made them), so
-    the flash op, whose positions are implicit, computes the same function."""
+    ``arange(T)`` for every row (``apply_lm`` knows when it made them).
+    ``kv_override`` (cross-attention) is the precomputed ``(k, v)`` of
+    ``cross_attention_kv``, at key positions ``arange(Tk)``; only q is
+    projected from x.  The flash op runs wherever its index mask is the
+    positions' mask (the module's docstring)."""
     if cfg.mla is not None:
         return mla_attention(params, x, positions, cfg, causal=causal)
-    if kv_override is not None:
-        raise NotImplementedError("cross-attention kv_override (Whisper): ROADMAP A.18")
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None]
         rope_positions = None     # no rope (whisper-style learned/sinusoid)
         arange_positions = True
     else:
         rope_positions = positions
-    q, k, v = _qkv(params, x, cfg)
-    if rope_positions is not None:
-        q, k = _rope_qk(q, k, rope_positions, cfg)
-    if arange_positions:
+    if kv_override is not None:
+        q = torch.einsum("btd,dhe->bthe", x, params["w_q"])
+        if cfg.qkv_bias:
+            q = q + params["b_q"]
+        k, v = kv_override
+        kpos = torch.arange(k.shape[1], device=x.device)
+    else:
+        q, k, v = _qkv(params, x, cfg)
+        if rope_positions is not None:
+            q, k = _rope_qk(q, k, rope_positions, cfg)
+        kpos = None
+    if arange_positions or positions.dim() == 3 or (not causal and window is None):
+        # the flash op masks by the sequence index (M-RoPE's streams too: C.14)
         out = flash_attention(q, k, v, causal, window)
     else:
-        pos = positions if positions.dim() <= 2 else positions[0]
-        out = _sdpa(q, k, v, pos, pos, causal=causal, window=window)
+        out = _sdpa(q, k, v, positions, positions if kpos is None else kpos, causal=causal,
+                    window=window)
     y = torch.einsum("bthe,hed->btd", out, params["w_o"])
     if cfg.attn_out_bias:
         y = y + params["b_o"]
     return y
+
+
+def cross_attention_kv(params: dict, enc: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention K/V from the encoder's output (Whisper): each (B, Tk,
+    Hkv, Dh)."""
+    k = torch.einsum("btd,dhe->bthe", enc, params["w_k"])
+    v = torch.einsum("btd,dhe->bthe", enc, params["w_v"])
+    if cfg.qkv_bias:
+        k = k + params["b_k"]
+        v = v + params["b_v"]
+    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -408,7 +442,11 @@ def decode_attention(
     pos = cache.lengths.long()                     # (B,) per-slot positions
     positions = pos[:, None]
     q, k_new, v_new = _qkv(params, x, cfg)
-    q, k_new = _rope_qk(q, k_new, positions, cfg)
+    if cfg.mrope_sections is not None:
+        # a decoded token's three streams are its position
+        q, k_new = _rope_qk(q, k_new, positions.expand(3, *positions.shape), cfg)
+    else:
+        q, k_new = _rope_qk(q, k_new, positions, cfg)
     s = cache.k.shape[1]
     ring = window is not None and s <= window
     slot = _write_slot(pos, s, ring)

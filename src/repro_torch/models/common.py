@@ -85,8 +85,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
 
 
-def apply_mrope(x, positions, theta, sections):
-    raise NotImplementedError("M-RoPE (Qwen2-VL): ROADMAP A.18")
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the Dh/2 frequency slots are split into
+    ``sections`` (temporal, height, width), each rotated by its own position
+    stream.  x: (B, T, H, Dh); positions: (3, B, T).  Angles in fp32, the
+    result cast back to x's type."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)
+    if sum(sections) != dh // 2:
+        raise ValueError(f"M-RoPE sections {sections} must cover the {dh // 2} frequency slots")
+    angs, off = [], 0
+    for si, sec in enumerate(sections):
+        pos = positions[si][..., None].to(torch.float32)          # (B, T, 1)
+        angs.append(pos * freqs[off:off + sec])
+        off += sec
+    ang = torch.cat(angs, dim=-1)                                  # (B, T, Dh/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

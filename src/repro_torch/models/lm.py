@@ -1,4 +1,4 @@
-"""Decoder-only LM: ``repro/models/lm.py`` without its VLM inputs.
+"""Decoder-only LM: ``repro/models/lm.py``.
 
 Layers are grouped into *segments* as in the reference (an irregular prefix
 plus a periodic block repeated R times), and the params keep its layout:
@@ -21,8 +21,11 @@ block (``models/mamba2.py``); its feed-forward a dense MLP or, on an MoE
 layer, the experts (``models/mlp.py:moe``).  As in the reference,
 ``lm_loss`` adds no router aux loss (``aux_weight`` changes nothing), and
 where ``params`` hold ``mtp`` it adds 0.3 x the MTP head's CE
-(``mtp_loss``).  VLM patch embeddings and ``remat="dots"`` raise naming
-ROADMAP A.18.
+(``mtp_loss``).  A VLM (Qwen2-VL) takes ``extra_embeds``, its patch
+embeddings, in place of the leading token embeddings, and M-RoPE's ``(3, B,
+T)`` position streams (three ``arange`` streams by default); its attention
+masks by the sequence index (``models/attention.py``, ROADMAP C.14).
+``remat="dots"`` raises (ROADMAP A.18.9).
 
 Serving: ``init_caches`` (one ``KVCache``, ``MLACache`` or ``MambaState``
 per layer, preallocated), ``decode_step`` (one token per slot in, fp32
@@ -155,41 +158,47 @@ class _Rows:
         return any(a._base is leaf for leaf in self.leaves)
 
 
+def stacked_draws(repeats: int, draw):
+    """``draw()`` (one layer's tree, or a block's list of them) run
+    ``repeats`` times into one tree of stacked leaves, each allocated once
+    at its final dtype: a drawn leaf at its first draw, when each draw is
+    cast into its row (``_Rows``), the rest (norms, biases: zeros and ones)
+    after the first repeat, and copied into their rows."""
+    rows, stacked = _Rows(repeats), None
+    for r in range(repeats):
+        rows.start(r)
+        with draws_into(rows):
+            block = draw()
+        if stacked is None:
+            stacked = tree_map(lambda a: a._base if rows.drawn(a) else
+                               a.new_empty((repeats, *a.shape)), block)
+        for dst, src in zip(tree_leaves(stacked), tree_leaves(block)):
+            if not rows.drawn(src):
+                dst[r].copy_(src)
+        del block
+    return stacked
+
+
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Params on ``gen.device``, drawn from ``gen`` in a fixed order: the
-    embedding, the head, then each segment's layers repeat by repeat.  Each
-    stacked layer leaf is allocated once, at its final dtype: a drawn leaf
-    at its first draw, when each draw is cast into its row (``_Rows``), the
-    rest (norms, biases: zeros and ones) after the segment's first repeat,
-    and copied into their rows.  So the embedding's fp32 draw never meets
-    the layers, and init holds the params plus one fp32 draw at most (an
-    MoE layer's experts are one draw each).  The MTP head, where the config
-    has one, is drawn last, as the reference's: ``proj``, ``norm`` and one
-    layer of the last layer's kind, unstacked, each draw cast on its own."""
+    embedding, the head, then each segment's layers repeat by repeat into
+    their stacked leaves (``stacked_draws``).  So the embedding's fp32 draw
+    never meets the layers, and init holds the params plus one fp32 draw at
+    most (an MoE layer's experts are one draw each).  The MTP head, where
+    the config has one, is drawn last, as the reference's: ``proj``,
+    ``norm`` and one layer of the last layer's kind, unstacked, each draw
+    cast on its own."""
     dtype = cfg.p_dtype
-    segs = plan_segments(cfg)
     params: dict[str, Any] = {
         "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dtype),
         "final_norm": init_norm(cfg.norm, cfg.d_model, dtype, gen.device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, (cfg.vocab, cfg.d_model), dtype)
-    seg_params = []
-    for seg in segs:
-        rows, stacked = _Rows(seg.repeats), None
-        for r in range(seg.repeats):
-            rows.start(r)
-            with draws_into(rows):
-                block = [_init_layer(gen, kind, cfg, dtype) for kind in seg.block]
-            if stacked is None:
-                stacked = tree_map(lambda a: a._base if rows.drawn(a) else
-                                   a.new_empty((seg.repeats, *a.shape)), block)
-            for dst, src in zip(tree_leaves(stacked), tree_leaves(block)):
-                if not rows.drawn(src):
-                    dst[r].copy_(src)
-            del block
-        seg_params.append(stacked)
-    params["segments"] = seg_params
+    params["segments"] = [
+        stacked_draws(seg.repeats,
+                      lambda seg=seg: [_init_layer(gen, kind, cfg, dtype) for kind in seg.block])
+        for seg in plan_segments(cfg)]
     if cfg.mtp_depth > 0:
         params["mtp"] = {
             "proj": embed_init(gen, (2 * cfg.d_model, cfg.d_model), dtype),
@@ -244,11 +253,11 @@ def apply_lm(
     seq_axis: Optional[str] = None,
     unroll: bool = False,
 ) -> torch.Tensor:
-    """Token ids -> final hidden states (B, T, D).  ``unroll`` (the
+    """Token ids -> final hidden states (B, T, D).  ``extra_embeds`` (B, Tv,
+    D), a VLM's patch embeddings (the vision frontend is a stub, as in the
+    reference), replace the leading Tv token embeddings.  ``unroll`` (the
     reference's analysis mode) changes nothing here: the layers are always a
     Python loop."""
-    if extra_embeds is not None:
-        raise NotImplementedError("VLM patch embeddings (Qwen2-VL): ROADMAP A.18")
     if seq_axis is not None:
         raise NotImplementedError("sequence-sharded mixers: ROADMAP A.18 (parallel/)")
     if remat not in ("none", "full"):
@@ -256,13 +265,16 @@ def apply_lm(
             f"remat={remat!r}: the reference's 'dots' policy (save matmul outputs "
             "with no batch dims) has no torch checkpoint policy that saves the same "
             "tensors; use 'full' or 'none'")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (Qwen2-VL): ROADMAP A.18")
     x = F.embedding(tokens.long(), params["embed"]).to(cfg.act_dtype)
+    if extra_embeds is not None:
+        tv = extra_embeds.shape[1]
+        x = torch.cat([extra_embeds.to(cfg.act_dtype), x[:, tv:]], dim=1)
     arange_positions = positions is None
     if arange_positions:
         b, t = tokens.shape
         positions = torch.arange(t, device=x.device)[None].expand(b, t)
+        if cfg.mrope_sections is not None:
+            positions = positions.expand(3, b, t)
 
     for seg, seg_p in zip(plan_segments(cfg), params["segments"]):
         def block_fn(x, block_p, seg=seg):

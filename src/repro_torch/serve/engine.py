@@ -14,8 +14,8 @@ prompt's last token twice (C.9).  Here a slot's request is independent of
 the others:
 
 - admission zeroes the slot's cache rows and state (``slot(i)`` views of a
-  ``KVCache``, an MLA layer's compressed ``MLACache`` or a ``MambaState``,
-  lengths included);
+  ``KVCache``, an MLA layer's compressed ``MLACache``, a ``MambaState`` or
+  a Whisper decoder layer's ``WhisperCache``, lengths included);
 - the prefill replays ``prompt[:-1]`` through ``decode_fn`` on batch-1
   views of the slot's cache tensors, so it writes that slot alone (one
   prefill call per admission);
@@ -41,6 +41,12 @@ once, after its decode.  ``temperature > 0`` samples from
 ``softmax(logits / temperature)`` with a ``torch.Generator`` on the
 engine's device, seeded from ``seed`` (JAX's key stream has no torch
 counterpart, so only greedy answers are held against the reference).
+
+An encoder-decoder (Whisper) is served as the reference's ``_lm_main``
+serves it: token prompts alone, against zeroed cross K/V that nothing
+writes (ROADMAP C.15: the reference's requests carry no audio).  Its
+decoder's learned position table has ``DEC_POS_ROWS`` rows, and ``submit``
+refuses a request that would feed a position past them (C.16).
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ import torch
 
 from repro_torch.models.lm import layer_kind
 from repro_torch.models.mlp import DROPLESS_ASSIGNMENTS
+from repro_torch.models.whisper import DEC_POS_ROWS
 
 
 @dataclasses.dataclass
@@ -79,9 +86,17 @@ def _kv_cache_bounds_positions(cfg, max_seq: int) -> bool:
     may feed past ``max_seq``: a full (not sliding-window) cache, whose rows
     end at ``max_seq`` (an MLA layer's compressed cache is one), or a window cache of ``min(max_seq, swa_window)``
     rows that is shorter than its window, whose ring then drops context the
-    window should see (ROADMAP C.11)."""
+    window should see (ROADMAP C.11).  An encoder-decoder's decoder layers
+    each hold a full self-attention cache."""
+    if cfg.encoder_decoder:
+        return True
     kinds = [layer_kind(cfg, i) for i in range(cfg.n_layers)]
     return any(k.mixer == "attn" and (not k.swa or max_seq < cfg.swa_window) for k in kinds)
+
+
+def _tensors(cache) -> list:
+    """Every tensor of one layer's cache (or its slot view)."""
+    return cache.tensors() if hasattr(cache, "tensors") else list(cache)
 
 
 class ServeEngine:
@@ -127,10 +142,17 @@ class ServeEngine:
         writes each position past ``max_seq`` into the last row (ROADMAP
         C.10), and a window cache shorter than its window wraps its ring
         early (C.11), so the answer no longer sees its own context.  Here it
-        is refused up front."""
+        is refused up front.  An encoder-decoder must also hold every
+        position in its decoder's position table: the reference reads NaN
+        rows past it (C.16), and a gather past it on the card is a
+        device-side assert."""
         if len(req.prompt) < 1:
             raise ValueError(f"request {req.rid}: empty prompt")
         fed = len(req.prompt) + req.max_new_tokens - 1
+        if self.arch.cfg.encoder_decoder and fed > DEC_POS_ROWS:
+            raise ValueError(f"request {req.rid}: {len(req.prompt)} prompt + "
+                             f"{req.max_new_tokens} new tokens feed positions up to {fed - 1}; "
+                             f"the decoder's position table (dec_pos) has {DEC_POS_ROWS} rows")
         if self._bounded and fed > self.max_seq:
             window = self.arch.cfg.swa_window
             raise ValueError(f"request {req.rid}: {len(req.prompt)} prompt + "
@@ -144,7 +166,7 @@ class ServeEngine:
         """Reset slot ``i`` and replay ``prompt[:-1]`` into it alone."""
         views = [c.slot(i) for c in self.caches]
         for view in views:
-            for t in view:
+            for t in _tensors(view):
                 t.zero_()
         toks = torch.as_tensor(np.asarray(prompt[:-1], np.int64)).to(self.device)
         for j in range(toks.shape[0]):

@@ -12,8 +12,9 @@ accumulate per-tile weight-gradient partial sums, and one division by the
 global count at batch end gives the final gradients - the paper's schedule.
 Over a pipeline plan the same microbatches stream through the stages in one
 autograd pass (``pcfg.grad_accum`` is the pipeline depth M).
-For an LM bundle (``models.registry.ArchBundle``) the grads come from
-autograd over ``arch.loss_fn``; with ``pcfg.grad_accum`` > 1 the
+For an LM bundle (``models.registry.ArchBundle``: a decoder-only LM or
+Whisper's encoder-decoder) the grads come from autograd over
+``arch.loss_fn``; with ``pcfg.grad_accum`` > 1 the
 microbatches' grads are summed into fp32 zeros and divided once, and the
 loss is the microbatches' mean, as the reference's scan does.  The LM step
 updates the state in place (``inplace`` of ``optim.optimizers``): the state
@@ -78,9 +79,9 @@ def make_train_step(arch, pcfg: ParallelConfig, tcfg: TrainConfig, *, on_grads=N
         return _make_tiled_cnn_train_step(arch, pcfg, tcfg, on_grads)
     if isinstance(arch, ArchBundle):
         return _make_lm_train_step(arch, pcfg, tcfg, on_grads)
-    raise NotImplementedError(
+    raise TypeError(
         f"no training path for {type(arch).__name__}: the port trains tiled-CNN arches and "
-        "LM bundles; other families (Whisper, ...) are ROADMAP A.18")
+        "the registry's bundles (decoder-only LMs and Whisper's encoder-decoder)")
 
 
 def _unflatten(like, leaves):

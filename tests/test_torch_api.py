@@ -97,3 +97,31 @@ def test_importing_the_packages_builds_nothing():
                        timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def _reference_arch_ids() -> list[str]:
+    """The keys of ``repro/models/registry.py:ARCH_MODULES``, read from its
+    source."""
+    path = os.path.join(REPO, "src", "repro", "models", "registry.py")
+    tree = ast.parse(open(path).read(), path)
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and [t.id for t in node.targets] == ["ARCH_MODULES"]:
+            return [k.value for k in node.value.keys]
+    raise AssertionError("ARCH_MODULES not found")
+
+
+def test_every_reference_arch_resolves_and_no_roadmap_item_is_left():
+    """Every ``--arch`` of the reference's registry resolves in the port (its
+    config, full and reduced, and a bundle on the CPU), so ``ROADMAP_ITEMS``
+    names nothing."""
+    from repro_torch.models import registry as treg
+
+    ids = _reference_arch_ids()
+    assert len(ids) == 10 and treg.ARCH_IDS == ids
+    assert treg.ROADMAP_ITEMS == {}
+    for name in ids:
+        for reduced in (False, True):
+            cfg = treg.load_config(name, reduced=reduced)
+            assert cfg.name == name
+        arch = treg.get_arch(name, reduced=True, device="cpu")
+        assert arch.cfg.encoder_decoder == (name == "whisper-medium")

@@ -278,11 +278,12 @@ def test_lm_launcher_runs_on_cpu():
 
 
 def test_lm_surfaces_that_are_not_ported_raise():
-    # DeepSeek-V3 (A.18.4) resolves now (tests/test_torch_deepseek.py holds it
-    # against JAX); Qwen2-VL (A.18.5) still names its item
+    # DeepSeek-V3 (A.18.4) and Qwen2-VL (A.18.5) resolve now
+    # (tests/test_torch_deepseek.py and test_torch_vlm.py hold them against
+    # JAX); remat "dots" (A.18.9) and the sequence-sharded mixers (A.18.8)
+    # still raise
     assert treg.load_config("deepseek-v3-671b").mla is not None
-    with pytest.raises(NotImplementedError, match="A.18.5"):
-        treg.load_config("qwen2-vl-2b")
+    assert treg.load_config("qwen2-vl-2b").mrope_sections == (16, 24, 24)
     with pytest.raises(ValueError, match="unknown arch"):
         treg.load_config("gpt-5")
     arch = treg.bundle_from_cfg(TCFG, "cpu")
@@ -296,7 +297,11 @@ def test_lm_surfaces_that_are_not_ported_raise():
     with pytest.raises(NotImplementedError, match="dots"):
         tlm.apply_lm(p, tokens, TCFG, remat="dots")
     with pytest.raises(NotImplementedError, match="A.18"):
-        tlm.apply_lm(p, tokens, dataclasses.replace(TCFG, mrope_sections=(2, 3, 3)))
+        tlm.apply_lm(p, tokens, TCFG, seq_axis="seq")
+    # M-RoPE runs: at the default positions (three arange streams) it is
+    # plain RoPE, so the forward keeps its bits
+    mrope = tlm.apply_lm(p, tokens, dataclasses.replace(TCFG, mrope_sections=(2, 3, 3)))
+    assert torch.equal(mrope, tlm.apply_lm(p, tokens, TCFG))
 
 
 def test_lm_entry_points_default_to_the_card():

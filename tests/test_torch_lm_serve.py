@@ -201,13 +201,17 @@ def test_caches_and_specs():
                 assert gt.dtype == st.dtype == getattr(torch, str(wt.dtype))
                 assert st.device.type == "meta" and not bool(gt.any())
     # an MLA config's caches are the compressed MLACache (A.18.4;
-    # tests/test_torch_deepseek.py holds them against JAX's); Qwen2-VL
-    # (A.18.5) still names its item
+    # tests/test_torch_deepseek.py holds them against JAX's); Qwen2-VL's
+    # (A.18.5) are KV caches, Whisper's (A.18.6) a WhisperCache per decoder
+    # layer (tests/test_torch_vlm.py, test_torch_whisper.py)
     mla = tlm.init_caches(treg.load_config("deepseek-v3-671b", reduced=True), 1, 4,
                           torch.float32)
     assert all(isinstance(c, MLACache) and c.c_kv.shape == (1, 4, 16) for c in mla)
-    with pytest.raises(NotImplementedError, match="A.18.5"):
-        treg.get_arch("qwen2-vl-2b", reduced=True, device="cpu")
+    vlm = treg.get_arch("qwen2-vl-2b", reduced=True, device="cpu").make_caches(1, 4)
+    assert all(isinstance(c, KVCache) and c.k.shape == (1, 4, 2, 16) for c in vlm)
+    wsp = treg.get_arch("whisper-medium", reduced=True, device="cpu").cache_specs(2, 6)
+    assert [tuple(t.shape) for t in wsp[0].tensors()] == [(2, 6, 4, 16)] * 2 + [(2,)] + \
+        [(2, 6, 4, 16)] * 2 and wsp[0].cross_k.device.type == "meta"
 
 
 def test_decode_raises_for_the_unported_decode_paths():
@@ -419,19 +423,21 @@ def test_lm_serve_launcher_runs_on_cpu(arch, capsys):
 
 
 def test_lm_serve_launcher_names_the_roadmap_item_of_an_unported_arch(capsys):
-    """``qwen2-vl-2b`` names its item (A.18.5); ``stablelm-1.6b`` (A.18.2),
-    ``mixtral-8x22b`` (A.18.3) and ``deepseek-v3-671b`` (A.18.4), ported,
-    serve, and ``stablelm-1.6b`` is the default ``--arch``, as in the
-    reference."""
+    """Every ``--arch`` is ported now: ``stablelm-1.6b`` (A.18.2),
+    ``mixtral-8x22b`` (A.18.3), ``deepseek-v3-671b`` (A.18.4),
+    ``qwen2-vl-2b`` (A.18.5) and ``whisper-medium`` (A.18.6) serve, and
+    ``stablelm-1.6b`` is the default ``--arch``, as in the reference; an id
+    the reference lacks is refused by the parser."""
     from repro_torch.launch.serve import main
 
     for argv in (["--arch", "stablelm-1.6b"], [], ["--arch", "mixtral-8x22b"],
-                 ["--arch", "deepseek-v3-671b"]):
+                 ["--arch", "deepseek-v3-671b"], ["--arch", "qwen2-vl-2b"],
+                 ["--arch", "whisper-medium"]):
         assert main(["--device", "cpu", "--requests", "2", "--max-new", "3"] + argv) == 0
         out = capsys.readouterr().out
         assert "served 2 requests, 6 tokens" in out and "on cpu" in out
-    with pytest.raises(NotImplementedError, match="A.18.5"):
-        main(["--device", "cpu", "--arch", "qwen2-vl-2b"])
+    with pytest.raises(SystemExit):
+        main(["--device", "cpu", "--arch", "gpt-5"])
 
 
 # ---------------------------------------------------------------------------

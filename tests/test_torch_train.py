@@ -535,7 +535,7 @@ def test_arch_training_surface():
     st = init_state(0)
     assert isinstance(st, TrainState) and st.step == 0 and st.ef is not None
     assert set(st.opt) == {"m", "v", "t"}
-    with pytest.raises(NotImplementedError, match="A.18"):
+    with pytest.raises(TypeError, match="no training path"):
         make_train_step(object(), ParallelConfig(), TrainConfig())
 
 
@@ -627,6 +627,7 @@ def test_launcher_trains_on_cpu(capsys):
     (["--arch", "stablelm-1.6b"], "A.18.2"),
     (["--arch", "mixtral-8x22b"], "A.18.3"),
     (["--arch", "qwen2-vl-2b"], "A.18.5"),
+    (["--arch", "whisper-medium"], "A.18.6"),
 ])
 def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys, tmp_path):
     """Unported flags raise naming their ROADMAP item; the flags of A.10
@@ -641,7 +642,8 @@ def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys, tm
     grid onto the three survivors.  A.18.2's ``--arch stablelm-1.6b`` and
     A.18.3's ``--arch mixtral-8x22b`` and A.18.4's ``--arch deepseek-v3-671b``
     train their reduced configs, A.18.7's ``--optimizer adafactor`` trains
-    the tiled CNN; an LM id still to port (``qwen2-vl-2b``) raises."""
+    the tiled CNN; A.18.5's ``--arch qwen2-vl-2b`` and A.18.6's ``--arch
+    whisper-medium`` train their reduced configs: no LM id is left to port."""
     from repro_torch.launch.train import main
 
     base = ["--arch", "yolov2-tiled", "--device", "cpu", "--input-hw", "32", "--depth", "4",
@@ -665,7 +667,8 @@ def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys, tm
             with pytest.raises(ValueError, match="pipeline tails are planner-assigned"):
                 main(base + flags)
         return
-    if item in ("A.10", "A.11", "A.12", "A.14", "A.18.2", "A.18.3", "A.18.4", "A.18.7"):
+    if item in ("A.10", "A.11", "A.12", "A.14", "A.18.2", "A.18.3", "A.18.4", "A.18.5",
+                "A.18.6", "A.18.7"):
         assert main(base + flags) == 0
         out = capsys.readouterr().out
         plan = {"A.10": "schedule=overlap", "A.11": "crossover=2",
@@ -673,6 +676,8 @@ def test_launcher_unported_flags_name_their_roadmap_item(flags, item, capsys, tm
                 "A.14": f"wire_codec={flags[1]}", "A.18.2": "model: stablelm-1.6b layers=2",
                 "A.18.3": "model: mixtral-8x22b layers=2",
                 "A.18.4": "model: deepseek-v3-671b layers=4",
+                "A.18.5": "model: qwen2-vl-2b layers=2",
+                "A.18.6": "model: whisper-medium layers=2",
                 "A.18.7": "optimizer=adafactor"}[item]
         assert plan in out and "done: steps=1 restarts=0" in out
         return
