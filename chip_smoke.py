@@ -275,10 +275,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per microbatch on ``wgmma_bf16_dh64`` / ``_dh128``, B6 only for the
    RMSNorm config (a LayerNorm runs as plain torch; phases 7's, 19's and
    20's B6 counts follow the norm kind), with the modeled state of one
-   layer more beside the card; (c) each served at full width and full depth
-   as phase 19 (``lm_serve_drive``, Command-R 35B's 60.6 GB included,
-   after ``gc.collect()`` and ``empty_cache()``), init's peak held within
-   ``INIT_PEAK_SLACK`` of the params plus the largest fp32 draw; (d) both
+   layer more beside the card; (c) each served at full width and full
+   depth with ``CONFIG_SERVE_TRAFFIC`` (``lm_serve_drive``, Command-R 35B's
+   60.6 GB included, after ``gc.collect()`` and ``empty_cache()``), init's
+   peak held within ``INIT_PEAK_SLACK`` of the params plus the largest fp32
+   draw; (d) both
    launchers with their default ``--arch`` (``stablelm-1.6b``) on the card.
    B4 is also timed in phase 6 at each config's bf16 training shape;
 21. the Mixture-of-Experts configs of ROADMAP A.18.3 (``moe_phase``):
@@ -316,7 +317,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    modeled state of layer 4 (11.51 B params of MoE) beside the card, and
    ``mla_attention``'s gradients alone at full width, 2048 tokens, fp32
    through B6 against fp64 with phase 8's bar rule and a planted fault
-   (``mla_grad_check``); (c) served as phase 19 at ``DS_SERVE_DEPTH`` (4
+   (``mla_grad_check``); (c) served at ``DS_SERVE_DEPTH`` (4
    layers with the MTP head the config draws: 53.4 GB), the tick's
    weight-read bound leaving out the MTP head; (d) both launchers with the
    id (reduced).  Phase 6 also times B6 at DeepSeek's widths 7168, 1536
@@ -351,8 +352,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``_lm_main`` serves it, token prompts against zeroed cross K/V; (d) both
    launchers with the id.  Phase 6 also holds B4 at these phases' four
    training shapes (``FA_VL_WHISPER_SHAPES``) with the causal flag flipped
-   as a planted fault.  The ``{"kernels": ...}`` line's launches include
-   phases 12's to 24's.
+   as a planted fault;
+25. the sequence-sharded forward and decode of ROADMAP A.18.8
+   (``seq_shard_phase``; a virtual mesh of ``SEQ_SHARDS`` shards): (a)
+   Mamba2-780m at full width, ``SEQ_CHECK_DEPTH`` layers, fp32, Mamba2's
+   own decay init, 2 x 4096 tokens, sharded and unsharded - hidden states,
+   CE loss and every grad leaf - against the plain path in fp64 by phase
+   8's rule, and the planted faults of ``SEQ_FAULTS`` over their bars; (b)
+   all 48 layers, bf16, one AdamW step on the training cell's first
+   microbatch sharded and unsharded: the losses within ``LM_LOSS_RTOL``, B5
+   96 launches both ways; (c) Qwen2-7B at full depth, 4 slots of a
+   32768-row cache filled with random K/V rows: 8 greedy ticks through
+   ``decode_attend_seq_sharded`` against the unsharded decode, bf16 timed
+   (tick and device ms both ways) and its layer 0 attention output held
+   within ``SEQ_LAYER0_ULPS`` bf16 ulps of the plain attend's, fp32's logits
+   held to ``DECODE_BAR`` with the same tokens, a planted fault (the masks
+   dropped) over each bar.  Phase 9 also times B5 at the
+   sharded shape ``SSD_SHARDED_SHAPE``;
+26. ``remat="dots"`` of ROADMAP A.18.9 (``remat_dots_phase``): Qwen2-7B at
+   full width, ``DOTS_DEPTH`` layers, bf16, one microbatch of loss and grads
+   under "none", "dots" and "full": "dots" bit for bit "none"'s, the peaks
+   ordered none > dots > full, the saved tensors and bytes, B4 and B6
+   launches (the recomputation included) as the code counts.  The
+   ``{"kernels": ...}`` line's launches include phases 12's to 26's.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -695,7 +717,7 @@ INIT_PEAK_SLACK = 1.05
 # the deepest cut whose state fits 80 GB - bf16 params, fp32 gradient
 # accumulators and AdamW moments, and the bf16 gradient tree of a
 # microbatch, 16 bytes a param, beside the activations.  (c) Serving at full
-# depth with phase 19's traffic.
+# depth with CONFIG_SERVE_TRAFFIC.
 DENSE_ARCHS = ("stablelm-1.6b", "codeqwen1.5-7b", "command-r-35b")
 DENSE_TRAIN_DEPTH = {"stablelm-1.6b": 24, "codeqwen1.5-7b": 17, "command-r-35b": 3}
 DENSE_TRAIN_STEPS = 3
@@ -718,7 +740,7 @@ DENSE_FAULTS = {"stablelm-1.6b": "whole_head_rotary", "codeqwen1.5-7b": "no_b_v"
 # adafactor at MOE_TRAIN_DEPTH, the deepest cut whose state fits 80 GB at
 # MOE_STATE_BYTES a param (bf16 params, fp32 gradient accumulators, the
 # bf16 gradient tree of a microbatch; adafactor's factored statistics are
-# small) beside the activations.  (c) Serving with phase 19's traffic at
+# small) beside the activations.  (c) Serving with CONFIG_SERVE_TRAFFIC at
 # MOE_SERVE_DEPTH: Mixtral's deepest cut whose init peak (params plus the
 # fp32 draw of one expert tensor, 3.22 GB) stays near 75 GB, Jamba's two
 # whole periods (both attention layers).
@@ -752,6 +774,13 @@ VL_FAULT_SECTIONS = (24, 24, 16)
 # serving: VL_SERVE_REQUESTS text prompts of VL_SERVE_PROMPT tokens,
 # VL_SERVE_NEW greedy tokens each (both configs)
 VL_SERVE_REQUESTS, VL_SERVE_PROMPT, VL_SERVE_NEW = 4, (8, 24), 16
+# The serving traffic of phases 20(c)-22(c): twice LM_SERVE_SLOTS prompts of
+# VL_SERVE_PROMPT tokens, VL_SERVE_NEW new each, so the second half waits
+# for freed slots as phase 19's traffic does, at shorter prompts and fewer
+# new tokens.  A served token costs an eager decode call, prompt tokens
+# included: phase 19's traffic held phases 20-22 to 243 s of a 1116-s run
+# on a slow host.
+CONFIG_SERVE_TRAFFIC = (2 * LM_SERVE_SLOTS, VL_SERVE_PROMPT, VL_SERVE_NEW)
 # Whisper's decode check: LM_SERVE_FORCED tokens against WHISPER_CHECK_FRAMES
 # encoder frames; its planted faults on the decode side
 WHISPER_CHECK_FRAMES = 2048
@@ -789,11 +818,46 @@ DS_GRAD_SEQ = 2048
 # w_uk (the same shape at 128 / 128), k_pe written to the cache unrotated,
 # the MoE layer's shared expert dropped
 DS_FAULTS = ("absorbed_through_w_uv", "k_pe_unrotated", "no_shared_expert")
+# Phase 25: the sequence-sharded Mamba2 forward and decode (ROADMAP A.18.8)
+# on a virtual mesh whose sequence axis has SEQ_SHARDS shards.  (a) The
+# check at SEQ_CHECK_DEPTH layers, fp32 / fp64, SEQ_CHECK_BATCH x MAMBA_SEQ
+# tokens, and its planted faults: each shard's incoming state dropped, the
+# conv's K-1 token halo zeroed, the hop's decay not applied.  (c) Qwen2-7B's
+# decode at the length where the reference's dry run takes the sharded
+# decode (src/repro/launch/dryrun.py:250), from caches filled with random
+# K/V rows up to per-slot lengths in SEQ_DECODE_LEN (a prefill of 8192+
+# tokens would take minutes in the eager forward), the last ones far enough
+# from the end that every tick writes a row of its own.
+SEQ_SHARDS = 4
+SEQ_CHECK_DEPTH, SEQ_CHECK_BATCH = 4, 2
+SEQ_FAULTS = ("incoming_state_dropped", "conv_halo_zeroed", "hop_decay_not_applied")
+SEQ_DECODE_SLOTS, SEQ_DECODE_MAX_SEQ, SEQ_DECODE_TICKS = 4, 32768, 8
+SEQ_DECODE_LEN = (8192, SEQ_DECODE_MAX_SEQ - SEQ_DECODE_TICKS - 1)
+# bf16's bar at one layer, in ulps of each head's largest output
+SEQ_LAYER0_ULPS = 4
+# B5 at the sharded path's shape: 2 sequences x 4 shards of 1024 tokens
+SSD_SHARDED_SHAPE = (MAMBA_BATCH // MAMBA_ACCUM * SEQ_SHARDS, MAMBA_SEQ // SEQ_SHARDS, 48, 64, 1,
+                     128, 256)
+# Phase 26: remat "dots" (ROADMAP A.18.9) on Qwen2-7B at full width, cut to
+# DOTS_DEPTH layers so "none"'s activations fit beside the params
+DOTS_DEPTH, DOTS_SEQ, DOTS_BATCH = 6, 2048, 2
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def ulp_ratio(got, want, dtype, ulps: int) -> float:
+    """max |got - want| over ``ulps`` ulps of ``dtype`` at the largest
+    |want| of each row (the last dim): a bar of the rounding of the output
+    type, which rounding in the accumulator's order cannot cross near a
+    zero element."""
+    import torch
+
+    top = want.float().abs().amax(-1, keepdim=True).clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(top))) * torch.finfo(dtype).eps
+    return float(((got.float() - want.float()).abs() / (ulps * ulp)).max())
 
 
 def err_stats(got, want, atol: float, rtol: float) -> tuple[float, float]:
@@ -2545,7 +2609,8 @@ def lm_launches_per_microbatch(cfg, remat: str) -> dict:
     Mamba2 block) and B6 as ``b6_norms_per_layer`` says; the final norm runs
     B6 once more where it is RMSNorm.  remat "full" reruns each layer's
     forward (all of it: the checkpoint saves only the layer's input) in the
-    backward, outside the final norm.  An MTP head runs its norm and one
+    backward, outside the final norm; so does "dots", whose policy saves
+    matmul outputs alone, never a kernel's buffer.  An MTP head runs its norm and one
     layer of the last layer's kind once, with no remat.  The backwards of
     all three ops are plain torch and launch no kernel.  A config without an
     RMSNorm counts B6 as 0: the run must launch it no time."""
@@ -2567,7 +2632,7 @@ def lm_launches_per_microbatch(cfg, remat: str) -> dict:
         out["rmsnorm"] += b6_norms_per_layer(cfg, i) * runs
 
     for i in range(cfg.n_layers):
-        layer(i, 2 if remat == "full" else 1)
+        layer(i, 1 if remat == "none" else 2)
     out["rmsnorm"] += cfg.norm == "rmsnorm"
     if cfg.mtp_depth > 0:
         layer(cfg.n_layers - 1, 1)
@@ -2608,7 +2673,7 @@ def plain_lm_kernels() -> swapped:
         (attn_mod, "flash_attention", lambda q, k, v, causal=True, window=None, scale=None, *_:
          attention_ref(q, k, v, causal=causal, window=window, scale=scale)),
         (common_mod, "rmsnorm", rmsnorm_ref),
-        (mamba_mod, "ssd_scan", lambda x, dt, A, Bm, Cm, chunk=256: ssd_scan_ref(x, dt, A, Bm, Cm, chunk)),
+        (mamba_mod, "ssd_scan", ssd_scan_ref),
     )
 
 
@@ -3013,7 +3078,7 @@ def ssd_kernel_phase(dev) -> tuple[list, float]:
     # bf16: N = 16, so 48 of each 64-wide C and B panel are the TMA box's
     # zero fill
     for shape, dt in ((SSD_MODEL_SHAPE, torch.bfloat16), (SSD_MODEL_SHAPE, torch.float32),
-                      (SSD_JAMBA_SHAPE, torch.bfloat16)):
+                      (SSD_JAMBA_SHAPE, torch.bfloat16), (SSD_SHARDED_SHAPE, torch.bfloat16)):
         r = case(shape, dt, True)
         rows.append(r)
         print(f"  B5 {r['shape']} {r['dtype']} ({r['instance']}, slab {r['slab']}): err "
@@ -3023,7 +3088,7 @@ def ssd_kernel_phase(dev) -> tuple[list, float]:
               f"{r['fp32_core_bound_ms']:.4f}, bf16 tensor cores "
               f"{r['bf16_tensor_core_bound_ms']:.4f}; C·Bᵀ counted per head "
               f"{r['flops_cb_per_head'] / 1e9:.1f} GFLOP)")
-    check([r["instance"] for r in rows] == ["wgmma_bf16", "simt_fp32", "wgmma_bf16"],
+    check([r["instance"] for r in rows] == ["wgmma_bf16", "simt_fp32", "wgmma_bf16", "wgmma_bf16"],
           f"B5 at the model shapes: {[r['instance'] for r in rows]}")
     seen = set()
     for shape in SSD_CASES + [SSD_SHORT_CASE]:
@@ -3787,6 +3852,9 @@ def lm_serve_drive(dev, smi: str, name: str, depth=None, requests: int = LM_SERV
     check(eng.prefill_calls == requests
           and eng.prefill_tokens == sum(len(p) - 1 for p in prompts)
           and eng.decode_calls == len(tick_ev), f"{name}: engine counters")
+    # more requests than slots: the queued ones were admitted into freed slots
+    check(requests <= LM_SERVE_SLOTS or len(prefill_ms) > 1,
+          f"{name}: {requests} requests admitted in one round over {LM_SERVE_SLOTS} slots")
     check(launches == want and sum(by_instance.values()) == launches,
           f"{name}: B6 launches {launches} ({by_instance}) != the code's {want}")
     check(others == 0, f"{name}: decode launched B4/B5 {others} times")
@@ -4132,7 +4200,7 @@ def dense_phase(dev, smi: str) -> dict:
     # -- (c) serving at full width and depth ---------------------------------------------
     t0 = time.perf_counter()
     for name in DENSE_ARCHS:
-        launches["rmsnorm"] += lm_serve_drive(dev, smi, name)
+        launches["rmsnorm"] += lm_serve_drive(dev, smi, name, None, *CONFIG_SERVE_TRAFFIC)
     times["c"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
@@ -4323,7 +4391,8 @@ def moe_phase(dev, smi: str) -> dict:
     # -- (c) serving at full width --------------------------------------------------------
     t0 = time.perf_counter()
     for name in MOE_ARCHS:
-        launches["rmsnorm"] += lm_serve_drive(dev, smi, name, MOE_SERVE_DEPTH[name])
+        launches["rmsnorm"] += lm_serve_drive(dev, smi, name, MOE_SERVE_DEPTH[name],
+                                              *CONFIG_SERVE_TRAFFIC)
     times["c"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
@@ -4584,7 +4653,8 @@ def deepseek_phase(dev, smi: str) -> dict:
 
     # -- (c) serving at full width --------------------------------------------------------
     t0 = time.perf_counter()
-    launches["rmsnorm"] += lm_serve_drive(dev, smi, DS_ARCH, DS_SERVE_DEPTH)
+    launches["rmsnorm"] += lm_serve_drive(dev, smi, DS_ARCH, DS_SERVE_DEPTH,
+                                          *CONFIG_SERVE_TRAFFIC)
     times["c"] = time.perf_counter() - t0
 
     # -- (d) both launchers with the id (reduced) --------------------------------------
@@ -4920,6 +4990,450 @@ def whisper_phase(dev, smi: str) -> dict:
     print(f"phase 24: {time.perf_counter() - t_phase:.1f} s ((a)-(d): "
           f"{', '.join(f'{k} {v:.1f}' for k, v in times.items())})")
     print(json.dumps({"phase24_launches": launches}))
+    return launches
+
+
+def _decay_like_mamba2(params, gen) -> None:
+    """Mamba2's own init of each SSD head's decay, drawn into ``params`` in
+    place: A ~ U[1, 16] (``A_log = log A``) and dt log-uniform in [1e-3,
+    1e-1] (``dt_bias`` its inverse softplus).  The reference draws zeros
+    (A = 1, dt = softplus(0) = 0.69), under which a shard of 1024 tokens
+    decays by e^-709 and hands its successor nothing a check could see."""
+    import torch
+
+    for seg in params["segments"]:
+        for layer in seg:
+            if "mamba" not in layer:
+                continue
+            m = layer["mamba"]
+            a = torch.rand(m["A_log"].shape, generator=gen, device=m["A_log"].device)
+            m["A_log"].copy_(torch.log(1 + 15 * a))
+            u = torch.rand(m["dt_bias"].shape, generator=gen, device=m["dt_bias"].device)
+            dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+            m["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+
+
+def seq_shard_phase(dev, smi: str) -> dict:
+    """Phase 25: the sequence-sharded Mamba2 forward (``apply_lm(seq_axis=)``
+    on a virtual mesh whose axis "sp" has ``SEQ_SHARDS`` shards) and the
+    sequence-sharded decode.  (a) ``SEQ_CHECK_DEPTH`` layers of
+    Mamba2-780m at full width, fp32, 2 x 4096 tokens, Mamba2's decay init:
+    the sharded and unsharded hidden states, CE loss and every grad leaf
+    against the plain path in fp64, each within max(1e-3, GRAD_FLOOR_FACTOR
+    x the unsharded fp32 run's distance), normwise; each of ``SEQ_FAULTS``
+    must land over a bar.  (b) All 48 layers, bf16, remat "full": one
+    training step (AdamW) on the training cell's first microbatch, sharded
+    and unsharded; the step-1 losses within ``LM_LOSS_RTOL``; B5 launches
+    the same number of times both ways.  (c) Qwen2-7B at full depth,
+    ``SEQ_DECODE_SLOTS`` slots of a ``SEQ_DECODE_MAX_SEQ``-row cache filled
+    with random K/V rows up to per-slot lengths in ``SEQ_DECODE_LEN``:
+    ``SEQ_DECODE_TICKS`` greedy ticks with ``seq_sharded_cache`` on 4
+    shards of the ``seq_shard`` axis against the unsharded decode, in bf16
+    (timed, the logits reported) and in fp32 (logits within
+    ``DECODE_BAR``, the same tokens), and a planted fault in each: the
+    masks of ``decode_attend_seq_sharded`` dropped.  Returns the kernels'
+    launches in (b) and (c)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.core.sequence as seq_mod
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.mamba2 as mamba_mod
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig, TrainConfig
+    from repro_torch.data.synthetic import place, synth_batch
+    from repro_torch.kernels.rmsnorm.kernel import reset_launches as reset_b6_launches
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.kernels.ssd_chunk.kernel import reset_launches as reset_b5_launches
+    from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
+    from repro_torch.launch.mesh import make_virtual_mesh
+    from repro_torch.models.lm import (apply_lm, chunked_cross_entropy, decode_step,
+                                       init_caches, lm_head_weight)
+    from repro_torch.models.registry import bundle_from_cfg, load_config, with_depth
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.parallel.api import sharding_ctx
+    from repro_torch.train.trainer import make_train_step
+
+    t_phase = time.monotonic()
+    out = {"card": smi}
+    mesh = make_virtual_mesh({"sp": SEQ_SHARDS}, dev)
+
+    # -- (a) fp32 against fp64, and the planted faults ------------------------
+    base = with_depth(load_config(MAMBA_ARCH), SEQ_CHECK_DEPTH)
+    cfg32 = dataclasses.replace(base, dtype="float32", param_dtype="float32")
+    cfg64 = dataclasses.replace(base, dtype="float64", param_dtype="float64")
+    arch = bundle_from_cfg(cfg32, dev)
+    params = arch.init(SEED)
+    _decay_like_mamba2(params, torch.Generator(device=dev).manual_seed(SEED + 25))
+    specs = arch.input_specs(ShapeConfig("smoke", MAMBA_SEQ, SEQ_CHECK_BATCH, "train"))
+    batch = place(synth_batch(specs, cfg32, SEED, 0), dev)
+
+    def run(cfg, p, axis):
+        """(hidden, loss, grads) of the CE loss, remat "full"; the backward
+        runs outside the mesh's context, as a trainer's would."""
+        live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        with sharding_ctx(mesh if axis else None):
+            hidden = apply_lm(live, batch["tokens"], cfg, remat="full", seq_axis=axis)
+            loss = chunked_cross_entropy(hidden, lm_head_weight(live, cfg).to(cfg.act_dtype),
+                                         batch["labels"])
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        return [hidden.detach(), loss.detach()] + list(grads)
+
+    names = ["hidden", "loss"] + [n for n, _ in named_leaves(params)]
+    with plain_lm_kernels():
+        exact = run(cfg64, tree_map(lambda t: t.double(), params), None)
+    scale = [float(e.abs().max()) for e in exact]
+
+    def errs(got):
+        return [float((g.double() - e).abs().max()) / s for g, e, s in zip(got, exact, scale)]
+
+    reset_b5_launches()
+    unsharded = errs(run(cfg32, params, None))
+    b5_un = dict(ssd_chunk_fwd.launches_by_instance)
+    reset_b5_launches()
+    sharded = errs(run(cfg32, params, "sp"))
+    b5_sh = dict(ssd_chunk_fwd.launches_by_instance)
+    bars = [max(WGRAD_NORM_TOL, GRAD_FLOOR_FACTOR * e) for e in unsharded]
+    worst = max(range(len(names)), key=lambda i: sharded[i] / bars[i])
+    print(f"25(a) {cfg32.name} {cfg32.n_layers} layers fp32, {SEQ_CHECK_BATCH} x {MAMBA_SEQ} "
+          f"tokens on {SEQ_SHARDS} shards vs the plain fp64 path: sharded max "
+          f"{max(sharded):.2e}, unsharded max {max(unsharded):.2e}; nearest its bar: "
+          f"{names[worst]} {sharded[worst]:.2e} ({sharded[worst] / bars[worst]:.2f} of it); B5 "
+          f"by instance sharded {b5_sh}, unsharded {b5_un}")
+    check(b5_sh == b5_un and set(k for k, v in b5_sh.items() if v) == {"simt_fp32"},
+          f"25(a) B5 launches sharded {b5_sh} vs unsharded {b5_un}")
+    for n, e, bar in zip(names, sharded, bars):
+        check(e <= bar, f"25(a) sharded {n}: normwise err {e} vs fp64 over its bar {bar}")
+    real_hops = seq_mod.seq_scan_combine_hops
+
+    def zero_halo(x, halo_lo, halo_hi, *, tile_dim, dim, wire=None):
+        shape = list(x.shape)
+        shape[dim] = halo_lo
+        return torch.cat([x.new_zeros(shape), x], dim=dim)
+
+    faults = {
+        "incoming_state_dropped": swapped((mamba_mod, "_cross_shard", lambda axis, b, n: (
+            lambda total, final: torch.zeros_like(final)))),
+        "conv_halo_zeroed": swapped((seq_mod, "halo_exchange_1d", zero_halo)),
+        "hop_decay_not_applied": swapped((mamba_mod, "seq_scan_combine_hops", (
+            lambda decay, state, axis, shard_dim: real_hops(torch.ones_like(decay), state, axis,
+                                                            shard_dim=shard_dim)))),
+    }
+    fault_over = {}
+    for fname in SEQ_FAULTS:
+        with faults[fname]:
+            got = errs(run(cfg32, params, "sp"))
+        ratio = {n: e / bar for n, e, bar in zip(names, got, bars)}
+        top = max(ratio, key=ratio.get)
+        fault_over[fname] = {"max_over_bar": ratio[top], "at": top,
+                             "leaves_over": sum(r > 1 for r in ratio.values())}
+        print(f"25(a) planted fault {fname}: {fault_over[fname]['leaves_over']} of {len(names)} "
+              f"outputs over their bar, the most {top} at {ratio[top]:.1f}x")
+        check(ratio[top] > 1.0, f"25(a) the check passed the planted fault {fname}: {ratio}")
+    out["check"] = {"layers": cfg32.n_layers, "tokens": [SEQ_CHECK_BATCH, MAMBA_SEQ],
+                    "shards": SEQ_SHARDS, "sharded_err_vs_fp64": dict(zip(names, sharded)),
+                    "unsharded_err_vs_fp64": dict(zip(names, unsharded)),
+                    "nearest_bar": [names[worst], sharded[worst] / bars[worst]],
+                    "planted_faults": fault_over}
+    del params, exact, batch
+    torch.cuda.empty_cache()
+    t_a = time.monotonic() - t_phase
+
+    # -- (b) one training step at full depth, sharded and unsharded -----------
+    cfg = load_config(MAMBA_ARCH)
+    arch = bundle_from_cfg(cfg, dev)
+    specs = arch.input_specs(ShapeConfig("smoke", MAMBA_SEQ, MAMBA_BATCH, "train"))
+    batch = microbatch(place(synth_batch(specs, cfg, SEED, 0), dev), 0, MAMBA_ACCUM)
+
+    def sharded_loss(params, b, remat="full", unroll=False, ce_chunk=512):
+        with sharding_ctx(mesh):
+            hidden = apply_lm(params, b["tokens"], cfg, remat=remat, seq_axis="sp")
+        return chunked_cross_entropy(hidden, lm_head_weight(params, cfg).to(cfg.act_dtype),
+                                     b["labels"], chunk=ce_chunk)
+
+    per_mb = lm_launches_per_microbatch(cfg, "full")
+    steps, launches = {}, {"ssd_chunk_fwd": 0, "rmsnorm": 0}
+    for label, loss_fn in (("unsharded", arch.loss_fn), ("sharded", sharded_loss)):
+        run_arch = dataclasses.replace(arch, loss_fn=loss_fn)
+        init_state, train_step = make_train_step(
+            run_arch, ParallelConfig(remat="full"), TrainConfig(warmup=0, steps=1, seed=SEED))
+        state = init_state(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_b5_launches()
+        reset_b6_launches()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = train_step(state, batch)
+        b.record()
+        torch.cuda.synchronize()
+        got = {"ssd_chunk_fwd": ssd_chunk_fwd.launches, "rmsnorm": rmsnorm.launches}
+        steps[label] = {
+            "loss": float(m["loss"]), "step_ms_cuda_events": a.elapsed_time(b),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev), "launches": got,
+            "b5_launches_by_instance": {k: v for k, v in
+                                        ssd_chunk_fwd.launches_by_instance.items() if v},
+            "b6_launches_by_instance": {k: v for k, v in rmsnorm.launches_by_instance.items() if v}}
+        for k in launches:
+            launches[k] += got[k]
+        check(got == {k: per_mb[k] for k in got}, f"25(b) {label} launches {got} vs {per_mb}")
+        check(set(steps[label]["b5_launches_by_instance"]) == {"wgmma_bf16"},
+              f"25(b) {label} B5 instances {steps[label]['b5_launches_by_instance']}")
+        del state, init_state, train_step
+        torch.cuda.empty_cache()
+    rel = abs(steps["sharded"]["loss"] - steps["unsharded"]["loss"]) / abs(steps["unsharded"]["loss"])
+    print(f"25(b) {cfg.name} {cfg.n_layers} layers bf16, one step of 2 x {MAMBA_SEQ} tokens: "
+          + "; ".join(f"{k} loss {v['loss']:.6f}, {v['step_ms_cuda_events']:.1f} ms, peak "
+                      f"{v['peak_mem_bytes'] / 1e9:.2f} GB, launches {v['launches']}"
+                      for k, v in steps.items()) + f"; loss rel diff {rel:.2e}")
+    check(rel <= LM_LOSS_RTOL, f"25(b) sharded step-1 loss rel diff {rel}")
+    check(steps["sharded"]["launches"] == steps["unsharded"]["launches"],
+          f"25(b) launches differ: {steps}")
+    out["train"] = {"layers": cfg.n_layers, "tokens": [2, MAMBA_SEQ], "loss_rel_diff": rel,
+                    **steps}
+    del batch
+    torch.cuda.empty_cache()
+    t_b = time.monotonic() - t_phase - t_a
+
+    # -- (c) the sequence-sharded decode at 32768 rows ------------------------
+    dmesh = make_virtual_mesh({"model": SEQ_SHARDS}, dev)
+    real_attend = attn_mod.decode_attend_seq_sharded
+
+    def masks_dropped(q, k, v, q_pos, k_pos, valid, window):
+        return real_attend(q, k, v, torch.full_like(q_pos, 2**30), k_pos,
+                           torch.ones_like(valid), window)
+
+    def decode_pair(dtype):
+        """Both decodes of Qwen2-7B in ``dtype`` from one set of caches of
+        random K/V rows: ``SEQ_DECODE_TICKS`` greedy ticks unsharded, the
+        same ticks sharded and fed the unsharded tokens, one tick of the
+        planted fault, and a profiled tick each way."""
+        cfg = dataclasses.replace(load_config(LM_ARCH), dtype=str(dtype).split(".")[1],
+                                  param_dtype=str(dtype).split(".")[1])
+        params = bundle_from_cfg(cfg, dev).init(SEED)
+        caches = init_caches(cfg, SEQ_DECODE_SLOTS, SEQ_DECODE_MAX_SEQ, dtype, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+        lens = torch.randint(SEQ_DECODE_LEN[0], SEQ_DECODE_LEN[1] + 1, (SEQ_DECODE_SLOTS,),
+                             generator=gen, device=dev, dtype=torch.int32)
+        for c in caches:
+            c.k.normal_(generator=gen)
+            c.v.normal_(generator=gen)
+        first = torch.randint(0, cfg.vocab, (SEQ_DECODE_SLOTS, 1), generator=gen, device=dev,
+                              dtype=torch.int32)
+
+        def drive(sharded, feed=None, ticks=SEQ_DECODE_TICKS):
+            """``ticks`` greedy ticks from the filled caches (lengths reset: a
+            tick writes row ``length`` before it reads it, so what the last
+            drive left past the lengths is never read); each tick fed its own
+            argmax, or ``feed``'s tokens.  -> (logits, tokens, event ms)."""
+            for c in caches:
+                c.lengths.copy_(lens)
+            tok, logits, toks, ms = first, [], [], []
+            with sharding_ctx(dmesh if sharded else None):
+                for t in range(ticks):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    lg, _ = decode_step(params, tok, caches, cfg, seq_sharded_cache=sharded)
+                    b.record()
+                    logits.append(lg[:, 0])
+                    toks.append(lg[:, 0].argmax(-1))
+                    ms.append((a, b))
+                    tok = (toks[-1] if feed is None else feed[t])[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+            return logits, toks, [a.elapsed_time(b) for a, b in ms]
+
+        def device_ms(sharded):
+            for c in caches:
+                c.lengths.copy_(lens)
+            with sharding_ctx(dmesh if sharded else None), \
+                    profile(activities=[ProfilerActivity.CUDA]) as prof:
+                decode_step(params, first, caches, cfg, seq_sharded_cache=sharded)
+                torch.cuda.synchronize()
+            return sum(device_ms_by_name(prof, 1).values())
+
+        reset_b6_launches()
+        want, want_tok, ms_un = drive(False)
+        got, got_tok, ms_sh = drive(True, feed=want_tok)
+        b6 = rmsnorm.launches
+        check(b6 == 2 * SEQ_DECODE_TICKS * b6_per_decode_call(cfg),
+              f"25(c) {dtype} B6 launches {b6} vs {2 * SEQ_DECODE_TICKS * b6_per_decode_call(cfg)}")
+        # layer 0's attention output at tick 0 (the same inputs both ways), the
+        # plain attend's against the sharded one's and the planted fault's
+        layer0 = {}
+
+        def first_out(key, fn):
+            def rec(*args, **kwargs):
+                y = fn(*args, **kwargs)
+                layer0.setdefault(key, y.float())
+                return y
+            return rec
+
+        with swapped((attn_mod, "_sdpa", first_out("plain", attn_mod._sdpa))):
+            drive(False, ticks=1)
+        with swapped((attn_mod, "decode_attend_seq_sharded", first_out("sharded", real_attend))):
+            drive(True, ticks=1)
+        with swapped((attn_mod, "decode_attend_seq_sharded", first_out("fault", masks_dropped))):
+            bad, _, _ = drive(True, feed=want_tok, ticks=1)
+        top2 = [w.topk(2, dim=-1).values for w in want]
+        row = {"dtype": str(dtype), "lengths": lens.tolist(),
+               "logits_over_bar": max(err_stats(g, w, **DECODE_BAR)[1] for g, w in zip(got, want)),
+               "tokens_equal": sum(bool(torch.equal(a, b)) for a, b in zip(got_tok, want_tok)),
+               "min_top2_gap": min(float((t[:, 0] - t[:, 1]).min()) for t in top2),
+               "planted_masks_dropped_over_bar": err_stats(bad[0], want[0], **DECODE_BAR)[1],
+               "layer0_over_ulp_bar": ulp_ratio(layer0["sharded"], layer0["plain"], dtype,
+                                                SEQ_LAYER0_ULPS),
+               "layer0_planted_over_ulp_bar": ulp_ratio(layer0["fault"], layer0["plain"], dtype,
+                                                        SEQ_LAYER0_ULPS),
+               "tick_ms_unsharded": ms_un, "tick_ms_sharded": ms_sh,
+               "device_ms": {"unsharded": device_ms(False), "sharded": device_ms(True)},
+               "b6_launches": b6}
+        print(f"25(c) {cfg.name} {cfg.n_layers} layers {dtype}, {SEQ_DECODE_SLOTS} slots at "
+              f"lengths {row['lengths']} of {SEQ_DECODE_MAX_SEQ} rows, {SEQ_DECODE_TICKS} ticks: "
+              f"sharded vs unsharded logits at {row['logits_over_bar']:.4f} of the decode bar, "
+              f"{row['tokens_equal']} of {SEQ_DECODE_TICKS} ticks the same tokens (smallest "
+              f"top-2 gap {row['min_top2_gap']:.4f}); tick ms (events, median) unsharded "
+              f"{statistics.median(ms_un):.2f}, sharded {statistics.median(ms_sh):.2f}; device "
+              f"ms a tick {row['device_ms']}; planted fault (masks dropped) "
+              f"{row['planted_masks_dropped_over_bar']:.1f}x the bar; layer 0's attention "
+              f"output at {row['layer0_over_ulp_bar']:.4f} of {SEQ_LAYER0_ULPS} ulps, the "
+              f"planted fault at {row['layer0_planted_over_ulp_bar']:.1f}x")
+        del params, caches, want, got, bad
+        torch.cuda.empty_cache()
+        return row
+
+    # bf16, the serving type, is timed and held at one layer: at 28 layers a
+    # 1-ulp change of layer 0's attention output alone moves the random-init
+    # model's bf16 logits 9.7x the decode bar (0.23 on logits of magnitude
+    # 6.6, NVIDIA H100 80GB HBM3, 700.00 W), so its logits are reported, and
+    # its layer 0 attention output is held within SEQ_LAYER0_ULPS ulps of the
+    # plain attend's.  fp32, where an ulp is 2^16 times smaller, is held to
+    # the decode bar on the logits.
+    bf16 = decode_pair(torch.bfloat16)
+    fp32 = decode_pair(torch.float32)
+    check(fp32["logits_over_bar"] <= 1.0,
+          f"25(c) fp32 sharded decode at {fp32['logits_over_bar']} of the decode bar")
+    check(fp32["tokens_equal"] == SEQ_DECODE_TICKS, f"25(c) fp32 sharded decode chose other tokens")
+    check(bf16["layer0_over_ulp_bar"] <= 1.0,
+          f"25(c) bf16 layer 0 attention at {bf16['layer0_over_ulp_bar']} of {SEQ_LAYER0_ULPS} ulps")
+    check(fp32["planted_masks_dropped_over_bar"] > 1.0 and bf16["layer0_planted_over_ulp_bar"]
+          > 1.0, f"25(c) the decode check passed the masks dropped: {fp32}, {bf16}")
+    out["decode"] = {"layers": load_config(LM_ARCH).n_layers, "slots": SEQ_DECODE_SLOTS,
+                     "max_seq": SEQ_DECODE_MAX_SEQ, "ticks": SEQ_DECODE_TICKS,
+                     "bf16": bf16, "fp32": fp32}
+    launches["rmsnorm"] += bf16["b6_launches"] + fp32["b6_launches"]
+    out["seconds"] = {"a": t_a, "b": t_b, "c": time.monotonic() - t_phase - t_a - t_b}
+    print(json.dumps({"seq_shard": out}))
+    return launches
+
+
+def remat_dots_phase(dev, smi: str) -> dict:
+    """Phase 26: ``remat="dots"`` on Qwen2-7B at full width, ``DOTS_DEPTH``
+    layers, bf16: one microbatch (``DOTS_BATCH`` x ``DOTS_SEQ``) of loss
+    and grads from the same params and batch under "none", "dots" and
+    "full".  The loss and every grad leaf under "dots" must equal "none"'s
+    bit for bit; the peak above the step's start must order none > dots >
+    full; B4 and B6 launch as ``lm_launches_per_microbatch`` counts (the
+    recomputation of "dots" and "full" included).  The saved tensors: those
+    the autograd graph holds outside the checkpoints (unique storages, the
+    params' left out) plus the outputs ``save_dots`` keeps.  Returns the
+    kernels' launches."""
+    import torch
+
+    import repro_torch.models.lm as lm_mod
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import place, synth_batch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd, reset_launches
+    from repro_torch.kernels.rmsnorm.kernel import reset_launches as reset_b6_launches
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.models.registry import bundle_from_cfg, load_config
+    from repro_torch.optim.optimizers import tree_leaves
+
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(load_config(LM_ARCH), n_layers=DOTS_DEPTH)
+    arch = bundle_from_cfg(cfg, dev)
+    params = arch.init(SEED)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    param_storages = {p.untyped_storage().data_ptr() for p in leaves}
+    specs = arch.input_specs(ShapeConfig("smoke", DOTS_SEQ, DOTS_BATCH * LM_ACCUM, "train"))
+    batch = microbatch(place(synth_batch(specs, cfg, SEED, 0), dev), 0, LM_ACCUM)
+    real_policy = lm_mod.save_dots
+    aten = torch.ops.aten
+    res, ref = {}, None
+    launches = {"flash_attention_fwd": 0, "rmsnorm": 0}
+    for remat in ("none", "dots", "full"):
+        kept, storages = [], {}
+
+        def policy(ctx, op, *args, **kwargs):
+            got = real_policy(ctx, op, *args, **kwargs)
+            if got == torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+                a = args[1] if op is aten.addmm.default else args[0]
+                b = args[2] if op is aten.addmm.default else args[1]
+                n = a.shape[0] * b.shape[-1] * (a.shape[1] if op is aten.bmm.default else 1)
+                kept.append(n * a.element_size())
+            return got
+
+        def pack(t):
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in param_storages:
+                storages[ptr] = t.untyped_storage().nbytes()
+            return t
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        start = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        reset_b6_launches()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        with swapped((lm_mod, "save_dots", policy)), \
+                torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss = arch.loss_fn(params, batch, remat=remat)
+        grads = torch.autograd.grad(loss, leaves)
+        b.record()
+        torch.cuda.synchronize()
+        got = {"flash_attention_fwd": flash_attention_fwd.launches, "rmsnorm": rmsnorm.launches}
+        want = lm_launches_per_microbatch(cfg, remat)
+        res[remat] = {"loss": float(loss), "ms_cuda_events": a.elapsed_time(b),
+                      "peak_above_start_bytes": torch.cuda.max_memory_allocated(dev) - start,
+                      "saved_tensors": len(storages) + len(kept),
+                      "saved_bytes": sum(storages.values()) + sum(kept),
+                      "policy_saved_bytes": sum(kept), "launches": got,
+                      "launches_expected": want,
+                      "b4_launches_by_instance": {k: v for k, v in
+                                                  flash_attention_fwd.launches_by_instance.items()
+                                                  if v}}
+        check(got == want, f"26 remat {remat}: launches {got} vs the code's {want}")
+        for k in launches:
+            launches[k] += got[k]
+        if ref is None:
+            ref = (loss.detach(), [g for g in grads])
+        else:
+            res[remat]["bitwise_equal_to_none"] = bool(
+                torch.equal(loss.detach(), ref[0])
+                and all(torch.equal(x, y) for x, y in zip(grads, ref[1])))
+        del loss, grads
+    peaks = [res[r]["peak_above_start_bytes"] for r in ("none", "dots", "full")]
+    print(f"26 {cfg.name} {cfg.n_layers} layers bf16, {DOTS_BATCH} x {DOTS_SEQ} tokens: "
+          + "; ".join(f"{r} loss {v['loss']:.6f}, {v['ms_cuda_events']:.1f} ms, peak above the "
+                      f"start {v['peak_above_start_bytes'] / 1e9:.2f} GB, saved "
+                      f"{v['saved_tensors']} tensors / {v['saved_bytes'] / 1e9:.3f} GB, launches "
+                      f"{v['launches']}" for r, v in res.items())
+          + f"; dots bitwise equal to none: {res['dots']['bitwise_equal_to_none']}, full: "
+          f"{res['full']['bitwise_equal_to_none']}")
+    check(res["dots"]["bitwise_equal_to_none"], "26 remat dots: loss or grads differ from none's")
+    check(peaks[0] > peaks[1] > peaks[2], f"26 peaks none, dots, full: {peaks}")
+    check(res["none"]["saved_bytes"] > res["dots"]["saved_bytes"] > res["full"]["saved_bytes"],
+          f"26 saved bytes: {[res[r]['saved_bytes'] for r in res]}")
+    del params, leaves, ref, batch
+    torch.cuda.empty_cache()
+    print(json.dumps({"remat_dots": {"arch": cfg.name, "layers": cfg.n_layers,
+                                     "tokens": [DOTS_BATCH, DOTS_SEQ], **res,
+                                     "seconds": time.monotonic() - t0, "card": smi}}))
     return launches
 
 
@@ -5948,6 +6462,12 @@ def main() -> int:
     # -- 24. Whisper-medium: the encoder-decoder and cross-attention --------------------
     wsp = whisper_phase(dev, smi)
 
+    # -- 25. the sequence-sharded Mamba2 forward and decode ---------------------------
+    sp = seq_shard_phase(dev, smi)
+
+    # -- 26. remat "dots" -------------------------------------------------------------
+    dots = remat_dots_phase(dev, smi)
+
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",
                      "src/repro/kernels/conv2d_tiled/kernel.py:140", rows,
@@ -5968,16 +6488,18 @@ def main() -> int:
                      "src/repro/kernels/flash_attention/kernel.py:127", fa_rows[:1],
                      lm_launches["flash_attention_fwd"] + lm18["flash_attention_fwd"]
                      + dense["flash_attention_fwd"] + moe["flash_attention_fwd"]
-                     + vl["flash_attention_fwd"] + wsp["flash_attention_fwd"], fa_err),
+                     + vl["flash_attention_fwd"] + wsp["flash_attention_fwd"]
+                     + dots["flash_attention_fwd"], fa_err),
         kernel_entry("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                      "src/repro/kernels/rmsnorm/kernel.py:42", rms_rows[:1],
                      lm_launches["rmsnorm"] + mamba_launches["rmsnorm"] + lm18["rmsnorm"]
                      + b6_serve + dense["rmsnorm"] + moe["rmsnorm"] + ds["rmsnorm"]
-                     + vl["rmsnorm"] + wsp["rmsnorm"],
+                     + vl["rmsnorm"] + wsp["rmsnorm"] + sp["rmsnorm"] + dots["rmsnorm"],
                      rms_err),
         kernel_entry("ssd_chunk_fwd", "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk_fwd.cu",
                      "src/repro/kernels/ssd_chunk/kernel.py:98", ssd_rows[:1],
-                     mamba_launches["ssd_chunk_fwd"] + moe["ssd_chunk_fwd"], ssd_err),
+                     mamba_launches["ssd_chunk_fwd"] + moe["ssd_chunk_fwd"]
+                     + sp["ssd_chunk_fwd"], ssd_err),
     ]
     check(all(k["launches"] > 0 for k in kernels), f"launches {[k['launches'] for k in kernels]}")
     print(json.dumps({"kernels": kernels}))

@@ -2,13 +2,13 @@
 
 One ``ModelConfig`` describes any of the reference's architectures, with the
 same fields and defaults; ``act_dtype`` and ``p_dtype`` are torch dtypes.
-Only the configs the port can run resolve in ``models.registry`` (the rest
-are ROADMAP A.18), but every field is here so a config file reads the same.
-``ParallelConfig`` keeps the fields the port reads: ``grad_accum`` (both
-paths) and the LM step's ``remat``, ``ce_chunk`` and ``unroll``; the mesh-axis
-fields come back with ``parallel/`` (A.18).  ``TrainConfig`` has all of the
-reference's fields; the launchers take the checkpoint cadence from
-``--ckpt-every`` and the logging cadence from ``--log-every``.
+Every config of the reference resolves in ``models.registry``, and every
+field is here so a config file reads the same.  ``ParallelConfig`` keeps
+the fields the port reads, with the reference's defaults: ``grad_accum``
+(both paths) and the LM step's ``remat``, ``ce_chunk`` and ``unroll``.
+``TrainConfig`` has all of the reference's fields; the launchers take the
+checkpoint cadence from ``--ckpt-every`` and the logging cadence from
+``--log-every``.
 """
 from __future__ import annotations
 
@@ -150,7 +150,12 @@ SHAPES = {
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     """How a model maps onto the device: microbatches, and the LM step's
-    rematerialisation, cross-entropy chunk and (analysis) unrolling."""
+    rematerialisation, cross-entropy chunk and (analysis) unrolling.  The
+    port holds only the fields it reads: the reference's mesh axes,
+    ``seq_shard_cache``, ``shard_moe_tokens`` and ``layout`` have no reader
+    here (a sequence-sharded decode is ``decode_step``'s
+    ``seq_sharded_cache``; a layout's rules are ``parallel.api.layout_rules``,
+    given to ``sharding_ctx``)."""
 
     remat: str = "full"              # none | full | dots
     grad_accum: int = 1

@@ -15,6 +15,11 @@ gather per axis (``pack_axis``, the reference's ``fusion._pack_axis``),
 undone by ``unpack_axis``.  The reference packs a spec plan inside the
 shard boundary (``_shard_pack_grid``) and a padded plan on the host
 (``_pack_grid``); the virtual mesh has no boundary, so both take this one.
+
+The LM side's mesh is a ``VirtualMesh`` of named axes (the reference's
+``jax.sharding.Mesh``, of which it keeps ``shape``): ``parallel/api.py``
+resolves logical axes against it, and a sequence-sharded mixer keeps its
+shards as a tensor dimension of the axis's size (``core/sequence.py``).
 """
 from __future__ import annotations
 
@@ -148,3 +153,26 @@ def make_tile_mesh(n: int, m: int, device: str | torch.device = "cuda") -> TileM
     if n < 1 or m < 1:
         raise ValueError(f"tile grid must be positive; got {n}x{m}")
     return TileMesh(n, m, resolve_device(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class VirtualMesh:
+    """Named mesh axes held on ONE device: ``shape`` maps each axis name to
+    its size, in order, as a ``jax.sharding.Mesh``'s does.  Nothing is
+    placed by it; a sharded operator keeps an axis's shards as a tensor
+    dimension of that size."""
+
+    axes: tuple[tuple[str, int], ...]
+    device: torch.device
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(self.axes)
+
+
+def make_virtual_mesh(axes: dict[str, int], device: str | torch.device = "cuda") -> VirtualMesh:
+    """A virtual mesh of the named axes (``{"data": 2, "model": 4}``) on
+    ``device``."""
+    if not axes or any(s < 1 for s in axes.values()):
+        raise ValueError(f"mesh axes must be named with positive sizes; got {axes}")
+    return VirtualMesh(tuple((str(a), int(s)) for a, s in axes.items()), resolve_device(device))

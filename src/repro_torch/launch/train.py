@@ -97,7 +97,7 @@ def _add_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--full", action="store_true", help="LM: the full published config")
     ap.add_argument("--seq", type=int, default=64, help="LM: tokens per sequence")
     ap.add_argument("--remat", default="full", choices=["none", "full", "dots"],
-                    help="LM: rematerialisation of each layer ('dots' has no torch policy)")
+                    help="LM: rematerialisation of each layer ('dots' saves the matmuls with no batch dim)")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=3e-4)

@@ -9,8 +9,8 @@ non-causal call with no window, which masks nothing (Whisper's
 cross-attention, whose ``kv_override`` keys outnumber the queries).  Other
 positions take the plain ``_sdpa``: the reference's "auto" mode, naive below
 2048 keys and blocked streaming above.  ``_sdpa_blocked`` is also the op's
-backward.  The reference's mesh constraints are identities on one device and
-are left out.
+backward.  The reference's mesh constraints are identities on one device
+(``parallel/api.py:constrain``) and are not called.
 
 M-RoPE (Qwen2-VL): ``_rope_qk`` rotates q and k by the three position
 streams (``models/common.py:apply_mrope``).  The reference then masks by the
@@ -35,8 +35,10 @@ the reference's runs through XLA and not its Pallas kernel);
 ``c_kv`` and the rotated ``k_pe`` rows, scored in fp32 in the compressed
 space.
 
-Not ported yet: the sequence-sharded decode (A.18.8), which raises naming
-its ROADMAP item.
+``decode_attend_seq_sharded`` is the sequence-sharded (flash-decode) form
+of the decode's scores: the cache's rows split into the shards of the
+active mesh's ``seq_shard`` axis, a partial softmax per shard, one rescale
+to combine them - what SPMD makes of the reference's constrained einsums.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF, scaled_q
 from repro_torch.models.common import apply_mrope, apply_rope, dense_init, rms_norm
+from repro_torch.parallel.api import axis_size, logical_spec
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +306,10 @@ def attention(
     else:
         out = _sdpa(q, k, v, positions, positions if kpos is None else kpos, causal=causal,
                     window=window)
-    y = torch.einsum("bthe,hed->btd", out, params["w_o"])
+    # "bthe,hed->btd" as one matmul over a view of w_o: torch.einsum copies
+    # w_o into (e, h) order first, and remat="dots" tells the projection by
+    # its weight (models/lm.py:_block_output_weights)
+    y = out.flatten(2) @ params["w_o"].flatten(0, 1)
     if cfg.attn_out_bias:
         y = y + params["b_o"]
     return y
@@ -433,11 +439,11 @@ def decode_attention(
     seq_sharded: bool = False,
 ) -> tuple[torch.Tensor, KVCache]:
     """One-token decode, as the reference's.  Writes the new K/V row and
-    advances ``lengths`` in place."""
+    advances ``lengths`` in place.  ``seq_sharded`` scores the cache by
+    ``decode_attend_seq_sharded`` (an MLA layer ignores it, as the
+    reference's)."""
     if cfg.mla is not None:
         return _decode_mla(params, x, cache, cfg)
-    if seq_sharded:
-        raise NotImplementedError("sequence-sharded decode (flash-decode): ROADMAP A.18.8")
     b = x.shape[0]
     pos = cache.lengths.long()                     # (B,) per-slot positions
     positions = pos[:, None]
@@ -463,12 +469,49 @@ def decode_attention(
     # kpos >= 0 excludes never-written ring slots: without it the zero keys
     # count as valid at early positions and dilute the softmax denominator
     valid = (kpos <= positions) & (kpos >= 0)
-    out = _sdpa(q, cache.k, cache.v, positions, kpos, causal=True, window=window, k_valid=valid)
+    if seq_sharded:
+        out = decode_attend_seq_sharded(q, cache.k, cache.v, positions, kpos, valid, window)
+    else:
+        out = _sdpa(q, cache.k, cache.v, positions, kpos, causal=True, window=window,
+                    k_valid=valid)
     y = torch.einsum("bthe,hed->btd", out, params["w_o"])
     if cfg.attn_out_bias:
         y = y + params["b_o"]
     cache.lengths.add_(1)
     return y, cache
+
+
+def decode_attend_seq_sharded(q, k, v, q_pos, k_pos, valid, window):
+    """Flash-decode over a cache whose S rows are split into the shards of
+    the active mesh's ``seq_shard`` axis (``logical_spec`` of the
+    reference's constraint; 1 shard without a mesh or where S does not
+    divide): per shard, in fp32 (fp64 stays fp64), the masked scores' max,
+    the sum of their exponentials and the exponential-weighted values; then
+    one rescale by ``exp(max_shard - max)`` combines the shards.  The masks
+    are the reference's: causal, ``valid`` (``kpos >= 0`` and written) and
+    the window.  q (B, Tq, Hq, Dh), k / v (B, S, Hkv, D), q_pos (B, Tq),
+    k_pos and valid (B, S) -> (B, Tq, Hq, Dv) in q's type."""
+    b, tq, hq, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    n = axis_size(logical_spec(("batch", "seq_shard", "kv_heads", None), k.shape)[1])
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf = (q * dh ** -0.5).to(acc).reshape(b, tq, hkv, rep, dh)
+    kf = k.to(acc).reshape(b, n, s // n, hkv, dh)
+    vf = v.to(acc).reshape(b, n, s // n, hkv, v.shape[-1])
+    logits = torch.einsum("bqhrd,bjkhd->bjhrqk", qf, kf)          # (B, n, Hkv, rep, Tq, S/n)
+    mask = (q_pos[:, :, None] >= k_pos[:, None, :]) & valid[:, None, :]
+    if window is not None:
+        mask = mask & (q_pos[:, :, None] - k_pos[:, None, :] < window)
+    mask = mask.reshape(b, tq, n, s // n).transpose(1, 2)[:, :, None, None]
+    logits = torch.where(mask, logits, NEG_INF)
+    mx = torch.amax(logits, dim=-1, keepdim=True)                 # each shard's max
+    ex = torch.exp(logits - mx)
+    den = torch.sum(ex, dim=-1, keepdim=True)
+    part = torch.einsum("bjhrqk,bjkhd->bjhrqd", ex, vf)
+    w = torch.exp(mx - torch.amax(mx, dim=1, keepdim=True))       # the one rescale
+    out = torch.sum(part * w, dim=1) / torch.sum(den * w, dim=1)  # (B, Hkv, rep, Tq, Dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, tq, hq, v.shape[-1]).to(q.dtype)
 
 
 def _decode_mla(params, x: torch.Tensor, cache: MLACache, cfg: ModelConfig):

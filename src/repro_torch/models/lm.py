@@ -10,9 +10,21 @@ leaf (``interop.lm_params_from_jax``); a config with ``mtp_depth`` > 0
 reference runs ``lax.scan`` over the repeats, the port runs a Python loop over
 ``unbind(0)`` views of the stacked leaves (the backward stacks the layers'
 gradients once).  ``remat="full"`` wraps each block in a non-reentrant
-``torch.utils.checkpoint``, as ``jax.checkpoint`` does.  The reference's
-``constrain`` / ``gather_for_compute`` are identities on one device and are
-left out.
+``torch.utils.checkpoint``, as ``jax.checkpoint`` does; ``remat="dots"``
+checkpoints it selectively (``save_dots``): the outputs of matmuls with no
+batch dimension are saved and the rest recomputed, as the reference's
+``checkpoint_dots_with_no_batch_dims``, but for the projections whose
+outputs only add into the block's output, which no backward reads and
+the reference's partial evaluation drops (``_block_output_weights``).  The reference's ``constrain`` /
+``gather_for_compute`` are identities on one device (``parallel/api.py``)
+and are not called.
+
+Sequence parallelism: ``apply_lm(seq_axis=)`` runs the Mamba2 mixers
+sequence-sharded over an axis of the active virtual mesh
+(``models/mamba2.py``); dense MLPs and norms act per token.  A model with
+an attention or MoE layer is refused (ROADMAP C.17): the reference's
+sharded ``apply_lm`` attends within each shard at positions that restart at
+0, and dispatches each shard's tokens at the shard's own capacity.
 
 Losses: token-chunked cross-entropy (each chunk checkpointed, so peak
 memory is chunk x vocab, not tokens x vocab).  A layer's mixer is attention
@@ -25,22 +37,24 @@ where ``params`` hold ``mtp`` it adds 0.3 x the MTP head's CE
 embeddings, in place of the leading token embeddings, and M-RoPE's ``(3, B,
 T)`` position streams (three ``arange`` streams by default); its attention
 masks by the sequence index (``models/attention.py``, ROADMAP C.14).
-``remat="dots"`` raises (ROADMAP A.18.9).
 
 Serving: ``init_caches`` (one ``KVCache``, ``MLACache`` or ``MambaState``
 per layer, preallocated), ``decode_step`` (one token per slot in, fp32
-logits out, the caches written in place) and ``prefill``, which, as the reference's, runs
+logits out, the caches written in place; ``seq_sharded_cache`` takes the
+flash-decode form of ``decode_attention``) and ``prefill``, which, as the reference's, runs
 the full forward for the last position's logits and hands back the caches
 it was given untouched (no engine calls it: ROADMAP C).
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -50,6 +64,7 @@ from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.models.common import apply_norm, draws_into, embed_init, init_norm
 from repro_torch.models.mamba2 import MambaState
 from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.parallel.api import captured_ctx
 
 
 # ---------------------------------------------------------------------------
@@ -214,14 +229,15 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def _apply_layer(p: dict, kind: LayerKind, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig, *, arange_positions: bool = False) -> torch.Tensor:
+                 cfg: ModelConfig, *, arange_positions: bool = False,
+                 seq_axis: Optional[str] = None) -> torch.Tensor:
     h = apply_norm(cfg.norm, x, p["norm1"])
     if kind.mixer == "attn":
         window = cfg.swa_window if kind.swa else None
         mix = attn_mod.attention(p["attn"], h, positions, cfg, causal=True, window=window,
                                  arange_positions=arange_positions)
     else:
-        mix = mamba_mod.mamba_block(p["mamba"], h, cfg)
+        mix = mamba_mod.mamba_block(p["mamba"], h, cfg, seq_axis=seq_axis)
     if cfg.parallel_block:
         # command-r: attn and mlp both read the same normed input
         ff = mlp_mod.mlp(p["mlp"], h, cfg.act) if "mlp" in p else 0.0
@@ -242,6 +258,70 @@ def _unbind(tree, n: int) -> list:
     return [tree_map(lambda t, r=r: t[r], parts) for r in range(n)]
 
 
+_aten = torch.ops.aten
+
+
+def save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``'s selective-checkpoint policy, the counterpart of
+    ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``: save
+    the output of every matmul with no batch dimension, recompute the rest.
+    ``x @ w`` and ``F.linear`` reach the dispatcher as ``mm`` / ``addmm``;
+    an einsum whose contraction has no batch dimension (MLA's
+    ``"btr,rhe->bthe"``) as a ``bmm`` over a batch of 1.  A ``bmm`` over a
+    real batch (attention's scores and values, the experts' FFNs) is
+    recomputed.  Kernel launches (B4, B5, B6) are invisible here: their
+    buffers are recomputed, so the recomputation launches them again."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _block_output_weights(block: tuple, block_p: list, cfg: ModelConfig) -> frozenset:
+    """The data pointers of the weights whose matmul outputs only add into
+    the block's output: the last layer's ``w_down`` (its shared expert's on
+    an MoE layer), or its mixer's output projection where no feed-forward
+    follows, both under a parallel block.  No backward reads these
+    outputs, so the reference's partial evaluation saves none of them."""
+    p, kind = block_p[-1], block[-1]
+    mix = p["attn"]["w_o"] if kind.mixer == "attn" else p["mamba"]["w_out"]
+    ff = (p["moe"].get("shared", {}).get("w_down") if "moe" in p
+          else p["mlp"]["w_down"] if "mlp" in p else None)
+    if cfg.parallel_block:
+        ws = [mix, ff]
+    else:
+        ws = [ff] if ("moe" in p or "mlp" in p) else [mix]
+    return frozenset(w.data_ptr() for w in ws if w is not None)
+
+
+def _dots_context(unsaved: frozenset = frozenset()):
+    """``save_dots``, save where a matmul reads a weight of ``unsaved``
+    (``_block_output_weights``): those outputs are recomputed."""
+    def policy(ctx, op, *args, **kwargs):
+        if any(isinstance(a, torch.Tensor) and a.data_ptr() in unsaved for a in args):
+            return CheckpointPolicy.PREFER_RECOMPUTE
+        return save_dots(ctx, op, *args, **kwargs)
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _refuse_c17(cfg: ModelConfig) -> None:
+    """The sequence-sharded forward runs Mamba2 mixers, dense MLPs and
+    norms; attention and MoE layers are refused (ROADMAP C.17)."""
+    for i in range(cfg.n_layers):
+        kind = layer_kind(cfg, i)
+        if kind.mixer == "attn":
+            raise ValueError(
+                f"seq_axis: layer {i} is attention, which the reference's sequence-sharded "
+                "apply_lm runs within each shard at positions restarting at 0 (ROADMAP C.17); "
+                "only Mamba2 mixers run sequence-sharded")
+        if kind.moe:
+            raise ValueError(
+                f"seq_axis: layer {i} is MoE, which the reference's sequence-sharded "
+                "apply_lm dispatches per shard at the shard's capacity, dropping other "
+                "assignments than its unsharded run (ROADMAP C.17)")
+
+
 def apply_lm(
     params: dict,
     tokens: torch.Tensor,                 # (B, T) int
@@ -255,16 +335,15 @@ def apply_lm(
 ) -> torch.Tensor:
     """Token ids -> final hidden states (B, T, D).  ``extra_embeds`` (B, Tv,
     D), a VLM's patch embeddings (the vision frontend is a stub, as in the
-    reference), replace the leading Tv token embeddings.  ``unroll`` (the
-    reference's analysis mode) changes nothing here: the layers are always a
-    Python loop."""
+    reference), replace the leading Tv token embeddings.  ``seq_axis`` runs
+    the Mamba2 mixers sequence-sharded over that axis of the active virtual
+    mesh (models with attention or MoE layers are refused: ``_refuse_c17``).
+    ``unroll`` (the reference's analysis mode) changes nothing here: the
+    layers are always a Python loop."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat={remat!r}: one of 'none', 'full', 'dots'")
     if seq_axis is not None:
-        raise NotImplementedError("sequence-sharded mixers: ROADMAP A.18 (parallel/)")
-    if remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={remat!r}: the reference's 'dots' policy (save matmul outputs "
-            "with no batch dims) has no torch checkpoint policy that saves the same "
-            "tensors; use 'full' or 'none'")
+        _refuse_c17(cfg)
     x = F.embedding(tokens.long(), params["embed"]).to(cfg.act_dtype)
     if extra_embeds is not None:
         tv = extra_embeds.shape[1]
@@ -276,16 +355,24 @@ def apply_lm(
         if cfg.mrope_sections is not None:
             positions = positions.expand(3, b, t)
 
+    # a checkpoint's recomputation runs in the backward, on autograd's thread
+    # for a card: it re-enters the mesh this forward ran under
+    enter = captured_ctx()
     for seg, seg_p in zip(plan_segments(cfg), params["segments"]):
         def block_fn(x, block_p, seg=seg):
-            for j, kind in enumerate(seg.block):
-                x = _apply_layer(block_p[j], kind, x, positions, cfg,
-                                 arange_positions=arange_positions)
+            with enter():
+                for j, kind in enumerate(seg.block):
+                    x = _apply_layer(block_p[j], kind, x, positions, cfg,
+                                     arange_positions=arange_positions, seq_axis=seq_axis)
             return x
 
         for block_p in _unbind(seg_p, seg.repeats):
             if remat == "full":
                 x = checkpoint(block_fn, x, block_p, use_reentrant=False)
+            elif remat == "dots":
+                unsaved = _block_output_weights(seg.block, block_p, cfg)
+                x = checkpoint(block_fn, x, block_p, use_reentrant=False,
+                               context_fn=partial(_dots_context, unsaved))
             else:
                 x = block_fn(x, block_p)
     return apply_norm(cfg.norm, x, params["final_norm"])

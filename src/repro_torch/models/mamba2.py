@@ -11,12 +11,19 @@ backward path); like the reference's it requires T % chunk == 0.  Both mask
 the decay's exponent before ``exp`` (``kernels/ssd_chunk/ref.py``), so their
 gradients stay finite where the reference's overflow (ROADMAP C.1).
 
+Sequence parallelism (``seq_axis``, an axis of the active virtual mesh,
+``parallel/api.py``): the (B, T) sequences split into S contiguous shards
+of T/S tokens.  The conv takes each shard's K-1 token left halo from the
+previous shard (``core/sequence.py:seq_halo_conv1d`` over a free
+(B, S, T/S, .) view), one scan runs every shard as a sequence of its own -
+(B*S, T/S, H, P), one B5 launch - and the shards' (total decay, final
+state) summaries go through ``seq_scan_combine_hops``; what each shard
+receives is folded into it as its initial state, as the reference folds
+its cross-shard handoff (``_combine``).
+
 Decode: ``mamba_decode`` is the O(1) step - the state is the cache
 (``MambaState``: the fp32 SSM state, the conv ring and a per-slot length),
 updated in place.
-
-Not here yet: the sequence-sharded scan (``seq_axis``; ``parallel/``),
-which raises naming ROADMAP A.18.
 """
 from __future__ import annotations
 
@@ -26,9 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sequence import seq_halo_conv1d
+from repro_torch.core.sequence import seq_halo_conv1d, seq_scan_combine_hops
 from repro_torch.kernels.ssd_chunk.ops import ssd_scan, ssd_scan_ref
 from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.parallel.api import axis_size, captured_ctx
 
 
 def _dims(cfg: ModelConfig):
@@ -59,6 +67,45 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     }
 
 
+def _cross_shard(seq_axis: str, b: int, n: int):
+    """``_combine``'s ``incoming`` for B sequences of n shards each, laid
+    out (B*n, ...): ``seq_scan_combine_hops`` over the shard dimension,
+    under the mesh active now (a backward may run on another thread)."""
+    enter = captured_ctx()
+
+    def incoming(total, final):
+        with enter():
+            inc = seq_scan_combine_hops(total.reshape(b, n, *total.shape[1:]),
+                                        final.reshape(b, n, *final.shape[1:]),
+                                        seq_axis, shard_dim=1)
+        return inc.reshape(final.shape)
+
+    return incoming
+
+
+def _sharded_scan(scan, x, dt, A, Bm, Cm, chunk: int, seq_axis: str, initial_state=None):
+    """``scan`` (``ssd_scan`` or ``ssd_scan_ref``) over the shards of the
+    (B, T, ...) sequences along mesh axis ``seq_axis``: each (B, T) row
+    viewed as (B*S, T/S), one scan over all shards with the cross-shard
+    combine -> (y (B, T, H, P), each shard's final state (B, S, H, N, P)).
+    ``initial_state`` (B, S, H, N, P), when given, is added to what each
+    shard receives, as the reference adds its shard-local one."""
+    b, t = x.shape[:2]
+    n = axis_size(seq_axis)
+    if t % n:
+        raise ValueError(f"sequence length {t} does not split into the {n} shards of "
+                         f"axis {seq_axis!r}")
+
+    def shards(u):
+        return u.reshape(b * n, t // n, *u.shape[2:])
+
+    init = None if initial_state is None else initial_state.reshape(b * n,
+                                                                   *initial_state.shape[2:])
+    y, final = scan(shards(x), shards(dt), A, shards(Bm), shards(Cm), chunk, init,
+                    _cross_shard(seq_axis, b, n))
+    return y.reshape(x.shape), final.reshape(b, n, *final.shape[1:])
+
+
 def _ssd_chunk_scan(
     x: torch.Tensor,      # (B, T, H, P)
     dt: torch.Tensor,     # (B, T, H) softplus'd step sizes, fp32
@@ -67,15 +114,20 @@ def _ssd_chunk_scan(
     Cm: torch.Tensor,     # (B, T, G, N)
     chunk: int,
     seq_axis: Optional[str] = None,
+    initial_state: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y: (B,T,H,P) in x's type, final_state: (B,H,N,P)): the plain
     intra-chunk form and the cross-chunk recurrence of ``ssd_scan``, in fp32
-    (fp64 stays fp64).  T must be a multiple of ``chunk``."""
-    if seq_axis is not None:
-        raise NotImplementedError("sequence-sharded SSD scan: ROADMAP A.18 (parallel/)")
-    if x.shape[1] % chunk:
-        raise ValueError(f"sequence length {x.shape[1]} is not a multiple of the chunk {chunk}")
-    return ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
+    (fp64 stays fp64), from ``initial_state`` (zeros when ``None``).  Under
+    ``seq_axis`` the T tokens are S shards of T/S (``_sharded_scan``):
+    ``initial_state`` and the final states are per shard, (B, S, H, N, P).
+    Each scanned length must be a multiple of ``chunk``."""
+    t = x.shape[1] // (1 if seq_axis is None else axis_size(seq_axis))
+    if t % chunk:
+        raise ValueError(f"sequence length {t} is not a multiple of the chunk {chunk}")
+    if seq_axis is None:
+        return ssd_scan_ref(x, dt, A, Bm, Cm, chunk, initial_state)
+    return _sharded_scan(ssd_scan_ref, x, dt, A, Bm, Cm, chunk, seq_axis, initial_state)
 
 
 class MambaState(NamedTuple):
@@ -117,15 +169,23 @@ def mamba_block(
     *,
     seq_axis: Optional[str] = None,
 ) -> torch.Tensor:
-    """Full-sequence Mamba2 block.  u: (B, T, D) -> (B, T, D)."""
-    if seq_axis is not None:
-        raise NotImplementedError("sequence-sharded Mamba2 block: ROADMAP A.18 (parallel/)")
+    """Full-sequence Mamba2 block.  u: (B, T, D) -> (B, T, D).  Under
+    ``seq_axis`` the sequences run as S shards of T/S tokens (module
+    docstring), the scan at ``min(chunk, T/S)``."""
     s, d_in, nh = _dims(cfg)
     b, t, _ = u.shape
+    n = 1 if seq_axis is None else axis_size(seq_axis)
     proj = u @ params["w_in"]
     z, x, Bm, Cm, dt = _split_proj(proj, cfg)
     xbc = torch.cat([x, Bm, Cm], dim=-1)
-    xbc = seq_halo_conv1d(xbc, params["conv_w"], params["conv_b"], None)
+    if seq_axis is None:
+        xbc = seq_halo_conv1d(xbc, params["conv_w"], params["conv_b"], None)
+    else:
+        if t % n:
+            raise ValueError(f"sequence length {t} does not split into the {n} shards of "
+                             f"axis {seq_axis!r}")
+        xbc = seq_halo_conv1d(xbc.view(b, n, t // n, -1), params["conv_w"], params["conv_b"],
+                              seq_axis, seq_dim=2, shard_dim=1).view(b, t, -1)
     xbc = F.silu(xbc)
     gn = s.n_groups * s.d_state
     x, Bm, Cm = torch.split(xbc, [d_in, gn, gn], dim=-1)
@@ -134,7 +194,10 @@ def mamba_block(
     Cm = Cm.reshape(b, t, s.n_groups, s.d_state)
     dtf = F.softplus(dt.to(torch.promote_types(dt.dtype, torch.float32)) + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    y, _ = ssd_scan(x, dtf, A, Bm, Cm, min(s.chunk, t))
+    if seq_axis is None:
+        y, _ = ssd_scan(x, dtf, A, Bm, Cm, min(s.chunk, t))
+    else:
+        y, _ = _sharded_scan(ssd_scan, x, dtf, A, Bm, Cm, min(s.chunk, t // n), seq_axis)
     y = y + x * params["D"][:, None].to(x.dtype)
     y = y.reshape(b, t, d_in)
     y = rms_norm(y * F.silu(z), params["norm_scale"])

@@ -10,15 +10,19 @@ are XLA einsums in the reference, not a Pallas kernel, so here they are
 ``torch.bmm``.
 
 The group and expert-shard dimensions of the reference's dispatch buffer
-(``(groups, expert_shards, e_local * cap + 1, D)``) are kept, so a patched
-``_dispatch_groups`` runs the group-local dispatch as the reference's does;
-on one device both counts are 1 (the mesh rules are ROADMAP A.18.8).
+(``(groups, expert_shards, e_local * cap + 1, D)``) are kept, and both
+counts are read from the active virtual mesh (``parallel/api.py``), as the
+reference reads its mesh: under one, each group dispatches its own tokens
+at its own capacity; without one both counts are 1.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.models.common import ACT, dense_init
+from repro_torch.parallel.api import _ACTIVE, axis_size
 
 # a dispatch of at most this many (token, k) assignments takes capacity n
 # (dropless): decode and small batches never drop (``repro/models/mlp.py``)
@@ -99,13 +103,15 @@ def _route(router_w: torch.Tensor, x_flat: torch.Tensor, m):
 
 def _dispatch_groups(batch: int) -> int:
     """Token groups for shard-local dispatch: one per data shard of the
-    mesh's ``moe_groups`` axes (``gcd(dp, batch)``); one on one device."""
-    return 1
+    active mesh's ``moe_groups`` axes, ``gcd(dp, batch)``, as the
+    reference's; one without a mesh.  Capacity, queue positions and drops
+    are per group."""
+    return math.gcd(axis_size(_ACTIVE.rules.get("moe_groups")), batch)
 
 
 def _expert_shards() -> int:
-    """Shards of the ``experts`` axis; one on one device."""
-    return 1
+    """Shards of the active mesh's ``experts`` axis; one without a mesh."""
+    return axis_size(_ACTIVE.rules.get("experts"))
 
 
 def moe_capacity(n: int, m) -> int:

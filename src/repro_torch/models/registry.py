@@ -70,18 +70,22 @@ class ArchBundle:
     loss_fn: Callable[..., torch.Tensor]       # (params, batch, *, remat, ...)
     input_specs: Callable[[ShapeConfig], dict]
 
-    def decode_fn(self, params, token, caches, seq_sharded=False):
+    def decode_fn(self, params, token, caches, seq_sharded=None):
         """(params, (B, 1) tokens, caches) -> (fp32 logits (B, 1, V), caches),
-        the caches written in place."""
+        the caches written in place; ``seq_sharded`` takes the flash-decode
+        form (``decode_step``'s ``seq_sharded_cache``).  The reference's
+        encoder-decoder bundle takes no ``seq_sharded``, so Whisper's raises
+        its ``TypeError`` for one."""
         if self.cfg.encoder_decoder:
             from repro_torch.models.whisper import whisper_decode_step
 
-            if seq_sharded:
-                raise NotImplementedError("sequence-sharded decode: ROADMAP A.18.8")
+            if seq_sharded is not None:
+                raise TypeError("decode_fn() got an unexpected keyword argument 'seq_sharded'")
             return whisper_decode_step(params, token, caches, self.cfg)
         from repro_torch.models.lm import decode_step
 
-        return decode_step(params, token, caches, self.cfg, seq_sharded_cache=seq_sharded)
+        return decode_step(params, token, caches, self.cfg,
+                           seq_sharded_cache=bool(seq_sharded))
 
     def make_caches(self, batch: int, max_seq: int, device=None) -> list:
         """Zeroed caches on the bundle's device (or ``device``): an

@@ -125,3 +125,31 @@ def test_every_reference_arch_resolves_and_no_roadmap_item_is_left():
             assert cfg.name == name
         arch = treg.get_arch(name, reduced=True, device="cpu")
         assert arch.cfg.encoder_decoder == (name == "whisper-medium")
+
+
+def _module_names(path: str) -> list[str]:
+    """The top-level functions, classes and assigned names a module's
+    source defines, the private ones included."""
+    tree = ast.parse(open(path).read(), path)
+    names = []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.append(node.target.id)
+    return names
+
+
+@pytest.mark.parametrize("mod", ["api", "sharding"])
+def test_parallel_modules_define_every_reference_name(mod):
+    """``repro/parallel/api.py`` and ``sharding.py`` (ROADMAP A.18.8):
+    every name the reference's module defines, its tables and the
+    ``_ACTIVE`` context the MoE dispatch reads included, is the port's."""
+    port = importlib.import_module(f"repro_torch.parallel.{mod}")
+    names = _module_names(os.path.join(REPO, "src", "repro", "parallel", f"{mod}.py"))
+    assert {"logical_spec", "constrain"} <= set(names) or {"param_logical_tree",
+                                                           "cache_shardings"} <= set(names)
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, f"repro_torch.parallel.{mod} lacks {missing}"

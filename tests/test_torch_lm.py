@@ -9,7 +9,8 @@ keys), the same function.
   chunk) and its gradients, remat ``none`` and ``full``, within 1e-5;
 - 3 steps of the LM ``make_train_step`` (AdamW, ``grad_accum`` 1 and 2)
   against JAX's, with ``test_torch_train.py``'s bar and AdamW caveat;
-- the launcher's LM mode on the CPU, and the surfaces that raise.
+- the launcher's LM mode on the CPU; remat "dots" runs, and ``seq_axis`` on
+  an attention model raises (ROADMAP C.17).
 """
 import dataclasses
 import os
@@ -36,9 +37,11 @@ from repro_torch.data import synthetic as tsyn
 from repro_torch.interop import lm_params_from_jax
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+from repro_torch.launch.mesh import make_virtual_mesh
 from repro_torch.models import lm as tlm
 from repro_torch.models import registry as treg
 from repro_torch.optim.optimizers import tree_leaves
+from repro_torch.parallel.api import sharding_ctx
 from repro_torch.train.trainer import lm_value_and_grad, make_train_step
 
 ATOL = 1e-5          # apply_lm, loss and every grad leaf
@@ -280,8 +283,8 @@ def test_lm_launcher_runs_on_cpu():
 def test_lm_surfaces_that_are_not_ported_raise():
     # DeepSeek-V3 (A.18.4) and Qwen2-VL (A.18.5) resolve now
     # (tests/test_torch_deepseek.py and test_torch_vlm.py hold them against
-    # JAX); remat "dots" (A.18.9) and the sequence-sharded mixers (A.18.8)
-    # still raise
+    # JAX); remat "dots" (A.18.9) runs (tests/test_torch_remat_dots.py), and
+    # the sequence-sharded forward (A.18.8) refuses attention layers (C.17)
     assert treg.load_config("deepseek-v3-671b").mla is not None
     assert treg.load_config("qwen2-vl-2b").mrope_sections == (16, 24, 24)
     with pytest.raises(ValueError, match="unknown arch"):
@@ -294,10 +297,10 @@ def test_lm_surfaces_that_are_not_ported_raise():
     logits, out = arch.decode_fn(p, tokens[:, :1], caches)
     assert logits.shape == (1, 1, TCFG.vocab) and logits.dtype == torch.float32
     assert out[0] is caches[0] and caches[0].lengths.tolist() == [1]
-    with pytest.raises(NotImplementedError, match="dots"):
-        tlm.apply_lm(p, tokens, TCFG, remat="dots")
-    with pytest.raises(NotImplementedError, match="A.18"):
-        tlm.apply_lm(p, tokens, TCFG, seq_axis="seq")
+    assert torch.equal(tlm.apply_lm(p, tokens, TCFG, remat="dots"), tlm.apply_lm(p, tokens, TCFG))
+    with sharding_ctx(make_virtual_mesh({"seq": 2}, "cpu")):
+        with pytest.raises(ValueError, match=r"layer 0 is attention.*C\.17"):
+            tlm.apply_lm(p, tokens, TCFG, seq_axis="seq")
     # M-RoPE runs: at the default positions (three arange streams) it is
     # plain RoPE, so the forward keeps its bits
     mrope = tlm.apply_lm(p, tokens, dataclasses.replace(TCFG, mrope_sections=(2, 3, 3)))

@@ -36,10 +36,12 @@ from repro.serve import engine as jeng
 from repro_torch.configs import mamba2_780m as tmamba_cfg
 from repro_torch.configs import qwen2_7b as tqwen_cfg
 from repro_torch.interop import lm_caches_from_jax, lm_params_from_jax
+from repro_torch.launch.mesh import make_virtual_mesh
 from repro_torch.models import lm as tlm
 from repro_torch.models import registry as treg
 from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.models.mamba2 import MambaState
+from repro_torch.parallel.api import sharding_ctx
 from repro_torch.serve import engine as teng
 
 ATOL = 1e-5          # tests/test_torch_lm.py: apply_lm, loss and every grad leaf
@@ -215,12 +217,28 @@ def test_caches_and_specs():
 
 
 def test_decode_raises_for_the_unported_decode_paths():
+    """The sequence-sharded decode (A.18.8) runs: on 2 shards of the
+    ``seq_shard`` axis, 6 steps from two slots, the logits and caches of the
+    unsharded decode (tests/test_torch_seq_shard.py holds the attention
+    against JAX's).  Whisper's bundle, as the reference's, takes no
+    ``seq_sharded``: a ``TypeError``."""
     _, tcfg = CFGS["qwen2"]
     arch = treg.bundle_from_cfg(tcfg, "cpu")
     _, tp = _params("qwen2")
-    with pytest.raises(NotImplementedError, match="A.18.8"):
-        arch.decode_fn(tp, torch.zeros((1, 1), dtype=torch.int32), arch.make_caches(1, 4),
-                       seq_sharded=True)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, tcfg.vocab, (2, 6))
+                              .astype(np.int32))
+    plain, sharded = arch.make_caches(2, 8), arch.make_caches(2, 8)
+    for t in range(tokens.shape[1]):
+        want, _ = arch.decode_fn(tp, tokens[:, t:t + 1], plain)
+        with sharding_ctx(make_virtual_mesh({"model": 2}, "cpu")):
+            got, _ = arch.decode_fn(tp, tokens[:, t:t + 1], sharded, seq_sharded=True)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    for a, b in zip(plain, sharded):
+        for x, y in zip(a, b):
+            torch.testing.assert_close(y, x, rtol=0, atol=1e-5)
+    wsp = treg.get_arch("whisper-medium", reduced=True, device="cpu")
+    with pytest.raises(TypeError, match="seq_sharded"):
+        wsp.decode_fn(wsp.init(0), tokens[:1, :1], wsp.make_caches(1, 4), seq_sharded=True)
 
 
 # ---------------------------------------------------------------------------

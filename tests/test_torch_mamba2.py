@@ -12,7 +12,8 @@ take their plain versions.
   (``tests/test_torch_lm.py``'s bar);
 - 3 steps of the LM ``make_train_step`` against JAX's, step from step,
   with ``tests/test_torch_lm.py``'s bar and AdamW caveat;
-- the launcher's Mamba2 mode on the CPU, and the surfaces that raise.
+- the launcher's Mamba2 mode on the CPU; the decode step and the
+  sequence-sharded block and forward run.
 """
 import dataclasses
 import os
@@ -42,10 +43,12 @@ from repro_torch.data import synthetic as tsyn
 from repro_torch.interop import lm_params_from_jax
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm
 from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
+from repro_torch.launch.mesh import make_virtual_mesh
 from repro_torch.models import lm as tlm
 from repro_torch.models import mamba2 as tmamba
 from repro_torch.models import registry as treg
 from repro_torch.optim.optimizers import tree_leaves
+from repro_torch.parallel.api import sharding_ctx
 from repro_torch.train.trainer import lm_value_and_grad, make_train_step
 
 ATOL = 1e-5          # tests/test_torch_lm.py: apply_lm, loss and every grad leaf
@@ -126,8 +129,11 @@ def test_seq_halo_conv1d_unsharded_is_causal():
     y2 = seq_halo_conv1d(x2, w, b, axis=None)
     torch.testing.assert_close(y[:, :10], y2[:, :10], rtol=1e-5, atol=0)
     assert not torch.allclose(y[:, 10:], y2[:, 10:])
-    with pytest.raises(NotImplementedError, match="A.18"):
-        seq_halo_conv1d(x, w, b, axis="seq")
+    # sharded over 4 shards of the "seq" axis (A.18.8), each shard's halo
+    # from the one before: the unsharded conv, causal as it
+    with sharding_ctx(make_virtual_mesh({"seq": 4}, "cpu")):
+        ys = seq_halo_conv1d(x.view(2, 4, 4, 8), w, b, "seq", seq_dim=2, shard_dim=1)
+    torch.testing.assert_close(ys.reshape(2, 16, 8), y, rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +371,13 @@ def test_mamba_surfaces_that_are_not_ported_raise():
     y, out = tmamba.mamba_decode(mp, torch.ones((1, 1, TCFG.d_model)), state, TCFG)
     assert y.shape == (1, 1, TCFG.d_model) and out is state and state.length.tolist() == [1]
     assert bool(state.ssm.any()) and bool(state.conv[:, -1].any())
-    with pytest.raises(NotImplementedError, match="A.18"):
-        tmamba.mamba_block(mp, torch.zeros((1, 32, TCFG.d_model)), TCFG, seq_axis="seq")
-    with pytest.raises(NotImplementedError, match="A.18"):
-        tlm.apply_lm(p, torch.zeros((1, 32), dtype=torch.int32), TCFG, seq_axis="seq")
+    # the sequence-sharded block and forward run (A.18.8) and match the
+    # unsharded ones (tests/test_torch_seq_shard.py holds them against JAX)
+    u = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 32, TCFG.d_model))
+                         .astype(np.float32))
+    tokens = torch.arange(32, dtype=torch.int32)[None] % TCFG.vocab
+    with sharding_ctx(make_virtual_mesh({"seq": 2}, "cpu")):
+        y = tmamba.mamba_block(mp, u, TCFG, seq_axis="seq")
+        h = tlm.apply_lm(p, tokens, TCFG, seq_axis="seq")
+    torch.testing.assert_close(y, tmamba.mamba_block(mp, u, TCFG), rtol=0, atol=1e-5)
+    torch.testing.assert_close(h, tlm.apply_lm(p, tokens, TCFG), rtol=0, atol=1e-5)
