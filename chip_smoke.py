@@ -70,9 +70,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the kernel's and the plain version's distances from an fp64 evaluation,
    the kernel within ``FA_FP64_FACTOR`` of the plain version's;
 7. train Qwen2-7B at full width, 12 of its 28 layers (bf16, random weights
-   from seed 0), AdamW (``TrainConfig`` defaults, no warmup), remat
+   from seed 0), AdamW (``TrainConfig`` defaults but ``CAPTURE_WARMUP``
+   warmup steps), remat
    "full": global batch 4 x 2048 tokens in 2 microbatches from
-   ``synth_batch``, 3 steps through ``make_train_step`` and
+   ``synth_batch``, 4 steps through ``make_train_step`` and
    ``run_training``.  Checks the B4 and B6 launch counts against the
    code's (every B4 launch on a tensor-core instance, B6's launches by
    instance summing to its count), ``restarts`` 0,
@@ -101,7 +102,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    function);
 10. train Mamba2-780m at full width and full depth (48 layers, bf16, random
    weights from seed 0), as phase 7: global batch 4 x 4096 tokens in 2
-   microbatches, 3 AdamW steps; B5 and B6 launch counts against the code's
+   microbatches, 4 AdamW steps; B5 and B6 launch counts against the code's
    (``lm_launches_per_microbatch``; B5's and B6's by instance, every B5
    launch a ``wgmma_bf16`` one), ``restarts`` 0, finite losses, the
    step-1 loss against a forward through the plain B5 and B6.  Prints the
@@ -335,7 +336,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``VL_FAULTS`` over it (sections permuted, height and width swapped,
    patches not substituted), beside vs alone; (b) trained as phase 7 at
    full depth, 4 x 2048 tokens (512 of them patches) in 2 microbatches,
-   bf16, AdamW, 3 steps; (c) served at full depth, ``VL_SERVE_REQUESTS``
+   bf16, AdamW, 4 steps; (c) served at full depth, ``VL_SERVE_REQUESTS``
    text prompts; (d) both launchers with the id;
 24. Whisper-medium of ROADMAP A.18.6 (``whisper_phase``: the encoder-
    decoder, cross-attention) at full width, 24 + 24 layers: (a) fp32, noise
@@ -346,7 +347,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    C.15), within ``DECODE_BAR``, the planted faults of ``WHISPER_FAULTS``
    over it (cross K/V from the decoder's states, a causal encoder, the
    sinusoid dropped); (b) trained as phase 7, 4 x (2048 frames, 512 tokens)
-   in 2 microbatches, bf16, AdamW, 3 steps (B4 in three modes: the
+   in 2 microbatches, bf16, AdamW, 4 steps (B4 in three modes: the
    encoder's non-causal, the decoder's causal, the cross-attention's 512
    queries against 2048 keys); (c) served at full depth as the reference's
    ``_lm_main`` serves it, token prompts against zeroed cross K/V; (d) both
@@ -373,8 +374,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    full width, ``DOTS_DEPTH`` layers, bf16, one microbatch of loss and grads
    under "none", "dots" and "full": "dots" bit for bit "none"'s, the peaks
    ordered none > dots > full, the saved tensors and bytes, B4 and B6
-   launches (the recomputation included) as the code counts.  The
-   ``{"kernels": ...}`` line's launches include phases 12's to 26's.
+   launches (the recomputation included) as the code counts;
+27. the captured training step and decode of ROADMAP A items 1 and 1b
+   (``capture_train_step``, ``ServeEngine``'s graphs).  Each part runs
+   where its cell's model already lies: (c) in every LM training cell of
+   phases 7, 10 and 20-24(b) - which take ``CAPTURE_WARMUP`` of their 4
+   steps as warmup, so the LR differs from step to step - the eager run's
+   final state (``state_checksums``, per leaf) and losses are held bit for
+   bit against the same run captured from a re-init from seed 0
+   (``lm_capture_run``: two eager warm steps, one
+   capture, replays), with the launches from the host (the warm steps and
+   the capture: none while replaying) and the graph's (the code's per
+   step), event and host step ms eager and replayed, the idle shares
+   against the cell's profiled device work (a twin at a cut depth,
+   ``CAPTURE_TRAIN_DEPTH``, has none), peaks and pool bytes
+   (``{"capture_train": ...}``); (d) every
+   serving drive of phases 19-24 decodes through the engine's graphs - B6
+   counted as each graph's launches at its capture times its replays, none
+   from the host - and ``decode_compare`` serves ``CAPTURE_DECODE_PROMPTS``
+   through an eager and a captured engine, the last request admitted
+   beside busy slots: the same tokens, tick ms, time to first token,
+   graphs and pool bytes (``{"capture_decode": ...}``), and for Whisper
+   C.18 on the card (idle slots ticked past the 8192-row position table, no
+   device-side assert).  After phase 26: (a) phase 5's plan with int8 error
+   feedback over ``CAPTURE_CNN_STEPS`` steps eager and captured - losses,
+   params, momenta, counters and EF bit for bit, the graph's launches (24
+   B1, 22 B2, 24 B3 a step) x replays, a planted stale step counter that
+   the check must reject (``capture_cnn_phase``); (b) the training launcher
+   under ``ELASTIC_CAPTURE_FAULTS`` (a drop that replans: a second graph; a
+   failed step restored into the graph's state) against the same argv
+   eager: the last checkpoints byte for byte (``capture_elastic_phase``);
+   (e) the phase's and the run's seconds.  The ``{"kernels": ...}`` line's
+   launches include phases 12's to 27's.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -449,7 +480,7 @@ TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_LR = 8, 2, 3, 1e-3
 BF16_PEAK_FLOPS = 989e12
 # LM phases: Qwen2-7B at full width, 12 of 28 layers (the deepest cut whose
 # bf16 params, fp32 grad accumulators and fp32 AdamW moments fit 80 GB)
-LM_ARCH, LM_DEPTH, LM_SEQ, LM_BATCH, LM_ACCUM, LM_STEPS = "qwen2-7b", 12, 2048, 4, 2, 3
+LM_ARCH, LM_DEPTH, LM_SEQ, LM_BATCH, LM_ACCUM, LM_STEPS = "qwen2-7b", 12, 2048, 4, 2, 4
 # The step-1 loss of the bf16 run against a bf16 forward through the plain
 # versions of B4 and B6: the two differ only in those two functions' bf16
 # roundings, so a loss near ln(152064) ~ 11.9 agrees to far better than this.
@@ -502,7 +533,7 @@ RMS_COLD_FACTOR = 4
 # Mamba phases: Mamba2-780m at full width and full depth (48 layers), the
 # repo's train_4k sequence length
 MAMBA_ARCH, MAMBA_DEPTH, MAMBA_SEQ, MAMBA_BATCH, MAMBA_ACCUM, MAMBA_STEPS = \
-    "mamba2-780m", 48, 4096, 4, 2, 3
+    "mamba2-780m", 48, 4096, 4, 2, 4
 MAMBA_GRAD_DEPTH, MAMBA_GRAD_SEQ = 2, 1024     # phase 11: 4 chunks of 256, one sequence
 SSD_CASES = [                # tests/test_kernels.py:456: b, t, h, p, g, n, chunk
     (2, 128, 4, 16, 2, 8, 32),
@@ -683,6 +714,41 @@ ELASTIC_DROP_FAULTS = "drop:jetson@2"
 ELASTIC_LAUNCHER_FAULTS = "drop:jetson@1,slow:0.2@2,ckpt-crash@2,corrupt@3"
 ELASTIC_LM_SEQ, ELASTIC_LM_BATCH, ELASTIC_LM_ACCUM, ELASTIC_LM_STEPS = 256, 4, 2, 4
 
+# Phase 27: the captured training step and decode (ROADMAP A items 1, 1b).
+# Every LM training cell (phases 7, 10, 20-24(b)) takes CAPTURE_WARMUP
+# warmup steps of its 4, so the LR changes at every step but at the
+# warmup's end, and its eager run is then held bit for bit against the same
+# run captured (``lm_capture_run``, 27(c)); every served config's drive
+# (phases 19-24) is captured, and ``decode_compare`` (27(d)) serves
+# CAPTURE_DECODE_PROMPTS / CAPTURE_DECODE_NEW through an eager and a
+# captured engine.  27(a) is phase 5's plan over CAPTURE_CNN_STEPS steps with
+# int8 error feedback, its planted fault a stale step counter at
+# CAPTURE_FAULT_STEP (a step whose LR differs from the one before); 27(b) the
+# launcher under ELASTIC_CAPTURE_FAULTS (a drop: a new graph; a failed
+# step: a restore into the graph's state).
+CAPTURE_WARMUP = 3
+CAPTURE_CNN_STEPS = 6
+CAPTURE_FAULT_STEP = 4
+CAPTURE_DECODE_PROMPTS = (6, 10, 4, 8, 6)
+CAPTURE_DECODE_NEW = (4, 12, 12, 12, 6)     # request 4 takes request 0's slot beside 1-3
+ELASTIC_CAPTURE_STEPS = 9
+ELASTIC_CAPTURE_FAULTS = "drop:3@3,fail@6"
+CHECKSUM_CHUNKS = 64
+# 27(c)'s depth for the cells whose captured step does not fit the card at
+# the cell's own depth (measured on an H100 80GB HBM3 at 700 W): a captured
+# step peaked 0-6 GB above its eager twin; the captured CodeQwen1.5-7B ran
+# out of memory at 17, 15 and (in one run of two) 14 layers, Command-R 35B
+# at 3, Mixtral-8x22B at 3 (eager peak 68.7 GB) and Jamba-v0.1-52B at 5 (its
+# eager twin at 4, two MoE layers as at 5, after it in the same process).
+# The twins run at the depth given, beside the cell's eager run at its own;
+# a depth that still does not fit steps down a layer.
+CAPTURE_TRAIN_DEPTH = {"codeqwen1.5-7b": 13, "command-r-35b": 2, "mixtral-8x22b": 2,
+                       "jamba-v0.1-52b": 3}
+CAPTURE_EXTRA_REPLAYS = 2       # timed replays past the compared steps (27(c))
+# launches the captured runs' checks executed (warm steps + graphs x replays),
+# by kernel: added to the kernels line
+CAPTURED_LAUNCHES: dict = {}
+
 # Phase 19: LM serving (``lm_serve_phase``).  The slot engine at full width
 # and full depth, bf16, seed-0 params: LM_SERVE_REQUESTS prompts of
 # LM_SERVE_PROMPT tokens (numpy's default_rng(SEED)), LM_SERVE_NEW greedy
@@ -720,7 +786,7 @@ INIT_PEAK_SLACK = 1.05
 # depth with CONFIG_SERVE_TRAFFIC.
 DENSE_ARCHS = ("stablelm-1.6b", "codeqwen1.5-7b", "command-r-35b")
 DENSE_TRAIN_DEPTH = {"stablelm-1.6b": 24, "codeqwen1.5-7b": 17, "command-r-35b": 3}
-DENSE_TRAIN_STEPS = 3
+DENSE_TRAIN_STEPS = 4
 DENSE_NOISE = 0.3
 # the planted fault of each config's decode: decode rotates the whole head
 # (ignores rope_pct), drops b_v (not b_k: a key bias shifts every logit of a
@@ -748,7 +814,7 @@ MOE_ARCHS = ("mixtral-8x22b", "jamba-v0.1-52b")
 MOE_CHECK_DEPTH = {"mixtral-8x22b": 2, "jamba-v0.1-52b": 5}
 MOE_TRAIN_DEPTH = {"mixtral-8x22b": 3, "jamba-v0.1-52b": 5}
 MOE_SERVE_DEPTH = {"mixtral-8x22b": 13, "jamba-v0.1-52b": 16}
-MOE_TRAIN_STEPS = 3
+MOE_TRAIN_STEPS = 4
 MOE_OPTIMIZER = "adafactor"
 MOE_STATE_BYTES = 8
 MOE_FAULTS = {"mixtral-8x22b": ("unnormalised_topk", "next_expert"),
@@ -763,7 +829,7 @@ FA_WINDOW_SEQ = 8192
 # remat full, AdamW, 3 steps.  The decode checks are fp32 at full depth.
 VL_ARCH, WHISPER_ARCH = "qwen2-vl-2b", "whisper-medium"
 VL_SEQ = 2048
-VL_STEPS = 3
+VL_STEPS = 4
 # Qwen2-VL's decode check: LM_SERVE_FORCED tokens, the first VL_GRID^2 of
 # them an image's patch embeddings at one temporal position, its grid's
 # rows and columns on the height and width streams, then text from the
@@ -812,7 +878,7 @@ FA_VL_WHISPER_SHAPES = [
 # head's and the embedding table.  (d) Both launchers with the id.
 DS_ARCH = "deepseek-v3-671b"
 DS_CHECK_DEPTH, DS_TRAIN_DEPTH, DS_SERVE_DEPTH = 4, 3, 4
-DS_TRAIN_STEPS = 3
+DS_TRAIN_STEPS = 4
 DS_GRAD_SEQ = 2048
 # the decode side's planted faults: q absorbed through w_uv in place of
 # w_uk (the same shape at 128 / 128), k_pe written to the cache unrotated,
@@ -2695,9 +2761,12 @@ def named_leaves(tree, prefix=""):
 
 def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     """Phase 7 (Qwen2-7B, 12 layers), 10 (Mamba2-780m, 48 layers), 20 (the
-    dense configs) or 21 (the MoE configs): full width, bf16, ``run.steps``
-    steps of ``run.optimizer``, the config cut to its first ``run.depth``
-    layers.  Returns the launch count of each kernel in the training run, the
+    dense configs), 21 (the MoE configs), 22-24 (DeepSeek-V3, Qwen2-VL,
+    Whisper): full width, bf16, ``run.steps`` steps of ``run.optimizer``
+    with CAPTURE_WARMUP warmup steps, the config cut to its first
+    ``run.depth`` layers; then 27(c): the same run captured
+    (``lm_capture_run``), bit for bit.  Returns the launch count of each
+    kernel in the eager training run, the
     params, the params of one layer of each kind the run holds, the run's
     peak memory, and for an MoE config the share of (token, k) assignments
     its step-1 forward dropped by capacity."""
@@ -2722,7 +2791,8 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     cfg = dataclasses.replace(load_config(run.arch), n_layers=run.depth)
     arch = bundle_from_cfg(cfg, dev)
     pcfg = ParallelConfig(grad_accum=run.accum, remat="full")
-    tcfg = TrainConfig(warmup=0, steps=run.steps, seed=SEED, optimizer=run.optimizer)
+    tcfg = TrainConfig(warmup=CAPTURE_WARMUP, steps=run.steps, seed=SEED,
+                       optimizer=run.optimizer)
     specs = arch.input_specs(ShapeConfig("smoke", run.seq, run.batch, "train"))
 
     def make_batch(step):
@@ -2775,6 +2845,9 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     losses = [float(m["loss"]) for m in logged]
     gnorms = [float(m["grad_norm"]) for m in logged]
     want = {k: v * run.accum * run.steps for k, v in per_mb.items()}
+    # the eager run's end, for 27(c)'s captured twin
+    eager = {"sums": state_checksums(last["state"]), "losses": losses, "step_ms": step_ms,
+             "host_ms": [t * 1e3 for t in report.step_times], "peak": peak}
     print(f"{run.key}: {cfg.name} {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, trained "
           f"{report.steps_done} steps in {run_s:.1f} s, restarts {report.restarts}, "
           f"launches {launches}, losses {losses}")
@@ -2860,6 +2933,9 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     del params0
     torch.cuda.empty_cache()
 
+    eager["device_ms"] = dev_ms
+    capture = lm_capture_run(dev, smi, run, cfg, arch, pcfg, tcfg, make_batch, per_mb, eager)
+
     tokens = run.batch * run.seq
     print(json.dumps({run.key: {
         "arch": cfg.name, "layers": cfg.n_layers, "params": n_params, "dtype": cfg.dtype,
@@ -2878,7 +2954,7 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     return {"launches": launches, "params": n_params, "kind_params": kind_params,
             "peak_mem_bytes": peak, "moe_dropped_share": dropped,
             "step_ms_median": med, "tokens_per_s": tokens / (med / 1e3), "losses": losses,
-            "step1_loss_plain_kernels": plain_loss}
+            "step1_loss_plain_kernels": plain_loss, "capture": capture}
 
 
 def lm_grad_phase(dev, run: LMRun, fault, must_fail, note: str) -> dict:
@@ -3837,6 +3913,23 @@ def lm_serve_drive(dev, smi: str, name: str, depth=None, requests: int = LM_SERV
     done = eng._finished
     per_call = b6_per_decode_call(cfg)
     want = per_call * (eng.prefill_tokens + eng.decode_calls)
+    if eng.capture:
+        # a replay launches no Python: the drive's launches are each graph's
+        # (counted at its capture, before the drive) times its replays
+        graphs = eng.graph_launches
+        prefill = [graphs[f"prefill/{i}"] for i in range(LM_SERVE_SLOTS)]
+        check(launches == 0 and others == 0,
+              f"{name}: {launches} B6 and {others} B4/B5 launches from the host while replaying")
+        check(graphs["tick"].get("rmsnorm", 0) == per_call
+              and all(g == graphs["tick"] for g in prefill)
+              and not any(k.startswith(("flash", "ssd")) for k in graphs["tick"]),
+              f"{name}: graph launches {graphs} != {per_call} B6 a decode call")
+        check(eng.replays == {"tick": eng.decode_calls, "prefill": eng.prefill_tokens},
+              f"{name}: replays {eng.replays}")
+        calls = eng.decode_calls + eng.prefill_tokens
+        launches = graphs["tick"].get("rmsnorm", 0) * calls
+        by_instance = {k.split("/", 1)[1]: v * calls for k, v in graphs["tick"].items()
+                       if k.startswith("rmsnorm/") and v}
     toks = sum(len(r.out_tokens) for r in done)
     print(f"{name} serve: {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, {len(done)} "
           f"requests, {toks} tokens in {wall_s:.2f} s ({toks / wall_s:.1f} tok/s), "
@@ -3862,7 +3955,9 @@ def lm_serve_drive(dev, smi: str, name: str, depth=None, requests: int = LM_SERV
     drive = {"requests": len(done), "prompt_tokens": sum(len(p) for p in prompts),
              "new_tokens": toks, "ticks": eng.decode_calls,
              "prefill_calls": eng.prefill_calls, "prefill_tokens": eng.prefill_tokens,
-             "wall_s": wall_s, "tokens_per_s": toks / wall_s}
+             "wall_s": wall_s, "tokens_per_s": toks / wall_s, "captured": eng.capture,
+             "graph_pool_bytes": sum(eng.graph_pool_bytes.values())}
+    decode_compare(dev, smi, name, cfg, arch, params)
 
     # one profiled window of ticks with every slot busy
     for rid, p in enumerate(prompts[:LM_SERVE_SLOTS]):
@@ -5437,6 +5532,517 @@ def remat_dots_phase(dev, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the captured training step and decode (ROADMAP A items 1, 1b)
+# ---------------------------------------------------------------------------
+
+
+def state_checksums(state) -> dict:
+    """Each leaf of a train state by path: a tensor's bits (viewed as an
+    integer of its width) summed as int64 over ``CHECKSUM_CHUNKS``
+    contiguous chunks, an int as it is - a position-sensitive digest that
+    holds no second copy of a full-width state."""
+    import torch
+
+    from repro_torch.ckpt.manager import map_with_path
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+
+    def leaf(path, x):
+        if isinstance(x, torch.Tensor):
+            bits = x.detach().reshape(-1).view(ints[x.element_size()])
+            out[path] = torch.stack([c.sum(dtype=torch.int64)
+                                     for c in bits.tensor_split(CHECKSUM_CHUNKS)]).cpu()
+        else:
+            out[path] = x
+
+    map_with_path(leaf, state)
+    return out
+
+
+def same_checksums(a: dict, b: dict) -> bool:
+    import torch
+
+    def equal(x, y):
+        if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
+            return bool(torch.equal(x, y))
+        return x == y
+
+    return list(a) == list(b) and all(equal(a[k], b[k]) for k in a)
+
+
+def kernel_totals(counts: dict) -> dict:
+    """The per-kernel entries of a ``kernel_launch_counts`` difference (its
+    ``name/instance`` entries left out)."""
+    return {k: v for k, v in counts.items() if "/" not in k and v}
+
+
+def lm_eager_twin(dev, run, arch, pcfg, tcfg, make_batch) -> dict:
+    """``run``'s eager steps on ``arch`` from seed 0, as ``lm_train_phase``
+    takes them: the final ``state_checksums``, losses, event and host step
+    ms and peak."""
+    import gc
+
+    import torch
+
+    from repro_torch.runtime.driver import DriverConfig, run_training
+    from repro_torch.train.trainer import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_state, body = make_train_step(arch, pcfg, tcfg)
+    events, losses, last = [], [], {}
+
+    def timed_step(state, batch):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = body(state, batch)
+        b.record()
+        events.append((a, b))
+        losses.append(float(m["loss"]))
+        last["state"] = state
+        return state, m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    report = run_training(init_state=init_state, train_step=timed_step, make_batch=make_batch,
+                          steps=run.steps, cfg=DriverConfig(max_restarts=0), seed=SEED)
+    torch.cuda.synchronize()
+    out = {"sums": state_checksums(last["state"]), "losses": losses,
+           "step_ms": [a.elapsed_time(b) for a, b in events],
+           "host_ms": [t * 1e3 for t in report.step_times],
+           "peak": torch.cuda.max_memory_allocated(dev)}
+    del last, init_state, body
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_capture_run(dev, smi: str, run, cfg, arch, pcfg, tcfg, make_batch, per_mb: dict,
+                   eager: dict) -> dict:
+    """Phase 27(c) for one LM cell (``lm_capture_pair``), at the cell's depth or,
+    where the captured step does not fit the card, at the deepest depth
+    whose captured step does, beside an eager twin at that depth (printed,
+    and in the line as ``layers``)."""
+    import gc
+
+    import torch
+
+    from repro_torch.models.registry import bundle_from_cfg
+
+    def cut(cfg, depth, why):
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+        print(f"27(c) {run.key}: {why}; eager and captured twins at {depth} layers")
+        arch = bundle_from_cfg(cfg, dev)
+        eager = lm_eager_twin(dev, run, arch, pcfg, tcfg, make_batch)
+        return cfg, arch, lm_launches_per_microbatch(cfg, pcfg.remat), eager
+
+    depth = CAPTURE_TRAIN_DEPTH.get(run.arch, cfg.n_layers)
+    if depth < cfg.n_layers:
+        cfg, arch, per_mb, eager = cut(
+            cfg, depth, f"the captured step does not fit at {cfg.n_layers} layers "
+                        f"(CAPTURE_TRAIN_DEPTH)")
+    while True:
+        try:
+            return lm_capture_pair(dev, smi, run, cfg, arch, pcfg, tcfg, make_batch, per_mb,
+                                   eager)
+        except torch.OutOfMemoryError as e:
+            msg = str(e).splitlines()[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(cfg.n_layers > 1, f"27(c) {run.key}: no depth's captured step fits")
+        cfg, arch, per_mb, eager = cut(cfg, cfg.n_layers - 1, f"the captured step does not fit "
+                                       f"at {cfg.n_layers} layers ({msg})")
+
+
+def lm_capture_pair(dev, smi: str, run, cfg, arch, pcfg, tcfg, make_batch, per_mb: dict,
+                    eager: dict) -> dict:
+    """One LM training cell captured: the same config, params (a
+    re-init from seed 0) and batches as the eager run of ``lm_train_phase``
+    (``eager``: its per-leaf ``state_checksums`` after the last step, its
+    losses, event and host step ms and peak), now through
+    ``capture_train_step``: WARM_RUNS eager steps, one
+    capture, a replay every later step.  Checks the final state's checksums
+    and every loss bit for bit against the eager run's, the launches the
+    host counted (the warm steps and the capture; none while replaying)
+    and the graph's (``per_mb`` x microbatches), then times
+    CAPTURE_EXTRA_REPLAYS more replays; the idle shares take the device
+    work of the cell's profiled eager step.  Prints the
+    ``{"capture_train": ...}`` line and adds the launches the run executed
+    (warm steps + graph x replays) to ``CAPTURED_LAUNCHES``."""
+    import gc
+
+    import torch
+
+    from repro_torch.runtime.driver import DriverConfig, run_training
+    from repro_torch.serve.exec_cache import WARM_RUNS, kernel_launch_counts
+    from repro_torch.train.trainer import capture_train_step, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_state, body = make_train_step(arch, pcfg, tcfg)
+    step = capture_train_step(body, dev)
+    events, losses, last = [], [], {}
+
+    def timed_step(state, batch):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = step(state, batch)
+        b.record()
+        events.append((a, b))
+        losses.append(float(m["loss"]))
+        last["state"] = state
+        return state, m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = kernel_launch_counts()
+    try:
+        report = run_training(init_state=init_state, train_step=timed_step,
+                              make_batch=make_batch, steps=run.steps,
+                              cfg=DriverConfig(max_restarts=0), seed=SEED)
+    except torch.OutOfMemoryError:
+        del step, body, init_state, last
+        raise
+    torch.cuda.synchronize()
+    host = kernel_totals({k: v - before.get(k, 0) for k, v in kernel_launch_counts().items()})
+    peak = torch.cuda.max_memory_allocated(dev)
+    sums = state_checksums(last["state"])
+    same = same_checksums(sums, eager["sums"])
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    per_step = {k: v * run.accum for k, v in per_mb.items() if v}
+    graph = kernel_totals(step.launches)
+    print(f"27(c) {run.key}: {cfg.n_layers} layers, captured {step.warm_steps} warm steps + "
+          f"{step.replays} replays; losses {losses} (eager {eager['losses']}); final state "
+          f"{'bit for bit' if same else 'DIFFERS from'} the eager run's; graph launches {graph}, "
+          f"host launches {host} (warm + capture {per_step} x {WARM_RUNS + 1})")
+    check(report.restarts == 0 and report.steps_done == run.steps, f"27(c) {run.key}: {report}")
+    check(step.warm_steps == WARM_RUNS and step.replays == run.steps - WARM_RUNS,
+          f"27(c) {run.key}: {step.warm_steps} warm steps, {step.replays} replays")
+    check(same and losses == eager["losses"],
+          f"27(c) {run.key}: the captured run's state or losses differ from the eager run's")
+    check(graph == per_step, f"27(c) {run.key}: graph launches {graph} != the code's {per_step}")
+    check(host == {k: v * (WARM_RUNS + 1) for k, v in per_step.items()},
+          f"27(c) {run.key}: launches from the host {host} beyond the warm steps and the capture")
+    executed = {k: v * (step.warm_steps + step.replays) for k, v in per_step.items()}
+    for k, v in executed.items():
+        CAPTURED_LAUNCHES[k] = CAPTURED_LAUNCHES.get(k, 0) + v
+    replays = step.replays
+    # more replays to time (the last run step's is the only pure one: the
+    # step before it also captured), then one profiled (the card alone)
+    state = last["state"]
+    for i in range(CAPTURE_EXTRA_REPLAYS):
+        timed_step(state, make_batch(run.steps + i))
+    torch.cuda.synchronize()
+    replayed = [a.elapsed_time(b) for a, b in events[WARM_RUNS + 1:]]
+    # a replay runs the eager step's kernels on the same shapes: its device
+    # work is the cell's profiled eager step's (a twin at a cut depth has no
+    # profile, and its idle shares are not measured)
+    dev_ms = eager.get("device_ms")
+    eager_steady = eager["step_ms"][WARM_RUNS:]
+    out = {
+        "arch": cfg.name, "layers": cfg.n_layers, "steps": run.steps, "warmup": tcfg.warmup,
+        "warm_steps": step.warm_steps, "replays": replays,
+        "capture_step_ms": step_ms[WARM_RUNS], "replays_timed": len(replayed),
+        "bitwise_equal_to_eager": same, "losses": losses[:run.steps],
+        "step_ms_cuda_events_eager": eager["step_ms"], "step_ms_cuda_events_captured": step_ms,
+        "step_ms_replays": replayed,
+        "step_ms_eager_steady_median": statistics.median(eager_steady),
+        "step_ms_replay_median": statistics.median(replayed),
+        "step_ms_host_eager": eager["host_ms"],
+        "step_ms_host_captured": [t * 1e3 for t in report.step_times],
+        "device_ms_eager_profile": dev_ms,
+        "idle_share_replay": (None if dev_ms is None
+                              else max(0.0, 1 - dev_ms / statistics.median(replayed))),
+        "idle_share_eager_steady": (None if dev_ms is None else
+                                    max(0.0, 1 - dev_ms / statistics.median(eager_steady))),
+        "peak_mem_bytes_eager": eager["peak"], "peak_mem_bytes_captured": peak,
+        "pool_bytes": step.pool_bytes, "graph_launches": graph, "launches_executed": executed,
+        "card": smi,
+    }
+    print(json.dumps({"capture_train": {run.key: out}}))
+    del step, body, init_state, last, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_compare(dev, smi: str, name: str, cfg, arch, params) -> dict:
+    """Phase 27(d) for one served config: the same requests (CAPTURE_DECODE_
+    PROMPTS tokens, CAPTURE_DECODE_NEW greedy tokens; LM_SERVE_SLOTS slots,
+    so the last request is admitted into a freed slot while the others
+    decode) through ``ServeEngine(capture=False)`` and the captured engine:
+    the same tokens, request for request; tick ms on events and the host
+    clock, time to first token (a request's admission to its first token),
+    the graphs and their pools.  For an encoder-decoder also C.18 on the
+    card: the captured engine's idle slots at DEC_POS_ROWS - 2 while slot 0
+    serves, ticked past the table's end, finite and with no device-side
+    assert.  Prints the ``{"capture_decode": ...}`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.whisper import DEC_POS_ROWS
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    from repro_torch.serve.exec_cache import kernel_launch_counts
+
+    rng = np.random.default_rng(SEED + 27)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in CAPTURE_DECODE_PROMPTS]
+    out, answers = {}, {}
+    for cap in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = ServeEngine(arch, params, batch=LM_SERVE_SLOTS, max_seq=LM_SERVE_MAX_SEQ,
+                          capture=cap)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        b6_before = kernel_launch_counts()["rmsnorm"]
+        for rid, (p, n) in enumerate(zip(prompts, CAPTURE_DECODE_NEW)):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=n))
+        admitted, first, beside = {}, {}, []
+        ev, host = [], []
+        while eng.queue or any(r is not None for r in eng.slots):
+            t_adm = time.perf_counter()
+            busy = [r.rid for r in eng.slots if r is not None]
+            free = {i for i, r in enumerate(eng.slots) if r is None}
+            eng._admit()
+            new = [eng.slots[i].rid for i in free if eng.slots[i] is not None]
+            for rid in new:
+                admitted[rid] = t_adm
+                if busy:
+                    beside.append(rid)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            live = [r for r in eng.slots if r is not None]
+            a.record()
+            h0 = time.perf_counter()
+            eng.tick()
+            host.append((time.perf_counter() - h0) * 1e3)
+            b.record()
+            b.synchronize()
+            ev.append(a.elapsed_time(b))
+            now = time.perf_counter()
+            for r in live:
+                if len(r.out_tokens) == 1:
+                    first[r.rid] = now
+        answers[cap] = {r.rid: r.out_tokens for r in eng._finished}
+        b6 = kernel_launch_counts()["rmsnorm"] - b6_before
+        if cap:
+            check(b6 == 0, f"27(d) {name}: {b6} B6 launches from the host while replaying")
+            b6 = eng.graph_launches["tick"].get("rmsnorm", 0) * (eng.decode_calls
+                                                                 + eng.prefill_tokens)
+        check(b6 == b6_per_decode_call(cfg) * (eng.decode_calls + eng.prefill_tokens),
+              f"27(d) {name}: B6 launches {b6}")
+        CAPTURED_LAUNCHES["rmsnorm"] = CAPTURED_LAUNCHES.get("rmsnorm", 0) + b6
+        ttft = [(first[k] - admitted[k]) * 1e3 for k in sorted(first)]
+        out["captured" if cap else "eager"] = {
+            "tick_ms_cuda_events_median": statistics.median(ev),
+            "tick_ms_host_median": statistics.median(host), "ticks": len(ev),
+            "ttft_ms": ttft, "ttft_ms_median": statistics.median(ttft),
+            "prefill_tokens": eng.prefill_tokens, "engine_build_s": build_s,
+            "graphs": len(eng.graphs), "pool_bytes": sum(eng.graph_pool_bytes.values()),
+            "replays": dict(eng.replays), "admitted_beside_busy_slots": beside,
+        }
+        if cap and cfg.encoder_decoder:
+            eng.submit(Request(rid=99, prompt=prompts[0][:4], max_new_tokens=8))
+            eng._admit()
+            for c in eng.caches:
+                c.attn.lengths[1:] = DEC_POS_ROWS - 2
+            for _ in range(4):
+                eng.tick()
+            torch.cuda.synchronize()
+            lengths = [int(x) for x in eng.caches[0].attn.lengths]
+            finite = bool(torch.isfinite(eng._logits).all())
+            out["c18"] = {"lengths": lengths, "finite": finite}
+            print(f"27(d) {name} C.18 on the card: idle slots ticked to positions {lengths[1:]} "
+                  f"past the {DEC_POS_ROWS}-row table beside slot 0 at {lengths[0]}: logits "
+                  f"finite {finite}, no device-side assert")
+            check(finite and min(lengths[1:]) > DEC_POS_ROWS, f"27(d) {name}: C.18 {out['c18']}")
+        del eng
+    same = answers[False] == answers[True]
+    e, c = out["eager"], out["captured"]
+    print(f"27(d) {name}: captured decode {'gives the same tokens as' if same else 'DIFFERS from'}"
+          f" eager for {len(answers[True])} requests (admitted beside busy slots: "
+          f"{c['admitted_beside_busy_slots']}); tick {e['tick_ms_cuda_events_median']:.2f} -> "
+          f"{c['tick_ms_cuda_events_median']:.2f} ms (events), ttft "
+          f"{e['ttft_ms_median']:.1f} -> {c['ttft_ms_median']:.1f} ms; {c['graphs']} graphs, "
+          f"{c['pool_bytes']} pool bytes")
+    check(same and sorted(answers[True]) == list(range(len(prompts))),
+          f"27(d) {name}: captured tokens {answers[True]} != eager {answers[False]}")
+    check(c["admitted_beside_busy_slots"] and c["graphs"] == LM_SERVE_SLOTS + 1
+          and e["graphs"] == 0, f"27(d) {name}: {c}")
+    out.update(same_tokens=same, card=smi)
+    print(json.dumps({"capture_decode": {name: out}}))
+    return out
+
+
+def capture_cnn_phase(dev, smi: str) -> dict:
+    """Phase 27(a): phase 5's network and plan (2x2 sync, hand-picked
+    groups, batch 8 in 2 microbatches, SGD) with int8 error feedback and
+    CAPTURE_WARMUP, CAPTURE_CNN_STEPS steps eager and captured from the same
+    init and batches: every loss, the params, momenta, counters and EF bit
+    for bit; a planted fault - a replay whose step counter was not advanced
+    (step CAPTURE_FAULT_STEP replays step CAPTURE_FAULT_STEP - 1's count) -
+    must fail that check.  Reports event-step ms (median of the replays)
+    against the eager steps', host ms, a profiled replay's idle share, the
+    graph's launches (the code's per step) x replays, pool bytes and peaks."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.tiling import Group
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.yolo import make_yolo_tiled_arch
+    from repro_torch.serve.exec_cache import WARM_RUNS, kernel_launch_counts
+    from repro_torch.train.trainer import capture_train_step, make_train_step
+
+    arch = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
+                                groups=[Group(*g) for g in _HAND], backend="cuda", device=dev)
+    pcfg = ParallelConfig(grad_accum=TRAIN_ACCUM)
+    tcfg = TrainConfig(lr=TRAIN_LR, optimizer="sgd", warmup=CAPTURE_WARMUP,
+                       steps=CAPTURE_CNN_STEPS, seed=SEED, grad_compression="int8")
+    make_batch = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch.target_shape(TRAIN_BATCH), SEED,
+                               dev)
+    batches = [make_batch(s) for s in range(CAPTURE_CNN_STEPS)]
+    per_mb, _ = launches_per_batch(arch.plan, TRAIN_BATCH // TRAIN_ACCUM)
+    per_step = {k: v * TRAIN_ACCUM for k, v in per_mb.items()}
+
+    def drive(captured: bool, fault: bool = False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        init_state, step = make_train_step(arch, pcfg, tcfg)
+        if captured:
+            step = capture_train_step(step, dev)
+        state = init_state(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = kernel_launch_counts()
+        losses, lrs, ev, host = [], [], [], []
+        for s, batch in enumerate(batches):
+            if fault and s == CAPTURE_FAULT_STEP:
+                state.step.sub_(1)          # the counter the last replay advanced, set back
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            h0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            host.append((time.perf_counter() - h0) * 1e3)
+            b.record()
+            b.synchronize()
+            ev.append(a.elapsed_time(b))
+            lrs.append(float(m["lr"]))
+        launched = kernel_totals({k: v - before.get(k, 0)
+                                  for k, v in kernel_launch_counts().items()})
+        return dict(state=state, step=step, losses=losses, lrs=lrs, ev=ev, host=host,
+                    launched=launched, peak=torch.cuda.max_memory_allocated(dev))
+
+    t0 = time.perf_counter()
+    eager = drive(False)
+    graph = drive(True)
+    step = graph["step"]
+    same = same_state(graph["state"], eager["state"])
+    glaunch = kernel_totals(step.launches)
+    print(f"27(a) CNN 2x2 sync, int8 EF, warmup {CAPTURE_WARMUP}, {CAPTURE_CNN_STEPS} steps: LRs "
+          f"{eager['lrs']}; losses eager {eager['losses']} captured {graph['losses']}; state "
+          f"{'bit for bit' if same else 'DIFFERS'}; graph launches {glaunch} x {step.replays} "
+          f"replays, host {graph['launched']}")
+    check(len(set(eager["lrs"])) == CAPTURE_CNN_STEPS - 1, f"27(a): LRs {eager['lrs']}")
+    check(same and graph["losses"] == eager["losses"] and graph["state"].ef is not None,
+          "27(a): the captured CNN run differs from the eager run")
+    check(step.warm_steps == WARM_RUNS and step.replays == CAPTURE_CNN_STEPS - WARM_RUNS,
+          f"27(a): {step.warm_steps} warm steps, {step.replays} replays")
+    check(glaunch == per_step, f"27(a): graph launches {glaunch} != the code's {per_step}")
+    check(graph["launched"] == {k: v * (WARM_RUNS + 1) for k, v in per_step.items()}
+          and eager["launched"] == {k: v * CAPTURE_CNN_STEPS for k, v in per_step.items()},
+          f"27(a): host launches {graph['launched']} / eager {eager['launched']}")
+    for k, v in per_step.items():
+        CAPTURED_LAUNCHES[k] = CAPTURED_LAUNCHES.get(k, 0) + v * (2 * CAPTURE_CNN_STEPS)
+
+    batch = batches[0]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        step(graph["state"], batch)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - h0) * 1e3
+    dev_ms = sum(device_ms_by_name(prof, 1).values())
+    check(dev_ms > 0, "27(a): the profiler saw no device time in a replay")
+    replay_ms = statistics.median(graph["ev"][WARM_RUNS:])
+    eager_ms = statistics.median(eager["ev"][WARM_RUNS:])
+    fault = drive(True, fault=True)
+    caught = not same_state(fault["state"].params, eager["state"].params)
+    print(f"27(a) planted: step {CAPTURE_FAULT_STEP} replays step {CAPTURE_FAULT_STEP - 1}'s "
+          f"count (LR {fault['lrs'][CAPTURE_FAULT_STEP]} for {eager['lrs'][CAPTURE_FAULT_STEP]}): "
+          f"the bitwise check {'fails, as it must' if caught else 'PASSES'}")
+    check(caught, "27(a): a replay with a stale step counter passed the bitwise check")
+    out = {"steps": CAPTURE_CNN_STEPS, "warmup": CAPTURE_WARMUP, "lrs": eager["lrs"],
+           "losses": graph["losses"], "bitwise_equal_to_eager": same,
+           "step_ms_cuda_events_eager": eager["ev"], "step_ms_cuda_events_captured": graph["ev"],
+           "step_ms_eager_steady_median": eager_ms, "step_ms_replay_median": replay_ms,
+           "step_ms_host_eager": eager["host"], "step_ms_host_captured": graph["host"],
+           "replay_device_ms": dev_ms, "replay_profiled_wall_ms": prof_wall,
+           "idle_share_replay": max(0.0, 1 - dev_ms / replay_ms),
+           "idle_share_eager_steady": max(0.0, 1 - dev_ms / eager_ms),
+           "graph_launches": glaunch, "replays": step.replays, "pool_bytes": step.pool_bytes,
+           "peak_mem_bytes_eager": eager["peak"], "peak_mem_bytes_captured": graph["peak"],
+           "planted_stale_counter_caught": caught, "s": time.perf_counter() - t0, "card": smi}
+    print(json.dumps({"capture_train": {"cnn": out}}))
+    del eager, graph, fault, step, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def capture_elastic_phase(dev, smi: str, root: str) -> dict:
+    """Phase 27(b): ``python -m repro_torch.launch.train`` on the card with
+    phase 5's plan (``--groups 4``), a checkpoint a step and
+    ELASTIC_CAPTURE_FAULTS: a device dropped (a replan onto the three
+    survivors: a new graph) and later a failed step (a restart from the
+    last checkpoint, copied into the graph's static state).  The same argv
+    with ``jit_step`` set to the eager step is the twin: both report
+    ``replans=1 restarts=1``, and their last checkpoints hold the same
+    bytes.  Prints the number of graphs captured."""
+    import torch
+
+    from repro_torch.launch import train as train_launcher
+
+    argv = ["--arch", "yolov2-tiled", "--grid", str(GRID[0]), "--input-hw", str(INPUT_HW[0]),
+            "--depth", "16", "--groups", "4", "--batch", str(TRAIN_BATCH), "--grad-accum",
+            str(TRAIN_ACCUM), "--optimizer", "sgd", "--lr", str(TRAIN_LR), "--steps",
+            str(ELASTIC_CAPTURE_STEPS), "--ckpt-every", "1", "--fault-schedule",
+            ELASTIC_CAPTURE_FAULTS]
+    t0 = time.perf_counter()
+    runs = {}
+    for label in ("eager", "captured"):
+        d = os.path.join(root, f"capture_{label}")
+        buf = io.StringIO()
+        swaps = [(train_launcher, "jit_step", lambda step, device: step)] if label == "eager" \
+            else []
+        with contextlib.redirect_stdout(buf), swapped(*swaps):
+            rc = train_launcher.main([*argv, "--ckpt-dir", d])
+        text = buf.getvalue()
+        print(text, end="")
+        last = os.path.join(d, f"step_{ELASTIC_CAPTURE_STEPS - 1:08d}")
+        check(rc == 0 and os.path.isdir(last), f"27(b) {label}: rc {rc}, no final checkpoint")
+        files = {f: open(os.path.join(last, f), "rb").read() for f in sorted(os.listdir(last))
+                 if f.endswith(".npy")}
+        graphs = int(text.split("step: ")[-1].split(" CUDA graphs")[0])
+        runs[label] = dict(text=text, files=files, graphs=graphs)
+    same = runs["eager"]["files"] == runs["captured"]["files"]
+    print(f"27(b) the launcher under {ELASTIC_CAPTURE_FAULTS}: {runs['captured']['graphs']} CUDA "
+          f"graphs captured (eager twin {runs['eager']['graphs']}); the last checkpoint's "
+          f"{len(runs['captured']['files'])} leaves {'the same bytes' if same else 'DIFFER'}")
+    for label, r in runs.items():
+        check("restarts=1 replans=1" in r["text"] and "replan (drop:3)" in r["text"],
+              f"27(b) {label}: replans and restarts")
+    check(same and runs["captured"]["graphs"] == 2 and runs["eager"]["graphs"] == 0,
+          f"27(b): captured {runs['captured']['graphs']} graphs, same bytes {same}")
+    torch.cuda.empty_cache()
+    return {"graphs": runs["captured"]["graphs"], "bitwise_equal_to_eager": same,
+            "s": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
 
@@ -5476,6 +6082,9 @@ def main() -> int:
     from repro_torch.models.yolo import make_yolo_tiled_arch
     from repro_torch.runtime.driver import run_serving
 
+    import tempfile
+
+    t_run = time.perf_counter()
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
@@ -6468,6 +7077,21 @@ def main() -> int:
     # -- 26. remat "dots" -------------------------------------------------------------
     dots = remat_dots_phase(dev, smi)
 
+    # -- 27. the captured training step and decode (27(c) ran in phases 7, 10 and
+    # 20-24(b), 27(d) in phases 19-24's serving) ------------------------------------
+    t27 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as root27:
+        cnn27 = capture_cnn_phase(dev, smi)
+        el27 = capture_elastic_phase(dev, smi, root27)
+    phase27_s = time.perf_counter() - t27
+    run_s = time.perf_counter() - t_run
+    print(f"phase 27 (a)-(b): {phase27_s:.1f} s; the whole run so far {run_s:.1f} s")
+    print(json.dumps({"capture_phase": {
+        "cnn_step_ms_eager_vs_replay": [cnn27["step_ms_eager_steady_median"],
+                                        cnn27["step_ms_replay_median"]],
+        "elastic_graphs": el27["graphs"], "elastic_bitwise": el27["bitwise_equal_to_eager"],
+        "phase27ab_s": phase27_s, "run_s": run_s, "card": smi}}))
+
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",
                      "src/repro/kernels/conv2d_tiled/kernel.py:140", rows,
@@ -6501,6 +7125,8 @@ def main() -> int:
                      mamba_launches["ssd_chunk_fwd"] + moe["ssd_chunk_fwd"]
                      + sp["ssd_chunk_fwd"], ssd_err),
     ]
+    for k in kernels:
+        k["launches"] += CAPTURED_LAUNCHES.get(k["name"], 0)
     check(all(k["launches"] > 0 for k in kernels), f"launches {[k['launches'] for k in kernels]}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,7 +2,9 @@
 (``repro/launch/serve.py``).  Both modes run on the card unless
 ``--device cpu`` is given.
 
-LM (default): the slot engine (``serve/engine.py``) on the reduced config
+LM (default): the slot engine (``serve/engine.py``; on the card its tick
+and prefill decode through CUDA graphs, the counterpart of the reference's
+jitted ``decode_fn``) on the reduced config
 of ``--arch``, as the reference's ``_lm_main``: seeded params, ``--requests``
 synthetic prompts of 4-11 tokens, greedy (or ``--temperature``) answers of
 ``--max-new`` tokens over ``--slots`` slots; prints each request's first
@@ -57,6 +59,8 @@ def _lm_main(args) -> int:
         print(f"req {r.rid}: prompt_len={len(r.prompt)} out={r.out_tokens[:8]}...")
     print(f"served {len(done)} requests, {toks} tokens in {dt:.2f}s ({toks/dt:.1f} tok/s) "
           f"on {arch.device}, arch {args.arch}")
+    print(f"decode: {len(engine.graphs)} CUDA graphs captured (the tick and a prefill a slot), "
+          f"replays {engine.replays}" if engine.capture else f"decode: eager on {arch.device}")
     return 0
 
 

@@ -40,6 +40,12 @@ live state; the LM path has no replan, so a drop there is fatal.
 with ``--resume auto`` a shared default directory would make every run
 resume from (or fail on) another run's checkpoint of another geometry.
 
+Where the reference jits the step (the tiled step, the step after a
+replan, the LM step), the port captures it as a CUDA graph on the card
+(``jit_step``: two eager warm steps, then one capture replayed every step;
+``train/trainer.py:capture_train_step``) and runs it eagerly on the CPU; a
+run ends with ``step: N CUDA graphs captured`` (or ``step: eager on cpu``).
+
 LM mode (every LM id of the reference): the reduced config unless
 ``--full``, ``--seq`` x ``--batch`` tokens a step from
 ``data.synthetic.synth_batch`` (the reference's stream; Qwen2-VL's batch
@@ -55,6 +61,17 @@ import numpy as np
 import torch
 
 TILED_ARCH = "yolov2-tiled"
+
+
+def jit_step(train_step, device):
+    """Where the reference jits the step: captured as a CUDA graph on the
+    card (``train/trainer.py:capture_train_step``), the eager step on the
+    CPU."""
+    from repro_torch.train.trainer import capture_train_step
+
+    if torch.device(device).type == "cuda":
+        return capture_train_step(train_step, device)
+    return train_step
 
 
 def _resolve_groups(spec: str, n_layers: int):
@@ -226,9 +243,10 @@ def _run_tiled(args) -> int:
     make_batch = make_batch_fn(args.batch, args.input_hw, arch.target_shape(args.batch),
                                args.seed, arch.mesh.device)
     replan = make_replan(arch, cluster, args.hw_profile, args.batch, pcfg, tcfg)
+    step = jit_step(train_step, arch.mesh.device)
     report = run_training(
         init_state=init_state,
-        train_step=train_step,
+        train_step=step,
         make_batch=make_batch,
         steps=args.steps,
         cfg=_driver_config(args),
@@ -238,7 +256,7 @@ def _run_tiled(args) -> int:
         plan=plan_manifest(arch.plan, cluster),
         device=arch.mesh.device,
     )
-    _print_done(report)
+    _print_done(report, [step, *replan.live["steps"]], arch.mesh.device)
     return 0
 
 
@@ -247,8 +265,10 @@ def make_replan(arch, cluster, hw_profile: str, batch: int, pcfg, tcfg):
     drop or add the device on the live cluster (a homogeneous grid becomes
     ``hw_profile`` x n*m first), ``replan_stack`` the live plan onto it at
     ``batch``, build the arch on a new virtual mesh on the same device and
-    its train step, print the ``replan (...)`` line, and return ``(step,
-    plan manifest)``.  A drop's device is a profile name or, all digits, a
+    its train step (captured anew on the card: ``jit_step``; the old graph
+    goes with the old step's last reference), print the ``replan (...)``
+    line, and return ``(step, plan manifest)``.  ``replan.live`` holds the
+    live cluster and plan, and the steps the replans built.  A drop's device is a profile name or, all digits, a
     flat row-major grid index; a replan whose data tail the microbatch does
     not divide over the new tile count is planned all-spatial instead (both
     are ROADMAP C.7: the reference's launcher raises on either)."""
@@ -258,7 +278,7 @@ def make_replan(arch, cluster, hw_profile: str, batch: int, pcfg, tcfg):
     from repro_torch.models.tiled_cnn import TiledCNNArch
     from repro_torch.train.trainer import make_train_step
 
-    live = {"cluster": cluster, "plan": arch.plan}
+    live = {"cluster": cluster, "plan": arch.plan, "steps": []}
     accum = max(pcfg.grad_accum, 1)
 
     def replan(ev):
@@ -285,7 +305,8 @@ def make_replan(arch, cluster, hw_profile: str, batch: int, pcfg, tcfg):
               f"crossover={new_plan.crossover} "
               f"modes={[(g.start, g.end, g.mode) for g in new_plan.groups]}"
               + (f" stages={new_plan.stages}" if new_plan.stages else ""))
-        return new_step, plan_manifest(new_plan, cl)
+        live["steps"].append(jit_step(new_step, arch.mesh.device))
+        return live["steps"][-1], plan_manifest(new_plan, cl)
 
     replan.live = live
     return replan
@@ -304,13 +325,16 @@ def _faults(args):
     return FaultInjector(args.fault_schedule) if args.fault_schedule else None
 
 
-def _print_done(report) -> None:
+def _print_done(report, steps: list, device) -> None:
     m = report.last_metrics or {}
     print(
         f"done: steps={report.steps_done} restarts={report.restarts} "
         f"replans={report.replans} stragglers={report.straggler_steps} "
         f"loss={m.get('loss', float('nan')):.4f} gnorm={m.get('grad_norm', 0):.3f}"
     )
+    graphs = sum(getattr(s, "captured", False) for s in steps)
+    print(f"step: {graphs} CUDA graphs captured" if torch.device(device).type == "cuda"
+          else "step: eager on cpu")
 
 
 def _run_lm(args) -> int:
@@ -338,9 +362,10 @@ def _run_lm(args) -> int:
     def make_batch(step: int) -> dict:
         return place(synth_batch(specs, cfg, args.seed, step), arch.device)
 
+    step = jit_step(train_step, arch.device)
     report = run_training(
         init_state=init_state,
-        train_step=train_step,
+        train_step=step,
         make_batch=make_batch,
         steps=args.steps,
         cfg=_driver_config(args),
@@ -348,7 +373,7 @@ def _run_lm(args) -> int:
         faults=_faults(args),
         device=arch.device,
     )
-    _print_done(report)
+    _print_done(report, [step], arch.device)
     return 0
 
 

@@ -210,7 +210,8 @@ def _sdpa_blocked(
         acc = torch.zeros((b, hkv, rep, qc, dv), dtype=acc_t, device=q.device)
         for j in range(nk):
             m, l, acc = checkpoint(_kv_block, qi, qp, ks[:, j], vs[:, j], kps[:, j], kvs[:, j],
-                                   m, l, acc, causal, window, use_reentrant=False)
+                                   m, l, acc, causal, window, use_reentrant=False,
+                                   preserve_rng_state=False)      # draws nothing
         out = acc / torch.clamp(l, min=1e-30)[..., None]      # (b,hkv,rep,qc,dv)
         outs.append(out.permute(0, 3, 1, 2, 4))              # (b,qc,hkv,rep,dv)
     return torch.cat(outs, dim=1).reshape(b, tq, hq, dv).to(q.dtype)

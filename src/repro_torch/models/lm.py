@@ -367,11 +367,15 @@ def apply_lm(
             return x
 
         for block_p in _unbind(seg_p, seg.repeats):
+            # no block draws random numbers, so the recomputation needs no
+            # saved RNG state (and a captured step could not save the card's)
             if remat == "full":
-                x = checkpoint(block_fn, x, block_p, use_reentrant=False)
+                x = checkpoint(block_fn, x, block_p, use_reentrant=False,
+                               preserve_rng_state=False)
             elif remat == "dots":
                 unsaved = _block_output_weights(seg.block, block_p, cfg)
                 x = checkpoint(block_fn, x, block_p, use_reentrant=False,
+                               preserve_rng_state=False,
                                context_fn=partial(_dots_context, unsaved))
             else:
                 x = block_fn(x, block_p)
@@ -414,7 +418,8 @@ def chunked_cross_entropy(
     cnt = torch.zeros((), dtype=acc, device=hidden.device)
     for i in range(h.shape[0] // chunk):
         s = slice(i * chunk, (i + 1) * chunk)
-        ls, c = checkpoint(_ce_chunk, h[s], y[s], head_w, acc, use_reentrant=False)
+        ls, c = checkpoint(_ce_chunk, h[s], y[s], head_w, acc, use_reentrant=False,
+                           preserve_rng_state=False)      # draws nothing
         loss_sum = loss_sum + ls
         cnt = cnt + c
     return loss_sum / torch.clamp(cnt, min=1.0)

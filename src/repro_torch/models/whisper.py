@@ -49,7 +49,9 @@ DEC_POS_ROWS = 8192
 def _sinusoid(t: int, d: int, dtype, device) -> torch.Tensor:
     pos = torch.arange(t, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
-    ang = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * dim / d)
+    # the base as a Python number: a tensor made from it on the card is a
+    # host copy, which a captured step may not hold
+    ang = pos / torch.pow(10000.0, 2 * dim / d)
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
@@ -96,8 +98,10 @@ def init_whisper(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def _layers(stacked: dict, remat: str, body):
     """Each layer's view of ``stacked`` and ``body`` to run on it:
     checkpointed whole for any ``remat`` but ``"none"``."""
+    # no layer draws random numbers: the recomputation needs no saved RNG
+    # state (and a captured step could not save the card's)
     fn = body if remat == "none" else (
-        lambda x, p: checkpoint(body, x, p, use_reentrant=False))
+        lambda x, p: checkpoint(body, x, p, use_reentrant=False, preserve_rng_state=False))
     return _unbind(stacked, tree_leaves(stacked)[0].shape[0]), fn
 
 
@@ -208,7 +212,11 @@ def whisper_decode_step(params: dict, token: torch.Tensor, caches: list,
     plain ``_sdpa``, as the reference's does."""
     x = F.embedding(token.long(), params["embed"]).to(cfg.act_dtype)
     pos = caches[0].attn.lengths.long()                      # (B,) per-slot positions
-    x = x + F.embedding(pos, params["dec_pos"])[:, None].to(cfg.act_dtype)
+    # an idle slot's position grows past the table while others serve
+    # (ROADMAP C.18): its gather reads the last row, where the reference's
+    # reads NaN; a request's own positions stay inside the table (C.16)
+    row = torch.clamp(pos, max=params["dec_pos"].shape[0] - 1)
+    x = x + F.embedding(row, params["dec_pos"])[:, None].to(cfg.act_dtype)
     for p, c in zip(_unbind(params["dec"], cfg.n_layers), caches):
         h = apply_norm(cfg.norm, x, p["norm1"])
         mix, _ = attn_mod.decode_attention(p["attn"], h, c.attn, cfg)

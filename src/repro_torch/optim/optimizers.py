@@ -4,7 +4,11 @@
 A param tree is what the tiled CNN uses: a list of per-layer dicts of
 tensors (any nesting of lists and dicts of tensors works).  States
 are dicts of fp32 tensors mirroring the params, under the reference's keys
-(``m``, ``v``, ``t``; ``t`` an int).  Updates are out of place, as in the
+(``m``, ``v``, ``t``; ``t`` the update count, a 0-d int32 tensor on the
+params' device, as the reference's ``jnp.int32``: AdamW's bias corrections
+are tensors computed from it, so a captured step reads the count where it
+lies at every replay; a host int ``t`` is taken too).  ``lr`` is a
+float or a 0-d tensor.  Updates are out of place, as in the
 reference: a step returns new params and a new state.  The arithmetic is
 the reference's fp32; fp64 params (an exact reference run) keep fp64
 throughout.
@@ -81,6 +85,19 @@ def clip_by_global_norm(tree, max_norm: float, inplace: bool = False):
     return tree_map(clip, tree), norm
 
 
+def init_count(params) -> torch.Tensor:
+    """A zero update count (0-d int32) on the device of ``params``' first
+    tensor leaf (the CPU for a tree without one)."""
+    leaves = [x for x in tree_leaves(params) if isinstance(x, torch.Tensor)]
+    return torch.zeros((), dtype=torch.int32, device=leaves[0].device if leaves else "cpu")
+
+
+def as_count(t, params) -> torch.Tensor:
+    """A count as a 0-d int32 tensor: ``t`` itself, or a host int put on
+    the device of ``params``' first tensor leaf."""
+    return t if isinstance(t, torch.Tensor) else init_count(params) + int(t)
+
+
 def _zeros_acc(params):
     return tree_map(lambda p: torch.zeros(
         p.shape, dtype=torch.promote_types(p.dtype, torch.float32), device=p.device), params)
@@ -90,14 +107,20 @@ def _zeros_acc(params):
 INPLACE_CHUNK = 1 << 26
 
 
+def bias_corrections(t: torch.Tensor, b1: float, b2: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """AdamW's ``1 - b ** t`` for both moments at the count ``t``: fp64
+    tensors on ``t``'s device, the values a host count gives as Python
+    floats (an fp32 update rounds them once)."""
+    return 1 - b1 ** t.double(), 1 - b2 ** t.double()
+
+
 def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, inplace: bool = False) -> Optimizer:
     def init(params):
-        return {"m": _zeros_acc(params), "v": _zeros_acc(params), "t": 0}
+        return {"m": _zeros_acc(params), "v": _zeros_acc(params), "t": init_count(params)}
 
     def update(grads, state, params, lr):
-        t = state["t"] + 1
-        bc1 = 1 - b1 ** t
-        bc2 = 1 - b2 ** t
+        t = as_count(state["t"], params) + 1
+        bc1, bc2 = bias_corrections(t, b1, b2)
 
         def upd(g, m, v, p):
             g = _acc(g)
@@ -136,7 +159,7 @@ def sgd(momentum=0.9, weight_decay=0.0005, inplace: bool = False) -> Optimizer:
     """Momentum SGD - Darknet's optimizer for the YOLO reproduction."""
 
     def init(params):
-        return {"m": _zeros_acc(params), "t": 0}
+        return {"m": _zeros_acc(params), "t": init_count(params)}
 
     def update(grads, state, params, lr):
         def upd(g, m, p):
@@ -149,7 +172,7 @@ def sgd(momentum=0.9, weight_decay=0.0005, inplace: bool = False) -> Optimizer:
             return (_acc(p) - lr * m2).to(p.dtype), m2
 
         new_p, new_m = tree_unzip(tree_map(upd, grads, state["m"], params), 2)
-        return new_p, {"m": new_m, "t": state["t"] + 1}
+        return new_p, {"m": new_m, "t": as_count(state["t"], params) + 1}
 
     return Optimizer(init, update)
 
@@ -185,7 +208,7 @@ def adafactor(decay=0.99, eps=1e-30, clip_threshold=1.0, weight_decay=0.0,
                 return {"vr": zeros(p.shape[:-1]), "vc": zeros(p.shape[:-2] + p.shape[-1:])}
             return {"v": zeros(p.shape)}
 
-        return {"v": tree_map(leaf, params), "t": 0}
+        return {"v": tree_map(leaf, params), "t": init_count(params)}
 
     def update(grads, state, params, lr):
         def upd(g, s, p):
@@ -233,7 +256,7 @@ def adafactor(decay=0.99, eps=1e-30, clip_threshold=1.0, weight_decay=0.0,
             return new_p, new_s
 
         new_p, new_v = tree_unzip(tree_map(upd, grads, state["v"], params), 2)
-        return new_p, {"v": new_v, "t": state["t"] + 1}
+        return new_p, {"v": new_v, "t": as_count(state["t"], params) + 1}
 
     return Optimizer(init, update)
 

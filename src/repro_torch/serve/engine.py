@@ -42,6 +42,19 @@ once, after its decode.  ``temperature > 0`` samples from
 engine's device, seeded from ``seed`` (JAX's key stream has no torch
 counterpart, so only greedy answers are held against the reference).
 
+On the card the engine decodes through CUDA graphs, the counterpart of the
+reference's ``jax.jit(arch.decode_fn)``: at construction (``capture=None``
+captures exactly when the device is CUDA; ``capture=True`` on the CPU
+raises) it warms and captures one graph of the tick's decode of all
+``batch`` slots, over a static (batch, 1) token buffer and static logits,
+and one batch-1 graph per slot over ``slot(i)``'s views, which the prefill
+replays once per prompt token; then it zeroes every cache tensor, so the
+warm decodes leave no trace (admission zeroes a slot's rows anyway, and no
+row reads another's).  The graphs read the params and caches where they
+lay at the capture.  The sampler runs after the replay, outside the graph,
+and the tick still reads back once.  The CPU engine decodes eagerly, the
+same calls on the same tensors.
+
 An encoder-decoder (Whisper) is served as the reference's ``_lm_main``
 serves it: token prompts alone, against zeroed cross K/V that nothing
 writes (ROADMAP C.15: the reference's requests carry no audio).  Its
@@ -109,6 +122,7 @@ class ServeEngine:
         temperature: float = 0.0,
         eos_id: Optional[int] = None,
         seed: int = 0,
+        capture: Optional[bool] = None,
     ):
         moe = arch.cfg.moe
         if moe is not None and batch * moe.top_k > DROPLESS_ASSIGNMENTS:
@@ -132,6 +146,77 @@ class ServeEngine:
         self.decode_calls = 0           # ticks that decoded the slots
         self._bounded = _kv_cache_bounds_positions(arch.cfg, max_seq)
         self._finished: list[Request] = []
+        on_cuda = torch.device(self.device).type == "cuda"
+        if capture and not on_cuda:
+            raise ValueError(
+                "capture=True needs a CUDA device: a CUDA graph has no CPU counterpart "
+                "(the CPU engine decodes eagerly)"
+            )
+        self.capture = on_cuda if capture is None else bool(capture)
+        self.graphs: dict = {}            # "tick" / "prefill/<slot>" -> CUDAGraph
+        self.graph_launches: dict = {}    # the same keys -> kernel launches at the capture
+        self.graph_pool_bytes: dict = {}
+        self.replays = {"tick": 0, "prefill": 0}
+        if self.capture:
+            self._capture_graphs()
+
+    # -- CUDA graphs ----------------------------------------------------------
+
+    def _decode_calls(self) -> dict:
+        """The decodes the graphs hold, by key: the tick over every slot
+        and a batch-1 prefill decode per slot, each with its static token
+        buffer and its caches (the slot views for a prefill)."""
+        dev = torch.device(self.device)
+        self._tok = torch.zeros((self.batch, 1), dtype=torch.int64, device=dev)
+        self._ptok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+        views = [[c.slot(i) for c in self.caches] for i in range(self.batch)]
+        return {"tick": (self._tok, self.caches),
+                **{f"prefill/{i}": (self._ptok, v) for i, v in enumerate(views)}}
+
+    @torch.no_grad()
+    def _warm(self, calls: dict) -> None:
+        """``WARM_RUNS`` runs of every decode in ``calls``: they build the
+        kernels, and write the caches, which ``_zero_caches`` then clears."""
+        from repro_torch.serve.exec_cache import WARM_RUNS
+
+        for _ in range(WARM_RUNS):
+            for tok, caches in calls.values():
+                self.arch.decode_fn(self.params, tok, caches)
+
+    @torch.no_grad()
+    def _zero_caches(self) -> None:
+        for c in self.caches:
+            for t in _tensors(c):
+                t.zero_()
+
+    @torch.no_grad()
+    def _capture_graphs(self) -> None:
+        """Warm and capture the tick's decode and one prefill decode per
+        slot, then zero every cache tensor."""
+        from repro_torch.serve.exec_cache import kernel_launch_counts
+
+        dev = torch.device(self.device)
+        calls = self._decode_calls()
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._warm(calls)
+        cur.wait_stream(side)
+        for key, (tok, caches) in calls.items():
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                reserved = torch.cuda.memory_reserved(dev)
+                before = kernel_launch_counts()
+                logits, _ = self.arch.decode_fn(self.params, tok, caches)
+                after = kernel_launch_counts()
+            self.graph_pool_bytes[key] = torch.cuda.memory_reserved(dev) - reserved
+            self.graph_launches[key] = {k: v - before[k] for k, v in after.items()
+                                        if v != before[k]}
+            self.graphs[key] = graph
+            if key == "tick":
+                self._logits = logits
+        self._zero_caches()
 
     # -- request lifecycle ----------------------------------------------------
 
@@ -170,7 +255,12 @@ class ServeEngine:
                 t.zero_()
         toks = torch.as_tensor(np.asarray(prompt[:-1], np.int64)).to(self.device)
         for j in range(toks.shape[0]):
-            self.arch.decode_fn(self.params, toks[j:j + 1].view(1, 1), views)
+            if self.capture:
+                self._ptok.copy_(toks[j:j + 1].view(1, 1))
+                self.graphs[f"prefill/{i}"].replay()
+                self.replays["prefill"] += 1
+            else:
+                self.arch.decode_fn(self.params, toks[j:j + 1].view(1, 1), views)
         self.prefill_tokens += toks.shape[0]
 
     @torch.no_grad()
@@ -194,8 +284,14 @@ class ServeEngine:
         for i in busy:
             req = self.slots[i]
             tok[i, 0] = req.out_tokens[-1] if req.out_tokens else int(req.prompt[-1])
-        logits, _ = self.arch.decode_fn(self.params, torch.from_numpy(tok).to(self.device),
-                                        self.caches)
+        if self.capture:
+            self._tok.copy_(torch.from_numpy(tok))
+            self.graphs["tick"].replay()
+            self.replays["tick"] += 1
+            logits = self._logits
+        else:
+            logits, _ = self.arch.decode_fn(self.params, torch.from_numpy(tok).to(self.device),
+                                            self.caches)
         self.decode_calls += 1
         nxt = sample_logits(logits, self.generator, self.temperature).cpu().numpy()
         for i in busy:

@@ -152,6 +152,24 @@ class ParamBinder:
 WARM_RUNS = 2
 
 
+def kernel_launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch count as one flat dict: ``"<name>"``
+    and, for the wrappers that split theirs, ``"<name>/<instance>"``.  A
+    captured graph's launches are the difference across its capture."""
+    from repro_torch.kernels.conv2d_tiled.backward import conv2d_dgrad_tile, conv2d_wgrad_tile
+    from repro_torch.kernels.conv2d_tiled.kernel import launch_counts
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
+
+    out = launch_counts()
+    for f in (conv2d_dgrad_tile, conv2d_wgrad_tile, flash_attention_fwd, ssd_chunk_fwd, rmsnorm):
+        out[f.__name__] = f.launches
+        for k, v in getattr(f, "launches_by_instance", {}).items():
+            out[f"{f.__name__}/{k}"] = v
+    return out
+
+
 class CapturedStep:
     """One forward captured as a CUDA graph at one input shape: the port of
     the reference's AOT-compiled serve executable, ``step(params, x) -> y``.

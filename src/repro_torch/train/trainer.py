@@ -24,6 +24,15 @@ returns - an observer copies what it keeps.
 The trainer tail then runs optional int8 error-feedback compression,
 global-norm clipping, the cosine/warmup schedule and the optimizer update.
 
+``TrainState.step`` and the optimizers' update counts are 0-d int32 tensors
+on the params' device, as the reference's ``jnp.int32`` leaves, and the
+tail computes the LR and AdamW's bias corrections from them on the device.
+``capture_train_step`` (the counterpart of the reference's
+``jax.jit(train_step, donate_argnums=(0,))``) records that one eager body
+as a CUDA graph and replays it every step, so a replay is the eager step
+bit for bit; ``make_train_step`` itself stays eager, as the reference's is
+un-jitted, and ``on_grads`` (which reads the host) is for eager steps only.
+
 Elastic support (DESIGN.md §10): ``abstract_state`` (the state's shapes and
 dtypes on the ``meta`` device, allocating nothing - the structure a restore
 fills), ``globalize_state`` and ``check_state_matches``.
@@ -33,17 +42,25 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.configs.base import ParallelConfig, TrainConfig
 from repro_torch.optim.compression import CompressionState, compress_with_feedback, init_error
-from repro_torch.optim.optimizers import clip_by_global_norm, make_optimizer, tree_leaves, tree_map
+from repro_torch.optim.optimizers import (
+    clip_by_global_norm,
+    as_count,
+    init_count,
+    make_optimizer,
+    tree_leaves,
+    tree_map,
+)
 from repro_torch.optim.schedules import cosine_schedule
 
 
 class TrainState(NamedTuple):
     params: Any
     opt: Any
-    step: int
+    step: Any                     # 0-d int32 tensor on the params' device (a host int is taken)
     ef: Optional[Any] = None      # error-feedback buffers (compression)
 
 
@@ -51,22 +68,25 @@ def _make_init_state(arch, opt, tcfg: TrainConfig):
     def init_state(seed: int | torch.Generator = 0) -> TrainState:
         params = arch.init(seed)
         ef = init_error(params).error if tcfg.grad_compression == "int8" else None
-        return TrainState(params, opt.init(params), 0, ef)
+        return TrainState(params, opt.init(params), init_count(params), ef)
 
     return init_state
 
 
 def _apply_updates(state: TrainState, loss, grads, opt, tcfg: TrainConfig,
                    inplace: bool = False):
-    """Shared trainer tail: EF compression -> clip -> schedule -> update."""
+    """Shared trainer tail: EF compression -> clip -> schedule -> update.
+    The LR comes from the step where it lies (a 0-d tensor on the card), so
+    the captured step computes each replay's own."""
     ef = state.ef
     if ef is not None:
         grads, st = compress_with_feedback(grads, CompressionState(ef))
         ef = st.error
     grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, inplace=inplace)
-    lr = cosine_schedule(state.step, tcfg.warmup, tcfg.steps, tcfg.lr)
+    step = as_count(state.step, state.params)
+    lr = cosine_schedule(step, tcfg.warmup, tcfg.steps, tcfg.lr)
     params, opt_state = opt.update(grads, state.opt, state.params, lr)
-    new_state = TrainState(params, opt_state, state.step + 1, ef)
+    new_state = TrainState(params, opt_state, step + 1, ef)
     return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
 
@@ -141,6 +161,7 @@ def _make_lm_train_step(arch, pcfg: ParallelConfig, tcfg: TrainConfig, on_grads)
             on_grads(state.step, loss, grads)
         return _apply_updates(state, loss, grads, opt, tcfg, inplace=True)
 
+    train_step.observed = on_grads is not None
     return init_state, train_step
 
 
@@ -183,7 +204,179 @@ def _make_tiled_cnn_train_step(arch, pcfg: ParallelConfig, tcfg: TrainConfig, on
         return _apply_updates(state, loss, grads, opt, tcfg)
 
     train_step.grad_step = grad_step     # its ``census`` after a pipeline plan's step
+    train_step.observed = on_grads is not None
     return init_state, train_step
+
+
+# ---------------------------------------------------------------------------
+# The captured step: the counterpart of the reference's jax.jit(train_step,
+# donate_argnums=(0,))
+# ---------------------------------------------------------------------------
+
+
+def _leaf_meta(x) -> tuple[tuple, torch.dtype]:
+    """A state leaf's (shape, dtype); a host int is a 0-d int32, as a
+    checkpoint stores it."""
+    return (tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor) else ((), torch.int32)
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index: "cuda" is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class StateBinder:
+    """The static state of a captured step.  Construction adopts
+    ``state``'s tensors as they are, not copies (a host int leaf becomes a
+    0-d int32 tensor on ``device``); ``bind(state)`` makes the static state
+    equal ``state``: nothing happens when its leaves are the adopted
+    tensors, and any other leaves (a restored state) are copied into them
+    with one ``torch._foreach_copy_``.  A state of another structure, or a
+    leaf of another shape or dtype, raises ``ValueError``."""
+
+    def __init__(self, state, device):
+        device = _indexed(device)
+        leaves, self.spec = tree_flatten(state)
+        self.leaves = [x if x is None or isinstance(x, torch.Tensor)
+                       else torch.full((), int(x), dtype=torch.int32, device=device)
+                       for x in leaves]
+        off = [i for i, x in enumerate(self.leaves) if x is not None and x.device != device]
+        if off:
+            raise ValueError(f"state leaf {off[0]} lies on {self.leaves[off[0]].device}, "
+                             f"not {device}")
+        self.state = tree_unflatten(self.leaves, self.spec)
+        self.copies = 0             # bind calls that copied a state in
+
+    def bind(self, state) -> bool:
+        """Bring the static state up to ``state``; True when it copied."""
+        leaves, spec = tree_flatten(state)
+        if spec != self.spec:
+            raise ValueError("state does not have the structure the step was captured with")
+        stale = [i for i, x in enumerate(leaves) if x is not self.leaves[i]]
+        if not stale:
+            return False
+        for i in stale:
+            got, want = _leaf_meta(leaves[i]), _leaf_meta(self.leaves[i])
+            if got != want:
+                raise ValueError(f"state leaf {i}: {got[1]} {got[0]}, captured with "
+                                 f"{want[1]} {want[0]}")
+        src = [leaves[i] if isinstance(leaves[i], torch.Tensor)
+               else torch.tensor(int(leaves[i]), dtype=torch.int32) for i in stale]
+        with torch.no_grad():
+            torch._foreach_copy_([self.leaves[i] for i in stale], src)
+        self.copies += 1
+        return True
+
+
+class CapturedTrainStep:
+    """``train_step`` captured as one CUDA graph and replayed every step,
+    with the reference's jitted contract ``step(state, batch) -> (state,
+    metrics)`` and its donation of the state.
+
+    The first ``WARM_RUNS`` calls are the run's own steps, eager: they build
+    the kernels and make the plan constants, and their updates are the
+    run's.  They run on the current stream, not a side stream, so that they
+    reuse the memory the allocator holds for it (a full-width LM state
+    leaves no room for a second stream's copy of the step's activations).
+    The next call adopts the state it is given as
+    the graph's static state (its tensors, not copies: an int leaf becomes
+    a 0-d int32 tensor on the card), captures the step once into a private
+    pool - which runs nothing - with a copy of every new leaf the step
+    returns (the CNN's out-of-place update, the counters) back into the
+    adopted one, then replays.  From then on a call copies the batch into
+    static buffers and replays; a state whose leaves are not the adopted
+    tensors (a restore) is first copied into them with one
+    ``torch._foreach_copy_``, and a leaf of another shape or dtype raises.
+    The returned state is the static state; the metrics are copies, which
+    the next replay leaves alone.  Nothing falls back to an eager step: a
+    capture or replay that fails raises.
+
+    ``launches`` holds the kernel launches counted during the capture (what
+    each replay runs again without Python; ``serve/exec_cache.py:
+    kernel_launch_counts``), ``replays`` the replays, ``pool_bytes`` the
+    device memory the graph's pool reserved, ``captured`` whether the graph
+    exists yet."""
+
+    def __init__(self, train_step, device):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(
+                f"capture_train_step needs a CUDA device: a CUDA graph has no CPU counterpart "
+                f"(the CPU runs the eager step); got {device}")
+        if getattr(train_step, "observed", False):
+            raise ValueError("a step with an on_grads observer runs eagerly: a graph would run "
+                             "the observer once, at its capture")
+        self._step = train_step
+        self.device = _indexed(device)
+        self._graph = None
+        self.warm_steps = self.replays = self.pool_bytes = 0
+        self.launches: dict = {}
+
+    def __call__(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        from repro_torch.serve.exec_cache import WARM_RUNS
+
+        if self._graph is None and self.warm_steps < WARM_RUNS:
+            self.warm_steps += 1
+            return self._step(state, batch)
+        if self._graph is None:
+            self._capture(state, batch)
+        else:
+            self._binder.bind(state)
+        self._load(batch)
+        self._graph.replay()
+        self.replays += 1
+        return self._state, {k: v.clone() for k, v in self._metrics.items()}
+
+    def _capture(self, state, batch) -> None:
+        from repro_torch.serve.exec_cache import kernel_launch_counts
+
+        self._binder = StateBinder(state, self.device)
+        self._state = self._binder.state
+        self._batch = {k: torch.empty(tuple(v.shape), dtype=v.dtype, device=self.device)
+                       for k, v in batch.items()}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            # read on entry, after the context has synchronized, collected
+            # garbage and emptied the allocator's cache
+            reserved = torch.cuda.memory_reserved(self.device)
+            before = kernel_launch_counts()
+            new_state, self._metrics = self._step(self._state, self._batch)
+            new_leaves, spec = tree_flatten(new_state)
+            if spec != self._binder.spec:
+                raise ValueError("the step returned a state of another structure than it took")
+            moved = [(d, x) for d, x in zip(self._binder.leaves, new_leaves) if x is not d]
+            if moved:
+                torch._foreach_copy_([d for d, _ in moved], [x for _, x in moved])
+            after = kernel_launch_counts()
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.launches = {k: v - before.get(k, 0) for k, v in after.items()
+                         if v != before.get(k, 0)}
+        self._graph = graph
+
+    @property
+    def captured(self) -> bool:
+        return self._graph is not None
+
+    def _load(self, batch: dict) -> None:
+        if set(batch) != set(self._batch):
+            raise ValueError(f"batch keys {sorted(batch)}, captured with {sorted(self._batch)}")
+        for k, v in batch.items():
+            want = self._batch[k]
+            if tuple(v.shape) != tuple(want.shape) or v.dtype != want.dtype:
+                raise ValueError(f"batch entry {k!r}: {v.dtype} {tuple(v.shape)}, captured "
+                                 f"with {want.dtype} {tuple(want.shape)}")
+            want.copy_(torch.as_tensor(v), non_blocking=True)
+
+
+def capture_train_step(train_step, device) -> CapturedTrainStep:
+    """``train_step`` (``make_train_step``'s, without an observer) as a
+    ``CapturedTrainStep`` on the CUDA ``device``; any other device raises
+    ``ValueError`` (a CUDA graph has no CPU counterpart: the CPU runs the
+    eager step)."""
+    return CapturedTrainStep(train_step, device)
 
 
 # ---------------------------------------------------------------------------

@@ -438,16 +438,19 @@ def test_format_parity_jax_writes_port_restores_and_back(tmp_path):
     assert leaves == [e["path"] for e in jmgr.read_manifest(1)["leaves"]]
     assert {"params/0/w", "opt/m/0/w", "opt/t", "step", "ef/0/w"} <= set(leaves)
     state = CheckpointManager(str(tmp_path / "jax")).restore(like, device="cpu")
-    # ints back as ints, every tensor bit for bit
+    # the counters back as the 0-d int32 tensors the port's state holds,
+    # every tensor bit for bit
     assert state.step == int(jstate.step) == 1 and state.opt["t"] == 1
-    assert isinstance(state.step, int) and isinstance(state.opt["t"], int)
+    assert all(isinstance(x, torch.Tensor) and x.shape == () and x.dtype == torch.int32
+               for x in (state.step, state.opt["t"]))
     want = dict(zip(leaf_paths(jstate), jax.tree.leaves(jstate)))
     got = {}
     map_with_path(lambda p, x: got.__setitem__(p, x), state)
     assert set(got) == set(want)
     for p, x in got.items():
         if isinstance(x, torch.Tensor):
-            assert x.dtype == torch.float32 and np.array_equal(x.numpy(), np.asarray(want[p])), p
+            dtype = torch.int32 if p in ("step", "opt/t") else torch.float32
+            assert x.dtype == dtype and np.array_equal(x.numpy(), np.asarray(want[p])), p
     # the port writes the same bytes, CRCs and manifest
     CheckpointManager(str(tmp_path / "port")).save(1, state)
     a, b = _files(tmp_path / "jax" / "step_00000001"), _files(tmp_path / "port" / "step_00000001")

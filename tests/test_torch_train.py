@@ -312,7 +312,7 @@ def _assert_params(state, opt_states, want, opt, lr=1e-3):
         return
     ill = None          # elements whose second-moment root fell below the bar at any step
     for st in opt_states:
-        bc2 = 1 - 0.95 ** st["t"]
+        bc2 = 1 - 0.95 ** int(st["t"])
         step_ill = [{k: np.sqrt(v[k].numpy() / bc2) < ADAM_WELL_CONDITIONED for k in v}
                     for v in st["v"]]
         ill = step_ill if ill is None else [{k: a[k] | b[k] for k in a} for a, b in zip(ill, step_ill)]
