@@ -406,6 +406,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    eager: the last checkpoints byte for byte (``capture_elastic_phase``);
    (e) the phase's and the run's seconds.  The ``{"kernels": ...}`` line's
    launches include phases 12's to 27's.
+28. the dry run held against the card (``dryrun_phase``; ROADMAP A.19): (a)
+   ``launch/dryrun.py``'s ``lower_train`` and ``_compile_stats`` of 27(c)'s
+   Qwen2-7B cell on ``make_local_mesh`` (the step traced on CPU fake
+   tensors): its argument bytes must equal the captured step's live state
+   plus its batch, counted leaf by leaf on the card, and a dry run that
+   leaves out the optimizer moments must fail that equality; the predicted
+   bound on ``analysis/roofline.py:H100`` and the model FLOPs over the
+   peak times the replayed step are printed beside 27(c)'s replayed step,
+   capture and pool (``{"dryrun": {"train_cell": ...}}``); (b) the
+   training cells of phases 7, 10 and 20-24 dry-run, one line each:
+   supported, FLOPs and argument bytes a device, ``hbm_ok``, the dominant
+   term (``{"dryrun": {"phase_cells": ...}}``; the whole 40-cell grid
+   traces for longer than this phase may take).  Launches nothing.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -436,10 +449,13 @@ GRID = (2, 2)
 BUCKETS = (1, 2, 4, 8)
 ARRIVALS = (8, 5, 3, 8, 2, 1, 5)     # requests per tick: 32 in all
 N_CONVS = 12                         # conv layers of the 16-layer prefix
-# Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): fp32 on CUDA
-# cores, and HBM3 bandwidth.
-FP32_PEAK_FLOPS = 67e12
-HBM_BYTES_PER_S = 3.35e12
+# Published peaks of one H100 SXM at 700 W (NVIDIA data sheet), from the
+# port's one hardware target (analysis/roofline.py:H100): fp32 on CUDA cores,
+# HBM3 bandwidth, and (below) the dense bf16 tensor-core peak.
+from repro_torch.analysis.roofline import H100, H100_FP32_PEAK_FLOPS  # noqa: E402
+
+FP32_PEAK_FLOPS = H100_FP32_PEAK_FLOPS
+HBM_BYTES_PER_S = H100.hbm_bw
 TOL_FP32 = dict(atol=2e-5, rtol=1e-4)      # tests/test_kernels.py:22-23
 TOL_BF16 = dict(atol=2e-3, rtol=2e-2)
 # End to end, 12 fp32 convs whose sums run in another order in the kernel
@@ -477,7 +493,7 @@ GRAD_FLOOR_FACTOR = 2.0
 DGRAD_FP64_FACTOR = 2.0
 TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_LR = 8, 2, 3, 1e-3
 # bf16 tensor-core peak (dense) of an H100 SXM: B4's bound in bf16
-BF16_PEAK_FLOPS = 989e12
+BF16_PEAK_FLOPS = H100.peak_flops
 # LM phases: Qwen2-7B at full width, 12 of 28 layers (the deepest cut whose
 # bf16 params, fp32 grad accumulators and fp32 AdamW moments fit 80 GB)
 LM_ARCH, LM_DEPTH, LM_SEQ, LM_BATCH, LM_ACCUM, LM_STEPS = "qwen2-7b", 12, 2048, 4, 2, 4
@@ -2628,6 +2644,34 @@ QWEN_RUN = LMRun("lm_train", LM_ARCH, LM_DEPTH, LM_SEQ, LM_BATCH, LM_ACCUM, LM_S
                  LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, LM_SEQ)
 MAMBA_RUN = LMRun("mamba_train", MAMBA_ARCH, MAMBA_DEPTH, MAMBA_SEQ, MAMBA_BATCH, MAMBA_ACCUM,
                   MAMBA_STEPS, MAMBA_GRAD_DEPTH, 1, MAMBA_GRAD_SEQ)
+
+
+def phase_train_runs() -> list:
+    """The training cells of phases 7, 10 and 20-24 (``lm_train_phase``'s
+    runs; phase 28 dry-runs each)."""
+    from repro_torch.models.registry import load_config
+
+    runs = [QWEN_RUN, MAMBA_RUN]
+    runs += [LMRun(f"dense_train_{n}", n, DENSE_TRAIN_DEPTH[n], LM_SEQ, LM_BATCH, LM_ACCUM,
+                   DENSE_TRAIN_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, LM_SEQ)
+             for n in DENSE_ARCHS]
+    runs += [LMRun(f"moe_train_{n}", n, MOE_TRAIN_DEPTH[n], LM_SEQ, LM_BATCH, LM_ACCUM,
+                   MOE_TRAIN_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, LM_SEQ,
+                   optimizer=MOE_OPTIMIZER) for n in MOE_ARCHS]
+    runs.append(LMRun("deepseek_train", DS_ARCH, DS_TRAIN_DEPTH, LM_SEQ, LM_BATCH, LM_ACCUM,
+                      DS_TRAIN_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, LM_SEQ,
+                      optimizer=MOE_OPTIMIZER))
+    for key, name in (("vl_train", VL_ARCH), ("whisper_train", WHISPER_ARCH)):
+        runs.append(LMRun(key, name, load_config(name).n_layers, VL_SEQ, LM_BATCH, LM_ACCUM,
+                          VL_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, VL_SEQ))
+    return runs
+
+
+def train_run(key: str) -> LMRun:
+    """The cell of ``phase_train_runs`` whose metrics line is ``key``."""
+    return next(r for r in phase_train_runs() if r.key == key)
+
+
 # each LM kernel's name in a profiler trace
 LM_KERNEL_TRACE_NAMES = {"flash_attention_fwd": "flash_attention_fwd_",   # both instances
                          "ssd_chunk_fwd": "ssd_chunk_fwd_",        # both instances
@@ -4267,8 +4311,7 @@ def dense_phase(dev, smi: str) -> dict:
     for name in DENSE_ARCHS:
         gc.collect()
         torch.cuda.empty_cache()
-        run = LMRun(f"dense_train_{name}", name, DENSE_TRAIN_DEPTH[name], LM_SEQ, LM_BATCH,
-                    LM_ACCUM, DENSE_TRAIN_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, LM_SEQ)
+        run = train_run(f"dense_train_{name}")
         got = lm_train_phase(dev, smi, run)
         peak = torch.cuda.max_memory_allocated(dev)
         for k in launches:
@@ -4457,9 +4500,7 @@ def moe_phase(dev, smi: str) -> dict:
     for name in MOE_ARCHS:
         gc.collect()
         torch.cuda.empty_cache()
-        run = LMRun(f"moe_train_{name}", name, MOE_TRAIN_DEPTH[name], LM_SEQ, LM_BATCH,
-                    LM_ACCUM, MOE_TRAIN_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, LM_SEQ,
-                    optimizer=MOE_OPTIMIZER)
+        run = train_run(f"moe_train_{name}")
         got = lm_train_phase(dev, smi, run)
         for k in launches:
             launches[k] += got["launches"].get(k, 0)
@@ -4688,9 +4729,7 @@ def deepseek_phase(dev, smi: str) -> dict:
     # -- (b) training at full width, as phase 21 ------------------------------------
     t0 = time.perf_counter()
     check(with_depth(full, 0).n_layers == DS_TRAIN_DEPTH, "DeepSeek's dense prefix")
-    run = LMRun("deepseek_train", DS_ARCH, DS_TRAIN_DEPTH, LM_SEQ, LM_BATCH, LM_ACCUM,
-                DS_TRAIN_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, LM_SEQ,
-                optimizer=MOE_OPTIMIZER)
+    run = train_run("deepseek_train")
     got = lm_train_phase(dev, smi, run)
     launches = {"rmsnorm": got["launches"]["rmsnorm"]}
     check(set(got["launches"]) == {"rmsnorm"}, f"{DS_ARCH} training launches {got['launches']}")
@@ -4901,8 +4940,7 @@ def vl_phase(dev, smi: str) -> dict:
 
     # -- (b) training at full width and depth, as phase 7 -----------------------------
     t0 = time.perf_counter()
-    run = LMRun("vl_train", VL_ARCH, full.n_layers, VL_SEQ, LM_BATCH, LM_ACCUM, VL_STEPS,
-                LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, VL_SEQ)
+    run = train_run("vl_train")
     got = lm_train_phase(dev, smi, run)
     launches = dict(got["launches"])
     check(set(launches) == {"flash_attention_fwd", "rmsnorm"}, f"{VL_ARCH} launches {launches}")
@@ -5052,8 +5090,7 @@ def whisper_phase(dev, smi: str) -> dict:
 
     # -- (b) training at full width and depth, as phase 7 -----------------------------
     t0 = time.perf_counter()
-    run = LMRun("whisper_train", WHISPER_ARCH, full.n_layers, VL_SEQ, LM_BATCH, LM_ACCUM,
-                VL_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, VL_SEQ)
+    run = train_run("whisper_train")
     got = lm_train_phase(dev, smi, run)
     launches = dict(got["launches"])
     check(launches == {"flash_attention_fwd": launches.get("flash_attention_fwd", 0),
@@ -5675,6 +5712,7 @@ def lm_capture_pair(dev, smi: str, run, cfg, arch, pcfg, tcfg, make_batch, per_m
 
     import torch
 
+    from repro_torch.launch.dryrun import leaf_bytes
     from repro_torch.runtime.driver import DriverConfig, run_training
     from repro_torch.serve.exec_cache import WARM_RUNS, kernel_launch_counts
     from repro_torch.train.trainer import capture_train_step, make_train_step
@@ -5710,6 +5748,9 @@ def lm_capture_pair(dev, smi: str, run, cfg, arch, pcfg, tcfg, make_batch, per_m
     peak = torch.cuda.max_memory_allocated(dev)
     sums = state_checksums(last["state"])
     same = same_checksums(sums, eager["sums"])
+    # the captured step's live state and one step's batch, leaf by leaf, on
+    # the card (phase 28(a) holds the dry run's argument bytes to them)
+    live_bytes = leaf_bytes((last["state"], make_batch(0)))
     step_ms = [a.elapsed_time(b) for a, b in events]
     per_step = {k: v * run.accum for k, v in per_mb.items() if v}
     graph = kernel_totals(step.launches)
@@ -5762,6 +5803,7 @@ def lm_capture_pair(dev, smi: str, run, cfg, arch, pcfg, tcfg, make_batch, per_m
         "card": smi,
     }
     print(json.dumps({"capture_train": {run.key: out}}))
+    out["live_bytes"] = live_bytes
     del step, body, init_state, last, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -6041,6 +6083,120 @@ def capture_elastic_phase(dev, smi: str, root: str) -> dict:
     torch.cuda.empty_cache()
     return {"graphs": runs["captured"]["graphs"], "bitwise_equal_to_eager": same,
             "s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# Phase 28: the dry run held against the card (ROADMAP A.19)
+# ---------------------------------------------------------------------------
+
+
+def dryrun_cell(run: LMRun, dev, depth=None, accum=None) -> tuple:
+    """The dry run of ``run``'s training cell - its config cut to ``depth``
+    (default ``run.depth``) layers, its batch, its microbatches (or
+    ``accum``) and optimizer, remat "full", bf16 - on
+    ``make_local_mesh(dev)``: ``lower_train`` and
+    ``_compile_stats`` under the counting stub (the step traced on CPU fake
+    tensors: nothing allocated, nothing launched), the flash kernel's terms
+    added back, the roofline on ``H100``.  Returns the lowering and a row."""
+    from repro_torch.analysis.roofline import (count_params_cfg, embed_param_count,
+                                               flash_attention_terms, model_flops,
+                                               terms_from_counts)
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig, TrainConfig
+    from repro_torch.launch.dryrun import _compile_stats, lower_train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.attention import attention_impl
+    from repro_torch.models.registry import cell_supported, load_config
+
+    cfg = dataclasses.replace(load_config(run.arch), n_layers=depth or run.depth)
+    shape = ShapeConfig("card", run.seq, run.batch, "train")
+    pcfg = ParallelConfig(grad_accum=accum or run.accum, remat="full")
+    tcfg = TrainConfig(warmup=CAPTURE_WARMUP, steps=run.steps, seed=SEED,
+                       optimizer=run.optimizer)
+    mesh = make_local_mesh(device=dev)
+    n_dev = math.prod(mesh.shape.values())
+    t0 = time.monotonic()
+    with attention_impl("stub"):
+        low = lower_train(cfg, shape, mesh, unroll=False, pcfg=pcfg, tcfg=tcfg)
+        stats = _compile_stats(low)
+    fa_fl, fa_by = flash_attention_terms(cfg, shape, remat=True)
+    flops, nbytes = stats["flops"] + fa_fl / n_dev, stats["bytes"] + fa_by / n_dev
+    terms = terms_from_counts(flops, nbytes, 0.0, H100)
+    _, active = count_params_cfg(low.args[0].params, cfg)
+    mf = model_flops(cfg, shape, active, embed_params=embed_param_count(cfg))
+    row = {"cell": run.key, "arch": cfg.name, "layers": cfg.n_layers,
+           "microbatches": pcfg.grad_accum,
+           "supported": cell_supported(cfg, shape)[0], "devices": n_dev,
+           "flops_per_device": flops, "bytes_per_device": nbytes,
+           "argument_bytes": stats["mem"]["argument_bytes"],
+           "hbm_ok": bool(stats["mem"]["argument_bytes"] <= H100.hbm_bytes),
+           "compute_s": terms.compute_s, "memory_s": terms.memory_s,
+           "dominant": terms.dominant, "bound_s": terms.bound_s, "model_flops": mf,
+           "trace_s": stats["compile_s"], "cell_s": time.monotonic() - t0}
+    return low, row
+
+
+def dryrun_phase(dev, smi: str, qwen: dict) -> dict:
+    """Phase 28: the dry run (``launch/dryrun.py``) held against the card.
+    (a) Phase 27(c)'s Qwen2-7B cell (``qwen``: phase 7's result, at the
+    depth its captured step ran): the predicted argument bytes must equal
+    the captured step's live state plus its batch, leaf by leaf, and a dry
+    run that leaves out the optimizer moments must fail that equality; the
+    predicted bound and the step's share of ``H100.peak_flops`` are printed
+    beside the measured replayed step, the capture and the graph's pool
+    (capture stands in for ``compile_s``, the pool for ``temp_bytes``).
+    (b) The training cells of phases 7, 10 and 20-24 (the whole grid,
+    ``dryrun --all --mesh single --no-rates``, traces for longer than this
+    phase may take), each traced with its global batch as one microbatch:
+    the FLOPs and argument bytes of its microbatched step in half the
+    trace.  One line each - supported, FLOPs and argument bytes a device,
+    ``hbm_ok``, the dominant term."""
+    from repro_torch.launch.dryrun import argument_bytes
+
+    t0 = time.perf_counter()
+    cap = qwen["capture"]
+    low, row = dryrun_cell(QWEN_RUN, dev, cap["layers"])
+    predicted, live = argument_bytes(low), cap["live_bytes"]
+    diff = sorted(k for k in set(predicted) | set(live) if predicted.get(k) != live.get(k))
+    print(f"28(a) {QWEN_RUN.key}: {row['layers']} layers, predicted argument bytes "
+          f"{row['argument_bytes']} ({len(predicted)} leaves), the captured step's live state "
+          f"and batch on the card {sum(live.values())} ({len(live)} leaves); leaves that "
+          f"differ: {diff[:8]}")
+    check(row["argument_bytes"] == sum(live.values()) and not diff,
+          f"28(a) the dry run's argument bytes {row['argument_bytes']} != the live state's "
+          f"{sum(live.values())}: {diff[:8]}")
+    state_abs, batch_abs = low.args
+    no_moments = dataclasses.replace(
+        low, args=(state_abs._replace(opt={"t": state_abs.opt["t"]}), batch_abs),
+        specs=(low.specs[0]._replace(opt={"t": None}), low.specs[1]))
+    planted = sum(argument_bytes(no_moments).values())
+    print(f"28(a) planted fault (the optimizer moments left out): {planted} bytes predicted")
+    check(planted != sum(live.values()), "28(a) the planted fault passed the equality")
+    replay_s = cap["step_ms_replay_median"] / 1e3
+    a = dict(row, replay_ms=cap["step_ms_replay_median"],
+             capture_step_ms=cap["capture_step_ms"], pool_bytes=cap["pool_bytes"],
+             live_bytes=sum(live.values()), planted_fault_bytes=planted,
+             mfu=row["model_flops"] / (H100.peak_flops * replay_s),
+             bound_over_replay=row["bound_s"] / replay_s, card=smi)
+    print(f"28(a) predicted bound {row['bound_s'] * 1e3:.2f} ms ({row['dominant']}; compute "
+          f"{row['compute_s'] * 1e3:.2f} ms, memory {row['memory_s'] * 1e3:.2f} ms) beside the "
+          f"replayed step {cap['step_ms_replay_median']:.2f} ms: model FLOPs "
+          f"{row['model_flops']:.4e}, {a['mfu']:.2%} of H100.peak_flops; trace "
+          f"{row['trace_s']} s beside the capture step {cap['capture_step_ms']:.1f} ms, "
+          f"pool {cap['pool_bytes']} bytes ({smi})")
+    print(json.dumps({"dryrun": {"train_cell": a}}))
+
+    rows = []
+    for run in phase_train_runs():
+        _, r = dryrun_cell(run, dev, accum=1)
+        rows.append(r)
+        print(f"28(b) [{run.key}: {r['arch']} {r['layers']} layers, {run.batch} x {run.seq}, "
+              f"one microbatch] "
+              f"{'supported' if r['supported'] else 'skipped'} flops/dev "
+              f"{r['flops_per_device']:.4e} args/dev {r['argument_bytes']} "
+              f"hbm_ok={r['hbm_ok']} dominant={r['dominant']} ({r['cell_s']:.1f} s)")
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"dryrun": {"phase_cells": rows, "phase28_s": seconds, "card": smi}}))
+    return {"train_cell": a, "phase_cells": rows, "seconds": seconds}
 
 
 def main() -> int:
@@ -6500,7 +6656,8 @@ def main() -> int:
     from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_fwd
 
     fa_rows, fa_err, rms_rows, rms_err = attn_norm_kernel_phase(dev)
-    lm_launches = lm_train_phase(dev, smi, QWEN_RUN)["launches"]
+    qwen7 = lm_train_phase(dev, smi, QWEN_RUN)
+    lm_launches = qwen7["launches"]
     real_fa = attn_mod.flash_attention
 
     def zero_one_kv_head(q, k, v, *a):
@@ -7091,6 +7248,11 @@ def main() -> int:
                                         cnn27["step_ms_replay_median"]],
         "elastic_graphs": el27["graphs"], "elastic_bitwise": el27["bitwise_equal_to_eager"],
         "phase27ab_s": phase27_s, "run_s": run_s, "card": smi}}))
+
+    # -- 28. the dry run held against the card -----------------------------------------
+    dr = dryrun_phase(dev, smi, qwen7)
+    run_s = time.perf_counter() - t_run
+    print(f"phase 28: {dr['seconds']:.1f} s; the whole run so far {run_s:.1f} s")
 
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",

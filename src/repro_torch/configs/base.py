@@ -123,6 +123,16 @@ class ModelConfig:
             return i % self.attn_layer_period == self.attn_layer_offset
         return True
 
+    def sub_quadratic(self) -> bool:
+        """True if serve-time cost per token is o(seq): SSM/hybrid state or
+        bounded attention windows on every attention layer (the reference's;
+        ``models.registry.cell_supported`` reads it)."""
+        if self.family in ("ssm",):
+            return True
+        if self.family == "hybrid":
+            return True  # attn layers still full; cache sharded over seq
+        return self.swa_window is not None
+
     def is_moe_layer(self, i: int) -> bool:
         if self.moe is None:
             return False

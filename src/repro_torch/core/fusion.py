@@ -247,15 +247,15 @@ def _resolve_auto_schedule(
     """Resolve ``schedule="auto"`` to a concrete schedule (DESIGN.md §5).
 
     Overlap pays only when (a) the device the plan runs on can run
-    collectives concurrently with compute - a card can, the host CPU runs
-    them inline - and (b) the cost model predicts a non-trivial hidden
-    term.  ``device`` None means the default device: the card when one is
-    present.  Heterogeneous clusters stay on sync: the overlap
-    interior/boundary split applies only to uniform groups."""
-    dev = torch.device(
-        device if device is not None else ("cuda" if torch.cuda.is_available() else "cpu")
-    )
-    if isinstance(hw, ClusterSpec) or dev.type != "cuda":
+    collectives concurrently with compute (``compat.overlap_supported``: a
+    card can, the host CPU runs them inline) and (b) the cost model
+    predicts a non-trivial hidden term.  ``device`` None means the default
+    device: the card when one is present.  Heterogeneous clusters stay on
+    sync: the overlap interior/boundary split applies only to uniform
+    groups."""
+    from repro_torch import compat
+
+    if isinstance(hw, ClusterSpec) or not compat.overlap_supported(device):
         return "sync"
     cand = (
         tuple(groups)

@@ -20,6 +20,8 @@ The LM side's mesh is a ``VirtualMesh`` of named axes (the reference's
 ``jax.sharding.Mesh``, of which it keeps ``shape``): ``parallel/api.py``
 resolves logical axes against it, and a sequence-sharded mixer keeps its
 shards as a tensor dimension of the axis's size (``core/sequence.py``).
+``make_production_mesh`` and ``make_local_mesh`` are the reference's
+topologies: the 16 x 16 pod (x 2 pods), and the local devices as (1, n).
 """
 from __future__ import annotations
 
@@ -176,3 +178,23 @@ def make_virtual_mesh(axes: dict[str, int], device: str | torch.device = "cuda")
     if not axes or any(s < 1 for s in axes.values()):
         raise ValueError(f"mesh axes must be named with positive sizes; got {axes}")
     return VirtualMesh(tuple((str(a), int(s)) for a, s in axes.items()), resolve_device(device))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str | torch.device = "cuda") -> VirtualMesh:
+    """The reference's production topology as a virtual mesh on ``device``:
+    ``(data 16, model 16)``, one TPU v5e pod's 256 chips, or ``(pod 2, data
+    16, model 16)`` across two pods.  The dry run prices a step per device
+    of it; a step run under it keeps each axis's shards as a tensor
+    dimension (the MoE dispatch's groups and expert shards)."""
+    axes = {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
+    return make_virtual_mesh(axes, device)
+
+
+def make_local_mesh(axes=("data", "model"), device: str | torch.device = "cuda") -> VirtualMesh:
+    """Whatever devices exist locally, as a ``(1, n_devices)`` mesh: one
+    axis of size 1 and one of the cards of ``device``'s type (1 on the
+    CPU)."""
+    dev = resolve_device(device)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    return make_virtual_mesh({axes[0]: 1, axes[1]: n}, dev)

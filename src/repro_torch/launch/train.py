@@ -51,7 +51,10 @@ LM mode (every LM id of the reference): the reduced config unless
 ``data.synthetic.synth_batch`` (the reference's stream; Qwen2-VL's batch
 also holds patch embeddings and M-RoPE streams, Whisper's ``--seq`` frames
 and ``--seq`` / 4 tokens),
-``--remat``, ``--grad-accum``, ``--optimizer``, under the same driver.
+``--remat``, ``--grad-accum``, ``--optimizer``, under the same driver, the
+step under ``parallel.api.sharding_ctx`` of ``--mesh``'s virtual mesh
+(``local``: 1 x the cards; ``single`` / ``multi``: the reference's
+production pod / two pods, whose axes the MoE dispatch reads).
 """
 from __future__ import annotations
 
@@ -112,6 +115,10 @@ def _add_args(ap: argparse.ArgumentParser) -> None:
                          "'mamba2-780m', 'mixtral-8x22b', 'jamba-v0.1-52b', 'deepseek-v3-671b', "
                          "'qwen2-vl-2b' or 'whisper-medium'")
     ap.add_argument("--full", action="store_true", help="LM: the full published config")
+    ap.add_argument("--mesh", choices=["local", "single", "multi"], default="local",
+                    help="LM: the virtual mesh the step runs under - 'local' (1 x the "
+                         "cards, 1 x 1 on the CPU), 'single' (one pod: data 16 x model 16) "
+                         "or 'multi' (pod 2 x data 16 x model 16)")
     ap.add_argument("--seq", type=int, default=64, help="LM: tokens per sequence")
     ap.add_argument("--remat", default="full", choices=["none", "full", "dots"],
                     help="LM: rematerialisation of each layer ('dots' saves the matmuls with no batch dim)")
@@ -340,11 +347,15 @@ def _print_done(report, steps: list, device) -> None:
 def _run_lm(args) -> int:
     from repro_torch.configs.base import ParallelConfig, ShapeConfig, TrainConfig
     from repro_torch.data.synthetic import place, synth_batch
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
     from repro_torch.models.registry import get_arch
+    from repro_torch.parallel.api import sharding_ctx
     from repro_torch.runtime.driver import run_training
     from repro_torch.train.trainer import make_train_step
 
     arch = get_arch(args.arch, reduced=not args.full, device=args.device)
+    mesh = (make_local_mesh(device=arch.device) if args.mesh == "local"
+            else make_production_mesh(multi_pod=(args.mesh == "multi"), device=arch.device))
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     pcfg = ParallelConfig(grad_accum=args.grad_accum, remat=args.remat)
     tcfg = TrainConfig(
@@ -355,7 +366,7 @@ def _run_lm(args) -> int:
     cfg = arch.cfg
     print(f"model: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} heads={cfg.n_heads}/"
           f"{cfg.n_kv_heads} vocab={cfg.vocab} dtype={cfg.dtype} remat={pcfg.remat} "
-          f"optimizer={tcfg.optimizer} device={arch.device}")
+          f"optimizer={tcfg.optimizer} device={arch.device} mesh={mesh.shape}")
     init_state, train_step = make_train_step(arch, pcfg, tcfg)
     specs = arch.input_specs(shape)
 
@@ -363,16 +374,17 @@ def _run_lm(args) -> int:
         return place(synth_batch(specs, cfg, args.seed, step), arch.device)
 
     step = jit_step(train_step, arch.device)
-    report = run_training(
-        init_state=init_state,
-        train_step=step,
-        make_batch=make_batch,
-        steps=args.steps,
-        cfg=_driver_config(args),
-        seed=args.seed,
-        faults=_faults(args),
-        device=arch.device,
-    )
+    with sharding_ctx(mesh):
+        report = run_training(
+            init_state=init_state,
+            train_step=step,
+            make_batch=make_batch,
+            steps=args.steps,
+            cfg=_driver_config(args),
+            seed=args.seed,
+            faults=_faults(args),
+            device=arch.device,
+        )
     _print_done(report, [step], arch.device)
     return 0
 

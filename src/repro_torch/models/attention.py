@@ -7,10 +7,13 @@ the mask the positions give is that one: the default ``arange`` positions
 ``(3, B, T)`` streams (masked by the index: ROADMAP C.14, below), and a
 non-causal call with no window, which masks nothing (Whisper's
 cross-attention, whose ``kv_override`` keys outnumber the queries).  Other
-positions take the plain ``_sdpa``: the reference's "auto" mode, naive below
-2048 keys and blocked streaming above.  ``_sdpa_blocked`` is also the op's
-backward.  The reference's mesh constraints are identities on one device
-(``parallel/api.py:constrain``) and are not called.
+positions take the plain ``_sdpa``: by default the reference's "auto" mode,
+naive below 2048 keys and blocked streaming above; ``attention_impl`` selects
+another mode for the current thread ("naive", "blocked", or the dry run's
+counting "stub", which alone also stands in for the flash op).
+``_sdpa_blocked`` is also the op's backward.  The reference's mesh
+constraints are identities on one device (``parallel/api.py:constrain``)
+and are not called.
 
 M-RoPE (Qwen2-VL): ``_rope_qk`` rotates q and k by the three position
 streams (``models/common.py:apply_mrope``).  The reference then masks by the
@@ -42,6 +45,8 @@ to combine them - what SPMD makes of the reference's constrained einsums.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -217,12 +222,82 @@ def _sdpa_blocked(
     return torch.cat(outs, dim=1).reshape(b, tq, hq, dv).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Attention implementation selector (the reference's ``attention_impl``)
+#
+# "auto":    blocked for Tk >= 2048 (and Tq > 1), else naive - the default.
+# "naive":   the (B, H, Tq, Tk) logits materialised (``_sdpa_naive``).
+# "blocked": the streaming softmax over KV chunks (``_sdpa_blocked``) at the
+#            context's ``q_chunk`` / ``kv_chunk``.
+# "stub":    a near-zero-FLOP stand-in that keeps the shape and the gradient
+#            path (``_sdpa_stub``), for counting alone: the dry run adds the
+#            flash kernel's analytic terms back (analysis/roofline.py).
+#
+# The modes choose how ``_sdpa`` computes.  ``attention``'s flash route (B4)
+# is replaced by "stub" alone: "naive" and "blocked" leave B4 on the card's
+# path, so no mode is a fallback that hides the kernel.
+# ---------------------------------------------------------------------------
+
+ATTN_MODES = ("auto", "naive", "blocked", "stub")
+
+
+class _AttnMode(threading.local):
+    def __init__(self):
+        self.mode = "auto"
+        self.q_chunk = 1024
+        self.kv_chunk = 1024
+
+
+_ATTN = _AttnMode()
+
+
+@contextlib.contextmanager
+def attention_impl(mode: str, *, q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Select the attention implementation for the current thread (above);
+    the previous one comes back on exit."""
+    if mode not in ATTN_MODES:
+        raise ValueError(f"attention_impl mode {mode!r}: one of {ATTN_MODES}")
+    prev = (_ATTN.mode, _ATTN.q_chunk, _ATTN.kv_chunk)
+    _ATTN.mode, _ATTN.q_chunk, _ATTN.kv_chunk = mode, q_chunk, kv_chunk
+    try:
+        yield
+    finally:
+        _ATTN.mode, _ATTN.q_chunk, _ATTN.kv_chunk = prev
+
+
+def captured_impl():
+    """A function that re-enters the implementation selected now, for a
+    checkpoint's recomputation, which runs on autograd's thread for a card
+    (``parallel/api.py:captured_ctx`` does the same for the mesh)."""
+    mode, qc, kc = _ATTN.mode, _ATTN.q_chunk, _ATTN.kv_chunk
+    return lambda: attention_impl(mode, q_chunk=qc, kv_chunk=kc)
+
+
+def _sdpa_stub(q, k, v, q_pos=None, k_pos=None, **_kw):
+    """Near-zero-FLOP stand-in of the same shape: each query's output is the
+    mean of its KV head's values, plus q and k times zero, so q, k and v all
+    stay on the gradient path."""
+    b, tq, hq, _ = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    rep = hq // hkv
+    vm = v.float().mean(dim=1)                                  # (b, hkv, dv)
+    out = vm[:, None, :, None, :].expand(b, tq, hkv, rep, dv).reshape(b, tq, hq, dv)
+    zero = (q.sum(dim=-1) + k.sum(dim=(1, 2, 3))[:, None, None]) * 0.0
+    return (out + zero[..., None]).to(q.dtype)
+
+
 def _sdpa(q, k, v, q_pos, k_pos, *, causal, window, k_valid=None, scale=None) -> torch.Tensor:
-    """The reference's "auto" mode: blocked for Tk >= 2048 (and Tq > 1),
-    naive below."""
-    if k.shape[1] >= 2048 and q.shape[1] > 1:
+    """The plain attention in the selected mode (``attention_impl``); "auto"
+    is blocked for Tk >= 2048 (and Tq > 1), naive below."""
+    mode = _ATTN.mode
+    if mode == "auto":
+        mode = "blocked" if (k.shape[1] >= 2048 and q.shape[1] > 1) else "naive"
+    if mode == "stub":
+        return _sdpa_stub(q, k, v, q_pos, k_pos)
+    if mode == "blocked":
         return _sdpa_blocked(q, k, v, q_pos, k_pos, causal=causal, window=window,
-                             k_valid=k_valid, scale=scale)
+                             k_valid=k_valid, scale=scale, q_chunk=_ATTN.q_chunk,
+                             kv_chunk=_ATTN.kv_chunk)
     return _sdpa_naive(q, k, v, q_pos, k_pos, causal=causal, window=window,
                        k_valid=k_valid, scale=scale)
 
@@ -302,8 +377,10 @@ def attention(
             q, k = _rope_qk(q, k, rope_positions, cfg)
         kpos = None
     if arange_positions or positions.dim() == 3 or (not causal and window is None):
-        # the flash op masks by the sequence index (M-RoPE's streams too: C.14)
-        out = flash_attention(q, k, v, causal, window)
+        # the flash op masks by the sequence index (M-RoPE's streams too:
+        # C.14); the counting stub stands in for it as for ``_sdpa``
+        out = (_sdpa_stub(q, k, v) if _ATTN.mode == "stub"
+               else flash_attention(q, k, v, causal, window))
     else:
         out = _sdpa(q, k, v, positions, positions if kpos is None else kpos, causal=causal,
                     window=window)

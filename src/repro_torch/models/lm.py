@@ -223,6 +223,16 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return params
 
 
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The params' shapes and dtypes as ``meta`` tensors, drawing and
+    allocating nothing (the reference's ``jax.eval_shape`` of ``init_lm``,
+    for the dry run): ``init_lm`` traced under ``FakeTensorMode``
+    (``train/trainer.py:abstract_of``)."""
+    from repro_torch.train.trainer import abstract_of
+
+    return abstract_of(lambda seed: init_lm(torch.Generator().manual_seed(seed), cfg))[0]
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -356,11 +366,11 @@ def apply_lm(
             positions = positions.expand(3, b, t)
 
     # a checkpoint's recomputation runs in the backward, on autograd's thread
-    # for a card: it re-enters the mesh this forward ran under
-    enter = captured_ctx()
+    # for a card: it re-enters the mesh and attention mode this forward ran under
+    enter, enter_attn = captured_ctx(), attn_mod.captured_impl()
     for seg, seg_p in zip(plan_segments(cfg), params["segments"]):
         def block_fn(x, block_p, seg=seg):
-            with enter():
+            with enter(), enter_attn():
                 for j, kind in enumerate(seg.block):
                     x = _apply_layer(block_p[j], kind, x, positions, cfg,
                                      arange_positions=arange_positions, seq_axis=seq_axis)
@@ -452,18 +462,20 @@ def lm_loss(
     head = lm_head_weight(params, cfg).to(cfg.act_dtype)
     loss = chunked_cross_entropy(hidden, head, batch["labels"], chunk=ce_chunk, unroll=unroll)
     if cfg.mtp_depth > 0 and "mtp" in params:
-        loss = loss + MTP_WEIGHT * mtp_loss(params, batch, hidden, head, cfg)
+        loss = loss + MTP_WEIGHT * mtp_loss(params, batch, hidden, head, cfg, unroll=unroll)
     return loss
 
 
 def mtp_loss(params: dict, batch: dict, hidden: torch.Tensor, head: torch.Tensor,
-             cfg: ModelConfig) -> torch.Tensor:
+             cfg: ModelConfig, *, unroll: bool = False) -> torch.Tensor:
     """The MTP head's mean CE, as the reference's: token t's final hidden
     state beside the embedding of token t + 1 (the tokens rolled left, so
     the last position sees token 0), through ``proj``, ``norm`` and the MTP
     layer at positions ``arange(T)`` with no remat, scored by the shared
     head against the labels rolled left with the last one ignored, at the
-    default CE chunk."""
+    default CE chunk.  ``unroll`` (the dry run's analysis mode) merges the
+    chunks into one, as it does the main CE's: the same FLOPs in a trace of
+    fewer ops."""
     mtp = params["mtp"]
     tokens = batch["tokens"]
     emb_next = F.embedding(torch.roll(tokens, -1, dims=1).long(), params["embed"])
@@ -475,7 +487,7 @@ def mtp_loss(params: dict, batch: dict, hidden: torch.Tensor, head: torch.Tensor
                       arange_positions=True)
     labels = torch.roll(batch["labels"], -1, dims=1)
     labels[:, -1] = -100
-    return chunked_cross_entropy(h2, head, labels)
+    return chunked_cross_entropy(h2, head, labels, unroll=unroll)
 
 
 # ---------------------------------------------------------------------------

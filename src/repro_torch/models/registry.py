@@ -15,8 +15,12 @@ empty.  A bundle's ``init(seed)`` draws its params on the bundle's device;
 ``decode_fn`` and ``make_caches`` are the serving surface
 (``models/lm.py:decode_step`` and ``init_caches``, or Whisper's
 ``whisper_decode_step`` and ``init_whisper_caches`` with the cross K/V of
-``max_seq`` rows, as the reference's), and ``cache_specs`` gives the caches'
-shapes and dtypes as ``meta`` tensors, allocating nothing.
+``max_seq`` rows, as the reference's), and ``cache_specs`` and
+``abstract_params`` give the caches' and the params' shapes and dtypes as
+``meta`` tensors, allocating nothing.  The dry run's grid
+(``launch/dryrun.py``) is ``all_cells``: every id under each of
+``configs.base.SHAPES``, ``cell_supported`` saying which run;
+``period_counts`` and ``with_depth`` cut a config by its segment plan.
 
 A batch entry's ``TensorSpec`` has a numpy dtype for integers and the
 config's torch activation dtype for floats (``patch_embeds``, ``frames``):
@@ -32,7 +36,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import resolve_device
 
 ARCH_MODULES = {
@@ -100,6 +104,15 @@ class ArchBundle:
 
         return init_caches(self.cfg, batch, max_seq, self.cfg.act_dtype, dev)
 
+    def abstract_params(self):
+        """The params' shapes and dtypes as ``meta`` tensors, drawing and
+        allocating nothing (the reference's ``jax.eval_shape`` of ``init``):
+        ``init`` traced under ``FakeTensorMode``
+        (``train/trainer.py:abstract_of``)."""
+        from repro_torch.train.trainer import abstract_of
+
+        return abstract_of(self.init)[0]
+
     def cache_specs(self, batch: int, max_seq: int) -> list:
         """The caches' shapes and dtypes as ``meta`` tensors (the reference's
         ``jax.eval_shape`` of ``make_caches``): ``KVCache``, ``MLACache``,
@@ -127,6 +140,16 @@ def with_depth(cfg: ModelConfig, n_periods: int) -> ModelConfig:
     if cfg.encoder_decoder and cfg.n_encoder_layers:
         kw["n_encoder_layers"] = max(1, cfg.n_encoder_layers * depth // cfg.n_layers)
     return dataclasses.replace(cfg, **kw)
+
+
+def period_counts(cfg: ModelConfig) -> tuple[int, int]:
+    """(prefix_layers, total_periods) of the periodic segment plan."""
+    from repro_torch.models.lm import plan_segments
+
+    segs = plan_segments(cfg)
+    prefix = 0 if len(segs) == 1 else len(segs[0].block)
+    period = len(segs[-1].block)
+    return prefix, (cfg.n_layers - prefix) // period
 
 
 def _vision_tokens(seq: int) -> int:
@@ -184,3 +207,24 @@ def bundle_from_cfg(cfg: ModelConfig, device: str | torch.device = "cuda") -> Ar
                                                                **kw),
         input_specs=lambda shape: specs(cfg, shape),
     )
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Which (arch x shape) cells run: a 500k-token decode needs
+    sub-quadratic serving (the reference's rule)."""
+    if shape.name == "long_500k":
+        if not cfg.sub_quadratic():
+            return False, (
+                "long_500k needs sub-quadratic serving; "
+                f"{cfg.name} is pure full-attention (skip per assignment)"
+            )
+    return True, ""
+
+
+def all_cells(reduced: bool = False):
+    """Yield (arch, shape, supported, reason) for the 10 x 4 grid."""
+    for name in ARCH_IDS:
+        cfg = load_config(name, reduced)
+        for shape in SHAPES.values():
+            ok, why = cell_supported(cfg, shape)
+            yield name, shape, ok, why

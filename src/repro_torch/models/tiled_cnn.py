@@ -36,6 +36,13 @@ class TiledCNNArch:
         gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
         return init_stack_params(gen, self.plan.layers, dtype, self.mesh.device)
 
+    def abstract_params(self):
+        """The params' shapes and dtypes as ``meta`` tensors, drawing and
+        allocating nothing (``train/trainer.py:abstract_of``)."""
+        from repro_torch.train.trainer import abstract_of
+
+        return abstract_of(self.init)[0]
+
     @property
     def out_channels(self) -> int:
         return self.plan.layers[-1].out_channels

@@ -99,9 +99,16 @@ def _layers(stacked: dict, remat: str, body):
     """Each layer's view of ``stacked`` and ``body`` to run on it:
     checkpointed whole for any ``remat`` but ``"none"``."""
     # no layer draws random numbers: the recomputation needs no saved RNG
-    # state (and a captured step could not save the card's)
+    # state (and a captured step could not save the card's); it re-enters the
+    # attention mode of the forward (autograd's thread for a card)
+    enter_attn = attn_mod.captured_impl()
+
+    def run(x, p):
+        with enter_attn():
+            return body(x, p)
+
     fn = body if remat == "none" else (
-        lambda x, p: checkpoint(body, x, p, use_reentrant=False, preserve_rng_state=False))
+        lambda x, p: checkpoint(run, x, p, use_reentrant=False, preserve_rng_state=False))
     return _unbind(stacked, tree_leaves(stacked)[0].shape[0]), fn
 
 
