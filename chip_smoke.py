@@ -335,7 +335,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    attention outputs within ``DECODE_BAR``, the planted faults of
    ``VL_FAULTS`` over it (sections permuted, height and width swapped,
    patches not substituted), beside vs alone; (b) trained as phase 7 at
-   full depth, 4 x 2048 tokens (512 of them patches) in 2 microbatches,
+   ``VL_TRAIN_DEPTH`` (14 layers), 4 x 2048 tokens (512 of them patches)
+   in 2 microbatches,
    bf16, AdamW, 4 steps; (c) served at full depth, ``VL_SERVE_REQUESTS``
    text prompts; (d) both launchers with the id;
 24. Whisper-medium of ROADMAP A.18.6 (``whisper_phase``: the encoder-
@@ -346,7 +347,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``whisper_decoded``; the reference's serving never fills them, ROADMAP
    C.15), within ``DECODE_BAR``, the planted faults of ``WHISPER_FAULTS``
    over it (cross K/V from the decoder's states, a causal encoder, the
-   sinusoid dropped); (b) trained as phase 7, 4 x (2048 frames, 512 tokens)
+   sinusoid dropped); (b) trained as phase 7 (the decoder at ``VL_TRAIN_DEPTH``,
+   12 layers), 4 x (2048 frames, 512 tokens)
    in 2 microbatches, bf16, AdamW, 4 steps (B4 in three modes: the
    encoder's non-causal, the decoder's causal, the cross-attention's 512
    queries against 2048 keys); (c) served at full depth as the reference's
@@ -415,10 +417,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bound on ``analysis/roofline.py:H100`` and the model FLOPs over the
    peak times the replayed step are printed beside 27(c)'s replayed step,
    capture and pool (``{"dryrun": {"train_cell": ...}}``); (b) the
-   training cells of phases 7, 10 and 20-24 dry-run, one line each:
+   training cells of phases 7, 10 and 20-24 dry-run at no more than
+   ``DRYRUN_CELL_DEPTH`` layers, one line each:
    supported, FLOPs and argument bytes a device, ``hbm_ok``, the dominant
    term (``{"dryrun": {"phase_cells": ...}}``; the whole 40-cell grid
    traces for longer than this phase may take).  Launches nothing.
+29. one tile per process (``dist_phase``; ROADMAP A.20.1): phase 5's plan
+   on ``torch.distributed`` ranks spawned by ``parallel/dist.py:run_ranks``
+   (``dist_rank``, each through ``make_train_step`` on its block of the
+   grid): (a) nccl at W = the cards - on one card the params after every
+   step bitwise the virtual mesh's, B1-B3 launches phase 5's; (b)
+   ``DIST_WORLD`` gloo ranks sharing the card, one tile each, started cold
+   (each rank builds B1-B3 into one fresh directory at once; all must load
+   the same libraries): the params after 3 steps within phase 5's
+   fp32-trainer bar and equal on every rank, a strip taken from the wrong
+   neighbour past it; one line per rank with its peak memory, launches,
+   collective stats (halo bytes equal to ``halo_permute_bytes``, the
+   model the CPU test holds to the reference's compiled step) and step
+   ms (staged through host memory: not a result); (c) nccl at
+   ``DIST_WORLD`` ranks where there are that many cards.  The ranks'
+   launches join the ``{"kernels": ...}`` line.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -758,12 +776,31 @@ CHECKSUM_CHUNKS = 64
 # eager twin at 4, two MoE layers as at 5, after it in the same process).
 # The twins run at the depth given, beside the cell's eager run at its own;
 # a depth that still does not fit steps down a layer.
+# Mamba2-780m's twins take a cut too (12 of its 48 layers), for the run's
+# time: the whole run must end inside its 1200 s on a slow host (one run on
+# the card took 1237 s before the cuts here, at VL_TRAIN_DEPTH and at
+# DRYRUN_CELL_DEPTH).  A replay's bits against eager do not depend on depth.
 CAPTURE_TRAIN_DEPTH = {"codeqwen1.5-7b": 13, "command-r-35b": 2, "mixtral-8x22b": 2,
-                       "jamba-v0.1-52b": 3}
+                       "jamba-v0.1-52b": 3, "mamba2-780m": 12}
+# Phase 28(b) traces each training cell at no more than this many layers:
+# the trace costs the host 0.15-0.5 ms an op, and the run's time is bounded
+# as above.
+DRYRUN_CELL_DEPTH = 6
 CAPTURE_EXTRA_REPLAYS = 2       # timed replays past the compared steps (27(c))
 # launches the captured runs' checks executed (warm steps + graphs x replays),
 # by kernel: added to the kernels line
 CAPTURED_LAUNCHES: dict = {}
+
+# Phase 29: one tile per process (ROADMAP A.20.1).  Phase 5's plan (416, the
+# hand-picked groups, batch 8 in 2 microbatches, SGD, 3 steps) on ranks of
+# ``parallel/dist.py``: (a) nccl at W = the cards (1 on one card), bitwise the
+# virtual mesh; (b) DIST_WORLD gloo ranks sharing the card, one tile each,
+# cold: each rank builds DIST_COLD_LIBS into one fresh directory at once
+# (DIST_WARM_LIBS copied in from this checkout's build: B3 alone keeps the
+# run's time); (c) nccl at DIST_WORLD where the machine has that many cards.
+DIST_WORLD = 4
+DIST_COLD_LIBS = ("conv2d_wgrad_tile",)
+DIST_WARM_LIBS = ("conv2d_tile", "conv2d_dgrad_tile")
 
 # Phase 19: LM serving (``lm_serve_phase``).  The slot engine at full width
 # and full depth, bf16, seed-0 params: LM_SERVE_REQUESTS prompts of
@@ -844,6 +881,10 @@ FA_WINDOW_SEQ = 8192
 # tokens; both 4 sequences in 2 microbatches (LM_BATCH, LM_ACCUM), bf16,
 # remat full, AdamW, 3 steps.  The decode checks are fp32 at full depth.
 VL_ARCH, WHISPER_ARCH = "qwen2-vl-2b", "whisper-medium"
+# (b) trains half the layers (Qwen2-VL 14 of 28, Whisper's decoder 12 of 24
+# beside its whole encoder), so the run ends inside its time on a slow host;
+# (a) and (c) keep the full depth
+VL_TRAIN_DEPTH = {VL_ARCH: 14, WHISPER_ARCH: 12}
 VL_SEQ = 2048
 VL_STEPS = 4
 # Qwen2-VL's decode check: LM_SERVE_FORCED tokens, the first VL_GRID^2 of
@@ -1301,6 +1342,15 @@ def planted_handoff_fault(arch, params0, xs, ts, names, ref64, bars, normwise, a
     return fault
 
 
+def deterministic_cudnn():
+    """cuDNN restricted to its deterministic algorithms (TF32 off, as phase
+    3 sets it) for the duration of a ``with`` block."""
+    import torch
+
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                      allow_tf32=False)
+
+
 def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
                 plant_faults: bool = True, steps: int = TRAIN_STEPS, grid=GRID,
                 accum: int = TRAIN_ACCUM, batch_norm: bool = True) -> dict:
@@ -1311,7 +1361,9 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     line; returns its numbers, with the launch count of each kernel in the
     training run under "launches".  A pipeline plan's slot census is held
     to ``pipeline_schedule_census`` and, with ``plant_faults``, its planted
-    fault is the hand-off to the wrong stage rank."""
+    fault is the hand-off to the wrong stage rank.  "reference" holds the
+    fp64 trainer's update, the initial params (both on the host) and the
+    per-leaf bars: phase 29 holds its ranks to them."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1428,8 +1480,18 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     def normwise(a, b):
         return float((a.double() - b.double()).abs().max() / b.double().abs().max())
 
-    ref_loss, ref32 = reference(torch.float32)
-    _, ref64 = reference(torch.float64)
+    # Why the references run on cuDNN's deterministic algorithms (ROADMAP
+    # C.20): the default ones sum in an order that changes from run to run,
+    # so each bar's base, the fp32 reference's distance from fp64, did too
+    # and a bar could not be reproduced.  On phase 14's padded cluster plan
+    # 13.bn_bias's fp32 trainer error spans 0.0013-0.0051 under the default
+    # algorithms, 0.003756 under the deterministic ones, and the port's
+    # fixed 0.007106 sits at 0.95 of that bar: one summation order among
+    # others of the same spread, not a less accurate kernel
+    # (``chip_bar_probe.py``).
+    with deterministic_cudnn():
+        ref_loss, ref32 = reference(torch.float32)
+        _, ref64 = reference(torch.float64)
     plain64 = [normwise(a, b) for a, b in zip(ref32, ref64)]
     bars = [max(WGRAD_NORM_TOL, GRAD_FLOOR_FACTOR * p) for p in plain64]
     vs_plain = [normwise(a, b) for a, b in zip(step1["grads"], ref32)]
@@ -1475,8 +1537,9 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
         return tree_leaves(st.params), out
 
     p0 = tree_leaves(params0)
-    fin64, losses64 = trainer_run(torch.float64)
-    fin32, _ = trainer_run(torch.float32)
+    with deterministic_cudnn():
+        fin64, losses64 = trainer_run(torch.float64)
+        fin32, _ = trainer_run(torch.float32)
     upd64 = [a.double() - b.double() for a, b in zip(fin64, p0)]
 
     def upd_err(fin):
@@ -1504,6 +1567,8 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     after = {"update_err_vs_fp64": max(tail), "fp32_trainer_update_err_vs_fp64": max(tail32),
              "loss_rel_err_vs_fp64": loss64_rel,
              "per_leaf": {n: [a, b] for n, a, b in zip(names, tail, tail32)}}
+    reference = dict(p0=[t.cpu() for t in p0], upd64=[u.cpu() for u in upd64], bars=tail_bars,
+                     losses64=losses64, names=names)
     del fin64, fin32, upd64, ref64
 
     # where the device time of one step goes, by kernel name
@@ -1561,6 +1626,7 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
         "card": smi,
     }
     print(json.dumps({label: out}))
+    out["reference"] = reference
     return out
 
 
@@ -2649,8 +2715,6 @@ MAMBA_RUN = LMRun("mamba_train", MAMBA_ARCH, MAMBA_DEPTH, MAMBA_SEQ, MAMBA_BATCH
 def phase_train_runs() -> list:
     """The training cells of phases 7, 10 and 20-24 (``lm_train_phase``'s
     runs; phase 28 dry-runs each)."""
-    from repro_torch.models.registry import load_config
-
     runs = [QWEN_RUN, MAMBA_RUN]
     runs += [LMRun(f"dense_train_{n}", n, DENSE_TRAIN_DEPTH[n], LM_SEQ, LM_BATCH, LM_ACCUM,
                    DENSE_TRAIN_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, LM_SEQ)
@@ -2662,7 +2726,7 @@ def phase_train_runs() -> list:
                       DS_TRAIN_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, LM_SEQ,
                       optimizer=MOE_OPTIMIZER))
     for key, name in (("vl_train", VL_ARCH), ("whisper_train", WHISPER_ARCH)):
-        runs.append(LMRun(key, name, load_config(name).n_layers, VL_SEQ, LM_BATCH, LM_ACCUM,
+        runs.append(LMRun(key, name, VL_TRAIN_DEPTH[name], VL_SEQ, LM_BATCH, LM_ACCUM,
                           VL_STEPS, LM_GRAD_DEPTH, LM_BATCH // LM_ACCUM, VL_SEQ))
     return runs
 
@@ -4866,7 +4930,7 @@ def vl_phase(dev, smi: str) -> dict:
     ``decode_step`` (``vl_decode_side``), the logits and every attention
     output within DECODE_BAR, each planted fault of VL_FAULTS over it, B6
     the code's count, and a text request beside two others giving its bits
-    alone.  (b) Trained as phase 7 at full depth: LM_BATCH sequences of
+    alone.  (b) Trained as phase 7 at VL_TRAIN_DEPTH: LM_BATCH sequences of
     VL_SEQ tokens (a quarter of them patch embeddings, the registry's
     streams) in LM_ACCUM microbatches, bf16, remat full, AdamW, VL_STEPS
     steps; step 1's loss beside ln V.  (c) Served at full depth
@@ -4938,7 +5002,7 @@ def vl_phase(dev, smi: str) -> dict:
     print(f"phase 23 (a): {times['a']:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
           f"allocated after it")
 
-    # -- (b) training at full width and depth, as phase 7 -----------------------------
+    # -- (b) training at full width, VL_TRAIN_DEPTH, as phase 7 ----------------------
     t0 = time.perf_counter()
     run = train_run("vl_train")
     got = lm_train_phase(dev, smi, run)
@@ -4946,7 +5010,7 @@ def vl_phase(dev, smi: str) -> dict:
     check(set(launches) == {"flash_attention_fwd", "rmsnorm"}, f"{VL_ARCH} launches {launches}")
     step1, ln_v = got["losses"][0], math.log(full.vocab)
     print(json.dumps({"vl_train_summary": {
-        "layers": full.n_layers, "of": full.n_layers, "params": got["params"],
+        "layers": run.depth, "of": full.n_layers, "params": got["params"],
         "patch_tokens_per_sequence": VL_SEQ // 4, "step1_loss": step1, "ln_vocab": ln_v,
         "step_ms_cuda_events_median": got["step_ms_median"],
         "tokens_per_s_cuda_events": got["tokens_per_s"], "peak_mem_bytes": got["peak_mem_bytes"],
@@ -5017,7 +5081,8 @@ def whisper_phase(dev, smi: str) -> dict:
     and the cross-attention) against the tokens teacher-forced through
     ``whisper_decode_step`` with the cross K/V filled from the encoding
     (``whisper_decoded``), within DECODE_BAR, and each planted fault of
-    WHISPER_FAULTS over it.  (b) Trained as phase 7: LM_BATCH sequences of
+    WHISPER_FAULTS over it.  (b) Trained as phase 7, the decoder at
+    VL_TRAIN_DEPTH: LM_BATCH sequences of
     VL_SEQ frames and VL_SEQ / 4 tokens in LM_ACCUM microbatches, bf16, remat
     full, AdamW, VL_STEPS steps (B4 three times a decoder layer's and once an
     encoder layer's forward, twice with remat; no B6: LayerNorm); step 1's
@@ -5088,7 +5153,7 @@ def whisper_phase(dev, smi: str) -> dict:
     print(f"phase 24 (a): {times['a']:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
           f"allocated after it")
 
-    # -- (b) training at full width and depth, as phase 7 -----------------------------
+    # -- (b) training at full width, VL_TRAIN_DEPTH, as phase 7 ----------------------
     t0 = time.perf_counter()
     run = train_run("whisper_train")
     got = lm_train_phase(dev, smi, run)
@@ -5099,7 +5164,8 @@ def whisper_phase(dev, smi: str) -> dict:
     step1, ln_v = got["losses"][0], math.log(full.vocab)
     med_s = got["step_ms_median"] / 1e3
     print(json.dumps({"whisper_train_summary": {
-        "encoder_layers": full.n_encoder_layers, "decoder_layers": full.n_layers,
+        "encoder_layers": full.n_encoder_layers, "decoder_layers": run.depth,
+        "of_decoder_layers": full.n_layers,
         "params": got["params"], "frames_per_sequence": VL_SEQ,
         "tokens_per_sequence": VL_SEQ // 4, "step1_loss": step1, "ln_vocab": ln_v,
         "step_ms_cuda_events_median": got["step_ms_median"],
@@ -5678,8 +5744,8 @@ def lm_capture_run(dev, smi: str, run, cfg, arch, pcfg, tcfg, make_batch, per_mb
     depth = CAPTURE_TRAIN_DEPTH.get(run.arch, cfg.n_layers)
     if depth < cfg.n_layers:
         cfg, arch, per_mb, eager = cut(
-            cfg, depth, f"the captured step does not fit at {cfg.n_layers} layers "
-                        f"(CAPTURE_TRAIN_DEPTH)")
+            cfg, depth, f"CAPTURE_TRAIN_DEPTH cuts the captured step's {cfg.n_layers} layers "
+                        f"(it does not fit, or the run's time)")
     while True:
         try:
             return lm_capture_pair(dev, smi, run, cfg, arch, pcfg, tcfg, make_batch, per_mb,
@@ -6090,6 +6156,287 @@ def capture_elastic_phase(dev, smi: str, root: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def dist_rank(group, build_dir, fault) -> dict:
+    """Phase 29, one rank (``parallel/dist.py:run_ranks``): phase 5's plan
+    on this rank's block of the 2x2 grid, trained TRAIN_STEPS steps from
+    seed 0 through ``make_train_step`` as the launcher runs it.  Returns
+    each step's param checksums, losses and event ms, the B1-B3 launches,
+    the peak memory, the collectives recorded, and on rank 0 the final
+    params.  ``build_dir``: build DIST_COLD_LIBS there first, cold, and
+    report each library's path and hash.  ``fault="wrong_neighbour"``: train
+    again with every row strip sent to (and taken from) the rank mirrored
+    across the columns."""
+    import hashlib
+    from pathlib import Path
+
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.tiling import Group
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import DistTileMesh, make_dist_tile_mesh
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.yolo import make_yolo_tiled_arch
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.serve.exec_cache import kernel_launch_counts
+    from repro_torch.train.trainer import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False          # as phase 3 sets them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = group.device
+    out = {"rank": group.rank, "device": str(dev), "backend": group.backend}
+    if build_dir is not None:
+        _build.BUILD_DIR = Path(build_dir)
+        t0 = time.perf_counter()
+        libs = _build.build(DIST_COLD_LIBS)
+        out["cold_build_s"] = time.perf_counter() - t0
+        out["libs"] = {n: (str(p), hashlib.sha256(p.read_bytes()).hexdigest())
+                       for n, p in libs.items()}
+    mesh = make_dist_tile_mesh(*GRID, dev, group)
+    arch = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
+                                groups=[Group(*g) for g in _HAND], backend="cuda", mesh=mesh)
+    pcfg = ParallelConfig(grad_accum=TRAIN_ACCUM)
+    tcfg = TrainConfig(lr=TRAIN_LR, optimizer="sgd", warmup=0, steps=TRAIN_STEPS, seed=SEED)
+    make_batch = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch.target_shape(TRAIN_BATCH), SEED,
+                               dev)
+    out.update(ranks=list(mesh.ranks), coord=list(mesh.coord), origin=list(mesh.origin))
+
+    def drive():
+        init_state, step = make_train_step(arch, pcfg, tcfg)
+        state = init_state(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        group.take_record()
+        before = kernel_launch_counts()
+        sums, losses, ms = [], [], []
+        for s in range(TRAIN_STEPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, m = step(state, make_batch(s))
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+            losses.append(float(m["loss"]))
+            sums.append(state_checksums(state.params))
+        return dict(checksums=sums, losses=losses, step_ms=ms,
+                    launches=kernel_totals({k: v - before.get(k, 0)
+                                            for k, v in kernel_launch_counts().items()}),
+                    peak=torch.cuda.max_memory_allocated(dev), record=group.take_record(),
+                    params=[t.cpu() for t in tree_leaves(state.params)] if group.rank == 0
+                    else None)
+
+    out["run"] = drive()
+    if fault == "wrong_neighbour":
+        real = DistTileMesh.neighbour
+
+        def mirrored(self, dim, step):
+            r = real(self, dim, step)
+            if r is None or dim != 0:
+                return r
+            pr, pc = divmod(r, self.ranks[1])
+            return pr * self.ranks[1] + (self.ranks[1] - 1 - pc)
+
+        DistTileMesh.neighbour = mirrored
+        try:
+            out["fault"] = drive()
+        finally:
+            DistTileMesh.neighbour = real
+    return out
+
+
+def dist_phase(dev, smi: str, train5: dict) -> dict:
+    """Phase 29: phase 5's plan over ``torch.distributed`` ranks, one block
+    of the tile grid a process (ROADMAP A.20.1).  The virtual mesh's run of
+    the plan (the checksums of its params after each step) and phase 5's
+    bars (the torch-backend trainer in fp64 and fp32) come first; then
+
+    (a) nccl at W = the cards: with one card, the params after every step
+        bitwise the virtual mesh's, and B1-B3 launches phase 5's;
+    (b) DIST_WORLD gloo ranks sharing the card, one tile each, each strip
+        and sum staged through pinned host memory, started cold (each rank
+        builds B1-B3 into one fresh directory at once; all must load the
+        same libraries): the params after TRAIN_STEPS steps held to phase
+        5's fp32-trainer bar, every rank's equal, the wrong-neighbour fault
+        past it; per rank its peak memory, launches, collectives (halo
+        bytes equal to ``analysis/collectives.py:halo_permute_bytes``, the
+        model the CPU test holds to the reference's compiled step) and step
+        ms (host-staged: not a result);
+    (c) nccl at DIST_WORLD ranks, only where the machine has that many
+        cards, held as (b).
+
+    Returns the B1-B3 launches of the correct runs on every rank."""
+    import gc
+    import hashlib
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from repro_torch.analysis.collectives import collective_stats, halo_permute_bytes
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.tiling import Group
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.yolo import make_yolo_tiled_arch
+    from repro_torch.kernels import _build
+    from repro_torch.parallel.dist import rank_grid, run_ranks
+    from repro_torch.train.trainer import make_train_step
+
+    t_phase = time.perf_counter()
+    groups = [Group(*g) for g in _HAND]
+    pcfg = ParallelConfig(grad_accum=TRAIN_ACCUM)
+    tcfg = TrainConfig(lr=TRAIN_LR, optimizer="sgd", warmup=0, steps=TRAIN_STEPS, seed=SEED)
+
+    arch = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
+                                groups=groups, backend="cuda", device=dev)
+    plan = arch.plan
+    make_batch = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch.target_shape(TRAIN_BATCH), SEED, dev)
+    init_state, step = make_train_step(arch, pcfg, tcfg)
+    state = init_state(SEED)
+    virtual = []
+    for s in range(TRAIN_STEPS):
+        state, _ = step(state, make_batch(s))
+        virtual.append(state_checksums(state.params))
+    ref = train5["reference"]       # phase 5's fp64 trainer and bars
+    p0, upd64, bars, losses64, names = (ref[k] for k in ("p0", "upd64", "bars", "losses64",
+                                                          "names"))
+
+    def upd_err(fin):
+        return [float((a.cpu().double() - b.double() - u).abs().max() / u.abs().max())
+                for a, b, u in zip(fin, p0, upd64)]
+
+    per_mb, _ = launches_per_batch(plan, TRAIN_BATCH // TRAIN_ACCUM)
+    want_launches = {k: v * TRAIN_ACCUM * TRAIN_STEPS for k, v in per_mb.items()}
+    check(want_launches == train5["launches"],
+          f"phase 5 launched {train5['launches']}, the code's count {want_launches}")
+    del arch, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def held(label, runs, world):
+        """Checks and prints the runs of one cell; returns its summary."""
+        ranks = rank_grid(*GRID, world)
+        halo = halo_permute_bytes(plan, TRAIN_BATCH // TRAIN_ACCUM, ranks) * TRAIN_ACCUM \
+            * TRAIN_STEPS
+        rows = []
+        for r in runs:
+            run = r["run"]
+            st = collective_stats(run["record"])
+            row = {"rank": r["rank"], "device": r["device"], "backend": r["backend"],
+                   "coord": r["coord"], "peak_mem_bytes": run["peak"],
+                   "launches": run["launches"], "collectives": st.count,
+                   "collective_bytes": st.bytes_naive, "collective_ring_bytes": st.bytes_ring,
+                   "halo_bytes_model": halo, "losses": run["losses"],
+                   "step_ms_cuda_events": run["step_ms"], "card": smi}
+            rows.append(row)
+            print(json.dumps({f"dist29{label}_rank": row}))
+            check(run["launches"] == want_launches,
+                  f"29({label}) rank {r['rank']} launches {run['launches']} != {want_launches}")
+            check(st.bytes_naive.get("collective-permute", 0) == halo,
+                  f"29({label}) rank {r['rank']} halo bytes {st.bytes_naive} != the model's {halo}")
+            check(all(same_checksums(a, b) for a, b in zip(run["checksums"],
+                                                          runs[0]["run"]["checksums"])),
+                  f"29({label}) rank {r['rank']}'s params differ from rank 0's")
+        return rows, halo
+
+    def to_bar(label, final, losses):
+        errs = upd_err(final)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses64))
+        worst = max(range(len(names)), key=lambda i: errs[i] / bars[i])
+        print(f"29({label}) params after {TRAIN_STEPS} steps vs the torch-backend trainer in "
+              f"fp64: update err max {max(errs):.2e}; nearest its bar: {names[worst]} "
+              f"{errs[worst]:.2e}, {errs[worst] / bars[worst]:.3f} of it; losses rel err "
+              f"{loss_rel:.2e}")
+        return errs, loss_rel, errs[worst] / bars[worst]
+
+    out = {"card": smi, "plan_groups": [list(g) for g in _HAND], "steps": TRAIN_STEPS,
+           "global_batch": TRAIN_BATCH, "microbatches": TRAIN_ACCUM}
+    launched = {k: 0 for k in want_launches}
+
+    # (a) nccl at W = the cards
+    world_a = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    runs_a = run_ranks(dist_rank, world_a, "cuda", "nccl", args=(None, None), timeout=900)
+    a_s = time.perf_counter() - t0
+    rows_a, halo_a = held("a", runs_a, world_a)
+    errs_a, loss_a, ratio_a = to_bar("a", runs_a[0]["run"]["params"], runs_a[0]["run"]["losses"])
+    bitwise = [same_checksums(a, b) for a, b in zip(runs_a[0]["run"]["checksums"], virtual)]
+    print(f"29(a) nccl, {world_a} rank(s): params bitwise the virtual mesh's after each step "
+          f"{bitwise}; launches {rows_a[0]['launches']} (phase 5 {train5['launches']}); "
+          f"{a_s:.1f} s with the spawn")
+    if world_a == 1:
+        check(all(bitwise), "29(a): one nccl rank's params differ from the virtual mesh's")
+    check(ratio_a <= 1.0 and loss_a <= TRAIN_LOSS_RTOL, f"29(a) past phase 5's bar: {ratio_a}")
+    out["a"] = {"world": world_a, "backend": "nccl", "bitwise_virtual_each_step": bitwise,
+                "update_err_over_bar": ratio_a, "loss_rel_err_vs_fp64": loss_a,
+                "halo_bytes_model": halo_a, "seconds": a_s, "ranks": rows_a}
+    for r in runs_a:
+        launched = {k: v + r["run"]["launches"][k] for k, v in launched.items()}
+
+    # (b) DIST_WORLD gloo ranks sharing the card, B3 cold
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cold_build_") as cold:
+        for name in DIST_WARM_LIBS:
+            warm = _build.library_path(name)
+            shutil.copy2(warm, Path(cold) / warm.name)
+        runs_b = run_ranks(dist_rank, DIST_WORLD, "cuda", "gloo", args=(cold, "wrong_neighbour"),
+                           timeout=900)
+        # nvcc's output differs from build to build, so each rank may have
+        # loaded its own: all must name one path, and the file left there
+        # must be one rank's whole build (the rename is atomic)
+        paths = [{n: p for n, (p, _) in r["libs"].items()} for r in runs_b]
+        check(all(p == paths[0] for p in paths)
+              and all(p.startswith(cold) for p in paths[0].values()),
+              f"29(b): the cold ranks loaded libraries of different names: {paths}")
+        builds = {n: {r["libs"][n][1] for r in runs_b} for n in DIST_COLD_LIBS}
+        final = {n: hashlib.sha256(Path(p).read_bytes()).hexdigest()
+                 for n, p in paths[0].items()}
+        check(all(final[n] in builds[n] for n in DIST_COLD_LIBS),
+              f"29(b): a library left in place is no rank's build: {final} {builds}")
+        libs = [r["libs"] for r in runs_b]
+    b_s = time.perf_counter() - t0
+    rows_b, halo_b = held("b", runs_b, DIST_WORLD)
+    errs_b, loss_b, ratio_b = to_bar("b", runs_b[0]["run"]["params"], runs_b[0]["run"]["losses"])
+    ferrs, floss, fratio = to_bar("b, wrong neighbour", runs_b[0]["fault"]["params"],
+                                  runs_b[0]["fault"]["losses"])
+    print(f"29(b) gloo, {DIST_WORLD} ranks on {sorted({r['device'] for r in runs_b})}: cold "
+          f"builds {[round(r['cold_build_s'], 1) for r in runs_b]} s, one path each "
+          f"{ {n: p.rsplit('/', 1)[-1] for n, (p, _) in libs[0].items()} } (distinct builds "
+          f"seen { {n: len(v) for n, v in builds.items()} }); update err "
+          f"{ratio_b:.3f} of the bar, the wrong-neighbour fault {fratio:.1f}; {b_s:.1f} s with "
+          f"the spawn")
+    check(ratio_b <= 1.0 and loss_b <= TRAIN_LOSS_RTOL,
+          f"29(b) past phase 5's bar: {ratio_b}, losses {loss_b}")
+    check(fratio > 1.0, f"29(b): the wrong-neighbour fault passed the bar ({fratio})")
+    out["b"] = {"world": DIST_WORLD, "backend": "gloo", "staged_through_host": True,
+                "update_err_over_bar": ratio_b, "loss_rel_err_vs_fp64": loss_b,
+                "wrong_neighbour_err_over_bar": fratio,
+                "cold_build_s": [r["cold_build_s"] for r in runs_b],
+                "libraries": {n: p.rsplit("/", 1)[-1] for n, (p, _) in libs[0].items()},
+                "distinct_builds_seen": {n: len(v) for n, v in builds.items()},
+                "halo_bytes_model": halo_b, "seconds": b_s, "ranks": rows_b}
+    for r in runs_b:
+        launched = {k: v + r["run"]["launches"][k] for k, v in launched.items()}
+
+    # (c) nccl at DIST_WORLD ranks, where there are that many cards
+    if torch.cuda.device_count() >= DIST_WORLD:
+        runs_c = run_ranks(dist_rank, DIST_WORLD, "cuda", "nccl", args=(None, None), timeout=900)
+        rows_c, halo_c = held("c", runs_c, DIST_WORLD)
+        _, loss_c, ratio_c = to_bar("c", runs_c[0]["run"]["params"], runs_c[0]["run"]["losses"])
+        check(ratio_c <= 1.0 and loss_c <= TRAIN_LOSS_RTOL, f"29(c) past phase 5's bar: {ratio_c}")
+        out["c"] = {"world": DIST_WORLD, "backend": "nccl", "update_err_over_bar": ratio_c,
+                    "loss_rel_err_vs_fp64": loss_c, "ranks": rows_c}
+        for r in runs_c:
+            launched = {k: v + r["run"]["launches"][k] for k, v in launched.items()}
+    else:
+        print(f"29(c) not run: {torch.cuda.device_count()} card(s), nccl needs {DIST_WORLD}")
+        out["c"] = None
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = launched
+    print(json.dumps({"dist": out}))
+    return launched
+
+
 def dryrun_cell(run: LMRun, dev, depth=None, accum=None) -> tuple:
     """The dry run of ``run``'s training cell - its config cut to ``depth``
     (default ``run.depth``) layers, its batch, its microbatches (or
@@ -6187,9 +6534,10 @@ def dryrun_phase(dev, smi: str, qwen: dict) -> dict:
 
     rows = []
     for run in phase_train_runs():
-        _, r = dryrun_cell(run, dev, accum=1)
+        _, r = dryrun_cell(run, dev, depth=min(run.depth, DRYRUN_CELL_DEPTH), accum=1)
         rows.append(r)
-        print(f"28(b) [{run.key}: {r['arch']} {r['layers']} layers, {run.batch} x {run.seq}, "
+        print(f"28(b) [{run.key}: {r['arch']} {r['layers']} of {run.depth} layers, "
+              f"{run.batch} x {run.seq}, "
               f"one microbatch] "
               f"{'supported' if r['supported'] else 'skipped'} flops/dev "
               f"{r['flops_per_device']:.4e} args/dev {r['argument_bytes']} "
@@ -6241,6 +6589,16 @@ def main() -> int:
     import tempfile
 
     t_run = time.perf_counter()
+    laps = {}
+
+    def lap(done: str) -> None:
+        """Prints the seconds the phases since the last lap took."""
+        now = time.perf_counter()
+        laps[done], lap.t = now - lap.t, now
+        print(f"phases {done}: {laps[done]:.1f} s; the whole run so far {now - t_run:.1f} s",
+              flush=True)
+
+    lap.t = t_run
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
@@ -6251,6 +6609,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+
+    lap("1")
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.monotonic()
@@ -6296,6 +6656,8 @@ def main() -> int:
           f"B5 wgmma_bf16 without HGMMA in its SASS: {b5_sass}")
     check(len(b5_spills) == 1 and all(v == (0, 0) for v in b5_spills.values()),
           f"B5 wgmma_bf16 spills: {b5_spills}")
+
+    lap("2")
 
     # -- 3. kernel against its plain version ----------------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -6539,6 +6901,8 @@ def main() -> int:
           f"version's distance from fp64, wgrad normwise {WGRAD_NORM_TOL} x max, both bitwise "
           f"equal on a rerun, bf16 outputs {TOL_BF16})")
 
+    lap("3")
+
     # -- 4. serve ------------------------------------------------------------
     rng = np.random.default_rng(SEED)
     params = arch.init(SEED)
@@ -6650,6 +7014,8 @@ def main() -> int:
     del arch, plan, params, sparams, engine, infer, x8, ref, got
     torch.cuda.empty_cache()
 
+    lap("4-5")
+
     # -- 6-8. flash attention and RMSNorm; the LM training path ---------------
     import repro_torch.kernels.ssd_chunk.ops as ssd_ops
     import repro_torch.models.attention as attn_mod
@@ -6672,6 +7038,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"after the Qwen phases: {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated")
 
+    lap("6-8")
+
     # -- 9-11. the SSD kernel; the Mamba2 training path ---------------------
     ssd_rows, ssd_err = ssd_kernel_phase(dev)
     mamba_launches = lm_train_phase(dev, smi, MAMBA_RUN)["launches"]
@@ -6688,6 +7056,8 @@ def main() -> int:
         ["/segments/0/0/mamba/w_out", "/segments/0/0/mamba/norm_scale"],
         "B5's y_intra of head 0 zeroed")
     print(json.dumps({"mamba_grads": mamba_grads}))
+
+    lap("9-11")
 
     # -- 12. the cost model's own plans on the card ----------------------------
     from repro_torch.core.fusion import build_stack_plan
@@ -6832,6 +7202,8 @@ def main() -> int:
     held_b1 = held_serve | held_train | {shape_key(s) for s in new_serve + new_train}
     held_bwd = held_train | {shape_key(s) for s in new_train}
 
+    lap("12")
+
     # -- 13. the overlap schedule and hybrid plans on the card ------------------
     # (a) the hand-picked groups under the overlap schedule
     overlap_kw = dict(groups=groups, schedule="overlap")
@@ -6964,6 +7336,8 @@ def main() -> int:
     print(json.dumps({"phase13_launches": phase13_launches}))
     held_b1 |= set(new_fwd) | set(new_tr)
     held_bwd |= set(new_tr)
+
+    lap("13")
 
     # -- 14. non-uniform tile partitions on the card ----------------------------
     # every phase-14 plan, spec and padded: its groups and the code's launch
@@ -7098,6 +7472,8 @@ def main() -> int:
     auto_launches = {k: v + phase14_launches[k] for k, v in auto_launches.items()}
     print(json.dumps({"phase14_launches": phase14_launches}))
 
+    lap("14")
+
     # -- 15. pipeline tails on the card -------------------------------------------
     # (a) the three plans: groups and stages held to PIPELINE_PLANS_416, the
     # code's launches a microbatch to PIPELINE_LAUNCHES
@@ -7191,6 +7567,8 @@ def main() -> int:
     auto_launches = {k: v + phase15_launches[k] for k, v in auto_launches.items()}
     print(json.dumps({"phase15_launches": phase15_launches}))
 
+    lap("15")
+
     # -- 16. wire codecs on the card -------------------------------------------
     wire_launches, fwd16, dgrad16, wgrad16 = wire_phase(
         dev, smi, train5["loss"][0], held_b1, held_bwd, fwd_row, bwd_rows, calib, images)
@@ -7199,8 +7577,12 @@ def main() -> int:
     wgrad_err = max([wgrad_err] + [r["max_abs_err"] for r in wgrad16])
     auto_launches = {k: v + wire_launches[k] for k, v in auto_launches.items()}
 
+    lap("16")
+
     # -- 17. one CUDA graph per batch bucket -------------------------------------
     auto_launches["conv2d_tile"] += capture_phase(dev, smi, calib, images, step_s)
+
+    lap("17")
 
     # -- 18. elastic training ------------------------------------------------------
     launches18, lm18, fwd18, dgrad18, wgrad18 = elastic_phase(dev, smi, held_b1, held_bwd,
@@ -7210,29 +7592,47 @@ def main() -> int:
     wgrad_err = max([wgrad_err] + [r["max_abs_err"] for r in wgrad18])
     auto_launches = {k: v + launches18[k] for k, v in auto_launches.items()}
 
+    lap("18")
+
     # -- 19. LM serving ------------------------------------------------------------
     b6_serve = lm_serve_phase(dev, smi)
+
+    lap("19")
 
     # -- 20. the dense configs: StableLM-2-1.6B, CodeQwen1.5-7B, Command-R 35B -------
     dense = dense_phase(dev, smi)
 
+    lap("20")
+
     # -- 21. the Mixture-of-Experts configs: Mixtral-8x22B, Jamba-v0.1-52B ----------
     moe = moe_phase(dev, smi)
+
+    lap("21")
 
     # -- 22. DeepSeek-V3-671B: MLA, the shared expert, the MTP head -------------------
     ds = deepseek_phase(dev, smi)
 
+    lap("22")
+
     # -- 23. Qwen2-VL-2B: M-RoPE and patch embeddings ---------------------------------
     vl = vl_phase(dev, smi)
+
+    lap("23")
 
     # -- 24. Whisper-medium: the encoder-decoder and cross-attention --------------------
     wsp = whisper_phase(dev, smi)
 
+    lap("24")
+
     # -- 25. the sequence-sharded Mamba2 forward and decode ---------------------------
     sp = seq_shard_phase(dev, smi)
 
+    lap("25")
+
     # -- 26. remat "dots" -------------------------------------------------------------
     dots = remat_dots_phase(dev, smi)
+
+    lap("26")
 
     # -- 27. the captured training step and decode (27(c) ran in phases 7, 10 and
     # 20-24(b), 27(d) in phases 19-24's serving) ------------------------------------
@@ -7242,17 +7642,25 @@ def main() -> int:
         el27 = capture_elastic_phase(dev, smi, root27)
     phase27_s = time.perf_counter() - t27
     run_s = time.perf_counter() - t_run
-    print(f"phase 27 (a)-(b): {phase27_s:.1f} s; the whole run so far {run_s:.1f} s")
     print(json.dumps({"capture_phase": {
         "cnn_step_ms_eager_vs_replay": [cnn27["step_ms_eager_steady_median"],
                                         cnn27["step_ms_replay_median"]],
         "elastic_graphs": el27["graphs"], "elastic_bitwise": el27["bitwise_equal_to_eager"],
         "phase27ab_s": phase27_s, "run_s": run_s, "card": smi}}))
 
+    lap("27")
+
     # -- 28. the dry run held against the card -----------------------------------------
-    dr = dryrun_phase(dev, smi, qwen7)
-    run_s = time.perf_counter() - t_run
-    print(f"phase 28: {dr['seconds']:.1f} s; the whole run so far {run_s:.1f} s")
+    dryrun_phase(dev, smi, qwen7)
+
+    lap("28")
+
+    # -- 29. one tile per process: phase 5's plan on torch.distributed ranks -------------
+    launches29 = dist_phase(dev, smi, train5)
+    auto_launches = {k: v + launches29[k] for k, v in auto_launches.items()}
+
+    lap("29")
+    print(json.dumps({"phase_seconds": laps, "run_s": time.perf_counter() - t_run}))
 
     kernels = [
         kernel_entry("conv2d_tile", "src/repro_torch/kernels/conv2d_tiled/csrc/conv2d_tile.cu",

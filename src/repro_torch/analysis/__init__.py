@@ -1,11 +1,17 @@
 """Roofline analysis over the dry run's counts (``repro/analysis``).
 
-The reference's ``analysis/hlo.py`` (collective traffic parsed from
-compiled HLO text, scan trip counts, Pallas grids) has no counterpart: the
-port emits no HLO and runs no collective on one card, and a kernel's
-launches by instance are counted by its wrapper (``chip_smoke.py``'s
-``{"kernels": ...}`` line).
+The collective half of the reference's ``analysis/hlo.py`` is
+``collectives.py``: ``CollectiveStats`` and the ring model, filled from the
+collectives a rank records (``parallel/dist.py``) instead of HLO text.  The
+rest (HLO parsing, scan trip counts, Pallas grids) has no counterpart: the
+port emits no HLO, and a kernel's launches by instance are counted by its
+wrapper (``chip_smoke.py``'s ``{"kernels": ...}`` line).
 """
+from repro_torch.analysis.collectives import (
+    CollectiveStats,
+    collective_stats,
+    halo_permute_bytes,
+)
 from repro_torch.analysis.roofline import (
     H100,
     H100_FP32_PEAK_FLOPS,

@@ -18,6 +18,12 @@ microbatches of one batch.  A group exchanges halos once at its input; inside it
 tile carries a recursively grown halo and recomputes boundary regions
 redundantly.  Data-mode groups run on batch blocks of full maps.
 
+The forward, the loss and the deferred step also run on ranks
+(``launch/mesh.py:DistTileMesh``, ``parallel/dist.py``): each rank runs the
+uniform sync plan on its block of tiles, the exchanges and BN sums cross
+ranks, and the deferred step all-reduces the accumulated gradients once at
+batch end.  Other plans raise ``_dist_of``'s ValueError there.
+
 Halo-width algebra (from the eq. 1 recursion, DESIGN.md §2):
 
     group_halo_lo = sum_l P_l * prod_{l'<l in group} S_l'
@@ -83,8 +89,9 @@ from repro_torch.core.tiling import (
     pipeline_first_of,
     validate_profile,
 )
-from repro_torch.launch.mesh import TileMesh, plan_constant
+from repro_torch.launch.mesh import DistTileMesh, TileMesh, plan_constant
 from repro_torch.optim.compression import get_codec
+from repro_torch.parallel.dist import all_reduce_, replicated, tile_mesh_ctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1197,6 +1204,33 @@ def _check_data_batch(plan: StackPlan, batch: int) -> None:
         )
 
 
+def _dist_of(plan: StackPlan, mesh: TileMesh, what: str) -> DistTileMesh | None:
+    """``mesh`` when it spreads the grid over ranks, else None.  Ranks run
+    the uniform sync spatial plan, every grouping included (groups change
+    only halo widths); any other plan raises, naming its ROADMAP item."""
+    if not isinstance(mesh, DistTileMesh):
+        return None
+    outside = [name for name, on in (
+        ("a non-uniform partition", not plan.is_uniform),
+        ("the overlap schedule", plan.schedule == "overlap"),
+        ("a crossover (data-mode tail)", plan.crossover is not None),
+        ("a pipeline tail", bool(plan.stages)),
+        (f"the {plan.wire_codec} wire codec", plan.wire_codec != "none"),
+    ) if on]
+    if outside:
+        raise ValueError(f"{what} on ranks runs the uniform sync spatial plan; "
+                         f"{', '.join(outside)} on ranks is ROADMAP A.20.2")
+    return mesh
+
+
+def _global_sum(dmesh: DistTileMesh, s: torch.Tensor, cnt: float) -> tuple[torch.Tensor, float]:
+    """A rank's loss sum and count summed over the ranks, in one all-reduce
+    (float64), detached: the sum in its own dtype, the count a float."""
+    tot = all_reduce_(dmesh.group, [torch.stack([
+        s.detach().double(), torch.tensor(float(cnt), dtype=torch.float64, device=s.device)])])[0]
+    return tot[0].to(s.dtype), float(tot[1])
+
+
 def _stateless_wire(plan: StackPlan) -> WireCtx | None:
     """Wire ctx for the paths with no EF carry (the single-shot forward and
     loss, the pipeline tick): residuals are fresh zeros, so compression is
@@ -1216,7 +1250,9 @@ def make_tiled_forward(plan: StackPlan, mesh: TileMesh):
     block order, so either way it is (B, OH, OW, C) in input order.  A
     ragged plan packs the input into its padded tiles and unpacks each
     output tile's valid window.  A codec plan compresses its strips
-    statelessly (``_stateless_wire``)."""
+    statelessly (``_stateless_wire``).  On ranks each runs its block and
+    the output is gathered on every rank (not differentiated)."""
+    dmesh = _dist_of(plan, mesh, "make_tiled_forward")
     if plan.stages:
         raise ValueError(
             "pipeline plans have no single-shot forward layout: outputs "
@@ -1238,7 +1274,9 @@ def make_tiled_forward(plan: StackPlan, mesh: TileMesh):
                 f"{plan.input_hw[0]}, {plan.input_hw[1]}, C)"
             )
         _check_data_batch(plan, x.shape[0])
-        return merge(apply_stack_local(params, split(x), plan, wire))
+        with tile_mesh_ctx(dmesh):
+            y = apply_stack_local(params, split(x), plan, wire)
+        return merge(y)
 
     return fwd
 
@@ -1270,8 +1308,14 @@ def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
     batch streams through the stages once) and the last stage scores its
     tiles' rank blocks: the untiled loss again; the returned function's
     ``census`` holds the last call's slot counts.  A codec plan compresses
-    its strips statelessly: every call starts from zero residuals."""
+    its strips statelessly: every call starts from zero residuals.
+
+    On ranks each rank scores its block: the value is the global loss on
+    every rank (the sums and counts all-reduced, detached), and its
+    gradient is the rank's own sum's, with every param ``replicated`` so
+    that the backward sums the ranks' gradients into the global one."""
     _check_not_inference(plan, "make_tiled_loss")
+    dmesh = _dist_of(plan, mesh, "make_tiled_loss")
     if plan.stages:
         local = _make_pipeline_local(plan, mesh, loss_local, microbatches=1)
 
@@ -1291,8 +1335,14 @@ def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
     def loss(params, x, target):
         x = torch.as_tensor(x, device=mesh.device)
         _check_data_batch(plan, x.shape[0])
-        s, c = tiles_loss(apply_stack_local(params, split(x), plan, wire), target)
-        return s / c
+        if dmesh is None:
+            s, c = tiles_loss(apply_stack_local(params, split(x), plan, wire), target)
+            return s / c
+        params = [{k: replicated(v, dmesh.group) for k, v in p.items()} for p in params]
+        with tile_mesh_ctx(dmesh):
+            s, c = tiles_loss(apply_stack_local(params, split(x), plan, wire), target)
+        s_all, c_all = _global_sum(dmesh, s, c)
+        return (s + (s_all - s.detach())) / c_all
 
     return loss
 
@@ -1316,11 +1366,14 @@ def make_deferred_grad_step(
     each microbatch's target is split into the executor's batch blocks
     (``_out_spec``), and autograd runs the adjoint reshard inside each
     microbatch.  The cross-tile sum
-    of the weight gradients needs no separate step here: the tiles are the
-    batch dimension of every conv, so wgrad (B3 on the card) sums the
-    per-tile partials inside its own reduction.  A ``torch.distributed``
-    backend, one tile per device, makes that sum an explicit all-reduce
-    (later work).  Ragged plans score each microbatch as
+    of the weight gradients needs no separate step on the virtual mesh: the
+    tiles are the batch dimension of every conv, so wgrad (B3 on the card)
+    sums the per-tile partials inside its own reduction.  On ranks B3 sums
+    the block's tiles, and the accumulated gradients, the loss sum and the
+    count are all-reduced once after the microbatch loop, before the one
+    division; each rank differentiates its own loss sum (the seed is
+    replicated, so a sum reduced ahead of the backward would count every
+    gradient W times).  Ragged plans score each microbatch as
     ``make_tiled_loss`` does.
 
     A pipeline plan takes ``microbatches`` as the pipeline depth M: ONE
@@ -1339,6 +1392,7 @@ def make_deferred_grad_step(
     gradient of the residual the exchange drew, and the next microbatch's
     bag (``buffers`` mode) hands them out in the same order."""
     _check_not_inference(plan, "make_deferred_grad_step")
+    dmesh = _dist_of(plan, mesh, "make_deferred_grad_step")
     if plan.stages:
         return _pipeline_grad_step(plan, mesh, loss_local, microbatches)
     split = _in_split(plan, mesh)
@@ -1364,7 +1418,8 @@ def make_deferred_grad_step(
             if codec is not None:
                 bag = EFBag("collect") if ef is None else EFBag("buffers", ef)
                 wire = WireCtx(codec, bag)
-            s, c = tiles_loss(apply_stack_local(live, split(xs[i]), plan, wire), ts[i])
+            with tile_mesh_ctx(dmesh):
+                s, c = tiles_loss(apply_stack_local(live, split(xs[i]), plan, wire), ts[i])
             if bag is None:
                 g = torch.autograd.grad(s, leaves, allow_unused=True)
             else:
@@ -1381,6 +1436,9 @@ def make_deferred_grad_step(
                     a.add_(gi)
             loss_sum = loss_sum + s.detach()
             cnt = cnt + c
+        if dmesh is not None:
+            acc = all_reduce_(dmesh.group, acc)
+            loss_sum, cnt = _global_sum(dmesh, loss_sum, cnt)
         it = iter(a / cnt for a in acc)
         grads = [{k: next(it) for k in p} for p in live]
         return loss_sum / cnt, grads

@@ -24,6 +24,12 @@ layout: every tile holds ``max(sizes)`` slots, its valid data in the first
 ``sizes[i]``.  Every tile's size is a plan-time constant on the virtual
 mesh, so each ragged exchange round is ONE precomputed index gather along
 the tile dimension (``_ragged_gather``), whatever the number of tiles.
+
+On ranks (``launch/mesh.py:DistTileMesh``, active through
+``parallel/dist.py:tile_mesh_ctx``) each ``ppermute`` of the sync exchange
+goes through ``dist.permute``: the block shifts locally and its edge
+strips cross to the neighbour rank; the rounds keep their order, so the
+corners still take two hops.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 
 from repro_torch.launch.mesh import plan_constant
 from repro_torch.optim.compression import WireCodec, ef_encode
+from repro_torch.parallel.dist import active_tile_mesh, permute
 
 
 def _shift_perm(n: int, direction: int) -> list[tuple[int, int]]:
@@ -66,7 +73,11 @@ def _shift(x: torch.Tensor, tile_dim: int, direction: int) -> torch.Tensor:
 
 def _move(t: torch.Tensor, tile_dim: int, shift) -> torch.Tensor:
     """A ``ppermute`` on the virtual mesh: ``_shift`` by ``shift`` tiles, or
-    ``"swap"``, the 2-tile exchange ``[(0, 1), (1, 0)]``."""
+    ``"swap"``, the 2-tile exchange ``[(0, 1), (1, 0)]``; on ranks,
+    ``dist.permute`` of the rank's block."""
+    mesh = active_tile_mesh()
+    if mesh is not None:
+        return permute(t, tile_dim, shift, mesh)
     if shift == "swap":
         return torch.flip(t, [tile_dim])
     return _shift(t, tile_dim, shift)

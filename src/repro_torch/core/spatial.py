@@ -12,8 +12,9 @@ halo-extended tile reproduces the global padded conv exactly, because edge
 tiles receive zeros.  Training BN (``_bn_tiled``) takes exact cross-tile
 batch statistics: a sum over the tile dimensions is the reference's
 ``psum``, and autograd differentiates through it as ``jax.grad`` does
-through ``shard_map``.  Inference BN from frozen statistics is elementwise
-and needs no collective.
+through ``shard_map``; on ranks (``parallel/dist.py``) the block's sums are
+all-reduced.  Inference BN from frozen statistics is elementwise and needs
+no collective.
 
 Two executors beside the sync layer: the overlap schedule's group lead
 (``apply_group_lead_overlap``: packed exchange, interior conv on owned data,
@@ -44,6 +45,7 @@ from repro_torch.core.halo import WireCtx, _residual, halo_exchange_1d_packed
 from repro_torch.optim.compression import ef_encode
 from repro_torch.launch.mesh import plan_constant, unpack_grid
 from repro_torch.core.tiling import ConvSpec
+from repro_torch.parallel.dist import active_tile_mesh, all_reduce_sum
 
 # ---------------------------------------------------------------------------
 # Layer definitions (geometry + compute attributes)
@@ -232,14 +234,16 @@ def _offmap_mask(
     shard_hw: tuple[int, int],
     map_hw: tuple[int, int],
     device=None,
+    origin: tuple[int, int] = (0, 0),
 ) -> torch.Tensor:
     """(n, m, ext_h, ext_w) 0/1 mask of positions inside the true map bounds,
-    per tile.  Grouped execution computes values at off-map positions of
-    intermediate layers; the untiled oracle treats those positions as zero
-    padding, so they are zeroed before they feed the next conv."""
-    rows = (torch.arange(n, device=device)[:, None] * shard_hw[0] - halo[0]
+    per tile of a block whose first tile is tile ``origin`` of the grid.
+    Grouped execution computes values at off-map positions of intermediate
+    layers; the untiled oracle treats those positions as zero padding, so
+    they are zeroed before they feed the next conv."""
+    rows = ((torch.arange(n, device=device)[:, None] + origin[0]) * shard_hw[0] - halo[0]
             + torch.arange(ext_h, device=device)[None, :])            # (n, ext_h)
-    cols = (torch.arange(m, device=device)[:, None] * shard_hw[1] - halo[2]
+    cols = ((torch.arange(m, device=device)[:, None] + origin[1]) * shard_hw[1] - halo[2]
             + torch.arange(ext_w, device=device)[None, :])            # (m, ext_w)
     rmask = (rows >= 0) & (rows < map_hw[0])
     cmask = (cols >= 0) & (cols < map_hw[1])
@@ -262,13 +266,17 @@ def _bn_tiled(y, layer, params, core_halo, n_global):
     """Exact cross-tile batch norm on tiles ``(n, m, B, h, w, C)``:
     statistics over core (owned) positions only - halo positions are
     duplicated across tiles and must not be counted twice - summed over the
-    tile dimensions (the reference's psum) and over B, h, w.  The variance
-    is the reference's ``E[y^2] - mean^2``."""
+    tile dimensions (the reference's psum) and over B, h, w; on ranks, the
+    block's two sums in one all-reduce.  The variance is the reference's
+    ``E[y^2] - mean^2``."""
     ext_h, ext_w = y.shape[3], y.shape[4]
     mask = _core_mask(ext_h, ext_w, core_halo, y.device)[:, :, None].to(y.dtype)
     dims = (0, 1, 2, 3, 4)
     s = torch.sum(y * mask, dim=dims)
     ss = torch.sum(torch.square(y) * mask, dim=dims)
+    mesh = active_tile_mesh()
+    if mesh is not None:
+        s, ss = all_reduce_sum(torch.stack([s, ss]), mesh.group).unbind(0)
     mean = s / n_global
     var = ss / n_global - torch.square(mean)
     return _bn_apply(y, mean, var, params["bn_scale"], params["bn_bias"])
@@ -357,7 +365,9 @@ def _finish_layer(
         y = _ACTIVATIONS[layer.act](y)
     if mask_offmap and any(h > 0 for h in out_halo):
         n, m, _, eh, ew, _ = y.shape
-        mask = _offmap_mask(n, m, eh, ew, out_halo, shard_out_hw, map_out_hw, y.device)
+        mesh = active_tile_mesh()
+        mask = _offmap_mask(n, m, eh, ew, out_halo, shard_out_hw, map_out_hw, y.device,
+                            (0, 0) if mesh is None else mesh.origin)
         y = y * mask[:, :, None, :, :, None].to(y.dtype)
     return y
 

@@ -22,6 +22,12 @@ resolves logical axes against it, and a sequence-sharded mixer keeps its
 shards as a tensor dimension of the axis's size (``core/sequence.py``).
 ``make_production_mesh`` and ``make_local_mesh`` are the reference's
 topologies: the 16 x 16 pod (x 2 pods), and the local devices as (1, n).
+
+``make_dist_tile_mesh`` spreads the tile grid over the ranks of a
+``torch.distributed`` group (``parallel/dist.py``): each rank holds a
+block of it, ``(n/Rr, m/Rc, B, h, w, C)``, and the exchanges and sums cross
+ranks.  It is a ``TileMesh`` to its callers: ``split`` gives the rank's
+block, ``merge`` gathers every rank's for an output.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ import dataclasses
 import functools
 
 import torch
+
+from repro_torch.parallel import dist as tdist
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -155,6 +163,73 @@ def make_tile_mesh(n: int, m: int, device: str | torch.device = "cuda") -> TileM
     if n < 1 or m < 1:
         raise ValueError(f"tile grid must be positive; got {n}x{m}")
     return TileMesh(n, m, resolve_device(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class DistTileMesh(TileMesh):
+    """The n x m tile grid spread over the ranks of ``group``: a rank grid
+    ``ranks`` = (Rr, Rc) of equal blocks; this rank, at ``coord`` = (pr,
+    pc) of it, holds tiles ``origin`` .. ``origin + block``.  Uniform
+    partitions only (ragged ones are ROADMAP A.20.2)."""
+
+    group: tdist.TileGroup
+    ranks: tuple[int, int]
+    coord: tuple[int, int]
+
+    @property
+    def block(self) -> tuple[int, int]:
+        return self.n // self.ranks[0], self.m // self.ranks[1]
+
+    @property
+    def origin(self) -> tuple[int, int]:
+        (bn, bm), (pr, pc) = self.block, self.coord
+        return pr * bn, pc * bm
+
+    def neighbour(self, dim: int, step: int) -> int | None:
+        """The rank ``step`` blocks away along tile dimension ``dim``, or
+        None past the grid's edge."""
+        pos = list(self.coord)
+        pos[dim] += step
+        if not 0 <= pos[dim] < self.ranks[dim]:
+            return None
+        return pos[0] * self.ranks[1] + pos[1]
+
+    def split(self, x, rows=None, cols=None):
+        """Global (B, H, W, C) -> this rank's block of tiles (n/Rr, m/Rc, B,
+        H/n, W/m, C)."""
+        if rows is not None:
+            raise ValueError("a non-uniform partition on ranks is ROADMAP A.20.2")
+        (r0, c0), (bn, bm) = self.origin, self.block
+        return super().split(x)[r0:r0 + bn, c0:c0 + bm]
+
+    def merge(self, t, rows=None, cols=None):
+        """Every rank's block of tiles -> global (B, n*h, m*w, C), gathered
+        on every rank; not differentiated (an output)."""
+        if rows is not None:
+            raise ValueError("a non-uniform partition on ranks is ROADMAP A.20.2")
+        with torch.no_grad():
+            blocks = tdist.all_gather_blocks(self.group, t.detach())
+        rows_of = [torch.cat(blocks[pr * self.ranks[1]:(pr + 1) * self.ranks[1]], dim=1)
+                   for pr in range(self.ranks[0])]
+        return super().merge(torch.cat(rows_of, dim=0))
+
+    def split_batch(self, x):
+        raise ValueError("a crossover (data-mode tail) on ranks is ROADMAP A.20.2")
+
+    merge_batch = split_batch
+
+
+def make_dist_tile_mesh(n: int, m: int, device: str | torch.device,
+                        group: tdist.TileGroup) -> DistTileMesh:
+    """The n x m tile grid over ``group``'s ranks (``dist.rank_grid``),
+    this rank's block on ``device``, which must be the group's."""
+    if n < 1 or m < 1:
+        raise ValueError(f"tile grid must be positive; got {n}x{m}")
+    dev = resolve_device(device)
+    if dev.type != group.device.type or (dev.index is not None and dev != group.device):
+        raise ValueError(f"mesh device {dev} is not the group's {group.device}")
+    ranks = tdist.rank_grid(n, m, group.world)
+    return DistTileMesh(n, m, group.device, group, ranks, divmod(group.rank, ranks[1]))
 
 
 @dataclasses.dataclass(frozen=True)

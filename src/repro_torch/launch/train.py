@@ -40,6 +40,21 @@ live state; the LM path has no replan, so a drop there is fatal.
 with ``--resume auto`` a shared default directory would make every run
 resume from (or fail on) another run's checkpoint of another geometry.
 
+On ranks (``--dist``, under torchrun; ``--dist-backend nccl|gloo``), the
+tiled path runs one block of the grid per process, as the reference runs
+one tile per device: ``parallel/dist.py:init_tile_group`` joins the group
+torchrun describes, ``launch/mesh.py:make_dist_tile_mesh`` gives this
+rank's block, every rank draws the same seeded batches and params (rank
+0's broadcast), the halo strips, BN sums and the batch-end gradient sum
+cross ranks, and only rank 0 prints.  The slice is the uniform sync plan:
+checkpoints and faults on ranks, and the plans ``fusion._dist_of``
+refuses, are ROADMAP A.20.2, a captured step on ranks A.20.3, the LM on
+ranks A.20.5::
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch yolov2-tiled --grid 2 --input-hw 416 --depth 16 --groups 4 \
+        --batch 8 --grad-accum 2 --optimizer sgd --steps 3 --dist
+
 Where the reference jits the step (the tiled step, the step after a
 replan, the LM step), the port captures it as a CUDA graph on the card
 (``jit_step``: two eager warm steps, then one capture replayed every step;
@@ -59,6 +74,8 @@ production pod / two pods, whose axes the MoE dispatch reads).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 
 import numpy as np
 import torch
@@ -174,6 +191,12 @@ def _add_args(ap: argparse.ArgumentParser) -> None:
                     help="checkpoint resume policy: 'auto' restores the newest loadable "
                          "checkpoint in --ckpt-dir if one exists, 'always' requires one, "
                          "'never' starts fresh")
+    ap.add_argument("--dist", action="store_true",
+                    help="yolov2-tiled: one block of the tile grid per process over "
+                         "torch.distributed; start under torchrun (see the module docstring)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="--dist: nccl (default on cuda; one rank a card) or gloo (default on "
+                         "cpu; on cuda only when named: strips staged through host memory)")
     ap.add_argument("--fault-schedule", default=None,
                     help="fault-injection schedule (runtime.faults): comma-separated "
                          "'kind[:arg]@step' items.  Kinds: 'drop:<device>@N' (a device - a "
@@ -201,6 +224,27 @@ def make_batch_fn(batch: int, input_hw: int, target_shape, seed: int, device):
 
 
 def _run_tiled(args) -> int:
+    if not args.dist:
+        return _train_tiled(args, None)
+    from repro_torch.parallel.dist import init_tile_group
+
+    refused = [f for f, on in (("--ckpt-dir", args.ckpt_dir), ("--fault-schedule",
+                                                              args.fault_schedule)) if on]
+    if refused:
+        raise ValueError(f"{' and '.join(refused)} under --dist: checkpoints, faults and "
+                         "replans on ranks are ROADMAP A.20.2")
+    group = init_tile_group(args.device, args.dist_backend)
+    quiet = contextlib.redirect_stdout(io.StringIO()) if group.rank else contextlib.nullcontext()
+    try:
+        with quiet:
+            return _train_tiled(args, group)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _train_tiled(args, group) -> int:
+    """The tiled run: on the virtual mesh (``group`` None) or on this
+    rank's block of the grid."""
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.core.fusion import plan_manifest
     from repro_torch.core.grouping import parse_cluster_spec
@@ -214,6 +258,11 @@ def _run_tiled(args) -> int:
         if args.cluster
         else None
     )
+    mesh = None
+    if group is not None:
+        from repro_torch.launch.mesh import make_dist_tile_mesh
+
+        mesh = make_dist_tile_mesh(args.grid, args.grid, group.device, group)
     arch = make_yolo_tiled_arch(
         input_hw=(args.input_hw, args.input_hw),
         depth=args.depth,
@@ -230,6 +279,7 @@ def _run_tiled(args) -> int:
         wire_codec=args.wire_codec,
         batch_norm=not args.no_batch_norm,
         device=args.device,
+        mesh=mesh,
     )
     plan = arch.plan
     print(f"plan: backend={plan.backend} schedule={plan.schedule} "
@@ -237,7 +287,9 @@ def _run_tiled(args) -> int:
           f"groups={[(g.start, g.end, g.mode) for g in plan.groups]}"
           + (f" stages={plan.stages}" if plan.stages else "")
           + (f" wire_codec={plan.wire_codec}" if plan.wire_codec != "none" else "")
-          + f" optimizer={args.optimizer} device={arch.mesh.device}")
+          + f" optimizer={args.optimizer} device={arch.mesh.device}"
+          + (f" dist={group.world} ranks={mesh.ranks[0]}x{mesh.ranks[1]} "
+             f"backend={group.backend} captured=False" if group is not None else ""))
     print(f"partition: rows={plan.partition.row_bounds} cols={plan.partition.col_bounds} "
           f"uniform={plan.is_uniform}" + (f" cluster={args.cluster}" if args.cluster else ""))
     pcfg = ParallelConfig(grad_accum=args.grad_accum)
@@ -249,8 +301,11 @@ def _run_tiled(args) -> int:
     init_state, train_step = make_train_step(arch, pcfg, tcfg)
     make_batch = make_batch_fn(args.batch, args.input_hw, arch.target_shape(args.batch),
                                args.seed, arch.mesh.device)
-    replan = make_replan(arch, cluster, args.hw_profile, args.batch, pcfg, tcfg)
-    step = jit_step(train_step, arch.mesh.device)
+    if group is None:
+        replan = make_replan(arch, cluster, args.hw_profile, args.batch, pcfg, tcfg)
+        step = jit_step(train_step, arch.mesh.device)
+    else:   # a collective captured in a CUDA graph is ROADMAP A.20.3
+        replan, step = None, train_step
     report = run_training(
         init_state=init_state,
         train_step=step,
@@ -263,7 +318,7 @@ def _run_tiled(args) -> int:
         plan=plan_manifest(arch.plan, cluster),
         device=arch.mesh.device,
     )
-    _print_done(report, [step, *replan.live["steps"]], arch.mesh.device)
+    _print_done(report, [step, *(replan.live["steps"] if replan else [])], arch.mesh.device)
     return 0
 
 
@@ -394,6 +449,9 @@ def main(argv=None) -> int:
     _add_args(ap)
     args = ap.parse_args(argv)
     if args.arch != TILED_ARCH:
+        if args.dist:
+            raise ValueError(f"--dist trains {TILED_ARCH}; the LM's data and model axes on "
+                             "process groups are ROADMAP A.20.5")
         return _run_lm(args)
     return _run_tiled(args)
 

@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.core.fusion import StackPlan
 from repro_torch.core.spatial import freeze_bn_stats, init_stack_params
-from repro_torch.launch.mesh import TileMesh
+from repro_torch.launch.mesh import DistTileMesh, TileMesh
+from repro_torch.parallel.dist import broadcast_
 
 LossLocal = Callable[[torch.Tensor, torch.Tensor], tuple[torch.Tensor, float]]
 
@@ -32,9 +33,12 @@ class TiledCNNArch:
 
     def init(self, seed: int | torch.Generator = 0, dtype=torch.float32):
         """He-initialised params on the mesh's device, from a seed or a CPU
-        ``torch.Generator``."""
+        ``torch.Generator``; on ranks, rank 0's, broadcast to every rank."""
         gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
-        return init_stack_params(gen, self.plan.layers, dtype, self.mesh.device)
+        params = init_stack_params(gen, self.plan.layers, dtype, self.mesh.device)
+        if isinstance(self.mesh, DistTileMesh):
+            broadcast_(self.mesh.group, [v for p in params for v in p.values()])
+        return params
 
     def abstract_params(self):
         """The params' shapes and dtypes as ``meta`` tensors, drawing and

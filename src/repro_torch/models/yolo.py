@@ -71,7 +71,9 @@ def l2_loss_local(y: torch.Tensor, t: torch.Tensor):
     paper measures the training cycle, so a dense regression target over
     the output feature map stands in for the detection head (which lives
     beyond layer 16).  The difference is taken in fp32, as the reference
-    does, or in fp64 for fp64 operands."""
+    does, or in fp64 for fp64 operands.  On ranks it sees the rank's block
+    of tiles, so its count is the block's; the executor sums both over the
+    ranks."""
     d = (y - t).to(torch.promote_types(y.dtype, torch.float32))
     return torch.sum(d * d), float(d.numel())
 
@@ -109,7 +111,10 @@ def make_yolo_tiled_arch(
     ``crossover`` as in ``build_stack_plan``; ``partition`` (an explicit
     ``TilePartition``, else derived: cluster-balanced or near-even) and
     ``ragged_exec`` pass through to it, and ``wire_codec``, the plan's codec,
-    which the trainer's grad step and the serve engine's forward run."""
+    which the trainer's grad step and the serve engine's forward run.
+    ``mesh`` replaces the virtual n x m mesh: a ``DistTileMesh``
+    (``launch/mesh.py:make_dist_tile_mesh``) runs the uniform sync plan on
+    this rank's block of the grid."""
     layers = yolov2_16_layers(batch_norm=batch_norm)[:depth]
     plan = build_stack_plan(
         input_hw, layers, n, m, groups,

@@ -30,7 +30,7 @@ import torch
 from repro_torch.core.fusion import StackPlan, make_tiled_infer, resolve_hw_profile
 from repro_torch.core.grouping import ClusterSpec, profile_cost
 from repro_torch.kernels.conv2d_tiled.kernel import launch_counts
-from repro_torch.launch.mesh import TileMesh
+from repro_torch.launch.mesh import DistTileMesh, TileMesh
 from repro_torch.serve.exec_cache import CapturedStep, ExecutableCache, plan_cache_key
 
 
@@ -151,6 +151,10 @@ class CNNServeEngine:
                     f"hybrid plan: buckets {bad} not divisible by the tile "
                     f"count {plan.n}x{plan.m}={t} (data-mode batch split)"
                 )
+        if isinstance(mesh, DistTileMesh):
+            raise ValueError(
+                "the serve engine on ranks (its inference twin captured, buckets dispatched "
+                "on every rank) is ROADMAP A.20.4; make_tiled_infer runs a forward on ranks")
         on_cuda = mesh is not None and mesh.device.type == "cuda"
         if capture and not on_cuda:
             raise ValueError(
