@@ -45,7 +45,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    fp64 run (see ``GRAD_FLOOR_FACTOR``), and that the same check rejects a
    planted wgrad fault (one tile dropped) and a planted dgrad fault (one
    tile's dx zeroed); then the params after the last step against the
-   same trainer run on the torch backend in fp64.  Prints the
+   same trainer run on the torch backend in fp64.  Every bar rests on
+   ``BAR_ORDERS`` orders of the fp32 reference (ROADMAP C.20; each leaf's
+   spread and its bar beside the one-order bar printed).  Prints the
    ``{"train": ...}`` line and a profile of one step;
 6. flash attention (B4) and RMSNorm (B6) against their plain versions on the
    card, TF32 off: at the LM runs' shapes (q (2, 2048, 28, 128), k/v
@@ -422,21 +424,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    supported, FLOPs and argument bytes a device, ``hbm_ok``, the dominant
    term (``{"dryrun": {"phase_cells": ...}}``; the whole 40-cell grid
    traces for longer than this phase may take).  Launches nothing.
-29. one tile per process (``dist_phase``; ROADMAP A.20.1): phase 5's plan
-   on ``torch.distributed`` ranks spawned by ``parallel/dist.py:run_ranks``
-   (``dist_rank``, each through ``make_train_step`` on its block of the
-   grid): (a) nccl at W = the cards - on one card the params after every
-   step bitwise the virtual mesh's, B1-B3 launches phase 5's; (b)
-   ``DIST_WORLD`` gloo ranks sharing the card, one tile each, started cold
-   (each rank builds B1-B3 into one fresh directory at once; all must load
-   the same libraries): the params after 3 steps within phase 5's
-   fp32-trainer bar and equal on every rank, a strip taken from the wrong
-   neighbour past it; one line per rank with its peak memory, launches,
-   collective stats (halo bytes equal to ``halo_permute_bytes``, the
-   model the CPU test holds to the reference's compiled step) and step
-   ms (staged through host memory: not a result); (c) nccl at
-   ``DIST_WORLD`` ranks where there are that many cards.  The ranks'
-   launches join the ``{"kernels": ...}`` line.
+29. one tile per process (``dist_phase``; ROADMAP A.20.1, A.20.2's
+   uniform plans): phase 5's plan, then ``DIST_PLANS`` - phase 13's
+   tpu-v5e-chip plan (overlap, crossover 14) and phase 16's edge_auto int8
+   plan - in the same processes, on ``torch.distributed`` ranks spawned by
+   ``parallel/dist.py:run_ranks`` (``dist_rank``, each through
+   ``make_train_step`` on its block of the grid): (a) nccl at W = the cards
+   - on one card each plan's params after every step bitwise its virtual
+   run's (phase 13's and 16's runs are reused), B1-B3 launches the code's
+   count; (b) ``DIST_WORLD`` gloo ranks sharing the card, one tile each,
+   started cold (each rank builds B1-B3 into one fresh directory at once;
+   all must load the same libraries): the params after 3 steps of phase
+   5's and the hybrid plan within their phases' fp32-trainer bars, the
+   int8 plan's step-1 grads within ``CODEC_BAR`` of its virtual run, every
+   rank's params equal, a strip taken from the wrong neighbour past the
+   bar on every plan (``CODEC_BAR`` on the int8 plan); one line per rank
+   and plan with its
+   peak memory, launches, collectives (count and bytes equal to
+   ``analysis/collectives.py:plan_collectives``, the model the CPU tests
+   hold to the reference's compiled step) and step ms (staged through
+   host memory: not a result); (c) nccl at ``DIST_WORLD`` ranks where
+   there are that many cards.  The ranks' launches join the
+   ``{"kernels": ...}`` line.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -509,6 +518,13 @@ GRAD_FLOOR_FACTOR = 2.0
 # At each path shape B2's max |err| from an fp64 dgrad must be within this
 # factor of the plain fp32 version's own (the two sum in other orders).
 DGRAD_FP64_FACTOR = 2.0
+# ROADMAP C.20: ``train_phase``'s bars rest on BAR_ORDERS fp32 summation
+# orders of the torch-backend reference, not one draw: the images of every
+# microbatch taken in a seeded order (``image_orders``; the first order the
+# identity), under cuDNN's deterministic algorithms.  The math is the same
+# in every order; the BN, loss and wgrad sums run in another.  A leaf's bar
+# is GRAD_FLOOR_FACTOR x the largest of the orders' errors from fp64.
+BAR_ORDERS = 4
 TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_LR = 8, 2, 3, 1e-3
 # bf16 tensor-core peak (dense) of an H100 SXM: B4's bound in bf16
 BF16_PEAK_FLOPS = H100.peak_flops
@@ -615,6 +631,9 @@ HYBRID_PLANS_416 = {
                                  (14, 15, "data")], 14),
 }
 HYBRID_HW = "tpu-v5e-chip"
+# the HYBRID_HW plan phase 13 trains and serves (and phase 29 runs on ranks)
+HYBRID_KW = dict(groups="auto", hw=HYBRID_HW, batch=TRAIN_BATCH, microbatches=TRAIN_ACCUM,
+                 crossover="auto", schedule="overlap")
 # a hybrid plan splits every batch over the 4 tiles, so every bucket divides by 4
 HYBRID_BUCKETS = (4, 8)
 # scripts/check_overlap.py:90: the overlap schedule against the untiled
@@ -704,7 +723,8 @@ WIRE_PLANS_416 = {
     "pipe2x2": ((2, 2), dict(groups=PIPELINE_PLANS_416["pipe2x2"][3], hw=PIPELINE_HW,
                              batch=TRAIN_BATCH, microbatches=2), "int8", 1, False),
     "edge_auto": ((2, 2), dict(groups="auto", hw="jetson-edge-100m", batch=TRAIN_BATCH,
-                               crossover="auto", microbatches=TRAIN_ACCUM), "int8", 1, True),
+                               crossover="auto", microbatches=TRAIN_ACCUM), "int8", TRAIN_STEPS,
+                  True),
 }
 WIRE_SERVE_BUCKETS = (4, 8)
 # Phase 17: every plan an earlier phase serves, with its bucket ladder - name:
@@ -801,6 +821,15 @@ CAPTURED_LAUNCHES: dict = {}
 DIST_WORLD = 4
 DIST_COLD_LIBS = ("conv2d_wgrad_tile",)
 DIST_WARM_LIBS = ("conv2d_tile", "conv2d_dgrad_tile")
+# ... and after phase 5's plan, in the same processes, two more (ROADMAP
+# A.20.2, uniform plans), each TRAIN_STEPS steps: phase 13's HYBRID_HW plan
+# (the overlap schedule, crossover 14), held to phase 13's bars, and phase
+# 16's edge_auto plan under int8 (groups and crossover by the cost model),
+# its step-1 grads held at CODEC_BAR to phase 16's virtual-mesh runs.  At
+# one rank each is bitwise its virtual run; on DIST_WORLD ranks every
+# rank's collectives equal ``analysis/collectives.py:plan_collectives``.
+DIST_PLANS = {"hybrid_tpu": HYBRID_KW, "edge_int8": dict(WIRE_PLANS_416["edge_auto"][1],
+                                                          wire_codec="int8")}
 
 # Phase 19: LM serving (``lm_serve_phase``).  The slot engine at full width
 # and full depth, bf16, seed-0 params: LM_SERVE_REQUESTS prompts of
@@ -1342,6 +1371,21 @@ def planted_handoff_fault(arch, params0, xs, ts, names, ref64, bars, normwise, a
     return fault
 
 
+def image_orders(batch: int, accum: int) -> list:
+    """``BAR_ORDERS`` orders of a batch's images, each a permutation within
+    every one of its ``accum`` microbatches (so each microbatch holds the
+    same images), drawn from numpy's ``default_rng([SEED, k])``; order 0 is
+    the identity."""
+    import numpy as np
+
+    per = batch // accum
+    out = [np.arange(batch)]
+    for k in range(1, BAR_ORDERS):
+        rng = np.random.default_rng([SEED, k])
+        out.append(np.concatenate([i * per + rng.permutation(per) for i in range(accum)]))
+    return out
+
+
 def deterministic_cudnn():
     """cuDNN restricted to its deterministic algorithms (TF32 off, as phase
     3 sets it) for the duration of a ``with`` block."""
@@ -1363,7 +1407,8 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     to ``pipeline_schedule_census`` and, with ``plant_faults``, its planted
     fault is the hand-off to the wrong stage rank.  "reference" holds the
     fp64 trainer's update, the initial params (both on the host) and the
-    per-leaf bars: phase 29 holds its ranks to them."""
+    per-leaf bars, and the run's param checksums after each step: phase 29
+    holds its ranks to them."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1406,7 +1451,7 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     make_batch = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch.target_shape(TRAIN_BATCH), SEED, dev)
 
     # the main path: make_train_step under run_training, counts from 0
-    events, logged, last = [], [], {}
+    events, logged, last, sums = [], [], {}, []
 
     def timed_step(state, batch):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1416,6 +1461,8 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
         events.append((a, b))
         logged.append(m)
         last["state"] = state
+        # a host copy (pinned, queued behind the step), summed after the run
+        sums.append(tree_map(lambda t: t.to("cpu", non_blocking=True), state.params))
         return state, m
 
     kernels = {"conv2d_tile": conv2d_tile, "conv2d_dgrad_tile": conv2d_dgrad_tile,
@@ -1468,12 +1515,14 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
         return v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
 
     b0 = make_batch(0)
+    orders = image_orders(TRAIN_BATCH, accum)
 
-    def reference(dtype):
+    def reference(dtype, order=orders[0]):
         live = [{k: v.detach().to(dtype).requires_grad_(True) for k, v in p.items()}
                 for p in params0]
+        idx = torch.as_tensor(order, device=b0["x"].device)
         loss = sum(reference_loss(live, xm.to(dtype), tm.to(dtype), ref_plan, l2_loss_local)
-                   for xm, tm in zip(split(b0["x"]), split(b0["t"]))) / accum
+                   for xm, tm in zip(split(b0["x"][idx]), split(b0["t"][idx]))) / accum
         grads = torch.autograd.grad(loss, tree_leaves(live))
         return float(loss.detach()), grads
 
@@ -1488,12 +1537,18 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     # algorithms, 0.003756 under the deterministic ones, and the port's
     # fixed 0.007106 sits at 0.95 of that bar: one summation order among
     # others of the same spread, not a less accurate kernel
-    # (``chip_bar_probe.py``).
+    # (``chip_bar_probe.py``).  So each bar rests on BAR_ORDERS orders of the
+    # images within each microbatch (the first the identity), not one.
     with deterministic_cudnn():
         ref_loss, ref32 = reference(torch.float32)
         _, ref64 = reference(torch.float64)
-    plain64 = [normwise(a, b) for a, b in zip(ref32, ref64)]
+        by_order = [[normwise(a, b) for a, b in zip(ref32, ref64)]]
+        for order in orders[1:]:
+            by_order.append([normwise(a, b) for a, b in zip(reference(torch.float32, order)[1],
+                                                            ref64)])
+    plain64 = [max(e) for e in zip(*by_order)]
     bars = [max(WGRAD_NORM_TOL, GRAD_FLOOR_FACTOR * p) for p in plain64]
+    bars_one = [max(WGRAD_NORM_TOL, GRAD_FLOOR_FACTOR * p) for p in by_order[0]]
     vs_plain = [normwise(a, b) for a, b in zip(step1["grads"], ref32)]
     tiled64 = [normwise(a, b) for a, b in zip(step1["grads"], ref64)]
     step1["loss"] = float(step1["loss"])
@@ -1504,6 +1559,15 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
           f"normwise err {max(vs_plain):.2e}; vs fp64: tiled {max(tiled64):.2e}, plain fp32 "
           f"{max(plain64):.2e}; nearest its bar: {names[worst]} tiled {tiled64[worst]:.2e}, "
           f"plain {plain64[worst]:.2e}, {tiled64[worst] / bars[worst]:.2f} of its bar")
+    spread = {n: [min(e), max(e)] for n, e in zip(names, zip(*by_order))}
+    print(json.dumps({f"{label}_step1_bar_orders": {
+        "orders": len(orders), "plain32_err_min_max": spread,
+        "bar_one_order": dict(zip(names, bars_one)), "bar": dict(zip(names, bars)),
+        "nearest": [names[worst], tiled64[worst], bars_one[worst], bars[worst]]}}))
+    print(f"step-1 bars over {len(orders)} image orders: plain fp32 err from fp64 spans up to "
+          f"{max(b / max(a, 1e-30) for a, b in spread.values()):.2f}x by order; nearest its bar "
+          f"{names[worst]} {tiled64[worst]:.2e}, bar {bars[worst]:.2e} (one order "
+          f"{bars_one[worst]:.2e})")
     check(step1["loss"] == losses[0], "on_grads saw another loss than the run logged")
     check(loss_rel <= TRAIN_LOSS_RTOL, f"step-1 loss rel err {loss_rel}")
     for n, t64, p64, bar in zip(names, tiled64, plain64, bars):
@@ -1526,29 +1590,47 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     # is held normwise to the fp64 run, within max(WGRAD_NORM_TOL,
     # GRAD_FLOOR_FACTOR x the fp32 run's own error) - or, after a single
     # step, within the step-1 gradient's bar (ONE_STEP_UPDATE_BAR).
-    def trainer_run(dtype):
+    def trainer_run(dtype, order=orders[0]):
         init, step = make_train_step(make_arch("torch"), pcfg, tcfg)
         p = tree_map(lambda t: t.to(dtype), init(SEED).params)
         st = TrainState(p, make_optimizer(tcfg.optimizer).init(p), 0)
         out = []
         for s in range(steps):
-            st, m = step(st, {k: v.to(dtype) for k, v in make_batch(s).items()})
+            batch = make_batch(s)
+            idx = torch.as_tensor(order, device=batch["x"].device)
+            st, m = step(st, {k: v[idx].to(dtype) for k, v in batch.items()})
             out.append(float(m["loss"]))
         return tree_leaves(st.params), out
 
     p0 = tree_leaves(params0)
     with deterministic_cudnn():
         fin64, losses64 = trainer_run(torch.float64)
-        fin32, _ = trainer_run(torch.float32)
     upd64 = [a.double() - b.double() for a, b in zip(fin64, p0)]
 
     def upd_err(fin):
         return [normwise(a.double() - b.double(), u) for a, b, u in zip(fin, p0, upd64)]
 
+    # the fp32 trainer in BAR_ORDERS image orders (one after a single step,
+    # whose bars are the step-1 gradients')
+    with deterministic_cudnn():
+        tail_by_order = [upd_err(trainer_run(torch.float32, order)[0])
+                         for order in (orders if steps > 1 else orders[:1])]
     tail = upd_err(tree_leaves(last["state"].params))
-    tail32 = upd_err(fin32)
+    tail32 = [max(e) for e in zip(*tail_by_order)]
     tail_bars = ([max(WGRAD_NORM_TOL, GRAD_FLOOR_FACTOR * e) for e in tail32] if steps > 1
                  else bars)
+    if steps > 1:
+        tail_one = [max(WGRAD_NORM_TOL, GRAD_FLOOR_FACTOR * e) for e in tail_by_order[0]]
+        near = max(range(len(names)), key=lambda i: tail[i] / tail_bars[i])
+        print(json.dumps({f"{label}_update_bar_orders": {
+            "orders": len(tail_by_order),
+            "fp32_trainer_err_min_max": {n: [min(e), max(e)]
+                                         for n, e in zip(names, zip(*tail_by_order))},
+            "bar_one_order": dict(zip(names, tail_one)), "bar": dict(zip(names, tail_bars)),
+            "nearest": [names[near], tail[near], tail_one[near], tail_bars[near]]}}))
+        print(f"update bars over {len(tail_by_order)} image orders: nearest its bar "
+              f"{names[near]} {tail[near]:.2e}, bar {tail_bars[near]:.2e} (one order "
+              f"{tail_one[near]:.2e}: {tail[near] / tail_one[near]:.2f} of it)")
     loss64_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses64))
     worst = max(range(len(names)), key=lambda i: tail[i] / tail_bars[i])
     print(f"params after {steps} steps vs the torch-backend trainer in fp64: update err max "
@@ -1568,8 +1650,9 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
              "loss_rel_err_vs_fp64": loss64_rel,
              "per_leaf": {n: [a, b] for n, a, b in zip(names, tail, tail32)}}
     reference = dict(p0=[t.cpu() for t in p0], upd64=[u.cpu() for u in upd64], bars=tail_bars,
-                     losses64=losses64, names=names)
-    del fin64, fin32, upd64, ref64
+                     losses64=losses64, names=names,
+                     checksums=[state_checksums(p) for p in sums])
+    del fin64, upd64, ref64
 
     # where the device time of one step goes, by kernel name
     state = init_state(SEED)
@@ -1643,8 +1726,8 @@ def wire_run(dev, smi: str, arch, label: str, steps: int, accum: int) -> dict:
     """Phase 16: train ``arch`` (a codec plan or its none twin) for ``steps``
     steps of ``accum`` microbatches through B1-B3 as phase 5 does, then
     profile one step.  Returns its numbers, the step-1 loss and gradients
-    (as the run's update saw them) and the run's conv launches against the
-    code's count."""
+    (as the run's update saw them), the params' checksums after each step
+    and the run's conv launches against the code's count."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1657,7 +1740,7 @@ def wire_run(dev, smi: str, arch, label: str, steps: int, accum: int) -> dict:
         reset_launches,
     )
     from repro_torch.launch.train import make_batch_fn
-    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
     from repro_torch.runtime.driver import DriverConfig, run_training
     from repro_torch.train.trainer import make_train_step
 
@@ -1672,7 +1755,7 @@ def wire_run(dev, smi: str, arch, label: str, steps: int, accum: int) -> dict:
 
     init_state, train_step = make_train_step(arch, pcfg, tcfg, on_grads=on_grads)
     make_batch = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch.target_shape(TRAIN_BATCH), SEED, dev)
-    events, logged = [], []
+    events, logged, sums = [], [], []
 
     def timed_step(state, batch):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1681,6 +1764,8 @@ def wire_run(dev, smi: str, arch, label: str, steps: int, accum: int) -> dict:
         b.record()
         events.append((a, b))
         logged.append(m)
+        # a host copy (pinned, queued behind the step), summed after the run
+        sums.append(tree_map(lambda t: t.to("cpu", non_blocking=True), state.params))
         return state, m
 
     kernels = {"conv2d_tile": conv2d_tile, "conv2d_dgrad_tile": conv2d_dgrad_tile,
@@ -1734,7 +1819,7 @@ def wire_run(dev, smi: str, arch, label: str, steps: int, accum: int) -> dict:
         "idle_share": max(0.0, 1 - dev_ms / wall_ms), "device_kernels_per_step": kernel_events,
         "peak_mem_bytes": peak, "conv_launches": launches,
         "conv_launches_per_microbatch": per_mb, "card": smi,
-        "_step1": step1,
+        "_step1": step1, "_checksums": [state_checksums(p) for p in sums],
     }
 
 
@@ -1789,7 +1874,8 @@ def wire_phase(dev, smi: str, phase5_loss: float, held_b1: set, held_bwd: set, f
     codec forward; (d) both launchers with ``--wire-codec int8``; (e) B1-B3
     at every new per-tile shape (``fwd_row`` / ``bwd_rows``, phase 3's
     checks).  Every plan beside its none twin in the ``{"wire": ...}``
-    line.  Returns (conv launches, B1, B2 and B3 rows of the new shapes)."""
+    line.  Returns (conv launches, B1, B2 and B3 rows of the new shapes,
+    the edge_auto runs' checksums and step-1 grads for phase 29)."""
     import numpy as np
     import torch
 
@@ -2073,9 +2159,13 @@ def wire_phase(dev, smi: str, phase5_loss: float, held_b1: set, held_bwd: set, f
         "card": smi,
     }}))
     print(json.dumps({"phase16_launches": wire_launches}))
+    # phase 29 holds its ranks to the edge_auto runs: checksums, step-1 grads
+    edge16 = {c: {"checksums": r["_checksums"],
+                  "step1_grads": [g.cpu() for g in r["_step1"]["grads"]]}
+              for c, r in wire_runs["edge_auto"].items()}
     del wire_runs, archs16
     torch.cuda.empty_cache()
-    return wire_launches, fwd16, dgrad16, wgrad16
+    return wire_launches, fwd16, dgrad16, wgrad16, edge16
 
 
 def serve_phase(dev, smi: str, arch, label: str, buckets, images, calib) -> dict:
@@ -6156,16 +6246,18 @@ def capture_elastic_phase(dev, smi: str, root: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def dist_rank(group, build_dir, fault) -> dict:
-    """Phase 29, one rank (``parallel/dist.py:run_ranks``): phase 5's plan
+def dist_rank(group, build_dir, fault, plans) -> dict:
+    """Phase 29, one rank (``parallel/dist.py:run_ranks``): phase 5's plan,
+    then each plan of ``plans`` (label -> ``make_yolo_tiled_arch`` kwargs),
     on this rank's block of the 2x2 grid, trained TRAIN_STEPS steps from
-    seed 0 through ``make_train_step`` as the launcher runs it.  Returns
+    seed 0 through ``make_train_step`` as the launcher runs it.  Per plan:
     each step's param checksums, losses and event ms, the B1-B3 launches,
     the peak memory, the collectives recorded, and on rank 0 the final
-    params.  ``build_dir``: build DIST_COLD_LIBS there first, cold, and
-    report each library's path and hash.  ``fault="wrong_neighbour"``: train
-    again with every row strip sent to (and taken from) the rank mirrored
-    across the columns."""
+    params and the step-1 gradients.  ``build_dir``: build DIST_COLD_LIBS
+    there first, cold, and report each library's path and hash.
+    ``fault="wrong_neighbour"``: train phase 5's plan and each plan of
+    ``plans`` again with every row strip sent to (and taken from) the rank
+    mirrored across the columns."""
     import hashlib
     from pathlib import Path
 
@@ -6193,16 +6285,20 @@ def dist_rank(group, build_dir, fault) -> dict:
         out["libs"] = {n: (str(p), hashlib.sha256(p.read_bytes()).hexdigest())
                        for n, p in libs.items()}
     mesh = make_dist_tile_mesh(*GRID, dev, group)
-    arch = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
-                                groups=[Group(*g) for g in _HAND], backend="cuda", mesh=mesh)
     pcfg = ParallelConfig(grad_accum=TRAIN_ACCUM)
     tcfg = TrainConfig(lr=TRAIN_LR, optimizer="sgd", warmup=0, steps=TRAIN_STEPS, seed=SEED)
-    make_batch = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch.target_shape(TRAIN_BATCH), SEED,
-                               dev)
     out.update(ranks=list(mesh.ranks), coord=list(mesh.coord), origin=list(mesh.origin))
 
-    def drive():
-        init_state, step = make_train_step(arch, pcfg, tcfg)
+    def drive(arch):
+        step1 = {}
+
+        def on_grads(step, loss, grads):
+            if step == 0 and not step1 and group.rank == 0:
+                step1["grads"] = [g.detach().cpu() for g in tree_leaves(grads)]
+
+        make_batch = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch.target_shape(TRAIN_BATCH),
+                                   SEED, dev)
+        init_state, step = make_train_step(arch, pcfg, tcfg, on_grads=on_grads)
         state = init_state(SEED)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -6223,44 +6319,59 @@ def dist_rank(group, build_dir, fault) -> dict:
                                             for k, v in kernel_launch_counts().items()}),
                     peak=torch.cuda.max_memory_allocated(dev), record=group.take_record(),
                     params=[t.cpu() for t in tree_leaves(state.params)] if group.rank == 0
-                    else None)
+                    else None, step1_grads=step1.get("grads"))
 
-    out["run"] = drive()
-    if fault == "wrong_neighbour":
-        real = DistTileMesh.neighbour
+    def arch_of(kw):
+        return make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
+                                    backend="cuda", mesh=mesh, **kw)
 
-        def mirrored(self, dim, step):
-            r = real(self, dim, step)
-            if r is None or dim != 0:
-                return r
-            pr, pc = divmod(r, self.ranks[1])
-            return pr * self.ranks[1] + (self.ranks[1] - 1 - pc)
+    archs = {"phase5": arch_of(dict(groups=[Group(*g) for g in _HAND]))}
+    archs.update({label: arch_of(kw) for label, kw in plans.items()})
+    out["runs"], out["faults"] = {}, {}
+    for label, arch in archs.items():
+        out["runs"][label] = drive(arch)
+        if fault == "wrong_neighbour":
+            real = DistTileMesh.neighbour
 
-        DistTileMesh.neighbour = mirrored
-        try:
-            out["fault"] = drive()
-        finally:
-            DistTileMesh.neighbour = real
+            def mirrored(self, dim, step):
+                r = real(self, dim, step)
+                if r is None or dim != 0:
+                    return r
+                pr, pc = divmod(r, self.ranks[1])
+                return pr * self.ranks[1] + (self.ranks[1] - 1 - pc)
+
+            DistTileMesh.neighbour = mirrored
+            try:
+                out["faults"][label] = drive(arch)
+            finally:
+                DistTileMesh.neighbour = real
     return out
 
 
-def dist_phase(dev, smi: str, train5: dict) -> dict:
-    """Phase 29: phase 5's plan over ``torch.distributed`` ranks, one block
-    of the tile grid a process (ROADMAP A.20.1).  The virtual mesh's run of
-    the plan (the checksums of its params after each step) and phase 5's
-    bars (the torch-backend trainer in fp64 and fp32) come first; then
+def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict) -> dict:
+    """Phase 29: phase 5's plan, then DIST_PLANS, over ``torch.distributed``
+    ranks, one block of the tile grid a process (ROADMAP A.20.1, A.20.2's
+    uniform plans).  The virtual mesh's run of phase 5's plan (the
+    checksums of its params after each step) comes first; the new plans'
+    virtual runs are phase 13's (``hybrid13``: its checksums, its
+    torch-backend trainer in fp64 and its bars) and phase 16's (``edge16``:
+    the int8 run's checksums and step-1 grads, its none twin's step-1
+    grads).  Then
 
-    (a) nccl at W = the cards: with one card, the params after every step
-        bitwise the virtual mesh's, and B1-B3 launches phase 5's;
-    (b) DIST_WORLD gloo ranks sharing the card, one tile each, each strip
-        and sum staged through pinned host memory, started cold (each rank
-        builds B1-B3 into one fresh directory at once; all must load the
-        same libraries): the params after TRAIN_STEPS steps held to phase
-        5's fp32-trainer bar, every rank's equal, the wrong-neighbour fault
-        past it; per rank its peak memory, launches, collectives (halo
-        bytes equal to ``analysis/collectives.py:halo_permute_bytes``, the
-        model the CPU test holds to the reference's compiled step) and step
-        ms (host-staged: not a result);
+    (a) nccl at W = the cards: with one card, each plan's params after every
+        step bitwise its virtual run's, and B1-B3 launches the code's count;
+    (b) DIST_WORLD gloo ranks sharing the card, one tile each, each strip,
+        gather and sum staged through pinned host memory, started cold (each
+        rank builds B1-B3 into one fresh directory at once; all must load
+        the same libraries): the params after TRAIN_STEPS steps of phase
+        5's and the hybrid plan held to their phases' fp32-trainer bars, the
+        int8 plan's step-1 grads at CODEC_BAR to its virtual codec run,
+        every rank's params equal, the wrong-neighbour fault past its bar
+        on every plan (the int8 plan's: CODEC_BAR); per rank and plan its
+        peak memory, launches, collectives (count and bytes equal to
+        ``analysis/collectives.py:plan_collectives``, the model the CPU
+        tests hold to the reference's compiled step) and step ms
+        (host-staged: not a result);
     (c) nccl at DIST_WORLD ranks, only where the machine has that many
         cards, held as (b).
 
@@ -6273,7 +6384,7 @@ def dist_phase(dev, smi: str, train5: dict) -> dict:
 
     import torch
 
-    from repro_torch.analysis.collectives import collective_stats, halo_permute_bytes
+    from repro_torch.analysis.collectives import collective_stats, plan_collectives
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.core.tiling import Group
     from repro_torch.launch.train import make_batch_fn
@@ -6289,7 +6400,6 @@ def dist_phase(dev, smi: str, train5: dict) -> dict:
 
     arch = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
                                 groups=groups, backend="cuda", device=dev)
-    plan = arch.plan
     make_batch = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch.target_shape(TRAIN_BATCH), SEED, dev)
     init_state, step = make_train_step(arch, pcfg, tcfg)
     state = init_state(SEED)
@@ -6297,81 +6407,141 @@ def dist_phase(dev, smi: str, train5: dict) -> dict:
     for s in range(TRAIN_STEPS):
         state, _ = step(state, make_batch(s))
         virtual.append(state_checksums(state.params))
-    ref = train5["reference"]       # phase 5's fp64 trainer and bars
-    p0, upd64, bars, losses64, names = (ref[k] for k in ("p0", "upd64", "bars", "losses64",
-                                                          "names"))
-
-    def upd_err(fin):
-        return [float((a.cpu().double() - b.double() - u).abs().max() / u.abs().max())
-                for a, b, u in zip(fin, p0, upd64)]
-
-    per_mb, _ = launches_per_batch(plan, TRAIN_BATCH // TRAIN_ACCUM)
-    want_launches = {k: v * TRAIN_ACCUM * TRAIN_STEPS for k, v in per_mb.items()}
-    check(want_launches == train5["launches"],
-          f"phase 5 launched {train5['launches']}, the code's count {want_launches}")
+    plans = {"phase5": arch.plan}
+    plans.update({label: make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
+                                              backend="cuda", device=dev, **kw).plan
+                  for label, kw in DIST_PLANS.items()})
+    virtual = {"phase5": virtual, "hybrid_tpu": hybrid13["reference"]["checksums"],
+               "edge_int8": edge16["int8"]["checksums"]}
+    refs = {"phase5": train5["reference"], "hybrid_tpu": hybrid13["reference"]}
+    names = train5["reference"]["names"]
+    want_launches = {}
+    for label, plan in plans.items():
+        per_mb, _ = launches_per_batch(plan, TRAIN_BATCH // TRAIN_ACCUM)
+        want_launches[label] = {k: v * TRAIN_ACCUM * TRAIN_STEPS for k, v in per_mb.items()}
+    for label, run in (("phase5", train5), ("hybrid_tpu", hybrid13)):
+        check(want_launches[label] == run["launches"],
+              f"{label} launched {run['launches']}, the code's count {want_launches[label]}")
+    check(len(virtual["hybrid_tpu"]) == len(virtual["edge_int8"]) == TRAIN_STEPS,
+          "phases 13 and 16 kept no checksums of their virtual runs")
+    print(f"phase 29 plans: " + "; ".join(
+        f"{label} schedule {p.schedule} crossover {p.crossover} codec {p.wire_codec} groups "
+        f"{[(g.start, g.end, g.mode) for g in p.groups]}" for label, p in plans.items()))
     del arch, state, step
     gc.collect()
     torch.cuda.empty_cache()
 
-    def held(label, runs, world):
-        """Checks and prints the runs of one cell; returns its summary."""
+    def held(cell, runs, world):
+        """Checks and prints the runs of one cell, every plan; returns its
+        rows and each plan's model of the collectives."""
         ranks = rank_grid(*GRID, world)
-        halo = halo_permute_bytes(plan, TRAIN_BATCH // TRAIN_ACCUM, ranks) * TRAIN_ACCUM \
-            * TRAIN_STEPS
-        rows = []
-        for r in runs:
-            run = r["run"]
-            st = collective_stats(run["record"])
-            row = {"rank": r["rank"], "device": r["device"], "backend": r["backend"],
-                   "coord": r["coord"], "peak_mem_bytes": run["peak"],
-                   "launches": run["launches"], "collectives": st.count,
-                   "collective_bytes": st.bytes_naive, "collective_ring_bytes": st.bytes_ring,
-                   "halo_bytes_model": halo, "losses": run["losses"],
-                   "step_ms_cuda_events": run["step_ms"], "card": smi}
-            rows.append(row)
-            print(json.dumps({f"dist29{label}_rank": row}))
-            check(run["launches"] == want_launches,
-                  f"29({label}) rank {r['rank']} launches {run['launches']} != {want_launches}")
-            check(st.bytes_naive.get("collective-permute", 0) == halo,
-                  f"29({label}) rank {r['rank']} halo bytes {st.bytes_naive} != the model's {halo}")
-            check(all(same_checksums(a, b) for a, b in zip(run["checksums"],
-                                                          runs[0]["run"]["checksums"])),
-                  f"29({label}) rank {r['rank']}'s params differ from rank 0's")
-        return rows, halo
+        rows, models = [], {}
+        for label, plan in plans.items():
+            model = {k: [c * TRAIN_ACCUM * TRAIN_STEPS, b * TRAIN_ACCUM * TRAIN_STEPS] for k, (c, b)
+                     in plan_collectives(plan, TRAIN_BATCH // TRAIN_ACCUM, ranks).items()}
+            models[label] = model
+            for r in runs:
+                run = r["runs"][label]
+                st = collective_stats(run["record"])
+                got = {k: [st.count[k], st.bytes_naive[k]] for k in st.count if k != "all-reduce"}
+                row = {"rank": r["rank"], "plan": label, "device": r["device"],
+                       "backend": r["backend"], "coord": r["coord"],
+                       "peak_mem_bytes": run["peak"], "launches": run["launches"],
+                       "collectives": st.count, "collective_bytes": st.bytes_naive,
+                       "collective_ring_bytes": st.bytes_ring, "model": model,
+                       "losses": run["losses"], "step_ms_cuda_events": run["step_ms"],
+                       "card": smi}
+                rows.append(row)
+                print(json.dumps({f"dist29{cell}_rank": row}))
+                check(run["launches"] == want_launches[label],
+                      f"29({cell}) {label} rank {r['rank']} launches {run['launches']} != "
+                      f"{want_launches[label]}")
+                check(got == model, f"29({cell}) {label} rank {r['rank']} collectives {got} != "
+                      f"the model's {model}")
+                check(all(same_checksums(a, b) for a, b in zip(
+                    run["checksums"], runs[0]["runs"][label]["checksums"])),
+                      f"29({cell}) {label} rank {r['rank']}'s params differ from rank 0's")
+        return rows, models
 
-    def to_bar(label, final, losses):
-        errs = upd_err(final)
-        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses64))
-        worst = max(range(len(names)), key=lambda i: errs[i] / bars[i])
-        print(f"29({label}) params after {TRAIN_STEPS} steps vs the torch-backend trainer in "
-              f"fp64: update err max {max(errs):.2e}; nearest its bar: {names[worst]} "
-              f"{errs[worst]:.2e}, {errs[worst] / bars[worst]:.3f} of it; losses rel err "
+    def to_bar(cell, label, run):
+        """The update error of ``run``'s params after TRAIN_STEPS steps over
+        its phase's bar, per leaf -> (errs, losses rel err, the worst ratio)."""
+        ref = refs[label]
+        errs = [float((a.cpu().double() - b.double() - u).abs().max() / u.abs().max())
+                for a, b, u in zip(run["params"], ref["p0"], ref["upd64"])]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses64"]))
+        worst = max(range(len(names)), key=lambda i: errs[i] / ref["bars"][i])
+        ratio = errs[worst] / ref["bars"][worst]
+        print(f"29({cell}) {label}: params after {TRAIN_STEPS} steps vs the torch-backend "
+              f"trainer in fp64: update err max {max(errs):.2e}; nearest its bar: "
+              f"{names[worst]} {errs[worst]:.2e}, {ratio:.3f} of it; losses rel err "
               f"{loss_rel:.2e}")
-        return errs, loss_rel, errs[worst] / bars[worst]
+        return errs, loss_rel, ratio
 
-    out = {"card": smi, "plan_groups": [list(g) for g in _HAND], "steps": TRAIN_STEPS,
-           "global_batch": TRAIN_BATCH, "microbatches": TRAIN_ACCUM}
-    launched = {k: 0 for k in want_launches}
+    def codec_grads(cell, run):
+        """The int8 plan's step-1 grads against phase 16's virtual int8 run
+        at CODEC_BAR x the codec's effect there (its none twin), floored at
+        fp32 (``normwise_codec``): the worst err / bar over the leaves."""
+        seen = {}
+        for n, g, vc, vn in zip(names, run["step1_grads"], edge16["int8"]["step1_grads"],
+                                edge16["none"]["step1_grads"]):
+            err, bar = normwise_codec(g, vc, vn, CODEC_BAR)
+            seen[n] = (err / bar, err, bar, CODEC_BAR * float((vc.double() - vn.double()).norm()))
+        worst = max(seen, key=lambda n: seen[n][0])
+        ratio, err, bar, term = seen[worst]
+        print(f"29({cell}) edge_int8: step-1 grads vs the virtual int8 run, err / bar (bar "
+              f"{CODEC_BAR} x the codec's effect, floored at fp32) up to "
+              f"{ratio:.3g} ({worst}: err {err:.3g}, bar {bar:.3g}, its codec term {term:.3g})")
+        return ratio
+
+    def to_bars(cell, runs):
+        """Each plan's check against its virtual run's bars; -> summary."""
+        res = {}
+        for label in plans:
+            run = runs[0]["runs"][label]
+            if label in refs:
+                _, loss_rel, ratio = to_bar(cell, label, run)
+                check(ratio <= 1.0 and loss_rel <= TRAIN_LOSS_RTOL,
+                      f"29({cell}) {label} past its phase's bar: {ratio}, losses {loss_rel}")
+                res[label] = {"update_err_over_bar": ratio, "loss_rel_err_vs_fp64": loss_rel}
+            else:
+                ratio = codec_grads(cell, run)
+                check(ratio <= 1.0, f"29({cell}) {label} step-1 grads past CODEC_BAR: {ratio}")
+                res[label] = {"step1_grads_err_over_codec_bar": ratio}
+        return res
+
+    out = {"card": smi, "plans": {label: {"schedule": p.schedule, "crossover": p.crossover,
+                                          "codec": p.wire_codec,
+                                          "groups": [[g.start, g.end, g.mode] for g in p.groups]}
+                                  for label, p in plans.items()},
+           "steps": TRAIN_STEPS, "global_batch": TRAIN_BATCH, "microbatches": TRAIN_ACCUM}
+    launched = {k: 0 for k in want_launches["phase5"]}
+
+    def count(runs):
+        nonlocal launched
+        for r in runs:
+            for run in r["runs"].values():
+                launched = {k: v + run["launches"][k] for k, v in launched.items()}
 
     # (a) nccl at W = the cards
     world_a = torch.cuda.device_count()
     t0 = time.perf_counter()
-    runs_a = run_ranks(dist_rank, world_a, "cuda", "nccl", args=(None, None), timeout=900)
+    runs_a = run_ranks(dist_rank, world_a, "cuda", "nccl", args=(None, None, DIST_PLANS),
+                       timeout=900)
     a_s = time.perf_counter() - t0
-    rows_a, halo_a = held("a", runs_a, world_a)
-    errs_a, loss_a, ratio_a = to_bar("a", runs_a[0]["run"]["params"], runs_a[0]["run"]["losses"])
-    bitwise = [same_checksums(a, b) for a, b in zip(runs_a[0]["run"]["checksums"], virtual)]
+    rows_a, models_a = held("a", runs_a, world_a)
+    bars_a = to_bars("a", runs_a)
+    bitwise = {label: [same_checksums(a, b) for a, b in zip(runs_a[0]["runs"][label]["checksums"],
+                                                            virtual[label])]
+               for label in plans}
     print(f"29(a) nccl, {world_a} rank(s): params bitwise the virtual mesh's after each step "
-          f"{bitwise}; launches {rows_a[0]['launches']} (phase 5 {train5['launches']}); "
-          f"{a_s:.1f} s with the spawn")
+          f"{bitwise}; {a_s:.1f} s with the spawn")
     if world_a == 1:
-        check(all(bitwise), "29(a): one nccl rank's params differ from the virtual mesh's")
-    check(ratio_a <= 1.0 and loss_a <= TRAIN_LOSS_RTOL, f"29(a) past phase 5's bar: {ratio_a}")
+        check(all(all(v) for v in bitwise.values()),
+              f"29(a): one nccl rank's params differ from the virtual mesh's: {bitwise}")
     out["a"] = {"world": world_a, "backend": "nccl", "bitwise_virtual_each_step": bitwise,
-                "update_err_over_bar": ratio_a, "loss_rel_err_vs_fp64": loss_a,
-                "halo_bytes_model": halo_a, "seconds": a_s, "ranks": rows_a}
-    for r in runs_a:
-        launched = {k: v + r["run"]["launches"][k] for k, v in launched.items()}
+                "bars": bars_a, "collectives_model": models_a, "seconds": a_s, "ranks": rows_a}
+    count(runs_a)
 
     # (b) DIST_WORLD gloo ranks sharing the card, B3 cold
     t0 = time.perf_counter()
@@ -6379,8 +6549,8 @@ def dist_phase(dev, smi: str, train5: dict) -> dict:
         for name in DIST_WARM_LIBS:
             warm = _build.library_path(name)
             shutil.copy2(warm, Path(cold) / warm.name)
-        runs_b = run_ranks(dist_rank, DIST_WORLD, "cuda", "gloo", args=(cold, "wrong_neighbour"),
-                           timeout=900)
+        runs_b = run_ranks(dist_rank, DIST_WORLD, "cuda", "gloo",
+                           args=(cold, "wrong_neighbour", DIST_PLANS), timeout=900)
         # nvcc's output differs from build to build, so each rank may have
         # loaded its own: all must name one path, and the file left there
         # must be one rank's whole build (the rename is atomic)
@@ -6395,39 +6565,38 @@ def dist_phase(dev, smi: str, train5: dict) -> dict:
               f"29(b): a library left in place is no rank's build: {final} {builds}")
         libs = [r["libs"] for r in runs_b]
     b_s = time.perf_counter() - t0
-    rows_b, halo_b = held("b", runs_b, DIST_WORLD)
-    errs_b, loss_b, ratio_b = to_bar("b", runs_b[0]["run"]["params"], runs_b[0]["run"]["losses"])
-    ferrs, floss, fratio = to_bar("b, wrong neighbour", runs_b[0]["fault"]["params"],
-                                  runs_b[0]["fault"]["losses"])
+    rows_b, models_b = held("b", runs_b, DIST_WORLD)
+    bars_b = to_bars("b", runs_b)
+    faults = {}
+    for label, run in runs_b[0]["faults"].items():
+        if label in refs:
+            _, _, faults[label] = to_bar("b, wrong neighbour", label, run)
+        else:
+            faults[label] = codec_grads("b, wrong neighbour", run)
+        check(faults[label] > 1.0, f"29(b): the wrong-neighbour fault passed {label}'s bar "
+              f"({faults[label]})")
+    check(set(faults) == set(plans), f"29(b): faults run on {sorted(faults)}")
     print(f"29(b) gloo, {DIST_WORLD} ranks on {sorted({r['device'] for r in runs_b})}: cold "
           f"builds {[round(r['cold_build_s'], 1) for r in runs_b]} s, one path each "
           f"{ {n: p.rsplit('/', 1)[-1] for n, (p, _) in libs[0].items()} } (distinct builds "
-          f"seen { {n: len(v) for n, v in builds.items()} }); update err "
-          f"{ratio_b:.3f} of the bar, the wrong-neighbour fault {fratio:.1f}; {b_s:.1f} s with "
-          f"the spawn")
-    check(ratio_b <= 1.0 and loss_b <= TRAIN_LOSS_RTOL,
-          f"29(b) past phase 5's bar: {ratio_b}, losses {loss_b}")
-    check(fratio > 1.0, f"29(b): the wrong-neighbour fault passed the bar ({fratio})")
+          f"seen { {n: len(v) for n, v in builds.items()} }); bars {bars_b}; the wrong-neighbour "
+          f"fault {faults} of the bar; {b_s:.1f} s with the spawn")
     out["b"] = {"world": DIST_WORLD, "backend": "gloo", "staged_through_host": True,
-                "update_err_over_bar": ratio_b, "loss_rel_err_vs_fp64": loss_b,
-                "wrong_neighbour_err_over_bar": fratio,
+                "bars": bars_b, "wrong_neighbour_err_over_bar": faults,
                 "cold_build_s": [r["cold_build_s"] for r in runs_b],
                 "libraries": {n: p.rsplit("/", 1)[-1] for n, (p, _) in libs[0].items()},
                 "distinct_builds_seen": {n: len(v) for n, v in builds.items()},
-                "halo_bytes_model": halo_b, "seconds": b_s, "ranks": rows_b}
-    for r in runs_b:
-        launched = {k: v + r["run"]["launches"][k] for k, v in launched.items()}
+                "collectives_model": models_b, "seconds": b_s, "ranks": rows_b}
+    count(runs_b)
 
     # (c) nccl at DIST_WORLD ranks, where there are that many cards
     if torch.cuda.device_count() >= DIST_WORLD:
-        runs_c = run_ranks(dist_rank, DIST_WORLD, "cuda", "nccl", args=(None, None), timeout=900)
-        rows_c, halo_c = held("c", runs_c, DIST_WORLD)
-        _, loss_c, ratio_c = to_bar("c", runs_c[0]["run"]["params"], runs_c[0]["run"]["losses"])
-        check(ratio_c <= 1.0 and loss_c <= TRAIN_LOSS_RTOL, f"29(c) past phase 5's bar: {ratio_c}")
-        out["c"] = {"world": DIST_WORLD, "backend": "nccl", "update_err_over_bar": ratio_c,
-                    "loss_rel_err_vs_fp64": loss_c, "ranks": rows_c}
-        for r in runs_c:
-            launched = {k: v + r["run"]["launches"][k] for k, v in launched.items()}
+        runs_c = run_ranks(dist_rank, DIST_WORLD, "cuda", "nccl", args=(None, None, DIST_PLANS),
+                           timeout=900)
+        rows_c, _ = held("c", runs_c, DIST_WORLD)
+        out["c"] = {"world": DIST_WORLD, "backend": "nccl", "bars": to_bars("c", runs_c),
+                    "ranks": rows_c}
+        count(runs_c)
     else:
         print(f"29(c) not run: {torch.cuda.device_count()} card(s), nccl needs {DIST_WORLD}")
         out["c"] = None
@@ -7250,8 +7419,7 @@ def main() -> int:
               and p.crossover == want_cross,
               f"{name}: crossover='auto' plans {p.schedule} {got} {p.crossover}, not "
               f"{HYBRID_PLANS_416[name]}")
-    hybrid_kw = dict(groups="auto", hw=HYBRID_HW, batch=TRAIN_BATCH, microbatches=TRAIN_ACCUM,
-                     crossover="auto", schedule="overlap")
+    hybrid_kw = dict(HYBRID_KW)
     train13["train_hybrid"] = train_phase(dev, smi, hybrid_kw, label="train_hybrid",
                                           plant_faults=False)
     harch = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
@@ -7570,7 +7738,7 @@ def main() -> int:
     lap("15")
 
     # -- 16. wire codecs on the card -------------------------------------------
-    wire_launches, fwd16, dgrad16, wgrad16 = wire_phase(
+    wire_launches, fwd16, dgrad16, wgrad16, edge16 = wire_phase(
         dev, smi, train5["loss"][0], held_b1, held_bwd, fwd_row, bwd_rows, calib, images)
     serve_err = max([serve_err] + [r["max_abs_err"] for r in fwd16])
     dgrad_err = max([dgrad_err] + [r["max_abs_err"] for r in dgrad16])
@@ -7656,7 +7824,7 @@ def main() -> int:
     lap("28")
 
     # -- 29. one tile per process: phase 5's plan on torch.distributed ranks -------------
-    launches29 = dist_phase(dev, smi, train5)
+    launches29 = dist_phase(dev, smi, train5, train13["train_hybrid"], edge16)
     auto_launches = {k: v + launches29[k] for k, v in auto_launches.items()}
 
     lap("29")

@@ -2,7 +2,8 @@
 
 The collective half of the reference's ``analysis/hlo.py`` is
 ``collectives.py``: ``CollectiveStats`` and the ring model, filled from the
-collectives a rank records (``parallel/dist.py``) instead of HLO text.  The
+collectives a rank records (``parallel/dist.py``) instead of HLO text, and
+``plan_collectives``, what a plan's ranks must record.  The
 rest (HLO parsing, scan trip counts, Pallas grids) has no counterpart: the
 port emits no HLO, and a kernel's launches by instance are counted by its
 wrapper (``chip_smoke.py``'s ``{"kernels": ...}`` line).
@@ -10,7 +11,8 @@ wrapper (``chip_smoke.py``'s ``{"kernels": ...}`` line).
 from repro_torch.analysis.collectives import (
     CollectiveStats,
     collective_stats,
-    halo_permute_bytes,
+    leaf_bytes,
+    plan_collectives,
 )
 from repro_torch.analysis.roofline import (
     H100,

@@ -18,11 +18,12 @@ microbatches of one batch.  A group exchanges halos once at its input; inside it
 tile carries a recursively grown halo and recomputes boundary regions
 redundantly.  Data-mode groups run on batch blocks of full maps.
 
-The forward, the loss and the deferred step also run on ranks
-(``launch/mesh.py:DistTileMesh``, ``parallel/dist.py``): each rank runs the
-uniform sync plan on its block of tiles, the exchanges and BN sums cross
-ranks, and the deferred step all-reduces the accumulated gradients once at
-batch end.  Other plans raise ``_dist_of``'s ValueError there.
+The forward, the loss, the deferred step and the inference forward also run
+on ranks (``launch/mesh.py:DistTileMesh``, ``parallel/dist.py``): each rank
+runs a uniform plan - either schedule, a crossover, any codec - on its block
+of tiles, the exchanges, reshards and BN sums cross ranks, and the deferred
+step all-reduces the accumulated gradients once at batch end.  Ragged
+partitions and pipeline tails raise ``_dist_of``'s ValueError there.
 
 Halo-width algebra (from the eq. 1 recursion, DESIGN.md §2):
 
@@ -1206,20 +1207,18 @@ def _check_data_batch(plan: StackPlan, batch: int) -> None:
 
 def _dist_of(plan: StackPlan, mesh: TileMesh, what: str) -> DistTileMesh | None:
     """``mesh`` when it spreads the grid over ranks, else None.  Ranks run
-    the uniform sync spatial plan, every grouping included (groups change
-    only halo widths); any other plan raises, naming its ROADMAP item."""
+    every uniform plan: any grouping, either schedule, a crossover to a
+    data-mode tail and any wire codec.  A ragged partition or a pipeline
+    tail raises, naming its ROADMAP item."""
     if not isinstance(mesh, DistTileMesh):
         return None
     outside = [name for name, on in (
         ("a non-uniform partition", not plan.is_uniform),
-        ("the overlap schedule", plan.schedule == "overlap"),
-        ("a crossover (data-mode tail)", plan.crossover is not None),
         ("a pipeline tail", bool(plan.stages)),
-        (f"the {plan.wire_codec} wire codec", plan.wire_codec != "none"),
     ) if on]
     if outside:
-        raise ValueError(f"{what} on ranks runs the uniform sync spatial plan; "
-                         f"{', '.join(outside)} on ranks is ROADMAP A.20.2")
+        raise ValueError(f"{what} on ranks runs uniform plans without a pipeline tail; "
+                         f"{' and '.join(outside)} on ranks is ROADMAP A.20.2")
     return mesh
 
 
@@ -1251,7 +1250,8 @@ def make_tiled_forward(plan: StackPlan, mesh: TileMesh):
     ragged plan packs the input into its padded tiles and unpacks each
     output tile's valid window.  A codec plan compresses its strips
     statelessly (``_stateless_wire``).  On ranks each runs its block and
-    the output is gathered on every rank (not differentiated)."""
+    the output - its tiles, or a hybrid plan's batch blocks - is gathered
+    on every rank (not differentiated)."""
     dmesh = _dist_of(plan, mesh, "make_tiled_forward")
     if plan.stages:
         raise ValueError(
@@ -1342,7 +1342,9 @@ def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
         with tile_mesh_ctx(dmesh):
             s, c = tiles_loss(apply_stack_local(params, split(x), plan, wire), target)
         s_all, c_all = _global_sum(dmesh, s, c)
-        return (s + (s_all - s.detach())) / c_all
+        # the value is the global sum's on every rank, bit for bit; the
+        # gradient is this rank's own sum's
+        return (s_all + (s - s.detach())) / c_all
 
     return loss
 

@@ -26,10 +26,14 @@ mesh, so each ragged exchange round is ONE precomputed index gather along
 the tile dimension (``_ragged_gather``), whatever the number of tiles.
 
 On ranks (``launch/mesh.py:DistTileMesh``, active through
-``parallel/dist.py:tile_mesh_ctx``) each ``ppermute`` of the sync exchange
-goes through ``dist.permute``: the block shifts locally and its edge
-strips cross to the neighbour rank; the rounds keep their order, so the
-corners still take two hops.
+``parallel/dist.py:tile_mesh_ctx``) each ``ppermute`` goes through
+``dist.permute_start``: the block shifts locally and its edge strips cross
+to the neighbour rank, or a 2-tile axis swaps across two ranks; the rounds
+keep their order, so the corners still take two hops.  Under a codec each
+rank encodes its own tiles' strips and draws the block's residuals.  The
+``*_start`` forms post an exchange and return a ``dist.Pending`` that lands
+it, so the overlap lead can queue its interior conv in between; on the
+virtual mesh they are the exchange itself.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ import torch
 
 from repro_torch.launch.mesh import plan_constant
 from repro_torch.optim.compression import WireCodec, ef_encode
-from repro_torch.parallel.dist import active_tile_mesh, permute
+from repro_torch.parallel.dist import Pending, active_tile_mesh, landed, permute_start
 
 
 def _shift_perm(n: int, direction: int) -> list[tuple[int, int]]:
@@ -71,16 +75,31 @@ def _shift(x: torch.Tensor, tile_dim: int, direction: int) -> torch.Tensor:
     return torch.cat([x.narrow(tile_dim, k, n - k), zeros], dim=tile_dim)
 
 
-def _move(t: torch.Tensor, tile_dim: int, shift) -> torch.Tensor:
+def _move_start(t: torch.Tensor, tile_dim: int, shift, tag: int = 0, mesh=None) -> Pending:
     """A ``ppermute`` on the virtual mesh: ``_shift`` by ``shift`` tiles, or
-    ``"swap"``, the 2-tile exchange ``[(0, 1), (1, 0)]``; on ranks,
-    ``dist.permute`` of the rank's block."""
-    mesh = active_tile_mesh()
+    ``"swap"``, the 2-tile exchange ``[(0, 1), (1, 0)]``; on ranks (the
+    active mesh, or ``mesh`` where a backward names the one its forward
+    ran on), ``dist.permute_start`` of the rank's block (``tag`` tells
+    apart the exchanges posted together)."""
+    mesh = mesh if mesh is not None else active_tile_mesh()
     if mesh is not None:
-        return permute(t, tile_dim, shift, mesh)
+        return permute_start(t, tile_dim, shift, mesh, tag)
     if shift == "swap":
-        return torch.flip(t, [tile_dim])
-    return _shift(t, tile_dim, shift)
+        return landed(torch.flip(t, [tile_dim]))
+    return landed(_shift(t, tile_dim, shift))
+
+
+def _move(t: torch.Tensor, tile_dim: int, shift, mesh=None) -> torch.Tensor:
+    return _move_start(t, tile_dim, shift, mesh=mesh).wait()
+
+
+def _axis_tiles(x: torch.Tensor, tile_dim: int) -> int:
+    """The grid's tile count along ``tile_dim`` (on ranks: the whole grid's,
+    not the block's)."""
+    mesh = active_tile_mesh()
+    if mesh is None:
+        return x.shape[tile_dim]
+    return mesh.n if tile_dim == 0 else mesh.m
 
 
 # ---------------------------------------------------------------------------
@@ -157,30 +176,42 @@ class WireCtx:
 
 
 class _WireShift(torch.autograd.Function):
-    """encode per sending tile -> move every payload leaf -> decode; the
-    backward EF-encodes the cotangent against ``res`` (held by the forward
-    receiver, the backward sender), moves it back and decodes, and returns
-    the new residual as the gradient of ``res``."""
+    """Decode the moved payload ``recv`` of ``x``'s per-tile encoding (made
+    and moved by ``wire_shift_start``); the backward EF-encodes the
+    cotangent against ``res`` (held by the forward receiver, the backward
+    sender), moves it back and decodes, and returns the new residual as the
+    gradient of ``res``."""
 
     @staticmethod
-    def forward(ctx, x, res, tile_dim, shift, codec):
+    def forward(ctx, x, res, tile_dim, shift, codec, *recv):
         ctx.save_for_backward(res)
-        ctx.meta = (tile_dim, shift, codec)
-        payload = codec.encode(x, GRID_DIMS)
-        return codec.decode([_move(p, tile_dim, shift) for p in payload], x.shape, x.dtype,
-                            GRID_DIMS)
+        ctx.meta = (tile_dim, shift, codec, active_tile_mesh())
+        return codec.decode(list(recv), x.shape, x.dtype, GRID_DIMS)
 
     @staticmethod
     def backward(ctx, ct):
         (res,) = ctx.saved_tensors
-        tile_dim, shift, codec = ctx.meta
+        tile_dim, shift, codec, mesh = ctx.meta
         payload, new_res = ef_encode(codec, ct, res, GRID_DIMS)
         ct_x = None
         if ctx.needs_input_grad[0]:
             back = "swap" if shift == "swap" else -shift
-            ct_x = codec.decode([_move(p, tile_dim, back) for p in payload], ct.shape, ct.dtype,
-                                GRID_DIMS)
-        return ct_x, new_res, None, None, None
+            ct_x = codec.decode([_move(p, tile_dim, back, mesh) for p in payload], ct.shape,
+                                ct.dtype, GRID_DIMS)
+        return (ct_x, new_res, None, None, None) + (None,) * len(ctx.needs_input_grad[5:])
+
+
+def wire_shift_start(x: torch.Tensor, tile_dim: int, shift, wire: WireCtx | None) -> Pending:
+    """``wire_shift``, posted: the strip (or its payload) leaves now,
+    ``wait()`` lands and decodes it.  The residual is drawn here, so the bag
+    sees the exchanges in the order they are posted."""
+    if wire is None:
+        return _move_start(x, tile_dim, shift)
+    res = _residual(wire, x.shape, x)
+    payload = wire.codec.encode(x.detach(), GRID_DIMS)
+    moves = [_move_start(p, tile_dim, shift, tag) for tag, p in enumerate(payload)]
+    return Pending(lambda: _WireShift.apply(x, res, tile_dim, shift, wire.codec,
+                                            *[mv.wait() for mv in moves]))
 
 
 def wire_shift(x: torch.Tensor, tile_dim: int, shift, wire: WireCtx | None) -> torch.Tensor:
@@ -197,10 +228,7 @@ def wire_shift(x: torch.Tensor, tile_dim: int, shift, wire: WireCtx | None) -> t
     nothing back, so its residual could reach no gradient, and none is
     drawn (the reference draws one, whose only use is its own next value).
     Drawing it would make the first conv compute its input's cotangent."""
-    if wire is None:
-        return _move(x, tile_dim, shift)
-    res = _residual(wire, x.shape, x)
-    return _WireShift.apply(x, res, tile_dim, shift, wire.codec)
+    return wire_shift_start(x, tile_dim, shift, wire).wait()
 
 
 def _residual(wire: WireCtx, shape, x: torch.Tensor) -> torch.Tensor:
@@ -273,11 +301,22 @@ def _zeros_strip(x: torch.Tensor, width: int, dim: int) -> torch.Tensor:
 
 
 def _tile_index(x: torch.Tensor, tile_dim: int) -> torch.Tensor:
-    """Each tile's index along ``tile_dim``, shaped to broadcast against
-    ``x`` - the reference's ``lax.axis_index``."""
+    """Each tile's index in the grid along ``tile_dim``, shaped to broadcast
+    against ``x`` - the reference's ``lax.axis_index``: on ranks the
+    block's origin plus the index within the block."""
     shape = [1] * x.dim()
     shape[tile_dim] = x.shape[tile_dim]
-    return torch.arange(x.shape[tile_dim], device=x.device).reshape(shape)
+    mesh = active_tile_mesh()
+    off = 0 if mesh is None else mesh.origin[tile_dim]
+    return (torch.arange(x.shape[tile_dim], device=x.device) + off).reshape(shape)
+
+
+def _swap_send(x: torch.Tensor, halo_lo: int, halo_hi: int, dim: int) -> torch.Tensor:
+    """The packed strip a tile swaps: its last ``halo_lo`` rows (its next
+    neighbour's lo halo), then its first ``halo_hi`` (its previous one's
+    hi halo)."""
+    size = x.shape[dim]
+    return torch.cat([x.narrow(dim, size - halo_lo, halo_lo), x.narrow(dim, 0, halo_hi)], dim=dim)
 
 
 def halo_exchange_1d_packed(
@@ -289,9 +328,24 @@ def halo_exchange_1d_packed(
     dim: int,
     wire: WireCtx | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Packed halo exchange: ``(recv_lo, recv_hi)``, the strips every tile
-    receives from its previous and next neighbour along ``tile_dim``,
-    *without* attaching them to ``x`` (zeros at the ends).
+    """``halo_exchange_1d_packed_start(...).wait()``."""
+    return halo_exchange_1d_packed_start(x, halo_lo, halo_hi, tile_dim=tile_dim, dim=dim,
+                                         wire=wire).wait()
+
+
+def halo_exchange_1d_packed_start(
+    x: torch.Tensor,
+    halo_lo: int,
+    halo_hi: int,
+    *,
+    tile_dim: int,
+    dim: int,
+    wire: WireCtx | None = None,
+) -> Pending:
+    """Packed halo exchange, posted: ``wait()`` gives ``(recv_lo,
+    recv_hi)``, the strips every tile receives from its previous and next
+    neighbour along ``tile_dim``, *without* attaching them to ``x`` (zeros
+    at the ends).
 
     The two branches are the reference's.  On a 2-tile axis both neighbours
     are the same tile, so the lo and hi strips travel packed in one swap
@@ -301,27 +355,33 @@ def halo_exchange_1d_packed(
     swap and two per longer axis; on the virtual mesh a strip is a copy on
     one card, so no collective is counted here.  Under a codec the swap's
     packed lo+hi strip is encoded as one block per tile, the edge tiles'
-    masked half included, as the reference ships it."""
-    n = x.shape[tile_dim]
+    masked half included, as the reference ships it.  On ranks the axis
+    length and tile index are the grid's (``_axis_tiles``,
+    ``_tile_index``), and the swap crosses ranks where two hold the axis."""
+    n = _axis_tiles(x, tile_dim)
     if n == 1 or (halo_lo == 0 and halo_hi == 0):
-        return _zeros_strip(x, halo_lo, dim), _zeros_strip(x, halo_hi, dim)
+        return landed((_zeros_strip(x, halo_lo, dim), _zeros_strip(x, halo_hi, dim)))
     size = x.shape[dim]
     _check_halo(halo_lo, halo_hi, size)
     if n == 2 and halo_lo > 0 and halo_hi > 0:
-        send = torch.cat([x.narrow(dim, size - halo_lo, halo_lo), x.narrow(dim, 0, halo_hi)],
-                         dim=dim)
-        recv = wire_shift(send, tile_dim, "swap", wire)       # ppermute [(0, 1), (1, 0)]
-        idx = _tile_index(recv, tile_dim)
-        recv_lo = recv.narrow(dim, 0, halo_lo)
-        recv_hi = recv.narrow(dim, halo_lo, halo_hi)
-        recv_lo = torch.where(idx > 0, recv_lo, torch.zeros_like(recv_lo))
-        recv_hi = torch.where(idx < n - 1, recv_hi, torch.zeros_like(recv_hi))
-        return recv_lo, recv_hi
-    recv_lo = (wire_shift(x.narrow(dim, size - halo_lo, halo_lo), tile_dim, +1, wire)
-               if halo_lo > 0 else _zeros_strip(x, 0, dim))
-    recv_hi = (wire_shift(x.narrow(dim, 0, halo_hi), tile_dim, -1, wire)
-               if halo_hi > 0 else _zeros_strip(x, 0, dim))
-    return recv_lo, recv_hi
+        # ppermute [(0, 1), (1, 0)]
+        swap = wire_shift_start(_swap_send(x, halo_lo, halo_hi, dim), tile_dim, "swap", wire)
+
+        def unpack():
+            recv = swap.wait()
+            idx = _tile_index(recv, tile_dim)
+            recv_lo = recv.narrow(dim, 0, halo_lo)
+            recv_hi = recv.narrow(dim, halo_lo, halo_hi)
+            recv_lo = torch.where(idx > 0, recv_lo, torch.zeros_like(recv_lo))
+            recv_hi = torch.where(idx < n - 1, recv_hi, torch.zeros_like(recv_hi))
+            return recv_lo, recv_hi
+
+        return Pending(unpack)
+    lo = (wire_shift_start(x.narrow(dim, size - halo_lo, halo_lo), tile_dim, +1, wire)
+          if halo_lo > 0 else landed(_zeros_strip(x, 0, dim)))
+    hi = (wire_shift_start(x.narrow(dim, 0, halo_hi), tile_dim, -1, wire)
+          if halo_hi > 0 else landed(_zeros_strip(x, 0, dim)))
+    return Pending(lambda: (lo.wait(), hi.wait()))
 
 
 def halo_exchange_2d_packed(

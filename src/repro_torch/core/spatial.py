@@ -21,6 +21,9 @@ Two executors beside the sync layer: the overlap schedule's group lead
 boundary strips once the strips land) and the hybrid plans' data-mode
 layers (``reshard_spatial_to_data`` turns the tile grid into batch blocks of
 full maps; ``apply_layer_data`` runs a layer on them with no exchange).
+Both run on ranks too: the lead's row exchange is posted before its
+interior conv and landed after it, and the reshard gathers the grid along
+the rank axes, each rank keeping its tiles' batch blocks.
 
 Non-uniform partitions (DESIGN.md §8-9) keep the tiles in a padded layout
 ``(n, m, B, Hc, Wc, C)`` - every tile at the canonical extent, its valid
@@ -41,11 +44,24 @@ import torch.nn.functional as F
 
 from repro_torch.core.backend import ACTIVATIONS as _ACTIVATIONS
 from repro_torch.core.backend import get_conv_backend, pad_for_valid
-from repro_torch.core.halo import WireCtx, _residual, halo_exchange_1d_packed
+from repro_torch.core.halo import (
+    GRID_DIMS,
+    WireCtx,
+    _residual,
+    halo_exchange_1d_packed,
+    halo_exchange_1d_packed_start,
+)
 from repro_torch.optim.compression import ef_encode
 from repro_torch.launch.mesh import plan_constant, unpack_grid
 from repro_torch.core.tiling import ConvSpec
-from repro_torch.parallel.dist import active_tile_mesh, all_reduce_sum
+from repro_torch.parallel.dist import (
+    active_tile_mesh,
+    all_gather_axis,
+    all_reduce_sum,
+    all_to_all_axis,
+    gather_axis,
+    sum_in_order,
+)
 
 # ---------------------------------------------------------------------------
 # Layer definitions (geometry + compute attributes)
@@ -632,76 +648,96 @@ def _batch_block_slice(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
     return x.reshape(n, m, b // t, *x.shape[1:])
 
 
-def _sum_in_order(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """Sum over ``dim`` one index after another, in index order."""
-    acc = t.select(dim, 0)
-    for k in range(1, t.shape[dim]):
-        acc = acc + t.select(dim, k)
-    return acc
-
-
-def _ef_chunks(codec, chunks: torch.Tensor, res: list, dim: int):
-    """EF-encode every (sender, destination) chunk of ``chunks`` (the
-    destination at ``dim``) against its own residual; -> (the decoded
-    chunks, each destination's new residual)."""
-    payload, new = ef_encode(codec, chunks, torch.stack(res, dim), dim + 1)
-    applied = codec.decode(payload, chunks.shape, torch.float32, dim + 1)
-    return applied, list(new.unbind(dim))
-
-
 class _WireAllGather(torch.autograd.Function):
     """The reference's two compressed tiled all-gathers (rows, then
-    columns) of the tile grid ``(n, m, b, h, w, C)`` into the full maps
-    ``(b, n*h, m*w, C)`` every device holds.  Forward: each tile's block is
-    encoded on its own, its own block included; the row-gathered array of
-    tile column j, the same on every tile of the column, is encoded once
-    per column.  Backward, modelled per device: a device's cotangent is its
-    batch block's only (the full maps are consumed by ``_batch_block_slice``
-    alone); each device splits it into one chunk per destination, EF-encodes
-    each chunk against the residual of its (sender, destination) pair, and
-    each destination sums the decoded chunks in source order - columns
-    first, then rows.  The new residuals are the gradients of ``res``."""
+    columns) of the tile grid into the full maps ``(b, n*h, m*w, C)`` every
+    device holds, on the tiles ``x`` = ``(bn, bm, b, h, w, C)`` of the
+    virtual mesh (``mesh`` None: the whole grid) or of a rank's block.
+    Forward: each tile's block is encoded on its own, its own block
+    included, and the payloads gathered along the rank rows (``_gather``);
+    the row-gathered array of tile column j, the same on every tile of the
+    column, is encoded once per column and its payloads gathered along the
+    rank columns.  Backward, modelled per device: a device's cotangent is
+    its batch block's only (the full maps are consumed by
+    ``_batch_block_slice`` alone); each device splits it into one chunk per
+    destination, EF-encodes each chunk against the residual of its
+    (sender, destination) pair, the payloads go to the ranks holding their
+    destinations (``_ef_chunks``), and each destination sums the
+    decoded chunks in grid order - columns first, then rows.  The new
+    residuals are the gradients of ``res``."""
 
     @staticmethod
-    def forward(ctx, x, codec, *res):
-        n, m, b, h, w, c = x.shape
-        ctx.codec, ctx.shape = codec, x.shape
+    def forward(ctx, x, codec, mesh, *res):
+        bn, bm, b, h, w, c = x.shape
+        n, m = (bn, bm) if mesh is None else (mesh.n, mesh.m)
+        ctx.codec, ctx.mesh, ctx.shape = codec, mesh, x.shape
         ctx.save_for_backward(*res)
-        own = codec.decode(codec.encode(x, 2), x.shape, x.dtype, 2)
-        rows = own.permute(1, 2, 0, 3, 4, 5).reshape(m, b, n * h, w, c)
-        rows = codec.decode(codec.encode(rows, 1), rows.shape, rows.dtype, 1)
+        own = [_gather(p, 0, mesh) for p in codec.encode(x, GRID_DIMS)]
+        rows = codec.decode(own, (n, bm, b, h, w, c), x.dtype, GRID_DIMS)
+        rows = rows.permute(1, 2, 0, 3, 4, 5).reshape(bm, b, n * h, w, c)
+        cols = [_gather(p, 1, mesh) for p in codec.encode(rows, 1)]
+        rows = codec.decode(cols, (m, b, n * h, w, c), x.dtype, 1)
         return rows.permute(1, 2, 0, 3, 4).reshape(b, n * h, m * w, c)
 
     @staticmethod
     def backward(ctx, ct):
-        n, m, b, h, w, c = ctx.shape
-        codec, t = ctx.codec, n * m
+        bn, bm, b, h, w, c = ctx.shape
+        codec, mesh = ctx.codec, ctx.mesh
+        n, m = (bn, bm) if mesh is None else (mesh.n, mesh.m)
+        (r0, c0), t = (0, 0) if mesh is None else mesh.origin, n * m
         res = list(ctx.saved_tensors)
         blocks = ct.reshape(t, b // t, *ct.shape[1:])
-        per_dev = ct.new_zeros((t, t, *blocks.shape[1:]))
-        per_dev.diagonal(0, 0, 1).copy_(blocks.movedim(0, -1))   # device d: block d only
-        per_dev = per_dev.reshape(n, m, b, n * h, m * w, c)
+        per_dev = ct.new_zeros((bn, bm, t, *blocks.shape[1:]))
+        for i in range(bn):
+            for j in range(bm):
+                d = (r0 + i) * m + (c0 + j)
+                per_dev[i, j, d] = blocks[d]                       # device d: block d only
+        per_dev = per_dev.reshape(bn, bm, b, n * h, m * w, c)
         # column gather: device (i, j) sends chunk j' of its columns to (i, j')
-        chunks = per_dev.reshape(n, m, b, n * h, m, w, c).permute(0, 1, 4, 2, 3, 5, 6)
-        applied, new_col = _ef_chunks(codec, chunks, res[n:], 2)
-        rows_ct = _sum_in_order(applied, 1)                       # (n, m, b, n*h, w, c)
+        chunks = per_dev.reshape(bn, bm, b, n * h, m, w, c).permute(0, 1, 4, 2, 3, 5, 6)
+        rows_ct, new_col = _ef_chunks(codec, chunks, res[n:], 1, mesh, (n, m))
         # row gather: device (i, j) sends chunk i' of its rows to (i', j)
-        chunks = rows_ct.reshape(n, m, b, n, h, w, c).permute(0, 1, 3, 2, 4, 5, 6)
-        applied, new_row = _ef_chunks(codec, chunks, res[:n], 2)
-        ct_x = _sum_in_order(applied, 0).transpose(0, 1)          # (n, m, b, h, w, c)
-        return (ct_x.to(ct.dtype), None, *new_row, *new_col)
+        chunks = rows_ct.reshape(bn, bm, b, n, h, w, c).permute(0, 1, 3, 2, 4, 5, 6)
+        ct_x, new_row = _ef_chunks(codec, chunks, res[:n], 0, mesh, (n, m))
+        return (ct_x.to(ct.dtype), None, None, *new_row, *new_col)
+
+
+def _gather(t: torch.Tensor, axis: int, mesh) -> torch.Tensor:
+    """``dist.gather_axis`` on ranks; the virtual mesh holds every tile."""
+    return t if mesh is None else gather_axis(t, axis, mesh)
+
+
+def _ef_chunks(codec, chunks: torch.Tensor, res: list, axis: int, mesh, grid):
+    """One adjoint gather of ``_WireAllGather`` along axis ``axis`` of the
+    ``grid`` (n, m): ``chunks`` (bn, bm, dest, ...) EF-encoded per (sender,
+    destination) against ``res`` (one per destination), the payloads sent
+    to the ranks holding their destinations, and each of this block's
+    destinations summing the decoded chunks of its senders in grid order.
+    -> (the sums (bn, bm, ...), each destination's new residual)."""
+    payload, new = ef_encode(codec, chunks, torch.stack(res, 2), 3)
+    if mesh is not None:
+        # the senders of this rank's destinations, in grid order, on ``axis``
+        payload = [torch.cat(all_to_all_axis(p, axis, mesh, dim=2), dim=axis) for p in payload]
+    shape = list(chunks.shape)
+    shape[axis], shape[2] = grid[axis], chunks.shape[axis]
+    applied = codec.decode(payload, shape, torch.float32, 3)
+    out = sum_in_order(applied.unbind(axis))
+    return (out if axis == 1 else out.transpose(0, 1)), list(new.unbind(2))
 
 
 def _wire_all_gather(x: torch.Tensor, wire: WireCtx) -> torch.Tensor:
-    """Tiles ``(n, m, b, h, w, C)`` -> the full maps ``(b, n*h, m*w, C)``
-    through the compressed all-gathers (``_WireAllGather``), with the
-    residuals drawn in the reference's order: n for the row gather, then m
-    for the column gather (one per destination); none when ``x`` takes no
-    gradient (``halo.wire_shift`` says why)."""
-    n, m, b, h, w, c = x.shape
+    """Tiles ``(bn, bm, b, h, w, C)`` (the whole grid, or a rank's block) ->
+    the full maps ``(b, n*h, m*w, C)`` through the compressed all-gathers
+    (``_WireAllGather``), with the residuals drawn in the reference's
+    order: n for the row gather, then m for the column gather (one per
+    destination, each the shape of the sending block); none when ``x``
+    takes no gradient (``halo.wire_shift`` says why)."""
+    mesh = active_tile_mesh()
+    bn, bm, b, h, w, c = x.shape
+    n, m = (bn, bm) if mesh is None else (mesh.n, mesh.m)
     res = [_residual(wire, x.shape, x) for _ in range(n)]
-    res += [_residual(wire, (n, m, b, n * h, w, c), x) for _ in range(m)]
-    return _WireAllGather.apply(x, wire.codec, *res)
+    res += [_residual(wire, (bn, bm, b, n * h, w, c), x) for _ in range(m)]
+    return _WireAllGather.apply(x, wire.codec, mesh, *res)
 
 
 def reshard_spatial_to_data(x: torch.Tensor, wire: WireCtx | None = None) -> torch.Tensor:
@@ -714,13 +750,28 @@ def reshard_spatial_to_data(x: torch.Tensor, wire: WireCtx | None = None) -> tor
     and slices each device's block (``_batch_block_slice``).  On the
     virtual mesh that is one merge and one reshape - no tile gets the full
     batch's maps - and autograd gives the adjoint (the reduce-scatter and
-    the zero-padded scatter) as ``jax.grad`` does.  Under a codec the merge
-    goes through the compressed gathers."""
-    n, m, b, h, w, c = x.shape
+    the zero-padded scatter) as ``jax.grad`` does.  On ranks ``x`` is the
+    rank's block: the grid is gathered along the rank rows, then the rank
+    columns (``dist.all_gather_axis``, whose backward is the
+    reduce-scatter), and the rank keeps its tiles' batch blocks
+    (``_rank_blocks``).  Under a codec the merge goes through the
+    compressed gathers."""
+    mesh = active_tile_mesh()
+    bn, bm, b, h, w, c = x.shape
+    n, m = (bn, bm) if mesh is None else (mesh.n, mesh.m)
     if wire is not None:
-        return _batch_block_slice(_wire_all_gather(x, wire), n, m)
-    full = x.permute(2, 0, 3, 1, 4, 5).reshape(b, n * h, m * w, c)
-    return _batch_block_slice(full, n, m)
+        full = _wire_all_gather(x, wire)
+    else:
+        if mesh is not None:
+            x = all_gather_axis(all_gather_axis(x, 0, mesh), 1, mesh)
+        full = x.permute(2, 0, 3, 1, 4, 5).reshape(b, n * h, m * w, c)
+    blocks = _batch_block_slice(full, n, m)
+    return blocks if mesh is None else _rank_blocks(blocks, mesh)
+
+
+def _rank_blocks(blocks: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's tiles' batch blocks of all the grid's ``(n, m, ...)``."""
+    return mesh.own(blocks)
 
 
 def reshard_spatial_to_data_ragged(
@@ -867,7 +918,12 @@ def apply_group_lead_overlap(
     schedule's by position.  The sums may run in another order (each piece
     is its own conv call, whose kernel picks its tiling by shape).  Without
     an interior (a tile thinner than the kernel's reach into the halo) the
-    whole extended tile is one conv, as in the reference."""
+    whole extended tile is one conv, as in the reference.
+
+    On ranks the row exchange is posted before the interior conv is queued
+    and landed only when ``_assemble`` needs its strips, so that conv does
+    not wait for the wire.  The backward runs in autograd's order: the
+    cotangent exchanges are not overlapped with anything."""
     top, bottom, left, right = halo
     k, s = layer.kernel, layer.stride
     n, m, b, own_h, own_w = x.shape[:5]
@@ -885,11 +941,12 @@ def apply_group_lead_overlap(
                              mask_offmap=mask_offmap, inference=inference,
                              batch_global=batch_global)
 
-    # 1. the packed row exchange (nothing below consumes it yet)
-    row_lo, row_hi = halo_exchange_1d_packed(x, top, bottom, tile_dim=0, dim=3, wire=wire)
+    # 1. the packed row exchange, posted (nothing below consumes it yet)
+    rows = halo_exchange_1d_packed_start(x, top, bottom, tile_dim=0, dim=3, wire=wire)
 
     if rs is None or cs is None:
         # no interior: whole-tile compute on the assembled extended tile
+        row_lo, row_hi = rows.wait()
         ext = _assemble(row_lo, x, row_hi, top, bottom, dim=3)
         col_lo, col_hi = halo_exchange_1d_packed(ext, left, right, tile_dim=1, dim=4, wire=wire)
         ext = _assemble(col_lo, ext, col_hi, left, right, dim=4)
@@ -898,7 +955,9 @@ def apply_group_lead_overlap(
     # 2. interior compute from owned data only
     y_int, fused = conv(x[:, :, :, rs.int_in_lo:rs.int_in_hi, cs.int_in_lo:cs.int_in_hi])
 
-    # 3. the column exchange over the row-extended tile (carries the corners)
+    # 3. the row strips land; the column exchange over the row-extended tile
+    # (carries the corners)
+    row_lo, row_hi = rows.wait()
     x_rows = _assemble(row_lo, x, row_hi, top, bottom, dim=3)
     col_lo, col_hi = halo_exchange_1d_packed(x_rows, left, right, tile_dim=1, dim=4, wire=wire)
     ext = _assemble(col_lo, x_rows, col_hi, left, right, dim=4)

@@ -26,8 +26,9 @@ topologies: the 16 x 16 pod (x 2 pods), and the local devices as (1, n).
 ``make_dist_tile_mesh`` spreads the tile grid over the ranks of a
 ``torch.distributed`` group (``parallel/dist.py``): each rank holds a
 block of it, ``(n/Rr, m/Rc, B, h, w, C)``, and the exchanges and sums cross
-ranks.  It is a ``TileMesh`` to its callers: ``split`` gives the rank's
-block, ``merge`` gathers every rank's for an output.
+ranks.  It is a ``TileMesh`` to its callers: ``split`` / ``split_batch``
+give the rank's block of tiles / of a hybrid plan's batch blocks,
+``merge`` / ``merge_batch`` gather every rank's for an output.
 """
 from __future__ import annotations
 
@@ -169,8 +170,9 @@ def make_tile_mesh(n: int, m: int, device: str | torch.device = "cuda") -> TileM
 class DistTileMesh(TileMesh):
     """The n x m tile grid spread over the ranks of ``group``: a rank grid
     ``ranks`` = (Rr, Rc) of equal blocks; this rank, at ``coord`` = (pr,
-    pc) of it, holds tiles ``origin`` .. ``origin + block``.  Uniform
-    partitions only (ragged ones are ROADMAP A.20.2)."""
+    pc) of it, holds tiles ``origin`` .. ``origin + block``.  Its row and
+    column subgroups (``parallel/dist.py:_axis_group``) are made on first
+    use.  Uniform partitions only (ragged ones are ROADMAP A.20.2)."""
 
     group: tdist.TileGroup
     ranks: tuple[int, int]
@@ -199,24 +201,38 @@ class DistTileMesh(TileMesh):
         H/n, W/m, C)."""
         if rows is not None:
             raise ValueError("a non-uniform partition on ranks is ROADMAP A.20.2")
-        (r0, c0), (bn, bm) = self.origin, self.block
-        return super().split(x)[r0:r0 + bn, c0:c0 + bm]
+        return self.own(super().split(x))
+
+    def _gathered_grid(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's block ``t`` (bn, bm, ...) -> the whole grid (n, m,
+        ...), gathered on every rank; not differentiated (an output)."""
+        with torch.no_grad():
+            blocks = tdist.all_gather_blocks(self.group, t.detach())
+        rows_of = [torch.cat(blocks[pr * self.ranks[1]:(pr + 1) * self.ranks[1]], dim=1)
+                   for pr in range(self.ranks[0])]
+        return torch.cat(rows_of, dim=0)
 
     def merge(self, t, rows=None, cols=None):
         """Every rank's block of tiles -> global (B, n*h, m*w, C), gathered
         on every rank; not differentiated (an output)."""
         if rows is not None:
             raise ValueError("a non-uniform partition on ranks is ROADMAP A.20.2")
-        with torch.no_grad():
-            blocks = tdist.all_gather_blocks(self.group, t.detach())
-        rows_of = [torch.cat(blocks[pr * self.ranks[1]:(pr + 1) * self.ranks[1]], dim=1)
-                   for pr in range(self.ranks[0])]
-        return super().merge(torch.cat(rows_of, dim=0))
+        return super().merge(self._gathered_grid(t))
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole-grid tensor (n, m, ...)."""
+        (r0, c0), (bn, bm) = self.origin, self.block
+        return t[r0:r0 + bn, c0:c0 + bm]
 
     def split_batch(self, x):
-        raise ValueError("a crossover (data-mode tail) on ranks is ROADMAP A.20.2")
+        """Global (B, H, W, C) -> this rank's batch blocks (n/Rr, m/Rc,
+        B/(n*m), H, W, C): its tile (i, j) holds block i*m + j."""
+        return self.own(super().split_batch(x))
 
-    merge_batch = split_batch
+    def merge_batch(self, t):
+        """Every rank's batch blocks -> global (B, H, W, C) in block order,
+        gathered on every rank; not differentiated (an output)."""
+        return super().merge_batch(self._gathered_grid(t))
 
 
 def make_dist_tile_mesh(n: int, m: int, device: str | torch.device,

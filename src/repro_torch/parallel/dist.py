@@ -10,12 +10,23 @@ rank grid is (Rr, Rc) with n % Rr == m % Rc == 0 and W = Rr * Rc
 x [pc*m/Rc, (pc+1)*m/Rc)``.  W = n*m is the reference's one tile per
 device; W = 1 is the virtual mesh of ``launch/mesh.py``, bit for bit.
 
-- ``permute`` is ``ppermute`` by a shift along tile dimension 0 or 1: the
+- ``permute_start`` is ``ppermute`` by a shift along tile dimension 0 or 1: the
   block's own tiles shift locally, the edge tiles that leave it go to the
   neighbour rank and the neighbour's arrive, in one
   ``dist.batch_isend_irecv``.  A rank with no neighbour on that side
   receives zeros (SAME padding, as ``ppermute`` delivers).  Its backward is
-  the reverse permute of the cotangent: ``ppermute``'s transpose.
+  the reverse permute of the cotangent: ``ppermute``'s transpose.  The
+  ``"swap"`` of a 2-tile axis (the overlap schedule's packed exchange,
+  ``[(0, 1), (1, 0)]``) is the local flip where one rank holds both tiles,
+  and one paired send/receive where two ranks hold one each; it is its own
+  transpose.  It posts the exchange and returns a ``Pending`` whose
+  ``wait`` lands it, so that work queued in between (the overlap lead's
+  interior conv) does not wait for the wire.
+- ``all_gather_axis`` is the tiled ``all_gather`` along one rank axis (the
+  hybrid plans' reshard), built on that axis's subgroup; its backward is
+  the reduce-scatter, which both backends run as batched P2P (gloo has no
+  ``reduce_scatter``).  ``gather_axis`` and ``all_to_all_axis`` are the
+  undifferentiated pieces the wire codecs' reshard moves its payloads with.
 - ``all_reduce_sum`` is ``psum``; its backward all-reduces the cotangent.
 - ``replicated`` is the identity on a value every rank holds alike (the
   params); its backward all-reduces the gradient, so a loss that each rank
@@ -29,7 +40,7 @@ switches backend or device by itself (``resolve_backend``).
 
 Every collective a rank issues is counted in ``TileGroup.record`` by its
 ``Collective`` (the reference's HLO names: ``collective-permute``,
-``all-reduce``, ``all-gather``), which ``analysis/collectives.py`` turns
+``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``), which ``analysis/collectives.py`` turns
 into the reference's ``CollectiveStats``; a count per distinct collective
 keeps a long run's record the size of one step's.
 
@@ -83,6 +94,8 @@ class TileGroup:
     backend: str
     device: torch.device
     record: Counter = dataclasses.field(default_factory=Counter)
+    # the row and column subgroups of each rank grid, made on first use
+    subgroups: dict = dataclasses.field(default_factory=dict)
 
     @property
     def staged(self) -> bool:
@@ -340,68 +353,249 @@ def all_gather_blocks(group: TileGroup, block: torch.Tensor) -> list[torch.Tenso
     return [p.to(group.device) for p in parts] if group.staged else parts
 
 
-def _sendrecv(group: TileGroup, send: torch.Tensor, dst: int | None,
-              src: int | None) -> torch.Tensor | None:
-    """Send ``send`` to rank ``dst`` and receive a tensor of its shape from
-    rank ``src`` (either may be None), in one batch."""
-    s = _host(send) if group.staged else send.contiguous()
-    ops, recv = [], None
-    if dst is not None:
-        ops.append(dist.P2POp(dist.isend, s, dst))
-    if src is not None:
-        recv = torch.empty(s.shape, dtype=s.dtype, device=s.device, pin_memory=group.staged)
-        ops.append(dist.P2POp(dist.irecv, recv, src))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    if recv is not None and group.staged:
-        recv = recv.to(group.device)
-    return recv
+def _post(group: TileGroup, sends: list, recvs: list, tag: int = 0) -> tuple[list, list]:
+    """Post ``sends`` ((tensor, rank)) and receives of ``recvs`` ((shape,
+    dtype, rank)) in one batch, at most one each way between two ranks;
+    -> (the works, the receive buffers).  A staged group sends host copies
+    and receives into pinned host memory.  Exchanges posted together
+    between the same ranks pass distinct ``tag``s."""
+    ops, bufs = [], []
+    for t, peer in sends:
+        s = _host(t) if group.staged else t.contiguous()
+        ops.append(dist.P2POp(dist.isend, s, peer, tag=tag))
+    dev = torch.device("cpu") if group.staged else group.device
+    for shape, dtype, peer in recvs:
+        buf = torch.empty(shape, dtype=dtype, device=dev, pin_memory=group.staged)
+        ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
+        bufs.append(buf)
+    return (dist.batch_isend_irecv(ops) if ops else []), bufs
 
 
-def _permute(x: torch.Tensor, dim: int, shift: int, mesh) -> torch.Tensor:
-    size, k = x.shape[dim], abs(shift)
-    if k == 0 or k > size:
+def _land(group: TileGroup, works: list, bufs: list) -> list:
+    """Wait for posted messages; -> the receive buffers on the group's
+    device."""
+    for work in works:
+        work.wait()
+    return [b.to(group.device) for b in bufs] if group.staged else bufs
+
+
+class Pending:
+    """A value whose exchange may still be on the wire: ``wait()`` lands it
+    (once) and returns it.  ``landed(v)`` is one that needs no wire."""
+
+    def __init__(self, land: Callable[[], Any]):
+        self._land, self._value = land, None
+
+    def wait(self):
+        if self._land is not None:
+            self._value, self._land = self._land(), None
+        return self._value
+
+
+def landed(value) -> Pending:
+    return Pending(lambda: value)
+
+
+def _check_shift(size: int, dim: int, shift, mesh) -> None:
+    if dim not in (0, 1):
+        raise ValueError(f"permute along dimension {dim}: ranks shift along the tile grid")
+    if shift == "swap":
+        tiles = (mesh.n, mesh.m)[dim]
+        if tiles != 2:
+            raise ValueError(f"the swap exchanges the two tiles of a 2-tile axis; axis {dim} "
+                             f"has {tiles}")
+        return
+    if shift == 0 or abs(shift) > size:
         raise ValueError(
             f"a permute by {shift} tiles along a block of {size}: a rank's block exchanges "
             "with its neighbour ranks only (pipeline hand-offs on ranks are ROADMAP A.20.2)")
-    step = 1 if shift > 0 else -1
-    send = x.narrow(dim, size - k, k) if shift > 0 else x.narrow(dim, 0, k)
-    dst, src = mesh.neighbour(dim, step), mesh.neighbour(dim, -step)
+
+
+def _exchange_start(x: torch.Tensor, dim: int, shift, mesh, tag: int = 0):
+    """Post the part of ``permute`` that crosses ranks; -> a function that
+    lands it and returns the permuted block (not differentiated)."""
+    size = x.shape[dim]
+    _check_shift(size, dim, shift, mesh)
     group = mesh.group
+    if shift == "swap":
+        if size == 2:                               # both tiles here: the local flip
+            out = torch.flip(x, [dim])
+            return lambda: out
+        peer = mesh.neighbour(dim, 1 if mesh.coord[dim] == 0 else -1)
+        send, dst, src = x, peer, peer
+    else:
+        k = abs(shift)
+        step = 1 if shift > 0 else -1
+        send = x.narrow(dim, size - k, k) if shift > 0 else x.narrow(dim, 0, k)
+        dst, src = mesh.neighbour(dim, step), mesh.neighbour(dim, -step)
     group.record[Collective("collective-permute", _nbytes(send), 2)] += 1
-    recv = _sendrecv(group, send, dst, src)
-    land = recv if recv is not None else torch.zeros_like(send)
-    if shift > 0:
-        return torch.cat([land, x.narrow(dim, 0, size - k)], dim=dim)
-    return torch.cat([x.narrow(dim, k, size - k), land], dim=dim)
+    works, bufs = _post(group, [(send, dst)] * (dst is not None),
+                        [(send.shape, send.dtype, src)] * (src is not None), tag)
+
+    def land():
+        got = _land(group, works, bufs)
+        recv = got[0] if got else torch.zeros_like(send)
+        if shift == "swap":
+            return recv
+        local = x.narrow(dim, 0, size - k) if shift > 0 else x.narrow(dim, k, size - k)
+        return torch.cat([recv, local] if shift > 0 else [local, recv], dim=dim)
+
+    return land
 
 
-class _Permute(torch.autograd.Function):
-    """``ppermute`` by ``shift`` tiles along tile dimension ``dim`` of a
-    rank's block; the backward permutes the cotangent back."""
+def _exchange(x: torch.Tensor, dim: int, shift, mesh) -> torch.Tensor:
+    return _exchange_start(x, dim, shift, mesh)()
+
+
+class _Landed(torch.autograd.Function):
+    """The permuted block, landed: the output of ``permute`` as a function
+    of the sender's block ``x``; the backward permutes the cotangent back
+    (the reverse shift; the swap is its own reverse)."""
 
     @staticmethod
-    def forward(ctx, x, dim, shift, mesh):
+    def forward(ctx, x, out, dim, shift, mesh):
         ctx.meta = (dim, shift, mesh)
-        return _permute(x, dim, shift, mesh)
+        return out.view_as(out)
 
     @staticmethod
     def backward(ctx, g):
         dim, shift, mesh = ctx.meta
-        return _permute(g, dim, -shift, mesh), None, None, None
+        back = "swap" if shift == "swap" else -shift
+        return _exchange(g.contiguous(), dim, back, mesh), None, None, None, None
 
 
-def permute(x: torch.Tensor, dim: int, shift, mesh) -> torch.Tensor:
+def permute_start(x: torch.Tensor, dim: int, shift, mesh, tag: int = 0) -> Pending:
     """``ppermute`` of the blocks ``x`` = (bn, bm, ...) of ``mesh`` (a
-    ``launch.mesh.DistTileMesh``) by ``shift`` tiles along tile dimension
-    ``dim`` (0 rows, 1 columns): tile j receives tile j - shift's data,
-    zeros where the grid has no such tile."""
-    if shift == "swap" or dim not in (0, 1):
-        raise ValueError(
-            f"permute {shift!r} along dimension {dim}: ranks run the sync exchange's neighbour "
-            "shifts along the tile grid (the overlap schedule's packed swap is ROADMAP A.20.2)")
-    return _Permute.apply(x, dim, shift, mesh)
+    ``launch.mesh.DistTileMesh``) along tile dimension ``dim`` (0 rows, 1
+    columns): by ``shift`` tiles (tile j receives tile j - shift's data,
+    zeros where the grid has no such tile), or ``"swap"``, the two tiles of
+    a 2-tile axis exchanged.  The strips leave now; ``wait()`` lands them
+    and returns the permuted block (differentiable in ``x``).  Work queued
+    between the two does not wait for the wire (under nccl the compute
+    stream waits on the exchange only at ``wait``).  Exchanges posted
+    together between the same ranks take distinct ``tag``s."""
+    land = _exchange_start(x, dim, shift, mesh, tag)
+
+    def finish():
+        out = land()
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return out
+        return _Landed.apply(x, out.detach(), dim, shift, mesh)
+
+    return Pending(finish)
+
+
+# ---------------------------------------------------------------------------
+# Collectives along one rank axis (the hybrid plans' reshard)
+# ---------------------------------------------------------------------------
+
+
+def axis_ranks(mesh, dim: int) -> list[int]:
+    """The ranks of this rank's line along rank axis ``dim`` (0: the ranks
+    of its rank column, holding the other tile rows; 1: of its rank row),
+    in grid order."""
+    rr, rc = mesh.ranks
+    pr, pc = mesh.coord
+    if dim == 0:
+        return [r * rc + pc for r in range(rr)]
+    return [pr * rc + c for c in range(rc)]
+
+
+def _axis_group(mesh, dim: int):
+    """This rank's subgroup along rank axis ``dim``.  Every line of every
+    axis of the rank grid is made the first time any is asked for, in one
+    order on every rank (``new_group`` is collective over the world)."""
+    group = mesh.group
+    if mesh.ranks not in group.subgroups:
+        rr, rc = mesh.ranks
+        lines = {0: {c: [r * rc + c for r in range(rr)] for c in range(rc)},
+                 1: {r: [r * rc + c for c in range(rc)] for r in range(rr)}}
+        made = {}
+        for d in (0, 1):
+            for key, ranks in lines[d].items():
+                if len(ranks) > 1:
+                    made[(d, key)] = dist.new_group(ranks)
+        group.subgroups[mesh.ranks] = made
+    return group.subgroups[mesh.ranks][(dim, mesh.coord[1 - dim])]
+
+
+def gather_axis(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The blocks ``t`` of this rank's line along rank axis ``dim``,
+    concatenated along tensor dimension ``dim`` in grid order (the tiled
+    ``all_gather``); not differentiated."""
+    ranks = axis_ranks(mesh, dim)
+    if len(ranks) == 1:
+        return t
+    group = mesh.group
+    group.record[Collective("all-gather", _nbytes(t) * len(ranks), len(ranks))] += 1
+    src = _host(t) if group.staged else t.contiguous()
+    parts = [torch.empty_like(src) for _ in ranks]
+    dist.all_gather(parts, src, group=_axis_group(mesh, dim))
+    if group.staged:
+        parts = [p.to(group.device) for p in parts]
+    return torch.cat(parts, dim=dim)
+
+
+def _line_exchange(t: torch.Tensor, axis: int, mesh, dim: int) -> list[torch.Tensor]:
+    """Chunk q of ``t`` (split along ``dim``, one chunk per rank of this
+    rank's line along rank axis ``axis``) to the line's rank q; -> the
+    chunks every rank of the line sent this one, in grid order (its own
+    included).  Batched P2P, unrecorded."""
+    ranks = axis_ranks(mesh, axis)
+    chunks = list(t.chunk(len(ranks), dim))
+    me = mesh.coord[axis]
+    others = [(q, r) for q, r in enumerate(ranks) if q != me]
+    works, bufs = _post(mesh.group, [(chunks[q], r) for q, r in others],
+                        [(chunks[me].shape, t.dtype, r) for _, r in others])
+    got = iter(_land(mesh.group, works, bufs))
+    return [chunks[q] if q == me else next(got) for q in range(len(ranks))]
+
+
+def all_to_all_axis(t: torch.Tensor, axis: int, mesh, dim: int) -> list[torch.Tensor]:
+    """``t`` split along tensor dimension ``dim`` into
+    one equal chunk per rank of this rank's line along rank axis ``axis``;
+    chunk q goes to the line's rank q.  -> the chunks every rank of the
+    line sent this one, in grid order (its own included).  Not
+    differentiated."""
+    g = len(axis_ranks(mesh, axis))
+    if g == 1:
+        return [t]
+    mesh.group.record[Collective("all-to-all", _nbytes(t), g)] += 1
+    return _line_exchange(t, axis, mesh, dim)
+
+
+def sum_in_order(parts) -> torch.Tensor:
+    """The sum of ``parts``, one after another, in their order."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+class _AxisGather(torch.autograd.Function):
+    """``gather_axis``, differentiated: the backward is the reduce-scatter
+    (each rank of the line gets the sum of the line's cotangent chunks for
+    its block, summed in grid order), batched P2P on both backends."""
+
+    @staticmethod
+    def forward(ctx, t, dim, mesh):
+        ctx.meta = (dim, mesh)
+        return gather_axis(t, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, mesh = ctx.meta
+        n = len(axis_ranks(mesh, dim))
+        if n == 1:
+            return g, None, None
+        mesh.group.record[Collective("reduce-scatter", _nbytes(g) // n, n)] += 1
+        return sum_in_order(_line_exchange(g.contiguous(), dim, mesh, dim)), None, None
+
+
+def all_gather_axis(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The tiled ``all_gather`` of the blocks ``t`` along rank axis ``dim``
+    (``gather_axis``), differentiable: its backward is the reduce-scatter."""
+    return _AxisGather.apply(t, dim, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.analysis.collectives import collective_stats, halo_permute_bytes
+from repro_torch.analysis.collectives import collective_stats, plan_collectives
 from repro_torch.configs.base import ParallelConfig, TrainConfig
 from repro_torch.core import fusion as tfu
 from repro_torch.core import spatial as tsp
@@ -351,7 +351,7 @@ def test_halo_bytes_equal_the_references_permutes(rank_runs, jax_ref):
     by XLA as the port stacks them).  At batch end XLA's combiner merged the
     loss, count and gradient psums into one all-reduce; the port makes two
     (the gradients, and the loss sum and count in float64: 8 bytes more).
-    ``halo_permute_bytes`` gives the same count from the plan."""
+    ``plan_collectives`` gives the same bytes from the plan."""
     d = np.load(jax_ref)
     assert d["hlo_scan_trip_counts"].size == 0
     assert int(d["collective-permute_trip"]) == 2 * int(d["collective-permute_count_in_loop"])
@@ -360,8 +360,8 @@ def test_halo_bytes_equal_the_references_permutes(rank_runs, jax_ref):
         st = collective_stats(out["record"])
         assert st.count["collective-permute"] == int(d["collective-permute_count"]) == 24
         assert st.bytes_naive["collective-permute"] == int(d["collective-permute_bytes"])
-        assert st.bytes_naive["collective-permute"] == 2 * halo_permute_bytes(
-            _plan(), 2, (2, 2))
+        assert st.bytes_naive["collective-permute"] == 2 * plan_collectives(
+            _plan(), 2, (2, 2))["collective-permute"][1]
         assert st.count["all-reduce"] == int(d["all-reduce_count"]) + 1 == 10
         assert st.bytes_naive["all-reduce"] == int(d["all-reduce_bytes"]) + 8
         assert int(d["all-reduce_bytes"]) == 2 * 2 * 4 * 2 * (32 + 64) + params_bytes + 8
@@ -413,23 +413,30 @@ def test_launcher_refusals_under_dist(flags, exc, match, monkeypatch):
         main(base + flags)
 
 
+def _ragged(**kw):
+    return tfu.build_stack_plan(HW, LAYERS, 2, 2, "auto", hw="pi3x3+jetson", batch=4,
+                                microbatches=2, **kw)
+
+
+# Since the overlap schedule, crossovers and codecs run on ranks, their
+# cases hold them beside a ragged partition, which still does not.
 OUTSIDE = {
-    "non-uniform": lambda: tfu.build_stack_plan(HW, LAYERS, 2, 2, "auto", hw="pi3x3+jetson",
-                                                batch=4, microbatches=2),
-    "overlap": lambda: tfu.build_stack_plan(HW, LAYERS, 2, 2, [Group(0, 1), Group(2, 3)],
-                                            schedule="overlap"),
-    "crossover": lambda: tfu.build_stack_plan(HW, LAYERS, 2, 2, crossover=2),
+    "non-uniform": _ragged,
+    "overlap": lambda: _ragged(schedule="overlap"),
+    "crossover": lambda: _ragged(crossover=2),
     "pipeline": lambda: tfu.build_stack_plan((64, 64), yolov2_16_layers(batch_norm=False)[:8],
                                              2, 2, "auto", pipeline=2, hw="jetson-nano-gpu",
                                              batch=8, microbatches=2),
-    "codec": lambda: tfu.build_stack_plan(HW, LAYERS, 2, 2, wire_codec="int8"),
+    "codec": lambda: _ragged(wire_codec="int8"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(OUTSIDE))
 def test_plans_outside_the_slice_name_their_item(name):
     """Every entry point refuses on ranks, before any collective, the plans
-    the slice does not run: ROADMAP A.20.2."""
+    ranks do not run - a ragged partition (alone, or under the overlap
+    schedule, a crossover or a codec) and a pipeline tail: ROADMAP
+    A.20.2."""
     group = TileGroup(0, 1, "gloo", torch.device("cpu"))
     mesh = make_dist_tile_mesh(2, 2, "cpu", group)
     plan = OUTSIDE[name]()

@@ -1,7 +1,7 @@
 """The collectives of ``parallel/dist.py`` on CPU ranks (gloo), against the
 virtual mesh's ops, and their rules.
 
-- ``permute`` of every rank's block against ``core/halo.py:_shift`` of the
+- ``permute_start`` of every rank's block against ``core/halo.py:_shift`` of the
   whole grid, and ``all_reduce_sum`` against the plain sum over the
   blocks, in fp64, at W = 2 and W = 4 over 2x2, 4x2 and 4x4 grids (blocks of
   one, two and four tiles), by shifts of one tile and of a whole block;
@@ -32,7 +32,7 @@ from repro_torch.parallel.dist import (
     TileGroup,
     all_gather_blocks,
     all_reduce_sum,
-    permute,
+    permute_start,
     rank_grid,
     replicated,
     resolve_backend,
@@ -76,7 +76,7 @@ def _ops_rank(group, grids):
         errs = {}
         for dim in (0, 1):
             for shift in (1, -1, mesh.block[dim], -mesh.block[dim]):
-                got = permute(_block_of(mesh, x), dim, shift, mesh)
+                got = permute_start(_block_of(mesh, x), dim, shift, mesh).wait()
                 want = _block_of(mesh, _shift(x, dim, shift))
                 errs[f"permute d{dim} s{shift}"] = float((got - want).abs().max())
         (bn, bm), (rr, rc) = mesh.block, mesh.ranks
@@ -84,7 +84,7 @@ def _ops_rank(group, grids):
         errs["all_reduce_sum"] = float((all_reduce_sum(_block_of(mesh, x), group)
                                         - sum(blocks)).abs().max())
         group.take_record()
-        permute(_block_of(mesh, x), 0, 1, mesh)
+        permute_start(_block_of(mesh, x), 0, 1, mesh).wait()
         record = group.take_record()
         # gradcheck on a smaller grid input: every rank perturbs the same
         # element of the replicated input, and gathers every rank's output
@@ -95,7 +95,8 @@ def _ops_rank(group, grids):
         for dim in (0, 1):
             checks[f"permute d{dim}"] = torch.autograd.gradcheck(
                 lambda t, dim=dim: _Gathered.apply(
-                    permute(_block_of(mesh, replicated(t, group)), dim, 1, mesh), group),
+                    permute_start(_block_of(mesh, replicated(t, group)), dim, 1, mesh).wait(),
+                    group),
                 (xs,), eps=1e-6, atol=1e-8)
         checks["all_reduce_sum"] = torch.autograd.gradcheck(
             lambda t: _Gathered.apply(
@@ -227,16 +228,17 @@ def test_backend_rule_has_no_silent_fallback(device, backend, local_world, cards
 
 
 def test_permute_refuses_what_the_slice_does_not_run():
-    """The overlap schedule's packed swap and a hop past the neighbour
-    block (a pipeline hand-off) name ROADMAP A.20.2; neither reaches a
-    collective."""
+    """A hop past the neighbour block (a pipeline hand-off) names ROADMAP
+    A.20.2, and a swap along an axis of other than two tiles is refused;
+    neither reaches a collective.  (The overlap schedule's swap of a 2-tile
+    axis runs on ranks: ``tests/test_torch_dist_plans.py``.)"""
     group = TileGroup(0, 1, "gloo", torch.device("cpu"))
-    mesh = make_dist_tile_mesh(2, 2, "cpu", group)
-    x = torch.zeros(2, 2, 1, 2, 2, 1)
+    mesh = make_dist_tile_mesh(4, 2, "cpu", group)
+    x = torch.zeros(4, 2, 1, 2, 2, 1)
+    with pytest.raises(ValueError, match="2-tile axis"):
+        permute_start(x, 0, "swap", mesh)
     with pytest.raises(ValueError, match="A.20.2"):
-        permute(x, 0, "swap", mesh)
-    with pytest.raises(ValueError, match="A.20.2"):
-        permute(x, 1, 3, mesh)
+        permute_start(x, 1, 3, mesh)
     assert not group.record
 
 
