@@ -337,7 +337,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    attention outputs within ``DECODE_BAR``, the planted faults of
    ``VL_FAULTS`` over it (sections permuted, height and width swapped,
    patches not substituted), beside vs alone; (b) trained as phase 7 at
-   ``VL_TRAIN_DEPTH`` (14 layers), 4 x 2048 tokens (512 of them patches)
+   ``VL_TRAIN_DEPTH`` (8 layers), 4 x 2048 tokens (512 of them patches)
    in 2 microbatches,
    bf16, AdamW, 4 steps; (c) served at full depth, ``VL_SERVE_REQUESTS``
    text prompts; (d) both launchers with the id;
@@ -350,7 +350,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    C.15), within ``DECODE_BAR``, the planted faults of ``WHISPER_FAULTS``
    over it (cross K/V from the decoder's states, a causal encoder, the
    sinusoid dropped); (b) trained as phase 7 (the decoder at ``VL_TRAIN_DEPTH``,
-   12 layers), 4 x (2048 frames, 512 tokens)
+   6 layers), 4 x (2048 frames, 512 tokens)
    in 2 microbatches, bf16, AdamW, 4 steps (B4 in three modes: the
    encoder's non-causal, the decoder's causal, the cross-attention's 512
    queries against 2048 keys); (c) served at full depth as the reference's
@@ -424,28 +424,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    supported, FLOPs and argument bytes a device, ``hbm_ok``, the dominant
    term (``{"dryrun": {"phase_cells": ...}}``; the whole 40-cell grid
    traces for longer than this phase may take).  Launches nothing.
-29. one tile per process (``dist_phase``; ROADMAP A.20.1, A.20.2's
-   uniform plans): phase 5's plan, then ``DIST_PLANS`` - phase 13's
-   tpu-v5e-chip plan (overlap, crossover 14) and phase 16's edge_auto int8
-   plan - in the same processes, on ``torch.distributed`` ranks spawned by
+29. one tile per process (``dist_phase``; ROADMAP A.20.1, A.20.2 but
+   elastic): phase 5's plan, then ``DIST_PLANS`` - phase 13's
+   tpu-v5e-chip plan (overlap, crossover 14), phase 16's edge_auto int8
+   plan, phase 14's cluster (spec) and its crossover-14 twin (padded),
+   phase 15's pipe2x2 and pure1x4 (1x4) - in the same processes, on
+   ``torch.distributed`` ranks spawned by
    ``parallel/dist.py:run_ranks`` (``dist_rank``, each through
    ``make_train_step`` on its block of the grid): (a) nccl at W = the cards
    - on one card each plan's params after every step bitwise its virtual
-   run's (phase 13's and 16's runs are reused), B1-B3 launches the code's
+   run's (phases 13-16's runs are reused), B1-B3 launches the code's
    count; (b) ``DIST_WORLD`` gloo ranks sharing the card, one tile each,
    started cold (each rank builds B1-B3 into one fresh directory at once;
-   all must load the same libraries): the params after 3 steps of phase
-   5's and the hybrid plan within their phases' fp32-trainer bars, the
+   all must load the same libraries): the params after 3 steps of every
+   uncompressed plan within its phase's fp32-trainer bars, the
    int8 plan's step-1 grads within ``CODEC_BAR`` of its virtual run, every
-   rank's params equal, a strip taken from the wrong neighbour past the
-   bar on every plan (``CODEC_BAR`` on the int8 plan); one line per rank
-   and plan with its
-   peak memory, launches, collectives (count and bytes equal to
-   ``analysis/collectives.py:plan_collectives``, the model the CPU tests
-   hold to the reference's compiled step) and step ms (staged through
-   host memory: not a result); (c) nccl at ``DIST_WORLD`` ranks where
-   there are that many cards.  The ranks' launches join the
-   ``{"kernels": ...}`` line.
+   rank's params equal, a strip or hand-off taken from the wrong
+   neighbour past the bar on every plan (``CODEC_BAR`` on the int8 plan);
+   one line per rank and plan with its
+   peak memory, launches (the rank's own count: its shape classes, its
+   stages), collectives (count and bytes equal to
+   ``analysis/collectives.py:plan_collectives`` at the rank's place, the
+   model the CPU tests hold to the reference's compiled step) and step ms
+   (staged through host memory: not a result); (c) nccl at ``DIST_WORLD``
+   ranks where there are that many cards.  The ranks' launches join the
+   ``{"kernels": ...}`` line, B1-B3's also by plan.
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -825,11 +828,22 @@ DIST_WARM_LIBS = ("conv2d_tile", "conv2d_dgrad_tile")
 # A.20.2, uniform plans), each TRAIN_STEPS steps: phase 13's HYBRID_HW plan
 # (the overlap schedule, crossover 14), held to phase 13's bars, and phase
 # 16's edge_auto plan under int8 (groups and crossover by the cost model),
-# its step-1 grads held at CODEC_BAR to phase 16's virtual-mesh runs.  At
-# one rank each is bitwise its virtual run; on DIST_WORLD ranks every
-# rank's collectives equal ``analysis/collectives.py:plan_collectives``.
+# its step-1 grads held at CODEC_BAR to phase 16's virtual-mesh runs; then
+# four more (A.20.2, ragged partitions and pipeline tails): phase 14's
+# cluster plan (spec) and its crossover=14 twin under the padded executor,
+# held to phase 14's bars of the cluster's spec and padded plans, and phase
+# 15's pipe2x2 and pure1x4 (on a 1x4 grid: at DIST_WORLD ranks its
+# hand-off hops 2 blocks), held to phase 15's bars.  At one rank each is
+# bitwise its virtual run; on DIST_WORLD ranks every rank's collectives
+# equal ``analysis/collectives.py:plan_collectives`` at its coordinates.
+# "grid" is the plan's tile grid where it is not GRID.
 DIST_PLANS = {"hybrid_tpu": HYBRID_KW, "edge_int8": dict(WIRE_PLANS_416["edge_auto"][1],
-                                                          wire_codec="int8")}
+                                                          wire_codec="int8"),
+              "cluster_spec": dict(_CLUSTER_KW, groups="auto", ragged_exec="spec"),
+              "cluster_crossover_padded": dict(_CLUSTER_KW, groups="auto", crossover=14,
+                                               ragged_exec="padded"),
+              "pipe2x2": dict(pipeline_kw(2, 2), batch_norm=False),
+              "pure1x4": dict(pipeline_kw(2, 2), batch_norm=False, grid=(1, 4))}
 
 # Phase 19: LM serving (``lm_serve_phase``).  The slot engine at full width
 # and full depth, bf16, seed-0 params: LM_SERVE_REQUESTS prompts of
@@ -910,10 +924,10 @@ FA_WINDOW_SEQ = 8192
 # tokens; both 4 sequences in 2 microbatches (LM_BATCH, LM_ACCUM), bf16,
 # remat full, AdamW, 3 steps.  The decode checks are fp32 at full depth.
 VL_ARCH, WHISPER_ARCH = "qwen2-vl-2b", "whisper-medium"
-# (b) trains half the layers (Qwen2-VL 14 of 28, Whisper's decoder 12 of 24
-# beside its whole encoder), so the run ends inside its time on a slow host;
-# (a) and (c) keep the full depth
-VL_TRAIN_DEPTH = {VL_ARCH: 14, WHISPER_ARCH: 12}
+# (b) trains a cut of the layers (Qwen2-VL 8 of 28, Whisper's decoder 6 of
+# 24 beside its whole encoder), so the run ends inside its time on a slow
+# host; (a) and (c) keep the full depth
+VL_TRAIN_DEPTH = {VL_ARCH: 8, WHISPER_ARCH: 6}
 VL_SEQ = 2048
 VL_STEPS = 4
 # Qwen2-VL's decode check: LM_SERVE_FORCED tokens, the first VL_GRID^2 of
@@ -1060,7 +1074,7 @@ def graph_ms(fn, n: int = 20) -> float:
     return ms
 
 
-def conv_shapes(plan, batch: int) -> list[dict]:
+def conv_shapes(plan, batch: int, rank=None) -> list[dict]:
     """The conv calls the executor hands the backend for a batch of
     ``batch`` images, in order, each one kernel launch: all n*m tiles in one
     call, each input carrying the halo present at that layer.  Under the
@@ -1074,20 +1088,34 @@ def conv_shapes(plan, batch: int) -> list[dict]:
     classes of ``core/halo.py:_switch_by_size``).  A pipeline stage's layer
     makes one call a microbatch over its tiles' blocks of full maps, which
     together are the microbatch (``core/fusion.py:_make_pipeline_local``),
-    padded."""
-    from repro_torch.core.fusion import _ragged_group_geom
+    padded.  ``rank`` = (rank grid, coord): the calls of that rank of a
+    run on ranks instead, over its block of the grid - its shape classes,
+    its batch blocks, the stages it holds tiles of."""
+    import torch
+
+    from repro_torch.core.fusion import _pipeline_geometry, _ragged_group_geom, _stage_tiles
     from repro_torch.core.halo import _switch_by_size
     from repro_torch.core.spatial import split_1d
+    from repro_torch.launch.mesh import DistTileMesh
 
     out = []
-    tiles = plan.n * plan.m * batch
+    mesh = None if rank is None else DistTileMesh(plan.n, plan.m, torch.device("cpu"), None,
+                                                  *rank)
+    held = 1 if mesh is None else (mesh.block[0] * mesh.block[1]) / (plan.n * plan.m)
+    tiles = round(plan.n * plan.m * held) * batch
     for gi, g in enumerate(plan.groups):
         halo = plan.group_halos[gi]
         ragged = not plan.is_uniform and g.mode == "spatial"
         if ragged:
             geom = _ragged_group_geom(plan, gi)
-            classes = _switch_by_size(plan.tile_rows[g.start], plan.tile_cols[g.start])
+            classes = _switch_by_size(plan.tile_rows[g.start], plan.tile_cols[g.start], mesh)
             cum = 1
+        if g.mode == "pipeline":
+            s = [x for x in plan.groups if x.mode == "pipeline"].index(g)
+            here = len(_stage_tiles(plan, s, mesh))
+            if not here:
+                continue
+            stage_batch = here * batch // _pipeline_geometry(plan)["per_stage"]
         for k, l in enumerate(g.layers):
             layer = plan.layers[l]
             k_, st, cin = layer.kernel, layer.stride, layer.in_channels
@@ -1097,7 +1125,8 @@ def conv_shapes(plan, batch: int) -> list[dict]:
             if g.mode in ("data", "pipeline"):
                 h, w = plan.map_hw[l]
                 pieces = [("full" if g.mode == "data" else "stage",
-                           (batch, h + 2 * layer.padding, w + 2 * layer.padding))]
+                           (round(batch * held) if g.mode == "data" else stage_batch,
+                            h + 2 * layer.padding, w + 2 * layer.padding))]
             elif ragged and plan.ragged_exec == "padded":
                 pieces = [("padded", (tiles, *geom["ein"][k]))]
             elif ragged:
@@ -1130,14 +1159,15 @@ def conv_shapes(plan, batch: int) -> list[dict]:
     return out
 
 
-def launches_per_batch(plan, batch: int) -> tuple[dict, dict]:
+def launches_per_batch(plan, batch: int, rank=None) -> tuple[dict, dict]:
     """The code's launch count of one forward and backward of a batch:
     (per kernel, B1's per tile instance).  One B1 and one B3 per conv call,
     one B2 per conv call whose input takes a gradient (every one but the
-    first layer's, whose input is the image)."""
+    first layer's, whose input is the image).  ``rank``: one rank's of a
+    run on ranks (``conv_shapes``)."""
     from repro_torch.kernels.conv2d_tiled.kernel import fwd_tile
 
-    calls = conv_shapes(plan, batch)
+    calls = conv_shapes(plan, batch, rank)
     by_instance = {}
     for c in calls:
         tile = fwd_tile(c["w"][-1])
@@ -1397,7 +1427,8 @@ def deterministic_cudnn():
 
 def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
                 plant_faults: bool = True, steps: int = TRAIN_STEPS, grid=GRID,
-                accum: int = TRAIN_ACCUM, batch_norm: bool = True) -> dict:
+                accum: int = TRAIN_ACCUM, batch_norm: bool = True,
+                orders_from: dict | None = None) -> dict:
     """Phases 5, 12, 13, 14 and 15: train YOLOv2-16 at 416x416 on the
     ``grid`` (2x2 unless given) through the three kernels for ``steps``
     steps of ``accum`` microbatches, under the plan
@@ -1407,8 +1438,13 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     to ``pipeline_schedule_census`` and, with ``plant_faults``, its planted
     fault is the hand-off to the wrong stage rank.  "reference" holds the
     fp64 trainer's update, the initial params (both on the host) and the
-    per-leaf bars, and the run's param checksums after each step: phase 29
-    holds its ranks to them."""
+    per-leaf bars, the run's param checksums after each step, and the
+    step-1 gradients in fp64 with their bars: phase 29 holds its ranks to
+    them.  ``orders_from``: an earlier run of the same
+    stack on the same batches (phase 5's for phases 12 and 13, the sync
+    no-BN plan's for phase 15's pipelines), whose fp32 trainers in image orders
+    1..BAR_ORDERS-1 the update bars reuse beside this plan's own order 0,
+    instead of running BAR_ORDERS - 1 more fp32 trainers."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1611,10 +1647,13 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
         return [normwise(a.double() - b.double(), u) for a, b, u in zip(fin, p0, upd64)]
 
     # the fp32 trainer in BAR_ORDERS image orders (one after a single step,
-    # whose bars are the step-1 gradients')
+    # whose bars are the step-1 gradients'); with ``orders_from``, this
+    # plan's order 0 and that run's other orders
+    own = orders[:1] if steps == 1 or orders_from is not None else orders
     with deterministic_cudnn():
-        tail_by_order = [upd_err(trainer_run(torch.float32, order)[0])
-                         for order in (orders if steps > 1 else orders[:1])]
+        tail_by_order = [upd_err(trainer_run(torch.float32, order)[0]) for order in own]
+    if orders_from is not None and steps > 1:
+        tail_by_order += orders_from["reference"]["update_errs_by_order"][1:]
     tail = upd_err(tree_leaves(last["state"].params))
     tail32 = [max(e) for e in zip(*tail_by_order)]
     tail_bars = ([max(WGRAD_NORM_TOL, GRAD_FLOOR_FACTOR * e) for e in tail32] if steps > 1
@@ -1650,8 +1689,9 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
              "loss_rel_err_vs_fp64": loss64_rel,
              "per_leaf": {n: [a, b] for n, a, b in zip(names, tail, tail32)}}
     reference = dict(p0=[t.cpu() for t in p0], upd64=[u.cpu() for u in upd64], bars=tail_bars,
-                     losses64=losses64, names=names,
-                     checksums=[state_checksums(p) for p in sums])
+                     losses64=losses64, names=names, update_errs_by_order=tail_by_order,
+                     checksums=[state_checksums(p) for p in sums],
+                     grads64=[g.cpu() for g in ref64], step1_bars=bars)
     del fin64, upd64, ref64
 
     # where the device time of one step goes, by kernel name
@@ -6256,8 +6296,13 @@ def dist_rank(group, build_dir, fault, plans) -> dict:
     params and the step-1 gradients.  ``build_dir``: build DIST_COLD_LIBS
     there first, cold, and report each library's path and hash.
     ``fault="wrong_neighbour"``: train phase 5's plan and each plan of
-    ``plans`` again with every row strip sent to (and taken from) the rank
-    mirrored across the columns."""
+    ``plans`` again, one step, with every row strip (or row hand-off) sent to (and
+    taken from) the rank mirrored across the columns, and every hop past
+    the neighbour block (pure1x4's hand-off on a one-row rank grid) landed
+    one block short; every rank plans the same wrong hops, so their
+    messages still pair.  A plan's "grid" names its tile grid (GRID
+    otherwise); each run also keeps the rank grid and this rank's place in
+    it."""
     import hashlib
     from pathlib import Path
 
@@ -6270,6 +6315,7 @@ def dist_rank(group, build_dir, fault, plans) -> dict:
     from repro_torch.launch.train import make_batch_fn
     from repro_torch.models.yolo import make_yolo_tiled_arch
     from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.parallel import dist as tdist
     from repro_torch.serve.exec_cache import kernel_launch_counts
     from repro_torch.train.trainer import make_train_step
 
@@ -6289,7 +6335,7 @@ def dist_rank(group, build_dir, fault, plans) -> dict:
     tcfg = TrainConfig(lr=TRAIN_LR, optimizer="sgd", warmup=0, steps=TRAIN_STEPS, seed=SEED)
     out.update(ranks=list(mesh.ranks), coord=list(mesh.coord), origin=list(mesh.origin))
 
-    def drive(arch):
+    def drive(arch, steps=TRAIN_STEPS):
         step1 = {}
 
         def on_grads(step, loss, grads):
@@ -6305,7 +6351,7 @@ def dist_rank(group, build_dir, fault, plans) -> dict:
         group.take_record()
         before = kernel_launch_counts()
         sums, losses, ms = [], [], []
-        for s in range(TRAIN_STEPS):
+        for s in range(steps):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
             state, m = step(state, make_batch(s))
@@ -6319,11 +6365,15 @@ def dist_rank(group, build_dir, fault, plans) -> dict:
                                             for k, v in kernel_launch_counts().items()}),
                     peak=torch.cuda.max_memory_allocated(dev), record=group.take_record(),
                     params=[t.cpu() for t in tree_leaves(state.params)] if group.rank == 0
-                    else None, step1_grads=step1.get("grads"))
+                    else None, step1_grads=step1.get("grads"),
+                    ranks=list(arch.mesh.ranks), coord=list(arch.mesh.coord))
 
     def arch_of(kw):
-        return make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
-                                    backend="cuda", mesh=mesh, **kw)
+        kw = dict(kw)
+        grid = kw.pop("grid", GRID)
+        return make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=grid[0], m=grid[1],
+                                    backend="cuda",
+                                    mesh=make_dist_tile_mesh(*grid, dev, group), **kw)
 
     archs = {"phase5": arch_of(dict(groups=[Group(*g) for g in _HAND]))}
     archs.update({label: arch_of(kw) for label, kw in plans.items()})
@@ -6331,7 +6381,7 @@ def dist_rank(group, build_dir, fault, plans) -> dict:
     for label, arch in archs.items():
         out["runs"][label] = drive(arch)
         if fault == "wrong_neighbour":
-            real = DistTileMesh.neighbour
+            real, real_hop = DistTileMesh.neighbour, tdist._hop_start
 
             def mirrored(self, dim, step):
                 r = real(self, dim, step)
@@ -6340,42 +6390,55 @@ def dist_rank(group, build_dir, fault, plans) -> dict:
                 pr, pc = divmod(r, self.ranks[1])
                 return pr * self.ranks[1] + (self.ranks[1] - 1 - pc)
 
-            DistTileMesh.neighbour = mirrored
+            def one_block_short(x, dim, shift, mesh, span, tag):
+                b = x.shape[dim]
+                if abs(shift) > b:
+                    shift -= b if shift > 0 else -b
+                return real_hop(x, dim, shift, mesh, span, tag)
+
+            DistTileMesh.neighbour, tdist._hop_start = mirrored, one_block_short
             try:
-                out["faults"][label] = drive(arch)
+                out["faults"][label] = drive(arch, steps=1)
             finally:
-                DistTileMesh.neighbour = real
+                DistTileMesh.neighbour, tdist._hop_start = real, real_hop
     return out
 
 
-def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict) -> dict:
+def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict, ragged14: dict,
+               pipe15: dict) -> tuple[dict, dict]:
     """Phase 29: phase 5's plan, then DIST_PLANS, over ``torch.distributed``
     ranks, one block of the tile grid a process (ROADMAP A.20.1, A.20.2's
-    uniform plans).  The virtual mesh's run of phase 5's plan (the
-    checksums of its params after each step) comes first; the new plans'
-    virtual runs are phase 13's (``hybrid13``: its checksums, its
-    torch-backend trainer in fp64 and its bars) and phase 16's (``edge16``:
-    the int8 run's checksums and step-1 grads, its none twin's step-1
-    grads).  Then
+    uniform plans, ragged partitions and pipeline tails).  The virtual
+    mesh's runs of phase 5's plan and of the cluster's padded crossover
+    twin (the checksums of its params after each step) come first; the
+    other plans' virtual runs are phase 13's (``hybrid13``: its checksums,
+    its torch-backend trainer in fp64 and its bars), phase 16's
+    (``edge16``: the int8 run's checksums and step-1 grads, its none twin's
+    step-1 grads), phase 14's (``ragged14``: the cluster's spec run, and
+    the padded run whose trainer and bars the crossover twin is held to)
+    and phase 15's (``pipe15``: pipe2x2's and pure1x4's).  Then
 
     (a) nccl at W = the cards: with one card, each plan's params after every
         step bitwise its virtual run's, and B1-B3 launches the code's count;
     (b) DIST_WORLD gloo ranks sharing the card, one tile each, each strip,
-        gather and sum staged through pinned host memory, started cold (each
-        rank builds B1-B3 into one fresh directory at once; all must load
-        the same libraries): the params after TRAIN_STEPS steps of phase
-        5's and the hybrid plan held to their phases' fp32-trainer bars, the
+        gather, hand-off and sum staged through pinned host memory, started
+        cold (each rank builds B1-B3 into one fresh directory at once; all
+        must load the same libraries): the params after TRAIN_STEPS steps of
+        every uncompressed plan held to its phase's fp32-trainer bars, the
         int8 plan's step-1 grads at CODEC_BAR to its virtual codec run,
-        every rank's params equal, the wrong-neighbour fault past its bar
-        on every plan (the int8 plan's: CODEC_BAR); per rank and plan its
-        peak memory, launches, collectives (count and bytes equal to
-        ``analysis/collectives.py:plan_collectives``, the model the CPU
-        tests hold to the reference's compiled step) and step ms
-        (host-staged: not a result);
+        every rank's params equal, the wrong-neighbour fault's step-1
+        gradients past their phase's step-1 bar on every plan (the int8
+        plan's: CODEC_BAR); per rank and plan its
+        peak memory, launches (the code's count for that rank: its shape
+        classes, its stages), collectives (count and bytes equal to
+        ``analysis/collectives.py:plan_collectives`` at the rank's place,
+        the model the CPU tests hold to the reference's compiled step) and
+        step ms (host-staged: not a result);
     (c) nccl at DIST_WORLD ranks, only where the machine has that many
         cards, held as (b).
 
-    Returns the B1-B3 launches of the correct runs on every rank."""
+    Returns the B1-B3 launches of the correct runs on every rank, in all
+    and by plan."""
     import gc
     import hashlib
     import shutil
@@ -6390,7 +6453,7 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict) -> dic
     from repro_torch.launch.train import make_batch_fn
     from repro_torch.models.yolo import make_yolo_tiled_arch
     from repro_torch.kernels import _build
-    from repro_torch.parallel.dist import rank_grid, run_ranks
+    from repro_torch.parallel.dist import run_ranks
     from repro_torch.train.trainer import make_train_step
 
     t_phase = time.perf_counter()
@@ -6398,54 +6461,77 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict) -> dic
     pcfg = ParallelConfig(grad_accum=TRAIN_ACCUM)
     tcfg = TrainConfig(lr=TRAIN_LR, optimizer="sgd", warmup=0, steps=TRAIN_STEPS, seed=SEED)
 
-    arch = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
-                                groups=groups, backend="cuda", device=dev)
-    make_batch = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch.target_shape(TRAIN_BATCH), SEED, dev)
-    init_state, step = make_train_step(arch, pcfg, tcfg)
-    state = init_state(SEED)
-    virtual = []
-    for s in range(TRAIN_STEPS):
-        state, _ = step(state, make_batch(s))
-        virtual.append(state_checksums(state.params))
-    plans = {"phase5": arch.plan}
-    plans.update({label: make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
-                                              backend="cuda", device=dev, **kw).plan
-                  for label, kw in DIST_PLANS.items()})
-    virtual = {"phase5": virtual, "hybrid_tpu": hybrid13["reference"]["checksums"],
-               "edge_int8": edge16["int8"]["checksums"]}
-    refs = {"phase5": train5["reference"], "hybrid_tpu": hybrid13["reference"]}
-    names = train5["reference"]["names"]
-    want_launches = {}
-    for label, plan in plans.items():
-        per_mb, _ = launches_per_batch(plan, TRAIN_BATCH // TRAIN_ACCUM)
-        want_launches[label] = {k: v * TRAIN_ACCUM * TRAIN_STEPS for k, v in per_mb.items()}
-    for label, run in (("phase5", train5), ("hybrid_tpu", hybrid13)):
-        check(want_launches[label] == run["launches"],
-              f"{label} launched {run['launches']}, the code's count {want_launches[label]}")
-    check(len(virtual["hybrid_tpu"]) == len(virtual["edge_int8"]) == TRAIN_STEPS,
-          "phases 13 and 16 kept no checksums of their virtual runs")
+    def arch_of(kw):
+        kw = dict(kw)
+        grid = kw.pop("grid", GRID)
+        return make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=grid[0], m=grid[1],
+                                    backend="cuda", device=dev, **kw)
+
+    def virtual_run(kw) -> list:
+        """The virtual mesh's params after each of TRAIN_STEPS steps."""
+        arch = arch_of(kw)
+        make_batch = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch.target_shape(TRAIN_BATCH), SEED,
+                                   dev)
+        init_state, step = make_train_step(arch, pcfg, tcfg)
+        state, sums = init_state(SEED), []
+        for s in range(TRAIN_STEPS):
+            state, _ = step(state, make_batch(s))
+            sums.append(state_checksums(state.params))
+        return sums
+
+    all_plans = {"phase5": dict(groups=groups), **DIST_PLANS}
+    plans = {label: arch_of(kw).plan for label, kw in all_plans.items()}
+    virtual = {"phase5": virtual_run(all_plans["phase5"]),
+               "hybrid_tpu": hybrid13["reference"]["checksums"],
+               "edge_int8": edge16["int8"]["checksums"],
+               "cluster_spec": ragged14["cluster_spec"]["reference"]["checksums"],
+               "cluster_crossover_padded": virtual_run(DIST_PLANS["cluster_crossover_padded"]),
+               "pipe2x2": pipe15["pipe2x2"]["reference"]["checksums"],
+               "pure1x4": pipe15["pure1x4"]["reference"]["checksums"]}
+    refs = {"phase5": train5["reference"], "hybrid_tpu": hybrid13["reference"],
+            "cluster_spec": ragged14["cluster_spec"]["reference"],
+            "cluster_crossover_padded": ragged14["cluster_padded"]["reference"],
+            "pipe2x2": pipe15["pipe2x2"]["reference"], "pure1x4": pipe15["pure1x4"]["reference"]}
+
+    def want_launches(label, run):
+        """The code's B1-B3 launches of one rank's run of ``label``."""
+        per_mb, _ = launches_per_batch(plans[label], TRAIN_BATCH // TRAIN_ACCUM,
+                                       (tuple(run["ranks"]), tuple(run["coord"])))
+        return {k: v * TRAIN_ACCUM * TRAIN_STEPS for k, v in per_mb.items()}
+
+    for label, run in (("phase5", train5), ("hybrid_tpu", hybrid13),
+                       ("cluster_spec", ragged14["cluster_spec"]),
+                       ("pipe2x2", pipe15["pipe2x2"]), ("pure1x4", pipe15["pure1x4"])):
+        want = want_launches(label, {"ranks": (1, 1), "coord": (0, 0)})
+        check(want == run["launches"], f"{label} launched {run['launches']}, the code's count {want}")
+    check(all(len(v) == TRAIN_STEPS for v in virtual.values()),
+          f"an earlier phase kept no checksums of its virtual run: "
+          f"{ {k: len(v) for k, v in virtual.items()} }")
     print(f"phase 29 plans: " + "; ".join(
-        f"{label} schedule {p.schedule} crossover {p.crossover} codec {p.wire_codec} groups "
-        f"{[(g.start, g.end, g.mode) for g in p.groups]}" for label, p in plans.items()))
-    del arch, state, step
+        f"{label} grid {p.n}x{p.m} schedule {p.schedule} crossover {p.crossover} codec "
+        f"{p.wire_codec} ragged {None if p.is_uniform else p.ragged_exec} stages {p.stages} "
+        f"groups {[(g.start, g.end, g.mode) for g in p.groups]}" for label, p in plans.items()))
     gc.collect()
     torch.cuda.empty_cache()
 
-    def held(cell, runs, world):
+    def held(cell, runs):
         """Checks and prints the runs of one cell, every plan; returns its
-        rows and each plan's model of the collectives."""
-        ranks = rank_grid(*GRID, world)
+        rows and each plan's model of the collectives (by rank)."""
         rows, models = [], {}
         for label, plan in plans.items():
-            model = {k: [c * TRAIN_ACCUM * TRAIN_STEPS, b * TRAIN_ACCUM * TRAIN_STEPS] for k, (c, b)
-                     in plan_collectives(plan, TRAIN_BATCH // TRAIN_ACCUM, ranks).items()}
-            models[label] = model
+            models[label] = {}
             for r in runs:
                 run = r["runs"][label]
+                model = {k: [c * TRAIN_ACCUM * TRAIN_STEPS, b * TRAIN_ACCUM * TRAIN_STEPS]
+                         for k, (c, b) in plan_collectives(
+                             plan, TRAIN_BATCH // TRAIN_ACCUM, tuple(run["ranks"]),
+                             tuple(run["coord"])).items()}
+                models[label][r["rank"]] = model
+                want = want_launches(label, run)
                 st = collective_stats(run["record"])
                 got = {k: [st.count[k], st.bytes_naive[k]] for k in st.count if k != "all-reduce"}
                 row = {"rank": r["rank"], "plan": label, "device": r["device"],
-                       "backend": r["backend"], "coord": r["coord"],
+                       "backend": r["backend"], "coord": run["coord"], "ranks": run["ranks"],
                        "peak_mem_bytes": run["peak"], "launches": run["launches"],
                        "collectives": st.count, "collective_bytes": st.bytes_naive,
                        "collective_ring_bytes": st.bytes_ring, "model": model,
@@ -6453,9 +6539,8 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict) -> dic
                        "card": smi}
                 rows.append(row)
                 print(json.dumps({f"dist29{cell}_rank": row}))
-                check(run["launches"] == want_launches[label],
-                      f"29({cell}) {label} rank {r['rank']} launches {run['launches']} != "
-                      f"{want_launches[label]}")
+                check(run["launches"] == want,
+                      f"29({cell}) {label} rank {r['rank']} launches {run['launches']} != {want}")
                 check(got == model, f"29({cell}) {label} rank {r['rank']} collectives {got} != "
                       f"the model's {model}")
                 check(all(same_checksums(a, b) for a, b in zip(
@@ -6467,6 +6552,7 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict) -> dic
         """The update error of ``run``'s params after TRAIN_STEPS steps over
         its phase's bar, per leaf -> (errs, losses rel err, the worst ratio)."""
         ref = refs[label]
+        names = ref["names"]
         errs = [float((a.cpu().double() - b.double() - u).abs().max() / u.abs().max())
                 for a, b, u in zip(run["params"], ref["p0"], ref["upd64"])]
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses64"]))
@@ -6478,13 +6564,25 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict) -> dic
               f"{loss_rel:.2e}")
         return errs, loss_rel, ratio
 
+    def grads_to_bar(cell, label, run):
+        """The step-1 gradients of ``run`` against its phase's fp64 ones,
+        normwise per leaf over the step-1 bars: the worst ratio."""
+        ref = refs[label]
+        ratios = {n: float((g.double() - w).abs().max() / w.abs().max()) / bar
+                  for n, g, w, bar in zip(ref["names"], run["step1_grads"], ref["grads64"],
+                                          ref["step1_bars"])}
+        worst = max(ratios, key=ratios.get)
+        print(f"29({cell}) {label}: step-1 grads vs the fp64 reference's, normwise over the "
+              f"step-1 bar: up to {ratios[worst]:.3g} ({worst})")
+        return ratios[worst]
+
     def codec_grads(cell, run):
         """The int8 plan's step-1 grads against phase 16's virtual int8 run
         at CODEC_BAR x the codec's effect there (its none twin), floored at
         fp32 (``normwise_codec``): the worst err / bar over the leaves."""
         seen = {}
-        for n, g, vc, vn in zip(names, run["step1_grads"], edge16["int8"]["step1_grads"],
-                                edge16["none"]["step1_grads"]):
+        for n, g, vc, vn in zip(train5["reference"]["names"], run["step1_grads"],
+                                edge16["int8"]["step1_grads"], edge16["none"]["step1_grads"]):
             err, bar = normwise_codec(g, vc, vn, CODEC_BAR)
             seen[n] = (err / bar, err, bar, CODEC_BAR * float((vc.double() - vn.double()).norm()))
         worst = max(seen, key=lambda n: seen[n][0])
@@ -6515,13 +6613,13 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict) -> dic
                                           "groups": [[g.start, g.end, g.mode] for g in p.groups]}
                                   for label, p in plans.items()},
            "steps": TRAIN_STEPS, "global_batch": TRAIN_BATCH, "microbatches": TRAIN_ACCUM}
-    launched = {k: 0 for k in want_launches["phase5"]}
+    kernels = ("conv2d_tile", "conv2d_dgrad_tile", "conv2d_wgrad_tile")
+    by_plan = {label: {k: 0 for k in kernels} for label in plans}
 
     def count(runs):
-        nonlocal launched
         for r in runs:
-            for run in r["runs"].values():
-                launched = {k: v + run["launches"][k] for k, v in launched.items()}
+            for label, run in r["runs"].items():
+                by_plan[label] = {k: v + run["launches"][k] for k, v in by_plan[label].items()}
 
     # (a) nccl at W = the cards
     world_a = torch.cuda.device_count()
@@ -6529,7 +6627,7 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict) -> dic
     runs_a = run_ranks(dist_rank, world_a, "cuda", "nccl", args=(None, None, DIST_PLANS),
                        timeout=900)
     a_s = time.perf_counter() - t0
-    rows_a, models_a = held("a", runs_a, world_a)
+    rows_a, models_a = held("a", runs_a)
     bars_a = to_bars("a", runs_a)
     bitwise = {label: [same_checksums(a, b) for a, b in zip(runs_a[0]["runs"][label]["checksums"],
                                                             virtual[label])]
@@ -6565,12 +6663,12 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict) -> dic
               f"29(b): a library left in place is no rank's build: {final} {builds}")
         libs = [r["libs"] for r in runs_b]
     b_s = time.perf_counter() - t0
-    rows_b, models_b = held("b", runs_b, DIST_WORLD)
+    rows_b, models_b = held("b", runs_b)
     bars_b = to_bars("b", runs_b)
     faults = {}
     for label, run in runs_b[0]["faults"].items():
         if label in refs:
-            _, _, faults[label] = to_bar("b, wrong neighbour", label, run)
+            faults[label] = grads_to_bar("b, wrong neighbour", label, run)
         else:
             faults[label] = codec_grads("b, wrong neighbour", run)
         check(faults[label] > 1.0, f"29(b): the wrong-neighbour fault passed {label}'s bar "
@@ -6593,7 +6691,7 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict) -> dic
     if torch.cuda.device_count() >= DIST_WORLD:
         runs_c = run_ranks(dist_rank, DIST_WORLD, "cuda", "nccl", args=(None, None, DIST_PLANS),
                            timeout=900)
-        rows_c, _ = held("c", runs_c, DIST_WORLD)
+        rows_c, _ = held("c", runs_c)
         out["c"] = {"world": DIST_WORLD, "backend": "nccl", "bars": to_bars("c", runs_c),
                     "ranks": rows_c}
         count(runs_c)
@@ -6601,9 +6699,10 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict) -> dic
         print(f"29(c) not run: {torch.cuda.device_count()} card(s), nccl needs {DIST_WORLD}")
         out["c"] = None
     out["seconds"] = time.perf_counter() - t_phase
-    out["launches"] = launched
+    launched = {k: sum(p[k] for p in by_plan.values()) for k in kernels}
+    out["launches"], out["launches_by_plan"] = launched, by_plan
     print(json.dumps({"dist": out}))
-    return launched
+    return launched, by_plan
 
 
 def dryrun_cell(run: LMRun, dev, depth=None, accum=None) -> tuple:
@@ -7254,7 +7353,8 @@ def main() -> int:
               f"{name}: auto groups {got_groups} != {AUTO_GROUPS_416[name]}")
 
     auto_kw = dict(groups="auto", hw=AUTO_HW, batch=TRAIN_BATCH, microbatches=TRAIN_ACCUM)
-    train12 = train_phase(dev, smi, auto_kw, label="train_auto", plant_faults=False)
+    train12 = train_phase(dev, smi, auto_kw, label="train_auto", plant_faults=False,
+                          orders_from=train5)
     check(train12["groups"] == [list(g) for g in AUTO_GROUPS_416[AUTO_HW]],
           f"train_auto groups {train12['groups']}")
     summary = ("groups", "step_ms_cuda_events_median", "step_ms_host_median", "device_ms",
@@ -7378,7 +7478,7 @@ def main() -> int:
     overlap_kw = dict(groups=groups, schedule="overlap")
     ovs = overlap_vs_sync(dev, overlap_kw, dict(groups=groups))
     train13 = {"train_overlap": train_phase(dev, smi, overlap_kw, label="train_overlap",
-                                            plant_faults=False)}
+                                            plant_faults=False, orders_from=train5)}
     oarch = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
                                  backend="cuda", device=dev, **overlap_kw)
     serve13 = {"serve_overlap": serve_phase(dev, smi, oarch, "serve_overlap", BUCKETS, images,
@@ -7421,7 +7521,7 @@ def main() -> int:
               f"{HYBRID_PLANS_416[name]}")
     hybrid_kw = dict(HYBRID_KW)
     train13["train_hybrid"] = train_phase(dev, smi, hybrid_kw, label="train_hybrid",
-                                          plant_faults=False)
+                                          plant_faults=False, orders_from=train5)
     harch = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
                                  backend="cuda", device=dev, **hybrid_kw)
     check([[g.start, g.end, g.mode] for g in harch.plan.groups]
@@ -7667,7 +7767,7 @@ def main() -> int:
     for name, (grid15, s15, m15, _, _) in PIPELINE_PLANS_416.items():
         r = train_phase(dev, smi, pipeline_kw(s15, m15), label=f"train_pipeline_{name}",
                         plant_faults=(name == "pipe2x2"), grid=grid15, accum=m15,
-                        batch_norm=False)
+                        batch_norm=False, orders_from=train15["sync_no_bn"])
         check(r["launches_per_microbatch"] == PIPELINE_LAUNCHES,
               f"{name}: trained with {r['launches_per_microbatch']} launches a microbatch")
         train15[name] = r
@@ -7824,7 +7924,10 @@ def main() -> int:
     lap("28")
 
     # -- 29. one tile per process: phase 5's plan on torch.distributed ranks -------------
-    launches29 = dist_phase(dev, smi, train5, train13["train_hybrid"], edge16)
+    launches29, launches29_by_plan = dist_phase(
+        dev, smi, train5, train13["train_hybrid"], edge16,
+        {k: train14[k] for k in ("cluster_spec", "cluster_padded")},
+        {k: train15[k] for k in ("pipe2x2", "pure1x4")})
     auto_launches = {k: v + launches29[k] for k, v in auto_launches.items()}
 
     lap("29")
@@ -7865,6 +7968,10 @@ def main() -> int:
     ]
     for k in kernels:
         k["launches"] += CAPTURED_LAUNCHES.get(k["name"], 0)
+        if k["name"] in launches29:
+            # phase 29's share of B1-B3's launches, by plan (every rank's)
+            k["phase29_launches_by_plan"] = {label: c[k["name"]]
+                                             for label, c in launches29_by_plan.items()}
     check(all(k["launches"] > 0 for k in kernels), f"launches {[k['launches'] for k in kernels]}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -11,12 +11,13 @@ Per op, as the reference counts it on each device:
     all-reduce          ring = 2 * out_bytes * (g-1)/g
     collective-permute  out_bytes                        (one hop)
 
-``plan_collectives`` is what a uniform plan's exchanges and reshard must
-put in one rank's record for one microbatch, from the plan's geometry
+``plan_collectives`` is what a plan's exchanges, reshard and hand-offs
+must put in one rank's record for one microbatch, from the plan's geometry
 alone: the sync exchange's shifts, the overlap schedule's packed swap (one
 collective a 2-tile axis, lo and hi strips together, where two ranks hold
-the axis), the hybrid plans' gathers and their adjoints, each payload leaf
-of a wire codec its own collective.
+the axis), a ragged partition's two strips a round at the padded extents,
+the hybrid plans' gathers and their adjoints, a pipeline's entry gathers
+and its hand-offs, each payload leaf of a wire codec its own collective.
 """
 from __future__ import annotations
 
@@ -95,60 +96,82 @@ def leaf_bytes(codec_spec: str, n_el: int) -> list[int]:
     return [4 * k, 4 * k]
 
 
-def plan_collectives(plan, batch: int, ranks: tuple[int, int]) -> dict:
-    """``{kind: [count, bytes]}`` one rank records over one microbatch of
-    ``batch`` images of the uniform ``plan`` (fp32 activations), forward
-    and backward, all-reduces aside; its grid over ``ranks`` (Rr, Rc).
+def plan_collectives(plan, batch: int, ranks: tuple[int, int],
+                     coord: tuple[int, int] = (0, 0)) -> dict:
+    """``{kind: [count, bytes]}`` the rank at ``coord`` of the rank grid
+    ``ranks`` (Rr, Rc) records over one microbatch of ``batch`` images of
+    ``plan`` (fp32 activations), forward and backward, all-reduces aside.
 
     Per group input with a halo: the row round (each side's edge strip of
     the block, or the packed lo+hi strip of an overlap lead on a 2-tile
     axis, swapped only where two ranks hold the axis), then the column
-    round over the row-extended tiles.  Per crossover: the gather along
-    the rank rows, then the rank columns (under a codec, of each payload
-    leaf), only where the axis has more than one rank.  Each exchange runs
-    once more in the backward, unless its input is the image, which takes
-    no gradient: the reverse shift or swap, and a reshard's reduce-scatter
-    (uncompressed) or all-to-all of the chunks (a codec)."""
-    if not plan.is_uniform or plan.stages:
-        raise ValueError("plan_collectives models uniform plans without a pipeline tail")
+    round over the row-extended tiles; a ragged partition's round ships
+    the lo and the hi strip on their own, each at the padded extent of the
+    other axis (the column round at the row round's canonical extent).
+    Per crossover: the gather along the rank rows, then the rank columns
+    (under a codec, of each payload leaf), only where the axis has more
+    than one rank; a ragged plan gathers its padded tiles.  Each exchange
+    runs once more in the backward, unless its input is the image, which
+    takes no gradient: the reverse shift or swap, and a reshard's
+    reduce-scatter (uncompressed) or all-to-all of the chunks (a codec).
+
+    A pipeline tail: its spatial prefix as above, then the entry's two
+    gathers of the prefix's tiles (uncompressed, as the reference's) and
+    their reduce-scatters where the prefix takes a gradient; per stage
+    boundary one hand-off from each rank holding tiles of the sending
+    stage whose destinations lie in another block, and one reverse
+    hand-off of the cotangent from each rank holding the receiving
+    stage's, of those tiles' blocks (batch / tiles per stage images) at
+    their true extents, or at the reference's container under a codec.
+    Only a pipeline's record depends on ``coord``."""
     rr, rc = ranks
     bn, bm = plan.n // rr, plan.m // rc
     codec = plan.wire_codec
     out: dict = defaultdict(lambda: [0, 0])
 
-    def add(kind, tiles, n_el, times):
-        for b in leaf_bytes(codec, n_el):
+    def add(kind, tiles, n_el, times, leaves=None):
+        for b in leaves or leaf_bytes(codec, n_el):
             out[kind][0] += times
             out[kind][1] += times * tiles * b
 
+    def gathers(tile, col, adjoint, compressed):
+        if rr > 1:
+            add("all-gather", rr * bn * bm, tile, 1, None if compressed else [4 * tile])
+        if rc > 1:
+            add("all-gather", rc * bm, col, 1, None if compressed else [4 * col])
+        if adjoint and not compressed:
+            if rc > 1:
+                add("reduce-scatter", plan.n * bm, tile, 1, [4 * tile])
+            if rr > 1:
+                add("reduce-scatter", bn * bm, tile, 1, [4 * tile])
+        elif adjoint:
+            if rc > 1:
+                add("all-to-all", bn * bm * plan.m, col, 1)
+            if rr > 1:
+                add("all-to-all", bn * bm * plan.n, tile, 1)
+
+    uniform = plan.is_uniform
     for gi, g in enumerate(plan.groups):
         times = 2 if gi > 0 else 1
         h, w = plan.shard_hw[g.start]
         c = plan.layers[g.start].in_channels
+        if g.mode == "pipeline":
+            break
         if g.mode == "data":
             if gi > 0 and plan.groups[gi - 1].mode == "data":
                 continue
-            n, m = plan.n, plan.m
-            tile, col = batch * h * w * c, batch * n * h * w * c
-            if rr > 1:
-                add("all-gather", rr * bn * bm, tile, 1)
-            if rc > 1:
-                add("all-gather", rc * bm, col, 1)
-            if gi > 0 and get_codec(codec) is None:
-                if rc > 1:
-                    add("reduce-scatter", n * bm, tile, 1)
-                if rr > 1:
-                    add("reduce-scatter", bn * bm, tile, 1)
-            elif gi > 0:
-                if rc > 1:
-                    add("all-to-all", bn * bm * m, col, 1)
-                if rr > 1:
-                    add("all-to-all", bn * bm * n, tile, 1)
+            tile = batch * h * w * c
+            gathers(tile, plan.n * tile, gi > 0, get_codec(codec) is not None)
             continue
         top, bottom, left, right = plan.group_halos[gi]
-        packed = plan.schedule == "overlap" and any(plan.group_halos[gi])
+        packed = uniform and plan.schedule == "overlap" and any(plan.group_halos[gi])
+        rows_ext = h + top + bottom
+        if not uniform:
+            from repro_torch.core.fusion import _ragged_group_geom
+
+            rows_ext = _ragged_group_geom(plan, gi)["ein"][0][0]
         for axis, lo, hi, rows, cols in ((0, top, bottom, None, w),
-                                         (1, left, right, h + top + bottom, None)):
+                                         (1, left, right, rows_ext, None)):
             tiles_axis, ranks_axis = (plan.n, rr) if axis == 0 else (plan.m, rc)
             edge = bm if axis == 0 else bn
 
@@ -164,5 +187,37 @@ def plan_collectives(plan, batch: int, ranks: tuple[int, int]) -> dict:
             for k in (lo, hi):
                 if k > 0:
                     add("collective-permute", edge, strip(k), times)
+    if plan.stages:
+        _pipeline_collectives(plan, batch, (rr, rc), coord, add, gathers)
     return {k: list(v) for k, v in out.items()}
 
+
+def _pipeline_collectives(plan, batch, ranks, coord, add, gathers) -> None:
+    """``plan_collectives``' entry gathers and hand-offs of a pipeline
+    tail (``core/fusion.py:_make_pipeline_local``)."""
+    from repro_torch.core.fusion import _pipeline_geometry, _stage_span
+
+    geom = _pipeline_geometry(plan)
+    pf = geom["pfirst"]
+    if pf:
+        h, w = plan.shard_hw[pf]
+        tile = batch * h * w * plan.layers[pf].in_channels
+        gathers(tile, plan.n * tile, True, False)
+    (rr, rc), (pr, pc) = ranks, coord
+    block = (plan.n // rr, plan.m // rc)
+    origin = (pr * block[0], pc * block[1])
+    bp = batch // geom["per_stage"]
+    codec = get_codec(plan.wire_codec)
+    for s in range(geom["n_stages"] - 1):
+        g = geom["groups"][s]
+        dims = (*plan.map_hw[g.end + 1], plan.layers[g.end].out_channels)
+        n_el = bp * math.prod(geom["container"] if codec is not None else dims)
+        dim, lo, hi = _stage_span(plan, s)
+        shift = hi - lo
+        o, b = origin[dim], block[dim]
+        line = block[1 - dim]                   # tiles of the block per position
+        for first, end, step in ((lo, hi, shift), (hi, hi + shift, -shift)):
+            leaving = sum(1 for q in range(max(o, first), min(o + b, end))
+                          if not o <= q + step < o + b)
+            if leaving:
+                add("collective-permute", leaving * line, n_el, 1)

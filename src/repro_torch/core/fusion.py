@@ -20,10 +20,10 @@ redundantly.  Data-mode groups run on batch blocks of full maps.
 
 The forward, the loss, the deferred step and the inference forward also run
 on ranks (``launch/mesh.py:DistTileMesh``, ``parallel/dist.py``): each rank
-runs a uniform plan - either schedule, a crossover, any codec - on its block
-of tiles, the exchanges, reshards and BN sums cross ranks, and the deferred
-step all-reduces the accumulated gradients once at batch end.  Ragged
-partitions and pipeline tails raise ``_dist_of``'s ValueError there.
+runs any plan - either schedule, a crossover, any codec, a ragged partition
+under either executor, a pipeline tail - on its block of tiles, the
+exchanges, reshards, hand-offs and BN sums cross ranks, and the deferred
+step all-reduces the accumulated gradients once at batch end.
 
 Halo-width algebra (from the eq. 1 recursion, DESIGN.md §2):
 
@@ -60,13 +60,15 @@ from repro_torch.core.grouping import (
     score_profile,
 )
 from repro_torch.core.halo import (
+    GRID_DIMS,
     EFBag,
     WireCtx,
+    _move,
+    _move_start,
     _switch_by_size,
     halo_exchange_2d,
     halo_exchange_2d_ragged,
     halo_exchange_2d_spec,
-    wire_shift,
 )
 from repro_torch.core.spatial import (
     LayerDef,
@@ -90,9 +92,15 @@ from repro_torch.core.tiling import (
     pipeline_first_of,
     validate_profile,
 )
-from repro_torch.launch.mesh import DistTileMesh, TileMesh, plan_constant
-from repro_torch.optim.compression import get_codec
-from repro_torch.parallel.dist import all_reduce_, replicated, tile_mesh_ctx
+from repro_torch.launch.mesh import DistTileMesh, TileMesh, local_table, plan_constant
+from repro_torch.optim.compression import ef_encode, get_codec
+from repro_torch.parallel.dist import (
+    active_tile_mesh,
+    all_gather_axis,
+    all_reduce_,
+    replicated,
+    tile_mesh_ctx,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -750,6 +758,14 @@ def _ragged_group_geom(plan: StackPlan, gi: int) -> dict:
     return {"ein": ein, "eout": eout, "halos": halos}
 
 
+def _block_tables(rows, cols) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """Whole-grid per-axis tables (sizes, offsets) as the tiles at hand
+    index them: the tables on the virtual mesh, the block's rows of them on
+    ranks."""
+    mesh = active_tile_mesh()
+    return local_table(rows, 0, mesh), local_table(cols, 1, mesh)
+
+
 def _offsets(sizes: tuple[int, ...]) -> tuple[int, ...]:
     out, acc = [], 0
     for s in sizes:
@@ -765,7 +781,8 @@ def _apply_group_ragged(x: torch.Tensor, params: Sequence[dict], plan: StackPlan
     c)``, pad slots zero; the padded exchange assembles the canonical
     extended tiles, then every layer runs conv -> refit -> mask
     (``apply_layer_local_ragged``), one conv call per layer for all tiles,
-    restoring the padded-tile invariant for the next layer and group."""
+    restoring the padded-tile invariant for the next layer and group.  On
+    ranks the masks read the block's rows of the size and offset tables."""
     g = plan.groups[gi]
     geom = _ragged_group_geom(plan, gi)
     x = halo_exchange_2d_ragged(x, plan.group_halos[gi], plan.tile_rows[g.start],
@@ -777,8 +794,8 @@ def _apply_group_ragged(x: torch.Tensor, params: Sequence[dict], plan: StackPlan
             params[l],
             plan.layers[l],
             out_halo=geom["halos"][k + 1],
-            out_size=(rows, cols),
-            out_off=(_offsets(rows), _offsets(cols)),
+            out_size=_block_tables(rows, cols),
+            out_off=_block_tables(_offsets(rows), _offsets(cols)),
             canon_out_hw=geom["eout"][k],
             map_out_hw=plan.map_hw[l + 1],
             backend=plan.backend,
@@ -798,12 +815,15 @@ def _apply_group_spec(x: torch.Tensor, params: Sequence[dict], plan: StackPlan, 
     columns has 4 classes, not 9), and every layer runs one conv per class
     on the class's true extents (``apply_layer_local_spec``).  The spec
     exchange reads valid windows only; pad slots past a class's window are
-    never read, so only the off-map rim is masked mid-group."""
+    never read, so only the off-map rim is masked mid-group.  On ranks a
+    rank runs the classes of its own tiles (one conv each; a class it holds
+    no tile of, not at all) and its block's rows of the offset table."""
     g = plan.groups[gi]
     geom = _ragged_group_geom(plan, gi)
     x = halo_exchange_2d_spec(x, plan.group_halos[gi], plan.tile_rows[g.start],
                               plan.tile_cols[g.start], out_extents=geom["ein"][0], wire=wire)
-    classes = _switch_by_size(plan.tile_rows[g.start], plan.tile_cols[g.start])
+    classes = _switch_by_size(plan.tile_rows[g.start], plan.tile_cols[g.start],
+                              active_tile_mesh())
     # cumulative stride products: group-start sizes over cum[k] are the
     # layer-k tile sizes (exact by stride alignment)
     cum = [1]
@@ -818,7 +838,7 @@ def _apply_group_spec(x: torch.Tensor, params: Sequence[dict], plan: StackPlan, 
             for (r0, c0), _ in classes
         )
         mask = (l != g.end) and any(geom["halos"][k + 1])
-        out_off = (_offsets(plan.tile_rows[l + 1]), _offsets(plan.tile_cols[l + 1]))
+        out_off = _block_tables(_offsets(plan.tile_rows[l + 1]), _offsets(plan.tile_cols[l + 1]))
         x = apply_layer_local_spec(
             x,
             params[l],
@@ -957,12 +977,14 @@ def _spec_core_loss(y: torch.Tensor, t_tiles: torch.Tensor, plan: StackPlan, los
     the target packed by the output partition), through ``loss_local`` on
     the TRUE extents - exact sums and exact counts, with no validity mask
     and no count rescale.  The reference slices one tile per ``lax.switch``
-    branch; here each class's tiles go through ``loss_local`` together."""
+    branch; here each class's tiles go through ``loss_local`` together.  On
+    ranks each rank scores the classes of its own tiles."""
     n, m = y.shape[:2]
     yf = y.reshape(n * m, *y.shape[2:])
     tf = t_tiles.reshape(n * m, *t_tiles.shape[2:])
     s = c = 0.0
-    for (r, w), tiles in _switch_by_size(plan.tile_rows[-1], plan.tile_cols[-1]):
+    for (r, w), tiles in _switch_by_size(plan.tile_rows[-1], plan.tile_cols[-1],
+                                         active_tile_mesh()):
         idx = plan_constant(tuple(tiles), y.device)
         yc = yf[:, :, :r, :w].index_select(0, idx)[None]
         tc = tf[:, :, :r, :w].index_select(0, idx)[None]
@@ -975,7 +997,9 @@ def _ragged_count_scale(plan: StackPlan) -> float:
     """The valid share of the padded output tiles - scales ``loss_local``'s
     element count under the padded executor (pad slots hold y = t = 0, so
     the sum is already exact; only the count over-reads).  Needs a count
-    proportional to the element count, as ``l2_loss_local``'s is."""
+    proportional to the element count, as ``l2_loss_local``'s is.  On
+    ranks every block holds as many padded tiles, so the ranks' scaled
+    counts sum to the grid's valid count."""
     rows, cols = plan.tile_rows[-1], plan.tile_cols[-1]
     return (sum(rows) * sum(cols)) / float(plan.n * plan.m * max(rows) * max(cols))
 
@@ -1072,96 +1096,146 @@ def _check_pipeline_batch(plan: StackPlan, b_mu: int) -> None:
         )
 
 
+def _stage_span(plan: StackPlan, s: int) -> tuple[int, int, int]:
+    """Stage ``s``'s tiles as a span of the hand-off axis: (tile dimension,
+    first, end).  Stages are whole grid rows, or column ranges of a
+    one-row grid (``_stage_shift``)."""
+    kind, shift = _stage_shift(plan)
+    return (0 if kind == "row" else 1), s * shift, (s + 1) * shift
+
+
+def _stage_tiles(plan: StackPlan, s: int, mesh) -> list[tuple[int, int]]:
+    """The tiles of stage ``s`` among those ``mesh`` holds here (the whole
+    grid on the virtual mesh, a rank's block on ranks): (flat index into
+    the tiles held, stage rank), in the block's row-major order.  Stage
+    rank q holds microbatch block ``[q*bp, (q+1)*bp)``."""
+    lo, hi = plan.stages[s]
+    tiles = range(plan.n * plan.m) if mesh is None else mesh.block_tiles()
+    return [(i, r - lo) for i, r in enumerate(tiles) if lo <= r < hi]
+
+
 def _stage_handoff(y: torch.Tensor, plan: StackPlan, s: int,
                    wire: WireCtx | None = None) -> torch.Tensor:
-    """Stage ``s``'s output -> stage ``s + 1``'s input, both as the stage's
-    tiles' blocks flattened into the batch ``(P*bp, H, W, C)`` in tile
-    order.  The blocks are laid on the (n, m) tile grid (zeros on every
-    other stage's tiles), moved by ``_stage_shift``'s one axis-aligned
-    shift, and stage ``s + 1``'s tiles are read back: each tile receives
-    the block of the tile of the same stage rank one stage up, as the
-    reference's ``ppermute`` delivers it.  Autograd gives the reverse shift
-    for the cotangent.  Under a codec (a stateless ``wire``) every block is
-    zero-padded to the reference's container before it is encoded and cut
-    back to its extent after the decode, in both directions."""
-    n, m = plan.n, plan.m
-    per = (n * m) // len(plan.stages)
-    blocks = y.reshape(per, y.shape[0] // per, *y.shape[1:])
+    """Stage ``s``'s output -> stage ``s + 1``'s input, each as the blocks
+    ``(tiles, bp, H, W, C)`` of the stage's tiles held here (the whole
+    grid's on the virtual mesh, the rank's block's on ranks; none is an
+    empty first dimension), in tile order.  The blocks are laid on the
+    held tiles (zeros on every other stage's), moved by ``_stage_shift``'s
+    one axis-aligned shift of stage ``s``'s senders, and stage ``s + 1``'s
+    tiles are read back: each tile receives the block of the tile of the
+    same stage rank one stage up, as the reference's ``ppermute`` delivers
+    it.  On ranks a stage tile's block goes to the rank of its destination,
+    one or more blocks away.  Under a codec (a stateless ``wire``) every
+    block is zero-padded to the reference's container before it is encoded
+    and cut back to its extent after the decode.  The tick schedule runs
+    it on detached blocks and carries the cotangent back itself
+    (``_stage_handoff_back``)."""
+    return _stage_hop(y, plan, s, s + 1, wire, adjoint=False)
+
+
+def _stage_handoff_back(ct: torch.Tensor, plan: StackPlan, s: int,
+                        wire: WireCtx | None = None) -> torch.Tensor:
+    """The adjoint of ``_stage_handoff(., plan, s)``: the cotangent of stage
+    ``s + 1``'s input blocks -> that of stage ``s``'s output blocks, by the
+    reverse shift; under a codec EF-encoded against a zero residual (the
+    stateless backward of a compressed strip)."""
+    return _stage_hop(ct, plan, s + 1, s, wire, adjoint=True)
+
+
+def _stage_hop(y: torch.Tensor, plan: StackPlan, src: int, dst: int, wire: WireCtx | None,
+               adjoint: bool) -> torch.Tensor:
+    mesh = active_tile_mesh()
+    bn, bm = (plan.n, plan.m) if mesh is None else mesh.block
+    dim, lo, hi = _stage_span(plan, src)
+    blk = y.shape[1:]
     if wire is not None:
         hc, wc, cc = _pipeline_geometry(plan)["container"]
-        h, w, c = y.shape[1:]
-        blocks = F.pad(blocks, (0, cc - c, 0, wc - w, 0, hc - h))
-    zeros = blocks.new_zeros((n * m - per, *blocks.shape[1:]))
-    grid = torch.cat([zeros[:s * per], blocks, zeros[s * per:]]).reshape(n, m, *blocks.shape[1:])
-    kind, shift = _stage_shift(plan)
-    grid = wire_shift(grid, 0 if kind == "row" else 1, shift, wire)
-    flat = grid.reshape(n * m, *blocks.shape[1:])[(s + 1) * per:(s + 2) * per]
-    if wire is not None:
-        flat = flat[:, :, :h, :w, :c]
-    return flat.reshape(y.shape[0], *y.shape[1:])
+        y = F.pad(y, (0, cc - blk[3], 0, wc - blk[2], 0, hc - blk[1]))
+    src_idx = plan_constant(tuple(i for i, _ in _stage_tiles(plan, src, mesh)), y.device)
+    grid = y.new_zeros((bn * bm, *y.shape[1:])).index_copy_(0, src_idx, y)
+    grid = grid.reshape(bn, bm, *y.shape[1:])
+    shift, span = (dst - src) * (hi - lo), (lo, hi)
+    if wire is None:
+        moved = _move(grid, dim, shift, span=span)
+    else:
+        payload = (ef_encode(wire.codec, grid, torch.zeros_like(grid), GRID_DIMS)[0] if adjoint
+                   else wire.codec.encode(grid, GRID_DIMS))
+        moves = [_move_start(p, dim, shift, tag, span=span) for tag, p in enumerate(payload)]
+        moved = wire.codec.decode([mv.wait() for mv in moves], grid.shape, grid.dtype,
+                                  GRID_DIMS)
+    dst_idx = plan_constant(tuple(i for i, _ in _stage_tiles(plan, dst, mesh)), y.device)
+    out = moved.reshape(bn * bm, *y.shape[1:]).index_select(0, dst_idx)
+    return out[..., :blk[1], :blk[2], :blk[3]] if wire is not None else out
 
 
-def _make_pipeline_local(plan: StackPlan, mesh: TileMesh, loss_local, *, microbatches: int):
-    """The pipeline executor on the virtual tile mesh: ``(params, xs, ts) ->
-    (loss_sum, count)`` with xs (M, b, H, W, C) and ts (M, b, OH, OW, C')
-    global microbatches.  It walks the ``T = M + S - 1`` fill/drain ticks of
-    the reference's tick scan.  At tick ``t`` stage ``s`` owns microbatch
-    ``k = t - s``:
+class _PipelineRun:
+    """One step of the tick schedule on the tiles held here, and its
+    adjoint, walked in an order every rank shares (``_make_pipeline_local``
+    says which).  ``forward`` keeps each busy slot's graph, from a detached
+    input leaf to its output (or its loss), and each microbatch's entry
+    graph; ``backward`` runs them in reverse tick order."""
 
-    1. stage 0 takes the entry: the whole grid runs the spatial prefix on
-       microbatch k's tiles (``apply_stack_local``, which stops at the
-       pipeline tail: the reference's ``_apply_spatial_prefix``, the uniform
-       sync executor), the tiles are all-gathered into full maps
-       (``TileMesh.merge``) and each stage-0 tile takes its stage-rank
-       block ``[rank*bp, (rank+1)*bp)`` of the microbatch; ranks 0..P-1 are
-       the stage's tiles in order, so their blocks in tile order are the
-       microbatch itself;
-    2. a later stage takes its hand-off: the previous tick's output of the
-       stage before it, moved one stage on by ``_stage_handoff``;
-    3. the stage's layers run as ONE call per layer over its tiles' blocks
-       flattened into the batch, ``(P*bp, H, W, C)``, through
-       ``apply_layer_data`` (collective-free dense programs: stages hold no
-       BN), so each conv of a stage is one kernel launch a tick;
-    4. the last stage scores microbatch ``t - (S-1)``'s blocks against the
-       same blocks of its target.
+    def __init__(self, plan: StackPlan, mesh: TileMesh, loss_local, microbatches: int):
+        self.plan, self.loss_local, self.mb = plan, loss_local, microbatches
+        self.mesh = mesh
+        self.dmesh = _dist_of(mesh)
+        self.geom = _pipeline_geometry(plan)
+        self.wire = _stateless_wire(plan)
+        self.census = None
+        self.here = [_stage_tiles(plan, s, self.dmesh) for s in range(self.geom["n_stages"])]
 
-    Where the port departs from the reference's literal schedule: the
-    reference runs every stage at every tick (and the prefix on a clamped
-    microbatch past the fill) and masks the idle slots' loss, so their
-    cotangents are exactly zero; here only the ``S*M`` busy (stage, tick)
-    slots and the M real prefix passes run, which changes no value and
-    spends no time on one device that has no idle devices to hide them on.
-    ``local.census`` holds the last call's ``ticks``, ``busy_slots`` (the
-    slots it ran) and ``prefix_passes``.
-
-    Under a codec the prefix's exchanges and the hand-off are compressed
-    statelessly in both directions (``_stateless_wire``): an EF residual
-    would have its cotangents summed across ticks, breaking the
-    one-residual-per-exchange bookkeeping (DESIGN.md §12)."""
-    geom = _pipeline_geometry(plan)
-    pg, n_st, per = geom["groups"], geom["n_stages"], geom["per_stage"]
-    mb = microbatches
-    split = mesh.split
-    wire = _stateless_wire(plan)
-
-    def branch(g, params, x):
-        x = x[None, None]                            # (1, 1, P*bp, H, W, C): one call
-        for l in g.layers:
+    def _branch(self, s, params, x):
+        """Stage ``s``'s layers over the blocks ``x`` (tiles, bp, H, W, C),
+        as ONE call per layer over them flattened into the batch."""
+        tiles = x.shape[0]
+        x = x.reshape(1, 1, -1, *x.shape[2:])
+        for l in self.geom["groups"][s].layers:
             x = apply_layer_data(
                 x,
                 params[l],
-                plan.layers[l],
-                map_out_hw=plan.map_hw[l + 1],
+                self.plan.layers[l],
+                map_out_hw=self.plan.map_hw[l + 1],
                 batch_global=x.shape[2],
-                backend=plan.backend,
-                block_oh=plan.block_oh,
-                inference=plan.inference,
+                backend=self.plan.backend,
+                block_oh=self.plan.block_oh,
+                inference=self.plan.inference,
             )
-        return x[0, 0]
+        return x.reshape(tiles, -1, *x.shape[3:])
 
-    def local(params, xs, ts):
+    def _blocks(self, maps, s):
+        """Stage ``s``'s stage-rank blocks of the microbatch ``maps`` held
+        here: (tiles, bp, ...)."""
+        per = self.geom["per_stage"]
+        q = plan_constant(tuple(r for _, r in self.here[s]), maps.device)
+        return maps.reshape(per, -1, *maps.shape[1:]).index_select(0, q)
+
+    def _entry(self, params, x):
+        """Microbatch ``x``'s full maps at the pipeline's entry: the spatial
+        prefix on the tiles held here (``apply_stack_local``, which stops at
+        the tail), then the reference's two tiled all-gathers (rows, then
+        columns: ``dist.all_gather_axis``, differentiable; nothing on the
+        virtual mesh)."""
+        h = apply_stack_local(params, self.mesh.split(x), self.plan, self.wire)
+        if self.dmesh is not None:
+            h = all_gather_axis(all_gather_axis(h, 0, self.dmesh), 1, self.dmesh)
+        n, m, b, hh, ww, c = h.shape
+        return h.permute(2, 0, 3, 1, 4, 5).reshape(b, n * hh, m * ww, c)
+
+    def _empty(self, s: int, bp: int, like: torch.Tensor, inp: bool) -> torch.Tensor:
+        """No blocks of stage ``s``'s input (``inp``) or output: what a rank
+        holding none of its tiles hands on, (0, bp, H, W, C)."""
+        g = self.geom["groups"][s]
+        l = g.start if inp else g.end + 1
+        c = self.plan.layers[g.start].in_channels if inp else self.plan.layers[g.end].out_channels
+        return like.new_zeros((0, bp, *self.plan.map_hw[l], c))
+
+    def forward(self, leaves, params, xs, ts, grad: bool) -> dict:
+        n_st, mb, per = self.geom["n_stages"], self.mb, self.geom["per_stage"]
+        last, bp = n_st - 1, xs.shape[1] // per
         census = {"ticks": 0, "busy_slots": 0, "prefix_passes": 0}
-        s_tot = c_tot = 0.0
+        st = {"slots": {}, "entries": {}, "leaves": leaves, "bp": bp, "like": xs.new_zeros(()),
+              "s": torch.zeros((), dtype=torch.promote_types(xs.dtype, torch.float32),
+                               device=xs.device), "c": 0.0}
         prev: dict[int, torch.Tensor] = {}
         for t in range(mb + n_st - 1):
             out: dict[int, torch.Tensor] = {}
@@ -1169,29 +1243,183 @@ def _make_pipeline_local(plan: StackPlan, mesh: TileMesh, loss_local, *, microba
                 k = t - s
                 if not 0 <= k < mb:
                     continue                         # an idle slot: nothing runs
-                if s == 0:
-                    x_in = xs[k]                     # no prefix: the maps are whole
-                    if geom["pfirst"]:
-                        x_in = mesh.merge(apply_stack_local(params, split(x_in), plan, wire))
-                    census["prefix_passes"] += 1
-                else:
-                    x_in = _stage_handoff(prev[s - 1], plan, s - 1, wire)
-                y = branch(pg[s], params, x_in)
                 census["busy_slots"] += 1
-                if s == n_st - 1:
-                    s_l, c_l = loss_local(y, ts[k])  # the same rank blocks, in tile order
-                    s_tot, c_tot = s_tot + s_l, c_tot + c_l
+                if s == 0:
+                    census["prefix_passes"] += 1
+                    if self.geom["pfirst"]:
+                        with torch.set_grad_enabled(grad):
+                            full = self._entry(params, xs[k])
+                        st["entries"][k] = full
+                        x_in = self._blocks(full.detach(), 0)
+                    else:
+                        x_in = self._blocks(xs[k], 0)   # no prefix: the maps are whole
                 else:
-                    out[s] = y
+                    with torch.no_grad():
+                        x_in = _stage_handoff(prev[s - 1], self.plan, s - 1, self.wire)
+                if not self.here[s]:
+                    if s < last:
+                        out[s] = self._empty(s, bp, xs, inp=False)
+                    continue
+                if grad and (s > 0 or self.geom["pfirst"]):
+                    x_in.requires_grad_(True)
+                with torch.set_grad_enabled(grad):
+                    y = self._branch(s, params, x_in)
+                    if s == last:
+                        t_blk = self._blocks(ts[k], last)
+                        s_l, c_l = self.loss_local(y.reshape(-1, *y.shape[2:]),
+                                                   t_blk.reshape(-1, *t_blk.shape[2:]))
+                        st["s"], st["c"] = st["s"] + s_l, st["c"] + c_l
+                        y = s_l
+                    else:
+                        out[s] = y.detach()
+                if grad:
+                    st["slots"][(s, k)] = (x_in, y)
             prev = out
             census["ticks"] += 1
-        local.census = census
-        return s_tot, c_tot
+        self.census = census
+        return st
 
-    local.census = None
-    return local
+    def backward(self, st, seed) -> list:
+        """The gradients of ``seed`` x the forward's loss sum, of every leaf
+        (None where it took none here)."""
+        n_st, mb = self.geom["n_stages"], self.mb
+        leaves = st["leaves"]
+        acc: list = [None] * len(leaves)
+
+        def take(outputs, grad_outputs, inputs):
+            gs = torch.autograd.grad(outputs, leaves + inputs, grad_outputs, allow_unused=True)
+            for i, g in enumerate(gs[:len(leaves)]):
+                if g is not None:
+                    acc[i] = g if acc[i] is None else acc[i].add_(g)
+            return gs[len(leaves):]
+
+        ct_out: dict = {}
+        for t in reversed(range(mb + n_st - 1)):
+            for s in reversed(range(n_st)):
+                k = t - s
+                if not 0 <= k < mb:
+                    continue
+                ct_in = None
+                if (s, k) in st["slots"]:
+                    x_in, y = st["slots"].pop((s, k))
+                    ct = (ct_out.pop((s, k)) if s < n_st - 1
+                          else torch.as_tensor(seed, dtype=y.dtype, device=y.device))
+                    got = take(y, ct, [x_in] if x_in.requires_grad else [])
+                    ct_in = got[0] if got else None
+                elif s > 0 or k in st["entries"]:
+                    ct_out.pop((s, k), None)
+                    ct_in = self._empty(s, st["bp"], st["like"], inp=True)
+                if s > 0:
+                    ct_out[(s - 1, k)] = _stage_handoff_back(ct_in, self.plan, s - 1, self.wire)
+                elif k in st["entries"]:
+                    full = st["entries"].pop(k)
+                    ct_full = self._blocks_back(full, ct_in)
+                    take(full, ct_full, [])
+        return acc
+
+    def _blocks_back(self, maps, ct):
+        """The adjoint of ``_blocks(maps, 0)``: ``ct`` (tiles, bp, ...) laid
+        at the stage ranks held here of a zero microbatch cotangent."""
+        per = self.geom["per_stage"]
+        q = plan_constant(tuple(r for _, r in self.here[0]), maps.device)
+        out = maps.new_zeros((per, maps.shape[0] // per, *maps.shape[1:]))
+        return out.index_copy_(0, q, ct).reshape(maps.shape)
 
 
+def _make_pipeline_local(plan: StackPlan, mesh: TileMesh, loss_local, *,
+                         microbatches: int) -> _PipelineRun:
+    """The pipeline executor: a ``_PipelineRun`` whose ``forward(leaves,
+    params, xs, ts, grad)`` runs one step on xs (M, b, H, W, C) and ts (M, b,
+    OH, OW, C') global microbatches and returns its state (the loss sum
+    ``"s"`` and count ``"c"`` of the tiles held here, the graphs), and whose
+    ``backward(state, seed)`` gives every leaf's gradient of ``seed`` x the
+    sum.  It walks the ``T = M + S - 1`` fill/drain ticks of the
+    reference's tick scan.  At tick ``t`` stage ``s`` owns microbatch
+    ``k = t - s``:
+
+    1. stage 0 takes the entry: every tile runs the spatial prefix on
+       microbatch k (``apply_stack_local``, which stops at the pipeline
+       tail: the reference's ``_apply_spatial_prefix``, the uniform sync
+       executor), the tiles are all-gathered into full maps (the
+       reference's two tiled all-gathers; on the virtual mesh a reshape)
+       and each stage-0 tile takes its stage-rank block ``[rank*bp,
+       (rank+1)*bp)`` of the microbatch;
+    2. a later stage takes its hand-off: the previous tick's output of the
+       stage before it, moved one stage on by ``_stage_handoff``;
+    3. the stage's layers run as ONE call per layer over its tiles' blocks
+       held here, flattened into the batch, through ``apply_layer_data``
+       (collective-free dense programs: stages hold no BN), so each conv
+       of a stage is one kernel launch a tick (on ranks: on each rank
+       holding tiles of the stage);
+    4. the last stage scores microbatch ``t - (S-1)``'s blocks against the
+       same blocks of its target.
+
+    Where the port departs from the reference's literal schedule: the
+    reference runs every stage at every tick (and the prefix on a clamped
+    microbatch past the fill) and masks the idle slots' loss, so their
+    cotangents are exactly zero; here only the ``S*M`` busy (stage, tick)
+    slots and the M real prefix passes run, which changes no value.  So
+    where the reference ``ppermute``s a container-size buffer on every
+    device at each of its M + S - 1 ticks (and its transpose in the
+    backward), a rank here moves each microbatch's hand-off once per stage
+    boundary, forward and back, at the blocks' true extents (the
+    container's under a codec), and only where it holds the sending
+    stage's tiles: M hand-offs a step per sending block and boundary.
+    The entry's two gathers (and their reduce-scatters) run once per
+    microbatch, M times a step, where the reference runs them at each
+    tick.  ``run.census`` holds the last step's ``ticks``, ``busy_slots``
+    (the slots of the schedule) and ``prefix_passes``.
+
+    The adjoint is explicit, not one autograd pass over the ticks: on
+    ranks the stages' graphs differ from rank to rank, so autograd's own
+    order would not line the ranks' messages up.  Every rank walks the
+    same order.  Forward: the ticks in order, the stages in order within a
+    tick; at each busy slot stage 0's prefix and gathers (every rank), or
+    the hand-off into stage s (the ranks holding stage s-1's or stage s's
+    tiles), then the stage's layers on the ranks holding its tiles.  Each
+    slot's input is a detached leaf.  Backward: the ticks in reverse, the
+    stages in reverse within a tick; at each busy slot the stage's
+    backward (its ranks), then the hand-off's adjoint back into stage s-1
+    (``_stage_handoff_back``: the leaf's gradient by the reverse shift),
+    or for stage 0 the entry's backward on every rank - the gathers'
+    reduce-scatters and the prefix's exchanges, with zero cotangents from
+    the ranks that hold no stage-0 tile, as the reference also sends them.
+    The virtual mesh walks the same schedule, so one rank is bitwise it.
+
+    Under a codec the prefix's exchanges and the hand-off are compressed
+    statelessly in both directions (``_stateless_wire``): an EF residual
+    would have its cotangents summed across ticks, breaking the
+    one-residual-per-exchange bookkeeping (DESIGN.md §12)."""
+    return _PipelineRun(plan, mesh, loss_local, microbatches)
+
+
+class _PipelineLoss(torch.autograd.Function):
+    """The pipeline's loss sum of the tiles held here as a function of the
+    params' leaves: the forward runs the tick schedule and keeps its
+    graphs, the backward runs its adjoint (``_PipelineRun.backward``)."""
+
+    @staticmethod
+    def forward(ctx, run, xs, ts, params_tree, *leaves):
+        grad = any(v.requires_grad for v in leaves)
+        live = [v.detach().requires_grad_(grad) for v in leaves]
+        it = iter(live)
+        params = [{k: next(it) for k in p} for p in params_tree]
+        with tile_mesh_ctx(run.dmesh):
+            st = run.forward(live, params, xs, ts, grad)
+        ctx.run, ctx.st = run, st
+        run.count = st["c"]
+        return st["s"].detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        with tile_mesh_ctx(ctx.run.dmesh):
+            grads = ctx.run.backward(ctx.st, g)
+        leaves = ctx.st["leaves"]
+        ctx.st = None
+        # a zero, not None, for a leaf no stage here uses: on ranks every
+        # leaf's gradient then takes part in its all-reduce
+        return (None, None, None, None,
+                *[torch.zeros_like(v) if gi is None else gi for v, gi in zip(leaves, grads)])
 def _check_data_batch(plan: StackPlan, batch: int) -> None:
     """Named error for hybrid plans whose per-microbatch batch cannot spread
     over the tile grid, raised before the executor runs."""
@@ -1205,21 +1433,12 @@ def _check_data_batch(plan: StackPlan, batch: int) -> None:
         )
 
 
-def _dist_of(plan: StackPlan, mesh: TileMesh, what: str) -> DistTileMesh | None:
+def _dist_of(mesh: TileMesh) -> DistTileMesh | None:
     """``mesh`` when it spreads the grid over ranks, else None.  Ranks run
-    every uniform plan: any grouping, either schedule, a crossover to a
-    data-mode tail and any wire codec.  A ragged partition or a pipeline
-    tail raises, naming its ROADMAP item."""
-    if not isinstance(mesh, DistTileMesh):
-        return None
-    outside = [name for name, on in (
-        ("a non-uniform partition", not plan.is_uniform),
-        ("a pipeline tail", bool(plan.stages)),
-    ) if on]
-    if outside:
-        raise ValueError(f"{what} on ranks runs uniform plans without a pipeline tail; "
-                         f"{' and '.join(outside)} on ranks is ROADMAP A.20.2")
-    return mesh
+    every plan: any grouping, either schedule, a crossover to a data-mode
+    tail, any wire codec, a ragged partition under either executor and a
+    pipeline tail."""
+    return mesh if isinstance(mesh, DistTileMesh) else None
 
 
 def _global_sum(dmesh: DistTileMesh, s: torch.Tensor, cnt: float) -> tuple[torch.Tensor, float]:
@@ -1252,7 +1471,7 @@ def make_tiled_forward(plan: StackPlan, mesh: TileMesh):
     statelessly (``_stateless_wire``).  On ranks each runs its block and
     the output - its tiles, or a hybrid plan's batch blocks - is gathered
     on every rank (not differentiated)."""
-    dmesh = _dist_of(plan, mesh, "make_tiled_forward")
+    dmesh = _dist_of(mesh)
     if plan.stages:
         raise ValueError(
             "pipeline plans have no single-shot forward layout: outputs "
@@ -1315,16 +1534,23 @@ def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
     gradient is the rank's own sum's, with every param ``replicated`` so
     that the backward sums the ranks' gradients into the global one."""
     _check_not_inference(plan, "make_tiled_loss")
-    dmesh = _dist_of(plan, mesh, "make_tiled_loss")
+    dmesh = _dist_of(mesh)
     if plan.stages:
-        local = _make_pipeline_local(plan, mesh, loss_local, microbatches=1)
+        run = _make_pipeline_local(plan, mesh, loss_local, microbatches=1)
 
         def ploss(params, x, target):
             x = torch.as_tensor(x, device=mesh.device)
             _check_pipeline_batch(plan, x.shape[0])
-            s, c = local(params, x[None], torch.as_tensor(target, device=mesh.device)[None])
-            ploss.census = local.census
-            return s / c
+            t = torch.as_tensor(target, device=mesh.device)
+            leaves = [v for p in params for v in p.values()]
+            if dmesh is not None:
+                leaves = [replicated(v, dmesh.group) for v in leaves]
+            s = _PipelineLoss.apply(run, x[None], t[None], params, *leaves)
+            ploss.census = run.census
+            if dmesh is None:
+                return s / run.count
+            s_all, c_all = _global_sum(dmesh, s, run.count)
+            return (s_all + (s - s.detach())) / c_all
 
         ploss.census = None
         return ploss
@@ -1378,12 +1604,14 @@ def make_deferred_grad_step(
     gradient W times).  Ragged plans score each microbatch as
     ``make_tiled_loss`` does.
 
-    A pipeline plan takes ``microbatches`` as the pipeline depth M: ONE
-    autograd pass over the whole tick loop streams all M microbatches
-    through the stages (the cotangents flow back through the reverse
-    hand-offs), then the one division by the global count; the trainer
-    tail, int8-EF included, is the same.  It holds all M microbatches'
-    activations at once, and compresses a codec plan's strips statelessly.
+    A pipeline plan takes ``microbatches`` as the pipeline depth M: one
+    walk of the tick schedule streams all M microbatches through the
+    stages and one reverse walk carries the cotangents back through the
+    reverse hand-offs (``_make_pipeline_local``), then the gradients (on
+    ranks: all-reduced with the loss sum and count) take the one division
+    by the global count; the trainer tail, int8-EF included, is the same.
+    It holds all M microbatches' activations at once, and compresses a
+    codec plan's strips statelessly.
     The returned function's ``census`` holds the last call's slot counts.
 
     A codec plan (DESIGN.md §12) carries error feedback across the
@@ -1394,7 +1622,7 @@ def make_deferred_grad_step(
     gradient of the residual the exchange drew, and the next microbatch's
     bag (``buffers`` mode) hands them out in the same order."""
     _check_not_inference(plan, "make_deferred_grad_step")
-    dmesh = _dist_of(plan, mesh, "make_deferred_grad_step")
+    dmesh = _dist_of(mesh)
     if plan.stages:
         return _pipeline_grad_step(plan, mesh, loss_local, microbatches)
     split = _in_split(plan, mesh)
@@ -1449,7 +1677,8 @@ def make_deferred_grad_step(
 
 
 def _pipeline_grad_step(plan: StackPlan, mesh: TileMesh, loss_local, microbatches: int):
-    local = _make_pipeline_local(plan, mesh, loss_local, microbatches=microbatches)
+    run = _make_pipeline_local(plan, mesh, loss_local, microbatches=microbatches)
+    dmesh = run.dmesh
 
     def pstep(params, xs, ts):
         xs = torch.as_tensor(xs, device=mesh.device)
@@ -1462,11 +1691,17 @@ def _pipeline_grad_step(plan: StackPlan, mesh: TileMesh, loss_local, microbatche
         _check_pipeline_batch(plan, xs.shape[1])
         live = [{k: v.detach().requires_grad_(True) for k, v in p.items()} for p in params]
         leaves = [v for p in live for v in p.values()]
-        s, c = local(live, xs, ts)
-        pstep.census = local.census
-        g = torch.autograd.grad(s, leaves, allow_unused=True)
-        it = iter(torch.zeros_like(v) if gi is None else gi / c for v, gi in zip(leaves, g))
-        return s.detach() / c, [{k: next(it) for k in p} for p in live]
+        with tile_mesh_ctx(dmesh):
+            st = run.forward(leaves, live, xs, ts, grad=True)
+            g = run.backward(st, 1.0)
+        pstep.census = run.census
+        g = [torch.zeros_like(v) if gi is None else gi for v, gi in zip(leaves, g)]
+        s, c = st["s"].detach(), st["c"]
+        if dmesh is not None:
+            g = all_reduce_(dmesh.group, g)
+            s, c = _global_sum(dmesh, s, c)
+        it = iter(gi / c for gi in g)
+        return s / c, [{k: next(it) for k in p} for p in live]
 
     pstep.census = None
     return pstep

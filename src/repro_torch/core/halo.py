@@ -29,7 +29,10 @@ On ranks (``launch/mesh.py:DistTileMesh``, active through
 ``parallel/dist.py:tile_mesh_ctx``) each ``ppermute`` goes through
 ``dist.permute_start``: the block shifts locally and its edge strips cross
 to the neighbour rank, or a 2-tile axis swaps across two ranks; the rounds
-keep their order, so the corners still take two hops.  Under a codec each
+keep their order, so the corners still take two hops.  A ragged round on
+ranks ships each tile's strips on their own, as the wired round does (the
+reference's two ``ppermute``s), and places them by an index built for the
+block's sizes.  Under a codec each
 rank encodes its own tiles' strips and draws the block's residuals.  The
 ``*_start`` forms post an exchange and return a ``dist.Pending`` that lands
 it, so the overlap lead can queue its interior conv in between; on the
@@ -43,7 +46,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.launch.mesh import plan_constant
+from repro_torch.launch.mesh import local_table, plan_constant
 from repro_torch.optim.compression import WireCodec, ef_encode
 from repro_torch.parallel.dist import Pending, active_tile_mesh, landed, permute_start
 
@@ -75,22 +78,25 @@ def _shift(x: torch.Tensor, tile_dim: int, direction: int) -> torch.Tensor:
     return torch.cat([x.narrow(tile_dim, k, n - k), zeros], dim=tile_dim)
 
 
-def _move_start(t: torch.Tensor, tile_dim: int, shift, tag: int = 0, mesh=None) -> Pending:
+def _move_start(t: torch.Tensor, tile_dim: int, shift, tag: int = 0, mesh=None,
+                span=None) -> Pending:
     """A ``ppermute`` on the virtual mesh: ``_shift`` by ``shift`` tiles, or
     ``"swap"``, the 2-tile exchange ``[(0, 1), (1, 0)]``; on ranks (the
     active mesh, or ``mesh`` where a backward names the one its forward
     ran on), ``dist.permute_start`` of the rank's block (``tag`` tells
-    apart the exchanges posted together)."""
+    apart the exchanges posted together; ``span`` limits the senders to
+    one pipeline stage's tiles, whose others the virtual mesh holds as
+    zeros)."""
     mesh = mesh if mesh is not None else active_tile_mesh()
     if mesh is not None:
-        return permute_start(t, tile_dim, shift, mesh, tag)
+        return permute_start(t, tile_dim, shift, mesh, tag, span)
     if shift == "swap":
         return landed(torch.flip(t, [tile_dim]))
     return landed(_shift(t, tile_dim, shift))
 
 
-def _move(t: torch.Tensor, tile_dim: int, shift, mesh=None) -> torch.Tensor:
-    return _move_start(t, tile_dim, shift, mesh=mesh).wait()
+def _move(t: torch.Tensor, tile_dim: int, shift, mesh=None, span=None) -> torch.Tensor:
+    return _move_start(t, tile_dim, shift, mesh=mesh, span=span).wait()
 
 
 def _axis_tiles(x: torch.Tensor, tile_dim: int) -> int:
@@ -456,22 +462,24 @@ def _ragged_gather(x: torch.Tensor, index: tuple[int, ...], ext: int, *, tile_di
 
 
 @functools.lru_cache(maxsize=256)
-def _send_up_index(sizes: tuple[int, ...], halo_lo: int) -> tuple[int, ...]:
+def _send_up_index(sizes: tuple[int, ...], halo_lo: int, smax: int) -> tuple[int, ...]:
     """The strip each tile sends up, as a ``_ragged_gather`` index: tile
-    i's last ``halo_lo`` valid rows ``[sizes[i] - halo_lo, sizes[i])``."""
-    smax = max(sizes)
+    i's last ``halo_lo`` valid rows ``[sizes[i] - halo_lo, sizes[i])``
+    (``sizes``: the tiles the gather runs over, a rank's block on ranks;
+    ``smax``: the padded extent, the whole grid's largest tile)."""
     return tuple(i * smax + s - halo_lo + r for i, s in enumerate(sizes) for r in range(halo_lo))
 
 
 @functools.lru_cache(maxsize=256)
 def _ragged_place_index(
-    sizes: tuple[int, ...], halo_lo: int, halo_hi: int, ext: int, keep_pad: bool
+    sizes: tuple[int, ...], halo_lo: int, halo_hi: int, ext: int, keep_pad: bool, smax: int
 ) -> tuple[int, ...]:
     """``_ragged_index``'s output slots read from each tile's own
     ``[x (max(sizes)) | recv_lo (halo_lo) | recv_hi (halo_hi)]`` rows
     instead of its neighbours': the placement of strips that were shipped
-    on their own (the wired exchange)."""
-    n, smax = len(sizes), max(sizes)
+    on their own (the wired exchange, and every round on ranks; ``sizes``
+    are the block's, ``smax`` the grid's padded extent)."""
+    n = len(sizes)
     e = smax + halo_lo + halo_hi
     zero = n * e
     out = []
@@ -490,9 +498,11 @@ def _ragged_place_index(
 def _ragged_round(x, halo_lo, halo_hi, sizes, *, tile_dim, dim, out_extent, keep_pad, what,
                   wire=None):
     smax = max(sizes)
-    if x.shape[dim] != smax or x.shape[tile_dim] != len(sizes):
+    mesh = active_tile_mesh()
+    local = local_table(sizes, tile_dim, mesh)
+    if x.shape[dim] != smax or x.shape[tile_dim] != len(local):
         raise ValueError(
-            f"{what} exchange expects {len(sizes)} tiles of padded extent {smax} on "
+            f"{what} exchange expects {len(local)} tiles of padded extent {smax} on "
             f"dims ({tile_dim}, {dim}); got shape {tuple(x.shape)}"
         )
     ext = out_extent if out_extent is not None else smax + halo_lo + halo_hi
@@ -506,16 +516,19 @@ def _ragged_round(x, halo_lo, halo_hi, sizes, *, tile_dim, dim, out_extent, keep
     if halo_lo == 0 and halo_hi == 0 and ext == smax:
         return x
     sizes = tuple(sizes)
-    if wire is None:
+    if wire is None and mesh is None:
         index = _ragged_index(sizes, halo_lo, halo_hi, ext, keep_pad)
         return _ragged_gather(x, index, ext, tile_dim=tile_dim, dim=dim)
-    # Under a codec each tile's send-down strip (its first halo_hi rows)
-    # and send-up strip (its last halo_lo valid rows) is shipped on its own,
-    # as the reference ships them - the padded exchange the hi strip first,
-    # the spec one the lo strip first - then placed by one gather.
+    # Under a codec, and on ranks, each tile's send-down strip (its first
+    # halo_hi rows) and send-up strip (its last halo_lo valid rows) is
+    # shipped on its own, as the reference ships them - the padded exchange
+    # the hi strip first, the spec one the lo strip first - then placed by
+    # one gather.  On ranks a block's edge strips cross to the neighbour
+    # ranks (zeros at the grid's ends), the others move within the block,
+    # and both indices are built for the block's sizes.
     def send_up():
-        up = _ragged_gather(x, _send_up_index(sizes, halo_lo), halo_lo, tile_dim=tile_dim,
-                            dim=dim)
+        up = _ragged_gather(x, _send_up_index(local, halo_lo, smax), halo_lo,
+                            tile_dim=tile_dim, dim=dim)
         return wire_shift(up, tile_dim, +1, wire)
 
     def send_down():
@@ -529,7 +542,7 @@ def _ragged_round(x, halo_lo, halo_hi, sizes, *, tile_dim, dim, out_extent, keep
         recv_lo = send_up() if halo_lo > 0 else None
         recv_hi = send_down() if halo_hi > 0 else None
     parts = [x] + [r for r in (recv_lo, recv_hi) if r is not None]
-    index = _ragged_place_index(sizes, halo_lo, halo_hi, ext, keep_pad)
+    index = _ragged_place_index(local, halo_lo, halo_hi, ext, keep_pad, smax)
     return _ragged_gather(torch.cat(parts, dim=dim), index, ext, tile_dim=tile_dim, dim=dim)
 
 
@@ -581,7 +594,7 @@ def halo_exchange_2d_ragged(
                                    dim=dims[1], out_extent=oe[1], wire=wire)
 
 
-def _switch_by_size(row_sizes: tuple[int, ...], col_sizes: tuple[int, ...]):
+def _switch_by_size(row_sizes: tuple[int, ...], col_sizes: tuple[int, ...], mesh=None):
     """The shape classes of a ragged grid, as ``[((r, c), tiles), ...]``:
     each distinct (row, col) tile extent with the flat indices ``i * m + j``
     of its tiles, rows and columns deduplicated in first-appearance order
@@ -592,18 +605,25 @@ def _switch_by_size(row_sizes: tuple[int, ...], col_sizes: tuple[int, ...]):
     ``dynamic_slice``).  On the virtual mesh every tile index is a Python
     int, so both roles - a tile's class, and one program per class - are
     this grouping: every tile of a class runs in the same call, and the
-    spec executor issues one conv per class and layer, not one per tile."""
+    spec executor issues one conv per class and layer, not one per tile.
+    On ranks (``mesh``, a ``DistTileMesh``) the classes are the grid's and
+    the tiles this rank's, as flat indices into its block; a class with no
+    tile here is left out."""
     from repro_torch.core.tiling import dedup_axis_shapes
 
     rtab, runiq = dedup_axis_shapes(row_sizes)
     ctab, cuniq = dedup_axis_shapes(col_sizes)
-    m = len(col_sizes)
-    return [
-        ((r, c), tuple(i * m + j for i in range(len(row_sizes)) for j in range(m)
-                       if rtab[i] == ri and ctab[j] == ci))
-        for ri, r in enumerate(runiq)
-        for ci, c in enumerate(cuniq)
-    ]
+    n, m = len(row_sizes), len(col_sizes)
+    rows = local_table(range(n), 0, mesh)
+    cols = local_table(range(m), 1, mesh)
+    out = []
+    for ri, r in enumerate(runiq):
+        for ci, c in enumerate(cuniq):
+            tiles = tuple(a * len(cols) + b for a, i in enumerate(rows) for b, j in enumerate(cols)
+                          if rtab[i] == ri and ctab[j] == ci)
+            if tiles:
+                out.append(((r, c), tiles))
+    return out
 
 
 def halo_exchange_1d_spec(

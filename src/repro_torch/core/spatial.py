@@ -31,7 +31,9 @@ window first - and run one of two layers: the padded executor's
 (``apply_layer_local_ragged``: one conv over every padded tile, then
 validity masks that keep pad slots zero) or the shape-specialised one's
 (``apply_layer_local_spec``: one conv per tile-shape class over the tiles'
-TRUE extents).
+TRUE extents).  On ranks each takes its block's slice of the size and
+offset tables, its BN sums are all-reduced once per layer, and the ragged
+reshard gathers the padded tiles along the rank axes.
 """
 from __future__ import annotations
 
@@ -278,6 +280,15 @@ def _core_mask(
     return (rmask[:, None] & cmask[None, :]).to(torch.float32)
 
 
+def _global_sums(s: torch.Tensor, ss: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """BN's two sums over the tiles held here, summed over the grid: as
+    they are on the virtual mesh, in one all-reduce on ranks."""
+    mesh = active_tile_mesh()
+    if mesh is None:
+        return s, ss
+    return all_reduce_sum(torch.stack([s, ss]), mesh.group).unbind(0)
+
+
 def _bn_tiled(y, layer, params, core_halo, n_global):
     """Exact cross-tile batch norm on tiles ``(n, m, B, h, w, C)``:
     statistics over core (owned) positions only - halo positions are
@@ -288,11 +299,8 @@ def _bn_tiled(y, layer, params, core_halo, n_global):
     ext_h, ext_w = y.shape[3], y.shape[4]
     mask = _core_mask(ext_h, ext_w, core_halo, y.device)[:, :, None].to(y.dtype)
     dims = (0, 1, 2, 3, 4)
-    s = torch.sum(y * mask, dim=dims)
-    ss = torch.sum(torch.square(y) * mask, dim=dims)
-    mesh = active_tile_mesh()
-    if mesh is not None:
-        s, ss = all_reduce_sum(torch.stack([s, ss]), mesh.group).unbind(0)
+    s, ss = _global_sums(torch.sum(y * mask, dim=dims),
+                         torch.sum(torch.square(y) * mask, dim=dims))
     mean = s / n_global
     var = ss / n_global - torch.square(mean)
     return _bn_apply(y, mean, var, params["bn_scale"], params["bn_bias"])
@@ -487,7 +495,8 @@ def apply_layer_local_ragged(
     extent, BN takes its statistics over each tile's ragged core, and the
     combined validity / off-map mask re-zeroes the pad slots for the next
     layer.  ``out_size`` / ``out_off``: per-axis tile extents and map
-    offsets at the layer output."""
+    offsets at the layer output, of the tiles ``x`` holds (a rank's block
+    of the grid's tables on ranks, where the BN sums are all-reduced)."""
     n, m, b = x.shape[:3]
     y, fused = _conv_or_pool(x.reshape(n * m * b, *x.shape[3:]), params, layer, backend,
                              block_oh)
@@ -502,8 +511,10 @@ def apply_layer_local_ragged(
             mask = _core_mask_ragged(eh, ew, out_halo, out_size, y.device)
             mask = mask[:, :, None, :, :, None].to(y.dtype)
             dims = (0, 1, 2, 3, 4)
-            mean = torch.sum(y * mask, dim=dims) / n_global
-            var = torch.sum(torch.square(y) * mask, dim=dims) / n_global - torch.square(mean)
+            s, ss = _global_sums(torch.sum(y * mask, dim=dims),
+                                 torch.sum(torch.square(y) * mask, dim=dims))
+            mean = s / n_global
+            var = ss / n_global - torch.square(mean)
             y = _bn_apply(y, mean, var, params["bn_scale"], params["bn_bias"])
     if not fused:
         y = _ACTIVATIONS[layer.act](y)
@@ -584,7 +595,11 @@ def apply_layer_local_spec(
     to their true window, and convolved in ONE call on ``(count * B, vin_r,
     vin_c, C)`` - one kernel launch per class and layer, no MACs on pad
     slots; BN sums run over the class's true core, and the output is repadded
-    to the canonical extent and gathered back into tile order.  Pad slots
+    to the canonical extent and gathered back into tile order.  On ranks
+    ``classes`` hold this rank's tiles (flat indices into its block) and
+    ``out_off`` its block's offsets; the BN sums are all-reduced once per
+    layer, after the class loop, whatever classes the rank holds (the
+    reference's ``psum`` sits outside its ``lax.switch``).  Pad slots
     beyond a class's window hold whatever BN and the activation make of the
     zeros (never read: every consumer takes valid windows), and autograd gives
     them zero cotangent, as AD does in the reference."""
@@ -616,6 +631,7 @@ def apply_layer_local_spec(
     if bn_stats:
         bg = b if batch_global is None else batch_global
         n_global = bg * map_out_hw[0] * map_out_hw[1]
+        s, ss = _global_sums(s, ss)
         mean = s / n_global
         var = ss / n_global - torch.square(mean)
         y = _bn_apply(y, mean, var, params["bn_scale"], params["bn_bias"])
@@ -784,8 +800,13 @@ def reshard_spatial_to_data_ragged(
     ``TileMesh.merge``'s gather), then split into batch blocks as
     ``reshard_spatial_to_data`` does.  Autograd gives the adjoint: the
     scatter back into padded tiles.  Under a codec the padded tiles, pad
-    slots included, go through the compressed gathers first."""
-    n, m, b, hmax, wmax, c = x.shape
+    slots included, go through the compressed gathers first.  On ranks
+    ``x`` is the rank's block of padded tiles: it is gathered along the
+    rank rows, then the rank columns, as the uniform reshard's tiles are,
+    and the rank keeps its tiles' batch blocks."""
+    mesh = active_tile_mesh()
+    bn, bm, b, hmax, wmax, c = x.shape
+    n, m = (bn, bm) if mesh is None else (mesh.n, mesh.m)
     if (n, m) != (len(row_sizes), len(col_sizes)) or (hmax, wmax) != (max(row_sizes),
                                                                       max(col_sizes)):
         raise ValueError(
@@ -794,8 +815,11 @@ def reshard_spatial_to_data_ragged(
     if wire is not None:
         full = _wire_all_gather(x, wire)
     else:
+        if mesh is not None:
+            x = all_gather_axis(all_gather_axis(x, 0, mesh), 1, mesh)
         full = x.permute(2, 0, 3, 1, 4, 5).reshape(b, n * hmax, m * wmax, c)
-    return _batch_block_slice(unpack_grid(full, row_sizes, col_sizes), n, m)
+    blocks = _batch_block_slice(unpack_grid(full, row_sizes, col_sizes), n, m)
+    return blocks if mesh is None else _rank_blocks(blocks, mesh)
 
 
 def apply_layer_data(

@@ -172,7 +172,8 @@ class DistTileMesh(TileMesh):
     ``ranks`` = (Rr, Rc) of equal blocks; this rank, at ``coord`` = (pr,
     pc) of it, holds tiles ``origin`` .. ``origin + block``.  Its row and
     column subgroups (``parallel/dist.py:_axis_group``) are made on first
-    use.  Uniform partitions only (ragged ones are ROADMAP A.20.2)."""
+    use.  The blocks are equal in tiles; a ragged partition's tiles are
+    equal in the padded layout, so every rank's block has one shape."""
 
     group: tdist.TileGroup
     ranks: tuple[int, int]
@@ -196,12 +197,23 @@ class DistTileMesh(TileMesh):
             return None
         return pos[0] * self.ranks[1] + pos[1]
 
+    def block_table(self, table, dim: int) -> tuple:
+        """This rank's entries of a whole-grid per-axis table along tile
+        dimension ``dim`` (a ragged partition's tile sizes or offsets)."""
+        o, b = self.origin[dim], self.block[dim]
+        return tuple(table[o:o + b])
+
+    def block_tiles(self) -> list[int]:
+        """The grid's flat indices ``i * m + j`` of this rank's tiles, in
+        the block's row-major order."""
+        (r0, c0), (bn, bm) = self.origin, self.block
+        return [(r0 + i) * self.m + c0 + j for i in range(bn) for j in range(bm)]
+
     def split(self, x, rows=None, cols=None):
         """Global (B, H, W, C) -> this rank's block of tiles (n/Rr, m/Rc, B,
-        H/n, W/m, C)."""
-        if rows is not None:
-            raise ValueError("a non-uniform partition on ranks is ROADMAP A.20.2")
-        return self.own(super().split(x))
+        H/n, W/m, C); given a ragged partition's ``rows`` and ``cols``, its
+        block of the padded layout (n/Rr, m/Rc, B, max(rows), max(cols), C)."""
+        return self.own(super().split(x, rows, cols))
 
     def _gathered_grid(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's block ``t`` (bn, bm, ...) -> the whole grid (n, m,
@@ -214,10 +226,9 @@ class DistTileMesh(TileMesh):
 
     def merge(self, t, rows=None, cols=None):
         """Every rank's block of tiles -> global (B, n*h, m*w, C), gathered
-        on every rank; not differentiated (an output)."""
-        if rows is not None:
-            raise ValueError("a non-uniform partition on ranks is ROADMAP A.20.2")
-        return super().merge(self._gathered_grid(t))
+        on every rank (padded ragged tiles: each tile's valid window); not
+        differentiated (an output)."""
+        return super().merge(self._gathered_grid(t), rows, cols)
 
     def own(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's block of a whole-grid tensor (n, m, ...)."""
@@ -233,6 +244,13 @@ class DistTileMesh(TileMesh):
         """Every rank's batch blocks -> global (B, H, W, C) in block order,
         gathered on every rank; not differentiated (an output)."""
         return super().merge_batch(self._gathered_grid(t))
+
+
+def local_table(table, dim: int, mesh) -> tuple:
+    """A whole-grid per-axis table as the tiles of ``mesh`` index it: the
+    table itself on the virtual mesh (``mesh`` None), this rank's entries
+    on ranks (``DistTileMesh.block_table``)."""
+    return tuple(table) if mesh is None else mesh.block_table(table, dim)
 
 
 def make_dist_tile_mesh(n: int, m: int, device: str | torch.device,

@@ -45,18 +45,26 @@ tiled path runs one block of the grid per process, as the reference runs
 one tile per device: ``parallel/dist.py:init_tile_group`` joins the group
 torchrun describes, ``launch/mesh.py:make_dist_tile_mesh`` gives this
 rank's block, every rank draws the same seeded batches and params (rank
-0's broadcast), the halo strips, BN sums and the batch-end gradient sum
-cross ranks, and only rank 0 prints.  Every uniform plan runs there: the
-overlap schedule (``--schedule overlap|auto``), a data-mode tail
-(``--crossover N|auto``) and a wire codec (``--wire-codec``), with
-``--groups auto`` or explicit groups.  A heterogeneous ``--cluster`` (a
-ragged partition), ``--pipeline``, checkpoints and faults on ranks are
-ROADMAP A.20.2, a captured step on ranks A.20.3, the LM on ranks A.20.5::
+0's broadcast), the halo strips, BN sums, hand-offs and the batch-end
+gradient sum cross ranks, and only rank 0 prints.  Every plan runs there:
+the overlap schedule (``--schedule overlap|auto``), a data-mode tail
+(``--crossover N|auto``), a wire codec (``--wire-codec``), a heterogeneous
+``--cluster``'s ragged partition (either executor) and a pipeline tail
+(``--pipeline N|auto``), with ``--groups auto`` or explicit groups.
+Checkpoints and faults on ranks are ROADMAP A.20.2 (elastic), a captured
+step on ranks A.20.3, the LM on ranks A.20.5::
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
         --arch yolov2-tiled --grid 2 --input-hw 416 --depth 16 --groups 4 \
         --batch 8 --grad-accum 2 --optimizer sgd --steps 3 --dist \
         --schedule overlap --crossover 14 --wire-codec int8
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch yolov2-tiled --grid 2 --input-hw 416 --depth 16 --groups auto \
+        --cluster pi3x3+jetson --batch 8 --grad-accum 2 --optimizer sgd --steps 3 --dist
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch yolov2-tiled --grid 2 --input-hw 416 --depth 16 --groups auto \
+        --hw-profile jetson-nano-gpu --pipeline 2 --no-batch-norm --batch 8 \
+        --grad-accum 2 --optimizer sgd --steps 3 --dist
 
 Where the reference jits the step (the tiled step, the step after a
 replan, the LM step), the port captures it as a CUDA graph on the card
@@ -231,17 +239,11 @@ def _run_tiled(args) -> int:
         return _train_tiled(args, None)
     from repro_torch.parallel.dist import init_tile_group
 
-    from repro_torch.core.grouping import parse_cluster_spec
-
     refused = [f for f, on in (
-        ("--ckpt-dir", args.ckpt_dir), ("--fault-schedule", args.fault_schedule),
-        ("--pipeline", args.pipeline != "none"),
-        ("a heterogeneous --cluster", args.cluster and not parse_cluster_spec(
-            args.cluster, args.grid, args.grid).is_uniform)) if on]
+        ("--ckpt-dir", args.ckpt_dir), ("--fault-schedule", args.fault_schedule)) if on]
     if refused:
-        raise ValueError(f"{' and '.join(refused)} under --dist: checkpoints, faults, "
-                         "replans, pipeline tails and ragged partitions on ranks are "
-                         "ROADMAP A.20.2")
+        raise ValueError(f"{' and '.join(refused)} under --dist: checkpoints, faults and "
+                         "replans on ranks are ROADMAP A.20.2 (elastic)")
     group = init_tile_group(args.device, args.dist_backend)
     quiet = contextlib.redirect_stdout(io.StringIO()) if group.rank else contextlib.nullcontext()
     try:

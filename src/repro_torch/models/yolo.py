@@ -113,8 +113,9 @@ def make_yolo_tiled_arch(
     ``ragged_exec`` pass through to it, and ``wire_codec``, the plan's codec,
     which the trainer's grad step and the serve engine's forward run.
     ``mesh`` replaces the virtual n x m mesh: a ``DistTileMesh``
-    (``launch/mesh.py:make_dist_tile_mesh``) runs a uniform plan (either
-    schedule, a crossover, any codec) on this rank's block of the grid."""
+    (``launch/mesh.py:make_dist_tile_mesh``) runs the plan (either
+    schedule, a crossover, any codec, a ragged partition, a pipeline tail)
+    on this rank's block of the grid."""
     layers = yolov2_16_layers(batch_norm=batch_norm)[:depth]
     plan = build_stack_plan(
         input_hw, layers, n, m, groups,

@@ -14,8 +14,12 @@ device; W = 1 is the virtual mesh of ``launch/mesh.py``, bit for bit.
   block's own tiles shift locally, the edge tiles that leave it go to the
   neighbour rank and the neighbour's arrive, in one
   ``dist.batch_isend_irecv``.  A rank with no neighbour on that side
-  receives zeros (SAME padding, as ``ppermute`` delivers).  Its backward is
-  the reverse permute of the cotangent: ``ppermute``'s transpose.  The
+  receives zeros (SAME padding, as ``ppermute`` delivers).  A shift past
+  the neighbour block (a pipeline hand-off) sends the block's tiles to the
+  two ranks their destinations lie on, and may be limited to the senders
+  of one stage (``span``), so that a rank only sends or only receives.
+  Its backward is the reverse permute of the cotangent: ``ppermute``'s
+  transpose.  The
   ``"swap"`` of a 2-tile axis (the overlap schedule's packed exchange,
   ``[(0, 1), (1, 0)]``) is the local flip where one rank holds both tiles,
   and one paired send/receive where two ranks hold one each; it is its own
@@ -307,7 +311,7 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce_(ctx.group, g.clone()), None
+        return _all_reduce_(ctx.group, g.clone(memory_format=torch.contiguous_format)), None
 
 
 def all_reduce_sum(t: torch.Tensor, group: TileGroup) -> torch.Tensor:
@@ -325,7 +329,10 @@ class _Replicated(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce_(ctx.group, g.clone()), None
+        # contiguous: ranks whose gradients come from different graphs (a
+        # pipeline's stages) may hold them in different layouts, and the
+        # sum runs over memory order
+        return _all_reduce_(ctx.group, g.clone(memory_format=torch.contiguous_format)), None
 
 
 def replicated(t: torch.Tensor, group: TileGroup) -> torch.Tensor:
@@ -396,7 +403,7 @@ def landed(value) -> Pending:
     return Pending(lambda: value)
 
 
-def _check_shift(size: int, dim: int, shift, mesh) -> None:
+def _check_shift(dim: int, shift, mesh) -> None:
     if dim not in (0, 1):
         raise ValueError(f"permute along dimension {dim}: ranks shift along the tile grid")
     if shift == "swap":
@@ -405,82 +412,149 @@ def _check_shift(size: int, dim: int, shift, mesh) -> None:
             raise ValueError(f"the swap exchanges the two tiles of a 2-tile axis; axis {dim} "
                              f"has {tiles}")
         return
-    if shift == 0 or abs(shift) > size:
-        raise ValueError(
-            f"a permute by {shift} tiles along a block of {size}: a rank's block exchanges "
-            "with its neighbour ranks only (pipeline hand-offs on ranks are ROADMAP A.20.2)")
+    if shift == 0:
+        raise ValueError("a permute by 0 tiles moves nothing")
 
 
-def _exchange_start(x: torch.Tensor, dim: int, shift, mesh, tag: int = 0):
-    """Post the part of ``permute`` that crosses ranks; -> a function that
-    lands it and returns the permuted block (not differentiated)."""
-    size = x.shape[dim]
-    _check_shift(size, dim, shift, mesh)
+def _runs(positions, key) -> list[tuple[int, int, Any]]:
+    """Consecutive grid positions grouped by ``key(position)``: [(first,
+    count, key), ...] in order."""
+    out: list = []
+    for p in positions:
+        k = key(p)
+        if out and out[-1][2] == k and out[-1][0] + out[-1][1] == p:
+            out[-1] = (out[-1][0], out[-1][1] + 1, k)
+        else:
+            out.append((p, 1, k))
+    return out
+
+
+def _hop_start(x: torch.Tensor, dim: int, shift: int, mesh, span, tag: int):
+    """Post a shift of the block ``x`` by ``shift`` tiles along ``dim``:
+    grid position q sends to q + shift when ``span`` = (lo, hi) holds it;
+    -> a function that lands the shifted block (zeros where no sender).
+    With equal blocks of b tiles the block's senders reach at most two
+    ranks, ``shift // b`` and ``shift // b + 1`` blocks away, and it
+    receives from the mirror two; a piece that stays in the block moves
+    locally.  Every message between two ranks is one batched P2P op."""
+    size, n_axis = x.shape[dim], (mesh.n, mesh.m)[dim]
+    o = mesh.origin[dim]
+    lo, hi = (0, n_axis) if span is None else (max(span[0], 0), min(span[1], n_axis))
+    me = o // size
+
+    def block_of(p):
+        return p // size
+
+    senders = range(max(o, lo), min(o + size, hi))
+    sends = [(q0, cnt, mesh.neighbour(dim, b - me))
+             for q0, cnt, b in _runs([q for q in senders if 0 <= q + shift < n_axis],
+                                     lambda q: block_of(q + shift)) if b != me]
+    pieces = _runs(range(o, o + size), lambda p: (block_of(p - shift)
+                                                  if lo <= p - shift < hi else None))
+    recvs = [(cnt, mesh.neighbour(dim, b - me)) for _, cnt, b in pieces
+             if b is not None and b != me]
+    leaving = sum(1 for q in senders if not o <= q + shift < o + size)
     group = mesh.group
-    if shift == "swap":
-        if size == 2:                               # both tiles here: the local flip
-            out = torch.flip(x, [dim])
-            return lambda: out
-        peer = mesh.neighbour(dim, 1 if mesh.coord[dim] == 0 else -1)
-        send, dst, src = x, peer, peer
-    else:
-        k = abs(shift)
-        step = 1 if shift > 0 else -1
-        send = x.narrow(dim, size - k, k) if shift > 0 else x.narrow(dim, 0, k)
-        dst, src = mesh.neighbour(dim, step), mesh.neighbour(dim, -step)
-    group.record[Collective("collective-permute", _nbytes(send), 2)] += 1
-    works, bufs = _post(group, [(send, dst)] * (dst is not None),
-                        [(send.shape, send.dtype, src)] * (src is not None), tag)
+    if leaving:
+        per_tile = _nbytes(x) // size
+        group.record[Collective("collective-permute", per_tile * leaving, 2)] += 1
+
+    def piece_shape(cnt):
+        shape = list(x.shape)
+        shape[dim] = cnt
+        return shape
+
+    works, bufs = _post(group, [(x.narrow(dim, q0 - o, cnt), r) for q0, cnt, r in sends],
+                        [(piece_shape(cnt), x.dtype, r) for cnt, r in recvs], tag)
 
     def land():
-        got = _land(group, works, bufs)
-        recv = got[0] if got else torch.zeros_like(send)
-        if shift == "swap":
-            return recv
-        local = x.narrow(dim, 0, size - k) if shift > 0 else x.narrow(dim, k, size - k)
-        return torch.cat([recv, local] if shift > 0 else [local, recv], dim=dim)
+        got = iter(_land(group, works, bufs))
+        parts = []
+        for p0, cnt, b in pieces:
+            if b is None:
+                parts.append(x.new_zeros(piece_shape(cnt)))
+            elif b == me:
+                parts.append(x.narrow(dim, p0 - shift - o, cnt))
+            else:
+                parts.append(next(got))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
     return land
 
 
-def _exchange(x: torch.Tensor, dim: int, shift, mesh) -> torch.Tensor:
-    return _exchange_start(x, dim, shift, mesh)()
+def _exchange_start(x: torch.Tensor, dim: int, shift, mesh, tag: int = 0, span=None):
+    """Post the part of ``permute`` that crosses ranks; -> a function that
+    lands it and returns the permuted block (not differentiated)."""
+    _check_shift(dim, shift, mesh)
+    if shift != "swap":
+        return _hop_start(x, dim, shift, mesh, span, tag)
+    size = x.shape[dim]
+    if size == 2:                                   # both tiles here: the local flip
+        out = torch.flip(x, [dim])
+        return lambda: out
+    group = mesh.group
+    peer = mesh.neighbour(dim, 1 if mesh.coord[dim] == 0 else -1)
+    group.record[Collective("collective-permute", _nbytes(x), 2)] += 1
+    works, bufs = _post(group, [(x, peer)], [(x.shape, x.dtype, peer)], tag)
+    return lambda: _land(group, works, bufs)[0]
+
+
+def _exchange(x: torch.Tensor, dim: int, shift, mesh, span=None) -> torch.Tensor:
+    return _exchange_start(x, dim, shift, mesh, span=span)()
+
+
+def _reverse(shift, span):
+    """The hop that carries a permute's cotangent back: the reverse shift
+    from the positions the senders reached (the swap is its own)."""
+    if shift == "swap":
+        return "swap", None
+    return -shift, None if span is None else (span[0] + shift, span[1] + shift)
 
 
 class _Landed(torch.autograd.Function):
     """The permuted block, landed: the output of ``permute`` as a function
     of the sender's block ``x``; the backward permutes the cotangent back
-    (the reverse shift; the swap is its own reverse)."""
+    (the reverse hop; the swap is its own reverse)."""
 
     @staticmethod
-    def forward(ctx, x, out, dim, shift, mesh):
-        ctx.meta = (dim, shift, mesh)
+    def forward(ctx, x, out, dim, shift, mesh, span):
+        ctx.meta = (dim, shift, mesh, span)
         return out.view_as(out)
 
     @staticmethod
     def backward(ctx, g):
-        dim, shift, mesh = ctx.meta
-        back = "swap" if shift == "swap" else -shift
-        return _exchange(g.contiguous(), dim, back, mesh), None, None, None, None
+        dim, shift, mesh, span = ctx.meta
+        back, back_span = _reverse(shift, span)
+        return _exchange(g.contiguous(), dim, back, mesh, back_span), None, None, None, None, None
 
 
-def permute_start(x: torch.Tensor, dim: int, shift, mesh, tag: int = 0) -> Pending:
+def permute_start(x: torch.Tensor, dim: int, shift, mesh, tag: int = 0, span=None) -> Pending:
     """``ppermute`` of the blocks ``x`` = (bn, bm, ...) of ``mesh`` (a
     ``launch.mesh.DistTileMesh``) along tile dimension ``dim`` (0 rows, 1
     columns): by ``shift`` tiles (tile j receives tile j - shift's data,
     zeros where the grid has no such tile), or ``"swap"``, the two tiles of
-    a 2-tile axis exchanged.  The strips leave now; ``wait()`` lands them
-    and returns the permuted block (differentiable in ``x``).  Work queued
-    between the two does not wait for the wire (under nccl the compute
-    stream waits on the exchange only at ``wait``).  Exchanges posted
-    together between the same ranks take distinct ``tag``s."""
-    land = _exchange_start(x, dim, shift, mesh, tag)
+    a 2-tile axis exchanged.  A shift may pass the neighbour block (a
+    pipeline hand-off): the block's tiles then go to the two ranks their
+    destinations lie on.  ``span`` = (lo, hi) limits the senders to the
+    grid's tiles [lo, hi) along ``dim`` (one pipeline stage's): a rank
+    holding none sends nothing, and a tile whose source lies outside it
+    receives zeros, so a rank may only send or only receive.  The strips
+    leave now; ``wait()`` lands them and returns the permuted block
+    (differentiable in ``x``: the backward is the reverse hop).  Work
+    queued between the two does not wait for the wire (under nccl the
+    compute stream waits on the exchange only at ``wait``).  Exchanges
+    posted together between the same ranks take distinct ``tag``s.  The
+    record counts one ``collective-permute`` of the tiles whose
+    destination lies outside the block (past the grid's edge included, as
+    every device of the reference runs its ``ppermute``), and none where
+    every destination is local."""
+    land = _exchange_start(x, dim, shift, mesh, tag, span)
 
     def finish():
         out = land()
         if not (torch.is_grad_enabled() and x.requires_grad):
             return out
-        return _Landed.apply(x, out.detach(), dim, shift, mesh)
+        return _Landed.apply(x, out.detach(), dim, shift, mesh, span)
 
     return Pending(finish)
 

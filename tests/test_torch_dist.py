@@ -418,8 +418,9 @@ def _ragged(**kw):
                                 microbatches=2, **kw)
 
 
-# Since the overlap schedule, crossovers and codecs run on ranks, their
-# cases hold them beside a ragged partition, which still does not.
+# The plans this slice once refused on ranks - a ragged partition alone,
+# under the overlap schedule (which a ragged plan runs as sync), a
+# crossover or a codec, and a pipeline tail - now run there.
 OUTSIDE = {
     "non-uniform": _ragged,
     "overlap": lambda: _ragged(schedule="overlap"),
@@ -431,22 +432,55 @@ OUTSIDE = {
 }
 
 
+def _outside_rank(group):
+    """One of 2 ranks: each OUTSIDE plan's fp64 deferred step (2
+    microbatches of 4 images) on its block and on the virtual mesh; -> the
+    largest error of the loss and of each gradient leaf, relative to
+    max(1, |virtual|)."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, make in OUTSIDE.items():
+        plan = make()
+        gen = torch.Generator().manual_seed(len(name))
+        params = tsp.init_stack_params(gen, plan.layers, torch.float64)
+        xs = torch.randn((2, 4, *plan.input_hw, 3), generator=gen, dtype=torch.float64)
+        ts = 0.05 * torch.randn((2, 4, *plan.out_hw(), plan.layers[-1].out_channels),
+                                generator=gen, dtype=torch.float64)
+        runs = [tfu.make_deferred_grad_step(plan, m, l2_loss_local, microbatches=2)(params, xs, ts)
+                for m in (make_dist_tile_mesh(2, 2, "cpu", group), make_tile_mesh(2, 2, "cpu"))]
+        (loss, grads), (vloss, vgrads) = runs
+        pairs = [(loss, vloss)] + list(zip([v for p in grads for v in p.values()],
+                                           [v for p in vgrads for v in p.values()]))
+        out[name] = max(float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+                        for a, b in pairs)
+    return out
+
+
+@pytest.fixture(scope="module")
+def outside_runs():
+    return run_ranks(_outside_rank, 2, "cpu", timeout=600)
+
+
 @pytest.mark.parametrize("name", sorted(OUTSIDE))
-def test_plans_outside_the_slice_name_their_item(name):
-    """Every entry point refuses on ranks, before any collective, the plans
-    ranks do not run - a ragged partition (alone, or under the overlap
-    schedule, a crossover or a codec) and a pipeline tail: ROADMAP
-    A.20.2."""
+def test_plans_outside_the_slice_name_their_item(name, outside_runs):
+    """The plans PR 34's slice refused on ranks (naming ROADMAP A.20.2) - a
+    ragged partition alone, under the overlap schedule, a crossover or a
+    codec, and a pipeline tail - run there now: every entry point builds
+    before any collective, and on 2 ranks the fp64 deferred step is the
+    virtual mesh's within ``FP64_BAR`` (the codec plan too: its strips
+    quantise alike on either mesh).  The slices' own tests:
+    ``tests/test_torch_dist_ragged.py``, ``tests/test_torch_dist_pipeline.py``."""
     group = TileGroup(0, 1, "gloo", torch.device("cpu"))
     mesh = make_dist_tile_mesh(2, 2, "cpu", group)
     plan = OUTSIDE[name]()
-    for make in (lambda: tfu.make_tiled_forward(plan, mesh),
-                 lambda: tfu.make_tiled_loss(plan, mesh, l2_loss_local),
-                 lambda: tfu.make_deferred_grad_step(plan, mesh, l2_loss_local,
-                                                     microbatches=2)):
-        with pytest.raises(ValueError, match="A.20.2"):
-            make()
+    assert not plan.is_uniform or plan.stages
+    if not plan.stages:
+        tfu.make_tiled_forward(plan, mesh)
+    tfu.make_tiled_loss(plan, mesh, l2_loss_local)
+    tfu.make_deferred_grad_step(plan, mesh, l2_loss_local, microbatches=2)
     assert not group.record
+    for out in outside_runs:
+        assert out[name] <= FP64_BAR, (name, out[name])
 
 
 def test_serve_engine_on_ranks_names_its_item():

@@ -11,7 +11,7 @@ virtual mesh's ops, and their rules.
 - The record of every collective and ``analysis/collectives.py``'s stats
   against the reference's ring model (``repro/analysis/hlo.py``).
 - The rules: the rank grid, the backend rule (no silent fallback), a rank
-  that fails, a shift the slice does not run.
+  that fails, the swaps and shifts that are refused.
 
 One spawn of ranks per scenario, one intra-op thread a rank.
 """
@@ -75,10 +75,18 @@ def _ops_rank(group, grids):
         x = torch.randn((n, m, *BLOCK), generator=gen, dtype=torch.float64)
         errs = {}
         for dim in (0, 1):
-            for shift in (1, -1, mesh.block[dim], -mesh.block[dim]):
+            b = mesh.block[dim]
+            for shift in sorted({1, -1, b, -b, 2 * b, -2 * b, b + 1, -(b + 1)}):
                 got = permute_start(_block_of(mesh, x), dim, shift, mesh).wait()
                 want = _block_of(mesh, _shift(x, dim, shift))
                 errs[f"permute d{dim} s{shift}"] = float((got - want).abs().max())
+            # one stage's senders: the grid's first half along dim, by its size
+            half = x.shape[dim] // 2
+            got = permute_start(_block_of(mesh, x), dim, half, mesh, span=(0, half)).wait()
+            stage = torch.cat([x.narrow(dim, 0, half), torch.zeros_like(x.narrow(dim, 0, half))],
+                              dim)
+            want = _block_of(mesh, _shift(stage, dim, half))
+            errs[f"permute d{dim} span s{half}"] = float((got - want).abs().max())
         (bn, bm), (rr, rc) = mesh.block, mesh.ranks
         blocks = [x[r * bn:(r + 1) * bn, c * bm:(c + 1) * bm] for r in range(rr) for c in range(rc)]
         errs["all_reduce_sum"] = float((all_reduce_sum(_block_of(mesh, x), group)
@@ -93,11 +101,13 @@ def _ops_rank(group, grids):
                               dtype=torch.float64).reshape(xs[:mesh.block[0], :mesh.block[1]].shape)
         checks = {}
         for dim in (0, 1):
-            checks[f"permute d{dim}"] = torch.autograd.gradcheck(
-                lambda t, dim=dim: _Gathered.apply(
-                    permute_start(_block_of(mesh, replicated(t, group)), dim, 1, mesh).wait(),
-                    group),
-                (xs,), eps=1e-6, atol=1e-8)
+            for shift, span in ((1, None), (x.shape[dim] // 2, (0, x.shape[dim] // 2))):
+                checks[f"permute d{dim} s{shift}"] = torch.autograd.gradcheck(
+                    lambda t, dim=dim, shift=shift, span=span: _Gathered.apply(
+                        permute_start(_block_of(mesh, replicated(t, group)), dim, shift, mesh,
+                                      span=span).wait(),
+                        group),
+                    (xs,), eps=1e-6, atol=1e-8)
         checks["all_reduce_sum"] = torch.autograd.gradcheck(
             lambda t: _Gathered.apply(
                 all_reduce_sum(_block_of(mesh, replicated(t, group)), group)
@@ -228,17 +238,28 @@ def test_backend_rule_has_no_silent_fallback(device, backend, local_world, cards
 
 
 def test_permute_refuses_what_the_slice_does_not_run():
-    """A hop past the neighbour block (a pipeline hand-off) names ROADMAP
-    A.20.2, and a swap along an axis of other than two tiles is refused;
-    neither reaches a collective.  (The overlap schedule's swap of a 2-tile
-    axis runs on ranks: ``tests/test_torch_dist_plans.py``.)"""
+    """A swap along an axis of other than two tiles and a shift by 0 are
+    refused before any collective.  A hop past the neighbour block (a
+    pipeline hand-off) runs: on one rank it is the virtual shift, the
+    tiles past the grid's edge recorded as leaving, as every device of
+    the reference runs its ``ppermute``.  (The overlap schedule's swap of
+    a 2-tile axis runs on ranks: ``tests/test_torch_dist_plans.py``.)"""
     group = TileGroup(0, 1, "gloo", torch.device("cpu"))
     mesh = make_dist_tile_mesh(4, 2, "cpu", group)
-    x = torch.zeros(4, 2, 1, 2, 2, 1)
+    x = torch.arange(32.0).reshape(4, 2, 1, 2, 2, 1)
     with pytest.raises(ValueError, match="2-tile axis"):
         permute_start(x, 0, "swap", mesh)
-    with pytest.raises(ValueError, match="A.20.2"):
-        permute_start(x, 1, 3, mesh)
+    with pytest.raises(ValueError, match="by 0 tiles"):
+        permute_start(x, 1, 0, mesh)
+    assert not group.record
+    assert torch.equal(permute_start(x, 1, 3, mesh).wait(), _shift(x, 1, 3))
+    assert torch.equal(permute_start(x, 0, 3, mesh).wait(), _shift(x, 0, 3))
+    tile = 4 * 4                               # bytes of one tile's (1, 2, 2, 1) fp32
+    assert group.take_record() == Counter({Collective("collective-permute", 8 * tile, 2): 1,
+                                           Collective("collective-permute", 6 * tile, 2): 1})
+    # a stage's hop that stays in the block crosses nothing and records nothing
+    assert torch.equal(permute_start(x, 0, 2, mesh, span=(0, 2)).wait(),
+                       _shift(torch.cat([x[:2], torch.zeros_like(x[:2])]), 0, 2))
     assert not group.record
 
 

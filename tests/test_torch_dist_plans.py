@@ -29,8 +29,8 @@ intra-op thread each, one spawn of ranks per world size (``run_ranks``):
   ``analysis/collectives.py:plan_collectives``;
 - on a rank the overlap lead's row strips are still on the wire when its
   interior conv is issued;
-- the launcher refuses under ``--dist`` what ranks still do not run (a
-  pipeline tail, a heterogeneous cluster), naming ROADMAP A.20.2.
+- the launcher under ``--dist`` takes a pipeline tail and a heterogeneous
+  cluster and refuses checkpoints, naming ROADMAP A.20.2 (elastic).
 
 The wire codecs on ranks: ``tests/test_torch_dist_codecs.py``.
 """
@@ -484,17 +484,24 @@ def test_overlap_rows_are_on_the_wire_during_the_interior_conv(rank_runs):
     (["--cluster", "pi3x3+jetson"], "ragged partitions"),
 ])
 def test_launcher_refusals_under_dist_name_their_item(flags, match, monkeypatch):
-    """What ranks still do not run is refused before the group is joined,
-    naming ROADMAP A.20.2 (checkpoints, faults, the LM and the serve
-    engine: ``tests/test_torch_dist.py``)."""
+    """A pipeline tail and a heterogeneous cluster, once refused under
+    ``--dist``, now pass the launcher's checks and go on to join the group
+    torchrun describes (here there is none); with a checkpoint directory
+    they meet the refusal that remains, ROADMAP A.20.2 (elastic).  Their
+    runs under torchrun: ``tests/test_torch_dist_ragged.py``,
+    ``tests/test_torch_dist_pipeline.py``; ``match`` names what each case
+    was refused as."""
     from repro_torch.launch.train import main
 
     for k in tdist.TORCHRUN_ENV:
         monkeypatch.delenv(k, raising=False)
     base = ["--arch", "yolov2-tiled", "--device", "cpu", "--input-hw", "32", "--depth", "4",
-            "--steps", "1", "--grid", "2", "--dist"]
-    with pytest.raises(ValueError, match=rf"{match}.*A\.20\.2"):
+            "--steps", "1", "--grid", "2", "--groups", "auto", "--no-batch-norm", "--dist"]
+    assert match in ("pipeline tails", "ragged partitions")
+    with pytest.raises(RuntimeError, match="no torchrun environment"):
         main(base + flags)
+    with pytest.raises(ValueError, match=r"A\.20\.2 \(elastic\)"):
+        main(base + flags + ["--ckpt-dir", "ckpt"])
 
 
 def test_plans_on_ranks_are_uniform_plans_of_any_schedule_crossover_and_codec():
@@ -505,6 +512,6 @@ def test_plans_on_ranks_are_uniform_plans_of_any_schedule_crossover_and_codec():
     for kw in (dict(schedule="overlap"), dict(crossover=2), dict(wire_codec="int8"),
                dict(schedule="overlap", crossover=2, wire_codec="topk:0.5")):
         plan = plan_of(kw)
-        assert tfu._dist_of(plan, mesh, "test") is mesh
+        assert tfu._dist_of(mesh) is mesh
         tfu.make_tiled_infer(plan.inference_twin(), mesh)
     assert not group.record

@@ -353,7 +353,8 @@ def test_pipeline_loss_matches_jax_and_the_untiled_reference(jax_pipe, name):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_pipeline_deferred_step_matches_jax_and_the_untiled_reference(jax_pipe, name, mb):
     """The deferred step with M microbatches streamed through the stages:
-    one autograd pass over the tick loop, one division by the count."""
+    one walk of the tick schedule and one reverse walk, one division by
+    the count."""
     params, xs, ts = _case_data(name)
     _, plan = _plans(name, backend="cuda")
     step = tfu.make_deferred_grad_step(plan, make_tile_mesh(plan.n, plan.m, "cpu"),
