@@ -242,7 +242,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ...}`` line: checkpoint bytes and files, blocking save, the async save's
    snapshot and writer, restore with CRCs, replan and the first step after
    it, the median step on the 2x2 cluster and on 1x3, the peak after the
-   replan;
+   replan.  (b) and (c) keep each step's param checksums and their last
+   checkpoints', and (c) its bars, for phase 29(d);
 19. LM serving (``lm_serve_phase``): (d) B6 against its plain version at
    the decode shapes - rows ``RMS_DECODE_ROWS`` (the slots) at every B6
    width of the configs phases 19 and 20 serve (Qwen2-7B's, Mamba2-780m's
@@ -278,7 +279,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per microbatch on ``wgmma_bf16_dh64`` / ``_dh128``, B6 only for the
    RMSNorm config (a LayerNorm runs as plain torch; phases 7's, 19's and
    20's B6 counts follow the norm kind), with the modeled state of one
-   layer more beside the card; (c) each served at full width and full
+   layer more beside the card (only StableLM's step profiled:
+   ``UNPROFILED_TRAIN``); (c) each served at full width and full
    depth with ``CONFIG_SERVE_TRAFFIC`` (``lm_serve_drive``, Command-R 35B's
    60.6 GB included, after ``gc.collect()`` and ``empty_cache()``), init's
    peak held within ``INIT_PEAK_SLACK`` of the params plus the largest fp32
@@ -337,7 +339,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    attention outputs within ``DECODE_BAR``, the planted faults of
    ``VL_FAULTS`` over it (sections permuted, height and width swapped,
    patches not substituted), beside vs alone; (b) trained as phase 7 at
-   ``VL_TRAIN_DEPTH`` (8 layers), 4 x 2048 tokens (512 of them patches)
+   ``VL_TRAIN_DEPTH`` (6 layers), 4 x 2048 tokens (512 of them patches)
    in 2 microbatches,
    bf16, AdamW, 4 steps; (c) served at full depth, ``VL_SERVE_REQUESTS``
    text prompts; (d) both launchers with the id;
@@ -350,7 +352,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    C.15), within ``DECODE_BAR``, the planted faults of ``WHISPER_FAULTS``
    over it (cross K/V from the decoder's states, a causal encoder, the
    sinusoid dropped); (b) trained as phase 7 (the decoder at ``VL_TRAIN_DEPTH``,
-   6 layers), 4 x (2048 frames, 512 tokens)
+   4 layers), 4 x (2048 frames, 512 tokens)
    in 2 microbatches, bf16, AdamW, 4 steps (B4 in three modes: the
    encoder's non-causal, the decoder's causal, the cross-attention's 512
    queries against 2048 keys); (c) served at full depth as the reference's
@@ -424,8 +426,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    supported, FLOPs and argument bytes a device, ``hbm_ok``, the dominant
    term (``{"dryrun": {"phase_cells": ...}}``; the whole 40-cell grid
    traces for longer than this phase may take).  Launches nothing.
-29. one tile per process (``dist_phase``; ROADMAP A.20.1, A.20.2 but
-   elastic): phase 5's plan, then ``DIST_PLANS`` - phase 13's
+29. one tile per process (``dist_phase``; ROADMAP A.20.1, A.20.2):
+   phase 5's plan, then ``DIST_PLANS`` - phase 13's
    tpu-v5e-chip plan (overlap, crossover 14), phase 16's edge_auto int8
    plan, phase 14's cluster (spec) and its crossover-14 twin (padded),
    phase 15's pipe2x2 and pure1x4 (1x4) - in the same processes, on
@@ -447,8 +449,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``analysis/collectives.py:plan_collectives`` at the rank's place, the
    model the CPU tests hold to the reference's compiled step) and step ms
    (staged through host memory: not a result); (c) nccl at ``DIST_WORLD``
-   ranks where there are that many cards.  The ranks' launches join the
-   ``{"kernels": ...}`` line, B1-B3's also by plan.
+   ranks where there are that many cards; (d) elastic training (ROADMAP
+   A.20.2, elastic) in (a)'s, (b)'s and (c)'s processes after their plans
+   (``elastic_rank``, ``elastic_held``): phase 18(b)-(c)'s schedule -
+   the padded cluster plan under ``ELASTIC29_FAULTS`` (the Jetson dropped,
+   a failed step restored from rank 0's checkpoint, a writer crash), then
+   the original plan resuming the survivors' last checkpoint - through
+   ``run_training`` on the ranks and the launcher's ``make_replan``: at one
+   nccl rank every step's params and both last checkpoints bitwise phase
+   18's runs; on ``DIST_WORLD`` gloo ranks ranks 0-2 at 1x3 while rank 3
+   idles, the 7-step update within phase 18(c)'s bars, every active rank's
+   params equal, a planted restore the other ranks skip past the bars;
+   every rank's launches the code's count for its blocks and its driver's
+   collectives ``driver_collectives``; one ``{"elastic29": ...}`` line
+   (replan ms, restore read and broadcast ms, the first step after the
+   replan, each rank's peak before and after, restarts and replans).  The
+   ranks' launches join the ``{"kernels": ...}`` line, B1-B3's also by
+   plan ("elastic": 29(d)'s).
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -479,6 +496,7 @@ GRID = (2, 2)
 BUCKETS = (1, 2, 4, 8)
 ARRIVALS = (8, 5, 3, 8, 2, 1, 5)     # requests per tick: 32 in all
 N_CONVS = 12                         # conv layers of the 16-layer prefix
+PROFILE_EDGE_S = 0.25                # idle host time at each edge of a kernel-counting window
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet), from the
 # port's one hardware target (analysis/roofline.py:H100): fp32 on CUDA cores,
 # HBM3 bandwidth, and (below) the dense bf16 tensor-core peak.
@@ -807,8 +825,9 @@ CAPTURE_TRAIN_DEPTH = {"codeqwen1.5-7b": 13, "command-r-35b": 2, "mixtral-8x22b"
                        "jamba-v0.1-52b": 3, "mamba2-780m": 12}
 # Phase 28(b) traces each training cell at no more than this many layers:
 # the trace costs the host 0.15-0.5 ms an op, and the run's time is bounded
-# as above.
-DRYRUN_CELL_DEPTH = 6
+# as above (5 since phase 29(d) came: Jamba's attention layer, index 4, is
+# the deepest kind of layer a cell holds).
+DRYRUN_CELL_DEPTH = 5
 CAPTURE_EXTRA_REPLAYS = 2       # timed replays past the compared steps (27(c))
 # launches the captured runs' checks executed (warm steps + graphs x replays),
 # by kernel: added to the kernels line
@@ -837,6 +856,19 @@ DIST_WARM_LIBS = ("conv2d_tile", "conv2d_dgrad_tile")
 # bitwise its virtual run; on DIST_WORLD ranks every rank's collectives
 # equal ``analysis/collectives.py:plan_collectives`` at its coordinates.
 # "grid" is the plan's tile grid where it is not GRID.
+# ... and then 29(d), elastic training on the ranks (ROADMAP A.20.2,
+# elastic): phase 18(b)-(c)'s schedule - the padded cluster plan losing the
+# Jetson (ELASTIC_DROP_FAULTS), here with a failed step after the replan and
+# a writer crash (ELASTIC29_FAULTS) and a checkpoint every
+# ELASTIC29_CKPT_EVERY steps, so that the failed step's restore reaches back
+# past the live state; then the original plan resuming the survivors' last
+# checkpoint.  At one rank every step and both last checkpoints bitwise
+# phase 18's; on DIST_WORLD ranks ranks 0-2 train at 1x3 while rank 3
+# idles, the 7 steps held to phase 18(c)'s bars, and the same runs with a
+# planted restore the other ranks skip (they keep their pre-failure state)
+# past them.
+ELASTIC29_FAULTS = ELASTIC_DROP_FAULTS + ",fail@3,ckpt-crash@1"
+ELASTIC29_CKPT_EVERY = 2
 DIST_PLANS = {"hybrid_tpu": HYBRID_KW, "edge_int8": dict(WIRE_PLANS_416["edge_auto"][1],
                                                           wire_codec="int8"),
               "cluster_spec": dict(_CLUSTER_KW, groups="auto", ragged_exec="spec"),
@@ -882,6 +914,11 @@ INIT_PEAK_SLACK = 1.05
 # depth with CONFIG_SERVE_TRAFFIC.
 DENSE_ARCHS = ("stablelm-1.6b", "codeqwen1.5-7b", "command-r-35b")
 DENSE_TRAIN_DEPTH = {"stablelm-1.6b": 24, "codeqwen1.5-7b": 17, "command-r-35b": 3}
+# The training cells whose step is not profiled, for the run's time (PR 36:
+# processing a profiled step's trace cost a slow host 18.2 and 3.4 s here;
+# their step's breakdown is StableLM's and Qwen2-7B's kind, and their
+# kernels' launches are still held to the code's count)
+UNPROFILED_TRAIN = ("dense_train_codeqwen1.5-7b", "dense_train_command-r-35b")
 DENSE_TRAIN_STEPS = 4
 DENSE_NOISE = 0.3
 # the planted fault of each config's decode: decode rotates the whole head
@@ -924,10 +961,10 @@ FA_WINDOW_SEQ = 8192
 # tokens; both 4 sequences in 2 microbatches (LM_BATCH, LM_ACCUM), bf16,
 # remat full, AdamW, 3 steps.  The decode checks are fp32 at full depth.
 VL_ARCH, WHISPER_ARCH = "qwen2-vl-2b", "whisper-medium"
-# (b) trains a cut of the layers (Qwen2-VL 8 of 28, Whisper's decoder 6 of
+# (b) trains a cut of the layers (Qwen2-VL 6 of 28, Whisper's decoder 4 of
 # 24 beside its whole encoder), so the run ends inside its time on a slow
 # host; (a) and (c) keep the full depth
-VL_TRAIN_DEPTH = {VL_ARCH: 8, WHISPER_ARCH: 6}
+VL_TRAIN_DEPTH = {VL_ARCH: 6, WHISPER_ARCH: 4}
 VL_SEQ = 2048
 VL_STEPS = 4
 # Qwen2-VL's decode check: LM_SERVE_FORCED tokens, the first VL_GRID^2 of
@@ -1441,7 +1478,7 @@ def train_phase(dev, smi: str, plan_kw: dict, label: str = "train",
     per-leaf bars, the run's param checksums after each step, and the
     step-1 gradients in fp64 with their bars: phase 29 holds its ranks to
     them.  ``orders_from``: an earlier run of the same
-    stack on the same batches (phase 5's for phases 12 and 13, the sync
+    stack on the same batches (phase 5's for phases 12, 13 and 14, the sync
     no-BN plan's for phase 15's pipelines), whose fp32 trainers in image orders
     1..BAR_ORDERS-1 the update bars reuse beside this plan's own order 0,
     instead of running BAR_ORDERS - 1 more fp32 trainers."""
@@ -2335,7 +2372,7 @@ def capture_phase(dev, smi: str, calib, images, step_s: float) -> dict:
     ...}`` line; returns B1's launches of (b)'s two drives."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.core.fusion import make_tiled_infer
     from repro_torch.core.tiling import Group
@@ -2463,18 +2500,40 @@ def capture_phase(dev, smi: str, calib, images, step_s: float) -> dict:
     copies = {"stage_in_ms_torch": host_ms(stage_torch), "stage_in_ms_numpy": host_ms(stage_numpy),
               "copy_out_ms_torch": host_ms(lambda: out8.clone().numpy()),
               "copy_out_ms_numpy": host_ms(lambda: out8.numpy().copy())}
+    # The profiler's count of B1 kernels is held exactly.  Late in a whole
+    # run a bare window has lost one of the 36 (PERF.md PR 36).  The profiler
+    # keeps a device event only if it falls inside the window on its host
+    # clock, so a drift of the two clocks over a long process can drop an
+    # event at an edge.  The window kept opens after one warm-up dispatch
+    # and holds idle host time at both edges; the idle time is outside
+    # ``wall``.  The kernels' earliest start after their launch call, on the
+    # profiler's clocks, is kept too.
     for c, engine in engines.items():
         label = "captured" if c else "uncaptured"
-        reset_launches()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            dispatch_ms(engine, 8)          # the profiler's warm-up, not kept
+            prof.step()
+            reset_launches()
+            time.sleep(PROFILE_EDGE_S)
             t0 = time.perf_counter()
             for _ in range(3):
                 dispatch_ms(engine, 8)
             wall = (time.perf_counter() - t0) * 1e3 / 3
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_EDGE_S)
+            prof.step()
         by_name = device_ms_by_name(prof, 3)
-        conv_events = sum(e.count for e in prof.key_averages()
-                          if e.device_type == torch.autograd.DeviceType.CUDA
-                          and "conv2d_tile_kernel<" in e.key)
+        b1_events = {e.key: e.count for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "conv2d_tile_kernel<" in e.key}
+        conv_events = sum(b1_events.values())
+        events = prof.events()
+        launch_us = {e.id: e.time_range.start for e in events
+                     if e.device_type == torch.autograd.DeviceType.CPU and "Launch" in e.name}
+        lags = [e.time_range.start - launch_us[e.id] for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "conv2d_tile_kernel<" in e.name and e.id in launch_us]
         dev_ms = sum(by_name.values())
         served[label].update({
             f"bucket{b}_dispatch_ms": statistics.median(turns[(label, b)]) for b in (1, 8)})
@@ -2484,13 +2543,15 @@ def capture_phase(dev, smi: str, calib, images, step_s: float) -> dict:
             "bucket8_idle_share_unprofiled": max(
                 0.0, 1 - dev_ms / statistics.median(turns[(label, 8)])),
             "profiler_b1_kernels_3_dispatches": conv_events,
+            "profiler_b1_min_launch_to_start_us": min(lags) if lags else None,
             "host_b1_launches_3_dispatches": conv2d_tile.launches,
         })
         want = 0 if c else 3 * N_CONVS
         check(conv2d_tile.launches == want, f"capture (b) {label}: {conv2d_tile.launches} host B1 "
               f"launches in 3 dispatches, not {want}")
         check(conv_events in (0, 3 * N_CONVS),
-              f"capture (b) {label}: the profiler saw {conv_events} B1 kernels in 3 dispatches")
+              f"capture (b) {label}: the profiler saw {conv_events} B1 kernels in 3 dispatches "
+              f"({b1_events})")
     print(f"capture (b): {json.dumps(served)}; host copies alone {copies}")
 
     # (c) another seed's params, then an in-place update of one leaf
@@ -3114,31 +3175,36 @@ def lm_train_phase(dev, smi: str, run: LMRun) -> dict:
     # where the device time of one step goes (one more step on the final
     # state).  The trace records the card's activity alone: with the host's
     # ops too, building its events took minutes for a deep model's step
-    batch = make_batch(0)
-    t_trace = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(last["state"], batch)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = device_ms_by_name(prof, 1)
-    trace_s = time.perf_counter() - t_trace
-    dev_ms = sum(by_name.values())
-    part = {name: sum(v for k, v in by_name.items() if LM_KERNEL_TRACE_NAMES[name] in k)
-            for name in kernels}
-    check(dev_ms > 0 and all((v > 0) == (want[k] > 0) for k, v in part.items()),
-          f"profiler saw no device time for a kernel of the run, or some for one it does "
-          f"not launch: {part}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     med = statistics.median(step_ms)
-    print(json.dumps({f"profile_{run.key}_step": {
-        "wall_ms": prof_wall_ms, "device_ms": dev_ms, "kernel_ms": part, "trace_s": trace_s,
-        "idle_share": max(0.0, 1 - dev_ms / prof_wall_ms),
-        # against the unprofiled step (CUDA events, median of the run)
-        "idle_share_vs_event_step": max(0.0, 1 - dev_ms / med),
-        "top": [[k[:80], v] for k, v in top],
-    }}))
-    del last, batch, prof, init_state, train_step
+    dev_ms = None                   # an unprofiled cell's replays have no idle share
+    if run.key in UNPROFILED_TRAIN:
+        print(f"{run.key}: not profiled (UNPROFILED_TRAIN)")
+    else:
+        batch = make_batch(0)
+        t_trace = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            train_step(last["state"], batch)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name = device_ms_by_name(prof, 1)
+        trace_s = time.perf_counter() - t_trace
+        dev_ms = sum(by_name.values())
+        part = {name: sum(v for k, v in by_name.items() if LM_KERNEL_TRACE_NAMES[name] in k)
+                for name in kernels}
+        check(dev_ms > 0 and all((v > 0) == (want[k] > 0) for k, v in part.items()),
+              f"profiler saw no device time for a kernel of the run, or some for one it does "
+              f"not launch: {part}")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+        print(json.dumps({f"profile_{run.key}_step": {
+            "wall_ms": prof_wall_ms, "device_ms": dev_ms, "kernel_ms": part, "trace_s": trace_s,
+            "idle_share": max(0.0, 1 - dev_ms / prof_wall_ms),
+            # against the unprofiled step (CUDA events, median of the run)
+            "idle_share_vs_event_step": max(0.0, 1 - dev_ms / med),
+            "top": [[k[:80], v] for k, v in top],
+        }}))
+        del batch, prof
+    del last, init_state, train_step
     torch.cuda.empty_cache()
 
     # step 1's loss against a bf16 forward through the plain versions of the
@@ -3510,12 +3576,14 @@ def elastic_phase(dev, smi: str, held_b1: set, held_bwd: set, fwd_row, bwd_rows)
             lm_launches18[k] += got[k]
         return got
 
-    def drive(init_state, train_step, make_batch, steps, cfg, replan=None, on_replan=None, **kw):
+    def drive(init_state, train_step, make_batch, steps, cfg, replan=None, on_replan=None,
+              sums=False, **kw):
         """One ``run_training`` on the card, the counts from 0: the run's
         report, final state, CUDA-event step ms, launches and, after a
         replan, its ms, the step index it happened at and the peak after
-        it."""
-        rec = {"events": []}
+        it; with ``sums`` the params' checksums after each step, by the
+        state's step count (phase 29(d) holds its ranks to them)."""
+        rec = {"events": [], "checksums": {}}
 
         def timed(fn):
             def step(state, batch):
@@ -3525,6 +3593,8 @@ def elastic_phase(dev, smi: str, held_b1: set, held_bwd: set, fwd_row, bwd_rows)
                 b.record()
                 rec["events"].append((a, b))
                 rec["state"] = state
+                if sums:
+                    rec["checksums"][int(state.step)] = state_checksums(state.params)
                 return state, m
             return step
 
@@ -3688,7 +3758,7 @@ def elastic_phase(dev, smi: str, held_b1: set, held_bwd: set, fwd_row, bwd_rows)
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             run_d = drive(init_b, step_b, mb_b, 5, DriverConfig(ckpt_dir=d_d, ckpt_every=1),
-                          replan=replan, on_replan=copy_step1,
+                          replan=replan, on_replan=copy_step1, sums=True,
                           faults=FaultInjector(ELASTIC_DROP_FAULTS),
                           plan=plan_manifest(plan0, cluster))
         print(buf.getvalue(), end="")
@@ -3707,6 +3777,9 @@ def elastic_phase(dev, smi: str, held_b1: set, held_bwd: set, fwd_row, bwd_rows)
         got = {k: run_d["launches"][k] for k in conv}
         check(got == want, f"18(b): launches {got} != the code's {want}")
         mgr_d = CheckpointManager(d_d)
+        like_b = abstract_of(init_b, SEED)[0]
+        for29 = {"drop": {"checksums": run_d["checksums"],
+                          "ckpt": state_checksums(mgr_d.restore(like_b, step=4, device=dev))}}
         stored = mgr_d.plan_of()
         check(stored == json.loads(json.dumps(plan_manifest(plan1, survivors))),
               "18(b): the stored plan manifest is not the survivors' plan")
@@ -3726,7 +3799,9 @@ def elastic_phase(dev, smi: str, held_b1: set, held_bwd: set, fwd_row, bwd_rows)
 
         # (c) the original cluster plan resumes the 1x3 run's last checkpoint
         run_c = drive(init_b, step_b, mb_b, ELASTIC_STEPS,
-                      DriverConfig(ckpt_dir=d_d, ckpt_every=1, resume="always"))
+                      DriverConfig(ckpt_dir=d_d, ckpt_every=1, resume="always"), sums=True)
+        for29["resume"] = {"checksums": run_c["checksums"], "ckpt": state_checksums(
+            mgr_d.restore(like_b, step=ELASTIC_STEPS - 1, device=dev))}
         check(run_c["report"].resumed_step == 4 and run_c["report"].steps_done == 2,
               f"18(c): {run_c['report']}")
         check({k: run_c["launches"][k] for k in conv} == want_launches((plan0, 2)),
@@ -3796,6 +3871,9 @@ def elastic_phase(dev, smi: str, held_b1: set, held_bwd: set, fwd_row, bwd_rows)
               f"{got_err[worst] / bars[worst]:.2f} of its bar (of a bar from the untiled fp32 "
               f"trainer alone: {got_err[worst] / max(WGRAD_NORM_TOL, GRAD_FLOOR_FACTOR * e32['untiled'][worst]):.2f}); "
               f"a momentum lost at the replan {lost_over:.1f}x its bar")
+        for29["bar"] = {"names": names, "p0": [t.cpu() for t in p0],
+                        "upd64": [u.cpu() for u in upd64], "bars": bars,
+                        "err": got_err, "lost_over": lost_over}
         check(resumed_equal, "18(c): the resumed trajectory differs from the in-memory one")
         for n, e, bar in zip(names, got_err, bars):
             check(e <= bar, f"18(c) param update {n}: normwise err {e} over {bar}")
@@ -3960,7 +4038,7 @@ def elastic_phase(dev, smi: str, held_b1: set, held_bwd: set, fwd_row, bwd_rows)
     print(json.dumps({"elastic": out18}))
     print(json.dumps({"phase18_launches": out18["launches"]}))
     torch.cuda.empty_cache()
-    return launches18, lm_launches18, fwd18, dgrad18, wgrad18
+    return launches18, lm_launches18, fwd18, dgrad18, wgrad18, for29
 
 
 def decode_vs_forward(cfg, arch, params, tokens, decode_fault=None,
@@ -6286,7 +6364,159 @@ def capture_elastic_phase(dev, smi: str, root: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def dist_rank(group, build_dir, fault, plans) -> dict:
+def elastic_rank(group, root: str, plant: bool) -> dict:
+    """Phase 29(d), one rank: phase 18(b)-(c)'s elastic runs through
+    ``run_training`` on the ranks, as ``launch/train.py --dist`` drives
+    them: the padded cluster plan on this rank's block under
+    ``ELASTIC29_FAULTS`` (its Jetson drop replanned onto the survivors by
+    the launcher's ``make_replan``, a rank past them idle), then the
+    original plan resuming the survivors' last checkpoint to
+    ``ELASTIC_STEPS``; checkpoints under ``root`` (rank 0 alone writes).
+    Per run: the report, each step's param checksums (by the state's step
+    count) and event ms, the peak before and after the replan, the replan
+    ms, rank 0's restore (read and broadcast) ms, the B1-B3 launches, the
+    driver's collectives by role and the model's, and on rank 0 the final
+    params and the last checkpoint's checksums.  ``plant``: the other ranks
+    take part in rank 0's restore broadcast but keep their pre-failure
+    state."""
+    import copy
+
+    import torch
+
+    from repro_torch.analysis.collectives import driver_collectives, split_record
+    from repro_torch.ckpt.manager import CheckpointManager, map_with_path
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.fusion import plan_manifest
+    from repro_torch.core.grouping import parse_cluster_spec
+    from repro_torch.launch.mesh import make_dist_tile_mesh
+    from repro_torch.launch.train import make_batch_fn, make_replan
+    from repro_torch.models.yolo import make_yolo_tiled_arch
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime import driver as tdriver
+    from repro_torch.runtime.driver import DriverConfig, run_training
+    from repro_torch.runtime.faults import FaultInjector
+    from repro_torch.serve.exec_cache import kernel_launch_counts
+    from repro_torch.train.trainer import make_train_step
+
+    dev = group.device
+    cluster = parse_cluster_spec(_CLUSTER_KW["hw"], *GRID)
+    pcfg = ParallelConfig(grad_accum=TRAIN_ACCUM)
+    tcfg = TrainConfig(lr=TRAIN_LR, optimizer="sgd", warmup=0, steps=ELASTIC_STEPS, seed=SEED)
+    d = os.path.join(root, "planted" if plant else "ckpt")
+
+    def arch_of():
+        return make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=GRID[0], m=GRID[1],
+                                    groups="auto", ragged_exec="padded", backend="cuda",
+                                    mesh=make_dist_tile_mesh(*GRID, dev, group), **_CLUSTER_KW)
+
+    real_share, real_read = tdriver._share_state, CheckpointManager.restored_step
+
+    def drive(steps, cfg, faults=None, with_replan=False):
+        arch = arch_of()
+        init_state, step0 = make_train_step(arch, pcfg, tcfg)
+        make_batch = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch.target_shape(TRAIN_BATCH),
+                                   SEED, dev)
+        replan = make_replan(arch, cluster, "pi3-core", TRAIN_BATCH, pcfg, tcfg, group)
+        rec = {"checksums": {}, "ms": [], "ms_after_replan": [], "restore_read_ms": [],
+               "restore_broadcast_ms": [], "return_broadcast_ms": []}
+
+        def timed(fn, key):
+            def step(state, batch):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                state, m = fn(state, batch)
+                b.record()
+                b.synchronize()
+                rec[key].append(a.elapsed_time(b))
+                rec["checksums"][int(state.step)] = state_checksums(state.params)
+                rec["state"] = state
+                return state, m
+            return step
+
+        def replan_timed(ev):
+            torch.cuda.synchronize()
+            rec["peak_before_replan"] = torch.cuda.max_memory_allocated(dev)
+            t0 = time.perf_counter()
+            fn, man = replan(ev)
+            torch.cuda.synchronize()
+            rec["replan_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["active_after_replan"] = group.active
+            torch.cuda.reset_peak_memory_stats(dev)
+            return (None if fn is None else timed(fn, "ms_after_replan")), man
+
+        def share(g, state, role):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if plant and role == "restore" and g.rank != 0:
+                real_share(g, copy.deepcopy(state), role)
+                out = state
+            else:
+                out = real_share(g, state, role)
+            torch.cuda.synchronize()
+            rec[f"{role}_broadcast_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def read(self, like, device=None):
+            t0 = time.perf_counter()
+            got = real_read(self, like, device)
+            torch.cuda.synchronize()
+            rec["restore_read_ms"].append((time.perf_counter() - t0) * 1e3)
+            return got
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        group.take_record()
+        before = kernel_launch_counts()
+        tdriver._share_state, CheckpointManager.restored_step = share, read
+        try:
+            rep = run_training(init_state=init_state, train_step=timed(step0, "ms"),
+                               make_batch=make_batch, steps=steps, cfg=cfg, seed=SEED,
+                               faults=FaultInjector(faults) if faults else None,
+                               replan=replan_timed if with_replan else None,
+                               plan=plan_manifest(arch.plan, cluster), device=dev, group=group)
+        finally:
+            tdriver._share_state, CheckpointManager.restored_step = real_share, real_read
+        torch.cuda.synchronize()
+        launches = kernel_totals({k: v - before.get(k, 0)
+                                  for k, v in kernel_launch_counts().items()})
+        _, roles = split_record(group.take_record())
+        state = rec.pop("state")
+        leaves = [x.numel() * x.element_size() for x in tree_leaves(state.params)]
+        state_leaves = []
+        map_with_path(lambda _, x: state_leaves.append(x.numel() * x.element_size())
+                      if isinstance(x, torch.Tensor) else None, state)
+        rec.update(
+            report={"steps_done": rep.steps_done, "restarts": rep.restarts,
+                    "replans": rep.replans, "resumed_step": rep.resumed_step,
+                    "attempts": len(rep.step_times)},
+            launches=launches, roles=roles, leaves=leaves, state_leaves=state_leaves,
+            peak=torch.cuda.max_memory_allocated(dev),
+            params=[t.cpu() for t in tree_leaves(state.params)] if group.rank == 0 else None,
+            ckpt=state_checksums(CheckpointManager(d).restore(state, step=steps - 1, device=dev))
+            if group.rank == 0 else None)
+        return rec
+
+    out = {"drop": drive(5, DriverConfig(ckpt_dir=d, ckpt_every=ELASTIC29_CKPT_EVERY),
+                         ELASTIC29_FAULTS, with_replan=True),
+           "resume": drive(ELASTIC_STEPS, DriverConfig(ckpt_dir=d, ckpt_every=ELASTIC29_CKPT_EVERY,
+                                                       resume="always"))}
+    drop, back = out["drop"], out["resume"]
+    # the driver's collectives: an agreement a step attempted (the drop's
+    # and the failure's included, where the rank was active), the meetings,
+    # rank 0's decisions, the params' init and the restores' broadcasts
+    out["roles_model"] = {
+        "drop": driver_collectives(
+            agreements=drop["report"]["attempts"] + 1 + drop["report"]["restarts"], meetings=2,
+            decisions=1 + drop["report"]["restarts"],
+            shares={"init": (1, drop["leaves"]),
+                    "restore": (drop["report"]["restarts"], drop["state_leaves"])}),
+        "resume": driver_collectives(
+            agreements=back["report"]["attempts"], meetings=1, decisions=2,
+            shares={"init": (1, back["leaves"]), "restore": (1, back["state_leaves"])})}
+    return out
+
+
+def dist_rank(group, build_dir, fault, plans, elastic=None) -> dict:
     """Phase 29, one rank (``parallel/dist.py:run_ranks``): phase 5's plan,
     then each plan of ``plans`` (label -> ``make_yolo_tiled_arch`` kwargs),
     on this rank's block of the 2x2 grid, trained TRAIN_STEPS steps from
@@ -6302,7 +6532,8 @@ def dist_rank(group, build_dir, fault, plans) -> dict:
     one block short; every rank plans the same wrong hops, so their
     messages still pair.  A plan's "grid" names its tile grid (GRID
     otherwise); each run also keeps the rank grid and this rank's place in
-    it."""
+    it.  ``elastic`` ({"root": a directory, "plant": bool}): then 29(d)'s
+    runs (``elastic_rank``), and with "plant" their planted twin."""
     import hashlib
     from pathlib import Path
 
@@ -6401,11 +6632,18 @@ def dist_rank(group, build_dir, fault, plans) -> dict:
                 out["faults"][label] = drive(arch, steps=1)
             finally:
                 DistTileMesh.neighbour, tdist._hop_start = real, real_hop
+    if elastic is not None:
+        # 29(d): the elastic runs, after the plans, in the same processes
+        t0 = time.perf_counter()
+        out["elastic"] = elastic_rank(group, elastic["root"], False)
+        if elastic["plant"]:
+            out["elastic_planted"] = elastic_rank(group, elastic["root"], True)
+        out["elastic_s"] = time.perf_counter() - t0
     return out
 
 
 def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict, ragged14: dict,
-               pipe15: dict) -> tuple[dict, dict]:
+               pipe15: dict, elastic18: dict) -> tuple[dict, dict]:
     """Phase 29: phase 5's plan, then DIST_PLANS, over ``torch.distributed``
     ranks, one block of the tile grid a process (ROADMAP A.20.1, A.20.2's
     uniform plans, ragged partitions and pipeline tails).  The virtual
@@ -6435,10 +6673,20 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict, ragged
         the model the CPU tests hold to the reference's compiled step) and
         step ms (host-staged: not a result);
     (c) nccl at DIST_WORLD ranks, only where the machine has that many
-        cards, held as (b).
+        cards, held as (b);
+    (d) elastic training in (a)'s and (b)'s processes, after their plans
+        (``elastic_rank``; ``elastic18``: phase 18's drop and resume runs,
+        their checksums and its trajectory bars): at one nccl rank every
+        step's params and both last checkpoints bitwise phase 18's; on
+        DIST_WORLD gloo ranks the drop leaves rank 3 idle while ranks 0-2
+        train at 1x3, the 7-step update within phase 18(c)'s bars, every
+        active rank's params equal, the planted restore past the bars;
+        every rank's launches the code's count for its blocks, its
+        driver's collectives ``driver_collectives``; the ``{"elastic29":
+        ...}`` line.
 
     Returns the B1-B3 launches of the correct runs on every rank, in all
-    and by plan."""
+    and by plan (29(d)'s under "elastic")."""
     import gc
     import hashlib
     import shutil
@@ -6621,10 +6869,26 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict, ragged
             for label, run in r["runs"].items():
                 by_plan[label] = {k: v + run["launches"][k] for k, v in by_plan[label].items()}
 
+    # 29(d)'s plans: the padded cluster, the survivors' after the drop
+    from repro_torch.core.grouping import parse_cluster_spec
+    from repro_torch.launch.train import make_replan
+    from repro_torch.runtime.faults import ClusterChange
+
+    arch_d = arch_of(dict(_CLUSTER_KW, groups="auto", ragged_exec="padded"))
+    replan_d = make_replan(arch_d, parse_cluster_spec(_CLUSTER_KW["hw"], *GRID), "pi3-core",
+                           TRAIN_BATCH, pcfg, tcfg)
+    with contextlib.redirect_stdout(io.StringIO()):
+        replan_d(ClusterChange("drop", "jetson", 2))
+    plans_d = (arch_d.plan, replan_d.live["plan"])
+    elastic_root = tempfile.mkdtemp(prefix="chip_smoke_elastic29_")
+    del arch_d, replan_d
+
     # (a) nccl at W = the cards
     world_a = torch.cuda.device_count()
     t0 = time.perf_counter()
-    runs_a = run_ranks(dist_rank, world_a, "cuda", "nccl", args=(None, None, DIST_PLANS),
+    runs_a = run_ranks(dist_rank, world_a, "cuda", "nccl",
+                       args=(None, None, DIST_PLANS,
+                             {"root": os.path.join(elastic_root, "a"), "plant": False}),
                        timeout=900)
     a_s = time.perf_counter() - t0
     rows_a, models_a = held("a", runs_a)
@@ -6648,7 +6912,9 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict, ragged
             warm = _build.library_path(name)
             shutil.copy2(warm, Path(cold) / warm.name)
         runs_b = run_ranks(dist_rank, DIST_WORLD, "cuda", "gloo",
-                           args=(cold, "wrong_neighbour", DIST_PLANS), timeout=900)
+                           args=(cold, "wrong_neighbour", DIST_PLANS,
+                                 {"root": os.path.join(elastic_root, "b"), "plant": True}),
+                           timeout=900)
         # nvcc's output differs from build to build, so each rank may have
         # loaded its own: all must name one path, and the file left there
         # must be one rank's whole build (the rename is atomic)
@@ -6687,13 +6953,23 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict, ragged
                 "collectives_model": models_b, "seconds": b_s, "ranks": rows_b}
     count(runs_b)
 
+    # (d) elastic training on the ranks of (a) and (b)
+    by_plan["elastic"] = {k: 0 for k in kernels}
+    el = {"card": smi, "faults": ELASTIC29_FAULTS, "ckpt_every": ELASTIC29_CKPT_EVERY,
+          "a": elastic_held("a", runs_a, plans_d, elastic18, by_plan["elastic"], smi)}
+    el["b"] = elastic_held("b", runs_b, plans_d, elastic18, by_plan["elastic"], smi)
+    shutil.rmtree(elastic_root, ignore_errors=True)
+
     # (c) nccl at DIST_WORLD ranks, where there are that many cards
     if torch.cuda.device_count() >= DIST_WORLD:
-        runs_c = run_ranks(dist_rank, DIST_WORLD, "cuda", "nccl", args=(None, None, DIST_PLANS),
-                           timeout=900)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic29c_") as root_c:
+            runs_c = run_ranks(dist_rank, DIST_WORLD, "cuda", "nccl",
+                               args=(None, None, DIST_PLANS, {"root": root_c, "plant": False}),
+                               timeout=900)
         rows_c, _ = held("c", runs_c)
         out["c"] = {"world": DIST_WORLD, "backend": "nccl", "bars": to_bars("c", runs_c),
                     "ranks": rows_c}
+        el["c"] = elastic_held("c", runs_c, plans_d, elastic18, by_plan["elastic"], smi)
         count(runs_c)
     else:
         print(f"29(c) not run: {torch.cuda.device_count()} card(s), nccl needs {DIST_WORLD}")
@@ -6701,8 +6977,130 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict, ragged
     out["seconds"] = time.perf_counter() - t_phase
     launched = {k: sum(p[k] for p in by_plan.values()) for k in kernels}
     out["launches"], out["launches_by_plan"] = launched, by_plan
+    el["launches"] = by_plan["elastic"]
+    print(json.dumps({"elastic29": el}))
     print(json.dumps({"dist": out}))
     return launched, by_plan
+
+
+def elastic_held(cell: str, runs: list, plans_d: tuple, elastic18: dict, launched: dict,
+                 smi: str) -> dict:
+    """Phase 29(d)'s checks of one cell's ranks (``elastic_rank``'s runs):
+    the reports, the idle rank, the launches and the driver's collectives
+    of every rank; at one rank every step's params and both last
+    checkpoints bitwise phase 18's; on more, the 7-step update against
+    phase 18(c)'s bars and the planted restore past them.  Adds the
+    launches to ``launched``; -> the cell's summary."""
+    from repro_torch.parallel.dist import rank_grid, survivors
+
+    plan0, plan1 = plans_d
+    world = len(runs)
+    w1 = survivors(plan1.n, plan1.m, world)
+    ranks0 = rank_grid(plan0.n, plan0.m, world)
+    ranks1 = rank_grid(plan1.n, plan1.m, w1)
+    per_mb = TRAIN_BATCH // TRAIN_ACCUM
+
+    def want(rank, segs):
+        """The code's B1-B3 launches of ``rank`` over ``segs`` ((plan, rank
+        grid, steps) where the rank is active)."""
+        got = dict.fromkeys(("conv2d_tile", "conv2d_dgrad_tile", "conv2d_wgrad_tile"), 0)
+        for plan, rg, steps in segs:
+            if rank < rg[0] * rg[1] and steps:
+                counts, _ = launches_per_batch(plan, per_mb, (rg, divmod(rank, rg[1])))
+                for k, v in counts.items():
+                    got[k] += v * TRAIN_ACCUM * steps
+        return got
+
+    rows = []
+    for r in runs:
+        rank = r["rank"]
+        for label in ("elastic", "elastic_planted"):
+            if label not in r:
+                continue
+            drop, back = r[label]["drop"], r[label]["resume"]
+            rep = drop["report"]
+            active = rank < w1
+            # steps 0-1 on the cluster plan; after the drop 2 and, past the
+            # failed step 3's restore of step 1, 2-4 again on the survivors'
+            check(rep["replans"] == 1 and rep["restarts"] == (1 if active else 0)
+                  and rep["steps_done"] == (6 if active else 2),
+                  f"29({cell}) {label} rank {rank}: the drop run's report {rep}")
+            check(drop["active_after_replan"] == w1,
+                  f"29({cell}) rank {rank}: {drop['active_after_replan']} active after the drop, "
+                  f"not {w1}")
+            check(back["report"]["resumed_step"] == 4 and back["report"]["steps_done"] == 2,
+                  f"29({cell}) {label} rank {rank}: the resume's report {back['report']}")
+            if label == "elastic_planted":
+                continue        # its other ranks replay from their own, later state
+            check(sorted(drop["checksums"]) == ([1, 2, 3, 4, 5] if active else [1, 2]),
+                  f"29({cell}) rank {rank}: steps {sorted(drop['checksums'])}")
+            got = {k: drop["launches"].get(k, 0) + back["launches"].get(k, 0) for k in launched}
+            exp = want(rank, ((plan0, ranks0, 2), (plan1, ranks1, 4 if active else 0),
+                              (plan0, ranks0, 2)))
+            check(got == exp, f"29({cell}) rank {rank}: elastic launches {got} != the code's {exp}")
+            for k in launched:
+                launched[k] += got[k]
+            for run, key in ((drop, "drop"), (back, "resume")):
+                check(run["roles"] == r[label]["roles_model"][key],
+                      f"29({cell}) rank {rank} {key}: the driver's collectives {run['roles']} != "
+                      f"the model's {r[label]['roles_model'][key]}")
+            rows.append({"rank": rank, "active_after_drop": active,
+                         "peak_before_replan_bytes": drop["peak_before_replan"],
+                         "peak_after_replan_bytes": drop["peak"],
+                         "peak_resume_bytes": back["peak"], "restarts": rep["restarts"],
+                         "replans": rep["replans"], "replan_ms": drop["replan_ms"],
+                         "restore_read_ms": drop["restore_read_ms"] + back["restore_read_ms"],
+                         "restore_broadcast_ms": drop["restore_broadcast_ms"]
+                         + back["restore_broadcast_ms"],
+                         "first_step_after_replan_ms": (drop["ms_after_replan"] or [None])[0],
+                         "step_ms": drop["ms"], "step_ms_after_replan": drop["ms_after_replan"],
+                         "step_ms_resume": back["ms"], "launches": got,
+                         "collectives_by_role": {"drop": drop["roles"], "resume": back["roles"]}})
+    # every active rank holds rank 0's params after every step
+    for r in runs[1:]:
+        for key in ("drop", "resume"):
+            mine, zero = r["elastic"][key]["checksums"], runs[0]["elastic"][key]["checksums"]
+            check(all(same_checksums(v, zero[s]) for s, v in mine.items()),
+                  f"29({cell}) rank {r['rank']}'s {key} params differ from rank 0's")
+    out = {"world": world, "survivors": w1, "ranks": rows,
+           "seconds": [r["elastic_s"] for r in runs]}
+    e0 = runs[0]["elastic"]
+    if world == 1:
+        bitwise = {key: {s: same_checksums(v, elastic18[key]["checksums"][s])
+                         for s, v in e0[key]["checksums"].items()} for key in ("drop", "resume")}
+        ckpts = {key: same_checksums(e0[key]["ckpt"], elastic18[key]["ckpt"])
+                 for key in ("drop", "resume")}
+        print(f"29({cell}) elastic, one rank: params after every step bitwise phase 18's "
+              f"{bitwise}; last checkpoints {ckpts}")
+        check(all(all(v.values()) for v in bitwise.values()) and all(ckpts.values()),
+              f"29({cell}): one rank's elastic runs differ from phase 18's: {bitwise} {ckpts}")
+        out.update(bitwise_phase18_each_step=bitwise, bitwise_phase18_ckpt=ckpts)
+    else:
+        bar = elastic18["bar"]
+
+        def over(params):
+            errs = [float((a.double() - b.double() - u).abs().max() / u.abs().max())
+                    for a, b, u in zip(params, bar["p0"], bar["upd64"])]
+            worst = max(range(len(errs)), key=lambda i: errs[i] / bar["bars"][i])
+            return errs[worst] / bar["bars"][worst], bar["names"][worst], max(errs)
+
+        ratio, name, err = over(e0["resume"]["params"])
+        line = {"update_err_max": err, "nearest": name, "nearest_over_bar": ratio}
+        print(f"29({cell}) elastic, {world} ranks ({w1} after the drop): the {ELASTIC_STEPS}-step "
+              f"update against the untiled fp64 trainer: err max {err:.2e}, nearest its bar "
+              f"{name} at {ratio:.3f} of it (phase 18's: {max(bar['err']):.2e})")
+        check(ratio <= 1.0, f"29({cell}) elastic past phase 18(c)'s bar: {ratio} ({name})")
+        if "elastic_planted" in runs[0]:
+            p_ratio, p_name, _ = over(runs[0]["elastic_planted"]["resume"]["params"])
+            print(f"29({cell}) planted: a restore the other ranks skip {p_ratio:.1f}x its bar "
+                  f"({p_name})")
+            check(p_ratio > 1.0, f"29({cell}): a restore the other ranks skip passed the bar "
+                  f"({p_ratio})")
+            line["planted_restore_skipped_over_bar"] = p_ratio
+        out["trajectory"] = line
+    for row in rows:
+        print(json.dumps({f"elastic29{cell}_rank": dict(row, card=smi)}))
+    return out
 
 
 def dryrun_cell(run: LMRun, dev, depth=None, accum=None) -> tuple:
@@ -7645,8 +8043,10 @@ def main() -> int:
                                      grid=kw14[(name, "spec")][0], names=("spec", "padded"))
         for ex in execs:
             grid14, kw = kw14[(name, ex)]
+            # the update bars take image orders 1.. from phase 5's fp32
+            # trainers, as phases 12 and 13 do (the run's time)
             r = train_phase(dev, smi, kw, label=f"train_ragged_{name}_{ex}", plant_faults=False,
-                            grid=grid14)
+                            grid=grid14, orders_from=train5)
             check(r["launches_per_microbatch"] == RAGGED_LAUNCHES[name][ex],
                   f"{name} {ex}: trained with {r['launches_per_microbatch']} launches a microbatch")
             train14[f"{name}_{ex}"] = r
@@ -7853,8 +8253,8 @@ def main() -> int:
     lap("17")
 
     # -- 18. elastic training ------------------------------------------------------
-    launches18, lm18, fwd18, dgrad18, wgrad18 = elastic_phase(dev, smi, held_b1, held_bwd,
-                                                              fwd_row, bwd_rows)
+    launches18, lm18, fwd18, dgrad18, wgrad18, elastic18 = elastic_phase(
+        dev, smi, held_b1, held_bwd, fwd_row, bwd_rows)
     serve_err = max([serve_err] + [r["max_abs_err"] for r in fwd18])
     dgrad_err = max([dgrad_err] + [r["max_abs_err"] for r in dgrad18])
     wgrad_err = max([wgrad_err] + [r["max_abs_err"] for r in wgrad18])
@@ -7927,7 +8327,7 @@ def main() -> int:
     launches29, launches29_by_plan = dist_phase(
         dev, smi, train5, train13["train_hybrid"], edge16,
         {k: train14[k] for k in ("cluster_spec", "cluster_padded")},
-        {k: train15[k] for k in ("pipe2x2", "pure1x4")})
+        {k: train15[k] for k in ("pipe2x2", "pure1x4")}, elastic18)
     auto_launches = {k: v + launches29[k] for k, v in auto_launches.items()}
 
     lap("29")

@@ -18,14 +18,23 @@ collective a 2-tile axis, lo and hi strips together, where two ranks hold
 the axis), a ragged partition's two strips a round at the padded extents,
 the hybrid plans' gathers and their adjoints, a pipeline's entry gathers
 and its hand-offs, each payload leaf of a wire codec its own collective.
+
+``driver_collectives`` is what the elastic driver adds beside the steps on
+ranks (``runtime/driver.py``): one 4-byte agreement before each step a rank
+attempts, a meeting of the world at each replan and at the run's end, and
+the state's broadcasts (the params' init, a restore, a rank's return).  A
+record holds them under their own ``role`` (``dist.Collective``);
+``split_record`` keeps them apart from a step's collectives, which
+``plan_collectives`` models.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 from repro_torch.optim.compression import _auto_block, get_codec
+from repro_torch.parallel.dist import AGREE_BYTES, MEET_WORDS
 
 
 @dataclasses.dataclass
@@ -221,3 +230,45 @@ def _pipeline_collectives(plan, batch, ranks, coord, add, gathers) -> None:
                           if not o <= q + step < o + b)
             if leaving:
                 add("collective-permute", leaving * line, n_el, 1)
+
+
+def split_record(record) -> tuple[Counter, dict]:
+    """A rank's record -> (its steps' collectives, the driver's by role:
+    ``{role: [count, bytes]}``)."""
+    steps, roles = Counter(), {}
+    for c, times in record.items():
+        if c.role:
+            got = roles.setdefault(c.role, [0, 0])
+            got[0] += times
+            got[1] += times * c.nbytes
+        else:
+            steps[c] += times
+    return steps, roles
+
+
+def driver_collectives(*, agreements: int, meetings: int, decisions: int = 0,
+                       shares: dict | None = None) -> dict:
+    """``{role: [count, bytes]}`` the elastic driver records on a rank
+    beside its steps: ``agreements`` 4-byte all-reduces (one before each
+    step the rank attempts while active, whatever was agreed),
+    ``meetings`` all-reduces of ``MEET_WORDS`` int32 words (each replan, and
+    the run's end), ``decisions`` 4-byte broadcasts of rank 0's choice
+    (whether a checkpoint is resumed at the start, which step a restore
+    loaded), and ``shares``: ``{role: (times, leaf bytes)}``, one broadcast
+    a tensor leaf each time (``init``: the params; ``restore``, ``return``:
+    the state)."""
+    out = {}
+    if agreements:
+        out["agree"] = [agreements, AGREE_BYTES * agreements]
+    if meetings:
+        out["meeting"] = [meetings, 4 * MEET_WORDS * meetings]
+    for role, (times, leaves) in (shares or {}).items():
+        if times:
+            got = out.setdefault(role, [0, 0])
+            got[0] += times * len(leaves)
+            got[1] += times * sum(leaves)
+    if decisions:
+        got = out.setdefault("restore", [0, 0])
+        got[0] += decisions
+        got[1] += AGREE_BYTES * decisions
+    return out

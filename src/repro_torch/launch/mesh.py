@@ -23,7 +23,7 @@ shards as a tensor dimension of the axis's size (``core/sequence.py``).
 ``make_production_mesh`` and ``make_local_mesh`` are the reference's
 topologies: the 16 x 16 pod (x 2 pods), and the local devices as (1, n).
 
-``make_dist_tile_mesh`` spreads the tile grid over the ranks of a
+``make_dist_tile_mesh`` spreads the tile grid over the active ranks of a
 ``torch.distributed`` group (``parallel/dist.py``): each rank holds a
 block of it, ``(n/Rr, m/Rc, B, h, w, C)``, and the exchanges and sums cross
 ranks.  It is a ``TileMesh`` to its callers: ``split`` / ``split_batch``
@@ -255,14 +255,18 @@ def local_table(table, dim: int, mesh) -> tuple:
 
 def make_dist_tile_mesh(n: int, m: int, device: str | torch.device,
                         group: tdist.TileGroup) -> DistTileMesh:
-    """The n x m tile grid over ``group``'s ranks (``dist.rank_grid``),
-    this rank's block on ``device``, which must be the group's."""
+    """The n x m tile grid over ``group``'s active ranks (``dist.rank_grid``
+    of ``group.active``: the whole world unless a replan left some idle),
+    this rank's block on ``device``, which must be the group's.  An idle
+    rank holds no block and raises."""
     if n < 1 or m < 1:
         raise ValueError(f"tile grid must be positive; got {n}x{m}")
     dev = resolve_device(device)
     if dev.type != group.device.type or (dev.index is not None and dev != group.device):
         raise ValueError(f"mesh device {dev} is not the group's {group.device}")
-    ranks = tdist.rank_grid(n, m, group.world)
+    if not group.is_active:
+        raise ValueError(f"rank {group.rank} is idle: the grid runs on ranks 0-{group.active - 1}")
+    ranks = tdist.rank_grid(n, m, group.active)
     return DistTileMesh(n, m, group.device, group, ranks, divmod(group.rank, ranks[1]))
 
 

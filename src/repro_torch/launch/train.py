@@ -51,8 +51,15 @@ the overlap schedule (``--schedule overlap|auto``), a data-mode tail
 (``--crossover N|auto``), a wire codec (``--wire-codec``), a heterogeneous
 ``--cluster``'s ragged partition (either executor) and a pipeline tail
 (``--pipeline N|auto``), with ``--groups auto`` or explicit groups.
-Checkpoints and faults on ranks are ROADMAP A.20.2 (elastic), a captured
-step on ranks A.20.3, the LM on ranks A.20.5::
+Elastic training runs there too (``runtime/driver.py``'s loop on ranks):
+rank 0 alone writes and restores checkpoints and broadcasts what it loads,
+the ranks agree before each step on what their faults raised, and a drop
+or add replans onto the survivors, ranks 0 .. W'-1 where W' is the most
+ranks that split the new grid into equal blocks (``dist.survivors``: a
+2x2 grid that loses the Jetson runs 1x3 on ranks 0-2); the others idle
+until a replan brings them back or the run ends, and the replan line ends
+``dist=W' idle=[...]``.  A captured step on ranks is ROADMAP A.20.3, the
+LM on ranks A.20.5::
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
         --arch yolov2-tiled --grid 2 --input-hw 416 --depth 16 --groups 4 \
@@ -65,6 +72,10 @@ step on ranks A.20.3, the LM on ranks A.20.5::
         --arch yolov2-tiled --grid 2 --input-hw 416 --depth 16 --groups auto \
         --hw-profile jetson-nano-gpu --pipeline 2 --no-batch-norm --batch 8 \
         --grad-accum 2 --optimizer sgd --steps 3 --dist
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch yolov2-tiled --grid 2 --input-hw 416 --depth 16 --groups auto \
+        --cluster pi3x3+jetson --batch 8 --grad-accum 2 --optimizer sgd --steps 6 --dist \
+        --ckpt-dir /tmp/el --ckpt-every 1 --fault-schedule drop:jetson@2,fail@4,ckpt-crash@1
 
 Where the reference jits the step (the tiled step, the step after a
 replan, the LM step), the port captures it as a CUDA graph on the card
@@ -239,11 +250,6 @@ def _run_tiled(args) -> int:
         return _train_tiled(args, None)
     from repro_torch.parallel.dist import init_tile_group
 
-    refused = [f for f, on in (
-        ("--ckpt-dir", args.ckpt_dir), ("--fault-schedule", args.fault_schedule)) if on]
-    if refused:
-        raise ValueError(f"{' and '.join(refused)} under --dist: checkpoints, faults and "
-                         "replans on ranks are ROADMAP A.20.2 (elastic)")
     group = init_tile_group(args.device, args.dist_backend)
     quiet = contextlib.redirect_stdout(io.StringIO()) if group.rank else contextlib.nullcontext()
     try:
@@ -255,7 +261,8 @@ def _run_tiled(args) -> int:
 
 def _train_tiled(args, group) -> int:
     """The tiled run: on the virtual mesh (``group`` None) or on this
-    rank's block of the grid."""
+    rank's block of the grid; a rank a replan leaves idle returns at the
+    run's end, with the others."""
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.core.fusion import plan_manifest
     from repro_torch.core.grouping import parse_cluster_spec
@@ -312,11 +319,9 @@ def _train_tiled(args, group) -> int:
     init_state, train_step = make_train_step(arch, pcfg, tcfg)
     make_batch = make_batch_fn(args.batch, args.input_hw, arch.target_shape(args.batch),
                                args.seed, arch.mesh.device)
-    if group is None:
-        replan = make_replan(arch, cluster, args.hw_profile, args.batch, pcfg, tcfg)
-        step = jit_step(train_step, arch.mesh.device)
-    else:   # a collective captured in a CUDA graph is ROADMAP A.20.3
-        replan, step = None, train_step
+    replan = make_replan(arch, cluster, args.hw_profile, args.batch, pcfg, tcfg, group)
+    # a collective captured in a CUDA graph is ROADMAP A.20.3: eager on ranks
+    step = jit_step(train_step, arch.mesh.device) if group is None else train_step
     report = run_training(
         init_state=init_state,
         train_step=step,
@@ -328,12 +333,13 @@ def _train_tiled(args, group) -> int:
         replan=replan,
         plan=plan_manifest(arch.plan, cluster),
         device=arch.mesh.device,
+        group=group,
     )
-    _print_done(report, [step, *(replan.live["steps"] if replan else [])], arch.mesh.device)
+    _print_done(report, [step, *replan.live["steps"]], arch.mesh.device)
     return 0
 
 
-def make_replan(arch, cluster, hw_profile: str, batch: int, pcfg, tcfg):
+def make_replan(arch, cluster, hw_profile: str, batch: int, pcfg, tcfg, group=None):
     """The elastic replan callback of a tiled run: on a ``ClusterChange``
     drop or add the device on the live cluster (a homogeneous grid becomes
     ``hw_profile`` x n*m first), ``replan_stack`` the live plan onto it at
@@ -344,11 +350,19 @@ def make_replan(arch, cluster, hw_profile: str, batch: int, pcfg, tcfg):
     live cluster and plan, and the steps the replans built.  A drop's device is a profile name or, all digits, a
     flat row-major grid index; a replan whose data tail the microbatch does
     not divide over the new tile count is planned all-spatial instead (both
-    are ROADMAP C.7: the reference's launcher raises on either)."""
+    are ROADMAP C.7: the reference's launcher raises on either).
+
+    On ranks (``group``, a ``parallel/dist.py:TileGroup``; every launched
+    rank calls the callback alike) the new plan runs on the survivors:
+    ``group`` is regrouped onto ranks 0 .. W'-1 (``dist.survivors``), the
+    arch is built on ``make_dist_tile_mesh`` over them, its step stays
+    eager (ROADMAP A.20.3), the line ends ``dist=W' idle=[...]``, and an
+    idle rank gets ``(None, plan manifest)``."""
     from repro_torch.core.fusion import plan_manifest, replan_stack
     from repro_torch.core.grouping import add_device, drop_device, parse_cluster_spec
-    from repro_torch.launch.mesh import make_tile_mesh
+    from repro_torch.launch.mesh import make_dist_tile_mesh, make_tile_mesh
     from repro_torch.models.tiled_cnn import TiledCNNArch
+    from repro_torch.parallel import dist as tdist
     from repro_torch.train.trainer import make_train_step
 
     live = {"cluster": cluster, "plan": arch.plan, "steps": []}
@@ -368,17 +382,27 @@ def make_replan(arch, cluster, hw_profile: str, batch: int, pcfg, tcfg):
             # a data tail splits each microbatch over the survivors' tiles,
             # which this batch does not divide (ROADMAP C.7): stay spatial
             new_plan = replan_stack(plan, cl, batch=batch, crossover=None)
-        new_arch = TiledCNNArch(plan=new_plan,
-                                mesh=make_tile_mesh(new_plan.n, new_plan.m, arch.mesh.device),
-                                loss_local=arch.loss_local)
-        _, new_step = make_train_step(new_arch, pcfg, tcfg)
         live.update(cluster=cl, plan=new_plan)
+        dist_note = ""
+        if group is None:
+            mesh = make_tile_mesh(new_plan.n, new_plan.m, arch.mesh.device)
+        else:
+            active = tdist.survivors(new_plan.n, new_plan.m, group.world)
+            tdist.regroup(group, active, tdist.rank_grid(new_plan.n, new_plan.m, active))
+            dist_note = f" dist={active} idle={list(range(active, group.world))}"
+            mesh = (make_dist_tile_mesh(new_plan.n, new_plan.m, arch.mesh.device, group)
+                    if group.is_active else None)
         print(f"replan ({ev.kind}:{ev.device}): grid={new_plan.n}x{new_plan.m} "
               f"rows={new_plan.partition.row_bounds} cols={new_plan.partition.col_bounds} "
               f"crossover={new_plan.crossover} "
               f"modes={[(g.start, g.end, g.mode) for g in new_plan.groups]}"
-              + (f" stages={new_plan.stages}" if new_plan.stages else ""))
-        live["steps"].append(jit_step(new_step, arch.mesh.device))
+              + (f" stages={new_plan.stages}" if new_plan.stages else "") + dist_note)
+        if mesh is None:
+            return None, plan_manifest(new_plan, cl)
+        new_arch = TiledCNNArch(plan=new_plan, mesh=mesh, loss_local=arch.loss_local)
+        _, new_step = make_train_step(new_arch, pcfg, tcfg)
+        live["steps"].append(new_step if group is not None
+                             else jit_step(new_step, arch.mesh.device))
         return live["steps"][-1], plan_manifest(new_plan, cl)
 
     replan.live = live

@@ -51,6 +51,18 @@ keeps a long run's record the size of one step's.
 ``init_tile_group`` joins the group torchrun describes (``env://``);
 ``run_ranks`` spawns the ranks itself on one host with a ``file://`` store
 (no port to race for), for the tests and ``chip_smoke.py``.
+
+Elastic runs (``runtime/driver.py``): the collectives run over the *active*
+ranks, ranks 0 .. W'-1 of the launched world (``TileGroup.active``, its
+process group ``TileGroup.pg``).  A replan calls ``regroup`` on every
+launched rank with the survivors' count (``survivors``: the most ranks that
+split the new grid into equal blocks, the counterpart of the reference
+taking the first n'·m' devices); the other ranks idle at ``meet``, the
+meeting of the whole world that rank 0 (or the rank that saw the cluster
+change) calls at every replan and at the run's end.  Before each step the
+active ranks ``agree`` on what their faults raised.  Each is recorded
+under the reference's HLO name (``all-reduce``), with its ``role``
+(``Collective``).
 """
 from __future__ import annotations
 
@@ -78,28 +90,50 @@ TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 class Collective(NamedTuple):
     """One collective a rank issued: its kind (the reference's HLO name),
     the payload bytes as the reference's ``collective_stats`` counts them
-    (a permute's strip, a sum's result, a gather's result) and the group
-    size."""
+    (a permute's strip, a sum's result, a gather's result), the group
+    size, and its role: "" within a step; the elastic driver's "agree"
+    (before a step), "meeting" (of the world), and the state broadcasts'
+    "init" (the params), "restore" and "return" (a rank back from idle)."""
 
     kind: str
     nbytes: int
     group: int
+    role: str = ""
+
+
+MEET_WORDS = 64                 # int32 words of a meeting's message
+AGREE_BYTES = 4                 # the agreement's one int32
 
 
 @dataclasses.dataclass(eq=False)
 class TileGroup:
-    """A rank's membership of the process group: its rank, the world size,
-    the backend, the device its tensors live on, and the record of every
-    collective it issued since the last ``take_record`` (how many times
-    each distinct one ran)."""
+    """A rank's membership of the process group: its rank, the size of the
+    launched world, the backend, the device its tensors live on, and the
+    record of every collective it issued since the last ``take_record``
+    (how many times each distinct one ran).  The collectives run over the
+    ``active`` ranks 0 .. active-1 (the whole world unless a replan left
+    some idle: ``regroup``) on their process group ``pg`` (None: the
+    world's)."""
 
     rank: int
     world: int
     backend: str
     device: torch.device
     record: Counter = dataclasses.field(default_factory=Counter)
-    # the row and column subgroups of each rank grid, made on first use
+    # the active ranks' process groups and the row and column subgroups of
+    # each rank grid: made on first use while the whole world is active,
+    # at ``regroup`` after a replan
     subgroups: dict = dataclasses.field(default_factory=dict)
+    active: int | None = None
+    pg: Any = None
+
+    def __post_init__(self):
+        if self.active is None:
+            self.active = self.world
+
+    @property
+    def is_active(self) -> bool:
+        return self.rank < self.active
 
     @property
     def staged(self) -> bool:
@@ -108,7 +142,8 @@ class TileGroup:
 
     def take_record(self) -> Counter:
         """The collectives recorded so far, and an empty record after."""
-        out, self.record = self.record, Counter()
+        out = Counter(self.record)
+        self.record.clear()
         return out
 
 
@@ -274,14 +309,17 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return h.copy_(t)
 
 
-def _all_reduce_(group: TileGroup, t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the ranks, in place."""
-    group.record[Collective("all-reduce", _nbytes(t), group.world)] += 1
+def _all_reduce_(group: TileGroup, t: torch.Tensor, op=dist.ReduceOp.SUM, role: str = "",
+                 world: bool = False) -> torch.Tensor:
+    """Sum (or ``op``) ``t`` over the active ranks, in place; over the whole
+    launched world with ``world``."""
+    size, pg = (group.world, None) if world else (group.active, group.pg)
+    group.record[Collective("all-reduce", _nbytes(t), size, role)] += 1
     if group.staged:
         h = _host(t)
-        dist.all_reduce(h)
+        dist.all_reduce(h, op, group=pg)
         return t.copy_(h)
-    dist.all_reduce(t)
+    dist.all_reduce(t, op, group=pg)
     return t
 
 
@@ -339,24 +377,26 @@ def replicated(t: torch.Tensor, group: TileGroup) -> torch.Tensor:
     return _Replicated.apply(t, group)
 
 
-def broadcast_(group: TileGroup, tensors) -> None:
-    """Make every rank's tensors equal rank 0's, in place."""
+def broadcast_(group: TileGroup, tensors, role: str = "init") -> None:
+    """Make every active rank's tensors equal rank 0's, in place; each is
+    recorded as a ``collective-broadcast`` (XLA's name) of ``role``."""
     for t in tensors:
+        group.record[Collective("collective-broadcast", _nbytes(t), group.active, role)] += 1
         if group.staged:
             h = _host(t)
-            dist.broadcast(h, 0)
+            dist.broadcast(h, 0, group=group.pg)
             t.copy_(h)
         else:
-            dist.broadcast(t, 0)
+            dist.broadcast(t, 0, group=group.pg)
 
 
 def all_gather_blocks(group: TileGroup, block: torch.Tensor) -> list[torch.Tensor]:
-    """Every rank's ``block`` (equal shapes), in rank order.  Not
+    """Every active rank's ``block`` (equal shapes), in rank order.  Not
     differentiated (outputs)."""
-    group.record[Collective("all-gather", _nbytes(block) * group.world, group.world)] += 1
+    group.record[Collective("all-gather", _nbytes(block) * group.active, group.active)] += 1
     src = _host(block) if group.staged else block.contiguous()
-    parts = [torch.empty_like(src) for _ in range(group.world)]
-    dist.all_gather(parts, src)
+    parts = [torch.empty_like(src) for _ in range(group.active)]
+    dist.all_gather(parts, src, group=group.pg)
     return [p.to(group.device) for p in parts] if group.staged else parts
 
 
@@ -367,13 +407,17 @@ def _post(group: TileGroup, sends: list, recvs: list, tag: int = 0) -> tuple[lis
     and receives into pinned host memory.  Exchanges posted together
     between the same ranks pass distinct ``tag``s."""
     ops, bufs = [], []
+    # the active ranks are a prefix of the world, so a peer's rank in their
+    # group is its global rank
     for t, peer in sends:
+        assert peer < group.active, f"peer {peer} is not an active rank (of {group.active})"
         s = _host(t) if group.staged else t.contiguous()
-        ops.append(dist.P2POp(dist.isend, s, peer, tag=tag))
+        ops.append(dist.P2POp(dist.isend, s, peer, group=group.pg, tag=tag))
     dev = torch.device("cpu") if group.staged else group.device
     for shape, dtype, peer in recvs:
+        assert peer < group.active, f"peer {peer} is not an active rank (of {group.active})"
         buf = torch.empty(shape, dtype=dtype, device=dev, pin_memory=group.staged)
-        ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
+        ops.append(dist.P2POp(dist.irecv, buf, peer, group=group.pg, tag=tag))
         bufs.append(buf)
     return (dist.batch_isend_irecv(ops) if ops else []), bufs
 
@@ -575,21 +619,36 @@ def axis_ranks(mesh, dim: int) -> list[int]:
     return [pr * rc + c for c in range(rc)]
 
 
+def _make_lines(group: TileGroup, ranks: tuple[int, int]) -> None:
+    """Every line of every axis of the rank grid ``ranks``, in one order
+    (``new_group`` numbers its groups by the order the world makes them,
+    so every launched rank makes each, members or not)."""
+    if ranks in group.subgroups:
+        return
+    rr, rc = ranks
+    lines = {0: {c: [r * rc + c for r in range(rr)] for c in range(rc)},
+             1: {r: [r * rc + c for c in range(rc)] for r in range(rr)}}
+    made = {}
+    for d in (0, 1):
+        for key, members in lines[d].items():
+            if len(members) > 1:
+                made[(d, key)] = dist.new_group(members)
+    group.subgroups[ranks] = made
+
+
 def _axis_group(mesh, dim: int):
-    """This rank's subgroup along rank axis ``dim``.  Every line of every
-    axis of the rank grid is made the first time any is asked for, in one
-    order on every rank (``new_group`` is collective over the world)."""
+    """This rank's subgroup along rank axis ``dim``.  While the whole world
+    is active, every line of every axis of the rank grid is made the first
+    time any is asked for, in one order on every rank (``new_group`` is
+    collective over the world).  After a replan idle ranks run no step, so
+    such a line would hang: ``regroup`` makes the new grid's lines on every
+    launched rank instead, and one missing here raises."""
     group = mesh.group
     if mesh.ranks not in group.subgroups:
-        rr, rc = mesh.ranks
-        lines = {0: {c: [r * rc + c for r in range(rr)] for c in range(rc)},
-                 1: {r: [r * rc + c for c in range(rc)] for r in range(rr)}}
-        made = {}
-        for d in (0, 1):
-            for key, ranks in lines[d].items():
-                if len(ranks) > 1:
-                    made[(d, key)] = dist.new_group(ranks)
-        group.subgroups[mesh.ranks] = made
+        if group.active < group.world:
+            raise RuntimeError(f"the lines of rank grid {mesh.ranks} were not made at the regroup "
+                               f"to {group.active} of {group.world} ranks")
+        _make_lines(group, mesh.ranks)
     return group.subgroups[mesh.ranks][(dim, mesh.coord[1 - dim])]
 
 
@@ -670,6 +729,72 @@ def all_gather_axis(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     """The tiled ``all_gather`` of the blocks ``t`` along rank axis ``dim``
     (``gather_axis``), differentiable: its backward is the reduce-scatter."""
     return _AxisGather.apply(t, dim, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Elastic membership: the survivors, the regroup, the agreement, the meeting
+# ---------------------------------------------------------------------------
+
+
+def survivors(n: int, m: int, world: int) -> int:
+    """The ranks a replan onto an n x m grid runs on: the most, at most
+    ``world``, for which ``rank_grid`` splits the grid into equal blocks.
+    They are ranks 0 .. W'-1, as the reference runs the new plan on the
+    first n'·m' devices; the others idle."""
+    for w in range(world, 0, -1):
+        try:
+            rank_grid(n, m, w)
+        except ValueError:
+            continue
+        return w
+    raise AssertionError("one rank splits every grid")
+
+
+def regroup(group: TileGroup, active: int, ranks: tuple[int, int] | None = None) -> None:
+    """Make ranks 0 .. ``active``-1 the ranks the collectives run over, laid
+    out as the rank grid ``ranks``.  Every launched rank calls it with the
+    same arguments, idle ones included: it makes their process group and
+    every line of the grid now, in one order on every rank, and keeps what
+    it made for a later regroup to the same count or grid (``new_group``
+    numbers its groups by the order the world makes them, and an idle rank
+    runs no step that could make one later).  A subgroup takes the device
+    ``_init`` bound the world's nccl group to."""
+    if not 1 <= active <= group.world:
+        raise ValueError(f"{active} active ranks of a world of {group.world}")
+    if ranks is not None and ranks[0] * ranks[1] != active:
+        raise ValueError(f"rank grid {ranks} is not {active} ranks")
+    pg = None
+    if active < group.world:
+        key = ("active", active)
+        if key not in group.subgroups:
+            group.subgroups[key] = dist.new_group(list(range(active)))
+        pg = group.subgroups[key]
+    group.active, group.pg = active, pg
+    if ranks is not None:
+        _make_lines(group, ranks)
+
+
+def agree(group: TileGroup, code: int) -> int:
+    """The largest ``code`` (a non-negative int32) any active rank passed:
+    one 4-byte all-reduce (MAX) over the active ranks, recorded as
+    ``all-reduce`` of role ``agree``."""
+    t = torch.tensor([code], dtype=torch.int32, device=group.device)
+    return int(_all_reduce_(group, t, dist.ReduceOp.MAX, role="agree").item())
+
+
+def meet(group: TileGroup, message: list[int] | None) -> list[int]:
+    """The meeting of the whole launched world, idle ranks included: one
+    all-reduce (MAX) of ``MEET_WORDS`` int32 words over the world's group,
+    recorded as ``all-reduce`` of role ``meeting``.  The one rank that
+    speaks passes its ``message`` (non-negative words), every other None;
+    -> the message, on every rank.  An idle rank waits here within the
+    group's timeout."""
+    t = torch.zeros(MEET_WORDS, dtype=torch.int32, device=group.device)
+    if message is not None:
+        if len(message) > MEET_WORDS or min(message, default=0) < 0:
+            raise ValueError(f"a meeting's message is at most {MEET_WORDS} non-negative words")
+        t[:len(message)] = torch.tensor(message, dtype=torch.int32)
+    return _all_reduce_(group, t, dist.ReduceOp.MAX, role="meeting", world=True).tolist()
 
 
 # ---------------------------------------------------------------------------

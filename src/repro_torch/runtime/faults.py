@@ -157,12 +157,23 @@ class FaultInjector:
         self.fired: list[Fault] = []
         self._sleep = sleep
         self._mgr = None
+        self._writer = True
 
-    def bind(self, mgr) -> "FaultInjector":
+    def bind(self, mgr, *, writer: bool = True) -> "FaultInjector":
         """Attach the CheckpointManager that ckpt-crash/corrupt faults act
-        on (the driver calls this before the step loop)."""
-        self._mgr = mgr
+        on (the driver calls this before the step loop).  A rank that
+        writes no checkpoint (``writer=False``: every rank but 0 of a run
+        on ranks) binds None, and its ckpt-crash/corrupt faults are marked
+        fired without acting: they act on rank 0's writer and files."""
+        self._mgr, self._writer = mgr, writer
         return self
+
+    def skip(self, fired: int) -> None:
+        """Mark the schedule's first ``fired`` faults fired without acting
+        on them: a rank that idled while the active ranks replayed them
+        comes back level with them (the faults fire in schedule order, so
+        the fired ones are always a prefix)."""
+        self.fired = list(self.faults[:fired])
 
     @property
     def pending(self) -> list[Fault]:
@@ -181,6 +192,8 @@ class FaultInjector:
                 self._sleep(float(f.arg))
             elif f.kind == "fail":
                 raise FaultError(f"injected step failure at step {step}")
+            elif f.kind in ("ckpt-crash", "corrupt") and not self._writer:
+                continue
             elif f.kind == "ckpt-crash":
                 if self._mgr is None:
                     raise RuntimeError("ckpt-crash fault needs bind(mgr)")

@@ -21,8 +21,12 @@ one spawn of ranks per scenario (``run_ranks``):
   collective-permute bytes per device of the same compiled step times the
   microbatch loop's trip count, and ``analysis/collectives.py``'s model;
 - the launcher under torchrun with 2 gloo ranks gives the plain
-  launcher's loss; every refusal of the slice names its ROADMAP item.
+  launcher's loss; ``--ckpt-dir`` and ``--fault-schedule`` run under
+  ``--dist``; every refusal of the slice names its ROADMAP item.
 """
+import argparse
+import contextlib
+import io
 import os
 import subprocess
 import sys
@@ -396,9 +400,55 @@ def test_launcher_on_two_ranks_gives_the_plain_launchers_loss(capsys):
     assert done(run.stdout) == done(plain)
 
 
+def _launcher_rank(group, argv_runs):
+    """One rank of the launcher's tiled run (``_train_tiled``, as
+    ``_run_tiled`` calls it after torchrun's group is joined) for each
+    argv in turn; -> the output of each."""
+    from repro_torch.launch.train import _add_args, _train_tiled
+
+    torch.set_num_threads(1)
+    outs = []
+    for argv in argv_runs:
+        ap = argparse.ArgumentParser()
+        _add_args(ap)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert _train_tiled(ap.parse_args(argv), group) == 0
+        outs.append(buf.getvalue())
+    return outs
+
+
+ELASTIC_FLAGS = ("ckpt-dir", "fault-schedule")
+
+
+@pytest.fixture(scope="module")
+def elastic_flag_runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("flags")
+    base = ["--arch", "yolov2-tiled", "--device", "cpu", "--input-hw", "32", "--depth", "4",
+            "--steps", "2", "--grid", "2", "--dist"]
+    argvs = [base + ["--ckpt-dir", str(d / "ckpt"), "--ckpt-every", "1"],
+             base + ["--fault-schedule", "fail@1"]]
+    outs = run_ranks(_launcher_rank, 2, "cpu", args=(argvs,), timeout=120)
+    return dict(zip(ELASTIC_FLAGS, zip(*outs))), d
+
+
+@pytest.mark.parametrize("flag", ELASTIC_FLAGS)
+def test_launcher_elastic_flags_under_dist(flag, elastic_flag_runs):
+    """``--ckpt-dir`` and ``--fault-schedule`` under ``--dist``, once
+    refused as ROADMAP A.20.2, run on 2 gloo ranks: rank 0 writes each
+    step's checkpoint, and a failed step restarts both ranks (with no
+    checkpoint, from step 0)."""
+    runs, d = elastic_flag_runs
+    out0, _ = runs[flag]
+    assert "dist=2 ranks=2x1 backend=gloo" in out0
+    if flag == "ckpt-dir":
+        assert "done: steps=2 restarts=0 replans=0" in out0
+        assert sorted(os.listdir(d / "ckpt")) == ["step_00000000", "step_00000001"]
+    else:
+        assert "done: steps=2 restarts=1 replans=0" in out0
+
+
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--dist", "--ckpt-dir", "ckpt"], ValueError, "A.20.2"),
-    (["--dist", "--fault-schedule", "fail@1"], ValueError, "A.20.2"),
     (["--dist"], RuntimeError, "no torchrun environment"),
     (["--dist", "--arch", "qwen2-7b"], ValueError, "A.20.5"),
 ])

@@ -30,7 +30,7 @@ intra-op thread each, one spawn of ranks per world size (``run_ranks``):
 - on a rank the overlap lead's row strips are still on the wire when its
   interior conv is issued;
 - the launcher under ``--dist`` takes a pipeline tail and a heterogeneous
-  cluster and refuses checkpoints, naming ROADMAP A.20.2 (elastic).
+  cluster, with checkpoints and faults too (ROADMAP A.20.2, elastic).
 
 The wire codecs on ranks: ``tests/test_torch_dist_codecs.py``.
 """
@@ -486,10 +486,11 @@ def test_overlap_rows_are_on_the_wire_during_the_interior_conv(rank_runs):
 def test_launcher_refusals_under_dist_name_their_item(flags, match, monkeypatch):
     """A pipeline tail and a heterogeneous cluster, once refused under
     ``--dist``, now pass the launcher's checks and go on to join the group
-    torchrun describes (here there is none); with a checkpoint directory
-    they meet the refusal that remains, ROADMAP A.20.2 (elastic).  Their
-    runs under torchrun: ``tests/test_torch_dist_ragged.py``,
-    ``tests/test_torch_dist_pipeline.py``; ``match`` names what each case
+    torchrun describes (here there is none); so do they with a checkpoint
+    directory and a fault schedule, once refused as ROADMAP A.20.2
+    (elastic).  Their runs under torchrun:
+    ``tests/test_torch_dist_ragged.py``, ``tests/test_torch_dist_pipeline.py``,
+    ``tests/test_torch_dist_elastic.py``; ``match`` names what each case
     was refused as."""
     from repro_torch.launch.train import main
 
@@ -500,8 +501,8 @@ def test_launcher_refusals_under_dist_name_their_item(flags, match, monkeypatch)
     assert match in ("pipeline tails", "ragged partitions")
     with pytest.raises(RuntimeError, match="no torchrun environment"):
         main(base + flags)
-    with pytest.raises(ValueError, match=r"A\.20\.2 \(elastic\)"):
-        main(base + flags + ["--ckpt-dir", "ckpt"])
+    with pytest.raises(RuntimeError, match="no torchrun environment"):
+        main(base + flags + ["--ckpt-dir", "ckpt", "--fault-schedule", "drop:0@1"])
 
 
 def test_plans_on_ranks_are_uniform_plans_of_any_schedule_crossover_and_codec():

@@ -19,7 +19,11 @@
   on 2x2, the Jetson lost at step 4, the survivors' 1x3 plan, its
   checkpoint resumed on the 2x2 cluster; the final params within 1e-5 of
   the uninterrupted untiled run;
-- the launcher's elastic flags at a small size.
+- the launcher's elastic flags at a small size;
+- the same JAX-written checkpoint resumed on 2 gloo ranks
+  (``parallel/dist.py:run_ranks``; rank 0 restores and broadcasts), its
+  params within 1e-5 of JAX's (``tests/test_torch_dist_elastic.py`` holds
+  the ranks' other elastic paths against the virtual mesh).
 """
 import dataclasses
 import json
@@ -672,3 +676,53 @@ def test_jax_checkpoint_resumes_in_the_port(jax_resumed, tmp_path):
     errs = {p: float(np.max(np.abs(x.numpy() - want[p])))
             for p, x in got.items() if p.startswith("params/")}
     assert len(errs) == 6 and max(errs.values()) <= PARAM_ATOL, errs
+
+
+def _resume_on_ranks(group, ckpt_dir):
+    """One of 2 ranks: the 2x2 plan on this rank's block resumes the
+    checkpoint in ``ckpt_dir`` to step 4; -> its params after each step."""
+    from repro_torch.launch.mesh import make_dist_tile_mesh
+    from repro_torch.launch.train import make_batch_fn
+
+    torch.set_num_threads(1)
+    arch = make_yolo_tiled_arch((HW, HW), 4, 2, 2, backend="torch", device="cpu",
+                                mesh=make_dist_tile_mesh(2, 2, "cpu", group))
+    init_state, step = make_train_step(arch, ParallelConfig(grad_accum=2),
+                                       TrainConfig(**PARITY_TCFG))
+    finals = []
+
+    def keep(state, batch):
+        state, m = step(state, batch)
+        got = {}
+        map_with_path(lambda p, x: got.__setitem__(
+            p, x.numpy().copy() if isinstance(x, torch.Tensor) else x), state)
+        finals.append(got)
+        return state, m
+
+    rep = run_training(init_state=init_state, train_step=keep,
+                       make_batch=make_batch_fn(BATCH, HW, arch.target_shape(BATCH), SEED, "cpu"),
+                       steps=5, cfg=DriverConfig(ckpt_dir=ckpt_dir, resume="always"), group=group)
+    return rep.resumed_step, rep.steps_done, finals
+
+
+def test_jax_checkpoint_resumes_on_two_ranks(jax_resumed, tmp_path):
+    """The strong parity test on ranks: JAX's step-2 checkpoint of its 2x2
+    plan resumes on 2 gloo ranks (blocks of two tiles; rank 0 restores it
+    and broadcasts every leaf) to step 4, within 1e-5 of JAX's params, both
+    ranks alike."""
+    from repro_torch.parallel.dist import run_ranks
+
+    proc, d = jax_resumed
+    out, _ = proc.communicate(timeout=600)
+    assert proc.returncode == 0, out
+    shutil.copytree(d / "ckpt", tmp_path / "ckpt")
+    ranks = run_ranks(_resume_on_ranks, 2, "cpu", args=(str(tmp_path / "ckpt"),), timeout=120)
+    want = np.load(d / "final.npz")
+    for resumed, done, finals in ranks:
+        assert (resumed, done) == (2, 2)
+        got = finals[-1]
+        assert got["step"] == int(want["step"]) == 5 and got["opt/t"] == int(want["opt/t"]) == 5
+        errs = {p: float(np.max(np.abs(x - want[p]))) for p, x in got.items()
+                if p.startswith("params/")}
+        assert len(errs) == 6 and max(errs.values()) <= PARAM_ATOL, errs
+    assert all(np.array_equal(ranks[0][2][-1][p], ranks[1][2][-1][p]) for p in ranks[0][2][-1])
