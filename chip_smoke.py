@@ -201,7 +201,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ladder: the engine's captured replay
    bitwise equal to the uncaptured forward on a seeded input, its graph's
    B1 launches equal to the code's count by tile instance, pool bytes, and
-   the forward on the host clock eager against replayed; (b) phase 4's
+   the forward on the host clock eager against replayed; the sync and
+   hybrid+overlap engines then serve phase 4's requests under one
+   ``ManualClock`` (``SERVE29_CLOCK``, ``clock_drive``): the batch log, the
+   responses' hashes and B1's graph launches x replays phase 29(f) holds
+   its rank engines to; (b) phase 4's
    plan and 32 requests served once with ``capture=False`` and once
    captured, under phase 4's step bound: p50, p99, img/s, the bucket-1 and
    bucket-8 dispatch on the host clock (in turns), the staging copies
@@ -279,8 +283,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per microbatch on ``wgmma_bf16_dh64`` / ``_dh128``, B6 only for the
    RMSNorm config (a LayerNorm runs as plain torch; phases 7's, 19's and
    20's B6 counts follow the norm kind), with the modeled state of one
-   layer more beside the card (only StableLM's step profiled:
-   ``UNPROFILED_TRAIN``); (c) each served at full width and full
+   layer more beside the card (no step profiled: ``UNPROFILED_TRAIN``);
+   (c) each served at full width and full
    depth with ``CONFIG_SERVE_TRAFFIC`` (``lm_serve_drive``, Command-R 35B's
    60.6 GB included, after ``gc.collect()`` and ``empty_cache()``), init's
    peak held within ``INIT_PEAK_SLACK`` of the params plus the largest fp32
@@ -426,7 +430,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    supported, FLOPs and argument bytes a device, ``hbm_ok``, the dominant
    term (``{"dryrun": {"phase_cells": ...}}``; the whole 40-cell grid
    traces for longer than this phase may take).  Launches nothing.
-29. one tile per process (``dist_phase``; ROADMAP A.20.1, A.20.2):
+29. one tile per process (``dist_phase``; ROADMAP A.20.1-A.20.4):
    phase 5's plan, then ``DIST_PLANS`` - phase 13's
    tpu-v5e-chip plan (overlap, crossover 14), phase 16's edge_auto int8
    plan, phase 14's cluster (spec) and its crossover-14 twin (padded),
@@ -463,9 +467,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    every rank's launches the code's count for its blocks and its driver's
    collectives ``driver_collectives``; one ``{"elastic29": ...}`` line
    (replan ms, restore read and broadcast ms, the first step after the
-   replan, each rank's peak before and after, restarts and replans).  The
-   ranks' launches join the ``{"kernels": ...}`` line, B1-B3's also by
-   plan ("elastic": 29(d)'s).
+   replan, each rank's peak before and after, restarts and replans); (e)
+   the step captured on nccl ranks (ROADMAP A.20.3; ``capture_rank``,
+   ``capture_held``) in (a)'s and (c)'s processes: 27(a)'s cell (phase 5's
+   plan, int8 EF, ``CAPTURE_CNN_STEPS``) eager, captured with the
+   collectives inside the graph and captured with 27(a)'s planted stale
+   counter, and ``launch/train.py``'s ``_train_tiled`` under 27(b)'s
+   faults (a replan captured anew on the regrouped rank, a failed step
+   restored into the graph's state) - at one rank every step bitwise the
+   rank's eager run and 27(a)'s captured virtual run, the launcher's last
+   checkpoint 27(b)'s byte for byte, the stale counter caught, the graph's
+   B1-B3 launches (24 / 22 / 24 a step) x replays, the captured run's
+   record (replays included) the eager run's and its exchanges
+   ``plan_collectives``'; on 4 cards (c) each plan's step captured,
+   bitwise its eager run on the ranks; one ``capture29<cell>_rank`` line a
+   rank and the ``{"capture29": ...}`` line (replay and eager ms, pool);
+   (f) the serve engine on the ranks of (a), (b) and (c) (ROADMAP A.20.4;
+   ``serve_rank``, ``serve_held``): phase 17's ``SERVE29_PLANS`` (sync,
+   hybrid+overlap) served phase 4's requests under ``SERVE29_CLOCK``, rank
+   0 owning the queue and broadcasting each dispatch, the others
+   following - at one nccl rank every bucket a graph and the responses
+   phase 17's clock drive bit for bit, B1's graph launches x replays
+   phase 17's; on 4 gloo ranks the eager forward within ``TOL_SERVE`` of
+   the untiled reference and a follower serving a stale batch past it;
+   everywhere the batch log phase 17's and every rank's collectives of the
+   drive ``plan_collectives(forward_only=True)`` a dispatch plus
+   ``dispatch_collectives``; one ``serve29<cell>_rank`` line a rank and
+   plan and the ``{"serve29": ...}`` line.  The ranks' launches join the
+   ``{"kernels": ...}`` line, B1-B3's also by plan ("elastic": 29(d)'s,
+   "capture29": (e)'s, "serve29": (f)'s).
 
 The last line is the contract's ``{"ok": true, "device": {...}}``; the
 ``{"kernels": [...]}`` line and the serve and train metrics come before it.
@@ -876,6 +906,15 @@ DIST_PLANS = {"hybrid_tpu": HYBRID_KW, "edge_int8": dict(WIRE_PLANS_416["edge_au
                                                ragged_exec="padded"),
               "pipe2x2": dict(pipeline_kw(2, 2), batch_norm=False),
               "pure1x4": dict(pipeline_kw(2, 2), batch_norm=False, grid=(1, 4))}
+# ... and then 29(e), the step captured on nccl ranks (ROADMAP A.20.3): 27(a)'s
+# cell and 27(b)'s launcher on the rank; 29(f), the serve engine on ranks
+# (A.20.4): phase 17's SERVE29_PLANS (hybrid_overlap with the crossover's
+# gathers inside its graphs) served phase 4's requests under one ManualClock,
+# SERVE29_CLOCK = (tick s, a dispatch's service s, step bound s, latency
+# budget s), chosen so that the sync ladder dispatches all four buckets;
+# phase 17 serves its virtual engines under the same clock.
+SERVE29_PLANS = ("sync", "hybrid_overlap")
+SERVE29_CLOCK = (0.02, 0.01, 0.01, 0.035)
 
 # Phase 19: LM serving (``lm_serve_phase``).  The slot engine at full width
 # and full depth, bf16, seed-0 params: LM_SERVE_REQUESTS prompts of
@@ -915,10 +954,12 @@ INIT_PEAK_SLACK = 1.05
 DENSE_ARCHS = ("stablelm-1.6b", "codeqwen1.5-7b", "command-r-35b")
 DENSE_TRAIN_DEPTH = {"stablelm-1.6b": 24, "codeqwen1.5-7b": 17, "command-r-35b": 3}
 # The training cells whose step is not profiled, for the run's time (PR 36:
-# processing a profiled step's trace cost a slow host 18.2 and 3.4 s here;
-# their step's breakdown is StableLM's and Qwen2-7B's kind, and their
-# kernels' launches are still held to the code's count)
-UNPROFILED_TRAIN = ("dense_train_codeqwen1.5-7b", "dense_train_command-r-35b")
+# processing a profiled step's trace cost a slow host 18.2 and 3.4 s here,
+# and StableLM's 19.9 s, which pays for phase 29(e)-(f)).  Their step's
+# breakdown is Qwen2-7B's kind (phase 7), a LayerNorm step's Whisper's
+# (phase 24), and their kernels' launches are still held to the code's count
+UNPROFILED_TRAIN = ("dense_train_stablelm-1.6b", "dense_train_codeqwen1.5-7b",
+                    "dense_train_command-r-35b")
 DENSE_TRAIN_STEPS = 4
 DENSE_NOISE = 0.3
 # the planted fault of each config's decode: decode rotates the whole head
@@ -2353,13 +2394,16 @@ def host_ms(fn, reps: int = 5) -> float:
     return statistics.median(out)
 
 
-def capture_phase(dev, smi: str, calib, images, step_s: float) -> dict:
+def capture_phase(dev, smi: str, calib, images, step_s: float) -> tuple[int, dict]:
     """Phase 17: one CUDA graph per bucket.  (a) Every plan of
     ``CAPTURE_PLANS_416`` served through the engine's captured steps: on
     every bucket of its ladder the replay equals the uncaptured forward
     bitwise on a seeded input (``same_bits``), the graph's launches equal the
     code's count by tile instance, and the forward alone is timed on the
-    host clock, eager against replayed; (b) phase 4's plan and 32 requests
+    host clock, eager against replayed; then ``SERVE29_PLANS``' engines
+    serve phase 4's requests under ``SERVE29_CLOCK`` (``clock_drive``): the
+    batch log, the responses' hashes and B1's graph launches x replays are
+    what phase 29 holds its rank engines to; (b) phase 4's plan and 32 requests
     served by an uncaptured (``capture=False``) and a captured engine in
     this run, under phase 4's step bound: p50, p99, img/s, the bucket-1 and
     bucket-8 dispatch on the host clock (in turns), the host's copies in and
@@ -2389,7 +2433,7 @@ def capture_phase(dev, smi: str, calib, images, step_s: float) -> dict:
                                     backend="cuda", device=dev, **kw)
 
     # (a) every served plan, every bucket: replay against the eager forward
-    plans = {}
+    plans, clocked, launches = {}, {}, 0
     for name, (grid, kw, buckets) in CAPTURE_PLANS_416.items():
         arch = arch_of(grid, kw)
         plan = arch.serve_plan()
@@ -2432,6 +2476,12 @@ def capture_phase(dev, smi: str, calib, images, step_s: float) -> dict:
                        "schedule": plan.schedule, "crossover": plan.crossover,
                        "ragged_exec": None if plan.is_uniform else plan.ragged_exec,
                        "wire_codec": plan.wire_codec, "by_bucket": rows}
+        if name in SERVE29_PLANS:
+            log = clock_drive(engine, images)
+            b1 = sum(cap["launches"][b]["conv2d_tile"] for _, b, _ in log)
+            clocked[name] = {"log": log, "hashes": response_hashes(engine), "b1_launches": b1}
+            plans[name]["clock_drive"] = {"log": log, "b1_launches": b1}
+            launches += b1
         del engine, arch, params, infer, step, got, want, x
         torch.cuda.empty_cache()
 
@@ -2442,7 +2492,7 @@ def capture_phase(dev, smi: str, calib, images, step_s: float) -> dict:
     engines = {c: arch.make_serve_engine(params, buckets=BUCKETS, step_bound=step_s,
                                          latency_budget=2.0 * step_s, capture=c)
                for c in (False, True)}
-    served, launches = {}, 0
+    served = {}
     for c, engine in engines.items():
         label = "captured" if c else "uncaptured"
         check(engine.capture == c and engine.warmup()["misses"] == len(BUCKETS),
@@ -2572,7 +2622,7 @@ def capture_phase(dev, smi: str, calib, images, step_s: float) -> dict:
 
     # (d) a planted fault: a replay that skips the copy into the static input
     x_new = torch.randn((8, *INPUT_HW, 3), generator=gen, device=dev)
-    stale = step._replay(params)
+    stale = step.replay(params)
     planted_caught = not same_bits(stale, infer(params, x_new))
     print(f"capture (d): a replay without the input copy rejected by (a)'s check: "
           f"{planted_caught} (it returns the previous input's bits: "
@@ -2585,7 +2635,7 @@ def capture_phase(dev, smi: str, calib, images, step_s: float) -> dict:
     }}))
     del engines, step, arch, params, params2, infer
     torch.cuda.empty_cache()
-    return launches
+    return launches, clocked
 
 
 def overlap_vs_sync(dev, overlap_kw: dict, sync_kw: dict, grid=GRID,
@@ -6235,7 +6285,7 @@ def capture_cnn_phase(dev, smi: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         before = kernel_launch_counts()
-        losses, lrs, ev, host = [], [], [], []
+        losses, lrs, ev, host, sums = [], [], [], [], []
         for s, batch in enumerate(batches):
             if fault and s == CAPTURE_FAULT_STEP:
                 state.step.sub_(1)          # the counter the last replay advanced, set back
@@ -6249,10 +6299,12 @@ def capture_cnn_phase(dev, smi: str) -> dict:
             b.synchronize()
             ev.append(a.elapsed_time(b))
             lrs.append(float(m["lr"]))
+            if captured and not fault:
+                sums.append(state_checksums(state.params))
         launched = kernel_totals({k: v - before.get(k, 0)
                                   for k, v in kernel_launch_counts().items()})
         return dict(state=state, step=step, losses=losses, lrs=lrs, ev=ev, host=host,
-                    launched=launched, peak=torch.cuda.max_memory_allocated(dev))
+                    launched=launched, peak=torch.cuda.max_memory_allocated(dev), sums=sums)
 
     t0 = time.perf_counter()
     eager = drive(False)
@@ -6304,6 +6356,7 @@ def capture_cnn_phase(dev, smi: str) -> dict:
            "peak_mem_bytes_eager": eager["peak"], "peak_mem_bytes_captured": graph["peak"],
            "planted_stale_counter_caught": caught, "s": time.perf_counter() - t0, "card": smi}
     print(json.dumps({"capture_train": {"cnn": out}}))
+    out["checksums"] = graph["sums"]          # for 29(e): the captured run's params a step
     del eager, graph, fault, step, prof
     gc.collect()
     torch.cuda.empty_cache()
@@ -6333,8 +6386,8 @@ def capture_elastic_phase(dev, smi: str, root: str) -> dict:
     for label in ("eager", "captured"):
         d = os.path.join(root, f"capture_{label}")
         buf = io.StringIO()
-        swaps = [(train_launcher, "jit_step", lambda step, device: step)] if label == "eager" \
-            else []
+        swaps = ([(train_launcher, "jit_step", lambda step, device, group=None: step)]
+                 if label == "eager" else [])
         with contextlib.redirect_stdout(buf), swapped(*swaps):
             rc = train_launcher.main([*argv, "--ckpt-dir", d])
         text = buf.getvalue()
@@ -6355,8 +6408,12 @@ def capture_elastic_phase(dev, smi: str, root: str) -> dict:
     check(same and runs["captured"]["graphs"] == 2 and runs["eager"]["graphs"] == 0,
           f"27(b): captured {runs['captured']['graphs']} graphs, same bytes {same}")
     torch.cuda.empty_cache()
+    import hashlib
+
     return {"graphs": runs["captured"]["graphs"], "bitwise_equal_to_eager": same,
-            "s": time.perf_counter() - t0}
+            "s": time.perf_counter() - t0,
+            "ckpt": {f: hashlib.sha256(b).hexdigest()
+                     for f, b in runs["captured"]["files"].items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -6440,6 +6497,7 @@ def elastic_rank(group, root: str, plant: bool) -> dict:
             fn, man = replan(ev)
             torch.cuda.synchronize()
             rec["replan_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["replanned"] = fn
             rec["active_after_replan"] = group.active
             torch.cuda.reset_peak_memory_stats(dev)
             return (None if fn is None else timed(fn, "ms_after_replan")), man
@@ -6479,6 +6537,13 @@ def elastic_rank(group, root: str, plant: bool) -> dict:
         torch.cuda.synchronize()
         launches = kernel_totals({k: v - before.get(k, 0)
                                   for k, v in kernel_launch_counts().items()})
+        # under nccl the replanned step is a graph: the host counted its
+        # capture's pass once, and each replay ran it
+        fn = rec.pop("replanned", None)
+        rec["replanned_captured"] = bool(getattr(fn, "captured", False))
+        if rec["replanned_captured"]:
+            for k, v in kernel_totals(fn.launches).items():
+                launches[k] += v * (fn.replays - 1)
         _, roles = split_record(group.take_record())
         state = rec.pop("state")
         leaves = [x.numel() * x.element_size() for x in tree_leaves(state.params)]
@@ -6516,7 +6581,241 @@ def elastic_rank(group, root: str, plant: bool) -> dict:
     return out
 
 
-def dist_rank(group, build_dir, fault, plans, elastic=None) -> dict:
+def clock_drive(engine, images) -> list:
+    """Phase 17's requests (``ARRIVALS``) under ``SERVE29_CLOCK``: a
+    ``ManualClock`` advanced a tick at a time, each tick's arrivals
+    submitted and one engine step taken, a dispatch's service time
+    simulated, then the drain; the engine's step bound and budget the
+    clock's.  -> the batch log as (t, bucket, filled)."""
+    from repro_torch.serve.cnn_engine import ManualClock
+
+    tick, service, bound, budget = SERVE29_CLOCK
+    engine.clock, engine.simulate_step_s = ManualClock(), service
+    engine.step_bound, engine.latency_budget = bound, budget
+    it = iter(images)
+    for a in ARRIVALS:
+        for _ in range(a):
+            engine.submit(next(it))
+        engine.clock.advance(tick)
+        engine.step()
+    engine.drain()
+    return [(b["t"], b["bucket"], b["filled"]) for b in engine.batch_log]
+
+
+def response_hashes(engine) -> list:
+    """The sha256 of each response's bytes, in request order."""
+    import hashlib
+
+    return [hashlib.sha256(r.result.tobytes()).hexdigest()
+            for r in sorted(engine.finished, key=lambda r: r.rid)]
+
+
+def capture_rank(group, root: str, plans: dict) -> dict:
+    """Phase 29(a)(i)-(ii) (and (c)), one nccl rank (ROADMAP A.20.3).  (i)
+    27(a)'s cell - phase 5's plan, int8 error feedback, ``CAPTURE_WARMUP``,
+    ``CAPTURE_CNN_STEPS`` steps - on this rank's block: eager, captured
+    (``capture_train_step`` with the group: the collectives inside the
+    graph), and captured with 27(a)'s planted stale step counter; per run
+    each step's param checksums and event ms, the host's B1-B3 launches,
+    the graph's launches and replays, the pool, the peak and the record.
+    (ii) ``launch/train.py``'s ``_train_tiled`` on the rank under 27(b)'s
+    argv and faults (a drop replanned onto the survivors: a new graph on the
+    regrouped communicators; a failed step restored into the graph's
+    state): its output, the last checkpoint's leaf hashes, the graphs'
+    launches and replays.  On more ranks (29(c)) also each of ``plans``
+    (label -> ``make_yolo_tiled_arch`` kwargs) captured for TRAIN_STEPS
+    steps, its checksums beside the eager run's."""
+    import argparse
+    import hashlib
+
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.tiling import Group
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_dist_tile_mesh
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.yolo import make_yolo_tiled_arch
+    from repro_torch.serve.exec_cache import kernel_launch_counts
+    from repro_torch.train.trainer import capture_train_step, make_train_step
+
+    dev = group.device
+    t0 = time.perf_counter()
+
+    def run(arch, tcfg, steps, captured, fault=False):
+        make_batch = make_batch_fn(TRAIN_BATCH, INPUT_HW[0], arch.target_shape(TRAIN_BATCH), SEED,
+                                   dev)
+        batches = [make_batch(s) for s in range(steps)]
+        init_state, step = make_train_step(arch, ParallelConfig(grad_accum=TRAIN_ACCUM), tcfg)
+        if captured:
+            step = capture_train_step(step, dev, group)
+        state = init_state(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        group.take_record()
+        before = kernel_launch_counts()
+        sums, ms = [], []
+        for s, batch in enumerate(batches):
+            if fault and s == CAPTURE_FAULT_STEP:
+                state.step.sub_(1)          # the counter the last replay advanced, set back
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, _ = step(state, batch)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+            sums.append(state_checksums(state.params))
+        host = kernel_totals({k: v - before.get(k, 0) for k, v in kernel_launch_counts().items()})
+        out = dict(checksums=sums, ms=ms, host=host, record=group.take_record(),
+                   peak=torch.cuda.max_memory_allocated(dev))
+        if captured:
+            graph = kernel_totals(step.launches)
+            out.update(graph=graph, replays=step.replays, warm=step.warm_steps,
+                       pool=step.pool_bytes, graph_record=step.collectives,
+                       launched={k: host[k] + graph.get(k, 0) * (step.replays - 1) for k in host})
+        else:
+            out["launched"] = host
+        return out
+
+    def arch_of(kw, grid=GRID):
+        return make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=grid[0], m=grid[1],
+                                    backend="cuda", mesh=make_dist_tile_mesh(*grid, dev, group),
+                                    **kw)
+
+    # (i) 27(a)'s cell
+    arch = arch_of(dict(groups=[Group(*g) for g in _HAND]))
+    tcfg = TrainConfig(lr=TRAIN_LR, optimizer="sgd", warmup=CAPTURE_WARMUP,
+                       steps=CAPTURE_CNN_STEPS, seed=SEED, grad_compression="int8")
+    out = {"cell": {c: run(arch, tcfg, CAPTURE_CNN_STEPS, c != "eager", c == "planted")
+                    for c in ("eager", "captured", "planted")}}
+    del arch
+    # (ii) the launcher under 27(b)'s faults
+    argv = ["--arch", "yolov2-tiled", "--grid", str(GRID[0]), "--input-hw", str(INPUT_HW[0]),
+            "--depth", "16", "--groups", "4", "--batch", str(TRAIN_BATCH), "--grad-accum",
+            str(TRAIN_ACCUM), "--optimizer", "sgd", "--lr", str(TRAIN_LR), "--steps",
+            str(ELASTIC_CAPTURE_STEPS), "--ckpt-every", "1", "--fault-schedule",
+            ELASTIC_CAPTURE_FAULTS, "--ckpt-dir", os.path.join(root, "capture29")]
+    steps, real_jit = [], train_launcher.jit_step
+
+    def kept_jit(step, device, grp=None):
+        steps.append(real_jit(step, device, grp))
+        return steps[-1]
+
+    ap = argparse.ArgumentParser()
+    train_launcher._add_args(ap)
+    buf = io.StringIO()
+    group.take_record()
+    before = kernel_launch_counts()
+    with contextlib.redirect_stdout(buf), swapped((train_launcher, "jit_step", kept_jit)):
+        rc = train_launcher._train_tiled(ap.parse_args(argv), group)
+    host = kernel_totals({k: v - before.get(k, 0) for k, v in kernel_launch_counts().items()})
+    graphs = [s for s in steps if getattr(s, "captured", False)]
+    launched = dict(host)
+    for s in graphs:
+        for k, v in kernel_totals(s.launches).items():
+            launched[k] += v * (s.replays - 1)
+    last = os.path.join(root, "capture29", f"step_{ELASTIC_CAPTURE_STEPS - 1:08d}")
+    out["launcher"] = {
+        "rc": rc, "text": buf.getvalue(), "graphs": len(graphs),
+        "replays": [s.replays for s in graphs], "launched": launched,
+        "ckpt": ({f: hashlib.sha256(open(os.path.join(last, f), "rb").read()).hexdigest()
+                  for f in sorted(os.listdir(last)) if f.endswith(".npy")}
+                 if group.rank == 0 and os.path.isdir(last) else None)}
+    group.take_record()
+    del steps, graphs
+    # (c) every plan's step captured, on more than one rank
+    if group.world > 1:
+        tcfg = TrainConfig(lr=TRAIN_LR, optimizer="sgd", warmup=0, steps=TRAIN_STEPS, seed=SEED)
+        out["plans"] = {}
+        for label, kw in plans.items():
+            kw = dict(kw)
+            grid = kw.pop("grid", GRID)
+            out["plans"][label] = run(arch_of(kw, grid), tcfg, TRAIN_STEPS, True)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def serve_rank(group, spec: dict) -> dict:
+    """Phase 29(a)(iii), (b) and (c)'s serving, one rank (ROADMAP A.20.4):
+    ``SERVE29_PLANS`` - phase 17's plans - each through ``CNNServeEngine``
+    on this rank's block (rank 0's params and frozen BN statistics), its
+    ladder warmed on every rank (under nccl each bucket captured with the
+    forward's collectives inside its graph; gloo the eager forward), then
+    phase 17's requests under ``SERVE29_CLOCK``: rank 0 drives the queue
+    (``clock_drive``) and broadcasts every dispatch, the others follow.  Per
+    plan: the engine's capture mode, warm-up s, the drive's record, the B1
+    launches (the host's, plus each graph's at its capture times its
+    replays), pool bytes and the drive's host s; rank 0 also the batch log,
+    the responses' hashes and their error against the untiled reference
+    (``spec["untiled"]``) over ``TOL_SERVE``.  ``spec["fault"]``: the first
+    plan again with the last rank serving the batch its bucket held at its
+    previous dispatch (it still takes part in every broadcast)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tiling import Group
+    from repro_torch.kernels.conv2d_tiled.kernel import launch_counts
+    from repro_torch.launch.mesh import make_dist_tile_mesh
+    from repro_torch.models.yolo import make_yolo_tiled_arch
+    from repro_torch.serve.cnn_engine import CNNServeEngine
+
+    dev = group.device
+    images, calib = np.load(spec["images"]), np.load(spec["calib"])
+    untiled = torch.from_numpy(np.load(spec["untiled"])) if group.rank == 0 else None
+    out = {}
+    runs = list(SERVE29_PLANS) + (["fault"] if spec["fault"] else [])
+    for label in runs:
+        name = SERVE29_PLANS[0] if label == "fault" else label
+        grid, kw, buckets = CAPTURE_PLANS_416[name]
+        if not isinstance(kw["groups"], str):
+            kw = dict(kw, groups=[Group(*g) for g in kw["groups"]])
+        mesh = make_dist_tile_mesh(*grid, dev, group)
+        arch = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=grid[0], m=grid[1],
+                                    backend="cuda", mesh=mesh, **kw)
+        real = CNNServeEngine._share_batch
+        if label == "fault" and group.rank == group.world - 1:
+            CNNServeEngine._share_batch = lambda self, x: real(self, x.clone())
+        try:
+            params = arch.serve_params(arch.init(SEED), calib)
+            engine = arch.make_serve_engine(params, buckets=buckets)
+            t0 = time.perf_counter()
+            engine.warmup()
+            torch.cuda.synchronize()
+            row = {"plan": name, "mode": engine.capture_mode, "warmup_s": time.perf_counter() - t0,
+                   "coord": list(mesh.coord), "ranks": list(mesh.ranks), "buckets": list(buckets)}
+            group.take_record()
+            before = launch_counts().get("conv2d_tile", 0)
+            t0 = time.perf_counter()
+            if engine.leader:
+                try:
+                    row["log"] = clock_drive(engine, images)
+                finally:
+                    engine.finish()
+            else:
+                row["followed"] = engine.follow()
+            torch.cuda.synchronize()
+            row["drive_s"] = time.perf_counter() - t0
+        finally:
+            CNNServeEngine._share_batch = real
+        cap = engine.stats()["capture"]
+        row.update(record=group.take_record(), pool_bytes=cap["pool_bytes"],
+                   replays=cap["replays"], graph_launches=cap["launches"],
+                   b1_launches=launch_counts().get("conv2d_tile", 0) - before + sum(
+                       cap["launches"][b].get("conv2d_tile", 0) * n
+                       for b, n in cap["replays"].items()))
+        if engine.leader:
+            got = torch.from_numpy(np.stack([r.result for r in sorted(
+                engine.finished, key=lambda r: r.rid)]))
+            row["hashes"] = response_hashes(engine)
+            row["max_abs_err"], row["err_over_bar"] = err_stats(got, untiled, **TOL_SERVE)
+            row["finite"] = bool(torch.isfinite(got).all())
+        out[label] = row
+        del engine, arch, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_rank(group, build_dir, fault, plans, elastic=None, extra=None) -> dict:
     """Phase 29, one rank (``parallel/dist.py:run_ranks``): phase 5's plan,
     then each plan of ``plans`` (label -> ``make_yolo_tiled_arch`` kwargs),
     on this rank's block of the 2x2 grid, trained TRAIN_STEPS steps from
@@ -6533,7 +6832,10 @@ def dist_rank(group, build_dir, fault, plans, elastic=None) -> dict:
     messages still pair.  A plan's "grid" names its tile grid (GRID
     otherwise); each run also keeps the rank grid and this rank's place in
     it.  ``elastic`` ({"root": a directory, "plant": bool}): then 29(d)'s
-    runs (``elastic_rank``), and with "plant" their planted twin."""
+    runs (``elastic_rank``), and with "plant" their planted twin.
+    ``extra``: then, under nccl, the captured step's runs (``capture_rank``
+    in ``extra["root"]``), and the serve engines (``serve_rank`` of
+    ``extra["serve"]``)."""
     import hashlib
     from pathlib import Path
 
@@ -6639,11 +6941,19 @@ def dist_rank(group, build_dir, fault, plans, elastic=None) -> dict:
         if elastic["plant"]:
             out["elastic_planted"] = elastic_rank(group, elastic["root"], True)
         out["elastic_s"] = time.perf_counter() - t0
+    if extra is not None:
+        # 29(a)-(c): the captured step (nccl) and the serve engines, here too
+        if group.backend == "nccl":
+            out["capture"] = capture_rank(group, extra["root"], plans)
+        t0 = time.perf_counter()
+        out["serve"] = serve_rank(group, extra["serve"])
+        out["serve_s"] = time.perf_counter() - t0
     return out
 
 
 def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict, ragged14: dict,
-               pipe15: dict, elastic18: dict) -> tuple[dict, dict]:
+               pipe15: dict, elastic18: dict, cnn27: dict, el27: dict, serve17: dict,
+               served: dict) -> tuple[dict, dict]:
     """Phase 29: phase 5's plan, then DIST_PLANS, over ``torch.distributed``
     ranks, one block of the tile grid a process (ROADMAP A.20.1, A.20.2's
     uniform plans, ragged partitions and pipeline tails).  The virtual
@@ -6683,10 +6993,26 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict, ragged
         active rank's params equal, the planted restore past the bars;
         every rank's launches the code's count for its blocks, its
         driver's collectives ``driver_collectives``; the ``{"elastic29":
-        ...}`` line.
+        ...}`` line;
+    (e) the step captured on nccl ranks (ROADMAP A.20.3) in (a)'s and (c)'s
+        processes (``capture_rank``, ``capture_held``; ``cnn27``, ``el27``:
+        27(a)'s captured run's checksums a step, 27(b)'s last checkpoint's
+        leaf hashes): 27(a)'s cell eager, captured and planted on the rank,
+        and the launcher under 27(b)'s faults; at one rank bitwise 27(a)'s
+        and 27(b)'s runs;
+    (f) the serve engine on the ranks of (a), (b) and (c) (ROADMAP A.20.4;
+        ``serve_rank``, ``serve_held``; ``serve17``: phase 17's captured
+        virtual engines under ``SERVE29_CLOCK``; ``served``: phase 4's
+        images, calibration batch and untiled responses): at one nccl rank
+        every bucket captured and the responses phase 17's bit for bit; on
+        ``DIST_WORLD`` gloo ranks the eager forward within ``TOL_SERVE`` of
+        the untiled reference and a follower serving a stale batch past it;
+        the batch log and every rank's collectives a dispatch against the
+        model.
 
     Returns the B1-B3 launches of the correct runs on every rank, in all
-    and by plan (29(d)'s under "elastic")."""
+    and by plan (29(d)'s under "elastic", (e)'s under "capture29", (f)'s
+    under "serve29")."""
     import gc
     import hashlib
     import shutil
@@ -6784,6 +7110,9 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict, ragged
                        "collectives": st.count, "collective_bytes": st.bytes_naive,
                        "collective_ring_bytes": st.bytes_ring, "model": model,
                        "losses": run["losses"], "step_ms_cuda_events": run["step_ms"],
+                       "step": ("eager (gloo: its collectives run on the host, no capture)"
+                                if r["backend"] == "gloo" else
+                                "eager (an on_grads observer; 29(e) captures the step)"),
                        "card": smi}
                 rows.append(row)
                 print(json.dumps({f"dist29{cell}_rank": row}))
@@ -6882,13 +7211,25 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict, ragged
     plans_d = (arch_d.plan, replan_d.live["plan"])
     elastic_root = tempfile.mkdtemp(prefix="chip_smoke_elastic29_")
     del arch_d, replan_d
+    # (e)-(f): the captured step's checkpoints, phase 4's requests for the
+    # engines, read by the ranks from files
+    import numpy as np
+
+    for key in ("images", "calib", "untiled"):
+        np.save(os.path.join(elastic_root, f"{key}.npy"), served[key])
+
+    def extra(cell, fault):
+        return {"root": os.path.join(elastic_root, f"capture_{cell}"),
+                "serve": {k: os.path.join(elastic_root, f"{k}.npy")
+                          for k in ("images", "calib", "untiled")} | {"fault": fault}}
 
     # (a) nccl at W = the cards
     world_a = torch.cuda.device_count()
     t0 = time.perf_counter()
     runs_a = run_ranks(dist_rank, world_a, "cuda", "nccl",
                        args=(None, None, DIST_PLANS,
-                             {"root": os.path.join(elastic_root, "a"), "plant": False}),
+                             {"root": os.path.join(elastic_root, "a"), "plant": False},
+                             extra("a", False)),
                        timeout=900)
     a_s = time.perf_counter() - t0
     rows_a, models_a = held("a", runs_a)
@@ -6913,7 +7254,8 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict, ragged
             shutil.copy2(warm, Path(cold) / warm.name)
         runs_b = run_ranks(dist_rank, DIST_WORLD, "cuda", "gloo",
                            args=(cold, "wrong_neighbour", DIST_PLANS,
-                                 {"root": os.path.join(elastic_root, "b"), "plant": True}),
+                                 {"root": os.path.join(elastic_root, "b"), "plant": True},
+                                 extra("b", True)),
                            timeout=900)
         # nvcc's output differs from build to build, so each rank may have
         # loaded its own: all must name one path, and the file left there
@@ -6958,29 +7300,243 @@ def dist_phase(dev, smi: str, train5: dict, hybrid13: dict, edge16: dict, ragged
     el = {"card": smi, "faults": ELASTIC29_FAULTS, "ckpt_every": ELASTIC29_CKPT_EVERY,
           "a": elastic_held("a", runs_a, plans_d, elastic18, by_plan["elastic"], smi)}
     el["b"] = elastic_held("b", runs_b, plans_d, elastic18, by_plan["elastic"], smi)
-    shutil.rmtree(elastic_root, ignore_errors=True)
+
+    # (e) the captured step on the nccl rank; (f) the serve engines
+    by_plan["capture29"] = {k: 0 for k in kernels}
+    by_plan["serve29"] = {k: 0 for k in kernels}
+    cap29 = {"a": capture_held("a", runs_a, cnn27, el27, plans, by_plan["capture29"], smi)}
+    serve29 = {"a": serve_held("a", runs_a, serve17, by_plan["serve29"], smi),
+               "b": serve_held("b", runs_b, serve17, by_plan["serve29"], smi)}
 
     # (c) nccl at DIST_WORLD ranks, where there are that many cards
     if torch.cuda.device_count() >= DIST_WORLD:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic29c_") as root_c:
             runs_c = run_ranks(dist_rank, DIST_WORLD, "cuda", "nccl",
-                               args=(None, None, DIST_PLANS, {"root": root_c, "plant": False}),
+                               args=(None, None, DIST_PLANS, {"root": root_c, "plant": False},
+                                     extra("c", False)),
                                timeout=900)
         rows_c, _ = held("c", runs_c)
         out["c"] = {"world": DIST_WORLD, "backend": "nccl", "bars": to_bars("c", runs_c),
                     "ranks": rows_c}
         el["c"] = elastic_held("c", runs_c, plans_d, elastic18, by_plan["elastic"], smi)
+        cap29["c"] = capture_held("c", runs_c, cnn27, el27, plans, by_plan["capture29"], smi)
+        serve29["c"] = serve_held("c", runs_c, serve17, by_plan["serve29"], smi)
         count(runs_c)
     else:
         print(f"29(c) not run: {torch.cuda.device_count()} card(s), nccl needs {DIST_WORLD}")
         out["c"] = None
+    shutil.rmtree(elastic_root, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     launched = {k: sum(p[k] for p in by_plan.values()) for k in kernels}
     out["launches"], out["launches_by_plan"] = launched, by_plan
     el["launches"] = by_plan["elastic"]
     print(json.dumps({"elastic29": el}))
+    print(json.dumps({"capture29": dict(cap29, launches=by_plan["capture29"], card=smi,
+                                        seconds=[r["capture"]["s"] for r in runs_a])}))
+    print(json.dumps({"serve29": dict(serve29, launches=by_plan["serve29"], card=smi,
+                                      seconds={"a": [r["serve_s"] for r in runs_a],
+                                               "b": [r["serve_s"] for r in runs_b]})}))
     print(json.dumps({"dist": out}))
     return launched, by_plan
+
+
+def capture_held(cell: str, runs: list, cnn27: dict, el27: dict, virtual_plans: dict,
+                 launched: dict, smi: str) -> dict:
+    """Phase 29(a)(i)-(ii)'s checks of one nccl cell's ranks
+    (``capture_rank``): 27(a)'s cell captured on the ranks bitwise their
+    eager run at every step, and at one rank bitwise 27(a)'s captured
+    virtual run too; the planted stale counter caught; the graph's B1-B3
+    launches the code's count for the rank's block, the warm steps and
+    replays, every launch executed; the captured run's record equal to the
+    eager run's (replays included), its permutes and gathers
+    ``plan_collectives`` x microbatches x steps.  The launcher under 27(b)'s
+    faults on the ranks: two graphs, a restart and a replan, and at one rank
+    its last checkpoint 27(b)'s byte for byte.  On more ranks (29(c)) each
+    plan's captured step bitwise its eager run on the ranks.  Adds the
+    executed launches to ``launched``; prints a ``capture29<cell>_rank``
+    line a rank; -> the cell's summary."""
+    from repro_torch.analysis.collectives import collective_stats, plan_collectives
+    from repro_torch.serve.exec_cache import WARM_RUNS
+
+    world = len(runs)
+    rows = []
+    plan = virtual_plans["phase5"]
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    for r in runs:
+        cap = r["capture"]
+        cellr = cap["cell"]
+        eager, graph, planted = cellr["eager"], cellr["captured"], cellr["planted"]
+        rank_at = (tuple(r["ranks"]), tuple(r["coord"]))
+        per_mb, _ = launches_per_batch(plan, mb, rank_at)
+        per_step = {k: v * TRAIN_ACCUM for k, v in per_mb.items()}
+        bitwise = [same_checksums(a, b) for a, b in zip(graph["checksums"], eager["checksums"])]
+        caught = not all(same_checksums(a, b)
+                         for a, b in zip(planted["checksums"], eager["checksums"]))
+        check(all(bitwise) and len(bitwise) == CAPTURE_CNN_STEPS,
+              f"29({cell}) rank {r['rank']}: the captured step differs from the eager one: {bitwise}")
+        check(caught, f"29({cell}) rank {r['rank']}: a replay with a stale step counter passed")
+        check(graph["graph"] == per_step and graph["warm"] == WARM_RUNS
+              and graph["replays"] == CAPTURE_CNN_STEPS - WARM_RUNS,
+              f"29({cell}) rank {r['rank']}: graph launches {graph['graph']} (the code's "
+              f"{per_step}), {graph['warm']} warm steps, {graph['replays']} replays")
+        for run in (eager, graph, planted):
+            check(run["launched"] == {k: v * CAPTURE_CNN_STEPS for k, v in per_step.items()},
+                  f"29({cell}) rank {r['rank']}: launches {run['launched']} != the code's "
+                  f"{per_step} x {CAPTURE_CNN_STEPS}")
+            for k in launched:
+                launched[k] += run["launched"][k]
+        model = {k: [c * TRAIN_ACCUM * CAPTURE_CNN_STEPS, b * TRAIN_ACCUM * CAPTURE_CNN_STEPS]
+                 for k, (c, b) in plan_collectives(plan, mb, *rank_at).items()}
+        st = collective_stats(graph["record"])
+        got = {k: [st.count[k], st.bytes_naive[k]] for k in st.count if k != "all-reduce"}
+        check(graph["record"] == eager["record"] and got == model,
+              f"29({cell}) rank {r['rank']}: the captured run's record differs from the eager "
+              f"run's, or its exchanges {got} from the model's {model}")
+        la = cap["launcher"]
+        text = la["text"]
+        check(la["rc"] == 0 and la["graphs"] == 2 and "captured=True" in text
+              and "restarts=1 replans=1" in text and "replan (drop:3)" in text,
+              f"29({cell}) rank {r['rank']}: the launcher under {ELASTIC_CAPTURE_FAULTS}: rc "
+              f"{la['rc']}, {la['graphs']} graphs")
+        for k in launched:
+            launched[k] += la["launched"][k]
+        row = {"rank": r["rank"], "coord": r["coord"], "ranks": r["ranks"],
+               "bitwise_eager_each_step": bitwise, "planted_stale_counter_caught": caught,
+               "graph_launches": graph["graph"], "replays": graph["replays"],
+               "step_ms_eager": eager["ms"], "step_ms_captured": graph["ms"],
+               "step_ms_eager_steady_median": statistics.median(eager["ms"][WARM_RUNS:]),
+               "step_ms_replay_median": statistics.median(graph["ms"][WARM_RUNS + 1:]),
+               "pool_bytes": graph["pool"], "peak_mem_bytes_eager": eager["peak"],
+               "peak_mem_bytes_captured": graph["peak"],
+               "graph_collectives": collective_stats(graph["graph_record"]).count,
+               "run_collectives": st.count, "launcher_graphs": la["graphs"],
+               "launcher_replays": la["replays"], "s": cap["s"], "card": smi}
+        if "plans" in cap:
+            row["plans_bitwise_eager"] = {}
+            for label, run in cap["plans"].items():
+                same = [same_checksums(a, b) for a, b in zip(
+                    run["checksums"], r["runs"][label]["checksums"])]
+                row["plans_bitwise_eager"][label] = same
+                check(all(same), f"29({cell}) {label} rank {r['rank']}: captured != eager {same}")
+                for k in launched:
+                    launched[k] += run["launched"][k]
+        rows.append(row)
+        print(json.dumps({f"capture29{cell}_rank": row}))
+    out = {"world": world, "ranks": rows}
+    if world == 1:
+        virtual = [same_checksums(a, b) for a, b in zip(
+            runs[0]["capture"]["cell"]["captured"]["checksums"], cnn27["checksums"])]
+        ckpt = runs[0]["capture"]["launcher"]["ckpt"] == el27["ckpt"]
+        print(f"29({cell}) one nccl rank: 27(a)'s cell captured on the rank bitwise its eager "
+              f"run {rows[0]['bitwise_eager_each_step']} and 27(a)'s captured virtual run "
+              f"{virtual}; replay {rows[0]['step_ms_replay_median']:.2f} ms, eager "
+              f"{rows[0]['step_ms_eager_steady_median']:.2f} ms; the launcher's last checkpoint "
+              f"27(b)'s byte for byte: {ckpt}")
+        check(all(virtual) and len(virtual) == CAPTURE_CNN_STEPS,
+              f"29({cell}): the rank's captured step differs from 27(a)'s: {virtual}")
+        check(ckpt, f"29({cell}): the rank's launcher under {ELASTIC_CAPTURE_FAULTS} left "
+              f"another last checkpoint than 27(b)'s")
+        out.update(bitwise_27a_each_step=virtual, launcher_ckpt_bitwise_27b=ckpt)
+    return out
+
+
+def serve_held(cell: str, runs: list, serve17: dict, launched: dict, smi: str) -> dict:
+    """Phase 29's serve checks of one cell's ranks (``serve_rank``): rank
+    0's batch log phase 17's under the same clock, every follower serving
+    every dispatch, every rank's collectives of the drive
+    ``plan_collectives(forward_only=True)`` at its place per dispatch plus
+    ``dispatch_collectives``, its B1 launches the code's count per dispatch
+    for its block; under nccl every bucket captured, at one rank the
+    responses phase 17's captured virtual engine's bit for bit and the
+    graph launches x replays phase 17's; on more ranks the responses
+    within ``TOL_SERVE`` of the untiled reference, and the planted stale
+    batch past it.  Adds the launches to ``launched``; prints a
+    ``serve29<cell>_rank`` line per rank and plan; -> the cell's summary."""
+    from repro_torch.analysis.collectives import (
+        collective_stats,
+        dispatch_collectives,
+        plan_collectives,
+        split_record,
+    )
+    from repro_torch.core.tiling import Group
+    from repro_torch.models.yolo import make_yolo_tiled_arch
+
+    world, backend = len(runs), runs[0]["backend"]
+    image_bytes = 4 * INPUT_HW[0] * INPUT_HW[1] * 3
+    out = {"world": world, "backend": backend, "plans": {}}
+    for name in SERVE29_PLANS:
+        grid, kw, _ = CAPTURE_PLANS_416[name]
+        if not isinstance(kw["groups"], str):
+            kw = dict(kw, groups=[Group(*g) for g in kw["groups"]])
+        plan = make_yolo_tiled_arch(input_hw=INPUT_HW, depth=16, n=grid[0], m=grid[1],
+                                    backend="cuda", device="cpu", **kw).serve_plan()
+        lead = runs[0]["serve"][name]
+        log = lead["log"]
+        check(log == serve17[name]["log"], f"29({cell}) {name}: batch log {log} != phase 17's "
+              f"{serve17[name]['log']}")
+        check(lead["finite"], f"29({cell}) {name}: non-finite responses")
+        for r in runs:
+            row = r["serve"][name]
+            rank_at = (tuple(row["ranks"]), tuple(row["coord"]))
+            steps, roles = split_record(row["record"])
+            st = collective_stats(steps)
+            got = {k: [st.count[k], st.bytes_naive[k]] for k in st.count}
+            model, b1 = {}, 0
+            for _, bucket, _ in log:
+                for k, (c, b) in plan_collectives(plan, bucket, *rank_at,
+                                                  forward_only=True).items():
+                    w = model.setdefault(k, [0, 0])
+                    w[0], w[1] = w[0] + c, w[1] + b
+                b1 += launches_per_batch(plan, bucket, rank_at)[0]["conv2d_tile"]
+            want_roles = dispatch_collectives([b for _, b, _ in log], image_bytes)
+            check(got == model and roles == want_roles,
+                  f"29({cell}) {name} rank {r['rank']}: the drive's collectives {got} {roles} != "
+                  f"the model's {model} {want_roles}")
+            check(row["b1_launches"] == b1, f"29({cell}) {name} rank {r['rank']}: B1 launches "
+                  f"{row['b1_launches']} != the code's {b1}")
+            check(row["mode"] == ("cuda graphs" if backend == "nccl" else "eager: gloo"),
+                  f"29({cell}) {name} rank {r['rank']}: serves by {row['mode']}")
+            if r["rank"]:
+                check(row["followed"] == len(log), f"29({cell}) {name} rank {r['rank']} "
+                      f"followed {row['followed']} of {len(log)} dispatches")
+            launched["conv2d_tile"] += row["b1_launches"]
+            line = {k: v for k, v in row.items() if k not in ("record", "hashes", "log")}
+            line.update(rank=r["rank"], backend=backend, collectives=st.count,
+                        collective_bytes=st.bytes_naive, collectives_by_role=roles,
+                        dispatches=len(log), card=smi)
+            print(json.dumps({f"serve29{cell}_rank": line}, default=str))
+        res = {"log": log, "err_over_bar": lead["err_over_bar"], "max_abs_err": lead["max_abs_err"],
+               "warmup_s": [r["serve"][name]["warmup_s"] for r in runs],
+               "drive_s": [r["serve"][name]["drive_s"] for r in runs]}
+        if world == 1:
+            same = lead["hashes"] == serve17[name]["hashes"]
+            res.update(bitwise_phase17=same, b1_launches=lead["b1_launches"],
+                       b1_launches_phase17=serve17[name]["b1_launches"])
+            check(same, f"29({cell}) {name}: the rank's responses differ from phase 17's captured "
+                  f"virtual engine's")
+            check(lead["b1_launches"] == serve17[name]["b1_launches"],
+                  f"29({cell}) {name}: B1 launches {lead['b1_launches']} != phase 17's "
+                  f"{serve17[name]['b1_launches']}")
+        else:
+            check(lead["err_over_bar"] <= 1.0, f"29({cell}) {name}: responses "
+                  f"{lead['err_over_bar']} of the serve bar from the untiled reference")
+        print(f"29({cell}) serve {name} on {world} {backend} rank(s): {len(log)} dispatches "
+              f"{[b for _, b, _ in log]}, responses {lead['err_over_bar']:.3g} of the serve bar"
+              + (f", bitwise phase 17's: {res['bitwise_phase17']}" if world == 1 else ""))
+        out["plans"][name] = res
+    if "fault" in runs[0]["serve"]:
+        f = runs[0]["serve"]["fault"]
+        name = SERVE29_PLANS[0]
+        check(f["log"] == runs[0]["serve"][name]["log"],
+              f"29({cell}) planted: the batch log {f['log']} changed")
+        print(f"29({cell}) planted: rank {world - 1} serving a stale batch: responses "
+              f"{f['err_over_bar']:.3g} of the serve bar")
+        check(f["err_over_bar"] > 1.0, f"29({cell}): a follower serving a stale batch passed "
+              f"the serve bar ({f['err_over_bar']})")
+        for r in runs:
+            launched["conv2d_tile"] += r["serve"]["fault"]["b1_launches"]
+        out["planted_stale_batch_over_bar"] = f["err_over_bar"]
+    return out
 
 
 def elastic_held(cell: str, runs: list, plans_d: tuple, elastic18: dict, launched: dict,
@@ -7650,6 +8206,7 @@ def main() -> int:
     got = torch.from_numpy(np.stack([r.result for r in sorted(engine.finished, key=lambda r: r.rid)]))
     check(got.shape == ref.shape and bool(torch.isfinite(got).all()), f"output {tuple(got.shape)}")
     e2e_err, e2e_ratio = err_stats(got, ref, **TOL_SERVE)
+    served4 = {"images": images, "calib": calib, "untiled": ref.numpy()}   # phase 29(f)
     print(f"serve output {tuple(got.shape)} vs untiled plain reference: max err {e2e_err:.3e} "
           f"({e2e_ratio:.3f} of tolerance {TOL_SERVE})")
     check(e2e_ratio <= 1.0, "serve responses disagree with the untiled reference")
@@ -8248,7 +8805,8 @@ def main() -> int:
     lap("16")
 
     # -- 17. one CUDA graph per batch bucket -------------------------------------
-    auto_launches["conv2d_tile"] += capture_phase(dev, smi, calib, images, step_s)
+    launches17, serve17 = capture_phase(dev, smi, calib, images, step_s)
+    auto_launches["conv2d_tile"] += launches17
 
     lap("17")
 
@@ -8327,7 +8885,8 @@ def main() -> int:
     launches29, launches29_by_plan = dist_phase(
         dev, smi, train5, train13["train_hybrid"], edge16,
         {k: train14[k] for k in ("cluster_spec", "cluster_padded")},
-        {k: train15[k] for k in ("pipe2x2", "pure1x4")}, elastic18)
+        {k: train15[k] for k in ("pipe2x2", "pure1x4")}, elastic18, cnn27, el27, serve17,
+        served4)
     auto_launches = {k: v + launches29[k] for k, v in auto_launches.items()}
 
     lap("29")

@@ -19,6 +19,11 @@ the axis), a ragged partition's two strips a round at the padded extents,
 the hybrid plans' gathers and their adjoints, a pipeline's entry gathers
 and its hand-offs, each payload leaf of a wire codec its own collective.
 
+``plan_collectives(..., forward_only=True)`` is one serve dispatch's
+forward: each exchange once, the crossover's gathers without their
+adjoints, and the gather of the output on every rank; ``dispatch_collectives``
+the serve engine's broadcasts beside it (rank 0's header and batch).
+
 ``driver_collectives`` is what the elastic driver adds beside the steps on
 ranks (``runtime/driver.py``): one 4-byte agreement before each step a rank
 attempts, a meeting of the world at each replan and at the run's end, and
@@ -34,7 +39,7 @@ import math
 from collections import Counter, defaultdict
 
 from repro_torch.optim.compression import _auto_block, get_codec
-from repro_torch.parallel.dist import AGREE_BYTES, MEET_WORDS
+from repro_torch.parallel.dist import AGREE_BYTES, DISPATCH_WORDS, MEET_WORDS
 
 
 @dataclasses.dataclass
@@ -106,10 +111,16 @@ def leaf_bytes(codec_spec: str, n_el: int) -> list[int]:
 
 
 def plan_collectives(plan, batch: int, ranks: tuple[int, int],
-                     coord: tuple[int, int] = (0, 0)) -> dict:
+                     coord: tuple[int, int] = (0, 0), forward_only: bool = False) -> dict:
     """``{kind: [count, bytes]}`` the rank at ``coord`` of the rank grid
     ``ranks`` (Rr, Rc) records over one microbatch of ``batch`` images of
     ``plan`` (fp32 activations), forward and backward, all-reduces aside.
+    ``forward_only``: one serve dispatch of ``batch`` images instead, the
+    forward alone (``make_tiled_forward``: a codec's strips stateless, as
+    in training's forward) and then the gather of the output blocks on
+    every rank (uncompressed: one ``all-gather`` of every rank's block,
+    recorded even on one rank); a pipeline plan has no such forward and
+    raises.
 
     Per group input with a halo: the row round (each side's edge strip of
     the block, or the packed lo+hi strip of an overlap lead on a 2-tile
@@ -133,6 +144,8 @@ def plan_collectives(plan, batch: int, ranks: tuple[int, int],
     stage's, of those tiles' blocks (batch / tiles per stage images) at
     their true extents, or at the reference's container under a codec.
     Only a pipeline's record depends on ``coord``."""
+    if forward_only and plan.stages:
+        raise ValueError("a pipeline plan has no single-shot forward to serve")
     rr, rc = ranks
     bn, bm = plan.n // rr, plan.m // rc
     codec = plan.wire_codec
@@ -161,7 +174,7 @@ def plan_collectives(plan, batch: int, ranks: tuple[int, int],
 
     uniform = plan.is_uniform
     for gi, g in enumerate(plan.groups):
-        times = 2 if gi > 0 else 1
+        times = 2 if gi > 0 and not forward_only else 1
         h, w = plan.shard_hw[g.start]
         c = plan.layers[g.start].in_channels
         if g.mode == "pipeline":
@@ -170,7 +183,8 @@ def plan_collectives(plan, batch: int, ranks: tuple[int, int],
             if gi > 0 and plan.groups[gi - 1].mode == "data":
                 continue
             tile = batch * h * w * c
-            gathers(tile, plan.n * tile, gi > 0, get_codec(codec) is not None)
+            gathers(tile, plan.n * tile, gi > 0 and not forward_only,
+                    get_codec(codec) is not None)
             continue
         top, bottom, left, right = plan.group_halos[gi]
         packed = uniform and plan.schedule == "overlap" and any(plan.group_halos[gi])
@@ -198,6 +212,13 @@ def plan_collectives(plan, batch: int, ranks: tuple[int, int],
                     add("collective-permute", edge, strip(k), times)
     if plan.stages:
         _pipeline_collectives(plan, batch, (rr, rc), coord, add, gathers)
+    if forward_only:
+        c_out = plan.layers[-1].out_channels
+        if plan.crossover is not None:
+            per_tile = batch // (plan.n * plan.m) * math.prod(plan.out_hw()) * c_out
+        else:
+            per_tile = batch * math.prod(plan.shard_hw[-1]) * c_out
+        add("all-gather", rr * rc * bn * bm, per_tile, 1, [4 * per_tile])
     return {k: list(v) for k, v in out.items()}
 
 
@@ -244,6 +265,18 @@ def split_record(record) -> tuple[Counter, dict]:
         else:
             steps[c] += times
     return steps, roles
+
+
+def dispatch_collectives(buckets, image_bytes: int, stops: int = 1) -> dict:
+    """``{"dispatch": [count, bytes]}`` the serve engine records on every
+    rank beside its forwards (``serve/cnn_engine.py``): per dispatch, of
+    each bucket in ``buckets``, rank 0's header of ``DISPATCH_WORDS`` int32
+    words and its zero-padded batch (bucket x ``image_bytes``), and
+    ``stops`` headers that end the followers' loops."""
+    buckets = list(buckets)
+    heads = len(buckets) + stops
+    return {"dispatch": [heads + len(buckets),
+                         4 * DISPATCH_WORDS * heads + image_bytes * sum(buckets)]}
 
 
 def driver_collectives(*, agreements: int, meetings: int, decisions: int = 0,

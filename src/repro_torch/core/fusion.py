@@ -1441,12 +1441,24 @@ def _dist_of(mesh: TileMesh) -> DistTileMesh | None:
     return mesh if isinstance(mesh, DistTileMesh) else None
 
 
-def _global_sum(dmesh: DistTileMesh, s: torch.Tensor, cnt: float) -> tuple[torch.Tensor, float]:
+def _global_sum(dmesh: DistTileMesh, s: torch.Tensor, cnt: float,
+                kept: dict) -> tuple[torch.Tensor, float]:
     """A rank's loss sum and count summed over the ranks, in one all-reduce
-    (float64), detached: the sum in its own dtype, the count a float."""
+    (float64), detached: the sum in its own dtype, the count a float.
+
+    The count is the plan's geometry, the same at every step of one batch
+    size, and the step divides by it as a host float.  An eager step reads
+    it back into ``kept`` (the caller's, one per step function); a step
+    being captured as a CUDA graph, which cannot read the device, takes the
+    kept one, which the eager warm steps before a capture made."""
     tot = all_reduce_(dmesh.group, [torch.stack([
-        s.detach().double(), torch.tensor(float(cnt), dtype=torch.float64, device=s.device)])])[0]
-    return tot[0].to(s.dtype), float(tot[1])
+        s.detach().double(), torch.full((), float(cnt), dtype=torch.float64, device=s.device)])])[0]
+    if not (s.is_cuda and torch.cuda.is_current_stream_capturing()):
+        kept[float(cnt)] = float(tot[1])
+    elif float(cnt) not in kept:
+        raise RuntimeError("a step captured on ranks needs an eager step of the same batch "
+                           "first: the ranks' summed count is read back outside the graph")
+    return tot[0].to(s.dtype), kept[float(cnt)]
 
 
 def _stateless_wire(plan: StackPlan) -> WireCtx | None:
@@ -1537,6 +1549,7 @@ def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
     dmesh = _dist_of(mesh)
     if plan.stages:
         run = _make_pipeline_local(plan, mesh, loss_local, microbatches=1)
+        counts: dict = {}
 
         def ploss(params, x, target):
             x = torch.as_tensor(x, device=mesh.device)
@@ -1549,7 +1562,7 @@ def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
             ploss.census = run.census
             if dmesh is None:
                 return s / run.count
-            s_all, c_all = _global_sum(dmesh, s, run.count)
+            s_all, c_all = _global_sum(dmesh, s, run.count, counts)
             return (s_all + (s - s.detach())) / c_all
 
         ploss.census = None
@@ -1557,6 +1570,7 @@ def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
     split = _in_split(plan, mesh)
     tiles_loss = _tiles_loss(plan, mesh, loss_local)
     wire = _stateless_wire(plan)
+    counts: dict = {}
 
     def loss(params, x, target):
         x = torch.as_tensor(x, device=mesh.device)
@@ -1567,7 +1581,7 @@ def make_tiled_loss(plan: StackPlan, mesh: TileMesh, loss_local):
         params = [{k: replicated(v, dmesh.group) for k, v in p.items()} for p in params]
         with tile_mesh_ctx(dmesh):
             s, c = tiles_loss(apply_stack_local(params, split(x), plan, wire), target)
-        s_all, c_all = _global_sum(dmesh, s, c)
+        s_all, c_all = _global_sum(dmesh, s, c, counts)
         # the value is the global sum's on every rank, bit for bit; the
         # gradient is this rank's own sum's
         return (s_all + (s - s.detach())) / c_all
@@ -1628,6 +1642,7 @@ def make_deferred_grad_step(
     split = _in_split(plan, mesh)
     tiles_loss = _tiles_loss(plan, mesh, loss_local)
     codec = get_codec(plan.wire_codec)
+    counts: dict = {}
 
     def step(params, xs, ts):
         xs = torch.as_tensor(xs, device=mesh.device)
@@ -1668,7 +1683,7 @@ def make_deferred_grad_step(
             cnt = cnt + c
         if dmesh is not None:
             acc = all_reduce_(dmesh.group, acc)
-            loss_sum, cnt = _global_sum(dmesh, loss_sum, cnt)
+            loss_sum, cnt = _global_sum(dmesh, loss_sum, cnt, counts)
         it = iter(a / cnt for a in acc)
         grads = [{k: next(it) for k in p} for p in live]
         return loss_sum / cnt, grads
@@ -1679,6 +1694,7 @@ def make_deferred_grad_step(
 def _pipeline_grad_step(plan: StackPlan, mesh: TileMesh, loss_local, microbatches: int):
     run = _make_pipeline_local(plan, mesh, loss_local, microbatches=microbatches)
     dmesh = run.dmesh
+    counts: dict = {}
 
     def pstep(params, xs, ts):
         xs = torch.as_tensor(xs, device=mesh.device)
@@ -1699,7 +1715,7 @@ def _pipeline_grad_step(plan: StackPlan, mesh: TileMesh, loss_local, microbatche
         s, c = st["s"].detach(), st["c"]
         if dmesh is not None:
             g = all_reduce_(dmesh.group, g)
-            s, c = _global_sum(dmesh, s, c)
+            s, c = _global_sum(dmesh, s, c, counts)
         it = iter(gi / c for gi in g)
         return s / c, [{k: next(it) for k in p} for p in live]
 

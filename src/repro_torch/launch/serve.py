@@ -25,10 +25,26 @@ a synthetic image workload through ``runtime.driver.run_serving`` and prints
 latency percentiles, throughput, bucket census, cache counters and the
 captured graphs' replays.  The
 deadline policy plans with the cost model's step bound on ``--hw``.
+
+``--cnn --dist`` (under torchrun; ``--dist-backend nccl|gloo``) serves on
+ranks, one block of the grid a process: ``parallel/dist.py:init_tile_group``
+joins the group, the arch is built on ``launch/mesh.py:make_dist_tile_mesh``,
+rank 0 draws the params and freezes the BN statistics and broadcasts both,
+every rank warms the ladder (under nccl each bucket captured with the
+forward's collectives inside its graph; gloo serves the eager forward), and
+rank 0 owns the queue - it submits the requests and runs ``run_serving``,
+broadcasting each dispatch - while the others follow
+(``CNNServeEngine.follow``).  Only rank 0 prints, the plan line ending
+``dist=W ranks=RrxRc backend=... captured=True|False``::
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve --cnn \
+        --size 416 --depth 16 --dist
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import time
 
@@ -65,15 +81,38 @@ def _lm_main(args) -> int:
 
 
 def _cnn_main(args) -> int:
+    if not args.dist:
+        return _serve_cnn(args, None)
+    from repro_torch.parallel.dist import init_tile_group
+
+    group = init_tile_group(args.device, args.dist_backend)
+    quiet = contextlib.redirect_stdout(io.StringIO()) if group.rank else contextlib.nullcontext()
+    try:
+        with quiet:
+            return _serve_cnn(args, group)
+    finally:
+        import torch.distributed
+
+        torch.distributed.destroy_process_group()
+
+
+def _serve_cnn(args, group) -> int:
+    """The tiled-CNN serve run: on the virtual mesh (``group`` None) or on
+    this rank's block of the grid, rank 0 owning the queue."""
     from repro_torch.models.yolo import make_yolo_tiled_arch
     from repro_torch.runtime.driver import run_serving
 
     n, m = (int(v) for v in args.grid.split("x"))
+    mesh = None
+    if group is not None:
+        from repro_torch.launch.mesh import make_dist_tile_mesh
+
+        mesh = make_dist_tile_mesh(n, m, group.device, group)
     arch = make_yolo_tiled_arch(
         input_hw=(args.size, args.size), depth=args.depth, n=n, m=m,
         groups="auto" if args.groups == "auto" else None,
         backend=args.backend, schedule=args.schedule, hw=args.hw, batch=max(args.buckets),
-        crossover=args.crossover, wire_codec=args.wire_codec, device=args.device,
+        crossover=args.crossover, wire_codec=args.wire_codec, device=args.device, mesh=mesh,
     )
     params = arch.init(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -88,7 +127,9 @@ def _cnn_main(args) -> int:
     )
     print(f"plan: schedule={arch.plan.schedule} crossover={arch.plan.crossover} "
           f"modes={[g.mode for g in arch.plan.groups]}"
-          + (f" wire_codec={arch.plan.wire_codec}" if arch.plan.wire_codec != "none" else ""))
+          + (f" wire_codec={arch.plan.wire_codec}" if arch.plan.wire_codec != "none" else "")
+          + (f" dist={group.world} ranks={mesh.ranks[0]}x{mesh.ranks[1]} "
+             f"backend={group.backend} captured={engine.capture}" if group is not None else ""))
     print(f"plan: groups={[(g.start, g.end) for g in arch.plan.groups]} "
           f"modeled step bound {engine.step_bound * 1e3:.3f} ms (hw={args.hw or 'pi3-core'})")
     t0 = time.monotonic()
@@ -99,7 +140,11 @@ def _cnn_main(args) -> int:
     if engine.capture:
         print(f"warmup: captured buckets {cap['buckets']}, graph pool bytes {cap['pool_bytes']}")
     else:
-        print(f"warmup: eager step on {arch.mesh.device} (no capture)")
+        print(f"warmup: eager step on {arch.mesh.device} (no capture"
+              + (f"; {cap['mode']})" if group is not None else ")"))
+    if not engine.leader:
+        engine.follow()
+        return 0
 
     per_tick = max(1, args.requests // max(1, args.ticks))
 
@@ -109,7 +154,10 @@ def _cnn_main(args) -> int:
                 eng.submit(rng.standard_normal((h, w, cin)).astype(np.float32))
 
     t0 = time.monotonic()
-    report = run_serving(engine, ticks=args.ticks, on_tick=on_tick)
+    try:
+        report = run_serving(engine, ticks=args.ticks, on_tick=on_tick)
+    finally:
+        engine.finish()
     dt = time.monotonic() - t0
     print(f"served {report.served} requests in {dt:.2f}s "
           f"over {report.dispatches} dispatches on {arch.mesh.device}")
@@ -155,7 +203,16 @@ def main(argv=None) -> int:
     ap.add_argument("--buckets", type=int, nargs="+", default=[1, 2, 4, 8])
     ap.add_argument("--budget-ms", type=float, default=1000.0)
     ap.add_argument("--ticks", type=int, default=16)
+    ap.add_argument("--dist", action="store_true",
+                    help="--cnn: one block of the tile grid per process over torch.distributed, "
+                         "rank 0 owning the queue; start under torchrun (see the module docstring)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="--dist: nccl (default on cuda; one rank a card; buckets captured) or "
+                         "gloo (default on cpu; on cuda only when named; the eager forward)")
     args = ap.parse_args(argv)
+    if args.dist and not args.cnn:
+        raise ValueError("--dist serves the tiled CNN (--cnn); the LM's axes on process groups "
+                         "are ROADMAP A.20.5")
     if args.crossover is not None and args.crossover != "auto":
         args.crossover = int(args.crossover)
     return _cnn_main(args) if args.cnn else _lm_main(args)

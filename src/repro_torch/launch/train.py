@@ -58,8 +58,11 @@ or add replans onto the survivors, ranks 0 .. W'-1 where W' is the most
 ranks that split the new grid into equal blocks (``dist.survivors``: a
 2x2 grid that loses the Jetson runs 1x3 on ranks 0-2); the others idle
 until a replan brings them back or the run ends, and the replan line ends
-``dist=W' idle=[...]``.  A captured step on ranks is ROADMAP A.20.3, the
-LM on ranks A.20.5::
+``dist=W' idle=[...]``.  Under nccl each rank replays its step as a CUDA
+graph with the collectives inside it (``jit_step``; the plan line ends
+``captured=True``), and a replan captures the survivors' new step anew;
+gloo runs the step eagerly (``captured=False (gloo)``).  The LM on ranks
+is ROADMAP A.20.5::
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
         --arch yolov2-tiled --grid 2 --input-hw 416 --depth 16 --groups 4 \
@@ -80,8 +83,9 @@ LM on ranks A.20.5::
 Where the reference jits the step (the tiled step, the step after a
 replan, the LM step), the port captures it as a CUDA graph on the card
 (``jit_step``: two eager warm steps, then one capture replayed every step;
-``train/trainer.py:capture_train_step``) and runs it eagerly on the CPU; a
-run ends with ``step: N CUDA graphs captured`` (or ``step: eager on cpu``).
+``train/trainer.py:capture_train_step``), on ranks under nccl too, and runs
+it eagerly on the CPU and under gloo; a run ends with ``step: N CUDA
+graphs captured`` (or ``step: eager on cpu``).
 
 LM mode (every LM id of the reference): the reduced config unless
 ``--full``, ``--seq`` x ``--batch`` tokens a step from
@@ -105,15 +109,28 @@ import torch
 TILED_ARCH = "yolov2-tiled"
 
 
-def jit_step(train_step, device):
+def jit_step(train_step, device, group=None):
     """Where the reference jits the step: captured as a CUDA graph on the
-    card (``train/trainer.py:capture_train_step``), the eager step on the
-    CPU."""
+    card (``train/trainer.py:capture_train_step``), alone or on nccl ranks
+    (``group``) with the collectives inside the graph; the eager step on the
+    CPU and under gloo, whose collectives run on the host
+    (``parallel/dist.py:capturable``)."""
+    from repro_torch.parallel.dist import capturable
     from repro_torch.train.trainer import capture_train_step
 
-    if torch.device(device).type == "cuda":
-        return capture_train_step(train_step, device)
+    if capturable(group, device):
+        return capture_train_step(train_step, device, group)
     return train_step
+
+
+def capture_note(device, group) -> str:
+    """The plan line's word on ``jit_step``: ``captured=True``, or
+    ``captured=False`` and why (``(gloo)``, ``(cpu)``)."""
+    from repro_torch.parallel.dist import capturable
+
+    if capturable(group, device):
+        return "captured=True"
+    return "captured=False (cpu)" if torch.device(device).type != "cuda" else "captured=False (gloo)"
 
 
 def _resolve_groups(spec: str, n_layers: int):
@@ -307,7 +324,8 @@ def _train_tiled(args, group) -> int:
           + (f" wire_codec={plan.wire_codec}" if plan.wire_codec != "none" else "")
           + f" optimizer={args.optimizer} device={arch.mesh.device}"
           + (f" dist={group.world} ranks={mesh.ranks[0]}x{mesh.ranks[1]} "
-             f"backend={group.backend} captured=False" if group is not None else ""))
+             f"backend={group.backend} {capture_note(arch.mesh.device, group)}"
+             if group is not None else ""))
     print(f"partition: rows={plan.partition.row_bounds} cols={plan.partition.col_bounds} "
           f"uniform={plan.is_uniform}" + (f" cluster={args.cluster}" if args.cluster else ""))
     pcfg = ParallelConfig(grad_accum=args.grad_accum)
@@ -319,9 +337,8 @@ def _train_tiled(args, group) -> int:
     init_state, train_step = make_train_step(arch, pcfg, tcfg)
     make_batch = make_batch_fn(args.batch, args.input_hw, arch.target_shape(args.batch),
                                args.seed, arch.mesh.device)
-    replan = make_replan(arch, cluster, args.hw_profile, args.batch, pcfg, tcfg, group)
-    # a collective captured in a CUDA graph is ROADMAP A.20.3: eager on ranks
-    step = jit_step(train_step, arch.mesh.device) if group is None else train_step
+    step = jit_step(train_step, arch.mesh.device, group)
+    replan = make_replan(arch, cluster, args.hw_profile, args.batch, pcfg, tcfg, group, step)
     report = run_training(
         init_state=init_state,
         train_step=step,
@@ -339,15 +356,17 @@ def _train_tiled(args, group) -> int:
     return 0
 
 
-def make_replan(arch, cluster, hw_profile: str, batch: int, pcfg, tcfg, group=None):
+def make_replan(arch, cluster, hw_profile: str, batch: int, pcfg, tcfg, group=None, step=None):
     """The elastic replan callback of a tiled run: on a ``ClusterChange``
     drop or add the device on the live cluster (a homogeneous grid becomes
     ``hw_profile`` x n*m first), ``replan_stack`` the live plan onto it at
     ``batch``, build the arch on a new virtual mesh on the same device and
-    its train step (captured anew on the card: ``jit_step``; the old graph
-    goes with the old step's last reference), print the ``replan (...)``
-    line, and return ``(step, plan manifest)``.  ``replan.live`` holds the
-    live cluster and plan, and the steps the replans built.  A drop's device is a profile name or, all digits, a
+    its train step (captured anew on the card: ``jit_step``; the step it
+    replaces - ``step``, the run's first, or the last replan's - releases
+    its graph, as the reference's old executable goes with its last
+    reference), print the ``replan (...)`` line, and return ``(step, plan
+    manifest)``.  ``replan.live`` holds the live cluster and plan, and the
+    steps the replans built.  A drop's device is a profile name or, all digits, a
     flat row-major grid index; a replan whose data tail the microbatch does
     not divide over the new tile count is planned all-spatial instead (both
     are ROADMAP C.7: the reference's launcher raises on either).
@@ -355,9 +374,10 @@ def make_replan(arch, cluster, hw_profile: str, batch: int, pcfg, tcfg, group=No
     On ranks (``group``, a ``parallel/dist.py:TileGroup``; every launched
     rank calls the callback alike) the new plan runs on the survivors:
     ``group`` is regrouped onto ranks 0 .. W'-1 (``dist.survivors``), the
-    arch is built on ``make_dist_tile_mesh`` over them, its step stays
-    eager (ROADMAP A.20.3), the line ends ``dist=W' idle=[...]``, and an
-    idle rank gets ``(None, plan manifest)``."""
+    arch is built on ``make_dist_tile_mesh`` over them, its step is captured
+    under nccl on the survivors' regrouped communicators and eager under
+    gloo, the line ends ``dist=W' idle=[...]``, and an idle rank gets
+    ``(None, plan manifest)`` and keeps no graph."""
     from repro_torch.core.fusion import plan_manifest, replan_stack
     from repro_torch.core.grouping import add_device, drop_device, parse_cluster_spec
     from repro_torch.launch.mesh import make_dist_tile_mesh, make_tile_mesh
@@ -365,10 +385,12 @@ def make_replan(arch, cluster, hw_profile: str, batch: int, pcfg, tcfg, group=No
     from repro_torch.parallel import dist as tdist
     from repro_torch.train.trainer import make_train_step
 
-    live = {"cluster": cluster, "plan": arch.plan, "steps": []}
+    live = {"cluster": cluster, "plan": arch.plan, "steps": [], "step": step}
     accum = max(pcfg.grad_accum, 1)
 
     def replan(ev):
+        if hasattr(live["step"], "release"):
+            live["step"].release()
         plan = live["plan"]
         cl = live["cluster"]
         if cl is None:
@@ -398,12 +420,13 @@ def make_replan(arch, cluster, hw_profile: str, batch: int, pcfg, tcfg, group=No
               f"modes={[(g.start, g.end, g.mode) for g in new_plan.groups]}"
               + (f" stages={new_plan.stages}" if new_plan.stages else "") + dist_note)
         if mesh is None:
+            live["step"] = None
             return None, plan_manifest(new_plan, cl)
         new_arch = TiledCNNArch(plan=new_plan, mesh=mesh, loss_local=arch.loss_local)
         _, new_step = make_train_step(new_arch, pcfg, tcfg)
-        live["steps"].append(new_step if group is not None
-                             else jit_step(new_step, arch.mesh.device))
-        return live["steps"][-1], plan_manifest(new_plan, cl)
+        live["step"] = jit_step(new_step, arch.mesh.device, group)
+        live["steps"].append(live["step"])
+        return live["step"], plan_manifest(new_plan, cl)
 
     replan.live = live
     return replan

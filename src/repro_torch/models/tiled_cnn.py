@@ -60,9 +60,23 @@ class TiledCNNArch:
 
     def serve_params(self, params, calibration):
         """Params + frozen BN statistics from a calibration batch (numpy or
-        tensor, (B, H, W, C))."""
-        x = torch.as_tensor(calibration, device=self.mesh.device)
-        return freeze_bn_stats(params, self.plan.layers, x)
+        tensor, (B, H, W, C)).  On ranks rank 0 computes the statistics and
+        broadcasts them (role ``init``), as it does the params, so that
+        every rank serves the same ones."""
+        if not isinstance(self.mesh, DistTileMesh):
+            x = torch.as_tensor(calibration, device=self.mesh.device)
+            return freeze_bn_stats(params, self.plan.layers, x)
+        group = self.mesh.group
+        if group.rank == 0:
+            x = torch.as_tensor(calibration, device=self.mesh.device)
+            out = freeze_bn_stats(params, self.plan.layers, x)
+        else:
+            out = [dict(p, bn_mean=p["w"].new_empty(p["w"].shape[-1]),
+                        bn_var=p["w"].new_empty(p["w"].shape[-1]))
+                   if layer.batch_norm and not layer.pool else dict(p)
+                   for p, layer in zip(params, self.plan.layers)]
+        broadcast_(group, [p[k] for p in out for k in ("bn_mean", "bn_var") if k in p])
+        return out
 
     def make_serve_engine(self, params, *, calibration=None, **engine_kw):
         """A ``CNNServeEngine`` over this arch's plan and mesh.  Pass

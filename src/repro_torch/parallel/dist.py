@@ -52,6 +52,12 @@ keeps a long run's record the size of one step's.
 ``run_ranks`` spawns the ranks itself on one host with a ``file://`` store
 (no port to race for), for the tests and ``chip_smoke.py``.
 
+A step captured as a CUDA graph runs its collectives inside the graph
+(``capturable``: nccl alone; gloo runs on the host, so its steps stay
+eager).  The record is written by Python, so it counts a graph's
+collectives once, at the capture: ``replay_record`` adds them once more at
+every replay, so that a captured run's record equals the eager run's.
+
 Elastic runs (``runtime/driver.py``): the collectives run over the *active*
 ranks, ranks 0 .. W'-1 of the launched world (``TileGroup.active``, its
 process group ``TileGroup.pg``).  A replan calls ``regroup`` on every
@@ -93,7 +99,9 @@ class Collective(NamedTuple):
     (a permute's strip, a sum's result, a gather's result), the group
     size, and its role: "" within a step; the elastic driver's "agree"
     (before a step), "meeting" (of the world), and the state broadcasts'
-    "init" (the params), "restore" and "return" (a rank back from idle)."""
+    "init" (the params, a serve engine's frozen BN statistics), "restore"
+    and "return" (a rank back from idle); the serve engine's "dispatch"
+    (rank 0's header and batch, ``serve/cnn_engine.py``)."""
 
     kind: str
     nbytes: int
@@ -103,6 +111,7 @@ class Collective(NamedTuple):
 
 MEET_WORDS = 64                 # int32 words of a meeting's message
 AGREE_BYTES = 4                 # the agreement's one int32
+DISPATCH_WORDS = 3              # int32 words of a serve dispatch's header
 
 
 @dataclasses.dataclass(eq=False)
@@ -145,6 +154,56 @@ class TileGroup:
         out = Counter(self.record)
         self.record.clear()
         return out
+
+
+def capturable(group: TileGroup | None, device) -> bool:
+    """Whether a step on ``device`` (over ``group``'s ranks, or on one
+    process where None) can be captured as a CUDA graph: on a card, alone
+    or under nccl.  Gloo moves CPU tensors through the host, which a graph
+    cannot replay, so its steps run eagerly; so does the CPU."""
+    if torch.device(device).type != "cuda":
+        return False
+    return group is None or group.backend == "nccl"
+
+
+def check_capture(group: TileGroup) -> None:
+    """Raise unless ``group``'s collectives can run inside a CUDA graph:
+    nccl, with ``TORCH_NCCL_BLOCKING_WAIT`` unset (a blocking wait spins on
+    the host, which a capture forbids; unset, a work's ``wait`` makes the
+    capturing stream wait on it)."""
+    if group.backend != "nccl":
+        raise ValueError(f"a CUDA graph captures nccl collectives; {group.backend} runs on the "
+                         "host, so its steps run eagerly")
+    if os.environ.get("TORCH_NCCL_BLOCKING_WAIT", "0") not in ("", "0"):
+        raise ValueError("TORCH_NCCL_BLOCKING_WAIT makes a collective's wait block the host, "
+                         "which a CUDA graph's capture forbids: unset it")
+
+
+@contextlib.contextmanager
+def capture_pass(group: TileGroup | None):
+    """Around a CUDA graph's capture: yields an empty Counter that, on exit,
+    holds the collectives the capture's one pass recorded on ``group``
+    (none without a group), and takes them back out of the group's record:
+    that pass ran nothing, and ``replay_record`` adds them at each replay."""
+    taken: Counter = Counter()
+    issued = Counter(group.record) if group is not None else None
+    try:
+        yield taken
+    finally:
+        if group is not None:
+            taken.update(group.record - issued)
+            group.record.clear()
+            group.record.update(issued)
+
+
+def replay_record(record: Counter, captured: Counter, replays: int = 1) -> Counter:
+    """``record`` with ``replays`` replays of a captured graph's collectives
+    added, in place: ``captured`` is what the capture's one pass recorded.
+    A replay issues its collectives with no Python, so this is where the
+    record counts them."""
+    for c, times in captured.items():
+        record[c] += times * replays
+    return record
 
 
 def resolve_backend(device, backend: str | None = None, local_world: int = 1,

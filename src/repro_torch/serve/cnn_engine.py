@@ -16,6 +16,22 @@ from the same ``profile_cost`` model the planner optimizes against
 (``modeled_step_bound``), unless the caller gives one.  A hybrid plan's
 forward leaves its output in batch blocks; ``make_tiled_forward`` puts them
 back in input order, so responses are read by position for every plan.
+
+On ranks (a ``launch/mesh.py:DistTileMesh``) there is one controller, as in
+the reference, whose engine dispatches each bucket over the whole mesh:
+rank 0 owns the queue, the clock and the policy and runs ``step`` as
+above; for each dispatch it broadcasts a header of three int32 words
+(bucket, filled, stop: ``parallel/dist.py:DISPATCH_WORDS``) and then the
+zero-padded batch, into the bucket's static input on every rank (a
+captured bucket's graph reads it there).  The other ranks run ``follow``: each header, then the batch, then
+the same bucket's serve step, until ``finish`` sends a header with stop
+set.  The forward gathers its output on every rank; rank 0 completes the
+requests and the others discard theirs.  Both broadcasts are recorded as
+``collective-broadcast`` of role ``dispatch``.  Under nccl each bucket is
+captured with the forward's collectives inside its graph, every rank
+preparing the buckets in one order (``warmup``); gloo serves the eager
+forward.  Pipeline plans have no single-shot forward and are refused, as
+``make_tiled_forward`` refuses them.
 """
 from __future__ import annotations
 
@@ -31,6 +47,7 @@ from repro_torch.core.fusion import StackPlan, make_tiled_infer, resolve_hw_prof
 from repro_torch.core.grouping import ClusterSpec, profile_cost
 from repro_torch.kernels.conv2d_tiled.kernel import launch_counts
 from repro_torch.launch.mesh import DistTileMesh, TileMesh
+from repro_torch.parallel.dist import broadcast_, capturable
 from repro_torch.serve.exec_cache import CapturedStep, ExecutableCache, plan_cache_key
 
 
@@ -111,7 +128,8 @@ class CNNServeEngine:
         dispatch to model service time.
     capture: serve each bucket from a captured CUDA graph (True) or from
         the eager forward (False); None (default) captures exactly when the
-        mesh is on a CUDA device.  True on a CPU mesh raises.
+        mesh is on a CUDA device and, on ranks, under nccl.  True on a CPU
+        mesh or over gloo raises.
     """
 
     def __init__(
@@ -151,17 +169,17 @@ class CNNServeEngine:
                     f"hybrid plan: buckets {bad} not divisible by the tile "
                     f"count {plan.n}x{plan.m}={t} (data-mode batch split)"
                 )
-        if isinstance(mesh, DistTileMesh):
-            raise ValueError(
-                "the serve engine on ranks (its inference twin captured, buckets dispatched "
-                "on every rank) is ROADMAP A.20.4; make_tiled_infer runs a forward on ranks")
+        self.group = mesh.group if isinstance(mesh, DistTileMesh) else None
         on_cuda = mesh is not None and mesh.device.type == "cuda"
         if capture and not on_cuda:
             raise ValueError(
                 "capture=True needs a CUDA mesh: a CUDA graph has no CPU counterpart "
                 "(the CPU engine runs the eager forward)"
             )
-        self.capture = on_cuda if capture is None else bool(capture)
+        if capture and not capturable(self.group, mesh.device):
+            raise ValueError("capture=True on ranks needs nccl: gloo's collectives run on the "
+                             "host, so its engine serves the eager forward")
+        self.capture = capturable(self.group, mesh.device) if capture is None else bool(capture)
         self.plan = plan
         self.mesh = mesh
         self.params = params
@@ -191,30 +209,32 @@ class CNNServeEngine:
 
     # -- preparation ---------------------------------------------------------
 
+    @property
+    def leader(self) -> bool:
+        """Whether this engine owns the queue: always on one process, rank 0
+        on ranks."""
+        return self.group is None or self.group.rank == 0
+
     def _prepare(self, bucket: int):
         """The serve step for one bucket, ``step(params, x) -> y`` with ``x``
-        on the host or the device: the forward captured at the bucket's
-        shape (``CapturedStep``; B1's launches counted at the capture), or
-        one warm eager run (which builds the CUDA kernels on first use) and
-        then the eager forward, restricted to that batch size."""
+        on the host or the device, and ``step.replay(params)`` on its static
+        input ``step.x``: the forward captured at the bucket's shape
+        (``CapturedStep``; B1's launches counted at the capture), or one warm
+        eager run (which builds the CUDA kernels on first use) and then the
+        eager forward, restricted to that batch size (``_EagerStep``)."""
         shape = (bucket, *self._img_shape)
         device = self.mesh.device
-        self._staging(bucket)
+        if self.leader:
+            self._staging(bucket)
         if self.capture:
             step = CapturedStep(self._infer, self.params, shape, dtype=self._tdtype,
-                                device=device, counters=launch_counts)
+                                device=device, counters=launch_counts, group=self.group)
             self._captured[bucket] = step
             return step
-        infer = self._infer
-        infer(self.params, torch.zeros(shape, dtype=self._tdtype, device=device))
+        step = _EagerStep(self._infer, shape, self._tdtype, device)
+        step.replay(self.params)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-
-        def step(params, xb):
-            if xb.shape[0] != bucket:
-                raise ValueError(f"bucket-{bucket} step got batch {xb.shape[0]}")
-            return infer(params, xb.to(device, non_blocking=True))
-
         return step
 
     def executable(self, bucket: int):
@@ -231,6 +251,7 @@ class CNNServeEngine:
     # -- request lifecycle ---------------------------------------------------
 
     def submit(self, image: np.ndarray, *, deadline: float | None = None) -> ImageRequest:
+        self._check_leader("submit")
         image = np.ascontiguousarray(image, self.dtype)
         if image.shape != self._img_shape:
             raise ValueError(
@@ -258,6 +279,7 @@ class CNNServeEngine:
         """Admit-or-wait decision + at most one dispatched batch: ships when
         the queue fills the largest bucket, the oldest request's headroom is
         below ``slack_factor * step_bound``, or ``force`` (draining)."""
+        self._check_leader("step")
         if not self.queue:
             return []
         now = self.clock()
@@ -273,7 +295,7 @@ class CNNServeEngine:
             xb[i].copy_(torch.from_numpy(r.image))
         xb[take:].zero_()
         slack = min(r.deadline for r in reqs) - (now + self.step_bound)
-        y = self.executable(bucket)(self.params, xb)
+        y = self._dispatch(bucket, take, xb)
         out.copy_(y, non_blocking=True)
         if self.mesh.device.type == "cuda":
             torch.cuda.current_stream(self.mesh.device).synchronize()
@@ -287,6 +309,58 @@ class CNNServeEngine:
         self.finished.extend(reqs)
         self.batch_log.append({"t": now, "bucket": bucket, "filled": take, "slack": slack})
         return reqs
+
+    def _dispatch(self, bucket: int, filled: int, xb: torch.Tensor) -> torch.Tensor:
+        """The bucket's serve step on the staged batch ``xb``; on ranks, rank
+        0's header and batch to every rank first, then the step on the
+        bucket's static input."""
+        step = self.executable(bucket)
+        if self.group is None:
+            return step(self.params, xb)
+        self._header(bucket, filled, 0)
+        step.x.copy_(xb, non_blocking=True)
+        self._share_batch(step.x)
+        return step.replay(self.params)
+
+    def _header(self, bucket: int = 0, filled: int = 0, stop: int = 0) -> tuple[int, int, int]:
+        """Rank 0's dispatch header (bucket, filled, stop) on every rank."""
+        hdr = torch.tensor([bucket, filled, stop], dtype=torch.int32).to(self.mesh.device)
+        broadcast_(self.group, [hdr], role="dispatch")
+        return tuple(hdr.tolist())
+
+    def _share_batch(self, x: torch.Tensor) -> None:
+        """Rank 0's batch into ``x``, the bucket's static input, on every rank."""
+        broadcast_(self.group, [x], role="dispatch")
+
+    def follow(self) -> int:
+        """A rank other than 0: serve rank 0's dispatches - each header, its
+        batch into the bucket's static input, the bucket's serve step (the
+        output, gathered on every rank, is rank 0's to read) - until a
+        header with stop set (``finish``); -> the dispatches served."""
+        if self.group is None or self.leader:
+            raise ValueError("follow() runs on the ranks other than 0: rank 0 owns the queue "
+                             "and dispatches with step()")
+        served = 0
+        while True:
+            bucket, _, stop = self._header()
+            if stop:
+                return served
+            step = self.executable(bucket)
+            self._share_batch(step.x)
+            step.replay(self.params)
+            served += 1
+
+    def finish(self) -> None:
+        """Rank 0: end the other ranks' ``follow`` (a header with stop set);
+        nothing on one process."""
+        self._check_leader("finish")
+        if self.group is not None:
+            self._header(0, 0, 1)
+
+    def _check_leader(self, what: str) -> None:
+        if not self.leader:
+            raise ValueError(f"{what}() is rank 0's, which owns the queue; rank "
+                             f"{self.group.rank} runs follow()")
 
     def _staging(self, bucket: int) -> tuple[torch.Tensor, torch.Tensor]:
         """The bucket's reused input and output buffers on the host, pinned on
@@ -319,11 +393,23 @@ class CNNServeEngine:
 
     # -- accounting ----------------------------------------------------------
 
+    @property
+    def capture_mode(self) -> str:
+        """How the buckets are served: ``"cuda graphs"``, or the eager forward
+        and why (``"eager: cpu"``, ``"eager: gloo"``, ``"eager: capture=False"``)."""
+        if self.capture:
+            return "cuda graphs"
+        if self.mesh.device.type != "cuda":
+            return "eager: cpu"
+        if not capturable(self.group, self.mesh.device):
+            return "eager: gloo"
+        return "eager: capture=False"
+
     def stats(self) -> dict:
         """Latency percentiles, throughput, bucket census, dispatch slack,
         cache statistics and the captured graphs (buckets, replays, pool
-        bytes and B1 launches a graph, by bucket) over everything completed
-        so far."""
+        bytes and B1 launches a graph, by bucket; on ranks also the
+        ``capture_mode``) over everything completed so far."""
         lats = sorted(r.latency for r in self.finished if r.latency is not None)
         census: dict[int, int] = {}
         for b in self.batch_log:
@@ -350,6 +436,8 @@ class CNNServeEngine:
                 "replays": {b: s.replays for b, s in sorted(self._captured.items())},
                 "pool_bytes": {b: s.pool_bytes for b, s in sorted(self._captured.items())},
                 "launches": {b: s.launches for b, s in sorted(self._captured.items())},
+                # on ranks the backend decides too: say how the buckets run
+                **({"mode": self.capture_mode} if self.group is not None else {}),
             },
             "step_bound_s": self.step_bound,
         }
@@ -365,3 +453,22 @@ class CNNServeEngine:
                 }
             )
         return out
+
+
+class _EagerStep:
+    """The eager serve step of one bucket, the uncaptured counterpart of
+    ``CapturedStep``: ``step(params, x) -> y`` with ``x`` on the host or the
+    device, and ``replay(params)`` on the static input ``x`` (where a rank
+    receives a dispatch's batch)."""
+
+    def __init__(self, infer, shape, dtype, device):
+        self._infer, self._device = infer, device
+        self.x = torch.zeros(shape, dtype=dtype, device=device)
+
+    def __call__(self, params, xb: torch.Tensor) -> torch.Tensor:
+        if xb.shape[0] != self.x.shape[0]:
+            raise ValueError(f"bucket-{self.x.shape[0]} step got batch {xb.shape[0]}")
+        return self._infer(params, xb.to(self._device, non_blocking=True))
+
+    def replay(self, params) -> torch.Tensor:
+        return self._infer(params, self.x)

@@ -25,6 +25,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.core.fusion import StackPlan, plan_manifest
 from repro_torch.core.grouping import ClusterSpec
+from repro_torch.parallel.dist import capture_pass, replay_record
 
 
 def plan_cache_key(
@@ -187,13 +188,27 @@ class CapturedStep:
     wrappers keep; ``launches`` holds what they counted during the capture,
     the launches each replay runs again without Python, and ``replays``
     counts the replays.  ``pool_bytes`` is the device memory the graph's
-    pool reserved."""
+    pool reserved.
+
+    On ranks (``group``, nccl: a forward on a ``DistTileMesh``) the graph
+    holds the forward's collectives - the halo exchanges, a crossover's
+    gathers and the output's gather - as ``train/trainer.py:
+    CapturedTrainStep`` holds a step's: the warm runs make every
+    communicator, every rank captures at the same call, the capture runs
+    in thread-local mode, and its pass's record is taken out of the
+    group's record (``collectives``) and added back at every replay.  The
+    static input ``x`` is what a rank receives a dispatch's batch into."""
 
     def __init__(self, fwd: Callable, params: Any, x_shape, *, dtype: torch.dtype,
-                 device: torch.device, counters: Callable[[], dict]):
+                 device: torch.device, counters: Callable[[], dict], group=None):
+        from repro_torch.parallel.dist import check_capture
+
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"CUDA-graph capture needs a CUDA device; got {device}")
+        if group is not None:
+            check_capture(group)
+        self.group = group
         self._binder = ParamBinder(params)
         with torch.cuda.device(device):
             self._x = torch.zeros(tuple(x_shape), dtype=dtype, device=device)
@@ -205,7 +220,8 @@ class CapturedStep:
                     fwd(self._binder.static, self._x)
             stream.wait_stream(side)
             self._graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self._graph):
+            with capture_pass(group) as self.collectives, torch.cuda.graph(
+                    self._graph, capture_error_mode="global" if group is None else "thread_local"):
                 # read on entry, after the context has synchronized, collected
                 # garbage and emptied the allocator's cache: from here the
                 # reserved bytes grow by the graph's pool alone
@@ -222,6 +238,11 @@ class CapturedStep:
         """Calls whose params had to be copied into the static ones."""
         return self._binder.copies
 
+    @property
+    def x(self) -> torch.Tensor:
+        """The static input the graph reads."""
+        return self._x
+
     def __call__(self, params: Any, x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape) != tuple(self._x.shape) or x.dtype != self._x.dtype:
             raise ValueError(
@@ -229,11 +250,13 @@ class CapturedStep:
                 f"{tuple(x.shape)}"
             )
         self._x.copy_(x, non_blocking=True)
-        return self._replay(params)
+        return self.replay(params)
 
-    def _replay(self, params: Any) -> torch.Tensor:
+    def replay(self, params: Any) -> torch.Tensor:
         """Bind ``params`` and replay on whatever the static input holds."""
         self._binder.bind(params)
         self._graph.replay()
         self.replays += 1
+        if self.group is not None:
+            replay_record(self.group.record, self.collectives)
         return self._y.clone()

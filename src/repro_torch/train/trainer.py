@@ -39,6 +39,7 @@ fills), ``globalize_state`` and ``check_state_matches``.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -55,6 +56,7 @@ from repro_torch.optim.optimizers import (
     tree_map,
 )
 from repro_torch.optim.schedules import cosine_schedule
+from repro_torch.parallel.dist import capture_pass, replay_record
 
 
 class TrainState(NamedTuple):
@@ -297,10 +299,24 @@ class CapturedTrainStep:
     ``launches`` holds the kernel launches counted during the capture (what
     each replay runs again without Python; ``serve/exec_cache.py:
     kernel_launch_counts``), ``replays`` the replays, ``pool_bytes`` the
-    device memory the graph's pool reserved, ``captured`` whether the graph
-    exists yet."""
+    device memory the graph's pool reserved, ``captured`` whether a graph
+    was captured (``release`` drops it: a replan's old step).
 
-    def __init__(self, train_step, device):
+    On ranks (``group``, a ``parallel/dist.py:TileGroup`` under nccl) the
+    graph holds the step's collectives: its all-reduces, gathers and
+    batched P2P run inside it, and ``work.wait()`` makes the capturing
+    stream wait on them.  Every communicator they use exists by then: the
+    warm steps made the subgroups and ran every collective once, and every
+    rank captures at the same call.  The capture runs in thread-local mode,
+    so that the backend's watchdog thread may query its events meanwhile.
+    The group's record counts what Python issued, so the capture's one pass
+    is taken out of it (``collectives``) and every replay adds it back
+    (``dist.replay_record``).  Gloo moves its tensors through the host and
+    is refused (its steps run eagerly: ``launch/train.py:jit_step``)."""
+
+    def __init__(self, train_step, device, group=None):
+        from repro_torch.parallel.dist import check_capture
+
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(
@@ -309,15 +325,22 @@ class CapturedTrainStep:
         if getattr(train_step, "observed", False):
             raise ValueError("a step with an on_grads observer runs eagerly: a graph would run "
                              "the observer once, at its capture")
+        if group is not None:
+            check_capture(group)
         self._step = train_step
         self.device = _indexed(device)
+        self.group = group
         self._graph = None
+        self.captured = False
         self.warm_steps = self.replays = self.pool_bytes = 0
         self.launches: dict = {}
+        self.collectives: Counter = Counter()
 
     def __call__(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         from repro_torch.serve.exec_cache import WARM_RUNS
 
+        if self.captured and self._graph is None:
+            raise RuntimeError("this captured step was released (a replan replaced it)")
         if self._graph is None and self.warm_steps < WARM_RUNS:
             self.warm_steps += 1
             return self._step(state, batch)
@@ -328,6 +351,8 @@ class CapturedTrainStep:
         self._load(batch)
         self._graph.replay()
         self.replays += 1
+        if self.group is not None:
+            replay_record(self.group.record, self.collectives)
         return self._state, {k: v.clone() for k, v in self._metrics.items()}
 
     def _capture(self, state, batch) -> None:
@@ -338,7 +363,8 @@ class CapturedTrainStep:
         self._batch = {k: torch.empty(tuple(v.shape), dtype=v.dtype, device=self.device)
                        for k, v in batch.items()}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with capture_pass(self.group) as self.collectives, torch.cuda.graph(
+                graph, capture_error_mode="global" if self.group is None else "thread_local"):
             # read on entry, after the context has synchronized, collected
             # garbage and emptied the allocator's cache
             reserved = torch.cuda.memory_reserved(self.device)
@@ -354,11 +380,12 @@ class CapturedTrainStep:
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.launches = {k: v - before.get(k, 0) for k, v in after.items()
                          if v != before.get(k, 0)}
-        self._graph = graph
+        self._graph, self.captured = graph, True
 
-    @property
-    def captured(self) -> bool:
-        return self._graph is not None
+    def release(self) -> None:
+        """Drop the graph, its pool and the static batch (a replan's old
+        step, never called again); the adopted state stays the caller's."""
+        self._graph = self._binder = self._state = self._batch = self._metrics = None
 
     def _load(self, batch: dict) -> None:
         if set(batch) != set(self._batch):
@@ -371,12 +398,13 @@ class CapturedTrainStep:
             want.copy_(torch.as_tensor(v), non_blocking=True)
 
 
-def capture_train_step(train_step, device) -> CapturedTrainStep:
+def capture_train_step(train_step, device, group=None) -> CapturedTrainStep:
     """``train_step`` (``make_train_step``'s, without an observer) as a
-    ``CapturedTrainStep`` on the CUDA ``device``; any other device raises
+    ``CapturedTrainStep`` on the CUDA ``device``, its collectives over
+    ``group``'s nccl ranks where given; any other device raises
     ``ValueError`` (a CUDA graph has no CPU counterpart: the CPU runs the
-    eager step)."""
-    return CapturedTrainStep(train_step, device)
+    eager step), and so does a gloo group."""
+    return CapturedTrainStep(train_step, device, group)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,8 @@ one spawn of ranks per scenario (``run_ranks``):
   microbatch loop's trip count, and ``analysis/collectives.py``'s model;
 - the launcher under torchrun with 2 gloo ranks gives the plain
   launcher's loss; ``--ckpt-dir`` and ``--fault-schedule`` run under
-  ``--dist``; every refusal of the slice names its ROADMAP item.
+  ``--dist``; every refusal of the slice names its ROADMAP item; the serve
+  engine runs on one rank (many: ``tests/test_torch_dist_serve.py``).
 """
 import argparse
 import contextlib
@@ -533,14 +534,44 @@ def test_plans_outside_the_slice_name_their_item(name, outside_runs):
         assert out[name] <= FP64_BAR, (name, out[name])
 
 
-def test_serve_engine_on_ranks_names_its_item():
-    """The serve engine (its inference twin, captured on a card) on ranks
-    is ROADMAP A.20.4; ``make_tiled_infer`` itself runs there."""
-    from repro_torch.serve.cnn_engine import CNNServeEngine
+def test_serve_engine_on_ranks_names_its_item(tmp_path):
+    """The serve engine on ranks, once refused as ROADMAP A.20.4, runs: on
+    one gloo rank of this process the engine on a ``DistTileMesh`` serves
+    what the virtual mesh's engine serves, bit for bit, rank 0 owning the
+    queue (``follow`` is the other ranks'); gloo serves the eager forward,
+    and ``capture=True`` there raises.  Many ranks:
+    ``tests/test_torch_dist_serve.py``."""
+    import torch.distributed as dist
 
-    group = TileGroup(0, 1, "gloo", torch.device("cpu"))
-    mesh = make_dist_tile_mesh(2, 2, "cpu", group)
+    from repro_torch.parallel import dist as tdist
+    from repro_torch.serve.cnn_engine import CNNServeEngine, ManualClock
+
     plan = _plan().inference_twin()
-    tfu.make_tiled_infer(plan, mesh)
-    with pytest.raises(ValueError, match="A.20.4"):
-        CNNServeEngine(plan, mesh, None, buckets=(1,), step_bound=1.0)
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((5, *HW, 3)).astype(np.float32)
+    params = tsp.freeze_bn_stats(tsp.init_stack_params(torch.Generator().manual_seed(0), LAYERS),
+                                 LAYERS, torch.from_numpy(images[:4]))
+    group = tdist._init(0, 1, 0, 1, "cpu", "gloo", f"file://{tmp_path / 'store'}", 60)
+    try:
+        served = {}
+        for mesh in (make_dist_tile_mesh(2, 2, "cpu", group), make_tile_mesh(2, 2, "cpu")):
+            engine = CNNServeEngine(plan, mesh, params, buckets=(1, 4), step_bound=1.0,
+                                    clock=ManualClock())
+            engine.warmup()
+            for im in images:
+                engine.submit(im)
+            engine.drain()
+            engine.finish()
+            served[type(mesh).__name__] = (
+                np.stack([r.result for r in engine.finished]),
+                [(b["bucket"], b["filled"]) for b in engine.batch_log], engine)
+        (got, log, engine), (want, vlog, _) = served["DistTileMesh"], served["TileMesh"]
+        assert np.array_equal(got, want) and log == vlog == [(4, 4), (1, 1)]
+        assert engine.leader and engine.stats()["capture"]["mode"] == "eager: cpu"
+        assert "mode" not in served["TileMesh"][2].stats()["capture"]
+        with pytest.raises(ValueError, match="rank 0 owns the queue"):
+            engine.follow()
+        with pytest.raises(ValueError, match="capture=True needs a CUDA mesh"):
+            CNNServeEngine(plan, engine.mesh, params, buckets=(1,), step_bound=1.0, capture=True)
+    finally:
+        dist.destroy_process_group()
